@@ -1,10 +1,11 @@
 """avex_tpu_torch: the PyTorch/CUDA port of avex-tpu, for one NVIDIA H100.
 
 A second package beside ``avex_tpu`` (the JAX reference, which it never
-imports). This slice covers BEATs embedding extraction: the registry,
-``load_model``, layer-wise ``extract_embeddings``, and the gated-bias
-attention kernels in CUDA C++ (``avex_tpu_torch.ops.attention_kernels``).
-Models run on ``cuda`` unless built with ``device="cpu"``.
+imports). It covers BEATs, EAT and AVES embedding extraction: the registry,
+``load_model``, layer-wise ``extract_embeddings``, and the attention kernels
+in CUDA C++ (``avex_tpu_torch.ops.attention_kernels``: gated-bias for
+BEATs, bias-free for EAT and AVES). Models run on ``cuda`` unless built with
+``device="cpu"``.
 """
 
 from avex_tpu_torch.configs import AudioConfig, ModelSpec

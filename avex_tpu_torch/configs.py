@@ -1,8 +1,8 @@
 """Model and audio configuration of the port, as dataclasses.
 
 Counterparts of ``avex_tpu.configs.ModelSpec`` and ``AudioConfig`` with the
-fields that the BEATs path reads. Unknown fields raise ``TypeError`` as the
-dataclass constructor does.
+fields that the BEATs, EAT and AVES paths read. Unknown fields raise
+``TypeError`` as the dataclass constructor does.
 """
 
 from __future__ import annotations
@@ -59,6 +59,9 @@ class ModelSpec:
     pretrained: bool = True
     device: str = "cuda"
     audio_config: Optional[Union[AudioConfig, Dict[str, Any]]] = None
+    # EAT
+    eat_norm_mean: Optional[float] = None
+    eat_norm_std: Optional[float] = None
     # BEATs
     use_naturelm: Optional[bool] = None
     fine_tuned: Optional[bool] = None

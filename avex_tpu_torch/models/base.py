@@ -14,6 +14,7 @@ Placement is explicit: a model lives on ``cuda`` unless it was built with
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -21,6 +22,8 @@ import torch
 
 from avex_tpu_torch.configs import AudioConfig
 from avex_tpu_torch.ops.frontend import AudioProcessor
+
+logger = logging.getLogger(__name__)
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
 
@@ -273,3 +276,23 @@ class ModelBase:
     def load_state_dict(self, state: Dict[str, np.ndarray], strict: bool = False) -> None:
         """Install converted reference-checkpoint weights; see subclasses."""
         raise NotImplementedError
+
+    def load_port_state_dict(self, state: Dict[str, np.ndarray], strict: bool = False) -> None:
+        """Load a state dict already in the port's key layout (e.g. from a
+        model module's ``params_from_jax``). Entries of unknown name or shape
+        are skipped with a warning, or raise when ``strict``."""
+        own = self.module.state_dict()
+        skipped = [
+            k for k, v in state.items() if k not in own or tuple(own[k].shape) != tuple(np.shape(v))
+        ]
+        if skipped:
+            message = f"Skipped {len(skipped)} checkpoint entries: {skipped[:8]}..."
+            if strict:
+                raise ValueError(message)
+            logger.warning(message)
+        tensors = {
+            k: torch.tensor(np.asarray(v), dtype=own[k].dtype)
+            for k, v in state.items()
+            if k not in skipped
+        }
+        self.module.load_state_dict(tensors, strict=False)

@@ -34,7 +34,6 @@ carries a JAX ``variables["params"]`` tree (as numpy) across.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import math
@@ -47,6 +46,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from avex_tpu_torch.models.base import ModelBase
+from avex_tpu_torch.models.common import (
+    build_module,
+    config_from_dict,
+    conv_positions,
+    dense,
+    fold_weight_norm,
+    gelu,
+    layer_norm,
+    torch_dtype,
+)
 from avex_tpu_torch.ops.attention import dot_product_attention, grad_multiply, relative_position_bucket
 from avex_tpu_torch.ops.attention_kernels import (
     fused_qkv_compatible,
@@ -54,7 +63,6 @@ from avex_tpu_torch.ops.attention_kernels import (
     gated_bias_attention,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, beats_fbank
-from avex_tpu_torch.ops._precision import full_fp32
 
 logger = logging.getLogger(__name__)
 
@@ -131,11 +139,7 @@ class BEATsConfig:
     @classmethod
     def from_dict(cls, values: Optional[Mapping[str, Any]] = None) -> "BEATsConfig":
         """Build from an ``init_config`` dict; unknown keys go to :attr:`extra`."""
-        names = {f.name for f in dataclasses.fields(cls)} - {"extra"}
-        values = dict(values or {})
-        known = {k: v for k, v in values.items() if k in names}
-        extra = {k: v for k, v in values.items() if k not in names}
-        return cls(**known, extra=extra)
+        return config_from_dict(cls, values)
 
     def check_supported(self) -> None:
         """Raise for the JAX package's options this port does not have yet."""
@@ -156,21 +160,6 @@ def downsample_padding_mask(padding_mask: torch.Tensor, target_len: int) -> torc
     if extra:
         padding_mask = padding_mask[:, :-extra]
     return padding_mask.reshape(bsz, target_len, -1).all(dim=-1)
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x)  # exact erf form, as torch nn.GELU and the reference
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
-
-
-def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=...)``: fp32 statistics, output in ``dtype``."""
-    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias, layer.eps).to(dtype)
 
 
 class _GatedRelPosAttention(nn.Module):
@@ -205,7 +194,7 @@ class _GatedRelPosAttention(nn.Module):
     def _gate(self, q_heads: torch.Tensor, layout: str) -> torch.Tensor:
         """GRU gate ``[B, H, T]`` (fp32) from q in ``[B, H, T, dh]`` ("split")
         or ``[B, T, H, dh]`` ("fused") layout."""
-        gates = _dense(self.grep_linear, q_heads, self.dtype)
+        gates = dense(self.grep_linear, q_heads, self.dtype)
         gates = gates.unflatten(-1, (2, 4)).sum(-1).float().sigmoid()
         if layout == "fused":
             gates = gates.transpose(1, 2)  # [B, H, T, 2]
@@ -224,17 +213,17 @@ class _GatedRelPosAttention(nn.Module):
         has_gate = position_bias is not None and self.gru_rel_pos
 
         if self.fused_qkv:
-            qkv = _dense(self.qkv_proj, x, self.dtype)  # [B, T, 3E]
+            qkv = dense(self.qkv_proj, x, self.dtype)  # [B, T, 3E]
             if use_pallas and position_bias is not None and fused_qkv_compatible(e, heads):
                 gate = self._gate(qkv[..., :e].unflatten(-1, (heads, dh)), "fused") if has_gate else None
                 out = fused_qkv_gated_attention(
                     qkv, heads, position_bias[0], gate, key_padding_mask, scale=dh**-0.5
                 )
-                return _dense(self.out_proj, out, self.dtype)
+                return dense(self.out_proj, out, self.dtype)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
         else:
             q, k, v = (
-                _dense(proj, x, self.dtype).view(bsz, seq, heads, dh).permute(0, 2, 1, 3)
+                dense(proj, x, self.dtype).view(bsz, seq, heads, dh).permute(0, 2, 1, 3)
                 for proj in (self.q_proj, self.k_proj, self.v_proj)
             )
 
@@ -257,7 +246,7 @@ class _GatedRelPosAttention(nn.Module):
             logits_dtype = self.dtype if fast else torch.float32
             out = dot_product_attention(q, k, v, bias=bias, scale=dh**-0.5, logits_dtype=logits_dtype)
         out = out.transpose(1, 2).reshape(bsz, seq, e)
-        return _dense(self.out_proj, out, self.dtype)
+        return dense(self.out_proj, out, self.dtype)
 
 
 class _EncoderLayer(nn.Module):
@@ -288,20 +277,20 @@ class _EncoderLayer(nn.Module):
         cfg, dt = self.cfg, self.dtype
         if cfg.layer_norm_first:
             residual = x
-            h = self.self_attn(_layer_norm(self.self_attn_layer_norm, x, dt), position_bias, key_padding_mask)
+            h = self.self_attn(layer_norm(self.self_attn_layer_norm, x, dt), position_bias, key_padding_mask)
             x = residual + h
             residual = x
-            h = _gelu(_dense(self.fc1, _layer_norm(self.final_layer_norm, x, dt), dt))
-            fc2_out = _dense(self.fc2, h, dt)
+            h = gelu(dense(self.fc1, layer_norm(self.final_layer_norm, x, dt), dt))
+            fc2_out = dense(self.fc2, h, dt)
             x = residual + fc2_out
         else:
             h = self.self_attn(x, position_bias, key_padding_mask)
             x = x * self.alpha + h
-            x = _layer_norm(self.self_attn_layer_norm, x, dt)
+            x = layer_norm(self.self_attn_layer_norm, x, dt)
             residual = x
-            fc2_out = _dense(self.fc2, _gelu(_dense(self.fc1, x, dt)), dt)
+            fc2_out = dense(self.fc2, gelu(dense(self.fc1, x, dt)), dt)
             x = residual * self.alpha + fc2_out
-            x = _layer_norm(self.final_layer_norm, x, dt)
+            x = layer_norm(self.final_layer_norm, x, dt)
         return x, fc2_out
 
 
@@ -342,24 +331,10 @@ class _TransformerEncoder(nn.Module):
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[:, :, None], 0.0)
 
-        # Grouped conv positional embedding; an even kernel gives T+1 outputs
-        # and SamePad trims the last one.
-        conv = self.pos_conv
-        # oneDNN's bf16 grouped conv1d gives wrong sums at some CPU shapes
-        # (torch 2.13: 6 input channels per group, K=128); it is not used on CUDA.
-        cpu_bf16 = x.device.type == "cpu" and dt == torch.bfloat16
-        onednn = torch.backends.mkldnn.flags(enabled=False) if cpu_bf16 else contextlib.nullcontext()
-        with full_fp32(), onednn:
-            pos = F.conv1d(
-                x.transpose(1, 2).to(dt), conv.weight.to(dt), conv.bias.to(dt),
-                padding=conv.padding, groups=conv.groups,
-            ).transpose(1, 2)
-        if cfg.conv_pos % 2 == 0:
-            pos = pos[:, :-1, :]
-        x = x + _gelu(pos)
+        x = x + gelu(conv_positions(self.pos_conv, x, dt))
 
         if not cfg.layer_norm_first:
-            x = _layer_norm(self.layer_norm, x, dt)
+            x = layer_norm(self.layer_norm, x, dt)
 
         position_bias = self.position_bias(seq, x.device) if cfg.relative_position_embedding else None
 
@@ -371,7 +346,7 @@ class _TransformerEncoder(nn.Module):
             intermediates[f"encoder.layers.{i}.fc2"] = fc2_out
 
         if cfg.layer_norm_first:
-            x = _layer_norm(self.layer_norm, x, dt)
+            x = layer_norm(self.layer_norm, x, dt)
         return x, intermediates
 
 
@@ -432,11 +407,11 @@ class BEATsBackbone(nn.Module):
         if padding_mask is not None:
             padding_mask = downsample_padding_mask(padding_mask, feats.shape[1])
 
-        x = _layer_norm(self.layer_norm, self._patch_embed(feats), dt)
+        x = layer_norm(self.layer_norm, self._patch_embed(feats), dt)
         if padding_mask is not None:
             padding_mask = downsample_padding_mask(padding_mask, x.shape[1])
         if cfg.embed_dim != cfg.encoder_embed_dim:
-            x = _dense(self.post_extract_proj, x, dt)
+            x = dense(self.post_extract_proj, x, dt)
         intermediates = {"post_extract_proj": x}
 
         x, enc_inter = self.encoder(x, padding_mask=padding_mask)
@@ -444,7 +419,7 @@ class BEATsBackbone(nn.Module):
         aux: Dict[str, Any] = {"intermediates": intermediates, "padding_mask": padding_mask}
 
         if apply_predictor and cfg.finetuned_model:
-            logits = _dense(self.predictor, x, dt)
+            logits = dense(self.predictor, x, dt)
             if padding_mask is not None:
                 logits = logits.masked_fill(padding_mask[:, :, None], 0.0)
                 denom = (~padding_mask).sum(dim=1, keepdim=True).clamp_min(1)
@@ -499,19 +474,12 @@ class BEATsModel(nn.Module):
 
         if self.num_classes is None:
             return features, aux
-        return _dense(self.classifier, pooled, self.dtype), aux
+        return dense(self.classifier, pooled, self.dtype), aux
 
 
 # ---------------------------------------------------------------------------
 # Weight conversion
 # ---------------------------------------------------------------------------
-
-
-def _fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """Fold torch ``weight_norm(dim=2)`` into a plain conv weight:
-    ``w[:, :, k] = g[0, 0, k] * v[:, :, k] / ||v[:, :, k]||``."""
-    norm = np.sqrt(np.sum(np.square(v), axis=(0, 1), keepdims=True))
-    return g * v / norm
 
 
 def _concat_qkv(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -552,7 +520,7 @@ def convert_beats_state_dict(
             g, v = state.pop(f"{para}.original0"), state.pop(f"{para}.original1")
         else:
             g, v = state.pop(f"{prefix}.weight_g"), state.pop(f"{prefix}.weight_v")
-        state[f"{prefix}.weight"] = _fold_weight_norm(g, v)
+        state[f"{prefix}.weight"] = fold_weight_norm(g, v)
 
     heads = cfg.encoder_attention_heads
     out: Dict[str, np.ndarray] = {}
@@ -648,21 +616,6 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def _init_weights(module: nn.Module, seed: int) -> None:
-    """Seeded init in the flax defaults' families: weights N(0, 1/fan_in)
-    (fan_in = all axes but the first), biases 0, norms 1/0, ``grep_a`` 1."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if name.endswith("grep_a") or (p.ndim == 1 and "norm" in name and name.endswith("weight")):
-                p.fill_(1.0)
-            elif p.ndim == 1:
-                p.zero_()
-            else:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
-
-
 class Model(ModelBase):
     """BEATs wrapper registered as ``beats``.
 
@@ -693,16 +646,11 @@ class Model(ModelBase):
         self.fine_tuned = bool(fine_tuned)
         self.num_classes = num_classes if not return_features_only else None
         self._return_features_only = return_features_only
-        if compute_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {compute_dtype!r}")
-        dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-
-        # Built without storage, then given CPU memory and the seeded init once.
-        with torch.device("meta"):
-            module = BEATsModel(cfg, num_classes=self.num_classes, use_naturelm=self.use_naturelm, dtype=dtype)
-        module = module.to_empty(device="cpu")
-        _init_weights(module, seed)
-        self.module = module.to(self.device).eval()
+        dtype = torch_dtype(compute_dtype)
+        self.module = build_module(
+            lambda: BEATsModel(cfg, num_classes=self.num_classes, use_naturelm=self.use_naturelm, dtype=dtype),
+            seed, self.device,
+        )
         if pretrained:
             logger.warning(
                 "BEATs base weights are not fetched by the PyTorch port; keeping the "
@@ -719,23 +667,3 @@ class Model(ModelBase):
         """Load a reference BEATs checkpoint (SSL / fine-tuned / NatureLM naming)."""
         converted = convert_beats_state_dict(state, self.cfg, num_classes=self.num_classes)
         self.load_port_state_dict(converted, strict=strict)
-
-    def load_port_state_dict(self, state: Mapping[str, np.ndarray], strict: bool = False) -> None:
-        """Load a state dict already in the port's key layout (e.g. from
-        :func:`params_from_jax`). Entries of unknown name or shape are skipped
-        with a warning, or raise when ``strict``."""
-        own = self.module.state_dict()
-        skipped = [
-            k for k, v in state.items() if k not in own or tuple(own[k].shape) != tuple(np.shape(v))
-        ]
-        if skipped:
-            message = f"Skipped {len(skipped)} checkpoint entries: {skipped[:8]}..."
-            if strict:
-                raise ValueError(message)
-            logger.warning(message)
-        tensors = {
-            k: torch.tensor(np.asarray(v), dtype=own[k].dtype)
-            for k, v in state.items()
-            if k not in skipped
-        }
-        self.module.load_state_dict(tensors, strict=False)

@@ -1,9 +1,11 @@
 """Model factory of the port: spec → wrapper instance.
 
 Counterpart of ``avex_tpu/models/factory.py``: looks up the architecture
-class by ``spec.name``, forwards the spec's model fields, and filters the
-kwargs against the class's ``__init__`` signature so each architecture only
-receives what it understands.
+class by ``spec.name``, forwards the spec's model fields, expands an
+``init_config`` dict into constructor arguments for a class that takes its
+architecture as direct arguments (EAT's ``depth``, AVES's ``aves_cfg``), and
+filters the kwargs against the class's ``__init__`` signature so each
+architecture only receives what it understands.
 """
 
 from __future__ import annotations
@@ -18,7 +20,14 @@ from avex_tpu_torch.models.registry import get_model_class, get_model_spec
 logger = logging.getLogger(__name__)
 
 #: ModelSpec fields forwarded to model constructors.
-_SPEC_FORWARD_FIELDS = ("use_naturelm", "fine_tuned", "init_config", "compute_dtype")
+_SPEC_FORWARD_FIELDS = (
+    "eat_norm_mean",
+    "eat_norm_std",
+    "use_naturelm",
+    "fine_tuned",
+    "init_config",
+    "compute_dtype",
+)
 
 
 def build_model_from_spec(
@@ -43,6 +52,11 @@ def build_model_from_spec(
     kwargs.update(overrides)
 
     signature = inspect.signature(cls.__init__)
+    # A class without an ``init_config`` parameter takes its architecture
+    # knobs as direct constructor arguments; expand the dict for it.
+    if "init_config" not in signature.parameters and isinstance(kwargs.get("init_config"), dict):
+        for key, value in kwargs.pop("init_config").items():
+            kwargs.setdefault(key, value)
     accepts_var_kw = any(
         p.kind is inspect.Parameter.VAR_KEYWORD for p in signature.parameters.values()
     )

@@ -25,6 +25,8 @@ _MODEL_CLASSES: Dict[str, Type] = {}
 #: architecture name → module that defines its ``Model`` class (lazy import).
 _ARCH_MODULES: Dict[str, str] = {
     "beats": "avex_tpu_torch.models.beats",
+    "eat_hf": "avex_tpu_torch.models.eat",
+    "aves_bio": "avex_tpu_torch.models.aves",
 }
 
 

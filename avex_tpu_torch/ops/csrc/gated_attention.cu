@@ -1,11 +1,14 @@
-// Gated relative-position-bias attention for Hopper (sm_90a), plain C ABI.
+// Attention for Hopper (sm_90a), plain C ABI, in two compile-time variants:
 //
-//   out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v
+//   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v
+//   bias-free: out = softmax(q·kᵀ·scale + pad) · v
 //
-// Replaces two Pallas TPU kernels of the JAX package, which compute the same
-// function in two layouts:
+// Replaces four Pallas TPU kernels of the JAX package. The gated variant:
 //   - _attention_kernel        avex_tpu/ops/pallas_attention.py:126  (split q/k/v [B,H,T,D])
 //   - _fused_qkv_gated_kernel  avex_tpu/ops/pallas_attention.py:389  (column views of [B,T,3E])
+// The bias-free variant, which never reads a bias or a gate:
+//   - _plain_attention_kernel  avex_tpu/ops/pallas_attention.py:161  (split q/k/v [B,H,T,D])
+//   - _fused_qkv_kernel        avex_tpu/ops/pallas_attention.py:344  (column views of [B,T,3E])
 // Both layouts are only different strides here: every operand is a base
 // pointer plus (batch, head, token) strides, with the head dimension
 // contiguous.
@@ -14,20 +17,24 @@
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
 // staged in shared memory as fp32; the [BQ, BK] logits live in registers
 // (4 rows x 8 keys per thread), the gate and the shared [H,T,T] bias are
-// applied there, and a padded key gets -inf. The softmax is online, in fp32:
-// a running row max and row sum, with the accumulator rescaled per tile. P is
-// rounded to v's type before the PV product (as the TPU kernel casts its
-// softmax to v.dtype), the product accumulates in fp32, and the output is
-// written in v's type. The TPU kernel held the whole [T,T] tile in VMEM; a
-// Hopper block has at most 227 KB of shared memory, hence the key tiling.
+// applied there (gated variant only), and a padded key gets -inf. The
+// softmax is online, in fp32: a running row max and row sum, with the
+// accumulator rescaled per tile. P is rounded to v's type before the PV
+// product (as the TPU kernels cast their softmax to v.dtype), the product
+// accumulates in fp32, and the output is written in v's type. The TPU kernels
+// held the whole [T,T] tile in VMEM; a Hopper block has at most 227 KB of
+// shared memory, hence the key tiling. A ragged last tile of queries or keys
+// (T = 513: 8 full tiles and 1 row) is masked, not padded.
 //
-// Bound on an H100 at the BEATs shape (B=128, H=12, T=248, D=64, bf16): the
-// call must read q, k, v and write out once, 4 x 48.8 MB, plus the fp32 bias
-// (3.0 MB) and gate (1.5 MB), 199.6 MB in all, about 60 us at 3.35 TB/s; its
-// 24.2 GFLOP take about 24 us at the bf16 tensor-core rate, so the call is
-// bound by bytes. The products here run on the fp32 FMA units, not the tensor
-// cores (a later change: wgmma on TMA-fed K/V tiles), so this simple kernel
-// is held back by its FMA issue rate instead.
+// Bound on an H100 at the BEATs shape (B=128, H=12, T=248, D=64, bf16, gated):
+// the call must read q, k, v and write out once, 4 x 48.8 MB, plus the fp32
+// bias (3.0 MB) and gate (1.5 MB), 199.6 MB in all, about 60 us at 3.35 TB/s;
+// its 24.2 GFLOP take about 24 us at the bf16 tensor-core rate, so the call is
+// bound by bytes. At EAT's shape (B=128, H=12, T=513, D=64, bf16, bias-free)
+// it moves 4 x 100.9 MB, about 120 us, against 103.5 GFLOP, about 105 us:
+// bound by bytes, narrowly. The products here run on the fp32 FMA units, not
+// the tensor cores (a later change: wgmma on TMA-fed K/V tiles), so this
+// simple kernel is held back by its FMA instruction rate instead.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,12 +97,12 @@ __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <typename T>
+template <typename T, bool kGated>
 __global__ void __launch_bounds__(kThreads)
-gated_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const float* __restrict__ bias, const float* __restrict__ gate,
-                       const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale,
-                       Strides s) {
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const float* __restrict__ bias, const float* __restrict__ gate,
+                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale,
+                 Strides s) {
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                            // [D][BQ]  q transposed
   float* k_t = q_t + kHeadDim * kBlockQ;        // [D][BK]  k tile transposed
@@ -113,7 +120,7 @@ gated_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const T* kb = k + b * s.k[0] + h * s.k[1];
   const T* vb = v + b * s.v[0] + h * s.v[1];
   T* ob = out + b * s.o[0] + h * s.o[1];
-  const float* bias_h = bias + h * s.bias[0];
+  const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
 
   // Q tile, transposed into shared memory; rows past the sequence are zero.
@@ -133,7 +140,7 @@ gated_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int qi = q0 + ty * 4 + i;
     row_ok[i] = qi < seq;
     g[i] = 1.f;
-    if (gate && row_ok[i]) g[i] = gate[b * s.gate[0] + h * s.gate[1] + qi * s.gate[2]];
+    if (kGated && gate && row_ok[i]) g[i] = gate[b * s.gate[0] + h * s.gate[1] + qi * s.gate[2]];
   }
 
   float m[4], l[4], acc[4][8];
@@ -183,14 +190,15 @@ gated_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
-      const float* bias_row = bias_h + (long long)qi * s.bias[1];
       float tile_max = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int key = k0 + tx * 8 + j;
         float x = -INFINITY;
         if (row_ok[i] && key < seq) {
-          x = sc[i][j] * scale + g[i] * __ldg(bias_row + key * s.bias[2]);
+          x = sc[i][j] * scale;
+          if constexpr (kGated)
+            x += g[i] * __ldg(bias_h + (long long)qi * s.bias[1] + key * s.bias[2]);
           if (pad_b && pad_b[key * s.pad[1]]) x = -INFINITY;
         }
         sc[i][j] = x;
@@ -247,20 +255,36 @@ gated_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
-template <typename T>
+template <typename T, bool kGated>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* gate,
                    const void* pad, void* out, int batch, int heads, int seq, float scale,
                    const Strides& s, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gated_attention_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  gated_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  attention_kernel<T, kGated><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(gate),
       static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, scale, s);
   return cudaGetLastError();
+}
+
+template <bool kGated>
+int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
+             const void* gate, const void* pad, void* out, int batch, int heads, int seq,
+             int head_dim, float scale, const Strides& s, void* stream) {
+  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
+      heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch<float, kGated>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, kGated>(q, k, v, bias, gate, pad, out, batch, heads, seq,
+                                              scale, s, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -273,14 +297,25 @@ extern "C" int avex_gated_attention_forward(int dtype, const void* q, const void
                                             const void* bias, const void* gate, const void* pad,
                                             void* out, int batch, int heads, int seq, int head_dim,
                                             float scale, const long long* strides, void* stream) {
-  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
-      heads > 65535)
-    return (int)cudaErrorInvalidValue;
   Strides s;
   memcpy(&s, strides, sizeof(Strides));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, scale,
+                        s, stream);
+}
+
+// The bias-free variant. dtype and pad as above; pad may be null. strides: 14
+// element strides, q, k, v and out (batch, head, token) then pad (batch, token).
+extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void* k, const void* v,
+                                            const void* pad, void* out, int batch, int heads,
+                                            int seq, int head_dim, float scale,
+                                            const long long* strides, void* stream) {
+  Strides s;
+  memset(&s, 0, sizeof(Strides));
+  memcpy(s.q, strides, 3 * sizeof(long long));
+  memcpy(s.k, strides + 3, 3 * sizeof(long long));
+  memcpy(s.v, strides + 6, 3 * sizeof(long long));
+  memcpy(s.o, strides + 9, 3 * sizeof(long long));
+  memcpy(s.pad, strides + 12, 2 * sizeof(long long));
+  return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, batch, heads, seq, head_dim,
+                         scale, s, stream);
 }

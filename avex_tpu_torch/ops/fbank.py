@@ -19,7 +19,7 @@ import torch
 
 from avex_tpu_torch.ops._precision import full_fp32
 
-__all__ = ["KaldiFbank", "beats_fbank", "kaldi_mel_banks", "kaldi_window", "num_frames"]
+__all__ = ["KaldiFbank", "beats_fbank", "eat_fbank", "kaldi_mel_banks", "kaldi_window", "num_frames"]
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -219,3 +219,29 @@ def beats_fbank(
         fbank = KaldiFbank()
     feats = fbank(waveforms.float() * 32768.0)
     return (feats - fbank_mean) / (2.0 * fbank_std)
+
+
+def eat_fbank(
+    waveforms: torch.Tensor,
+    target_length: int = 1024,
+    norm_mean: float = -4.268,
+    norm_std: float = 4.569,
+    fbank: Optional[KaldiFbank] = None,
+) -> torch.Tensor:
+    """EAT frontend, in fp32: per-clip DC removal, Hann-window Kaldi fbank,
+    pad or truncate to ``target_length`` frames, ``(mel - mean) / (2 std)``;
+    ``[B, T]`` → ``[B, num_mel_bins, target_length]`` (``[T]`` → ``[M, F]``)."""
+    if fbank is None:
+        fbank = KaldiFbank(window_type="hanning")
+    squeeze = waveforms.ndim == 1
+    if squeeze:
+        waveforms = waveforms[None]
+    wav = waveforms.float()
+    mel = fbank(wav - wav.mean(dim=-1, keepdim=True))  # [B, F, M]
+    frames = mel.shape[1]
+    if frames < target_length:
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, target_length - frames))
+    else:
+        mel = mel[:, :target_length, :]
+    out = ((mel - norm_mean) / (norm_std * 2.0)).transpose(1, 2)
+    return out[0] if squeeze else out

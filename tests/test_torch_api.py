@@ -33,7 +33,7 @@ def test_public_api_exports():
 def test_registry_holds_the_official_beats_models():
     info = avex_tpu_torch.list_models(verbose=False)
     assert {"esp_aves2_sl_beats_all", "esp_aves2_sl_beats_bio", "esp_aves2_naturelm_audio_v1_beats"} <= set(info)
-    assert all(row["architecture"] == "beats" for row in info.values() if row["checkpoint"])
+    assert all(row["architecture"] in ("beats", "eat_hf") for row in info.values() if row["checkpoint"])
     spec = avex_tpu_torch.get_model_spec("esp_aves2_sl_beats_all")
     spec.pretrained = True
     assert avex_tpu_torch.get_model_spec("esp_aves2_sl_beats_all").pretrained is False
@@ -43,7 +43,7 @@ def test_registry_holds_the_official_beats_models():
     with pytest.raises(KeyError, match="not found"):
         avex_tpu_torch.get_model_spec("nonexistent_model")
     with pytest.raises(KeyError, match="No model class"):
-        avex_tpu_torch.get_model_class("eat_hf")
+        avex_tpu_torch.get_model_class("efficientnet")
 
 
 def test_build_and_load_random_weights_on_cpu():
@@ -180,3 +180,51 @@ def test_remote_checkpoint_raises_clearly():
     model = avex_tpu_torch.load_model("esp_aves2_sl_beats_all", device="cpu", random_weights=True,
                                       init_config=dict(SMALL, finetuned_model=True))
     assert model.label_mapping is None and model.num_classes is None
+
+
+EAT_TINY = {"depth": 2, "dim": 96, "heads": 12, "target_length": 64}
+AVES_TINY = {"encoder_num_layers": 2, "encoder_embed_dim": 128, "encoder_num_heads": 2,
+             "encoder_ff_interm_features": 256}
+EAT_OFFICIAL = ("esp_aves2_eat_all", "esp_aves2_eat_bio", "esp_aves2_sl_eat_all_ssl_all", "esp_aves2_sl_eat_bio_ssl_all")
+
+
+def test_registry_holds_the_official_eat_models():
+    info = avex_tpu_torch.list_models(verbose=False)
+    assert set(EAT_OFFICIAL) <= set(info)
+    for name in EAT_OFFICIAL:
+        assert info[name]["architecture"] == "eat_hf"
+        assert info[name]["checkpoint"] == avex_tpu.get_checkpoint_path(name)
+        spec = avex_tpu_torch.get_model_spec(name)
+        assert (spec.eat_norm_mean, spec.eat_norm_std) == (-5.553, 4.606)
+    assert set(avex_tpu_torch.list_model_classes()) >= {"beats", "eat_hf", "aves_bio"}
+
+
+def test_build_model_expands_init_config_for_eat():
+    """EAT's wrapper takes its architecture as direct arguments: the factory
+    expands ``init_config`` into them (as the JAX factory does) and forwards
+    the spec's fbank statistics."""
+    model = avex_tpu_torch.build_model("esp_aves2_eat_all", device="cpu", init_config=EAT_TINY)
+    assert model.depth == 2 and len(model.module.blocks) == 2
+    assert (model.module.norm_mean, model.module.norm_std) == (-5.553, 4.606)
+    assert model.get_model_layers() == [f"backbone.model.blocks.{i}.attn.proj" for i in range(2)]
+    wav = np.random.default_rng(0).standard_normal((2, 16000)).astype(np.float32) * 0.1
+    assert model(wav).shape == (2, 33, 96)
+    # an explicit argument wins over the same key in init_config
+    assert avex_tpu_torch.build_model("esp_aves2_eat_all", device="cpu", init_config=EAT_TINY, depth=1).depth == 1
+
+
+@pytest.mark.parametrize("arch", ["eat", "aves"])
+def test_load_model_random_weights_builds_eat_and_aves(rng, arch):
+    wav = (rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    if arch == "eat":
+        model = avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", device="cpu", random_weights=True,
+                                          return_features_only=True, init_config=EAT_TINY)
+        layers, width = 2, 96
+    else:
+        spec = ModelSpec(name="aves_bio", pretrained=False, init_config={"aves_cfg": AVES_TINY})
+        model = avex_tpu_torch.load_model(spec, device="cpu", random_weights=True, return_features_only=True)
+        layers, width = 2, 128
+    assert model.label_mapping is None and model.num_classes is None
+    model.register_hooks_for_layers(["all"])
+    emb = model.extract_embeddings(wav, aggregation="mean")
+    assert emb.shape == (2, layers * width) and torch.isfinite(emb).all()

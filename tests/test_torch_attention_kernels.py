@@ -1,4 +1,4 @@
-"""Gated-bias attention of the port (K1, K2 and their plain twins) against JAX.
+"""Attention of the port (K1, K2, K4, K5 and their plain twins) against JAX.
 
 On the CPU the port's wrappers take the plain twins; the JAX side runs its
 Pallas kernels in interpret mode. The CUDA kernel itself is held against the
@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from avex_tpu.ops.attention import relative_position_bucket_jnp
+from avex_tpu.ops.pallas_attention import fused_qkv_attention as jax_fused_plain
 from avex_tpu.ops.pallas_attention import fused_qkv_gated_attention as jax_fused
 from avex_tpu.ops.pallas_attention import gated_bias_attention as jax_split
 
@@ -75,6 +76,13 @@ def test_fused_kernel_twin_matches_jax(rng, seq, gated, padded):
     assert ak.LAUNCHES["fused_qkv_gated_attention"] == 0
 
 
+def test_fused_gated_wrapper_requires_a_bias(rng):
+    """K5 has one entry point: the gated fused wrapper refuses ``pos_bias=None``."""
+    qkv, _, _, _ = _inputs(rng, 24, False, False)
+    with pytest.raises(ValueError, match="fused_qkv_attention"):
+        ak.fused_qkv_gated_attention(_t(qkv), H, None)
+
+
 def test_bf16_twin_matches_jax_reference(rng):
     """bf16 q/k/v: logits from fp32 upcasts, P cast to bf16 before PV."""
     qkv, bias, gate, _ = _inputs(rng, 31, True, False)
@@ -109,6 +117,69 @@ def test_split_kernel_gradients_match_jax(rng, gated):
     (out * torch.from_numpy(cot)).sum().backward()
     got = [t.grad for t in leaves] + ([tgate.grad] if gated else [])
     for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
+
+
+PLAIN_CASES = [(seq, padded) for seq in (24, 33) for padded in (False, True)]
+
+
+@pytest.mark.parametrize("seq,padded", PLAIN_CASES)
+def test_plain_split_twin_matches_jax_k4(rng, seq, padded):
+    """``pos_bias=None``: K4's twin against JAX's ``_plain_attention_kernel``."""
+    ak.reset_launch_counts()
+    qkv, _, _, mask = _inputs(rng, seq, False, padded)
+    q, k, v = _split_np(qkv)
+    want = jax_split(_j(q), _j(k), _j(v), None, None, _j(mask), interpret=True)
+    got = ak.gated_bias_attention(_t(q), _t(k), _t(v), None, None, _t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert sum(ak.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("seq,padded", PLAIN_CASES)
+def test_fused_plain_twin_matches_jax_k5(rng, seq, padded):
+    """``fused_qkv_attention``: K5's twin against JAX's ``_fused_qkv_kernel``."""
+    ak.reset_launch_counts()
+    qkv, _, _, mask = _inputs(rng, seq, False, padded)
+    want = jax_fused_plain(_j(qkv), H, _j(mask), interpret=True)
+    got = ak.fused_qkv_attention(_t(qkv), H, _t(mask))
+    ref = ak.fused_qkv_reference(_t(qkv), H, _t(mask))
+    assert got.shape == (B, seq, H * D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert sum(ak.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_fused_plain_twin_gradient_matches_jax_k6(rng, padded):
+    """The K5 twin's autograd gradient against ``jax.grad`` through
+    ``fused_qkv_attention``, whose backward is K6 in interpret mode."""
+    seq = 24
+    qkv, _, _, mask = _inputs(rng, seq, False, padded)
+    cot = rng.standard_normal((B, seq, H * D)).astype(np.float32)
+
+    def loss(x):
+        return jnp.sum(jax_fused_plain(x, H, _j(mask), interpret=True) * cot)
+
+    want = jax.grad(loss)(_j(qkv))
+    leaf = torch.from_numpy(qkv).requires_grad_()
+    (ak.fused_qkv_attention(leaf, H, _t(mask)) * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+def test_plain_split_twin_gradient_matches_jax(rng):
+    """K4's backward is the twin recomputed under autograd, as JAX's ``_bwd``."""
+    seq = 24
+    qkv, _, _, mask = _inputs(rng, seq, False, True)
+    q, k, v = _split_np(qkv)
+    cot = rng.standard_normal((B, H, seq, D)).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_split(q, k, v, None, None, jnp.asarray(mask), interpret=True) * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    (ak.gated_bias_attention(*leaves, None, None, torch.from_numpy(mask)) * torch.from_numpy(cot)).sum().backward()
+    for g, w in zip((t.grad for t in leaves), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
 
 

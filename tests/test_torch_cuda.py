@@ -45,9 +45,41 @@ def test_kernels_match_twins(inputs):
         fused = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
         ref = ak.gated_bias_attention_reference(q, k, v, bias, gate, mask)
     torch.cuda.synchronize()
-    assert ak.LAUNCHES == {"gated_bias_attention": 1, "fused_qkv_gated_attention": 1}
+    assert ak.LAUNCHES == {"gated_bias_attention": 1, "fused_qkv_gated_attention": 1,
+                           "plain_attention": 0, "fused_qkv_attention": 0}
     torch.testing.assert_close(got, ref, **TOL)
     torch.testing.assert_close(fused, ref.transpose(1, 2).reshape(B, T, H * D), **TOL)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_bias_free_kernels_match_twins(inputs, padded):
+    """K4 (split views) and K5 (the raw [B, T, 3E] projection) at T=31: one
+    ragged query tile and one ragged key tile."""
+    qkv, _, _, mask = inputs
+    mask = mask if padded else None
+    q, k, v = _split(qkv)
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        split = ak.gated_bias_attention(q, k, v, None, None, mask)
+        fused = ak.fused_qkv_attention(qkv, H, mask)
+        ref = ak.gated_bias_attention_reference(q, k, v, None, None, mask)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES == {"gated_bias_attention": 0, "fused_qkv_gated_attention": 0,
+                           "plain_attention": 1, "fused_qkv_attention": 1}
+    torch.testing.assert_close(split, ref, **TOL)
+    torch.testing.assert_close(fused, ak.fused_qkv_reference(qkv, H, mask), **TOL)
+    torch.testing.assert_close(fused, ref.transpose(1, 2).reshape(B, T, H * D), **TOL)
+
+
+def test_bias_free_split_kernel_backward_is_the_twins(inputs):
+    qkv, _, _, mask = inputs
+    leaves = [t.detach().clone().requires_grad_() for t in _split(qkv)]
+    twins = [t.detach().clone().requires_grad_() for t in leaves]
+    cot = torch.randn(B, H, T, D, device="cuda")
+    (ak.gated_bias_attention(*leaves, None, None, mask) * cot).sum().backward()
+    (ak.gated_bias_attention_reference(*twins, None, None, mask) * cot).sum().backward()
+    for a, b in zip(leaves, twins):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
 
 
 def test_split_kernel_backward_is_the_twins(inputs):
@@ -66,13 +98,18 @@ def test_unsupported_inputs_raise(inputs):
     q, k, v = _split(qkv)
     with pytest.raises(NotImplementedError, match="K3"):
         ak.fused_qkv_gated_attention(qkv.detach().requires_grad_(), H, bias, gate)
-    with pytest.raises(NotImplementedError, match="K4"):
-        with torch.no_grad():
-            ak.gated_bias_attention(q, k, v, None)
+    with pytest.raises(NotImplementedError, match="K6"):
+        ak.fused_qkv_attention(qkv.detach().requires_grad_(), H)
     with pytest.raises(ValueError, match="head_dim"):
         ak.gated_bias_attention(q[..., :32], k[..., :32], v[..., :32], bias)
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.fused_qkv_attention(qkv[..., : 3 * H * 32], H)  # dh=32
+    with pytest.raises(ValueError, match="gate"):
+        ak.gated_bias_attention(q, k, v, None, gate)
     with pytest.raises(ValueError, match="strides"):
         odd_rows = torch.randn(B, H, T, D + 1, device="cuda")[..., :D]  # token stride 65
         ak.gated_bias_attention(odd_rows, k, v, bias)
     with pytest.raises(TypeError):
         ak.gated_bias_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(TypeError):
+        ak.fused_qkv_attention(qkv.half(), H)

@@ -16,7 +16,10 @@ SLICE_MODULES = [
     "avex_tpu_torch.models.factory",
     "avex_tpu_torch.models.load",
     "avex_tpu_torch.models.base",
+    "avex_tpu_torch.models.common",
     "avex_tpu_torch.models.beats",
+    "avex_tpu_torch.models.eat",
+    "avex_tpu_torch.models.aves",
     "avex_tpu_torch.utils.loaders",
     "avex_tpu_torch.ops.fbank",
     "avex_tpu_torch.ops.attention",
