@@ -277,6 +277,14 @@ class ModelBase:
         """Install converted reference-checkpoint weights; see subclasses."""
         raise NotImplementedError
 
+    def quantize(self, mode: str = "int8") -> None:
+        """Convert to a quantized inference mode (see ``avex_tpu_torch.quant``).
+
+        Supported by the architectures that say so (BEATs); one-way and
+        inference-only.
+        """
+        raise NotImplementedError(f"{type(self).__name__} does not support quantization.")
+
     def load_port_state_dict(self, state: Dict[str, np.ndarray], strict: bool = False) -> None:
         """Load a state dict already in the port's key layout (e.g. from a
         model module's ``params_from_jax``). Entries of unknown name or shape

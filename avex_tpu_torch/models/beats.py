@@ -16,7 +16,10 @@ Port of ``avex_tpu/models/beats.py``:
   logits policy, as in the JAX package;
 - intermediates are functional outputs: ``forward`` returns ``(output, aux)``
   with ``aux["intermediates"]`` under the reference names
-  (``backbone.post_extract_proj``, ``backbone.encoder.layers.{i}.fc2``).
+  (``backbone.post_extract_proj``, ``backbone.encoder.layers.{i}.fc2``);
+- with ``quantize_encoder`` (or after :meth:`Model.quantize`) the encoder's
+  q/k/v/out projections and fc1/fc2 are ``Int8Linear`` layers under the same
+  names (W8A8, the K7 kernel on CUDA); the attention is unchanged.
 
 The port is inference-only for now: dropout and LayerDrop belong to
 training (ROADMAP queue 1, item 10) and never run, as in the JAX wrapper,
@@ -63,10 +66,12 @@ from avex_tpu_torch.ops.attention_kernels import (
     gated_bias_attention,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, beats_fbank
+from avex_tpu_torch.quant import Int8Linear, quantize_params
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "ENCODER_QUANT_DENSES",
     "BEATsBackbone",
     "BEATsConfig",
     "BEATsModel",
@@ -74,9 +79,10 @@ __all__ = [
     "convert_beats_state_dict",
     "downsample_padding_mask",
     "params_from_jax",
+    "quantize_beats_params",
 ]
 
-_NOT_PORTED = ("scan_layers", "remat", "quantize_encoder")
+_NOT_PORTED = ("scan_layers", "remat")
 
 
 @dataclass
@@ -162,6 +168,13 @@ def downsample_padding_mask(padding_mask: torch.Tensor, target_len: int) -> torc
     return padding_mask.reshape(bsz, target_len, -1).all(dim=-1)
 
 
+def _projection(cfg: BEATsConfig, dtype: torch.dtype, n_in: int, n_out: int) -> nn.Module:
+    """An encoder dense layer: ``Int8Linear`` when the encoder is quantized."""
+    if cfg.quantize_encoder:
+        return Int8Linear(n_in, n_out, dtype=dtype)
+    return nn.Linear(n_in, n_out)
+
+
 class _GatedRelPosAttention(nn.Module):
     """Self-attention with a GRU-gated T5 relative position bias.
 
@@ -177,16 +190,17 @@ class _GatedRelPosAttention(nn.Module):
         self.gru_rel_pos = cfg.gru_rel_pos
         self.use_pallas = cfg.use_pallas
         self.fast_attention = cfg.fast_attention
-        self.fused_qkv = cfg.fused_qkv
+        # A quantized encoder keeps split int8 q/k/v, as JAX's Int8Dense path.
+        self.fused_qkv = cfg.fused_qkv and not cfg.quantize_encoder
         self.dtype = dtype
         e = self.embed_dim
         if self.fused_qkv:
             self.qkv_proj = nn.Linear(e, 3 * e)
         else:
-            self.q_proj = nn.Linear(e, e)
-            self.k_proj = nn.Linear(e, e)
-            self.v_proj = nn.Linear(e, e)
-        self.out_proj = nn.Linear(e, e)
+            self.q_proj = _projection(cfg, dtype, e, e)
+            self.k_proj = _projection(cfg, dtype, e, e)
+            self.v_proj = _projection(cfg, dtype, e, e)
+        self.out_proj = _projection(cfg, dtype, e, e)
         if self.gru_rel_pos and cfg.relative_position_embedding:
             self.grep_linear = nn.Linear(self.head_dim, 8)
             self.grep_a = nn.Parameter(torch.ones(1, self.num_heads, 1, 1))
@@ -264,8 +278,8 @@ class _EncoderLayer(nn.Module):
         e = cfg.encoder_embed_dim
         self.self_attn = _GatedRelPosAttention(cfg, dtype)
         self.self_attn_layer_norm = nn.LayerNorm(e, eps=1e-5)
-        self.fc1 = nn.Linear(e, cfg.encoder_ffn_embed_dim)
-        self.fc2 = nn.Linear(cfg.encoder_ffn_embed_dim, e)
+        self.fc1 = _projection(cfg, dtype, e, cfg.encoder_ffn_embed_dim)
+        self.fc2 = _projection(cfg, dtype, cfg.encoder_ffn_embed_dim, e)
         self.final_layer_norm = nn.LayerNorm(e, eps=1e-5)
 
     def forward(
@@ -558,7 +572,11 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     Dense ``[in, out]`` → Linear ``[out, in]``; the patch conv ``[kh, kw, 1,
     out]`` → ``[out, 1, kh, kw]``; the pos_conv ``[K, in/g, out]`` → ``[out,
     in/g, K]``; LayerNorm ``scale`` → ``weight``; ``grep_a`` stays
-    ``[1, H, 1, 1]``; ``qkv_proj`` carries over as is.
+    ``[1, H, 1, 1]``; ``qkv_proj`` carries over as is. A tree that JAX
+    quantized (``Int8Dense``: ``kernel_q`` int8 ``[in, out]``,
+    ``kernel_scale``) gives ``weight_q`` int8 ``[out, in]`` and fp32
+    ``weight_scale`` and ``bias``, for a model built with
+    ``quantize_encoder=True``.
     """
     out: Dict[str, np.ndarray] = {}
 
@@ -566,7 +584,11 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         out[key] = np.asarray(value, dtype=np.float32)
 
     def dense(prefix: str, node: Mapping[str, Any]) -> None:
-        put(f"{prefix}.weight", np.asarray(node["kernel"]).T)
+        if "kernel_q" in node:
+            out[f"{prefix}.weight_q"] = np.ascontiguousarray(np.asarray(node["kernel_q"], dtype=np.int8).T)
+            put(f"{prefix}.weight_scale", node["kernel_scale"])
+        else:
+            put(f"{prefix}.weight", np.asarray(node["kernel"]).T)
         if "bias" in node:
             put(f"{prefix}.bias", node["bias"])
 
@@ -609,6 +631,21 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     if "classifier" in params:
         dense("classifier", params["classifier"])
     return out
+
+
+#: Encoder dense layers that int8 quantization converts; grep_linear, the
+#: patch embedding, pos_conv, the rel-pos table and the classifier stay float.
+ENCODER_QUANT_DENSES = frozenset({"q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"})
+
+
+def quantize_beats_params(module: nn.Module, dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Swap the encoder denses of a :class:`BEATsModel` tree for ``Int8Linear``
+    layers with output ``dtype``, in place."""
+    return quantize_params(
+        module,
+        include=lambda path: "encoder" in path and path[-1] in ENCODER_QUANT_DENSES,
+        dtype=dtype,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -667,3 +704,20 @@ class Model(ModelBase):
         """Load a reference BEATs checkpoint (SSL / fine-tuned / NatureLM naming)."""
         converted = convert_beats_state_dict(state, self.cfg, num_classes=self.num_classes)
         self.load_port_state_dict(converted, strict=strict)
+
+    def quantize(self, mode: str = "int8") -> None:
+        """Convert to W8A8 dynamic-int8 encoder inference (serving mode).
+
+        Folds every encoder dense projection (q/k/v/out, fc1, fc2) to
+        symmetric per-channel int8 in place (``Int8Linear``, same names).
+        One-way and inference-only. The frontend, patch embedding, pos_conv,
+        rel-pos table, gate and classifier stay float. Idempotent.
+        """
+        if mode != "int8":
+            raise ValueError(f"Unsupported quantization mode: {mode!r} (only 'int8')")
+        if self.cfg.quantize_encoder:
+            return
+        if self.cfg.fused_qkv:
+            raise ValueError("quantize() is incompatible with fused_qkv; rebuild without it.")
+        quantize_beats_params(self.module, dtype=self.module.dtype)
+        self.cfg.quantize_encoder = True  # the module's layers share this config

@@ -1,8 +1,9 @@
 """Building blocks the port's models share (BEATs, EAT, AVES).
 
 - the flax dtype policy: ``dense`` casts input, weight and bias to the
-  compute dtype; ``layer_norm`` / ``group_norm`` take fp32 statistics and
-  return the compute dtype;
+  compute dtype (an ``Int8Linear`` runs as it is: its int8 weight is never
+  cast); ``layer_norm`` / ``group_norm`` take fp32 statistics and return
+  the compute dtype;
 - the exact (erf) GELU;
 - ``conv_positions``: the grouped Conv1d positional embedding of BEATs and
   AVES, with the even-kernel trim;
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avex_tpu_torch.ops._precision import full_fp32
+from avex_tpu_torch.quant import Int8Linear
 
 __all__ = [
     "build_module",
@@ -64,8 +66,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)  # exact erf form, as torch nn.GELU and the reference
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
+def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``.
+
+    An :class:`Int8Linear` (``Int8Dense``) is called as it is: it quantizes
+    x itself and adds its bias in fp32 before the cast to its output type.
+    """
+    if isinstance(layer, Int8Linear):
+        return layer(x)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -109,8 +117,13 @@ def fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 def _seeded_init(module: nn.Module, seed: int) -> None:
     """Seeded init in the flax defaults' families: weights N(0, 1/fan_in)
-    (fan_in = all axes but the first), biases 0, norms 1/0, ``grep_a`` 1."""
+    (fan_in = all axes but the first), biases 0, norms 1/0, ``grep_a`` 1;
+    an :class:`Int8Linear` gets ``Int8Dense``'s init (zero weights, unit
+    scales)."""
     gen = torch.Generator().manual_seed(seed)
+    for sub in module.modules():
+        if isinstance(sub, Int8Linear):
+            sub.reset_buffers()
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("grep_a") or (p.ndim == 1 and "norm" in name and name.endswith("weight")):

@@ -90,10 +90,11 @@ def load_model(
         return_features_only: build without a classifier head.
         num_classes: explicit head size (otherwise inferred).
         random_weights: skip checkpoint loading entirely (seeded random init).
-        quantization: not ported yet; anything but None raises.
+        quantization: ``"int8"`` converts the loaded weights to the W8A8
+            dynamic-int8 serving mode (``avex_tpu_torch.quant``, the K7
+            kernel on CUDA) after the checkpoint loads; inference-only.
+            Another mode, or a model without int8 support, raises.
     """
-    if quantization is not None:
-        raise NotImplementedError("int8 serving is not ported yet (ROADMAP queue 1: int8 serving)")
     spec, default_ckpt, label_map_path = _resolve_spec(source)
     resolved_ckpt = checkpoint_path or default_ckpt
     if checkpoint_path is not None:
@@ -124,4 +125,6 @@ def load_model(
     if state is not None:
         model.load_state_dict(state)
         model.loaded_checkpoint = resolved_ckpt
+    if quantization is not None:
+        model.quantize(quantization)
     return model

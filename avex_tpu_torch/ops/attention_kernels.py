@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -64,10 +65,20 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
     """Set every launch count in :data:`LAUNCHES` to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    # Served models launch from one batcher thread each: += is not atomic.
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _library() -> ctypes.CDLL:
@@ -237,7 +248,7 @@ def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Ten
     # head merge back to [B, T, E] is then free.
     out = torch.empty(bsz, seq, heads, dim, dtype=v.dtype, device=v.device).permute(0, 2, 1, 3)
     _launch(q, k, v, pos_bias, gate, key_padding_mask, out, scale)
-    LAUNCHES["gated_bias_attention" if pos_bias is not None else "plain_attention"] += 1
+    _count("gated_bias_attention" if pos_bias is not None else "plain_attention")
     return out
 
 
@@ -248,7 +259,7 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale) -> torch.
     out = torch.empty(bsz, seq, dim, dtype=qkv.dtype, device=qkv.device)
     _launch(q, k, v, pos_bias, gate, key_padding_mask,
             out.view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3), scale)
-    LAUNCHES["fused_qkv_gated_attention" if pos_bias is not None else "fused_qkv_attention"] += 1
+    _count("fused_qkv_gated_attention" if pos_bias is not None else "fused_qkv_attention")
     return out
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's embedding extraction goes, on one GPU.
 
-    python3 scripts/torch_beats_profile.py [beats] [eat] [aves]
+    python3 scripts/torch_beats_profile.py [beats] [int8] [eat] [aves]
 
 Full-width models with seeded random weights, bf16, B=128, ``extract_embeddings``
-over all layers with mean pooling: BEATs (12 layers, 768-d) on 5 s clips, EAT
-(the official ``esp_aves2_sl_eat_all_ssl_all`` entry, 12 blocks, T=513) on
-10 s clips, AVES (``aves_bio``, 12 layers, T=249) on 5 s clips with a third
-of them padded from 3 s. With no argument it profiles BEATs and EAT. For the
+over all layers with mean pooling: BEATs (12 layers, 768-d) on 5 s clips, the
+same BEATs through ``load_model(quantization="int8")`` (``int8``: W8A8
+encoder denses on the K7 kernel), EAT (the official
+``esp_aves2_sl_eat_all_ssl_all`` entry, 12 blocks, T=513) on 10 s clips, AVES
+(``aves_bio``, 12 layers, T=249) on 5 s clips with a third of them padded
+from 3 s. With no argument it profiles BEATs and EAT. For the
 kernel path (``use_pallas=True``) and the plain-attention path (``use_pallas``
 unset) of each it prints the forward's wall time (CUDA-synchronised), the
 device's busy share over that window (the union of the kernels' intervals:
@@ -36,13 +38,14 @@ def _loader(name: str):
     from avex_tpu_torch.configs import ModelSpec
 
     gen = torch.Generator("cuda").manual_seed(1)
-    if name == "beats":
+    if name in ("beats", "int8"):
         official = OFFICIAL_MODELS["esp_aves2_sl_beats_all"]["model_spec"]["init_config"]
 
         def load(use_pallas):
             spec = ModelSpec(name="beats", pretrained=False, compute_dtype="bfloat16",
                              init_config=dict(official, use_pallas=use_pallas))
-            return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+            return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda",
+                                             quantization="int8" if name == "int8" else None)
 
         return load, torch.randn(B, 5 * 16000, device="cuda", generator=gen) * 0.1, None
     if name == "eat":
@@ -63,7 +66,7 @@ def _loader(name: str):
         mask = torch.zeros(B, 5 * 16000, dtype=torch.bool, device="cuda")
         mask[::3, 3 * 16000:] = True
         return load, torch.randn(B, 5 * 16000, device="cuda", generator=gen) * 0.1, mask
-    raise SystemExit(f"unknown model {name!r} (beats, eat, aves)")
+    raise SystemExit(f"unknown model {name!r} (beats, int8, eat, aves)")
 
 
 def profile_model(name: str) -> None:

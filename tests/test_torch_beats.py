@@ -177,9 +177,15 @@ def test_finetuned_predictor_head_matches_jax(rng):
 
 
 def test_unported_options_raise():
-    for key in ("scan_layers", "remat", "quantize_encoder"):
+    for key in ("scan_layers", "remat"):
         with pytest.raises(NotImplementedError, match=key):
             avex_tpu_torch.build_model_from_spec(
                 ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, **{key: True})),
                 device="cpu",
             )
+    # quantize_encoder is ported: the model builds with int8 encoder layers
+    # (tests/test_torch_quant.py holds them to JAX).
+    model = avex_tpu_torch.build_model_from_spec(
+        ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, quantize_encoder=True)), device="cpu"
+    )
+    assert model.module.backbone.encoder.layers[0].fc1.weight_q.dtype == torch.int8

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from avex_tpu_torch.ops import attention_kernels as ak
+from avex_tpu_torch.ops import int8_kernels as ik
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +114,82 @@ def test_unsupported_inputs_raise(inputs):
         ak.gated_bias_attention(q.half(), k.half(), v.half(), bias)
     with pytest.raises(TypeError):
         ak.fused_qkv_attention(qkv.half(), H)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _int8_weight(n, k, gen):
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-3
+    return wq, scale
+
+
+# (M, K, N): a ragged M tile, a half K tile (K = 96), a ragged and an odd N.
+INT8_SHAPES = [(200, 96, 136), (130, 256, 131), (1, 768, 768)]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("use_bias", [False, True], ids=["nobias", "bias"])
+def test_int8_dynamic_dense_matches_twin(card, shape, dtype, use_bias):
+    """K7: the int8 activations and sums equal the twin's, and so does the
+    output (same rounding at each step), in fp32 and bf16; zero rows stay 0."""
+    m, k, n = shape
+    x = torch.randn(m, k, generator=card, device="cuda").to(dtype)
+    x[m // 2] = 0.0
+    wq, scale = _int8_weight(n, k, card)
+    bias = torch.randn(n, generator=card, device="cuda") if use_bias else None
+    ik.reset_launch_counts()
+    got = ik.int8_dynamic_dense(x, wq, scale, bias)
+    want = ik.int8_dynamic_dense_reference(x, wq, scale, bias)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES == {"int8_dynamic_dense": 1, "int8_matmul": 0}
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    if not use_bias:
+        assert not got[m // 2].any()
+
+
+def test_int8_dynamic_dense_leading_dims_and_out_dtype(card):
+    x = torch.randn(3, 24, 128, generator=card, device="cuda", dtype=torch.bfloat16)
+    wq, scale = _int8_weight(64, 128, card)
+    got = ik.int8_dynamic_dense(x, wq, scale, out_dtype=torch.float32)
+    want = ik.int8_dynamic_dense_reference(x, wq, scale, out_dtype=torch.float32)
+    assert got.shape == (3, 24, 64) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(50, 96, 48), (300, 256, 272), (248, 768, 3072)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_matmul_exact(card, shape):
+    """K8: exact int32 sums, with ragged M and a half K tile; B as [K, N]."""
+    m, k, n = shape
+    xq = torch.randint(-127, 128, (m, k), generator=card, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=card, device="cuda", dtype=torch.int8)
+    ik.reset_launch_counts()
+    got = ik.int8_matmul(xq, wq)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES == {"int8_dynamic_dense": 0, "int8_matmul": 1}
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ik.int8_matmul_reference(xq, wq))
+
+
+def test_int8_unsupported_inputs_raise(card):
+    wq, scale = _int8_weight(64, 80, card)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ik.int8_dynamic_dense(torch.randn(4, 80, device="cuda"), wq, scale)
+    wq, scale = _int8_weight(64, 96, card)
+    with pytest.raises(TypeError):
+        ik.int8_dynamic_dense(torch.randn(4, 96, device="cuda").half(), wq, scale)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        ik.int8_dynamic_dense(torch.randn(4, 96, device="cuda", requires_grad=True), wq, scale)
+    with pytest.raises(ValueError, match="weight_scale"):
+        ik.int8_dynamic_dense(torch.randn(4, 96, device="cuda"), wq, scale.double())
+    xq = torch.zeros(4, 64, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ik.int8_matmul(xq, torch.zeros(64, 40, dtype=torch.int8, device="cuda"))

@@ -27,6 +27,14 @@ SLICE_MODULES = [
     "avex_tpu_torch.ops.frontend",
     "avex_tpu_torch.ops._build",
     "avex_tpu_torch.ops._precision",
+    "avex_tpu_torch.ops.audio",
+    "avex_tpu_torch.ops.int8_kernels",
+    "avex_tpu_torch.quant",
+    "avex_tpu_torch._native",
+    "avex_tpu_torch.serving",
+    "avex_tpu_torch.serving.service",
+    "avex_tpu_torch.serving.pool",
+    "avex_tpu_torch.serving.http",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|flax|avex_tpu)\b(?!_torch)|from\s+(jax|flax|avex_tpu)\b(?!_torch))",
