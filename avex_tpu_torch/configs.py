@@ -1,17 +1,19 @@
-"""Model and audio configuration of the port, as dataclasses.
+"""Model, audio and training configuration of the port, as dataclasses.
 
 Counterparts of ``avex_tpu.configs.ModelSpec`` and ``AudioConfig`` with the
-fields that the BEATs, EAT and AVES paths read. Unknown fields raise
-``TypeError`` as the dataclass constructor does.
+fields that the BEATs, EAT and AVES paths read, and of ``TrainingParams``,
+``SchedulerConfig`` and the part of ``RunConfig`` that the trainer reads.
+Unknown fields raise ``TypeError`` as the dataclass constructor does; the
+value checks of the JAX package's pydantic models raise ``ValueError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Union
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
-__all__ = ["AudioConfig", "ModelSpec"]
+__all__ = ["AudioConfig", "ModelSpec", "RunConfig", "SchedulerConfig", "TrainingParams"]
 
 _REPRESENTATIONS = ("spectrogram", "mel_spectrogram", "raw")
 _COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -78,6 +80,159 @@ class ModelSpec:
             )
 
     def replace(self, **changes: Any) -> "ModelSpec":
+        """A copy with ``changes`` applied (≈ pydantic ``model_copy(update=...)``)."""
+        return dataclasses.replace(self, **changes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def _one_of(name: str, value: Any, allowed: Tuple[Any, ...]) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+
+
+def _at_least(name: str, value: Any, low: float, strict: bool = False) -> None:
+    if value < low or (strict and value == low):
+        raise ValueError(f"{name} must be {'>' if strict else '>='} {low}, got {value!r}")
+
+
+@dataclass
+class TrainingParams:
+    """Optimization hyper-parameters of a training run (≈ ``avex_tpu.configs.TrainingParams``)."""
+
+    train_epochs: int
+    lr: float
+    batch_size: int
+    optimizer: str = "adamw"
+    weight_decay: float = 0.0
+    adam_betas: Optional[Tuple[float, float]] = None
+    amp: bool = False
+    amp_dtype: str = "bf16"
+    log_steps: int = 100
+    #: checkpoint each encoder layer (recompute its activations in the backward)
+    gradient_checkpointing: bool = False
+    #: global-norm gradient clip
+    gradient_clip_val: Optional[float] = None
+    #: two-stage fine-tuning: freeze the backbone for the first N epochs, then
+    #: unfreeze at ``second_stage_lr`` (default 0.1 * lr)
+    freeze_backbone_epochs: int = 0
+    second_stage_lr: Optional[float] = None
+    second_stage_warmup_steps: Optional[int] = None
+    skip_validation: bool = False
+    warmup_epochs: int = 0
+    scheduler_type: str = "none"
+
+    def __post_init__(self) -> None:
+        _at_least("train_epochs", self.train_epochs, 1)
+        _at_least("lr", self.lr, 0.0, strict=True)
+        _at_least("batch_size", self.batch_size, 1)
+        _one_of("optimizer", self.optimizer, ("adamw", "adam", "adamw8bit"))
+        _at_least("weight_decay", self.weight_decay, 0.0)
+        _one_of("amp_dtype", self.amp_dtype, ("bf16", "fp16"))
+        _at_least("log_steps", self.log_steps, 1)
+        _at_least("freeze_backbone_epochs", self.freeze_backbone_epochs, 0)
+        _at_least("warmup_epochs", self.warmup_epochs, 0)
+        _one_of("scheduler_type", self.scheduler_type, ("none", "cosine", "linear", "step"))
+        if self.adam_betas is not None:
+            self.adam_betas = tuple(self.adam_betas)
+
+
+@dataclass
+class SchedulerConfig:
+    """Learning-rate schedule selector (≈ ``avex_tpu.configs.SchedulerConfig``)."""
+
+    name: str = "none"
+    warmup_steps: int = 0
+    min_lr: float = 0.0
+
+    def __post_init__(self) -> None:
+        _one_of("name", self.name, ("cosine", "linear", "none"))
+        _at_least("warmup_steps", self.warmup_steps, 0)
+        _at_least("min_lr", self.min_lr, 0.0)
+
+
+#: the single-device mesh layout; any other value names a parallel layout
+#: that the port does not have (ROADMAP queue 1, item 14)
+_SINGLE_DEVICE_MESH = {
+    "data": (-1, 1), "model": (1,), "param_sharding": ("replicated",),
+    "pipeline_microbatches": (0,), "sequence_parallel": (False,),
+}
+
+
+@dataclass
+class RunConfig:
+    """The fields of a training run that the port's trainer reads
+    (≈ ``avex_tpu.configs.RunConfig``).
+
+    ``loss_function`` takes the reference's aliases (``binary_cross_entropy``
+    → ``bce``, ``contrastive`` → ``clip``). ``dataset_config`` is accepted and
+    ignored: the trainer takes loaders, and the data pipeline is not ported
+    (ROADMAP queue 1, item 12). ``mesh``, ``augmentations`` and
+    ``clustering_eval`` are accepted and raise ``NotImplementedError`` when
+    they ask for more than one device, an augmentation or a clustering
+    evaluation. ``device`` defaults to ``cuda``.
+    """
+
+    model_spec: Union[ModelSpec, Dict[str, Any]]
+    training_params: Union[TrainingParams, Dict[str, Any]]
+    output_dir: str
+    dataset_config: Any = None
+    label_type: str = "supervised"
+    resume_from_checkpoint: Optional[str] = None
+    #: epoch checkpoint cadence of the reference's run script (0 disables)
+    checkpoint_freq: int = 1
+    #: rolling mid-epoch ``step_checkpoint`` every N train steps (0 disables)
+    checkpoint_every_steps: int = 0
+    #: save a ``step_checkpoint`` and stop the epoch loop on SIGTERM
+    save_on_preemption: bool = True
+    mesh: Optional[Union[Mapping[str, Any], Any]] = None
+    augmentations: List[Any] = field(default_factory=list)
+    loss_function: str = "cross_entropy"
+    multilabel: bool = False
+    metrics: List[str] = field(default_factory=lambda: ["accuracy"])
+    device: str = "cuda"
+    seed: int = 42
+    scheduler: Union[SchedulerConfig, Dict[str, Any]] = field(default_factory=SchedulerConfig)
+    clustering_eval: Optional[Any] = None
+    run_name: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if isinstance(self.model_spec, dict):
+            self.model_spec = ModelSpec(**self.model_spec)
+        if isinstance(self.training_params, dict):
+            self.training_params = TrainingParams(**self.training_params)
+        if isinstance(self.scheduler, dict):
+            self.scheduler = SchedulerConfig(**self.scheduler)
+        _one_of("label_type", self.label_type, ("supervised", "text", "self_supervised"))
+        self.loss_function = {"binary_cross_entropy": "bce", "contrastive": "clip"}.get(
+            self.loss_function, self.loss_function
+        )
+        _one_of("loss_function", self.loss_function, ("cross_entropy", "bce", "focal", "clip"))
+        # multilabel ⇒ bce/focal; clip loss ⇒ text labels (the JAX package's checks)
+        if self.multilabel and self.loss_function not in ("bce", "focal"):
+            raise ValueError("multilabel=True requires loss_function in {'bce','focal'}")
+        if self.loss_function == "clip" and self.label_type != "text":
+            raise ValueError("loss_function='clip' requires label_type='text'")
+        if self.mesh is not None:
+            for name, allowed in _SINGLE_DEVICE_MESH.items():
+                value = self.mesh.get(name, allowed[0]) if isinstance(self.mesh, Mapping) else getattr(
+                    self.mesh, name, allowed[0])
+                if value not in allowed:
+                    raise NotImplementedError(
+                        f"mesh.{name}={value!r}: the port trains on one device; meshes, FSDP, "
+                        f"pipeline and sequence parallelism are ROADMAP queue 1, item 14"
+                    )
+        if self.augmentations:
+            raise NotImplementedError("augmentations belong to the data pipeline, which is not "
+                                      "ported (ROADMAP queue 1, item 12)")
+        enabled = (self.clustering_eval.get("enabled", False) if isinstance(self.clustering_eval, Mapping)
+                   else getattr(self.clustering_eval, "enabled", False))
+        if enabled:
+            raise NotImplementedError("clustering evaluation during training is not ported "
+                                      "(ROADMAP queue 1, item 9)")
+
+    def replace(self, **changes: Any) -> "RunConfig":
         """A copy with ``changes`` applied (≈ pydantic ``model_copy(update=...)``)."""
         return dataclasses.replace(self, **changes)
 

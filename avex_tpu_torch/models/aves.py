@@ -222,7 +222,7 @@ class AVESModel(nn.Module):
     ) -> None:
         super().__init__()
         if scan_layers:
-            raise NotImplementedError("AVES scan_layers is not ported to PyTorch yet (ROADMAP queue 1, item 10)")
+            raise NotImplementedError("AVES scan_layers is not ported to PyTorch yet (ROADMAP queue 1, item 14)")
         self.cfg, self.num_classes, self.dtype = cfg, num_classes, dtype
         self.feature_extractor = _FeatureExtractor(dtype)
         self.encoder = _Encoder(cfg, dtype, use_pallas)
@@ -302,7 +302,7 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     ``[out, in/g, K]``; LayerNorm / GroupNorm ``scale`` → ``weight``.
     """
     if "layers" in params:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 10)")
+        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14)")
     out: Dict[str, np.ndarray] = {}
 
     def put(key: str, value: Any) -> None:

@@ -6,7 +6,10 @@ activations, with no forward hooks — with the reference model API: layer
 discovery and selection (int, negative int, ``all``, ``last_layer``),
 ``forward`` / ``__call__``, ``batch_inference``, and ``extract_embeddings``
 with ``none`` / ``mean`` / ``max`` / ``cls_token`` aggregation and
-multi-layer concatenation.
+multi-layer concatenation. For training, :meth:`ModelBase.train_forward`
+runs the module with the strategy's keywords (``deterministic``,
+``disable_layerdrop``, ``generator``) filtered by the module's signature, and
+``frozen_param_keys`` names top-level parameter groups no optimizer updates.
 
 Placement is explicit: a model lives on ``cuda`` unless it was built with
 ``device="cpu"``, and it never moves to the CPU by itself.
@@ -14,6 +17,7 @@ Placement is explicit: a model lives on ``cuda`` unless it was built with
 
 from __future__ import annotations
 
+import inspect
 import logging
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -52,6 +56,11 @@ class ModelBase:
     padding_mask)`` returns ``(output, aux)``) and implement
     ``_discover_embedding_layers``.
     """
+
+    #: top-level parameter names (the first component of a name in the
+    #: module's ``named_parameters``) that the trainer never updates, e.g. an
+    #: EMA teacher (the JAX package's meaning)
+    frozen_param_keys: Tuple[str, ...] = ()
 
     def __init__(
         self,
@@ -168,6 +177,17 @@ class ModelBase:
     def __call__(self, x: ArrayLike, padding_mask: Optional[ArrayLike] = None) -> torch.Tensor:
         return self.forward(x, padding_mask)
 
+    def train_forward(self, x: ArrayLike, padding_mask: Optional[ArrayLike] = None, **kwargs: Any):
+        """The module's ``(output, aux)`` on the processed audio, with grad
+        tracking as the caller has it. ``kwargs`` is the strategies' superset
+        of per-model knobs (``deterministic``, ``disable_layerdrop``,
+        ``generator``), filtered against the module's ``forward`` signature so
+        that every architecture trains through one step, as the JAX trainer's
+        ``_make_apply_fn`` does."""
+        accepted = inspect.signature(type(self.module).forward).parameters
+        kwargs = {k: v for k, v in kwargs.items() if k in accepted}
+        return self.module(self.process_audio(x), self._as_mask(padding_mask), **kwargs)
+
     def batch_inference(self, batched_samples: Sequence[ArrayLike]) -> torch.Tensor:
         """Run :meth:`forward` over pre-batched chunks and concatenate."""
         outs = []
@@ -272,6 +292,10 @@ class ModelBase:
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The module's state dict, in the port's own key layout."""
         return self.module.state_dict()
+
+    def enable_gradient_checkpointing(self) -> None:
+        """Recompute each layer's activations in the backward pass; see subclasses."""
+        raise NotImplementedError(f"{type(self).__name__} does not support gradient checkpointing.")
 
     def load_state_dict(self, state: Dict[str, np.ndarray], strict: bool = False) -> None:
         """Install converted reference-checkpoint weights; see subclasses."""

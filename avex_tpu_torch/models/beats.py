@@ -19,11 +19,16 @@ Port of ``avex_tpu/models/beats.py``:
   (``backbone.post_extract_proj``, ``backbone.encoder.layers.{i}.fc2``);
 - with ``quantize_encoder`` (or after :meth:`Model.quantize`) the encoder's
   q/k/v/out projections and fc1/fc2 are ``Int8Linear`` layers under the same
-  names (W8A8, the K7 kernel on CUDA); the attention is unchanged.
-
-The port is inference-only for now: dropout and LayerDrop belong to
-training (ROADMAP queue 1, item 10) and never run, as in the JAX wrapper,
-which always applies the model deterministically.
+  names (W8A8, the K7 kernel on CUDA); the attention is unchanged;
+- training mode (``deterministic=False``): residual dropout ``cfg.dropout``
+  after the encoder's first LayerNorm and on both branches of every layer,
+  ``activation_dropout`` after fc1, ``dropout_input`` after the projection,
+  and, unless ``disable_layerdrop``, LayerDrop (a layer is kept with
+  probability ``1 - encoder_layerdrop``; a dropped layer passes its input on
+  and reports a zero fc2 output). Every draw comes from the ``generator`` the
+  caller hands in. Attention dropout is not applied, as in the JAX package;
+- ``remat`` checkpoints each encoder layer (``torch.utils.checkpoint``,
+  non-reentrant), replaying the layer's random draws on recompute.
 
 With ``compute_dtype="bfloat16"`` parameters stay fp32 and matmul inputs are
 cast to bf16 (flax ``dtype=bf16``); LayerNorm statistics are fp32 with a bf16
@@ -51,9 +56,11 @@ from torch import nn
 from avex_tpu_torch.models.base import ModelBase
 from avex_tpu_torch.models.common import (
     build_module,
+    checkpoint_layer,
     config_from_dict,
     conv_positions,
     dense,
+    dropout,
     fold_weight_norm,
     gelu,
     layer_norm,
@@ -82,7 +89,8 @@ __all__ = [
     "quantize_beats_params",
 ]
 
-_NOT_PORTED = ("scan_layers", "remat")
+#: JAX options the port does not have yet, and the ROADMAP item of each
+_NOT_PORTED = {"scan_layers": "queue 1, item 14"}
 
 
 @dataclass
@@ -138,6 +146,8 @@ class BEATsConfig:
     fused_qkv: bool = False
     scan_layers: bool = False
     remat: bool = False
+    #: what a checkpointed layer keeps: None / "nothing" (recompute everything)
+    remat_policy: Optional[str] = None
     quantize_encoder: bool = False
 
     extra: Dict[str, Any] = field(default_factory=dict)
@@ -149,11 +159,18 @@ class BEATsConfig:
 
     def check_supported(self) -> None:
         """Raise for the JAX package's options this port does not have yet."""
-        for name in _NOT_PORTED:
+        for name, item in _NOT_PORTED.items():
             if getattr(self, name):
                 raise NotImplementedError(
-                    f"BEATsConfig.{name}=True is not ported to PyTorch yet (ROADMAP queue 1)"
+                    f"BEATsConfig.{name}=True is not ported to PyTorch yet (ROADMAP {item})"
                 )
+        if self.remat and self.remat_policy not in (None, "nothing"):
+            if self.remat_policy == "dots":
+                raise NotImplementedError(
+                    "remat_policy='dots' (keep the matmul outputs) is not ported yet "
+                    "(ROADMAP queue 1, item 10); None or 'nothing' recompute the whole layer"
+                )
+            raise ValueError(f"Unknown remat_policy {self.remat_policy!r} (None, 'nothing', 'dots')")
         if self.activation_fn != "gelu":
             raise NotImplementedError(f"activation_fn {self.activation_fn!r} (only 'gelu')")
 
@@ -287,23 +304,30 @@ class _EncoderLayer(nn.Module):
         x: torch.Tensor,
         position_bias: Optional[torch.Tensor],
         key_padding_mask: Optional[torch.Tensor],
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg, dt = self.cfg, self.dtype
+
+        def drop(t: torch.Tensor, rate: float) -> torch.Tensor:
+            return dropout(t, rate, deterministic, generator)
+
         if cfg.layer_norm_first:
             residual = x
             h = self.self_attn(layer_norm(self.self_attn_layer_norm, x, dt), position_bias, key_padding_mask)
-            x = residual + h
+            x = residual + drop(h, cfg.dropout)
             residual = x
             h = gelu(dense(self.fc1, layer_norm(self.final_layer_norm, x, dt), dt))
-            fc2_out = dense(self.fc2, h, dt)
-            x = residual + fc2_out
+            fc2_out = dense(self.fc2, drop(h, cfg.activation_dropout), dt)
+            x = residual + drop(fc2_out, cfg.dropout)
         else:
             h = self.self_attn(x, position_bias, key_padding_mask)
-            x = x * self.alpha + h
+            x = x * self.alpha + drop(h, cfg.dropout)
             x = layer_norm(self.self_attn_layer_norm, x, dt)
             residual = x
-            fc2_out = dense(self.fc2, gelu(dense(self.fc1, x, dt)), dt)
-            x = residual * self.alpha + fc2_out
+            h = drop(gelu(dense(self.fc1, x, dt)), cfg.activation_dropout)
+            fc2_out = dense(self.fc2, h, dt)
+            x = residual * self.alpha + drop(fc2_out, cfg.dropout)
             x = layer_norm(self.final_layer_norm, x, dt)
         return x, fc2_out
 
@@ -339,6 +363,9 @@ class _TransformerEncoder(nn.Module):
         self,
         x: torch.Tensor,
         padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        disable_layerdrop: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg, dt = self.cfg, self.dtype
         seq = x.shape[1]
@@ -349,14 +376,28 @@ class _TransformerEncoder(nn.Module):
 
         if not cfg.layer_norm_first:
             x = layer_norm(self.layer_norm, x, dt)
+        x = dropout(x, cfg.dropout, deterministic, generator)
 
         position_bias = self.position_bias(seq, x.device) if cfg.relative_position_embedding else None
+        use_layerdrop = not disable_layerdrop and cfg.encoder_layerdrop > 0 and not deterministic
+        if use_layerdrop and generator is None:
+            raise ValueError("LayerDrop outside deterministic mode needs a torch.Generator")
+        remat = cfg.remat and torch.is_grad_enabled()
 
         intermediates: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(self.layers):
             if cfg.layer_wise_gradient_decay_ratio != 1.0:
                 x = grad_multiply(x, cfg.layer_wise_gradient_decay_ratio)
-            x, fc2_out = layer(x, position_bias, padding_mask)
+            args = (x, position_bias, padding_mask, deterministic)
+            new_x, fc2_out = checkpoint_layer(layer, generator, *args) if remat else layer(*args, generator)
+            if use_layerdrop:
+                # LayerDrop: keep the layer with probability 1 - layerdrop. As
+                # in JAX the layer runs either way and the draw selects, so the
+                # step stays on the device and launches the same kernels.
+                keep = torch.rand((), generator=generator, device=x.device) > cfg.encoder_layerdrop
+                new_x = torch.where(keep, new_x, x)
+                fc2_out = torch.where(keep, fc2_out, torch.zeros_like(fc2_out))
+            x = new_x
             intermediates[f"encoder.layers.{i}.fc2"] = fc2_out
 
         if cfg.layer_norm_first:
@@ -414,6 +455,9 @@ class BEATsBackbone(nn.Module):
         self,
         source: torch.Tensor,
         padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        disable_layerdrop: bool = True,
+        generator: Optional[torch.Generator] = None,
         apply_predictor: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         cfg, dt = self.cfg, self.dtype
@@ -427,13 +471,18 @@ class BEATsBackbone(nn.Module):
         if cfg.embed_dim != cfg.encoder_embed_dim:
             x = dense(self.post_extract_proj, x, dt)
         intermediates = {"post_extract_proj": x}
+        x = dropout(x, cfg.dropout_input, deterministic, generator)
 
-        x, enc_inter = self.encoder(x, padding_mask=padding_mask)
+        x, enc_inter = self.encoder(
+            x, padding_mask=padding_mask, deterministic=deterministic,
+            disable_layerdrop=disable_layerdrop, generator=generator,
+        )
         intermediates.update(enc_inter)
         aux: Dict[str, Any] = {"intermediates": intermediates, "padding_mask": padding_mask}
 
         if apply_predictor and cfg.finetuned_model:
-            logits = dense(self.predictor, x, dt)
+            h = dropout(x, cfg.predictor_dropout, deterministic, generator)
+            logits = dense(self.predictor, h, dt)
             if padding_mask is not None:
                 logits = logits.masked_fill(padding_mask[:, :, None], 0.0)
                 denom = (~padding_mask).sum(dim=1, keepdim=True).clamp_min(1)
@@ -470,10 +519,18 @@ class BEATsModel(nn.Module):
         self,
         x: torch.Tensor,
         padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        disable_layerdrop: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """``deterministic=False`` turns on dropout and, unless
+        ``disable_layerdrop``, LayerDrop, drawing from ``generator``."""
         if self.use_naturelm:
             x = x.clamp(-1.0, 1.0)
-        features, aux = self.backbone(x, padding_mask=padding_mask)
+        features, aux = self.backbone(
+            x, padding_mask=padding_mask, deterministic=deterministic,
+            disable_layerdrop=disable_layerdrop, generator=generator,
+        )
         aux["intermediates"] = {f"backbone.{k}": v for k, v in aux["intermediates"].items()}
         aux["features"] = features
 
@@ -704,6 +761,12 @@ class Model(ModelBase):
         """Load a reference BEATs checkpoint (SSL / fine-tuned / NatureLM naming)."""
         converted = convert_beats_state_dict(state, self.cfg, num_classes=self.num_classes)
         self.load_port_state_dict(converted, strict=strict)
+
+    def enable_gradient_checkpointing(self) -> None:
+        """Checkpoint every encoder layer (``remat``): its activations are
+        recomputed in the backward pass instead of kept."""
+        self.cfg.remat = True  # the module's layers share this config
+        self.cfg.check_supported()
 
     def quantize(self, mode: str = "int8") -> None:
         """Convert to W8A8 dynamic-int8 encoder inference (serving mode).

@@ -7,6 +7,9 @@
 - the exact (erf) GELU;
 - ``conv_positions``: the grouped Conv1d positional embedding of BEATs and
   AVES, with the even-kernel trim;
+- ``dropout`` (flax ``nn.Dropout``, drawing from a caller's generator) and
+  ``checkpoint_layer`` (per-layer gradient checkpointing that replays the
+  layer's draws on recompute);
 - the weight-norm fold of the reference checkpoints' pos_conv;
 - ``config_from_dict``: an ``init_config`` dict → a config dataclass;
 - ``build_module``: construct a module without storage, give it CPU memory
@@ -24,15 +27,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.quant import Int8Linear
 
 __all__ = [
     "build_module",
+    "checkpoint_layer",
     "config_from_dict",
     "conv_positions",
     "dense",
+    "dropout",
     "fold_weight_norm",
     "gelu",
     "group_norm",
@@ -76,6 +82,50 @@ def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
         return layer(x)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, deterministic: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``, in x's type; the identity when
+    ``deterministic`` or ``rate == 0``. The draws come from ``generator``,
+    never from the global RNG."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout outside deterministic mode needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def checkpoint_layer(layer: Callable, generator: Optional[torch.Generator], *args: Any) -> Any:
+    """``layer(*args, generator)`` under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward pass.
+
+    The checkpoint restores the global RNG for the recompute but not a
+    caller's generator, so this wrapper does: the recompute starts from the
+    generator state the forward started from and draws the same dropout
+    masks, and the generator is put back afterwards.
+    """
+    start = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(*inputs: Any) -> Any:
+        if calls and generator is not None:  # the recompute
+            now = generator.get_state()
+            generator.set_state(start)
+            try:
+                return layer(*inputs, generator)
+            finally:
+                generator.set_state(now)
+        calls.append(1)
+        return layer(*inputs, generator)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

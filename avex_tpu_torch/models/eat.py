@@ -19,9 +19,11 @@ Port of ``avex_tpu/models/eat.py``:
 
 Module names follow the reference's ``backbone.model`` layout, so
 :func:`convert_eat_state_dict` is key renaming; :func:`params_from_jax`
-carries a JAX ``variables["params"]`` tree (as numpy) across. Inference only:
-the layer-stack layouts of the JAX package (``scan_layers``,
-``layer_runner``) and ring attention raise ``NotImplementedError``.
+carries a JAX ``variables["params"]`` tree (as numpy) across. The JAX
+``_Block`` has no dropout, so training runs the same forward; on CUDA the K5
+route's backward is the K6 kernel. The layer-stack layouts of the JAX package
+(``scan_layers``, ``layer_runner``) and ring attention raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ __all__ = [
 
 #: JAX layer-stack options and the ROADMAP item that brings each to the port.
 _NOT_PORTED = {
-    "scan_layers": "queue 1, item 10",
+    "scan_layers": "queue 1, item 14",
     "layer_runner": "queue 1, item 14",
     "ring_mesh": "queue 1, item 14",
 }
@@ -313,7 +315,7 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     out]`` → ``[out, 1, kh, kw]``; LayerNorm ``scale`` → ``weight``.
     """
     if "blocks" in params:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 10)")
+        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14)")
     out: Dict[str, np.ndarray] = {}
 
     def put(key: str, value: Any) -> None:

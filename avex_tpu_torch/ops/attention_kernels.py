@@ -3,27 +3,34 @@
 Port of ``avex_tpu/ops/pallas_attention.py``'s four forward kernels, which
 compute ``softmax(q·kᵀ·scale + gate ⊙ pos_bias + pad) · v`` (gated) or
 ``softmax(q·kᵀ·scale + pad) · v`` (bias-free) with fp32 logits and softmax
-and P cast to v's type before PV:
+and P cast to v's type before PV, and of its two backward kernels:
 
 - :func:`gated_bias_attention` replaces ``_attention_kernel`` (K1,
   ``pallas_attention.py:126``, launched at ``:272``) and, with
   ``pos_bias=None``, ``_plain_attention_kernel`` (K4, ``:161``, launched at
-  ``:261``): split ``[B, H, T, D]`` q/k/v, ``[B, H, T, D]`` out;
+  ``:261``): split ``[B, H, T, D]`` q/k/v, ``[B, H, T, D]`` out; its backward
+  is the plain twin under autograd, as JAX's ``_bwd`` (``:297-338``) is jnp;
 - :func:`fused_qkv_gated_attention` replaces ``_fused_qkv_gated_kernel``
   (K2, ``:389``, launched at ``:745``): q/k/v are column views of the raw
-  ``[B, T, 3E]`` projection, the output is the merged ``[B, T, E]``;
+  ``[B, T, 3E]`` projection, the output is the merged ``[B, T, E]``; its
+  backward replaces ``_fused_qkv_gated_bwd_kernel`` (K3, ``:765``, launched
+  at ``:902``);
 - :func:`fused_qkv_attention` replaces ``_fused_qkv_kernel`` (K5, ``:344``,
-  launched at ``:511``): the bias-free cell in K2's layout.
+  launched at ``:511``): the bias-free cell in K2's layout; its backward
+  replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
-All four launch the one kernel body in ``csrc/gated_attention.cu``, gated or
+All of them launch the kernels of ``csrc/gated_attention.cu``, gated or
 bias-free by a template flag; the two layouts differ only in the strides
-handed to it. On an H100 at the BEATs and EAT shapes the call is bound by
-bytes (see the source's header for the bound and what this first design
-does about it).
+handed to them. On an H100 at the BEATs and EAT shapes the forward is bound
+by bytes (see the source's header for the bounds and what this first design
+does about them).
 
-A tensor on the CPU takes the plain PyTorch twin (``*_reference``); a CUDA
-tensor launches the kernel or raises. Each launch adds one to
-:data:`LAUNCHES`, so a run can show that its path went through the kernel.
+A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
+autograd through it); a CUDA tensor launches the kernel or raises, forward
+and backward. Each launch adds one to :data:`LAUNCHES`, so a run can show
+that its path went through the kernel. The backward twins
+(``*_backward_reference``) write K3's and K6's steps out one by one; the
+tests and ``chip_smoke.py`` hold the kernels against them.
 """
 
 from __future__ import annotations
@@ -41,8 +48,10 @@ __all__ = [
     "LAUNCHES",
     "HEAD_DIM",
     "fused_qkv_attention",
+    "fused_qkv_backward_reference",
     "fused_qkv_compatible",
     "fused_qkv_gated_attention",
+    "fused_qkv_gated_backward_reference",
     "fused_qkv_gated_reference",
     "fused_qkv_reference",
     "gated_bias_attention",
@@ -56,13 +65,22 @@ HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel:
-#: K1, K2, K4 (``gated_bias_attention`` with ``pos_bias=None``) and K5
+#: K1, K2, K4 (``gated_bias_attention`` with ``pos_bias=None``), K5, and the
+#: backward kernels K3 and K6 (one count per backward call)
 LAUNCHES: Dict[str, int] = {
     "gated_bias_attention": 0,
     "fused_qkv_gated_attention": 0,
     "plain_attention": 0,
     "fused_qkv_attention": 0,
+    "fused_qkv_gated_attention_backward": 0,
+    "fused_qkv_attention_backward": 0,
 }
+#: shared memory of one block (H100: 227 KB) and what K3's dQ block holds
+#: besides its [64, T] fp32 dbias rows: six [64, 64] fp32 tiles
+_MAX_BLOCK_SMEM = 232_448
+_DQ_TILES_BYTES = 6 * 64 * 64 * 4
+#: dQ blocks K3 aims to put in flight: three per SM of an H100's 132
+_DQ_TARGET_BLOCKS = 396
 
 
 _COUNT_LOCK = threading.Lock()
@@ -90,6 +108,11 @@ def _library() -> ctypes.CDLL:
         lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, *tail]
         lib.avex_gated_attention_forward.restype = i
         lib.avex_plain_attention_forward.restype = i
+        lib.avex_attention_backward.argtypes = [
+            i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+            i, i, i, i, ctypes.c_float, i, ctypes.POINTER(ctypes.c_longlong), p,
+        ]
+        lib.avex_attention_backward.restype = i
     return lib
 
 
@@ -162,6 +185,69 @@ def fused_qkv_reference(
     return out.permute(0, 2, 1, 3).reshape(bsz, seq, three_e // 3)
 
 
+def _backward_reference(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
+    """The backward chain of K3 (and, without ``pos_bias``, K6), step by step.
+
+    As ``_fused_qkv_gated_bwd_kernel`` (``pallas_attention.py:799-835``):
+    fp32 logits and softmax; P cast to v's type before ``Pᵀ·dO``; dL·scale
+    cast to q's type before ``dS·K`` and ``dSᵀ·Q``; every product in fp32.
+    """
+    bsz, seq, three_e = qkv.shape
+    dim = three_e // 3
+    scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
+    q, k, v = (t.float() for t in _split_heads(qkv, heads))
+    do = dout.reshape(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3).float()
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if pos_bias is not None:
+        bias = pos_bias[None].float()
+        logits = logits + (gate[..., None].float() * bias if gate is not None else bias)
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
+    p32 = torch.softmax(logits, dim=-1)
+    p = p32.to(qkv.dtype).float()
+    dv = torch.matmul(p.transpose(-1, -2), do)  # dV = Pᵀ·dO
+    dp = torch.matmul(do, v.transpose(-1, -2))  # dP = dO·Vᵀ
+    delta = (p32 * dp).sum(dim=-1, keepdim=True)  # Δ = rowsum(P ∘ dP)
+    dl = p32 * (dp - delta)  # the logits' cotangent
+    dgate = dbias = None
+    if pos_bias is not None:
+        dbias = (gate[..., None].float() * dl if gate is not None else dl).sum(dim=0)
+        if gate is not None:
+            dgate = (pos_bias[None].float() * dl).sum(dim=-1)
+    ds = (dl * scale).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k)  # dQ = dS·K
+    dk = torch.matmul(ds.transpose(-1, -2), q)  # dK = dSᵀ·Q
+    dqkv = torch.stack([t.permute(0, 2, 1, 3) for t in (dq, dk, dv)], dim=2)
+    return dqkv.reshape(bsz, seq, three_e).to(qkv.dtype), dbias, dgate
+
+
+def fused_qkv_gated_backward_reference(
+    qkv: torch.Tensor,
+    heads: int,
+    pos_bias: torch.Tensor,
+    gate: Optional[torch.Tensor],
+    key_padding_mask: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    scale: Optional[float] = None,
+):
+    """Plain twin of K3: ``(dqkv, dbias, dgate)`` of
+    :func:`fused_qkv_gated_attention` for the output cotangent ``dout``
+    ``[B, T, E]``. ``dbias`` is float32 ``[H, T, T]`` (summed over the batch),
+    ``dgate`` float32 ``[B, H, T]``, or None without a gate."""
+    return _backward_reference(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale)
+
+
+def fused_qkv_backward_reference(
+    qkv: torch.Tensor,
+    heads: int,
+    key_padding_mask: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain twin of K6: ``dqkv`` of :func:`fused_qkv_attention` for ``dout``."""
+    return _backward_reference(qkv, heads, None, None, key_padding_mask, dout, scale)[0]
+
+
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
@@ -177,30 +263,18 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
         )
 
 
-def _launch(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    pos_bias: Optional[torch.Tensor],
-    gate: Optional[torch.Tensor],
-    key_padding_mask: Optional[torch.Tensor],
-    out: torch.Tensor,
-    scale: float,
-) -> None:
-    """Launch the kernel on ``[B, H, T, D]`` views; ``out`` is written in place.
-
-    With ``pos_bias`` the gated variant runs, without it the bias-free one
-    (which takes no gate either).
-    """
+def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> None:
+    """Raise on what the kernels do not take. q, k, v and every tensor of
+    ``outputs`` (name → tensor) are ``[B, H, T, D]`` views of one type."""
     bsz, heads, seq, dim = q.shape
     if dim != HEAD_DIM:
         raise ValueError(f"the attention kernel takes head_dim {HEAD_DIM}, got {dim}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v), ("out", out)):
+    for name, t in (("k", k), ("v", v), *outputs.items()):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    for name, t in (("q", q), ("k", k), ("v", v), *outputs.items()):
         _check_rows(name, t)
     if pos_bias is None and gate is not None:
         raise ValueError("a gate needs a pos_bias to modulate")
@@ -218,6 +292,22 @@ def _launch(
         if t is not None and t.device != q.device:
             raise ValueError("every operand must lie on q's device")
 
+
+def _launch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos_bias: Optional[torch.Tensor],
+    gate: Optional[torch.Tensor],
+    key_padding_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    scale: float,
+) -> None:
+    """Launch the forward kernel on ``[B, H, T, D]`` views; ``out`` is written
+    in place. With ``pos_bias`` the gated variant runs, without it the
+    bias-free one (which takes no gate either)."""
+    _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
+    bsz, heads, seq, dim = q.shape
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = key_padding_mask.data_ptr() if key_padding_mask is not None else None
     lib = _library()
@@ -263,13 +353,83 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale) -> torch.
     return out
 
 
-def _forward_only(name: str, backward: str, number: str, tensors) -> None:
-    """The fused-layout kernels have no backward yet: refuse a tensor that needs one."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only on CUDA: its backward kernel ({backward}) is "
-            f"ROADMAP queue 2, {number}"
+def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
+    """Launch K3 (with ``pos_bias``) or K6; returns ``(dqkv, dbias, dgate)``.
+
+    dq, dk and dv are written straight into the column views of one
+    ``[B, T, 3E]`` gradient, the layout the forward reads q, k and v from.
+    """
+    bsz, seq, three_e = qkv.shape
+    dim = three_e // 3
+    gated = pos_bias is not None
+    qkv = qkv.contiguous()
+    q, k, v = _split_heads(qkv, heads)
+    dqkv = torch.empty_like(qkv)
+    dq, dk, dv = _split_heads(dqkv, heads)
+    do = dout.contiguous().view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
+    _check_operands(q, k, v, {"dout": do, "dq": dq, "dk": dk, "dv": dv}, pos_bias, gate, key_padding_mask)
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    stats = torch.empty(3, bsz, heads, seq, **f32)
+    dbias = part = dgate = None
+    items = 1
+    if gated:
+        tiles = -(-seq // 64)
+        if _DQ_TILES_BYTES + 64 * tiles * 64 * 4 > _MAX_BLOCK_SMEM:
+            raise ValueError(f"the gated attention backward keeps [64, T] fp32 dbias rows in shared "
+                             f"memory and takes T <= 512; got T={seq}")
+        # Batch items per dQ block: enough blocks to fill the card, one dbias
+        # partial per chunk of items, summed in a second pass.
+        chunks = min(bsz, -(-_DQ_TARGET_BLOCKS // (tiles * heads)))
+        items = -(-bsz // chunks)
+        chunks = -(-bsz // items)
+        dbias = torch.empty(heads, seq, seq, **f32)
+        part = torch.empty(chunks, heads, seq, seq, **f32) if chunks > 1 else None
+        dgate = torch.empty(bsz, heads, seq, **f32) if gate is not None else None
+    pad = key_padding_mask
+    views = [t.stride()[:3] for t in (q, k, v, do, dq, dk, dv)]
+    bias_strides = pos_bias.stride() if gated else (0, 0, 0)
+    gate_strides = gate.stride() if gate is not None else (0, 0, 0)
+    pad_strides = pad.stride() if pad is not None else (0, 0)
+    strides = (ctypes.c_longlong * 29)(*(s for v3 in views for s in v3), *bias_strides, *gate_strides, *pad_strides)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.avex_attention_backward(
+            _DTYPE_CODES[qkv.dtype], int(gated), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            ptr(pos_bias), ptr(gate), ptr(pad), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ptr(part), ptr(dbias), ptr(dgate), stats.data_ptr(),
+            bsz, heads, seq, dim // heads, float(scale), items, strides, stream,
         )
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
+    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward")
+    return dqkv, dbias, dgate
+
+
+class _FusedQKVAttention(torch.autograd.Function):
+    """CUDA tensors: K2 (with ``pos_bias``) or K5 forward, K3 or K6 backward.
+
+    The residuals are the forward's inputs, as JAX keeps them
+    (``pallas_attention.py:648-650``, ``:940-944``).
+    """
+
+    @staticmethod
+    def forward(ctx, qkv, pos_bias, gate, key_padding_mask, heads, scale):
+        ctx.save_for_backward(qkv, pos_bias, gate, key_padding_mask)
+        ctx.heads, ctx.scale = heads, scale
+        return _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, pos_bias, gate, key_padding_mask = ctx.saved_tensors
+        dqkv, dbias, dgate = _kernel_fused_backward(
+            qkv, ctx.heads, pos_bias, gate, key_padding_mask, dout, ctx.scale
+        )
+        return dqkv, dbias, dgate, None, None, None
 
 
 class _GatedBiasAttention(torch.autograd.Function):
@@ -351,9 +511,9 @@ def fused_qkv_gated_attention(
     q, k and v are read as column views (``q | k | v``, each head-major) and
     the output is written as merged heads, ``[B, T, E]``. ``pos_bias`` is
     required: bias-free attention in this layout is
-    :func:`fused_qkv_attention` (K5). Forward only: on a CUDA tensor that
-    requires grad it raises, since the backward kernel
-    (``_fused_qkv_gated_bwd_kernel``, ROADMAP queue 2: K3) is not ported yet.
+    :func:`fused_qkv_attention` (K5). Differentiable in ``qkv``, ``pos_bias``
+    and ``gate``: on CUDA the backward is the K3 kernel, on the CPU autograd
+    through the plain twin.
     """
     if pos_bias is None:
         raise ValueError("fused_qkv_gated_attention needs a pos_bias; use fused_qkv_attention without one")
@@ -361,8 +521,7 @@ def fused_qkv_gated_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     if qkv.device.type == "cpu":
         return fused_qkv_gated_reference(qkv, heads, pos_bias, gate, key_padding_mask, scale)
-    _forward_only("fused_qkv_gated_attention", "_fused_qkv_gated_bwd_kernel", "K3", (qkv, pos_bias, gate))
-    return _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale)
+    return _FusedQKVAttention.apply(qkv, pos_bias, gate, key_padding_mask, heads, scale)
 
 
 def fused_qkv_attention(
@@ -375,14 +534,12 @@ def fused_qkv_attention(
 
     q, k and v are read as column views (``q | k | v``, each head-major) and
     the output is written as merged heads, ``[B, T, E]``. ``key_padding_mask``
-    is ``[B, T]`` bool, True = padded key. On the CPU the plain twin runs and
-    is differentiable. On CUDA the kernel is forward only: a tensor that
-    requires grad raises, since the backward kernel (``_fused_qkv_bwd_kernel``,
-    ROADMAP queue 2: K6) is not ported yet.
+    is ``[B, T]`` bool, True = padded key. Differentiable in ``qkv``: on
+    CUDA the backward is the K6 kernel, on the CPU autograd through the plain
+    twin.
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     if qkv.device.type == "cpu":
         return fused_qkv_reference(qkv, heads, key_padding_mask, scale)
-    _forward_only("fused_qkv_attention", "_fused_qkv_bwd_kernel", "K6", (qkv,))
-    return _kernel_fused(qkv, heads, None, None, key_padding_mask, scale)
+    return _FusedQKVAttention.apply(qkv, None, None, key_padding_mask, heads, scale)

@@ -11,7 +11,8 @@
 //   - _fused_qkv_kernel        avex_tpu/ops/pallas_attention.py:344  (column views of [B,T,3E])
 // Both layouts are only different strides here: every operand is a base
 // pointer plus (batch, head, token) strides, with the head dimension
-// contiguous.
+// contiguous. The backward of the fused layouts (K3 and K6) follows the
+// forward, below, with its own design note.
 //
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
@@ -318,4 +319,516 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
   memcpy(s.pad, strides + 12, 2 * sizeof(long long));
   return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, batch, heads, seq, head_dim,
                          scale, s, stream);
+}
+
+// ===========================================================================
+// Backward: K3 (_fused_qkv_gated_bwd_kernel, pallas_attention.py:765) and K6
+// (_fused_qkv_bwd_kernel, pallas_attention.py:524), gated or bias-free by the
+// same template flag. With L = q·kᵀ·scale (+ gate ⊙ bias) + pad, P = softmax(L)
+// in fp32:
+//
+//   dV = Pᵀ·dO   dP = dO·Vᵀ   Δ = rowsum(P ∘ dP)   dL = P ∘ (dP − Δ)
+//   dQ = (dL·scale)·K   dK = (dL·scale)ᵀ·Q
+//   dgate[b,h,t] = Σ_k bias[h,t,k]·dL[b,h,t,k]   dbias[h] = Σ_b gate[b,h,:,None] ⊙ dL[b,h]
+//
+// P is rounded to v's type before Pᵀ·dO and dL·scale to q's type before the
+// two products, as the TPU kernels cast them; every product accumulates in
+// fp32. The residuals are the forward's inputs only (qkv, bias, gate, mask),
+// as in JAX: the forward saves neither O nor the row log-sum-exp, and Δ is
+// rowsum(P ∘ dP), not rowsum(dO ∘ O). dgate is computed only when there is a
+// gate (JAX computes it against a gate of ones and drops it).
+//
+// Design. The TPU kernel holds a whole [T, T] tile per (item, head) and
+// carries dbias across its sequential batch axis; Hopper blocks run in
+// parallel, so the work is split in three launches:
+//
+//   1. dQ kernel, one block per (query tile of 64, head, chunk of batch
+//      items). Per item, pass 1 walks the key tiles once for the row max,
+//      the row sum and Δ (online, with the forward's rescaling); pass 2 walks
+//      them again for dL, accumulates dQ = dS·K and dgate in registers, and
+//      adds gate ⊙ dL into the block's [64, T] dbias rows in shared memory.
+//      It writes each row's softmax shift, sum and Δ for launch 2 and, after
+//      its last item, its dbias rows as one partial per chunk.
+//   2. dK/dV kernel, one block per (key tile of 64, head, item): walks the
+//      query tiles, rebuilds P from launch 1's row statistics (the same fp32
+//      operations in the same order, so the same P) and accumulates
+//      dV = Pᵀ·dO and dK = dSᵀ·Q in registers.
+//   3. (gated, more than one chunk) dbias = the sum of the partials, in chunk
+//      order. No atomics anywhere: the result is deterministic.
+//
+// dq, dk and dv are written straight into the column views of the [B, T, 3E]
+// gradient, with the strides the forward reads q, k and v with. The products
+// run on the fp32 FMA units over fp32 tiles in shared memory, as in the
+// forward; launch 1 computes QKᵀ and dO·Vᵀ twice and launch 2 once more:
+// nine tile products where the algorithm needs five.
+//
+// Bound on an H100 at the BEATs training shape (B=64, H=12, T=248, D=64,
+// bf16, gated): the call must read q, k, v and dO and write dq, dk and dv
+// once, 7 x 24.4 MB, plus bias and dbias (2 x 2.95 MB) and gate and dgate
+// (2 x 0.76 MB), 178 MB in all, about 53 us at 3.35 TB/s; its five products
+// of 2·T·T·D FLOPs per (item, head) are 30 GFLOP, about 30 us at the bf16
+// tensor-core rate: bound by bytes. At EAT's (B=64, T=513, bias-free) it is
+// 129 GFLOP (about 131 us) against 353 MB (about 105 us): bound by operations.
+// This first kernel runs its products on the FMA units and is held back by
+// its instruction rate; wgmma on TMA-fed tiles is a later change.
+// ===========================================================================
+
+namespace {
+
+constexpr int kTile = kHeadDim * kBlockQ;  // floats in one [64][64] tile (kBlockQ == kBlockK == kHeadDim)
+constexpr size_t kDqSmemBytes = sizeof(float) * 6 * kTile;
+constexpr size_t kDkvSmemBytes = sizeof(float) * 7 * kTile;
+
+// Element strides (batch, head, token) of q, k, v, dO, dQ, dK, dV; bias
+// (head, query, key); gate (batch, head, token); pad (batch, token).
+struct BwdStrides {
+  long long q[3], k[3], v[3], dout[3], dq[3], dk[3], dv[3];
+  long long bias[3];
+  long long gate[3];
+  long long pad[2];
+};
+
+// Rows r0 .. r0+63 of a [T, D] operand (row stride rs) into shared memory:
+// transposed into trans[D][64] and/or as rows[64][D]; rows past seq are zero.
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* base, long long rs, int r0, int seq,
+                                          float* trans, float* rows) {
+  for (int c = threadIdx.x; c < 64 * (kHeadDim / 8); c += kThreads) {
+    const int r = c % 64;
+    const int chunk = c / 64;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < seq) load8(base + (long long)(r0 + r) * rs + chunk * 8, x);
+    if (trans) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) trans[(chunk * 8 + j) * 64 + r] = x[j];
+    }
+    if (rows) store8(rows + r * kHeadDim + chunk * 8, x);
+  }
+}
+
+// acc[i][j] += Σ_c a[c][ra + i] · b[c][cb + j] over c < 64, for [64][64]
+// tiles a and b in shared memory (4 rows x 8 columns per thread).
+__device__ __forceinline__ void accumulate(const float* a, const float* b, int ra, int cb,
+                                           float acc[4][8]) {
+#pragma unroll 8
+  for (int c = 0; c < 64; ++c) {
+    const float4 aa = *reinterpret_cast<const float4*>(a + c * 64 + ra);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + c * 64 + cb);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + c * 64 + cb + 4);
+    const float av[4] = {aa.x, aa.y, aa.z, aa.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void product(const float* a, const float* b, int ra, int cb,
+                                        float acc[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  accumulate(a, b, ra, cb, acc);
+}
+
+__device__ __forceinline__ float row_sum8(float x) {  // over the 8 lanes of a row group
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return x;
+}
+
+__device__ __forceinline__ float row_max8(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  return x;
+}
+
+// The logit of (query qi, key) from its q·k sum, as the forward computes it;
+// *bias_out receives the bias value the gate multiplies (0 without a bias).
+template <bool kGated>
+__device__ __forceinline__ float logit(float qk, float scale, float g, const float* bias_h,
+                                       const BwdStrides& s, const uint8_t* pad_b, int qi, int key,
+                                       float* bias_out) {
+  float x = qk * scale;
+  float bv = 0.f;
+  if constexpr (kGated) {
+    bv = __ldg(bias_h + (long long)qi * s.bias[1] + key * s.bias[2]);
+    x += g * bv;
+  }
+  if (pad_b && pad_b[key * s.pad[1]]) x = -INFINITY;
+  *bias_out = bv;
+  return x;
+}
+
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kThreads)
+attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ bias,
+                    const float* __restrict__ gate, const uint8_t* __restrict__ pad,
+                    T* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part,
+                    float* __restrict__ stats, int batch, int heads, int seq, int items_per_chunk,
+                    float scale, BwdStrides s) {
+  extern __shared__ __align__(16) float smem[];
+  float* q_t = smem;              // [D][BQ]  q transposed
+  float* do_t = q_t + kTile;      // [D][BQ]  dO transposed
+  float* k_t = do_t + kTile;      // [D][BK]  k tile transposed
+  float* v_t = k_t + kTile;       // [D][BK]  v tile transposed
+  float* k_s = v_t + kTile;       // [BK][D]  k tile
+  float* ds_t = k_s + kTile;      // [BK][BQ] dS transposed
+  float* dbias_s = ds_t + kTile;  // [BQ][seq_pad] this block's dbias rows (gated)
+
+  const int n_ktiles = (seq + kBlockK - 1) / kBlockK;
+  const int seq_pad = n_ktiles * kBlockK;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y;
+  const int chunk = blockIdx.z;
+  const int b_end = min(batch, (chunk + 1) * items_per_chunk);
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;   // keys tx*8.. (logits), dims tx*8.. (dQ)
+  const int ty = tid >> 3;  // query rows ty*4..ty*4+3
+  const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
+  const long long bht = (long long)batch * heads * seq;
+
+  if constexpr (kGated) {
+    for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) dbias_s[c] = 0.f;
+  }
+
+  for (int b = chunk * items_per_chunk; b < b_end; ++b) {
+    __syncthreads();  // the previous item's readers of q_t and do_t are done
+    load_rows(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, q_t, static_cast<float*>(nullptr));
+    load_rows(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, do_t,
+              static_cast<float*>(nullptr));
+    const T* kb = k + b * s.k[0] + h * s.k[1];
+    const T* vb = v + b * s.v[0] + h * s.v[1];
+    const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+
+    float g[4], m[4], l[4], dsum[4];
+    bool row_ok[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      row_ok[i] = qi < seq;
+      g[i] = 1.f;
+      if (kGated && gate && row_ok[i]) g[i] = gate[b * s.gate[0] + h * s.gate[1] + qi * s.gate[2]];
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+      dsum[i] = 0.f;
+    }
+
+    // Pass 1: row max, row sum and Σ exp(L - m)·dP, online.
+    for (int k0 = 0; k0 < seq; k0 += kBlockK) {
+      __syncthreads();
+      load_rows(kb, s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
+      load_rows(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+      __syncthreads();
+      float sc[4][8], dp[4][8];
+      product(q_t, k_t, ty * 4, tx * 8, sc);
+      product(do_t, v_t, ty * 4, tx * 8, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + ty * 4 + i;
+        float tile_max = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = k0 + tx * 8 + j;
+          float bv, x = -INFINITY;
+          if (row_ok[i] && key < seq)
+            x = logit<kGated>(sc[i][j], scale, g[i], bias_h, s, pad_b, qi, key, &bv);
+          sc[i][j] = x;
+          tile_max = fmaxf(tile_max, x);
+        }
+        const float m_new = fmaxf(m[i], row_max8(tile_max));
+        const float shift = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = expf(m[i] - shift);
+        float tile_l = 0.f, tile_d = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = expf(sc[i][j] - shift);
+          tile_l += p;
+          tile_d += p * dp[i][j];
+        }
+        l[i] = l[i] * corr + row_sum8(tile_l);
+        dsum[i] = dsum[i] * corr + row_sum8(tile_d);
+        m[i] = m_new;
+      }
+    }
+    float shift[4], delta[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      shift[i] = m[i] == -INFINITY ? 0.f : m[i];
+      delta[i] = dsum[i] / l[i];
+    }
+
+    // Pass 2: dL, then dQ += dS·K, dgate and dbias.
+    float acc[4][8], dg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < seq; k0 += kBlockK) {
+      __syncthreads();  // the previous tile's readers of k_t, v_t, k_s and ds_t are done
+      load_rows(kb, s.k[2], k0, seq, k_t, k_s);
+      load_rows(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+      __syncthreads();
+      float sc[4][8], dp[4][8];
+      product(q_t, k_t, ty * 4, tx * 8, sc);
+      product(do_t, v_t, ty * 4, tx * 8, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + ty * 4 + i;
+        float dl[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = k0 + tx * 8 + j;
+          dl[j] = 0.f;
+          if (row_ok[i] && key < seq) {
+            float bv;
+            const float x = logit<kGated>(sc[i][j], scale, g[i], bias_h, s, pad_b, qi, key, &bv);
+            const float p = expf(x - shift[i]) / l[i];
+            dl[j] = p * (dp[i][j] - delta[i]);
+            if constexpr (kGated) dg[i] = fmaf(bv, dl[j], dg[i]);
+          }
+          ds_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = round_like(dl[j] * scale, q);
+        }
+        if constexpr (kGated) {
+          float* row = dbias_s + (ty * 4 + i) * seq_pad + k0 + tx * 8;
+          float cur[8];
+          load8(row, cur);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) cur[j] = fmaf(g[i], dl[j], cur[j]);
+          store8(row, cur);
+        }
+      }
+      __syncthreads();
+      accumulate(ds_t, k_s, ty * 4, tx * 8, acc);
+    }
+
+    T* dqb = dq + b * s.dq[0] + h * s.dq[1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      if (row_ok[i]) store8(dqb + (long long)qi * s.dq[2] + tx * 8, acc[i]);
+      const float dg_row = row_sum8(dg[i]);
+      if (row_ok[i] && tx == 0) {
+        const long long at = ((long long)b * heads + h) * seq + qi;
+        stats[at] = shift[i];
+        stats[bht + at] = l[i];
+        stats[2 * bht + at] = delta[i];
+        if (kGated && dgate) dgate[at] = dg_row;
+      }
+    }
+  }
+
+  if constexpr (kGated) {
+    __syncthreads();
+    float* part = dbias_part + ((long long)chunk * heads + h) * seq * seq;
+    for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) {
+      const int r = c / seq_pad, key = c % seq_pad;
+      if (q0 + r < seq && key < seq) part[(long long)(q0 + r) * seq + key] = dbias_s[c];
+    }
+  }
+}
+
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kThreads)
+attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ bias,
+                     const float* __restrict__ gate, const uint8_t* __restrict__ pad,
+                     T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
+                     int batch, int heads, int seq, float scale, BwdStrides s) {
+  extern __shared__ __align__(16) float smem[];
+  float* k_t = smem;          // [D][BK]  k tile transposed
+  float* v_t = k_t + kTile;   // [D][BK]  v tile transposed
+  float* q_t = v_t + kTile;   // [D][BQ]  q tile transposed
+  float* do_t = q_t + kTile;  // [D][BQ]  dO tile transposed
+  float* q_s = do_t + kTile;  // [BQ][D]  q tile
+  float* do_s = q_s + kTile;  // [BQ][D]  dO tile
+  float* pds = do_s + kTile;  // [BQ][BK] P, then dS
+
+  const int k0 = blockIdx.x * kBlockK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;   // queries tx*8.. (logits), dims tx*8.. (dK, dV)
+  const int ty = tid >> 3;  // key rows ty*4..ty*4+3
+  const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const long long bht = (long long)batch * heads * seq;
+  const long long row0 = ((long long)b * heads + h) * seq;
+
+  load_rows(k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
+  load_rows(v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+  const T* qb = q + b * s.q[0] + h * s.q[1];
+  const T* dob = dout + b * s.dout[0] + h * s.dout[1];
+
+  bool key_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) key_ok[i] = k0 + ty * 4 + i < seq;
+
+  float dk_acc[4][8], dv_acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  for (int q0 = 0; q0 < seq; q0 += kBlockQ) {
+    __syncthreads();  // the previous tile's readers of the q/dO tiles and pds are done
+    load_rows(qb, s.q[2], q0, seq, q_t, q_s);
+    load_rows(dob, s.dout[2], q0, seq, do_t, do_s);
+    __syncthreads();
+    float st[4][8], dpt[4][8];  // [key][query]
+    product(k_t, q_t, ty * 4, tx * 8, st);
+    product(v_t, do_t, ty * 4, tx * 8, dpt);
+    float dl[4][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qi = q0 + tx * 8 + j;
+      const bool q_ok = qi < seq;
+      float shift = 0.f, l = 1.f, delta = 0.f, g = 1.f;
+      if (q_ok) {
+        shift = stats[row0 + qi];
+        l = stats[bht + row0 + qi];
+        delta = stats[2 * bht + row0 + qi];
+        if (kGated && gate) g = gate[b * s.gate[0] + h * s.gate[1] + qi * s.gate[2]];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty * 4 + i;
+        float p = 0.f;
+        dl[i][j] = 0.f;
+        if (q_ok && key_ok[i]) {
+          float bv;
+          const float x = logit<kGated>(st[i][j], scale, g, bias_h, s, pad_b, qi, key, &bv);
+          p = expf(x - shift) / l;
+          dl[i][j] = p * (dpt[i][j] - delta);
+        }
+        pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = round_like(p, q);
+      }
+    }
+    __syncthreads();
+    accumulate(pds, do_s, ty * 4, tx * 8, dv_acc);  // dV += Pᵀ·dO
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = round_like(dl[i][j] * scale, q);
+    __syncthreads();
+    accumulate(pds, q_s, ty * 4, tx * 8, dk_acc);  // dK += dSᵀ·Q
+  }
+
+  T* dkb = dk + b * s.dk[0] + h * s.dk[1];
+  T* dvb = dv + b * s.dv[0] + h * s.dv[1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!key_ok[i]) continue;
+    const int key = k0 + ty * 4 + i;
+    store8(dkb + (long long)key * s.dk[2] + tx * 8, dk_acc[i]);
+    store8(dvb + (long long)key * s.dv[2] + tx * 8, dv_acc[i]);
+  }
+}
+
+// dbias[i] = Σ_c part[c][i], in chunk order.
+__global__ void dbias_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                    long long n, int chunks) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int c = 0; c < chunks; ++c) sum += part[c * n + i];
+    out[i] = sum;
+  }
+}
+
+template <typename T, bool kGated>
+cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* dout,
+                            const void* bias, const void* gate, const void* pad, void* dq,
+                            void* dk, void* dv, void* dbias_part, void* dbias, void* dgate,
+                            void* stats, int batch, int heads, int seq, float scale,
+                            int items_per_chunk, const BwdStrides& s, cudaStream_t stream) {
+  const int tiles = (seq + kBlockQ - 1) / kBlockQ;
+  const int chunks = (batch + items_per_chunk - 1) / items_per_chunk;
+  const size_t dq_smem = kDqSmemBytes + (kGated ? sizeof(float) * kBlockQ * tiles * kBlockK : 0);
+  cudaError_t err = cudaFuncSetAttribute(attention_dq_kernel<T, kGated>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_dkv_kernel<T, kGated>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
+  if (err != cudaSuccess) return err;
+  attention_dq_kernel<T, kGated><<<dim3(tiles, heads, chunks), kThreads, dq_smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(bias),
+      static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dq),
+      static_cast<float*>(dgate), static_cast<float*>(chunks > 1 ? dbias_part : dbias),
+      static_cast<float*>(stats), batch, heads, seq, items_per_chunk, scale, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_dkv_kernel<T, kGated><<<dim3(tiles, heads, batch), kThreads, kDkvSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(bias),
+      static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<const float*>(stats), batch, heads, seq, scale, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (kGated && chunks > 1) {
+    const long long n = (long long)heads * seq * seq;
+    const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+    dbias_reduce_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(dbias_part),
+                                                    static_cast<float*>(dbias), n, chunks);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kGated>
+int dispatch_backward(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                      const void* bias, const void* gate, const void* pad, void* dq, void* dk,
+                      void* dv, void* dbias_part, void* dbias, void* dgate, void* stats, int batch,
+                      int heads, int seq, int head_dim, float scale, int items_per_chunk,
+                      const BwdStrides& s, void* stream) {
+  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
+      heads > 65535 || items_per_chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_backward<float, kGated>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
+                                               dbias_part, dbias, dgate, stats, batch, heads, seq,
+                                               scale, items_per_chunk, s, st);
+  if (dtype == 1)
+    return (int)launch_backward<__nv_bfloat16, kGated>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
+                                                       dbias_part, dbias, dgate, stats, batch,
+                                                       heads, seq, scale, items_per_chunk, s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The backward of both variants over (batch, head, token)-strided views.
+// dtype as the forward's (q, k, v, dout, dq, dk and dv share it). gated = 1
+// reads bias (float32 [H, T, T]) and gate (float32, may be null) and writes
+// dbias (float32 [H, T, T], contiguous) and, with a gate, dgate (float32
+// [B, H, T], contiguous); gated = 0 ignores all four. pad may be null.
+// stats: float32 scratch of 3·B·H·T. items_per_chunk: batch items per dQ
+// block (gated; the bias-free variant takes one); dbias_part: float32 scratch
+// of ceil(B / items_per_chunk)·H·T·T, unused (may be null) when that count is
+// 1. strides: 29 element strides in the order of struct BwdStrides. Returns a
+// cudaError_t; 0 means every kernel was launched.
+extern "C" int avex_attention_backward(int dtype, int gated, const void* q, const void* k,
+                                       const void* v, const void* dout, const void* bias,
+                                       const void* gate, const void* pad, void* dq, void* dk,
+                                       void* dv, void* dbias_part, void* dbias, void* dgate,
+                                       void* stats, int batch, int heads, int seq, int head_dim,
+                                       float scale, int items_per_chunk,
+                                       const long long* strides, void* stream) {
+  BwdStrides s;
+  memcpy(&s, strides, sizeof(BwdStrides));
+  if (gated)
+    return dispatch_backward<true>(dtype, q, k, v, dout, bias, gate, pad, dq, dk, dv, dbias_part,
+                                   dbias, dgate, stats, batch, heads, seq, head_dim, scale,
+                                   items_per_chunk, s, stream);
+  return dispatch_backward<false>(dtype, q, k, v, dout, nullptr, nullptr, pad, dq, dk, dv,
+                                  nullptr, nullptr, nullptr, stats, batch, heads, seq, head_dim,
+                                  scale, 1, s, stream);
 }

@@ -1,0 +1,379 @@
+"""Trainer: the epoch loop of supervised fine-tuning on one device.
+
+Port of ``avex_tpu/training/train.py``, in eager PyTorch:
+
+- a step is the strategy's forward and loss, ``torch.autograd.grad`` over
+  the trainable parameters and one in-place update of the optimizer chain of
+  :mod:`avex_tpu_torch.training.optimizers`; the model's module holds the
+  parameters, so the trained weights are the model handle's own;
+- dropout and LayerDrop draw from one ``torch.Generator`` on the model's
+  device, seeded from ``RunConfig.seed``; its state goes into step
+  checkpoints, so a resumed run continues the same stream;
+- two-stage fine-tuning: in stage 1 the ``backbone.*`` parameters take no
+  update (and so no weight decay), and neither do the model's
+  ``frozen_param_keys``; stage 2 rebuilds the optimizer at
+  ``second_stage_lr`` (default ``0.1 * lr``) with fresh state, so its
+  schedule restarts;
+- validation with best-model saves, ``checkpoint_every_epochs``, rolling
+  step checkpoints (``checkpoint_every_steps``) with the loader
+  skip-forward on resume, a SIGTERM save-and-stop, and resume with the
+  ``_next`` fallback of an interrupted rolling swap.
+
+The JAX trainer's device mesh, FSDP, pipeline and sequence parallelism,
+multi-process metrics and the ``AVEX_PROFILE_DIR`` trace are not ported
+(ROADMAP queue 1, item 14): each raises where it is asked for. Buffer
+donation has no meaning in eager PyTorch.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import logging
+import os
+import signal
+import time
+import uuid
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from avex_tpu_torch.configs import RunConfig
+from avex_tpu_torch.training.checkpoint import CheckpointManager
+from avex_tpu_torch.training.metrics_tracker import MetricsTracker
+from avex_tpu_torch.training.optimizers import make_optimizer
+from avex_tpu_torch.training.strategies import make_strategy
+
+__all__ = ["TrainState", "Trainer"]
+
+logger = logging.getLogger(__name__)
+
+_NOT_PORTED = "is not ported: the port trains on one device (ROADMAP queue 1, item 14)"
+
+
+@dataclass
+class TrainState:
+    """What a step advances besides the parameters: the update count, the
+    optimizer state and the random generator."""
+
+    step: int
+    opt_state: Dict[str, Any]
+    generator: torch.Generator
+
+
+def _tree_to(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree
+
+
+class Trainer:
+    """Epoch-loop trainer over any iterable of host batches.
+
+    Batches are dicts with ``raw_wav`` (B, T), an optional ``padding_mask``
+    and ``label`` (class indices, or one- or multi-hot); numpy or tensors.
+    """
+
+    def __init__(
+        self,
+        model,
+        config: RunConfig,
+        train_loader: Iterable,
+        val_loader: Optional[Iterable] = None,
+        mesh=None,
+        exp_logger=None,
+        steps_per_epoch: Optional[int] = None,
+        checkpoint_every_epochs: int = 0,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(f"a device mesh {_NOT_PORTED}")
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            raise NotImplementedError(f"multi-process training and its metric sync {_NOT_PORTED}")
+        self.model = model
+        self.config = config
+        self.params_cfg = config.training_params
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.exp_logger = exp_logger
+        self.device = model.device
+        self.strategy = make_strategy(config.label_type, config.loss_function, config.multilabel)
+        self.mode = {"supervised": "supervised", "text": "clip", "self_supervised": "ssl"}[config.label_type]
+        self.checkpoints = CheckpointManager(config.output_dir)
+        self.checkpoint_every_epochs = checkpoint_every_epochs
+        self.checkpoint_every_steps = int(config.checkpoint_every_steps or 0)
+        self._preempted = False
+        self._resume_step_in_epoch = 0
+        self._resume_loader_state = None
+
+        if steps_per_epoch is None:
+            try:
+                steps_per_epoch = len(train_loader)
+            except TypeError:
+                steps_per_epoch = 100
+        self.steps_per_epoch = steps_per_epoch
+        self.total_steps = steps_per_epoch * self.params_cfg.train_epochs
+
+        self._params = dict(model.module.named_parameters())
+        self._stage = 1 if self.params_cfg.freeze_backbone_epochs > 0 else 2
+        self._build_step(stage=self._stage)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(config.seed)
+        self.state = TrainState(step=0, opt_state=self._tx.init(self._trainable), generator=generator)
+        self.best_val_acc = -np.inf
+        self.start_epoch = 0
+        if config.resume_from_checkpoint:
+            self._resume(config.resume_from_checkpoint)
+
+    # ------------------------------------------------------------------
+
+    def _build_step(self, stage: int) -> None:
+        """(Re)build the optimizer and the trainable set for the given stage."""
+        lr_override = None
+        if stage == 2 and self.params_cfg.freeze_backbone_epochs > 0:
+            lr_override = self.params_cfg.second_stage_lr or 0.1 * self.params_cfg.lr
+        self._tx, self._schedule = make_optimizer(
+            self.params_cfg,
+            self.config.scheduler,
+            total_steps=self.total_steps,
+            params=self.model.module,
+            lr_override=lr_override,
+        )
+        frozen = set(getattr(self.model, "frozen_param_keys", ()) or ())
+        if stage == 1:
+            frozen.add("backbone")
+        self._trainable = {n: p for n, p in self._params.items() if n.split(".", 1)[0] not in frozen}
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch's numeric entries as tensors on the model's device:
+        waveforms and float labels in fp32, integer labels as int64."""
+        out: Dict[str, torch.Tensor] = {}
+        for key, value in batch.items():
+            if value is None:
+                continue
+            t = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value)
+            if t.dtype == torch.bool:
+                out[key] = t.to(self.device)
+            elif t.is_floating_point():
+                out[key] = t.to(self.device, torch.float32)
+            elif t.dtype in (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8):
+                out[key] = t.to(self.device, torch.int64)
+        return out
+
+    def _train_step(self, batch: Dict[str, Any]):
+        """One optimizer update on ``batch``; returns (loss, step metrics)."""
+        self.model.module.train()
+        batch = self._device_batch(batch)
+        loss, metrics = self.strategy.forward_loss(
+            self.model.train_forward, batch, self.state.generator, train=True
+        )
+        names = list(self._trainable)
+        params = [self._trainable[n] for n in names]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        # A parameter the loss does not reach gets a zero gradient, as in JAX.
+        grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
+        self._tx.step(self._trainable, grads, self.state.opt_state)
+        self.state.step += 1
+        return loss.detach(), metrics
+
+    def _eval_step(self, batch: Dict[str, Any]):
+        self.model.module.eval()
+        with torch.no_grad():
+            return self.strategy.forward_loss(self.model.train_forward, self._device_batch(batch), None,
+                                              train=False)
+
+    def _resume(self, path: str) -> None:
+        # Interrupted rolling swap: the stable name may be mid-rename while
+        # the complete _next checkpoint survives; fall back to it.
+        if not Path(str(path)).exists() and Path(str(path) + "_next").exists():
+            logger.warning("checkpoint %s missing; resuming from %s_next (interrupted rolling swap)", path, path)
+            path = str(path) + "_next"
+        payload = self.checkpoints.load(path)
+        self.model.module.load_state_dict(payload["params"])
+        opt_state = _tree_to(payload["opt_state"], self.device)
+        if set(opt_state["mu"]) != set(self._trainable):
+            raise ValueError(f"checkpoint {path}: its optimizer state covers other parameters than "
+                             f"this stage trains")
+        self.state.opt_state = opt_state
+        self.state.step = int(payload.get("step", 0))
+        self.start_epoch = int(payload.get("epoch", 0))
+        self.best_val_acc = float(payload.get("best_val_acc", -np.inf))
+        # Mid-epoch (step-level) checkpoints carry the position inside the
+        # epoch, a stateful loader's iterator state and the generator's state.
+        self._resume_step_in_epoch = int(payload.get("step_in_epoch", 0) or 0)
+        self._resume_loader_state = payload.get("loader_state")
+        if payload.get("rng") is not None:
+            self.state.generator.set_state(torch.tensor(payload["rng"], dtype=torch.uint8))
+        logger.info("Resumed from %s at epoch %d, step %d in the epoch", path, self.start_epoch,
+                    self._resume_step_in_epoch)
+
+    def _save_kwargs(self) -> Dict[str, Any]:
+        return {"params": self.model.module.state_dict(), "opt_state": self.state.opt_state,
+                "step": self.state.step}
+
+    def _save_metadata(self, checkpoint_name: str, metrics: Dict[str, float],
+                       is_best: bool = False, is_final: bool = False) -> None:
+        """Append one row (run id, checkpoint, config snapshot, metrics) to
+        ``<output_dir>/metadata/experiment_metadata.csv``, rewriting it with
+        the union of the rows' columns, as the JAX package does."""
+        path = self.checkpoints.output_dir / "metadata" / "experiment_metadata.csv"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        rows = list(csv.DictReader(path.open(newline=""))) if path.exists() else []
+        row = {
+            "id": self.config.run_name or uuid.uuid4().hex[:12],
+            "end_timestamp": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "checkpoint_name": checkpoint_name, "is_best": is_best, "is_final": is_final,
+            "config": json.dumps(self.config.to_dict(), sort_keys=True, default=str),
+        }
+        row.update({k: float(v) for k, v in (metrics or {}).items() if isinstance(v, (int, float))})
+        rows.append(row)
+        columns = list(dict.fromkeys(k for r in rows for k in r))
+        with path.open("w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=columns)
+            writer.writeheader()
+            writer.writerows(rows)
+
+    # ------------------------------------------------------------------
+
+    def _save_step_checkpoint(self, epoch: int, step_in_epoch: int) -> str:
+        """Rolling mid-epoch checkpoint with the loader's and the generator's state."""
+        loader_state = None
+        if hasattr(self.train_loader, "iterator_state"):
+            try:
+                loader_state = self.train_loader.iterator_state()
+            except Exception as err:  # keep training; the skip-forward resume still works
+                logger.warning("could not capture loader state: %s", err)
+        return self.checkpoints.save_rolling(
+            "step_checkpoint",
+            epoch=epoch,
+            best_val_acc=self.best_val_acc,
+            extra_meta={
+                "step_in_epoch": int(step_in_epoch),
+                "loader_state": loader_state,
+                "rng": self.state.generator.get_state().tolist(),
+            },
+            **self._save_kwargs(),
+        )
+
+    def _run_epoch(self, loader: Iterable, train: bool, epoch: int, start_step: int = 0,
+                   iterator=None) -> Dict[str, float]:
+        """One pass over ``loader``; ``iterator``/``start_step`` continue an
+        epoch resumed mid-way with the step counter at its true position."""
+        tracker = MetricsTracker(mode=self.mode, metric_names=self.config.metrics,
+                                 num_classes=self.model.num_classes)
+        t0 = time.time()
+        stream = iterator if iterator is not None else loader
+        for step_idx, batch in enumerate(stream, start=start_step):
+            labels = batch.get("label")
+            if train:
+                loss, metrics = self._train_step(batch)
+            else:
+                loss, metrics = self._eval_step(batch)
+            tracker.update(loss, metrics, labels=labels)
+            if train and self.checkpoint_every_steps and (step_idx + 1) % self.checkpoint_every_steps == 0:
+                self._save_step_checkpoint(epoch, step_idx + 1)
+            if train and self._preempted:
+                self._save_step_checkpoint(epoch, step_idx + 1)
+                logger.warning("Preemption signal: saved step_checkpoint at epoch %d step %d, stopping",
+                               epoch, step_idx + 1)
+                break
+            if train and (step_idx + 1) % self.params_cfg.log_steps == 0:
+                logger.info("epoch %d step %d loss %.4f (%.1f samples/s)", epoch, step_idx + 1,
+                            tracker.avg_loss, tracker.sample_count / max(time.time() - t0, 1e-6))
+        metrics = tracker.epoch_metrics()
+        metrics["epoch_seconds"] = time.time() - t0
+        metrics["primary"] = tracker.primary_metric()
+        return metrics
+
+    def train(self) -> Dict[str, Any]:
+        """Run the full training loop; returns the final metric summary."""
+        if os.environ.get("AVEX_PROFILE_DIR"):
+            raise NotImplementedError("AVEX_PROFILE_DIR (a trace of the first epoch) is not ported "
+                                      "(ROADMAP queue 1, item 14)")
+        prev_handler = None
+        if self.config.save_on_preemption:
+            # A preemption delivers SIGTERM: save a resumable step checkpoint
+            # and leave the loop cleanly instead of dying mid-step.
+            try:
+                prev_handler = signal.signal(signal.SIGTERM, lambda *_a: setattr(self, "_preempted", True))
+            except ValueError:  # not the main thread
+                prev_handler = None
+        try:
+            return self._train_loop()
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+            self.model.eval()
+
+    def _train_loop(self) -> Dict[str, Any]:
+        cfg = self.params_cfg
+        history = []
+        for epoch in range(self.start_epoch, cfg.train_epochs):
+            if self._stage == 1 and epoch >= cfg.freeze_backbone_epochs:
+                logger.info("Stage 2: unfreezing backbone at reduced LR")
+                self._stage = 2
+                self._build_step(stage=2)
+                self.state.opt_state = self._tx.init(self._trainable)
+
+            if hasattr(self.train_loader, "set_epoch"):
+                self.train_loader.set_epoch(epoch)
+
+            # Mid-epoch resume: continue the interrupted epoch from its saved
+            # position, from the loader's restored iterator state or by
+            # skipping the batches already trained.
+            start_step, resume_iterator = 0, None
+            if epoch == self.start_epoch and self._resume_step_in_epoch:
+                start_step = self._resume_step_in_epoch
+                if self._resume_loader_state is not None and hasattr(self.train_loader, "restore_iterator"):
+                    resume_iterator = self.train_loader.restore_iterator(self._resume_loader_state)
+                    logger.info("Restored exact loader state at step %d", start_step)
+                else:
+                    resume_iterator = iter(self.train_loader)
+                    for _ in range(start_step):
+                        next(resume_iterator, None)
+                    logger.info("Skip-forwarded loader by %d batches", start_step)
+                self._resume_step_in_epoch = 0
+                self._resume_loader_state = None
+
+            train_metrics = self._run_epoch(self.train_loader, train=True, epoch=epoch,
+                                            start_step=start_step, iterator=resume_iterator)
+            record = {"epoch": epoch, "train": train_metrics}
+            if self._preempted:
+                history.append(record)
+                logger.warning("Training preempted at epoch %d; resumable from step_checkpoint", epoch)
+                return {"history": history, "best_val_acc": self.best_val_acc, "preempted": True,
+                        "final_checkpoint": str(self.checkpoints._path("step_checkpoint"))}
+
+            if self.val_loader is not None and not cfg.skip_validation:
+                val_metrics = self._run_epoch(self.val_loader, train=False, epoch=epoch)
+                record["val"] = val_metrics
+                if val_metrics["primary"] > self.best_val_acc:
+                    self.best_val_acc = val_metrics["primary"]
+                    # meta epoch = the next epoch to run (this one is complete)
+                    self.checkpoints.save_best(epoch=epoch + 1, best_val_acc=self.best_val_acc,
+                                               **self._save_kwargs())
+                    self._save_metadata("best_model", val_metrics, is_best=True)
+
+            if self.checkpoint_every_epochs and (epoch + 1) % self.checkpoint_every_epochs == 0:
+                self.checkpoints.save_epoch(epoch, best_val_acc=self.best_val_acc, **self._save_kwargs())
+
+            if self.exp_logger is not None:
+                flat = {f"train/{k}": v for k, v in train_metrics.items()}
+                flat.update({f"val/{k}": v for k, v in record.get("val", {}).items()})
+                self.exp_logger.log_metrics(flat, step=epoch)
+            history.append(record)
+            logger.info("epoch %d done: %s", epoch,
+                        {k: round(v, 4) if isinstance(v, float) else v for k, v in train_metrics.items()})
+
+        final_path = self.checkpoints.save_final(epoch=cfg.train_epochs, best_val_acc=self.best_val_acc,
+                                                 **self._save_kwargs())
+        self._save_metadata("final_model", history[-1]["train"] if history else {}, is_final=True)
+        if self.model.label_mapping is not None:
+            (self.checkpoints.output_dir / "label_map.json").write_text(json.dumps(self.model.label_mapping))
+        # The module trained in place: the model handle already holds the trained weights.
+        return {"history": history, "best_val_acc": self.best_val_acc, "final_checkpoint": final_path}

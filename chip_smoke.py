@@ -40,11 +40,29 @@ Phases, each printing its results on lines of its own:
    and 32); 8 producer threads submit 96 clips to each model (3 s, 7 s and
    8 kHz ones among them) and two requests go over HTTP (.npy, WAV). Every
    row is held to its clip extracted alone; prints requests/s and p50/p99
-   latency per model.
+   latency per model;
+10. backward kernels: K3 (the gated backward) against its backward twin at
+   BEATs' training shape (B=64, T=248), in bf16 and fp32, with and without
+   the gate and with a key-padding mask; K6 (the bias-free backward) at EAT's
+   (T=513) and AVES's (T=249, frame mask). Times the kernel, the twin and a
+   yardstick the port never calls (the backward of
+   ``scaled_dot_product_attention``: forward+backward minus forward);
+11. BEATs training: full-width BEATs with a 50-class head, bf16 compute with
+   fp32 parameters, ``fused_qkv=True, use_pallas=True``, dropout and
+   LayerDrop as the official config gives them, through ``Trainer`` (AdamW,
+   weight decay 0.01 with the mask, cosine schedule with warmup) on one
+   seeded batch of 64 5 s clips: 1 untimed and 10 timed steps (K2 and K3 12
+   launches per step, every other kernel 0; the loss falls); one step with
+   gradient checkpointing (K2 24, K3 12); then the fp32 kernel path against
+   the fp32 plain path, one step's loss and every gradient from the same
+   weights, dropout and LayerDrop off;
+12. EAT training: ``esp_aves2_sl_eat_all_ssl_all`` (T=513) with a 50-class
+   head the same way (K5 and K6 12 launches per step).
 
 Each main path checks shapes, finiteness, the kernel launch counts per
-forward (every kernel of the port: those the path runs, and 0 for the rest),
-the fp32 kernel path against the fp32 plain path, and prints clips/s.
+forward or step (every kernel of the port: those the path runs, and 0 for
+the rest), the fp32 kernel path against the fp32 plain path, and prints
+clips/s.
 
 It then prints one JSON line of per-kernel numbers (``launches`` counts the
 main paths' runs; K4 and K8, which no main path reaches, add
@@ -61,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 B, H, T, D = 128, 12, 248, 64  # BEATs: 5 s at 16 kHz → 31 x 8 patches; 768 / 12 heads
 E = H * D
@@ -107,7 +126,18 @@ FP32_ATOL = 1e-4
 BF16_REL_L2 = 5e-3
 # Main path, fp32: the kernel path against the plain-attention path over 12
 # layers with the same weights; sums in another order, compounded by depth.
+# Training: the loss and each parameter's gradient, the same bound.
 PATH_REL = 1e-3
+# Backward kernels vs their twins: dqkv as the forward (fp32 max|d|, bf16
+# relative L2); dbias sums 64 items and dgate 248 keys in another order than
+# the twin, so both are held by relative L2 in fp32 too.
+FP32_SUM_REL = 1e-5
+# Training: B=64 clips (5 s for BEATs, 10 s for EAT), 1 untimed step, then
+# timed steps on the same batch; a 50-class head.
+B_TRAIN = 64
+TRAIN_STEPS = 10
+N_CLASSES = 50
+B_GRAD_CHECK = 8  # the fp32 kernel-vs-plain gradient check (the plain path holds [B, H, T, T])
 TPU_BF16_FP32_REL = 3.8e-3  # JAX package on a TPU v5e (BENCH_r05.json): a reference point only
 
 FAILURES: list = []
@@ -334,6 +364,138 @@ def phase_bias_free_kernels():
     return results, k4_launches
 
 
+def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: bool) -> tuple:
+    """Least time for one attention backward at (bsz, H, seq, D): q, k, v and
+    dO read and dq, dk, dv written once; the fp32 bias and gate read and
+    dbias and dgate written once (gated); the mask read once; five products
+    of 2·seq·seq·D FLOPs per (item, head)."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = 7 * bsz * H * seq * D * elem
+    nbytes += 2 * (H * seq * seq * 4 + bsz * H * seq * 4) if gated else 0
+    nbytes += bsz * seq if padded else 0
+    flops = 10.0 * bsz * H * seq * seq * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_backward_kernels():
+    """K3 and K6 against their backward twins at the training shapes; returns
+    per-kernel numbers for the JSON line (bf16, the training runs' type)."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    results = {}
+
+    def check_grads(label, dtype, got, want):
+        names = ("dqkv", "dbias", "dgate")
+        worst = 0.0
+        for name, g, w in zip(names, got, want):
+            if w is None:
+                check(g is None, f"{label}: no {name} without its input")
+                continue
+            err = float((g.float() - w.float()).abs().max())
+            rel = rel_l2(g, w)
+            check(bool(torch.isfinite(g).all()) and g.shape == w.shape and g.dtype == w.dtype,
+                  f"{label}: {name} finite, {tuple(g.shape)} {g.dtype}")
+            if name != "dqkv":
+                check(rel <= (FP32_SUM_REL if dtype == torch.float32 else BF16_REL_L2),
+                      f"{label}: {name} rel L2={rel:.3e} (max|d| {err:.3e})")
+            elif dtype == torch.float32:
+                check(err <= FP32_ATOL, f"{label}: dqkv max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
+            else:
+                check(rel <= BF16_REL_L2, f"{label}: dqkv rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+            worst = max(worst, err if name == "dqkv" else 0.0)
+        return worst
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        qkv = torch.randn(B_TRAIN, T, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
+        bias = torch.randn(H, T, T, device="cuda", generator=gen).requires_grad_()
+        gate = (torch.rand(B_TRAIN, H, T, device="cuda", generator=gen) + 1.0).requires_grad_()
+        dout = torch.randn(B_TRAIN, T, E, device="cuda", generator=gen).to(dtype)
+        mask = torch.zeros(B_TRAIN, T, dtype=torch.bool, device="cuda")
+        mask[1::3, 200:] = True
+        worst = 0.0
+        for g in (gate, None):
+            for m in (None, mask):
+                inputs = (qkv, bias) if g is None else (qkv, bias, g)
+                got = torch.autograd.grad(ak.fused_qkv_gated_attention(qkv, H, bias, g, m), inputs, dout)
+                want = ak.fused_qkv_gated_backward_reference(
+                    qkv.detach(), H, bias.detach(), None if g is None else g.detach(), m, dout)
+                torch.cuda.synchronize()
+                label = f"fused_qkv_gated_attention_backward T={T} {name} gate={g is not None} mask={m is not None}"
+                worst = max(worst, check_grads(label, dtype, (*got, None)[:3], want))
+        out = ak.fused_qkv_gated_attention(qkv, H, bias, gate)
+        ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
+        plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
+            qkv.detach(), H, bias.detach(), gate.detach(), None, dout))
+        q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                   for t in qkv.detach().view(B_TRAIN, T, 3, H, D).unbind(2))
+        gated_bias = (gate.detach()[..., None] * bias.detach()[None]).to(dtype).requires_grad_()
+        library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
+        bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False)
+        print(f"time fused_qkv_gated_attention_backward B={B_TRAIN} T={T} {name} (gate, no mask): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+              f"({bound / ms:.1%} of bound)")
+        results[("fused_qkv_gated_attention_backward", name)] = dict(
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
+        del qkv, bias, gate, dout, mask, out, q, k, v, gated_bias
+        torch.cuda.empty_cache()
+
+        for shape, seq in (("EAT", T_EAT), ("AVES", T_AVES)):
+            qkv = torch.randn(B_TRAIN, seq, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
+            dout = torch.randn(B_TRAIN, seq, E, device="cuda", generator=gen).to(dtype)
+            mask = None
+            if shape == "AVES":
+                mask = torch.zeros(B_TRAIN, seq, dtype=torch.bool, device="cuda")
+                mask[::3, 150:] = True
+            out = ak.fused_qkv_attention(qkv, H, mask)
+            (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+            want = ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout)
+            torch.cuda.synchronize()
+            label = f"fused_qkv_attention_backward {shape} T={seq} {name} mask={mask is not None}"
+            worst = check_grads(label, dtype, (got,), (want,))
+            ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
+            plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout))
+            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                       for t in qkv.detach().view(B_TRAIN, seq, 3, H, D).unbind(2))
+            keep = None if mask is None else ~mask[:, None, None, :]  # SDPA: True = attend
+            library_ms = sdpa_backward_ms(q, k, v, keep, dout)
+            bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None)
+            print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}): "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)")
+            results[("fused_qkv_attention_backward", shape, name)] = dict(
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
+            del qkv, dout, mask, out, q, k, v
+            torch.cuda.empty_cache()
+    return results
+
+
+def sdpa_backward_ms(q, k, v, attn_mask, dout) -> float:
+    """The backward of ``F.scaled_dot_product_attention`` on [B, H, T, D]
+    views: forward+backward minus forward (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, heads, seq, dim = q.shape
+    grad = dout.view(bsz, seq, heads, dim).permute(0, 2, 1, 3)
+    inputs = [t for t in (q, k, v, attn_mask) if t is not None and t.is_floating_point() and t.requires_grad]
+
+    def forward():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=dim**-0.5)
+
+    def forward_backward():
+        torch.autograd.grad(forward(), inputs, grad)
+
+    with torch.no_grad():
+        fwd = median_ms(forward)
+    return median_ms(forward_backward) - fwd
+
+
 def reset_counts() -> None:
     """Set the launch count of every kernel of the port to 0."""
     from avex_tpu_torch.ops import attention_kernels as ak
@@ -557,6 +719,183 @@ def phase_aves():
     check(rows == len(range(0, B, 3)) and first == 150,
           f"AVES frame mask: {rows} of {B} clips padded from frame {first} of {T_AVES}")
     return bias_free_main_path("AVES", load, batches, mask, pool, 12, E)
+
+
+def zero_gradient(name, grad):
+    """The entries of ``name``'s gradient that are exactly 0 in exact
+    arithmetic: the key projection's bias (the third of a fused qkv bias in
+    the middle), which a softmax cannot see. Computed, they are rounding
+    noise that two correct paths give differently."""
+    import torch
+
+    noise = torch.zeros_like(grad, dtype=torch.bool)
+    if name.endswith(("qkv_proj.bias", "attn.qkv.bias")):
+        third = grad.shape[0] // 3
+        noise[third:2 * third] = True
+    return noise
+
+
+def training_gradient_check(label, load, wav, expect):
+    """fp32, dropout and LayerDrop off, the same weights: the kernel path's
+    loss and every parameter's gradient against the plain path's. ``expect``
+    maps the kernels the kernel path launches to their count."""
+    import torch
+
+    from avex_tpu_torch.training.losses import cross_entropy_loss
+
+    labels = torch.arange(wav.shape[0], device=wav.device) % N_CLASSES
+    results = []
+    for use_pallas in (True, False):
+        model = load("float32", use_pallas)
+        params = dict(model.module.named_parameters())
+        reset_counts()
+        out, _ = model.train_forward(wav, None, deterministic=True)
+        loss = cross_entropy_loss(out, labels)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expect if use_pallas else {}
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"{label} fp32 gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
+              f"{ {k: v for k, v in counts.items() if v} } == {want}")
+        results.append((loss.item(), {n: g for n, g in zip(params, grads) if g is not None}))
+        del model, params, out, grads
+        torch.cuda.empty_cache()
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_name = 0.0, None
+    for name, want in grads_p.items():
+        got = grads_k[name]
+        keep = ~zero_gradient(name, want)
+        norm = float(want[keep].norm())
+        rel = float((got[keep] - want[keep]).norm()) / norm if norm else float(got[keep].norm())
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(grads_k.keys() == grads_p.keys(), f"{label}: the same parameters get gradients on both paths")
+    check(loss_rel <= PATH_REL and worst <= PATH_REL,
+          f"{label}: fp32 kernel path vs plain path, one step (B={wav.shape[0]}): loss rel {loss_rel:.3e}, "
+          f"worst gradient rel L2 {worst:.3e} ({worst_name}) over {len(grads_p)} tensors <= {PATH_REL:g}")
+    return loss_rel, worst
+
+
+def train_run(label, model, batch, expect, steps, workdir):
+    """``Trainer`` steps on one batch: counts reset just before and read just
+    after the timed steps. Returns (losses, ms per step, clips/s, peak bytes,
+    counts)."""
+    import torch
+
+    from avex_tpu_torch.configs import RunConfig, SchedulerConfig, TrainingParams
+    from avex_tpu_torch.training import Trainer
+
+    config = RunConfig(
+        model_spec={"name": label},
+        training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=B_TRAIN, optimizer="adamw",
+                                       weight_decay=0.01),
+        scheduler=SchedulerConfig(name="cosine", warmup_steps=2),
+        output_dir=str(workdir), seed=0,
+    )
+    trainer = Trainer(model, config, [batch], steps_per_epoch=steps + 10)
+    losses = [trainer._train_step(batch)[0]]  # untimed: the first step's allocations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer._train_step(batch)[0])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    for kname in counts:
+        per_step = expect.get(kname, 0)
+        check(counts[kname] == per_step * steps,
+              f"{label} training: {kname} launched {counts[kname]} times == {per_step * steps} "
+              f"({per_step} per step x {steps})")
+    check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)), f"{label} training: every loss finite")
+    ms = elapsed / steps * 1e3
+    print(f"{label} training: {B_TRAIN * steps / elapsed:.1f} clips/s, {ms:.1f} ms per step (B={B_TRAIN}, "
+          f"{steps} steps), peak {peak / 2**30:.2f} GiB on {torch.cuda.get_device_name(0)}; losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    return trainer, losses, ms, B_TRAIN * steps / elapsed, peak, counts
+
+
+def phase_beats_training(workdir):
+    """Full-width BEATs fine-tuning through ``Trainer``; returns the K2 and K3
+    launches of the timed run."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    layers = beats_config()["encoder_layers"]
+
+    def load(dtype, use_pallas):
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype,
+                         init_config=dict(beats_config(), fused_qkv=True, use_pallas=use_pallas))
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch = {"raw_wav": torch.randn(B_TRAIN, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    model = load("bfloat16", True)
+    cfg = model.cfg
+    print(f"BEATs training config: dropout {cfg.dropout}, activation_dropout {cfg.activation_dropout}, "
+          f"encoder_layerdrop {cfg.encoder_layerdrop}, dropout_input {cfg.dropout_input}")
+    expect = {"fused_qkv_gated_attention": layers, "fused_qkv_gated_attention_backward": layers}
+    trainer, losses, ms, rate, peak, counts = train_run("beats", model, batch, expect, TRAIN_STEPS, workdir)
+    check(sum(losses[-3:]) / 3 < losses[0], f"BEATs training: the loss falls on one repeated batch "
+                                            f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+
+    model.enable_gradient_checkpointing()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer._train_step(batch)
+    torch.cuda.synchronize()
+    remat_counts, remat_peak = read_counts(), torch.cuda.max_memory_allocated()
+    remat_expect = {"fused_qkv_gated_attention": 2 * layers, "fused_qkv_gated_attention_backward": layers}
+    check(all(remat_counts[k] == remat_expect.get(k, 0) for k in remat_counts),
+          f"BEATs training, gradient checkpointing: launches { {k: v for k, v in remat_counts.items() if v} } "
+          f"== {remat_expect} (the forward runs again in the backward)")
+    print(f"BEATs training with gradient checkpointing: peak {remat_peak / 2**30:.2f} GiB vs {peak / 2**30:.2f} GiB")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    loss_rel, grad_rel = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect)
+    print(json.dumps({"model": "beats", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "remat_peak_bytes": remat_peak,
+        "losses": losses, "fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": grad_rel},
+        "batch": B_TRAIN, "clip_seconds": CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
+    return counts
+
+
+def phase_eat_training(workdir):
+    """Full-width EAT fine-tuning through ``Trainer``; returns the K5 and K6
+    launches of the timed run."""
+    import torch
+
+    import avex_tpu_torch
+
+    def load(dtype, use_pallas):
+        return avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, num_classes=N_CLASSES,
+                                         device="cuda", use_pallas=use_pallas, compute_dtype=dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batch = {"raw_wav": torch.randn(B_TRAIN, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_attention": 12, "fused_qkv_attention_backward": 12}
+    trainer, losses, ms, rate, peak, counts = train_run("eat_hf", load("bfloat16", True), batch, expect,
+                                                        TRAIN_STEPS, workdir)
+    check(sum(losses[-3:]) / 3 < losses[0], f"EAT training: the loss falls on one repeated batch "
+                                           f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+    del trainer
+    torch.cuda.empty_cache()
+    loss_rel, grad_rel = training_gradient_check("EAT", load, batch["raw_wav"][:B_GRAD_CHECK], expect)
+    print(json.dumps({"model": "eat", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses,
+        "fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": grad_rel},
+        "batch": B_TRAIN, "clip_seconds": EAT_CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
+    return counts
 
 
 def max_ulps(got, want, mantissa_bits: int) -> float:
@@ -956,15 +1295,25 @@ def main() -> int:
     timings = phase_kernels()
     plain_timings, k4_launches = phase_bias_free_kernels()
     k7, k8, k8_launches = phase_int8_kernels()
+    backward_timings = phase_backward_kernels()
     launches = phase_main_path()
     launches["int8_dynamic_dense"] = phase_int8_main_path()
     eat_launches = phase_eat()
     aves_launches = phase_aves()
     phase_serving()
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_training"
+    beats_train = phase_beats_training(workdir / "beats")
+    eat_train = phase_eat_training(workdir / "eat")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path and "
           f"{aves_launches} on the AVES path")
     launches["fused_qkv_attention"] = eat_launches + aves_launches
+    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT run.
+    for counts in (beats_train, eat_train):
+        for kname in ("fused_qkv_gated_attention", "fused_qkv_attention"):
+            launches[kname] += counts[kname]
+    launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
+    launches["fused_qkv_attention_backward"] = eat_train["fused_qkv_attention_backward"]
     # No main path reaches K4 (every model's dh-64 projection takes K5, and K4
     # takes dh 64 only) or K8 (in JAX only scripts/bench_int8_matmul.py calls
     # it); drive() checks that each main-path run launched them 0 times.
@@ -986,6 +1335,10 @@ def main() -> int:
          plain_timings[("fused_qkv_attention", "EAT", "bfloat16")]),
         ("int8_dynamic_dense", int8, "avex_tpu/ops/pallas_int8.py:100", k7),
         ("int8_matmul", int8, "avex_tpu/ops/pallas_int8.py:46", k8),
+        ("fused_qkv_gated_attention_backward", attention, "avex_tpu/ops/pallas_attention.py:765",
+         backward_timings[("fused_qkv_gated_attention_backward", "bfloat16")]),
+        ("fused_qkv_attention_backward", attention, "avex_tpu/ops/pallas_attention.py:524",
+         backward_timings[("fused_qkv_attention_backward", "EAT", "bfloat16")]),
     )
     kernels = []
     for kname, source, replaces, t in rows:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's embedding extraction goes, on one GPU.
+"""Where the time of the PyTorch port's embedding extraction and training goes, on one GPU.
 
     python3 scripts/torch_beats_profile.py [beats] [int8] [eat] [aves]
+    python3 scripts/torch_beats_profile.py train [beats] [eat]
 
 Full-width models with seeded random weights, bf16, B=128, ``extract_embeddings``
 over all layers with mean pooling: BEATs (12 layers, 768-d) on 5 s clips, the
@@ -14,7 +15,11 @@ kernel path (``use_pallas=True``) and the plain-attention path (``use_pallas``
 unset) of each it prints the forward's wall time (CUDA-synchronised), the
 device's busy share over that window (the union of the kernels' intervals:
 some overlap) and the device kernels with the most summed time, from
-``torch.profiler``. Needs CUDA; imports nothing of JAX.
+``torch.profiler``. With ``train`` first it profiles one supervised
+fine-tuning step instead (``Trainer``, AdamW, a 50-class head, B=64, bf16
+compute with fp32 parameters; BEATs with ``fused_qkv``, so K2 forward and K3
+backward, and EAT, K5 and K6), after two warm-up steps. Needs CUDA; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 B, TOP = 128, 12
+B_TRAIN, N_CLASSES = 64, 50
 
 
 def _loader(name: str):
@@ -69,42 +75,98 @@ def _loader(name: str):
     raise SystemExit(f"unknown model {name!r} (beats, int8, eat, aves)")
 
 
-def profile_model(name: str) -> None:
+def _train_step(name: str, use_pallas):
+    """A ``Trainer`` step function on one seeded batch for BEATs or EAT."""
+    import tempfile
+
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.api.official_models import OFFICIAL_MODELS
+    from avex_tpu_torch.configs import ModelSpec, RunConfig, SchedulerConfig, TrainingParams
+    from avex_tpu_torch.training import Trainer
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    if name == "beats":
+        official = OFFICIAL_MODELS["esp_aves2_sl_beats_all"]["model_spec"]["init_config"]
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype="bfloat16",
+                         init_config=dict(official, fused_qkv=True, use_pallas=use_pallas))
+        model = avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+        seconds = 5
+    elif name == "eat":
+        model = avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, num_classes=N_CLASSES,
+                                          device="cuda", compute_dtype="bfloat16", use_pallas=use_pallas)
+        seconds = 10
+    else:
+        raise SystemExit(f"unknown model {name!r} for train (beats, eat)")
+    batch = {"raw_wav": torch.randn(B_TRAIN, seconds * 16000, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    config = RunConfig(model_spec={"name": name}, output_dir=tempfile.mkdtemp(), seed=0,
+                       training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=B_TRAIN, weight_decay=0.01),
+                       scheduler=SchedulerConfig(name="cosine", warmup_steps=2))
+    trainer = Trainer(model, config, [batch], steps_per_epoch=100)
+    return lambda: trainer._train_step(batch), B_TRAIN
+
+
+def profile_call(title: str, run, clips: int) -> None:
+    """Warm up, time one call of ``run`` (CUDA-synchronised), then profile one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    window_us = spans[-1][1] - spans[0][0]
+    busy_us, reach = 0, spans[0][0]  # union of the kernels' intervals: some overlap
+    for lo, hi in spans:
+        busy_us += max(0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"\n{title}: {wall_ms:.2f} ms unprofiled ({clips / wall_ms * 1e3:.1f} clips/s); "
+          f"profiled: {len(kernels)} device kernels over {window_us / 1e3:.2f} ms, "
+          f"device busy {busy_us / 1e3:.2f} ms ({busy_us / window_us:.1%}), "
+          f"summed kernel time {sum(by_name.values()):.2f} ms")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+        print(f"  {ms:9.3f} ms summed  {kname[:110]}")
+
+
+PATHS = (("kernel path (use_pallas=True)", True), ("plain path (use_pallas unset)", None))
+
+
+def profile_model(name: str) -> None:
+    import torch
+
     load, wav, mask = _loader(name)
-    for label, use_pallas in (("kernel path (use_pallas=True)", True), ("plain path (use_pallas unset)", None)):
+    for label, use_pallas in PATHS:
         model = load(use_pallas)
         model.register_hooks_for_layers(["all"])
-        for _ in range(3):
-            model.extract_embeddings(wav, padding_mask=mask, aggregation="mean")
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        model.extract_embeddings(wav, padding_mask=mask, aggregation="mean")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.extract_embeddings(wav, padding_mask=mask, aggregation="mean")
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-        window_us = spans[-1][1] - spans[0][0]
-        busy_us, reach = 0, spans[0][0]  # union of the kernels' intervals: some overlap
-        for lo, hi in spans:
-            busy_us += max(0, hi - max(lo, reach))
-            reach = max(reach, hi)
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        print(f"\n{name} {label}: forward {wall_ms:.2f} ms unprofiled ({B / wall_ms * 1e3:.1f} clips/s); "
-              f"profiled: {len(kernels)} device kernels over {window_us / 1e3:.2f} ms, "
-              f"device busy {busy_us / 1e3:.2f} ms ({busy_us / window_us:.1%}), "
-              f"summed kernel time {sum(by_name.values()):.2f} ms")
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
-            print(f"  {ms:9.3f} ms summed  {kname[:110]}")
+        profile_call(f"{name} {label}, forward", lambda: model.extract_embeddings(
+            wav, padding_mask=mask, aggregation="mean"), B)
         del model
+        torch.cuda.empty_cache()
+
+
+def profile_training(name: str) -> None:
+    import torch
+
+    for label, use_pallas in PATHS:
+        step, clips = _train_step(name, use_pallas)
+        torch.cuda.reset_peak_memory_stats()
+        profile_call(f"{name} {label}, training step", step, clips)
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del step
         torch.cuda.empty_cache()
 
 
@@ -116,8 +178,10 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    for name in sys.argv[1:] or ["beats", "eat"]:
-        profile_model(name)
+    args = sys.argv[1:]
+    train = bool(args) and args[0] == "train"
+    for name in (args[1:] if train else args) or ["beats", "eat"]:
+        (profile_training if train else profile_model)(name)
     return 0
 
 

@@ -202,3 +202,72 @@ def test_fused_qkv_compatible_is_the_kernel_head_width():
     assert ak.fused_qkv_compatible(768, 12)
     assert not ak.fused_qkv_compatible(96, 12)
     assert not ak.fused_qkv_compatible(1280, 16)  # dh=80: K1/K2 take dh=64 only
+
+
+BACKWARD_CASES = [(seq, gated, padded) for seq in (24, 31) for gated in (True, False) for padded in (False, True)]
+
+
+@pytest.mark.parametrize("seq,gated,padded", BACKWARD_CASES)
+def test_gated_backward_twin_matches_jax_k3(rng, seq, gated, padded):
+    """K3's twin (dqkv, dbias summed over the batch, dgate) against
+    ``jax.grad`` through ``fused_qkv_gated_attention``, whose backward is K3
+    in interpret mode. Without a gate there is no dgate."""
+    qkv, bias, gate, mask = _inputs(rng, seq, gated, padded)
+    cot = rng.standard_normal((B, seq, H * D)).astype(np.float32)
+
+    def loss(x, b, g):
+        return jnp.sum(jax_fused(x, H, b, g, _j(mask), interpret=True) * cot)
+
+    argnums = (0, 1, 2) if gated else (0, 1)
+    want = jax.grad(loss, argnums=argnums)(_j(qkv), _j(bias), _j(gate))
+    got = ak.fused_qkv_gated_backward_reference(_t(qkv), H, _t(bias), _t(gate), _t(mask), _t(cot))
+    assert (got[2] is None) == (not gated)
+    assert got[1].shape == (H, seq, seq) and got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("seq,padded", PLAIN_CASES)
+def test_backward_twin_matches_jax_k6(rng, seq, padded):
+    """K6's twin against ``jax.grad`` through ``fused_qkv_attention`` (K6 in
+    interpret mode)."""
+    qkv, _, _, mask = _inputs(rng, seq, False, padded)
+    cot = rng.standard_normal((B, seq, H * D)).astype(np.float32)
+    want = jax.grad(lambda x: jnp.sum(jax_fused_plain(x, H, _j(mask), interpret=True) * cot))(_j(qkv))
+    got = ak.fused_qkv_backward_reference(_t(qkv), H, _t(mask), _t(cot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("gated,padded", [(g, p) for g in (True, False) for p in (False, True)])
+def test_backward_twins_match_autograd_of_forward_twins(rng, gated, padded):
+    """Each backward twin, step by step, against torch.autograd through its
+    forward twin (fp32; the bf16 twin as well, to the bf16 rounding)."""
+    seq = 31
+    qkv, bias, gate, mask = _inputs(rng, seq, gated, padded)
+    cot = _t(rng.standard_normal((B, seq, H * D)).astype(np.float32))
+    leaves = [_t(x).requires_grad_() for x in (qkv, bias)] + ([_t(gate).requires_grad_()] if gated else [])
+    out = ak.fused_qkv_gated_reference(leaves[0], H, leaves[1], leaves[2] if gated else None, _t(mask))
+    want = torch.autograd.grad(out, leaves, cot)
+    got = ak.fused_qkv_gated_backward_reference(_t(qkv), H, _t(bias), _t(gate), _t(mask), cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    plain = _t(qkv).requires_grad_()
+    (want_plain,) = torch.autograd.grad(ak.fused_qkv_reference(plain, H, _t(mask)), plain, cot)
+    torch.testing.assert_close(ak.fused_qkv_backward_reference(_t(qkv), H, _t(mask), cot), want_plain, **TOL)
+    # bf16: P and dS rounded to bf16 as K3 rounds them; within bf16 of fp32
+    got16 = ak.fused_qkv_gated_backward_reference(_t(qkv).bfloat16(), H, _t(bias), _t(gate), _t(mask),
+                                                  cot.bfloat16())
+    assert got16[0].dtype == torch.bfloat16 and got16[1].dtype == torch.float32
+    rel = float((got16[0].float() - want[0]).norm() / want[0].norm())
+    assert rel < 2e-2
+
+
+def test_fused_wrappers_differentiate_through_the_twins_on_cpu(rng):
+    """On CPU tensors the wrappers launch nothing, forward or backward."""
+    qkv, bias, gate, mask = _inputs(rng, 24, True, True)
+    ak.reset_launch_counts()
+    leaf = _t(qkv).requires_grad_()
+    ak.fused_qkv_gated_attention(leaf, H, _t(bias), _t(gate), _t(mask)).sum().backward()
+    ak.fused_qkv_attention(leaf, H, _t(mask)).sum().backward()
+    assert leaf.grad is not None and sum(ak.LAUNCHES.values()) == 0
+    assert set(ak.LAUNCHES) >= {"fused_qkv_gated_attention_backward", "fused_qkv_attention_backward"}

@@ -177,12 +177,18 @@ def test_finetuned_predictor_head_matches_jax(rng):
 
 
 def test_unported_options_raise():
-    for key in ("scan_layers", "remat"):
-        with pytest.raises(NotImplementedError, match=key):
+    unported = ({"scan_layers": True}, {"remat": True, "remat_policy": "dots"})
+    for options in unported:
+        with pytest.raises(NotImplementedError, match=f"{list(options)[-1]}.*ROADMAP"):
             avex_tpu_torch.build_model_from_spec(
-                ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, **{key: True})),
+                ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, **options)),
                 device="cpu",
             )
+    # remat is ported (per-layer checkpointing; tests/test_torch_training.py)
+    remat = avex_tpu_torch.build_model_from_spec(
+        ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, remat=True)), device="cpu"
+    )
+    assert remat.cfg.remat
     # quantize_encoder is ported: the model builds with int8 encoder layers
     # (tests/test_torch_quant.py holds them to JAX).
     model = avex_tpu_torch.build_model_from_spec(

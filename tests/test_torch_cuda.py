@@ -47,7 +47,8 @@ def test_kernels_match_twins(inputs):
         ref = ak.gated_bias_attention_reference(q, k, v, bias, gate, mask)
     torch.cuda.synchronize()
     assert ak.LAUNCHES == {"gated_bias_attention": 1, "fused_qkv_gated_attention": 1,
-                           "plain_attention": 0, "fused_qkv_attention": 0}
+                           "plain_attention": 0, "fused_qkv_attention": 0,
+                           "fused_qkv_gated_attention_backward": 0, "fused_qkv_attention_backward": 0}
     torch.testing.assert_close(got, ref, **TOL)
     torch.testing.assert_close(fused, ref.transpose(1, 2).reshape(B, T, H * D), **TOL)
 
@@ -66,7 +67,8 @@ def test_bias_free_kernels_match_twins(inputs, padded):
         ref = ak.gated_bias_attention_reference(q, k, v, None, None, mask)
     torch.cuda.synchronize()
     assert ak.LAUNCHES == {"gated_bias_attention": 0, "fused_qkv_gated_attention": 0,
-                           "plain_attention": 1, "fused_qkv_attention": 1}
+                           "plain_attention": 1, "fused_qkv_attention": 1,
+                           "fused_qkv_gated_attention_backward": 0, "fused_qkv_attention_backward": 0}
     torch.testing.assert_close(split, ref, **TOL)
     torch.testing.assert_close(fused, ak.fused_qkv_reference(qkv, H, mask), **TOL)
     torch.testing.assert_close(fused, ref.transpose(1, 2).reshape(B, T, H * D), **TOL)
@@ -94,13 +96,57 @@ def test_split_kernel_backward_is_the_twins(inputs):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
 
 
+# (B, T): one ragged tile; and BEATs' T=248 with several items per dbias chunk.
+BACKWARD_SHAPES = [(2, 31), (16, 248)]
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("variant", ["gated", "bias_only", "bias_free"])
+@pytest.mark.parametrize("padded", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_backward_kernels_match_twins(card, shape, variant, padded, dtype):
+    """K3 (gated, and with a bias but no gate) and K6 (bias-free) against
+    their backward twins: dqkv, dbias and dgate, one launch per backward."""
+    bsz, seq = shape
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").to(dtype).requires_grad_()
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda").requires_grad_()
+    gate = (torch.rand(bsz, H, seq, generator=card, device="cuda") * 2 + 1).requires_grad_()
+    mask = None
+    if padded:
+        mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+        mask[1::2, seq // 2:] = True
+    dout = torch.randn(bsz, seq, H * D, generator=card, device="cuda").to(dtype)
+    ak.reset_launch_counts()
+    if variant == "bias_free":
+        out = ak.fused_qkv_attention(qkv, H, mask)
+        (got,) = torch.autograd.grad(out, (qkv,), dout)
+        want = ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout)
+        pairs, key = [(got, want)], "fused_qkv_attention_backward"
+    else:
+        g = gate if variant == "gated" else None
+        out = ak.fused_qkv_gated_attention(qkv, H, bias, g, mask)
+        inputs = (qkv, bias, g) if g is not None else (qkv, bias)
+        got = torch.autograd.grad(out, inputs, dout)
+        want = ak.fused_qkv_gated_backward_reference(
+            qkv.detach(), H, bias.detach(), None if g is None else g.detach(), mask, dout)
+        pairs, key = list(zip(got, want)), "fused_qkv_gated_attention_backward"
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES[key] == 1 and sum(ak.LAUNCHES.values()) == 2
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:  # bf16 inputs: one rounding of each bf16 output, sums in another order
+            assert float((a.float() - b.float()).norm() / b.float().norm()) < 5e-3
+
+
 def test_unsupported_inputs_raise(inputs):
     qkv, bias, gate, mask = inputs
     q, k, v = _split(qkv)
-    with pytest.raises(NotImplementedError, match="K3"):
-        ak.fused_qkv_gated_attention(qkv.detach().requires_grad_(), H, bias, gate)
-    with pytest.raises(NotImplementedError, match="K6"):
-        ak.fused_qkv_attention(qkv.detach().requires_grad_(), H)
+    long = torch.zeros(1, 520, 3 * H * D, device="cuda", requires_grad=True)  # T past K3's 512
+    out = ak.fused_qkv_gated_attention(long, H, torch.zeros(H, 520, 520, device="cuda"))
+    with pytest.raises(ValueError, match="T <= 512"):
+        out.sum().backward()
     with pytest.raises(ValueError, match="head_dim"):
         ak.gated_bias_attention(q[..., :32], k[..., :32], v[..., :32], bias)
     with pytest.raises(ValueError, match="head_dim"):

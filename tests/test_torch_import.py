@@ -35,9 +35,22 @@ SLICE_MODULES = [
     "avex_tpu_torch.serving.service",
     "avex_tpu_torch.serving.pool",
     "avex_tpu_torch.serving.http",
+    "avex_tpu_torch.metrics",
+    "avex_tpu_torch.training",
+    "avex_tpu_torch.training.checkpoint",
+    "avex_tpu_torch.training.losses",
+    "avex_tpu_torch.training.metrics_tracker",
+    "avex_tpu_torch.training.optimizers",
+    "avex_tpu_torch.training.strategies",
+    "avex_tpu_torch.training.train",
+    "avex_tpu_torch.training.trainer_factory",
 ]
+#: top-level packages the port must not import: JAX, its libraries, and the
+#: JAX package with its configuration library
+_NOT_IMPORTED = ("jax", "flax", "optax", "orbax", "pydantic", "avex_tpu")
+_NAMES = "|".join(_NOT_IMPORTED)
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|avex_tpu)\b(?!_torch)|from\s+(jax|flax|avex_tpu)\b(?!_torch))",
+    rf"^\s*(import\s+({_NAMES})\b(?!_torch)|from\s+({_NAMES})\b(?!_torch))",
     re.MULTILINE,
 )
 
@@ -54,7 +67,7 @@ def test_slice_imports_without_jax_flax_or_avex_tpu():
         "import importlib, sys\n"
         f"for name in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'avex_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_NOT_IMPORTED!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
