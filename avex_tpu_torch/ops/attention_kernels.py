@@ -19,11 +19,16 @@ and P cast to v's type before PV, and of its two backward kernels:
   launched at ``:511``): the bias-free cell in K2's layout; its backward
   replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
-All of them launch the kernels of ``csrc/gated_attention.cu``, gated or
-bias-free by a template flag; the two layouts differ only in the strides
-handed to them. On an H100 at the BEATs and EAT shapes the forward is bound
-by bytes (see the source's header for the bounds and what this first design
-does about them).
+Two CUDA sources carry them, chosen by type and variant (a dispatch, not a
+fallback): bf16 bias-free calls (K5, its backward K6, and K4) launch the
+tensor-core kernels of ``csrc/bias_free_attention.cu``, whose forward also
+writes the row log-sum-exp and the output's rounding rest when a backward
+will follow, so that the backward rebuilds P from the one and takes Δ from
+the forward's output and the other; fp32
+calls and the gated variant (K1, K2, K3) launch ``csrc/gated_attention.cu``'s
+FMA body, gated or bias-free by a template flag. The two layouts differ only
+in the strides handed to the kernels. Each source's header states its bounds
+on an H100 and what its design does about them.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
 autograd through it); a CUDA tensor launches the kernel or raises, forward
@@ -31,6 +36,8 @@ and backward. Each launch adds one to :data:`LAUNCHES`, so a run can show
 that its path went through the kernel. The backward twins
 (``*_backward_reference``) write K3's and K6's steps out one by one; the
 tests and ``chip_smoke.py`` hold the kernels against them.
+:func:`fused_qkv_backward_from_residuals_reference` is the twin of the bf16
+K6's own contract (P from the saved log-sum-exp, Δ from the saved output).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ __all__ = [
     "LAUNCHES",
     "HEAD_DIM",
     "fused_qkv_attention",
+    "fused_qkv_backward_from_residuals_reference",
     "fused_qkv_backward_reference",
     "fused_qkv_compatible",
     "fused_qkv_gated_attention",
@@ -60,6 +68,8 @@ __all__ = [
 ]
 
 SOURCE = "gated_attention.cu"
+#: bf16 bias-free attention on the tensor cores (K5, K6 and K4 in bf16)
+TENSOR_CORE_SOURCE = "bias_free_attention.cu"
 #: The only head width the kernel takes (BEATs, EAT and AVES: 768 / 12).
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,6 +124,24 @@ def _library() -> ctypes.CDLL:
         ]
         lib.avex_attention_backward.restype = i
     return lib
+
+
+def _tensor_core_library() -> ctypes.CDLL:
+    lib = load_library(TENSOR_CORE_SOURCE)
+    if lib.avex_bias_free_attention_forward.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+        lib.avex_bias_free_attention_forward.argtypes = [p] * 7 + tail
+        lib.avex_bias_free_attention_backward.argtypes = [p] * 12 + tail
+        lib.avex_bias_free_attention_forward.restype = i
+        lib.avex_bias_free_attention_backward.restype = i
+    return lib
+
+
+def tensor_cores(dtype: torch.dtype, gated: bool) -> bool:
+    """True when a CUDA call of this type and variant runs on the tensor-core
+    kernels (bf16 bias-free); fp32 and the gated variant run the FMA body."""
+    return dtype == torch.bfloat16 and not gated
 
 
 # ---------------------------------------------------------------------------
@@ -248,9 +276,82 @@ def fused_qkv_backward_reference(
     return _backward_reference(qkv, heads, None, None, key_padding_mask, dout, scale)[0]
 
 
+def _scaled_logits(q, k, key_padding_mask, scale):
+    """fp32 ``q·kᵀ·scale`` with −inf at padded keys, over ``[B, H, T, D]``."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
+    return logits
+
+
+def _fused_qkv_forward_lse_reference(qkv, heads, key_padding_mask=None, scale=None):
+    """:func:`fused_qkv_reference` with the residuals the bf16 K5 writes for
+    K6: ``(out, lse, out_rest)``. ``lse`` is the row log-sum-exp of the
+    logits, float32 ``[B, H, T]``; ``out_rest`` is what rounding the output
+    to its type dropped, in that type (0 in fp32)."""
+    bsz, seq, three_e = qkv.shape
+    dim = three_e // 3
+    scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
+    q, k, v = _split_heads(qkv, heads)
+    logits = _scaled_logits(q, k, key_padding_mask, scale)
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out32 = torch.matmul(weights.float(), v.float()).permute(0, 2, 1, 3).reshape(bsz, seq, dim)
+    out = out32.to(v.dtype)
+    return out, torch.logsumexp(logits, dim=-1), (out32 - out.float()).to(v.dtype)
+
+
+def fused_qkv_backward_from_residuals_reference(
+    qkv: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    scale: Optional[float] = None,
+    out_rest: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain twin of the bf16 K6: ``dqkv`` from the forward's residuals.
+
+    As :func:`fused_qkv_backward_reference`, except that P is rebuilt from
+    ``lse`` (float32 ``[B, H, T]``, the forward's row log-sum-exp) and Δ is
+    ``rowsum(dout ∘ O)`` with O = ``out + out_rest`` in fp32 (the forward's
+    output ``[B, T, E]`` and what its rounding dropped; ``out`` alone without
+    ``out_rest``), as the kernel does: in exact arithmetic the same Δ as
+    ``rowsum(P ∘ dP)``. P is ``exp2(L·log2e − lse·log2e)``, the kernel's
+    form, and a fully padded row (``lse = −inf``) gives NaN.
+    """
+    bsz, seq, three_e = qkv.shape
+    dim = three_e // 3
+    heads = lse.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
+    log2e = 1.0 / math.log(2.0)
+
+    def heads_first(t):
+        return t.reshape(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3).float()
+
+    q, k, v = (t.float() for t in _split_heads(qkv, heads))
+    o, do = heads_first(out), heads_first(dout)
+    if out_rest is not None:
+        o = o + heads_first(out_rest)
+    logits = _scaled_logits(q, k, key_padding_mask, scale)
+    p32 = torch.exp2(logits * log2e - lse[..., None].float() * log2e)
+    p = p32.to(qkv.dtype).float()
+    dv = torch.matmul(p.transpose(-1, -2), do)  # dV = Pᵀ·dO
+    dp = torch.matmul(do, v.transpose(-1, -2))  # dP = dO·Vᵀ
+    delta = (do * o).sum(dim=-1, keepdim=True)  # Δ = rowsum(dO ∘ O)
+    ds = (p32 * (dp - delta) * scale).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k)  # dQ = dS·K
+    dk = torch.matmul(ds.transpose(-1, -2), q)  # dK = dSᵀ·Q
+    dqkv = torch.stack([t.permute(0, 2, 1, 3) for t in (dq, dk, dv)], dim=2)
+    return dqkv.reshape(bsz, seq, three_e).to(qkv.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
@@ -302,31 +403,47 @@ def _launch(
     key_padding_mask: Optional[torch.Tensor],
     out: torch.Tensor,
     scale: float,
+    residuals: Optional[tuple] = None,
 ) -> None:
     """Launch the forward kernel on ``[B, H, T, D]`` views; ``out`` is written
     in place. With ``pos_bias`` the gated variant runs, without it the
-    bias-free one (which takes no gate either)."""
+    bias-free one (which takes no gate either): on the tensor cores in bf16,
+    where ``residuals`` = ``(lse, out_rest)`` may receive K6's residuals (the
+    row log-sum-exp, float32 ``[B, H, T]`` contiguous, and what rounding the
+    output dropped, bf16 with ``out``'s strides), on the FMA body in fp32."""
     _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
+    on_tensor_cores = tensor_cores(q.dtype, pos_bias is not None)
+    lse, out_rest = residuals if residuals is not None else (None, None)
+    if residuals is not None and not (
+        on_tensor_cores and lse.shape == (bsz, heads, seq) and lse.is_contiguous()
+        and out_rest.dtype == out.dtype and out_rest.stride() == out.stride()
+    ):
+        raise ValueError("only the bf16 bias-free kernel writes K6's residuals: float32 [B, H, T] and out's layout")
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
-    pad_ptr = key_padding_mask.data_ptr() if key_padding_mask is not None else None
-    lib = _library()
+    pad_ptr = _ptr(key_padding_mask)
+    views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    tail = (bsz, heads, seq, dim, float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        head = (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr())
-        tail = (bsz, heads, seq, dim, float(scale))
-        views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-        if pos_bias is None:
+        if on_tensor_cores:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
-            err = lib.avex_plain_attention_forward(
-                *head, pad_ptr, out.data_ptr(), *tail, strides, stream
+            err = _tensor_core_library().avex_bias_free_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
+                *tail, strides, stream,
+            )
+        elif pos_bias is None:
+            strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
+            err = _library().avex_plain_attention_forward(
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
+                *tail, strides, stream,
             )
         else:
             gate_strides = gate.stride() if gate is not None else (0, 0, 0)
             strides = (ctypes.c_longlong * 22)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
-            err = lib.avex_gated_attention_forward(
-                *head, pos_bias.data_ptr(), gate.data_ptr() if gate is not None else None,
-                pad_ptr, out.data_ptr(), *tail, strides, stream,
+            err = _library().avex_gated_attention_forward(
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(),
+                gate.data_ptr() if gate is not None else None, pad_ptr, out.data_ptr(), *tail, strides, stream,
             )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
@@ -342,19 +459,31 @@ def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Ten
     return out
 
 
-def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale) -> torch.Tensor:
+def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_residuals=False):
+    """Launch K2 (with ``pos_bias``) or K5; returns ``(out, residuals)``.
+    ``residuals`` is ``(lse, out_rest)``, the bf16 K6's (see :func:`_launch`),
+    when ``with_residuals`` asks for them and the call runs on the tensor
+    cores, else None."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     q, k, v = _split_heads(qkv, heads)
     out = torch.empty(bsz, seq, dim, dtype=qkv.dtype, device=qkv.device)
-    _launch(q, k, v, pos_bias, gate, key_padding_mask,
-            out.view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3), scale)
+    residuals = None
+    if with_residuals and tensor_cores(qkv.dtype, pos_bias is not None):
+        residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device), torch.empty_like(out))
+
+    def heads_first(t):
+        return t.view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
+
+    _launch(q, k, v, pos_bias, gate, key_padding_mask, heads_first(out), scale,
+            None if residuals is None else (residuals[0], heads_first(residuals[1])))
     _count("fused_qkv_gated_attention" if pos_bias is not None else "fused_qkv_attention")
-    return out
+    return out, residuals
 
 
 def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
-    """Launch K3 (with ``pos_bias``) or K6; returns ``(dqkv, dbias, dgate)``.
+    """Launch K3 (with ``pos_bias``) or the fp32 K6 on the FMA body; returns
+    ``(dqkv, dbias, dgate)``.
 
     dq, dk and dv are written straight into the column views of one
     ``[B, T, 3E]`` gradient, the layout the forward reads q, k and v from.
@@ -392,16 +521,13 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     pad_strides = pad.stride() if pad is not None else (0, 0)
     strides = (ctypes.c_longlong * 29)(*(s for v3 in views for s in v3), *bias_strides, *gate_strides, *pad_strides)
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
     lib = _library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.avex_attention_backward(
             _DTYPE_CODES[qkv.dtype], int(gated), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            ptr(pos_bias), ptr(gate), ptr(pad), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            ptr(part), ptr(dbias), ptr(dgate), stats.data_ptr(),
+            _ptr(pos_bias), _ptr(gate), _ptr(pad), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(part), _ptr(dbias), _ptr(dgate), stats.data_ptr(),
             bsz, heads, seq, dim // heads, float(scale), items, strides, stream,
         )
     if err != 0:
@@ -410,26 +536,83 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     return dqkv, dbias, dgate
 
 
+def _kernel_tensor_core_backward(qkv, heads, key_padding_mask, out, lse, out_rest, dout, scale) -> torch.Tensor:
+    """Launch the bf16 K6 on the tensor cores from the forward's residuals
+    (its output ``out``, row log-sum-exp ``lse`` and ``out_rest``, what
+    rounding the output dropped); returns ``dqkv``, written straight into the
+    column views of one ``[B, T, 3E]`` gradient."""
+    bsz, seq, three_e = qkv.shape
+    dim = three_e // 3
+    qkv = qkv.contiguous()
+    q, k, v = _split_heads(qkv, heads)
+    dqkv = torch.empty_like(qkv)
+    dq, dk, dv = _split_heads(dqkv, heads)
+
+    def heads_first(t):
+        return t.contiguous().view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
+
+    o, rest, do = heads_first(out), heads_first(out_rest), heads_first(dout)
+    _check_operands(q, k, v, {"out": o, "out_rest": rest, "dout": do, "dq": dq, "dk": dk, "dv": dv},
+                    None, None, key_padding_mask)
+    if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 [{bsz}, {heads}, {seq}]")
+    delta = torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device)
+    pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
+    views = (s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3])
+    strides = (ctypes.c_longlong * 26)(*views, *pad_strides)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _tensor_core_library().avex_bias_free_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), rest.data_ptr(), do.data_ptr(),
+            _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            bsz, heads, seq, dim // heads, float(scale), strides, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
+    _count("fused_qkv_attention_backward")
+    return dqkv
+
+
 class _FusedQKVAttention(torch.autograd.Function):
     """CUDA tensors: K2 (with ``pos_bias``) or K5 forward, K3 or K6 backward.
 
     The residuals are the forward's inputs, as JAX keeps them
-    (``pallas_attention.py:648-650``, ``:940-944``).
+    (``pallas_attention.py:648-650``, ``:940-944``), and, for the bf16 K6 on
+    the tensor cores, the forward's output, what its bf16 rounding dropped
+    and the row log-sum-exp as well: P is rebuilt from the log-sum-exp and Δ
+    taken from the output, with no pass for the row statistics. The output is
+    the tensor the caller's output projection keeps for its own weight
+    gradient, so saving it costs nothing; the rounding rest costs as much
+    again in bf16, and keeps Δ's error near fp32's (PERF.md).
+    ``need_grad`` (grad mode on and ``qkv`` requiring grad, decided by the
+    caller: a Function's forward always runs with grad mode off) asks for the
+    residuals; without it nothing extra is written.
     """
 
     @staticmethod
-    def forward(ctx, qkv, pos_bias, gate, key_padding_mask, heads, scale):
-        ctx.save_for_backward(qkv, pos_bias, gate, key_padding_mask)
+    def forward(ctx, qkv, pos_bias, gate, key_padding_mask, heads, scale, need_grad):
+        out, residuals = _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale,
+                                       with_residuals=need_grad)
+        lse, out_rest = residuals if residuals is not None else (None, None)
+        ctx.save_for_backward(qkv, pos_bias, gate, key_padding_mask, out if lse is not None else None, out_rest, lse)
         ctx.heads, ctx.scale = heads, scale
-        return _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, pos_bias, gate, key_padding_mask = ctx.saved_tensors
-        dqkv, dbias, dgate = _kernel_fused_backward(
-            qkv, ctx.heads, pos_bias, gate, key_padding_mask, dout, ctx.scale
-        )
-        return dqkv, dbias, dgate, None, None, None
+        qkv, pos_bias, gate, key_padding_mask, out, out_rest, lse = ctx.saved_tensors
+        dbias = dgate = None
+        if tensor_cores(qkv.dtype, pos_bias is not None):
+            if lse is None:
+                raise RuntimeError("the bf16 attention backward needs the forward's residuals: run the "
+                                   "forward with grad mode on and qkv requiring grad")
+            dqkv = _kernel_tensor_core_backward(qkv, ctx.heads, key_padding_mask, out, lse, out_rest, dout,
+                                                ctx.scale)
+        else:
+            dqkv, dbias, dgate = _kernel_fused_backward(
+                qkv, ctx.heads, pos_bias, gate, key_padding_mask, dout, ctx.scale
+            )
+        return dqkv, dbias, dgate, None, None, None, None
 
 
 class _GatedBiasAttention(torch.autograd.Function):
@@ -498,6 +681,10 @@ def fused_qkv_compatible(dim: int, heads: int) -> bool:
     return heads > 0 and dim % heads == 0 and dim // heads == HEAD_DIM
 
 
+def _needs_grad(qkv: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and qkv.requires_grad
+
+
 def fused_qkv_gated_attention(
     qkv: torch.Tensor,
     heads: int,
@@ -521,7 +708,7 @@ def fused_qkv_gated_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     if qkv.device.type == "cpu":
         return fused_qkv_gated_reference(qkv, heads, pos_bias, gate, key_padding_mask, scale)
-    return _FusedQKVAttention.apply(qkv, pos_bias, gate, key_padding_mask, heads, scale)
+    return _FusedQKVAttention.apply(qkv, pos_bias, gate, key_padding_mask, heads, scale, _needs_grad(qkv))
 
 
 def fused_qkv_attention(
@@ -536,10 +723,11 @@ def fused_qkv_attention(
     the output is written as merged heads, ``[B, T, E]``. ``key_padding_mask``
     is ``[B, T]`` bool, True = padded key. Differentiable in ``qkv``: on
     CUDA the backward is the K6 kernel, on the CPU autograd through the plain
-    twin.
+    twin. bf16 CUDA tensors run on the tensor-core kernels
+    (``csrc/bias_free_attention.cu``), fp32 ones on the FMA body.
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     if qkv.device.type == "cpu":
         return fused_qkv_reference(qkv, heads, key_padding_mask, scale)
-    return _FusedQKVAttention.apply(qkv, None, None, key_padding_mask, heads, scale)
+    return _FusedQKVAttention.apply(qkv, None, None, key_padding_mask, heads, scale, _needs_grad(qkv))

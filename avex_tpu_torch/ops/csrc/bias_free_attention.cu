@@ -1,0 +1,865 @@
+// Bias-free attention in bf16 on Hopper's tensor cores (sm_90a), plain C ABI:
+//
+//   out = softmax(q·kᵀ·scale + pad) · v
+//
+// with its backward. Replaces, for bf16 operands, three Pallas TPU kernels of
+// the JAX package:
+//   - _fused_qkv_kernel        avex_tpu/ops/pallas_attention.py:344  (K5, column views of [B,T,3E])
+//   - _fused_qkv_bwd_kernel    avex_tpu/ops/pallas_attention.py:524  (K6, its backward)
+//   - _plain_attention_kernel  avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
+// The layouts are only strides here: every operand is a base pointer plus
+// (batch, head, token) strides with the head dimension contiguous. fp32
+// operands and the gated variant stay on gated_attention.cu's FMA body.
+//
+// Numerics, as the TPU kernels (pallas_attention.py:344-386, :524-585): fp32
+// logits and softmax; P rounded to bf16 before P·V and Pᵀ·dO; dS = P∘(dP−Δ)·scale
+// rounded to bf16 before dS·K and dSᵀ·Q; every product accumulates in fp32; a
+// padded key gets −inf, and a row whose keys are all padded gives NaN, as the
+// plain twin's softmax does. The forward rounds the unnormalised P to bf16
+// and divides by the row sum at the end (the twin rounds the normalised P).
+//
+// Bounds on an H100 SXM at the main paths' shapes (H=12, D=64, bf16):
+//   forward, EAT B=128, T=513: q, k, v read and out written once, 4 x 100.9 MB
+//     = 403.6 MB, 0.120 ms at 3.35 TB/s, against 4·B·H·T²·D = 103.5 GFLOP,
+//     0.105 ms at 989 TFLOP/s: bound by bytes, narrowly;
+//   backward, EAT B=64, T=513: five products, 10·B·H·T²·D = 129.4 GFLOP,
+//     0.131 ms, against 7 x 50.4 MB = 353 MB, 0.105 ms: bound by operations.
+//
+// Design (FlashAttention-2 on mma.sync.m16n8k16 bf16 with fp32 accumulators).
+// Every block has 4 warps and owns a tile of 64 rows; each warp owns 16 of
+// them, so a row's max and sum stay inside one quad of lanes. Tiles of 64
+// rows x 64 dims are bf16 in shared memory (8 KB), filled by 16-byte cp.async
+// with zero-fill past T, double-buffered so that the next key (or query) tile
+// arrives while this one is multiplied. A row's 8 chunks of 16 bytes are
+// XOR-swizzled by the row's low 3 bits, so ldmatrix (and ldmatrix.trans for
+// the operands read as [K, N]) has no bank conflicts. Products are fragments
+// in registers: S = QKᵀ never leaves them, and P (or dS) is rounded to bf16
+// and repacked from the accumulator layout straight into the A-operand layout
+// of the next product. A tile whose rows all lie below T (and, in the
+// forward, whose keys are unpadded) takes a branch-free path with no key bias,
+// which the compiler schedules as one block; a ragged tile multiplies only
+// the 16-row groups that hold a valid row, and warps with no valid row skip
+// the products: at T=513 (8 tiles and one row) the ragged tiles cost little.
+// exp2 is one MUFU instruction (ex2.approx.ftz). Those two, more than the
+// block's shape, set the forward's speed (PERF.md).
+//   - forward: one block per (query tile, head, item); online softmax in the
+//     exp2 domain (scale·log2e folded into one multiply). When a backward will
+//     follow it also writes the row log-sum-exp, fp32 [B, H, T], and what
+//     rounding the output to bf16 dropped, in bf16.
+//   - backward: two kernels, deterministic, no atomics. The dQ kernel (one
+//     block per query tile, head, item) first takes Δ = rowsum(dO∘O) from the
+//     forward's output plus its rounding rest (and writes it), then walks the
+//     key tiles: S = QKᵀ, P = exp(S·scale − LSE), dP = dO·Vᵀ, dS, dQ += dS·K.
+//     The dK/dV kernel (one block per key tile, head, item) walks the query
+//     tiles: Sᵀ = KQᵀ, dV += Pᵀ·dO, dPᵀ = VdOᵀ, dK += dSᵀ·Q. Seven tile
+//     products in all; the saved LSE is what lets the backward skip a pass for
+//     the row statistics. Δ from the output rounded to bf16 alone would carry
+//     2^-9·|O| of error, which is all of dS where dP − Δ cancels; the rest
+//     brings it back to an fp32 output's.
+// Outputs are staged through shared memory and written as 16-byte rows. The
+// kernels are templates over the block's shape (warps, 16-row groups a warp,
+// keys a forward tile); scripts/torch_attention_shapes.py times the others.
+// mma.sync reaches about two thirds of the tensor cores' rate at best; wgmma
+// on TMA-fed tiles is the route to the rest.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <string.h>
+#include <math.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kD = 64;                    // head width
+constexpr int kRows = 64;                 // rows of a streamed tile (keys, or queries in dK/dV)
+constexpr int kTile = kRows * kD;         // bf16 elements of one streamed tile
+constexpr size_t kTileBytes = kTile * sizeof(bf16);
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Element strides (batch, head, token) of q, k, v and out, then pad (batch, token).
+struct FwdStrides {
+  long long q[3], k[3], v[3], o[3];
+  long long pad[2];
+};
+
+// The same for q, k, v, out, dout, dq, dk and dv, then pad.
+struct BwdStrides {
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
+  long long pad[2];
+};
+
+// Element offset of chunk `chunk` (8 elements, 16 bytes) of row `row` in a
+// swizzled [64][64] tile.
+__device__ __forceinline__ int swz(int row, int chunk) { return row * kD + ((chunk ^ (row & 7)) << 3); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] · b[16x8], bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU instruction (inputs below -126 flush to 0; -inf gives 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Rows r0 .. r0+kTileRows-1 of a [seq, 64] operand with row stride rs into
+// a swizzled tile, asynchronously; rows past seq are zero-filled (the copy
+// reads nothing).
+template <int kTileRows, int kThreads>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long rs, int r0, int seq) {
+  for (int c = threadIdx.x; c < kTileRows * 8; c += kThreads) {
+    const int row = c >> 3, chunk = c & 7;
+    const bool ok = r0 + row < seq;
+    const bf16* src = ok ? base + (long long)(r0 + row) * rs + chunk * 8 : base;
+    cp_async16(tile + swz(row, chunk), src, ok);
+  }
+}
+
+// A staged tile's rows r0 .. r0+kTileRows-1 (those below seq) to a [seq, 64] operand.
+template <int kTileRows, int kThreads>
+__device__ __forceinline__ void store_tile(bf16* base, long long rs, int r0, int seq, const bf16* tile) {
+  for (int c = threadIdx.x; c < kTileRows * 8; c += kThreads) {
+    const int row = c >> 3, chunk = c & 7;
+    if (r0 + row < seq)
+      *reinterpret_cast<uint4*>(base + (long long)(r0 + row) * rs + chunk * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(row, chunk));
+  }
+}
+
+// A warp owns kM groups of 16 rows (rows row0 + 16m .. row0 + 16m + 15).
+// Fragments: a[m][k-step][4] (bf16 pairs), accumulators c[m][8-column block][4].
+
+// A fragments of the warp's rows of a tile, over all 64 columns (4 k-steps).
+template <int kM>
+__device__ __forceinline__ void load_a(uint32_t a[][4][4], const bf16* tile, int row0) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3;
+  const int row = row0 + (lane & 7) + ((mat & 1) << 3);
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[m][kk], tile + swz(row + 16 * m, 2 * kk + (mat >> 1)));
+}
+
+// acc[rows x 16·kNB] += a[rows x 64] · tileᵀ, where the tile's 16·kNB rows
+// are acc's columns. Unless kFull, only the first `pairs` groups of 16
+// columns are computed. Each B fragment read from shared memory feeds the
+// warp's kM row groups.
+template <int kM, int kNB, bool kFull>
+__device__ __forceinline__ void mma_abt(float acc[][2 * kNB][4], const uint32_t a[][4][4], const bf16* tile,
+                                        int pairs) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3;
+#pragma unroll
+  for (int jp = 0; jp < kNB; ++jp) {
+    if (kFull || jp < pairs) {
+      const int row = 16 * jp + ((mat >> 1) << 3) + (lane & 7);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, tile + swz(row, 2 * kk + (mat & 1)));
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          mma(acc[m][2 * jp], a[m][kk], b[0], b[1]);
+          mma(acc[m][2 * jp + 1], a[m][kk], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// acc[rows x 64] += a[rows x 16·kKS] · tile, where the tile's 16·kKS rows run
+// along the contraction. Unless kFull, only the first `steps` groups of 16
+// tile rows are read.
+template <int kM, int kKS, bool kFull>
+__device__ __forceinline__ void mma_ab(float acc[][8][4], const uint32_t a[][kKS][4], const bf16* tile, int steps) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    if (kFull || kk < steps) {
+      const int row = 16 * kk + ((mat & 1) << 3) + (lane & 7);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, tile + swz(row, 2 * jp + (mat >> 1)));
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          mma(acc[m][2 * jp], a[m][kk], b[0], b[1]);
+          mma(acc[m][2 * jp + 1], a[m][kk], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// The products over a whole streamed tile (live == kNB) as one branch-free
+// block that the compiler schedules as a whole, else predicated on `live`.
+template <int kM, int kNB>
+__device__ __forceinline__ void mma_abt_live(float acc[][2 * kNB][4], const uint32_t a[][4][4], const bf16* tile,
+                                             int live) {
+  if (live == kNB)
+    mma_abt<kM, kNB, true>(acc, a, tile, live);
+  else
+    mma_abt<kM, kNB, false>(acc, a, tile, live);
+}
+
+template <int kM, int kKS>
+__device__ __forceinline__ void mma_ab_live(float acc[][8][4], const uint32_t a[][kKS][4], const bf16* tile,
+                                            int live) {
+  if (live == kKS)
+    mma_ab<kM, kKS, true>(acc, a, tile, live);
+  else
+    mma_ab<kM, kKS, false>(acc, a, tile, live);
+}
+
+// Accumulators rounded to bf16, as the A operand of the next product (the
+// accumulator's columns become its contraction).
+template <int kM, int kKS>
+__device__ __forceinline__ void to_a(uint32_t a[][kKS][4], const float c[][2 * kKS][4]) {
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      a[m][kk][0] = pack_bf16(c[m][2 * kk][0], c[m][2 * kk][1]);
+      a[m][kk][1] = pack_bf16(c[m][2 * kk][2], c[m][2 * kk][3]);
+      a[m][kk][2] = pack_bf16(c[m][2 * kk + 1][0], c[m][2 * kk + 1][1]);
+      a[m][kk][3] = pack_bf16(c[m][2 * kk + 1][2], c[m][2 * kk + 1][3]);
+    }
+}
+
+template <int kM, int kCols = 64>
+__device__ __forceinline__ void zero(float c[][kCols / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[m][j][e] = 0.f;
+}
+
+// What rounding x to bf16 drops: x = bf16(x) + rest(x) to about 2^-17 of x.
+__device__ __forceinline__ float bf16_rest(float x) { return x - __bfloat162float(__float2bfloat16(x)); }
+
+// The warp's accumulator rows into a swizzled tile as bf16; row g of group m
+// scaled by s[m][0], row g+8 by s[m][1]. With kRest, the part of each scaled
+// value that its bf16 rounding drops, itself rounded to bf16.
+template <int kM, bool kRest = false>
+__device__ __forceinline__ void stage(bf16* tile, int row0, const float c[][8][4], const float s[][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x0 = c[m][j][2 * i] * s[m][i], x1 = c[m][j][2 * i + 1] * s[m][i];
+        if (kRest) x0 = bf16_rest(x0), x1 = bf16_rest(x1);
+        *reinterpret_cast<uint32_t*>(tile + swz(row0 + 16 * m + g + 8 * i, j) + 2 * t) = pack_bf16(x0, x1);
+      }
+}
+
+// The additive key bias of keys k0 .. k0+kKeys-1: −inf past seq or where padded.
+template <int kKeys, int kThreads>
+__device__ __forceinline__ void load_key_bias(float* bias, const uint8_t* pad_b, long long ps, int k0, int seq) {
+  for (int i = threadIdx.x; i < kKeys; i += kThreads) {
+    const int key = k0 + i;
+    bias[i] = (key >= seq || (pad_b && pad_b[key * ps])) ? -INFINITY : 0.f;
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Eight bf16 values (16 bytes) as floats.
+__device__ __forceinline__ void load8(const bf16* p, float x[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// Groups of 16 rows of a streamed tile of kTileRows rows starting at r0 that
+// hold a row below seq.
+template <int kTileRows = kRows>
+__device__ __forceinline__ int live_groups(int r0, int seq) { return min(kTileRows / 16, (seq - r0 + 15) >> 4); }
+
+// A block of kWarps warps, each owning kM groups of 16 rows: the block's own
+// tile (queries, or keys in dK/dV) has kOwn rows; the forward streams key
+// tiles of kN rows, the backward tiles of 64.
+template <int kWarps, int kM, int kN = kRows>
+struct Shape {
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kOwn = 16 * kM * kWarps;
+  static constexpr size_t kOwnBytes = (size_t)kOwn * kD * sizeof(bf16);
+  static constexpr size_t kFwdSmem = kOwnBytes + 4 * (size_t)kN * kD * sizeof(bf16) + 2 * kN * sizeof(float);
+  static constexpr size_t kDqSmem = 2 * kOwnBytes + 4 * kTileBytes + 2 * kRows * sizeof(float) + kOwn * sizeof(float);
+  static constexpr size_t kDkvSmem = 2 * kOwnBytes + 4 * kTileBytes + 4 * kRows * sizeof(float);
+};
+
+// One key tile of the forward for a warp: S = Q·Kᵀ, the online softmax, and
+// O += P·V. kFull: every key of the tile lies below seq and none is padded,
+// so neither the key bias nor a predicate is applied.
+template <int kM, int kN, bool kFull>
+__device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf16* kt, const bf16* vt,
+                                             const float* kbias, int live, float c, float o[][8][4],
+                                             float m[][2], float l[][2]) {
+  constexpr int kNB = kN / 16;
+  const int t = threadIdx.x & 3;
+  float sc[kM][kN / 8][4];
+  zero<kM, kN>(sc);
+  mma_abt<kM, kNB, kFull>(sc, qf, kt, live);
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = kFull ? sc[mm][j][e] * c : fmaf(sc[mm][j][e], c, kbias[8 * j + 2 * t + (e & 1)]);
+        sc[mm][j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float shift[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[mm][i], quad_max(mx[i]));
+      // A row with every key so far padded keeps m = -inf; shift by 0 there
+      // so that exp2 sees -inf - 0 and gives 0 rather than NaN.
+      shift[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = exp2_approx(m[mm][i] - shift[i]);
+      m[mm][i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(sc[mm][j][e] - shift[e >> 1]);
+        sc[mm][j][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[mm][i] = l[mm][i] * corr[i] + rs[i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[mm][j][0] *= corr[0];
+      o[mm][j][1] *= corr[0];
+      o[mm][j][2] *= corr[1];
+      o[mm][j][3] *= corr[1];
+    }
+  }
+  uint32_t pf[kM][kNB][4];
+  to_a<kM, kNB>(pf, sc);
+  mma_ab<kM, kNB, kFull>(o, pf, vt, live);
+}
+
+template <int kWarps, int kM, int kN>
+__global__ void __launch_bounds__(32 * kWarps)
+forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const uint8_t* __restrict__ pad, bf16* __restrict__ out, bf16* __restrict__ out_rest,
+               float* __restrict__ lse, int heads, int seq, float scale, FwdStrides s) {
+  using S = Shape<kWarps, kM, kN>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kKeyTile = kN * kD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                      // [kOwn][64]
+  bf16* k_s = q_s + kOwn * kD;                                    // [2][kN][64]
+  bf16* v_s = k_s + 2 * kKeyTile;                                 // [2][kN][64]
+  float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kKeyTile);  // [2][kN]
+
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = q0 + row0 < seq;  // warp-uniform: the warp has a query below seq
+  const bf16* qb = q + b * s.q[0] + h * s.q[1];
+  const bf16* kb = k + b * s.k[0] + h * s.k[1];
+  const bf16* vb = v + b * s.v[0] + h * s.v[1];
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const int n_tiles = (seq + kN - 1) / kN;
+  const float c = scale * kLog2e;
+
+  load_tile<kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
+  load_tile<kN, kThreads>(k_s, kb, s.k[2], 0, seq);
+  load_tile<kN, kThreads>(v_s, vb, s.v[2], 0, seq);
+  load_key_bias<kN, kThreads>(kbias_s, pad_b, s.pad[1], 0, seq);
+  cp_async_commit();
+
+  uint32_t qf[kM][4][4];
+  float o[kM][8][4];
+  zero<kM>(o);
+  float m[kM][2], l[kM][2];  // running max (log2 units) and this lane's partial sum, rows g and g+8
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm) m[mm][0] = m[mm][1] = -INFINITY, l[mm][0] = l[mm][1] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = buf ^ 1, k0n = (it + 1) * kN;
+      load_tile<kN, kThreads>(k_s + nxt * kKeyTile, kb, s.k[2], k0n, seq);
+      load_tile<kN, kThreads>(v_s + nxt * kKeyTile, vb, s.v[2], k0n, seq);
+      load_key_bias<kN, kThreads>(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      if (it == 0) load_a<kM>(qf, q_s, row0);
+      const bf16 *kt = k_s + buf * kKeyTile, *vt = v_s + buf * kKeyTile;
+      const float* kbias = kbias_s + buf * kN;
+      if (!pad_b && (it + 1) * kN <= seq)
+        forward_tile<kM, kN, true>(qf, kt, vt, kbias, kN / 16, c, o, m, l);
+      else
+        forward_tile<kM, kN, false>(qf, kt, vt, kbias, live_groups<kN>(it * kN, seq), c, o, m, l);
+    }
+    __syncthreads();  // every warp is done with this tile's buffers
+  }
+
+  if (active) {
+    float inv[kM][2];
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[mm][i] = quad_sum(l[mm][i]);
+        inv[mm][i] = 1.f / l[mm][i];  // a fully padded row: 0 · inf = NaN, as the softmax gives
+      }
+    stage<kM>(q_s, row0, o, inv);
+    if (out_rest) stage<kM, true>(k_s, row0, o, inv);  // the K/V buffers are free now
+    if (lse && t == 0) {
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+          if (qi < seq) lse[((long long)b * heads + h) * seq + qi] = (m[mm][i] + log2f(l[mm][i])) * kLn2;
+        }
+    }
+  }
+  __syncthreads();
+  store_tile<kOwn, kThreads>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, q_s);
+  if (out_rest) store_tile<kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, k_s);
+}
+
+template <int kWarps, int kM>
+__global__ void __launch_bounds__(32 * kWarps)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ out, const bf16* __restrict__ out_rest, const bf16* __restrict__ dout,
+          const uint8_t* __restrict__ pad,
+          const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta, int heads,
+          int seq, float scale, BwdStrides s) {
+  using S = Shape<kWarps, kM>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn;
+  static_assert(kThreads == kOwn || kThreads == 2 * kOwn, "one or two threads a row for Δ");
+  constexpr int kPerRow = kThreads / kOwn, kRowChunks = 8 / kPerRow;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [kOwn][64]
+  bf16* do_s = q_s + kOwn * kD;                                  // [kOwn][64]
+  bf16* k_s = do_s + kOwn * kD;                                  // [2][64][64]
+  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][64]
+  float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kTile);    // [2][64]
+  float* delta_s = kbias_s + 2 * kRows;                          // [kOwn]
+
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = q0 + row0 < seq;
+  const bf16* qb = q + b * s.q[0] + h * s.q[1];
+  const bf16* kb = k + b * s.k[0] + h * s.k[1];
+  const bf16* vb = v + b * s.v[0] + h * s.v[1];
+  const bf16* ob = out + b * s.o[0] + h * s.o[1];
+  const bf16* dob = dout + b * s.dout[0] + h * s.dout[1];
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const long long stat0 = ((long long)b * heads + h) * seq;
+  const int n_tiles = (seq + kRows - 1) / kRows;
+  const float c = scale * kLog2e;
+
+  load_tile<kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
+  load_tile<kOwn, kThreads>(do_s, dob, s.dout[2], q0, seq);
+  load_tile<kRows, kThreads>(k_s, kb, s.k[2], 0, seq);
+  load_tile<kRows, kThreads>(v_s, vb, s.v[2], 0, seq);
+  load_key_bias<kRows, kThreads>(kbias_s, pad_b, s.pad[1], 0, seq);
+  cp_async_commit();
+
+  // Δ = rowsum(dO ∘ O) for the block's rows, kPerRow threads a row, while
+  // the first tiles arrive; written for the dK/dV kernel. O is the output
+  // plus the part its bf16 rounding dropped (when the forward wrote it): an
+  // O rounded to bf16 puts an error of 2^-9·|O| into Δ, and where dP − Δ
+  // cancels, that error is the whole of dS.
+  {
+    const int r = threadIdx.x / kPerRow, part = threadIdx.x % kPerRow, qi = q0 + r;
+    const long long col = part * 8 * kRowChunks;
+    float acc = 0.f;
+    if (qi < seq) {
+#pragma unroll
+      for (int c8 = 0; c8 < kRowChunks; ++c8) {
+        float o8[8], d8[8];
+        load8(ob + (long long)qi * s.o[2] + col + c8 * 8, o8);
+        load8(dob + (long long)qi * s.dout[2] + col + c8 * 8, d8);
+        if (out_rest) {
+          float r8[8];
+          load8(out_rest + b * s.o[0] + h * s.o[1] + (long long)qi * s.o[2] + col + c8 * 8, r8);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o8[e] += r8[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(o8[e], d8[e], acc);
+      }
+    }
+    if (kPerRow == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      delta_s[r] = acc;
+      if (qi < seq) delta[stat0 + qi] = acc;
+    }
+  }
+  float lse2[kM][2], dl[kM][2];  // this lane's rows g and g+8 of each group: LSE in log2 units, Δ
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+      lse2[mm][i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+    }
+
+  uint32_t qf[kM][4][4], dof[kM][4][4];
+  float acc[kM][8][4];
+  zero<kM>(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = buf ^ 1, k0n = (it + 1) * kRows;
+      load_tile<kRows, kThreads>(k_s + nxt * kTile, kb, s.k[2], k0n, seq);
+      load_tile<kRows, kThreads>(v_s + nxt * kTile, vb, s.v[2], k0n, seq);
+      load_key_bias<kRows, kThreads>(kbias_s + nxt * kRows, pad_b, s.pad[1], k0n, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      if (it == 0) {
+        load_a<kM>(qf, q_s, row0);
+        load_a<kM>(dof, do_s, row0);
+#pragma unroll
+        for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) dl[mm][i] = delta_s[row0 + 16 * mm + g + 8 * i];
+      }
+      const int live = live_groups(it * kRows, seq);
+      const float* kbias = kbias_s + buf * kRows;
+      const bf16* kt = k_s + buf * kTile;
+      float sc[kM][8][4], dp[kM][8][4];
+      zero<kM>(sc);
+      zero<kM>(dp);
+      mma_abt_live<kM, 4>(sc, qf, kt, live);                  // S = Q·Kᵀ
+      mma_abt_live<kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float p = exp2_approx(fmaf(sc[mm][j][e], c, kbias[8 * j + 2 * t + (e & 1)]) - lse2[mm][i]);
+            sc[mm][j][e] = p * (dp[mm][j][e] - dl[mm][i]) * scale;  // dS
+          }
+      uint32_t dsf[kM][4][4];
+      to_a<kM, 4>(dsf, sc);
+      mma_ab_live<kM, 4>(acc, dsf, kt, live);                 // dQ += dS·K
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    float ones[kM][2];
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
+    stage<kM>(q_s, row0, acc, ones);
+  }
+  __syncthreads();
+  store_tile<kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, q_s);
+}
+
+template <int kWarps, int kM>
+__global__ void __launch_bounds__(32 * kWarps)
+dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
+           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
+           int seq, float scale, BwdStrides s) {
+  using S = Shape<kWarps, kM>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                     // [kOwn][64]
+  bf16* v_s = k_s + kOwn * kD;                                   // [kOwn][64]
+  bf16* q_s = v_s + kOwn * kD;                                   // [2][64][64]
+  bf16* do_s = q_s + 2 * kTile;                                  // [2][64][64]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile);     // [2][64], log2 units
+  float* dl_s = lse_s + 2 * kRows;                               // [2][64]
+
+  const int k0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = k0 + row0 < seq;  // the warp has a key below seq
+  const bf16* qb = q + b * s.q[0] + h * s.q[1];
+  const bf16* dob = dout + b * s.dout[0] + h * s.dout[1];
+  const long long stat0 = ((long long)b * heads + h) * seq;
+  const int n_tiles = (seq + kRows - 1) / kRows;
+  const float c = scale * kLog2e;
+
+  // The query statistics of queries q0 .. q0+63: past seq, an LSE of +inf
+  // gives P = 0 and a Δ of 0 gives dS = 0.
+  auto load_stats = [&](int slot, int q0) {
+    for (int i = threadIdx.x; i < kRows; i += kThreads) {
+      const int qi = q0 + i;
+      lse_s[slot * kRows + i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+      dl_s[slot * kRows + i] = qi < seq ? delta[stat0 + qi] : 0.f;
+    }
+  };
+
+  load_tile<kOwn, kThreads>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
+  load_tile<kOwn, kThreads>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
+  load_tile<kRows, kThreads>(q_s, qb, s.q[2], 0, seq);
+  load_tile<kRows, kThreads>(do_s, dob, s.dout[2], 0, seq);
+  load_stats(0, 0);
+  cp_async_commit();
+
+  float kbias[kM][2];  // this lane's keys g and g+8 of each group
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k0 + row0 + 16 * mm + g + 8 * i;
+      kbias[mm][i] = (key >= seq || (pad && pad[b * s.pad[0] + key * s.pad[1]])) ? -INFINITY : 0.f;
+    }
+
+  float dk_acc[kM][8][4], dv_acc[kM][8][4];
+  zero<kM>(dk_acc);
+  zero<kM>(dv_acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = buf ^ 1, q0n = (it + 1) * kRows;
+      load_tile<kRows, kThreads>(q_s + nxt * kTile, qb, s.q[2], q0n, seq);
+      load_tile<kRows, kThreads>(do_s + nxt * kTile, dob, s.dout[2], q0n, seq);
+      load_stats(nxt, q0n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int live = live_groups(it * kRows, seq);
+      const bf16* qt = q_s + buf * kTile;
+      const bf16* dot = do_s + buf * kTile;
+      const float* lq = lse_s + buf * kRows;
+      const float* dlq = dl_s + buf * kRows;
+      float st[kM][8][4];
+      zero<kM>(st);
+      {
+        uint32_t kf[kM][4][4];
+        load_a<kM>(kf, k_s, row0);
+        mma_abt_live<kM, 4>(st, kf, qt, live);      // Sᵀ = K·Qᵀ
+      }
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[mm][j][e] = exp2_approx(fmaf(st[mm][j][e], c, kbias[mm][e >> 1]) - lq[8 * j + 2 * t + (e & 1)]);  // Pᵀ
+      {
+        uint32_t pf[kM][4][4];
+        to_a<kM, 4>(pf, st);
+        mma_ab_live<kM, 4>(dv_acc, pf, dot, live);  // dV += Pᵀ·dO
+      }
+      float dpt[kM][8][4];
+      zero<kM>(dpt);
+      {
+        uint32_t vf[kM][4][4];
+        load_a<kM>(vf, v_s, row0);
+        mma_abt_live<kM, 4>(dpt, vf, dot, live);    // dPᵀ = V·dOᵀ
+      }
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[mm][j][e] = st[mm][j][e] * (dpt[mm][j][e] - dlq[8 * j + 2 * t + (e & 1)]) * scale;  // dSᵀ
+      {
+        uint32_t dsf[kM][4][4];
+        to_a<kM, 4>(dsf, st);
+        mma_ab_live<kM, 4>(dk_acc, dsf, qt, live);  // dK += dSᵀ·Q
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    float ones[kM][2];
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
+    stage<kM>(k_s, row0, dk_acc, ones);
+    stage<kM>(v_s, row0, dv_acc, ones);
+  }
+  __syncthreads();
+  store_tile<kOwn, kThreads>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, k_s);
+  store_tile<kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, v_s);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+bool bad_shape(int batch, int heads, int seq, int head_dim) {
+  return head_dim != kD || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
+}
+
+template <int kWarps, int kM, int kN>
+cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* out_rest,
+                           void* lse, int batch, int heads, int seq, float scale, const FwdStrides& s,
+                           cudaStream_t st) {
+  using S = Shape<kWarps, kM, kN>;
+  cudaError_t err = allow_smem(forward_kernel<kWarps, kM, kN>, S::kFwdSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
+  forward_kernel<kWarps, kM, kN><<<grid, S::kThreads, S::kFwdSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<bf16*>(out_rest),
+      static_cast<float*>(lse), heads, seq, scale, s);
+  return cudaGetLastError();
+}
+
+template <int kWarps, int kM>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out, const void* out_rest,
+                      const void* dout, const void* pad, const void* lse, void* dq, void* delta, int batch,
+                      int heads, int seq, float scale, const BwdStrides& s, cudaStream_t st) {
+  using S = Shape<kWarps, kM>;
+  cudaError_t err = allow_smem(dq_kernel<kWarps, kM>, S::kDqSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
+  dq_kernel<kWarps, kM><<<grid, S::kThreads, S::kDqSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(out_rest), static_cast<const bf16*>(dout),
+      static_cast<const uint8_t*>(pad), static_cast<const float*>(lse), static_cast<bf16*>(dq),
+      static_cast<float*>(delta), heads, seq, scale, s);
+  return cudaGetLastError();
+}
+
+template <int kWarps, int kM>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* pad,
+                       const void* lse, const void* delta, void* dk, void* dv, int batch, int heads, int seq,
+                       float scale, const BwdStrides& s, cudaStream_t st) {
+  using S = Shape<kWarps, kM>;
+  cudaError_t err = allow_smem(dkv_kernel<kWarps, kM>, S::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
+  dkv_kernel<kWarps, kM><<<grid, S::kThreads, S::kDkvSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s);
+  return cudaGetLastError();
+}
+
+// The block shapes the entry points launch: (warps, groups of 16 rows a warp;
+// keys a forward tile).
+constexpr int kFwdWarps = 4, kFwdM = 1, kFwdN = 64;
+constexpr int kDqWarps = 4, kDqM = 1;
+constexpr int kDkvWarps = 4, kDkvM = 1;
+
+}  // namespace
+
+// bf16 q, k, v and out; pad is one byte per key (nonzero = padded) and may be
+// null. The residuals of a backward, each written when not null: out_rest
+// (bf16, out's strides) receives what rounding the output to bf16 dropped,
+// lse the float32 row log-sum-exp of the scaled, padded logits, contiguous
+// [B, H, T]. strides: 14 element strides, q, k, v and out (batch, head,
+// token) then pad (batch, token). Returns a cudaError_t; 0 means the kernel
+// was launched.
+extern "C" int avex_bias_free_attention_forward(const void* q, const void* k, const void* v, const void* pad,
+                                                void* out, void* out_rest, void* lse, int batch, int heads,
+                                                int seq, int head_dim, float scale, const long long* strides,
+                                                void* stream) {
+  if (bad_shape(batch, heads, seq, head_dim)) return (int)cudaErrorInvalidValue;
+  FwdStrides s;
+  memcpy(&s, strides, sizeof(FwdStrides));
+  return (int)launch_forward<kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq, scale, s,
+                                               static_cast<cudaStream_t>(stream));
+}
+
+// The backward from the forward's residuals: bf16 q, k, v, out (the forward's
+// output), out_rest (may be null) and dout; lse as the forward wrote them; pad
+// as the forward's. Writes bf16 dq, dk and dv, and Δ = rowsum(dout ∘ (out +
+// out_rest)) into delta (float32 scratch, contiguous [B, H, T]). strides: 26
+// element strides, q, k, v, out (out_rest shares them), dout, dq, dk and dv
+// (batch, head, token) then pad (batch, token). Returns a cudaError_t; 0
+// means both kernels were launched.
+extern "C" int avex_bias_free_attention_backward(const void* q, const void* k, const void* v, const void* out,
+                                                 const void* out_rest, const void* dout, const void* pad,
+                                                 const void* lse, void* dq, void* dk, void* dv, void* delta,
+                                                 int batch, int heads, int seq, int head_dim, float scale,
+                                                 const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, seq, head_dim) || lse == nullptr) return (int)cudaErrorInvalidValue;
+  BwdStrides s;
+  memcpy(&s, strides, sizeof(BwdStrides));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_dq<kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads,
+                                               seq, scale, s, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dkv<kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
+                                            st);
+}

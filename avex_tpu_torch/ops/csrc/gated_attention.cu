@@ -12,7 +12,10 @@
 // Both layouts are only different strides here: every operand is a base
 // pointer plus (batch, head, token) strides, with the head dimension
 // contiguous. The backward of the fused layouts (K3 and K6) follows the
-// forward, below, with its own design note.
+// forward, below, with its own design note. The bias-free instantiations
+// here serve fp32 only: bf16 bias-free calls (K5, K6, K4) run on the tensor
+// cores in bias_free_attention.cu. fp32 stays on this FMA body, the card's
+// parity path: the tensor cores would round its operands to TF32.
 //
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
@@ -370,7 +373,9 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 // tensor-core rate: bound by bytes. At EAT's (B=64, T=513, bias-free) it is
 // 129 GFLOP (about 131 us) against 353 MB (about 105 us): bound by operations.
 // This first kernel runs its products on the FMA units and is held back by
-// its instruction rate; wgmma on TMA-fed tiles is a later change.
+// its instruction rate; wgmma on TMA-fed tiles is a later change. Its
+// bias-free instantiation serves the fp32 K6 only (bf16: bias_free_attention.cu,
+// seven tile products from a saved log-sum-exp).
 // ===========================================================================
 
 namespace {

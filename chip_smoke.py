@@ -12,8 +12,10 @@ Phases, each printing its results on lines of its own:
    (B=128, H=12, T=248, D=64), with and without the gate and with a
    key-padding mask; the bias-free K5 at EAT's shape (T=513) with and without
    a mask and at AVES's (T=249) with its frame mask, and K4 on the split views
-   of EAT's projection. It times the kernel, the twin and one PyTorch library
-   call (``scaled_dot_product_attention``, a yardstick the port never calls);
+   of EAT's projection (bf16 on the tensor-core kernels of
+   ``bias_free_attention.cu``, fp32 on the FMA body). It times the kernel, the
+   twin and one PyTorch library call (``scaled_dot_product_attention``, a
+   yardstick the port never calls), and prints K4's and K5's TFLOP/s;
 4. int8 kernels: K7 (``int8_dynamic_dense``) against its twin at BEATs'
    three (K, N) pairs, at M = 31,744 (B=128) and 248 (one clip), with x in
    bf16 and fp32, with and without the bias (fp32 and bf16 within 1 ulp,
@@ -44,9 +46,10 @@ Phases, each printing its results on lines of its own:
 10. backward kernels: K3 (the gated backward) against its backward twin at
    BEATs' training shape (B=64, T=248), in bf16 and fp32, with and without
    the gate and with a key-padding mask; K6 (the bias-free backward) at EAT's
-   (T=513) and AVES's (T=249, frame mask). Times the kernel, the twin and a
-   yardstick the port never calls (the backward of
-   ``scaled_dot_product_attention``: forward+backward minus forward);
+   (T=513, with and without a mask) and AVES's (T=249, frame mask). Times the
+   kernel, the twin and a yardstick the port never calls (the backward of
+   ``scaled_dot_product_attention``: forward+backward minus forward), and
+   prints K6's TFLOP/s;
 11. BEATs training: full-width BEATs with a 50-class head, bf16 compute with
    fp32 parameters, ``fused_qkv=True, use_pallas=True``, dropout and
    LayerDrop as the official config gives them, through ``Trainer`` (AdamW,
@@ -57,12 +60,16 @@ Phases, each printing its results on lines of its own:
    the fp32 plain path, one step's loss and every gradient from the same
    weights, dropout and LayerDrop off;
 12. EAT training: ``esp_aves2_sl_eat_all_ssl_all`` (T=513) with a 50-class
-   head the same way (K5 and K6 12 launches per step).
+   head the same way (K5 and K6 12 launches per step). For EAT and AVES
+   (``aves_bio``, a third of the clips padded) one bf16 step of the kernel
+   path and one of the plain path are also held to the fp32 plain path's
+   gradients: the kernel path, which runs the bf16 K6 on the tensor cores,
+   may be no farther from them than 1.25x the plain path.
 
 Each main path checks shapes, finiteness, the kernel launch counts per
 forward or step (every kernel of the port: those the path runs, and 0 for
 the rest), the fp32 kernel path against the fp32 plain path, and prints
-clips/s.
+clips/s; the EAT and AVES phases print both paths' bf16-vs-fp32 distance.
 
 It then prints one JSON line of per-kernel numbers (``launches`` counts the
 main paths' runs; K4 and K8, which no main path reaches, add
@@ -139,6 +146,10 @@ TRAIN_STEPS = 10
 N_CLASSES = 50
 B_GRAD_CHECK = 8  # the fp32 kernel-vs-plain gradient check (the plain path holds [B, H, T, T])
 TPU_BF16_FP32_REL = 3.8e-3  # JAX package on a TPU v5e (BENCH_r05.json): a reference point only
+# bf16 training: the kernel path's gradients (the bf16 K6 on the tensor cores)
+# against the fp32 plain path's may be at most this factor farther than the
+# bf16 plain path's: both round the same activations to bf16.
+BF16_GRAD_FACTOR = 1.25
 
 FAILURES: list = []
 
@@ -184,6 +195,10 @@ def attention_bound_ms(dtype_name: str, gated: bool, padded: bool, seq: int = T)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tflops(flops: float, ms: float) -> float:
+    return flops / ms / 1e9
 
 
 def phase_card():
@@ -348,10 +363,11 @@ def phase_bias_free_kernels():
                 keep = None if timed_mask is None else ~timed_mask[:, None, None, :]  # SDPA: True = attend
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(*views, attn_mask=keep, scale=D**-0.5))
                 bound, bound_by = attention_bound_ms(name, gated=False, padded=timed_mask is not None, seq=seq)
+                body = "tensor cores" if ak.tensor_cores(dtype, gated=False) else "FMA"
                 print(
-                    f"time {kname} {shape} T={seq} {name} (mask={timed_mask is not None}): kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
-                    f"({bound / ms:.1%} of bound)"
+                    f"time {kname} {shape} T={seq} {name} (mask={timed_mask is not None}, {body}): kernel {ms:.4f} ms "
+                    f"({tflops(4.0 * B * H * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                    f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)"
                 )
                 results[(kname, shape, name)] = dict(
                     max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -448,16 +464,24 @@ def phase_backward_kernels():
         for shape, seq in (("EAT", T_EAT), ("AVES", T_AVES)):
             qkv = torch.randn(B_TRAIN, seq, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
             dout = torch.randn(B_TRAIN, seq, E, device="cuda", generator=gen).to(dtype)
-            mask = None
+            mask = torch.zeros(B_TRAIN, seq, dtype=torch.bool, device="cuda")
             if shape == "AVES":
-                mask = torch.zeros(B_TRAIN, seq, dtype=torch.bool, device="cuda")
                 mask[::3, 150:] = True
+            else:
+                mask[1::3, 300:] = True
+                mask[2::7, 17:] = True
+            worst = 0.0
+            # EAT without a mask (the timed call) and with one; AVES with its frame mask
+            for m in ((None, mask) if shape == "EAT" else (mask,)):
+                out = ak.fused_qkv_attention(qkv, H, m)
+                (got,) = torch.autograd.grad(out, (qkv,), dout)
+                want = ak.fused_qkv_backward_reference(qkv.detach(), H, m, dout)
+                torch.cuda.synchronize()
+                label = f"fused_qkv_attention_backward {shape} T={seq} {name} mask={m is not None}"
+                worst = max(worst, check_grads(label, dtype, (got,), (want,)))
+            if shape == "EAT":
+                mask = None
             out = ak.fused_qkv_attention(qkv, H, mask)
-            (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
-            want = ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout)
-            torch.cuda.synchronize()
-            label = f"fused_qkv_attention_backward {shape} T={seq} {name} mask={mask is not None}"
-            worst = check_grads(label, dtype, (got,), (want,))
             ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
             plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout))
             q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
@@ -465,8 +489,10 @@ def phase_backward_kernels():
             keep = None if mask is None else ~mask[:, None, None, :]  # SDPA: True = attend
             library_ms = sdpa_backward_ms(q, k, v, keep, dout)
             bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None)
-            print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}): "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
+            body = "tensor cores" if ak.tensor_cores(dtype, gated=False) else "FMA"
+            print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}, "
+                  f"{body}): kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * seq * seq * D, ms):.1f} TFLOP/s), "
+                  f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
                   f"bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)")
             results[("fused_qkv_attention_backward", shape, name)] = dict(
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
@@ -635,8 +661,8 @@ def phase_main_path():
 def bias_free_main_path(label, load, batches, padding_mask, pool, layers, width):
     """One bias-free model family through the public API: bf16 and fp32 on the
     K5 path, the fp32 plain path against the fp32 kernel path, and the bf16
-    plain path; prints the clips/s of each run and returns K5's launches in
-    the bf16 kernel run."""
+    plain path; prints the clips/s of each run and each path's bf16-vs-fp32
+    pooled distance, and returns K5's launches in the bf16 kernel run."""
     import torch
 
     n_emb = layers * width
@@ -650,8 +676,6 @@ def bias_free_main_path(label, load, batches, padding_mask, pool, layers, width)
         emb16, pooled16, counts, rate16 = run(load("bfloat16", True), "bf16 fused_qkv kernel", "fused_qkv_attention")
         emb32, pooled32, _, rate32 = run(load("float32", True), "fp32 fused_qkv kernel", "fused_qkv_attention")
         rel = rel_l2(pooled16, pooled32)
-        print(f"{label} bf16 vs fp32 pooled features: rel L2 {rel:.3e}; {layers}-layer embeddings rel L2 "
-              f"{rel_l2(emb16, emb32):.3e}")
         check(rel < 5e-2, f"{label} bf16 vs fp32 pooled rel L2 {rel:.3e} < 5e-2")
 
         plain32 = load("float32", None)
@@ -662,13 +686,20 @@ def bias_free_main_path(label, load, batches, padding_mask, pool, layers, width)
         check(sum(read_counts().values()) == 0, f"{label} fp32 plain-attention path launches no kernel")
         del plain32
         compare_paths(label, pooled32, emb32, ref_pooled, ref_emb)
-        *_, rate_plain16 = run(load("bfloat16", None), "bf16 plain-attention path (use_pallas=None)", None)
+        _, plain_pooled16, _, rate_plain16 = run(load("bfloat16", None), "bf16 plain-attention path (use_pallas=None)",
+                                                 None)
     torch.cuda.empty_cache()
+    rel_plain = rel_l2(plain_pooled16, ref_pooled)
+    print(f"{label} bf16 vs fp32 pooled features: kernel path rel L2 {rel:.3e} ({layers}-layer embeddings "
+          f"{rel_l2(emb16, emb32):.3e}), plain path rel L2 {rel_plain:.3e}")
+    print(f"{label} bf16: kernel path {rate16:.1f} clips/s vs plain path {rate_plain16:.1f} clips/s "
+          f"({rate16 / rate_plain16:.3f}x)")
     print(json.dumps({
         "model": label.lower(),
         "clips_per_s": {"bf16_fused_qkv_kernel": rate16, "fp32_fused_qkv_kernel": rate32,
                         "bf16_plain_attention": rate_plain16},
-        "batch": B, "clip_seconds": batches[0].shape[1] / 16000, "bf16_fp32_pooled_rel_l2": rel,
+        "batch": B, "clip_seconds": batches[0].shape[1] / 16000,
+        "bf16_fp32_pooled_rel_l2": {"kernel_path": rel, "plain_path": rel_plain},
     }))
     return counts["fused_qkv_attention"]
 
@@ -724,58 +755,96 @@ def phase_aves():
 def zero_gradient(name, grad):
     """The entries of ``name``'s gradient that are exactly 0 in exact
     arithmetic: the key projection's bias (the third of a fused qkv bias in
-    the middle), which a softmax cannot see. Computed, they are rounding
-    noise that two correct paths give differently."""
+    the middle, or AVES's ``k_proj.bias``), which a softmax cannot see.
+    Computed, they are rounding noise that two correct paths give
+    differently."""
     import torch
 
     noise = torch.zeros_like(grad, dtype=torch.bool)
     if name.endswith(("qkv_proj.bias", "attn.qkv.bias")):
         third = grad.shape[0] // 3
         noise[third:2 * third] = True
+    elif name.endswith("k_proj.bias"):
+        noise[:] = True
     return noise
 
 
-def training_gradient_check(label, load, wav, expect):
-    """fp32, dropout and LayerDrop off, the same weights: the kernel path's
-    loss and every parameter's gradient against the plain path's. ``expect``
-    maps the kernels the kernel path launches to their count."""
+def step_gradients(label, load, dtype, use_pallas, wav, mask, expect):
+    """One step's loss and every parameter's gradient (float32), dropout and
+    LayerDrop off; checks the kernel launches (``expect`` on the kernel path,
+    none on the plain path)."""
     import torch
 
     from avex_tpu_torch.training.losses import cross_entropy_loss
 
     labels = torch.arange(wav.shape[0], device=wav.device) % N_CLASSES
-    results = []
-    for use_pallas in (True, False):
-        model = load("float32", use_pallas)
-        params = dict(model.module.named_parameters())
-        reset_counts()
-        out, _ = model.train_forward(wav, None, deterministic=True)
-        loss = cross_entropy_loss(out, labels)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        want = expect if use_pallas else {}
-        check(all(counts[k] == want.get(k, 0) for k in counts),
-              f"{label} fp32 gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
-              f"{ {k: v for k, v in counts.items() if v} } == {want}")
-        results.append((loss.item(), {n: g for n, g in zip(params, grads) if g is not None}))
-        del model, params, out, grads
-        torch.cuda.empty_cache()
-    (loss_k, grads_k), (loss_p, grads_p) = results
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst, worst_name = 0.0, None
-    for name, want in grads_p.items():
-        got = grads_k[name]
+    model = load(dtype, use_pallas)
+    params = dict(model.module.named_parameters())
+    reset_counts()
+    out, _ = model.train_forward(wav, mask, deterministic=True)
+    loss = cross_entropy_loss(out, labels)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expect if use_pallas else {}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
+          f"{ {k: v for k, v in counts.items() if v} } == {want}")
+    result = loss.item(), {n: g.float() for n, g in zip(params, grads) if g is not None}
+    del model, params, out, grads
+    torch.cuda.empty_cache()
+    return result
+
+
+def gradient_distance(grads, ref) -> tuple:
+    """(global rel L2 over every gradient, worst single tensor's rel L2, its
+    name) of ``grads`` against ``ref``, ``zero_gradient`` entries left out."""
+    num = den = worst = 0.0
+    worst_name = None
+    for name, want in ref.items():
         keep = ~zero_gradient(name, want)
-        norm = float(want[keep].norm())
-        rel = float((got[keep] - want[keep]).norm()) / norm if norm else float(got[keep].norm())
+        diff2, norm2 = float((grads[name][keep] - want[keep]).norm() ** 2), float(want[keep].norm() ** 2)
+        num, den = num + diff2, den + norm2
+        rel = (diff2 / norm2) ** 0.5 if norm2 else diff2 ** 0.5
         if rel > worst:
             worst, worst_name = rel, name
+    return (num / den) ** 0.5, worst, worst_name
+
+
+def training_gradient_check(label, load, wav, expect, mask=None, bf16=False):
+    """fp32, dropout and LayerDrop off, the same weights: the kernel path's
+    loss and every parameter's gradient against the plain path's. ``expect``
+    maps the kernels the kernel path launches to their count. With ``bf16``
+    one bf16 step of each path is also held to the fp32 plain path: the
+    kernel path may be at most BF16_GRAD_FACTOR farther than the plain path
+    (global rel L2 over every gradient). Returns the numbers printed."""
+    loss_k, grads_k = step_gradients(label, load, "float32", True, wav, mask, expect)
+    loss_p, grads_p = step_gradients(label, load, "float32", False, wav, mask, expect)
     check(grads_k.keys() == grads_p.keys(), f"{label}: the same parameters get gradients on both paths")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    _, worst, worst_name = gradient_distance(grads_k, grads_p)
     check(loss_rel <= PATH_REL and worst <= PATH_REL,
           f"{label}: fp32 kernel path vs plain path, one step (B={wav.shape[0]}): loss rel {loss_rel:.3e}, "
           f"worst gradient rel L2 {worst:.3e} ({worst_name}) over {len(grads_p)} tensors <= {PATH_REL:g}")
-    return loss_rel, worst
+    result = {"fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": worst}
+    if bf16:
+        del grads_k
+        dist = {}
+        for path, use_pallas in (("kernel", True), ("plain", False)):
+            loss16, grads16 = step_gradients(label, load, "bfloat16", use_pallas, wav, mask, expect)
+            check(grads16.keys() == grads_p.keys(), f"{label} bf16 {path} path: the same parameters get gradients")
+            dist[path] = (abs(loss16 - loss_p) / abs(loss_p), *gradient_distance(grads16, grads_p))
+            del grads16
+        (lk, gk, wk, nk), (lp, gp, wp, np_) = dist["kernel"], dist["plain"]
+        print(f"{label} bf16 step vs the fp32 plain path (B={wav.shape[0]}): kernel path loss rel {lk:.3e}, "
+              f"gradients global rel L2 {gk:.3e} (worst tensor {wk:.3e}, {nk}); plain path loss rel {lp:.3e}, "
+              f"gradients global rel L2 {gp:.3e} (worst tensor {wp:.3e}, {np_})")
+        check(gk <= BF16_GRAD_FACTOR * gp,
+              f"{label}: bf16 kernel path's gradients {gk:.3e} from fp32 <= {BF16_GRAD_FACTOR:g} x the bf16 plain "
+              f"path's {gp:.3e}")
+        result.update(bf16_grad_rel={"kernel_path": gk, "plain_path": gp},
+                      bf16_loss_rel={"kernel_path": lk, "plain_path": lp})
+    return result
 
 
 def train_run(label, model, batch, expect, steps, workdir):
@@ -861,10 +930,10 @@ def phase_beats_training(workdir):
     del trainer, model
     torch.cuda.empty_cache()
 
-    loss_rel, grad_rel = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect)
+    grad_check = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect)
     print(json.dumps({"model": "beats", "training": {
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "remat_peak_bytes": remat_peak,
-        "losses": losses, "fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": grad_rel},
+        "losses": losses, **grad_check},
         "batch": B_TRAIN, "clip_seconds": CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
     return counts
 
@@ -890,12 +959,33 @@ def phase_eat_training(workdir):
                                            f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
     del trainer
     torch.cuda.empty_cache()
-    loss_rel, grad_rel = training_gradient_check("EAT", load, batch["raw_wav"][:B_GRAD_CHECK], expect)
+    grad_check = training_gradient_check("EAT", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
     print(json.dumps({"model": "eat", "training": {
-        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses,
-        "fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": grad_rel},
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, **grad_check},
         "batch": B_TRAIN, "clip_seconds": EAT_CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
     return counts
+
+
+def phase_aves_gradient_check():
+    """``aves_bio`` with a 50-class head, a third of the clips padded: the
+    fp32 and bf16 gradient checks (K5 and the masked K6, 12 launches each)."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    def load(dtype, use_pallas):
+        spec = ModelSpec(name="aves_bio", pretrained=False, compute_dtype=dtype)
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda",
+                                         use_pallas=use_pallas)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    wav = torch.randn(B_GRAD_CHECK, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+    mask = torch.zeros(B_GRAD_CHECK, CLIP_SAMPLES, dtype=torch.bool, device="cuda")
+    mask[::3, AVES_PAD_FROM:] = True
+    expect = {"fused_qkv_attention": 12, "fused_qkv_attention_backward": 12}
+    grad_check = training_gradient_check("AVES", load, wav, expect, mask=mask, bf16=True)
+    print(json.dumps({"model": "aves", "training_gradient_check": grad_check, "batch": B_GRAD_CHECK}))
 
 
 def max_ulps(got, want, mantissa_bits: int) -> float:
@@ -1304,6 +1394,7 @@ def main() -> int:
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_training"
     beats_train = phase_beats_training(workdir / "beats")
     eat_train = phase_eat_training(workdir / "eat")
+    phase_aves_gradient_check()
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path and "
           f"{aves_launches} on the AVES path")
@@ -1322,6 +1413,7 @@ def main() -> int:
     kernel_phase = {"plain_attention": k4_launches, "int8_matmul": k8_launches}
 
     attention = "avex_tpu_torch/ops/csrc/gated_attention.cu"
+    tensor_core = "avex_tpu_torch/ops/csrc/bias_free_attention.cu"  # bf16; fp32 stays on gated_attention.cu
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
     rows = (
@@ -1329,15 +1421,15 @@ def main() -> int:
          timings[("gated_bias_attention", "bfloat16")]),
         ("fused_qkv_gated_attention", attention, "avex_tpu/ops/pallas_attention.py:389",
          timings[("fused_qkv_gated_attention", "bfloat16")]),
-        ("plain_attention", attention, "avex_tpu/ops/pallas_attention.py:161",
+        ("plain_attention", tensor_core, "avex_tpu/ops/pallas_attention.py:161",
          plain_timings[("plain_attention", "EAT", "bfloat16")]),
-        ("fused_qkv_attention", attention, "avex_tpu/ops/pallas_attention.py:344",
+        ("fused_qkv_attention", tensor_core, "avex_tpu/ops/pallas_attention.py:344",
          plain_timings[("fused_qkv_attention", "EAT", "bfloat16")]),
         ("int8_dynamic_dense", int8, "avex_tpu/ops/pallas_int8.py:100", k7),
         ("int8_matmul", int8, "avex_tpu/ops/pallas_int8.py:46", k8),
         ("fused_qkv_gated_attention_backward", attention, "avex_tpu/ops/pallas_attention.py:765",
          backward_timings[("fused_qkv_gated_attention_backward", "bfloat16")]),
-        ("fused_qkv_attention_backward", attention, "avex_tpu/ops/pallas_attention.py:524",
+        ("fused_qkv_attention_backward", tensor_core, "avex_tpu/ops/pallas_attention.py:524",
          backward_timings[("fused_qkv_attention_backward", "EAT", "bfloat16")]),
     )
     kernels = []
@@ -1348,6 +1440,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if source == tensor_core:
+            kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)", "fp32": "FMA"}
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

@@ -37,6 +37,13 @@ def _split(qkv):
     return [t.permute(0, 2, 1, 3) for t in qkv.view(B, T, 3, H, D).unbind(2)]
 
 
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
 def test_kernels_match_twins(inputs):
     qkv, bias, gate, mask = inputs
     q, k, v = _split(qkv)
@@ -162,11 +169,6 @@ def test_unsupported_inputs_raise(inputs):
         ak.fused_qkv_attention(qkv.half(), H)
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return torch.Generator(device="cuda").manual_seed(0)
 
 
 def _int8_weight(n, k, gen):
@@ -239,3 +241,122 @@ def test_int8_unsupported_inputs_raise(card):
     xq = torch.zeros(4, 64, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="multiple of 16"):
         ik.int8_matmul(xq, torch.zeros(64, 40, dtype=torch.int8, device="cuda"))
+
+
+# The bf16 bias-free kernels on the tensor cores (K5, K6 and K4 in bf16):
+# T = 1, one ragged tile, one full tile and a row, AVES's and EAT's; B = 2
+# and 16; no mask, a mask on every other item, and that mask with item 0's
+# keys all padded (NaN there, as the twin's softmax gives).
+TC_SEQS = [1, 31, 65, 249, 513]
+TC_MASKS = ["nomask", "mask", "padded_row"]
+
+
+def _tc_mask(kind, bsz, seq):
+    if kind == "nomask":
+        return None
+    mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+    mask[1::2, (seq + 1) // 2:] = True
+    if kind == "padded_row":
+        mask[0] = True
+    return mask
+
+
+def _close_bf16(got, want):
+    """NaN exactly where the twin has NaN; elsewhere relative L2 < 5e-3 (one
+    bf16 rounding of P, dS and the output, sums in another order)."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got.float()[~nan], want.float()[~nan]
+    assert float((g - w).norm() / w.norm()) < 5e-3
+
+
+@pytest.mark.parametrize("seq", TC_SEQS)
+@pytest.mark.parametrize("bsz", [2, 16])
+@pytest.mark.parametrize("masking", TC_MASKS)
+def test_tensor_core_forward_matches_twin(card, seq, bsz, masking):
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16()
+    mask = _tc_mask(masking, bsz, seq)
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        got = ak.fused_qkv_attention(qkv, H, mask)
+    want = ak.fused_qkv_reference(qkv, H, mask)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_attention"] == 1 and sum(ak.LAUNCHES.values()) == 1
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("seq", TC_SEQS)
+@pytest.mark.parametrize("bsz", [2, 16])
+@pytest.mark.parametrize("masking", TC_MASKS)
+def test_tensor_core_backward_matches_twins(card, seq, bsz, masking):
+    """K6 from the forward's residuals against the backward twin and against
+    the twin of its own contract (P from the LSE, Δ from the output)."""
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16().requires_grad_()
+    dout = torch.randn(bsz, seq, H * D, generator=card, device="cuda").bfloat16()
+    mask = _tc_mask(masking, bsz, seq)
+    ak.reset_launch_counts()
+    out = ak.fused_qkv_attention(qkv, H, mask)
+    (got,) = torch.autograd.grad(out, (qkv,), dout)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_attention"] == 1 and ak.LAUNCHES["fused_qkv_attention_backward"] == 1
+    _close_bf16(got, ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout))
+    _, lse, rest = ak._fused_qkv_forward_lse_reference(qkv.detach(), H, mask)
+    _close_bf16(got, ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), out.detach(), lse, mask, dout,
+                                                                    out_rest=rest))
+
+
+def test_tensor_core_forward_writes_residuals_only_under_grad(card, monkeypatch):
+    """Under grad the bf16 forward writes the LSE (held to the twin's) and
+    the output's rounding rest (below half a bf16 ulp of the output)."""
+    bsz, seq = 2, 65
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16().requires_grad_()
+    mask = _tc_mask("mask", bsz, seq)
+    written = []
+    launch = ak._launch
+    monkeypatch.setattr(ak, "_launch", lambda *args: written.append(args[8]) or launch(*args))
+    out = ak.fused_qkv_attention(qkv, H, mask)
+    *_, rest, lse = out.grad_fn.saved_tensors
+    _, want, _ = ak._fused_qkv_forward_lse_reference(qkv.detach(), H, mask)
+    assert written[-1] is not None and lse.dtype == torch.float32 and lse.shape == (bsz, H, seq)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert rest.shape == out.shape and rest.dtype == torch.bfloat16 and rest.any()
+    assert bool((rest.float().abs() <= out.detach().float().abs() * 2.0**-8).all())
+    with torch.no_grad():
+        assert ak.fused_qkv_attention(qkv, H, mask).grad_fn is None
+    ak.fused_qkv_attention(qkv.detach(), H, mask)  # grad mode on, nothing requires grad
+    ak.fused_qkv_attention(qkv.detach().float().requires_grad_(), H, mask)  # fp32: the FMA body
+    assert len(written) == 4 and written[1:] == [None, None, None]
+
+
+def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
+    bsz, seq = 2, 65
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
+    mask = _tc_mask("mask", bsz, seq)
+    sources = []
+    for name in ("_library", "_tensor_core_library"):
+        real = getattr(ak, name)
+        monkeypatch.setattr(ak, name, lambda real=real, name=name: sources.append(name) or real())
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.bfloat16().view(bsz, seq, 3, H, D).unbind(2))
+        _close_bf16(ak.gated_bias_attention(q, k, v, None, None, mask),
+                    ak.gated_bias_attention_reference(q, k, v, None, None, mask))
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, H, D).unbind(2))
+        ak.gated_bias_attention(q, k, v, None, None, mask)
+    torch.cuda.synchronize()
+    assert sources == ["_tensor_core_library", "_library"] and ak.LAUNCHES["plain_attention"] == 2
+
+
+def test_tensor_core_head_width_other_than_64_raises(card, monkeypatch):
+    """A bf16 call at dh=32 raises before any launch."""
+    for name in ("_library", "_tensor_core_library"):
+        monkeypatch.setattr(ak, name, lambda: pytest.fail("no kernel may be loaded or launched"))
+    ak.reset_launch_counts()
+    qkv = torch.zeros(2, 31, 3 * H * 32, dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.fused_qkv_attention(qkv, H)
+    q = torch.zeros(2, H, 31, 32, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.gated_bias_attention(q, q, q, None)
+    assert sum(ak.LAUNCHES.values()) == 0

@@ -78,7 +78,7 @@ def test_slice_imports_without_jax_flax_or_avex_tpu():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in (ROOT / "avex_tpu_torch").rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "scripts/torch_beats_profile.py", "scripts/torch_attention_shapes.py"],
 )
 def test_source_has_no_jax_imports(path):
     text = (ROOT / path).read_text()
