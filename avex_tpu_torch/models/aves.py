@@ -18,8 +18,14 @@ published ``*.torchaudio.pt`` checkpoints:
 ``forward`` returns the last layer's features; the embedding taps are
 ``model.encoder.transformer.layers.{i}.feed_forward.output_dense``. Module
 names follow torchaudio's, so :func:`convert_aves_state_dict` only strips a
-wrapper prefix and folds the weight norm. Inference only: dropout and
-LayerDrop never run; ``scan_layers`` raises ``NotImplementedError``.
+wrapper prefix and folds the weight norm. In training (``deterministic=False``)
+dropout runs where the JAX model applies it (after the feature projection,
+after the positional conv's residual and the encoder LayerNorm, after the
+attention's ``out_proj``, after the FFN's intermediate and output), and
+LayerDrop (``disable_layerdrop=False``) keeps each layer with probability
+``1 - encoder_layer_drop``; every draw comes from the caller's
+``torch.Generator``. ``encoder_attention_dropout`` is configured but, as in
+JAX, never applied. ``scan_layers`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from avex_tpu_torch.models.common import (
     config_from_dict,
     conv_positions,
     dense,
+    dropout,
     fold_weight_norm,
     gelu,
     group_norm,
@@ -68,18 +75,23 @@ CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
 
 @dataclass
 class AVESConfig:
-    """HuBERT-base hyper-parameters the inference path reads. Other keys of
-    an ``aves_cfg`` (the reference's dropout and LayerDrop rates, which
-    inference never applies) are kept in :attr:`extra`, as the JAX class
-    keeps any attribute."""
+    """HuBERT-base hyper-parameters, with the JAX class's defaults. Other keys
+    of an ``aves_cfg`` are kept in :attr:`extra`, as the JAX class keeps any
+    attribute."""
 
     encoder_embed_dim: int = 768
+    encoder_projection_dropout: float = 0.1
     encoder_pos_conv_kernel: int = 128
     encoder_pos_conv_groups: int = 16
     encoder_num_layers: int = 12
     encoder_num_heads: int = 12
+    #: configured but never applied, as in the JAX model (no attention-probability dropout)
+    encoder_attention_dropout: float = 0.1
     encoder_ff_interm_features: int = 3072
+    encoder_ff_interm_dropout: float = 0.0
+    encoder_dropout: float = 0.1
     encoder_layer_norm_first: bool = False
+    encoder_layer_drop: float = 0.05
     extra: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -142,16 +154,25 @@ class _EncoderLayer(nn.Module):
     def __init__(self, cfg: AVESConfig, dtype: torch.dtype, use_pallas: bool) -> None:
         super().__init__()
         dim = cfg.encoder_embed_dim
-        self.heads, self.dtype, self.use_pallas = cfg.encoder_num_heads, dtype, use_pallas
+        self.cfg, self.heads, self.dtype, self.use_pallas = cfg, cfg.encoder_num_heads, dtype, use_pallas
         self.attention = _SelfAttention(dim)
         self.layer_norm = nn.LayerNorm(dim, eps=1e-5)
         self.feed_forward = _FeedForward(dim, cfg.encoder_ff_interm_features)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor]
+        self,
+        x: torch.Tensor,
+        padding_mask: Optional[torch.Tensor],
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         bsz, seq, dim = x.shape
+        cfg = self.cfg
+
+        def drop(t: torch.Tensor, rate: float) -> torch.Tensor:
+            return dropout(t, rate, deterministic, generator)
+
         dt, heads, att = self.dtype, self.heads, self.attention
         head_dim = dim // heads
         if self.use_pallas and fused_qkv_compatible(dim, heads):
@@ -172,10 +193,11 @@ class _EncoderLayer(nn.Module):
             # bf16 compute runs the softmax chain in bf16 too, as in JAX.
             attn = dot_product_attention(q, k, v, bias=bias, scale=head_dim**-0.5, logits_dtype=dt)
             attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
-        x = layer_norm(self.layer_norm, x + dense(att.out_proj, attn, dt), dt)
+        x = layer_norm(self.layer_norm, x + drop(dense(att.out_proj, attn, dt), cfg.encoder_dropout), dt)
         ff = self.feed_forward
-        ff_out = dense(ff.output_dense, gelu(dense(ff.intermediate_dense, x, dt)), dt)
-        return layer_norm(self.final_layer_norm, x + ff_out, dt), ff_out
+        hidden = drop(gelu(dense(ff.intermediate_dense, x, dt)), cfg.encoder_ff_interm_dropout)
+        ff_out = dense(ff.output_dense, hidden, dt)
+        return layer_norm(self.final_layer_norm, x + drop(ff_out, cfg.encoder_dropout), dt), ff_out
 
 
 class _FeatureProjection(nn.Module):
@@ -230,8 +252,15 @@ class AVESModel(nn.Module):
             self.classifier = nn.Linear(cfg.encoder_embed_dim, num_classes)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        disable_layerdrop: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Dropout runs unless ``deterministic``, LayerDrop unless
+        ``disable_layerdrop`` too; both draw from ``generator``."""
         cfg, dt = self.cfg, self.dtype
         feats = self.feature_extractor(x.float())
         # A frame is padded only when every sample it pools is.
@@ -239,6 +268,7 @@ class AVESModel(nn.Module):
 
         proj = self.encoder.feature_projection
         h = dense(proj.projection, layer_norm(proj.layer_norm, feats, dt), dt)
+        h = dropout(h, cfg.encoder_projection_dropout, deterministic, generator)
         if frame_mask is not None:
             h = h.masked_fill(frame_mask[:, :, None], 0.0)
         tr = self.encoder.transformer
@@ -247,10 +277,21 @@ class AVESModel(nn.Module):
             # fairseq post-norm: the encoder LayerNorm sits right after the
             # positional conv, before the layer stack.
             h = layer_norm(tr.layer_norm, h, dt)
+        h = dropout(h, cfg.encoder_dropout, deterministic, generator)
 
+        use_layerdrop = not disable_layerdrop and cfg.encoder_layer_drop > 0 and not deterministic
+        if use_layerdrop and generator is None:
+            raise ValueError("LayerDrop outside deterministic mode needs a torch.Generator")
         intermediates: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(tr.layers):
-            h, ff_out = layer(h, frame_mask)
+            new_h, ff_out = layer(h, frame_mask, deterministic, generator)
+            if use_layerdrop:
+                # Kept with probability 1 - encoder_layer_drop; as in JAX the
+                # layer runs either way and the draw selects (models/beats.py).
+                keep = torch.rand((), generator=generator, device=h.device) > cfg.encoder_layer_drop
+                new_h = torch.where(keep, new_h, h)
+                ff_out = torch.where(keep, ff_out, torch.zeros_like(ff_out))
+            h = new_h
             intermediates[f"model.encoder.transformer.layers.{i}.feed_forward.output_dense"] = ff_out
 
         aux: Dict[str, Any] = {"intermediates": intermediates, "padding_mask": frame_mask, "features": h}

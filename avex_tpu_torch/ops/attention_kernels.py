@@ -20,15 +20,16 @@ and P cast to v's type before PV, and of its two backward kernels:
   replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
 Two CUDA sources carry them, chosen by type and variant (a dispatch, not a
-fallback): bf16 bias-free calls (K5, its backward K6, and K4) launch the
-tensor-core kernels of ``csrc/bias_free_attention.cu``, whose forward also
-writes the row log-sum-exp and the output's rounding rest when a backward
-will follow, so that the backward rebuilds P from the one and takes Δ from
-the forward's output and the other; fp32
-calls and the gated variant (K1, K2, K3) launch ``csrc/gated_attention.cu``'s
-FMA body, gated or bias-free by a template flag. The two layouts differ only
-in the strides handed to the kernels. Each source's header states its bounds
-on an H100 and what its design does about them.
+fallback): every bf16 forward (K1, K2, K4, K5) and the bf16 bias-free
+backward (K6) launch the tensor-core kernels of
+``csrc/tensor_core_attention.cu``, whose bias-free forward also writes the
+row log-sum-exp and the output's rounding rest when a backward will follow,
+so that the backward rebuilds P from the one and takes Δ from the forward's
+output and the other; fp32 calls and the gated backward (K3) launch
+``csrc/gated_attention.cu``'s FMA body, gated or bias-free by a template
+flag. The two layouts differ only in the strides handed to the kernels. Each
+source's header states its bounds on an H100 and what its design does about
+them.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
 autograd through it); a CUDA tensor launches the kernel or raises, forward
@@ -68,8 +69,8 @@ __all__ = [
 ]
 
 SOURCE = "gated_attention.cu"
-#: bf16 bias-free attention on the tensor cores (K5, K6 and K4 in bf16)
-TENSOR_CORE_SOURCE = "bias_free_attention.cu"
+#: bf16 attention on the tensor cores (K1, K2, K4, K5 and K6 in bf16)
+TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
 #: The only head width the kernel takes (BEATs, EAT and AVES: 768 / 12).
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,17 +132,20 @@ def _tensor_core_library() -> ctypes.CDLL:
     if lib.avex_bias_free_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+        lib.avex_tensor_core_gated_attention_forward.argtypes = [p] * 7 + tail
         lib.avex_bias_free_attention_forward.argtypes = [p] * 7 + tail
         lib.avex_bias_free_attention_backward.argtypes = [p] * 12 + tail
+        lib.avex_tensor_core_gated_attention_forward.restype = i
         lib.avex_bias_free_attention_forward.restype = i
         lib.avex_bias_free_attention_backward.restype = i
     return lib
 
 
-def tensor_cores(dtype: torch.dtype, gated: bool) -> bool:
+def tensor_cores(dtype: torch.dtype, gated: bool, backward: bool = False) -> bool:
     """True when a CUDA call of this type and variant runs on the tensor-core
-    kernels (bf16 bias-free); fp32 and the gated variant run the FMA body."""
-    return dtype == torch.bfloat16 and not gated
+    kernels: every bf16 forward and the bf16 bias-free backward (K6). fp32
+    calls and the gated backward (K3) run the FMA body."""
+    return dtype == torch.bfloat16 and not (backward and gated)
 
 
 # ---------------------------------------------------------------------------
@@ -409,14 +413,16 @@ def _launch(
     in place. With ``pos_bias`` the gated variant runs, without it the
     bias-free one (which takes no gate either): on the tensor cores in bf16,
     where ``residuals`` = ``(lse, out_rest)`` may receive K6's residuals (the
-    row log-sum-exp, float32 ``[B, H, T]`` contiguous, and what rounding the
-    output dropped, bf16 with ``out``'s strides), on the FMA body in fp32."""
+    bias-free variant only: the row log-sum-exp, float32 ``[B, H, T]``
+    contiguous, and what rounding the output dropped, bf16 with ``out``'s
+    strides), on the FMA body in fp32."""
     _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
-    on_tensor_cores = tensor_cores(q.dtype, pos_bias is not None)
+    gated = pos_bias is not None
+    on_tensor_cores = tensor_cores(q.dtype, gated)
     lse, out_rest = residuals if residuals is not None else (None, None)
     if residuals is not None and not (
-        on_tensor_cores and lse.shape == (bsz, heads, seq) and lse.is_contiguous()
+        tensor_cores(q.dtype, gated, backward=True) and lse.shape == (bsz, heads, seq) and lse.is_contiguous()
         and out_rest.dtype == out.dtype and out_rest.stride() == out.stride()
     ):
         raise ValueError("only the bf16 bias-free kernel writes K6's residuals: float32 [B, H, T] and out's layout")
@@ -426,25 +432,27 @@ def _launch(
     tail = (bsz, heads, seq, dim, float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if on_tensor_cores:
-            strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
-            err = _tensor_core_library().avex_bias_free_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
-                *tail, strides, stream,
-            )
-        elif pos_bias is None:
-            strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
-            err = _library().avex_plain_attention_forward(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
-                *tail, strides, stream,
-            )
-        else:
+        if gated:
             gate_strides = gate.stride() if gate is not None else (0, 0, 0)
-            strides = (ctypes.c_longlong * 22)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
-            err = _library().avex_gated_attention_forward(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(),
-                gate.data_ptr() if gate is not None else None, pad_ptr, out.data_ptr(), *tail, strides, stream,
-            )
+            strides = (ctypes.c_longlong * 20)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
+            operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate), pad_ptr,
+                        out.data_ptr(), *tail, strides, stream)
+            if on_tensor_cores:
+                err = _tensor_core_library().avex_tensor_core_gated_attention_forward(*operands)
+            else:
+                err = _library().avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands)
+        else:
+            strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
+            if on_tensor_cores:
+                err = _tensor_core_library().avex_bias_free_attention_forward(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
+                    *tail, strides, stream,
+                )
+            else:
+                err = _library().avex_plain_attention_forward(
+                    _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
+                    *tail, strides, stream,
+                )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
 
@@ -469,7 +477,7 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_resi
     q, k, v = _split_heads(qkv, heads)
     out = torch.empty(bsz, seq, dim, dtype=qkv.dtype, device=qkv.device)
     residuals = None
-    if with_residuals and tensor_cores(qkv.dtype, pos_bias is not None):
+    if with_residuals and tensor_cores(qkv.dtype, pos_bias is not None, backward=True):
         residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device), torch.empty_like(out))
 
     def heads_first(t):
@@ -602,7 +610,7 @@ class _FusedQKVAttention(torch.autograd.Function):
     def backward(ctx, dout):
         qkv, pos_bias, gate, key_padding_mask, out, out_rest, lse = ctx.saved_tensors
         dbias = dgate = None
-        if tensor_cores(qkv.dtype, pos_bias is not None):
+        if tensor_cores(qkv.dtype, pos_bias is not None, backward=True):
             if lse is None:
                 raise RuntimeError("the bf16 attention backward needs the forward's residuals: run the "
                                    "forward with grad mode on and qkv requiring grad")
@@ -724,7 +732,7 @@ def fused_qkv_attention(
     is ``[B, T]`` bool, True = padded key. Differentiable in ``qkv``: on
     CUDA the backward is the K6 kernel, on the CPU autograd through the plain
     twin. bf16 CUDA tensors run on the tensor-core kernels
-    (``csrc/bias_free_attention.cu``), fp32 ones on the FMA body.
+    (``csrc/tensor_core_attention.cu``), fp32 ones on the FMA body.
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)

@@ -12,10 +12,10 @@
 // Both layouts are only different strides here: every operand is a base
 // pointer plus (batch, head, token) strides, with the head dimension
 // contiguous. The backward of the fused layouts (K3 and K6) follows the
-// forward, below, with its own design note. The bias-free instantiations
-// here serve fp32 only: bf16 bias-free calls (K5, K6, K4) run on the tensor
-// cores in bias_free_attention.cu. fp32 stays on this FMA body, the card's
-// parity path: the tensor cores would round its operands to TF32.
+// forward, below, with its own design note. The forwards here serve fp32
+// only: every bf16 forward (K1, K2, K4, K5) and the bf16 K6 run on the
+// tensor cores in tensor_core_attention.cu. fp32 stays on this FMA body, the
+// card's parity path: the tensor cores would round its operands to TF32.
 //
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
@@ -30,15 +30,12 @@
 // shared memory, hence the key tiling. A ragged last tile of queries or keys
 // (T = 513: 8 full tiles and 1 row) is masked, not padded.
 //
-// Bound on an H100 at the BEATs shape (B=128, H=12, T=248, D=64, bf16, gated):
-// the call must read q, k, v and write out once, 4 x 48.8 MB, plus the fp32
-// bias (3.0 MB) and gate (1.5 MB), 199.6 MB in all, about 60 us at 3.35 TB/s;
-// its 24.2 GFLOP take about 24 us at the bf16 tensor-core rate, so the call is
-// bound by bytes. At EAT's shape (B=128, H=12, T=513, D=64, bf16, bias-free)
-// it moves 4 x 100.9 MB, about 120 us, against 103.5 GFLOP, about 105 us:
-// bound by bytes, narrowly. The products here run on the fp32 FMA units, not
-// the tensor cores (a later change: wgmma on TMA-fed K/V tiles), so this
-// simple kernel is held back by its FMA instruction rate instead.
+// Bound on an H100 at the BEATs shape (B=128, H=12, T=248, D=64, fp32,
+// gated): 24.2 GFLOP take about 361 us at the 67 TFLOP/s fp32 rate, against
+// 4 x 97.5 MB of q, k, v and out plus the bias and gate, about 118 us at
+// 3.35 TB/s: bound by operations. The products run on the fp32 FMA units,
+// as the parity path's fp32 operands ask, so this kernel is held back by its
+// FMA instruction rate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -295,7 +292,7 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); bias and gate
 // are float32, pad is one byte per key (nonzero = padded); gate and pad may be
-// null. strides: 22 element strides in the order of struct Strides. Returns a
+// null. strides: 20 element strides in the order of struct Strides. Returns a
 // cudaError_t; 0 means the kernel was launched.
 extern "C" int avex_gated_attention_forward(int dtype, const void* q, const void* k, const void* v,
                                             const void* bias, const void* gate, const void* pad,
@@ -374,7 +371,7 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 // 129 GFLOP (about 131 us) against 353 MB (about 105 us): bound by operations.
 // This first kernel runs its products on the FMA units and is held back by
 // its instruction rate; wgmma on TMA-fed tiles is a later change. Its
-// bias-free instantiation serves the fp32 K6 only (bf16: bias_free_attention.cu,
+// bias-free instantiation serves the fp32 K6 only (bf16: tensor_core_attention.cu,
 // seven tile products from a saved log-sum-exp).
 // ===========================================================================
 

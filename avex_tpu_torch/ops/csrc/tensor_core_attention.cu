@@ -1,29 +1,50 @@
-// Bias-free attention in bf16 on Hopper's tensor cores (sm_90a), plain C ABI:
+// Attention in bf16 on Hopper's tensor cores (sm_90a), plain C ABI:
 //
-//   out = softmax(q·kᵀ·scale + pad) · v
+//   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v
+//   bias-free: out = softmax(q·kᵀ·scale + pad) · v, with its backward
 //
-// with its backward. Replaces, for bf16 operands, three Pallas TPU kernels of
-// the JAX package:
+// Replaces, for bf16 operands, five Pallas TPU kernels of the JAX package:
+//   - _attention_kernel        avex_tpu/ops/pallas_attention.py:126  (K1, gated, split q/k/v [B,H,T,D])
+//   - _fused_qkv_gated_kernel  avex_tpu/ops/pallas_attention.py:389  (K2, gated, column views of [B,T,3E])
 //   - _fused_qkv_kernel        avex_tpu/ops/pallas_attention.py:344  (K5, column views of [B,T,3E])
 //   - _fused_qkv_bwd_kernel    avex_tpu/ops/pallas_attention.py:524  (K6, its backward)
 //   - _plain_attention_kernel  avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
 // The layouts are only strides here: every operand is a base pointer plus
 // (batch, head, token) strides with the head dimension contiguous. fp32
-// operands and the gated variant stay on gated_attention.cu's FMA body.
+// operands, and the gated backward (K3), stay on gated_attention.cu's FMA
+// body.
 //
-// Numerics, as the TPU kernels (pallas_attention.py:344-386, :524-585): fp32
-// logits and softmax; P rounded to bf16 before P·V and Pᵀ·dO; dS = P∘(dP−Δ)·scale
-// rounded to bf16 before dS·K and dSᵀ·Q; every product accumulates in fp32; a
-// padded key gets −inf, and a row whose keys are all padded gives NaN, as the
-// plain twin's softmax does. The forward rounds the unnormalised P to bf16
-// and divides by the row sum at the end (the twin rounds the normalised P).
+// Numerics, as the TPU kernels (pallas_attention.py:126-158, :344-430,
+// :524-585): fp32 logits and softmax; P rounded to bf16 before P·V and Pᵀ·dO;
+// dS = P∘(dP−Δ)·scale rounded to bf16 before dS·K and dSᵀ·Q; every product
+// accumulates in fp32; a padded key gets −inf, and a row whose keys are all
+// padded gives NaN, as the plain twin's softmax does. The forward rounds the
+// unnormalised P to bf16 and divides by the row sum at the end (the twin
+// rounds the normalised P). The gated logits are, in the exp2 domain,
+// x = fmaf(s, scale·log2e, (gate·log2e)·bias) (plus the key bias where keys
+// are padded or past T); without a gate the factor is log2e alone.
 //
 // Bounds on an H100 SXM at the main paths' shapes (H=12, D=64, bf16):
-//   forward, EAT B=128, T=513: q, k, v read and out written once, 4 x 100.9 MB
-//     = 403.6 MB, 0.120 ms at 3.35 TB/s, against 4·B·H·T²·D = 103.5 GFLOP,
-//     0.105 ms at 989 TFLOP/s: bound by bytes, narrowly;
+//   gated forward, BEATs B=128, T=248: q, k, v read and out written once,
+//     4 x 48.8 MB, plus the fp32 bias (2.95 MB, shared by every item) and
+//     gate (1.5 MB): 199.5 MB, 0.0596 ms at 3.35 TB/s, against 4·B·H·T²·D =
+//     24.2 GFLOP, 0.0245 ms at 989 TFLOP/s: bound by bytes;
+//   forward, EAT B=128, T=513: 4 x 100.9 MB = 403.6 MB, 0.120 ms, against
+//     103.5 GFLOP, 0.105 ms: bound by bytes, narrowly;
 //   backward, EAT B=64, T=513: five products, 10·B·H·T²·D = 129.4 GFLOP,
 //     0.131 ms, against 7 x 50.4 MB = 353 MB, 0.105 ms: bound by operations.
+// Against the byte bound the design reads q once and each K/V tile once per
+// block of 64 queries (four times at T=248, from L2 after the first), and
+// keeps the bias, the one operand of the gated forward that is [T, T] per
+// head, out of device memory: all 12 heads' bias stay resident in the 50 MB
+// L2 while the blocks of one item (queries fastest, then heads) run, as the
+// TPU kernel's (heads, batch) grid order kept it in VMEM
+// (pallas_attention.py:21-23). Every bias element is read by one lane only,
+// so no block shares it: a lane loads its fragment (rows g and g+8, keys
+// 8j+2t, 8j+2t+1: 32 floats a 64-key tile) from L2 straight into registers
+// before the tile's QKᵀ, which hides the L2 latency behind the products.
+// Staging the tile through shared memory with K and V instead costs 37 KB a
+// block and timed slower at every block shape (PERF.md).
 //
 // Design (FlashAttention-2 on mma.sync.m16n8k16 bf16 with fp32 accumulators).
 // Every block has 4 warps and owns a tile of 64 rows; each warp owns 16 of
@@ -36,16 +57,19 @@
 // in registers: S = QKᵀ never leaves them, and P (or dS) is rounded to bf16
 // and repacked from the accumulator layout straight into the A-operand layout
 // of the next product. A tile whose rows all lie below T (and, in the
-// forward, whose keys are unpadded) takes a branch-free path with no key bias,
-// which the compiler schedules as one block; a ragged tile multiplies only
-// the 16-row groups that hold a valid row, and warps with no valid row skip
-// the products: at T=513 (8 tiles and one row) the ragged tiles cost little.
+// forward, whose keys are unpadded) takes a branch-free path with no key bias
+// (the gated variant still adds gate·bias there), which the compiler
+// schedules as one block; a ragged tile multiplies only the 16-row groups
+// that hold a valid row, and warps with no valid row skip the products: at
+// T=513 (8 tiles and one row) and T=248 (3 tiles and 56 rows) the ragged
+// tiles cost little. Bias loads of rows or keys past T are clamped to the
+// last row or key (their values are never used), so they need no predicate.
 // exp2 is one MUFU instruction (ex2.approx.ftz). Those two, more than the
 // block's shape, set the forward's speed (PERF.md).
 //   - forward: one block per (query tile, head, item); online softmax in the
 //     exp2 domain (scale·log2e folded into one multiply). When a backward will
-//     follow it also writes the row log-sum-exp, fp32 [B, H, T], and what
-//     rounding the output to bf16 dropped, in bf16.
+//     follow (bias-free only) it also writes the row log-sum-exp, fp32
+//     [B, H, T], and what rounding the output to bf16 dropped, in bf16.
 //   - backward: two kernels, deterministic, no atomics. The dQ kernel (one
 //     block per query tile, head, item) first takes Δ = rowsum(dO∘O) from the
 //     forward's output plus its rounding rest (and writes it), then walks the
@@ -58,9 +82,11 @@
 //     brings it back to an fp32 output's.
 // Outputs are staged through shared memory and written as 16-byte rows. The
 // kernels are templates over the block's shape (warps, 16-row groups a warp,
-// keys a forward tile); scripts/torch_attention_shapes.py times the others.
+// keys a forward tile) and, in the forward, over the gated variant;
+// scripts/torch_attention_shapes.py times the others.
 // mma.sync reaches about two thirds of the tensor cores' rate at best; wgmma
 // on TMA-fed tiles is the route to the rest.
+
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,6 +109,16 @@ constexpr float kLn2 = 0.6931471805599453f;
 struct FwdStrides {
   long long q[3], k[3], v[3], o[3];
   long long pad[2];
+};
+
+// The gated forward's bias and gate: fp32 [H, T, T] and [B, H, T] with their
+// element strides; gate may be null (a gate of 1). vec2: a bias load may
+// move two floats, from the strides, T and the base's alignment.
+struct Gated {
+  const float* bias = nullptr;
+  const float* gate = nullptr;
+  long long bs[3] = {0, 0, 0}, gs[3] = {0, 0, 0};
+  bool vec2 = false;
 };
 
 // The same for q, k, v, out, dout, dq, dk and dv, then pad.
@@ -335,6 +371,42 @@ __device__ __forceinline__ void load8(const bf16* p, float x[8]) {
 template <int kTileRows = kRows>
 __device__ __forceinline__ int live_groups(int r0, int seq) { return min(kTileRows / 16, (seq - r0 + 15) >> 4); }
 
+// This lane's bias fragments of the key tile at k0, in the accumulator layout
+// (bf[m][j][2i + e]: row g + 8i of group m, key k0 + 8j + 2t + e), from L2.
+// row[m][i] points at the row's bias (rows past seq clamped to the last);
+// unless kFull, keys past seq are clamped to the last key (their logits get
+// the key bias −inf). vec2: keys contiguous, pairs 8-byte aligned, seq even.
+template <int kM, int kN, bool kFull>
+__device__ __forceinline__ void fetch_bias(float bf[][kN / 8][4], const float* const row[][2], long long ks, int k0,
+                                           int seq, bool vec2) {
+  const int t = threadIdx.x & 3;
+  if (vec2) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          const int key = kFull ? k0 + 8 * j + 2 * t : min(k0 + 8 * j + 2 * t, seq - 2);
+          const float2 x = __ldg(reinterpret_cast<const float2*>(row[m][i] + key));
+          bf[m][j][2 * i] = x.x;
+          bf[m][j][2 * i + 1] = x.y;
+        }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = kFull ? k0 + 8 * j + 2 * t + e : min(k0 + 8 * j + 2 * t + e, seq - 1);
+            bf[m][j][2 * i + e] = __ldg(row[m][i] + key * ks);
+          }
+  }
+}
+
 // A block of kWarps warps, each owning kM groups of 16 rows: the block's own
 // tile (queries, or keys in dK/dV) has kOwn rows; the forward streams key
 // tiles of kN rows, the backward tiles of 64.
@@ -350,11 +422,12 @@ struct Shape {
 
 // One key tile of the forward for a warp: S = Q·Kᵀ, the online softmax, and
 // O += P·V. kFull: every key of the tile lies below seq and none is padded,
-// so neither the key bias nor a predicate is applied.
-template <int kM, int kN, bool kFull>
+// so neither the key bias nor a predicate is applied. kGated: the logits add
+// bf·gl, the bias fragments times the rows' gate·log2e.
+template <int kM, int kN, bool kFull, bool kGated>
 __device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf16* kt, const bf16* vt,
-                                             const float* kbias, int live, float c, float o[][8][4],
-                                             float m[][2], float l[][2]) {
+                                             const float* kbias, const float bf[][kN / 8][4], const float gl[][2],
+                                             int live, float c, float o[][8][4], float m[][2], float l[][2]) {
   constexpr int kNB = kN / 16;
   const int t = threadIdx.x & 3;
   float sc[kM][kN / 8][4];
@@ -367,7 +440,13 @@ __device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf
     for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = kFull ? sc[mm][j][e] * c : fmaf(sc[mm][j][e], c, kbias[8 * j + 2 * t + (e & 1)]);
+        float x;
+        if (kGated) {
+          const float gb = bf[mm][j][e] * gl[mm][e >> 1];
+          x = fmaf(sc[mm][j][e], c, kFull ? gb : gb + kbias[8 * j + 2 * t + (e & 1)]);
+        } else {
+          x = kFull ? sc[mm][j][e] * c : fmaf(sc[mm][j][e], c, kbias[8 * j + 2 * t + (e & 1)]);
+        }
         sc[mm][j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -404,11 +483,11 @@ __device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf
   mma_ab<kM, kNB, kFull>(o, pf, vt, live);
 }
 
-template <int kWarps, int kM, int kN>
+template <int kWarps, int kM, int kN, bool kGated>
 __global__ void __launch_bounds__(32 * kWarps)
 forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const uint8_t* __restrict__ pad, bf16* __restrict__ out, bf16* __restrict__ out_rest,
-               float* __restrict__ lse, int heads, int seq, float scale, FwdStrides s) {
+               float* __restrict__ lse, int heads, int seq, float scale, FwdStrides s, Gated gd) {
   using S = Shape<kWarps, kM, kN>;
   constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kKeyTile = kN * kD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -427,6 +506,20 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const int n_tiles = (seq + kN - 1) / kN;
   const float c = scale * kLog2e;
+  const float* bias_h = kGated ? gd.bias + h * gd.bs[0] : nullptr;
+
+  // The gated variant: this lane's rows' bias and gate·log2e (rows past seq
+  // clamped to the last row: their results are never stored).
+  const float* bias_row[kM][2];
+  float gl[kM][2];
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = min(q0 + row0 + 16 * mm + g + 8 * i, seq - 1);
+      bias_row[mm][i] = kGated ? bias_h + qi * gd.bs[1] : nullptr;
+      gl[mm][i] = kGated && gd.gate ? __ldg(gd.gate + b * gd.gs[0] + h * gd.gs[1] + qi * gd.gs[2]) * kLog2e : kLog2e;
+    }
 
   load_tile<kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
   load_tile<kN, kThreads>(k_s, kb, s.k[2], 0, seq);
@@ -458,10 +551,19 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
       if (it == 0) load_a<kM>(qf, q_s, row0);
       const bf16 *kt = k_s + buf * kKeyTile, *vt = v_s + buf * kKeyTile;
       const float* kbias = kbias_s + buf * kN;
-      if (!pad_b && (it + 1) * kN <= seq)
-        forward_tile<kM, kN, true>(qf, kt, vt, kbias, kN / 16, c, o, m, l);
+      const bool full = (it + 1) * kN <= seq;
+      float bf[kM][kN / 8][4];  // the gated variant's bias fragments of this tile
+      if (kGated) {
+        // Issued before the tile's QKᵀ, which hides their L2 latency.
+        if (full)
+          fetch_bias<kM, kN, true>(bf, bias_row, gd.bs[2], it * kN, seq, gd.vec2);
+        else
+          fetch_bias<kM, kN, false>(bf, bias_row, gd.bs[2], it * kN, seq, gd.vec2);
+      }
+      if (!pad_b && full)
+        forward_tile<kM, kN, true, kGated>(qf, kt, vt, kbias, bf, gl, kN / 16, c, o, m, l);
       else
-        forward_tile<kM, kN, false>(qf, kt, vt, kbias, live_groups<kN>(it * kN, seq), c, o, m, l);
+        forward_tile<kM, kN, false, kGated>(qf, kt, vt, kbias, bf, gl, live_groups<kN>(it * kN, seq), c, o, m, l);
     }
     __syncthreads();  // every warp is done with this tile's buffers
   }
@@ -769,19 +871,35 @@ bool bad_shape(int batch, int heads, int seq, int head_dim) {
   return head_dim != kD || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
 }
 
-template <int kWarps, int kM, int kN>
+template <int kWarps, int kM, int kN, bool kGated = false>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* out_rest,
                            void* lse, int batch, int heads, int seq, float scale, const FwdStrides& s,
-                           cudaStream_t st) {
+                           cudaStream_t st, const Gated& gd = Gated()) {
   using S = Shape<kWarps, kM, kN>;
-  cudaError_t err = allow_smem(forward_kernel<kWarps, kM, kN>, S::kFwdSmem);
+  cudaError_t err = allow_smem(forward_kernel<kWarps, kM, kN, kGated>, S::kFwdSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  forward_kernel<kWarps, kM, kN><<<grid, S::kThreads, S::kFwdSmem, st>>>(
+  forward_kernel<kWarps, kM, kN, kGated><<<grid, S::kThreads, S::kFwdSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<bf16*>(out_rest),
-      static_cast<float*>(lse), heads, seq, scale, s);
+      static_cast<float*>(lse), heads, seq, scale, s, gd);
   return cudaGetLastError();
+}
+
+// The gated operands from 20 element strides (q, k, v, out (batch, head,
+// token), bias (head, query, key), gate (batch, head, token), pad (batch,
+// token)); fills the FwdStrides of the rest.
+Gated gated_operands(const void* bias, const void* gate, int seq, const long long* strides, FwdStrides* s) {
+  memcpy(s->q, strides, 12 * sizeof(long long));
+  memcpy(s->pad, strides + 18, 2 * sizeof(long long));
+  Gated gd;
+  gd.bias = static_cast<const float*>(bias);
+  gd.gate = static_cast<const float*>(gate);
+  memcpy(gd.bs, strides + 12, 3 * sizeof(long long));
+  memcpy(gd.gs, strides + 15, 3 * sizeof(long long));
+  gd.vec2 = gd.bs[2] == 1 && gd.bs[0] % 2 == 0 && gd.bs[1] % 2 == 0 && seq % 2 == 0 &&
+            reinterpret_cast<uintptr_t>(bias) % (2 * sizeof(float)) == 0;
+  return gd;
 }
 
 template <int kWarps, int kM>
@@ -823,8 +941,25 @@ constexpr int kDkvWarps = 4, kDkvM = 1;
 
 }  // namespace
 
-// bf16 q, k, v and out; pad is one byte per key (nonzero = padded) and may be
-// null. The residuals of a backward, each written when not null: out_rest
+// The gated forward (K1, K2): bf16 q, k, v and out; bias fp32 [H, T, T] and
+// gate fp32 [B, H, T] (may be null: a gate of 1), any strides; pad one byte
+// per key (nonzero = padded), may be null. strides: 20 element strides, q, k,
+// v and out (batch, head, token), bias (head, query, key), gate (batch, head,
+// token), then pad (batch, token). Returns a cudaError_t; 0 means the kernel
+// was launched.
+extern "C" int avex_tensor_core_gated_attention_forward(const void* q, const void* k, const void* v,
+                                                        const void* bias, const void* gate, const void* pad,
+                                                        void* out, int batch, int heads, int seq, int head_dim,
+                                                        float scale, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, seq, head_dim) || bias == nullptr) return (int)cudaErrorInvalidValue;
+  FwdStrides s;
+  const Gated gd = gated_operands(bias, gate, seq, strides, &s);
+  return (int)launch_forward<kFwdWarps, kFwdM, kFwdN, true>(q, k, v, pad, out, nullptr, nullptr, batch, heads, seq,
+                                                            scale, s, static_cast<cudaStream_t>(stream), gd);
+}
+
+// The bias-free forward: bf16 q, k, v and out; pad is one byte per key
+// (nonzero = padded) and may be null. The residuals of a backward, each written when not null: out_rest
 // (bf16, out's strides) receives what rounding the output to bf16 dropped,
 // lse the float32 row log-sum-exp of the scaled, padded logits, contiguous
 // [B, H, T]. strides: 14 element strides, q, k, v and out (batch, head,

@@ -8,14 +8,16 @@ Phases, each printing its results on lines of its own:
 1. card: require CUDA; print ``nvidia-smi``'s name and power limit;
 2. build: compile every CUDA source of the port with ``nvcc`` (in parallel);
 3. kernels: hold each kernel against its plain PyTorch twin at the shapes the
-   main paths give it, in bf16 and fp32: the gated K1 and K2 at BEATs' shape
-   (B=128, H=12, T=248, D=64), with and without the gate and with a
-   key-padding mask; the bias-free K5 at EAT's shape (T=513) with and without
-   a mask and at AVES's (T=249) with its frame mask, and K4 on the split views
-   of EAT's projection (bf16 on the tensor-core kernels of
-   ``bias_free_attention.cu``, fp32 on the FMA body). It times the kernel, the
-   twin and one PyTorch library call (``scaled_dot_product_attention``, a
-   yardstick the port never calls), and prints K4's and K5's TFLOP/s;
+   main paths give it, in bf16 and fp32 (bf16 on the tensor-core kernels of
+   ``tensor_core_attention.cu``, fp32 on the FMA body): the gated K1 and K2
+   at BEATs' shape (B=128, H=12, T=248, D=64), with and without the gate,
+   without a mask, with a key-padding mask and with one item's keys all
+   padded (NaN exactly where the twin has NaN); the bias-free K5 at EAT's
+   shape (T=513) with and without a mask and at AVES's (T=249) with its frame
+   mask, and K4 on the split views of EAT's projection. It times the kernel,
+   the twin and one PyTorch library call (``scaled_dot_product_attention``, a
+   yardstick the port never calls), and prints each kernel's TFLOP/s and
+   share of its bound;
 4. int8 kernels: K7 (``int8_dynamic_dense``) against its twin at BEATs'
    three (K, N) pairs, at M = 31,744 (B=128) and 248 (one clip), with x in
    bf16 and fp32, with and without the bias (fp32 and bf16 within 1 ulp,
@@ -49,7 +51,8 @@ Phases, each printing its results on lines of its own:
    (T=513, with and without a mask) and AVES's (T=249, frame mask). Times the
    kernel, the twin and a yardstick the port never calls (the backward of
    ``scaled_dot_product_attention``: forward+backward minus forward), and
-   prints K6's TFLOP/s;
+   prints K6's TFLOP/s and, beside its device time, its time with the host's
+   time to issue it through autograd;
 11. BEATs training: full-width BEATs with a 50-class head, bf16 compute with
    fp32 parameters, ``fused_qkv=True, use_pallas=True``, dropout and
    LayerDrop as the official config gives them, through ``Trainer`` (AdamW,
@@ -60,16 +63,25 @@ Phases, each printing its results on lines of its own:
    the fp32 plain path, one step's loss and every gradient from the same
    weights, dropout and LayerDrop off;
 12. EAT training: ``esp_aves2_sl_eat_all_ssl_all`` (T=513) with a 50-class
-   head the same way (K5 and K6 12 launches per step). For EAT and AVES
-   (``aves_bio``, a third of the clips padded) one bf16 step of the kernel
-   path and one of the plain path are also held to the fp32 plain path's
-   gradients: the kernel path, which runs the bf16 K6 on the tensor cores,
-   may be no farther from them than 1.25x the plain path.
+   head the same way (K5 and K6 12 launches per step);
+13. AVES training: ``aves_bio`` (T=249, a third of the clips padded) the
+   same way, with its dropout (0.1) and LayerDrop (0.05) on (K5 and the
+   masked K6 12 launches per step); one generator seed gives one loss, two
+   seeds two. For BEATs, EAT and AVES one bf16 step of the kernel path and
+   one of the plain path are also held to the fp32 plain path's gradients:
+   the kernel path (BEATs: the bf16 K2 on the tensor cores with K3; EAT and
+   AVES: K5 with the bf16 K6) may be no farther from them than 1.25x the
+   plain path.
+
+Every kernel, twin and yardstick time is the device's: the median of 20
+calls, each between two CUDA events queued behind a sleep kernel, so the
+host's time to issue the call is not in it.
 
 Each main path checks shapes, finiteness, the kernel launch counts per
 forward or step (every kernel of the port: those the path runs, and 0 for
 the rest), the fp32 kernel path against the fp32 plain path, and prints
-clips/s; the EAT and AVES phases print both paths' bf16-vs-fp32 distance.
+clips/s; the BEATs, EAT and AVES phases print both paths' bf16-vs-fp32
+distance.
 
 It then prints one JSON line of per-kernel numbers (``launches`` counts the
 main paths' runs; K4 and K8, which no main path reaches, add
@@ -98,6 +110,11 @@ AVES_PAD_FROM = 3 * 16000  # a third of the AVES clips are padded from 3 s (fram
 N_BATCHES = 4
 N_BATCHES_EAT_AVES = 3
 TIMED_LAUNCHES = 20
+# A sleep kernel ahead of each timed call (~2-3 ms at the card's clocks) keeps
+# the device busy while the host issues the call, so that the two CUDA events
+# bracket the device's work alone: a wrapper's Python (autograd, operand
+# checks) would otherwise be timed wherever it outlasts the kernel.
+SLEEP_CYCLES = 4_000_000
 # Device peaks of an H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16
 # tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, dense int8 OP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -165,8 +182,10 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
-    """Median of ``n`` launches, each between two CUDA events, after two warm-ups."""
+def median_ms(fn, n: int = TIMED_LAUNCHES, device_only: bool = True) -> float:
+    """Median of ``n`` launches, each between two CUDA events, after two
+    warm-ups. ``device_only``: each call queued behind a sleep kernel, so the
+    host's time to issue it is not timed."""
     import torch
 
     fn()
@@ -175,6 +194,8 @@ def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     events = []
     for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -253,6 +274,8 @@ def phase_kernels():
         mask = torch.zeros(B, T, dtype=torch.bool, device="cuda")
         mask[1::3, 200:] = True
         mask[2::7, 17:] = True
+        padded_item = mask.clone()
+        padded_item[0] = True  # every key of item 0 padded: NaN there, as the twin's softmax gives
         qs, ks, vs = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T, 3, H, D).unbind(2))
 
         with torch.no_grad():
@@ -270,14 +293,18 @@ def phase_kernels():
             ):
                 worst = 0.0
                 for g in (gate, None):
-                    for m in (None, mask):
+                    for mask_name, m in (("none", None), ("mask", mask), ("padded item", padded_item)):
                         got, want = run(g, m), twin(g, m)
                         torch.cuda.synchronize()
+                        nan = torch.isnan(want)
+                        check(torch.equal(torch.isnan(got), nan) and bool(torch.isfinite(got[~nan]).all()),
+                              f"{kname} {name} gate={g is not None} mask={mask_name}: NaN exactly where the twin "
+                              f"has NaN ({int(nan.any(dim=-1).sum())} rows), finite elsewhere")
+                        got, want = got[~nan], want[~nan]
                         err = float((got.float() - want.float()).abs().max())
                         rel = rel_l2(got, want)
                         worst = max(worst, err)
-                        label = f"{kname} {name} gate={g is not None} mask={m is not None}"
-                        check(bool(torch.isfinite(got).all()), f"{label}: finite")
+                        label = f"{kname} {name} gate={g is not None} mask={mask_name}"
                         if dtype == torch.float32:
                             check(err <= FP32_ATOL, f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
                         else:
@@ -291,16 +318,17 @@ def phase_kernels():
                     lambda: F.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, attn_mask=attn_mask, scale=D**-0.5)
                 )
                 bound, bound_by = attention_bound_ms(name, gated=True, padded=False)
+                body = "tensor cores" if ak.tensor_cores(dtype, gated=True) else "FMA"
                 print(
-                    f"time {kname} {name} (gate, no mask): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
-                    f"({bound / ms:.1%} of bound)"
+                    f"time {kname} {name} (gate, no mask, {body}): kernel {ms:.4f} ms "
+                    f"({tflops(4.0 * B * H * T * T * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                    f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)"
                 )
                 results[(kname, name)] = dict(
                     max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound, bound_by=bound_by,
                 )
-        del qkv, q, k, v, qs, ks, vs, bias, gate, mask
+        del qkv, q, k, v, qs, ks, vs, bias, gate, mask, padded_item
         torch.cuda.empty_cache()
     return results
 
@@ -483,6 +511,7 @@ def phase_backward_kernels():
                 mask = None
             out = ak.fused_qkv_attention(qkv, H, mask)
             ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
+            host_ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True), device_only=False)
             plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout))
             q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
                        for t in qkv.detach().view(B_TRAIN, seq, 3, H, D).unbind(2))
@@ -493,7 +522,8 @@ def phase_backward_kernels():
             print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}, "
                   f"{body}): kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * seq * seq * D, ms):.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)")
+                  f"bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound); "
+                  f"with the host's time to issue it {host_ms:.4f} ms")
             results[("fused_qkv_attention_backward", shape, name)] = dict(
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
             del qkv, dout, mask, out, q, k, v
@@ -639,8 +669,11 @@ def phase_main_path():
         compare_paths("BEATs", pooled32, emb32, ref_pooled, ref_emb)
 
         plain16 = load_beats("bfloat16", use_pallas=None)
-        *_, rate_plain16 = run(plain16, "bf16 plain-attention path (use_pallas=None)", None)
+        _, plain_pooled16, _, rate_plain16 = run(plain16, "bf16 plain-attention path (use_pallas=None)", None)
         del plain16
+        rel_plain = rel_l2(plain_pooled16, ref_pooled)
+        print(f"BEATs bf16 vs fp32 pooled features: kernel path rel L2 {rel:.3e}, plain path rel L2 "
+              f"{rel_plain:.3e}")
 
         fused = load_beats("bfloat16", use_pallas=True, fused_qkv=True)
         fused.load_state_dict(split_state, strict=True)  # the split model's weights, q|k|v concatenated
@@ -652,6 +685,7 @@ def phase_main_path():
         "model": "beats",
         "clips_per_s": {"bf16_split_kernel": rate16, "fp32_split_kernel": rate32,
                         "bf16_plain_attention": rate_plain16, "bf16_fused_qkv_kernel": rate_fused},
+        "bf16_fp32_pooled_rel_l2": {"kernel_path": rel, "plain_path": rel_plain},
         "batch": B, "clip_seconds": CLIP_SAMPLES / 16000,
     }))
     return {"gated_bias_attention": counts_split["gated_bias_attention"],
@@ -930,7 +964,7 @@ def phase_beats_training(workdir):
     del trainer, model
     torch.cuda.empty_cache()
 
-    grad_check = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect)
+    grad_check = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
     print(json.dumps({"model": "beats", "training": {
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "remat_peak_bytes": remat_peak,
         "losses": losses, **grad_check},
@@ -966,13 +1000,16 @@ def phase_eat_training(workdir):
     return counts
 
 
-def phase_aves_gradient_check():
-    """``aves_bio`` with a 50-class head, a third of the clips padded: the
-    fp32 and bf16 gradient checks (K5 and the masked K6, 12 launches each)."""
+def phase_aves_training(workdir):
+    """``aves_bio`` fine-tuning through ``Trainer`` with its dropout and
+    LayerDrop, a third of the clips padded (K5 and the masked K6, 12 launches
+    each a step); then the fp32 and bf16 gradient checks. Returns the K5 and
+    K6 launches of the timed run."""
     import torch
 
     import avex_tpu_torch
     from avex_tpu_torch.configs import ModelSpec
+    from avex_tpu_torch.training import make_strategy
 
     def load(dtype, use_pallas):
         spec = ModelSpec(name="aves_bio", pretrained=False, compute_dtype=dtype)
@@ -980,12 +1017,37 @@ def phase_aves_gradient_check():
                                          use_pallas=use_pallas)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    wav = torch.randn(B_GRAD_CHECK, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
-    mask = torch.zeros(B_GRAD_CHECK, CLIP_SAMPLES, dtype=torch.bool, device="cuda")
+    mask = torch.zeros(B_TRAIN, CLIP_SAMPLES, dtype=torch.bool, device="cuda")
     mask[::3, AVES_PAD_FROM:] = True
+    batch = {"raw_wav": torch.randn(B_TRAIN, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "padding_mask": mask, "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
     expect = {"fused_qkv_attention": 12, "fused_qkv_attention_backward": 12}
-    grad_check = training_gradient_check("AVES", load, wav, expect, mask=mask, bf16=True)
-    print(json.dumps({"model": "aves", "training_gradient_check": grad_check, "batch": B_GRAD_CHECK}))
+    model = load("bfloat16", True)
+    cfg = model.config
+    print(f"AVES training config: encoder_dropout {cfg.encoder_dropout}, encoder_projection_dropout "
+          f"{cfg.encoder_projection_dropout}, encoder_ff_interm_dropout {cfg.encoder_ff_interm_dropout}, "
+          f"encoder_layer_drop {cfg.encoder_layer_drop}")
+    trainer, losses, ms, rate, peak, counts = train_run("aves_bio", model, batch, expect, TRAIN_STEPS, workdir)
+    check(sum(losses[-3:]) / 3 < losses[0], f"AVES training: the loss falls on one repeated batch "
+                                           f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+    # Dropout and LayerDrop reach the model in training: the loss depends on
+    # the generator's seed, and one seed gives one loss.
+    strategy = make_strategy("supervised", "cross_entropy")
+    with torch.no_grad():
+        drawn = [strategy.forward_loss(model.train_forward, batch, torch.Generator(device="cuda").manual_seed(s),
+                                       train=True)[0].item() for s in (1, 1, 2)]
+    same, other = abs(drawn[1] - drawn[0]) / abs(drawn[0]), abs(drawn[2] - drawn[0]) / abs(drawn[0])
+    check(same <= 1e-5 < 1e-3 <= other,
+          f"AVES training: dropout draws from the step's generator: the loss of seed 1 twice {drawn[0]:.6f}, "
+          f"{drawn[1]:.6f} (rel {same:.1e} <= 1e-5), of seed 2 {drawn[2]:.6f} (rel {other:.1e} >= 1e-3)")
+    del trainer, model
+    torch.cuda.empty_cache()
+    grad_check = training_gradient_check("AVES", load, batch["raw_wav"][:B_GRAD_CHECK], expect,
+                                         mask=mask[:B_GRAD_CHECK], bf16=True)
+    print(json.dumps({"model": "aves", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, **grad_check},
+        "batch": B_TRAIN, "clip_seconds": CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
+    return counts
 
 
 def max_ulps(got, want, mantissa_bits: int) -> float:
@@ -1394,17 +1456,18 @@ def main() -> int:
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_training"
     beats_train = phase_beats_training(workdir / "beats")
     eat_train = phase_eat_training(workdir / "eat")
-    phase_aves_gradient_check()
+    aves_train = phase_aves_training(workdir / "aves")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path and "
           f"{aves_launches} on the AVES path")
     launches["fused_qkv_attention"] = eat_launches + aves_launches
-    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT run.
-    for counts in (beats_train, eat_train):
+    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT and AVES runs.
+    for counts in (beats_train, eat_train, aves_train):
         for kname in ("fused_qkv_gated_attention", "fused_qkv_attention"):
             launches[kname] += counts[kname]
     launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
-    launches["fused_qkv_attention_backward"] = eat_train["fused_qkv_attention_backward"]
+    launches["fused_qkv_attention_backward"] = (eat_train["fused_qkv_attention_backward"]
+                                                + aves_train["fused_qkv_attention_backward"])
     # No main path reaches K4 (every model's dh-64 projection takes K5, and K4
     # takes dh 64 only) or K8 (in JAX only scripts/bench_int8_matmul.py calls
     # it); drive() checks that each main-path run launched them 0 times.
@@ -1413,13 +1476,13 @@ def main() -> int:
     kernel_phase = {"plain_attention": k4_launches, "int8_matmul": k8_launches}
 
     attention = "avex_tpu_torch/ops/csrc/gated_attention.cu"
-    tensor_core = "avex_tpu_torch/ops/csrc/bias_free_attention.cu"  # bf16; fp32 stays on gated_attention.cu
+    tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16; fp32 stays on gated_attention.cu
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
     rows = (
-        ("gated_bias_attention", attention, "avex_tpu/ops/pallas_attention.py:126",
+        ("gated_bias_attention", tensor_core, "avex_tpu/ops/pallas_attention.py:126",
          timings[("gated_bias_attention", "bfloat16")]),
-        ("fused_qkv_gated_attention", attention, "avex_tpu/ops/pallas_attention.py:389",
+        ("fused_qkv_gated_attention", tensor_core, "avex_tpu/ops/pallas_attention.py:389",
          timings[("fused_qkv_gated_attention", "bfloat16")]),
         ("plain_attention", tensor_core, "avex_tpu/ops/pallas_attention.py:161",
          plain_timings[("plain_attention", "EAT", "bfloat16")]),

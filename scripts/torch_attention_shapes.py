@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Block shapes of the bf16 tensor-core attention kernels, timed on one GPU.
 
-    python3 scripts/torch_attention_shapes.py
+    python3 scripts/torch_attention_shapes.py [gated] [forward] [backward]
 
-The kernels of ``avex_tpu_torch/ops/csrc/bias_free_attention.cu`` are
+The kernels of ``avex_tpu_torch/ops/csrc/tensor_core_attention.cu`` are
 templates over the block's shape: warps per block, groups of 16 rows per
-warp and (forward) keys per streamed tile. The entry points launch one shape
-each. This script compiles the same source with an extra entry point that
-launches any of the shapes below, holds each against the plain twin and
-times it (median of 30 launches, CUDA events) at EAT's (B=128, T=513) and
-AVES's (B=128, T=249, a third of the clips padded) forward shapes and at
-their training backward (B=64). Needs CUDA and ``nvcc``; imports nothing of
-JAX. The build goes to ``build/shapes/``.
+warp and (forward) keys per streamed tile. The entry points launch one
+shape each. This script compiles the same source with extra entry points
+that launch any of the shapes below, holds each against the plain twin and
+times it (median of 30 launches, CUDA events, around the launch alone): the gated forward (K1/K2) at BEATs' shape (B=128, T=248, with the
+gate), the bias-free forward at EAT's (B=128, T=513) and AVES's (B=128,
+T=249, a third of the clips padded), and the backward at their training
+shapes (B=64). With no argument it runs all three groups. Needs CUDA and
+``nvcc``; imports nothing of JAX. The build goes to ``build/shapes/``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # (warps, groups of 16 rows a warp, keys a tile) of the forward;
 # (warps, groups) of the dQ kernel and of the dK/dV kernel.
 FORWARD_SHAPES = ["4, 1, 64", "4, 1, 128", "8, 1, 64", "8, 1, 128", "4, 2, 64"]
+# The gated forward: (warps, groups, keys, gated), the launched one first.
+GATED_SHAPES = [f"{shape}, true" for shape in ("4, 1, 64", "8, 1, 64", "4, 2, 64", "4, 1, 128")]
 BACKWARD_SHAPES = [("4, 1", "4, 1"), ("8, 1", "4, 1"), ("4, 1", "8, 1")]
 H, D = 12, 64
 E = H * D
@@ -42,6 +45,14 @@ def build():
         *[f"  if (shape == {n}) return (int)launch_forward<{a}>(q, k, v, pad, out, nullptr, nullptr, batch, heads,"
           f" seq, scale, s, st);" for n, a in enumerate(FORWARD_SHAPES)],
         "  return -1; }",
+        'extern "C" int shape_gated_forward(int shape, const void* q, const void* k, const void* v, const void* bias,'
+        ' const void* gate, const void* pad, void* out, int batch, int heads, int seq, float scale,'
+        ' const long long* strides, void* stream) {',
+        "  FwdStrides s; const Gated gd = gated_operands(bias, gate, seq, strides, &s);"
+        " cudaStream_t st = (cudaStream_t)stream;",
+        *[f"  if (shape == {n}) return (int)launch_forward<{a}>(q, k, v, pad, out, nullptr, nullptr, batch, heads,"
+          f" seq, scale, s, st, gd);" for n, a in enumerate(GATED_SHAPES)],
+        "  return -1; }",
         'extern "C" int shape_backward(int shape, const void* q, const void* k, const void* v, const void* out,'
         " const void* out_rest, const void* dout, const void* pad, const void* lse, void* dq, void* dk, void* dv,"
         " void* delta, int batch, int heads, int seq, float scale, const long long* strides, void* stream) {",
@@ -54,9 +65,9 @@ def build():
     ]
     out_dir = _build.BUILD_DIR / "shapes"
     out_dir.mkdir(parents=True, exist_ok=True)
-    source = out_dir / "bias_free_attention_shapes.cu"
-    source.write_text((_build.CSRC_DIR / "bias_free_attention.cu").read_text() + "\n" + "\n".join(entry) + "\n")
-    library = out_dir / "bias_free_attention_shapes.so"
+    source = out_dir / "tensor_core_attention_shapes.cu"
+    source.write_text((_build.CSRC_DIR / "tensor_core_attention.cu").read_text() + "\n" + "\n".join(entry) + "\n")
+    library = out_dir / "tensor_core_attention_shapes.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(library), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -67,6 +78,7 @@ def build():
     lib = ctypes.CDLL(str(library))
     p, i, strides = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
     lib.shape_forward.argtypes = [i] + [p] * 5 + [i, i, i, ctypes.c_float, strides, p]
+    lib.shape_gated_forward.argtypes = [i] + [p] * 7 + [i, i, i, ctypes.c_float, strides, p]
     lib.shape_backward.argtypes = [i] + [p] * 12 + [i, i, i, ctypes.c_float, strides, p]
     return lib
 
@@ -113,10 +125,36 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    groups = set(sys.argv[1:]) or {"gated", "forward", "backward"}
     lib = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+    if "gated" in groups:
+        bsz, seq = 128, 248
+        qkv = torch.randn(bsz, seq, 3 * E, device="cuda", generator=gen).bfloat16()
+        bias = torch.randn(H, seq, seq, device="cuda", generator=gen)
+        gate = (torch.rand(bsz, seq, H, device="cuda", generator=gen) + 1).permute(0, 2, 1)  # as BEATs hands it
+        q, k, v = ak._split_heads(qkv, H)
+        want = ak.fused_qkv_gated_reference(qkv, H, bias, gate)
+        out = torch.empty(bsz, seq, E, dtype=torch.bfloat16, device="cuda")
+        o = out.view(bsz, seq, H, D).permute(0, 2, 1, 3)
+        strides = (ctypes.c_longlong * 20)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                                           *bias.stride(), *gate.stride(), 0, 0)
+        flops = 4.0 * bsz * H * seq * seq * D
+        for n, shape in enumerate(GATED_SHAPES):
+            def call(n=n):
+                return lib.shape_gated_forward(n, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                               gate.data_ptr(), None, o.data_ptr(), bsz, H, seq, D**-0.5, strides,
+                                               stream)
+            err = call()
+            torch.cuda.synchronize()
+            ms = median_ms(call)
+            print(f"gated forward BEATs B={bsz} T={seq} <{shape}>: launch {err}, rel L2 {rel_l2(out, want):.3e}, "
+                  f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+        del qkv, bias, gate, want, out
     for label, bsz, seq, masked in (("EAT", 128, 513, False), ("AVES", 128, 249, True)):
+        if "forward" not in groups:
+            break
         qkv = torch.randn(bsz, seq, 3 * E, device="cuda", generator=gen).bfloat16()
         mask = padding(bsz, seq, masked)
         q, k, v = ak._split_heads(qkv, H)
@@ -138,6 +176,8 @@ def main() -> int:
                   f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
         del qkv, want, out
     for label, bsz, seq, masked in (("EAT", 64, 513, False), ("AVES", 64, 249, True)):
+        if "backward" not in groups:
+            break
         qkv = torch.randn(bsz, seq, 3 * E, device="cuda", generator=gen).bfloat16()
         dout = torch.randn(bsz, seq, E, device="cuda", generator=gen).bfloat16()
         mask = padding(bsz, seq, masked)

@@ -271,3 +271,14 @@ def test_fused_wrappers_differentiate_through_the_twins_on_cpu(rng):
     ak.fused_qkv_attention(leaf, H, _t(mask)).sum().backward()
     assert leaf.grad is not None and sum(ak.LAUNCHES.values()) == 0
     assert set(ak.LAUNCHES) >= {"fused_qkv_gated_attention_backward", "fused_qkv_attention_backward"}
+
+
+def test_tensor_core_dispatch_by_type():
+    """Every bf16 forward, gated (K1, K2) or not (K4, K5), runs on the tensor
+    cores; fp32 on the FMA body; of the backwards only the bias-free K6 runs
+    on the tensor cores in bf16, the gated K3 stays on the FMA body."""
+    assert ak.tensor_cores(torch.bfloat16, True) and ak.tensor_cores(torch.bfloat16, False)
+    assert not ak.tensor_cores(torch.float32, True) and not ak.tensor_cores(torch.float32, False)
+    assert ak.tensor_cores(torch.bfloat16, False, backward=True)
+    assert not ak.tensor_cores(torch.bfloat16, True, backward=True)
+    assert not ak.tensor_cores(torch.float32, False, backward=True)

@@ -181,8 +181,8 @@ def test_convert_aves_state_dict_from_torchaudio_naming(rng, naming):
 
 def test_aves_config_and_unported_options():
     cfg = AVESConfig.from_dict(dict(TINY, extractor_mode="group_norm", encoder_dropout=0.1))
-    assert cfg.encoder_embed_dim == 128
-    assert cfg.extra == {"extractor_mode": "group_norm", "encoder_dropout": 0.1}
+    assert cfg.encoder_embed_dim == 128 and cfg.encoder_dropout == 0.1
+    assert cfg.extra == {"extractor_mode": "group_norm"}
     with pytest.raises(NotImplementedError, match="scan_layers"):
         avex_tpu_torch.build_model_from_spec(
             ModelSpec(name="aves_bio", pretrained=False), device="cpu", aves_cfg=TINY, scan_layers=True

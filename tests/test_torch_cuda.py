@@ -360,3 +360,59 @@ def test_tensor_core_head_width_other_than_64_raises(card, monkeypatch):
     with pytest.raises(ValueError, match="head_dim"):
         ak.gated_bias_attention(q, q, q, None)
     assert sum(ak.LAUNCHES.values()) == 0
+
+
+# The bf16 gated forward on the tensor cores (K1 and K2 in bf16): the
+# bias-free kernels' sequences plus BEATs' T=248 and T=250 (even, not a
+# multiple of 4: no 16-byte bias rows); with the gate and with a bias alone.
+TC_GATED_SEQS = [1, 31, 65, 248, 250, 513]
+
+
+@pytest.mark.parametrize("seq", TC_GATED_SEQS)
+@pytest.mark.parametrize("bsz", [2, 16])
+@pytest.mark.parametrize("masking", TC_MASKS)
+@pytest.mark.parametrize("gated", [True, False], ids=["gate", "bias_only"])
+def test_tensor_core_gated_forward_matches_twins(card, seq, bsz, masking, gated):
+    """K1 on split views and K2 on the raw [B, T, 3E] projection, whose gate
+    is a transposed view as BEATs hands it over; one launch each."""
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16()
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, H, D).unbind(2))
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda")
+    gate = (torch.rand(bsz, seq, H, generator=card, device="cuda") * 2 + 1).permute(0, 2, 1) if gated else None
+    mask = _tc_mask(masking, bsz, seq)
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        split = ak.gated_bias_attention(q, k, v, bias, gate, mask)
+        torch.cuda.synchronize()
+        assert ak.LAUNCHES["gated_bias_attention"] == 1 and sum(ak.LAUNCHES.values()) == 1
+        fused = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
+        torch.cuda.synchronize()
+        assert ak.LAUNCHES["fused_qkv_gated_attention"] == 1 and sum(ak.LAUNCHES.values()) == 2
+    _close_bf16(split, ak.gated_bias_attention_reference(q, k, v, bias, gate, mask))
+    _close_bf16(fused, ak.fused_qkv_gated_reference(qkv, H, bias, gate, mask))
+    assert split.transpose(1, 2).is_contiguous()  # written as [B, T, H, D], returned as a [B, H, T, D] view
+
+
+def test_gated_forward_dispatch_by_type(card, monkeypatch):
+    """bf16 gated calls load the tensor-core source, fp32 ones the FMA body
+    (within 1e-4 of the twin); the gated backward stays on the FMA body."""
+    bsz, seq = 2, 65
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda")
+    gate = torch.rand(bsz, H, seq, generator=card, device="cuda") + 1
+    mask = _tc_mask("mask", bsz, seq)
+    sources = []
+    for name in ("_library", "_tensor_core_library"):
+        real = getattr(ak, name)
+        monkeypatch.setattr(ak, name, lambda real=real, name=name: sources.append(name) or real())
+    with torch.no_grad():
+        ak.fused_qkv_gated_attention(qkv.bfloat16(), H, bias, gate, mask)
+        got = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
+    torch.cuda.synchronize()
+    assert sources == ["_tensor_core_library", "_library"]
+    torch.testing.assert_close(got, ak.fused_qkv_gated_reference(qkv, H, bias, gate, mask), atol=1e-4, rtol=1e-4)
+    leaf = qkv.bfloat16().requires_grad_()
+    sources.clear()
+    ak.fused_qkv_gated_attention(leaf, H, bias, gate, mask).sum().backward()
+    torch.cuda.synchronize()
+    assert sources == ["_tensor_core_library", "_library"] and leaf.grad is not None
