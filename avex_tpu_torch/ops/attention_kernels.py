@@ -19,17 +19,16 @@ and P cast to v's type before PV, and of its two backward kernels:
   launched at ``:511``): the bias-free cell in K2's layout; its backward
   replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
-Two CUDA sources carry them, chosen by type and variant (a dispatch, not a
-fallback): every bf16 forward (K1, K2, K4, K5) and the bf16 bias-free
-backward (K6) launch the tensor-core kernels of
-``csrc/tensor_core_attention.cu``, whose bias-free forward also writes the
-row log-sum-exp and the output's rounding rest when a backward will follow,
-so that the backward rebuilds P from the one and takes Δ from the forward's
-output and the other; fp32 calls and the gated backward (K3) launch
-``csrc/gated_attention.cu``'s FMA body, gated or bias-free by a template
-flag. The two layouts differ only in the strides handed to the kernels. Each
-source's header states its bounds on an H100 and what its design does about
-them.
+Two CUDA sources carry them, chosen by type (a dispatch, not a fallback):
+every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6), launches the
+tensor-core kernels of ``csrc/tensor_core_attention.cu``, whose fused
+forwards also write the row log-sum-exp and the output's rounding rest when
+a backward will follow, so that the backward rebuilds P from the one and
+takes Δ from the forward's output and the other; fp32 calls launch
+``csrc/gated_attention.cu``'s FMA body. Each source is gated or bias-free by
+a template flag. The two layouts differ only in the strides handed to the
+kernels. Each source's header states its bounds on an H100 and what its
+design does about them.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
 autograd through it); a CUDA tensor launches the kernel or raises, forward
@@ -38,7 +37,8 @@ that its path went through the kernel. The backward twins
 (``*_backward_reference``) write K3's and K6's steps out one by one; the
 tests and ``chip_smoke.py`` hold the kernels against them.
 :func:`fused_qkv_backward_from_residuals_reference` is the twin of the bf16
-K6's own contract (P from the saved log-sum-exp, Δ from the saved output).
+K3's and K6's own contract (P from the saved log-sum-exp, Δ from the saved
+output).
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ __all__ = [
 ]
 
 SOURCE = "gated_attention.cu"
-#: bf16 attention on the tensor cores (K1, K2, K4, K5 and K6 in bf16)
+#: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
 #: The only head width the kernel takes (BEATs, EAT and AVES: 768 / 12).
 HEAD_DIM = 64
@@ -86,12 +86,16 @@ LAUNCHES: Dict[str, int] = {
     "fused_qkv_gated_attention_backward": 0,
     "fused_qkv_attention_backward": 0,
 }
-#: shared memory of one block (H100: 227 KB) and what K3's dQ block holds
-#: besides its [64, T] fp32 dbias rows: six [64, 64] fp32 tiles
+#: shared memory of one block (H100: 227 KB) and what the fp32 K3's dQ block
+#: holds besides its [64, T] fp32 dbias rows: six [64, 64] fp32 tiles
 _MAX_BLOCK_SMEM = 232_448
 _DQ_TILES_BYTES = 6 * 64 * 64 * 4
-#: dQ blocks K3 aims to put in flight: three per SM of an H100's 132
+#: dQ blocks the fp32 K3 aims to put in flight: three per SM of an H100's 132
 _DQ_TARGET_BLOCKS = 396
+#: dbias blocks of the bf16 K3 resident on an SM at once (168 registers x
+#: 128 threads, 66 KB of shared memory): its batch is split into as many
+#: chunks (summed in order after) as fill the card in one wave
+_DBIAS_BLOCKS_PER_SM = 3
 
 
 _COUNT_LOCK = threading.Lock()
@@ -132,20 +136,20 @@ def _tensor_core_library() -> ctypes.CDLL:
     if lib.avex_bias_free_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
-        lib.avex_tensor_core_gated_attention_forward.argtypes = [p] * 7 + tail
+        lib.avex_tensor_core_gated_attention_forward.argtypes = [p] * 9 + tail
         lib.avex_bias_free_attention_forward.argtypes = [p] * 7 + tail
-        lib.avex_bias_free_attention_backward.argtypes = [p] * 12 + tail
+        lib.avex_tensor_core_attention_backward.argtypes = [p] * 17 + [i] + tail
         lib.avex_tensor_core_gated_attention_forward.restype = i
         lib.avex_bias_free_attention_forward.restype = i
-        lib.avex_bias_free_attention_backward.restype = i
+        lib.avex_tensor_core_attention_backward.restype = i
     return lib
 
 
-def tensor_cores(dtype: torch.dtype, gated: bool, backward: bool = False) -> bool:
-    """True when a CUDA call of this type and variant runs on the tensor-core
-    kernels: every bf16 forward and the bf16 bias-free backward (K6). fp32
-    calls and the gated backward (K3) run the FMA body."""
-    return dtype == torch.bfloat16 and not (backward and gated)
+def tensor_cores(dtype: torch.dtype) -> bool:
+    """True when a CUDA call of this type runs on the tensor-core kernels:
+    every bf16 call, forward or backward, gated or not. fp32 calls run the
+    FMA body."""
+    return dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -169,14 +173,7 @@ def gated_bias_attention_reference(
     and PV accumulates in fp32 before the result is cast to v's type.
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if pos_bias is not None:
-        bias = pos_bias[None].float()
-        if gate is not None:
-            bias = gate[..., None].float() * bias
-        logits = logits + bias
-    if key_padding_mask is not None:
-        logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
+    logits = _scaled_logits(q, k, key_padding_mask, scale, pos_bias, gate)
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(weights.float(), v.float()).to(v.dtype)
 
@@ -229,12 +226,7 @@ def _backward_reference(qkv, heads, pos_bias, gate, key_padding_mask, dout, scal
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     q, k, v = (t.float() for t in _split_heads(qkv, heads))
     do = dout.reshape(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3).float()
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if pos_bias is not None:
-        bias = pos_bias[None].float()
-        logits = logits + (gate[..., None].float() * bias if gate is not None else bias)
-    if key_padding_mask is not None:
-        logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
+    logits = _scaled_logits(q, k, key_padding_mask, scale, pos_bias, gate)
     p32 = torch.softmax(logits, dim=-1)
     p = p32.to(qkv.dtype).float()
     dv = torch.matmul(p.transpose(-1, -2), do)  # dV = Pᵀ·dO
@@ -280,24 +272,29 @@ def fused_qkv_backward_reference(
     return _backward_reference(qkv, heads, None, None, key_padding_mask, dout, scale)[0]
 
 
-def _scaled_logits(q, k, key_padding_mask, scale):
-    """fp32 ``q·kᵀ·scale`` with −inf at padded keys, over ``[B, H, T, D]``."""
+def _scaled_logits(q, k, key_padding_mask, scale, pos_bias=None, gate=None):
+    """fp32 ``q·kᵀ·scale (+ gate ⊙ pos_bias)`` with −inf at padded keys, over
+    ``[B, H, T, D]``."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if pos_bias is not None:
+        bias = pos_bias[None].float()
+        logits = logits + (gate[..., None].float() * bias if gate is not None else bias)
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
     return logits
 
 
-def _fused_qkv_forward_lse_reference(qkv, heads, key_padding_mask=None, scale=None):
-    """:func:`fused_qkv_reference` with the residuals the bf16 K5 writes for
-    K6: ``(out, lse, out_rest)``. ``lse`` is the row log-sum-exp of the
-    logits, float32 ``[B, H, T]``; ``out_rest`` is what rounding the output
-    to its type dropped, in that type (0 in fp32)."""
+def _fused_qkv_forward_lse_reference(qkv, heads, key_padding_mask=None, scale=None, pos_bias=None, gate=None):
+    """:func:`fused_qkv_reference` (or, with ``pos_bias``,
+    :func:`fused_qkv_gated_reference`) with the residuals the bf16 K5 and K2
+    write for K6 and K3: ``(out, lse, out_rest)``. ``lse`` is the row
+    log-sum-exp of the logits, float32 ``[B, H, T]``; ``out_rest`` is what
+    rounding the output to its type dropped, in that type (0 in fp32)."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     q, k, v = _split_heads(qkv, heads)
-    logits = _scaled_logits(q, k, key_padding_mask, scale)
+    logits = _scaled_logits(q, k, key_padding_mask, scale, pos_bias, gate)
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     out32 = torch.matmul(weights.float(), v.float()).permute(0, 2, 1, 3).reshape(bsz, seq, dim)
     out = out32.to(v.dtype)
@@ -312,16 +309,22 @@ def fused_qkv_backward_from_residuals_reference(
     dout: torch.Tensor,
     scale: Optional[float] = None,
     out_rest: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain twin of the bf16 K6: ``dqkv`` from the forward's residuals.
+    pos_bias: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+):
+    """Plain twin of the bf16 K6 (and, with ``pos_bias``, of the bf16 K3):
+    ``(dqkv, dbias, dgate)`` from the forward's residuals.
 
-    As :func:`fused_qkv_backward_reference`, except that P is rebuilt from
-    ``lse`` (float32 ``[B, H, T]``, the forward's row log-sum-exp) and Δ is
-    ``rowsum(dout ∘ O)`` with O = ``out + out_rest`` in fp32 (the forward's
-    output ``[B, T, E]`` and what its rounding dropped; ``out`` alone without
-    ``out_rest``), as the kernel does: in exact arithmetic the same Δ as
-    ``rowsum(P ∘ dP)``. P is ``exp2(L·log2e − lse·log2e)``, the kernel's
-    form, and a fully padded row (``lse = −inf``) gives NaN.
+    As :func:`fused_qkv_gated_backward_reference`, except that P is rebuilt
+    from ``lse`` (float32 ``[B, H, T]``, the forward's row log-sum-exp) and Δ
+    is ``rowsum(dout ∘ O)`` with O = ``out + out_rest`` in fp32 (the
+    forward's output ``[B, T, E]`` and what its rounding dropped; ``out``
+    alone without ``out_rest``), as the kernels do: in exact arithmetic the
+    same Δ as ``rowsum(P ∘ dP)``. P is ``exp2(L·log2e − lse·log2e)``, the
+    kernels' form, and a fully padded row (``lse = −inf``) gives NaN. With
+    dL = P ∘ (dP − Δ) in fp32, ``dbias`` = Σ_b gate ⊙ dL (float32
+    ``[H, T, T]``, None without ``pos_bias``) and ``dgate`` = Σ_k bias·dL
+    (float32 ``[B, H, T]``, None without a gate).
     """
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
@@ -336,17 +339,23 @@ def fused_qkv_backward_from_residuals_reference(
     o, do = heads_first(out), heads_first(dout)
     if out_rest is not None:
         o = o + heads_first(out_rest)
-    logits = _scaled_logits(q, k, key_padding_mask, scale)
+    logits = _scaled_logits(q, k, key_padding_mask, scale, pos_bias, gate)
     p32 = torch.exp2(logits * log2e - lse[..., None].float() * log2e)
     p = p32.to(qkv.dtype).float()
     dv = torch.matmul(p.transpose(-1, -2), do)  # dV = Pᵀ·dO
     dp = torch.matmul(do, v.transpose(-1, -2))  # dP = dO·Vᵀ
     delta = (do * o).sum(dim=-1, keepdim=True)  # Δ = rowsum(dO ∘ O)
-    ds = (p32 * (dp - delta) * scale).to(qkv.dtype).float()
+    dl = p32 * (dp - delta)  # the logits' cotangent
+    dbias = dgate = None
+    if pos_bias is not None:
+        dbias = (gate[..., None].float() * dl if gate is not None else dl).sum(dim=0)
+        if gate is not None:
+            dgate = (pos_bias[None].float() * dl).sum(dim=-1)
+    ds = (dl * scale).to(qkv.dtype).float()
     dq = torch.matmul(ds, k)  # dQ = dS·K
     dk = torch.matmul(ds.transpose(-1, -2), q)  # dK = dSᵀ·Q
     dqkv = torch.stack([t.permute(0, 2, 1, 3) for t in (dq, dk, dv)], dim=2)
-    return dqkv.reshape(bsz, seq, three_e).to(qkv.dtype)
+    return dqkv.reshape(bsz, seq, three_e).to(qkv.dtype), dbias, dgate
 
 
 # ---------------------------------------------------------------------------
@@ -412,20 +421,20 @@ def _launch(
     """Launch the forward kernel on ``[B, H, T, D]`` views; ``out`` is written
     in place. With ``pos_bias`` the gated variant runs, without it the
     bias-free one (which takes no gate either): on the tensor cores in bf16,
-    where ``residuals`` = ``(lse, out_rest)`` may receive K6's residuals (the
-    bias-free variant only: the row log-sum-exp, float32 ``[B, H, T]``
-    contiguous, and what rounding the output dropped, bf16 with ``out``'s
-    strides), on the FMA body in fp32."""
+    where ``residuals`` = ``(lse, out_rest)`` may receive the backward's
+    residuals (the row log-sum-exp, float32 ``[B, H, T]`` contiguous, and
+    what rounding the output dropped, bf16 with ``out``'s strides), on the
+    FMA body in fp32."""
     _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
     gated = pos_bias is not None
-    on_tensor_cores = tensor_cores(q.dtype, gated)
+    on_tensor_cores = tensor_cores(q.dtype)
     lse, out_rest = residuals if residuals is not None else (None, None)
     if residuals is not None and not (
-        tensor_cores(q.dtype, gated, backward=True) and lse.shape == (bsz, heads, seq) and lse.is_contiguous()
+        on_tensor_cores and lse.shape == (bsz, heads, seq) and lse.is_contiguous()
         and out_rest.dtype == out.dtype and out_rest.stride() == out.stride()
     ):
-        raise ValueError("only the bf16 bias-free kernel writes K6's residuals: float32 [B, H, T] and out's layout")
+        raise ValueError("only the bf16 kernels write the backward's residuals: float32 [B, H, T] and out's layout")
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = _ptr(key_padding_mask)
     views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -436,11 +445,13 @@ def _launch(
             gate_strides = gate.stride() if gate is not None else (0, 0, 0)
             strides = (ctypes.c_longlong * 20)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
             operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate), pad_ptr,
-                        out.data_ptr(), *tail, strides, stream)
+                        out.data_ptr())
             if on_tensor_cores:
-                err = _tensor_core_library().avex_tensor_core_gated_attention_forward(*operands)
+                err = _tensor_core_library().avex_tensor_core_gated_attention_forward(
+                    *operands, _ptr(out_rest), _ptr(lse), *tail, strides, stream)
             else:
-                err = _library().avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands)
+                err = _library().avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands, *tail, strides,
+                                                              stream)
         else:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
             if on_tensor_cores:
@@ -469,15 +480,15 @@ def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Ten
 
 def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_residuals=False):
     """Launch K2 (with ``pos_bias``) or K5; returns ``(out, residuals)``.
-    ``residuals`` is ``(lse, out_rest)``, the bf16 K6's (see :func:`_launch`),
-    when ``with_residuals`` asks for them and the call runs on the tensor
-    cores, else None."""
+    ``residuals`` is ``(lse, out_rest)``, the bf16 K3's or K6's (see
+    :func:`_launch`), when ``with_residuals`` asks for them and the call runs
+    on the tensor cores, else None."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     q, k, v = _split_heads(qkv, heads)
     out = torch.empty(bsz, seq, dim, dtype=qkv.dtype, device=qkv.device)
     residuals = None
-    if with_residuals and tensor_cores(qkv.dtype, pos_bias is not None, backward=True):
+    if with_residuals and tensor_cores(qkv.dtype):
         residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device), torch.empty_like(out))
 
     def heads_first(t):
@@ -490,7 +501,7 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_resi
 
 
 def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
-    """Launch K3 (with ``pos_bias``) or the fp32 K6 on the FMA body; returns
+    """Launch the fp32 K3 (with ``pos_bias``) or K6 on the FMA body; returns
     ``(dqkv, dbias, dgate)``.
 
     dq, dk and dv are written straight into the column views of one
@@ -512,7 +523,7 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     if gated:
         tiles = -(-seq // 64)
         if _DQ_TILES_BYTES + 64 * tiles * 64 * 4 > _MAX_BLOCK_SMEM:
-            raise ValueError(f"the gated attention backward keeps [64, T] fp32 dbias rows in shared "
+            raise ValueError(f"the fp32 gated attention backward keeps [64, T] fp32 dbias rows in shared "
                              f"memory and takes T <= 512; got T={seq}")
         # Batch items per dQ block: enough blocks to fill the card, one dbias
         # partial per chunk of items, summed in a second pass.
@@ -544,13 +555,15 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     return dqkv, dbias, dgate
 
 
-def _kernel_tensor_core_backward(qkv, heads, key_padding_mask, out, lse, out_rest, dout, scale) -> torch.Tensor:
-    """Launch the bf16 K6 on the tensor cores from the forward's residuals
-    (its output ``out``, row log-sum-exp ``lse`` and ``out_rest``, what
-    rounding the output dropped); returns ``dqkv``, written straight into the
-    column views of one ``[B, T, 3E]`` gradient."""
+def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, scale):
+    """Launch the bf16 K3 (with ``pos_bias``) or K6 on the tensor cores from
+    the forward's residuals (its output ``out``, row log-sum-exp ``lse`` and
+    ``out_rest``, what rounding the output dropped); returns ``(dqkv, dbias,
+    dgate)``, dqkv written straight into the column views of one
+    ``[B, T, 3E]`` gradient."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
+    gated = pos_bias is not None
     qkv = qkv.contiguous()
     q, k, v = _split_heads(qkv, heads)
     dqkv = torch.empty_like(qkv)
@@ -561,34 +574,50 @@ def _kernel_tensor_core_backward(qkv, heads, key_padding_mask, out, lse, out_res
 
     o, rest, do = heads_first(out), heads_first(out_rest), heads_first(dout)
     _check_operands(q, k, v, {"out": o, "out_rest": rest, "dout": do, "dq": dq, "dk": dk, "dv": dv},
-                    None, None, key_padding_mask)
+                    pos_bias, gate, key_padding_mask)
     if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [{bsz}, {heads}, {seq}]")
-    delta = torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device)
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    delta = torch.empty(bsz, heads, seq, **f32)
+    dbias = torch.empty(heads, seq, seq, **f32) if gated else None
+    dgate = torch.empty(bsz, heads, seq, **f32) if gate is not None else None
+    items, part = bsz, None
+    if gated:
+        # dbias: as many batch chunks (a partial each) as one wave of blocks holds
+        tiles = -(-seq // 64)
+        sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+        chunks = max(1, min(bsz, _DBIAS_BLOCKS_PER_SM * sms // (tiles * tiles * heads)))
+        items = -(-bsz // chunks)
+        chunks = -(-bsz // items)
+        part = torch.empty(chunks, heads, seq, seq, **f32) if chunks > 1 else None
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
+    bias_strides = pos_bias.stride() if gated else (0, 0, 0)
+    gate_strides = gate.stride() if gate is not None else (0, 0, 0)
     views = (s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3])
-    strides = (ctypes.c_longlong * 26)(*views, *pad_strides)
+    strides = (ctypes.c_longlong * 32)(*views, *pad_strides, *bias_strides, *gate_strides)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = _tensor_core_library().avex_bias_free_attention_backward(
+        err = _tensor_core_library().avex_tensor_core_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), rest.data_ptr(), do.data_ptr(),
-            _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            _ptr(pos_bias), _ptr(gate), _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items,
             bsz, heads, seq, dim // heads, float(scale), strides, stream,
         )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    _count("fused_qkv_attention_backward")
-    return dqkv
+    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward")
+    return dqkv, dbias, dgate
 
 
 class _FusedQKVAttention(torch.autograd.Function):
     """CUDA tensors: K2 (with ``pos_bias``) or K5 forward, K3 or K6 backward.
 
     The residuals are the forward's inputs, as JAX keeps them
-    (``pallas_attention.py:648-650``, ``:940-944``), and, for the bf16 K6 on
-    the tensor cores, the forward's output, what its bf16 rounding dropped
-    and the row log-sum-exp as well: P is rebuilt from the log-sum-exp and Δ
-    taken from the output, with no pass for the row statistics. The output is
+    (``pallas_attention.py:648-650``, ``:940-944``), and, for the bf16 K3 and
+    K6 on the tensor cores, the forward's output, what its bf16 rounding
+    dropped and the row log-sum-exp as well: P is rebuilt from the
+    log-sum-exp and Δ taken from the output, with no pass for the row
+    statistics. The output is
     the tensor the caller's output projection keeps for its own weight
     gradient, so saving it costs nothing; the rounding rest costs as much
     again in bf16, and keeps Δ's error near fp32's (PERF.md).
@@ -609,13 +638,13 @@ class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, pos_bias, gate, key_padding_mask, out, out_rest, lse = ctx.saved_tensors
-        dbias = dgate = None
-        if tensor_cores(qkv.dtype, pos_bias is not None, backward=True):
+        if tensor_cores(qkv.dtype):
             if lse is None:
                 raise RuntimeError("the bf16 attention backward needs the forward's residuals: run the "
                                    "forward with grad mode on and qkv requiring grad")
-            dqkv = _kernel_tensor_core_backward(qkv, ctx.heads, key_padding_mask, out, lse, out_rest, dout,
-                                                ctx.scale)
+            dqkv, dbias, dgate = _kernel_tensor_core_backward(
+                qkv, ctx.heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, ctx.scale
+            )
         else:
             dqkv, dbias, dgate = _kernel_fused_backward(
                 qkv, ctx.heads, pos_bias, gate, key_padding_mask, dout, ctx.scale

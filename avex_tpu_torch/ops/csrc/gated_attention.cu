@@ -12,10 +12,11 @@
 // Both layouts are only different strides here: every operand is a base
 // pointer plus (batch, head, token) strides, with the head dimension
 // contiguous. The backward of the fused layouts (K3 and K6) follows the
-// forward, below, with its own design note. The forwards here serve fp32
-// only: every bf16 forward (K1, K2, K4, K5) and the bf16 K6 run on the
-// tensor cores in tensor_core_attention.cu. fp32 stays on this FMA body, the
-// card's parity path: the tensor cores would round its operands to TF32.
+// forward, below, with its own design note. Everything here serves fp32
+// only: every bf16 forward (K1, K2, K4, K5) and both bf16 backwards (K3, K6)
+// run on the tensor cores in tensor_core_attention.cu. fp32 stays on this FMA
+// body, the card's parity path: the tensor cores would round its operands to
+// TF32.
 //
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
@@ -38,7 +39,6 @@
 // FMA instruction rate.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
 #include <math.h>
@@ -68,34 +68,9 @@ __device__ __forceinline__ void load8(const float* p, float* x) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store8(float* p, const float* x) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// P is rounded to v's type before PV.
-__device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <typename T, bool kGated>
@@ -218,7 +193,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 8; ++j) {
         const float p = expf(sc[i][j] - shift);
         tile_sum += p;
-        p_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = round_like(p, q);
+        p_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = p;
       }
       tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 1);
       tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 2);
@@ -282,15 +257,12 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float, kGated>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16, kGated>(q, k, v, bias, gate, pad, out, batch, heads, seq,
-                                              scale, s, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); bias and gate
+// dtype: must be 0 = float32 (q, k, v and out share it); bias and gate
 // are float32, pad is one byte per key (nonzero = padded); gate and pad may be
 // null. strides: 20 element strides in the order of struct Strides. Returns a
 // cudaError_t; 0 means the kernel was launched.
@@ -363,16 +335,16 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 // nine tile products where the algorithm needs five.
 //
 // Bound on an H100 at the BEATs training shape (B=64, H=12, T=248, D=64,
-// bf16, gated): the call must read q, k, v and dO and write dq, dk and dv
-// once, 7 x 24.4 MB, plus bias and dbias (2 x 2.95 MB) and gate and dgate
-// (2 x 0.76 MB), 178 MB in all, about 53 us at 3.35 TB/s; its five products
-// of 2·T·T·D FLOPs per (item, head) are 30 GFLOP, about 30 us at the bf16
-// tensor-core rate: bound by bytes. At EAT's (B=64, T=513, bias-free) it is
-// 129 GFLOP (about 131 us) against 353 MB (about 105 us): bound by operations.
-// This first kernel runs its products on the FMA units and is held back by
-// its instruction rate; wgmma on TMA-fed tiles is a later change. Its
-// bias-free instantiation serves the fp32 K6 only (bf16: tensor_core_attention.cu,
-// seven tile products from a saved log-sum-exp).
+// fp32, gated): the call must read q, k, v and dO and write dq, dk and dv
+// once, 7 x 48.8 MB, plus bias and dbias (2 x 2.95 MB) and gate and dgate
+// (2 x 0.76 MB), 349 MB in all, about 104 us at 3.35 TB/s; its five products
+// of 2·T·T·D FLOPs per (item, head) are 30 GFLOP, about 451 us at the 67
+// TFLOP/s fp32 rate: bound by operations, as at EAT's (B=64, T=513,
+// bias-free: 129 GFLOP, about 1.93 ms).
+// The products run on the FMA units, held back by their instruction rate, as
+// fp32 parity asks. It serves fp32 only: the bf16 K3 and K6 run on the tensor
+// cores in tensor_core_attention.cu, from a saved log-sum-exp. The gated
+// variant keeps [64, T] fp32 dbias rows in shared memory, which caps T at 512.
 // ===========================================================================
 
 namespace {
@@ -594,7 +566,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
             dl[j] = p * (dp[i][j] - delta[i]);
             if constexpr (kGated) dg[i] = fmaf(bv, dl[j], dg[i]);
           }
-          ds_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = round_like(dl[j] * scale, q);
+          ds_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = dl[j] * scale;
         }
         if constexpr (kGated) {
           float* row = dbias_s + (ty * 4 + i) * seq_pad + k0 + tx * 8;
@@ -708,7 +680,7 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
           p = expf(x - shift) / l;
           dl[i][j] = p * (dpt[i][j] - delta);
         }
-        pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = round_like(p, q);
+        pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = p;
       }
     }
     __syncthreads();
@@ -718,7 +690,7 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = round_like(dl[i][j] * scale, q);
+        pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = dl[i][j] * scale;
     __syncthreads();
     accumulate(pds, q_s, ty * 4, tx * 8, dk_acc);  // dK += dSᵀ·Q
   }
@@ -798,17 +770,13 @@ int dispatch_backward(int dtype, const void* q, const void* k, const void* v, co
     return (int)launch_backward<float, kGated>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
                                                dbias_part, dbias, dgate, stats, batch, heads, seq,
                                                scale, items_per_chunk, s, st);
-  if (dtype == 1)
-    return (int)launch_backward<__nv_bfloat16, kGated>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
-                                                       dbias_part, dbias, dgate, stats, batch,
-                                                       heads, seq, scale, items_per_chunk, s, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
 }
 
 }  // namespace
 
 // The backward of both variants over (batch, head, token)-strided views.
-// dtype as the forward's (q, k, v, dout, dq, dk and dv share it). gated = 1
+// dtype must be 0 (float32; q, k, v, dout, dq, dk and dv share it). gated = 1
 // reads bias (float32 [H, T, T]) and gate (float32, may be null) and writes
 // dbias (float32 [H, T, T], contiguous) and, with a gate, dgate (float32
 // [B, H, T], contiguous); gated = 0 ignores all four. pad may be null.

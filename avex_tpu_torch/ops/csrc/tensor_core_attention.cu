@@ -1,28 +1,32 @@
 // Attention in bf16 on Hopper's tensor cores (sm_90a), plain C ABI:
 //
-//   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v
+//   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v, with its backward
 //   bias-free: out = softmax(q·kᵀ·scale + pad) · v, with its backward
 //
-// Replaces, for bf16 operands, five Pallas TPU kernels of the JAX package:
-//   - _attention_kernel        avex_tpu/ops/pallas_attention.py:126  (K1, gated, split q/k/v [B,H,T,D])
-//   - _fused_qkv_gated_kernel  avex_tpu/ops/pallas_attention.py:389  (K2, gated, column views of [B,T,3E])
-//   - _fused_qkv_kernel        avex_tpu/ops/pallas_attention.py:344  (K5, column views of [B,T,3E])
-//   - _fused_qkv_bwd_kernel    avex_tpu/ops/pallas_attention.py:524  (K6, its backward)
-//   - _plain_attention_kernel  avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
+// Replaces, for bf16 operands, six Pallas TPU kernels of the JAX package:
+//   - _attention_kernel            avex_tpu/ops/pallas_attention.py:126  (K1, gated, split q/k/v [B,H,T,D])
+//   - _fused_qkv_gated_kernel      avex_tpu/ops/pallas_attention.py:389  (K2, gated, column views of [B,T,3E])
+//   - _fused_qkv_gated_bwd_kernel  avex_tpu/ops/pallas_attention.py:765  (K3, its backward)
+//   - _fused_qkv_kernel            avex_tpu/ops/pallas_attention.py:344  (K5, column views of [B,T,3E])
+//   - _fused_qkv_bwd_kernel        avex_tpu/ops/pallas_attention.py:524  (K6, its backward)
+//   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
 // The layouts are only strides here: every operand is a base pointer plus
 // (batch, head, token) strides with the head dimension contiguous. fp32
-// operands, and the gated backward (K3), stay on gated_attention.cu's FMA
-// body.
+// operands stay on gated_attention.cu's FMA body.
 //
 // Numerics, as the TPU kernels (pallas_attention.py:126-158, :344-430,
-// :524-585): fp32 logits and softmax; P rounded to bf16 before P·V and Pᵀ·dO;
-// dS = P∘(dP−Δ)·scale rounded to bf16 before dS·K and dSᵀ·Q; every product
-// accumulates in fp32; a padded key gets −inf, and a row whose keys are all
-// padded gives NaN, as the plain twin's softmax does. The forward rounds the
-// unnormalised P to bf16 and divides by the row sum at the end (the twin
-// rounds the normalised P). The gated logits are, in the exp2 domain,
-// x = fmaf(s, scale·log2e, (gate·log2e)·bias) (plus the key bias where keys
-// are padded or past T); without a gate the factor is log2e alone.
+// :524-585, :765-843): fp32 logits and softmax; P rounded to bf16 before P·V
+// and Pᵀ·dO; dS = P∘(dP−Δ)·scale rounded to bf16 before dS·K and dSᵀ·Q; every
+// product accumulates in fp32; a padded key gets −inf, and a row whose keys
+// are all padded gives NaN, as the plain twin's softmax does. The forward
+// rounds the unnormalised P to bf16 and divides by the row sum at the end
+// (the twin rounds the normalised P). The gated logits are, in the exp2
+// domain, x = fmaf(s, scale·log2e, (gate·log2e)·bias) (plus the key bias
+// where keys are padded or past T); without a gate the factor is log2e alone.
+// Every gated kernel forms them the same way, so that the backward's P
+// agrees with the log-sum-exp the forward saved. The gated backward's extra
+// cotangents are dgate[b,h,t] = Σ_k bias·dL and dbias[h] = Σ_b gate ⊙ dL,
+// with dL = P∘(dP−Δ) in fp32 (not scaled, not rounded).
 //
 // Bounds on an H100 SXM at the main paths' shapes (H=12, D=64, bf16):
 //   gated forward, BEATs B=128, T=248: q, k, v read and out written once,
@@ -32,7 +36,10 @@
 //   forward, EAT B=128, T=513: 4 x 100.9 MB = 403.6 MB, 0.120 ms, against
 //     103.5 GFLOP, 0.105 ms: bound by bytes, narrowly;
 //   backward, EAT B=64, T=513: five products, 10·B·H·T²·D = 129.4 GFLOP,
-//     0.131 ms, against 7 x 50.4 MB = 353 MB, 0.105 ms: bound by operations.
+//     0.131 ms, against 7 x 50.4 MB = 353 MB, 0.105 ms: bound by operations;
+//   gated backward, BEATs B=64, T=248: 30.2 GFLOP, 0.031 ms, against 7 x
+//     24.4 MB plus bias, dbias, gate and dgate, 178 MB, 0.053 ms: bound by
+//     bytes.
 // Against the byte bound the design reads q once and each K/V tile once per
 // block of 64 queries (four times at T=248, from L2 after the first), and
 // keeps the bias, the one operand of the gated forward that is [T, T] per
@@ -68,21 +75,36 @@
 // block's shape, set the forward's speed (PERF.md).
 //   - forward: one block per (query tile, head, item); online softmax in the
 //     exp2 domain (scale·log2e folded into one multiply). When a backward will
-//     follow (bias-free only) it also writes the row log-sum-exp, fp32
-//     [B, H, T], and what rounding the output to bf16 dropped, in bf16.
-//   - backward: two kernels, deterministic, no atomics. The dQ kernel (one
-//     block per query tile, head, item) first takes Δ = rowsum(dO∘O) from the
-//     forward's output plus its rounding rest (and writes it), then walks the
-//     key tiles: S = QKᵀ, P = exp(S·scale − LSE), dP = dO·Vᵀ, dS, dQ += dS·K.
-//     The dK/dV kernel (one block per key tile, head, item) walks the query
-//     tiles: Sᵀ = KQᵀ, dV += Pᵀ·dO, dPᵀ = VdOᵀ, dK += dSᵀ·Q. Seven tile
+//     follow it also writes the row log-sum-exp, fp32 [B, H, T], and what
+//     rounding the output to bf16 dropped, in bf16.
+//   - backward: two kernels, deterministic, no atomics, and a third for the
+//     gated dbias. The dQ kernel (one block per query tile, head, item) first
+//     takes Δ = rowsum(dO∘O) from the forward's output plus its rounding rest
+//     (and writes it), then walks the key tiles: S = QKᵀ, P = exp(L − LSE),
+//     dP = dO·Vᵀ, dS, dQ += dS·K; the gated variant also sums bias∘dL over
+//     the row's keys in registers (the quad, then the tiles) and writes
+//     dgate once a row. The dK/dV kernel (one block per key tile, head, item)
+//     walks the query tiles: Sᵀ = KQᵀ, dV += Pᵀ·dO, dPᵀ = VdOᵀ, dK += dSᵀ·Q;
+//     its gated variant reads the bias transposed, a lane's 32 floats from L2
+//     as scalars, and the query tile's gates from shared memory. Seven tile
 //     products in all; the saved LSE is what lets the backward skip a pass for
 //     the row statistics. Δ from the output rounded to bf16 alone would carry
 //     2^-9·|O| of error, which is all of dS where dP − Δ cancels; the rest
 //     brings it back to an fp32 output's.
+//   - dbias (gated): one block per (query tile, key tile, head, chunk of
+//     batch items) walks its items in order, rebuilds S and dP for its 64 x 64
+//     tile from q, k, v and dO (two tile products an item, the bias fragments
+//     loaded once), and sums gate ⊙ dL in registers; it writes the tile once,
+//     and a last pass adds the chunks' partials in chunk order. The wrapper
+//     takes as many chunks as one wave of resident blocks holds (two at
+//     BEATs' B=64, T=248: 0.128 against 0.182 ms for one, PERF.md); the sum
+//     runs in one fixed order, so dbias is deterministic, and it needs no
+//     [64, T] rows in shared memory, so it takes any T. Each block rereads
+//     its q, dO, K and V tiles from L2 for every item: that traffic, not the
+//     products, bounds it.
 // Outputs are staged through shared memory and written as 16-byte rows. The
 // kernels are templates over the block's shape (warps, 16-row groups a warp,
-// keys a forward tile) and, in the forward, over the gated variant;
+// keys a forward tile) and over the gated variant;
 // scripts/torch_attention_shapes.py times the others.
 // mma.sync reaches about two thirds of the tensor cores' rate at best; wgmma
 // on TMA-fed tiles is the route to the rest.
@@ -407,6 +429,33 @@ __device__ __forceinline__ void fetch_bias(float bf[][kN / 8][4], const float* c
   }
 }
 
+// The gate of (item b, head h, row qi), 1 without a gate.
+__device__ __forceinline__ float gate_at(const Gated& gd, int b, int h, int qi) {
+  return gd.gate ? __ldg(gd.gate + b * gd.gs[0] + h * gd.gs[1] + qi * gd.gs[2]) : 1.f;
+}
+
+// This lane's rows r0 + 16m + g (+8) of the bias (row pointers; rows past seq
+// clamped to the last, their results are never stored).
+template <int kM>
+__device__ __forceinline__ void bias_rows(const Gated& gd, int h, int r0, int seq, const float* row[][2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) row[mm][i] = gd.bias + h * gd.bs[0] + min(r0 + 16 * mm + g + 8 * i, seq - 1) * gd.bs[1];
+}
+
+// The same rows' gate·log2e (log2e alone without a gate), as every gated
+// kernel folds it into the logits.
+template <int kM>
+__device__ __forceinline__ void gate_rows(const Gated& gd, int b, int h, int r0, int seq, float gl[][2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) gl[mm][i] = gate_at(gd, b, h, min(r0 + 16 * mm + g + 8 * i, seq - 1)) * kLog2e;
+}
+
 // A block of kWarps warps, each owning kM groups of 16 rows: the block's own
 // tile (queries, or keys in dK/dV) has kOwn rows; the forward streams key
 // tiles of kN rows, the backward tiles of 64.
@@ -417,7 +466,8 @@ struct Shape {
   static constexpr size_t kOwnBytes = (size_t)kOwn * kD * sizeof(bf16);
   static constexpr size_t kFwdSmem = kOwnBytes + 4 * (size_t)kN * kD * sizeof(bf16) + 2 * kN * sizeof(float);
   static constexpr size_t kDqSmem = 2 * kOwnBytes + 4 * kTileBytes + 2 * kRows * sizeof(float) + kOwn * sizeof(float);
-  static constexpr size_t kDkvSmem = 2 * kOwnBytes + 4 * kTileBytes + 4 * kRows * sizeof(float);
+  static constexpr size_t kDkvSmem = 2 * kOwnBytes + 4 * kTileBytes + 6 * kRows * sizeof(float);
+  static constexpr size_t kDbiasSmem = 2 * (2 * kOwnBytes + 2 * kTileBytes) + 2 * (kRows + 3 * kOwn) * sizeof(float);
 };
 
 // One key tile of the forward for a warp: S = Q·Kᵀ, the online softmax, and
@@ -506,20 +556,14 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const int n_tiles = (seq + kN - 1) / kN;
   const float c = scale * kLog2e;
-  const float* bias_h = kGated ? gd.bias + h * gd.bs[0] : nullptr;
 
-  // The gated variant: this lane's rows' bias and gate·log2e (rows past seq
-  // clamped to the last row: their results are never stored).
+  // The gated variant: this lane's rows' bias and gate·log2e.
   const float* bias_row[kM][2];
   float gl[kM][2];
-#pragma unroll
-  for (int mm = 0; mm < kM; ++mm)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qi = min(q0 + row0 + 16 * mm + g + 8 * i, seq - 1);
-      bias_row[mm][i] = kGated ? bias_h + qi * gd.bs[1] : nullptr;
-      gl[mm][i] = kGated && gd.gate ? __ldg(gd.gate + b * gd.gs[0] + h * gd.gs[1] + qi * gd.gs[2]) * kLog2e : kLog2e;
-    }
+  if (kGated) {
+    bias_rows<kM>(gd, h, q0 + row0, seq, bias_row);
+    gate_rows<kM>(gd, b, h, q0 + row0, seq, gl);
+  }
 
   load_tile<kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
   load_tile<kN, kThreads>(k_s, kb, s.k[2], 0, seq);
@@ -594,13 +638,13 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   if (out_rest) store_tile<kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, k_s);
 }
 
-template <int kWarps, int kM>
+template <int kWarps, int kM, bool kGated>
 __global__ void __launch_bounds__(32 * kWarps)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ out, const bf16* __restrict__ out_rest, const bf16* __restrict__ dout,
-          const uint8_t* __restrict__ pad,
-          const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta, int heads,
-          int seq, float scale, BwdStrides s) {
+          const uint8_t* __restrict__ pad, const float* __restrict__ lse, bf16* __restrict__ dq,
+          float* __restrict__ delta, float* __restrict__ dgate, int heads, int seq, float scale, BwdStrides s,
+          Gated gd) {
   using S = Shape<kWarps, kM>;
   constexpr int kThreads = S::kThreads, kOwn = S::kOwn;
   static_assert(kThreads == kOwn || kThreads == 2 * kOwn, "one or two threads a row for Δ");
@@ -673,6 +717,16 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       const int qi = q0 + row0 + 16 * mm + g + 8 * i;
       lse2[mm][i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
     }
+  // The gated variant: this lane's rows' bias and gate·log2e, and its part
+  // of dgate = Σ_k bias·dL (the lane's keys; the quad sums them at the end).
+  const float* bias_row[kM][2];
+  float gl[kM][2], dg[kM][2];
+  if (kGated) {
+    bias_rows<kM>(gd, h, q0 + row0, seq, bias_row);
+    gate_rows<kM>(gd, b, h, q0 + row0, seq, gl);
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm) dg[mm][0] = dg[mm][1] = 0.f;
+  }
 
   uint32_t qf[kM][4][4], dof[kM][4][4];
   float acc[kM][8][4];
@@ -702,6 +756,13 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       const int live = live_groups(it * kRows, seq);
       const float* kbias = kbias_s + buf * kRows;
       const bf16* kt = k_s + buf * kTile;
+      float bf[kM][8][4];  // the gated variant's bias fragments, issued before the products
+      if (kGated) {
+        if ((it + 1) * kRows <= seq)
+          fetch_bias<kM, kRows, true>(bf, bias_row, gd.bs[2], it * kRows, seq, gd.vec2);
+        else
+          fetch_bias<kM, kRows, false>(bf, bias_row, gd.bs[2], it * kRows, seq, gd.vec2);
+      }
       float sc[kM][8][4], dp[kM][8][4];
       zero<kM>(sc);
       zero<kM>(dp);
@@ -714,8 +775,12 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = e >> 1;
-            const float p = exp2_approx(fmaf(sc[mm][j][e], c, kbias[8 * j + 2 * t + (e & 1)]) - lse2[mm][i]);
-            sc[mm][j][e] = p * (dp[mm][j][e] - dl[mm][i]) * scale;  // dS
+            const float kbv = kbias[8 * j + 2 * t + (e & 1)];
+            const float x = kGated ? fmaf(sc[mm][j][e], c, bf[mm][j][e] * gl[mm][i] + kbv)
+                                   : fmaf(sc[mm][j][e], c, kbv);
+            const float dlv = exp2_approx(x - lse2[mm][i]) * (dp[mm][j][e] - dl[mm][i]);  // dL = P∘(dP − Δ)
+            if (kGated) dg[mm][i] = fmaf(bf[mm][j][e], dlv, dg[mm][i]);
+            sc[mm][j][e] = dlv * scale;  // dS
           }
       uint32_t dsf[kM][4][4];
       to_a<kM, 4>(dsf, sc);
@@ -729,17 +794,27 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 #pragma unroll
     for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
     stage<kM>(q_s, row0, acc, ones);
+    if (kGated && dgate) {
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float sum = quad_sum(dg[mm][i]);
+          const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+          if (t == 0 && qi < seq) dgate[stat0 + qi] = sum;
+        }
+    }
   }
   __syncthreads();
   store_tile<kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, q_s);
 }
 
-template <int kWarps, int kM>
+template <int kWarps, int kM, bool kGated>
 __global__ void __launch_bounds__(32 * kWarps)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
-           int seq, float scale, BwdStrides s) {
+           int seq, float scale, BwdStrides s, Gated gd) {
   using S = Shape<kWarps, kM>;
   constexpr int kThreads = S::kThreads, kOwn = S::kOwn;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -749,6 +824,7 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   bf16* do_s = q_s + 2 * kTile;                                  // [2][64][64]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile);     // [2][64], log2 units
   float* dl_s = lse_s + 2 * kRows;                               // [2][64]
+  float* gl_s = dl_s + 2 * kRows;                                // [2][64], the gated variant's gate·log2e
 
   const int k0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -767,6 +843,7 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       const int qi = q0 + i;
       lse_s[slot * kRows + i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
       dl_s[slot * kRows + i] = qi < seq ? delta[stat0 + qi] : 0.f;
+      if (kGated) gl_s[slot * kRows + i] = gate_at(gd, b, h, min(qi, seq - 1)) * kLog2e;
     }
   };
 
@@ -778,12 +855,14 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   cp_async_commit();
 
   float kbias[kM][2];  // this lane's keys g and g+8 of each group
+  const float* bias_col[kM][2];  // the gated variant: their bias columns (keys past seq clamped)
 #pragma unroll
   for (int mm = 0; mm < kM; ++mm)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = k0 + row0 + 16 * mm + g + 8 * i;
       kbias[mm][i] = (key >= seq || (pad && pad[b * s.pad[0] + key * s.pad[1]])) ? -INFINITY : 0.f;
+      if (kGated) bias_col[mm][i] = gd.bias + h * gd.bs[0] + min(key, seq - 1) * gd.bs[2];
     }
 
   float dk_acc[kM][8][4], dv_acc[kM][8][4];
@@ -808,6 +887,23 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       const bf16* dot = do_s + buf * kTile;
       const float* lq = lse_s + buf * kRows;
       const float* dlq = dl_s + buf * kRows;
+      const float* glq = gl_s + buf * kRows;
+      // The gated variant's bias, transposed: bt[m][j][2i + e] = bias[query
+      // 8j + 2t + e][key g + 8i of group m], scalars from L2 issued before the
+      // product (queries past seq clamped to the last).
+      float bt[kM][8][4];
+      if (kGated) {
+#pragma unroll
+        for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const long long qo = min(it * kRows + 8 * j + 2 * t + e, seq - 1) * gd.bs[1];
+              bt[mm][j][e] = __ldg(bias_col[mm][0] + qo);
+              bt[mm][j][2 + e] = __ldg(bias_col[mm][1] + qo);
+            }
+      }
       float st[kM][8][4];
       zero<kM>(st);
       {
@@ -820,8 +916,12 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            st[mm][j][e] = exp2_approx(fmaf(st[mm][j][e], c, kbias[mm][e >> 1]) - lq[8 * j + 2 * t + (e & 1)]);  // Pᵀ
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const float x = kGated ? fmaf(st[mm][j][e], c, bt[mm][j][e] * glq[col] + kbias[mm][e >> 1])
+                                   : fmaf(st[mm][j][e], c, kbias[mm][e >> 1]);
+            st[mm][j][e] = exp2_approx(x - lq[col]);  // Pᵀ
+          }
       {
         uint32_t pf[kM][4][4];
         to_a<kM, 4>(pf, st);
@@ -862,6 +962,141 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   store_tile<kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, v_s);
 }
 
+// Σ_b gate[b,h,:,None] ⊙ dL[b,h] over one tile of kOwn queries x 64 keys and
+// one chunk of `items` batch items (blockIdx.z = chunk · heads + h): the block
+// walks its items in order with the next item's q, dO, K and V tiles in
+// flight, rebuilds S and dP, P from the saved LSE and dL with the Δ the dQ
+// kernel wrote, keeps the sum in registers and writes it to out[chunk].
+template <int kWarps, int kM>
+__global__ void __launch_bounds__(32 * kWarps)
+dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
+             const float* __restrict__ delta, float* __restrict__ out, int batch, int items, int heads, int seq,
+             float scale, BwdStrides s, Gated gd) {
+  using S = Shape<kWarps, kM>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kOwnTile = kOwn * kD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][64]
+  bf16* do_s = q_s + 2 * kOwnTile;                               // [2][kOwn][64]
+  bf16* k_s = do_s + 2 * kOwnTile;                               // [2][64][64]
+  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][64]
+  float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kTile);    // [2][64]
+  float* lse_s = kbias_s + 2 * kRows;                            // [2][kOwn], log2 units
+  float* dl_s = lse_s + 2 * kOwn;                                // [2][kOwn]
+  float* g_s = dl_s + 2 * kOwn;                                  // [2][kOwn]
+
+  const int q0 = blockIdx.x * kOwn, k0 = blockIdx.y * kRows, h = blockIdx.z % heads, chunk = blockIdx.z / heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = q0 + row0 < seq;
+  const int live = live_groups(k0, seq);
+  const int b0 = chunk * items, b_end = min(batch, b0 + items);
+  const float c = scale * kLog2e;
+
+  // Item b's tiles and row statistics into slot `slot`; rows past seq get an
+  // LSE of +inf (P = 0) and a Δ of 0.
+  auto issue = [&](int slot, int b) {
+    load_tile<kOwn, kThreads>(q_s + slot * kOwnTile, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq);
+    load_tile<kOwn, kThreads>(do_s + slot * kOwnTile, dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq);
+    load_tile<kRows, kThreads>(k_s + slot * kTile, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
+    load_tile<kRows, kThreads>(v_s + slot * kTile, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
+    load_key_bias<kRows, kThreads>(kbias_s + slot * kRows, pad ? pad + b * s.pad[0] : nullptr, s.pad[1], k0, seq);
+    const long long stat0 = ((long long)b * heads + h) * seq;
+    for (int i = threadIdx.x; i < kOwn; i += kThreads) {
+      const int qi = q0 + i;
+      lse_s[slot * kOwn + i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+      dl_s[slot * kOwn + i] = qi < seq ? delta[stat0 + qi] : 0.f;
+      g_s[slot * kOwn + i] = gate_at(gd, b, h, min(qi, seq - 1));
+    }
+  };
+
+  issue(0, b0);
+  cp_async_commit();
+  // The tile's bias fragments, the same for every item.
+  const float* bias_row[kM][2];
+  float bf[kM][8][4];
+  bias_rows<kM>(gd, h, q0 + row0, seq, bias_row);
+  if (k0 + kRows <= seq)
+    fetch_bias<kM, kRows, true>(bf, bias_row, gd.bs[2], k0, seq, gd.vec2);
+  else
+    fetch_bias<kM, kRows, false>(bf, bias_row, gd.bs[2], k0, seq, gd.vec2);
+
+  float acc[kM][8][4];
+  zero<kM>(acc);
+  for (int b = b0; b < b_end; ++b) {
+    const int buf = (b - b0) & 1;
+    if (b + 1 < b_end) {
+      issue(buf ^ 1, b + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      float sc[kM][8][4], dp[kM][8][4];
+      zero<kM>(sc);
+      zero<kM>(dp);
+      {
+        uint32_t qf[kM][4][4], dof[kM][4][4];
+        load_a<kM>(qf, q_s + buf * kOwnTile, row0);
+        load_a<kM>(dof, do_s + buf * kOwnTile, row0);
+        mma_abt_live<kM, 4>(sc, qf, k_s + buf * kTile, live);   // S = Q·Kᵀ
+        mma_abt_live<kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+      }
+      const float* kbias = kbias_s + buf * kRows;
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm) {
+        float lse2[2], dlt[2], gv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = buf * kOwn + row0 + 16 * mm + g + 8 * i;
+          lse2[i] = lse_s[r];
+          dlt[i] = dl_s[r];
+          gv[i] = g_s[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float x = fmaf(sc[mm][j][e], c, bf[mm][j][e] * (gv[i] * kLog2e) + kbias[8 * j + 2 * t + (e & 1)]);
+            const float dlv = exp2_approx(x - lse2[i]) * (dp[mm][j][e] - dlt[i]);  // dL
+            acc[mm][j][e] = fmaf(gv[i], dlv, acc[mm][j][e]);
+          }
+      }
+    }
+    __syncthreads();  // every warp is done with this item's buffers
+  }
+
+  if (active) {
+    float* base = out + ((long long)chunk * heads + h) * seq * seq;
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+        if (qi >= seq) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            if (key < seq) base[(long long)qi * seq + key] = acc[mm][j][2 * i + e];
+          }
+      }
+  }
+}
+
+// dbias = Σ_c part[c], in chunk order: the same sum on every call.
+__global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out, long long n, int chunks) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
+    float sum = part[i];
+    for (int c = 1; c < chunks; ++c) sum += part[c * n + i];
+    out[i] = sum;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -886,50 +1121,83 @@ cudaError_t launch_forward(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// The gated operands: bias and gate with their element strides (bias (head,
+// query, key), gate (batch, head, token)).
+Gated make_gated(const void* bias, const void* gate, int seq, const long long* bias_strides,
+                 const long long* gate_strides) {
+  Gated gd;
+  gd.bias = static_cast<const float*>(bias);
+  gd.gate = static_cast<const float*>(gate);
+  memcpy(gd.bs, bias_strides, 3 * sizeof(long long));
+  memcpy(gd.gs, gate_strides, 3 * sizeof(long long));
+  gd.vec2 = gd.bs[2] == 1 && gd.bs[0] % 2 == 0 && gd.bs[1] % 2 == 0 && seq % 2 == 0 &&
+            reinterpret_cast<uintptr_t>(bias) % (2 * sizeof(float)) == 0;
+  return gd;
+}
+
 // The gated operands from 20 element strides (q, k, v, out (batch, head,
 // token), bias (head, query, key), gate (batch, head, token), pad (batch,
 // token)); fills the FwdStrides of the rest.
 Gated gated_operands(const void* bias, const void* gate, int seq, const long long* strides, FwdStrides* s) {
   memcpy(s->q, strides, 12 * sizeof(long long));
   memcpy(s->pad, strides + 18, 2 * sizeof(long long));
-  Gated gd;
-  gd.bias = static_cast<const float*>(bias);
-  gd.gate = static_cast<const float*>(gate);
-  memcpy(gd.bs, strides + 12, 3 * sizeof(long long));
-  memcpy(gd.gs, strides + 15, 3 * sizeof(long long));
-  gd.vec2 = gd.bs[2] == 1 && gd.bs[0] % 2 == 0 && gd.bs[1] % 2 == 0 && seq % 2 == 0 &&
-            reinterpret_cast<uintptr_t>(bias) % (2 * sizeof(float)) == 0;
-  return gd;
+  return make_gated(bias, gate, seq, strides + 12, strides + 15);
 }
 
-template <int kWarps, int kM>
+template <int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out, const void* out_rest,
                       const void* dout, const void* pad, const void* lse, void* dq, void* delta, int batch,
-                      int heads, int seq, float scale, const BwdStrides& s, cudaStream_t st) {
+                      int heads, int seq, float scale, const BwdStrides& s, cudaStream_t st,
+                      const Gated& gd = Gated(), void* dgate = nullptr) {
   using S = Shape<kWarps, kM>;
-  cudaError_t err = allow_smem(dq_kernel<kWarps, kM>, S::kDqSmem);
+  cudaError_t err = allow_smem(dq_kernel<kWarps, kM, kGated>, S::kDqSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  dq_kernel<kWarps, kM><<<grid, S::kThreads, S::kDqSmem, st>>>(
+  dq_kernel<kWarps, kM, kGated><<<grid, S::kThreads, S::kDqSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const bf16*>(out_rest), static_cast<const bf16*>(dout),
       static_cast<const uint8_t*>(pad), static_cast<const float*>(lse), static_cast<bf16*>(dq),
-      static_cast<float*>(delta), heads, seq, scale, s);
+      static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, scale, s, gd);
   return cudaGetLastError();
 }
 
-template <int kWarps, int kM>
+template <int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                        const void* lse, const void* delta, void* dk, void* dv, int batch, int heads, int seq,
-                       float scale, const BwdStrides& s, cudaStream_t st) {
+                       float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd = Gated()) {
   using S = Shape<kWarps, kM>;
-  cudaError_t err = allow_smem(dkv_kernel<kWarps, kM>, S::kDkvSmem);
+  cudaError_t err = allow_smem(dkv_kernel<kWarps, kM, kGated>, S::kDkvSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  dkv_kernel<kWarps, kM><<<grid, S::kThreads, S::kDkvSmem, st>>>(
+  dkv_kernel<kWarps, kM, kGated><<<grid, S::kThreads, S::kDkvSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s);
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s, gd);
+  return cudaGetLastError();
+}
+
+// dbias over the batch in chunks of `items` items, one partial a chunk in
+// `part` (float32 [chunks, H, T, T]; unused, may be null, with one chunk),
+// summed in chunk order.
+template <int kWarps, int kM>
+cudaError_t launch_dbias(const void* q, const void* k, const void* v, const void* dout, const void* pad,
+                         const void* lse, const void* delta, void* dbias, void* part, int batch, int items, int heads,
+                         int seq, float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd) {
+  using S = Shape<kWarps, kM>;
+  cudaError_t err = allow_smem(dbias_kernel<kWarps, kM>, S::kDbiasSmem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (batch + items - 1) / items;
+  const dim3 grid((seq + S::kOwn - 1) / S::kOwn, (seq + kRows - 1) / kRows, heads * chunks);
+  dbias_kernel<kWarps, kM><<<grid, S::kThreads, S::kDbiasSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(chunks > 1 ? part : dbias), batch, items, heads, seq,
+      scale, s, gd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const long long n = (long long)heads * seq * seq;
+  sum_chunks_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), n, chunks);
   return cudaGetLastError();
 }
 
@@ -938,23 +1206,26 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 constexpr int kFwdWarps = 4, kFwdM = 1, kFwdN = 64;
 constexpr int kDqWarps = 4, kDqM = 1;
 constexpr int kDkvWarps = 4, kDkvM = 1;
+constexpr int kDbiasWarps = 4, kDbiasM = 1;
 
 }  // namespace
 
 // The gated forward (K1, K2): bf16 q, k, v and out; bias fp32 [H, T, T] and
 // gate fp32 [B, H, T] (may be null: a gate of 1), any strides; pad one byte
-// per key (nonzero = padded), may be null. strides: 20 element strides, q, k,
-// v and out (batch, head, token), bias (head, query, key), gate (batch, head,
-// token), then pad (batch, token). Returns a cudaError_t; 0 means the kernel
-// was launched.
+// per key (nonzero = padded), may be null. The residuals of a backward, each
+// written when not null, as the bias-free forward's below. strides: 20
+// element strides, q, k, v and out (batch, head, token), bias (head, query,
+// key), gate (batch, head, token), then pad (batch, token). Returns a
+// cudaError_t; 0 means the kernel was launched.
 extern "C" int avex_tensor_core_gated_attention_forward(const void* q, const void* k, const void* v,
                                                         const void* bias, const void* gate, const void* pad,
-                                                        void* out, int batch, int heads, int seq, int head_dim,
-                                                        float scale, const long long* strides, void* stream) {
+                                                        void* out, void* out_rest, void* lse, int batch,
+                                                        int heads, int seq, int head_dim, float scale,
+                                                        const long long* strides, void* stream) {
   if (bad_shape(batch, heads, seq, head_dim) || bias == nullptr) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   const Gated gd = gated_operands(bias, gate, seq, strides, &s);
-  return (int)launch_forward<kFwdWarps, kFwdM, kFwdN, true>(q, k, v, pad, out, nullptr, nullptr, batch, heads, seq,
+  return (int)launch_forward<kFwdWarps, kFwdM, kFwdN, true>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
                                                             scale, s, static_cast<cudaStream_t>(stream), gd);
 }
 
@@ -976,25 +1247,49 @@ extern "C" int avex_bias_free_attention_forward(const void* q, const void* k, co
                                                static_cast<cudaStream_t>(stream));
 }
 
-// The backward from the forward's residuals: bf16 q, k, v, out (the forward's
-// output), out_rest (may be null) and dout; lse as the forward wrote them; pad
-// as the forward's. Writes bf16 dq, dk and dv, and Δ = rowsum(dout ∘ (out +
-// out_rest)) into delta (float32 scratch, contiguous [B, H, T]). strides: 26
-// element strides, q, k, v, out (out_rest shares them), dout, dq, dk and dv
-// (batch, head, token) then pad (batch, token). Returns a cudaError_t; 0
-// means both kernels were launched.
-extern "C" int avex_bias_free_attention_backward(const void* q, const void* k, const void* v, const void* out,
-                                                 const void* out_rest, const void* dout, const void* pad,
-                                                 const void* lse, void* dq, void* dk, void* dv, void* delta,
-                                                 int batch, int heads, int seq, int head_dim, float scale,
-                                                 const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, seq, head_dim) || lse == nullptr) return (int)cudaErrorInvalidValue;
+// The backward from the forward's residuals, bias-free (K6, bias null) or
+// gated (K3): bf16 q, k, v, out (the forward's output), out_rest (may be
+// null) and dout; lse as the forward wrote them; bias, gate (may be null)
+// and pad as the forward's. Writes bf16 dq, dk and dv, and Δ = rowsum(dout ∘
+// (out + out_rest)) into delta (float32 scratch, contiguous [B, H, T]); the
+// gated backward also writes dbias (float32 [H, T, T], contiguous) and, with
+// a gate, dgate (float32 [B, H, T], contiguous). It sums dbias over chunks of
+// items_per_chunk batch items in parallel, then the chunks in order, through
+// dbias_part (float32 scratch [ceil(B / items_per_chunk), H, T, T]; may be
+// null when that is one chunk). strides: 32 element strides, q, k, v, out
+// (out_rest shares them), dout, dq, dk and dv (batch, head, token), pad
+// (batch, token), then bias (head, query, key) and gate (batch, head, token).
+// Returns a cudaError_t; 0 means every kernel was launched.
+extern "C" int avex_tensor_core_attention_backward(const void* q, const void* k, const void* v, const void* out,
+                                                   const void* out_rest, const void* dout, const void* bias,
+                                                   const void* gate, const void* pad, const void* lse, void* dq,
+                                                   void* dk, void* dv, void* delta, void* dbias, void* dgate,
+                                                   void* dbias_part, int items_per_chunk, int batch, int heads,
+                                                   int seq, int head_dim, float scale, const long long* strides,
+                                                   void* stream) {
+  if (bad_shape(batch, heads, seq, head_dim) || lse == nullptr || (bias != nullptr && dbias == nullptr) ||
+      (gate != nullptr && (bias == nullptr || dgate == nullptr)) || items_per_chunk <= 0 ||
+      (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
+      (long long)heads * ((batch + items_per_chunk - 1) / items_per_chunk) > 65535)
+    return (int)cudaErrorInvalidValue;
   BwdStrides s;
   memcpy(&s, strides, sizeof(BwdStrides));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_dq<kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads,
-                                               seq, scale, s, st);
+  cudaError_t err;
+  if (bias == nullptr) {
+    err = launch_dq<kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq, scale,
+                                     s, st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_dkv<kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
+                                              st);
+  }
+  const Gated gd = make_gated(bias, gate, seq, strides + 26, strides + 29);
+  err = launch_dq<kDqWarps, kDqM, true>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq,
+                                        scale, s, st, gd, dgate);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_dkv<kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
-                                            st);
+  err = launch_dkv<kDkvWarps, kDkvM, true>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
+                                           st, gd);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dbias<kDbiasWarps, kDbiasM>(q, k, v, dout, pad, lse, delta, dbias, dbias_part, batch,
+                                                  items_per_chunk, heads, seq, scale, s, st, gd);
 }

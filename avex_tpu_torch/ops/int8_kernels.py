@@ -7,13 +7,16 @@ Port of ``avex_tpu/ops/pallas_int8.py``:
   quantized to int8 with its own scale ``max(|x|, 1e-8) / 127`` (fp32, round
   half to even, clip ±127), contracted against an int8 weight with int32
   sums, and rescaled by ``row_scale * col_scale`` (plus an fp32 bias) into
-  the output type;
+  the output type. On CUDA that is two kernels: the row quantization, once
+  per row, into scratch (``xq``, ``row_scale``), then the scaled product on
+  ``wgmma``;
 - :func:`int8_matmul` replaces ``_mm_kernel`` (K8, ``pallas_int8.py:46``,
   launched at ``:79``): the exact ``s8[M, K] × s8[K, N] → s32[M, N]``.
 
-Both launch the one kernel body in ``csrc/int8_dense.cu``. The weight of
+Both live in ``csrc/int8_dense.cu``. The weight of
 :func:`int8_dynamic_dense` is in torch's Linear layout ``[N, K]`` (the
-JAX kernel takes ``[K, N]``); :func:`int8_matmul` keeps JAX's ``[K, N]``.
+JAX kernel takes ``[K, N]``), K-major as 8-bit ``wgmma`` takes it;
+:func:`int8_matmul` keeps JAX's ``[K, N]`` and ``mma.sync``.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``); a CUDA
 tensor launches the kernel or raises. Each launch adds one to
@@ -40,6 +43,7 @@ __all__ = [
     "int8_matmul_reference",
     "quantize_rows",
     "reset_launch_counts",
+    "scaled_product_reference",
 ]
 
 SOURCE = "int8_dense.cu"
@@ -68,11 +72,13 @@ def _count(name: str) -> None:
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    if lib.avex_int8_dynamic_dense.argtypes is None:
+    if lib.avex_int8_scaled_product.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.avex_int8_dynamic_dense.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
+        lib.avex_int8_quantize_rows.argtypes = [i, p, p, p, i, i, p]
+        lib.avex_int8_scaled_product.argtypes = [i, p, p, p, p, p, p, i, i, i, p]
         lib.avex_int8_matmul.argtypes = [p, p, p, i, i, i, p]
-        lib.avex_int8_dynamic_dense.restype = i
+        lib.avex_int8_quantize_rows.restype = i
+        lib.avex_int8_scaled_product.restype = i
         lib.avex_int8_matmul.restype = i
     return lib
 
@@ -105,6 +111,25 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     amax = xf.abs().amax(dim=-1, keepdim=True)
     row_scale = amax.clamp_min(EPS) / torch.full_like(amax, 127.0)
     return torch.round(xf / row_scale).clamp(-127, 127), row_scale
+
+
+def scaled_product_reference(
+    xq: torch.Tensor,
+    row_scale: torch.Tensor,
+    weight_q: torch.Tensor,
+    weight_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Twin of K7's second kernel: ``xq`` int8 ``[M, K]`` and ``row_scale``
+    float32 ``[M]`` (the row quantization's output) against ``weight_q``
+    int8 ``[N, K]``, exact int32 sums, then ``(float)acc * (row_scale *
+    weight_scale)`` (+ bias) in fp32, cast to ``out_dtype``."""
+    acc = _int_product(xq, weight_q.t())
+    out = acc.float() * (row_scale[:, None] * weight_scale.float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
 
 
 def int8_dynamic_dense_reference(
@@ -155,6 +180,37 @@ def _inference_only(name: str, x: torch.Tensor) -> None:
         raise NotImplementedError(f"{name} is inference-only on CUDA: the int8 path has no backward")
 
 
+def _quantize_rows_kernel(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's first kernel on a CUDA ``[M, K]`` x: ``(xq int8 [M, K], row_scale
+    float32 [M])``, the levels and scales of :func:`quantize_rows`."""
+    m, k = x2.shape
+    xq = torch.empty(m, k, dtype=torch.int8, device=x2.device)
+    row_scale = torch.empty(m, dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = _library().avex_int8_quantize_rows(_DTYPE_CODES[x2.dtype], x2.data_ptr(), xq.data_ptr(),
+                                                 row_scale.data_ptr(), m, k, stream)
+    if err != 0:
+        raise RuntimeError(f"int8 row quantization launch failed at M={m}, K={k}: CUDA error {err}")
+    return xq, row_scale
+
+
+def _scaled_product_kernel(xq, row_scale, weight_q, weight_scale, bias, out_dtype) -> torch.Tensor:
+    """K7's second kernel: ``(xq · weight_qᵀ) * (row_scale * weight_scale)
+    (+ bias)`` on ``wgmma``, ``[M, N]`` in ``out_dtype``."""
+    (m, k), n = xq.shape, weight_q.shape[0]
+    out = torch.empty(m, n, dtype=out_dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = _library().avex_int8_scaled_product(
+            _DTYPE_CODES[out_dtype], xq.data_ptr(), row_scale.data_ptr(), weight_q.data_ptr(),
+            weight_scale.data_ptr(), bias.data_ptr() if bias is not None else None, out.data_ptr(), m, n, k, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"int8 scaled product launch failed at M={m}, N={n}, K={k}: CUDA error {err}")
+    return out
+
+
 def int8_dynamic_dense(
     x: torch.Tensor,
     weight_q: torch.Tensor,
@@ -162,7 +218,7 @@ def int8_dynamic_dense(
     bias: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """W8A8 dense with in-kernel dynamic activation quantization (K7).
+    """W8A8 dense with dynamic activation quantization (K7).
 
     Args:
         x: ``[..., K]`` float32 or bfloat16; K a multiple of 32 on CUDA.
@@ -172,8 +228,8 @@ def int8_dynamic_dense(
         out_dtype: float32 or bfloat16; default x's type.
 
     Returns ``[..., N]`` in ``out_dtype``. On the CPU the plain twin runs; on
-    CUDA the kernel does, inference-only, and its fp32 output equals the
-    twin's bit for bit.
+    CUDA the two kernels do (the row quantization, then the scaled product),
+    inference-only, and the output equals the twin's bit for bit.
     """
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -191,16 +247,8 @@ def int8_dynamic_dense(
     _check_operand("weight_scale", weight_scale, torch.float32, (n,), x.device)
     if bias is not None:
         _check_operand("bias", bias, torch.float32, (n,), x.device)
-    out = torch.empty(m, n, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().avex_int8_dynamic_dense(
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], x2.data_ptr(), weight_q.data_ptr(),
-            weight_scale.data_ptr(), bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, n, k, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"int8_dynamic_dense launch failed at M={m}, N={n}, K={k}: CUDA error {err}")
+    xq, row_scale = _quantize_rows_kernel(x2)
+    out = _scaled_product_kernel(xq, row_scale, weight_q, weight_scale, bias, out_dtype)
     _count("int8_dynamic_dense")
     return out.view(*lead, n)
 

@@ -21,10 +21,12 @@ Phases, each printing its results on lines of its own:
 4. int8 kernels: K7 (``int8_dynamic_dense``) against its twin at BEATs'
    three (K, N) pairs, at M = 31,744 (B=128) and 248 (one clip), with x in
    bf16 and fp32, with and without the bias (fp32 and bf16 within 1 ulp,
-   target 0); K8 (``int8_matmul``) exactly equal to its twin at
-   ``scripts/bench_int8_matmul.py``'s shape. Times the kernel, the twin and a
-   yardstick (bf16 ``F.linear``, what the float model runs, for K7;
-   ``torch._int_mm`` for K8);
+   target 0), and each of its two kernels (the row quantization, the scaled
+   wgmma product) exactly equal to its own twin; K8 (``int8_matmul``) exactly
+   equal to its twin at ``scripts/bench_int8_matmul.py``'s shape. Times the
+   kernel (K7: and each of its two kernels), the twin and a yardstick (bf16
+   ``F.linear``, what the float model runs, for K7; ``torch._int_mm`` for
+   K8);
 5. BEATs main path: full-width BEATs (12 layers, 768-d) through
    ``load_model`` with seeded random weights and ``use_pallas=True``,
    ``extract_embeddings`` over all 13 layers with mean pooling on batches of
@@ -45,10 +47,14 @@ Phases, each printing its results on lines of its own:
    8 kHz ones among them) and two requests go over HTTP (.npy, WAV). Every
    row is held to its clip extracted alone; prints requests/s and p50/p99
    latency per model;
-10. backward kernels: K3 (the gated backward) against its backward twin at
+10. backward kernels: K3 (the gated backward) against its backward twins at
    BEATs' training shape (B=64, T=248), in bf16 and fp32, with and without
-   the gate and with a key-padding mask; K6 (the bias-free backward) at EAT's
-   (T=513, with and without a mask) and AVES's (T=249, frame mask). Times the
+   the gate and with a key-padding mask (bf16 also with one item's keys all
+   padded, and at T=800, B=2, past the fp32 body's T <= 512): bf16 on the
+   tensor cores from K2's residuals, held to the twin of that contract
+   (dqkv, dbias and dgate) and to the twin that recomputes the softmax; K6
+   (the bias-free backward) at EAT's (T=513, with and without a mask) and
+   AVES's (T=249, frame mask). Times the
    kernel, the twin and a yardstick the port never calls (the backward of
    ``scaled_dot_product_attention``: forward+backward minus forward), and
    prints K6's TFLOP/s and, beside its device time, its time with the host's
@@ -69,9 +75,9 @@ Phases, each printing its results on lines of its own:
    masked K6 12 launches per step); one generator seed gives one loss, two
    seeds two. For BEATs, EAT and AVES one bf16 step of the kernel path and
    one of the plain path are also held to the fp32 plain path's gradients:
-   the kernel path (BEATs: the bf16 K2 on the tensor cores with K3; EAT and
-   AVES: K5 with the bf16 K6) may be no farther from them than 1.25x the
-   plain path.
+   the kernel path (BEATs: the bf16 K2 with K3, both on the tensor cores;
+   EAT and AVES: K5 with the bf16 K6) may be no farther from them than 1.25x
+   the plain path.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -156,6 +162,7 @@ PATH_REL = 1e-3
 # relative L2); dbias sums 64 items and dgate 248 keys in another order than
 # the twin, so both are held by relative L2 in fp32 too.
 FP32_SUM_REL = 1e-5
+T_LONG = 800  # a gated backward past the fp32 body's T <= 512
 # Training: B=64 clips (5 s for BEATs, 10 s for EAT), 1 untimed step, then
 # timed steps on the same batch; a 50-class head.
 B_TRAIN = 64
@@ -163,7 +170,7 @@ TRAIN_STEPS = 10
 N_CLASSES = 50
 B_GRAD_CHECK = 8  # the fp32 kernel-vs-plain gradient check (the plain path holds [B, H, T, T])
 TPU_BF16_FP32_REL = 3.8e-3  # JAX package on a TPU v5e (BENCH_r05.json): a reference point only
-# bf16 training: the kernel path's gradients (the bf16 K6 on the tensor cores)
+# bf16 training: the kernel path's gradients (the bf16 K3 or K6 on the tensor cores)
 # against the fp32 plain path's may be at most this factor farther than the
 # bf16 plain path's: both round the same activations to bf16.
 BF16_GRAD_FACTOR = 1.25
@@ -318,7 +325,7 @@ def phase_kernels():
                     lambda: F.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, attn_mask=attn_mask, scale=D**-0.5)
                 )
                 bound, bound_by = attention_bound_ms(name, gated=True, padded=False)
-                body = "tensor cores" if ak.tensor_cores(dtype, gated=True) else "FMA"
+                body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
                 print(
                     f"time {kname} {name} (gate, no mask, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * T * T * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -391,7 +398,7 @@ def phase_bias_free_kernels():
                 keep = None if timed_mask is None else ~timed_mask[:, None, None, :]  # SDPA: True = attend
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(*views, attn_mask=keep, scale=D**-0.5))
                 bound, bound_by = attention_bound_ms(name, gated=False, padded=timed_mask is not None, seq=seq)
-                body = "tensor cores" if ak.tensor_cores(dtype, gated=False) else "FMA"
+                body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
                 print(
                     f"time {kname} {shape} T={seq} {name} (mask={timed_mask is not None}, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -434,24 +441,53 @@ def phase_backward_kernels():
     results = {}
 
     def check_grads(label, dtype, got, want):
+        """NaN exactly where the twin has NaN; elsewhere finite and within
+        the bound (fp32 max|d|, bf16 relative L2)."""
         names = ("dqkv", "dbias", "dgate")
         worst = 0.0
         for name, g, w in zip(names, got, want):
             if w is None:
                 check(g is None, f"{label}: no {name} without its input")
                 continue
-            err = float((g.float() - w.float()).abs().max())
+            nan = torch.isnan(w)
+            check(g.shape == w.shape and g.dtype == w.dtype and torch.equal(torch.isnan(g), nan)
+                  and bool(torch.isfinite(g[~nan]).all()),
+                  f"{label}: {name} {tuple(g.shape)} {g.dtype}, NaN on exactly the twin's {int(nan.sum())}")
+            if nan.all():
+                continue
+            g, w = g[~nan].float(), w[~nan].float()
+            err = float((g - w).abs().max())
             rel = rel_l2(g, w)
-            check(bool(torch.isfinite(g).all()) and g.shape == w.shape and g.dtype == w.dtype,
-                  f"{label}: {name} finite, {tuple(g.shape)} {g.dtype}")
-            if name != "dqkv":
-                check(rel <= (FP32_SUM_REL if dtype == torch.float32 else BF16_REL_L2),
-                      f"{label}: {name} rel L2={rel:.3e} (max|d| {err:.3e})")
+            if name != "dqkv" and dtype == torch.float32:
+                check(rel <= FP32_SUM_REL, f"{label}: {name} rel L2={rel:.3e} (max|d| {err:.3e})")
             elif dtype == torch.float32:
                 check(err <= FP32_ATOL, f"{label}: dqkv max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
             else:
-                check(rel <= BF16_REL_L2, f"{label}: dqkv rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+                check(rel <= BF16_REL_L2, f"{label}: {name} rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
             worst = max(worst, err if name == "dqkv" else 0.0)
+        return worst
+
+    def gated_case(dtype, bsz, seq, g, m, qkv, bias, dout):
+        """One gated backward: the kernel against its twins. bf16 (tensor
+        cores, from K2's residuals): every output against the twin of its
+        contract on those residuals, and against the twin that recomputes
+        the softmax; fp32 (FMA body): against the latter."""
+        name = str(dtype).split(".")[1]
+        inputs = (qkv, bias) if g is None else (qkv, bias, g)
+        out = ak.fused_qkv_gated_attention(qkv, H, bias, g, m)
+        *_, saved_out, rest, lse = out.grad_fn.saved_tensors  # K2's residuals (None in fp32)
+        got = (*torch.autograd.grad(out, inputs, dout), None)[:3]
+        gd = None if g is None else g.detach()
+        plain = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(), gd, m, dout)
+        torch.cuda.synchronize()
+        padded = "none" if m is None else ("an item all padded" if bool(m.all(dim=1).any()) else "some keys")
+        label = f"fused_qkv_gated_attention_backward B={bsz} T={seq} {name} gate={g is not None} mask={padded}"
+        if dtype == torch.float32:
+            return check_grads(label, dtype, got, plain)
+        own = ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), saved_out, lse, m, dout,
+                                                             out_rest=rest, pos_bias=bias.detach(), gate=gd)
+        worst = check_grads(label + " vs its residual twin", dtype, got, own)
+        check_grads(label + " vs the softmax twin", dtype, got, plain)
         return worst
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -462,16 +498,15 @@ def phase_backward_kernels():
         dout = torch.randn(B_TRAIN, T, E, device="cuda", generator=gen).to(dtype)
         mask = torch.zeros(B_TRAIN, T, dtype=torch.bool, device="cuda")
         mask[1::3, 200:] = True
+        masks = (None, mask)
+        if dtype == torch.bfloat16:
+            all_padded = mask.clone()
+            all_padded[0] = True
+            masks = (None, mask, all_padded)
         worst = 0.0
         for g in (gate, None):
-            for m in (None, mask):
-                inputs = (qkv, bias) if g is None else (qkv, bias, g)
-                got = torch.autograd.grad(ak.fused_qkv_gated_attention(qkv, H, bias, g, m), inputs, dout)
-                want = ak.fused_qkv_gated_backward_reference(
-                    qkv.detach(), H, bias.detach(), None if g is None else g.detach(), m, dout)
-                torch.cuda.synchronize()
-                label = f"fused_qkv_gated_attention_backward T={T} {name} gate={g is not None} mask={m is not None}"
-                worst = max(worst, check_grads(label, dtype, (*got, None)[:3], want))
+            for m in masks:
+                worst = max(worst, gated_case(dtype, B_TRAIN, T, g, m, qkv, bias, dout))
         out = ak.fused_qkv_gated_attention(qkv, H, bias, gate)
         ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
         plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
@@ -481,13 +516,23 @@ def phase_backward_kernels():
         gated_bias = (gate.detach()[..., None] * bias.detach()[None]).to(dtype).requires_grad_()
         library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
         bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False)
-        print(f"time fused_qkv_gated_attention_backward B={B_TRAIN} T={T} {name} (gate, no mask): kernel {ms:.4f} ms, "
+        body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+        print(f"time fused_qkv_gated_attention_backward B={B_TRAIN} T={T} {name} (gate, no mask, {body}): "
+              f"kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * T * T * D, ms):.1f} TFLOP/s), "
               f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
               f"({bound / ms:.1%} of bound)")
         results[("fused_qkv_gated_attention_backward", name)] = dict(
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
-        del qkv, bias, gate, dout, mask, out, q, k, v, gated_bias
+        del qkv, bias, gate, dout, mask, masks, out, q, k, v, gated_bias
         torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            # Past the fp32 body's T <= 512: the tensor-core K3 takes any T.
+            qkv = torch.randn(2, T_LONG, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
+            bias = torch.randn(H, T_LONG, T_LONG, device="cuda", generator=gen).requires_grad_()
+            gate = (torch.rand(2, H, T_LONG, device="cuda", generator=gen) + 1.0).requires_grad_()
+            dout = torch.randn(2, T_LONG, E, device="cuda", generator=gen).to(dtype)
+            gated_case(dtype, 2, T_LONG, gate, None, qkv, bias, dout)
+            del qkv, bias, gate, dout
 
         for shape, seq in (("EAT", T_EAT), ("AVES", T_AVES)):
             qkv = torch.randn(B_TRAIN, seq, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
@@ -518,7 +563,7 @@ def phase_backward_kernels():
             keep = None if mask is None else ~mask[:, None, None, :]  # SDPA: True = attend
             library_ms = sdpa_backward_ms(q, k, v, keep, dout)
             bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None)
-            body = "tensor cores" if ak.tensor_cores(dtype, gated=False) else "FMA"
+            body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
             print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}, "
                   f"{body}): kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * seq * seq * D, ms):.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
@@ -1095,7 +1140,17 @@ def phase_int8_kernels():
                     dname = str(dtype).split(".")[1]
                     x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
                     x[m // 3] = 0.0  # an all-zero row: the 1e-8 scale guard
+                    # K7's two kernels, each against its own twin, exactly
+                    xq, row_scale = ik._quantize_rows_kernel(x)
+                    levels, want_scale = ik.quantize_rows(x)
+                    torch.cuda.synchronize()
+                    check(torch.equal(xq, levels.to(torch.int8)) and torch.equal(row_scale, want_scale[:, 0]),
+                          f"int8 row quantization {name} M={m} {dname}: levels and scales exactly the twin's")
                     for b in (None, bias):
+                        product = ik._scaled_product_kernel(xq, row_scale, wq, scale, b, dtype)
+                        torch.cuda.synchronize()
+                        check(torch.equal(product, ik.scaled_product_reference(xq, row_scale, wq, scale, b, dtype)),
+                              f"int8 scaled product {name} M={m} {dname} bias={b is not None}: exactly the twin's")
                         got = ik.int8_dynamic_dense(x, wq, scale, b)
                         want = ik.int8_dynamic_dense_reference(x, wq, scale, b)
                         torch.cuda.synchronize()
@@ -1115,13 +1170,18 @@ def phase_int8_kernels():
                             plain_ms=median_ms(lambda: ik.int8_dynamic_dense_reference(x, wq, scale, bias)),
                             library_ms=median_ms(lambda: F.linear(x, w16, b16)),
                             bound_ms=bound, bound_by=bound_by,
+                            quantize_ms=median_ms(lambda: ik._quantize_rows_kernel(x)),
+                            product_ms=median_ms(lambda: ik._scaled_product_kernel(xq, row_scale, wq, scale, bias,
+                                                                                   dtype)),
                         )
                         t = timed[(name, m)]
                         print(f"time int8_dynamic_dense {name} (K={k}, N={n}) M={m} bf16: kernel {t['ms']:.4f} ms "
-                              f"({2 * m * k * n / t['ms'] / 1e9:.1f} TOP/s), plain {t['plain_ms']:.4f} ms, "
+                              f"({2 * m * k * n / t['ms'] / 1e9:.1f} TOP/s; row quantization {t['quantize_ms']:.4f} ms, "
+                              f"wgmma product {t['product_ms']:.4f} ms, "
+                              f"{2 * m * k * n / t['product_ms'] / 1e9:.1f} TOP/s), plain {t['plain_ms']:.4f} ms, "
                               f"bf16 F.linear {t['library_ms']:.4f} ms, bound {bound:.4f} ms by {bound_by} "
                               f"({bound / t['ms']:.1%} of bound)")
-                    del x
+                    del x, xq, row_scale, levels, want_scale, product
             del weight, wq, scale, bias
         # the 72 launches of one B=128 forward, and the bf16 gemms they replace
         forward_ms, library_forward = (
@@ -1155,8 +1215,11 @@ def phase_int8_kernels():
     torch.cuda.empty_cache()
     k8_launches = read_counts()["int8_matmul"]
     print(f"int8_matmul (K8) launched {k8_launches} times in this phase")
-    k7 = dict(timed[("fc1", M_FULL)], max_abs_err=max(worst.values()))
+    k7 = {key: timed[("fc1", M_FULL)][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    k7["max_abs_err"] = max(worst.values())
     print(json.dumps({"int8_dense_ms": {f"{name} M={m}": t["ms"] for (name, m), t in timed.items()},
+                      "int8_quantize_ms": {f"{name} M={m}": t["quantize_ms"] for (name, m), t in timed.items()},
+                      "int8_product_ms": {f"{name} M={m}": t["product_ms"] for (name, m), t in timed.items()},
                       "bf16_linear_ms": {f"{name} M={m}": t["library_ms"] for (name, m), t in timed.items()},
                       "k7_forward_ms": forward_ms, "bf16_linear_forward_ms": library_forward,
                       "k7_max_abs_err": worst}))
@@ -1475,7 +1538,6 @@ def main() -> int:
     launches["plain_attention"] = launches["int8_matmul"] = 0
     kernel_phase = {"plain_attention": k4_launches, "int8_matmul": k8_launches}
 
-    attention = "avex_tpu_torch/ops/csrc/gated_attention.cu"
     tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16; fp32 stays on gated_attention.cu
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
@@ -1490,7 +1552,7 @@ def main() -> int:
          plain_timings[("fused_qkv_attention", "EAT", "bfloat16")]),
         ("int8_dynamic_dense", int8, "avex_tpu/ops/pallas_int8.py:100", k7),
         ("int8_matmul", int8, "avex_tpu/ops/pallas_int8.py:46", k8),
-        ("fused_qkv_gated_attention_backward", attention, "avex_tpu/ops/pallas_attention.py:765",
+        ("fused_qkv_gated_attention_backward", tensor_core, "avex_tpu/ops/pallas_attention.py:765",
          backward_timings[("fused_qkv_gated_attention_backward", "bfloat16")]),
         ("fused_qkv_attention_backward", tensor_core, "avex_tpu/ops/pallas_attention.py:524",
          backward_timings[("fused_qkv_attention_backward", "EAT", "bfloat16")]),
@@ -1505,6 +1567,8 @@ def main() -> int:
         })
         if source == tensor_core:
             kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)", "fp32": "FMA"}
+        elif kname == "int8_dynamic_dense":
+            kernels[-1]["body"] = "row quantization, then wgmma on TMA-fed tiles"
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

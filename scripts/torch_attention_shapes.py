@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Block shapes of the bf16 tensor-core attention kernels, timed on one GPU.
 
-    python3 scripts/torch_attention_shapes.py [gated] [forward] [backward]
+    python3 scripts/torch_attention_shapes.py [gated] [forward] [backward] [dbias]
 
 The kernels of ``avex_tpu_torch/ops/csrc/tensor_core_attention.cu`` are
 templates over the block's shape: warps per block, groups of 16 rows per
@@ -10,9 +10,11 @@ shape each. This script compiles the same source with extra entry points
 that launch any of the shapes below, holds each against the plain twin and
 times it (median of 30 launches, CUDA events, around the launch alone): the gated forward (K1/K2) at BEATs' shape (B=128, T=248, with the
 gate), the bias-free forward at EAT's (B=128, T=513) and AVES's (B=128,
-T=249, a third of the clips padded), and the backward at their training
-shapes (B=64). With no argument it runs all three groups. Needs CUDA and
-``nvcc``; imports nothing of JAX. The build goes to ``build/shapes/``.
+T=249, a third of the clips padded), the backward at their training
+shapes (B=64), and the gated backward's dbias kernel at BEATs' training
+shape (B=64, T=248, with the gate; held to the dbias of the whole K3). With
+no argument it runs all four groups. Needs CUDA and ``nvcc``; imports
+nothing of JAX. The build goes to ``build/shapes/``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ FORWARD_SHAPES = ["4, 1, 64", "4, 1, 128", "8, 1, 64", "8, 1, 128", "4, 2, 64"]
 # The gated forward: (warps, groups, keys, gated), the launched one first.
 GATED_SHAPES = [f"{shape}, true" for shape in ("4, 1, 64", "8, 1, 64", "4, 2, 64", "4, 1, 128")]
 BACKWARD_SHAPES = [("4, 1", "4, 1"), ("8, 1", "4, 1"), ("4, 1", "8, 1")]
+# The dbias kernel: (warps, groups), 16·warps·groups queries a block, and batch items a
+# chunk (the chunks' partials summed after), the launched shape first.
+DBIAS_SHAPES = [("4, 1", items) for items in (64, 32, 22, 16, 11, 8)] + [("2, 1", 22), ("8, 1", 22)]
 H, D = 12, 64
 E = H * D
 
@@ -62,6 +67,14 @@ def build():
           f" k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s, st); }}"
           for n, (a, b) in enumerate(BACKWARD_SHAPES)],
         "  return -1; }",
+        'extern "C" int shape_dbias(int shape, const void* q, const void* k, const void* v, const void* dout,'
+        " const void* bias, const void* gate, const void* lse, const void* delta, void* dbias, void* part, int batch,"
+        " int items, int heads, int seq, float scale, const long long* strides, void* stream) {",
+        "  BwdStrides s; memcpy(&s, strides, sizeof(BwdStrides)); cudaStream_t st = (cudaStream_t)stream;"
+        " const Gated gd = make_gated(bias, gate, seq, strides + 26, strides + 29);",
+        *[f"  if (shape == {n}) return (int)launch_dbias<{a}>(q, k, v, dout, nullptr, lse, delta, dbias, part, batch,"
+          f" items, heads, seq, scale, s, st, gd);" for n, (a, _) in enumerate(DBIAS_SHAPES)],
+        "  return -1; }",
     ]
     out_dir = _build.BUILD_DIR / "shapes"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -80,6 +93,7 @@ def build():
     lib.shape_forward.argtypes = [i] + [p] * 5 + [i, i, i, ctypes.c_float, strides, p]
     lib.shape_gated_forward.argtypes = [i] + [p] * 7 + [i, i, i, ctypes.c_float, strides, p]
     lib.shape_backward.argtypes = [i] + [p] * 12 + [i, i, i, ctypes.c_float, strides, p]
+    lib.shape_dbias.argtypes = [i] + [p] * 10 + [i, i, i, i, ctypes.c_float, strides, p]
     return lib
 
 
@@ -125,7 +139,7 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    groups = set(sys.argv[1:]) or {"gated", "forward", "backward"}
+    groups = set(sys.argv[1:]) or {"gated", "forward", "backward", "dbias"}
     lib = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -203,6 +217,32 @@ def main() -> int:
             print(f"backward {label} B={bsz} T={seq} dQ <{shape[0]}> dK/dV <{shape[1]}>: launch {err}, "
                   f"rel L2 {rel_l2(dqkv, want):.3e}, {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
         del qkv, dout, want, out, lse, rest, dqkv
+    if "dbias" in groups:
+        bsz, seq = 64, 248
+        qkv = torch.randn(bsz, seq, 3 * E, device="cuda", generator=gen).bfloat16().requires_grad_()
+        bias = torch.randn(H, seq, seq, device="cuda", generator=gen).requires_grad_()
+        gate = (torch.rand(bsz, seq, H, device="cuda", generator=gen) + 1).permute(0, 2, 1)  # as BEATs hands it
+        dout = torch.randn(bsz, seq, E, device="cuda", generator=gen).bfloat16()
+        out = ak.fused_qkv_gated_attention(qkv, H, bias, gate)
+        *_, saved, rest, lse = out.grad_fn.saved_tensors
+        (want,) = torch.autograd.grad(out, (bias,), dout)  # the whole K3's dbias
+        q, k, v = ak._split_heads(qkv.detach(), H)
+        o, r, do = (t.view(bsz, seq, H, D).permute(0, 2, 1, 3) for t in (saved, rest, dout))
+        delta = (do.float() * (o.float() + r.float())).sum(-1).contiguous()  # Δ as the dQ kernel takes it
+        dbias = torch.empty(H, seq, seq, device="cuda")
+        part = torch.empty(bsz, H, seq, seq, device="cuda")  # room for one chunk an item
+        views = (s for t in (q, k, v, o, do, q, k, v) for s in t.stride()[:3])
+        strides = (ctypes.c_longlong * 32)(*views, 0, 0, *bias.stride(), *gate.stride())
+        for n, (shape, items) in enumerate(DBIAS_SHAPES):
+            def call(n=n, items=items):
+                return lib.shape_dbias(n, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
+                                       gate.data_ptr(), lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
+                                       part.data_ptr(), bsz, items, H, seq, D**-0.5, strides, stream)
+            err = call()
+            torch.cuda.synchronize()
+            ms = median_ms(call)
+            print(f"dbias BEATs B={bsz} T={seq} <{shape}>, {-(-bsz // items)} chunk(s) of {items} items: launch {err}, "
+                  f"rel L2 to K3's dbias {rel_l2(dbias, want):.3e}, {ms:.4f} ms")
     return 0
 
 

@@ -63,7 +63,7 @@ def main() -> int:
             qkv, mask, out, lse, rest = ctx.saved_tensors
             if Emulated.delta == "exact":
                 return ak.fused_qkv_backward_reference(qkv, ctx.heads, mask, dout, ctx.scale), None, None, None
-            dqkv = ak.fused_qkv_backward_from_residuals_reference(
+            dqkv, _, _ = ak.fused_qkv_backward_from_residuals_reference(
                 qkv, out, lse, mask, dout, ctx.scale, out_rest=rest if Emulated.delta == "out+rest" else None)
             return dqkv, None, None, None
 

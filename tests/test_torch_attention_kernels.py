@@ -274,11 +274,8 @@ def test_fused_wrappers_differentiate_through_the_twins_on_cpu(rng):
 
 
 def test_tensor_core_dispatch_by_type():
-    """Every bf16 forward, gated (K1, K2) or not (K4, K5), runs on the tensor
-    cores; fp32 on the FMA body; of the backwards only the bias-free K6 runs
-    on the tensor cores in bf16, the gated K3 stays on the FMA body."""
-    assert ak.tensor_cores(torch.bfloat16, True) and ak.tensor_cores(torch.bfloat16, False)
-    assert not ak.tensor_cores(torch.float32, True) and not ak.tensor_cores(torch.float32, False)
-    assert ak.tensor_cores(torch.bfloat16, False, backward=True)
-    assert not ak.tensor_cores(torch.bfloat16, True, backward=True)
-    assert not ak.tensor_cores(torch.float32, False, backward=True)
+    """Every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6), runs on
+    the tensor cores; every fp32 call on the FMA body; no other type does."""
+    assert ak.tensor_cores(torch.bfloat16)
+    assert not ak.tensor_cores(torch.float32)
+    assert not ak.tensor_cores(torch.float16)

@@ -93,7 +93,7 @@ def test_residual_backward_twin_matches_jax_grad_fp32(rng, seq, padded):
     qkv, cot, mask = _inputs(rng, seq, padded)
     want = _jax_grad(jnp.asarray(qkv), jnp.asarray(cot), mask)
     out, lse, rest = ak._fused_qkv_forward_lse_reference(_t(qkv), H, _t(mask))
-    got = ak.fused_qkv_backward_from_residuals_reference(_t(qkv), out, lse, _t(mask), _t(cot), out_rest=rest)
+    got, _, _ = ak.fused_qkv_backward_from_residuals_reference(_t(qkv), out, lse, _t(mask), _t(cot), out_rest=rest)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -108,8 +108,8 @@ def test_residual_backward_twin_matches_jax_grad_bf16(rng, seq, padded, rounded_
     want = _jax_grad(qkv16, cot16, mask)
     tq, tc = (torch.from_numpy(np.asarray(x, np.float32)).bfloat16() for x in (qkv16, cot16))
     out, lse, rest = ak._fused_qkv_forward_lse_reference(tq, H, _t(mask))
-    got = ak.fused_qkv_backward_from_residuals_reference(tq, out, lse, _t(mask), tc,
-                                                         out_rest=None if rounded_out else rest)
+    got, _, _ = ak.fused_qkv_backward_from_residuals_reference(tq, out, lse, _t(mask), tc,
+                                                               out_rest=None if rounded_out else rest)
     assert out.dtype == rest.dtype == got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     assert _rel(got.float().numpy(), want) <= BF16_REL_L2
 
@@ -120,7 +120,7 @@ def test_residual_backward_twin_matches_backward_twin(rng, seq, padded, dtype):
     qkv, cot, mask = (None if x is None else _t(x) for x in _inputs(rng, seq, padded))
     qkv, cot = qkv.to(dtype), cot.to(dtype)
     out, lse, rest = ak._fused_qkv_forward_lse_reference(qkv, H, mask)
-    got = ak.fused_qkv_backward_from_residuals_reference(qkv, out, lse, mask, cot, out_rest=rest)
+    got, _, _ = ak.fused_qkv_backward_from_residuals_reference(qkv, out, lse, mask, cot, out_rest=rest)
     want = ak.fused_qkv_backward_reference(qkv, H, mask, cot)
     assert got.dtype == want.dtype == dtype
     if dtype == torch.float32:
@@ -138,7 +138,7 @@ def test_residual_twins_give_nan_where_the_softmax_does(rng):
     mask[1, 20:] = True
     out, lse, rest = ak._fused_qkv_forward_lse_reference(_t(qkv), H, _t(mask))
     assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1]).all()
-    got = ak.fused_qkv_backward_from_residuals_reference(_t(qkv), out, lse, _t(mask), _t(cot), out_rest=rest)
+    got, _, _ = ak.fused_qkv_backward_from_residuals_reference(_t(qkv), out, lse, _t(mask), _t(cot), out_rest=rest)
     want = ak.fused_qkv_backward_reference(_t(qkv), H, _t(mask), _t(cot))
     assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want[0]).all()
     torch.testing.assert_close(got[1], want[1], **TOL)

@@ -150,7 +150,7 @@ def test_fused_backward_kernels_match_twins(card, shape, variant, padded, dtype)
 def test_unsupported_inputs_raise(inputs):
     qkv, bias, gate, mask = inputs
     q, k, v = _split(qkv)
-    long = torch.zeros(1, 520, 3 * H * D, device="cuda", requires_grad=True)  # T past K3's 512
+    long = torch.zeros(1, 520, 3 * H * D, device="cuda", requires_grad=True)  # T past the fp32 K3's 512
     out = ak.fused_qkv_gated_attention(long, H, torch.zeros(H, 520, 520, device="cuda"))
     with pytest.raises(ValueError, match="T <= 512"):
         out.sum().backward()
@@ -303,7 +303,7 @@ def test_tensor_core_backward_matches_twins(card, seq, bsz, masking):
     _close_bf16(got, ak.fused_qkv_backward_reference(qkv.detach(), H, mask, dout))
     _, lse, rest = ak._fused_qkv_forward_lse_reference(qkv.detach(), H, mask)
     _close_bf16(got, ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), out.detach(), lse, mask, dout,
-                                                                    out_rest=rest))
+                                                                    out_rest=rest)[0])
 
 
 def test_tensor_core_forward_writes_residuals_only_under_grad(card, monkeypatch):
@@ -395,7 +395,8 @@ def test_tensor_core_gated_forward_matches_twins(card, seq, bsz, masking, gated)
 
 def test_gated_forward_dispatch_by_type(card, monkeypatch):
     """bf16 gated calls load the tensor-core source, fp32 ones the FMA body
-    (within 1e-4 of the twin); the gated backward stays on the FMA body."""
+    (within 1e-4 of the twin); the bf16 gated backward (K3) runs on the
+    tensor cores too."""
     bsz, seq = 2, 65
     qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
     bias = torch.randn(H, seq, seq, generator=card, device="cuda")
@@ -415,4 +416,105 @@ def test_gated_forward_dispatch_by_type(card, monkeypatch):
     sources.clear()
     ak.fused_qkv_gated_attention(leaf, H, bias, gate, mask).sum().backward()
     torch.cuda.synchronize()
-    assert sources == ["_tensor_core_library", "_library"] and leaf.grad is not None
+    assert sources == ["_tensor_core_library", "_tensor_core_library"] and leaf.grad is not None
+
+
+# The bf16 gated backward on the tensor cores (K3 in bf16): the forward's
+# sequences, and past the fp32 body's T <= 512 (800, 1024); with the gate and
+# with a bias alone. dqkv, dbias and dgate against the twin of the kernel's
+# contract on the forward's own residuals (P from the saved LSE, Δ from the
+# output and its rounding rest) and against the twin that recomputes the
+# softmax; NaN exactly where the twins have NaN (item 0 all padded: its rows,
+# and dbias).
+TC_GATED_BACKWARD_SEQS = [1, 31, 65, 248, 250, 513, 800, 1024]
+
+
+def _close_grads(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    if nan.all():
+        return
+    g, w = got.float()[~nan], want.float()[~nan]
+    if float(w.abs().max()) <= 1e-4:  # T = 1: one key's softmax has no gradient, both are rounding
+        assert float(g.abs().max()) <= 1e-4
+    else:
+        assert float((g - w).norm() / w.norm()) < 5e-3
+
+
+@pytest.mark.parametrize("seq", TC_GATED_BACKWARD_SEQS)
+@pytest.mark.parametrize("bsz", [2, 16])
+@pytest.mark.parametrize("masking", TC_MASKS)
+@pytest.mark.parametrize("gated", [True, False], ids=["gate", "bias_only"])
+def test_tensor_core_gated_backward_matches_twins(card, seq, bsz, masking, gated):
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16().requires_grad_()
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda").requires_grad_()
+    gate = ((torch.rand(bsz, seq, H, generator=card, device="cuda") * 2 + 1).permute(0, 2, 1).requires_grad_()
+            if gated else None)
+    dout = torch.randn(bsz, seq, H * D, generator=card, device="cuda").bfloat16()
+    mask = _tc_mask(masking, bsz, seq)
+    ak.reset_launch_counts()
+    out = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
+    *_, saved_out, rest, lse = out.grad_fn.saved_tensors  # K2's residuals
+    got = torch.autograd.grad(out, (qkv, bias, gate) if gated else (qkv, bias), dout)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_gated_attention"] == 1 and ak.LAUNCHES["fused_qkv_gated_attention_backward"] == 1
+    assert sum(ak.LAUNCHES.values()) == 2
+    q32, b32 = qkv.detach(), bias.detach()
+    g32 = gate.detach() if gated else None
+    own = ak.fused_qkv_backward_from_residuals_reference(q32, saved_out, lse, mask, dout, out_rest=rest,
+                                                         pos_bias=b32, gate=g32)
+    plain = ak.fused_qkv_gated_backward_reference(q32, H, b32, g32, mask, dout)
+    for a, b, c in zip(got, own, plain):
+        _close_grads(a, b)
+        _close_grads(a, c)
+
+
+def test_tensor_core_gated_forward_writes_residuals_only_under_grad(card, monkeypatch):
+    """Under grad the bf16 gated forward (K2) writes the LSE (held to the
+    twin's) and the output's rounding rest; with no grad, nothing."""
+    bsz, seq = 2, 65
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16().requires_grad_()
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda")
+    gate = torch.rand(bsz, H, seq, generator=card, device="cuda") + 1
+    mask = _tc_mask("mask", bsz, seq)
+    written = []
+    launch = ak._launch
+    monkeypatch.setattr(ak, "_launch", lambda *args: written.append(args[8]) or launch(*args))
+    out = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
+    *_, rest, lse = out.grad_fn.saved_tensors
+    _, want, _ = ak._fused_qkv_forward_lse_reference(qkv.detach(), H, mask, None, bias, gate)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert rest.shape == out.shape and rest.dtype == torch.bfloat16 and rest.any()
+    with torch.no_grad():
+        ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
+    assert written[0] is not None and written[1:] == [None]
+
+
+# K7 at the main path's shapes: M = 1, one clip (248) and a B=128 batch
+# (31,744) at BEATs' (K, N) = (768, 3072) and (3072, 768), and a K = 96 tail.
+K7_SHAPES = [(m, k, n) for m in (1, 248, 31_744) for k, n in ((768, 3072), (3072, 768))] + [(248, 96, 768)]
+
+
+@pytest.mark.parametrize("shape", K7_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("use_bias", [False, True], ids=["nobias", "bias"])
+def test_int8_dynamic_dense_steps_match_twins(card, shape, dtype, use_bias):
+    """K7's two kernels: the row quantization equals ``quantize_rows``, the
+    scaled wgmma product equals ``scaled_product_reference`` on those levels,
+    and the whole equals the one-step twin, bit for bit."""
+    m, k, n = shape
+    x = torch.randn(m, k, generator=card, device="cuda").to(dtype)
+    x[m // 2] = 0.0
+    wq, scale = _int8_weight(n, k, card)
+    bias = torch.randn(n, generator=card, device="cuda") if use_bias else None
+    xq, row_scale = ik._quantize_rows_kernel(x)
+    levels, want_scale = ik.quantize_rows(x)
+    assert torch.equal(xq, levels.to(torch.int8)) and torch.equal(row_scale, want_scale[:, 0])
+    product = ik._scaled_product_kernel(xq, row_scale, wq, scale, bias, dtype)
+    assert torch.equal(product, ik.scaled_product_reference(xq, row_scale, wq, scale, bias, dtype))
+    ik.reset_launch_counts()
+    got = ik.int8_dynamic_dense(x, wq, scale, bias)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES == {"int8_dynamic_dense": 1, "int8_matmul": 0}
+    assert torch.equal(got, ik.int8_dynamic_dense_reference(x, wq, scale, bias))

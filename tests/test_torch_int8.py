@@ -118,6 +118,33 @@ def test_dynamic_dense_reference_matches_jax(np_rng, dtype, use_bias, shape):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("use_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("m", [1, 130, 248])
+def test_two_step_order_equals_dynamic_dense_twin(np_rng, dtype, use_bias, m):
+    """K7 on CUDA is two kernels: the row quantization (``quantize_rows``,
+    stored as int8 levels and one fp32 scale a row), then the int32 product
+    and the epilogue (``scaled_product_reference``). Composed, they equal the
+    one-step twin bit for bit, in bf16 and fp32, with and without the bias,
+    at ragged M and with an all-zero row; the twin is held to JAX above."""
+    k, n = 96, 136
+    x = torch.from_numpy(np_rng.standard_normal((m, k)).astype(np.float32)).to(TORCH_DTYPES[dtype])
+    x[m // 2] = 0.0
+    wq = torch.from_numpy(np_rng.integers(-127, 128, (n, k), dtype=np.int8))
+    ws = torch.from_numpy((np_rng.random(n) * 0.01 + 1e-3).astype(np.float32))
+    bias = torch.from_numpy(np_rng.standard_normal(n).astype(np.float32)) if use_bias else None
+    levels, row_scale = ik.quantize_rows(x)
+    xq = levels.to(torch.int8)
+    assert torch.equal(xq.float(), levels) and row_scale.shape == (m, 1)
+    assert not xq[m // 2].any() and float(row_scale[m // 2]) == np.float32(1e-8) / np.float32(127.0)
+    got = ik.scaled_product_reference(xq, row_scale[:, 0], wq, ws, bias, TORCH_DTYPES[dtype])
+    want = ik.int8_dynamic_dense_reference(x, wq, ws, bias)
+    assert got.dtype == want.dtype == TORCH_DTYPES[dtype]
+    assert torch.equal(got, want)
+    if not use_bias:
+        assert not got[m // 2].any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_dynamic_dense_default_output_type_follows_x(np_rng, dtype):
     jx, tx, (wq, ws), (twq, tws), _ = _dynamic_case(np_rng, (16, 64), dtype, False)
     got = ik.int8_dynamic_dense(tx, twq, tws)
