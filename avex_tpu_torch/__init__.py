@@ -4,8 +4,10 @@ A second package beside ``avex_tpu`` (the JAX reference, which it never
 imports). It covers BEATs, EAT and AVES embedding extraction: the registry,
 ``load_model``, layer-wise ``extract_embeddings``, and the attention kernels
 in CUDA C++ (``avex_tpu_torch.ops.attention_kernels``: gated-bias for
-BEATs, bias-free for EAT and AVES). Models run on ``cuda`` unless built with
-``device="cpu"``.
+BEATs, bias-free for EAT and AVES). ``avex_tpu_torch.training`` fine-tunes
+them, ``avex_tpu_torch.probes`` and ``avex_tpu_torch.evaluation`` train probes
+on them and evaluate their embeddings, ``avex_tpu_torch.serving`` serves
+them. Models run on ``cuda`` unless built with ``device="cpu"``.
 """
 
 from avex_tpu_torch.configs import AudioConfig, ModelSpec

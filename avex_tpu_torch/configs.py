@@ -1,8 +1,10 @@
 """Model, audio and training configuration of the port, as dataclasses.
 
 Counterparts of ``avex_tpu.configs.ModelSpec`` and ``AudioConfig`` with the
-fields that the BEATs, EAT and AVES paths read, and of ``TrainingParams``,
-``SchedulerConfig`` and the part of ``RunConfig`` that the trainer reads.
+fields that the BEATs, EAT and AVES paths read, of ``TrainingParams``,
+``SchedulerConfig`` and the part of ``RunConfig`` that the trainer reads, and
+of ``ProbeConfig`` (with the ``PROBE_CONFIGS`` presets) and
+``ClusteringEvalConfig``.
 Unknown fields raise ``TypeError`` as the dataclass constructor does; the
 value checks of the JAX package's pydantic models raise ``ValueError``.
 """
@@ -13,7 +15,16 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
-__all__ = ["AudioConfig", "ModelSpec", "RunConfig", "SchedulerConfig", "TrainingParams"]
+__all__ = [
+    "PROBE_CONFIGS",
+    "AudioConfig",
+    "ClusteringEvalConfig",
+    "ModelSpec",
+    "ProbeConfig",
+    "RunConfig",
+    "SchedulerConfig",
+    "TrainingParams",
+]
 
 _REPRESENTATIONS = ("spectrogram", "mel_spectrogram", "raw")
 _COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -168,10 +179,10 @@ class RunConfig:
     ``loss_function`` takes the reference's aliases (``binary_cross_entropy``
     → ``bce``, ``contrastive`` → ``clip``). ``dataset_config`` is accepted and
     ignored: the trainer takes loaders, and the data pipeline is not ported
-    (ROADMAP queue 1, item 12). ``mesh``, ``augmentations`` and
-    ``clustering_eval`` are accepted and raise ``NotImplementedError`` when
-    they ask for more than one device, an augmentation or a clustering
-    evaluation. ``device`` defaults to ``cuda``.
+    (ROADMAP queue 1, item 12). ``mesh`` and ``augmentations`` are accepted
+    and raise ``NotImplementedError`` when they ask for more than one device
+    or an augmentation. ``clustering_eval`` takes a
+    :class:`ClusteringEvalConfig` or its dict. ``device`` defaults to ``cuda``.
     """
 
     model_spec: Union[ModelSpec, Dict[str, Any]]
@@ -194,7 +205,7 @@ class RunConfig:
     device: str = "cuda"
     seed: int = 42
     scheduler: Union[SchedulerConfig, Dict[str, Any]] = field(default_factory=SchedulerConfig)
-    clustering_eval: Optional[Any] = None
+    clustering_eval: Optional[Union["ClusteringEvalConfig", Dict[str, Any]]] = None
     run_name: Optional[str] = None
 
     def __post_init__(self) -> None:
@@ -226,15 +237,101 @@ class RunConfig:
         if self.augmentations:
             raise NotImplementedError("augmentations belong to the data pipeline, which is not "
                                       "ported (ROADMAP queue 1, item 12)")
-        enabled = (self.clustering_eval.get("enabled", False) if isinstance(self.clustering_eval, Mapping)
-                   else getattr(self.clustering_eval, "enabled", False))
-        if enabled:
-            raise NotImplementedError("clustering evaluation during training is not ported "
-                                      "(ROADMAP queue 1, item 9)")
+        if isinstance(self.clustering_eval, Mapping):
+            self.clustering_eval = ClusteringEvalConfig(**self.clustering_eval)
 
     def replace(self, **changes: Any) -> "RunConfig":
         """A copy with ``changes`` applied (≈ pydantic ``model_copy(update=...)``)."""
         return dataclasses.replace(self, **changes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# Probes and clustering evaluation
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ProbeConfig:
+    """Configuration of a transfer-learning probe head (≈ ``avex_tpu.configs.ProbeConfig``)."""
+
+    probe_type: str = "linear"
+    aggregation: str = "mean"
+    input_processing: str = "flatten"
+    target_layers: List[Union[str, int]] = field(default_factory=lambda: ["last_layer"])
+    freeze_backbone: bool = True
+    # MLP
+    hidden_dims: Optional[List[int]] = None
+    dropout_rate: float = 0.1
+    activation: str = "relu"
+    # attention / transformer
+    num_heads: Optional[int] = None
+    attention_dim: Optional[int] = None
+    num_layers: Optional[int] = None
+    # LSTM
+    lstm_hidden_size: Optional[int] = None
+    bidirectional: bool = False
+    # MoE (routed MLP head over ``ops/moe.py``)
+    num_experts: Optional[int] = None
+    moe_hidden_dim: Optional[int] = None
+    moe_k: Optional[int] = None
+    capacity_factor: Optional[float] = None
+    # sequence handling
+    max_sequence_length: Optional[int] = None
+    use_positional_encoding: bool = False
+    target_length: Optional[int] = None
+    online_training: Optional[bool] = None
+    extra_config: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self) -> None:
+        _one_of("probe_type", self.probe_type, ("linear", "mlp", "lstm", "attention", "transformer", "moe"))
+        _one_of("aggregation", self.aggregation, ("mean", "max", "cls_token", "none"))
+        _one_of("input_processing", self.input_processing, ("flatten", "sequence", "pooled", "none"))
+        _one_of("activation", self.activation, ("relu", "gelu", "tanh", "swish"))
+        if not 0.0 <= self.dropout_rate <= 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1], got {self.dropout_rate!r}")
+        self.target_layers = list(self.target_layers)
+        if any(isinstance(layer, bool) for layer in self.target_layers):
+            raise ValueError("target_layers entries must be str or int, not bool")
+
+    def replace(self, **changes: Any) -> "ProbeConfig":
+        """A copy with ``changes`` applied (≈ pydantic ``model_copy(update=...)``)."""
+        return dataclasses.replace(self, **changes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+#: named probe presets (≈ ``avex_tpu.configs.PROBE_CONFIGS``); copy before editing
+PROBE_CONFIGS: Dict[str, ProbeConfig] = {
+    "linear": ProbeConfig(probe_type="linear", aggregation="mean", input_processing="flatten"),
+    "mlp": ProbeConfig(probe_type="mlp", aggregation="mean", input_processing="flatten", hidden_dims=[512, 256]),
+    "lstm": ProbeConfig(probe_type="lstm", aggregation="none", input_processing="sequence",
+                        lstm_hidden_size=256, num_layers=1),
+    "attention": ProbeConfig(probe_type="attention", aggregation="none", input_processing="sequence",
+                             num_heads=8, num_layers=2),
+    "transformer": ProbeConfig(probe_type="transformer", aggregation="none", input_processing="sequence",
+                               num_heads=8, num_layers=2, use_positional_encoding=True),
+}
+
+
+@dataclass
+class ClusteringEvalConfig:
+    """During-training clustering evaluation (≈ ``avex_tpu.configs.ClusteringEvalConfig``)."""
+
+    enabled: bool = False
+    frequency: int = 5
+    layers: str = "last_layer"
+    use_validation_set: bool = True
+    max_samples: Optional[int] = None
+    run_before_training: bool = False
+
+    def __post_init__(self) -> None:
+        _at_least("frequency", self.frequency, 1)
+        if self.max_samples is not None:
+            _at_least("max_samples", self.max_samples, 100)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

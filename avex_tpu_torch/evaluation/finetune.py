@@ -1,0 +1,255 @@
+"""Probe training for evaluation: offline (cached embeddings) and online.
+
+Port of ``avex_tpu/evaluation/finetune.py``:
+
+- :class:`FineTuneTrainer`: the schedule of ``build_scheduler`` (warmup in
+  epochs), cross-entropy or BCE, optax's ``adamw`` with no decay mask (every
+  probe parameter is decayed, biases and LayerNorm included; not the
+  ``Trainer``'s masked AdamW), global-norm clipping chained in front,
+  per-epoch metrics, and the best-validation parameters kept as a host copy
+  and restored at the end (into the backbone too when it trained);
+- :func:`train_and_eval_offline`: a probe over cached embeddings (batches
+  with ``embeddings_{i}`` and ``label``);
+- :func:`train_and_eval_online`: a probe on the backbone on raw audio.
+  Frozen, the backbone's extraction forward runs under ``torch.no_grad()``;
+  unfrozen, the same extraction forward runs with gradients and its
+  parameters train with the probe's. As in JAX, that forward is the
+  extraction one, not ``train_forward``: the backbone gets no dropout and
+  no LayerDrop.
+
+Dropout in the head draws from one ``torch.Generator`` on the probe's
+device, seeded from ``seed``. The device mesh is ROADMAP queue 1, item 14.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from avex_tpu_torch.configs import ProbeConfig, TrainingParams
+from avex_tpu_torch.metrics import get_metric_class
+from avex_tpu_torch.probes import Probe, build_probe_from_config
+from avex_tpu_torch.training.losses import bce_loss, cross_entropy_loss
+from avex_tpu_torch.training.optimizers import AdamW, build_scheduler
+
+__all__ = ["FineTuneTrainer", "train_and_eval_offline", "train_and_eval_online"]
+
+logger = logging.getLogger(__name__)
+
+
+def _batch_embeddings(batch: Dict[str, Any]) -> List[Any]:
+    """The ordered per-layer embeddings of a cached-embedding batch."""
+    embs = []
+    while f"embeddings_{len(embs)}" in batch:
+        embs.append(batch[f"embeddings_{len(embs)}"])
+    if not embs and "raw_wav" in batch:
+        embs = [batch["raw_wav"]]
+    return embs
+
+
+class FineTuneTrainer:
+    """Train a probe (with its backbone, online and unfrozen) and evaluate it."""
+
+    def __init__(
+        self,
+        probe: Probe,
+        training_params: TrainingParams,
+        metrics: Sequence[str] = ("accuracy",),
+        multilabel: bool = False,
+        mesh=None,
+        mode: str = "offline",
+        seed: int = 0,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported: probes train on one device "
+                                      "(ROADMAP queue 1, item 14)")
+        if mode not in ("offline", "online"):
+            raise ValueError(f"mode must be 'offline' or 'online', got {mode!r}")
+        self.probe = probe
+        self.params_cfg = training_params
+        self.metric_names = list(metrics)
+        self.multilabel = multilabel
+        self.mode = mode
+        self.seed = seed
+        self.device = probe.device
+        self.criterion = bce_loss if multilabel else cross_entropy_loss
+        self.best_val_metric = -np.inf
+        self._best_params: Optional[Dict[str, torch.Tensor]] = None
+        self.train_backbone = mode == "online" and not probe.freeze_backbone
+        self._trainable = self._initial_trainable()
+        self._tx: Optional[AdamW] = None
+        self._opt_state: Optional[Dict[str, Any]] = None
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if mode == "online":
+            base = probe.base_model
+            self._extract = base.extract_fn(tuple(base._hook_layers), probe.aggregation)
+
+    def _initial_trainable(self) -> Dict[str, torch.Tensor]:
+        """Name → parameter of everything the optimizer updates: ``probe.*``,
+        and ``backbone.*`` when the backbone trains."""
+        trainable = {f"probe.{n}": p for n, p in self.probe.module.named_parameters() if p.requires_grad}
+        if self.train_backbone:
+            trainable.update({f"backbone.{n}": p for n, p in self.probe.base_model.module.named_parameters()})
+        return trainable
+
+    def _to_device(self, value: Any) -> torch.Tensor:
+        t = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+        if t.dtype == torch.bool:
+            return t.to(self.device)
+        if t.is_floating_point():
+            return t.to(self.device)
+        return t.to(self.device, torch.int64)
+
+    def _forward(self, batch: Dict[str, Any], train: bool) -> torch.Tensor:
+        mask = batch.get("padding_mask")
+        mask = None if mask is None else self._to_device(mask)
+        if self.mode == "offline":
+            embs = [self._to_device(e) for e in _batch_embeddings(batch)]
+        else:
+            base = self.probe.base_model
+            with torch.set_grad_enabled(train and self.train_backbone):
+                embs = self._extract(base._as_input(batch["raw_wav"]), base._as_mask(mask))
+            embs = list(embs) if isinstance(embs, tuple) else [embs]
+        return self.probe.module(embs, mask, deterministic=not train, generator=self.generator if train else None)
+
+    def _init_optimizer(self, steps_per_epoch: int) -> None:
+        """A fresh optimizer and state for ``steps_per_epoch`` steps an epoch."""
+        cfg = self.params_cfg
+        schedule = build_scheduler(
+            cfg.scheduler_type, cfg.lr, warmup_steps=cfg.warmup_epochs * steps_per_epoch,
+            total_steps=max(steps_per_epoch * cfg.train_epochs, 1),
+        )
+        # optax.adamw(schedule, weight_decay=wd) with no mask, clipping in front
+        self._tx = AdamW(schedule, weight_decay=cfg.weight_decay, clip_norm=cfg.gradient_clip_val)
+        self._opt_state = self._tx.init(self._trainable)
+
+    def _set_modes(self, train: bool) -> None:
+        self.probe.module.train(train)
+        if self.mode == "online":
+            self.probe.base_model.module.eval()  # the extraction forward: no dropout, no LayerDrop
+
+    def _train_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer update on ``batch``; returns (loss, logits), not synchronised."""
+        self._set_modes(train=True)
+        logits = self._forward(batch, train=True)
+        loss = self.criterion(logits, self._to_device(batch["label"]))
+        names = list(self._trainable)
+        params = [self._trainable[n] for n in names]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        # a parameter the loss does not reach gets a zero gradient, as in JAX
+        grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
+        self._tx.step(self._trainable, grads, self._opt_state)
+        return loss.detach(), logits.detach()
+
+    def _eval_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+        self._set_modes(train=False)
+        with torch.no_grad():
+            logits = self._forward(batch, train=False)
+            return self.criterion(logits, self._to_device(batch["label"])), logits
+
+    def _run_eval(self, loader: Iterable) -> Dict[str, float]:
+        calcs = {name: get_metric_class(name, self.probe.num_classes) for name in self.metric_names}
+        loss_sum, n = 0.0, 0
+        for batch in loader:
+            loss, logits = self._eval_step(batch)
+            logits = logits.float().cpu().numpy()
+            labels = batch["label"]
+            labels = labels.cpu().numpy() if isinstance(labels, torch.Tensor) else np.asarray(labels)
+            for calc in calcs.values():
+                calc.update(logits, labels)
+            loss_sum += float(loss) * logits.shape[0]
+            n += logits.shape[0]
+        out = {name: calc.get_primary_metric() for name, calc in calcs.items()}
+        out["loss"] = loss_sum / max(n, 1)
+        return out
+
+    def _host_copy(self) -> Dict[str, torch.Tensor]:
+        return {n: p.detach().to("cpu", copy=True) for n, p in self._trainable.items()}
+
+    def train(self, train_loader: Iterable, val_loader: Optional[Iterable] = None) -> Dict[str, Any]:
+        """The probe-training loop; restores the best-validation parameters at
+        the end. Each history record holds the epoch's mean training loss and
+        ``train_seconds``, the host-clock time of its training steps."""
+        try:
+            steps_per_epoch = len(train_loader)
+        except TypeError:
+            steps_per_epoch = 100
+        self._init_optimizer(steps_per_epoch)
+        history = []
+        for epoch in range(self.params_cfg.train_epochs):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            start = time.perf_counter()
+            loss_sum, n = torch.zeros((), device=self.device), 0
+            for batch in train_loader:
+                loss, logits = self._train_step(batch)
+                loss_sum += loss * logits.shape[0]  # summed on the device: no sync per step
+                n += logits.shape[0]
+            train_loss = float(loss_sum) / max(n, 1)  # waits for the epoch's last step
+            record = {"epoch": epoch, "train_loss": train_loss, "train_seconds": time.perf_counter() - start}
+            if val_loader is not None and not self.params_cfg.skip_validation:
+                val = self._run_eval(val_loader)
+                record["val"] = val
+                primary = val.get(self.metric_names[0], -val["loss"])
+                if primary > self.best_val_metric:
+                    self.best_val_metric = primary
+                    self._best_params = self._host_copy()
+            history.append(record)
+            logger.debug("probe epoch %d: %s", epoch, record)
+        if self._best_params is not None:
+            with torch.no_grad():
+                for name, value in self._best_params.items():
+                    self._trainable[name].copy_(value)
+        self._set_modes(train=False)
+        return {"history": history, "best_val_metric": self.best_val_metric}
+
+    def evaluate(self, loader: Iterable) -> Dict[str, float]:
+        """Test-set metrics with the (best) trained parameters."""
+        return self._run_eval(loader)
+
+
+def train_and_eval_offline(
+    probe_config: ProbeConfig,
+    training_params: TrainingParams,
+    train_loader: Iterable,
+    test_loader: Iterable,
+    input_dims: Sequence[Tuple[int, ...]],
+    num_classes: int,
+    val_loader: Optional[Iterable] = None,
+    metrics: Sequence[str] = ("accuracy",),
+    multilabel: bool = False,
+    seed: int = 0,
+    device: Optional[str] = None,
+) -> Tuple[Dict[str, float], FineTuneTrainer]:
+    """Offline probing over cached embeddings, on ``device`` (``cuda`` unless named)."""
+    input_dim = list(input_dims) if len(input_dims) > 1 else tuple(input_dims[0])
+    probe = build_probe_from_config(probe_config, num_classes=num_classes, input_dim=input_dim, seed=seed,
+                                    device=device)
+    trainer = FineTuneTrainer(probe, training_params, metrics=metrics, multilabel=multilabel, mode="offline",
+                              seed=seed)
+    trainer.train(train_loader, val_loader)
+    return trainer.evaluate(test_loader), trainer
+
+
+def train_and_eval_online(
+    probe_config: ProbeConfig,
+    training_params: TrainingParams,
+    base_model,
+    train_loader: Iterable,
+    test_loader: Iterable,
+    num_classes: int,
+    val_loader: Optional[Iterable] = None,
+    metrics: Sequence[str] = ("accuracy",),
+    multilabel: bool = False,
+    seed: int = 0,
+) -> Tuple[Dict[str, float], FineTuneTrainer]:
+    """Online probing on raw audio through the backbone, on its device."""
+    probe = build_probe_from_config(probe_config, num_classes=num_classes, base_model=base_model, seed=seed)
+    trainer = FineTuneTrainer(probe, training_params, metrics=metrics, multilabel=multilabel, mode="online",
+                              seed=seed)
+    trainer.train(train_loader, val_loader)
+    return trainer.evaluate(test_loader), trainer

@@ -6,7 +6,8 @@ activations, with no forward hooks — with the reference model API: layer
 discovery and selection (int, negative int, ``all``, ``last_layer``),
 ``forward`` / ``__call__``, ``batch_inference``, and ``extract_embeddings``
 with ``none`` / ``mean`` / ``max`` / ``cls_token`` aggregation and
-multi-layer concatenation. For training, :meth:`ModelBase.train_forward`
+multi-layer concatenation, and ``embedding_shapes`` (one forward at B=1 on
+zeros) for sizing a probe. For training, :meth:`ModelBase.train_forward`
 runs the module with the strategy's keywords (``deterministic``,
 ``disable_layerdrop``, ``generator``) filtered by the module's signature, and
 ``frozen_param_keys`` names top-level parameter groups no optimizer updates.
@@ -266,6 +267,23 @@ class ModelBase:
         with torch.set_grad_enabled(not freeze_backbone):
             out = extract(self._as_input(x), self._as_mask(padding_mask))
         return list(out) if isinstance(out, tuple) else out
+
+    def embedding_shapes(self, input_shape: Tuple[int, ...], aggregation: str = "none") -> List[Tuple[int, ...]]:
+        """Per-selected-layer embedding shapes for an input of ``input_shape``.
+
+        One forward on zeros at batch 1 under ``torch.no_grad()`` on the
+        model's device (the JAX package's ``jax.eval_shape`` does no work; a
+        kernel here reads real memory, so the port cannot trace on ``meta``).
+        The model's kernels launch once; the batch dimension of the result
+        is ``input_shape``'s.
+        """
+        if not self._hook_layers:
+            raise ValueError("No hooks registered. Call register_hooks_for_layers() first.")
+        extract = self.extract_fn(tuple(self._hook_layers), aggregation)
+        with torch.no_grad():
+            out = extract(torch.zeros((1,) + tuple(input_shape[1:]), device=self.device), None)
+        out = out if isinstance(out, tuple) else (out,)
+        return [(int(input_shape[0]),) + tuple(o.shape[1:]) for o in out]
 
     # ------------------------------------------------------------------
     # torch-module delegation

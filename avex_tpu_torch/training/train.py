@@ -14,6 +14,9 @@ Port of ``avex_tpu/training/train.py``, in eager PyTorch:
   ``frozen_param_keys``; stage 2 rebuilds the optimizer at
   ``second_stage_lr`` (default ``0.1 * lr``) with fresh state, so its
   schedule restarts;
+- clustering evaluation (``RunConfig.clustering_eval``) on the validation
+  loader every ``frequency`` epochs (never before training, as in the JAX
+  ``Trainer``);
 - validation with best-model saves, ``checkpoint_every_epochs``, rolling
   step checkpoints (``checkpoint_every_steps``) with the loader
   skip-forward on resume, a SIGTERM save-and-stop, and resume with the
@@ -43,6 +46,7 @@ import torch
 
 from avex_tpu_torch.configs import RunConfig
 from avex_tpu_torch.training.checkpoint import CheckpointManager
+from avex_tpu_torch.training.clustering_evaluator import ClusteringEvaluator
 from avex_tpu_torch.training.metrics_tracker import MetricsTracker
 from avex_tpu_torch.training.optimizers import make_optimizer
 from avex_tpu_torch.training.strategies import make_strategy
@@ -110,6 +114,16 @@ class Trainer:
         self._preempted = False
         self._resume_step_in_epoch = 0
         self._resume_loader_state = None
+
+        # During-training clustering evaluation on the validation loader.
+        self.clustering_evaluator = None
+        cluster_cfg = config.clustering_eval
+        if cluster_cfg is not None and cluster_cfg.enabled and val_loader is not None:
+            try:
+                self.clustering_evaluator = ClusteringEvaluator(model, cluster_cfg, val_loader,
+                                                                num_classes=model.num_classes or 2, seed=config.seed)
+            except (ValueError, NotImplementedError, ImportError) as err:
+                logger.warning("clustering eval disabled: %s", err)
 
         if steps_per_epoch is None:
             try:
@@ -310,6 +324,14 @@ class Trainer:
                 signal.signal(signal.SIGTERM, prev_handler)
             self.model.eval()
 
+    def _clustering(self, epoch: int) -> Optional[Dict[str, float]]:
+        """The clustering metrics due after ``epoch``, or None. As in the JAX
+        ``Trainer``, nothing is scored before the first epoch."""
+        if self.clustering_evaluator is None or not self.clustering_evaluator.should_run(epoch):
+            return None
+        self.model.eval()  # the module trained in place: extraction sees the current weights
+        return self.clustering_evaluator.evaluate()
+
     def _train_loop(self) -> Dict[str, Any]:
         cfg = self.params_cfg
         history = []
@@ -362,9 +384,14 @@ class Trainer:
             if self.checkpoint_every_epochs and (epoch + 1) % self.checkpoint_every_epochs == 0:
                 self.checkpoints.save_epoch(epoch, best_val_acc=self.best_val_acc, **self._save_kwargs())
 
+            clustering = self._clustering(epoch)
+            if clustering is not None:
+                record["clustering"] = clustering
+
             if self.exp_logger is not None:
                 flat = {f"train/{k}": v for k, v in train_metrics.items()}
                 flat.update({f"val/{k}": v for k, v in record.get("val", {}).items()})
+                flat.update({f"clustering/{k}": v for k, v in record.get("clustering", {}).items()})
                 self.exp_logger.log_metrics(flat, step=epoch)
             history.append(record)
             logger.info("epoch %d done: %s", epoch,

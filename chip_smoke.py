@@ -77,7 +77,27 @@ Phases, each printing its results on lines of its own:
    one of the plain path are also held to the fp32 plain path's gradients:
    the kernel path (BEATs: the bf16 K2 with K3, both on the tensor cores;
    EAT and AVES: K5 with the bf16 K6) may be no farther from them than 1.25x
-   the plain path.
+   the plain path;
+14. probes and evaluation: a seeded labelled set of 512 clips in 10 classes
+   (one band-limited tone a class, over noise) made on the card. EAT
+   (``esp_aves2_sl_eat_all_ssl_all``, bf16, K5, 10 s clips): the last layer
+   mean-pooled through the evaluation library's extraction loop (clips/s; K5
+   12 launches a batch), kept in memory, then ``FineTuneTrainer`` offline
+   with the ``linear`` and ``mlp`` presets (no kernel launched while the
+   probe trains) and online with a frozen linear probe (K5 12 a forward, K6
+   none; the backbone bit-identical after). BEATs (official
+   config, bf16, 5 s clips): ``attention`` and ``transformer`` probes over
+   layers 3, 7, 11 and the last (four [248, 768] sequences, learned layer
+   weights), frozen (K1 12 a forward, no backward kernel); retrieval (same-set
+   and cross-set) over the extraction loop's numpy output of the pooled last
+   layer, the similarity product on the card by default and against a
+   float64 CPU product (rel <= 1e-5); an unfrozen attention probe with
+   ``fused_qkv=True`` (K2 and K3 12 a step, four steps on one batch at lr
+   1e-5; the backbone changes; each epoch's loss within rel 5e-3 of the
+   plain path's on the same weights); and
+   the fp32 kernel path's probe logits against the plain path's (rel <=
+   1e-3). Every training loss falls over its epochs; prints ms per step,
+   clips/s and the retrieval time beside the card's name and power limit.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -100,6 +120,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -175,7 +196,19 @@ TPU_BF16_FP32_REL = 3.8e-3  # JAX package on a TPU v5e (BENCH_r05.json): a refer
 # bf16 plain path's: both round the same activations to bf16.
 BF16_GRAD_FACTOR = 1.25
 
+# Probes (phase 14): a synthetic labelled set, one band-limited tone a class.
+PROBE_CLIPS, PROBE_CLASSES, B_PROBE = 512, 10, 64
+PROBE_EPOCHS = 3  # online probes
+UNFROZEN_EPOCHS = 4  # the unfrozen probe: one step an epoch, on one batch
+UNFROZEN_LR = 1e-5  # a fine-tuning rate: at 1e-4 Adam's first steps overshoot on either attention path
+UNFROZEN_LOSS_REL = 5e-3  # bf16: each epoch's loss, kernel path (K2/K3) against the plain path, same weights
+OFFLINE_EPOCHS = 30  # offline probes: a step is a few ms
+PROBE_LAYERS = [3, 7, 11, "last_layer"]  # BEATs: layers 2, 6, 10 and 11's outputs
+B_PROBE_CHECK = 8  # the fp32 kernel-vs-plain probe logits (the plain path holds [B, H, T, T])
+SIM_REL = 1e-5  # retrieval: the card's fp32 similarities against a float64 CPU product
+
 FAILURES: list = []
+CARD: list = []  # nvidia-smi's name and power limit
 
 
 def check(ok: bool, what: str) -> None:
@@ -242,6 +275,7 @@ def phase_card():
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi)
+    CARD.append(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
 
@@ -1501,6 +1535,251 @@ def phase_serving():
         torch.cuda.empty_cache()
 
 
+def tone_batches(n_clips: int, samples: int, seed: int) -> list:
+    """``n_clips`` clips on the card in batches of B_PROBE: class c is a tone
+    near 250 + 700·c Hz (±3%, random phase, a slow amplitude swell) over
+    white noise at a quarter of its level."""
+    import math
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    labels = torch.randperm(n_clips, generator=gen, device="cuda") % PROBE_CLASSES
+    t = torch.arange(samples, device="cuda") / 16000.0
+    freq = (250.0 + 700.0 * labels) * (1.0 + 0.03 * (2 * torch.rand(n_clips, generator=gen, device="cuda") - 1))
+    phase = 2 * math.pi * torch.rand(n_clips, 1, generator=gen, device="cuda")
+    swell = 0.6 + 0.4 * torch.sin(2 * math.pi * 0.5 * t)[None] * torch.rand(n_clips, 1, generator=gen, device="cuda")
+    wav = 0.1 * swell * torch.sin(2 * math.pi * freq[:, None] * t[None] + phase)
+    wav = wav + 0.025 * torch.randn(n_clips, samples, generator=gen, device="cuda")
+    return [{"raw_wav": wav[i:i + B_PROBE], "label": labels[i:i + B_PROBE]} for i in range(0, n_clips, B_PROBE)]
+
+
+def probe_run(label, run, expect, forwards):
+    """Counts reset just before ``run()`` and read just after; each kernel
+    must launch ``expect[kernel]`` times per forward (``forwards``: forward
+    count, backward count) and every other kernel 0 times."""
+    import torch
+
+    reset_counts()
+    start = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counts = read_counts()
+    for kname in counts:
+        per, n = expect.get(kname, 0), forwards[1] if kname.endswith("_backward") else forwards[0]
+        check(counts[kname] == per * n, f"{label}: {kname} launched {counts[kname]} times == {per * n} "
+                                        f"({per} x {n})")
+    return out, counts, elapsed
+
+
+def fine_tune(config, params, train, test, mode, val=None, **probe_kwargs):
+    """Build a probe, train it with ``FineTuneTrainer`` and score it on
+    ``test`` (``train_and_eval_offline``/``_online``'s steps); returns
+    (test metrics, the epochs' history)."""
+    from avex_tpu_torch.evaluation import FineTuneTrainer
+    from avex_tpu_torch.probes import build_probe_from_config
+
+    probe = build_probe_from_config(config, num_classes=PROBE_CLASSES, **probe_kwargs)
+    trainer = FineTuneTrainer(probe, params, mode=mode)
+    history = trainer.train(train, val)["history"]
+    return trainer.evaluate(test), history, probe
+
+
+def falls(label, history) -> None:
+    losses = [r["train_loss"] for r in history]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{label}: training loss falls over {len(losses)} epochs: " + " -> ".join(f"{x:.4f}" for x in losses))
+
+
+def phase_probes():
+    """Probes and the evaluation library at full width: EAT with linear and
+    MLP probes (offline on extracted embeddings, and online frozen), BEATs
+    with attention and transformer probes (frozen and unfrozen) and
+    retrieval. Returns the launches of every kernel in the phase's runs."""
+    import numpy as np
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import PROBE_CONFIGS, TrainingParams
+    from avex_tpu_torch.evaluation import compute_embeddings, eval_retrieval, eval_retrieval_cross_set
+    from avex_tpu_torch.evaluation.retrieval import cosine_similarity
+    from avex_tpu_torch.probes import build_probe_from_config
+
+    total = {}
+    report = {"card": CARD[0], "clips": PROBE_CLIPS, "classes": PROBE_CLASSES, "batch": B_PROBE}
+    params = TrainingParams(train_epochs=PROBE_EPOCHS, lr=1e-3, batch_size=B_PROBE)
+    offline_params = TrainingParams(train_epochs=OFFLINE_EPOCHS, lr=1e-3, batch_size=B_PROBE)
+
+    def add(counts):
+        for kname, n in counts.items():
+            total[kname] = total.get(kname, 0) + n
+
+    # --- EAT (12 blocks, 768-d, 10 s clips): extraction, then offline and online probes
+    eat = avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, return_features_only=True,
+                                    device="cuda", use_pallas=True, compute_dtype="bfloat16")
+    batches = tone_batches(PROBE_CLIPS, EAT_CLIP_SAMPLES, seed=21)
+    n_batches = len(batches)
+    (embs, labels), counts, elapsed = probe_run(
+        "EAT extraction loop", lambda: compute_embeddings(eat, batches, aggregation="mean", layers=["last_layer"]),
+        {"fused_qkv_attention": 12}, (n_batches, 0))
+    add(counts)
+    embs = embs[0]
+    check(embs.shape == (PROBE_CLIPS, E) and bool(np.isfinite(embs).all()),
+          f"EAT extraction loop: embeddings {embs.shape} finite")
+    report["eat_extraction_clips_per_s"] = PROBE_CLIPS / elapsed
+    print(f"EAT extraction loop (bf16, K5): {PROBE_CLIPS / elapsed:.1f} clips/s, {n_batches} batches of {B_PROBE} "
+          f"10 s clips, host copy overlapped; {CARD[0]}")
+
+    def offline(rows):
+        return [{"embeddings_0": embs[i:i + B_PROBE], "label": labels[i:i + B_PROBE]} for i in rows]
+
+    n_train = PROBE_CLIPS - 2 * B_PROBE
+    train, val, test = (offline(range(0, n_train, B_PROBE)), offline([n_train]), offline([n_train + B_PROBE]))
+    for preset in ("linear", "mlp"):
+        (metrics, result, _), counts, _ = probe_run(
+            f"EAT offline {preset} probe",
+            lambda: fine_tune(PROBE_CONFIGS[preset], offline_params, train, test, "offline", val=val,
+                              input_dim=(E,), device="cuda"),
+            {}, (0, 0))  # the probe alone: no backbone kernel
+        falls(f"EAT offline {preset} probe", result)
+        check(all(map(math.isfinite, metrics.values())), f"EAT offline {preset} probe: test metrics {metrics} finite")
+        ms = result[-1]["train_seconds"] / len(train) * 1e3
+        report[f"eat_offline_{preset}_ms_per_step"] = ms
+        print(f"EAT offline {preset} probe: {ms:.3f} ms per step (B={B_PROBE}, 768-d), test accuracy "
+              f"{metrics['accuracy']:.3f}; {CARD[0]}")
+
+    before = {k: v.clone() for k, v in eat.state_dict().items()}
+    train_audio, test_audio = batches[:n_batches - 2], batches[n_batches - 2:]
+    steps = len(train_audio) * PROBE_EPOCHS
+    (metrics, result, _), counts, _ = probe_run(
+        "EAT online frozen linear probe",
+        lambda: fine_tune(PROBE_CONFIGS["linear"].replace(target_length=EAT_CLIP_SAMPLES), params, train_audio,
+                          test_audio, "online", base_model=eat),
+        {"fused_qkv_attention": 12}, (1 + steps + len(test_audio), 0))  # embedding_shapes, steps, test
+    add(counts)
+    falls("EAT online frozen linear probe", result)
+    check(all(torch.equal(v, before[k]) for k, v in eat.state_dict().items()),
+          "EAT online frozen linear probe: the backbone's parameters are bit-identical after training")
+    ms = result[-1]["train_seconds"] / len(train_audio) * 1e3
+    report["eat_online_frozen_linear_ms_per_step"] = ms
+    print(f"EAT online frozen linear probe: {ms:.1f} ms per step (B={B_PROBE}, 10 s clips), "
+          f"{B_PROBE / ms * 1e3:.1f} clips/s; {CARD[0]}")
+    del eat, before, batches, train_audio, test_audio
+    torch.cuda.empty_cache()
+
+    # --- BEATs (official config, 5 s clips): attention and transformer probes over four layers
+    batches = tone_batches(5 * B_PROBE, CLIP_SAMPLES, seed=22)
+    train_audio, test_audio = batches[:4], batches[4:]
+    steps = len(train_audio) * PROBE_EPOCHS
+    model = load_beats("bfloat16", use_pallas=True)
+    for preset in ("attention", "transformer"):
+        config = PROBE_CONFIGS[preset].replace(target_layers=PROBE_LAYERS, target_length=CLIP_SAMPLES)
+        (metrics, result, probe), counts, _ = probe_run(
+            f"BEATs online frozen {preset} probe",
+            lambda: fine_tune(config, params, train_audio, test_audio, "online", base_model=model),
+            {"gated_bias_attention": 12}, (1 + steps + len(test_audio), 0))
+        add(counts)
+        check(probe.plan.input_shapes == ((T, E),) * 4 and probe.module.layer_weights is not None,
+              f"BEATs {preset} probe: four [{T}, {E}] layers mixed by learned weights "
+              f"({probe.plan.input_shapes})")
+        falls(f"BEATs online frozen {preset} probe", result)
+        ms = result[-1]["train_seconds"] / len(train_audio) * 1e3
+        report[f"beats_online_frozen_{preset}_ms_per_step"] = ms
+        report[f"beats_online_frozen_{preset}_clips_per_s"] = B_PROBE / ms * 1e3
+        print(f"BEATs online frozen {preset} probe: {ms:.1f} ms per step, {B_PROBE / ms * 1e3:.1f} clips/s "
+              f"(B={B_PROBE}, 5 s clips, 4 layers); {CARD[0]}")
+        del probe
+
+    # retrieval over the pooled last layer: same-set and train → test
+    (pooled, pooled_labels), counts, _ = probe_run(
+        "BEATs extraction loop for retrieval",
+        lambda: compute_embeddings(model, batches, aggregation="mean", layers=["last_layer"]),
+        {"gated_bias_attention": 12}, (len(batches), 0))
+    add(counts)
+    del model
+    torch.cuda.empty_cache()
+    pooled = pooled[0]  # numpy, as the extraction loop returns it: retrieval puts it on the card
+    query, db = pooled[:4 * B_PROBE], pooled[4 * B_PROBE:]
+    ref = pooled.astype(np.float64)
+    ref = ref / np.maximum(np.linalg.norm(ref, axis=1, keepdims=True), 1e-12)
+    for what, a, b, want in (("same-set", pooled, pooled, ref @ ref.T),
+                             ("cross-set", query, db, ref[:4 * B_PROBE] @ ref[4 * B_PROBE:].T)):
+        sim = cosine_similarity(a, b)
+        check(sim.is_cuda, f"retrieval {what}: the similarity matrix of numpy input is on {sim.device}")
+        sim = sim.double().cpu().numpy()
+        rel = float(np.linalg.norm(sim - want) / np.linalg.norm(want))
+        check(rel <= SIM_REL, f"retrieval {what}: the card's similarity matrix {sim.shape} vs float64 CPU rel "
+                              f"{rel:.3e} <= {SIM_REL:g}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    same = eval_retrieval(pooled, pooled_labels)
+    retrieval_ms = (time.perf_counter() - start) * 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    check(peak >= 4 * len(pooled) ** 2, f"retrieval: eval_retrieval's similarity product ran on the card "
+                                        f"({peak} bytes allocated there >= {4 * len(pooled) ** 2})")
+    cross = eval_retrieval_cross_set(query, pooled_labels[:4 * B_PROBE], db, pooled_labels[4 * B_PROBE:])
+    check(all(map(math.isfinite, [*same.values(), *cross.values()])), f"retrieval: {same}, {cross} finite")
+    report.update(retrieval_ms=retrieval_ms, retrieval=same, retrieval_cross_set=cross)
+    print(f"retrieval over {len(pooled)} pooled BEATs embeddings: {retrieval_ms:.1f} ms (numpy input, similarity "
+          f"on the card, ROC-AUC and precision@1 on the host), {same}; {CARD[0]}")
+    del pooled, query, db
+
+    # unfrozen: the backbone trains with the probe through K2 and K3
+    fused = load_beats("bfloat16", use_pallas=True, fused_qkv=True)
+    probe_param = dict(fused.module.named_parameters())["backbone.encoder.layers.5.fc1.weight"]
+    start_value = probe_param.detach().clone()
+    config = PROBE_CONFIGS["attention"].replace(target_layers=PROBE_LAYERS, target_length=CLIP_SAMPLES,
+                                                freeze_backbone=False)
+    unfrozen = TrainingParams(train_epochs=UNFROZEN_EPOCHS, lr=UNFROZEN_LR, batch_size=B_PROBE)
+    (metrics, result, _), counts, _ = probe_run(
+        "BEATs online unfrozen attention probe (fused_qkv)",
+        lambda: fine_tune(config, unfrozen, train_audio[:1], test_audio, "online", base_model=fused),
+        {"fused_qkv_gated_attention": 12, "fused_qkv_gated_attention_backward": 12},
+        (1 + UNFROZEN_EPOCHS + len(test_audio), UNFROZEN_EPOCHS))
+    add(counts)
+    falls("BEATs online unfrozen attention probe", result)
+    check(not torch.equal(probe_param, start_value), "BEATs unfrozen probe: the backbone's parameters changed")
+    ms = result[-1]["train_seconds"] * 1e3
+    report["beats_online_unfrozen_attention_ms_per_step"] = ms
+    print(f"BEATs online unfrozen attention probe (fused_qkv, K2 + K3): {ms:.1f} ms per step (B={B_PROBE}); "
+          f"{CARD[0]}")
+    del fused
+    torch.cuda.empty_cache()
+    # the same run on the plain path, same weights: the losses track each other
+    plain = load_beats("bfloat16", use_pallas=False, fused_qkv=True)
+    (_, plain_result, _), _, _ = probe_run(
+        "BEATs online unfrozen attention probe, plain path",
+        lambda: fine_tune(config, unfrozen, train_audio[:1], test_audio, "online", base_model=plain), {}, (0, 0))
+    rel = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"]) for a, b in zip(result, plain_result))
+    check(rel <= UNFROZEN_LOSS_REL, f"BEATs unfrozen probe: each epoch's loss, kernel path vs plain path, rel "
+                                    f"{rel:.3e} <= {UNFROZEN_LOSS_REL:g} ("
+                                    + " ".join(f"{r['train_loss']:.4f}" for r in plain_result) + " plain)")
+    report["unfrozen_probe_loss_rel"] = rel
+    del plain
+    torch.cuda.empty_cache()
+
+    # fp32: probe logits of the kernel path against the plain path, same weights
+    wav = batches[0]["raw_wav"][:B_PROBE_CHECK]
+    logits = {}
+    for use_pallas in (True, False):
+        model = load_beats("float32", use_pallas=use_pallas)
+        config = PROBE_CONFIGS["attention"].replace(target_layers=PROBE_LAYERS, target_length=CLIP_SAMPLES)
+        probe = build_probe_from_config(config, num_classes=PROBE_CLASSES, base_model=model)
+        with torch.no_grad():
+            logits[use_pallas] = probe(wav).float()
+        del model, probe
+    rel = rel_l2(logits[True], logits[False])
+    check(rel <= PATH_REL,
+          f"BEATs fp32 attention probe: kernel path vs plain path logits rel {rel:.3e} <= {PATH_REL:g}")
+    report["fp32_probe_logits_rel"] = rel
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "probes", **report}))
+    return total
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -1520,6 +1799,7 @@ def main() -> int:
     beats_train = phase_beats_training(workdir / "beats")
     eat_train = phase_eat_training(workdir / "eat")
     aves_train = phase_aves_training(workdir / "aves")
+    probes = phase_probes()
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path and "
           f"{aves_launches} on the AVES path")
@@ -1531,6 +1811,11 @@ def main() -> int:
     launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
     launches["fused_qkv_attention_backward"] = (eat_train["fused_qkv_attention_backward"]
                                                 + aves_train["fused_qkv_attention_backward"])
+    # Probes: K5 on the EAT probes, K1 on the frozen BEATs probes, K2/K3 on the unfrozen one.
+    for kname, count in probes.items():
+        if count:  # each probe run checked the rest at 0
+            launches[kname] += count
+    print(f"probes phase launches: { {k: v for k, v in probes.items() if v} }")
     # No main path reaches K4 (every model's dh-64 projection takes K5, and K4
     # takes dh 64 only) or K8 (in JAX only scripts/bench_int8_matmul.py calls
     # it); drive() checks that each main-path run launched them 0 times.

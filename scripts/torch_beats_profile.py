@@ -3,6 +3,7 @@
 
     python3 scripts/torch_beats_profile.py [beats] [int8] [eat] [aves]
     python3 scripts/torch_beats_profile.py train [beats] [eat]
+    python3 scripts/torch_beats_profile.py probe [attention] [transformer] [linear] [unfrozen]
 
 Full-width models with seeded random weights, bf16, B=128, ``extract_embeddings``
 over all layers with mean pooling: BEATs (12 layers, 768-d) on 5 s clips, the
@@ -18,8 +19,14 @@ some overlap) and the device kernels with the most summed time, from
 ``torch.profiler``. With ``train`` first it profiles one supervised
 fine-tuning step instead (``Trainer``, AdamW, a 50-class head, B=64, bf16
 compute with fp32 parameters; BEATs with ``fused_qkv``, so K2 forward and K3
-backward, and EAT, K5 and K6), after two warm-up steps. Needs CUDA; imports
-nothing of JAX.
+backward, and EAT, K5 and K6), after two warm-up steps. With ``probe`` first
+it profiles one ``FineTuneTrainer`` step of an online probe (B=64, 10
+classes, bf16 backbone, fp32 head): ``attention`` and ``transformer``
+presets over BEATs layers 3, 7, 11 and the last, frozen (K1 forward);
+``linear`` over EAT's last layer, frozen (K5); ``unfrozen``: the attention
+probe with the BEATs backbone trained, ``fused_qkv`` (K2 and K3). With no
+name it profiles ``attention`` and ``linear``. Needs CUDA; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 B, TOP = 128, 12
 B_TRAIN, N_CLASSES = 64, 50
+PROBE_CLASSES = 10
 
 
 def _loader(name: str):
@@ -108,6 +116,41 @@ def _train_step(name: str, use_pallas):
     return lambda: trainer._train_step(batch), B_TRAIN
 
 
+def _probe_step(name: str, use_pallas):
+    """A ``FineTuneTrainer`` step function of one online probe on one seeded batch."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.api.official_models import OFFICIAL_MODELS
+    from avex_tpu_torch.configs import PROBE_CONFIGS, ModelSpec, TrainingParams
+    from avex_tpu_torch.evaluation import FineTuneTrainer
+    from avex_tpu_torch.probes import build_probe_from_config
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    if name == "linear":
+        seconds = 10
+        model = avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True,
+                                          return_features_only=True, device="cuda", compute_dtype="bfloat16",
+                                          use_pallas=use_pallas)
+        config = PROBE_CONFIGS["linear"].replace(target_length=seconds * 16000)
+    elif name in ("attention", "transformer", "unfrozen"):
+        seconds = 5
+        official = OFFICIAL_MODELS["esp_aves2_sl_beats_all"]["model_spec"]["init_config"]
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype="bfloat16",
+                         init_config=dict(official, use_pallas=use_pallas, fused_qkv=name == "unfrozen"))
+        model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+        config = PROBE_CONFIGS["transformer" if name == "transformer" else "attention"].replace(
+            target_layers=[3, 7, 11, "last_layer"], target_length=seconds * 16000, freeze_backbone=name != "unfrozen")
+    else:
+        raise SystemExit(f"unknown probe {name!r} (attention, transformer, linear, unfrozen)")
+    probe = build_probe_from_config(config, num_classes=PROBE_CLASSES, base_model=model)
+    trainer = FineTuneTrainer(probe, TrainingParams(train_epochs=1, lr=1e-4, batch_size=B_TRAIN), mode="online")
+    trainer._init_optimizer(100)
+    batch = {"raw_wav": torch.randn(B_TRAIN, seconds * 16000, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, PROBE_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    return lambda: trainer._train_step(batch), B_TRAIN
+
+
 def profile_call(title: str, run, clips: int) -> None:
     """Warm up, time one call of ``run`` (CUDA-synchronised), then profile one."""
     import torch
@@ -158,13 +201,13 @@ def profile_model(name: str) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_training(name: str) -> None:
+def profile_training(name: str, probe: bool = False) -> None:
     import torch
 
     for label, use_pallas in PATHS:
-        step, clips = _train_step(name, use_pallas)
+        step, clips = (_probe_step if probe else _train_step)(name, use_pallas)
         torch.cuda.reset_peak_memory_stats()
-        profile_call(f"{name} {label}, training step", step, clips)
+        profile_call(f"{name} {label}, {'probe' if probe else 'training'} step", step, clips)
         print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del step
         torch.cuda.empty_cache()
@@ -179,9 +222,14 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     args = sys.argv[1:]
-    train = bool(args) and args[0] == "train"
-    for name in (args[1:] if train else args) or ["beats", "eat"]:
-        (profile_training if train else profile_model)(name)
+    mode = args[0] if args and args[0] in ("train", "probe") else None
+    names = args[1:] if mode else args
+    if mode == "probe":
+        for name in names or ["attention", "linear"]:
+            profile_training(name, probe=True)
+    else:
+        for name in names or ["beats", "eat"]:
+            (profile_training if mode else profile_model)(name)
     return 0
 
 

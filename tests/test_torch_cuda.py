@@ -7,6 +7,7 @@ machine without it:
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -518,3 +519,78 @@ def test_int8_dynamic_dense_steps_match_twins(card, shape, dtype, use_bias):
     torch.cuda.synchronize()
     assert ik.LAUNCHES == {"int8_dynamic_dense": 1, "int8_matmul": 0}
     assert torch.equal(got, ik.int8_dynamic_dense_reference(x, wq, scale, bias))
+
+
+# Probes over a small BEATs on the card: 2 layers, 128-d, 2 heads (dh 64).
+PROBE_BEATS = {"encoder_layers": 2, "encoder_embed_dim": 128, "encoder_ffn_embed_dim": 256,
+               "encoder_attention_heads": 2, "embed_dim": 32, "dropout": 0.0, "attention_dropout": 0.0,
+               "encoder_layerdrop": 0.0, "use_pallas": True}
+
+
+def _probe_step(card, dtype, freeze, **init):
+    """One FineTuneTrainer step of an attention probe over two layers of a
+    small BEATs; returns (launch counts of the step, trainer, batch)."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec, TrainingParams
+    from avex_tpu_torch.evaluation import FineTuneTrainer
+    from avex_tpu_torch.probes import build_probe_from_config
+
+    spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype, init_config=dict(PROBE_BEATS, **init),
+                     audio_config={"representation": "raw", "normalize": False, "target_length_seconds": 1})
+    model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+    probe = build_probe_from_config(dict(probe_type="attention", aggregation="none", target_layers=[1, "last_layer"],
+                                         num_heads=4, num_layers=1, dropout_rate=0.0, freeze_backbone=freeze),
+                                    num_classes=3, base_model=model)
+    trainer = FineTuneTrainer(probe, TrainingParams(train_epochs=1, lr=1e-3, batch_size=4), mode="online")
+    trainer._init_optimizer(1)
+    batch = {"raw_wav": torch.randn(4, 16000, generator=card, device="cuda") * 0.1,
+             "label": torch.tensor([0, 1, 2, 0], device="cuda")}
+    ak.reset_launch_counts()
+    loss, _ = trainer._train_step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    return dict(ak.LAUNCHES), trainer, batch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_frozen_probe_launches_k1_and_no_backward(card, dtype):
+    counts, trainer, _ = _probe_step(card, dtype, freeze=True)
+    assert {k: v for k, v in counts.items() if v} == {"gated_bias_attention": 2}
+    assert not any(k.startswith("backbone.") for k in trainer._trainable)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unfrozen_fused_probe_launches_k2_and_k3(card, dtype):
+    counts, trainer, _ = _probe_step(card, dtype, freeze=False, fused_qkv=True)
+    assert {k: v for k, v in counts.items() if v} == {"fused_qkv_gated_attention": 2,
+                                                        "fused_qkv_gated_attention_backward": 2}
+    assert any(k.startswith("backbone.") for k in trainer._trainable)
+
+
+def test_retrieval_similarity_on_the_card_matches_the_cpu(card, monkeypatch):
+    """Retrieval over the extraction loop's numpy output computes its
+    similarities on the card by default, and agrees with the CPU's."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+    from avex_tpu_torch.evaluation import compute_embeddings, eval_retrieval, eval_retrieval_cross_set
+    from avex_tpu_torch.evaluation import retrieval
+
+    spec = ModelSpec(name="beats", pretrained=False, compute_dtype="float32", init_config=PROBE_BEATS,
+                     audio_config={"representation": "raw", "normalize": False, "target_length_seconds": 1})
+    model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+    batches = [{"raw_wav": torch.randn(8, 16000, generator=card, device="cuda") * 0.1,
+                "label": torch.randint(0, 3, (8,), generator=card, device="cuda")} for _ in range(3)]
+    (embs,), labels = compute_embeddings(model, batches, aggregation="mean", layers=["last_layer"])
+    assert isinstance(embs, np.ndarray) and embs.shape == (24, 128) and isinstance(labels, np.ndarray)
+
+    products = []
+    similarity = retrieval.cosine_similarity
+    monkeypatch.setattr(retrieval, "cosine_similarity",
+                        lambda *a, **k: products.append(similarity(*a, **k)) or products[-1])
+    same = eval_retrieval(embs, labels)
+    cross = eval_retrieval_cross_set(embs[:16], labels[:16], embs[16:], labels[16:])
+    assert [p.device.type for p in products] == ["cuda", "cuda"]
+    torch.testing.assert_close(products[0].cpu(), similarity(embs, embs, device="cpu"), atol=1e-6, rtol=1e-5)
+    assert same == pytest.approx(eval_retrieval(embs, labels, device="cpu"), abs=1e-6)
+    assert cross == pytest.approx(eval_retrieval_cross_set(embs[:16], labels[:16], embs[16:], labels[16:],
+                                                           device="cpu"), abs=1e-6)

@@ -362,10 +362,11 @@ def test_unported_training_options_raise(tmp_path, monkeypatch):
         make_strategy("text")
     with pytest.raises(NotImplementedError, match="item 10"):
         make_strategy("self_supervised")
-    for field, value, item in (("mesh", {"model": 2}, "item 14"), ("augmentations", [{"kind": "mixup"}], "item 12"),
-                               ("clustering_eval", {"enabled": True}, "item 9")):
+    for field, value, item in (("mesh", {"model": 2}, "item 14"), ("augmentations", [{"kind": "mixup"}], "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             config.replace(**{field: value})
+    # clustering evaluation is ported: the dict becomes its config
+    assert config.replace(clustering_eval={"enabled": True}).clustering_eval.enabled
     assert config.replace(mesh={"data": -1}).mesh == {"data": -1}
     with pytest.raises(ValueError, match="multilabel"):
         config.replace(multilabel=True)
