@@ -28,6 +28,7 @@ import numpy as np
 from avex_tpu_torch.ops._build import BUILD_DIR
 
 __all__ = [
+    "decode_audio",
     "decode_audio_bytes",
     "decode_flac",
     "decode_wav",
@@ -187,6 +188,15 @@ def decode_flac(path: str, mono: bool = True, verify_md5: bool = True) -> Tuple[
     in the file's STREAMINFO block (``verify_md5=False`` skips the check).
     """
     return _decode_flac_bytes(Path(path).read_bytes(), mono, verify_md5)
+
+
+def decode_audio(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
+    """Decode a WAV or FLAC file, told apart by its first four bytes."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"fLaC":
+        return decode_flac(path, mono=mono)
+    return decode_wav(path, mono=mono)
 
 
 def decode_audio_bytes(data: bytes, mono: bool = True) -> Tuple[np.ndarray, int]:

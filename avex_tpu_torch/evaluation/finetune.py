@@ -97,12 +97,13 @@ class FineTuneTrainer:
         return trainable
 
     def _to_device(self, value: Any) -> torch.Tensor:
+        """``value`` on the probe's device (integers as int64); a pinned
+        tensor (the loader's, for a ``cuda`` run) is copied without blocking."""
         t = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
-        if t.dtype == torch.bool:
-            return t.to(self.device)
-        if t.is_floating_point():
-            return t.to(self.device)
-        return t.to(self.device, torch.int64)
+        non_blocking = t.is_pinned()
+        if t.dtype == torch.bool or t.is_floating_point():
+            return t.to(self.device, non_blocking=non_blocking)
+        return t.to(self.device, torch.int64, non_blocking=non_blocking)
 
     def _forward(self, batch: Dict[str, Any], train: bool) -> torch.Tensor:
         mask = batch.get("padding_mask")
@@ -112,7 +113,7 @@ class FineTuneTrainer:
         else:
             base = self.probe.base_model
             with torch.set_grad_enabled(train and self.train_backbone):
-                embs = self._extract(base._as_input(batch["raw_wav"]), base._as_mask(mask))
+                embs = self._extract(base._as_input(self._to_device(batch["raw_wav"])), base._as_mask(mask))
             embs = list(embs) if isinstance(embs, tuple) else [embs]
         return self.probe.module(embs, mask, deterministic=not train, generator=self.generator if train else None)
 

@@ -10,7 +10,7 @@ Port of ``avex_tpu/serving/service.py``, with the same three rules:
    with rows of zero audio. At most ``log2(max_batch) + 1`` batch shapes
    ever reach the device. In JAX each is one compiled program; here the
    model runs eagerly, and a CUDA graph per bucket is the counterpart
-   (ROADMAP queue 1, item 12).
+   (ROADMAP queue 2, the host).
 3. **One batcher thread owns the device.** Requests enqueue from any number
    of producer threads (e.g. the HTTP server's); a single batcher thread
    runs the forward, so the queue, not device contention, absorbs bursts.

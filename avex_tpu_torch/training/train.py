@@ -165,18 +165,25 @@ class Trainer:
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's numeric entries as tensors on the model's device:
-        waveforms and float labels in fp32, integer labels as int64."""
+        waveforms and float labels in fp32, integer labels as int64; text
+        (``text_label``) stays behind. A pinned tensor (the loader's, for a
+        ``cuda`` run) is copied without blocking the host."""
         out: Dict[str, torch.Tensor] = {}
         for key, value in batch.items():
             if value is None:
                 continue
-            t = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value)
-            if t.dtype == torch.bool:
-                out[key] = t.to(self.device)
-            elif t.is_floating_point():
-                out[key] = t.to(self.device, torch.float32)
-            elif t.dtype in (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8):
-                out[key] = t.to(self.device, torch.int64)
+            if not isinstance(value, torch.Tensor):
+                value = np.asarray(value)
+                if value.dtype.kind not in "biuf":
+                    continue
+                value = torch.from_numpy(value)
+            non_blocking = value.is_pinned()
+            if value.dtype == torch.bool:
+                out[key] = value.to(self.device, non_blocking=non_blocking)
+            elif value.is_floating_point():
+                out[key] = value.to(self.device, torch.float32, non_blocking=non_blocking)
+            elif value.dtype in (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8):
+                out[key] = value.to(self.device, torch.int64, non_blocking=non_blocking)
         return out
 
     def _train_step(self, batch: Dict[str, Any]):

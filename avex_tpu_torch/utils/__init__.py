@@ -1,1 +1,1 @@
-"""Checkpoint loading helpers of the port."""
+"""Helpers of the port: checkpoint loading, experiment records and logging."""

@@ -97,7 +97,25 @@ Phases, each printing its results on lines of its own:
    plain path's on the same weights); and
    the fp32 kernel path's probe logits against the plain path's (rel <=
    1e-3). Every training loss falls over its epochs; prints ms per step,
-   clips/s and the retrieval time beside the card's name and power limit.
+   clips/s and the retrieval time beside the card's name and power limit;
+15. entry points: the data pipeline and the two entry points as a user runs
+   them, from ``kind: local`` datasets of tone WAVs written here with the
+   standard library's ``wave`` (8 classes; most clips 6 s at 16 kHz, one in
+   8 at 44.1 kHz, one in 8 3 s long). ``run_train.main``: the official
+   BEATs with ``fused_qkv=True, use_pallas=True``, bf16, 5 s crops, B=64,
+   320 training and 64 validation clips, a noise and a mixup augmentation,
+   4 loader worker processes, 2 epochs at lr 1e-5, a checkpoint each (K2 on
+   every forward, K3 on every step, exactly; the loss falls; metrics.jsonl,
+   the checkpoints and the label map written), then one more epoch through
+   the same loader under the profiler (the device's busy share: the union
+   of the kernels' intervals) and the loader's host work for one batch in
+   one process, with its parts. ``run_evaluate.main``: the same BEATs frozen
+   (K1 on every forward, no K2/K3) under an online attention probe over
+   layers 3, 7, 11 and the last, on two evaluation sets of 256/64/64 and
+   128/32/32 clips (the backbone built once for both; each probe's loss
+   falls; evaluation_metadata.jsonl and the summary CSVs written). Prints
+   steps/s, the step's wait for the loader and the busy share beside the
+   card's name and power limit.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -206,6 +224,16 @@ OFFLINE_EPOCHS = 30  # offline probes: a step is a few ms
 PROBE_LAYERS = [3, 7, 11, "last_layer"]  # BEATs: layers 2, 6, 10 and 11's outputs
 B_PROBE_CHECK = 8  # the fp32 kernel-vs-plain probe logits (the plain path holds [B, H, T, T])
 SIM_REL = 1e-5  # retrieval: the card's fp32 similarities against a float64 CPU product
+
+# Entry points (phase 15): run_train and run_evaluate on ``kind: local`` tone
+# WAVs written here, 8 classes; most clips 6 s at 16 kHz (a random 5 s crop),
+# one in 8 at 44.1 kHz (resampled), one in 8 3 s (padded).
+ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 8, 320, 64
+ENTRY_EVAL_SETS = ((256, 64, 64), (128, 32, 32))  # train, val, test clips
+ENTRY_EPOCHS, ENTRY_WORKERS = 2, 4
+ENTRY_LR = 1e-5  # fine-tuning the random-weight BEATs: stable there (scripts/torch_probe_lr.py)
+ENTRY_PROBE_LR = 1e-4  # the frozen attention probe: at 1e-3 its loss rose over two epochs on these clips
+ENTRY_LONG_S, ENTRY_SHORT_S = 6.0, 3.0
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
@@ -1780,6 +1808,281 @@ def phase_probes():
     return total
 
 
+def write_tone_wavs(root: Path, n_clips: int, seed: int) -> None:
+    """``n_clips`` 16-bit WAVs and a metadata.csv under ``root`` (stdlib
+    ``wave``): class c is a tone near 250 + 700·c Hz over noise; one clip in 8
+    is at 44.1 kHz and one in 8 is 3 s long, the rest 6 s at 16 kHz."""
+    import csv
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for i in range(n_clips):
+        label = int(rng.integers(ENTRY_CLASSES))
+        sr = 44100 if i % 8 == 3 else 16000
+        seconds = ENTRY_SHORT_S if i % 8 == 5 else ENTRY_LONG_S
+        t = np.arange(int(seconds * sr)) / sr
+        freq = (250.0 + 700.0 * label) * (1.0 + 0.03 * rng.uniform(-1, 1))
+        wav = 0.1 * np.sin(2 * np.pi * freq * t + rng.uniform(0, 2 * np.pi)) + 0.025 * rng.standard_normal(t.size)
+        with wave.open(str(root / f"clip{i}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(sr)
+            f.writeframes(np.round(wav * 32767).astype("<i2").tobytes())
+        rows.append({"path": f"clip{i}.wav", "label": f"tone_{label}"})
+    with open(root / "metadata.csv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["path", "label"])
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def write_noise_wavs(root: Path, n: int = 4) -> None:
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(99)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        with wave.open(str(root / f"noise{i}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(16000)
+            f.writeframes(np.round(0.1 * rng.standard_normal(16000 * (4 + i)) * 32767).astype("<i2").tobytes())
+
+
+def entry_model_spec(**init) -> dict:
+    """The official BEATs config (12 x 768, 12 heads) with 5 s clips, bf16."""
+    return {"name": "beats", "pretrained": False, "compute_dtype": "bfloat16",
+            "init_config": dict(beats_config(), use_pallas=True, **init),
+            "audio_config": {"representation": "raw", "normalize": False, "target_length_seconds": 5,
+                             "window_selection": "random"}}
+
+
+def busy_share(run) -> tuple:
+    """(wall ms, device busy share) of ``run()`` under ``torch.profiler``:
+    the union of the kernels' intervals over the span from the first
+    kernel's start to the last one's end, as scripts/torch_beats_profile.py."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return wall_ms, float("nan")
+    busy, reach = 0, spans[0][0]
+    for lo, hi in spans:
+        busy += max(0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    return wall_ms, busy / (spans[-1][1] - spans[0][0])
+
+
+def phase_entry_points(workdir: Path):
+    """``run_train.main`` and ``run_evaluate.main`` at full BEATs width from
+    ``kind: local`` WAV datasets, through the loader's worker processes.
+    Returns the launches of every kernel in the two runs."""
+    import numpy as np
+    import torch
+
+    import avex_tpu_torch.evaluation.finetune as finetune
+    import avex_tpu_torch.run_evaluate as run_evaluate
+    import avex_tpu_torch.run_train as run_train
+    from avex_tpu_torch.configs import EvaluateConfig, RunConfig
+    from avex_tpu_torch.data import Collater, DataLoader, dataset_from_config
+    from avex_tpu_torch.training import Trainer
+
+    start = time.perf_counter()
+    data = workdir / "data"
+    write_tone_wavs(data / "train", ENTRY_TRAIN, seed=31)
+    write_tone_wavs(data / "val", ENTRY_VAL, seed=32)
+    write_noise_wavs(data / "noise")
+    for s, sizes in enumerate(ENTRY_EVAL_SETS):
+        for j, (split, n) in enumerate(zip(("train", "val", "test"), sizes)):
+            write_tone_wavs(data / f"set{s}" / split, n, seed=40 + 3 * s + j)
+    print(f"entry points: {ENTRY_TRAIN + ENTRY_VAL + sum(map(sum, ENTRY_EVAL_SETS))} WAVs written in "
+          f"{time.perf_counter() - start:.1f} s")
+    layers = beats_config()["encoder_layers"]
+    total, report = {}, {"card": CARD[0], "batch": B_TRAIN, "num_workers": ENTRY_WORKERS}
+
+    # --- run_train: fused_qkv BEATs, noise and mixup, 2 epochs, a checkpoint each
+    def local(name, split):
+        return {"name": f"{name}_{split}", "kind": "local", "path": str(data / name / split) if split else
+                str(data / name)}
+
+    config = RunConfig.from_dict({
+        "model_spec": entry_model_spec(fused_qkv=True),
+        "training_params": {"train_epochs": ENTRY_EPOCHS, "lr": ENTRY_LR, "batch_size": B_TRAIN,
+                            "optimizer": "adamw", "weight_decay": 0.01},
+        "dataset_config": {"train_datasets": [local("train", None)], "val_datasets": [local("val", None)]},
+        "augmentations": [{"noise": {"noise_dirs": [str(data / "noise")], "snr_db_range": [5, 20],
+                                     "augmentation_prob": 0.5}},
+                          {"mixup": {"alpha": 0.4, "augmentation_prob": 0.5}}],
+        "output_dir": str(workdir / "run_train"), "checkpoint_freq": 1, "logging": "none",
+        "num_workers": ENTRY_WORKERS, "device": "cuda", "seed": 0,
+    })
+    loaders = []
+    build_dataloaders = run_train.build_dataloaders
+
+    def capture(cfg):  # keep the loaders to read their wait counters
+        out = build_dataloaders(cfg)
+        loaders.append(out)
+        return out
+
+    run_train.build_dataloaders = capture
+    built = []
+    build_model = run_train.build_model_from_spec
+    run_train.build_model_from_spec = lambda *a, **k: built.append(build_model(*a, **k)) or built[-1]
+    try:
+        reset_counts()
+        start = time.perf_counter()
+        result = run_train.main(config)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts = read_counts()
+    finally:
+        run_train.build_dataloaders, run_train.build_model_from_spec = build_dataloaders, build_model
+    train_loader, val_loader = loaders[0][:2]
+    steps, val_batches = len(train_loader), len(val_loader)
+    expect = {"fused_qkv_gated_attention": layers * ENTRY_EPOCHS * (steps + val_batches),
+              "fused_qkv_gated_attention_backward": layers * ENTRY_EPOCHS * steps}
+    for kname, n in counts.items():
+        check(n == expect.get(kname, 0), f"run_train: {kname} launched {n} times == {expect.get(kname, 0)} "
+                                         f"({layers} a forward; {ENTRY_EPOCHS} epochs of {steps} steps and "
+                                         f"{val_batches} validation batches)")
+        total[kname] = total.get(kname, 0) + n
+    history = result["history"]
+    losses = [h["train"]["loss"] for h in history]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          "run_train: the training loss falls over the run: " + " -> ".join(f"{x:.4f}" for x in losses))
+    out = Path(config.output_dir)
+    lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    check(len(lines) == 1 + ENTRY_EPOCHS and all((out / f"checkpoint_epoch_{e}").exists()
+                                                 for e in range(ENTRY_EPOCHS))
+          and (out / "final_model").exists() and (out / "label_map.json").exists(),
+          f"run_train: metrics.jsonl ({len(lines)} lines), {ENTRY_EPOCHS} epoch checkpoints, the final model "
+          f"and the label map written")
+    check(train_loader.pin_memory and train_loader.batches_served == ENTRY_EPOCHS * steps,
+          f"run_train: {train_loader.batches_served} pinned batches through {ENTRY_WORKERS} worker processes")
+    epoch_s = history[-1]["train"]["epoch_seconds"]
+    report["run_train"] = {
+        "seconds": elapsed, "losses": losses, "steps_per_s": steps / epoch_s, "ms_per_step": epoch_s / steps * 1e3,
+        "loader_wait_ms_per_batch": train_loader.wait_seconds / train_loader.batches_served * 1e3,
+    }
+    # one more epoch through the same loader and workers, profiled
+    model = built[0]
+    trainer = Trainer(model, config, train_loader)
+    wait0, served0 = train_loader.wait_seconds, train_loader.batches_served
+    train_loader.set_epoch(ENTRY_EPOCHS)
+    wall_ms, busy = busy_share(lambda: trainer._run_epoch(train_loader, train=True, epoch=ENTRY_EPOCHS))
+    report["run_train"].update(profiled_epoch_ms_per_step=wall_ms / steps, device_busy=busy,
+                               profiled_wait_ms_per_batch=(train_loader.wait_seconds - wait0)
+                               / (train_loader.batches_served - served0) * 1e3)
+    # the loader's host work for one batch in this process: decode, resample, crop, augment, collate, pin
+    train_ds = dataset_from_config(config.dataset_config.train_datasets[0])
+    collater = Collater(target_len=5 * 16000, num_classes=ENTRY_CLASSES, augmentations=config.augmentations,
+                        seed=0)
+    inline = DataLoader(train_ds, B_TRAIN, collater, seed=0, pin_memory=True)
+    t0 = time.perf_counter()
+    n_inline = sum(1 for _ in inline)
+    report["run_train"]["host_ms_per_batch_one_process"] = (time.perf_counter() - t0) / n_inline * 1e3
+    # its parts: one 6 s clip decoded at 16 kHz, one at 44.1 kHz resampled, one batch collated
+    from avex_tpu_torch._native import decode_audio, resample
+
+    t0 = time.perf_counter()
+    decode_audio(str(data / "train" / "clip0.wav"))
+    t1 = time.perf_counter()
+    wav, sr = decode_audio(str(data / "train" / "clip3.wav"))  # one clip in 8 (i % 8 == 3) is at 44.1 kHz
+    t2 = time.perf_counter()
+    resample(wav, sr, 16000)
+    t3 = time.perf_counter()
+    items = [train_ds[i] for i in range(B_TRAIN)]
+    t4 = time.perf_counter()
+    collater(items, rng=np.random.default_rng(0))
+    report["run_train"]["host_ms"] = {"decode_16k": (t1 - t0) * 1e3, "decode_44k": (t2 - t1) * 1e3,
+                                      "resample_44k": (t3 - t2) * 1e3, "collate_batch": (time.perf_counter() - t4) * 1e3}
+    r = report["run_train"]
+    print(f"run_train (BEATs fused_qkv, bf16, B={B_TRAIN}, {ENTRY_WORKERS} workers): {r['steps_per_s']:.3f} steps/s "
+          f"({r['ms_per_step']:.1f} ms a step, second epoch), the step waited {r['loader_wait_ms_per_batch']:.2f} ms "
+          f"a batch for the loader; one process takes {r['host_ms_per_batch_one_process']:.1f} ms a batch "
+          f"(decode, resample, crop, noise, mixup, collate, pin: {r['host_ms']}); profiled epoch "
+          f"{r['profiled_epoch_ms_per_step']:.1f} "
+          f"ms a step, device busy {busy:.1%} (an in-memory batch: 74.8%, PERF.md §5); {CARD[0]}")
+    del trainer, model, built, loaders, train_loader, val_loader
+    torch.cuda.empty_cache()
+
+    # --- run_evaluate: a frozen online attention probe over four layers, two sets
+    sets = [{"name": f"tones{s}", "metrics": ["accuracy", "balanced_accuracy"],
+             **{split: local(f"set{s}", split) for split in ("train", "val", "test")}}
+            for s in range(len(ENTRY_EVAL_SETS))]
+    probe = {"probe_type": "attention", "aggregation": "none", "input_processing": "sequence", "num_heads": 8,
+             "num_layers": 2, "target_layers": PROBE_LAYERS, "online_training": True, "freeze_backbone": True,
+             "target_length": CLIP_SAMPLES}
+    eval_config = EvaluateConfig.from_dict({
+        "experiments": [{"run_name": "beats_attention", "pretrained": False, "probe_config": probe,
+                         "run_config": {"model_spec": entry_model_spec(),
+                                        "training_params": {"train_epochs": 1, "lr": 1e-3, "batch_size": B_PROBE},
+                                        "output_dir": str(workdir / "unused")}}],
+        "dataset_config": {"name": "tones", "evaluation_sets": sets},
+        "save_dir": str(workdir / "run_evaluate"), "device": "cuda", "seed": 0, "num_workers": ENTRY_WORKERS,
+        "training_params": {"train_epochs": ENTRY_EPOCHS, "lr": ENTRY_PROBE_LR, "batch_size": B_PROBE},
+        "eval_modes": ["probe"],
+    })
+    histories, builds = [], []
+    train = finetune.FineTuneTrainer.train
+    build_model = run_evaluate.build_model_from_spec
+
+    def recording(self, *a, **k):
+        result = train(self, *a, **k)
+        histories.append(result["history"])
+        return result
+
+    finetune.FineTuneTrainer.train = recording
+    run_evaluate.build_model_from_spec = lambda *a, **k: builds.append(1) or build_model(*a, **k)
+    try:
+        reset_counts()
+        start = time.perf_counter()
+        results = run_evaluate.main(eval_config)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts = read_counts()
+    finally:
+        finetune.FineTuneTrainer.train, run_evaluate.build_model_from_spec = train, build_model
+    # backbone forwards: embedding_shapes, the training steps, validation and test batches
+    forwards = sum(1 + ENTRY_EPOCHS * (-(-tr // B_PROBE) + -(-va // B_PROBE)) + -(-te // B_PROBE)
+                   for tr, va, te in ENTRY_EVAL_SETS)
+    for kname, n in counts.items():
+        want = layers * forwards if kname == "gated_bias_attention" else 0
+        check(n == want, f"run_evaluate: {kname} launched {n} times == {want} ({layers} a forward x {forwards})")
+        total[kname] = total.get(kname, 0) + n
+    check(len(builds) == 1, f"run_evaluate: the frozen backbone built {len(builds)} time(s) for "
+                            f"{len(ENTRY_EVAL_SETS)} evaluation sets")
+    for s, history in enumerate(histories):
+        falls(f"run_evaluate set {s} online frozen attention probe", history)
+    save = Path(eval_config.save_dir)
+    records = [json.loads(x) for x in (save / "evaluation_metadata.jsonl").read_text().splitlines()]
+    check(len(records) == len(ENTRY_EVAL_SETS) and (save / "summary.csv").exists()
+          and (save / "summary_simple.csv").exists()
+          and all(math.isfinite(r["metrics"]["probe"]["test_accuracy"]) for r in records),
+          f"run_evaluate: {len(records)} records in evaluation_metadata.jsonl and the summary CSVs written")
+    ms = [h[-1]["train_seconds"] / -(-tr // B_PROBE) * 1e3 for h, (tr, _, _) in zip(histories, ENTRY_EVAL_SETS)]
+    report["run_evaluate"] = {"seconds": elapsed, "probe_ms_per_step": ms, "steps_per_s": [1e3 / x for x in ms],
+                              "probe_info": records[0]["probe_info"],
+                              "test_accuracy": [r["metrics"]["probe"]["test_accuracy"] for r in records]}
+    print(f"run_evaluate (BEATs frozen, K1, attention probe over 4 layers, B={B_PROBE}, {ENTRY_WORKERS} workers): "
+          + ", ".join(f"set {s}: {x:.1f} ms a probe step ({1e3 / x:.2f} steps/s)" for s, x in enumerate(ms))
+          + f"; {elapsed:.1f} s in all; {CARD[0]}")
+    print(json.dumps({"phase": "entry_points", **report}))
+    return total
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -1800,6 +2103,7 @@ def main() -> int:
     eat_train = phase_eat_training(workdir / "eat")
     aves_train = phase_aves_training(workdir / "aves")
     probes = phase_probes()
+    entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path and "
           f"{aves_launches} on the AVES path")
@@ -1816,6 +2120,11 @@ def main() -> int:
         if count:  # each probe run checked the rest at 0
             launches[kname] += count
     print(f"probes phase launches: { {k: v for k, v in probes.items() if v} }")
+    # Entry points: K2/K3 in run_train, K1 in run_evaluate.
+    for kname, count in entry.items():
+        if count:  # each run checked the rest at 0
+            launches[kname] += count
+    print(f"entry points phase launches: { {k: v for k, v in entry.items() if v} }")
     # No main path reaches K4 (every model's dh-64 projection takes K5, and K4
     # takes dh 64 only) or K8 (in JAX only scripts/bench_int8_matmul.py calls
     # it); drive() checks that each main-path run launched them 0 times.

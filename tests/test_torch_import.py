@@ -56,13 +56,28 @@ SLICE_MODULES = [
     "avex_tpu_torch.evaluation.embedding_manager",
     "avex_tpu_torch.evaluation.retrieval",
     "avex_tpu_torch.evaluation.clustering",
+    "avex_tpu_torch.io",
+    "avex_tpu_torch.data",
+    "avex_tpu_torch.data.dataset",
+    "avex_tpu_torch.data.collate",
+    "avex_tpu_torch.data.loader",
+    "avex_tpu_torch.data.transforms",
+    "avex_tpu_torch.data.data_utils",
+    "avex_tpu_torch.data.beans",
+    "avex_tpu_torch.data.birdset",
+    "avex_tpu_torch.data.ebird_taxonomy",
+    "avex_tpu_torch.utils.tracking",
+    "avex_tpu_torch.utils.experiment_logger",
+    "avex_tpu_torch.run_train",
+    "avex_tpu_torch.run_evaluate",
 ]
 #: top-level packages the port must not import: JAX, its libraries, and the
 #: JAX package with its configuration library
 _NOT_IMPORTED = ("jax", "flax", "optax", "orbax", "pydantic", "avex_tpu")
 #: packages the machine with the card may lack: imported only where a
-#: function needs them (the HDF5 cache, clustering, YAML probe configs)
-_LAZY = ("h5py", "sklearn", "yaml")
+#: function needs them (the HDF5 cache, clustering, YAML configs, HF
+#: datasets, remote paths, the logging backends)
+_LAZY = ("h5py", "sklearn", "yaml", "datasets", "fsspec", "mlflow", "wandb")
 _NAMES = "|".join(_NOT_IMPORTED)
 _FORBIDDEN = re.compile(
     rf"^\s*(import\s+({_NAMES})\b(?!_torch)|from\s+({_NAMES})\b(?!_torch))",
