@@ -1,7 +1,8 @@
 """Configuration of the port, as dataclasses.
 
-Counterparts of ``avex_tpu.configs``: ``ModelSpec`` and ``AudioConfig`` with
-the fields that the BEATs, EAT and AVES paths read, ``TrainingParams``,
+Counterparts of ``avex_tpu.configs``: ``AudioConfig`` with the JAX package's
+fields, ``ModelSpec`` with the fields that the ported models read (BEATs,
+EAT, AVES, Bird-MAE's ``model_id``, ATST), ``TrainingParams``,
 ``SchedulerConfig``, the augmentations (``NoiseAugment``, ``MixupAugment``),
 the dataset configs (``DatasetConfig``, ``DatasetCollectionConfig``,
 ``EvaluationSet``, ``BenchmarkEvaluationConfig``), ``RunConfig``,
@@ -185,10 +186,17 @@ class AudioConfig:
     """How raw audio becomes the model input (≈ ``avex_tpu.configs.AudioConfig``)."""
 
     sample_rate: int = 16000
+    n_fft: int = 2048
+    hop_length: Optional[int] = None
+    win_length: Optional[int] = None
+    window: str = "hann"
+    n_mels: int = 128
     representation: str = "mel_spectrogram"
     normalize: bool = True
     target_length_seconds: Optional[float] = None
     window_selection: str = "random"
+    center: bool = True
+    extra_config: Optional[Dict[str, Any]] = None
 
     def __post_init__(self) -> None:
         _lax_numbers(self)
@@ -199,6 +207,8 @@ class AudioConfig:
         if self.window_selection not in ("random", "center"):
             raise ValueError(f"window_selection must be 'random' or 'center', got "
                              f"{self.window_selection!r}")
+        if self.window not in ("hann", "hamming"):
+            raise ValueError(f"window must be 'hann' or 'hamming', got {self.window!r}")
 
     @property
     def target_length_samples(self) -> Optional[int]:
@@ -231,6 +241,8 @@ class ModelSpec:
     use_naturelm: Optional[bool] = None
     fine_tuned: Optional[bool] = None
     init_config: Optional[Dict[str, Any]] = None
+    # Bird-MAE / HF-hosted models: the variant is read from the id
+    model_id: Optional[str] = None
     # numeric policy of the backbone compute
     compute_dtype: str = "float32"
 

@@ -9,7 +9,9 @@ Port of ``avex_tpu/models/eat.py``:
   weight), fixed 2-D sin-cos positions, a pre-norm, a prepended CLS token,
   pre-norm blocks with a fused ``[E, 3E]`` qkv projection and a 4x GELU MLP,
   a final norm, then ``cls`` or ``mean`` pooling; tokens are frequency
-  patches major, as the JAX NHWC conv gives them;
+  patches major, as the JAX NHWC conv gives them (the block, the block
+  stack, the patch embedding and the positions serve Bird-MAE and, without
+  the qkv bias, ATST too);
 - attention, as the JAX ``_Block`` dispatches it: with ``use_pallas`` the
   CUDA kernel over the raw ``[B, T, 3E]`` projection (K5,
   ``fused_qkv_attention``) when the heads fit it, else the split-input
@@ -29,7 +31,7 @@ route's backward is the K6 kernel. The layer-stack layouts of the JAX package
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,6 +64,9 @@ _NOT_PORTED = {
     "scan_layers": "queue 1, item 14",
     "layer_runner": "queue 1, item 14",
     "ring_mesh": "queue 1, item 14",
+    "pipeline parallelism": "queue 1, item 14",
+    "sequence parallelism": "queue 1, item 14",
+    "ring attention": "queue 1, item 14",
 }
 
 
@@ -84,9 +89,9 @@ def sincos_2d_positions(embed_dim: int, grid_h: int, grid_w: int) -> np.ndarray:
 class _Attention(nn.Module):
     """Parameter holder of a block's attention (reference names ``attn.qkv``, ``attn.proj``)."""
 
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, qkv_bias: bool = True) -> None:
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
 
@@ -98,18 +103,23 @@ class _Mlp(nn.Module):
 
 
 class _Block(nn.Module):
-    """Pre-norm ViT block with a fused qkv projection (data2vec AltBlock).
+    """Pre-norm ViT block with a fused qkv projection (data2vec AltBlock;
+    Bird-MAE's and, without the qkv bias, ATST's block too).
 
     Returns ``(x, proj_out)``; ``proj_out`` is the embedding tap.
+    ``split_kernel``: with ``use_pallas``, heads that K5 refuses take K4 (EAT
+    and Bird-MAE, as in JAX), or the plain path (ATST, as in JAX).
     """
 
     def __init__(
-        self, dim: int, heads: int, mlp_ratio: float, dtype: torch.dtype, use_pallas: bool
+        self, dim: int, heads: int, mlp_ratio: float, dtype: torch.dtype, use_pallas: bool,
+        qkv_bias: bool = True, split_kernel: bool = True,
     ) -> None:
         super().__init__()
         self.dim, self.heads, self.dtype, self.use_pallas = dim, heads, dtype, use_pallas
+        self.split_kernel = split_kernel
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = _Attention(dim)
+        self.attn = _Attention(dim, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio))
 
@@ -122,9 +132,10 @@ class _Block(nn.Module):
             attn = fused_qkv_attention(qkv, heads, scale=head_dim**-0.5)  # K5
         else:
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, head_dim).unbind(2))
-            if self.use_pallas:
-                # K4. Reached only when K5 refuses the heads, i.e. dh != 64,
-                # which K4 refuses as well: on CUDA this raises; the CPU twin runs.
+            if self.use_pallas and self.split_kernel:
+                # K4. Reached only when K5 refuses the heads, i.e. dh not 64
+                # or 80, which K4 refuses as well: on CUDA this raises; the CPU
+                # twin runs.
                 attn = gated_bias_attention(q, k, v, None, scale=head_dim**-0.5)
             else:
                 # bf16 compute runs the softmax chain in bf16 too, as in JAX.
@@ -149,9 +160,49 @@ def apply_vit_blocks(
 
 
 class _PatchEmbed(nn.Module):
-    def __init__(self, dim: int, patch: int) -> None:
+    def __init__(self, dim: int, patch: Union[int, Tuple[int, int]]) -> None:
         super().__init__()
         self.proj = nn.Conv2d(1, dim, patch, stride=patch)
+
+
+def patch_tokens(conv: nn.Conv2d, image: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, int, int]:
+    """A stride-equals-kernel Conv2d over a one-channel image ``[B, H, W]`` as
+    one matmul: ``[B, (H/ph)·(W/pw), dim]``, tokens row-major over the
+    (H, W) patch grid as the JAX package's NHWC conv gives them; returns the
+    tokens and the grid ``(gh, gw)``."""
+    ph, pw = conv.kernel_size
+    bsz, height, width = image.shape
+    gh, gw = height // ph, width // pw
+    patches = (
+        image[:, : gh * ph, : gw * pw]
+        .reshape(bsz, gh, ph, gw, pw)
+        .permute(0, 1, 3, 2, 4)
+        .reshape(bsz, gh * gw, ph * pw)
+    )
+    weight = conv.weight.reshape(conv.out_channels, ph * pw).to(dtype)
+    return F.linear(patches.to(dtype), weight, conv.bias.to(dtype)), gh, gw
+
+
+class _PositionTables:
+    """The fixed 2-D sin-cos table of a patch grid, built once per (grid, device)."""
+
+    def __init__(self, dim: int) -> None:
+        self.dim = dim
+        self._tables: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+    def __call__(self, gh: int, gw: int, device: torch.device) -> torch.Tensor:
+        key = (gh, gw, device)
+        table = self._tables.get(key)
+        if table is None:
+            table = self._tables[key] = torch.from_numpy(sincos_2d_positions(self.dim, gh, gw)).to(device)
+        return table
+
+
+def check_unported(model: str, **options: Any) -> None:
+    """Raise for a JAX layer-stack option that the port does not have."""
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(f"{model} {name} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name]})")
 
 
 class EATModel(nn.Module):
@@ -180,11 +231,7 @@ class EATModel(nn.Module):
         ring_mesh: Any = None,
     ) -> None:
         super().__init__()
-        for name, value in (("scan_layers", scan_layers), ("layer_runner", layer_runner), ("ring_mesh", ring_mesh)):
-            if value:
-                raise NotImplementedError(
-                    f"EAT {name} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name]})"
-                )
+        check_unported("EAT", scan_layers=scan_layers, layer_runner=layer_runner, ring_mesh=ring_mesh)
         if pooling not in ("cls", "mean"):
             raise ValueError(f"pooling must be 'cls' or 'mean', got {pooling!r}")
         self.num_classes, self.target_length = num_classes, target_length
@@ -198,30 +245,7 @@ class EATModel(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         if num_classes is not None:
             self.classifier = nn.Linear(dim, num_classes)
-        self._positions: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
-
-    def _patch_tokens(self, spec: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
-        """``[B, F, T]`` → ``[B, (F/p)·(T/p), dim]``, frequency patches major."""
-        p, dt = self.patch_size, self.dtype
-        bsz, freq, frames = spec.shape
-        gh, gw = freq // p, frames // p
-        patches = (
-            spec[:, : gh * p, : gw * p]
-            .reshape(bsz, gh, p, gw, p)
-            .permute(0, 1, 3, 2, 4)
-            .reshape(bsz, gh * gw, p * p)
-        )
-        conv = self.patch_embed.proj
-        weight = conv.weight.reshape(conv.out_channels, p * p).to(dt)
-        return F.linear(patches.to(dt), weight, conv.bias.to(dt)), gh, gw
-
-    def _position_table(self, gh: int, gw: int, device: torch.device) -> torch.Tensor:
-        key = (gh, gw, device)
-        table = self._positions.get(key)
-        if table is None:
-            table = torch.from_numpy(sincos_2d_positions(self.dim, gh, gw)).to(device)
-            self._positions[key] = table
-        return table
+        self._positions = _PositionTables(dim)
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None
@@ -233,8 +257,8 @@ class EATModel(nn.Module):
             spec = eat_fbank(x, self.target_length, self.norm_mean, self.norm_std, fbank=self.fbank)
         else:
             spec = x
-        tokens, gh, gw = self._patch_tokens(spec)
-        tokens = tokens + self._position_table(gh, gw, tokens.device)[None].to(dt)
+        tokens, gh, gw = patch_tokens(self.patch_embed.proj, spec, dt)  # frequency patches major
+        tokens = tokens + self._positions(gh, gw, tokens.device)[None].to(dt)
         tokens = layer_norm(self.pre_norm, tokens, dt)
         cls = self.cls_token.to(dt).expand(tokens.shape[0], 1, self.dim)
         tokens = torch.cat([cls, tokens], dim=1)
@@ -308,8 +332,9 @@ def convert_eat_state_dict(
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """JAX ``EATModel`` ``variables["params"]`` (nested dicts of numpy arrays)
-    → this port's :class:`EATModel` state dict.
+    """JAX ``EATModel`` (or ``BirdMAEModel``, which has no pre-norm)
+    ``variables["params"]`` (nested dicts of numpy arrays) → this port's
+    state dict.
 
     Dense ``[in, out]`` → Linear ``[out, in]``; the patch conv ``[kh, kw, 1,
     out]`` → ``[out, 1, kh, kw]``; LayerNorm ``scale`` → ``weight``.
@@ -332,7 +357,8 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     put("patch_embed.proj.weight", np.asarray(params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
     put("patch_embed.proj.bias", params["patch_embed"]["bias"])
     put("cls_token", params["cls_token"])
-    norm_("pre_norm", params["pre_norm"])
+    if "pre_norm" in params:  # EAT's; Bird-MAE has none
+        norm_("pre_norm", params["pre_norm"])
     norm_("norm", params["norm"])
     for name, node in params.items():
         if not name.startswith("blocks_"):

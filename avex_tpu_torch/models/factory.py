@@ -26,6 +26,7 @@ _SPEC_FORWARD_FIELDS = (
     "use_naturelm",
     "fine_tuned",
     "init_config",
+    "model_id",
     "compute_dtype",
 )
 

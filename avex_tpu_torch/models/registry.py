@@ -27,6 +27,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "beats": "avex_tpu_torch.models.beats",
     "eat_hf": "avex_tpu_torch.models.eat",
     "aves_bio": "avex_tpu_torch.models.aves",
+    "birdmae": "avex_tpu_torch.models.birdmae",
+    "atst": "avex_tpu_torch.models.atst",
 }
 
 

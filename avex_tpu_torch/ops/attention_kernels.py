@@ -26,8 +26,10 @@ forwards also write the row log-sum-exp and the output's rounding rest when
 a backward will follow, so that the backward rebuilds P from the one and
 takes Δ from the forward's output and the other; fp32 calls launch
 ``csrc/gated_attention.cu``'s FMA body. Each source is gated or bias-free by
-a template flag. The two layouts differ only in the strides handed to the
-kernels. Each source's header states its bounds on an H100 and what its
+a template flag. The bias-free kernels (K4, K5, K6) take head width 64 or 80
+(:data:`HEAD_DIMS`; 80 is Bird-MAE large and huge), the gated ones 64; a CUDA
+call at another width raises. The two layouts differ only in the strides
+handed to the kernels. Each source's header states its bounds on an H100 and what its
 design does about them.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
@@ -54,7 +56,8 @@ from avex_tpu_torch.ops._build import load_library
 
 __all__ = [
     "LAUNCHES",
-    "HEAD_DIM",
+    "GATED_HEAD_DIM",
+    "HEAD_DIMS",
     "fused_qkv_attention",
     "fused_qkv_backward_from_residuals_reference",
     "fused_qkv_backward_reference",
@@ -71,8 +74,11 @@ __all__ = [
 SOURCE = "gated_attention.cu"
 #: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
-#: The only head width the kernel takes (BEATs, EAT and AVES: 768 / 12).
-HEAD_DIM = 64
+#: The head widths the bias-free kernels (K4, K5, K6) take: 64 (BEATs, EAT,
+#: AVES, ATST, Bird-MAE base: 768 / 12) and 80 (Bird-MAE large and huge:
+#: 1024 / 16, 1280 / 16). The gated kernels (K1, K2, K3) take 64 only.
+HEAD_DIMS = (64, 80)
+GATED_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel:
@@ -381,8 +387,10 @@ def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> None:
     """Raise on what the kernels do not take. q, k, v and every tensor of
     ``outputs`` (name → tensor) are ``[B, H, T, D]`` views of one type."""
     bsz, heads, seq, dim = q.shape
-    if dim != HEAD_DIM:
-        raise ValueError(f"the attention kernel takes head_dim {HEAD_DIM}, got {dim}")
+    if pos_bias is not None and dim != GATED_HEAD_DIM:
+        raise ValueError(f"the gated attention kernel takes head_dim {GATED_HEAD_DIM}, got {dim}")
+    if dim not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, got {dim}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v), *outputs.items()):
@@ -710,12 +718,15 @@ def gated_bias_attention(
 
 
 def fused_qkv_compatible(dim: int, heads: int) -> bool:
-    """True when the kernel takes this projection's heads (``dim / heads == 64``).
+    """True when K5 takes this projection's heads: ``dim / heads`` in
+    :data:`HEAD_DIMS` (64 or 80), whatever the head count.
 
-    The JAX rule (128-lane head groups) is a Mosaic layout rule with no
-    Hopper counterpart; here the only constraint is the kernel's head width.
+    The JAX rule (head groups that tile 128 lanes, ``pallas_attention.py:445-468``)
+    is a Mosaic layout rule with no Hopper counterpart; here the only
+    constraint is the kernel's head width. So 12 heads of dh 80 take K5 here
+    where JAX takes the split-input K4.
     """
-    return heads > 0 and dim % heads == 0 and dim // heads == HEAD_DIM
+    return heads > 0 and dim % heads == 0 and dim // heads in HEAD_DIMS
 
 
 def _needs_grad(qkv: torch.Tensor) -> bool:

@@ -18,10 +18,13 @@
 // body, the card's parity path: the tensor cores would round its operands to
 // TF32.
 //
+// Head widths: the gated variant takes D=64, the bias-free one 64 and 80
+// (Bird-MAE large and huge), D a template parameter.
+//
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
 // staged in shared memory as fp32; the [BQ, BK] logits live in registers
-// (4 rows x 8 keys per thread), the gate and the shared [H,T,T] bias are
+// (4 rows x 8 keys per thread; the output 4 rows x D/8 dims), the gate and the shared [H,T,T] bias are
 // applied there (gated variant only), and a padded key gets -inf. The
 // softmax is online, in fp32: a running row max and row sum, with the
 // accumulator rescaled per tile. P is rounded to v's type before the PV
@@ -45,12 +48,16 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
-constexpr size_t kSmemBytes =
-    sizeof(float) * (kHeadDim * kBlockQ + kHeadDim * kBlockK + kBlockK * kHeadDim + kBlockK * kBlockQ);
+
+// Shared memory of the forward at head width kD: q and the K tile
+// transposed, the V tile, and the probabilities.
+template <int kD>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (kD * kBlockQ + kD * kBlockK + kBlockK * kD + kBlockK * kBlockQ);
+}
 
 // Element strides. q/k/v/out/gate: (batch, head, token); bias: (head, query,
 // key); pad: (batch, token). The head-dim stride of q/k/v/out is 1.
@@ -73,23 +80,57 @@ __device__ __forceinline__ void store8(float* p, const float* x) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
 }
 
-template <typename T, bool kGated>
+// A thread's kC = kD/8 output columns of a row: 8 (head width 64) as two
+// 16-byte moves, 10 (head width 80) as five 8-byte ones (its columns start at
+// 40-byte offsets).
+template <int kC>
+__device__ __forceinline__ void load_cols(const float* p, float* x) {
+  if constexpr (kC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kC / 4; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(p + 4 * i);
+      x[4 * i] = a.x; x[4 * i + 1] = a.y; x[4 * i + 2] = a.z; x[4 * i + 3] = a.w;
+    }
+  } else {
+    static_assert(kC % 2 == 0, "an even column count");
+#pragma unroll
+    for (int i = 0; i < kC / 2; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(p + 2 * i);
+      x[2 * i] = a.x; x[2 * i + 1] = a.y;
+    }
+  }
+}
+
+template <int kC>
+__device__ __forceinline__ void store_cols(float* p, const float* x) {
+  if constexpr (kC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kC / 4; ++i)
+      *reinterpret_cast<float4*>(p + 4 * i) = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kC / 2; ++i) *reinterpret_cast<float2*>(p + 2 * i) = make_float2(x[2 * i], x[2 * i + 1]);
+  }
+}
+
+template <typename T, bool kGated, int kD>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const float* __restrict__ gate,
                  const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale,
                  Strides s) {
+  constexpr int kC = kD / 8;  // output columns a thread
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                            // [D][BQ]  q transposed
-  float* k_t = q_t + kHeadDim * kBlockQ;        // [D][BK]  k tile transposed
-  float* v_s = k_t + kHeadDim * kBlockK;        // [BK][D]  v tile
-  float* p_t = v_s + kBlockK * kHeadDim;        // [BK][BQ] probabilities transposed
+  float* k_t = q_t + kD * kBlockQ;              // [D][BK]  k tile transposed
+  float* v_s = k_t + kD * kBlockK;              // [BK][D]  v tile
+  float* p_t = v_s + kBlockK * kD;              // [BK][BQ] probabilities transposed
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int tx = tid & 7;   // keys tx*8..tx*8+7 (logits), dims tx*8..tx*8+7 (output)
+  const int tx = tid & 7;   // keys tx*8..tx*8+7 (logits), dims tx*kC..tx*kC+kC-1 (output)
   const int ty = tid >> 3;  // query rows ty*4..ty*4+3; the 8 lanes of a row group share a warp
 
   const T* qb = q + b * s.q[0] + h * s.q[1];
@@ -100,7 +141,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
 
   // Q tile, transposed into shared memory; rows past the sequence are zero.
-  for (int c = tid; c < kBlockQ * (kHeadDim / 8); c += kThreads) {
+  for (int c = tid; c < kBlockQ * (kD / 8); c += kThreads) {
     const int r = c % kBlockQ;
     const int chunk = c / kBlockQ;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -119,18 +160,18 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (kGated && gate && row_ok[i]) g[i] = gate[b * s.gate[0] + h * s.gate[1] + qi * s.gate[2]];
   }
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][kC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
   }
 
   for (int k0 = 0; k0 < seq; k0 += kBlockK) {
     __syncthreads();  // the previous tile's readers of k_t, v_s and p_t are done
-    for (int c = tid; c < kBlockK * (kHeadDim / 8); c += kThreads) {
+    for (int c = tid; c < kBlockK * (kD / 8); c += kThreads) {
       const int r = c % kBlockK;
       const int chunk = c / kBlockK;
       float kx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -141,7 +182,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) k_t[(chunk * 8 + j) * kBlockK + r] = kx[j];
-      store8(v_s + r * kHeadDim + chunk * 8, vx);
+      store8(v_s + r * kD + chunk * 8, vx);
     }
     __syncthreads();
 
@@ -151,7 +192,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < kHeadDim; ++d) {
+    for (int d = 0; d < kD; ++d) {
       const float4 qa = *reinterpret_cast<const float4*>(q_t + d * kBlockQ + ty * 4);
       const float4 ka = *reinterpret_cast<const float4*>(k_t + d * kBlockK + tx * 8);
       const float4 kc = *reinterpret_cast<const float4*>(k_t + d * kBlockK + tx * 8 + 4);
@@ -201,21 +242,20 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       l[i] = l[i] * corr + tile_sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < kC; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
 
 #pragma unroll 4
     for (int c = 0; c < kBlockK; ++c) {
       const float4 pa = *reinterpret_cast<const float4*>(p_t + c * kBlockQ + ty * 4);
-      const float4 va = *reinterpret_cast<const float4*>(v_s + c * kHeadDim + tx * 8);
-      const float4 vc = *reinterpret_cast<const float4*>(v_s + c * kHeadDim + tx * 8 + 4);
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float vv[8] = {va.x, va.y, va.z, va.w, vc.x, vc.y, vc.z, vc.w};
+      float vv[kC];
+      load_cols<kC>(v_s + c * kD + tx * kC, vv);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 
@@ -224,40 +264,49 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (!row_ok[i]) continue;
     const int qi = q0 + ty * 4 + i;
     const float inv = 1.f / l[i];  // a fully padded row gives 0/0 = NaN, as the softmax does
-    float y[8];
+    float y[kC];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) y[j] = acc[i][j] * inv;
-    store8(ob + (long long)qi * s.o[2] + tx * 8, y);
+    for (int j = 0; j < kC; ++j) y[j] = acc[i][j] * inv;
+    store_cols<kC>(ob + (long long)qi * s.o[2] + tx * kC, y);
   }
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* gate,
                    const void* pad, void* out, int batch, int heads, int seq, float scale,
                    const Strides& s, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+  constexpr size_t smem = fwd_smem_bytes<kD>();
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated, kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  attention_kernel<T, kGated><<<grid, kThreads, kSmemBytes, stream>>>(
+  attention_kernel<T, kGated, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(gate),
       static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, scale, s);
   return cudaGetLastError();
 }
 
+// Head widths: the gated variant takes 64, the bias-free one 64 and 80.
+template <bool kGated>
+bool takes_width(int head_dim) {
+  return head_dim == 64 || (!kGated && head_dim == 80);
+}
+
 template <bool kGated>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
              const void* gate, const void* pad, void* out, int batch, int heads, int seq,
              int head_dim, float scale, const Strides& s, void* stream) {
-  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
+  if (!takes_width<kGated>(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
       heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float, kGated>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
-  return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
+  if constexpr (!kGated) {
+    if (head_dim == 80)
+      return (int)launch<float, false, 80>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
+  }
+  return (int)launch<float, kGated, 64>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
 }
 
 }  // namespace
@@ -349,9 +398,18 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 
 namespace {
 
-constexpr int kTile = kHeadDim * kBlockQ;  // floats in one [64][64] tile (kBlockQ == kBlockK == kHeadDim)
-constexpr size_t kDqSmemBytes = sizeof(float) * 6 * kTile;
-constexpr size_t kDkvSmemBytes = sizeof(float) * 7 * kTile;
+// Floats of a [kD][64] or [64][kD] tile (queries or keys by head dims), and
+// of a [64][64] tile (queries by keys); kBlockQ == kBlockK == 64. The dQ
+// kernel holds q, dO, K (twice) and V tiles and dS; the dK/dV kernel K, V, q
+// and dO transposed, q and dO, and P (then dS). The gated dQ kernel adds its
+// dbias rows.
+constexpr int kScoreTile = kBlockQ * kBlockK;
+template <int kD>
+struct BwdTiles {
+  static constexpr int kDTile = kD * kBlockQ;
+  static constexpr size_t kDqSmem = sizeof(float) * (5 * kDTile + kScoreTile);
+  static constexpr size_t kDkvSmem = sizeof(float) * (6 * kDTile + kScoreTile);
+};
 
 // Element strides (batch, head, token) of q, k, v, dO, dQ, dK, dV; bias
 // (head, query, key); gate (batch, head, token); pad (batch, token).
@@ -362,12 +420,12 @@ struct BwdStrides {
   long long pad[2];
 };
 
-// Rows r0 .. r0+63 of a [T, D] operand (row stride rs) into shared memory:
-// transposed into trans[D][64] and/or as rows[64][D]; rows past seq are zero.
-template <typename T>
+// Rows r0 .. r0+63 of a [T, kD] operand (row stride rs) into shared memory:
+// transposed into trans[kD][64] and/or as rows[64][kD]; rows past seq are zero.
+template <int kD, typename T>
 __device__ __forceinline__ void load_rows(const T* base, long long rs, int r0, int seq,
                                           float* trans, float* rows) {
-  for (int c = threadIdx.x; c < 64 * (kHeadDim / 8); c += kThreads) {
+  for (int c = threadIdx.x; c < 64 * (kD / 8); c += kThreads) {
     const int r = c % 64;
     const int chunk = c / 64;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -376,35 +434,39 @@ __device__ __forceinline__ void load_rows(const T* base, long long rs, int r0, i
 #pragma unroll
       for (int j = 0; j < 8; ++j) trans[(chunk * 8 + j) * 64 + r] = x[j];
     }
-    if (rows) store8(rows + r * kHeadDim + chunk * 8, x);
+    if (rows) store8(rows + r * kD + chunk * 8, x);
   }
 }
 
-// acc[i][j] += Σ_c a[c][ra + i] · b[c][cb + j] over c < 64, for [64][64]
-// tiles a and b in shared memory (4 rows x 8 columns per thread).
+// acc[i][j] += Σ_c a[c][ra + i] · b[c][cb + j] over c < kLen, for a tile a
+// with rows of 64 and a tile b with rows of kLdB in shared memory (4 rows x
+// kC columns per thread).
+template <int kLen, int kLdB, int kC>
 __device__ __forceinline__ void accumulate(const float* a, const float* b, int ra, int cb,
-                                           float acc[4][8]) {
+                                           float acc[4][kC]) {
 #pragma unroll 8
-  for (int c = 0; c < 64; ++c) {
+  for (int c = 0; c < kLen; ++c) {
     const float4 aa = *reinterpret_cast<const float4*>(a + c * 64 + ra);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + c * 64 + cb);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + c * 64 + cb + 4);
     const float av[4] = {aa.x, aa.y, aa.z, aa.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float bv[kC];
+    load_cols<kC>(b + c * kLdB + cb, bv);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
+// acc = the [64][64] product of two transposed [kLen][64] tiles (the
+// contraction runs over kLen head dims); 4 rows x 8 columns per thread.
+template <int kLen>
 __device__ __forceinline__ void product(const float* a, const float* b, int ra, int cb,
                                         float acc[4][8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  accumulate(a, b, ra, cb, acc);
+  accumulate<kLen, 64, 8>(a, b, ra, cb, acc);
 }
 
 __device__ __forceinline__ float row_sum8(float x) {  // over the 8 lanes of a row group
@@ -438,7 +500,7 @@ __device__ __forceinline__ float logit(float qk, float scale, float g, const flo
   return x;
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kD>
 __global__ void __launch_bounds__(kThreads)
 attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ bias,
@@ -446,14 +508,15 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     T* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part,
                     float* __restrict__ stats, int batch, int heads, int seq, int items_per_chunk,
                     float scale, BwdStrides s) {
+  constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dQ columns a thread; floats of a q/k/v tile
   extern __shared__ __align__(16) float smem[];
-  float* q_t = smem;              // [D][BQ]  q transposed
-  float* do_t = q_t + kTile;      // [D][BQ]  dO transposed
-  float* k_t = do_t + kTile;      // [D][BK]  k tile transposed
-  float* v_t = k_t + kTile;       // [D][BK]  v tile transposed
-  float* k_s = v_t + kTile;       // [BK][D]  k tile
-  float* ds_t = k_s + kTile;      // [BK][BQ] dS transposed
-  float* dbias_s = ds_t + kTile;  // [BQ][seq_pad] this block's dbias rows (gated)
+  float* q_t = smem;                   // [D][BQ]  q transposed
+  float* do_t = q_t + kDT;             // [D][BQ]  dO transposed
+  float* k_t = do_t + kDT;             // [D][BK]  k tile transposed
+  float* v_t = k_t + kDT;              // [D][BK]  v tile transposed
+  float* k_s = v_t + kDT;              // [BK][D]  k tile
+  float* ds_t = k_s + kDT;             // [BK][BQ] dS transposed
+  float* dbias_s = ds_t + kScoreTile;  // [BQ][seq_pad] this block's dbias rows (gated)
 
   const int n_ktiles = (seq + kBlockK - 1) / kBlockK;
   const int seq_pad = n_ktiles * kBlockK;
@@ -462,7 +525,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int chunk = blockIdx.z;
   const int b_end = min(batch, (chunk + 1) * items_per_chunk);
   const int tid = threadIdx.x;
-  const int tx = tid & 7;   // keys tx*8.. (logits), dims tx*8.. (dQ)
+  const int tx = tid & 7;   // keys tx*8.. (logits), dims tx*kC.. (dQ)
   const int ty = tid >> 3;  // query rows ty*4..ty*4+3
   const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
   const long long bht = (long long)batch * heads * seq;
@@ -473,9 +536,9 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   for (int b = chunk * items_per_chunk; b < b_end; ++b) {
     __syncthreads();  // the previous item's readers of q_t and do_t are done
-    load_rows(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, q_t, static_cast<float*>(nullptr));
-    load_rows(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, do_t,
-              static_cast<float*>(nullptr));
+    load_rows<kD>(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, q_t, static_cast<float*>(nullptr));
+    load_rows<kD>(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, do_t,
+                  static_cast<float*>(nullptr));
     const T* kb = k + b * s.k[0] + h * s.k[1];
     const T* vb = v + b * s.v[0] + h * s.v[1];
     const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
@@ -496,12 +559,12 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     // Pass 1: row max, row sum and Σ exp(L - m)·dP, online.
     for (int k0 = 0; k0 < seq; k0 += kBlockK) {
       __syncthreads();
-      load_rows(kb, s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
-      load_rows(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+      load_rows<kD>(kb, s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
+      load_rows<kD>(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
       __syncthreads();
       float sc[4][8], dp[4][8];
-      product(q_t, k_t, ty * 4, tx * 8, sc);
-      product(do_t, v_t, ty * 4, tx * 8, dp);
+      product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
+      product<kD>(do_t, v_t, ty * 4, tx * 8, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = q0 + ty * 4 + i;
@@ -538,19 +601,19 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 
     // Pass 2: dL, then dQ += dS·K, dgate and dbias.
-    float acc[4][8], dg[4] = {0.f, 0.f, 0.f, 0.f};
+    float acc[4][kC], dg[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < seq; k0 += kBlockK) {
       __syncthreads();  // the previous tile's readers of k_t, v_t, k_s and ds_t are done
-      load_rows(kb, s.k[2], k0, seq, k_t, k_s);
-      load_rows(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+      load_rows<kD>(kb, s.k[2], k0, seq, k_t, k_s);
+      load_rows<kD>(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
       __syncthreads();
       float sc[4][8], dp[4][8];
-      product(q_t, k_t, ty * 4, tx * 8, sc);
-      product(do_t, v_t, ty * 4, tx * 8, dp);
+      product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
+      product<kD>(do_t, v_t, ty * 4, tx * 8, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = q0 + ty * 4 + i;
@@ -578,14 +641,14 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         }
       }
       __syncthreads();
-      accumulate(ds_t, k_s, ty * 4, tx * 8, acc);
+      accumulate<kBlockK, kD, kC>(ds_t, k_s, ty * 4, tx * kC, acc);
     }
 
     T* dqb = dq + b * s.dq[0] + h * s.dq[1];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
-      if (row_ok[i]) store8(dqb + (long long)qi * s.dq[2] + tx * 8, acc[i]);
+      if (row_ok[i]) store_cols<kC>(dqb + (long long)qi * s.dq[2] + tx * kC, acc[i]);
       const float dg_row = row_sum8(dg[i]);
       if (row_ok[i] && tx == 0) {
         const long long at = ((long long)b * heads + h) * seq + qi;
@@ -607,35 +670,36 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kD>
 __global__ void __launch_bounds__(kThreads)
 attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ bias,
                      const float* __restrict__ gate, const uint8_t* __restrict__ pad,
                      T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
                      int batch, int heads, int seq, float scale, BwdStrides s) {
+  constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dK/dV columns a thread; floats of a q/k/v tile
   extern __shared__ __align__(16) float smem[];
   float* k_t = smem;          // [D][BK]  k tile transposed
-  float* v_t = k_t + kTile;   // [D][BK]  v tile transposed
-  float* q_t = v_t + kTile;   // [D][BQ]  q tile transposed
-  float* do_t = q_t + kTile;  // [D][BQ]  dO tile transposed
-  float* q_s = do_t + kTile;  // [BQ][D]  q tile
-  float* do_s = q_s + kTile;  // [BQ][D]  dO tile
-  float* pds = do_s + kTile;  // [BQ][BK] P, then dS
+  float* v_t = k_t + kDT;     // [D][BK]  v tile transposed
+  float* q_t = v_t + kDT;     // [D][BQ]  q tile transposed
+  float* do_t = q_t + kDT;    // [D][BQ]  dO tile transposed
+  float* q_s = do_t + kDT;    // [BQ][D]  q tile
+  float* do_s = q_s + kDT;    // [BQ][D]  dO tile
+  float* pds = do_s + kDT;    // [BQ][BK] P, then dS
 
   const int k0 = blockIdx.x * kBlockK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int tx = tid & 7;   // queries tx*8.. (logits), dims tx*8.. (dK, dV)
+  const int tx = tid & 7;   // queries tx*8.. (logits), dims tx*kC.. (dK, dV)
   const int ty = tid >> 3;  // key rows ty*4..ty*4+3
   const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const long long bht = (long long)batch * heads * seq;
   const long long row0 = ((long long)b * heads + h) * seq;
 
-  load_rows(k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
-  load_rows(v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+  load_rows<kD>(k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
+  load_rows<kD>(v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
   const T* qb = q + b * s.q[0] + h * s.q[1];
   const T* dob = dout + b * s.dout[0] + h * s.dout[1];
 
@@ -643,20 +707,20 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int i = 0; i < 4; ++i) key_ok[i] = k0 + ty * 4 + i < seq;
 
-  float dk_acc[4][8], dv_acc[4][8];
+  float dk_acc[4][kC], dv_acc[4][kC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < kC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   for (int q0 = 0; q0 < seq; q0 += kBlockQ) {
     __syncthreads();  // the previous tile's readers of the q/dO tiles and pds are done
-    load_rows(qb, s.q[2], q0, seq, q_t, q_s);
-    load_rows(dob, s.dout[2], q0, seq, do_t, do_s);
+    load_rows<kD>(qb, s.q[2], q0, seq, q_t, q_s);
+    load_rows<kD>(dob, s.dout[2], q0, seq, do_t, do_s);
     __syncthreads();
     float st[4][8], dpt[4][8];  // [key][query]
-    product(k_t, q_t, ty * 4, tx * 8, st);
-    product(v_t, do_t, ty * 4, tx * 8, dpt);
+    product<kD>(k_t, q_t, ty * 4, tx * 8, st);
+    product<kD>(v_t, do_t, ty * 4, tx * 8, dpt);
     float dl[4][8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -684,7 +748,7 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       }
     }
     __syncthreads();
-    accumulate(pds, do_s, ty * 4, tx * 8, dv_acc);  // dV += Pᵀ·dO
+    accumulate<kBlockQ, kD, kC>(pds, do_s, ty * 4, tx * kC, dv_acc);  // dV += Pᵀ·dO
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -692,7 +756,7 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       for (int i = 0; i < 4; ++i)
         pds[(tx * 8 + j) * kBlockK + ty * 4 + i] = dl[i][j] * scale;
     __syncthreads();
-    accumulate(pds, q_s, ty * 4, tx * 8, dk_acc);  // dK += dSᵀ·Q
+    accumulate<kBlockQ, kD, kC>(pds, q_s, ty * 4, tx * kC, dk_acc);  // dK += dSᵀ·Q
   }
 
   T* dkb = dk + b * s.dk[0] + h * s.dk[1];
@@ -701,8 +765,8 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int i = 0; i < 4; ++i) {
     if (!key_ok[i]) continue;
     const int key = k0 + ty * 4 + i;
-    store8(dkb + (long long)key * s.dk[2] + tx * 8, dk_acc[i]);
-    store8(dvb + (long long)key * s.dv[2] + tx * 8, dv_acc[i]);
+    store_cols<kC>(dkb + (long long)key * s.dk[2] + tx * kC, dk_acc[i]);
+    store_cols<kC>(dvb + (long long)key * s.dv[2] + tx * kC, dv_acc[i]);
   }
 }
 
@@ -717,7 +781,7 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ part, float* __res
   }
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kD>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* dout,
                             const void* bias, const void* gate, const void* pad, void* dq,
                             void* dk, void* dv, void* dbias_part, void* dbias, void* dgate,
@@ -725,14 +789,15 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
                             int items_per_chunk, const BwdStrides& s, cudaStream_t stream) {
   const int tiles = (seq + kBlockQ - 1) / kBlockQ;
   const int chunks = (batch + items_per_chunk - 1) / items_per_chunk;
-  const size_t dq_smem = kDqSmemBytes + (kGated ? sizeof(float) * kBlockQ * tiles * kBlockK : 0);
-  cudaError_t err = cudaFuncSetAttribute(attention_dq_kernel<T, kGated>,
+  const size_t dq_smem = BwdTiles<kD>::kDqSmem + (kGated ? sizeof(float) * kBlockQ * tiles * kBlockK : 0);
+  constexpr size_t dkv_smem = BwdTiles<kD>::kDkvSmem;
+  cudaError_t err = cudaFuncSetAttribute(attention_dq_kernel<T, kGated, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_dkv_kernel<T, kGated>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
+  err = cudaFuncSetAttribute(attention_dkv_kernel<T, kGated, kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
   if (err != cudaSuccess) return err;
-  attention_dq_kernel<T, kGated><<<dim3(tiles, heads, chunks), kThreads, dq_smem, stream>>>(
+  attention_dq_kernel<T, kGated, kD><<<dim3(tiles, heads, chunks), kThreads, dq_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dq),
@@ -740,7 +805,7 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
       static_cast<float*>(stats), batch, heads, seq, items_per_chunk, scale, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_dkv_kernel<T, kGated><<<dim3(tiles, heads, batch), kThreads, kDkvSmemBytes, stream>>>(
+  attention_dkv_kernel<T, kGated, kD><<<dim3(tiles, heads, batch), kThreads, dkv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dk),
@@ -762,15 +827,20 @@ int dispatch_backward(int dtype, const void* q, const void* k, const void* v, co
                       void* dv, void* dbias_part, void* dbias, void* dgate, void* stats, int batch,
                       int heads, int seq, int head_dim, float scale, int items_per_chunk,
                       const BwdStrides& s, void* stream) {
-  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
+  if (!takes_width<kGated>(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
       heads > 65535 || items_per_chunk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_backward<float, kGated>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
-                                               dbias_part, dbias, dgate, stats, batch, heads, seq,
-                                               scale, items_per_chunk, s, st);
-  return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
+  if constexpr (!kGated) {
+    if (head_dim == 80)
+      return (int)launch_backward<float, false, 80>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
+                                                    dbias_part, dbias, dgate, stats, batch, heads, seq,
+                                                    scale, items_per_chunk, s, st);
+  }
+  return (int)launch_backward<float, kGated, 64>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
+                                                 dbias_part, dbias, dgate, stats, batch, heads, seq,
+                                                 scale, items_per_chunk, s, st);
 }
 
 }  // namespace

@@ -11,8 +11,10 @@
 //   - _fused_qkv_bwd_kernel        avex_tpu/ops/pallas_attention.py:524  (K6, its backward)
 //   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
 // The layouts are only strides here: every operand is a base pointer plus
-// (batch, head, token) strides with the head dimension contiguous. fp32
-// operands stay on gated_attention.cu's FMA body.
+// (batch, head, token) strides with the head dimension contiguous. The gated
+// kernels take head width 64; the bias-free ones 64 and 80 (Bird-MAE large
+// and huge), the width a template parameter. fp32 operands stay on
+// gated_attention.cu's FMA body.
 //
 // Numerics, as the TPU kernels (pallas_attention.py:126-158, :344-430,
 // :524-585, :765-843): fp32 logits and softmax; P rounded to bf16 before P·V
@@ -39,7 +41,11 @@
 //     0.131 ms, against 7 x 50.4 MB = 353 MB, 0.105 ms: bound by operations;
 //   gated backward, BEATs B=64, T=248: 30.2 GFLOP, 0.031 ms, against 7 x
 //     24.4 MB plus bias, dbias, gate and dgate, 178 MB, 0.053 ms: bound by
-//     bytes.
+//     bytes;
+//   forward, Bird-MAE huge (H=16, D=80) B=128, T=513: 4 x 168.1 MB = 672 MB,
+//     0.2007 ms, against 172.5 GFLOP, 0.1744 ms: bound by bytes;
+//   backward, Bird-MAE huge B=64, T=513: 215.6 GFLOP, 0.2180 ms, against 7 x
+//     84.0 MB, 0.1756 ms: bound by operations.
 // Against the byte bound the design reads q once and each K/V tile once per
 // block of 64 queries (four times at T=248, from L2 after the first), and
 // keeps the bias, the one operand of the gated forward that is [T, T] per
@@ -56,11 +62,17 @@
 // Design (FlashAttention-2 on mma.sync.m16n8k16 bf16 with fp32 accumulators).
 // Every block has 4 warps and owns a tile of 64 rows; each warp owns 16 of
 // them, so a row's max and sum stay inside one quad of lanes. Tiles of 64
-// rows x 64 dims are bf16 in shared memory (8 KB), filled by 16-byte cp.async
-// with zero-fill past T, double-buffered so that the next key (or query) tile
-// arrives while this one is multiplied. A row's 8 chunks of 16 bytes are
-// XOR-swizzled by the row's low 3 bits, so ldmatrix (and ldmatrix.trans for
-// the operands read as [K, N]) has no bank conflicts. Products are fragments
+// rows x D dims are bf16 in shared memory (8 KB at D=64), filled by 16-byte
+// cp.async with zero-fill past T, double-buffered so that the next key (or
+// query) tile arrives while this one is multiplied. A 64-wide row's 8 chunks
+// of 16 bytes are XOR-swizzled by the row's low 3 bits, so ldmatrix (and
+// ldmatrix.trans for the operands read as [K, N]) has no bank conflicts; an
+// 80-wide row's 10 chunks sit at an odd stride of 11 chunks instead (struct
+// Layout), which spreads the 8 rows of an ldmatrix phase over all 32 banks
+// too. At D=80 QKᵀ takes 5 k-steps of 16 where D=64 takes 4, and P·V, dQ, dK
+// and dV 10 n8 accumulator tiles a warp where D=64 takes 8; the dK/dV kernel,
+// which holds two of them, needs 232 registers a thread (212 at D=64), no
+// spills. Products are fragments
 // in registers: S = QKᵀ never leaves them, and P (or dS) is rounded to bf16
 // and repacked from the accumulator layout straight into the A-operand layout
 // of the next product. A tile whose rows all lie below T (and, in the
@@ -120,10 +132,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kD = 64;                    // head width
 constexpr int kRows = 64;                 // rows of a streamed tile (keys, or queries in dK/dV)
-constexpr int kTile = kRows * kD;         // bf16 elements of one streamed tile
-constexpr size_t kTileBytes = kTile * sizeof(bf16);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -149,9 +158,27 @@ struct BwdStrides {
   long long pad[2];
 };
 
-// Element offset of chunk `chunk` (8 elements, 16 bytes) of row `row` in a
-// swizzled [64][64] tile.
-__device__ __forceinline__ int swz(int row, int chunk) { return row * kD + ((chunk ^ (row & 7)) << 3); }
+// A [rows][kD] bf16 tile in shared memory, for head width kD (64 or 80). A
+// 64-wide row is 8 chunks of 16 bytes, XOR-swizzled by the row's low 3 bits.
+// An 80-wide row is 10 chunks, stored unswizzled at a stride of 11 chunks
+// (176 bytes): with an odd stride the 8 rows that one ldmatrix phase reads
+// start on 8 different 16-byte bank groups, so it has no bank conflicts
+// either, at 10% more shared memory.
+template <int kD>
+struct Layout {
+  static_assert(kD == 64 || kD == 80, "head widths 64 and 80");
+  static constexpr int kChunks = kD / 8;               // 16-byte chunks of a row
+  static constexpr int kLd = kD == 64 ? 64 : kD + 8;   // elements from one row to the next
+  static constexpr int kTile = kRows * kLd;            // elements of one streamed tile
+  static constexpr size_t kTileBytes = kTile * sizeof(bf16);
+};
+
+// Element offset of chunk `chunk` (8 elements, 16 bytes) of row `row` in a tile.
+template <int kD>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  if constexpr (kD == 64) return row * 64 + ((chunk ^ (row & 7)) << 3);
+  else return row * Layout<kD>::kLd + (chunk << 3);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,50 +230,53 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Rows r0 .. r0+kTileRows-1 of a [seq, 64] operand with row stride rs into
-// a swizzled tile, asynchronously; rows past seq are zero-filled (the copy
-// reads nothing).
-template <int kTileRows, int kThreads>
+// Rows r0 .. r0+kTileRows-1 of a [seq, kD] operand with row stride rs into
+// a tile, asynchronously; rows past seq are zero-filled (the copy reads
+// nothing).
+template <int kD, int kTileRows, int kThreads>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long rs, int r0, int seq) {
-  for (int c = threadIdx.x; c < kTileRows * 8; c += kThreads) {
-    const int row = c >> 3, chunk = c & 7;
+  constexpr int kChunks = Layout<kD>::kChunks;
+  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
+    // c >= 0: unsigned division, a shift and a mask at 8 chunks a row
+    const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
     const bool ok = r0 + row < seq;
     const bf16* src = ok ? base + (long long)(r0 + row) * rs + chunk * 8 : base;
-    cp_async16(tile + swz(row, chunk), src, ok);
+    cp_async16(tile + swz<kD>(row, chunk), src, ok);
   }
 }
 
-// A staged tile's rows r0 .. r0+kTileRows-1 (those below seq) to a [seq, 64] operand.
-template <int kTileRows, int kThreads>
+// A staged tile's rows r0 .. r0+kTileRows-1 (those below seq) to a [seq, kD] operand.
+template <int kD, int kTileRows, int kThreads>
 __device__ __forceinline__ void store_tile(bf16* base, long long rs, int r0, int seq, const bf16* tile) {
-  for (int c = threadIdx.x; c < kTileRows * 8; c += kThreads) {
-    const int row = c >> 3, chunk = c & 7;
+  constexpr int kChunks = Layout<kD>::kChunks;
+  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
+    const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
     if (r0 + row < seq)
       *reinterpret_cast<uint4*>(base + (long long)(r0 + row) * rs + chunk * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz(row, chunk));
+          *reinterpret_cast<const uint4*>(tile + swz<kD>(row, chunk));
   }
 }
 
 // A warp owns kM groups of 16 rows (rows row0 + 16m .. row0 + 16m + 15).
 // Fragments: a[m][k-step][4] (bf16 pairs), accumulators c[m][8-column block][4].
 
-// A fragments of the warp's rows of a tile, over all 64 columns (4 k-steps).
-template <int kM>
-__device__ __forceinline__ void load_a(uint32_t a[][4][4], const bf16* tile, int row0) {
+// A fragments of the warp's rows of a tile, over all kD columns (kD/16 k-steps).
+template <int kD, int kM>
+__device__ __forceinline__ void load_a(uint32_t a[][kD / 16][4], const bf16* tile, int row0) {
   const int lane = threadIdx.x & 31, mat = lane >> 3;
   const int row = row0 + (lane & 7) + ((mat & 1) << 3);
 #pragma unroll
   for (int m = 0; m < kM; ++m)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[m][kk], tile + swz(row + 16 * m, 2 * kk + (mat >> 1)));
+    for (int kk = 0; kk < kD / 16; ++kk) ldsm_x4(a[m][kk], tile + swz<kD>(row + 16 * m, 2 * kk + (mat >> 1)));
 }
 
-// acc[rows x 16·kNB] += a[rows x 64] · tileᵀ, where the tile's 16·kNB rows
+// acc[rows x 16·kNB] += a[rows x kD] · tileᵀ, where the tile's 16·kNB rows
 // are acc's columns. Unless kFull, only the first `pairs` groups of 16
 // columns are computed. Each B fragment read from shared memory feeds the
 // warp's kM row groups.
-template <int kM, int kNB, bool kFull>
-__device__ __forceinline__ void mma_abt(float acc[][2 * kNB][4], const uint32_t a[][4][4], const bf16* tile,
+template <int kD, int kM, int kNB, bool kFull>
+__device__ __forceinline__ void mma_abt(float acc[][2 * kNB][4], const uint32_t a[][kD / 16][4], const bf16* tile,
                                         int pairs) {
   const int lane = threadIdx.x & 31, mat = lane >> 3;
 #pragma unroll
@@ -254,9 +284,9 @@ __device__ __forceinline__ void mma_abt(float acc[][2 * kNB][4], const uint32_t 
     if (kFull || jp < pairs) {
       const int row = 16 * jp + ((mat >> 1) << 3) + (lane & 7);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
         uint32_t b[4];
-        ldsm_x4(b, tile + swz(row, 2 * kk + (mat & 1)));
+        ldsm_x4(b, tile + swz<kD>(row, 2 * kk + (mat & 1)));
 #pragma unroll
         for (int m = 0; m < kM; ++m) {
           mma(acc[m][2 * jp], a[m][kk], b[0], b[1]);
@@ -267,20 +297,21 @@ __device__ __forceinline__ void mma_abt(float acc[][2 * kNB][4], const uint32_t 
   }
 }
 
-// acc[rows x 64] += a[rows x 16·kKS] · tile, where the tile's 16·kKS rows run
+// acc[rows x kD] += a[rows x 16·kKS] · tile, where the tile's 16·kKS rows run
 // along the contraction. Unless kFull, only the first `steps` groups of 16
 // tile rows are read.
-template <int kM, int kKS, bool kFull>
-__device__ __forceinline__ void mma_ab(float acc[][8][4], const uint32_t a[][kKS][4], const bf16* tile, int steps) {
+template <int kD, int kM, int kKS, bool kFull>
+__device__ __forceinline__ void mma_ab(float acc[][kD / 8][4], const uint32_t a[][kKS][4], const bf16* tile,
+                                       int steps) {
   const int lane = threadIdx.x & 31, mat = lane >> 3;
 #pragma unroll
   for (int kk = 0; kk < kKS; ++kk) {
     if (kFull || kk < steps) {
       const int row = 16 * kk + ((mat & 1) << 3) + (lane & 7);
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
+      for (int jp = 0; jp < kD / 16; ++jp) {
         uint32_t b[4];
-        ldsm_x4_trans(b, tile + swz(row, 2 * jp + (mat >> 1)));
+        ldsm_x4_trans(b, tile + swz<kD>(row, 2 * jp + (mat >> 1)));
 #pragma unroll
         for (int m = 0; m < kM; ++m) {
           mma(acc[m][2 * jp], a[m][kk], b[0], b[1]);
@@ -293,22 +324,22 @@ __device__ __forceinline__ void mma_ab(float acc[][8][4], const uint32_t a[][kKS
 
 // The products over a whole streamed tile (live == kNB) as one branch-free
 // block that the compiler schedules as a whole, else predicated on `live`.
-template <int kM, int kNB>
-__device__ __forceinline__ void mma_abt_live(float acc[][2 * kNB][4], const uint32_t a[][4][4], const bf16* tile,
-                                             int live) {
+template <int kD, int kM, int kNB>
+__device__ __forceinline__ void mma_abt_live(float acc[][2 * kNB][4], const uint32_t a[][kD / 16][4],
+                                             const bf16* tile, int live) {
   if (live == kNB)
-    mma_abt<kM, kNB, true>(acc, a, tile, live);
+    mma_abt<kD, kM, kNB, true>(acc, a, tile, live);
   else
-    mma_abt<kM, kNB, false>(acc, a, tile, live);
+    mma_abt<kD, kM, kNB, false>(acc, a, tile, live);
 }
 
-template <int kM, int kKS>
-__device__ __forceinline__ void mma_ab_live(float acc[][8][4], const uint32_t a[][kKS][4], const bf16* tile,
+template <int kD, int kM, int kKS>
+__device__ __forceinline__ void mma_ab_live(float acc[][kD / 8][4], const uint32_t a[][kKS][4], const bf16* tile,
                                             int live) {
   if (live == kKS)
-    mma_ab<kM, kKS, true>(acc, a, tile, live);
+    mma_ab<kD, kM, kKS, true>(acc, a, tile, live);
   else
-    mma_ab<kM, kKS, false>(acc, a, tile, live);
+    mma_ab<kD, kM, kKS, false>(acc, a, tile, live);
 }
 
 // Accumulators rounded to bf16, as the A operand of the next product (the
@@ -339,21 +370,21 @@ __device__ __forceinline__ void zero(float c[][kCols / 8][4]) {
 // What rounding x to bf16 drops: x = bf16(x) + rest(x) to about 2^-17 of x.
 __device__ __forceinline__ float bf16_rest(float x) { return x - __bfloat162float(__float2bfloat16(x)); }
 
-// The warp's accumulator rows into a swizzled tile as bf16; row g of group m
-// scaled by s[m][0], row g+8 by s[m][1]. With kRest, the part of each scaled
-// value that its bf16 rounding drops, itself rounded to bf16.
-template <int kM, bool kRest = false>
-__device__ __forceinline__ void stage(bf16* tile, int row0, const float c[][8][4], const float s[][2]) {
+// The warp's accumulator rows (kD columns) into a tile as bf16; row g of
+// group m scaled by s[m][0], row g+8 by s[m][1]. With kRest, the part of each
+// scaled value that its bf16 rounding drops, itself rounded to bf16.
+template <int kD, int kM, bool kRest = false>
+__device__ __forceinline__ void stage(bf16* tile, int row0, const float c[][kD / 8][4], const float s[][2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int m = 0; m < kM; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float x0 = c[m][j][2 * i] * s[m][i], x1 = c[m][j][2 * i + 1] * s[m][i];
         if (kRest) x0 = bf16_rest(x0), x1 = bf16_rest(x1);
-        *reinterpret_cast<uint32_t*>(tile + swz(row0 + 16 * m + g + 8 * i, j) + 2 * t) = pack_bf16(x0, x1);
+        *reinterpret_cast<uint32_t*>(tile + swz<kD>(row0 + 16 * m + g + 8 * i, j) + 2 * t) = pack_bf16(x0, x1);
       }
 }
 
@@ -458,31 +489,34 @@ __device__ __forceinline__ void gate_rows(const Gated& gd, int b, int h, int r0,
 
 // A block of kWarps warps, each owning kM groups of 16 rows: the block's own
 // tile (queries, or keys in dK/dV) has kOwn rows; the forward streams key
-// tiles of kN rows, the backward tiles of 64.
-template <int kWarps, int kM, int kN = kRows>
+// tiles of kN rows, the backward tiles of 64. Rows are kD wide.
+template <int kD, int kWarps, int kM, int kN = kRows>
 struct Shape {
+  using L = Layout<kD>;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kOwn = 16 * kM * kWarps;
-  static constexpr size_t kOwnBytes = (size_t)kOwn * kD * sizeof(bf16);
-  static constexpr size_t kFwdSmem = kOwnBytes + 4 * (size_t)kN * kD * sizeof(bf16) + 2 * kN * sizeof(float);
-  static constexpr size_t kDqSmem = 2 * kOwnBytes + 4 * kTileBytes + 2 * kRows * sizeof(float) + kOwn * sizeof(float);
-  static constexpr size_t kDkvSmem = 2 * kOwnBytes + 4 * kTileBytes + 6 * kRows * sizeof(float);
-  static constexpr size_t kDbiasSmem = 2 * (2 * kOwnBytes + 2 * kTileBytes) + 2 * (kRows + 3 * kOwn) * sizeof(float);
+  static constexpr size_t kOwnBytes = (size_t)kOwn * L::kLd * sizeof(bf16);
+  static constexpr size_t kFwdSmem = kOwnBytes + 4 * (size_t)kN * L::kLd * sizeof(bf16) + 2 * kN * sizeof(float);
+  static constexpr size_t kDqSmem =
+      2 * kOwnBytes + 4 * L::kTileBytes + 2 * kRows * sizeof(float) + kOwn * sizeof(float);
+  static constexpr size_t kDkvSmem = 2 * kOwnBytes + 4 * L::kTileBytes + 6 * kRows * sizeof(float);
+  static constexpr size_t kDbiasSmem =
+      2 * (2 * kOwnBytes + 2 * L::kTileBytes) + 2 * (kRows + 3 * kOwn) * sizeof(float);
 };
 
 // One key tile of the forward for a warp: S = Q·Kᵀ, the online softmax, and
 // O += P·V. kFull: every key of the tile lies below seq and none is padded,
 // so neither the key bias nor a predicate is applied. kGated: the logits add
 // bf·gl, the bias fragments times the rows' gate·log2e.
-template <int kM, int kN, bool kFull, bool kGated>
-__device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf16* kt, const bf16* vt,
+template <int kD, int kM, int kN, bool kFull, bool kGated>
+__device__ __forceinline__ void forward_tile(const uint32_t qf[][kD / 16][4], const bf16* kt, const bf16* vt,
                                              const float* kbias, const float bf[][kN / 8][4], const float gl[][2],
-                                             int live, float c, float o[][8][4], float m[][2], float l[][2]) {
+                                             int live, float c, float o[][kD / 8][4], float m[][2], float l[][2]) {
   constexpr int kNB = kN / 16;
   const int t = threadIdx.x & 3;
   float sc[kM][kN / 8][4];
   zero<kM, kN>(sc);
-  mma_abt<kM, kNB, kFull>(sc, qf, kt, live);
+  mma_abt<kD, kM, kNB, kFull>(sc, qf, kt, live);
 #pragma unroll
   for (int mm = 0; mm < kM; ++mm) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -521,7 +555,7 @@ __device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[mm][i] = l[mm][i] * corr[i] + rs[i];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kD / 8; ++j) {
       o[mm][j][0] *= corr[0];
       o[mm][j][1] *= corr[0];
       o[mm][j][2] *= corr[1];
@@ -530,20 +564,20 @@ __device__ __forceinline__ void forward_tile(const uint32_t qf[][4][4], const bf
   }
   uint32_t pf[kM][kNB][4];
   to_a<kM, kNB>(pf, sc);
-  mma_ab<kM, kNB, kFull>(o, pf, vt, live);
+  mma_ab<kD, kM, kNB, kFull>(o, pf, vt, live);
 }
 
-template <int kWarps, int kM, int kN, bool kGated>
+template <int kD, int kWarps, int kM, int kN, bool kGated>
 __global__ void __launch_bounds__(32 * kWarps)
 forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const uint8_t* __restrict__ pad, bf16* __restrict__ out, bf16* __restrict__ out_rest,
                float* __restrict__ lse, int heads, int seq, float scale, FwdStrides s, Gated gd) {
-  using S = Shape<kWarps, kM, kN>;
-  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kKeyTile = kN * kD;
+  using S = Shape<kD, kWarps, kM, kN>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kLd = Layout<kD>::kLd, kKeyTile = kN * kLd;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);                      // [kOwn][64]
-  bf16* k_s = q_s + kOwn * kD;                                    // [2][kN][64]
-  bf16* v_s = k_s + 2 * kKeyTile;                                 // [2][kN][64]
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                      // [kOwn][kD]
+  bf16* k_s = q_s + kOwn * kLd;                                   // [2][kN][kD]
+  bf16* v_s = k_s + 2 * kKeyTile;                                 // [2][kN][kD]
   float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kKeyTile);  // [2][kN]
 
   const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
@@ -565,15 +599,15 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     gate_rows<kM>(gd, b, h, q0 + row0, seq, gl);
   }
 
-  load_tile<kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
-  load_tile<kN, kThreads>(k_s, kb, s.k[2], 0, seq);
-  load_tile<kN, kThreads>(v_s, vb, s.v[2], 0, seq);
+  load_tile<kD, kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
+  load_tile<kD, kN, kThreads>(k_s, kb, s.k[2], 0, seq);
+  load_tile<kD, kN, kThreads>(v_s, vb, s.v[2], 0, seq);
   load_key_bias<kN, kThreads>(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
-  uint32_t qf[kM][4][4];
-  float o[kM][8][4];
-  zero<kM>(o);
+  uint32_t qf[kM][kD / 16][4];
+  float o[kM][kD / 8][4];
+  zero<kM, kD>(o);
   float m[kM][2], l[kM][2];  // running max (log2 units) and this lane's partial sum, rows g and g+8
 #pragma unroll
   for (int mm = 0; mm < kM; ++mm) m[mm][0] = m[mm][1] = -INFINITY, l[mm][0] = l[mm][1] = 0.f;
@@ -582,8 +616,8 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kN;
-      load_tile<kN, kThreads>(k_s + nxt * kKeyTile, kb, s.k[2], k0n, seq);
-      load_tile<kN, kThreads>(v_s + nxt * kKeyTile, vb, s.v[2], k0n, seq);
+      load_tile<kD, kN, kThreads>(k_s + nxt * kKeyTile, kb, s.k[2], k0n, seq);
+      load_tile<kD, kN, kThreads>(v_s + nxt * kKeyTile, vb, s.v[2], k0n, seq);
       load_key_bias<kN, kThreads>(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -592,7 +626,7 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     }
     __syncthreads();
     if (active) {
-      if (it == 0) load_a<kM>(qf, q_s, row0);
+      if (it == 0) load_a<kD, kM>(qf, q_s, row0);
       const bf16 *kt = k_s + buf * kKeyTile, *vt = v_s + buf * kKeyTile;
       const float* kbias = kbias_s + buf * kN;
       const bool full = (it + 1) * kN <= seq;
@@ -605,9 +639,10 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
           fetch_bias<kM, kN, false>(bf, bias_row, gd.bs[2], it * kN, seq, gd.vec2);
       }
       if (!pad_b && full)
-        forward_tile<kM, kN, true, kGated>(qf, kt, vt, kbias, bf, gl, kN / 16, c, o, m, l);
+        forward_tile<kD, kM, kN, true, kGated>(qf, kt, vt, kbias, bf, gl, kN / 16, c, o, m, l);
       else
-        forward_tile<kM, kN, false, kGated>(qf, kt, vt, kbias, bf, gl, live_groups<kN>(it * kN, seq), c, o, m, l);
+        forward_tile<kD, kM, kN, false, kGated>(qf, kt, vt, kbias, bf, gl, live_groups<kN>(it * kN, seq), c, o,
+                                                m, l);
     }
     __syncthreads();  // every warp is done with this tile's buffers
   }
@@ -621,8 +656,8 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
         l[mm][i] = quad_sum(l[mm][i]);
         inv[mm][i] = 1.f / l[mm][i];  // a fully padded row: 0 · inf = NaN, as the softmax gives
       }
-    stage<kM>(q_s, row0, o, inv);
-    if (out_rest) stage<kM, true>(k_s, row0, o, inv);  // the K/V buffers are free now
+    stage<kD, kM>(q_s, row0, o, inv);
+    if (out_rest) stage<kD, kM, true>(k_s, row0, o, inv);  // the K/V buffers are free now
     if (lse && t == 0) {
 #pragma unroll
       for (int mm = 0; mm < kM; ++mm)
@@ -634,26 +669,28 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     }
   }
   __syncthreads();
-  store_tile<kOwn, kThreads>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, q_s);
-  if (out_rest) store_tile<kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, k_s);
+  store_tile<kD, kOwn, kThreads>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, q_s);
+  if (out_rest) store_tile<kD, kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, k_s);
 }
 
-template <int kWarps, int kM, bool kGated>
+template <int kD, int kWarps, int kM, bool kGated>
 __global__ void __launch_bounds__(32 * kWarps)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ out, const bf16* __restrict__ out_rest, const bf16* __restrict__ dout,
           const uint8_t* __restrict__ pad, const float* __restrict__ lse, bf16* __restrict__ dq,
           float* __restrict__ delta, float* __restrict__ dgate, int heads, int seq, float scale, BwdStrides s,
           Gated gd) {
-  using S = Shape<kWarps, kM>;
-  constexpr int kThreads = S::kThreads, kOwn = S::kOwn;
+  using S = Shape<kD, kWarps, kM>;
+  using L = Layout<kD>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = L::kTile;
   static_assert(kThreads == kOwn || kThreads == 2 * kOwn, "one or two threads a row for Δ");
-  constexpr int kPerRow = kThreads / kOwn, kRowChunks = 8 / kPerRow;
+  constexpr int kPerRow = kThreads / kOwn, kRowChunks = L::kChunks / kPerRow;
+  static_assert(kRowChunks * kPerRow == L::kChunks, "a row's chunks split evenly for Δ");
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [kOwn][64]
-  bf16* do_s = q_s + kOwn * kD;                                  // [kOwn][64]
-  bf16* k_s = do_s + kOwn * kD;                                  // [2][64][64]
-  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][64]
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [kOwn][kD]
+  bf16* do_s = q_s + kOwn * L::kLd;                              // [kOwn][kD]
+  bf16* k_s = do_s + kOwn * L::kLd;                              // [2][64][kD]
+  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][kD]
   float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kTile);    // [2][64]
   float* delta_s = kbias_s + 2 * kRows;                          // [kOwn]
 
@@ -671,10 +708,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   const int n_tiles = (seq + kRows - 1) / kRows;
   const float c = scale * kLog2e;
 
-  load_tile<kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
-  load_tile<kOwn, kThreads>(do_s, dob, s.dout[2], q0, seq);
-  load_tile<kRows, kThreads>(k_s, kb, s.k[2], 0, seq);
-  load_tile<kRows, kThreads>(v_s, vb, s.v[2], 0, seq);
+  load_tile<kD, kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
+  load_tile<kD, kOwn, kThreads>(do_s, dob, s.dout[2], q0, seq);
+  load_tile<kD, kRows, kThreads>(k_s, kb, s.k[2], 0, seq);
+  load_tile<kD, kRows, kThreads>(v_s, vb, s.v[2], 0, seq);
   load_key_bias<kRows, kThreads>(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
@@ -728,15 +765,15 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     for (int mm = 0; mm < kM; ++mm) dg[mm][0] = dg[mm][1] = 0.f;
   }
 
-  uint32_t qf[kM][4][4], dof[kM][4][4];
-  float acc[kM][8][4];
-  zero<kM>(acc);
+  uint32_t qf[kM][kD / 16][4], dof[kM][kD / 16][4];
+  float acc[kM][kD / 8][4];
+  zero<kM, kD>(acc);
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kRows;
-      load_tile<kRows, kThreads>(k_s + nxt * kTile, kb, s.k[2], k0n, seq);
-      load_tile<kRows, kThreads>(v_s + nxt * kTile, vb, s.v[2], k0n, seq);
+      load_tile<kD, kRows, kThreads>(k_s + nxt * kTile, kb, s.k[2], k0n, seq);
+      load_tile<kD, kRows, kThreads>(v_s + nxt * kTile, vb, s.v[2], k0n, seq);
       load_key_bias<kRows, kThreads>(kbias_s + nxt * kRows, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -746,8 +783,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     __syncthreads();
     if (active) {
       if (it == 0) {
-        load_a<kM>(qf, q_s, row0);
-        load_a<kM>(dof, do_s, row0);
+        load_a<kD, kM>(qf, q_s, row0);
+        load_a<kD, kM>(dof, do_s, row0);
 #pragma unroll
         for (int mm = 0; mm < kM; ++mm)
 #pragma unroll
@@ -766,8 +803,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       float sc[kM][8][4], dp[kM][8][4];
       zero<kM>(sc);
       zero<kM>(dp);
-      mma_abt_live<kM, 4>(sc, qf, kt, live);                  // S = Q·Kᵀ
-      mma_abt_live<kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+      mma_abt_live<kD, kM, 4>(sc, qf, kt, live);                  // S = Q·Kᵀ
+      mma_abt_live<kD, kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
 #pragma unroll
       for (int mm = 0; mm < kM; ++mm)
 #pragma unroll
@@ -784,7 +821,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           }
       uint32_t dsf[kM][4][4];
       to_a<kM, 4>(dsf, sc);
-      mma_ab_live<kM, 4>(acc, dsf, kt, live);                 // dQ += dS·K
+      mma_ab_live<kD, kM, 4>(acc, dsf, kt, live);                 // dQ += dS·K
     }
     __syncthreads();
   }
@@ -793,7 +830,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     float ones[kM][2];
 #pragma unroll
     for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
-    stage<kM>(q_s, row0, acc, ones);
+    stage<kD, kM>(q_s, row0, acc, ones);
     if (kGated && dgate) {
 #pragma unroll
       for (int mm = 0; mm < kM; ++mm)
@@ -806,22 +843,23 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     }
   }
   __syncthreads();
-  store_tile<kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, q_s);
+  store_tile<kD, kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, q_s);
 }
 
-template <int kWarps, int kM, bool kGated>
+template <int kD, int kWarps, int kM, bool kGated>
 __global__ void __launch_bounds__(32 * kWarps)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
            int seq, float scale, BwdStrides s, Gated gd) {
-  using S = Shape<kWarps, kM>;
-  constexpr int kThreads = S::kThreads, kOwn = S::kOwn;
+  using S = Shape<kD, kWarps, kM>;
+  using L = Layout<kD>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = L::kTile;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);                     // [kOwn][64]
-  bf16* v_s = k_s + kOwn * kD;                                   // [kOwn][64]
-  bf16* q_s = v_s + kOwn * kD;                                   // [2][64][64]
-  bf16* do_s = q_s + 2 * kTile;                                  // [2][64][64]
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                     // [kOwn][kD]
+  bf16* v_s = k_s + kOwn * L::kLd;                               // [kOwn][kD]
+  bf16* q_s = v_s + kOwn * L::kLd;                               // [2][64][kD]
+  bf16* do_s = q_s + 2 * kTile;                                  // [2][64][kD]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile);     // [2][64], log2 units
   float* dl_s = lse_s + 2 * kRows;                               // [2][64]
   float* gl_s = dl_s + 2 * kRows;                                // [2][64], the gated variant's gate·log2e
@@ -847,10 +885,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     }
   };
 
-  load_tile<kOwn, kThreads>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
-  load_tile<kOwn, kThreads>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
-  load_tile<kRows, kThreads>(q_s, qb, s.q[2], 0, seq);
-  load_tile<kRows, kThreads>(do_s, dob, s.dout[2], 0, seq);
+  load_tile<kD, kOwn, kThreads>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
+  load_tile<kD, kOwn, kThreads>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
+  load_tile<kD, kRows, kThreads>(q_s, qb, s.q[2], 0, seq);
+  load_tile<kD, kRows, kThreads>(do_s, dob, s.dout[2], 0, seq);
   load_stats(0, 0);
   cp_async_commit();
 
@@ -865,15 +903,15 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       if (kGated) bias_col[mm][i] = gd.bias + h * gd.bs[0] + min(key, seq - 1) * gd.bs[2];
     }
 
-  float dk_acc[kM][8][4], dv_acc[kM][8][4];
-  zero<kM>(dk_acc);
-  zero<kM>(dv_acc);
+  float dk_acc[kM][kD / 8][4], dv_acc[kM][kD / 8][4];
+  zero<kM, kD>(dk_acc);
+  zero<kM, kD>(dv_acc);
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, q0n = (it + 1) * kRows;
-      load_tile<kRows, kThreads>(q_s + nxt * kTile, qb, s.q[2], q0n, seq);
-      load_tile<kRows, kThreads>(do_s + nxt * kTile, dob, s.dout[2], q0n, seq);
+      load_tile<kD, kRows, kThreads>(q_s + nxt * kTile, qb, s.q[2], q0n, seq);
+      load_tile<kD, kRows, kThreads>(do_s + nxt * kTile, dob, s.dout[2], q0n, seq);
       load_stats(nxt, q0n);
       cp_async_commit();
       cp_async_wait<1>();
@@ -907,9 +945,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       float st[kM][8][4];
       zero<kM>(st);
       {
-        uint32_t kf[kM][4][4];
-        load_a<kM>(kf, k_s, row0);
-        mma_abt_live<kM, 4>(st, kf, qt, live);      // Sᵀ = K·Qᵀ
+        uint32_t kf[kM][kD / 16][4];
+        load_a<kD, kM>(kf, k_s, row0);
+        mma_abt_live<kD, kM, 4>(st, kf, qt, live);      // Sᵀ = K·Qᵀ
       }
 #pragma unroll
       for (int mm = 0; mm < kM; ++mm)
@@ -925,14 +963,14 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       {
         uint32_t pf[kM][4][4];
         to_a<kM, 4>(pf, st);
-        mma_ab_live<kM, 4>(dv_acc, pf, dot, live);  // dV += Pᵀ·dO
+        mma_ab_live<kD, kM, 4>(dv_acc, pf, dot, live);  // dV += Pᵀ·dO
       }
       float dpt[kM][8][4];
       zero<kM>(dpt);
       {
-        uint32_t vf[kM][4][4];
-        load_a<kM>(vf, v_s, row0);
-        mma_abt_live<kM, 4>(dpt, vf, dot, live);    // dPᵀ = V·dOᵀ
+        uint32_t vf[kM][kD / 16][4];
+        load_a<kD, kM>(vf, v_s, row0);
+        mma_abt_live<kD, kM, 4>(dpt, vf, dot, live);    // dPᵀ = V·dOᵀ
       }
 #pragma unroll
       for (int mm = 0; mm < kM; ++mm)
@@ -944,7 +982,7 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       {
         uint32_t dsf[kM][4][4];
         to_a<kM, 4>(dsf, st);
-        mma_ab_live<kM, 4>(dk_acc, dsf, qt, live);  // dK += dSᵀ·Q
+        mma_ab_live<kD, kM, 4>(dk_acc, dsf, qt, live);  // dK += dSᵀ·Q
       }
     }
     __syncthreads();
@@ -954,12 +992,12 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     float ones[kM][2];
 #pragma unroll
     for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
-    stage<kM>(k_s, row0, dk_acc, ones);
-    stage<kM>(v_s, row0, dv_acc, ones);
+    stage<kD, kM>(k_s, row0, dk_acc, ones);
+    stage<kD, kM>(v_s, row0, dv_acc, ones);
   }
   __syncthreads();
-  store_tile<kOwn, kThreads>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, k_s);
-  store_tile<kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, v_s);
+  store_tile<kD, kOwn, kThreads>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, k_s);
+  store_tile<kD, kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, v_s);
 }
 
 // Σ_b gate[b,h,:,None] ⊙ dL[b,h] over one tile of kOwn queries x 64 keys and
@@ -973,8 +1011,9 @@ dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
              const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
              const float* __restrict__ delta, float* __restrict__ out, int batch, int items, int heads, int seq,
              float scale, BwdStrides s, Gated gd) {
-  using S = Shape<kWarps, kM>;
-  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kOwnTile = kOwn * kD;
+  constexpr int kD = 64;  // the gated kernels take head width 64
+  using S = Shape<kD, kWarps, kM>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = Layout<kD>::kTile, kOwnTile = kOwn * kD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][64]
   bf16* do_s = q_s + 2 * kOwnTile;                               // [2][kOwn][64]
@@ -996,10 +1035,11 @@ dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   // Item b's tiles and row statistics into slot `slot`; rows past seq get an
   // LSE of +inf (P = 0) and a Δ of 0.
   auto issue = [&](int slot, int b) {
-    load_tile<kOwn, kThreads>(q_s + slot * kOwnTile, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq);
-    load_tile<kOwn, kThreads>(do_s + slot * kOwnTile, dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq);
-    load_tile<kRows, kThreads>(k_s + slot * kTile, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
-    load_tile<kRows, kThreads>(v_s + slot * kTile, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
+    load_tile<kD, kOwn, kThreads>(q_s + slot * kOwnTile, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq);
+    load_tile<kD, kOwn, kThreads>(do_s + slot * kOwnTile, dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0,
+                                  seq);
+    load_tile<kD, kRows, kThreads>(k_s + slot * kTile, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
+    load_tile<kD, kRows, kThreads>(v_s + slot * kTile, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
     load_key_bias<kRows, kThreads>(kbias_s + slot * kRows, pad ? pad + b * s.pad[0] : nullptr, s.pad[1], k0, seq);
     const long long stat0 = ((long long)b * heads + h) * seq;
     for (int i = threadIdx.x; i < kOwn; i += kThreads) {
@@ -1039,10 +1079,10 @@ dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
       zero<kM>(dp);
       {
         uint32_t qf[kM][4][4], dof[kM][4][4];
-        load_a<kM>(qf, q_s + buf * kOwnTile, row0);
-        load_a<kM>(dof, do_s + buf * kOwnTile, row0);
-        mma_abt_live<kM, 4>(sc, qf, k_s + buf * kTile, live);   // S = Q·Kᵀ
-        mma_abt_live<kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+        load_a<kD, kM>(qf, q_s + buf * kOwnTile, row0);
+        load_a<kD, kM>(dof, do_s + buf * kOwnTile, row0);
+        mma_abt_live<kD, kM, 4>(sc, qf, k_s + buf * kTile, live);   // S = Q·Kᵀ
+        mma_abt_live<kD, kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
       }
       const float* kbias = kbias_s + buf * kRows;
 #pragma unroll
@@ -1102,19 +1142,22 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-bool bad_shape(int batch, int heads, int seq, int head_dim) {
-  return head_dim != kD || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
+// Head widths: the gated kernels take 64, the bias-free ones 64 and 80.
+bool bad_shape(int batch, int heads, int seq) {
+  return seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
 }
 
-template <int kWarps, int kM, int kN, bool kGated = false>
+bool bias_free_width(int head_dim) { return head_dim == 64 || head_dim == 80; }
+
+template <int kD, int kWarps, int kM, int kN, bool kGated = false>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* out_rest,
                            void* lse, int batch, int heads, int seq, float scale, const FwdStrides& s,
                            cudaStream_t st, const Gated& gd = Gated()) {
-  using S = Shape<kWarps, kM, kN>;
-  cudaError_t err = allow_smem(forward_kernel<kWarps, kM, kN, kGated>, S::kFwdSmem);
+  using S = Shape<kD, kWarps, kM, kN>;
+  cudaError_t err = allow_smem(forward_kernel<kD, kWarps, kM, kN, kGated>, S::kFwdSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  forward_kernel<kWarps, kM, kN, kGated><<<grid, S::kThreads, S::kFwdSmem, st>>>(
+  forward_kernel<kD, kWarps, kM, kN, kGated><<<grid, S::kThreads, S::kFwdSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<bf16*>(out_rest),
       static_cast<float*>(lse), heads, seq, scale, s, gd);
@@ -1144,16 +1187,16 @@ Gated gated_operands(const void* bias, const void* gate, int seq, const long lon
   return make_gated(bias, gate, seq, strides + 12, strides + 15);
 }
 
-template <int kWarps, int kM, bool kGated = false>
+template <int kD, int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out, const void* out_rest,
                       const void* dout, const void* pad, const void* lse, void* dq, void* delta, int batch,
                       int heads, int seq, float scale, const BwdStrides& s, cudaStream_t st,
                       const Gated& gd = Gated(), void* dgate = nullptr) {
-  using S = Shape<kWarps, kM>;
-  cudaError_t err = allow_smem(dq_kernel<kWarps, kM, kGated>, S::kDqSmem);
+  using S = Shape<kD, kWarps, kM>;
+  cudaError_t err = allow_smem(dq_kernel<kD, kWarps, kM, kGated>, S::kDqSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  dq_kernel<kWarps, kM, kGated><<<grid, S::kThreads, S::kDqSmem, st>>>(
+  dq_kernel<kD, kWarps, kM, kGated><<<grid, S::kThreads, S::kDqSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const bf16*>(out_rest), static_cast<const bf16*>(dout),
       static_cast<const uint8_t*>(pad), static_cast<const float*>(lse), static_cast<bf16*>(dq),
@@ -1161,15 +1204,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaGetLastError();
 }
 
-template <int kWarps, int kM, bool kGated = false>
+template <int kD, int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                        const void* lse, const void* delta, void* dk, void* dv, int batch, int heads, int seq,
                        float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd = Gated()) {
-  using S = Shape<kWarps, kM>;
-  cudaError_t err = allow_smem(dkv_kernel<kWarps, kM, kGated>, S::kDkvSmem);
+  using S = Shape<kD, kWarps, kM>;
+  cudaError_t err = allow_smem(dkv_kernel<kD, kWarps, kM, kGated>, S::kDkvSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  dkv_kernel<kWarps, kM, kGated><<<grid, S::kThreads, S::kDkvSmem, st>>>(
+  dkv_kernel<kD, kWarps, kM, kGated><<<grid, S::kThreads, S::kDkvSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s, gd);
@@ -1183,7 +1226,7 @@ template <int kWarps, int kM>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                          const void* lse, const void* delta, void* dbias, void* part, int batch, int items, int heads,
                          int seq, float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd) {
-  using S = Shape<kWarps, kM>;
+  using S = Shape<64, kWarps, kM>;
   cudaError_t err = allow_smem(dbias_kernel<kWarps, kM>, S::kDbiasSmem);
   if (err != cudaSuccess) return err;
   const int chunks = (batch + items - 1) / items;
@@ -1222,11 +1265,11 @@ extern "C" int avex_tensor_core_gated_attention_forward(const void* q, const voi
                                                         void* out, void* out_rest, void* lse, int batch,
                                                         int heads, int seq, int head_dim, float scale,
                                                         const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, seq, head_dim) || bias == nullptr) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, seq) || head_dim != 64 || bias == nullptr) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   const Gated gd = gated_operands(bias, gate, seq, strides, &s);
-  return (int)launch_forward<kFwdWarps, kFwdM, kFwdN, true>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
-                                                            scale, s, static_cast<cudaStream_t>(stream), gd);
+  return (int)launch_forward<64, kFwdWarps, kFwdM, kFwdN, true>(q, k, v, pad, out, out_rest, lse, batch, heads,
+                                                                seq, scale, s, static_cast<cudaStream_t>(stream), gd);
 }
 
 // The bias-free forward: bf16 q, k, v and out; pad is one byte per key
@@ -1240,11 +1283,15 @@ extern "C" int avex_bias_free_attention_forward(const void* q, const void* k, co
                                                 void* out, void* out_rest, void* lse, int batch, int heads,
                                                 int seq, int head_dim, float scale, const long long* strides,
                                                 void* stream) {
-  if (bad_shape(batch, heads, seq, head_dim)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, seq) || !bias_free_width(head_dim)) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   memcpy(&s, strides, sizeof(FwdStrides));
-  return (int)launch_forward<kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq, scale, s,
-                                               static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80)
+    return (int)launch_forward<80, kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
+                                                            scale, s, st);
+  return (int)launch_forward<64, kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
+                                                          scale, s, st);
 }
 
 // The backward from the forward's residuals, bias-free (K6, bias null) or
@@ -1267,7 +1314,8 @@ extern "C" int avex_tensor_core_attention_backward(const void* q, const void* k,
                                                    void* dbias_part, int items_per_chunk, int batch, int heads,
                                                    int seq, int head_dim, float scale, const long long* strides,
                                                    void* stream) {
-  if (bad_shape(batch, heads, seq, head_dim) || lse == nullptr || (bias != nullptr && dbias == nullptr) ||
+  if (bad_shape(batch, heads, seq) || (bias != nullptr ? head_dim != 64 : !bias_free_width(head_dim)) ||
+      lse == nullptr || (bias != nullptr && dbias == nullptr) ||
       (gate != nullptr && (bias == nullptr || dgate == nullptr)) || items_per_chunk <= 0 ||
       (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
       (long long)heads * ((batch + items_per_chunk - 1) / items_per_chunk) > 65535)
@@ -1276,19 +1324,26 @@ extern "C" int avex_tensor_core_attention_backward(const void* q, const void* k,
   memcpy(&s, strides, sizeof(BwdStrides));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bias == nullptr) {
-    err = launch_dq<kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq, scale,
-                                     s, st);
+  if (bias == nullptr && head_dim == 80) {
+    err = launch_dq<80, kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq, scale,
+                                         s, st);
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_dkv<kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
-                                              st);
+    return (int)launch_dkv<80, kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale,
+                                                  s, st);
+  }
+  if (bias == nullptr) {
+    err = launch_dq<64, kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq, scale,
+                                         s, st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_dkv<64, kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale,
+                                                  s, st);
   }
   const Gated gd = make_gated(bias, gate, seq, strides + 26, strides + 29);
-  err = launch_dq<kDqWarps, kDqM, true>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq,
-                                        scale, s, st, gd, dgate);
+  err = launch_dq<64, kDqWarps, kDqM, true>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq,
+                                            scale, s, st, gd, dgate);
   if (err != cudaSuccess) return (int)err;
-  err = launch_dkv<kDkvWarps, kDkvM, true>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
-                                           st, gd);
+  err = launch_dkv<64, kDkvWarps, kDkvM, true>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
+                                               st, gd);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dbias<kDbiasWarps, kDbiasM>(q, k, v, dout, pad, lse, delta, dbias, dbias_part, batch,
                                                   items_per_chunk, heads, seq, scale, s, st, gd);

@@ -115,7 +115,26 @@ Phases, each printing its results on lines of its own:
    128/32/32 clips (the backbone built once for both; each probe's loss
    falls; evaluation_metadata.jsonl and the summary CSVs written). Prints
    steps/s, the step's wait for the loader and the busy share beside the
-   card's name and power limit.
+   card's name and power limit;
+16. head width 80 (run after phase 10): K5 and K4 at Bird-MAE huge's
+   forward shape (B=128, T=513, 16 heads of 80) and K6 at its training
+   batch (B=64), bf16 on the tensor cores and fp32 on the FMA body, against
+   their twins (the bf16 K6 also against its residual twin), each timed
+   beside its twin, its bound and SDPA (its backward for K6);
+17. Bird-MAE main path (after phase 8): ``ModelSpec(name="birdmae",
+   model_id="DBD-research-group/Bird-MAE-huge")`` through ``load_model``,
+   1280 x 32, 10 s clips at 32 kHz (T=513), all 32 layers mean-pooled: bf16
+   on K5 (32 launches a forward, every other kernel 0) and on the plain path
+   at B=128, the fp32 kernel path against the fp32 plain path at B=8 (pooled
+   and every tapped layer), then Bird-MAE base (dh 64, 12 a forward);
+18. ATST main path (after phase 17): ``ModelSpec(name="atst")``, 12 x 768,
+   10 s clips (T=250): the card's fp32 frontend against the CPU's, the
+   timestamp embedding's [B, 250, 9216] shape, then K5 (12 a forward) in
+   bf16 and fp32 against the plain path, as the EAT phase;
+19. Bird-MAE huge training (after phase 13): ``Trainer``, bf16, B=64, a
+   50-class head, 5 timed steps (K5 and K6 32 launches each a step), one
+   step under the profiler (the device's busy share), then the fp32 and
+   bf16 gradient checks at B=8.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -129,7 +148,8 @@ distance.
 
 It then prints one JSON line of per-kernel numbers (``launches`` counts the
 main paths' runs; K4 and K8, which no main path reaches, add
-``kernel_phase_launches``) and, last, the device line
+``kernel_phase_launches``; K4, K5 and K6 add ``head_dim_80``, their bf16 and
+fp32 numbers at Bird-MAE huge's shapes) and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
 """
@@ -235,6 +255,23 @@ ENTRY_LR = 1e-5  # fine-tuning the random-weight BEATs: stable there (scripts/to
 ENTRY_PROBE_LR = 1e-4  # the frozen attention probe: at 1e-3 its loss rose over two epochs on these clips
 ENTRY_LONG_S, ENTRY_SHORT_S = 6.0, 3.0
 
+# Bird-MAE (phases 16-18): huge is 1280 x 32 with 16 heads of 80 (dh 80 on
+# K5/K6), base 768 x 12 (dh 64); 10 s at 32 kHz: 998 fbank frames padded to
+# 1024, 64 x 8 patches plus the CLS token.
+MAE_HUGE, MAE_BASE = "DBD-research-group/Bird-MAE-huge", "DBD-research-group/Bird-MAE-base"
+MAE_CLIP_SAMPLES = 10 * 32000
+T_MAE, H_MAE, D_MAE, MAE_LAYERS = 513, 16, 80, 32
+E_MAE = H_MAE * D_MAE
+N_BATCHES_MAE = 3
+B_MAE_FP32 = 8  # the fp32 kernel-vs-plain check (the plain path holds [B, H, T, T] fp32)
+B_TRAIN_MAE = 64
+MAE_TRAIN_STEPS = 5
+# ATST-Frame (phase 19): 12 x 768, 10 s at 16 kHz: 1001 frames, 250 tokens.
+ATST_CLIP_SAMPLES = 10 * 16000
+T_ATST = 250
+# The fp32 frontend (DFT and mel products in full fp32) on the card vs the CPU.
+FRONTEND_CARD_CPU_REL = 1e-5
+
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
 
@@ -272,15 +309,17 @@ def median_ms(fn, n: int = TIMED_LAUNCHES, device_only: bool = True) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def attention_bound_ms(dtype_name: str, gated: bool, padded: bool, seq: int = T) -> tuple:
-    """Least time for one attention call at (B, H, seq, D) on the card: q, k,
-    v read and out written once, the fp32 bias (gated) and gate read once, the
-    mask read once; two matmuls of 2·seq·seq·D FLOPs per (batch, head)."""
+def attention_bound_ms(dtype_name: str, gated: bool, padded: bool, seq: int = T, heads: int = H,
+                       dim: int = D) -> tuple:
+    """Least time for one attention call at (B, heads, seq, dim) on the card:
+    q, k, v read and out written once, the fp32 bias (gated) and gate read
+    once, the mask read once; two matmuls of 2·seq·seq·dim FLOPs per (batch,
+    head)."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 4 * B * H * seq * D * elem
-    nbytes += H * seq * seq * 4 + B * H * seq * 4 if gated else 0
+    nbytes = 4 * B * heads * seq * dim * elem
+    nbytes += heads * seq * seq * 4 + B * heads * seq * 4 if gated else 0
     nbytes += B * seq if padded else 0
-    flops = 4.0 * B * H * seq * seq * D
+    flops = 4.0 * B * heads * seq * seq * dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -477,16 +516,17 @@ def phase_bias_free_kernels():
     return results, k4_launches
 
 
-def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: bool) -> tuple:
-    """Least time for one attention backward at (bsz, H, seq, D): q, k, v and
-    dO read and dq, dk, dv written once; the fp32 bias and gate read and
-    dbias and dgate written once (gated); the mask read once; five products
-    of 2·seq·seq·D FLOPs per (item, head)."""
+def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: bool, heads: int = H,
+                      dim: int = D) -> tuple:
+    """Least time for one attention backward at (bsz, heads, seq, dim): q, k,
+    v and dO read and dq, dk, dv written once; the fp32 bias and gate read
+    and dbias and dgate written once (gated); the mask read once; five
+    products of 2·seq·seq·dim FLOPs per (item, head)."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 7 * bsz * H * seq * D * elem
-    nbytes += 2 * (H * seq * seq * 4 + bsz * H * seq * 4) if gated else 0
+    nbytes = 7 * bsz * heads * seq * dim * elem
+    nbytes += 2 * (heads * seq * seq * 4 + bsz * heads * seq * 4) if gated else 0
     nbytes += bsz * seq if padded else 0
-    flops = 10.0 * bsz * H * seq * seq * D
+    flops = 10.0 * bsz * heads * seq * seq * dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -997,9 +1037,10 @@ def train_run(label, model, batch, expect, steps, workdir):
     from avex_tpu_torch.configs import RunConfig, SchedulerConfig, TrainingParams
     from avex_tpu_torch.training import Trainer
 
+    bsz = batch["raw_wav"].shape[0]
     config = RunConfig(
         model_spec={"name": label},
-        training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=B_TRAIN, optimizer="adamw",
+        training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=bsz, optimizer="adamw",
                                        weight_decay=0.01),
         scheduler=SchedulerConfig(name="cosine", warmup_steps=2),
         output_dir=str(workdir), seed=0,
@@ -1024,10 +1065,10 @@ def train_run(label, model, batch, expect, steps, workdir):
               f"({per_step} per step x {steps})")
     check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)), f"{label} training: every loss finite")
     ms = elapsed / steps * 1e3
-    print(f"{label} training: {B_TRAIN * steps / elapsed:.1f} clips/s, {ms:.1f} ms per step (B={B_TRAIN}, "
+    print(f"{label} training: {bsz * steps / elapsed:.1f} clips/s, {ms:.1f} ms per step (B={bsz}, "
           f"{steps} steps), peak {peak / 2**30:.2f} GiB on {torch.cuda.get_device_name(0)}; losses "
           + " ".join(f"{x:.4f}" for x in losses))
-    return trainer, losses, ms, B_TRAIN * steps / elapsed, peak, counts
+    return trainer, losses, ms, bsz * steps / elapsed, peak, counts
 
 
 def phase_beats_training(workdir):
@@ -1155,6 +1196,248 @@ def phase_aves_training(workdir):
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, **grad_check},
         "batch": B_TRAIN, "clip_seconds": CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
     return counts
+
+
+def phase_dh80_kernels():
+    """K5 and K4 at Bird-MAE huge's forward shape (B=128, T=513, 16 heads of
+    80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (FMA),
+    against their twins (the bf16 K6 also against the twin of its own
+    contract on K5's saved residuals); returns per-kernel numbers for the
+    JSON line and K4's launches in this phase."""
+    import torch
+    import torch.nn.functional as F
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    ak.reset_launch_counts()
+
+    def held(label, dtype, got, want):
+        """finite; fp32 max|d| or bf16 relative L2 against the twin; returns max|d|."""
+        err, rel = float((got.float() - want.float()).abs().max()), rel_l2(got, want)
+        check(bool(torch.isfinite(got).all()), f"{label}: finite")
+        if dtype == torch.float32:
+            check(err <= FP32_ATOL, f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
+        else:
+            check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+        return err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+        qkv = torch.randn(B, T_MAE, 3 * E_MAE, device="cuda", generator=gen).to(dtype)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T_MAE, 3, H_MAE, D_MAE).unbind(2))
+        cases = (
+            ("fused_qkv_attention", lambda: ak.fused_qkv_attention(qkv, H_MAE),
+             lambda: ak.fused_qkv_reference(qkv, H_MAE)),
+            ("plain_attention", lambda: ak.gated_bias_attention(q, k, v, None),
+             lambda: ak.gated_bias_attention_reference(q, k, v, None)),
+        )
+        with torch.no_grad():
+            for kname, run, twin in cases:
+                label = f"{kname} Bird-MAE huge dh={D_MAE} B={B} T={T_MAE} {name}"
+                err = held(label, dtype, run(), twin())
+                ms, plain_ms = median_ms(run), median_ms(twin)
+                library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=D_MAE**-0.5))
+                bound, bound_by = attention_bound_ms(name, gated=False, padded=False, seq=T_MAE, heads=H_MAE,
+                                                     dim=D_MAE)
+                print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                      f"({tflops(4.0 * B * H_MAE * T_MAE * T_MAE * D_MAE, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                      f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)")
+                results[(kname, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                              bound_ms=bound, bound_by=bound_by, batch=B, seq=T_MAE, heads=H_MAE)
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+
+        qkv = torch.randn(B_TRAIN_MAE, T_MAE, 3 * E_MAE, device="cuda", generator=gen).to(dtype).requires_grad_()
+        dout = torch.randn(B_TRAIN_MAE, T_MAE, E_MAE, device="cuda", generator=gen).to(dtype)
+        out = ak.fused_qkv_attention(qkv, H_MAE)
+        (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+        label = f"fused_qkv_attention_backward Bird-MAE huge dh={D_MAE} B={B_TRAIN_MAE} T={T_MAE} {name}"
+        err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), H_MAE, None, dout))
+        if dtype == torch.bfloat16:
+            *_, saved_out, rest, lse = out.grad_fn.saved_tensors  # K5's residuals
+            own = ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), saved_out.detach(), lse, None,
+                                                                 dout, out_rest=rest)[0]
+            held(label + " vs its residual twin", dtype, got, own)
+            del own, saved_out, rest, lse
+        del got
+        ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
+        plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), H_MAE, None, dout))
+        q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                   for t in qkv.detach().view(B_TRAIN_MAE, T_MAE, 3, H_MAE, D_MAE).unbind(2))
+        library_ms = sdpa_backward_ms(q, k, v, None, dout)
+        bound, bound_by = backward_bound_ms(name, B_TRAIN_MAE, T_MAE, gated=False, padded=False, heads=H_MAE,
+                                            dim=D_MAE)
+        print(f"time {label} ({body}): kernel {ms:.4f} ms "
+              f"({tflops(10.0 * B_TRAIN_MAE * H_MAE * T_MAE * T_MAE * D_MAE, ms):.1f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+              f"({bound / ms:.1%} of bound)")
+        results[("fused_qkv_attention_backward", name)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
+            batch=B_TRAIN_MAE, seq=T_MAE, heads=H_MAE)
+        del qkv, dout, out, q, k, v
+        torch.cuda.empty_cache()
+    k4_launches = ak.LAUNCHES["plain_attention"]
+    print(f"plain_attention (K4) launched {k4_launches} times in the dh-80 phase")
+    return results, k4_launches
+
+
+def load_birdmae(dtype, use_pallas, model_id=MAE_HUGE, **kwargs):
+    """Full-width Bird-MAE through ``load_model`` and a ModelSpec whose
+    ``model_id`` names the variant, ``use_pallas`` through ``init_config``;
+    seeded random weights, the same for every call."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    spec = ModelSpec(name="birdmae", pretrained=False, model_id=model_id, compute_dtype=dtype,
+                     init_config={"use_pallas": use_pallas})
+    return avex_tpu_torch.load_model(spec, random_weights=True, device="cuda", **kwargs)
+
+
+def phase_birdmae():
+    """Full-width Bird-MAE huge extraction (10 s clips at 32 kHz, all 32 layers
+    mean-pooled): bf16 on K5 and on the plain path at B=128, the fp32 kernel
+    path against the fp32 plain path at B=8 (pooled and every tapped layer),
+    then Bird-MAE base (dh 64) for one batch. Returns K5's launches in the two
+    bf16 kernel runs."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batches = [torch.randn(B, MAE_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES_MAE)]
+    small = [batches[0][:B_MAE_FP32]]
+
+    def pool(features, aux):
+        return aux["pooled"]
+
+    def run(model, what, kernel, data, layers=MAE_LAYERS, width=E_MAE):
+        model.register_hooks_for_layers(["all"])
+        return drive(model, f"Bird-MAE {what}", {kernel: layers} if kernel else {}, data, layers * width, pool)
+
+    def shape_of(model):
+        blocks = model.module.blocks
+        return len(blocks), blocks[0].dim, blocks[0].heads
+
+    with torch.no_grad():
+        start = time.perf_counter()
+        model = load_birdmae("bfloat16", True, return_features_only=True)
+        build_s = time.perf_counter() - start
+        check(shape_of(model) == (MAE_LAYERS, E_MAE, H_MAE),
+              f"Bird-MAE huge from model_id: (blocks, dim, heads) {shape_of(model)} == {(MAE_LAYERS, E_MAE, H_MAE)}")
+        torch.cuda.reset_peak_memory_stats()
+        emb16, pooled16, counts, rate16 = run(model, "huge bf16 K5", "fused_qkv_attention", batches)
+        peak16 = torch.cuda.max_memory_allocated()
+        del model
+        torch.cuda.empty_cache()
+        _, plain16, _, rate_plain16 = run(load_birdmae("bfloat16", None, return_features_only=True),
+                                          "huge bf16 plain-attention path (use_pallas=None)", None, batches)
+        torch.cuda.empty_cache()
+
+        kernel32 = load_birdmae("float32", True, return_features_only=True)
+        _, pooled32, _, rate32 = run(kernel32, f"huge fp32 K5 (B={B_MAE_FP32})", "fused_qkv_attention", small)
+        layers32 = kernel32.extract_embeddings(small[0], aggregation="none")
+        del kernel32
+        plain32 = load_birdmae("float32", None, return_features_only=True)
+        plain32.register_hooks_for_layers(["all"])
+        reset_counts()
+        ref_pooled = plain32.module(small[0])[1]["pooled"].float()
+        ref_layers = plain32.extract_embeddings(small[0], aggregation="none")
+        check(sum(read_counts().values()) == 0, "Bird-MAE huge fp32 plain-attention path launches no kernel")
+        del plain32
+        rp = rel_l2(pooled32, ref_pooled)
+        layer_rel = [rel_l2(a, b) for a, b in zip(layers32, ref_layers)]
+        check(len(layer_rel) == MAE_LAYERS and rp <= PATH_REL and max(layer_rel) <= PATH_REL,
+              f"Bird-MAE huge: fp32 kernel path vs plain-attention path (B={B_MAE_FP32}): pooled rel {rp:.3e}, "
+              f"worst of {len(layer_rel)} tapped layers rel {max(layer_rel):.3e} "
+              f"(layer {layer_rel.index(max(layer_rel))}) <= {PATH_REL:g}")
+        del layers32, ref_layers
+        torch.cuda.empty_cache()
+        rel = rel_l2(pooled16[:B_MAE_FP32], pooled32)
+        rel_plain = rel_l2(plain16[:B_MAE_FP32], ref_pooled)
+        check(rel < 5e-2, f"Bird-MAE huge bf16 vs fp32 pooled rel L2 {rel:.3e} < 5e-2")
+
+        base = load_birdmae("bfloat16", True, MAE_BASE, return_features_only=True)
+        check(shape_of(base) == (12, 768, 12), f"Bird-MAE base from model_id: {shape_of(base)} == (12, 768, 12)")
+        _, _, base_counts, base_rate = run(base, "base bf16 K5 (dh 64)", "fused_qkv_attention", batches[:1],
+                                           12, 768)
+        del base
+    torch.cuda.empty_cache()
+    print(f"Bird-MAE huge bf16 vs fp32 pooled features (B={B_MAE_FP32}): kernel path rel L2 {rel:.3e}, plain path "
+          f"rel L2 {rel_plain:.3e}; bf16 kernel path {rate16:.1f} clips/s vs plain path {rate_plain16:.1f} clips/s "
+          f"({rate16 / rate_plain16:.3f}x); peak {peak16 / 2**30:.2f} GiB; model built in {build_s:.1f} s; "
+          f"{CARD[0]}")
+    print(json.dumps({
+        "model": "birdmae_huge",
+        "clips_per_s": {"bf16_fused_qkv_kernel": rate16, "bf16_plain_attention": rate_plain16,
+                        f"fp32_fused_qkv_kernel_b{B_MAE_FP32}": rate32, "base_bf16_fused_qkv_kernel": base_rate},
+        "batch": B, "clip_seconds": MAE_CLIP_SAMPLES / 32000, "peak_bytes_bf16": peak16,
+        "bf16_fp32_pooled_rel_l2": {"kernel_path": rel, "plain_path": rel_plain},
+        "fp32_kernel_vs_plain": {"pooled_rel": rp, "worst_layer_rel": max(layer_rel)},
+    }))
+    return counts["fused_qkv_attention"] + base_counts["fused_qkv_attention"]
+
+
+def phase_birdmae_training(workdir):
+    """Full-width Bird-MAE huge fine-tuning through ``Trainer`` (bf16, K5 and
+    K6 at dh 80, 32 launches each a step), one step under the profiler for the
+    device's busy share, then the fp32 and bf16 gradient checks at B=8.
+    Returns the K5 and K6 launches of the timed run."""
+    import torch
+
+    def load(dtype, use_pallas):
+        return load_birdmae(dtype, use_pallas, num_classes=N_CLASSES)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    batch = {"raw_wav": torch.randn(B_TRAIN_MAE, MAE_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN_MAE,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_attention": MAE_LAYERS, "fused_qkv_attention_backward": MAE_LAYERS}
+    trainer, losses, ms, rate, peak, counts = train_run("birdmae", load("bfloat16", True), batch, expect,
+                                                        MAE_TRAIN_STEPS, workdir)
+    wall_ms, busy = busy_share(lambda: trainer._train_step(batch))
+    print(f"Bird-MAE huge training step under the profiler: {wall_ms:.1f} ms, device busy {busy:.1%}; "
+          f"peak {peak / 2**30:.2f} GiB (B={B_TRAIN_MAE}); {CARD[0]}")
+    del trainer
+    torch.cuda.empty_cache()
+    grad_check = training_gradient_check("Bird-MAE huge", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
+    print(json.dumps({"model": "birdmae_huge", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "profiled_step_ms": wall_ms,
+        "device_busy_share": busy, "losses": losses, **grad_check},
+        "batch": B_TRAIN_MAE, "clip_seconds": MAE_CLIP_SAMPLES / 32000, "num_classes": N_CLASSES}))
+    return counts
+
+
+def phase_atst():
+    """Full-width ATST-Frame extraction (10 s clips at 16 kHz, T=250): the
+    card's fp32 frontend against the CPU's, the timestamp embedding's shape,
+    then K5 (12 launches a forward) in bf16 and fp32 against the plain path.
+    Returns K5's launches in the bf16 kernel run."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+    from avex_tpu_torch.models.atst import atst_frontend
+
+    def load(dtype, use_pallas):
+        spec = ModelSpec(name="atst", pretrained=False, compute_dtype=dtype)
+        return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda",
+                                         use_pallas=use_pallas)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    batches = [torch.randn(B, ATST_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES_EAT_AVES)]
+    wav = batches[0][:8]
+    card, cpu = atst_frontend(wav), atst_frontend(wav.cpu())
+    r = rel_l2(card.cpu(), cpu)
+    check(card.shape == (8, 64, 1001) and r <= FRONTEND_CARD_CPU_REL,
+          f"ATST fp32 frontend on the card vs the CPU: {tuple(card.shape)}, rel L2 {r:.3e} <= {FRONTEND_CARD_CPU_REL:g}")
+    with torch.no_grad():
+        model = load("bfloat16", True)
+        _, aux = model.module(batches[0])
+        shape = tuple(aux["timestamp_embedding"].shape)
+        check(shape == (B, T_ATST, 12 * E) and bool(torch.isfinite(aux["timestamp_embedding"]).all()),
+              f"ATST timestamp_embedding {shape} == {(B, T_ATST, 12 * E)}, finite")
+        del model, aux
+    return bias_free_main_path("ATST", load, batches, None, lambda features, aux: aux["pooled"], 12, E)
 
 
 def max_ulps(got, want, mantissa_bits: int) -> float:
@@ -2093,28 +2376,32 @@ def main() -> int:
     plain_timings, k4_launches = phase_bias_free_kernels()
     k7, k8, k8_launches = phase_int8_kernels()
     backward_timings = phase_backward_kernels()
+    dh80_timings, dh80_k4_launches = phase_dh80_kernels()
     launches = phase_main_path()
     launches["int8_dynamic_dense"] = phase_int8_main_path()
     eat_launches = phase_eat()
     aves_launches = phase_aves()
+    birdmae_launches = phase_birdmae()
+    atst_launches = phase_atst()
     phase_serving()
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_training"
     beats_train = phase_beats_training(workdir / "beats")
     eat_train = phase_eat_training(workdir / "eat")
     aves_train = phase_aves_training(workdir / "aves")
+    birdmae_train = phase_birdmae_training(workdir / "birdmae")
     probes = phase_probes()
     entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
     torch.cuda.synchronize()
-    print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path and "
-          f"{aves_launches} on the AVES path")
-    launches["fused_qkv_attention"] = eat_launches + aves_launches
-    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT and AVES runs.
-    for counts in (beats_train, eat_train, aves_train):
+    print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
+          f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
+    launches["fused_qkv_attention"] = eat_launches + aves_launches + birdmae_launches + atst_launches
+    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT, AVES and Bird-MAE huge runs.
+    for counts in (beats_train, eat_train, aves_train, birdmae_train):
         for kname in ("fused_qkv_gated_attention", "fused_qkv_attention"):
             launches[kname] += counts[kname]
     launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
-    launches["fused_qkv_attention_backward"] = (eat_train["fused_qkv_attention_backward"]
-                                                + aves_train["fused_qkv_attention_backward"])
+    launches["fused_qkv_attention_backward"] = sum(counts["fused_qkv_attention_backward"]
+                                                   for counts in (eat_train, aves_train, birdmae_train))
     # Probes: K5 on the EAT probes, K1 on the frozen BEATs probes, K2/K3 on the unfrozen one.
     for kname, count in probes.items():
         if count:  # each probe run checked the rest at 0
@@ -2125,12 +2412,16 @@ def main() -> int:
         if count:  # each run checked the rest at 0
             launches[kname] += count
     print(f"entry points phase launches: { {k: v for k, v in entry.items() if v} }")
-    # No main path reaches K4 (every model's dh-64 projection takes K5, and K4
-    # takes dh 64 only) or K8 (in JAX only scripts/bench_int8_matmul.py calls
-    # it); drive() checks that each main-path run launched them 0 times.
-    # Their kernel-phase launches go under a key of their own.
+    # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
+    # large and huge's 80, takes K5, and K4 takes the same widths) or K8 (in
+    # JAX only scripts/bench_int8_matmul.py calls it); drive() checks that each
+    # main-path run launched them 0 times. Their kernel-phase launches go
+    # under a key of their own.
     launches["plain_attention"] = launches["int8_matmul"] = 0
-    kernel_phase = {"plain_attention": k4_launches, "int8_matmul": k8_launches}
+    kernel_phase = {"plain_attention": k4_launches + dh80_k4_launches, "int8_matmul": k8_launches}
+    # The bias-free kernels at head width 80 (Bird-MAE huge's shapes), bf16 and fp32.
+    dh80 = {kname: {name: dh80_timings[(kname, name)] for name in ("bfloat16", "float32")}
+            for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
 
     tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16; fp32 stays on gated_attention.cu
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
@@ -2161,6 +2452,8 @@ def main() -> int:
         })
         if source == tensor_core:
             kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)", "fp32": "FMA"}
+        if kname in dh80:
+            kernels[-1]["head_dim_80"] = dh80[kname]
         elif kname == "int8_dynamic_dense":
             kernels[-1]["body"] = "row quantization, then wgmma on TMA-fed tiles"
         if kname in kernel_phase:

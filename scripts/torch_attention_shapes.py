@@ -47,24 +47,24 @@ def build():
         'extern "C" int shape_forward(int shape, const void* q, const void* k, const void* v, const void* pad,'
         ' void* out, int batch, int heads, int seq, float scale, const long long* strides, void* stream) {',
         "  FwdStrides s; memcpy(&s, strides, sizeof(FwdStrides)); cudaStream_t st = (cudaStream_t)stream;",
-        *[f"  if (shape == {n}) return (int)launch_forward<{a}>(q, k, v, pad, out, nullptr, nullptr, batch, heads,"
-          f" seq, scale, s, st);" for n, a in enumerate(FORWARD_SHAPES)],
+        *[f"  if (shape == {n}) return (int)launch_forward<64, {a}>(q, k, v, pad, out, nullptr, nullptr, batch,"
+          f" heads, seq, scale, s, st);" for n, a in enumerate(FORWARD_SHAPES)],
         "  return -1; }",
         'extern "C" int shape_gated_forward(int shape, const void* q, const void* k, const void* v, const void* bias,'
         ' const void* gate, const void* pad, void* out, int batch, int heads, int seq, float scale,'
         ' const long long* strides, void* stream) {',
         "  FwdStrides s; const Gated gd = gated_operands(bias, gate, seq, strides, &s);"
         " cudaStream_t st = (cudaStream_t)stream;",
-        *[f"  if (shape == {n}) return (int)launch_forward<{a}>(q, k, v, pad, out, nullptr, nullptr, batch, heads,"
-          f" seq, scale, s, st, gd);" for n, a in enumerate(GATED_SHAPES)],
+        *[f"  if (shape == {n}) return (int)launch_forward<64, {a}>(q, k, v, pad, out, nullptr, nullptr, batch,"
+          f" heads, seq, scale, s, st, gd);" for n, a in enumerate(GATED_SHAPES)],
         "  return -1; }",
         'extern "C" int shape_backward(int shape, const void* q, const void* k, const void* v, const void* out,'
         " const void* out_rest, const void* dout, const void* pad, const void* lse, void* dq, void* dk, void* dv,"
         " void* delta, int batch, int heads, int seq, float scale, const long long* strides, void* stream) {",
         "  BwdStrides s; memcpy(&s, strides, sizeof(BwdStrides)); cudaStream_t st = (cudaStream_t)stream;",
-        *[f"  if (shape == {n}) {{ cudaError_t err = launch_dq<{a}>(q, k, v, out, out_rest, dout, pad, lse, dq, delta,"
-          f" batch, heads, seq, scale, s, st); if (err != cudaSuccess) return (int)err; return (int)launch_dkv<{b}>(q,"
-          f" k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s, st); }}"
+        *[f"  if (shape == {n}) {{ cudaError_t err = launch_dq<64, {a}>(q, k, v, out, out_rest, dout, pad, lse, dq,"
+          f" delta, batch, heads, seq, scale, s, st); if (err != cudaSuccess) return (int)err; return (int)"
+          f"launch_dkv<64, {b}>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s, st); }}"
           for n, (a, b) in enumerate(BACKWARD_SHAPES)],
         "  return -1; }",
         'extern "C" int shape_dbias(int shape, const void* q, const void* k, const void* v, const void* dout,'

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's embedding extraction and training goes, on one GPU.
 
-    python3 scripts/torch_beats_profile.py [beats] [int8] [eat] [aves]
-    python3 scripts/torch_beats_profile.py train [beats] [eat]
+    python3 scripts/torch_beats_profile.py [beats] [int8] [eat] [aves] [birdmae] [atst]
+    python3 scripts/torch_beats_profile.py train [beats] [eat] [birdmae]
     python3 scripts/torch_beats_profile.py probe [attention] [transformer] [linear] [unfrozen]
 
 Full-width models with seeded random weights, bf16, B=128, ``extract_embeddings``
@@ -11,7 +11,10 @@ same BEATs through ``load_model(quantization="int8")`` (``int8``: W8A8
 encoder denses on the K7 kernel), EAT (the official
 ``esp_aves2_sl_eat_all_ssl_all`` entry, 12 blocks, T=513) on 10 s clips, AVES
 (``aves_bio``, 12 layers, T=249) on 5 s clips with a third of them padded
-from 3 s. With no argument it profiles BEATs and EAT. For the
+from 3 s, Bird-MAE huge (``model_id`` ``DBD-research-group/Bird-MAE-huge``:
+32 blocks, 1280-d, 16 heads of 80, T=513) on 10 s clips at 32 kHz, ATST-Frame
+(12 blocks, 768-d, T=250) on 10 s clips. With no argument it profiles BEATs
+and EAT. For the
 kernel path (``use_pallas=True``) and the plain-attention path (``use_pallas``
 unset) of each it prints the forward's wall time (CUDA-synchronised), the
 device's busy share over that window (the union of the kernels' intervals:
@@ -19,8 +22,9 @@ some overlap) and the device kernels with the most summed time, from
 ``torch.profiler``. With ``train`` first it profiles one supervised
 fine-tuning step instead (``Trainer``, AdamW, a 50-class head, B=64, bf16
 compute with fp32 parameters; BEATs with ``fused_qkv``, so K2 forward and K3
-backward, and EAT, K5 and K6), after two warm-up steps. With ``probe`` first
-it profiles one ``FineTuneTrainer`` step of an online probe (B=64, 10
+backward, and EAT and Bird-MAE huge, K5 and K6; Bird-MAE's kernel path
+only), after two warm-up steps.
+With ``probe`` first it profiles one ``FineTuneTrainer`` step of an online probe (B=64, 10
 classes, bf16 backbone, fp32 head): ``attention`` and ``transformer``
 presets over BEATs layers 3, 7, 11 and the last, frozen (K1 forward);
 ``linear`` over EAT's last layer, frozen (K5); ``unfrozen``: the attention
@@ -80,7 +84,31 @@ def _loader(name: str):
         mask = torch.zeros(B, 5 * 16000, dtype=torch.bool, device="cuda")
         mask[::3, 3 * 16000:] = True
         return load, torch.randn(B, 5 * 16000, device="cuda", generator=gen) * 0.1, mask
-    raise SystemExit(f"unknown model {name!r} (beats, int8, eat, aves)")
+    if name == "birdmae":
+        wav = torch.randn(B, 10 * 32000, device="cuda", generator=gen) * 0.1
+        return _birdmae_loader(return_features_only=True), wav, None
+    if name == "atst":
+        def load(use_pallas):
+            spec = ModelSpec(name="atst", pretrained=False, compute_dtype="bfloat16")
+            return avex_tpu_torch.load_model(
+                spec, random_weights=True, return_features_only=True, device="cuda", use_pallas=use_pallas
+            )
+
+        return load, torch.randn(B, 10 * 16000, device="cuda", generator=gen) * 0.1, None
+    raise SystemExit(f"unknown model {name!r} (beats, int8, eat, aves, birdmae, atst)")
+
+
+def _birdmae_loader(**kwargs):
+    """``load(use_pallas)`` of bf16 Bird-MAE huge through a ModelSpec's ``model_id``."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    def load(use_pallas):
+        spec = ModelSpec(name="birdmae", pretrained=False, model_id="DBD-research-group/Bird-MAE-huge",
+                         compute_dtype="bfloat16", init_config={"use_pallas": use_pallas})
+        return avex_tpu_torch.load_model(spec, random_weights=True, device="cuda", **kwargs)
+
+    return load
 
 
 def _train_step(name: str, use_pallas):
@@ -100,14 +128,17 @@ def _train_step(name: str, use_pallas):
         spec = ModelSpec(name="beats", pretrained=False, compute_dtype="bfloat16",
                          init_config=dict(official, fused_qkv=True, use_pallas=use_pallas))
         model = avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
-        seconds = 5
+        samples = 5 * 16000
     elif name == "eat":
         model = avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, num_classes=N_CLASSES,
                                           device="cuda", compute_dtype="bfloat16", use_pallas=use_pallas)
-        seconds = 10
+        samples = 10 * 16000
+    elif name == "birdmae":
+        model = _birdmae_loader(num_classes=N_CLASSES)(use_pallas)
+        samples = 10 * 32000
     else:
-        raise SystemExit(f"unknown model {name!r} for train (beats, eat)")
-    batch = {"raw_wav": torch.randn(B_TRAIN, seconds * 16000, device="cuda", generator=gen) * 0.1,
+        raise SystemExit(f"unknown model {name!r} for train (beats, eat, birdmae)")
+    batch = {"raw_wav": torch.randn(B_TRAIN, samples, device="cuda", generator=gen) * 0.1,
              "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
     config = RunConfig(model_spec={"name": name}, output_dir=tempfile.mkdtemp(), seed=0,
                        training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=B_TRAIN, weight_decay=0.01),
@@ -204,7 +235,9 @@ def profile_model(name: str) -> None:
 def profile_training(name: str, probe: bool = False) -> None:
     import torch
 
-    for label, use_pallas in PATHS:
+    # Bird-MAE huge's plain path holds [B, 16, 513, 513] scores for 32 layers:
+    # past the card's memory at B=64, so its step is profiled on K5/K6 alone.
+    for label, use_pallas in PATHS[:1] if name == "birdmae" else PATHS:
         step, clips = (_probe_step if probe else _train_step)(name, use_pallas)
         torch.cuda.reset_peak_memory_stats()
         profile_call(f"{name} {label}, {'probe' if probe else 'training'} step", step, clips)

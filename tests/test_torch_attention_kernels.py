@@ -1,4 +1,5 @@
-"""Attention of the port (K1, K2, K4, K5 and their plain twins) against JAX.
+"""Attention of the port (K1, K2, K4, K5 and their plain twins) against JAX,
+at head width 64 and, for the bias-free K4/K5/K6, 80.
 
 On the CPU the port's wrappers take the plain twins; the JAX side runs its
 Pallas kernels in interpret mode. The CUDA kernel itself is held against the
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 
 from avex_tpu.ops.attention import relative_position_bucket_jnp
 from avex_tpu.ops.pallas_attention import fused_qkv_attention as jax_fused_plain
+from avex_tpu.ops.pallas_attention import fused_qkv_compatible as jax_compatible
 from avex_tpu.ops.pallas_attention import fused_qkv_gated_attention as jax_fused
 from avex_tpu.ops.pallas_attention import gated_bias_attention as jax_split
 
@@ -201,7 +203,74 @@ def test_grad_multiply_scales_only_the_gradient():
 def test_fused_qkv_compatible_is_the_kernel_head_width():
     assert ak.fused_qkv_compatible(768, 12)
     assert not ak.fused_qkv_compatible(96, 12)
-    assert not ak.fused_qkv_compatible(1280, 16)  # dh=80: K1/K2 take dh=64 only
+    assert ak.fused_qkv_compatible(1280, 16)  # dh=80: Bird-MAE huge takes K5 (K1/K2 take dh=64 only)
+
+
+# (dim, heads) → JAX's rule (head groups tiling 128 lanes) and the port's
+# (dh 64 or 80, any head count): they differ at 12 heads of 80, 1 of 64 and
+# at widths the kernels do not take (96, 32, 128).
+COMPATIBLE_GRID = [
+    (768, 12, True, True), (1024, 16, True, True), (1280, 16, True, True), (640, 8, True, True),
+    (128, 2, True, True), (960, 12, False, True), (64, 1, False, True), (96, 12, False, False),
+    (1536, 16, True, False), (512, 16, True, False), (1280, 10, True, False), (770, 11, False, False),
+]
+
+
+@pytest.mark.parametrize("dim,heads,jax_rule,port_rule", COMPATIBLE_GRID)
+def test_fused_qkv_compatible_grid(dim, heads, jax_rule, port_rule):
+    assert jax_compatible(dim, heads) == jax_rule
+    assert ak.fused_qkv_compatible(dim, heads) == port_rule == (dim % heads == 0 and dim // heads in ak.HEAD_DIMS)
+
+
+# Head width 80 (Bird-MAE large and huge): 8 heads, JAX's fused route in one
+# 640-lane group; a ragged tile and two tiles and a row, with and without a mask.
+H80, D80 = 8, 80
+DH80_CASES = [(seq, padded) for seq in (37, 129) for padded in (False, True)]
+
+
+def _inputs80(rng, seq, padded):
+    qkv = rng.standard_normal((B, seq, 3 * H80 * D80)).astype(np.float32)
+    cot = rng.standard_normal((B, seq, H80 * D80)).astype(np.float32)
+    mask = None
+    if padded:
+        mask = np.zeros((B, seq), bool)
+        mask[1, seq // 3:] = True
+    return qkv, cot, mask
+
+
+@pytest.mark.parametrize("seq,padded", DH80_CASES)
+def test_dh80_plain_split_twin_matches_jax_k4(rng, seq, padded):
+    qkv, _, mask = _inputs80(rng, seq, padded)
+    q, k, v = (np.ascontiguousarray(t.transpose(0, 2, 1, 3))
+               for t in np.moveaxis(qkv.reshape(B, seq, 3, H80, D80), 2, 0))
+    want = jax_split(_j(q), _j(k), _j(v), None, None, _j(mask), interpret=True)
+    got = ak.gated_bias_attention(_t(q), _t(k), _t(v), None, None, _t(mask))
+    assert got.shape == (B, H80, seq, D80)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("seq,padded", DH80_CASES)
+def test_dh80_fused_plain_twin_matches_jax_k5(rng, seq, padded):
+    ak.reset_launch_counts()
+    qkv, _, mask = _inputs80(rng, seq, padded)
+    want = jax_fused_plain(_j(qkv), H80, _j(mask), interpret=True)
+    got = ak.fused_qkv_attention(_t(qkv), H80, _t(mask))
+    assert got.shape == (B, seq, H80 * D80)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert sum(ak.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("seq,padded", DH80_CASES)
+def test_dh80_backward_twin_matches_jax_k6(rng, seq, padded):
+    """K6's twin and autograd through K5's twin against ``jax.grad`` through
+    ``fused_qkv_attention`` (K6 in interpret mode)."""
+    qkv, cot, mask = _inputs80(rng, seq, padded)
+    want = jax.grad(lambda x: jnp.sum(jax_fused_plain(x, H80, _j(mask), interpret=True) * cot))(_j(qkv))
+    got = ak.fused_qkv_backward_reference(_t(qkv), H80, _t(mask), _t(cot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    leaf = _t(qkv).requires_grad_()
+    (ak.fused_qkv_attention(leaf, H80, _t(mask)) * _t(cot)).sum().backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want), **TOL)
 
 
 BACKWARD_CASES = [(seq, gated, padded) for seq in (24, 31) for gated in (True, False) for padded in (False, True)]

@@ -129,6 +129,38 @@ def test_residual_backward_twin_matches_backward_twin(rng, seq, padded, dtype):
         assert _rel(got.float().numpy(), want.float().numpy()) <= BF16_REL_L2
 
 
+# Head width 80 (Bird-MAE large and huge): 8 heads of 80, the residual twin
+# against jax.grad through JAX's fused route (one 640-lane group).
+H80, E80 = 8, 640
+DH80_CASES = [(seq, padded) for seq in (37, 129) for padded in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("seq,padded", DH80_CASES)
+def test_dh80_residual_backward_twin_matches_jax_grad(rng, seq, padded, dtype):
+    qkv = rng.standard_normal((B, seq, 3 * E80)).astype(np.float32)
+    cot = rng.standard_normal((B, seq, E80)).astype(np.float32)
+    mask = None
+    if padded:
+        mask = np.zeros((B, seq), bool)
+        mask[1, seq // 3:] = True
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jq, jc = jnp.asarray(qkv).astype(jdt), jnp.asarray(cot).astype(jdt)
+
+    def loss(x):
+        return jnp.sum(jax_fused(x, H80, _j(mask), interpret=True).astype(jnp.float32) * jc.astype(jnp.float32))
+
+    want = jax.grad(loss)(jq)
+    tq, tc = (torch.from_numpy(np.asarray(x, np.float32)).to(dtype) for x in (jq, jc))
+    out, lse, rest = ak._fused_qkv_forward_lse_reference(tq, H80, _t(mask))
+    assert lse.shape == (B, H80, seq)
+    got, _, _ = ak.fused_qkv_backward_from_residuals_reference(tq, out, lse, _t(mask), tc, out_rest=rest)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    else:
+        assert _rel(got.float().numpy(), want) <= BF16_REL_L2
+
+
 def test_residual_twins_give_nan_where_the_softmax_does(rng):
     """An item whose keys are all padded: the log-sum-exp is −inf, and the
     residual backward is NaN exactly where the backward twin is."""

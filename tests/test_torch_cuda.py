@@ -350,7 +350,7 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
 
 
 def test_tensor_core_head_width_other_than_64_raises(card, monkeypatch):
-    """A bf16 call at dh=32 raises before any launch."""
+    """A bf16 call at dh=32 (the kernels take 64 and 80) raises before any launch."""
     for name in ("_library", "_tensor_core_library"):
         monkeypatch.setattr(ak, name, lambda: pytest.fail("no kernel may be loaded or launched"))
     ak.reset_launch_counts()
@@ -594,3 +594,87 @@ def test_retrieval_similarity_on_the_card_matches_the_cpu(card, monkeypatch):
     assert same == pytest.approx(eval_retrieval(embs, labels, device="cpu"), abs=1e-6)
     assert cross == pytest.approx(eval_retrieval_cross_set(embs[:16], labels[:16], embs[16:], labels[16:],
                                                            device="cpu"), abs=1e-6)
+
+
+# Head width 80 (Bird-MAE large and huge, 16 heads) in the bias-free kernels:
+# K5 and K4 forward, K6 backward, bf16 on the tensor cores (80-wide rows at a
+# padded shared-memory stride) and fp32 on the FMA body; T from one ragged
+# tile to Bird-MAE's 513.
+H80, D80 = 16, 80
+DH80_SEQS = [1, 31, 129, 513]
+
+
+def _dh80(card, bsz, seq, dtype, grad=False):
+    qkv = torch.randn(bsz, seq, 3 * H80 * D80, generator=card, device="cuda").to(dtype)
+    return qkv.requires_grad_() if grad else qkv
+
+
+def _close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        _close_bf16(got, want)
+    else:
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)  # a fully padded item: NaN on both
+
+
+@pytest.mark.parametrize("seq", DH80_SEQS)
+@pytest.mark.parametrize("masking", TC_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_head_width_80_forward_kernels_match_twins(card, seq, masking, dtype):
+    """K5 on the raw [B, T, 3E] projection and K4 on its split views."""
+    bsz = 4
+    qkv = _dh80(card, bsz, seq, dtype)
+    mask = _tc_mask(masking, bsz, seq)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, H80, D80).unbind(2))
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        fused = ak.fused_qkv_attention(qkv, H80, mask)
+        split = ak.gated_bias_attention(q, k, v, None, None, mask)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_attention"] == 1 and ak.LAUNCHES["plain_attention"] == 1
+    assert sum(ak.LAUNCHES.values()) == 2
+    _close(fused, ak.fused_qkv_reference(qkv, H80, mask), dtype)
+    _close(split, ak.gated_bias_attention_reference(q, k, v, None, None, mask), dtype)
+
+
+@pytest.mark.parametrize("seq", DH80_SEQS)
+@pytest.mark.parametrize("masking", ["nomask", "mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_head_width_80_backward_kernel_matches_twins(card, seq, masking, dtype):
+    """K6 against the backward twin; in bf16 also against the twin of its own
+    contract (P from the saved LSE, Δ from the saved output and its rest)."""
+    bsz = 4
+    qkv = _dh80(card, bsz, seq, dtype, grad=True)
+    dout = torch.randn(bsz, seq, H80 * D80, generator=card, device="cuda").to(dtype)
+    mask = _tc_mask(masking, bsz, seq)
+    ak.reset_launch_counts()
+    out = ak.fused_qkv_attention(qkv, H80, mask)
+    (got,) = torch.autograd.grad(out, (qkv,), dout)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_attention"] == 1 and ak.LAUNCHES["fused_qkv_attention_backward"] == 1
+    want = ak.fused_qkv_backward_reference(qkv.detach(), H80, mask, dout)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    _close_bf16(got, want)
+    _, lse, rest = ak._fused_qkv_forward_lse_reference(qkv.detach(), H80, mask)
+    _close_bf16(got, ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), out.detach(), lse, mask, dout,
+                                                                    out_rest=rest)[0])
+
+
+def test_head_width_80_gated_and_other_widths_raise(card, monkeypatch):
+    """The gated kernels take dh 64 only; the bias-free ones 64 and 80: a
+    call at another width raises before any kernel is loaded."""
+    for name in ("_library", "_tensor_core_library"):
+        monkeypatch.setattr(ak, name, lambda: pytest.fail("no kernel may be loaded or launched"))
+    ak.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.zeros(2, 31, 3 * H80 * D80, dtype=dtype, device="cuda")
+        bias = torch.zeros(H80, 31, 31, device="cuda")
+        with pytest.raises(ValueError, match="gated attention kernel takes head_dim 64"):
+            ak.fused_qkv_gated_attention(qkv, H80, bias)
+        q = torch.zeros(2, H80, 31, D80, dtype=dtype, device="cuda")
+        with pytest.raises(ValueError, match="gated attention kernel takes head_dim 64"):
+            ak.gated_bias_attention(q, q, q, bias)
+        with pytest.raises(ValueError, match="head_dim"):
+            ak.fused_qkv_attention(torch.zeros(2, 31, 3 * 8 * 96, dtype=dtype, device="cuda"), 8)  # dh 96
+    assert sum(ak.LAUNCHES.values()) == 0

@@ -20,6 +20,8 @@ SLICE_MODULES = [
     "avex_tpu_torch.models.beats",
     "avex_tpu_torch.models.eat",
     "avex_tpu_torch.models.aves",
+    "avex_tpu_torch.models.birdmae",
+    "avex_tpu_torch.models.atst",
     "avex_tpu_torch.utils.loaders",
     "avex_tpu_torch.ops.fbank",
     "avex_tpu_torch.ops.attention",
