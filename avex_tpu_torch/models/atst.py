@@ -14,8 +14,9 @@ Port of ``avex_tpu/models/atst.py``:
 - outputs: ``timestamp_embedding`` ``[B, N, 12 · 768]`` (the normed block
   outputs side by side), ``scene_embedding`` (their per-block means),
   ``pooled`` (the timestamp embedding's mean over frames);
-- attention: with ``use_pallas`` the K5 kernel over the raw projection (its
-  backward K6), else (and for heads K5 refuses, as in JAX) the plain path;
+- attention: EAT's block dispatch. With ``use_pallas`` the K5 kernel over
+  the raw projection (its backward K6), or K4 for heads K5 refuses (K4
+  refuses the same widths: on CUDA that raises); else the plain path;
 - embedding taps: ``atst.blocks.{i}``, each block's output before the norm.
 
 :func:`convert_atst_state_dict` takes the reference encoder naming (both
@@ -35,22 +36,12 @@ from torch import nn
 from avex_tpu_torch.models.base import ModelBase
 from avex_tpu_torch.models.common import build_module, dense, layer_norm, torch_dtype
 from avex_tpu_torch.models.eat import _Block, _PatchEmbed, patch_tokens
-from avex_tpu_torch.ops.frontend import htk_mel_banks, mel_product, stft_power
+from avex_tpu_torch.ops.frontend import mel_product, stft_power
 
 __all__ = ["FrameASTModel", "Model", "atst_frontend", "convert_atst_state_dict", "params_from_jax"]
 
 N_BLOCKS = 12
 _MINMAX = (-79.6482, 50.6842)
-_MEL_BANKS: Dict[torch.device, torch.Tensor] = {}
-
-
-def _mel_bank(device: torch.device) -> torch.Tensor:
-    bank = _MEL_BANKS.get(device)
-    if bank is None:
-        bank = _MEL_BANKS[device] = torch.from_numpy(
-            htk_mel_banks(513, 64, 16000.0, f_min=60.0, f_max=7800.0).astype(np.float32)
-        ).to(device)
-    return bank
 
 
 def atst_frontend(wav: torch.Tensor, precision: str = "highest") -> torch.Tensor:
@@ -60,7 +51,7 @@ def atst_frontend(wav: torch.Tensor, precision: str = "highest") -> torch.Tensor
     model takes ``"default"``, as JAX's; the mel product is fp32 in both.
     """
     power = stft_power(wav, n_fft=1024, hop_length=160, win_length=1024, precision=precision)
-    mel = mel_product(power, _mel_bank(power.device))
+    mel = mel_product(power, 64, 16000.0, f_min=60.0, f_max=7800.0)
     db = 10.0 * torch.log10(torch.clamp_min(mel, 1e-10))  # AmplitudeToDB(stype="power", top_db=80)
     db = torch.maximum(db, db.amax(dim=(1, 2), keepdim=True) - 80.0)
     lo, hi = _MINMAX
@@ -90,8 +81,7 @@ class FrameASTModel(nn.Module):
         self.patch_embed = _PatchEmbed(embed_dim, (patch_h, patch_w))
         self.pos_embed = nn.Parameter(torch.empty(1, max_frames // patch_w, embed_dim))
         self.blocks = nn.ModuleList(
-            _Block(embed_dim, heads, 4.0, dtype, use_pallas, qkv_bias=False, split_kernel=False)
-            for _ in range(depth)
+            _Block(embed_dim, heads, 4.0, dtype, use_pallas, qkv_bias=False) for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)  # the shared final norm (norm_frame)
         if num_classes is not None:

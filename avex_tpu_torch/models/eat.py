@@ -107,17 +107,14 @@ class _Block(nn.Module):
     Bird-MAE's and, without the qkv bias, ATST's block too).
 
     Returns ``(x, proj_out)``; ``proj_out`` is the embedding tap.
-    ``split_kernel``: with ``use_pallas``, heads that K5 refuses take K4 (EAT
-    and Bird-MAE, as in JAX), or the plain path (ATST, as in JAX).
     """
 
     def __init__(
         self, dim: int, heads: int, mlp_ratio: float, dtype: torch.dtype, use_pallas: bool,
-        qkv_bias: bool = True, split_kernel: bool = True,
+        qkv_bias: bool = True,
     ) -> None:
         super().__init__()
         self.dim, self.heads, self.dtype, self.use_pallas = dim, heads, dtype, use_pallas
-        self.split_kernel = split_kernel
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = _Attention(dim, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
@@ -132,7 +129,7 @@ class _Block(nn.Module):
             attn = fused_qkv_attention(qkv, heads, scale=head_dim**-0.5)  # K5
         else:
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, head_dim).unbind(2))
-            if self.use_pallas and self.split_kernel:
+            if self.use_pallas:
                 # K4. Reached only when K5 refuses the heads, i.e. dh not 64
                 # or 80, which K4 refuses as well: on CUDA this raises; the CPU
                 # twin runs.

@@ -31,3 +31,20 @@ def full_fp32() -> Iterator[None]:
             yield
     finally:
         matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def tf32_matmul() -> Iterator[None]:
+    """Let float32 matmuls run in TF32 on the tensor cores inside the block.
+
+    Exact for operands whose values are bf16 (8 exponent bits and 7 of TF32's
+    10 mantissa bits): their products are exact and summed in fp32, the
+    bf16 x bf16 -> fp32 product. No effect on the CPU.
+    """
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = saved

@@ -17,9 +17,15 @@ Two precisions, as in JAX:
   the waveform and the DFT matrix rounded to bf16, the product accumulated
   and returned in fp32. JAX casts the operands explicitly there
   (``frontend.py:124-127``), so the port computes the bf16-rounded operands'
-  product in fp32. The mel product keeps fp32 operands in both: JAX passes
-  ``DEFAULT`` to an fp32 einsum there, a TPU pass-count hint that is fp32
-  on the CPU, where the packages are compared.
+  product in fp32 sums: in TF32 on the card's tensor cores
+  (``ops/_precision.tf32_matmul``), which holds every bf16 value exactly, so
+  each product is exact and only the order of the fp32 sums differs. The mel
+  product keeps fp32 operands in both: JAX passes ``DEFAULT`` to an fp32
+  einsum there, a TPU pass-count hint that is fp32 on the CPU, where the
+  packages are compared.
+
+The DFT matrix and the mel bank are built once per shape (and window,
+precision) and device, and kept there.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from avex_tpu_torch.configs import AudioConfig
-from avex_tpu_torch.ops._precision import full_fp32
+from avex_tpu_torch.ops._precision import full_fp32, tf32_matmul
 
 __all__ = ["AudioProcessor", "htk_mel_banks", "mel_product", "stft_power"]
 
@@ -96,6 +102,13 @@ def _stft_kernel(n_fft: int, win_length: int, window: str) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _dft_matrix(n_fft: int, win_length: int, window: str, precision: str, device: torch.device) -> torch.Tensor:
+    """:func:`_stft_kernel` on ``device``, rounded to bf16 values for ``"default"``."""
+    kernel = torch.from_numpy(_stft_kernel(n_fft, win_length, window)).to(device)
+    return kernel.bfloat16().float() if precision == "default" else kernel
+
+
 def _check_precision(precision: str) -> None:
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
@@ -123,20 +136,31 @@ def stft_power(
         x = x[None]
     if center:
         x = F.pad(x, (n_fft // 2, n_fft // 2), mode="reflect")
-    kernel = torch.from_numpy(_stft_kernel(n_fft, win_length, window)).to(x.device)
+    kernel = _dft_matrix(n_fft, win_length, window, precision, x.device)
     if precision == "default":
         x = x.bfloat16().float()
-        kernel = kernel.bfloat16().float()
     frames = x.unfold(1, n_fft, hop_length)  # [B, frames, n_fft]
-    with full_fp32():
+    with full_fp32() if precision == "highest" else tf32_matmul():
         spec = torch.matmul(frames, kernel)  # [B, frames, 2K]
     k = n_fft // 2 + 1
     power = spec[..., :k].square() + spec[..., k:].square()
     return power.transpose(1, 2)
 
 
-def mel_product(power: torch.Tensor, mel_fb: torch.Tensor) -> torch.Tensor:
-    """``einsum("bkf,km->bmf")`` of a power spectrogram and a mel bank, fp32."""
+@functools.lru_cache(maxsize=16)
+def _mel_matrix(
+    n_freqs: int, n_mels: int, sample_rate: float, f_min: float, f_max: Optional[float], device: torch.device
+) -> torch.Tensor:
+    """:func:`htk_mel_banks` as float32 on ``device``."""
+    return torch.from_numpy(htk_mel_banks(n_freqs, n_mels, sample_rate, f_min, f_max).astype(np.float32)).to(device)
+
+
+def mel_product(
+    power: torch.Tensor, n_mels: int, sample_rate: float, f_min: float = 0.0, f_max: Optional[float] = None
+) -> torch.Tensor:
+    """``einsum("bkf,km->bmf")`` of a power spectrogram ``[B, K, frames]`` and
+    the HTK mel bank ``[K, n_mels]`` (:func:`htk_mel_banks`), fp32."""
+    mel_fb = _mel_matrix(power.shape[1], n_mels, sample_rate, f_min, f_max, power.device)
     with full_fp32():
         return torch.matmul(power.transpose(1, 2), mel_fb).transpose(1, 2)
 
@@ -165,16 +189,6 @@ class AudioProcessor:
         self.representation = cfg.representation
         self.normalize = cfg.normalize
         self.center = cfg.center
-        self._mel_fb = None
-        if self.representation == "mel_spectrogram":
-            self._mel_fb = htk_mel_banks(self.n_fft // 2 + 1, self.n_mels, self.sr).astype(np.float32)
-        self._mel_on = {}
-
-    def _mel_bank(self, device: torch.device) -> torch.Tensor:
-        bank = self._mel_on.get(device)
-        if bank is None:
-            bank = self._mel_on[device] = torch.from_numpy(self._mel_fb).to(device)
-        return bank
 
     def __call__(self, waveform: torch.Tensor) -> torch.Tensor:
         if waveform.ndim == 1:
@@ -186,7 +200,7 @@ class AudioProcessor:
             window=self.window_type, center=self.center, precision=self.precision,
         )
         if self.representation == "mel_spectrogram":
-            out = mel_product(out, self._mel_bank(out.device))
+            out = mel_product(out, self.n_mels, self.sr)
         return self._normalize(out) if self.normalize else out
 
     @staticmethod

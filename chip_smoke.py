@@ -128,13 +128,17 @@ Phases, each printing its results on lines of its own:
    at B=128, the fp32 kernel path against the fp32 plain path at B=8 (pooled
    and every tapped layer), then Bird-MAE base (dh 64, 12 a forward);
 18. ATST main path (after phase 17): ``ModelSpec(name="atst")``, 12 x 768,
-   10 s clips (T=250): the card's fp32 frontend against the CPU's, the
+   10 s clips (T=250): the card's frontend against the CPU's (fp32, and the
+   bf16 model's bf16-valued operands in TF32 against fp32 sums), the
    timestamp embedding's [B, 250, 9216] shape, then K5 (12 a forward) in
    bf16 and fp32 against the plain path, as the EAT phase;
 19. Bird-MAE huge training (after phase 13): ``Trainer``, bf16, B=64, a
    50-class head, 5 timed steps (K5 and K6 32 launches each a step), one
    step under the profiler (the device's busy share), then the fp32 and
-   bf16 gradient checks at B=8.
+   bf16 gradient checks at B=8;
+20. ATST training (after phase 19): ``Trainer``, bf16, B=64, 10 s clips, a
+   50-class head, 10 timed steps (K5 and K6 12 launches each a step; the
+   loss falls), then the fp32 and bf16 gradient checks at B=8.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -266,10 +270,11 @@ N_BATCHES_MAE = 3
 B_MAE_FP32 = 8  # the fp32 kernel-vs-plain check (the plain path holds [B, H, T, T] fp32)
 B_TRAIN_MAE = 64
 MAE_TRAIN_STEPS = 5
-# ATST-Frame (phase 19): 12 x 768, 10 s at 16 kHz: 1001 frames, 250 tokens.
+# ATST-Frame (phases 18 and 20): 12 x 768, 10 s at 16 kHz: 1001 frames, 250 tokens.
 ATST_CLIP_SAMPLES = 10 * 16000
 T_ATST = 250
-# The fp32 frontend (DFT and mel products in full fp32) on the card vs the CPU.
+# The frontend on the card vs the CPU: fp32 (DFT and mel products in full
+# fp32), and bf16-valued DFT operands (TF32 on the card, fp32 on the CPU).
 FRONTEND_CARD_CPU_REL = 1e-5
 
 FAILURES: list = []
@@ -1407,11 +1412,43 @@ def phase_birdmae_training(workdir):
     return counts
 
 
+def phase_atst_training(workdir):
+    """Full-width ATST-Frame fine-tuning through ``Trainer`` (bf16, 10 s
+    clips, K5 and K6 at dh 64, 12 launches each a step), then the fp32 and
+    bf16 gradient checks at B=8. Returns the K5 and K6 launches of the timed
+    run."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    def load(dtype, use_pallas):
+        spec = ModelSpec(name="atst", pretrained=False, compute_dtype=dtype)
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda",
+                                         use_pallas=use_pallas)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    batch = {"raw_wav": torch.randn(B_TRAIN, ATST_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_attention": 12, "fused_qkv_attention_backward": 12}
+    trainer, losses, ms, rate, peak, counts = train_run("atst", load("bfloat16", True), batch, expect,
+                                                        TRAIN_STEPS, workdir)
+    check(sum(losses[-3:]) / 3 < losses[0], f"ATST training: the loss falls on one repeated batch "
+                                           f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+    del trainer
+    torch.cuda.empty_cache()
+    grad_check = training_gradient_check("ATST", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
+    print(json.dumps({"model": "atst", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, **grad_check},
+        "batch": B_TRAIN, "clip_seconds": ATST_CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
+    return counts
+
+
 def phase_atst():
     """Full-width ATST-Frame extraction (10 s clips at 16 kHz, T=250): the
-    card's fp32 frontend against the CPU's, the timestamp embedding's shape,
-    then K5 (12 launches a forward) in bf16 and fp32 against the plain path.
-    Returns K5's launches in the bf16 kernel run."""
+    card's frontend against the CPU's (both precisions), the timestamp
+    embedding's shape, then K5 (12 launches a forward) in bf16 and fp32
+    against the plain path. Returns K5's launches in the bf16 kernel run."""
     import torch
 
     import avex_tpu_torch
@@ -1430,6 +1467,9 @@ def phase_atst():
     r = rel_l2(card.cpu(), cpu)
     check(card.shape == (8, 64, 1001) and r <= FRONTEND_CARD_CPU_REL,
           f"ATST fp32 frontend on the card vs the CPU: {tuple(card.shape)}, rel L2 {r:.3e} <= {FRONTEND_CARD_CPU_REL:g}")
+    r = rel_l2(atst_frontend(wav, "default").cpu(), atst_frontend(wav.cpu(), "default"))
+    check(r <= FRONTEND_CARD_CPU_REL, f"ATST bf16-operand frontend, TF32 product on the card vs fp32 on the CPU: "
+                                      f"rel L2 {r:.3e} <= {FRONTEND_CARD_CPU_REL:g}")
     with torch.no_grad():
         model = load("bfloat16", True)
         _, aux = model.module(batches[0])
@@ -2389,19 +2429,20 @@ def main() -> int:
     eat_train = phase_eat_training(workdir / "eat")
     aves_train = phase_aves_training(workdir / "aves")
     birdmae_train = phase_birdmae_training(workdir / "birdmae")
+    atst_train = phase_atst_training(workdir / "atst")
     probes = phase_probes()
     entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
     launches["fused_qkv_attention"] = eat_launches + aves_launches + birdmae_launches + atst_launches
-    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT, AVES and Bird-MAE huge runs.
-    for counts in (beats_train, eat_train, aves_train, birdmae_train):
+    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT, AVES, Bird-MAE huge and ATST runs.
+    for counts in (beats_train, eat_train, aves_train, birdmae_train, atst_train):
         for kname in ("fused_qkv_gated_attention", "fused_qkv_attention"):
             launches[kname] += counts[kname]
     launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
     launches["fused_qkv_attention_backward"] = sum(counts["fused_qkv_attention_backward"]
-                                                   for counts in (eat_train, aves_train, birdmae_train))
+                                                   for counts in (eat_train, aves_train, birdmae_train, atst_train))
     # Probes: K5 on the EAT probes, K1 on the frozen BEATs probes, K2/K3 on the unfrozen one.
     for kname, count in probes.items():
         if count:  # each probe run checked the rest at 0
@@ -2452,10 +2493,10 @@ def main() -> int:
         })
         if source == tensor_core:
             kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)", "fp32": "FMA"}
-        if kname in dh80:
-            kernels[-1]["head_dim_80"] = dh80[kname]
         elif kname == "int8_dynamic_dense":
             kernels[-1]["body"] = "row quantization, then wgmma on TMA-fed tiles"
+        if kname in dh80:
+            kernels[-1]["head_dim_80"] = dh80[kname]
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")
