@@ -1,8 +1,7 @@
 """Configuration of the port, as dataclasses.
 
 Counterparts of ``avex_tpu.configs``: ``AudioConfig`` with the JAX package's
-fields, ``ModelSpec`` with the fields that the ported models read (BEATs,
-EAT, AVES, Bird-MAE's ``model_id``, ATST), ``TrainingParams``,
+fields, ``ModelSpec`` with the JAX package's fields, ``TrainingParams``,
 ``SchedulerConfig``, the augmentations (``NoiseAugment``, ``MixupAugment``),
 the dataset configs (``DatasetConfig``, ``DatasetCollectionConfig``,
 ``EvaluationSet``, ``BenchmarkEvaluationConfig``), ``RunConfig``,
@@ -234,15 +233,29 @@ class ModelSpec:
     pretrained: bool = True
     device: str = "cuda"
     audio_config: Optional[Union[AudioConfig, Dict[str, Any]]] = None
+    # CLIP/CLAP
+    text_model_name: Optional[str] = None
+    projection_dim: Optional[int] = None
+    temperature: Optional[float] = None
     # EAT
+    eat_cfg: Optional[Dict[str, Any]] = None
+    pretraining_mode: Optional[bool] = None
+    handle_padding: Optional[bool] = None
+    fairseq_weights_path: Optional[str] = None
     eat_norm_mean: Optional[float] = None
     eat_norm_std: Optional[float] = None
+    # EfficientNet
+    efficientnet_variant: str = "b0"
     # BEATs
     use_naturelm: Optional[bool] = None
     fine_tuned: Optional[bool] = None
     init_config: Optional[Dict[str, Any]] = None
+    # BirdNet
+    language: Optional[str] = None
     # Bird-MAE / HF-hosted models: the variant is read from the id
     model_id: Optional[str] = None
+    # free-form escape hatch (BirdNet's model and labels paths, for one)
+    extra_config: Optional[Dict[str, Any]] = None
     # numeric policy of the backbone compute
     compute_dtype: str = "float32"
 
@@ -255,6 +268,7 @@ class ModelSpec:
             raise ValueError(
                 f"compute_dtype must be one of {_COMPUTE_DTYPES}, got {self.compute_dtype!r}"
             )
+        _one_of("efficientnet_variant", self.efficientnet_variant, ("b0", "b1"))
 
     def replace(self, **changes: Any) -> "ModelSpec":
         """A copy with ``changes`` applied (≈ pydantic ``model_copy(update=...)``)."""

@@ -5,8 +5,9 @@
 activations, with no forward hooks — with the reference model API: layer
 discovery and selection (int, negative int, ``all``, ``last_layer``),
 ``forward`` / ``__call__``, ``batch_inference``, and ``extract_embeddings``
-with ``none`` / ``mean`` / ``max`` / ``cls_token`` aggregation and
-multi-layer concatenation, and ``embedding_shapes`` (one forward at B=1 on
+with ``none`` / ``mean`` / ``max`` / ``cls_token`` aggregation (a conv
+map's, for the models that take it, pools the time axis) and multi-layer
+concatenation, and ``embedding_shapes`` (one forward at B=1 on
 zeros) for sizing a probe. For training, :meth:`ModelBase.train_forward`
 runs the module with the strategy's keywords (``deterministic``,
 ``disable_layerdrop``, ``generator``) filtered by the module's signature, and
@@ -216,6 +217,22 @@ class ModelBase:
                 return emb[:, 0, :]
             raise ValueError(f"Unsupported aggregation method: {aggregation}")
         raise ValueError(f"Unexpected embedding dimension: {emb.ndim}. Expected 2 or 3.")
+
+    @staticmethod
+    def _aggregate_conv_map(emb: torch.Tensor, aggregation: str) -> torch.Tensor:
+        """A conv map ``[B, C, H, W]`` (EfficientNet's override of
+        :meth:`_aggregate`, as the reference wrapper's): ``mean`` / ``max``
+        over the trailing time axis, then flattened to ``[B, C·H]``;
+        ``cls_token`` takes channel 0 and flattens it to ``[B, H·W]``."""
+        if aggregation == "mean":
+            pooled = emb.mean(dim=-1)
+        elif aggregation == "max":
+            pooled = emb.amax(dim=-1)
+        elif aggregation == "cls_token":
+            pooled = emb[:, 0, :]
+        else:
+            raise ValueError(f"Unsupported aggregation method: {aggregation}")
+        return pooled.reshape(pooled.shape[0], -1)
 
     def extract_fn(self, layers: Tuple[str, ...], aggregation: str):
         """``(x, padding_mask) → embeddings`` for these layers and this aggregation."""

@@ -1,4 +1,4 @@
-"""Building blocks the port's models share (BEATs, EAT, AVES).
+"""Building blocks the port's models share (BEATs, EAT, AVES, the CNNs).
 
 - the flax dtype policy: ``dense`` casts input, weight and bias to the
   compute dtype (an ``Int8Linear`` runs as it is: its int8 weight is never
@@ -7,6 +7,11 @@
 - the exact (erf) GELU;
 - ``conv_positions``: the grouped Conv1d positional embedding of BEATs and
   AVES, with the even-kernel trim;
+- ``conv2d``: a conv in the compute dtype with torchvision's symmetric or
+  TF "SAME" padding (``same_padding``);
+- ``batch_norm``: flax ``BatchNorm(momentum=0.9)`` on an ``nn.BatchNorm2d``
+  (torchvision's names and buffers): batch statistics and a running update
+  with the biased variance in training, the running statistics in eval;
 - ``dropout`` (flax ``nn.Dropout``, drawing from a caller's generator) and
   ``checkpoint_layer`` (per-layer gradient checkpointing that replays the
   layer's draws on recompute);
@@ -33,7 +38,9 @@ from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.quant import Int8Linear
 
 __all__ = [
+    "batch_norm",
     "build_module",
+    "conv2d",
     "checkpoint_layer",
     "config_from_dict",
     "conv_positions",
@@ -43,6 +50,7 @@ __all__ = [
     "gelu",
     "group_norm",
     "layer_norm",
+    "same_padding",
     "torch_dtype",
 ]
 
@@ -133,6 +141,52 @@ def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torc
     return F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias, layer.eps).to(dtype)
 
 
+def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``BatchNorm(momentum=0.9, dtype=...)`` on ``[B, C, H, W]``.
+
+    In training (``layer.training``) the batch's fp32 mean and biased
+    variance normalise it, and the running statistics move as
+    ``r ← 0.9·r + 0.1·s``, ``s`` the biased variance (torch's own module
+    would take the unbiased one); in eval the running statistics normalise.
+    The normalisation runs in fp32 and returns ``dtype``.
+    """
+    x = x.to(dtype)
+    if not layer.training:
+        return F.batch_norm(x, layer.running_mean, layer.running_var, layer.weight, layer.bias,
+                            False, 0.0, layer.eps)
+    out, mean, invstd = torch.native_batch_norm(x, layer.weight, layer.bias, None, None, True, 0.0, layer.eps)
+    with torch.no_grad():
+        var = invstd.reciprocal().square() - layer.eps
+        layer.running_mean.mul_(0.9).add_(0.1 * mean)
+        layer.running_var.mul_(0.9).add_(0.1 * var)
+    return out
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TF/Keras "SAME" padding of one axis: the total is ``max(k - (size mod
+    s or s), 0)``, the extra one at the end."""
+    rem = size % stride
+    total = max(kernel - (rem if rem else stride), 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, tf_same: bool = False) -> torch.Tensor:
+    """``conv`` on ``x`` in ``dtype`` (input, kernel and bias cast, flax's
+    policy), with torchvision's symmetric ``(k - 1) // 2`` padding or TF
+    "SAME" padding (``F.pad`` before the conv)."""
+    k, s = conv.kernel_size[0], conv.stride[0]
+    x = x.to(dtype)
+    pad = (k - 1) // 2
+    if tf_same:
+        top, bottom = same_padding(x.shape[2], k, s)
+        left, right = same_padding(x.shape[3], k, s)
+        if (top, bottom, left, right) != (0, 0, 0, 0):
+            x = F.pad(x, (left, right, top, bottom))
+        pad = 0
+    bias = conv.bias.to(dtype) if conv.bias is not None else None
+    return F.conv2d(x, conv.weight.to(dtype), bias, s, pad, 1, conv.groups)
+
+
 def group_norm(layer: nn.GroupNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``GroupNorm(dtype=...)`` on ``[B, C, T]``: fp32 statistics, output in ``dtype``."""
     return F.group_norm(x.float(), layer.num_groups, layer.weight, layer.bias, layer.eps).to(dtype)
@@ -169,7 +223,7 @@ def _seeded_init(module: nn.Module, seed: int) -> None:
     """Seeded init in the flax defaults' families: weights N(0, 1/fan_in)
     (fan_in = all axes but the first), biases 0, norms 1/0, ``grep_a`` 1;
     an :class:`Int8Linear` gets ``Int8Dense``'s init (zero weights, unit
-    scales)."""
+    scales); a BatchNorm scale 1, shift 0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(seed)
     for sub in module.modules():
         if isinstance(sub, Int8Linear):
@@ -183,6 +237,9 @@ def _seeded_init(module: nn.Module, seed: int) -> None:
             else:
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
+    for sub in module.modules():
+        if isinstance(sub, nn.modules.batchnorm._BatchNorm):
+            sub.reset_parameters()
 
 
 def build_module(make: Callable[[], nn.Module], seed: int, device: torch.device) -> nn.Module:

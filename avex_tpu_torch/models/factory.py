@@ -3,7 +3,8 @@
 Counterpart of ``avex_tpu/models/factory.py``: looks up the architecture
 class by ``spec.name``, forwards the spec's model fields, expands an
 ``init_config`` dict into constructor arguments for a class that takes its
-architecture as direct arguments (EAT's ``depth``, AVES's ``aves_cfg``), and
+architecture as direct arguments (EAT's ``depth``, AVES's ``aves_cfg``),
+passes ``spec.name`` as ``variant`` (one ResNet class serves three names), and
 filters the kwargs against the class's ``__init__`` signature so each
 architecture only receives what it understands.
 """
@@ -21,12 +22,22 @@ logger = logging.getLogger(__name__)
 
 #: ModelSpec fields forwarded to model constructors.
 _SPEC_FORWARD_FIELDS = (
+    "text_model_name",
+    "projection_dim",
+    "temperature",
+    "eat_cfg",
+    "pretraining_mode",
+    "handle_padding",
+    "fairseq_weights_path",
     "eat_norm_mean",
     "eat_norm_std",
+    "efficientnet_variant",
     "use_naturelm",
     "fine_tuned",
     "init_config",
+    "language",
     "model_id",
+    "extra_config",
     "compute_dtype",
 )
 
@@ -50,6 +61,8 @@ def build_model_from_spec(
         value = getattr(spec, field, None)
         if value is not None:
             kwargs[field] = value
+    # resnet18/50/152 share one class that takes the concrete variant name.
+    kwargs.setdefault("variant", spec.name)
     kwargs.update(overrides)
 
     signature = inspect.signature(cls.__init__)

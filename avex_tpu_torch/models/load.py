@@ -9,13 +9,15 @@ Counterpart of ``avex_tpu/models/load.py``:
   ``pretrained`` flips off once a checkpoint is supplied;
 - ``num_classes`` is read from the checkpoint's classifier weights, falling
   back to the label mapping's size;
-- files are local: a remote checkpoint or label map raises, except that
-  ``random_weights=True`` skips a remote label map, as the JAX package does.
+- files are local: a remote checkpoint raises; a remote label map is
+  skipped (with a warning unless ``random_weights``), as the JAX package
+  goes on without a label map it cannot fetch.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from typing import Any, Dict, Optional, Tuple, Union
 
 from avex_tpu_torch.configs import ModelSpec
@@ -33,6 +35,8 @@ from avex_tpu_torch.utils.loaders import (
     process_state_dict,
     universal_load,
 )
+
+logger = logging.getLogger(__name__)
 
 
 def _read_text(path: str) -> str:
@@ -104,7 +108,9 @@ def load_model(
     if resolved_ckpt and not random_weights:
         state = process_state_dict(universal_load(resolved_ckpt))
 
-    if label_map_path and random_weights and is_remote(label_map_path):
+    if label_map_path and is_remote(label_map_path):
+        if not random_weights:
+            logger.warning("Could not load label mapping %s: the port reads local files only", label_map_path)
         label_map_path = None
     label_mapping = json.loads(_read_text(label_map_path)) if label_map_path else None
 

@@ -3,7 +3,8 @@
 Counterpart of ``avex_tpu/models/registry.py``. ``_MODEL_REGISTRY`` maps a
 registry key to a :class:`ModelSpec` (with checkpoint and label-map URIs);
 ``_MODEL_CLASSES`` maps an architecture name to its wrapper class, imported
-lazily through ``_ARCH_MODULES``. Only architectures the port has are in
+lazily through ``_ARCH_MODULES`` (the class is the module's ``Model``, or the
+attribute ``_ARCH_CLASS_ATTR`` names). Only architectures the port has are in
 ``_ARCH_MODULES``, and only the official entries of those architectures are
 registered at import.
 """
@@ -29,7 +30,17 @@ _ARCH_MODULES: Dict[str, str] = {
     "aves_bio": "avex_tpu_torch.models.aves",
     "birdmae": "avex_tpu_torch.models.birdmae",
     "atst": "avex_tpu_torch.models.atst",
+    "efficientnet": "avex_tpu_torch.models.efficientnet",
+    "resnet18": "avex_tpu_torch.models.resnet",
+    "resnet50": "avex_tpu_torch.models.resnet",
+    "resnet152": "avex_tpu_torch.models.resnet",
+    "perch": "avex_tpu_torch.models.perch",
+    "surfperch": "avex_tpu_torch.models.perch",
+    "birdnet": "avex_tpu_torch.models.birdnet",
 }
+
+#: architecture name → class attribute when it is not the module's ``Model``.
+_ARCH_CLASS_ATTR: Dict[str, str] = {"surfperch": "SurfPerchModel"}
 
 
 def register_model(
@@ -86,7 +97,7 @@ def get_model_class(name: str) -> Type:
                 f"No model class registered for architecture '{name}'. "
                 f"Known: {sorted(set(_MODEL_CLASSES) | set(_ARCH_MODULES))}"
             )
-        _MODEL_CLASSES[name] = importlib.import_module(module_path).Model
+        _MODEL_CLASSES[name] = getattr(importlib.import_module(module_path), _ARCH_CLASS_ATTR.get(name, "Model"))
     return _MODEL_CLASSES[name]
 
 

@@ -92,10 +92,6 @@ LAUNCHES: Dict[str, int] = {
     "fused_qkv_gated_attention_backward": 0,
     "fused_qkv_attention_backward": 0,
 }
-#: shared memory of one block (H100: 227 KB) and what the fp32 K3's dQ block
-#: holds besides its [64, T] fp32 dbias rows: six [64, 64] fp32 tiles
-_MAX_BLOCK_SMEM = 232_448
-_DQ_TILES_BYTES = 6 * 64 * 64 * 4
 #: dQ blocks the fp32 K3 aims to put in flight: three per SM of an H100's 132
 _DQ_TARGET_BLOCKS = 396
 #: dbias blocks of the bf16 K3 resident on an SM at once (168 registers x
@@ -530,9 +526,6 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     items = 1
     if gated:
         tiles = -(-seq // 64)
-        if _DQ_TILES_BYTES + 64 * tiles * 64 * 4 > _MAX_BLOCK_SMEM:
-            raise ValueError(f"the fp32 gated attention backward keeps [64, T] fp32 dbias rows in shared "
-                             f"memory and takes T <= 512; got T={seq}")
         # Batch items per dQ block: enough blocks to fill the card, one dbias
         # partial per chunk of items, summed in a second pass.
         chunks = min(bsz, -(-_DQ_TARGET_BLOCKS // (tiles * heads)))

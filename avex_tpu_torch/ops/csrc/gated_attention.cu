@@ -367,9 +367,14 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 //      items). Per item, pass 1 walks the key tiles once for the row max,
 //      the row sum and Δ (online, with the forward's rescaling); pass 2 walks
 //      them again for dL, accumulates dQ = dS·K and dgate in registers, and
-//      adds gate ⊙ dL into the block's [64, T] dbias rows in shared memory.
-//      It writes each row's softmax shift, sum and Δ for launch 2 and, after
-//      its last item, its dbias rows as one partial per chunk.
+//      adds gate ⊙ dL into the block's [64, T] dbias rows. The rows sit in
+//      shared memory while they fit (T <= 512: 64 x T fp32 beside six
+//      64 x 64 tiles), and the block writes them as one partial per chunk
+//      after its last item; past that they are the block's own rows of its
+//      chunk's partial in device memory, written on the chunk's first item
+//      and added to on the next (each thread keeps to its own elements, so
+//      no two threads and no two blocks touch one address). It writes each
+//      row's softmax shift, sum and Δ for launch 2.
 //   2. dK/dV kernel, one block per (key tile of 64, head, item): walks the
 //      query tiles, rebuilds P from launch 1's row statistics (the same fp32
 //      operations in the same order, so the same P) and accumulates
@@ -392,8 +397,10 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 // bias-free: 129 GFLOP, about 1.93 ms).
 // The products run on the FMA units, held back by their instruction rate, as
 // fp32 parity asks. It serves fp32 only: the bf16 K3 and K6 run on the tensor
-// cores in tensor_core_attention.cu, from a saved log-sum-exp. The gated
-// variant keeps [64, T] fp32 dbias rows in shared memory, which caps T at 512.
+// cores in tensor_core_attention.cu, from a saved log-sum-exp. Past T = 512
+// the gated dQ kernel adds its dbias rows in device memory: each element is
+// read and written once per batch item of the chunk, 2·B·H·T² fp32 accesses
+// (at B=4, H=12, T=800: 246 MB), mostly from L2, on top of the five products.
 // ===========================================================================
 
 namespace {
@@ -404,6 +411,7 @@ namespace {
 // and dO transposed, q and dO, and P (then dS). The gated dQ kernel adds its
 // dbias rows.
 constexpr int kScoreTile = kBlockQ * kBlockK;
+constexpr size_t kMaxBlockSmem = 232448;  // an H100 block's shared memory (227 KB)
 template <int kD>
 struct BwdTiles {
   static constexpr int kDTile = kD * kBlockQ;
@@ -507,7 +515,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ gate, const uint8_t* __restrict__ pad,
                     T* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part,
                     float* __restrict__ stats, int batch, int heads, int seq, int items_per_chunk,
-                    float scale, BwdStrides s) {
+                    float scale, bool dbias_global, BwdStrides s) {
   constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dQ columns a thread; floats of a q/k/v tile
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                   // [D][BQ]  q transposed
@@ -516,7 +524,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* v_t = k_t + kDT;              // [D][BK]  v tile transposed
   float* k_s = v_t + kDT;              // [BK][D]  k tile
   float* ds_t = k_s + kDT;             // [BK][BQ] dS transposed
-  float* dbias_s = ds_t + kScoreTile;  // [BQ][seq_pad] this block's dbias rows (gated)
+  float* dbias_s = ds_t + kScoreTile;  // [BQ][seq_pad] this block's dbias rows (gated, T <= 512)
 
   const int n_ktiles = (seq + kBlockK - 1) / kBlockK;
   const int seq_pad = n_ktiles * kBlockK;
@@ -529,12 +537,16 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int ty = tid >> 3;  // query rows ty*4..ty*4+3
   const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
   const long long bht = (long long)batch * heads * seq;
+  // (dbias_global) this chunk's partial [T, T] of head h; the block owns rows q0 .. q0+63
+  float* dbias_g = kGated ? dbias_part + ((long long)chunk * heads + h) * seq * seq : nullptr;
 
   if constexpr (kGated) {
-    for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) dbias_s[c] = 0.f;
+    if (!dbias_global)
+      for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) dbias_s[c] = 0.f;
   }
 
   for (int b = chunk * items_per_chunk; b < b_end; ++b) {
+    const bool first_item = b == chunk * items_per_chunk;
     __syncthreads();  // the previous item's readers of q_t and do_t are done
     load_rows<kD>(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, q_t, static_cast<float*>(nullptr));
     load_rows<kD>(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, do_t,
@@ -632,12 +644,23 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           ds_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = dl[j] * scale;
         }
         if constexpr (kGated) {
-          float* row = dbias_s + (ty * 4 + i) * seq_pad + k0 + tx * 8;
-          float cur[8];
-          load8(row, cur);
+          if (dbias_global) {
+            if (row_ok[i]) {
+              float* row = dbias_g + (long long)qi * seq;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) cur[j] = fmaf(g[i], dl[j], cur[j]);
-          store8(row, cur);
+              for (int j = 0; j < 8; ++j) {
+                const int key = k0 + tx * 8 + j;
+                if (key < seq) row[key] = first_item ? g[i] * dl[j] : fmaf(g[i], dl[j], row[key]);
+              }
+            }
+          } else {
+            float* row = dbias_s + (ty * 4 + i) * seq_pad + k0 + tx * 8;
+            float cur[8];
+            load8(row, cur);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) cur[j] = fmaf(g[i], dl[j], cur[j]);
+            store8(row, cur);
+          }
         }
       }
       __syncthreads();
@@ -661,11 +684,12 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 
   if constexpr (kGated) {
-    __syncthreads();
-    float* part = dbias_part + ((long long)chunk * heads + h) * seq * seq;
-    for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) {
-      const int r = c / seq_pad, key = c % seq_pad;
-      if (q0 + r < seq && key < seq) part[(long long)(q0 + r) * seq + key] = dbias_s[c];
+    if (!dbias_global) {
+      __syncthreads();
+      for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) {
+        const int r = c / seq_pad, key = c % seq_pad;
+        if (q0 + r < seq && key < seq) dbias_g[(long long)(q0 + r) * seq + key] = dbias_s[c];
+      }
     }
   }
 }
@@ -789,7 +813,9 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
                             int items_per_chunk, const BwdStrides& s, cudaStream_t stream) {
   const int tiles = (seq + kBlockQ - 1) / kBlockQ;
   const int chunks = (batch + items_per_chunk - 1) / items_per_chunk;
-  const size_t dq_smem = BwdTiles<kD>::kDqSmem + (kGated ? sizeof(float) * kBlockQ * tiles * kBlockK : 0);
+  const size_t rows_smem = kGated ? sizeof(float) * kBlockQ * tiles * kBlockK : 0;  // the dbias rows
+  const bool dbias_global = BwdTiles<kD>::kDqSmem + rows_smem > kMaxBlockSmem;      // T > 512
+  const size_t dq_smem = BwdTiles<kD>::kDqSmem + (dbias_global ? 0 : rows_smem);
   constexpr size_t dkv_smem = BwdTiles<kD>::kDkvSmem;
   cudaError_t err = cudaFuncSetAttribute(attention_dq_kernel<T, kGated, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
@@ -802,7 +828,7 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dq),
       static_cast<float*>(dgate), static_cast<float*>(chunks > 1 ? dbias_part : dbias),
-      static_cast<float*>(stats), batch, heads, seq, items_per_chunk, scale, s);
+      static_cast<float*>(stats), batch, heads, seq, items_per_chunk, scale, dbias_global, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_dkv_kernel<T, kGated, kD><<<dim3(tiles, heads, batch), kThreads, dkv_smem, stream>>>(

@@ -50,7 +50,7 @@ Phases, each printing its results on lines of its own:
 10. backward kernels: K3 (the gated backward) against its backward twins at
    BEATs' training shape (B=64, T=248), in bf16 and fp32, with and without
    the gate and with a key-padding mask (bf16 also with one item's keys all
-   padded, and at T=800, B=2, past the fp32 body's T <= 512): bf16 on the
+   padded, and at T=800, B=2): bf16 on the
    tensor cores from K2's residuals, held to the twin of that contract
    (dqkv, dbias and dgate) and to the twin that recomputes the softmax; K6
    (the bias-free backward) at EAT's (T=513, with and without a mask) and
@@ -138,7 +138,31 @@ Phases, each printing its results on lines of its own:
    bf16 gradient checks at B=8;
 20. ATST training (after phase 19): ``Trainer``, bf16, B=64, 10 s clips, a
    50-class head, 10 timed steps (K5 and K6 12 launches each a step; the
-   loss falls), then the fp32 and bf16 gradient checks at B=8.
+   loss falls), then the fp32 and bf16 gradient checks at B=8;
+21. the fp32 K3 past T=512 (after phase 10), where its dQ blocks add their
+   dbias rows in device memory: T=520 and T=800, B=4, with the gate, with
+   the gate and a padding mask, and with neither, dqkv, dbias and dgate
+   against the twin (atol and rtol 1e-4); timed at T=800 beside the twin,
+   the fp32 SDPA backward and its bound;
+22. an fp32 BEATs ``fused_qkv`` training step on 16 s clips (after phase
+   11; T=792, B=4): the kernel path's loss and gradients against the plain
+   path's, 12 K2 and 12 K3 launches (added to the main paths' counts);
+23. EfficientNet-B0 (after phase 18) as the official
+   ``esp_aves2_effnetb0_all`` entry builds it: 10 s clips (1001 frames of
+   128 mels), B=128, all 17 taps mean-pooled through the 4-D aggregation,
+   bf16 and fp32, the fp32 model on the card against the CPU (2 clips);
+24. Perch (EfficientNet-B1, TF "SAME", BatchNorm eps 1e-3), 5 s at 32 kHz,
+   B=128, bf16 and fp32: 10932 logits and the 1280-d embedding; then
+   ResNet-152 at EfficientNet's audio config (chosen: the reference has
+   none for ResNet), B=128, bf16 and fp32, its four taps, and ResNet-18
+   and ResNet-50 for one batch each. No CNN launches a kernel of the port;
+   their fp32 runs are under ``full_fp32()`` (no TF32 in cuDNN's convs);
+25. (after phase 20) EfficientNet-B0 training through ``Trainer``: bf16,
+   B=64, a 50-class head, 10 timed steps (the loss falls; every BatchNorm
+   running statistic moves; the eval forward normalises with them), then
+   fp32 gradients on the card against the CPU at B=4 (full fp32 convs,
+   forward and backward). BirdNet has no phase: its TFLite graph runs on
+   the host, and the card's machine has no TensorFlow.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -153,7 +177,8 @@ distance.
 It then prints one JSON line of per-kernel numbers (``launches`` counts the
 main paths' runs; K4 and K8, which no main path reaches, add
 ``kernel_phase_launches``; K4, K5 and K6 add ``head_dim_80``, their bf16 and
-fp32 numbers at Bird-MAE huge's shapes) and, last, the device line
+fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
+numbers at T=800) and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
 """
@@ -225,7 +250,13 @@ PATH_REL = 1e-3
 # relative L2); dbias sums 64 items and dgate 248 keys in another order than
 # the twin, so both are held by relative L2 in fp32 too.
 FP32_SUM_REL = 1e-5
-T_LONG = 800  # a gated backward past the fp32 body's T <= 512
+T_LONG = 800  # a gated backward long past 512 (the bf16 K3 at B=2; the fp32 K3 at B=4)
+# The fp32 K3 keeps its [64, T] dbias rows in shared memory up to T=512 and
+# adds them in device memory past it (phases 21-22).
+T_K3_FP32 = 520
+B_LONG = 4
+K3_LONG_TOL = 1e-4  # dqkv, dbias and dgate against the twin: atol and rtol
+LONG_CLIP_SAMPLES = 16 * 16000  # BEATs on 16 s clips: T=792
 # Training: B=64 clips (5 s for BEATs, 10 s for EAT), 1 untimed step, then
 # timed steps on the same batch; a 50-class head.
 B_TRAIN = 64
@@ -276,6 +307,21 @@ T_ATST = 250
 # The frontend on the card vs the CPU: fp32 (DFT and mel products in full
 # fp32), and bf16-valued DFT operands (TF32 on the card, fp32 on the CPU).
 FRONTEND_CARD_CPU_REL = 1e-5
+# The CNNs (phases 23-25): EfficientNet-B0 as the official entry builds it,
+# 10 s at 16 kHz (1001 frames of 128 mels); Perch 5 s at 32 kHz; ResNet at
+# EfficientNet's audio config. No kernel of the port: convs, BatchNorm and
+# pooling are cuDNN's and PyTorch's, as JAX left them to XLA.
+EFFNET_ENTRY = "esp_aves2_effnetb0_all"
+EFFNET_CLIP_SAMPLES = 10 * 16000
+EFFNET_FRAMES = 1001
+PERCH_CLIP_SAMPLES = 5 * 32000
+N_BATCHES_CNN = 3
+# fp32 on the card (full fp32 convs, no TF32) vs the CPU: sums in another
+# order over 17-25 conv layers with BatchNorm; features and a training step.
+CNN_CARD_CPU_REL = 1e-3
+B_CNN_GRAD = 4
+# bf16 eval: one clip alone vs in a batch of 8 (cuDNN may pick other algorithms)
+CNN_BATCH_REL = 1e-2
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
@@ -633,7 +679,7 @@ def phase_backward_kernels():
         del qkv, bias, gate, dout, mask, masks, out, q, k, v, gated_bias
         torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
-            # Past the fp32 body's T <= 512: the tensor-core K3 takes any T.
+            # Long clips: the tensor-core K3 at T=800 (the fp32 one in phase 21).
             qkv = torch.randn(2, T_LONG, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
             bias = torch.randn(H, T_LONG, T_LONG, device="cuda", generator=gen).requires_grad_()
             gate = (torch.rand(2, H, T_LONG, device="cuda", generator=gen) + 1.0).requires_grad_()
@@ -976,7 +1022,7 @@ def step_gradients(label, load, dtype, use_pallas, wav, mask, expect):
     check(all(counts[k] == want.get(k, 0) for k in counts),
           f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
           f"{ {k: v for k, v in counts.items() if v} } == {want}")
-    result = loss.item(), {n: g.float() for n, g in zip(params, grads) if g is not None}
+    result = loss.item(), {n: g.float() for n, g in zip(params, grads) if g is not None}, counts
     del model, params, out, grads
     torch.cuda.empty_cache()
     return result
@@ -1004,20 +1050,21 @@ def training_gradient_check(label, load, wav, expect, mask=None, bf16=False):
     one bf16 step of each path is also held to the fp32 plain path: the
     kernel path may be at most BF16_GRAD_FACTOR farther than the plain path
     (global rel L2 over every gradient). Returns the numbers printed."""
-    loss_k, grads_k = step_gradients(label, load, "float32", True, wav, mask, expect)
-    loss_p, grads_p = step_gradients(label, load, "float32", False, wav, mask, expect)
+    loss_k, grads_k, counts_k = step_gradients(label, load, "float32", True, wav, mask, expect)
+    loss_p, grads_p, _ = step_gradients(label, load, "float32", False, wav, mask, expect)
     check(grads_k.keys() == grads_p.keys(), f"{label}: the same parameters get gradients on both paths")
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     _, worst, worst_name = gradient_distance(grads_k, grads_p)
     check(loss_rel <= PATH_REL and worst <= PATH_REL,
           f"{label}: fp32 kernel path vs plain path, one step (B={wav.shape[0]}): loss rel {loss_rel:.3e}, "
           f"worst gradient rel L2 {worst:.3e} ({worst_name}) over {len(grads_p)} tensors <= {PATH_REL:g}")
-    result = {"fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": worst}
+    result = {"fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": worst,
+              "kernel_path_launches": {k: v for k, v in counts_k.items() if v}}
     if bf16:
         del grads_k
         dist = {}
         for path, use_pallas in (("kernel", True), ("plain", False)):
-            loss16, grads16 = step_gradients(label, load, "bfloat16", use_pallas, wav, mask, expect)
+            loss16, grads16, _ = step_gradients(label, load, "bfloat16", use_pallas, wav, mask, expect)
             check(grads16.keys() == grads_p.keys(), f"{label} bf16 {path} path: the same parameters get gradients")
             dist[path] = (abs(loss16 - loss_p) / abs(loss_p), *gradient_distance(grads16, grads_p))
             del grads16
@@ -2406,6 +2453,339 @@ def phase_entry_points(workdir: Path):
     return total
 
 
+def phase_k3_long():
+    """The fp32 K3 past T=512, where its dbias rows leave shared memory: at
+    T=520 and T=800 (B=4) with the gate, with the gate and a padding mask,
+    and with neither, dqkv, dbias and dgate against the twin at atol/rtol
+    1e-4; then times the gated call at T=800 against the twin, the fp32 SDPA
+    backward and its bound. Returns the T=800 numbers for the JSON line."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    result = {}
+    for seq in (T_K3_FP32, T_LONG):
+        qkv = torch.randn(B_LONG, seq, 3 * E, device="cuda", generator=gen).requires_grad_()
+        bias = torch.randn(H, seq, seq, device="cuda", generator=gen).requires_grad_()
+        gate = (torch.rand(B_LONG, H, seq, device="cuda", generator=gen) + 1.0).requires_grad_()
+        dout = torch.randn(B_LONG, seq, E, device="cuda", generator=gen)
+        mask = torch.zeros(B_LONG, seq, dtype=torch.bool, device="cuda")
+        mask[1::2, seq * 2 // 3:] = True
+        worst = 0.0
+        for g, m in ((gate, None), (gate, mask), (None, None)):
+            inputs = (qkv, bias) if g is None else (qkv, bias, g)
+            reset_counts()
+            out = ak.fused_qkv_gated_attention(qkv, H, bias, g, m)
+            got = torch.autograd.grad(out, inputs, dout)
+            torch.cuda.synchronize()
+            launched = read_counts()["fused_qkv_gated_attention_backward"]
+            want = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(),
+                                                         None if g is None else g.detach(), m, dout)
+            label = f"fp32 K3 T={seq} B={B_LONG} gate={g is not None} mask={m is not None}"
+            check(launched == 1, f"{label}: launched the kernel once ({launched})")
+            for name, a, b in zip(("dqkv", "dbias", "dgate"), got, want):
+                err = float((a - b).abs().max())
+                check(a.shape == b.shape and bool(torch.allclose(a, b, atol=K3_LONG_TOL, rtol=K3_LONG_TOL)),
+                      f"{label}: {name} {tuple(a.shape)} max|d| {err:.3e} within atol/rtol {K3_LONG_TOL:g} "
+                      f"(rel L2 {rel_l2(a, b):.3e})")
+                worst = max(worst, err)
+        if seq == T_LONG:
+            out = ak.fused_qkv_gated_attention(qkv, H, bias, gate)
+            ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
+            plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
+                qkv.detach(), H, bias.detach(), gate.detach(), None, dout))
+            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                       for t in qkv.detach().view(B_LONG, seq, 3, H, D).unbind(2))
+            gated_bias = (gate.detach()[..., None] * bias.detach()[None]).requires_grad_()
+            library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
+            bound, bound_by = backward_bound_ms("float32", B_LONG, seq, gated=True, padded=False)
+            print(f"time fused_qkv_gated_attention_backward B={B_LONG} T={seq} float32 (gate, no mask, FMA, dbias "
+                  f"rows in device memory): kernel {ms:.4f} ms ({tflops(10.0 * B_LONG * H * seq * seq * D, ms):.2f} "
+                  f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"by {bound_by} ({bound / ms:.1%} of bound); {CARD[0]}")
+            result = dict(batch=B_LONG, seq=seq, max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound, bound_by=bound_by)
+            del out, q, k, v, gated_bias
+        del qkv, bias, gate, dout, mask
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_beats_long_step():
+    """One fp32 BEATs ``fused_qkv`` training step on 16 s clips (T=792, past
+    the fp32 K3's shared-memory rows) at B=4: the kernel path's loss and
+    gradients against the plain path's; K2 and K3 12 launches. Returns the
+    kernel path's launches."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    layers = beats_config()["encoder_layers"]
+
+    def load(dtype, use_pallas):
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype,
+                         init_config=dict(beats_config(), fused_qkv=True, use_pallas=use_pallas))
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    wav = torch.randn(B_LONG, LONG_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+    with torch.no_grad():
+        tokens = load("float32", True).module(wav[:1])[1]["features"].shape[1]
+    check(tokens > 512, f"BEATs on {LONG_CLIP_SAMPLES // 16000} s clips: T={tokens} tokens, past 512")
+    expect = {"fused_qkv_gated_attention": layers, "fused_qkv_gated_attention_backward": layers}
+    grad_check = training_gradient_check(f"BEATs {LONG_CLIP_SAMPLES // 16000} s", load, wav, expect)
+    print(json.dumps({"model": "beats", "long_clip_step": {"tokens": tokens, **grad_check},
+                      "batch": B_LONG, "clip_seconds": LONG_CLIP_SAMPLES / 16000}))
+    return grad_check["kernel_path_launches"]
+
+
+def conv_precision(dtype: str):
+    """fp32 convolutions in full fp32, forward and backward (cuDNN takes
+    TF32 by default); bf16 as it is."""
+    import contextlib
+
+    from avex_tpu_torch.ops._precision import full_fp32
+
+    return full_fp32() if dtype == "float32" else contextlib.nullcontext()
+
+
+def cnn_extract(model, label, batches, aggregation):
+    """Reset the counts, warm-up and timed ``extract_embeddings`` over every
+    tap, read the counts: a CNN launches no kernel of the port (its convs,
+    BatchNorm and pooling are cuDNN's and PyTorch's, as XLA's in JAX).
+    Returns (first embeddings, clips/s, peak bytes)."""
+    import torch
+
+    model.register_hooks_for_layers(["all"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = model.extract_embeddings(batches[0], aggregation=aggregation)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    outs = [model.extract_embeddings(w, aggregation=aggregation) for w in batches]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    check(not any(counts.values()), f"{label}: no kernel of the port launched ({ {k: v for k, v in counts.items() if v} })")
+    for out in [first, *outs]:
+        for emb in (out if isinstance(out, list) else [out]):
+            check(emb.shape[0] == batches[0].shape[0] and bool(torch.isfinite(emb).all()),
+                  f"{label}: embeddings {tuple(emb.shape)} finite")
+    rate = batches[0].shape[0] * len(batches) / elapsed
+    print(f"{label}: {rate:.1f} clips/s (B={batches[0].shape[0]}, {len(batches)} batches, {elapsed * 1e3:.1f} ms), "
+          f"peak {peak / 2**30:.2f} GiB; {CARD[0]}")
+    return first, rate, peak
+
+
+def phase_efficientnet():
+    """EfficientNet-B0 as the official ``esp_aves2_effnetb0_all`` entry builds
+    it (16 kHz, n_fft 800, hop 160, 128 mels, normalised), 10 s clips (1001
+    frames), B=128: all 17 taps mean-pooled through the 4-D aggregation in
+    bf16 and fp32 (full fp32 convs); the fp32 model on the card against the
+    same model on the CPU (2 clips)."""
+    import torch
+
+    import avex_tpu_torch
+
+    def load(dtype, device="cuda"):
+        return avex_tpu_torch.load_model(EFFNET_ENTRY, random_weights=True, return_features_only=True,
+                                         device=device, compute_dtype=dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    batches = [torch.randn(B, EFFNET_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES_CNN)]
+    report, pooled = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        model = load(dtype)
+        check(len(model.get_model_layers()) == 17, f"EfficientNet-B0: {len(model.get_model_layers())} taps == 17")
+        image = tuple(model.process_audio(batches[0][:1]).shape)
+        check(image == (1, 3, 128, EFFNET_FRAMES), f"EfficientNet-B0 input image {image} == (1, 3, 128, 1001)")
+        with conv_precision(dtype):
+            first, rate, peak = cnn_extract(model, f"EfficientNet-B0 {dtype} extraction (17 taps, mean)", batches,
+                                            "mean")
+        width = model.embedding_shapes((B, EFFNET_CLIP_SAMPLES), "mean")[0]
+        check(tuple(first.shape) == width, f"EfficientNet-B0 {dtype}: pooled taps {tuple(first.shape)} == {width}")
+        pooled[dtype] = first.float()
+        report[dtype] = {"clips_per_s": rate, "peak_bytes": peak}
+        if dtype == "float32":
+            cpu = load("float32", "cpu")
+            cpu.register_hooks_for_layers(["all"])
+            want = cpu.extract_embeddings(batches[0][:2].cpu(), aggregation="mean")
+            with conv_precision(dtype):
+                got = model.extract_embeddings(batches[0][:2], aggregation="mean").cpu()
+            r = rel_l2(got, want)
+            check(r <= CNN_CARD_CPU_REL, f"EfficientNet-B0 fp32 (full fp32 convs) card vs CPU, 2 clips: rel L2 {r:.3e} "
+                                         f"<= {CNN_CARD_CPU_REL:g}")
+            report["card_vs_cpu_rel"] = r
+            del cpu
+        del model
+        torch.cuda.empty_cache()
+    r = rel_l2(pooled["bfloat16"], pooled["float32"])
+    print(f"EfficientNet-B0 bf16 vs fp32, 17 taps mean-pooled: rel L2 {r:.3e}")
+    print(json.dumps({"model": "efficientnet_b0", "extraction": {**report, "bf16_fp32_rel": r},
+                      "batch": B, "clip_seconds": EFFNET_CLIP_SAMPLES / 16000}))
+
+
+def phase_efficientnet_training(workdir):
+    """EfficientNet-B0 fine-tuning through ``Trainer`` (bf16, B=64, 10 s clips,
+    a 50-class head, 10 timed steps): the loss falls, the BatchNorm running
+    statistics move, the eval forward normalises with them; then fp32
+    gradients (full fp32 convs, forward and backward) on the card against the
+    CPU at B=4."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.training.losses import cross_entropy_loss
+
+    def load(dtype, device="cuda"):
+        return avex_tpu_torch.load_model(EFFNET_ENTRY, random_weights=True, num_classes=N_CLASSES, device=device,
+                                         compute_dtype=dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    batch = {"raw_wav": torch.randn(B_TRAIN, EFFNET_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    model = load("bfloat16")
+    initial = {k: v.clone() for k, v in model.module.state_dict().items() if "running" in k}
+    trainer, losses, ms, rate, peak, _ = train_run("efficientnet", model, batch, {}, TRAIN_STEPS, workdir)
+    check(sum(losses[-3:]) / 3 < losses[0], f"EfficientNet-B0 training: the loss falls on one repeated batch "
+                                           f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+    trained = {k: v.clone() for k, v in model.module.state_dict().items() if "running" in k}
+    moved = sum(not torch.equal(initial[k], trained[k]) for k in initial)
+    check(moved == len(initial), f"EfficientNet-B0 training: {moved} of {len(initial)} running statistics moved")
+    model.eval()
+    wav = batch["raw_wav"][:8]
+    with torch.no_grad():
+        out, one = model(wav).float(), model(wav[:1]).float()
+        model.module.load_state_dict(initial, strict=False)
+        at_init = model(wav).float()
+        model.module.load_state_dict(trained, strict=False)
+    r_one, r_init = rel_l2(one, out[:1]), rel_l2(at_init, out)
+    check(r_one <= CNN_BATCH_REL and r_init > 3 * CNN_BATCH_REL,
+          f"EfficientNet-B0 eval forward normalises with the trained running statistics: one clip alone vs in a "
+          f"batch of 8 rel L2 {r_one:.3e} <= {CNN_BATCH_REL:g}; with the initial statistics rel L2 {r_init:.3e} "
+          f"> {3 * CNN_BATCH_REL:g}")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    grads, losses_32 = {}, {}
+    wav = batch["raw_wav"][:B_CNN_GRAD]
+    labels = batch["label"][:B_CNN_GRAD]
+    for device in ("cuda", "cpu"):
+        m = load("float32", device)
+        m.module.train()
+        params = dict(m.module.named_parameters())
+        with conv_precision("float32"):  # the backward's convs too
+            out, _ = m.train_forward(wav.to(device), None, deterministic=True)
+            loss = cross_entropy_loss(out, labels.to(device))
+            step = torch.autograd.grad(loss, list(params.values()))
+        grads[device] = {n: g.float().cpu() for n, g in zip(params, step)}
+        losses_32[device] = loss.item()
+        del m, params, out
+    num = sum(float((grads["cuda"][n] - g).norm() ** 2) for n, g in grads["cpu"].items())
+    den = sum(float(g.norm() ** 2) for g in grads["cpu"].values())
+    grad_rel = (num / den) ** 0.5
+    loss_rel = abs(losses_32["cuda"] - losses_32["cpu"]) / abs(losses_32["cpu"])
+    largest = max(float(g.norm()) for g in grads["cpu"].values())
+    # A BatchNorm shift ahead of another train-mode BatchNorm has an exact
+    # gradient of 0: its computed value is rounding noise, left out of the worst tensor.
+    worst, worst_name = max((rel_l2(grads["cuda"][n], g), n) for n, g in grads["cpu"].items()
+                            if float(g.norm()) > 1e-4 * largest)
+    check(loss_rel <= CNN_CARD_CPU_REL and grad_rel <= CNN_CARD_CPU_REL,
+          f"EfficientNet-B0 fp32 training step, card vs CPU (B={B_CNN_GRAD}): loss rel {loss_rel:.3e}, gradients "
+          f"global rel L2 {grad_rel:.3e} <= {CNN_CARD_CPU_REL:g} (worst tensor {worst:.3e}, {worst_name})")
+    print(json.dumps({"model": "efficientnet_b0", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses,
+        "fp32_card_cpu_loss_rel": loss_rel, "fp32_card_cpu_grad_rel": grad_rel, "worst_tensor_rel": worst},
+        "batch": B_TRAIN, "clip_seconds": EFFNET_CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
+
+
+def phase_perch():
+    """Perch (EfficientNet-B1, TF "SAME" padding, BatchNorm eps 1e-3), 5 s at
+    32 kHz, B=128, bf16 and fp32 (full fp32 convs): the 10932-wide logits and
+    the 1280-d embedding; ``surfperch`` resolves to ``SurfPerchModel``."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+    from avex_tpu_torch.models.perch import SurfPerchModel
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batches = [torch.randn(B, PERCH_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES_CNN)]
+    report, embeddings = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        model = avex_tpu_torch.load_model(ModelSpec(name="perch", pretrained=False, compute_dtype=dtype),
+                                          random_weights=True, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with conv_precision(dtype):
+            first = model.infer(batches[0])
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            outs = [model.infer(w) for w in batches]
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        check(not any(counts.values()), f"Perch {dtype}: no kernel of the port launched")
+        for out in [first, *outs]:
+            check(tuple(out["logits"].shape) == (B, 10932) and tuple(out["embedding"].shape) == (B, 1280)
+                  and bool(torch.isfinite(out["logits"]).all()) and bool(torch.isfinite(out["embedding"]).all()),
+                  f"Perch {dtype}: logits {tuple(out['logits'].shape)} and embedding {tuple(out['embedding'].shape)} "
+                  f"finite")
+        rate = B * len(batches) / elapsed
+        print(f"Perch {dtype}: {rate:.1f} clips/s (B={B}, {len(batches)} batches of 5 s at 32 kHz), peak "
+              f"{peak / 2**30:.2f} GiB; {CARD[0]}")
+        embeddings[dtype] = first["embedding"].float()
+        report[dtype] = {"clips_per_s": rate, "peak_bytes": peak}
+        del model, first, outs
+        torch.cuda.empty_cache()
+    r = rel_l2(embeddings["bfloat16"], embeddings["float32"])
+    print(f"Perch bf16 vs fp32 embedding: rel L2 {r:.3e}")
+    check(avex_tpu_torch.get_model_class("surfperch") is SurfPerchModel, "surfperch resolves to SurfPerchModel")
+    print(json.dumps({"model": "perch", "extraction": {**report, "bf16_fp32_rel": r}, "batch": B,
+                      "clip_seconds": PERCH_CLIP_SAMPLES / 32000}))
+
+
+def phase_resnet():
+    """ResNet-152 at EfficientNet's audio config (chosen: the reference has
+    no ResNet audio config), 10 s clips, B=128, bf16 and fp32 (full fp32
+    convs), the four
+    ``backbone.layer{i}`` taps (4-D, unpooled, as in JAX); ResNet-18 and
+    ResNet-50 for one batch each."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.api.official_models import OFFICIAL_MODELS
+    from avex_tpu_torch.configs import ModelSpec
+
+    audio = dict(OFFICIAL_MODELS[EFFNET_ENTRY]["model_spec"]["audio_config"])
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    batches = [torch.randn(B, EFFNET_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES_CNN)]
+    report, last = {}, {}
+    for name, dtype, n in (("resnet152", "bfloat16", N_BATCHES_CNN), ("resnet152", "float32", N_BATCHES_CNN),
+                           ("resnet18", "bfloat16", 1), ("resnet50", "bfloat16", 1)):
+        spec = ModelSpec(name=name, pretrained=False, audio_config=audio, compute_dtype=dtype)
+        model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+        with conv_precision(dtype):
+            first, rate, peak = cnn_extract(model, f"{name} {dtype} extraction (4 taps)", batches[:n], "none")
+        widths = [t.shape[1] for t in first]
+        expected = [64, 128, 256, 512] if name == "resnet18" else [256, 512, 1024, 2048]
+        check(widths == expected, f"{name}: tap channels {widths} == {expected}")
+        if name == "resnet152":
+            last[dtype] = first[-1].float().mean(dim=(2, 3))
+        report[f"{name}_{dtype}"] = {"clips_per_s": rate, "peak_bytes": peak, "taps": [list(t.shape) for t in first]}
+        del model, first
+        torch.cuda.empty_cache()
+    r = rel_l2(last["bfloat16"], last["float32"])
+    print(f"ResNet-152 bf16 vs fp32, the last tap mean-pooled: rel L2 {r:.3e}")
+    print(json.dumps({"model": "resnet", "extraction": {**report, "resnet152_bf16_fp32_rel": r}, "batch": B,
+                      "clip_seconds": EFFNET_CLIP_SAMPLES / 16000, "audio_config": EFFNET_ENTRY}))
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -2416,6 +2796,7 @@ def main() -> int:
     plain_timings, k4_launches = phase_bias_free_kernels()
     k7, k8, k8_launches = phase_int8_kernels()
     backward_timings = phase_backward_kernels()
+    k3_long = phase_k3_long()
     dh80_timings, dh80_k4_launches = phase_dh80_kernels()
     launches = phase_main_path()
     launches["int8_dynamic_dense"] = phase_int8_main_path()
@@ -2423,13 +2804,18 @@ def main() -> int:
     aves_launches = phase_aves()
     birdmae_launches = phase_birdmae()
     atst_launches = phase_atst()
+    phase_efficientnet()
+    phase_perch()
+    phase_resnet()
     phase_serving()
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_training"
     beats_train = phase_beats_training(workdir / "beats")
+    long_step = phase_beats_long_step()
     eat_train = phase_eat_training(workdir / "eat")
     aves_train = phase_aves_training(workdir / "aves")
     birdmae_train = phase_birdmae_training(workdir / "birdmae")
     atst_train = phase_atst_training(workdir / "atst")
+    phase_efficientnet_training(workdir / "efficientnet")
     probes = phase_probes()
     entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
     torch.cuda.synchronize()
@@ -2441,6 +2827,10 @@ def main() -> int:
         for kname in ("fused_qkv_gated_attention", "fused_qkv_attention"):
             launches[kname] += counts[kname]
     launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
+    # The fp32 BEATs step on 16 s clips: K2 and K3 past T=512.
+    for kname in ("fused_qkv_gated_attention", "fused_qkv_gated_attention_backward"):
+        launches[kname] += long_step.get(kname, 0)
+    print(f"fp32 BEATs step on 16 s clips: launches {long_step}")
     launches["fused_qkv_attention_backward"] = sum(counts["fused_qkv_attention_backward"]
                                                    for counts in (eat_train, aves_train, birdmae_train, atst_train))
     # Probes: K5 on the EAT probes, K1 on the frozen BEATs probes, K2/K3 on the unfrozen one.
@@ -2497,6 +2887,8 @@ def main() -> int:
             kernels[-1]["body"] = "row quantization, then wgmma on TMA-fed tiles"
         if kname in dh80:
             kernels[-1]["head_dim_80"] = dh80[kname]
+        if kname == "fused_qkv_gated_attention_backward":
+            kernels[-1]["fp32_past_512"] = k3_long
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

@@ -33,7 +33,7 @@ def test_public_api_exports():
 def test_registry_holds_the_official_beats_models():
     info = avex_tpu_torch.list_models(verbose=False)
     assert {"esp_aves2_sl_beats_all", "esp_aves2_sl_beats_bio", "esp_aves2_naturelm_audio_v1_beats"} <= set(info)
-    assert all(row["architecture"] in ("beats", "eat_hf") for row in info.values() if row["checkpoint"])
+    assert all(row["architecture"] in ("beats", "eat_hf", "efficientnet") for row in info.values() if row["checkpoint"])
     spec = avex_tpu_torch.get_model_spec("esp_aves2_sl_beats_all")
     spec.pretrained = True
     assert avex_tpu_torch.get_model_spec("esp_aves2_sl_beats_all").pretrained is False
@@ -43,7 +43,7 @@ def test_registry_holds_the_official_beats_models():
     with pytest.raises(KeyError, match="not found"):
         avex_tpu_torch.get_model_spec("nonexistent_model")
     with pytest.raises(KeyError, match="No model class"):
-        avex_tpu_torch.get_model_class("efficientnet")
+        avex_tpu_torch.get_model_class("clip")
 
 
 def test_build_and_load_random_weights_on_cpu():
@@ -228,3 +228,56 @@ def test_load_model_random_weights_builds_eat_and_aves(rng, arch):
     model.register_hooks_for_layers(["all"])
     emb = model.extract_embeddings(wav, aggregation="mean")
     assert emb.shape == (2, layers * width) and torch.isfinite(emb).all()
+
+
+EFFNET_OFFICIAL = ("esp_aves2_effnetb0_all", "esp_aves2_effnetb0_audioset", "esp_aves2_effnetb0_bio")
+JAX_ONLY_SPEC_FIELDS = {
+    "text_model_name": "roberta-base", "projection_dim": 512, "temperature": 0.07, "eat_cfg": {"depth": 2},
+    "pretraining_mode": True, "handle_padding": False, "fairseq_weights_path": "/tmp/eat.pt",
+    "efficientnet_variant": "b1", "language": "de", "extra_config": {"model_path": "/tmp/m.tflite"},
+}
+
+
+def test_model_spec_takes_the_jax_fields():
+    """The ten fields the JAX ``ModelSpec`` has beyond the ported models'
+    first ones, with its defaults and its check of ``efficientnet_variant``;
+    a YAML's numbers given as strings parse as pydantic's lax mode does."""
+    jax_default, port_default = avex_tpu.configs.ModelSpec(name="x"), ModelSpec(name="x")
+    for field, value in JAX_ONLY_SPEC_FIELDS.items():
+        assert getattr(port_default, field) == getattr(jax_default, field), field
+        assert getattr(ModelSpec(name="x", **{field: value}), field) == value
+    assert port_default.efficientnet_variant == "b0"
+    assert ModelSpec(name="x", projection_dim="512", temperature="0.07").projection_dim == 512
+    with pytest.raises(ValueError, match="efficientnet_variant"):
+        ModelSpec(name="x", efficientnet_variant="b7")
+    with pytest.raises(TypeError):
+        ModelSpec(name="x", not_a_field=1)
+
+
+def test_registry_holds_the_official_efficientnet_models(tmp_path, rng):
+    """The three official EfficientNet-B0 entries register with JAX's spec;
+    ``load_model`` takes one with a local checkpoint (its label map is remote:
+    skipped, as JAX goes on without one). As in JAX, torchvision's head
+    (``classifier.1``) is not a name the width is read from: without a label
+    map the width is given."""
+    info = avex_tpu_torch.list_models(verbose=False)
+    for name in EFFNET_OFFICIAL:
+        assert info[name]["architecture"] == "efficientnet"
+        port_spec, jax_spec = avex_tpu_torch.get_model_spec(name), avex_tpu.get_model_spec(name)
+        assert port_spec.efficientnet_variant == jax_spec.efficientnet_variant == "b0"
+        assert port_spec.audio_config.to_dict() == jax_spec.audio_config.model_dump()
+    assert set(avex_tpu_torch.list_model_classes()) >= {
+        "efficientnet", "resnet18", "resnet50", "resnet152", "perch", "surfperch", "birdnet"}
+    from avex_tpu_torch.models.efficientnet import EfficientNetModel
+
+    state = {f"model.{k}": (rng.standard_normal(tuple(v.shape)) * 0.05).astype(np.float32)
+             for k, v in EfficientNetModel("b0", 11).state_dict().items() if not k.endswith("num_batches_tracked")}
+    state.update({k: np.abs(v) + 0.5 for k, v in state.items() if k.endswith("running_var")})
+    path = tmp_path / "effnet.pt"
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    model = avex_tpu_torch.load_model("esp_aves2_effnetb0_all", checkpoint_path=str(path), device="cpu",
+                                      num_classes=11)
+    assert model.num_classes == 11 and model.label_mapping is None and model.variant == "b0"
+    jax_model = avex_tpu.load_model("esp_aves2_effnetb0_all", checkpoint_path=str(path), num_classes=11)
+    wav = (rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    np.testing.assert_allclose(model(wav).numpy(), np.asarray(jax_model(wav)), **FP32_TOL)

@@ -27,10 +27,10 @@ TOL = dict(atol=2e-5, rtol=1e-4)
 B, H, D = 2, 12, 64
 
 
-def _inputs(rng, seq, gated, padded):
-    qkv = rng.standard_normal((B, seq, 3 * H * D)).astype(np.float32)
-    bias = rng.standard_normal((H, seq, seq)).astype(np.float32)
-    gate = rng.uniform(1.0, 3.0, (B, H, seq)).astype(np.float32) if gated else None
+def _inputs(rng, seq, gated, padded, heads=H):
+    qkv = rng.standard_normal((B, seq, 3 * heads * D)).astype(np.float32)
+    bias = rng.standard_normal((heads, seq, seq)).astype(np.float32)
+    gate = rng.uniform(1.0, 3.0, (B, heads, seq)).astype(np.float32) if gated else None
     mask = None
     if padded:
         mask = np.zeros((B, seq), bool)
@@ -273,7 +273,10 @@ def test_dh80_backward_twin_matches_jax_k6(rng, seq, padded):
     np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want), **TOL)
 
 
+# T=520 (one head): past the 512 up to which the fp32 K3 keeps its dbias rows
+# in shared memory; the twin, as JAX's K3, takes any T.
 BACKWARD_CASES = [(seq, gated, padded) for seq in (24, 31) for gated in (True, False) for padded in (False, True)]
+BACKWARD_CASES.append((520, True, True))
 
 
 @pytest.mark.parametrize("seq,gated,padded", BACKWARD_CASES)
@@ -281,17 +284,18 @@ def test_gated_backward_twin_matches_jax_k3(rng, seq, gated, padded):
     """K3's twin (dqkv, dbias summed over the batch, dgate) against
     ``jax.grad`` through ``fused_qkv_gated_attention``, whose backward is K3
     in interpret mode. Without a gate there is no dgate."""
-    qkv, bias, gate, mask = _inputs(rng, seq, gated, padded)
-    cot = rng.standard_normal((B, seq, H * D)).astype(np.float32)
+    heads = H if seq <= 512 else 1
+    qkv, bias, gate, mask = _inputs(rng, seq, gated, padded, heads)
+    cot = rng.standard_normal((B, seq, heads * D)).astype(np.float32)
 
     def loss(x, b, g):
-        return jnp.sum(jax_fused(x, H, b, g, _j(mask), interpret=True) * cot)
+        return jnp.sum(jax_fused(x, heads, b, g, _j(mask), interpret=True) * cot)
 
     argnums = (0, 1, 2) if gated else (0, 1)
     want = jax.grad(loss, argnums=argnums)(_j(qkv), _j(bias), _j(gate))
-    got = ak.fused_qkv_gated_backward_reference(_t(qkv), H, _t(bias), _t(gate), _t(mask), _t(cot))
+    got = ak.fused_qkv_gated_backward_reference(_t(qkv), heads, _t(bias), _t(gate), _t(mask), _t(cot))
     assert (got[2] is None) == (not gated)
-    assert got[1].shape == (H, seq, seq) and got[1].dtype == torch.float32
+    assert got[1].shape == (heads, seq, seq) and got[1].dtype == torch.float32
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 

@@ -22,6 +22,10 @@ SLICE_MODULES = [
     "avex_tpu_torch.models.aves",
     "avex_tpu_torch.models.birdmae",
     "avex_tpu_torch.models.atst",
+    "avex_tpu_torch.models.efficientnet",
+    "avex_tpu_torch.models.resnet",
+    "avex_tpu_torch.models.perch",
+    "avex_tpu_torch.models.birdnet",
     "avex_tpu_torch.utils.loaders",
     "avex_tpu_torch.ops.fbank",
     "avex_tpu_torch.ops.attention",
@@ -78,8 +82,8 @@ SLICE_MODULES = [
 _NOT_IMPORTED = ("jax", "flax", "optax", "orbax", "pydantic", "avex_tpu")
 #: packages the machine with the card may lack: imported only where a
 #: function needs them (the HDF5 cache, clustering, YAML configs, HF
-#: datasets, remote paths, the logging backends)
-_LAZY = ("h5py", "sklearn", "yaml", "datasets", "fsspec", "mlflow", "wandb")
+#: datasets, remote paths, the logging backends, BirdNet's TFLite host backends)
+_LAZY = ("h5py", "sklearn", "yaml", "datasets", "fsspec", "mlflow", "wandb", "tensorflow", "birdnetlib")
 _NAMES = "|".join(_NOT_IMPORTED)
 _FORBIDDEN = re.compile(
     rf"^\s*(import\s+({_NAMES})\b(?!_torch)|from\s+({_NAMES})\b(?!_torch))",
