@@ -28,7 +28,10 @@ Port of ``avex_tpu/models/beats.py``:
   and reports a zero fc2 output). Every draw comes from the ``generator`` the
   caller hands in. Attention dropout is not applied, as in the JAX package;
 - ``remat`` checkpoints each encoder layer (``torch.utils.checkpoint``,
-  non-reentrant), replaying the layer's random draws on recompute.
+  non-reentrant), replaying the layer's random draws on recompute;
+  ``remat_policy="dots"`` keeps the dense layers' products and recomputes
+  the rest, the attention kernel included (JAX's
+  ``dots_with_no_batch_dims_saveable``).
 
 With ``compute_dtype="bfloat16"`` parameters stay fp32 and matmul inputs are
 cast to bf16 (flax ``dtype=bf16``); LayerNorm statistics are fp32 with a bf16
@@ -147,6 +150,7 @@ class BEATsConfig:
     scan_layers: bool = False
     remat: bool = False
     #: what a checkpointed layer keeps: None / "nothing" (recompute everything)
+    #: or "dots" (keep the dense layers' products, recompute the rest)
     remat_policy: Optional[str] = None
     quantize_encoder: bool = False
 
@@ -164,12 +168,7 @@ class BEATsConfig:
                 raise NotImplementedError(
                     f"BEATsConfig.{name}=True is not ported to PyTorch yet (ROADMAP {item})"
                 )
-        if self.remat and self.remat_policy not in (None, "nothing"):
-            if self.remat_policy == "dots":
-                raise NotImplementedError(
-                    "remat_policy='dots' (keep the matmul outputs) is not ported yet "
-                    "(ROADMAP queue 1, item 10); None or 'nothing' recompute the whole layer"
-                )
+        if self.remat and self.remat_policy not in (None, "nothing", "dots"):
             raise ValueError(f"Unknown remat_policy {self.remat_policy!r} (None, 'nothing', 'dots')")
         if self.activation_fn != "gelu":
             raise NotImplementedError(f"activation_fn {self.activation_fn!r} (only 'gelu')")
@@ -389,7 +388,10 @@ class _TransformerEncoder(nn.Module):
             if cfg.layer_wise_gradient_decay_ratio != 1.0:
                 x = grad_multiply(x, cfg.layer_wise_gradient_decay_ratio)
             args = (x, position_bias, padding_mask, deterministic)
-            new_x, fc2_out = checkpoint_layer(layer, generator, *args) if remat else layer(*args, generator)
+            if remat:
+                new_x, fc2_out = checkpoint_layer(layer, generator, *args, policy=cfg.remat_policy)
+            else:
+                new_x, fc2_out = layer(*args, generator)
             if use_layerdrop:
                 # LayerDrop: keep the layer with probability 1 - layerdrop. As
                 # in JAX the layer runs either way and the draw selects, so the

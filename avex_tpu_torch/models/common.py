@@ -14,7 +14,8 @@
   with the biased variance in training, the running statistics in eval;
 - ``dropout`` (flax ``nn.Dropout``, drawing from a caller's generator) and
   ``checkpoint_layer`` (per-layer gradient checkpointing that replays the
-  layer's draws on recompute);
+  layer's draws on recompute, keeping nothing or, with ``"dots"``, the
+  dense layers' products);
 - the weight-norm fold of the reference checkpoints' pos_conv;
 - ``config_from_dict``: an ``init_config`` dict → a config dataclass;
 - ``build_module``: construct a module without storage, give it CPU memory
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Mapping, Optional, Type, TypeVar
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.quant import Int8Linear
@@ -110,15 +112,33 @@ def dropout(
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def checkpoint_layer(layer: Callable, generator: Optional[torch.Generator], *args: Any) -> Any:
+#: the dense layers' products: what ``remat_policy="dots"`` keeps (JAX's
+#: ``dots_with_no_batch_dims_saveable``: products without batch dimensions;
+#: attention's batched products and kernels are recomputed)
+_DENSE_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dense_products(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DENSE_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_layer(layer: Callable, generator: Optional[torch.Generator], *args: Any,
+                     policy: Optional[str] = None) -> Any:
     """``layer(*args, generator)`` under ``torch.utils.checkpoint``
     (non-reentrant): its activations are recomputed in the backward pass.
+
+    ``policy`` None or ``"nothing"`` keeps nothing of the layer; ``"dots"``
+    keeps the outputs of its dense layers' products (``aten.mm`` /
+    ``aten.addmm``, through ``create_selective_checkpoint_contexts``) and
+    recomputes everything else, attention kernels included.
 
     The checkpoint restores the global RNG for the recompute but not a
     caller's generator, so this wrapper does: the recompute starts from the
     generator state the forward started from and draws the same dropout
     masks, and the generator is put back afterwards.
     """
+    if policy not in (None, "nothing", "dots"):
+        raise ValueError(f"Unknown remat_policy {policy!r} (None, 'nothing', 'dots')")
     start = generator.get_state() if generator is not None else None
     calls = []
 
@@ -133,6 +153,9 @@ def checkpoint_layer(layer: Callable, generator: Optional[torch.Generator], *arg
         calls.append(1)
         return layer(*inputs, generator)
 
+    if policy == "dots":
+        return checkpoint(run, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dense_products))
     return checkpoint(run, *args, use_reentrant=False)
 
 
@@ -221,7 +244,8 @@ def fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 def _seeded_init(module: nn.Module, seed: int) -> None:
     """Seeded init in the flax defaults' families: weights N(0, 1/fan_in)
-    (fan_in = all axes but the first), biases 0, norms 1/0, ``grep_a`` 1;
+    (fan_in = all axes but the first), biases and scalars 0, norms 1/0,
+    ``grep_a`` 1;
     an :class:`Int8Linear` gets ``Int8Dense``'s init (zero weights, unit
     scales); a BatchNorm scale 1, shift 0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(seed)
@@ -232,7 +256,7 @@ def _seeded_init(module: nn.Module, seed: int) -> None:
         for name, p in module.named_parameters():
             if name.endswith("grep_a") or (p.ndim == 1 and "norm" in name and name.endswith("weight")):
                 p.fill_(1.0)
-            elif p.ndim == 1:
+            elif p.ndim <= 1:
                 p.zero_()
             else:
                 fan_in = p[0].numel()

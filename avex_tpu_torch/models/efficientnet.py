@@ -111,6 +111,12 @@ class _SqueezeExcitation(nn.Module):
         return x * torch.sigmoid(conv2d(self.fc2, scale, dtype))
 
 
+def stochastic_depth_mask(bsz: int, keep: float, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """Stochastic depth's draw: a ``[bsz, 1, 1, 1]`` bool mask, True (keep
+    the item's residual branch) with probability ``keep``."""
+    return torch.rand((bsz, 1, 1, 1), generator=generator, device=device) < keep
+
+
 class _MBConv(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation (torchvision
     ``MBConv``): ``block`` holds [expand,] depthwise, SE and project.
@@ -143,8 +149,7 @@ class _MBConv(nn.Module):
                 if generator is None:
                     raise ValueError("stochastic depth outside deterministic mode needs a torch.Generator")
                 keep = 1.0 - self.stochastic_depth_prob
-                mask = torch.rand((out.shape[0], 1, 1, 1), generator=generator, device=out.device) < keep
-                out = out * mask.to(out.dtype) / keep
+                out = out * stochastic_depth_mask(out.shape[0], keep, generator, out.device).to(out.dtype) / keep
             out = out + x
         return out, proj_conv_out
 

@@ -37,6 +37,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "perch": "avex_tpu_torch.models.perch",
     "surfperch": "avex_tpu_torch.models.perch",
     "birdnet": "avex_tpu_torch.models.birdnet",
+    "clip": "avex_tpu_torch.models.clip",
 }
 
 #: architecture name → class attribute when it is not the module's ``Model``.

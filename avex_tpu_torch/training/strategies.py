@@ -5,8 +5,8 @@ Port of ``avex_tpu/training/strategies.py``. A strategy runs the model's
 applies its criterion; selection by ``label_type`` follows the JAX factory:
 
 - ``supervised`` → :class:`SupervisedStrategy` (CE/BCE/focal on logits)
-- ``text``       → :class:`CLIPStrategy` (needs ``models/clip.py``: not ported)
-- ``self_supervised`` → :class:`EATSSLStrategy` (needs ``models/eat_ssl.py``: not ported)
+- ``text``       → :class:`CLIPStrategy` (symmetric contrastive)
+- ``self_supervised`` → :class:`EATSSLStrategy` (model-reported losses)
 
 The model's parameters live in its module, so a strategy takes the forward
 callable, the batch (tensors on the model's device) and the random generator.
@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from avex_tpu_torch.training.losses import build_criterion
+from avex_tpu_torch.training.losses import build_criterion, clip_loss
 
 __all__ = ["CLIPStrategy", "EATSSLStrategy", "SupervisedStrategy", "make_strategy"]
 
@@ -65,21 +65,63 @@ class SupervisedStrategy:
 
 
 class CLIPStrategy:
-    """Audio-text contrastive training: needs the CLIP model, not ported."""
+    """Audio-text contrastive training. The model's forward returns a dict
+    with ``audio_features``, ``text_features`` and ``logit_scale``; the batch
+    holds ``text_tokens`` (the ``Trainer`` tokenizes ``text_label``). The
+    metrics are the batch's a2t and t2a top-1 counts."""
 
-    def __init__(self) -> None:
-        raise NotImplementedError(
-            "CLIPStrategy needs models/clip.py, which is not ported yet (ROADMAP queue 1, item 10)"
-        )
+    def forward_loss(
+        self,
+        apply_fn: Callable,
+        batch: Batch,
+        generator: Optional[torch.Generator],
+        train: bool,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Both towers' forward + the symmetric InfoNCE loss."""
+        kwargs: Dict[str, Any] = {"deterministic": not train}
+        if train and generator is not None:
+            kwargs["generator"] = generator
+        out = apply_fn(batch["raw_wav"], batch.get("text_tokens"), batch.get("padding_mask"), **kwargs)
+        features = out[0] if isinstance(out, tuple) else out
+        loss, aux = clip_loss(features["audio_features"], features["text_features"], features["logit_scale"])
+        metrics = {
+            "a2t_correct": aux["a2t_correct"],
+            "t2a_correct": aux["t2a_correct"],
+            "count": features["audio_features"].shape[0],
+        }
+        return loss, metrics
 
 
 class EATSSLStrategy:
-    """Self-supervised EAT pretraining: needs the EAT-SSL model, not ported."""
+    """Self-supervised (data2vec-style) training: the model reports its own
+    loss components, ``{"losses": {...}, "sample_size": n}``; the loss is
+    their sum over ``max(n, 1)``, the metrics ``loss_<name>`` and ``count``.
+    The step's generator feeds the model's mask draw."""
 
-    def __init__(self) -> None:
-        raise NotImplementedError(
-            "EATSSLStrategy needs models/eat_ssl.py, which is not ported yet (ROADMAP queue 1, item 10)"
-        )
+    def forward_loss(
+        self,
+        apply_fn: Callable,
+        batch: Batch,
+        generator: Optional[torch.Generator],
+        train: bool,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Total of the model-reported SSL loss components."""
+        if not train:
+            # The module's deterministic path returns features, not losses:
+            # the JAX strategy then indexes an array with "losses" and fails.
+            raise ValueError(
+                "self_supervised training has no validation loss: the model's deterministic "
+                "path returns the student's features, not losses (the JAX package's eval step "
+                "fails here too); train without a validation loader or with skip_validation"
+            )
+        out = apply_fn(batch["raw_wav"], batch.get("padding_mask"), deterministic=False, generator=generator)
+        result = out[0] if isinstance(out, tuple) else out
+        losses = result["losses"]
+        sample_size = result.get("sample_size", 1)
+        total = sum(v.sum() for v in losses.values()) / max(sample_size, 1)
+        metrics: Dict[str, Any] = {f"loss_{k}": v.sum() for k, v in losses.items()}
+        metrics["count"] = sample_size
+        return total, metrics
 
 
 def make_strategy(label_type: str, loss_function: str = "cross_entropy", multilabel: bool = False):

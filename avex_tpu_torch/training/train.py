@@ -14,6 +14,13 @@ Port of ``avex_tpu/training/train.py``, in eager PyTorch:
   ``frozen_param_keys``; stage 2 rebuilds the optimizer at
   ``second_stage_lr`` (default ``0.1 * lr``) with fresh state, so its
   schedule restarts;
+- after every optimizer update the model's ``post_optimizer_step`` runs,
+  where it has one (EAT-SSL's EMA teacher refresh, JAX's ``post_update``);
+- the three label types: ``supervised``, ``text`` (CLIP: ``text_label`` is
+  tokenized on the host by the model's ``tokenize``) and
+  ``self_supervised`` (EAT-SSL);
+- with ``AVEX_PROFILE_DIR`` set, the first epoch runs under
+  ``utils/profiling.trace`` (a ``torch.profiler`` trace written there);
 - clustering evaluation (``RunConfig.clustering_eval``) on the validation
   loader every ``frequency`` epochs (never before training, as in the JAX
   ``Trainer``);
@@ -22,14 +29,15 @@ Port of ``avex_tpu/training/train.py``, in eager PyTorch:
   skip-forward on resume, a SIGTERM save-and-stop, and resume with the
   ``_next`` fallback of an interrupted rolling swap.
 
-The JAX trainer's device mesh, FSDP, pipeline and sequence parallelism,
-multi-process metrics and the ``AVEX_PROFILE_DIR`` trace are not ported
-(ROADMAP queue 1, item 14): each raises where it is asked for. Buffer
-donation has no meaning in eager PyTorch.
+The JAX trainer's device mesh, FSDP, pipeline and sequence parallelism and
+multi-process metrics are not ported (ROADMAP queue 1, item 14): each
+raises where it is asked for. Buffer donation has no meaning in eager
+PyTorch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import logging
@@ -50,6 +58,7 @@ from avex_tpu_torch.training.clustering_evaluator import ClusteringEvaluator
 from avex_tpu_torch.training.metrics_tracker import MetricsTracker
 from avex_tpu_torch.training.optimizers import make_optimizer
 from avex_tpu_torch.training.strategies import make_strategy
+from avex_tpu_torch.utils.profiling import trace
 
 __all__ = ["TrainState", "Trainer"]
 
@@ -165,9 +174,12 @@ class Trainer:
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's numeric entries as tensors on the model's device:
-        waveforms and float labels in fp32, integer labels as int64; text
-        (``text_label``) stays behind. A pinned tensor (the loader's, for a
-        ``cuda`` run) is copied without blocking the host."""
+        waveforms and float labels in fp32, integer labels and token ids as
+        int64; text (``text_label``) stays behind, tokenized on the host
+        first into ``text_tokens`` in ``text`` mode. A pinned tensor (the
+        loader's, for a ``cuda`` run) is copied without blocking the host."""
+        if self.mode == "clip" and batch.get("text_label") is not None:
+            batch = dict(batch, text_tokens=self.model.tokenize(list(batch["text_label"])))
         out: Dict[str, torch.Tensor] = {}
         for key, value in batch.items():
             if value is None:
@@ -199,6 +211,9 @@ class Trainer:
         # A parameter the loss does not reach gets a zero gradient, as in JAX.
         grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
         self._tx.step(self._trainable, grads, self.state.opt_state)
+        post_update = getattr(self.model, "post_optimizer_step", None)
+        if post_update is not None:
+            post_update()  # model-owned state, e.g. the EMA teacher
         self.state.step += 1
         return loss.detach(), metrics
 
@@ -313,9 +328,6 @@ class Trainer:
 
     def train(self) -> Dict[str, Any]:
         """Run the full training loop; returns the final metric summary."""
-        if os.environ.get("AVEX_PROFILE_DIR"):
-            raise NotImplementedError("AVEX_PROFILE_DIR (a trace of the first epoch) is not ported "
-                                      "(ROADMAP queue 1, item 14)")
         prev_handler = None
         if self.config.save_on_preemption:
             # A preemption delivers SIGTERM: save a resumable step checkpoint
@@ -369,8 +381,13 @@ class Trainer:
                 self._resume_step_in_epoch = 0
                 self._resume_loader_state = None
 
-            train_metrics = self._run_epoch(self.train_loader, train=True, epoch=epoch,
-                                            start_step=start_step, iterator=resume_iterator)
+            profile_dir = os.environ.get("AVEX_PROFILE_DIR")
+            profiled = bool(profile_dir) and epoch == self.start_epoch  # the first epoch, as in JAX
+            with trace(profile_dir) if profiled else contextlib.nullcontext():
+                train_metrics = self._run_epoch(self.train_loader, train=True, epoch=epoch,
+                                                start_step=start_step, iterator=resume_iterator)
+            if profiled:
+                logger.info("profiled epoch %d -> %s", epoch, profile_dir)
             record = {"epoch": epoch, "train": train_metrics}
             if self._preempted:
                 history.append(record)

@@ -162,7 +162,30 @@ Phases, each printing its results on lines of its own:
    running statistic moves; the eval forward normalises with them), then
    fp32 gradients on the card against the CPU at B=4 (full fp32 convs,
    forward and backward). BirdNet has no phase: its TFLite graph runs on
-   the host, and the card's machine has no TensorFlow.
+   the host, and the card's machine has no TensorFlow;
+26. (after phase 16) K5 and K6 at EAT-SSL's shapes, B=64, bf16 and fp32:
+   the student's 103 visible tokens with 12 heads, the decoder's 512 with
+   6 heads of 64 (384 wide), and K5 alone at the teacher's 512 with 12
+   heads under no_grad; each against its twin, timed beside the twin, its
+   bound and SDPA (its backward for K6);
+27. (after phase 25) EAT-SSL pretraining at full width (768 x 12, decoder
+   384 x 4, mask ratio 0.8, EMA teacher) through ``Trainer`` with
+   ``label_type="self_supervised"``: bf16, B=64, 10 s clips, K5/K6 on every
+   block (28 K5 and 16 K6 a step), 10 timed steps (the loss falls); the
+   teacher after each of 3 more steps against decay·t + (1-decay)·s from
+   snapshots; the plain path's ms a step; the fp32 kernel path's loss and
+   gradients against the plain path's at B=4 with the same mask draw;
+28. CLIP at full width (EfficientNet-B0 with ``esp_aves2_effnetb0_all``'s
+   audio config, RoBERTa-base, projection 512; the offline tokenizer)
+   through ``Trainer`` with ``label_type="text"``: bf16, B=64, 10 s tone
+   clips of 10 classes with captions that name the class, 10 timed steps (the loss falls, every BatchNorm
+   running statistic moves, a2t/t2a counted, no kernel of the port
+   launched); audio-only extraction at B=128; fp32 gradients card vs CPU at
+   B=4 (full fp32 convs, BatchNorm on its running statistics);
+29. BEATs training with ``remat_policy="dots"`` (bf16, B=64, 5 s,
+   ``fused_qkv``): ms a step and peak memory beside ``remat=False`` and
+   ``remat_policy=None`` (K2 24 and K3 12 a step under either remat), and
+   fp32 gradients with dropout and LayerDrop against ``remat=False``.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -178,7 +201,9 @@ It then prints one JSON line of per-kernel numbers (``launches`` counts the
 main paths' runs; K4 and K8, which no main path reaches, add
 ``kernel_phase_launches``; K4, K5 and K6 add ``head_dim_80``, their bf16 and
 fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
-numbers at T=800) and, last, the device line
+numbers at T=800; K5 and K6 add ``eat_ssl``, their numbers at EAT-SSL's
+shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``)
+and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
 """
@@ -322,6 +347,18 @@ CNN_CARD_CPU_REL = 1e-3
 B_CNN_GRAD = 4
 # bf16 eval: one clip alone vs in a batch of 8 (cuDNN may pick other algorithms)
 CNN_BATCH_REL = 1e-2
+# EAT-SSL (phases 26-27): 10 s clips, 8 x 64 = 512 patches, 409 masked and 103
+# seen by the student; the decoder is 384 wide with 6 heads of 64.
+T_SSL, T_SSL_VISIBLE = 512, 103
+H_SSL_DECODER, E_SSL_DECODER = 6, 384
+SSL_PLAIN_STEPS = 3  # the plain path's ms a step beside the kernel path's
+B_SSL_GRAD = 4  # the fp32 kernel-vs-plain gradient check
+# CLIP (phase 28): from random towers the clips' embeddings start nearly equal
+# (the loss near ln B); at 3e-4 Adam's first steps overshoot and the loss rises
+# above ln B, at 1e-5 it falls (scripts/torch_clip_lr.py, on the CPU).
+CLIP_LR = 1e-5
+# BEATs remat "dots" (phase 29): timed steps of each of three remat settings.
+DOTS_STEPS = 3
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
@@ -361,16 +398,16 @@ def median_ms(fn, n: int = TIMED_LAUNCHES, device_only: bool = True) -> float:
 
 
 def attention_bound_ms(dtype_name: str, gated: bool, padded: bool, seq: int = T, heads: int = H,
-                       dim: int = D) -> tuple:
-    """Least time for one attention call at (B, heads, seq, dim) on the card:
+                       dim: int = D, bsz: int = B) -> tuple:
+    """Least time for one attention call at (bsz, heads, seq, dim) on the card:
     q, k, v read and out written once, the fp32 bias (gated) and gate read
     once, the mask read once; two matmuls of 2·seq·seq·dim FLOPs per (batch,
     head)."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 4 * B * heads * seq * dim * elem
-    nbytes += heads * seq * seq * 4 + B * heads * seq * 4 if gated else 0
-    nbytes += B * seq if padded else 0
-    flops = 4.0 * B * heads * seq * seq * dim
+    nbytes = 4 * bsz * heads * seq * dim * elem
+    nbytes += heads * seq * seq * 4 + bsz * heads * seq * 4 if gated else 0
+    nbytes += bsz * seq if padded else 0
+    flops = 4.0 * bsz * heads * seq * seq * dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1080,10 +1117,10 @@ def training_gradient_check(label, load, wav, expect, mask=None, bf16=False):
     return result
 
 
-def train_run(label, model, batch, expect, steps, workdir):
+def train_run(label, model, batch, expect, steps, workdir, label_type="supervised", lr=3e-4):
     """``Trainer`` steps on one batch: counts reset just before and read just
-    after the timed steps. Returns (losses, ms per step, clips/s, peak bytes,
-    counts)."""
+    after the timed steps. Returns (trainer, losses, ms per step, clips/s,
+    peak bytes, counts)."""
     import torch
 
     from avex_tpu_torch.configs import RunConfig, SchedulerConfig, TrainingParams
@@ -1092,10 +1129,11 @@ def train_run(label, model, batch, expect, steps, workdir):
     bsz = batch["raw_wav"].shape[0]
     config = RunConfig(
         model_spec={"name": label},
-        training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=bsz, optimizer="adamw",
+        training_params=TrainingParams(train_epochs=1, lr=lr, batch_size=bsz, optimizer="adamw",
                                        weight_decay=0.01),
         scheduler=SchedulerConfig(name="cosine", warmup_steps=2),
-        output_dir=str(workdir), seed=0,
+        output_dir=str(workdir), seed=0, label_type=label_type,
+        loss_function="clip" if label_type == "text" else "cross_entropy",
     )
     trainer = Trainer(model, config, [batch], steps_per_epoch=steps + 10)
     losses = [trainer._train_step(batch)[0]]  # untimed: the first step's allocations
@@ -2786,6 +2824,368 @@ def phase_resnet():
                       "clip_seconds": EFFNET_CLIP_SAMPLES / 16000, "audio_config": EFFNET_ENTRY}))
 
 
+# ---------------------------------------------------------------------------
+# EAT-SSL pretraining (phases 26-27), CLIP (phase 28), BEATs remat "dots" (phase 29)
+# ---------------------------------------------------------------------------
+
+
+def eat_ssl_shapes() -> tuple:
+    """K5/K6 at EAT-SSL's attention shapes: (label, seq, heads, width, with a
+    backward). The student sees 103 of 512 patches, the decoder all 512 at
+    width 384 (6 heads of 64), the teacher all 512 under no_grad."""
+    return (("student", T_SSL_VISIBLE, H, E, True), ("decoder", T_SSL, H_SSL_DECODER, E_SSL_DECODER, True),
+            ("teacher", T_SSL, H, E, False))
+
+
+def phase_eat_ssl_kernels():
+    """K5 and K6 against their twins at EAT-SSL's three shapes (B=64), bf16
+    (tensor cores) and fp32 (FMA); each timed beside its twin, its bound and
+    SDPA (its backward for K6). The teacher's K5 runs under no_grad, as in
+    the model. Returns {(kernel, shape, dtype): numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    results = {}
+
+    def held(label, dtype, got, want):
+        err, rel = float((got.float() - want.float()).abs().max()), rel_l2(got, want)
+        check(bool(torch.isfinite(got).all()), f"{label}: finite")
+        if dtype == torch.float32:
+            check(err <= FP32_ATOL, f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
+        else:
+            check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+        return err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+        for shape, seq, heads, width, backward in eat_ssl_shapes():
+            qkv = torch.randn(B_TRAIN, seq, 3 * width, device="cuda", generator=gen).to(dtype)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B_TRAIN, seq, 3, heads, D).unbind(2))
+            label = f"fused_qkv_attention EAT-SSL {shape} B={B_TRAIN} T={seq} H={heads} {name}"
+            with torch.no_grad():
+                reset_counts()
+                got = ak.fused_qkv_attention(qkv, heads)
+                torch.cuda.synchronize()
+                check(read_counts()["fused_qkv_attention"] == 1, f"{label}: one K5 launch")
+                err = held(label, dtype, got, ak.fused_qkv_reference(qkv, heads))
+                ms = median_ms(lambda: ak.fused_qkv_attention(qkv, heads))
+                plain_ms = median_ms(lambda: ak.fused_qkv_reference(qkv, heads))
+                library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=D**-0.5))
+            bound, bound_by = attention_bound_ms(name, gated=False, padded=False, seq=seq, heads=heads, bsz=B_TRAIN)
+            print(f"time {label} ({body}{', no grad' if not backward else ''}): kernel {ms:.4f} ms "
+                  f"({tflops(4.0 * B_TRAIN * heads * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                  f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound); "
+                  f"{CARD[0]}")
+            results[("fused_qkv_attention", shape, name)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
+                batch=B_TRAIN, seq=seq, heads=heads)
+            del got, q, k, v
+            if backward:
+                qkv.requires_grad_()
+                dout = torch.randn(B_TRAIN, seq, width, device="cuda", generator=gen).to(dtype)
+                out = ak.fused_qkv_attention(qkv, heads)
+                (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+                label = f"fused_qkv_attention_backward EAT-SSL {shape} B={B_TRAIN} T={seq} H={heads} {name}"
+                err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
+                del got
+                ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
+                plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
+                q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                           for t in qkv.detach().view(B_TRAIN, seq, 3, heads, D).unbind(2))
+                library_ms = sdpa_backward_ms(q, k, v, None, dout)
+                bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=False, heads=heads)
+                print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                      f"({tflops(10.0 * B_TRAIN * heads * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                      f"sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+                      f"({bound / ms:.1%} of bound); {CARD[0]}")
+                results[("fused_qkv_attention_backward", shape, name)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                    bound_by=bound_by, batch=B_TRAIN, seq=seq, heads=heads)
+                del dout, out, q, k, v
+            del qkv
+            torch.cuda.empty_cache()
+    return results
+
+
+def load_eat_ssl(dtype, use_pallas, **eat_cfg):
+    """Full-width EAT-SSL (768 x 12, decoder 384 x 4, mask ratio 0.8, the
+    top 8 teacher layers) through the registry and ``build_model_from_spec``,
+    seeded random weights."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+    from avex_tpu_torch.models import eat_ssl
+
+    avex_tpu_torch.register_model_class("eat_ssl", eat_ssl.Model)
+    spec = ModelSpec(name="eat_ssl", pretrained=False, compute_dtype=dtype, eat_cfg=dict(eat_cfg))
+    return avex_tpu_torch.build_model_from_spec(spec, device="cuda", use_pallas=use_pallas)
+
+
+def eat_ssl_gradients(use_pallas, wav, seed):
+    """One fp32 EAT-SSL step's loss and every trainable gradient, the mask
+    drawn from a generator seeded ``seed``; returns (loss, grads, counts)."""
+    import torch
+
+    from avex_tpu_torch.training import make_strategy
+
+    model = load_eat_ssl("float32", use_pallas)
+    model.module.train()
+    params = {n: p for n, p in model.module.named_parameters() if p.requires_grad}
+    reset_counts()
+    loss, _ = make_strategy("self_supervised").forward_loss(
+        model.train_forward, {"raw_wav": wav}, torch.Generator(device="cuda").manual_seed(seed), train=True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    result = loss.item(), {n: g.float() for n, g in zip(params, grads)}, counts
+    del model, params, grads
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_eat_ssl_training(workdir):
+    """EAT-SSL pretraining at full width through ``Trainer``
+    (``label_type="self_supervised"``): bf16, B=64, 10 s clips, K5/K6 on
+    every block (28 K5 and 16 K6 a step: student 12, decoder 4, teacher 12
+    without a backward), 10 timed steps; the loss falls; the teacher after
+    each of 3 more steps equals decay·t + (1-decay)·s recomputed from
+    snapshots; the plain path's ms a step; fp32 kernel vs plain gradients at
+    B=4 with the same mask draw. Returns the kernel path's timed launches."""
+    import torch
+
+    from avex_tpu_torch.models.eat_ssl import EATSSLModule
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    batch = {"raw_wav": torch.randn(B_TRAIN, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1}
+    model = load_eat_ssl("bfloat16", True)
+    module: EATSSLModule = model.module
+    n = (module.target_length // 16) * 8
+    n_masked = int(module.mask_ratio * n)
+    check((n, n - n_masked, len(module.decoder_blocks), module.decoder_dim) == (T_SSL, T_SSL_VISIBLE, 4, E_SSL_DECODER),
+          f"EAT-SSL: {n} patches, {n - n_masked} visible, decoder {len(module.decoder_blocks)} x {module.decoder_dim}")
+    expect = {"fused_qkv_attention": 28, "fused_qkv_attention_backward": 16}
+    trainer, losses, ms, rate, peak, counts = train_run("eat_ssl", model, batch, expect, TRAIN_STEPS, workdir,
+                                                        label_type="self_supervised")
+    check(sum(losses[-3:]) / 3 < losses[0], f"EAT-SSL training: the loss falls on one repeated batch "
+                                           f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+    worst_ema = 0.0
+    for _ in range(3):
+        teacher = [p.detach().clone() for p in module.teacher.parameters()]
+        trainer._train_step(batch)
+        with torch.no_grad():
+            for t_before, t_after, s_after in zip(teacher, module.teacher.parameters(), module.student.parameters()):
+                want = model.ema_decay * t_before + (1.0 - model.ema_decay) * s_after
+                worst_ema = max(worst_ema, float((t_after - want).abs().max()))
+        del teacher
+    check(worst_ema <= 1e-6, f"EAT-SSL: the teacher after each of 3 steps equals decay·t + (1-decay)·s "
+                             f"(decay {model.ema_decay}) from snapshots: max|d| {worst_ema:.3e} <= 1e-6")
+    del trainer, model, module
+    torch.cuda.empty_cache()
+
+    plain = load_eat_ssl("bfloat16", False)
+    _, plain_losses, plain_ms, plain_rate, plain_peak, _ = train_run(
+        "eat_ssl", plain, batch, {}, SSL_PLAIN_STEPS, workdir / "plain", label_type="self_supervised")
+    print(f"EAT-SSL training ms a step (B={B_TRAIN}, bf16): kernel path {ms:.1f} ms (peak {peak / 2**30:.2f} GiB), "
+          f"plain path {plain_ms:.1f} ms (peak {plain_peak / 2**30:.2f} GiB); {CARD[0]}")
+    del plain
+    torch.cuda.empty_cache()
+
+    wav = batch["raw_wav"][:B_SSL_GRAD]
+    loss_k, grads_k, counts_k = eat_ssl_gradients(True, wav, seed=5)
+    loss_p, grads_p, counts_p = eat_ssl_gradients(False, wav, seed=5)
+    check(all(counts_k[k] == expect.get(k, 0) for k in counts_k) and not any(counts_p.values()),
+          f"EAT-SSL fp32 gradient check: kernel path launches { {k: v for k, v in counts_k.items() if v} } "
+          f"== {expect}, plain path none")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    global_rel, worst, worst_name = gradient_distance(grads_k, grads_p)
+    check(loss_rel <= PATH_REL and worst <= PATH_REL,
+          f"EAT-SSL: fp32 kernel path vs plain path, one step (B={B_SSL_GRAD}, the same mask draw): loss rel "
+          f"{loss_rel:.3e}, worst gradient rel L2 {worst:.3e} ({worst_name}) over {len(grads_p)} tensors "
+          f"<= {PATH_REL:g} (global {global_rel:.3e})")
+    print(json.dumps({"model": "eat_ssl", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses,
+        "plain_ms_per_step": plain_ms, "plain_clips_per_s": plain_rate, "plain_peak_bytes": plain_peak,
+        "ema_max_abs_err": worst_ema, "fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": worst,
+        "fp32_global_grad_rel": global_rel}, "batch": B_TRAIN, "clip_seconds": EAT_CLIP_SAMPLES / 16000}))
+    return counts
+
+
+def load_clip(dtype, device="cuda"):
+    """Full-width CLIP: EfficientNet-B0 with the official
+    ``esp_aves2_effnetb0_all`` audio config, RoBERTa-base, projection 512;
+    seeded random weights, the offline tokenizer."""
+    import avex_tpu_torch
+    from avex_tpu_torch.api.official_models import OFFICIAL_MODELS
+    from avex_tpu_torch.configs import ModelSpec
+
+    audio = dict(OFFICIAL_MODELS[EFFNET_ENTRY]["model_spec"]["audio_config"])
+    spec = ModelSpec(name="clip", pretrained=False, audio_config=audio, compute_dtype=dtype, projection_dim=512,
+                     text_model_name="roberta-base", efficientnet_variant="b0")
+    return avex_tpu_torch.build_model_from_spec(spec, device=device)
+
+
+def captions(labels) -> list:
+    """Synthetic captions of ``tone_batches``' classes, one a clip, no two alike."""
+    species = ("warbler", "thrush", "frog", "cricket", "owl", "wren", "cicada", "gull", "loon", "katydid")
+    return [f"a {species[int(c)]} calling at dawn, recording {i}" for i, c in enumerate(labels)]
+
+
+def phase_clip(workdir):
+    """CLIP contrastive training through ``Trainer`` (``label_type="text"``):
+    bf16, B=64, 10 s tone clips of 10 classes with synthetic captions that
+    name the class, tokenized on the host, 10 timed steps (the loss falls, every BatchNorm running statistic moves,
+    a2t/t2a counted, no kernel of the port launched); fp32 gradients of one
+    step on the card against the CPU at B=4 (full fp32 convs, the audio
+    tower's BatchNorm on its running statistics); audio-only extraction
+    clips/s at B=128."""
+    import torch
+
+    from avex_tpu_torch.models import clip
+    from avex_tpu_torch.training.strategies import CLIPStrategy
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    tones = tone_batches(B_TRAIN, EFFNET_CLIP_SAMPLES, seed=28)[0]  # one tone a class: the towers can pair them
+    batch = {"raw_wav": tones["raw_wav"], "text_label": captions(tones["label"])}
+    model = load_clip("bfloat16")
+    check(isinstance(model.tokenizer, clip.SimpleTokenizer), "CLIP: the offline tokenizer (no cached tokenizer)")
+    tokens = model.tokenize(batch["text_label"])
+    initial = {k: v.clone() for k, v in model.module.state_dict().items() if "running" in k}
+    trainer, losses, ms, rate, peak, _ = train_run("clip", model, batch, {}, TRAIN_STEPS, workdir, label_type="text",
+                                                   lr=CLIP_LR)
+    check(sum(losses[-3:]) / 3 < losses[0], f"CLIP training: the loss falls on one repeated batch "
+                                           f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
+    trained = {k: v for k, v in model.module.state_dict().items() if "running" in k}
+    moved = sum(not torch.equal(initial[k], trained[k]) for k in initial)
+    check(moved == len(initial), f"CLIP training: {moved} of {len(initial)} BatchNorm running statistics moved")
+    _, metrics = trainer._train_step(batch)
+    a2t, t2a = int(metrics["a2t_correct"]), int(metrics["t2a_correct"])
+    check(metrics["count"] == B_TRAIN and 0 <= a2t <= B_TRAIN and 0 <= t2a <= B_TRAIN,
+          f"CLIP training: a2t {a2t} and t2a {t2a} correct of {metrics['count']} counted")
+    print(f"CLIP training: tokens {tuple(tokens.shape)}, {ms:.1f} ms a step, {rate:.1f} clips/s, peak "
+          f"{peak / 2**30:.2f} GiB (B={B_TRAIN}, bf16); {CARD[0]}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    model.eval()
+    model.deregister_all_hooks()
+    waves = [torch.randn(B, EFFNET_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES_CNN)]
+    reset_counts()
+    first = model.extract_embeddings(waves[0])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    outs = [model.extract_embeddings(w) for w in waves]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counts = read_counts()
+    check(not any(counts.values()), "CLIP extraction: no kernel of the port launched")
+    for out in [first, *outs]:
+        norms = out.float().norm(dim=1)
+        check(tuple(out.shape) == (B, 512) and bool(torch.isfinite(out).all())
+              and float((norms - 1).abs().max()) < 1e-2,
+              f"CLIP extraction: projected audio features {tuple(out.shape)}, finite, unit norm")
+    extract_rate = B * len(waves) / elapsed
+    print(f"CLIP audio-only extraction: {extract_rate:.1f} clips/s (B={B}, {len(waves)} batches of 10 s, bf16); "
+          f"{CARD[0]}")
+    del model, waves, first, outs
+    torch.cuda.empty_cache()
+
+    grads, losses_32 = {}, {}
+    wav, texts = batch["raw_wav"][:B_CNN_GRAD], batch["text_label"][:B_CNN_GRAD]
+    for device in ("cuda", "cpu"):
+        m = load_clip("float32", device)
+        m.eval()
+        params = dict(m.module.named_parameters())
+        tokens = torch.from_numpy(m.tokenize(texts)).long()
+        with conv_precision("float32"):
+            loss, _ = CLIPStrategy().forward_loss(
+                m.train_forward, {"raw_wav": wav.to(device), "text_tokens": tokens.to(device)}, None, train=False)
+            step = torch.autograd.grad(loss, list(params.values()))
+        grads[device] = {n: g.float().cpu() for n, g in zip(params, step)}
+        losses_32[device] = loss.item()
+        del m, params, loss, step
+    num = sum(float((grads["cuda"][n] - g).norm() ** 2) for n, g in grads["cpu"].items())
+    den = sum(float(g.norm() ** 2) for g in grads["cpu"].values())
+    grad_rel = (num / den) ** 0.5
+    loss_rel = abs(losses_32["cuda"] - losses_32["cpu"]) / abs(losses_32["cpu"])
+    worst, worst_name = max((rel_l2(grads["cuda"][n], g), n) for n, g in grads["cpu"].items() if float(g.norm()) > 0)
+    check(loss_rel <= CNN_CARD_CPU_REL and grad_rel <= CNN_CARD_CPU_REL,
+          f"CLIP fp32 step, card vs CPU (B={B_CNN_GRAD}): loss rel {loss_rel:.3e}, gradients global rel L2 "
+          f"{grad_rel:.3e} <= {CNN_CARD_CPU_REL:g} (worst tensor {worst:.3e}, {worst_name})")
+    print(json.dumps({"model": "clip", "training": {
+        "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, "a2t_correct": a2t,
+        "t2a_correct": t2a, "fp32_card_cpu_loss_rel": loss_rel, "fp32_card_cpu_grad_rel": grad_rel},
+        "extraction": {"clips_per_s": extract_rate, "batch": B},
+        "batch": B_TRAIN, "clip_seconds": EFFNET_CLIP_SAMPLES / 16000, "audio_config": EFFNET_ENTRY}))
+
+
+def phase_beats_dots(workdir):
+    """BEATs training with ``remat_policy="dots"`` (bf16, B=64, 5 s,
+    ``fused_qkv=True, use_pallas=True``): ms a step and peak memory beside
+    ``remat=False`` and ``remat_policy=None``; K2 24 and K3 12 launches a
+    step (the forward's K2 runs again in the backward); then fp32 gradients
+    of one step with dropout and LayerDrop on against ``remat=False`` from
+    the same generator. Returns the dots run's timed launches."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+    from avex_tpu_torch.training import make_strategy
+
+    layers = beats_config()["encoder_layers"]
+
+    def load(dtype, **init):
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype,
+                         init_config=dict(beats_config(), fused_qkv=True, use_pallas=True, **init))
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    batch = {"raw_wav": torch.randn(B_TRAIN, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    report, dots_counts = {}, None
+    for name, init in (("remat_off", {}), ("remat_nothing", {"remat": True}),
+                       ("remat_dots", {"remat": True, "remat_policy": "dots"})):
+        twice = 2 if init else 1
+        expect = {"fused_qkv_gated_attention": twice * layers, "fused_qkv_gated_attention_backward": layers}
+        trainer, losses, ms, rate, peak, counts = train_run("beats", load("bfloat16", **init), batch, expect,
+                                                            DOTS_STEPS, workdir / name)
+        report[name] = {"ms_per_step": ms, "peak_bytes": peak, "losses": losses}
+        if name == "remat_dots":
+            dots_counts = counts
+        del trainer
+        torch.cuda.empty_cache()
+    print("BEATs training, remat: " + "; ".join(
+        f"{k} {v['ms_per_step']:.1f} ms a step, peak {v['peak_bytes'] / 2**30:.2f} GiB" for k, v in report.items())
+        + f" (B={B_TRAIN}, bf16); {CARD[0]}")
+
+    wav = batch["raw_wav"][:B_GRAD_CHECK]
+    labels = batch["label"][:B_GRAD_CHECK]
+    grads = {}
+    for name, init in (("remat_off", {}), ("remat_dots", {"remat": True, "remat_policy": "dots"})):
+        model = load("float32", **init)
+        model.module.train()
+        params = dict(model.module.named_parameters())
+        loss, _ = make_strategy("supervised").forward_loss(
+            model.train_forward, {"raw_wav": wav, "label": labels}, torch.Generator(device="cuda").manual_seed(3),
+            train=True)
+        step = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads[name] = (loss.item(), {n: g.float() for n, g in zip(params, step) if g is not None})
+        del model, params, loss, step
+    (loss_off, g_off), (loss_dots, g_dots) = grads["remat_off"], grads["remat_dots"]
+    check(g_off.keys() == g_dots.keys(), "BEATs remat 'dots': the same parameters get gradients as without remat")
+    max_d = max(float((g_dots[n] - g).abs().max()) for n, g in g_off.items())
+    global_rel, worst, worst_name = gradient_distance(g_dots, g_off)
+    check(abs(loss_dots - loss_off) <= PATH_REL * abs(loss_off) and worst <= PATH_REL,
+          f"BEATs remat_policy='dots' vs remat=False, fp32 with dropout and LayerDrop (B={B_GRAD_CHECK}): loss "
+          f"{loss_dots:.6f} vs {loss_off:.6f}, worst gradient rel L2 {worst:.3e} ({worst_name}), max|d| {max_d:.3e}")
+    print(json.dumps({"model": "beats", "remat": report, "dots_vs_off": {
+        "loss_rel": abs(loss_dots - loss_off) / abs(loss_off), "worst_grad_rel": worst, "global_grad_rel": global_rel,
+        "max_abs_diff": max_d}, "batch": B_TRAIN, "clip_seconds": CLIP_SAMPLES / 16000}))
+    return dots_counts
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -2798,6 +3198,7 @@ def main() -> int:
     backward_timings = phase_backward_kernels()
     k3_long = phase_k3_long()
     dh80_timings, dh80_k4_launches = phase_dh80_kernels()
+    ssl_timings = phase_eat_ssl_kernels()
     launches = phase_main_path()
     launches["int8_dynamic_dense"] = phase_int8_main_path()
     eat_launches = phase_eat()
@@ -2816,23 +3217,30 @@ def main() -> int:
     birdmae_train = phase_birdmae_training(workdir / "birdmae")
     atst_train = phase_atst_training(workdir / "atst")
     phase_efficientnet_training(workdir / "efficientnet")
+    ssl_train = phase_eat_ssl_training(workdir / "eat_ssl")
+    phase_clip(workdir / "clip")
+    dots_train = phase_beats_dots(workdir / "dots")
     probes = phase_probes()
     entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
     launches["fused_qkv_attention"] = eat_launches + aves_launches + birdmae_launches + atst_launches
-    # Training: K2/K3 on the BEATs run, K5/K6 on the EAT, AVES, Bird-MAE huge and ATST runs.
-    for counts in (beats_train, eat_train, aves_train, birdmae_train, atst_train):
+    # Training: K2/K3 on the BEATs runs (plain, and remat "dots"), K5/K6 on the EAT, AVES,
+    # Bird-MAE huge, ATST and EAT-SSL runs.
+    for counts in (beats_train, eat_train, aves_train, birdmae_train, atst_train, ssl_train, dots_train):
         for kname in ("fused_qkv_gated_attention", "fused_qkv_attention"):
             launches[kname] += counts[kname]
-    launches["fused_qkv_gated_attention_backward"] = beats_train["fused_qkv_gated_attention_backward"]
+    launches["fused_qkv_gated_attention_backward"] = (beats_train["fused_qkv_gated_attention_backward"]
+                                                      + dots_train["fused_qkv_gated_attention_backward"])
+    print(f"EAT-SSL training launches: { {k: v for k, v in ssl_train.items() if v} }; BEATs remat 'dots': "
+          f"{ {k: v for k, v in dots_train.items() if v} }")
     # The fp32 BEATs step on 16 s clips: K2 and K3 past T=512.
     for kname in ("fused_qkv_gated_attention", "fused_qkv_gated_attention_backward"):
         launches[kname] += long_step.get(kname, 0)
     print(f"fp32 BEATs step on 16 s clips: launches {long_step}")
-    launches["fused_qkv_attention_backward"] = sum(counts["fused_qkv_attention_backward"]
-                                                   for counts in (eat_train, aves_train, birdmae_train, atst_train))
+    launches["fused_qkv_attention_backward"] = sum(
+        counts["fused_qkv_attention_backward"] for counts in (eat_train, aves_train, birdmae_train, atst_train, ssl_train))
     # Probes: K5 on the EAT probes, K1 on the frozen BEATs probes, K2/K3 on the unfrozen one.
     for kname, count in probes.items():
         if count:  # each probe run checked the rest at 0
@@ -2889,6 +3297,11 @@ def main() -> int:
             kernels[-1]["head_dim_80"] = dh80[kname]
         if kname == "fused_qkv_gated_attention_backward":
             kernels[-1]["fp32_past_512"] = k3_long
+        if kname in ("fused_qkv_attention", "fused_qkv_attention_backward"):
+            # EAT-SSL's shapes (B=64): student T=103 H=12, decoder T=512 H=6, teacher T=512 H=12 (no grad)
+            kernels[-1]["eat_ssl"] = {f"{shape}_{name}": t for (k, shape, name), t in ssl_timings.items()
+                                      if k == kname}
+            kernels[-1]["eat_ssl_launches"] = ssl_train[kname]
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

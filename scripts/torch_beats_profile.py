@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's embedding extraction and training goes, on one GPU.
 
     python3 scripts/torch_beats_profile.py [beats] [int8] [eat] [aves] [birdmae] [atst]
-    python3 scripts/torch_beats_profile.py train [beats] [eat] [birdmae]
+    python3 scripts/torch_beats_profile.py train [beats] [eat] [birdmae] [beats_remat] [beats_dots] [eat_ssl] [clip]
     python3 scripts/torch_beats_profile.py probe [attention] [transformer] [linear] [unfrozen]
 
 Full-width models with seeded random weights, bf16, B=128, ``extract_embeddings``
@@ -23,7 +23,13 @@ some overlap) and the device kernels with the most summed time, from
 fine-tuning step instead (``Trainer``, AdamW, a 50-class head, B=64, bf16
 compute with fp32 parameters; BEATs with ``fused_qkv``, so K2 forward and K3
 backward, and EAT and Bird-MAE huge, K5 and K6; Bird-MAE's kernel path
-only), after two warm-up steps.
+only), after two warm-up steps. ``beats_remat`` and ``beats_dots`` are the
+BEATs kernel-path step with gradient checkpointing (``remat_policy`` None,
+then ``"dots"``); ``eat_ssl`` is a full-width EAT-SSL pretraining step
+(``label_type="self_supervised"``, 10 s clips, both paths) and ``clip`` a
+CLIP step (EfficientNet-B0 with ``esp_aves2_effnetb0_all``'s audio config
+and RoBERTa-base, ``label_type="text"``, 10 s clips with captions, lr 1e-5;
+no kernel of the port).
 With ``probe`` first it profiles one ``FineTuneTrainer`` step of an online probe (B=64, 10
 classes, bf16 backbone, fp32 head): ``attention`` and ``transformer``
 presets over BEATs layers 3, 7, 11 and the last, frozen (K1 forward);
@@ -112,7 +118,7 @@ def _birdmae_loader(**kwargs):
 
 
 def _train_step(name: str, use_pallas):
-    """A ``Trainer`` step function on one seeded batch for BEATs or EAT."""
+    """A ``Trainer`` step function on one seeded batch of the named training."""
     import tempfile
 
     import torch
@@ -123,12 +129,28 @@ def _train_step(name: str, use_pallas):
     from avex_tpu_torch.training import Trainer
 
     gen = torch.Generator("cuda").manual_seed(2)
-    if name == "beats":
+    label_type, lr = "supervised", 3e-4
+    if name in ("beats", "beats_remat", "beats_dots"):
         official = OFFICIAL_MODELS["esp_aves2_sl_beats_all"]["model_spec"]["init_config"]
+        remat = {"beats": {}, "beats_remat": {"remat": True}, "beats_dots": {"remat": True, "remat_policy": "dots"}}
         spec = ModelSpec(name="beats", pretrained=False, compute_dtype="bfloat16",
-                         init_config=dict(official, fused_qkv=True, use_pallas=use_pallas))
+                         init_config=dict(official, fused_qkv=True, use_pallas=use_pallas, **remat[name]))
         model = avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
         samples = 5 * 16000
+    elif name == "eat_ssl":
+        from avex_tpu_torch.models import eat_ssl
+
+        avex_tpu_torch.register_model_class("eat_ssl", eat_ssl.Model)
+        model = avex_tpu_torch.build_model_from_spec(ModelSpec(name="eat_ssl", pretrained=False,
+                                                               compute_dtype="bfloat16", eat_cfg={}),
+                                                     device="cuda", use_pallas=use_pallas)
+        samples, label_type = 10 * 16000, "self_supervised"
+    elif name == "clip":
+        audio = dict(OFFICIAL_MODELS["esp_aves2_effnetb0_all"]["model_spec"]["audio_config"])
+        model = avex_tpu_torch.build_model_from_spec(ModelSpec(name="clip", pretrained=False, audio_config=audio,
+                                                               compute_dtype="bfloat16", projection_dim=512),
+                                                     device="cuda")
+        samples, label_type, lr = 10 * 16000, "text", 1e-5
     elif name == "eat":
         model = avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, num_classes=N_CLASSES,
                                           device="cuda", compute_dtype="bfloat16", use_pallas=use_pallas)
@@ -137,11 +159,14 @@ def _train_step(name: str, use_pallas):
         model = _birdmae_loader(num_classes=N_CLASSES)(use_pallas)
         samples = 10 * 32000
     else:
-        raise SystemExit(f"unknown model {name!r} for train (beats, eat, birdmae)")
+        raise SystemExit(f"unknown model {name!r} for train ({', '.join(TRAIN_PATHS)})")
     batch = {"raw_wav": torch.randn(B_TRAIN, samples, device="cuda", generator=gen) * 0.1,
              "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
-    config = RunConfig(model_spec={"name": name}, output_dir=tempfile.mkdtemp(), seed=0,
-                       training_params=TrainingParams(train_epochs=1, lr=3e-4, batch_size=B_TRAIN, weight_decay=0.01),
+    if label_type == "text":
+        batch["text_label"] = [f"a bird calling at dawn, recording {i}" for i in range(B_TRAIN)]
+    config = RunConfig(model_spec={"name": name}, output_dir=tempfile.mkdtemp(), seed=0, label_type=label_type,
+                       loss_function="clip" if label_type == "text" else "cross_entropy",
+                       training_params=TrainingParams(train_epochs=1, lr=lr, batch_size=B_TRAIN, weight_decay=0.01),
                        scheduler=SchedulerConfig(name="cosine", warmup_steps=2))
     trainer = Trainer(model, config, [batch], steps_per_epoch=100)
     return lambda: trainer._train_step(batch), B_TRAIN
@@ -217,6 +242,11 @@ def profile_call(title: str, run, clips: int) -> None:
 
 
 PATHS = (("kernel path (use_pallas=True)", True), ("plain path (use_pallas unset)", None))
+# Training: the paths each name profiles. Bird-MAE huge's plain path holds
+# [B, 16, 513, 513] scores for 32 layers, past the card's memory at B=64;
+# the remat steps are the kernel path's; CLIP runs no kernel of the port.
+TRAIN_PATHS = {"beats": PATHS, "eat": PATHS, "birdmae": PATHS[:1], "beats_remat": PATHS[:1],
+               "beats_dots": PATHS[:1], "eat_ssl": PATHS, "clip": (("no kernel of the port", None),)}
 
 
 def profile_model(name: str) -> None:
@@ -235,9 +265,7 @@ def profile_model(name: str) -> None:
 def profile_training(name: str, probe: bool = False) -> None:
     import torch
 
-    # Bird-MAE huge's plain path holds [B, 16, 513, 513] scores for 32 layers:
-    # past the card's memory at B=64, so its step is profiled on K5/K6 alone.
-    for label, use_pallas in PATHS[:1] if name == "birdmae" else PATHS:
+    for label, use_pallas in PATHS if probe else TRAIN_PATHS.get(name, PATHS):
         step, clips = (_probe_step if probe else _train_step)(name, use_pallas)
         torch.cuda.reset_peak_memory_stats()
         profile_call(f"{name} {label}, {'probe' if probe else 'training'} step", step, clips)

@@ -42,8 +42,13 @@ def test_registry_holds_the_official_beats_models():
     )
     with pytest.raises(KeyError, match="not found"):
         avex_tpu_torch.get_model_spec("nonexistent_model")
+    # every architecture of the JAX package is ported (clip the last); an unknown one raises
+    from avex_tpu.models.registry import _ARCH_MODULES as jax_arch_modules
+    from avex_tpu_torch.models.registry import _ARCH_MODULES
+
+    assert set(_ARCH_MODULES) == set(jax_arch_modules)
     with pytest.raises(KeyError, match="No model class"):
-        avex_tpu_torch.get_model_class("clip")
+        avex_tpu_torch.get_model_class("no_such_architecture")
 
 
 def test_build_and_load_random_weights_on_cpu():

@@ -177,7 +177,7 @@ def test_finetuned_predictor_head_matches_jax(rng):
 
 
 def test_unported_options_raise():
-    unported = ({"scan_layers": True}, {"remat": True, "remat_policy": "dots"})
+    unported = ({"scan_layers": True},)
     for options in unported:
         with pytest.raises(NotImplementedError, match=f"{list(options)[-1]}.*ROADMAP"):
             avex_tpu_torch.build_model_from_spec(
@@ -189,6 +189,17 @@ def test_unported_options_raise():
         ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, remat=True)), device="cpu"
     )
     assert remat.cfg.remat
+    # so is remat_policy="dots" (tests/test_torch_training.py); an unknown policy raises
+    dots = avex_tpu_torch.build_model_from_spec(
+        ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, remat=True, remat_policy="dots")),
+        device="cpu",
+    )
+    assert dots.cfg.remat_policy == "dots"
+    with pytest.raises(ValueError, match="remat_policy"):
+        avex_tpu_torch.build_model_from_spec(
+            ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, remat=True, remat_policy="all")),
+            device="cpu",
+        )
     # quantize_encoder is ported: the model builds with int8 encoder layers
     # (tests/test_torch_quant.py holds them to JAX).
     model = avex_tpu_torch.build_model_from_spec(

@@ -16,6 +16,7 @@ import signal
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 
@@ -353,15 +354,61 @@ def test_gradient_checkpointing_replays_the_draws(tmp_path):
             torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
 
 
+class _CountOps(TorchDispatchMode):
+    """Counts the aten operators run inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] = self.counts.get(func, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_policy_dots_keeps_the_dense_products(tmp_path):
+    """``remat_policy="dots"`` on the fused K2/K3 route (the CPU twins), with
+    dropout and LayerDrop: the loss and every gradient equal those of
+    ``remat=False``; the backward recomputes the attention (its batched
+    products) but none of the dense layers' products, which plain remat
+    recomputes."""
+    init = dict(BEATS_FUSED, dropout=0.2, activation_dropout=0.1, encoder_layerdrop=0.3)
+    batch = {k: torch.from_numpy(v) for k, v in _batches(seed=21, n=1)[0].items()}
+    results = {}
+    for name, options in (("off", {}), ("nothing", {"remat": True}), ("dots", {"remat": True, "remat_policy": "dots"})):
+        config = _port_config(tmp_path, "beats", dict(init, **options))
+        model = _port_model(config)
+        model.module.train()
+        gen = torch.Generator().manual_seed(4)
+        loss, _ = make_strategy("supervised", "cross_entropy").forward_loss(model.train_forward, batch, gen, train=True)
+        params = list(model.module.parameters())
+        with _CountOps() as ops:
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        results[name] = (loss.item(), grads, gen.get_state(), ops.counts)
+    loss_off, grads_off, state_off, ops_off = results["off"]
+    for name in ("nothing", "dots"):
+        loss, grads, state, _ = results[name]
+        assert loss == loss_off and torch.equal(state, state_off), name
+        for a, b in zip(grads, grads_off):
+            assert (a is None) == (b is None)
+            if a is not None:
+                torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+    addmm = torch.ops.aten.addmm.default
+    dense_layers = 4 * BEATS_FUSED["encoder_layers"]  # qkv, out_proj, fc1, fc2 of each layer
+    assert results["nothing"][3].get(addmm, 0) == ops_off.get(addmm, 0) + dense_layers
+    assert results["dots"][3].get(addmm, 0) == ops_off.get(addmm, 0)
+    bmm = torch.ops.aten.bmm.default
+    assert results["dots"][3].get(bmm, 0) == results["nothing"][3].get(bmm, 0) > ops_off.get(bmm, 0)
+
+
 def test_unported_training_options_raise(tmp_path, monkeypatch):
     config = _port_config(tmp_path, "beats", BEATS_TINY)
     model = _port_model(config)
     with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(model, config, [], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_strategy("text")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_strategy("self_supervised")
+    # the text and self-supervised strategies are ported (tests/test_torch_clip.py, tests/test_torch_eat_ssl.py)
+    assert type(make_strategy("text")).__name__ == "CLIPStrategy"
+    assert type(make_strategy("self_supervised")).__name__ == "EATSSLStrategy"
     with pytest.raises(NotImplementedError, match="item 14"):
         config.replace(mesh={"model": 2})
     # augmentations are ported with the data pipeline: each dict becomes its config
@@ -375,9 +422,11 @@ def test_unported_training_options_raise(tmp_path, monkeypatch):
     assert config.replace(loss_function="binary_cross_entropy").loss_function == "bce"
     with pytest.raises(ValueError, match="optimizer"):
         TrainingParams(**dict(TRAINING, optimizer="sgd"))
-    monkeypatch.setenv("AVEX_PROFILE_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="AVEX_PROFILE_DIR"):
-        Trainer(model, config, _batches(seed=21, n=1)).train()
+    # AVEX_PROFILE_DIR is ported: the first epoch runs under the profiler and writes its trace there
+    monkeypatch.setenv("AVEX_PROFILE_DIR", str(tmp_path / "profile"))
+    Trainer(model, config.replace(training_params=TrainingParams(**dict(TRAINING, train_epochs=1))),
+            _batches(seed=21, n=1)).train()
+    assert list((tmp_path / "profile").glob("*.pt.trace.json"))
     # EAT has no gradient checkpointing: the factory builds the trainer anyway
     eat_config = _port_config(tmp_path, "eat_hf", EAT_TINY, training=dict(gradient_checkpointing=True))
     eat_model = _port_model(eat_config)
