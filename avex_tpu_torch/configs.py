@@ -4,7 +4,7 @@ Counterparts of ``avex_tpu.configs``: ``AudioConfig`` with the JAX package's
 fields, ``ModelSpec`` with the JAX package's fields, ``TrainingParams``,
 ``SchedulerConfig``, the augmentations (``NoiseAugment``, ``MixupAugment``),
 the dataset configs (``DatasetConfig``, ``DatasetCollectionConfig``,
-``EvaluationSet``, ``BenchmarkEvaluationConfig``), ``RunConfig``,
+``EvaluationSet``, ``BenchmarkEvaluationConfig``), ``MeshConfig``, ``RunConfig``,
 ``ProbeConfig`` (with the ``PROBE_CONFIGS`` presets),
 ``ClusteringEvalConfig``, and the evaluation configs (``ExperimentConfig``,
 ``OfflineEmbeddingsConfig``, ``EvaluateConfig``).
@@ -45,6 +45,7 @@ __all__ = [
     "EvaluateConfig",
     "EvaluationSet",
     "ExperimentConfig",
+    "MeshConfig",
     "MixupAugment",
     "ModelSpec",
     "NoiseAugment",
@@ -363,12 +364,38 @@ class SchedulerConfig:
         _at_least("min_lr", self.min_lr, 0.0)
 
 
-#: the single-device mesh layout; any other value names a parallel layout
-#: that the port does not have (ROADMAP queue 1, item 14)
-_SINGLE_DEVICE_MESH = {
-    "data": (-1, 1), "model": (1,), "param_sharding": ("replicated",),
-    "pipeline_microbatches": (0,), "sequence_parallel": (False,),
-}
+@dataclass
+class MeshConfig:
+    """The device-mesh layout (≈ ``avex_tpu.configs.MeshConfig``): ``data``
+    processes (``-1``: all of them, one device each) by ``model``.
+
+    ``param_sharding`` is ``"replicated"`` (the DDP layout) or ``"fsdp"``
+    (ZeRO-3: tensors of at least ``fsdp_min_size`` elements and their
+    optimizer moments cut over the data axis, ``parallel/fsdp.py``). A
+    ``model`` axis, ``pipeline_microbatches`` and ``sequence_parallel`` are
+    ROADMAP queue 1, item 14, part 2: they raise.
+    """
+
+    data: int = -1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+    param_sharding: str = "replicated"
+    fsdp_min_size: int = 2**16
+    pipeline_microbatches: int = 0
+    sequence_parallel: bool = False
+
+    def __post_init__(self) -> None:
+        _lax_numbers(self)
+        self.axis_names = tuple(self.axis_names)
+        _one_of("param_sharding", self.param_sharding, ("replicated", "fsdp"))
+        unported = {"model": self.model > 1, "pipeline_microbatches": self.pipeline_microbatches > 0,
+                    "sequence_parallel": bool(self.sequence_parallel)}
+        for name, asked in unported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"mesh.{name}={getattr(self, name)!r}: tensor, pipeline and sequence parallelism are "
+                    f"not ported (ROADMAP queue 1, item 14, part 2)"
+                )
 
 
 @dataclass
@@ -380,13 +407,12 @@ class RunConfig(_CLIConfig):
     :class:`DatasetCollectionConfig`, its dict or the path of its YAML file;
     ``augmentations`` takes :class:`NoiseAugment` / :class:`MixupAugment`
     instances or dicts (by ``kind`` or in the single-key form). ``mesh``
-    raises ``NotImplementedError`` when it asks for more than one device
-    (ROADMAP queue 1, item 14). ``clustering_eval`` takes a
+    takes a :class:`MeshConfig` or its dict. ``clustering_eval`` takes a
     :class:`ClusteringEvalConfig` or its dict. ``device`` places the run's
     model and batches: ``cuda`` by default, and a reference ``tpu`` means
     ``cuda``. ``data_pipeline="grain"`` is accepted here and raises where the
-    loaders are built. ``distributed`` asks for more than one process, which
-    ``run_train`` refuses (item 14).
+    loaders are built. ``distributed`` has ``run_train`` join the run's
+    process group (``parallel.init_multihost``, from SLURM's environment).
     """
 
     model_spec: Union[ModelSpec, Dict[str, Any]]
@@ -406,7 +432,7 @@ class RunConfig(_CLIConfig):
     #: save a ``step_checkpoint`` and stop the epoch loop on SIGTERM
     save_on_preemption: bool = True
     distributed: bool = False
-    mesh: Optional[Union[Mapping[str, Any], Any]] = None
+    mesh: Union[MeshConfig, Dict[str, Any]] = field(default_factory=MeshConfig)
     augmentations: List[Any] = field(default_factory=list)
     loss_function: str = "cross_entropy"
     multilabel: bool = False
@@ -448,15 +474,8 @@ class RunConfig(_CLIConfig):
             raise ValueError("multilabel=True requires loss_function in {'bce','focal'}")
         if self.loss_function == "clip" and self.label_type != "text":
             raise ValueError("loss_function='clip' requires label_type='text'")
-        if self.mesh is not None:
-            for name, allowed in _SINGLE_DEVICE_MESH.items():
-                value = self.mesh.get(name, allowed[0]) if isinstance(self.mesh, Mapping) else getattr(
-                    self.mesh, name, allowed[0])
-                if value not in allowed:
-                    raise NotImplementedError(
-                        f"mesh.{name}={value!r}: the port trains on one device; meshes, FSDP, "
-                        f"pipeline and sequence parallelism are ROADMAP queue 1, item 14"
-                    )
+        if isinstance(self.mesh, Mapping):
+            self.mesh = MeshConfig(**self.mesh)
         self.augmentations = [_augment(a) for a in _flatten_augments(self.augmentations or [])]
         if isinstance(self.clustering_eval, Mapping):
             self.clustering_eval = ClusteringEvalConfig(**self.clustering_eval)

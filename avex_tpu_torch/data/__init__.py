@@ -4,7 +4,11 @@ Port of ``avex_tpu/data``. :func:`build_dataloaders` is the entry point: a
 :class:`~avex_tpu_torch.configs.RunConfig` → per-split loaders, the label map
 and the class count of the (possibly concatenated) train split. The loader
 works in numpy on the host and hands out CPU tensors, pinned when the run's
-device is ``cuda``.
+device is ``cuda``. In a multi-process run each process loads its shard of
+every epoch: the rank's strided slice ``[rank::world]`` of the epoch's
+permutation, taken before batching, with remainders dropped on every split,
+as the JAX package builds it. The collation draws stay a function of
+``(seed, epoch, batch index)``, the same on every rank.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import logging
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from avex_tpu_torch.configs import RunConfig
 from avex_tpu_torch.data.collate import Collater, MixupAugmenter, NoiseAugmenter
@@ -27,6 +32,7 @@ from avex_tpu_torch.data.dataset import (
     dataset_from_config,
 )
 from avex_tpu_torch.data.loader import DataLoader
+from avex_tpu_torch.parallel import world_size
 
 logger = logging.getLogger(__name__)
 
@@ -48,13 +54,6 @@ __all__ = [
 ]
 
 
-def world_size() -> int:
-    """Processes of the run: ``torch.distributed``'s world size, else 1."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return 1
-
-
 def _build_split(configs, policy: str) -> Optional[AudioDataset]:
     if not configs:
         return None
@@ -71,16 +70,14 @@ def build_dataloaders(
     Each split's datasets are concatenated under the configured policy; the
     collaters take the model's target clip length and window selection; the
     training split shuffles, drops its remainder and augments, the others
-    center-crop and keep every item. One process only: more than one
-    (``torch.distributed``'s world size) raises, as do the grain pipeline and
-    an empty configuration.
+    center-crop and keep every item. With more than one process
+    (``torch.distributed``'s world size) each loader is this rank's shard and
+    every split drops its remainder, so each process contributes equal
+    batches. The grain pipeline and an empty configuration raise.
     """
     if config.data_pipeline == "grain":
         raise NotImplementedError("data_pipeline='grain' (the JAX ecosystem's grain loader) is not ported "
                                   "(ROADMAP queue 1, item 16); use 'native'")
-    if world_size() > 1:
-        raise NotImplementedError("one loader per process of a multi-process run is not ported "
-                                  "(ROADMAP queue 1, item 14)")
     ds_cfg = config.dataset_config
     if ds_cfg is None:
         raise ValueError("No datasets configured")
@@ -99,6 +96,8 @@ def build_dataloaders(
     target_len = audio_cfg.target_length_samples if audio_cfg and audio_cfg.target_length_samples else sr
     window_selection = audio_cfg.window_selection if audio_cfg else "random"
     pin = torch.device(config.device).type == "cuda"
+    num_shards = world_size()
+    shard = dist.get_rank() if num_shards > 1 else None
 
     def make_loader(ds, train: bool) -> Optional[DataLoader]:
         if ds is None:
@@ -110,7 +109,8 @@ def build_dataloaders(
             train=train,
         )
         return DataLoader(ds, batch_size=config.training_params.batch_size, collate_fn=collater, shuffle=train,
-                          drop_last=train, seed=config.seed, num_workers=config.num_workers, pin_memory=pin)
+                          drop_last=train or num_shards > 1, seed=config.seed, num_workers=config.num_workers,
+                          shard_process=shard, num_shards=num_shards, pin_memory=pin)
 
     return make_loader(train_ds, True), make_loader(val_ds, False), make_loader(test_ds, False), label_map, \
         num_classes

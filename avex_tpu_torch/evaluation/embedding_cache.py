@@ -15,7 +15,12 @@ apart from the writer:
   ``labels``, root attributes ``aggregation``, ``layer_names``,
   ``multi_layer``, ``num_samples`` and ``embedding_dims``, written to
   ``.h5.tmp`` and renamed; files are named
-  ``{save_dir}/{dataset}_{model}/embedding_{split}_{layer_id}.h5``.
+  ``{save_dir}/{dataset}_{model}/embedding_{split}_{layer_id}.h5``;
+- under a mesh of several ranks (cell 5 of the JAX package's dry run)
+  every rank reads the same batches and extracts its equal share of each
+  batch's rows; the rows are gathered in the loader's order on the device
+  and rank 0 writes the file. A batch whose rows do not divide among the
+  ranks is computed whole on every rank, as JAX replicates it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tupl
 
 import numpy as np
 import torch
+
+from avex_tpu_torch.parallel import Mesh, all_gather_into, is_main_process, replicate, sum_over_ranks
 
 __all__ = [
     "HDF5EmbeddingDataset",
@@ -89,27 +96,50 @@ def _to_host(value: Any, non_blocking: bool) -> Any:
     return np.asarray(value)
 
 
+def _rank_rows(value: Any, mesh: Mesh) -> Any:
+    """This rank's equal share of a batch entry's rows."""
+    if value is None:
+        return None
+    rows = value.shape[0] // mesh.size
+    return value[mesh.rank * rows:(mesh.rank + 1) * rows]
+
+
+def _gather_rows(emb: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's rows of ``emb``, in rank order (no gradient)."""
+    out = emb.new_empty((mesh.size * emb.shape[0],) + tuple(emb.shape[1:]))
+    return all_gather_into(out, emb.contiguous(), mesh)
+
+
 def extract_embeddings(
     model,
     loader: Iterable[Dict[str, Any]],
     aggregation: str = "none",
     layers: Optional[Sequence[Union[str, int]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Iterator[Tuple[List[np.ndarray], Optional[np.ndarray]]]:
     """Yield ``(per-layer float32 arrays, labels)`` for each batch of
     ``loader`` (``raw_wav``, optional ``padding_mask`` and ``label``).
 
     Batch n−1 is handed out once batch n's forward is queued; on CUDA the
     copies of its embeddings and labels to host memory were queued right
-    behind its own forward, so the wait is for batch n−1 alone.
+    behind its own forward, so the wait is for batch n−1 alone. Under a
+    ``mesh`` of several ranks each rank extracts its share of a batch and
+    every rank gets the whole batch's rows (see the module docstring).
     """
     if layers is not None:
         model.register_hooks_for_layers(list(layers))
     on_cuda = model.device.type == "cuda"
+    split = mesh is not None and mesh.size > 1
     pending = None
     for batch in loader:
-        embs = model.extract_embeddings(batch["raw_wav"], padding_mask=batch.get("padding_mask"),
-                                        aggregation=aggregation)
+        wav, mask = batch["raw_wav"], batch.get("padding_mask")
+        shared = split and wav.shape[0] % mesh.size == 0
+        if shared:
+            wav, mask = _rank_rows(wav, mesh), _rank_rows(mask, mesh)
+        embs = model.extract_embeddings(wav, padding_mask=mask, aggregation=aggregation)
         embs = embs if isinstance(embs, list) else [embs]
+        if shared:
+            embs = [_gather_rows(e, mesh) for e in embs]
         host = [e.float().to("cpu", non_blocking=on_cuda) for e in embs]
         labels = _to_host(batch.get("label"), non_blocking=on_cuda)
         done = None
@@ -157,21 +187,30 @@ def extract_embeddings_to_cache(
     mesh=None,
 ) -> Path:
     """Run the backbone over ``loader`` and stream its embeddings into HDF5
-    (needs h5py); the host writes batch n−1 while the device computes batch n."""
-    if mesh is not None:
-        raise NotImplementedError("extraction over a device mesh is not ported (ROADMAP queue 1, item 14)")
-    h5py = _h5py()
+    (needs h5py); the host writes batch n−1 while the device computes batch n.
+
+    ``mesh``: extract data-parallel over its ranks, every rank from rank 0's
+    weights; rank 0 writes the file and every rank returns once it is
+    written."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
     if layers is not None:
         model.register_hooks_for_layers(list(layers))
     layer_names = list(model._hook_layers)
+    if mesh is not None and mesh.size > 1:
+        replicate(model.module, mesh)
+        if not is_main_process():
+            for _ in extract_embeddings(model, loader, aggregation, mesh=mesh):
+                pass
+            sum_over_ranks([torch.zeros(1, device=mesh.device)], mesh)  # rank 0 has written the file
+            return path
+    h5py = _h5py()
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".h5.tmp")
     num_samples = 0
     with h5py.File(tmp, "w") as f:
         datasets: List[Any] = []
         labels_ds = None
-        for embs, labels in extract_embeddings(model, loader, aggregation):
+        for embs, labels in extract_embeddings(model, loader, aggregation, mesh=mesh):
             if not datasets:
                 for i, e in enumerate(embs):
                     datasets.append(f.create_dataset(
@@ -196,6 +235,8 @@ def extract_embeddings_to_cache(
         f.attrs["embedding_dims"] = [int(ds.shape[-1]) for ds in datasets]
     os.replace(tmp, path)
     logger.info("Cached %d samples x %d layer(s) to %s", num_samples, len(layer_names), path)
+    if mesh is not None and mesh.size > 1:
+        sum_over_ranks([torch.zeros(1, device=mesh.device)], mesh)  # the other ranks wait for the file
     return path
 
 

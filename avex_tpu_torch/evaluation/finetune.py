@@ -18,11 +18,20 @@ Port of ``avex_tpu/evaluation/finetune.py``:
   no LayerDrop.
 
 Dropout in the head draws from one ``torch.Generator`` on the probe's
-device, seeded from ``seed``. The device mesh is ROADMAP queue 1, item 14.
+device, seeded from ``seed``.
+
+With a ``mesh`` of several ranks the probe trains data-parallel: every rank
+starts from rank 0's trainable parameters, its batches are its shares of
+the global batches (equal, checked), the gradients are averaged over the
+ranks before the clipped AdamW, the training loss is averaged over the
+ranks and the evaluation scores the gathered global set, so every rank
+keeps the same best parameters. Expert parallelism of the MoE head over a model axis is ROADMAP
+queue 1, item 14, part 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -32,6 +41,15 @@ import torch
 
 from avex_tpu_torch.configs import ProbeConfig, TrainingParams
 from avex_tpu_torch.metrics import get_metric_class
+from avex_tpu_torch.parallel import (
+    Mesh,
+    average_gradients,
+    check_equal_rows,
+    gather_rows,
+    global_batch,
+    replicate,
+    sum_over_ranks,
+)
 from avex_tpu_torch.probes import Probe, build_probe_from_config
 from avex_tpu_torch.training.losses import bce_loss, cross_entropy_loss
 from avex_tpu_torch.training.optimizers import AdamW, build_scheduler
@@ -60,13 +78,10 @@ class FineTuneTrainer:
         training_params: TrainingParams,
         metrics: Sequence[str] = ("accuracy",),
         multilabel: bool = False,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         mode: str = "offline",
         seed: int = 0,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported: probes train on one device "
-                                      "(ROADMAP queue 1, item 14)")
         if mode not in ("offline", "online"):
             raise ValueError(f"mode must be 'offline' or 'online', got {mode!r}")
         self.probe = probe
@@ -80,7 +95,12 @@ class FineTuneTrainer:
         self.best_val_metric = -np.inf
         self._best_params: Optional[Dict[str, torch.Tensor]] = None
         self.train_backbone = mode == "online" and not probe.freeze_backbone
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._trainable = self._initial_trainable()
+        if self.mesh is not None:
+            replicate(probe.module, self.mesh)
+            if self.train_backbone:
+                replicate(probe.base_model.module, self.mesh)
         self._tx: Optional[AdamW] = None
         self._opt_state: Optional[Dict[str, Any]] = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -136,13 +156,18 @@ class FineTuneTrainer:
     def _train_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer update on ``batch``; returns (loss, logits), not synchronised."""
         self._set_modes(train=True)
-        logits = self._forward(batch, train=True)
-        loss = self.criterion(logits, self._to_device(batch["label"]))
-        names = list(self._trainable)
-        params = [self._trainable[n] for n in names]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if self.mesh is not None:
+            check_equal_rows(len(batch["label"]), self.mesh)
+        with global_batch(self.mesh) if self.mesh is not None else contextlib.nullcontext():
+            logits = self._forward(batch, train=True)
+            loss = self.criterion(logits, self._to_device(batch["label"]))
+            names = list(self._trainable)
+            params = [self._trainable[n] for n in names]
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as in JAX
         grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
+        if self.mesh is not None:
+            grads = average_gradients(grads, self.mesh)
         self._tx.step(self._trainable, grads, self._opt_state)
         return loss.detach(), logits.detach()
 
@@ -153,13 +178,20 @@ class FineTuneTrainer:
             return self.criterion(logits, self._to_device(batch["label"])), logits
 
     def _run_eval(self, loader: Iterable) -> Dict[str, float]:
+        """The metrics of the whole set. Under a mesh each batch's logits and
+        labels are gathered from every rank (rank order), so every rank
+        scores the global set: mAP, F1 or ROC-AUC of a set is not the mean of
+        its shares' scores."""
         calcs = {name: get_metric_class(name, self.probe.num_classes) for name in self.metric_names}
         loss_sum, n = 0.0, 0
         for batch in loader:
             loss, logits = self._eval_step(batch)
-            logits = logits.float().cpu().numpy()
-            labels = batch["label"]
-            labels = labels.cpu().numpy() if isinstance(labels, torch.Tensor) else np.asarray(labels)
+            labels = self._to_device(batch["label"])
+            if self.mesh is not None:
+                check_equal_rows(len(labels), self.mesh)
+                logits, labels = gather_rows(logits.contiguous(), self.mesh), gather_rows(labels, self.mesh)
+                loss = sum_over_ranks([loss.reshape(1)], self.mesh)[0][0] / self.mesh.size  # equal shares
+            logits, labels = logits.float().cpu().numpy(), labels.cpu().numpy()
             for calc in calcs.values():
                 calc.update(logits, labels)
             loss_sum += float(loss) * logits.shape[0]
@@ -190,6 +222,8 @@ class FineTuneTrainer:
                 loss, logits = self._train_step(batch)
                 loss_sum += loss * logits.shape[0]  # summed on the device: no sync per step
                 n += logits.shape[0]
+            if self.mesh is not None:  # the global batch's mean: equal shares, so the mean of the ranks'
+                loss_sum = sum_over_ranks([loss_sum.reshape(1)], self.mesh)[0][0] / self.mesh.size
             train_loss = float(loss_sum) / max(n, 1)  # waits for the epoch's last step
             record = {"epoch": epoch, "train_loss": train_loss, "train_seconds": time.perf_counter() - start}
             if val_loader is not None and not self.params_cfg.skip_validation:

@@ -56,6 +56,7 @@ from avex_tpu_torch.models.common import (
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.ops.attention import dot_product_attention
 from avex_tpu_torch.ops.attention_kernels import fused_qkv_attention, fused_qkv_compatible
+from avex_tpu_torch.parallel import shared_generator
 
 logger = logging.getLogger(__name__)
 
@@ -244,7 +245,8 @@ class AVESModel(nn.Module):
     ) -> None:
         super().__init__()
         if scan_layers:
-            raise NotImplementedError("AVES scan_layers is not ported to PyTorch yet (ROADMAP queue 1, item 14)")
+            raise NotImplementedError("AVES scan_layers is not ported to PyTorch yet "
+                                      "(ROADMAP queue 1, item 14, part 2)")
         self.cfg, self.num_classes, self.dtype = cfg, num_classes, dtype
         self.feature_extractor = _FeatureExtractor(dtype)
         self.encoder = _Encoder(cfg, dtype, use_pallas)
@@ -287,8 +289,10 @@ class AVESModel(nn.Module):
             new_h, ff_out = layer(h, frame_mask, deterministic, generator)
             if use_layerdrop:
                 # Kept with probability 1 - encoder_layer_drop; as in JAX the
-                # layer runs either way and the draw selects (models/beats.py).
-                keep = torch.rand((), generator=generator, device=h.device) > cfg.encoder_layer_drop
+                # layer runs either way and the draw selects, one draw for
+                # every rank of a multi-rank step (models/beats.py).
+                drop_gen = shared_generator(generator)
+                keep = torch.rand((), generator=drop_gen, device=h.device) > cfg.encoder_layer_drop
                 new_h = torch.where(keep, new_h, h)
                 ff_out = torch.where(keep, ff_out, torch.zeros_like(ff_out))
             h = new_h
@@ -343,7 +347,7 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     ``[out, in/g, K]``; LayerNorm / GroupNorm ``scale`` → ``weight``.
     """
     if "layers" in params:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14)")
+        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14, part 2)")
     out: Dict[str, np.ndarray] = {}
 
     def put(key: str, value: Any) -> None:

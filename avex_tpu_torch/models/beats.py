@@ -76,6 +76,7 @@ from avex_tpu_torch.ops.attention_kernels import (
     gated_bias_attention,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, beats_fbank
+from avex_tpu_torch.parallel import shared_generator
 from avex_tpu_torch.quant import Int8Linear, quantize_params
 
 logger = logging.getLogger(__name__)
@@ -93,7 +94,7 @@ __all__ = [
 ]
 
 #: JAX options the port does not have yet, and the ROADMAP item of each
-_NOT_PORTED = {"scan_layers": "queue 1, item 14"}
+_NOT_PORTED = {"scan_layers": "queue 1, item 14, part 2"}
 
 
 @dataclass
@@ -395,8 +396,11 @@ class _TransformerEncoder(nn.Module):
             if use_layerdrop:
                 # LayerDrop: keep the layer with probability 1 - layerdrop. As
                 # in JAX the layer runs either way and the draw selects, so the
-                # step stays on the device and launches the same kernels.
-                keep = torch.rand((), generator=generator, device=x.device) > cfg.encoder_layerdrop
+                # step stays on the device and launches the same kernels. In
+                # a multi-rank step one draw serves every rank, as JAX draws
+                # once for the global batch.
+                drop_gen = shared_generator(generator)
+                keep = torch.rand((), generator=drop_gen, device=x.device) > cfg.encoder_layerdrop
                 new_x = torch.where(keep, new_x, x)
                 fc2_out = torch.where(keep, fc2_out, torch.zeros_like(fc2_out))
             x = new_x

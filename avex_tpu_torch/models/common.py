@@ -12,6 +12,7 @@
 - ``batch_norm``: flax ``BatchNorm(momentum=0.9)`` on an ``nn.BatchNorm2d``
   (torchvision's names and buffers): batch statistics and a running update
   with the biased variance in training, the running statistics in eval;
+  in a multi-rank step the statistics are the global batch's;
 - ``dropout`` (flax ``nn.Dropout``, drawing from a caller's generator) and
   ``checkpoint_layer`` (per-layer gradient checkpointing that replays the
   layer's draws on recompute, keeping nothing or, with ``"dots"``, the
@@ -37,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from avex_tpu_torch.ops._precision import full_fp32
+from avex_tpu_torch.parallel import all_reduce_sum, batch_mesh
 from avex_tpu_torch.quant import Int8Linear
 
 __all__ = [
@@ -172,14 +174,33 @@ def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> to
     ``r ← 0.9·r + 0.1·s``, ``s`` the biased variance (torch's own module
     would take the unbiased one); in eval the running statistics normalise.
     The normalisation runs in fp32 and returns ``dtype``.
+
+    Inside a multi-rank :func:`~avex_tpu_torch.parallel.global_batch` the
+    statistics are those of the global batch, as flax's over a data-sharded
+    batch: the per-channel count, sum and sum of squares are summed over the
+    ranks (with their gradient), and the variance is flax's
+    ``E[x²] - E[x]²``; the running update is then the same on every rank.
     """
     x = x.to(dtype)
     if not layer.training:
         return F.batch_norm(x, layer.running_mean, layer.running_var, layer.weight, layer.bias,
                             False, 0.0, layer.eps)
-    out, mean, invstd = torch.native_batch_norm(x, layer.weight, layer.bias, None, None, True, 0.0, layer.eps)
+    mesh = batch_mesh()
+    if mesh is None:
+        out, mean, invstd = torch.native_batch_norm(x, layer.weight, layer.bias, None, None, True, 0.0,
+                                                    layer.eps)
+        with torch.no_grad():
+            var = invstd.reciprocal().square() - layer.eps
+    else:
+        xf = x.float()
+        count = torch.full((1,), float(xf.numel() // xf.shape[1]), device=x.device)
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]), mesh)
+        channels = xf.shape[1]
+        mean, mean_sq = sums[:channels] / sums[-1], sums[channels:2 * channels] / sums[-1]
+        var = torch.clamp_min(mean_sq - mean.square(), 0.0)
+        scale = torch.rsqrt(var + layer.eps) * layer.weight
+        out = ((xf - mean[:, None, None]) * scale[:, None, None] + layer.bias[:, None, None]).to(dtype)
     with torch.no_grad():
-        var = invstd.reciprocal().square() - layer.eps
         layer.running_mean.mul_(0.9).add_(0.1 * mean)
         layer.running_var.mul_(0.9).add_(0.1 * var)
     return out

@@ -61,12 +61,12 @@ __all__ = [
 
 #: JAX layer-stack options and the ROADMAP item that brings each to the port.
 _NOT_PORTED = {
-    "scan_layers": "queue 1, item 14",
-    "layer_runner": "queue 1, item 14",
-    "ring_mesh": "queue 1, item 14",
-    "pipeline parallelism": "queue 1, item 14",
-    "sequence parallelism": "queue 1, item 14",
-    "ring attention": "queue 1, item 14",
+    "scan_layers": "queue 1, item 14, part 2",
+    "layer_runner": "queue 1, item 14, part 2",
+    "ring_mesh": "queue 1, item 14, part 2",
+    "pipeline parallelism": "queue 1, item 14, part 2",
+    "sequence parallelism": "queue 1, item 14, part 2",
+    "ring attention": "queue 1, item 14, part 2",
 }
 
 
@@ -337,7 +337,7 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     out]`` → ``[out, 1, kh, kw]``; LayerNorm ``scale`` → ``weight``.
     """
     if "blocks" in params:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14)")
+        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14, part 2)")
     out: Dict[str, np.ndarray] = {}
 
     def put(key: str, value: Any) -> None:

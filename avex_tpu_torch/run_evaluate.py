@@ -9,9 +9,11 @@ across the sets. Each result is appended to
 snapshot, and the summary CSVs are written at the end.
 
 Backbones, probes and retrieval's similarity products run on
-``config.device``: ``cuda`` unless the config names ``cpu``. Extraction
-runs on that one device: the JAX package's extraction mesh over several
-chips is ROADMAP queue 1, item 14.
+``config.device``: ``cuda`` unless the config names ``cpu``. In a run of
+several processes (a process group the caller started, e.g. with
+``parallel.init_multihost``) each process takes its card, and extraction
+into the cache runs data-parallel over all of them, as the JAX package's
+extraction mesh does; rank 0 writes the caches, the JSONL and the CSVs.
 Offline probes and retrieval over the cache need ``h5py`` (the HDF5
 embedding cache), clustering needs scikit-learn; both are imported only
 there, so a machine without them runs ``eval_modes: [probe]`` with an online
@@ -48,6 +50,7 @@ from avex_tpu_torch.evaluation import (
 )
 from avex_tpu_torch.models.factory import build_model_from_spec
 from avex_tpu_torch.models.load import load_model
+from avex_tpu_torch.parallel import is_main_process, make_mesh, rank_device, world_size
 from avex_tpu_torch.utils.tracking import append_jsonl, create_experiment_summary_csvs
 
 __all__ = ["main", "run_experiment"]
@@ -93,11 +96,18 @@ def _probe_info(probe, probe_cfg, model) -> Dict[str, Any]:
     return info
 
 
+def _extraction_mesh(device: str):
+    """The data-parallel mesh of extraction: every process of the run, or
+    None for one process."""
+    return make_mesh(device=device) if world_size() > 1 else None
+
+
 def _get_or_compute_embeddings(model, loader, path: Path, aggregation: str, layers,
                                overwrite: bool) -> HDF5EmbeddingDataset:
     layer_names = model.register_hooks_for_layers(list(layers))
     if overwrite or not embedding_cache_matches(path, aggregation, layer_names):
-        extract_embeddings_to_cache(model, loader, path, aggregation=aggregation, layers=layers)
+        extract_embeddings_to_cache(model, loader, path, aggregation=aggregation, layers=layers,
+                                    mesh=_extraction_mesh(model.device))
     else:
         logger.info("Reusing embedding cache %s", path)
     return HDF5EmbeddingDataset(path)
@@ -123,12 +133,13 @@ def run_experiment(experiment: ExperimentConfig, eval_set: EvaluationSet, config
     window_selection = audio_cfg.window_selection if audio_cfg else "random"
 
     # Model: the extraction forward never drops layers
+    device = str(rank_device(config.device))
     if model is None:
         if experiment.checkpoint_path or experiment.pretrained:
-            model = load_model(spec, device=config.device, checkpoint_path=experiment.checkpoint_path,
+            model = load_model(spec, device=device, checkpoint_path=experiment.checkpoint_path,
                                return_features_only=True)
         else:
-            model = build_model_from_spec(spec, device=config.device, num_classes=None, return_features_only=True)
+            model = build_model_from_spec(spec, device=device, num_classes=None, return_features_only=True)
 
     metrics_out: Dict[str, Any] = {}
     probe_info: Dict[str, Any] = {}
@@ -169,7 +180,7 @@ def run_experiment(experiment: ExperimentConfig, eval_set: EvaluationSet, config
                 probe_cfg, config.training_params, emb_loader(emb_datasets["train"], True),
                 emb_loader(emb_datasets["test"], False), input_dims=input_dims, num_classes=num_classes,
                 val_loader=emb_loader(emb_datasets["val"], False) if emb_datasets.get("val") else None,
-                metrics=eval_set.metrics, multilabel=eval_set.multilabel, seed=config.seed, device=config.device)
+                metrics=eval_set.metrics, multilabel=eval_set.multilabel, seed=config.seed, device=device)
         metrics_out["probe"] = {f"test_{k}": v for k, v in probe_metrics.items()}
         probe_info = _probe_info(trainer.probe, probe_cfg, model)
 
@@ -184,7 +195,8 @@ def run_experiment(experiment: ExperimentConfig, eval_set: EvaluationSet, config
                                      eval_set.multilabel)
             model.register_hooks_for_layers(list(pooled_layers))
             if config.offline_embeddings.overwrite or not embedding_cache_matches(path, "mean", model._hook_layers):
-                extract_embeddings_to_cache(model, det_loader, path, aggregation="mean", layers=pooled_layers)
+                extract_embeddings_to_cache(model, det_loader, path, aggregation="mean", layers=pooled_layers,
+                                            mesh=_extraction_mesh(device))
             embs, labels, _meta = load_cached_embeddings(path)
             return embs[0], labels
 
@@ -193,9 +205,9 @@ def run_experiment(experiment: ExperimentConfig, eval_set: EvaluationSet, config
             if eval_set.retrieval_mode == "train_vs_test" and splits["train"] is not None:
                 train_embs, train_labels = pooled("train")
                 metrics_out["retrieval"] = eval_retrieval_cross_set(train_embs, train_labels, test_embs, test_labels,
-                                                                    device=config.device)
+                                                                    device=device)
             else:
-                metrics_out["retrieval"] = eval_retrieval(test_embs, test_labels, device=config.device)
+                metrics_out["retrieval"] = eval_retrieval(test_embs, test_labels, device=device)
         if "clustering" in config.eval_modes:
             metrics_out["clustering"] = eval_clustering(test_embs, test_labels, n_clusters=num_classes,
                                                         seed=config.seed)
@@ -221,8 +233,11 @@ def main(config: EvaluateConfig) -> List[Dict[str, Any]]:
                 cached_model = model  # a frozen backbone serves every set
             results.append(result)
             # the record carries the config: each row can be rebuilt from the JSONL alone
-            append_jsonl(save_dir / "evaluation_metadata.jsonl", dict(result, config_snapshot=experiment.to_dict()))
-    create_experiment_summary_csvs(results, save_dir, global_csv_path=config.results_csv_path)
+            if is_main_process():
+                append_jsonl(save_dir / "evaluation_metadata.jsonl",
+                             dict(result, config_snapshot=experiment.to_dict()))
+    if is_main_process():
+        create_experiment_summary_csvs(results, save_dir, global_csv_path=config.results_csv_path)
     return results
 
 

@@ -9,9 +9,14 @@ unless the config names ``cpu``; without a card ``cuda`` raises.
 
 The JAX entry point first turns on XLA's persistent compilation cache; the
 port has nothing to cache there (eager PyTorch, and each CUDA kernel is built
-once into ``build/`` at its first use), so that step is gone. Its multi-host
-start-up becomes a check that the run is one process: more than one is
-ROADMAP queue 1, item 14.
+once into ``build/`` at its first use), so that step is gone.
+
+A multi-process run: with ``distributed=True`` the process joins the run's
+process group (``parallel.init_multihost``: SLURM's environment names the
+coordinator, the process count and the rank; NCCL on ``cuda``, gloo on
+``cpu``), unless the caller has started one. Each process then takes its
+card, its shard of the data and the ``Trainer``'s data-parallel step
+(``RunConfig.mesh``); only rank 0 logs and writes.
 
     python -m avex_tpu_torch.run_train --config configs/run_configs/beats_supervised_example.yml device=cpu
 
@@ -26,8 +31,9 @@ import logging
 from typing import Any, Dict, List, Optional
 
 from avex_tpu_torch.configs import RunConfig
-from avex_tpu_torch.data import build_dataloaders, world_size
+from avex_tpu_torch.data import build_dataloaders
 from avex_tpu_torch.models.factory import build_model_from_spec
+from avex_tpu_torch.parallel import init_multihost, is_main_process, rank_device, world_size
 from avex_tpu_torch.training import Trainer
 from avex_tpu_torch.utils.experiment_logger import ExperimentLogger
 
@@ -38,28 +44,32 @@ logger = logging.getLogger(__name__)
 
 def main(config: RunConfig) -> Dict[str, Any]:
     """Run one training job and return the Trainer's result summary."""
-    if config.distributed or world_size() > 1:
-        raise NotImplementedError("multi-process training is not ported: one process, one device "
-                                  "(ROADMAP queue 1, item 14)")
+    if config.distributed and world_size() == 1:
+        init_multihost(device=config.device)
     train_loader, val_loader, _test_loader, label_map, num_classes = build_dataloaders(config)
     logger.info("Datasets ready: %d classes", num_classes)
 
-    model = build_model_from_spec(config.model_spec, device=config.device, num_classes=num_classes)
+    model = build_model_from_spec(config.model_spec, device=str(rank_device(config.device)),
+                                  num_classes=num_classes)
     model.label_mapping = label_map
 
-    exp_logger = ExperimentLogger(backend=config.logging, run_name=config.run_name, logging_uri=config.logging_uri,
-                                  project=config.wandb_project, output_dir=config.output_dir)
-    exp_logger.log_params({
-        "model": config.model_spec.name,
-        "lr": config.training_params.lr,
-        "batch_size": config.training_params.batch_size,
-        "epochs": config.training_params.train_epochs,
-        "loss": config.loss_function,
-    })
+    exp_logger = None
+    if is_main_process():
+        exp_logger = ExperimentLogger(backend=config.logging, run_name=config.run_name,
+                                      logging_uri=config.logging_uri, project=config.wandb_project,
+                                      output_dir=config.output_dir)
+        exp_logger.log_params({
+            "model": config.model_spec.name,
+            "lr": config.training_params.lr,
+            "batch_size": config.training_params.batch_size,
+            "epochs": config.training_params.train_epochs,
+            "loss": config.loss_function,
+        })
     trainer = Trainer(model, config, train_loader, val_loader, exp_logger=exp_logger,
                       checkpoint_every_epochs=config.checkpoint_freq)
     result = trainer.train()
-    exp_logger.finalize()
+    if exp_logger is not None:
+        exp_logger.finalize()
     return result
 
 

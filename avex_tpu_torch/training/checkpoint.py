@@ -11,6 +11,11 @@ Tensors are saved on the host, so a checkpoint loads on any device, and the
 payload holds only tensors, numbers, strings and containers of them, so it
 loads with ``torch.load(weights_only=True)``. Local paths only: a remote URI
 raises.
+
+In a multi-process run only rank 0 writes; the ``Trainer`` hands every
+rank the whole tensors (gathered from the ZeRO-3 blocks under FSDP), so a
+checkpoint is the same whatever layout and rank count wrote it, and a
+restore places it for the run that reads it, on any number of ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+
+from avex_tpu_torch.parallel import is_main_process
 
 __all__ = ["CheckpointManager"]
 
@@ -69,12 +76,15 @@ class CheckpointManager:
         best_val_acc: float = 0.0,
         extra_meta: Optional[Dict[str, Any]] = None,
     ) -> str:
-        """Save a named checkpoint, replacing one of the same name; returns its path.
+        """Save a named checkpoint, replacing one of the same name; returns its
+        path (on every rank; rank 0 writes it).
 
         ``extra_meta`` merges into the meta.json sidecar (step-level
         checkpoints carry ``step_in_epoch``, the loader state and the rng).
         """
         path = self._path(name)
+        if not is_main_process():
+            return str(path)
         payload: Dict[str, Any] = {"params": params}
         if opt_state is not None:
             payload["opt_state"] = opt_state
@@ -97,6 +107,8 @@ class CheckpointManager:
         next_name = f"{name}_next"
         self.save(next_name, **kwargs)
         final = self._path(name)
+        if not is_main_process():
+            return str(final)
         if final.exists():
             shutil.rmtree(final)
         final_meta = self.output_dir / f"{name}.meta.json"

@@ -13,6 +13,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from avex_tpu_torch.parallel import batch_mesh, gather_rows
+
 __all__ = [
     "MAX_LOGIT_SCALE",
     "bce_loss",
@@ -65,12 +67,20 @@ def focal_loss(
 def clip_loss(
     audio_features: torch.Tensor, text_features: torch.Tensor, logit_scale: torch.Tensor
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Symmetric InfoNCE over the batch.
+    """Symmetric InfoNCE over the (global) batch.
 
     Features are L2-normalised here; ``logit_scale`` is the *log*
     temperature, clamped at ln(100). Returns ``(loss, aux)`` with the a2t and
-    t2a top-1 counts.
+    t2a top-1 counts. Inside a multi-rank
+    :func:`~avex_tpu_torch.parallel.global_batch` both feature sets are
+    first gathered over the ranks with their gradient (the reference's
+    ``gather_features`` with ``local_loss=False``), so every rank computes
+    the loss and the counts of the global batch, as JAX's similarity over a
+    data-sharded batch does.
     """
+    mesh = batch_mesh()
+    if mesh is not None:
+        audio_features, text_features = gather_rows(audio_features, mesh), gather_rows(text_features, mesh)
     audio = audio_features / audio_features.norm(dim=-1, keepdim=True)
     text = text_features / text_features.norm(dim=-1, keepdim=True)
     scale = torch.exp(logit_scale.clamp(max=MAX_LOGIT_SCALE))

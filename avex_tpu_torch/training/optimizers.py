@@ -157,11 +157,16 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-             state: Dict[str, Any]) -> None:
-        """One update of ``params`` (in place) from ``grads``; ``state`` is updated in place."""
+             state: Dict[str, Any], global_norm: Optional[torch.Tensor] = None) -> None:
+        """One update of ``params`` (in place) from ``grads``; ``state`` is updated in place.
+
+        ``global_norm`` is the clipping norm of the whole gradient where
+        ``grads`` holds only this rank's blocks of it (the ZeRO-3 layout);
+        by default it is the norm of ``grads``."""
         if self.clip_norm:
             # The norm stays on the device: no host sync in the step.
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+            norm = global_norm if global_norm is not None else torch.sqrt(
+                sum(g.float().square().sum() for g in grads.values()))
             keep = norm < self.clip_norm
             grads = {n: torch.where(keep, g, (g / norm.to(g.dtype)) * self.clip_norm) for n, g in grads.items()}
         count = state["count"] + 1

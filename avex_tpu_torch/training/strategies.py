@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from avex_tpu_torch.parallel import batch_mesh
 from avex_tpu_torch.training.losses import build_criterion, clip_loss
 
 __all__ = ["CLIPStrategy", "EATSSLStrategy", "SupervisedStrategy", "make_strategy"]
@@ -68,7 +69,8 @@ class CLIPStrategy:
     """Audio-text contrastive training. The model's forward returns a dict
     with ``audio_features``, ``text_features`` and ``logit_scale``; the batch
     holds ``text_tokens`` (the ``Trainer`` tokenizes ``text_label``). The
-    metrics are the batch's a2t and t2a top-1 counts."""
+    metrics are the batch's a2t and t2a top-1 counts; in a multi-rank step
+    the batch is the global one (:func:`~avex_tpu_torch.training.losses.clip_loss`)."""
 
     def forward_loss(
         self,
@@ -84,10 +86,11 @@ class CLIPStrategy:
         out = apply_fn(batch["raw_wav"], batch.get("text_tokens"), batch.get("padding_mask"), **kwargs)
         features = out[0] if isinstance(out, tuple) else out
         loss, aux = clip_loss(features["audio_features"], features["text_features"], features["logit_scale"])
+        mesh = batch_mesh()
         metrics = {
             "a2t_correct": aux["a2t_correct"],
             "t2a_correct": aux["t2a_correct"],
-            "count": features["audio_features"].shape[0],
+            "count": features["audio_features"].shape[0] * (mesh.size if mesh is not None else 1),
         }
         return loss, metrics
 
@@ -96,7 +99,12 @@ class EATSSLStrategy:
     """Self-supervised (data2vec-style) training: the model reports its own
     loss components, ``{"losses": {...}, "sample_size": n}``; the loss is
     their sum over ``max(n, 1)``, the metrics ``loss_<name>`` and ``count``.
-    The step's generator feeds the model's mask draw."""
+    The step's generator feeds the model's mask draw.
+
+    In a multi-rank step ``n`` is summed over the ranks first, as JAX's is
+    over the global batch, and a rank's loss is its share of that global
+    loss times the rank count: the mean over ranks, which the gradient
+    all-reduce takes, is the global loss."""
 
     def forward_loss(
         self,
@@ -118,7 +126,14 @@ class EATSSLStrategy:
         result = out[0] if isinstance(out, tuple) else out
         losses = result["losses"]
         sample_size = result.get("sample_size", 1)
-        total = sum(v.sum() for v in losses.values()) / max(sample_size, 1)
+        total = sum(v.sum() for v in losses.values())
+        mesh = batch_mesh()
+        if mesh is None:
+            total = total / max(sample_size, 1)
+        else:
+            ranks_size = torch.tensor([float(sample_size)], device=total.device)
+            torch.distributed.all_reduce(ranks_size, group=mesh.group)
+            total = total * mesh.size / ranks_size.clamp_min(1.0)[0]
         metrics: Dict[str, Any] = {f"loss_{k}": v.sum() for k, v in losses.items()}
         metrics["count"] = sample_size
         return total, metrics

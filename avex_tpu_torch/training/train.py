@@ -1,4 +1,4 @@
-"""Trainer: the epoch loop of supervised fine-tuning on one device.
+"""Trainer: the epoch loop of training, on one device or data-parallel.
 
 Port of ``avex_tpu/training/train.py``, in eager PyTorch:
 
@@ -29,10 +29,33 @@ Port of ``avex_tpu/training/train.py``, in eager PyTorch:
   skip-forward on resume, a SIGTERM save-and-stop, and resume with the
   ``_next`` fallback of an interrupted rolling swap.
 
-The JAX trainer's device mesh, FSDP, pipeline and sequence parallelism and
-multi-process metrics are not ported (ROADMAP queue 1, item 14): each
-raises where it is asked for. Buffer donation has no meaning in eager
-PyTorch.
+Data parallelism (``parallel/``): the mesh comes from ``RunConfig.mesh`` (or
+the ``mesh`` argument), one process per device. Over a mesh of several
+ranks, or of one rank in a process group:
+
+- the weights start as rank 0's (``parallel.replicate``); under
+  ``param_sharding="fsdp"`` the module then holds this rank's ZeRO-3 blocks
+  between steps (``parallel/fsdp.py``), gathered whole for each forward and
+  save, and the optimizer's moments are made from the blocks;
+- a rank's batch is its share of the global batch (equal shares, checked);
+  the forward runs inside ``parallel.global_batch``, so BatchNorm, CLIP's
+  loss and EAT-SSL's sample size take the global batch;
+- between ``autograd.grad`` and the optimizer the gradients are averaged
+  over the ranks (one ``all_reduce`` of a flat buffer per dtype), or
+  reduce-scattered to the blocks under FSDP: XLA's psum;
+- LayerDrop draws from one generator seeded alike on every rank (JAX draws
+  once for the global batch); dropout and the other per-row draws from the
+  rank's generator, seeded from the run's seed and the rank (rank 0's as a
+  single process's): JAX's distribution, not its bits;
+- the epoch's metrics are averaged over ranks (``parallel.gather_metrics``);
+  only rank 0 writes checkpoints, metadata and the label map;
+  ``checkpoint_every_steps`` falls back to epoch checkpoints and the
+  SIGTERM save-and-stop is off with more than one process, as in JAX.
+
+Without ``torch.distributed`` the mesh has one process and no collective
+runs: a step is what it was before the mesh existed. Tensor, pipeline and
+sequence parallelism are ROADMAP queue 1, item 14, part 2 (``MeshConfig``
+raises). Buffer donation has no meaning in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -53,6 +76,18 @@ import numpy as np
 import torch
 
 from avex_tpu_torch.configs import RunConfig
+from avex_tpu_torch.parallel import (
+    all_gather_into,
+    average_gradients,
+    gather_metrics,
+    global_batch,
+    is_main_process,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_params_fsdp,
+    world_size,
+)
 from avex_tpu_torch.training.checkpoint import CheckpointManager
 from avex_tpu_torch.training.clustering_evaluator import ClusteringEvaluator
 from avex_tpu_torch.training.metrics_tracker import MetricsTracker
@@ -64,7 +99,11 @@ __all__ = ["TrainState", "Trainer"]
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "is not ported: the port trains on one device (ROADMAP queue 1, item 14)"
+
+def _rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator: the run's seed on rank 0, a
+    draw of ``SeedSequence([seed, rank])`` on the others."""
+    return seed if rank == 0 else int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
 
 
 @dataclass
@@ -103,11 +142,6 @@ class Trainer:
         steps_per_epoch: Optional[int] = None,
         checkpoint_every_epochs: int = 0,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh {_NOT_PORTED}")
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(f"multi-process training and its metric sync {_NOT_PORTED}")
         self.model = model
         self.config = config
         self.params_cfg = config.training_params
@@ -120,6 +154,10 @@ class Trainer:
         self.checkpoints = CheckpointManager(config.output_dir)
         self.checkpoint_every_epochs = checkpoint_every_epochs
         self.checkpoint_every_steps = int(config.checkpoint_every_steps or 0)
+        if self.checkpoint_every_steps and world_size() > 1:
+            logger.warning("checkpoint_every_steps is single-process only; falling back to epoch-level "
+                           "checkpoints on this %d-process run", world_size())
+            self.checkpoint_every_steps = 0
         self._preempted = False
         self._resume_step_in_epoch = 0
         self._resume_loader_state = None
@@ -142,11 +180,21 @@ class Trainer:
         self.steps_per_epoch = steps_per_epoch
         self.total_steps = steps_per_epoch * self.params_cfg.train_epochs
 
+        mesh_cfg = config.mesh
+        self.mesh = mesh or make_mesh(mesh_cfg.data, mesh_cfg.model, mesh_cfg.axis_names, device=self.device)
+        self._layout = None
+        self._layerdrop_generator = None
+        if self.mesh.distributed:
+            replicate(model.module, self.mesh)
+            if mesh_cfg.param_sharding == "fsdp":
+                self._layout = shard_params_fsdp(model.module, self.mesh, mesh_cfg.fsdp_min_size)
+            self._layerdrop_generator = torch.Generator(device=self.device).manual_seed(config.seed)
+
         self._params = dict(model.module.named_parameters())
         self._stage = 1 if self.params_cfg.freeze_backbone_epochs > 0 else 2
         self._build_step(stage=self._stage)
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(config.seed)
+        generator.manual_seed(_rank_seed(config.seed, self.mesh.rank))
         self.state = TrainState(step=0, opt_state=self._tx.init(self._trainable), generator=generator)
         self.best_val_acc = -np.inf
         self.start_epoch = 0
@@ -181,36 +229,45 @@ class Trainer:
         if self.mode == "clip" and batch.get("text_label") is not None:
             batch = dict(batch, text_tokens=self.model.tokenize(list(batch["text_label"])))
         out: Dict[str, torch.Tensor] = {}
-        for key, value in batch.items():
-            if value is None:
-                continue
-            if not isinstance(value, torch.Tensor):
-                value = np.asarray(value)
-                if value.dtype.kind not in "biuf":
-                    continue
-                value = torch.from_numpy(value)
-            non_blocking = value.is_pinned()
+        for key, value in shard_batch(batch, self.mesh).items():
             if value.dtype == torch.bool:
-                out[key] = value.to(self.device, non_blocking=non_blocking)
+                out[key] = value
             elif value.is_floating_point():
-                out[key] = value.to(self.device, torch.float32, non_blocking=non_blocking)
+                out[key] = value.to(torch.float32)
             elif value.dtype in (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8):
-                out[key] = value.to(self.device, torch.int64, non_blocking=non_blocking)
+                out[key] = value.to(torch.int64)
         return out
+
+    @contextlib.contextmanager
+    def _whole_params(self, update: bool = False):
+        """The module holds whole parameters inside (FSDP's blocks are gathered;
+        with ``update`` they are taken anew from the whole ones on the way out)."""
+        with self._layout.unsharded(update) if self._layout is not None else contextlib.nullcontext():
+            yield
 
     def _train_step(self, batch: Dict[str, Any]):
         """One optimizer update on ``batch``; returns (loss, step metrics)."""
         self.model.module.train()
         batch = self._device_batch(batch)
-        loss, metrics = self.strategy.forward_loss(
-            self.model.train_forward, batch, self.state.generator, train=True
-        )
+        if self._layout is not None:
+            self._layout.gather()
         names = list(self._trainable)
         params = [self._trainable[n] for n in names]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with global_batch(self.mesh, self._layerdrop_generator):
+            loss, metrics = self.strategy.forward_loss(
+                self.model.train_forward, batch, self.state.generator, train=True
+            )
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         # A parameter the loss does not reach gets a zero gradient, as in JAX.
         grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
-        self._tx.step(self._trainable, grads, self.state.opt_state)
+        norm = None
+        if self._layout is not None:
+            grads = self._layout.reduce_gradients(grads)
+            self._layout.release()
+            norm = self._layout.global_norm(grads) if self._tx.clip_norm else None
+        elif self.mesh.distributed:
+            grads = average_gradients(grads, self.mesh)
+        self._tx.step(self._trainable, grads, self.state.opt_state, global_norm=norm)
         post_update = getattr(self.model, "post_optimizer_step", None)
         if post_update is not None:
             post_update()  # model-owned state, e.g. the EMA teacher
@@ -219,9 +276,9 @@ class Trainer:
 
     def _eval_step(self, batch: Dict[str, Any]):
         self.model.module.eval()
-        with torch.no_grad():
-            return self.strategy.forward_loss(self.model.train_forward, self._device_batch(batch), None,
-                                              train=False)
+        batch = self._device_batch(batch)
+        with torch.no_grad(), self._whole_params(), global_batch(self.mesh):
+            return self.strategy.forward_loss(self.model.train_forward, batch, None, train=False)
 
     def _resume(self, path: str) -> None:
         # Interrupted rolling swap: the stable name may be mid-rename while
@@ -230,11 +287,18 @@ class Trainer:
             logger.warning("checkpoint %s missing; resuming from %s_next (interrupted rolling swap)", path, path)
             path = str(path) + "_next"
         payload = self.checkpoints.load(path)
-        self.model.module.load_state_dict(payload["params"])
+        # Checkpoints hold whole tensors: they are placed for this run's layout
+        # whatever the layout and the rank count that wrote them.
+        with self._whole_params(update=True):
+            self.model.module.load_state_dict(payload["params"])
         opt_state = _tree_to(payload["opt_state"], self.device)
         if set(opt_state["mu"]) != set(self._trainable):
             raise ValueError(f"checkpoint {path}: its optimizer state covers other parameters than "
                              f"this stage trains")
+        if self._layout is not None:
+            for moment in ("mu", "nu"):
+                opt_state[moment] = {n: self._layout.shard_of(n, t) if n in self._layout.shards else t
+                                     for n, t in opt_state[moment].items()}
         self.state.opt_state = opt_state
         self.state.step = int(payload.get("step", 0))
         self.start_epoch = int(payload.get("epoch", 0))
@@ -243,20 +307,50 @@ class Trainer:
         # epoch, a stateful loader's iterator state and the generator's state.
         self._resume_step_in_epoch = int(payload.get("step_in_epoch", 0) or 0)
         self._resume_loader_state = payload.get("loader_state")
-        if payload.get("rng") is not None:
-            self.state.generator.set_state(torch.tensor(payload["rng"], dtype=torch.uint8))
+        rng = payload.get("rng")
+        if rng is not None and payload.get("rng_ranks", 1) != self.mesh.size:
+            logger.warning("checkpoint %s holds the generators of %s ranks; this run's %d keep their seeds",
+                           path, payload.get("rng_ranks", 1), self.mesh.size)
+        elif rng is not None:
+            state = rng[self.mesh.rank] if self.mesh.size > 1 else rng
+            self.state.generator.set_state(torch.tensor(state, dtype=torch.uint8))
         logger.info("Resumed from %s at epoch %d, step %d in the epoch", path, self.start_epoch,
                     self._resume_step_in_epoch)
 
     def _save_kwargs(self) -> Dict[str, Any]:
-        return {"params": self.model.module.state_dict(), "opt_state": self.state.opt_state,
-                "step": self.state.step}
+        """What a checkpoint holds: whole tensors under any layout (FSDP's
+        blocks are gathered, a collective every rank joins)."""
+        with self._whole_params():
+            params = self.model.module.state_dict()
+        opt_state = self.state.opt_state
+        if self._layout is not None:
+            opt_state = dict(opt_state)
+            for moment in ("mu", "nu"):
+                blocks = {n: t for n, t in opt_state[moment].items() if n in self._layout.shards}
+                opt_state[moment] = {**opt_state[moment], **self._layout.gather_tensors(blocks)}
+        kwargs = {"params": params, "opt_state": opt_state, "step": self.state.step}
+        if self.mesh.size > 1:  # each rank's generator goes with every checkpoint
+            kwargs["extra_meta"] = self._generator_states()
+        return kwargs
+
+    def _generator_states(self) -> Dict[str, Any]:
+        """Every rank's generator state (a list over ranks with more than one,
+        a collective), for an exact resume."""
+        state = self.state.generator.get_state()
+        if self.mesh.size == 1:
+            return {"rng": state.tolist()}
+        blocks = state.to(self.mesh.device)
+        gathered = blocks.new_empty(self.mesh.size * blocks.numel())
+        all_gather_into(gathered, blocks, self.mesh)
+        return {"rng": gathered.view(self.mesh.size, -1).cpu().tolist(), "rng_ranks": self.mesh.size}
 
     def _save_metadata(self, checkpoint_name: str, metrics: Dict[str, float],
                        is_best: bool = False, is_final: bool = False) -> None:
         """Append one row (run id, checkpoint, config snapshot, metrics) to
         ``<output_dir>/metadata/experiment_metadata.csv``, rewriting it with
-        the union of the rows' columns, as the JAX package does."""
+        the union of the rows' columns, as the JAX package does (rank 0 only)."""
+        if not is_main_process():
+            return
         path = self.checkpoints.output_dir / "metadata" / "experiment_metadata.csv"
         path.parent.mkdir(parents=True, exist_ok=True)
         rows = list(csv.DictReader(path.open(newline=""))) if path.exists() else []
@@ -284,17 +378,11 @@ class Trainer:
                 loader_state = self.train_loader.iterator_state()
             except Exception as err:  # keep training; the skip-forward resume still works
                 logger.warning("could not capture loader state: %s", err)
-        return self.checkpoints.save_rolling(
-            "step_checkpoint",
-            epoch=epoch,
-            best_val_acc=self.best_val_acc,
-            extra_meta={
-                "step_in_epoch": int(step_in_epoch),
-                "loader_state": loader_state,
-                "rng": self.state.generator.get_state().tolist(),
-            },
-            **self._save_kwargs(),
-        )
+        kwargs = self._save_kwargs()
+        kwargs["extra_meta"] = {"step_in_epoch": int(step_in_epoch), "loader_state": loader_state,
+                                **(kwargs.get("extra_meta") or self._generator_states())}
+        return self.checkpoints.save_rolling("step_checkpoint", epoch=epoch, best_val_acc=self.best_val_acc,
+                                             **kwargs)
 
     def _run_epoch(self, loader: Iterable, train: bool, epoch: int, start_step: int = 0,
                    iterator=None) -> Dict[str, float]:
@@ -324,12 +412,16 @@ class Trainer:
         metrics = tracker.epoch_metrics()
         metrics["epoch_seconds"] = time.time() - t0
         metrics["primary"] = tracker.primary_metric()
+        if self.mesh.size > 1:
+            # every rank logs and compares the same numbers: best-checkpoint
+            # decisions must not diverge
+            metrics = gather_metrics(metrics, self.mesh)
         return metrics
 
     def train(self) -> Dict[str, Any]:
         """Run the full training loop; returns the final metric summary."""
         prev_handler = None
-        if self.config.save_on_preemption:
+        if self.config.save_on_preemption and world_size() == 1:
             # A preemption delivers SIGTERM: save a resumable step checkpoint
             # and leave the loop cleanly instead of dying mid-step.
             try:
@@ -341,6 +433,8 @@ class Trainer:
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
+            if self._layout is not None:
+                self._layout.gather()  # the model handle holds the whole trained weights
             self.model.eval()
 
     def _clustering(self, epoch: int) -> Optional[Dict[str, float]]:
@@ -349,7 +443,8 @@ class Trainer:
         if self.clustering_evaluator is None or not self.clustering_evaluator.should_run(epoch):
             return None
         self.model.eval()  # the module trained in place: extraction sees the current weights
-        return self.clustering_evaluator.evaluate()
+        with self._whole_params():
+            return self.clustering_evaluator.evaluate()
 
     def _train_loop(self) -> Dict[str, Any]:
         cfg = self.params_cfg
@@ -424,7 +519,7 @@ class Trainer:
         final_path = self.checkpoints.save_final(epoch=cfg.train_epochs, best_val_acc=self.best_val_acc,
                                                  **self._save_kwargs())
         self._save_metadata("final_model", history[-1]["train"] if history else {}, is_final=True)
-        if self.model.label_mapping is not None:
+        if self.model.label_mapping is not None and is_main_process():
             (self.checkpoints.output_dir / "label_map.json").write_text(json.dumps(self.model.label_mapping))
         # The module trained in place: the model handle already holds the trained weights.
         return {"history": history, "best_val_acc": self.best_val_acc, "final_checkpoint": final_path}

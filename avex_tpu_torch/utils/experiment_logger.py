@@ -5,7 +5,9 @@ Port of ``avex_tpu/utils/experiment_logger.py``: one interface
 name. ``mlflow`` and ``wandb`` are imported only when asked for; when the
 package is missing the logger warns and keeps the local record alone, as the
 JAX package does (a logging backend, not a device). With an ``output_dir``
-every call is also appended to ``<output_dir>/metrics.jsonl``.
+every call is also appended to ``<output_dir>/metrics.jsonl``. In a
+multi-process run only the main process (rank 0) logs: on the others the
+logger starts no backend and records nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import logging
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+from avex_tpu_torch.parallel import is_main_process
 
 __all__ = ["ExperimentLogger"]
 
@@ -32,11 +36,13 @@ class ExperimentLogger:
         project: str = "audio-experiments",
         output_dir: Optional[str] = None,
     ) -> None:
-        self.backend = backend
         self.run_name = run_name or f"run_{int(time.time())}"
         self._mlflow = None
         self._wandb = None
         self._jsonl_path: Optional[Path] = None
+        if not is_main_process():
+            backend, output_dir = "none", None
+        self.backend = backend
         if output_dir:
             self._jsonl_path = Path(output_dir) / "metrics.jsonl"
             self._jsonl_path.parent.mkdir(parents=True, exist_ok=True)

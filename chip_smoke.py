@@ -185,7 +185,26 @@ Phases, each printing its results on lines of its own:
 29. BEATs training with ``remat_policy="dots"`` (bf16, B=64, 5 s,
    ``fused_qkv``): ms a step and peak memory beside ``remat=False`` and
    ``remat_policy=None`` (K2 24 and K3 12 a step under either remat), and
-   fp32 gradients with dropout and LayerDrop against ``remat=False``.
+   fp32 gradients with dropout and LayerDrop against ``remat=False``;
+30. data parallelism (after phase 15) on spawned ranks that load the
+   kernels phase 2 built, each rank group joined with a deadline and killed
+   past it (a failed rank fails the phase, its traceback printed): (a)
+   whether NCCL takes two ranks on one card (the answer printed; the
+   two-rank runs then go over NCCL, or gloo if it refuses); (b) one rank
+   over NCCL: full-width BEATs ``fused_qkv`` (K2/K3), bf16, B=64 5 s clips
+   with dropout, one ``Trainer(mesh=...)`` step equal bit for bit to the
+   step without a process group (deterministic algorithms in both); (c) two
+   ranks sharing the card, 32 + 32 of the 64 clips: the fp32 step (dropout
+   and LayerDrop off) held to the one-process step on all 64 (loss and
+   every parameter rel 1e-3), then 5 timed bf16 steps with dropout on (ms a
+   step, the gradient all-reduce's ms, each rank's peak memory and busy
+   share: two ranks on one card measure the mechanism, not multi-card
+   speed); (d) ZeRO-3 on the same ranks, the fp32 step held the same way,
+   each rank's parameter and moment bytes and peak memory; (e) full-width
+   EAT-SSL (K5/K6) and CLIP (global-batch BatchNorm, the features
+   gathered), fp32, 8 + 8 against the one-process step on 16 (EAT-SSL's mask
+   draw split across the ranks; stochastic depth keeps every item). The
+   ranks send back their launch counts; K2, K3, K5 and K6 add them.
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -202,8 +221,9 @@ main paths' runs; K4 and K8, which no main path reaches, add
 ``kernel_phase_launches``; K4, K5 and K6 add ``head_dim_80``, their bf16 and
 fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
 numbers at T=800; K5 and K6 add ``eat_ssl``, their numbers at EAT-SSL's
-shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``)
-and, last, the device line
+shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``;
+K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share) and,
+last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
 """
@@ -359,6 +379,16 @@ B_SSL_GRAD = 4  # the fp32 kernel-vs-plain gradient check
 CLIP_LR = 1e-5
 # BEATs remat "dots" (phase 29): timed steps of each of three remat settings.
 DOTS_STEPS = 3
+
+# Data parallelism (phase 30): timed steps a rank, EAT-SSL's and CLIP's global
+# batch, and the seconds a rank group (a collective) may take before it is killed.
+DP_STEPS = 5
+B_DP_SMALL = 16
+DP_PROBE_TIMEOUT = 90
+DP_TIMEOUT = 600
+DP_COLLECTIVE_TIMEOUT = 300
+ADAM_EPS = 1e-8  # AdamW's (optax's scale_by_adam)
+DP_LR = 3e-4  # BEATs' and EAT-SSL's; every phase-30 step at its full rate (no warmup)
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
@@ -1024,7 +1054,8 @@ def phase_aves():
 def zero_gradient(name, grad):
     """The entries of ``name``'s gradient that are exactly 0 in exact
     arithmetic: the key projection's bias (the third of a fused qkv bias in
-    the middle, or AVES's ``k_proj.bias``), which a softmax cannot see.
+    the middle, AVES's ``k_proj.bias`` or RoBERTa's ``k.bias``), which a
+    softmax cannot see.
     Computed, they are rounding noise that two correct paths give
     differently."""
     import torch
@@ -1033,7 +1064,7 @@ def zero_gradient(name, grad):
     if name.endswith(("qkv_proj.bias", "attn.qkv.bias")):
         third = grad.shape[0] // 3
         noise[third:2 * third] = True
-    elif name.endswith("k_proj.bias"):
+    elif name.endswith(("k_proj.bias", ".k.bias")):  # AVES's, BEATs'; CLIP's RoBERTa's
         noise[:] = True
     return noise
 
@@ -3186,6 +3217,600 @@ def phase_beats_dots(workdir):
     return dots_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: data parallelism on the card (spawned ranks)
+# ---------------------------------------------------------------------------
+
+
+def _rank_entry(target: str, rank: int, world: int, workdir: str, kwargs: dict) -> None:
+    """What a spawned rank runs: ``target(rank, world, work, **kwargs)``,
+    its result pickled, or its traceback written and exit code 1."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    work = Path(workdir)
+    try:
+        result = globals()[target](rank, world, work, **kwargs)
+        with open(work / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def start_ranks(target: str, world: int, workdir: Path, timeout: float, **kwargs) -> tuple:
+    """Spawn ``world`` ranks of ``target`` into a fresh ``workdir``; returns
+    the group for :func:`join_ranks`, which gives them ``timeout`` seconds."""
+    import multiprocessing
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(target, rank, world, str(workdir), kwargs))
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    return procs, workdir, time.monotonic() + timeout, timeout
+
+
+def join_ranks(group: tuple) -> tuple:
+    """Join a group by its deadline and kill any rank left (a rank blocked in
+    a collective by a failed peer never returns). Returns (each rank's
+    result or None, the failed ranks' errors, the group's seconds)."""
+    import pickle
+
+    procs, workdir, deadline, timeout = group
+    for proc in procs:
+        proc.join(max(deadline - time.monotonic(), 0.0))
+    results, errors = [], []
+    for rank, proc in enumerate(procs):
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            errors.append(f"rank {rank}: still running after {timeout:g} s, killed")
+        err = workdir / f"rank{rank}.err"
+        if err.exists():
+            errors.append(f"rank {rank}:\n{err.read_text()}")
+        elif proc.exitcode != 0 and not any(e.startswith(f"rank {rank}:") for e in errors):
+            errors.append(f"rank {rank}: exit code {proc.exitcode}")
+        out = workdir / f"rank{rank}.pkl"
+        results.append(pickle.loads(out.read_bytes()) if out.exists() else None)
+    return results, errors, time.monotonic() - (deadline - timeout)
+
+
+def _join_group(rank: int, world: int, work: Path, backend: str) -> None:
+    """This rank into the group over ``backend``, on card 0 (the ranks share it)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{work / 'rendezvous'}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=DP_COLLECTIVE_TIMEOUT))
+
+
+def rank_nccl_probe(rank, world, work):
+    """(a) Two NCCL ranks on one card: an all-reduce, or NCCL's refusal."""
+    import torch
+    import torch.distributed as dist
+
+    _join_group(rank, world, work, "nccl")
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return x.tolist()
+
+
+def dp_beats(dtype: str, dropout: bool):
+    """Full-width BEATs ``fused_qkv`` on K2/K3 with a 50-class head, seeded
+    random weights (the same in every process); the official dropout and
+    LayerDrop, or none."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    init = dict(beats_config(), fused_qkv=True, use_pallas=True)
+    if not dropout:
+        init.update(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, dropout_input=0.0,
+                    encoder_layerdrop=0.0)
+    spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype, init_config=init)
+    return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+
+def dp_config(work: Path, bsz: int, label_type: str = "supervised", lr: float = DP_LR, sharding: str = "replicated"):
+    from avex_tpu_torch.configs import MeshConfig, RunConfig, SchedulerConfig, TrainingParams
+
+    return RunConfig(
+        model_spec={"name": "dp"}, output_dir=str(work / f"out_{label_type}_{sharding}"), seed=0,
+        training_params=TrainingParams(train_epochs=1, lr=lr, batch_size=bsz, optimizer="adamw", weight_decay=0.01),
+        scheduler=SchedulerConfig(name="cosine", warmup_steps=0), label_type=label_type,
+        loss_function="clip" if label_type == "text" else "cross_entropy", mesh=MeshConfig(param_sharding=sharding))
+
+
+def dp_batch(bsz: int, samples: int, seed: int) -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"raw_wav": torch.randn(bsz, samples, device="cuda", generator=gen) * 0.1,
+            "label": torch.randint(0, N_CLASSES, (bsz,), device="cuda", generator=gen)}
+
+
+def rank_rows(batch: dict, rank: int, world: int) -> dict:
+    """The rank's equal share of a global batch: rows [rank·B/W, (rank+1)·B/W)."""
+    def take(value):
+        n = len(value) // world
+        return value[rank * n:(rank + 1) * n]
+
+    return {k: take(v) for k, v in batch.items()}
+
+
+def params_after(trainer, model) -> dict:
+    """Every parameter's value after the steps, whole (ZeRO-3 blocks gathered)."""
+    with trainer._whole_params():
+        return {n: p.detach().clone() for n, p in model.module.named_parameters()}
+
+
+def rank_nccl_one(rank, world, work):
+    """(b) One rank over NCCL against the same step without a process group:
+    the mean over one rank is the identity, so the step is the same bit for
+    bit (deterministic algorithms on, in both). Then ZeRO-3 on that rank:
+    at one rank every tensor of at least ``fsdp_min_size`` elements is cut
+    into one block, so the step runs NCCL's ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor``, and is the same bit for bit too."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    from avex_tpu_torch.parallel import make_mesh
+    from avex_tpu_torch.training import Trainer
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.cuda.set_device(0)
+    model = dp_beats("bfloat16", dropout=True)
+    batch = dp_batch(B_TRAIN, CLIP_SAMPLES, seed=30)
+    initial = {k: v.clone() for k, v in model.module.state_dict().items()}
+    config = dp_config(work, B_TRAIN)
+    alone = Trainer(model, config, [batch], steps_per_epoch=4)
+    loss_alone = alone._train_step(batch)[0].item()
+    after_alone = params_after(alone, model)
+    model.module.load_state_dict(initial)
+    _join_group(rank, world, work, "nccl")
+    mesh = make_mesh(device="cuda")
+    trainer = Trainer(model, config, [batch], mesh=mesh, steps_per_epoch=4)
+    reset_counts()
+    loss = trainer._train_step(batch)[0].item()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    after = params_after(trainer, model)
+    out = {"backend": mesh.backend, "size": mesh.size, "loss": loss, "loss_alone": loss_alone, "counts": counts,
+           "unequal": [n for n, v in after.items() if not torch.equal(v, after_alone[n])]}
+    del trainer, after
+    model.module.load_state_dict(initial)
+    trainer = Trainer(model, dp_config(work, B_TRAIN, sharding="fsdp"), [batch], mesh=mesh, steps_per_epoch=4)
+    out["fsdp_cut"], out["fsdp_params"] = len(trainer._layout.shards), len(trainer._layout.params)
+    reset_counts()
+    out["fsdp_loss"] = trainer._train_step(batch)[0].item()
+    torch.cuda.synchronize()
+    out["fsdp_counts"] = read_counts()
+    after = params_after(trainer, model)
+    out["fsdp_unequal"] = [n for n, v in after.items() if not torch.equal(v, after_alone[n])]
+    return out
+
+
+def step_record(trainer, model, before: dict = None) -> dict:
+    """A step's result on the host: every parameter after it and the
+    gradient it applied (after one AdamW step the first moment is exactly
+    (1 - b1)·g; ZeRO-3 blocks gathered whole); with ``before``, the state
+    before the step, the parameters as they were."""
+    params = params_after(trainer, model)
+    mu = trainer.state.opt_state["mu"]
+    if trainer._layout is not None:
+        mu = {**mu, **trainer._layout.gather_tensors({n: t for n, t in mu.items() if n in trainer._layout.shards})}
+    out = {"params": {n: v.cpu() for n, v in params.items()},
+           "grads": {n: (t.float() / 0.1).cpu() for n, t in mu.items()}}
+    if before is not None:
+        out["before"] = {n: before[n].cpu() for n in out["params"]}
+    return out
+
+
+def shift_free_biases(names) -> set:
+    """EfficientNet's projection BatchNorm biases, the last
+    ``block.<j>.1.bias`` of each MBConv. In train mode the per-channel shift
+    such a bias adds reaches the loss only through 1x1 convolutions into the
+    next BatchNorm, whose batch mean takes it away: its exact gradient is 0
+    (float64 B0: |g| <= 1e-12 of every other bias's,
+    ``tests/test_torch_parallel.py``), and the computed one is rounding noise
+    that two correct paths give differently, as the key bias's is."""
+    import re
+
+    last: dict = {}
+    for n in names:
+        m = re.match(r"(.*\.block\.)(\d+)\.1\.bias$", n)
+        if m:
+            last[m.group(1)] = max(last.get(m.group(1), -1), int(m.group(2)))
+    return {f"{prefix}{j}.1.bias" for prefix, j in last.items()}
+
+
+def held(got: dict, want: dict, lr: float, shift_free: set = frozenset(), teacher_share: float = 0.0) -> dict:
+    """The step against the one-process step: the gradients and the
+    parameters after it, each by the worst tensor's rel L2 and the rel L2 of
+    all of them together.
+
+    Entries whose exact gradient is 0 (the key projection's bias; the
+    ``shift_free`` tensors) are left out of the gradients, their largest
+    |gradient| reported. Adam's first update is lr·g/(|g| + eps), about ±lr
+    however small g is: an entry whose gradient is rounding noise (those
+    zero gradients) or near eps moves by what its noise says. So a
+    parameter's difference counts only past lr times the distance between
+    the two steps' Adam directions (``teacher_share`` of its student's for
+    an EMA teacher); that slack's largest entry and the entries it covers
+    by more than lr/10 are reported. ``want["before"]``, the parameters
+    before the step, shows how far the step moved them."""
+    import torch
+
+    def direction(g):
+        g = g.double()
+        return g / (g.abs() + ADAM_EPS)
+
+    out = {}
+    for kind in ("grads", "params"):
+        worst, name, noise, num, den, slack_max, slack_n = 0.0, "-", 0.0, 0.0, 0.0, 0.0, 0
+        for n, w in want[kind].items():
+            g, w = got[kind][n].double(), w.double()
+            if kind == "grads":
+                mask = torch.ones_like(w, dtype=torch.bool) if n in shift_free else zero_gradient(n, w)
+                if mask.any():
+                    noise = max(noise, float(g[mask].abs().max()), float(w[mask].abs().max()))
+                diff, ref = g[~mask] - w[~mask], w[~mask]
+            else:
+                source, share = n, 1.0
+                if n.startswith("teacher."):
+                    source, share = "student." + n[len("teacher."):], teacher_share
+                slack = torch.zeros_like(w)
+                if source in want["grads"]:
+                    slack = share * lr * (direction(got["grads"][source]) - direction(want["grads"][source])).abs()
+                    slack_max, slack_n = max(slack_max, float(slack.max())), slack_n + int((slack > lr / 10).sum())
+                diff, ref = ((g - w).abs() - slack).clamp_min(0.0), w
+            d, r = float(diff.norm()), float(ref.norm())
+            num, den = num + d * d, den + r * r
+            if r > 0 and d / r >= worst:
+                worst, name = d / r, n
+        out[kind] = {"worst_rel": worst, "worst": name, "global_rel": (num / den) ** 0.5}
+        if kind == "grads":
+            out[kind]["zero_max_abs"] = noise
+        else:
+            out[kind].update(slack_max=slack_max, slack_entries=slack_n,
+                             moved_max_abs=max(float((want["params"][n].double() - b.double()).abs().max())
+                                               for n, b in want["before"].items()))
+    return out
+
+
+def _ranks_equal(params: dict, mesh) -> bool:
+    """Whether every rank holds the same tensors: each tensor's float64 sum,
+    rank 0's minus the other's, summed over the two ranks, is exactly 0."""
+    import torch
+    import torch.distributed as dist
+
+    sums = torch.stack([p.double().sum() for p in params.values()]).to(mesh.device)
+    signed = sums * (1.0 if mesh.rank == 0 else -1.0)
+    dist.all_reduce(signed, group=mesh.group)
+    return bool((signed == 0).all())
+
+
+def _mean_over_ranks(value: float, mesh) -> float:
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, group=mesh.group)
+    return float(t) / mesh.size
+
+
+def _state_bytes(trainer) -> tuple:
+    """(parameter bytes, moment bytes) this rank holds between steps."""
+    params = sum(p.numel() * p.element_size() for p in trainer.model.module.parameters())
+    moments = sum(t.numel() * t.element_size() for m in ("mu", "nu") for t in trainer.state.opt_state[m].values())
+    return params, moments
+
+
+def dp_eat_ssl(noise):
+    """Full-width EAT-SSL on K5/K6 (fp32), its mask draw the rows of ``noise``
+    from ``offset["rows"]`` on (a rank's rows of the global draw)."""
+    from avex_tpu_torch.models import eat_ssl
+
+    model = load_eat_ssl("float32", True)
+    offset = {"rows": 0}
+    eat_ssl.mask_noise = lambda bsz, n, generator, device: noise[offset["rows"]:offset["rows"] + bsz].to(device)
+    return model, offset
+
+
+def dp_clip():
+    """Full-width CLIP (fp32), stochastic depth keeping every item (one
+    network for the one-process and the two-rank step)."""
+    import torch
+
+    from avex_tpu_torch.models import efficientnet as eff
+
+    eff.stochastic_depth_mask = lambda bsz, keep, generator, device: torch.ones((bsz, 1, 1, 1), dtype=torch.bool,
+                                                                                 device=device)
+    return load_clip("float32")
+
+
+def rank_dp(rank, world, work, backend):
+    """(c)-(e) on two ranks sharing the card. Rank 0 also takes the
+    one-process steps on the global batches (a mesh of its own, no
+    collective) from the same initial weights."""
+    import torch
+
+    from avex_tpu_torch.ops._precision import full_fp32
+    from avex_tpu_torch.parallel import Mesh, average_gradients, make_mesh
+    from avex_tpu_torch.training import Trainer
+
+    torch.cuda.set_device(0)
+    out = {"rank": rank}
+    batch = dp_batch(B_TRAIN, CLIP_SAMPLES, seed=31)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    ssl_wav = torch.randn(B_DP_SMALL, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+    ssl_noise = torch.rand(B_DP_SMALL, 512, device="cuda", generator=gen)  # 8 x 64 patches
+    tones = tone_batches(B_DP_SMALL, EFFNET_CLIP_SAMPLES, seed=33)[0]
+    clip_batch = {"raw_wav": tones["raw_wav"], "text_label": captions(tones["label"])}
+    alone = Mesh(size=1, rank=0, group=None, device=torch.device("cuda", 0))
+    _join_group(rank, world, work, backend)
+    mesh = make_mesh(device="cuda")
+    out["backend"] = mesh.backend
+
+    # (c) the fp32 step, 32 + 32 clips, against the one-process step on 64
+    model = dp_beats("float32", dropout=False)
+    initial = {k: v.clone() for k, v in model.module.state_dict().items()}
+    if rank == 0:
+        trainer = Trainer(model, dp_config(work, B_TRAIN), [], mesh=alone, steps_per_epoch=4)
+        ref_loss = trainer._train_step(batch)[0].item()
+        ref = step_record(trainer, model, initial)
+        del trainer
+        model.module.load_state_dict(initial)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, dp_config(work, B_TRAIN), [], mesh=mesh, steps_per_epoch=4)
+    out["dp_bytes"] = _state_bytes(trainer)
+    loss = _mean_over_ranks(trainer._train_step(rank_rows(batch, rank, world))[0].item(), mesh)
+    torch.cuda.synchronize()
+    out["dp_peak_bytes"] = torch.cuda.max_memory_allocated()
+    got = step_record(trainer, model)
+    out["dp_ranks_equal"] = _ranks_equal(got["params"], mesh)
+    if rank == 0:
+        out["dp_loss"], out["ref_loss"], out["dp_held"] = loss, ref_loss, held(got, ref, DP_LR)
+    del trainer, got
+
+    # (d) ZeRO-3 on the same ranks and weights, held the same way
+    model.module.load_state_dict(initial)
+    trainer = Trainer(model, dp_config(work, B_TRAIN, sharding="fsdp"), [], mesh=mesh, steps_per_epoch=4)
+    out["fsdp_bytes"] = _state_bytes(trainer)
+    out["fsdp_cut"] = len(trainer._layout.shards)
+    out["fsdp_resident"] = trainer._layout.resident_bytes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = _mean_over_ranks(trainer._train_step(rank_rows(batch, rank, world))[0].item(), mesh)
+    torch.cuda.synchronize()
+    out["fsdp_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["fsdp_counts"] = read_counts()
+    got = step_record(trainer, model)
+    out["fsdp_ranks_equal"] = _ranks_equal(got["params"], mesh)
+    if rank == 0:
+        out["fsdp_loss"], out["fsdp_held"] = loss, held(got, ref, DP_LR)
+    del model, trainer, got, initial
+
+    # (c) the timed bf16 steps with dropout and LayerDrop
+    model = dp_beats("bfloat16", dropout=True)
+    trainer = Trainer(model, dp_config(work, B_TRAIN), [], mesh=mesh, steps_per_epoch=DP_STEPS + 4)
+    local = rank_rows(batch, rank, world)
+    trainer._train_step(local)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    losses = [trainer._train_step(local)[0] for _ in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    out["ms_per_step"] = (time.perf_counter() - start) / DP_STEPS * 1e3
+    out["counts"] = read_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["losses"] = [float(x) for x in losses]
+    grads = {n: torch.randn_like(p) for n, p in trainer._trainable.items()}
+    average_gradients(grads, mesh)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(DP_STEPS):
+        average_gradients(grads, mesh)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - start) / DP_STEPS * 1e3
+    out["allreduce_bytes"] = sum(g.numel() * g.element_size() for g in grads.values())
+    out["step_wall_ms"], out["busy_share"] = busy_share(lambda: trainer._train_step(local))
+    del model, trainer, grads
+
+    # (e) EAT-SSL (K5/K6) and CLIP, 8 + 8 of the global 16
+    model, offset = dp_eat_ssl(ssl_noise)
+    initial = {k: v.clone() for k, v in model.module.state_dict().items()}
+    if rank == 0:
+        trainer = Trainer(model, dp_config(work, B_DP_SMALL, "self_supervised"), [], mesh=alone, steps_per_epoch=4)
+        ref_loss = trainer._train_step({"raw_wav": ssl_wav})[0].item()
+        ref = step_record(trainer, model, initial)
+        ref["params"] = {k: v.cpu() for k, v in model.module.state_dict().items()}  # the teacher too
+        del trainer
+        model.module.load_state_dict(initial)
+    offset["rows"] = rank * (B_DP_SMALL // world)
+    trainer = Trainer(model, dp_config(work, B_DP_SMALL, "self_supervised"), [], mesh=mesh, steps_per_epoch=4)
+    reset_counts()
+    loss = _mean_over_ranks(trainer._train_step(rank_rows({"raw_wav": ssl_wav}, rank, world))[0].item(), mesh)
+    torch.cuda.synchronize()
+    out["ssl_counts"] = read_counts()
+    got = step_record(trainer, model)
+    got["params"] = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    out["ssl_ranks_equal"] = _ranks_equal(got["params"], mesh)
+    if rank == 0:
+        out["ssl_loss"], out["ssl_ref_loss"], out["ssl_held"] = loss, ref_loss, held(
+            got, ref, DP_LR, teacher_share=1.0 - model.ema_decay)
+    del model, trainer, got, initial
+
+    model = dp_clip()
+    initial = {k: v.clone() for k, v in model.module.state_dict().items()}
+    with full_fp32():
+        if rank == 0:
+            trainer = Trainer(model, dp_config(work, B_DP_SMALL, "text", lr=CLIP_LR), [], mesh=alone,
+                              steps_per_epoch=4)
+            ref_loss = trainer._train_step(clip_batch)[0].item()
+            ref = step_record(trainer, model, initial)
+            ref_stats = {k: v.cpu() for k, v in model.module.state_dict().items() if "running" in k}
+            del trainer
+            model.module.load_state_dict(initial)
+        trainer = Trainer(model, dp_config(work, B_DP_SMALL, "text", lr=CLIP_LR), [], mesh=mesh, steps_per_epoch=4)
+        reset_counts()
+        loss, metrics = trainer._train_step(rank_rows(clip_batch, rank, world))
+        torch.cuda.synchronize()
+    out["clip_counts"] = read_counts()
+    got = step_record(trainer, model)
+    stats = {k: v.cpu() for k, v in model.module.state_dict().items() if "running" in k}
+    out["clip_ranks_equal"] = _ranks_equal({**got["params"], **stats}, mesh)
+    out["clip_count"] = metrics["count"]
+    if rank == 0:
+        out["clip_loss"], out["clip_ref_loss"], out["clip_held"] = loss.item(), ref_loss, held(
+            got, ref, CLIP_LR, shift_free=shift_free_biases(ref["grads"]))
+        # every running statistic: the global rel L2, and the worst tensor's max |d|
+        num = sum(float((v - ref_stats[k]).double().norm() ** 2) for k, v in stats.items())
+        den = sum(float(v.double().norm() ** 2) for v in ref_stats.values())
+        worst = max(((v - ref_stats[k]).abs().max().item(), k) for k, v in stats.items())
+        out["clip_stats"] = {"rel": (num / den) ** 0.5, "worst_max_abs": worst[0], "worst": worst[1]}
+    return out
+
+
+def phase_data_parallel(workdir: Path) -> dict:
+    """Phase 30: the data-parallel ``Trainer`` on spawned ranks; returns the
+    kernel launches of the driven runs, summed over ranks."""
+    start = time.perf_counter()
+    launches = {}
+
+    # (a) does NCCL take two ranks on one card? (b) one rank over NCCL against the step without a
+    # process group. The two groups run side by side: their communicators are apart.
+    probe = start_ranks("rank_nccl_probe", 2, workdir / "nccl_probe", DP_PROBE_TIMEOUT)
+    one = start_ranks("rank_nccl_one", 1, workdir / "nccl_one", DP_TIMEOUT)
+    results, errors, seconds = join_ranks(probe)
+    nccl_two = not errors and all(r == [3.0] * 4 for r in results)
+    backend = "nccl" if nccl_two else "gloo"
+    reason = "" if nccl_two else " (" + " | ".join(e.strip().splitlines()[-1] for e in errors) + ")"
+    print(f"data parallel (a): NCCL {'takes' if nccl_two else 'refuses'} two ranks on one card{reason}; "
+          f"the two-rank runs go over {backend} ({seconds:.1f} s)")
+
+    results, errors, seconds = join_ranks(one)
+    check(not errors, f"data parallel (b): the one-rank NCCL run finished ({seconds:.1f} s)"
+          + "".join("\n" + e for e in errors))
+    if not errors:
+        r = results[0]
+        check(r["backend"] == "nccl" and r["size"] == 1 and r["loss"] == r["loss_alone"] and not r["unequal"],
+              f"data parallel (b): one NCCL rank, Trainer(mesh=...) step == the step without a process group "
+              f"(loss {r['loss']:.6f} vs {r['loss_alone']:.6f}; unequal parameters: {r['unequal'][:3]})")
+        check(r["fsdp_cut"] > 0 and r["fsdp_loss"] == r["loss_alone"] and not r["fsdp_unequal"],
+              f"data parallel (b): ZeRO-3 on one NCCL rank ({r['fsdp_cut']} of {r['fsdp_params']} tensors cut: NCCL's "
+              f"all-gather and reduce-scatter ran) step == the step without a process group (loss "
+              f"{r['fsdp_loss']:.6f} vs {r['loss_alone']:.6f}; unequal parameters: {r['fsdp_unequal'][:3]})")
+        expect = {"fused_qkv_gated_attention": 12, "fused_qkv_gated_attention_backward": 12}
+        for key in ("counts", "fsdp_counts"):
+            check(all(r[key][k] == expect.get(k, 0) for k in r[key]),
+                  f"data parallel (b): {'ZeRO-3 ' if key == 'fsdp_counts' else ''}launches "
+                  f"{ {k: v for k, v in r[key].items() if v} } == {expect}")
+            for k, v in r[key].items():
+                launches[k] = launches.get(k, 0) + v
+
+    # (c)-(e) two ranks sharing the card
+    results, errors, seconds = join_ranks(start_ranks("rank_dp", 2, workdir / "two_ranks", DP_TIMEOUT,
+                                                      backend=backend))
+    check(not errors, f"data parallel (c)-(e): both {backend} ranks finished ({seconds:.1f} s)"
+          + "".join("\n" + e for e in errors))
+    if not errors:
+        r0, r1 = results
+
+        def hold(label, loss, ref_loss, result, ranks_equal, lr, extra=""):
+            """Loss, and the worst tensor of the gradients and of the
+            parameters after the step, within PATH_REL (see ``held``); the
+            step moved the parameters by about lr."""
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            p, g = result["params"], result["grads"]
+            check(rel <= PATH_REL and p["worst_rel"] <= PATH_REL and g["worst_rel"] <= PATH_REL and ranks_equal
+                  and p["moved_max_abs"] >= 0.5 * lr,
+                  f"data parallel {label} vs the one-process step on the global batch: loss rel {rel:.3e}; "
+                  f"gradients: worst tensor rel L2 {g['worst_rel']:.3e} ({g['worst']}), together {g['global_rel']:.3e} "
+                  f"(zero-gradient entries left out, |gradient| <= {g['zero_max_abs']:.1e}); parameters after the "
+                  f"step at lr {lr:g} (moved up to {p['moved_max_abs']:.2e}): worst tensor rel L2 "
+                  f"{p['worst_rel']:.3e} ({p['worst']}), together {p['global_rel']:.3e}, past the Adam-direction "
+                  f"slack (largest {p['slack_max']:.1e}, {p['slack_entries']} entries past lr/10); each <= "
+                  f"{PATH_REL:g}; ranks equal {ranks_equal}{extra}")
+
+        hold(f"(c): 2 x {B_TRAIN // 2} clips over {r0['backend']} (fp32)", r0["dp_loss"], r0["ref_loss"],
+             r0["dp_held"], r0["dp_ranks_equal"], DP_LR)
+        expect = {"fused_qkv_gated_attention": 12 * DP_STEPS, "fused_qkv_gated_attention_backward": 12 * DP_STEPS}
+        for r in results:
+            check(all(r["counts"][k] == expect.get(k, 0) for k in r["counts"]),
+                  f"data parallel (c): rank {r['rank']} launches { {k: v for k, v in r['counts'].items() if v} } "
+                  f"== {expect}")
+            check(all(math.isfinite(x) for x in r["losses"]), f"data parallel (c): rank {r['rank']} losses finite")
+        print(f"data parallel (c): two ranks sharing one card measure the mechanism, not multi-card speed; "
+              f"bf16, dropout and LayerDrop on, {B_TRAIN // 2} clips a rank: "
+              + "; ".join(f"rank {r['rank']} {r['ms_per_step']:.1f} ms a step, gradient all-reduce "
+                          f"{r['allreduce_ms']:.1f} ms ({r['allreduce_bytes'] / 2**20:.0f} MiB), peak "
+                          f"{r['peak_bytes'] / 2**30:.2f} GiB, busy share of its own kernels {r['busy_share']:.3f} "
+                          f"(one step under the profiler, {r['step_wall_ms']:.1f} ms)" for r in results)
+              + f"; {CARD[0]}")
+        hold(f"(d): ZeRO-3, 2 x {B_TRAIN // 2} (fp32)", r0["fsdp_loss"], r0["ref_loss"], r0["fsdp_held"],
+             r0["fsdp_ranks_equal"], DP_LR)
+        for r in results:
+            check(r["fsdp_counts"]["fused_qkv_gated_attention"] == 12
+                  and r["fsdp_counts"]["fused_qkv_gated_attention_backward"] == 12,
+                  f"data parallel (d): rank {r['rank']} K2 and K3 12 launches each")
+        print("data parallel (d): ZeRO-3, parameter + moment bytes a rank (DP in brackets): "
+              + "; ".join(f"rank {r['rank']} {r['fsdp_bytes'][0] / 2**20:.1f} + {r['fsdp_bytes'][1] / 2**20:.1f} MiB "
+                          f"({r['dp_bytes'][0] / 2**20:.1f} + {r['dp_bytes'][1] / 2**20:.1f}), {r['fsdp_cut']} tensors "
+                          f"cut (blocks {r['fsdp_resident'][0] / 2**20:.1f} MiB, replicated "
+                          f"{r['fsdp_resident'][1] / 2**20:.1f} MiB), fp32 step peak "
+                          f"{r['fsdp_peak_bytes'] / 2**30:.2f} GiB (DP {r['dp_peak_bytes'] / 2**30:.2f})"
+                          for r in results) + f"; {CARD[0]}")
+        hold(f"(e): EAT-SSL (K5/K6, fp32), 2 x {B_DP_SMALL // 2}, the mask draw split", r0["ssl_loss"],
+             r0["ssl_ref_loss"], r0["ssl_held"], r0["ssl_ranks_equal"], DP_LR)
+        expect = {"fused_qkv_attention": 28, "fused_qkv_attention_backward": 16}
+        for r in results:
+            check(all(r["ssl_counts"][k] == expect.get(k, 0) for k in r["ssl_counts"]),
+                  f"data parallel (e): EAT-SSL rank {r['rank']} launches "
+                  f"{ {k: v for k, v in r['ssl_counts'].items() if v} } == {expect}")
+            check(not any(r["clip_counts"].values()), f"data parallel (e): CLIP rank {r['rank']} launches no kernel")
+        stats = r0["clip_stats"]
+        # the projection BatchNorm biases' gradients (exactly 0 in train mode, ``shift_free_biases``) are
+        # rounding noise and left out; every other tensor is held by itself
+        hold(f"(e): CLIP (global-batch BatchNorm, features gathered, fp32), 2 x {B_DP_SMALL // 2}", r0["clip_loss"],
+             r0["clip_ref_loss"], r0["clip_held"], r0["clip_ranks_equal"] and r0["clip_count"] == B_DP_SMALL,
+             CLIP_LR, f"; {r0['clip_count']} pairs counted")
+        check(stats["rel"] <= PATH_REL,
+              f"data parallel (e): CLIP's BatchNorm running statistics rel L2 {stats['rel']:.3e} <= {PATH_REL:g} "
+              f"(worst tensor max |d| {stats['worst_max_abs']:.2e}, {stats['worst']})")
+        for r in results:
+            for key in ("counts", "fsdp_counts", "ssl_counts"):
+                for k, v in r[key].items():
+                    launches[k] = launches.get(k, 0) + v
+        print(json.dumps({"data_parallel": {
+            "nccl_two_ranks_one_card": nccl_two, "backend": backend, "card": CARD[0],
+            "ranks": [{k: r[k] for k in ("rank", "ms_per_step", "allreduce_ms", "allreduce_bytes", "peak_bytes",
+                                         "busy_share", "step_wall_ms", "dp_bytes", "fsdp_bytes", "fsdp_resident",
+                                         "dp_peak_bytes", "fsdp_peak_bytes")} for r in results],
+            "fp32_checks": {k: r0[k] for k in ("dp_held", "fsdp_held", "ssl_held", "clip_held", "clip_stats")}}}))
+    print(f"data parallel: phase 30 took {time.perf_counter() - start:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -3222,6 +3847,7 @@ def main() -> int:
     dots_train = phase_beats_dots(workdir / "dots")
     probes = phase_probes()
     entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
+    data_parallel = phase_data_parallel(Path(__file__).resolve().parent / "build" / "chip_smoke_ranks")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
@@ -3251,6 +3877,10 @@ def main() -> int:
         if count:  # each run checked the rest at 0
             launches[kname] += count
     print(f"entry points phase launches: { {k: v for k, v in entry.items() if v} }")
+    # Data parallelism: K2/K3 on the ranks' BEATs steps, K5/K6 on their EAT-SSL steps.
+    for kname, count in data_parallel.items():
+        if count:  # each rank checked the rest at 0
+            launches[kname] += count
     # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
     # large and huge's 80, takes K5, and K4 takes the same widths) or K8 (in
     # JAX only scripts/bench_int8_matmul.py calls it); drive() checks that each
@@ -3302,6 +3932,8 @@ def main() -> int:
             kernels[-1]["eat_ssl"] = {f"{shape}_{name}": t for (k, shape, name), t in ssl_timings.items()
                                       if k == kname}
             kernels[-1]["eat_ssl_launches"] = ssl_train[kname]
+        if data_parallel.get(kname):
+            kernels[-1]["data_parallel_launches"] = data_parallel[kname]  # phase 30's share of ``launches``
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

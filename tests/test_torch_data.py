@@ -342,7 +342,7 @@ def _common(port: dict, reference: dict, path: str = ""):
             assert len(value) == len(want), f"{path}{key}"
             for i, (v, w) in enumerate(zip(value, want)):
                 _common(v, w, f"{path}{key}[{i}].")
-        elif key not in ("device", "mesh"):  # cuda, not tpu; one device, no mesh (item 14)
+        elif key != "device":  # cuda, not tpu
             assert value == want, f"{path}{key}: {value!r} != {want!r}"
 
 

@@ -42,6 +42,7 @@ from avex_tpu_torch.evaluation import (
 )
 from avex_tpu_torch.evaluation.retrieval import cosine_similarity, roc_auc
 from avex_tpu_torch.models import beats
+from avex_tpu_torch.parallel import make_mesh
 from avex_tpu_torch.training import Trainer
 
 FP32_TOL = dict(atol=5e-5, rtol=1e-4)
@@ -152,8 +153,10 @@ def test_embedding_source_compute_reuse_stream_invalidate_overwrite(tmp_path, mo
 
     EmbeddingDataSource(port, path, layers=["last_layer"], aggregation="none", overwrite=True).get_dataset(loader)
     assert len(calls) == 9  # overwritten
-    with pytest.raises(NotImplementedError, match="item 14"):
-        EmbeddingDataSource(port, tmp_path / "x.h5", layers=["last_layer"], mesh=object()).get_dataset(loader)
+    # a mesh of one process extracts what no mesh does (two ranks: tests/test_torch_parallel_training.py)
+    meshed = EmbeddingDataSource(port, tmp_path / "x.h5", layers=["last_layer"], aggregation="mean",
+                                 mesh=make_mesh(device="cpu")).get_dataset(loader)
+    np.testing.assert_array_equal(meshed[3]["embeddings_0"], lazy[3]["embeddings_0"])
 
 
 def _retrieval_sets():

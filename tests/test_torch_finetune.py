@@ -31,6 +31,7 @@ import avex_tpu_torch
 from avex_tpu_torch.configs import ModelSpec, ProbeConfig, TrainingParams
 from avex_tpu_torch.evaluation import FineTuneTrainer, train_and_eval_offline, train_and_eval_online
 from avex_tpu_torch.models import beats
+from avex_tpu_torch.parallel import make_mesh
 from avex_tpu_torch.probes import build_probe_from_config, params_from_jax
 from tests.test_torch_training import _zero_gradient
 
@@ -216,5 +217,7 @@ def test_online_entry_point_trains_the_probe_only():
     assert all(np.isfinite(history_losses))
     for key, value in model.state_dict().items():
         assert torch.equal(value, before[key]), key
-    with pytest.raises(NotImplementedError, match="item 14"):
-        FineTuneTrainer(trainer.probe, TrainingParams(train_epochs=1, lr=1e-3, batch_size=2), mesh=object())
+    # a mesh of one process trains as no mesh does (two ranks: tests/test_torch_parallel_training.py)
+    meshed = FineTuneTrainer(trainer.probe, TrainingParams(train_epochs=1, lr=1e-3, batch_size=2),
+                             mesh=make_mesh(device="cpu"))
+    assert meshed.mesh is None

@@ -76,6 +76,8 @@ SLICE_MODULES = [
     "avex_tpu_torch.utils.experiment_logger",
     "avex_tpu_torch.run_train",
     "avex_tpu_torch.run_evaluate",
+    "avex_tpu_torch.parallel",
+    "avex_tpu_torch.parallel.fsdp",
 ]
 #: top-level packages the port must not import: JAX, its libraries, and the
 #: JAX package with its configuration library

@@ -31,9 +31,10 @@ from avex_tpu.parallel import shard_batch
 from avex_tpu.training import Trainer as JaxTrainer
 
 import avex_tpu_torch
-from avex_tpu_torch.configs import ModelSpec, RunConfig, SchedulerConfig, TrainingParams
+from avex_tpu_torch.configs import MeshConfig, ModelSpec, RunConfig, SchedulerConfig, TrainingParams
 from avex_tpu_torch.models import beats, eat
 from avex_tpu_torch.models.common import dropout
+from avex_tpu_torch.parallel import make_mesh
 from avex_tpu_torch.training import Trainer, TrainerFactory, make_strategy
 
 # Per-step loss and final parameters: fp32 on both sides, the same operations
@@ -404,19 +405,21 @@ def test_remat_policy_dots_keeps_the_dense_products(tmp_path):
 def test_unported_training_options_raise(tmp_path, monkeypatch):
     config = _port_config(tmp_path, "beats", BEATS_TINY)
     model = _port_model(config)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Trainer(model, config, [], mesh=object())
+    # a one-process mesh is what no mesh is; a model axis is item 14, part 2
+    assert Trainer(model, config, [], mesh=make_mesh(device="cpu")).mesh.size == 1
+    with pytest.raises(NotImplementedError, match="item 14, part 2"):
+        make_mesh(model=2, device="cpu")
     # the text and self-supervised strategies are ported (tests/test_torch_clip.py, tests/test_torch_eat_ssl.py)
     assert type(make_strategy("text")).__name__ == "CLIPStrategy"
     assert type(make_strategy("self_supervised")).__name__ == "EATSSLStrategy"
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14, part 2"):
         config.replace(mesh={"model": 2})
     # augmentations are ported with the data pipeline: each dict becomes its config
     augmented = config.replace(augmentations=[{"kind": "mixup", "alpha": 0.2, "augmentation_prob": 0.5}])
     assert augmented.augmentations[0].kind == "mixup" and augmented.augmentations[0].alpha == 0.2
     # clustering evaluation is ported: the dict becomes its config
     assert config.replace(clustering_eval={"enabled": True}).clustering_eval.enabled
-    assert config.replace(mesh={"data": -1}).mesh == {"data": -1}
+    assert config.replace(mesh={"data": -1}).mesh == MeshConfig(data=-1)
     with pytest.raises(ValueError, match="multilabel"):
         config.replace(multilabel=True)
     assert config.replace(loss_function="binary_cross_entropy").loss_function == "bce"
