@@ -372,8 +372,11 @@ class MeshConfig:
     ``param_sharding`` is ``"replicated"`` (the DDP layout) or ``"fsdp"``
     (ZeRO-3: tensors of at least ``fsdp_min_size`` elements and their
     optimizer moments cut over the data axis, ``parallel/fsdp.py``). A
-    ``model`` axis, ``pipeline_microbatches`` and ``sequence_parallel`` are
-    ROADMAP queue 1, item 14, part 2: they raise.
+    ``model`` axis of more than one process runs tensor parallelism
+    (``parallel/tensor.py``), or the model's layer stack as a GPipe pipeline
+    of ``pipeline_microbatches`` microbatches (``parallel/pipeline.py``) or
+    sequence-parallel (``sequence_parallel``, ``parallel/sequence.py``); the
+    ``Trainer`` raises for the combinations JAX refuses.
     """
 
     data: int = -1
@@ -388,14 +391,8 @@ class MeshConfig:
         _lax_numbers(self)
         self.axis_names = tuple(self.axis_names)
         _one_of("param_sharding", self.param_sharding, ("replicated", "fsdp"))
-        unported = {"model": self.model > 1, "pipeline_microbatches": self.pipeline_microbatches > 0,
-                    "sequence_parallel": bool(self.sequence_parallel)}
-        for name, asked in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"mesh.{name}={getattr(self, name)!r}: tensor, pipeline and sequence parallelism are "
-                    f"not ported (ROADMAP queue 1, item 14, part 2)"
-                )
+        _at_least("model", self.model, 1)
+        _at_least("pipeline_microbatches", self.pipeline_microbatches, 0)
 
 
 @dataclass

@@ -71,9 +71,11 @@ def build_dataloaders(
     collaters take the model's target clip length and window selection; the
     training split shuffles, drops its remainder and augments, the others
     center-crop and keep every item. With more than one process
-    (``torch.distributed``'s world size) each loader is this rank's shard and
-    every split drops its remainder, so each process contributes equal
-    batches. The grain pipeline and an empty configuration raise.
+    (``torch.distributed``'s world size) each loader is this rank's data row's
+    shard (``config.mesh.model`` ranks, rank ``r`` in row ``r // model``, read
+    the same batches) and every split drops its remainder, so each row
+    contributes equal batches. The grain pipeline and an empty configuration
+    raise.
     """
     if config.data_pipeline == "grain":
         raise NotImplementedError("data_pipeline='grain' (the JAX ecosystem's grain loader) is not ported "
@@ -96,8 +98,9 @@ def build_dataloaders(
     target_len = audio_cfg.target_length_samples if audio_cfg and audio_cfg.target_length_samples else sr
     window_selection = audio_cfg.window_selection if audio_cfg else "random"
     pin = torch.device(config.device).type == "cuda"
-    num_shards = world_size()
-    shard = dist.get_rank() if num_shards > 1 else None
+    model = config.mesh.model if config.mesh is not None else 1
+    num_shards = world_size() // model
+    shard = dist.get_rank() // model if num_shards > 1 else None
 
     def make_loader(ds, train: bool) -> Optional[DataLoader]:
         if ds is None:

@@ -25,8 +25,8 @@ starts from rank 0's trainable parameters, its batches are its shares of
 the global batches (equal, checked), the gradients are averaged over the
 ranks before the clipped AdamW, the training loss is averaged over the
 ranks and the evaluation scores the gathered global set, so every rank
-keeps the same best parameters. Expert parallelism of the MoE head over a model axis is ROADMAP
-queue 1, item 14, part 2.
+keeps the same best parameters. Expert parallelism of the MoE head over a
+model axis is ROADMAP queue 1, item 14, part 3.
 """
 
 from __future__ import annotations

@@ -25,7 +25,12 @@ attention's ``out_proj``, after the FFN's intermediate and output), and
 LayerDrop (``disable_layerdrop=False``) keeps each layer with probability
 ``1 - encoder_layer_drop``; every draw comes from the caller's
 ``torch.Generator``. ``encoder_attention_dropout`` is configured but, as in
-JAX, never applied. ``scan_layers`` raises ``NotImplementedError``.
+JAX, never applied. ``scan_layers`` is JAX's stacked layout at the edges
+(:func:`convert_aves_state_dict`, :func:`params_from_jax`,
+``load_port_state_dict``); a ``layer_runner`` may run the layer stack
+(``enable_pipeline``, ``enable_sequence_parallel``), and tensor parallelism
+(``parallel/tensor.py``) cuts the attention's projections (JAX's names;
+the FFN's ``intermediate_dense``/``output_dense`` stay whole).
 """
 
 from __future__ import annotations
@@ -51,12 +56,17 @@ from avex_tpu_torch.models.common import (
     gelu,
     group_norm,
     layer_norm,
+    split_stacked,
+    stack_state,
     torch_dtype,
 )
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.ops.attention import dot_product_attention
 from avex_tpu_torch.ops.attention_kernels import fused_qkv_attention, fused_qkv_compatible
 from avex_tpu_torch.parallel import shared_generator
+from avex_tpu_torch.parallel.tensor import linear_bias, whole_names
+
+_SCAN_HINT = "construct the model with scan_layers=True"
 
 logger = logging.getLogger(__name__)
 
@@ -160,6 +170,20 @@ class _EncoderLayer(nn.Module):
         self.layer_norm = nn.LayerNorm(dim, eps=1e-5)
         self.feed_forward = _FeedForward(dim, cfg.encoder_ff_interm_features)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-5)
+        #: the model axis of the attention: its heads cut, or the time axis
+        self.model_axis = None
+        self.heads_cut: Optional[slice] = None
+
+    def use_model_axis(self, axis, cut) -> list:
+        """Run this rank's heads when the projections are cut; returns the
+        whole tensors read in part."""
+        self.heads_cut = axis.block(self.heads) if "attention.out_proj.weight" in cut else None
+        self.model_axis = axis if self.heads_cut is not None or axis.sequence else None
+        if axis.sequence:
+            return whole_names(self, cut)
+        if self.heads_cut is None:
+            return []
+        return [f"attention.{p}_proj.bias" for p in "qkv"]
 
     def forward(
         self,
@@ -168,33 +192,42 @@ class _EncoderLayer(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        bsz, seq, dim = x.shape
         cfg = self.cfg
 
         def drop(t: torch.Tensor, rate: float) -> torch.Tensor:
             return dropout(t, rate, deterministic, generator)
 
         dt, heads, att = self.dtype, self.heads, self.attention
-        head_dim = dim // heads
+        head_dim = x.shape[-1] // heads
+        h = x
+        if self.model_axis is not None:
+            h = self.model_axis.enter(x, self.heads_cut is not None)
+        if self.heads_cut is not None:  # this rank's heads
+            heads = self.heads_cut.stop - self.heads_cut.start
+        bsz, seq = h.shape[:2]
+        dim = heads * head_dim
         if self.use_pallas and fused_qkv_compatible(dim, heads):
             # One [E, 3E] product, q|k|v heads-major, then K5 over its columns.
             w = torch.cat([att.q_proj.weight, att.k_proj.weight, att.v_proj.weight]).to(dt)
-            b = torch.cat([att.q_proj.bias, att.k_proj.bias, att.v_proj.bias]).to(dt)
-            qkv = F.linear(x.to(dt), w, b)
+            b = torch.cat([linear_bias(p) for p in (att.q_proj, att.k_proj, att.v_proj)]).to(dt)
+            qkv = F.linear(h.to(dt), w, b)
             attn = fused_qkv_attention(qkv, heads, key_padding_mask=padding_mask, scale=head_dim**-0.5)
         else:
             q, k, v = (
-                dense(proj, x, dt).view(bsz, seq, heads, head_dim).transpose(1, 2)
+                dense(proj, h, dt).view(bsz, seq, heads, head_dim).transpose(1, 2)
                 for proj in (att.q_proj, att.k_proj, att.v_proj)
             )
             bias = None
             if padding_mask is not None:
-                bias = torch.zeros(padding_mask.shape, dtype=torch.float32, device=x.device)
+                bias = torch.zeros(padding_mask.shape, dtype=torch.float32, device=h.device)
                 bias = bias.masked_fill(padding_mask, float("-inf"))[:, None, None, :]
             # bf16 compute runs the softmax chain in bf16 too, as in JAX.
             attn = dot_product_attention(q, k, v, bias=bias, scale=head_dim**-0.5, logits_dtype=dt)
             attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
-        x = layer_norm(self.layer_norm, x + drop(dense(att.out_proj, attn, dt), cfg.encoder_dropout), dt)
+        out = dense(att.out_proj, attn, dt)  # row-parallel with the heads cut
+        if self.model_axis is not None and self.heads_cut is None:
+            out = self.model_axis.leave(out, cut=False)  # this rank's positions
+        x = layer_norm(self.layer_norm, x + drop(out, cfg.encoder_dropout), dt)
         ff = self.feed_forward
         hidden = drop(gelu(dense(ff.intermediate_dense, x, dt)), cfg.encoder_ff_interm_dropout)
         ff_out = dense(ff.output_dense, hidden, dt)
@@ -222,6 +255,8 @@ class _Transformer(nn.Module):
         self.pos_conv_embed = _PosConvEmbed(dim, cfg.encoder_pos_conv_kernel, cfg.encoder_pos_conv_groups)
         self.layer_norm = nn.LayerNorm(dim, eps=1e-5)
         self.layers = nn.ModuleList(_EncoderLayer(cfg, dtype, use_pallas) for _ in range(cfg.encoder_num_layers))
+        #: the layer stack's runner (``parallel/pipeline.py``, ``parallel/sequence.py``), or None
+        self.layer_runner = None
 
 
 class _Encoder(nn.Module):
@@ -244,9 +279,6 @@ class AVESModel(nn.Module):
         scan_layers: bool = False,
     ) -> None:
         super().__init__()
-        if scan_layers:
-            raise NotImplementedError("AVES scan_layers is not ported to PyTorch yet "
-                                      "(ROADMAP queue 1, item 14, part 2)")
         self.cfg, self.num_classes, self.dtype = cfg, num_classes, dtype
         self.feature_extractor = _FeatureExtractor(dtype)
         self.encoder = _Encoder(cfg, dtype, use_pallas)
@@ -285,7 +317,19 @@ class AVESModel(nn.Module):
         if use_layerdrop and generator is None:
             raise ValueError("LayerDrop outside deterministic mode needs a torch.Generator")
         intermediates: Dict[str, torch.Tensor] = {}
-        for i, layer in enumerate(tr.layers):
+        if tr.layer_runner is not None:
+            # Runner-driven stack (pipeline or sequence parallelism): as in
+            # JAX, deterministic only, and no per-layer taps.
+            if use_layerdrop:
+                raise ValueError("runner-driven encoder does not support layerdrop")
+            if not deterministic and max(cfg.encoder_dropout, cfg.encoder_attention_dropout,
+                                         cfg.encoder_ff_interm_dropout, cfg.encoder_projection_dropout) > 0:
+                raise ValueError("runner-driven encoder (pipeline/sequence-parallel) is deterministic-only; "
+                                 "set the encoder dropout rates to 0 to train with it")
+            batched = (frame_mask,) if frame_mask is not None else ()
+            h = tr.layer_runner(lambda layer, x, *mask: layer(x, mask[0] if mask else None, True)[0],
+                                tr.layers, h, batched, ())
+        for i, layer in enumerate(tr.layers if tr.layer_runner is None else ()):
             new_h, ff_out = layer(h, frame_mask, deterministic, generator)
             if use_layerdrop:
                 # Kept with probability 1 - encoder_layer_drop; as in JAX the
@@ -315,15 +359,20 @@ class AVESModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+#: the encoder's layer stack in the state dict
+STACK = "encoder.transformer.layers"
+
+
 def convert_aves_state_dict(
-    state: Mapping[str, np.ndarray], num_classes: Optional[int] = None
+    state: Mapping[str, np.ndarray], num_classes: Optional[int] = None, scan_layers: bool = False
 ) -> Dict[str, np.ndarray]:
     """torchaudio wav2vec2 state dict (optionally behind the wrapper's
     ``model.`` prefix) → this port's :class:`AVESModel` state dict.
 
     The weight-normed pos_conv is folded from ``parametrizations.weight.
     original0/1`` or ``weight_g/weight_v``; the classifier is kept only with
-    ``num_classes``.
+    ``num_classes``. With ``scan_layers`` the layers' tensors come stacked on
+    a leading layer axis under :data:`STACK`, as JAX's converter stacks them.
     """
     state = {(k[len("model."):] if k.startswith("model.") else k): np.asarray(v) for k, v in state.items()}
     for key in [k for k in state if "pos_conv" in k and k.endswith((".original0", ".weight_g"))]:
@@ -336,7 +385,8 @@ def convert_aves_state_dict(
         state[f"{prefix}.weight"] = fold_weight_norm(g, v)
     if num_classes is None:
         state = {k: v for k, v in state.items() if not k.startswith("classifier.")}
-    return {k: np.asarray(v, dtype=np.float32) for k, v in state.items()}
+    state = {k: np.asarray(v, dtype=np.float32) for k, v in state.items()}
+    return stack_state(state, STACK) if scan_layers else state
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -344,10 +394,13 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     arrays) → this port's :class:`AVESModel` state dict.
 
     Dense ``[in, out]`` → Linear ``[out, in]``; Conv ``[K, in/g, out]`` →
-    ``[out, in/g, K]``; LayerNorm / GroupNorm ``scale`` → ``weight``.
+    ``[out, in/g, K]``; LayerNorm / GroupNorm ``scale`` → ``weight``. A
+    ``scan_layers`` tree (``layers`` stacked on a leading layer axis) gives
+    the per-layer keys.
     """
     if "layers" in params:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14, part 2)")
+        params = dict(params)
+        params.update({f"layers_{i}": layer for i, layer in enumerate(split_stacked(params.pop("layers")))})
     out: Dict[str, np.ndarray] = {}
 
     def put(key: str, value: Any) -> None:
@@ -415,6 +468,7 @@ class Model(ModelBase):
         super().__init__(device=device, audio_config=audio_config)
         self.config = AVESConfig.from_dict(aves_cfg)
         self.num_classes = None if return_features_only else num_classes
+        self.stacked_layers = STACK if scan_layers else None
         dtype = torch_dtype(compute_dtype)
         self.module = build_module(
             lambda: AVESModel(
@@ -439,3 +493,20 @@ class Model(ModelBase):
     def load_state_dict(self, state: Mapping[str, np.ndarray], strict: bool = False) -> None:
         """Load a torchaudio-style AVES/HuBERT state dict (prefix-tolerant)."""
         self.load_port_state_dict(convert_aves_state_dict(state, self.num_classes), strict=strict)
+
+    def enable_pipeline(self, mesh: Any, num_microbatches: Optional[int] = None) -> None:
+        """Run the layer stack pipeline-parallel over ``mesh``'s model axis
+        (GPipe, ``parallel/pipeline.py``); the conv feature extractor runs on
+        every stage ahead of it. Needs ``scan_layers=True``, as in JAX."""
+        self._enable_layer_runner(self.module.encoder.transformer, mesh, "pipeline parallelism", _SCAN_HINT,
+                                  num_microbatches)
+
+    def enable_sequence_parallel(self, mesh: Any) -> None:
+        """Megatron-SP over ``mesh``'s model axis (``parallel/sequence.py``).
+        Needs ``scan_layers=True``, as in JAX."""
+        self._enable_layer_runner(self.module.encoder.transformer, mesh, "sequence parallelism", _SCAN_HINT)
+
+    def enable_ring_attention(self, mesh: Any, axis: str = "model") -> None:
+        """Not ported: ring attention over a mesh."""
+        raise NotImplementedError("AVES enable_ring_attention: ring attention over a mesh is not ported "
+                                  "(ROADMAP queue 1, item 14, part 3)")

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from avex_tpu_torch.configs import AudioConfig
+from avex_tpu_torch.models.common import unstack_state
 from avex_tpu_torch.ops.frontend import AudioProcessor
 
 logger = logging.getLogger(__name__)
@@ -328,6 +329,26 @@ class ModelBase:
         """The module's state dict, in the port's own key layout."""
         return self.module.state_dict()
 
+    def _enable_layer_runner(self, stack: Any, mesh: Any, what: str, hint: str,
+                             num_microbatches: Optional[int] = None) -> None:
+        """Run ``stack``'s layers through a mesh's model axis (JAX's
+        ``enable_pipeline`` / ``enable_sequence_parallel``): ``what`` is
+        ``"pipeline parallelism"`` or ``"sequence parallelism"``; both need
+        the stacked layout, as in JAX (``hint`` says how to ask for it)."""
+        from avex_tpu_torch.parallel.pipeline import make_pipeline_runner
+        from avex_tpu_torch.parallel.sequence import make_sequence_parallel_runner
+        from avex_tpu_torch.parallel.tensor import TensorParallelLayout
+
+        if self.stacked_layers is None:
+            raise ValueError(f"{what} needs the stacked (scan_layers=True) parameter layout; {hint}")
+        if what == "pipeline parallelism":
+            stack.layer_runner = make_pipeline_runner(mesh, num_microbatches=num_microbatches)
+            stack.shared_axis = mesh.model_axis
+        else:  # Megatron-SP comes with tensor parallelism: the tensors JAX's _tp_shard_params cuts are cut
+            stack.layer_runner = make_sequence_parallel_runner(mesh)
+            if mesh.model_size > 1:
+                self.model_axis_layout = TensorParallelLayout(self.module, mesh, sequence=True)
+
     def enable_gradient_checkpointing(self) -> None:
         """Recompute each layer's activations in the backward pass; see subclasses."""
         raise NotImplementedError(f"{type(self).__name__} does not support gradient checkpointing.")
@@ -344,10 +365,20 @@ class ModelBase:
         """
         raise NotImplementedError(f"{type(self).__name__} does not support quantization.")
 
+    #: the module's layer stack in JAX's ``scan_layers`` layout at the edges
+    #: (``load_port_state_dict`` takes it stacked): its state-dict path, or None
+    stacked_layers: Optional[str] = None
+    #: what a model-axis layout made of the module (sequence parallelism sets it)
+    model_axis_layout: Any = None
+
     def load_port_state_dict(self, state: Dict[str, np.ndarray], strict: bool = False) -> None:
         """Load a state dict already in the port's key layout (e.g. from a
         model module's ``params_from_jax``). Entries of unknown name or shape
-        are skipped with a warning, or raise when ``strict``."""
+        are skipped with a warning, or raise when ``strict``. With
+        :attr:`stacked_layers` set, the stack may come stacked (JAX's
+        ``scan_layers`` layout: one entry per tensor with a leading layer axis)."""
+        if self.stacked_layers is not None:
+            state = unstack_state(state, self.stacked_layers)
         own = self.module.state_dict()
         skipped = [
             k for k, v in state.items() if k not in own or tuple(own[k].shape) != tuple(np.shape(v))

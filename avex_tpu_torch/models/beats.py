@@ -67,6 +67,8 @@ from avex_tpu_torch.models.common import (
     fold_weight_norm,
     gelu,
     layer_norm,
+    split_stacked,
+    stack_state,
     torch_dtype,
 )
 from avex_tpu_torch.ops.attention import dot_product_attention, grad_multiply, relative_position_bucket
@@ -77,6 +79,7 @@ from avex_tpu_torch.ops.attention_kernels import (
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, beats_fbank
 from avex_tpu_torch.parallel import shared_generator
+from avex_tpu_torch.parallel.tensor import copy_to_model, whole_names
 from avex_tpu_torch.quant import Int8Linear, quantize_params
 
 logger = logging.getLogger(__name__)
@@ -93,8 +96,9 @@ __all__ = [
     "quantize_beats_params",
 ]
 
-#: JAX options the port does not have yet, and the ROADMAP item of each
-_NOT_PORTED = {"scan_layers": "queue 1, item 14, part 2"}
+#: what the port does not have of JAX's BEATs yet
+_RING = "ring attention over a mesh is not ported (ROADMAP queue 1, item 14, part 3)"
+_SCAN_HINT = 'construct the model with init_config={"scan_layers": True}'
 
 
 @dataclass
@@ -163,12 +167,7 @@ class BEATsConfig:
         return config_from_dict(cls, values)
 
     def check_supported(self) -> None:
-        """Raise for the JAX package's options this port does not have yet."""
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"BEATsConfig.{name}=True is not ported to PyTorch yet (ROADMAP {item})"
-                )
+        """Raise for option values the port does not take."""
         if self.remat and self.remat_policy not in (None, "nothing", "dots"):
             raise ValueError(f"Unknown remat_policy {self.remat_policy!r} (None, 'nothing', 'dots')")
         if self.activation_fn != "gelu":
@@ -221,8 +220,25 @@ class _GatedRelPosAttention(nn.Module):
         if self.gru_rel_pos and cfg.relative_position_embedding:
             self.grep_linear = nn.Linear(self.head_dim, 8)
             self.grep_a = nn.Parameter(torch.ones(1, self.num_heads, 1, 1))
+        #: the model axis (``parallel/tensor.py``): set when the heads are cut
+        #: over it or the time axis is (sequence parallelism)
+        self.model_axis = None
+        self.heads_cut: Optional[slice] = None
 
-    def _gate(self, q_heads: torch.Tensor, layout: str) -> torch.Tensor:
+    def use_model_axis(self, axis, cut) -> list:
+        """Run this rank's heads when the projections are cut (``cut``: the
+        cut tensors' names here); returns the whole tensors read in part."""
+        self.heads_cut = axis.block(self.num_heads) if "out_proj.weight" in cut else None
+        self.model_axis = axis if self.heads_cut is not None or axis.sequence else None
+        if axis.sequence:
+            return whole_names(self, cut)
+        if self.heads_cut is None:
+            return []
+        # the heads' q/k/v biases, their rows of qkv_proj, their gate share;
+        # out_proj's bias is added after the sum over the axis
+        return [n for n in whole_names(self, cut) if not n.startswith("out_proj.")]
+
+    def _gate(self, q_heads: torch.Tensor, layout: str, grep_a: torch.Tensor) -> torch.Tensor:
         """GRU gate ``[B, H, T]`` (fp32) from q in ``[B, H, T, dh]`` ("split")
         or ``[B, T, H, dh]`` ("fused") layout."""
         gates = dense(self.grep_linear, q_heads, self.dtype)
@@ -230,7 +246,18 @@ class _GatedRelPosAttention(nn.Module):
         if layout == "fused":
             gates = gates.transpose(1, 2)  # [B, H, T, 2]
         gate_a, gate_b = gates[..., 0], gates[..., 1]
-        return gate_a * (gate_b * self.grep_a[..., 0] - 1.0) + 2.0
+        return gate_a * (gate_b * grep_a[..., 0] - 1.0) + 2.0
+
+    def _qkv(self, x: torch.Tensor, heads: Optional[slice]) -> torch.Tensor:
+        """The fused projection ``[B, T, 3e]``: every head's, or (heads cut)
+        this rank's rows of each third of the whole ``qkv_proj``."""
+        if heads is None:
+            return dense(self.qkv_proj, x, self.dtype)
+        cols = torch.arange(heads.start * self.head_dim, heads.stop * self.head_dim, device=x.device)
+        rows = torch.cat([cols + i * self.embed_dim for i in range(3)])
+        bias = self.qkv_proj.bias
+        return F.linear(x.to(self.dtype), self.qkv_proj.weight[rows].to(self.dtype),
+                        bias[rows].to(self.dtype) if bias is not None else None)
 
     def forward(
         self,
@@ -238,19 +265,28 @@ class _GatedRelPosAttention(nn.Module):
         position_bias: Optional[torch.Tensor],
         key_padding_mask: Optional[torch.Tensor],
     ) -> torch.Tensor:
+        axis, cut = self.model_axis, self.heads_cut
+        if axis is not None:
+            x = axis.enter(x, cut is not None)
         bsz, seq, _ = x.shape
-        heads, dh, e = self.num_heads, self.head_dim, self.embed_dim
+        heads, dh = self.num_heads, self.head_dim
+        grep_a = getattr(self, "grep_a", None)
+        if cut is not None:  # this rank's heads
+            heads = cut.stop - cut.start
+            position_bias = position_bias[:, cut] if position_bias is not None else None
+            grep_a = grep_a[:, cut] if grep_a is not None else None
+        e = heads * dh
         use_pallas = bool(self.use_pallas)
         has_gate = position_bias is not None and self.gru_rel_pos
 
         if self.fused_qkv:
-            qkv = dense(self.qkv_proj, x, self.dtype)  # [B, T, 3E]
+            qkv = self._qkv(x, cut)  # [B, T, 3e]
             if use_pallas and position_bias is not None and fused_qkv_compatible(e, heads):
-                gate = self._gate(qkv[..., :e].unflatten(-1, (heads, dh)), "fused") if has_gate else None
+                gate = self._gate(qkv[..., :e].unflatten(-1, (heads, dh)), "fused", grep_a) if has_gate else None
                 out = fused_qkv_gated_attention(
                     qkv, heads, position_bias[0], gate, key_padding_mask, scale=dh**-0.5
                 )
-                return dense(self.out_proj, out, self.dtype)
+                return self._output(out)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
         else:
             q, k, v = (
@@ -258,7 +294,7 @@ class _GatedRelPosAttention(nn.Module):
                 for proj in (self.q_proj, self.k_proj, self.v_proj)
             )
 
-        gate = self._gate(q, "split") if has_gate else None
+        gate = self._gate(q, "split", grep_a) if has_gate else None
         if use_pallas and position_bias is not None:
             out = gated_bias_attention(
                 q, k, v, position_bias[0], gate, key_padding_mask, scale=dh**-0.5
@@ -277,7 +313,16 @@ class _GatedRelPosAttention(nn.Module):
             logits_dtype = self.dtype if fast else torch.float32
             out = dot_product_attention(q, k, v, bias=bias, scale=dh**-0.5, logits_dtype=logits_dtype)
         out = out.transpose(1, 2).reshape(bsz, seq, e)
-        return dense(self.out_proj, out, self.dtype)
+        return self._output(out)
+
+    def _output(self, out: torch.Tensor) -> torch.Tensor:
+        """``out_proj`` (row-parallel with the heads cut: its sum over the axis
+        runs in ``dense``); a whole attention under sequence parallelism
+        keeps this rank's positions."""
+        y = dense(self.out_proj, out, self.dtype)
+        if self.model_axis is not None and self.heads_cut is None:
+            y = self.model_axis.leave(y, cut=False)
+        return y
 
 
 class _EncoderLayer(nn.Module):
@@ -298,6 +343,19 @@ class _EncoderLayer(nn.Module):
         self.fc1 = _projection(cfg, dtype, e, cfg.encoder_ffn_embed_dim)
         self.fc2 = _projection(cfg, dtype, cfg.encoder_ffn_embed_dim, e)
         self.final_layer_norm = nn.LayerNorm(e, eps=1e-5)
+        self.mlp_axis = None  # the model axis when fc1/fc2 are cut over it
+
+    def use_model_axis(self, axis, cut) -> list:
+        """Cut fc1/fc2 run this rank's features; returns the whole tensors
+        read in part (fc1's bias; under sequence parallelism every whole
+        tensor, which sees this rank's positions)."""
+        self.mlp_axis = axis if "fc1.weight" in cut else None
+        if axis.sequence:
+            return whole_names(self, cut)
+        return ["fc1.bias"] if self.mlp_axis is not None and self.fc1.bias is not None else []
+
+    def _mlp_in(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp_axis.enter(x, cut=True) if self.mlp_axis is not None else x
 
     def forward(
         self,
@@ -317,15 +375,17 @@ class _EncoderLayer(nn.Module):
             h = self.self_attn(layer_norm(self.self_attn_layer_norm, x, dt), position_bias, key_padding_mask)
             x = residual + drop(h, cfg.dropout)
             residual = x
-            h = gelu(dense(self.fc1, layer_norm(self.final_layer_norm, x, dt), dt))
-            fc2_out = dense(self.fc2, drop(h, cfg.activation_dropout), dt)
+            h = gelu(dense(self.fc1, self._mlp_in(layer_norm(self.final_layer_norm, x, dt)), dt))
+            h = dropout(h, cfg.activation_dropout, deterministic, generator, columns=self.fc1)
+            fc2_out = dense(self.fc2, h, dt)
             x = residual + drop(fc2_out, cfg.dropout)
         else:
             h = self.self_attn(x, position_bias, key_padding_mask)
             x = x * self.alpha + drop(h, cfg.dropout)
             x = layer_norm(self.self_attn_layer_norm, x, dt)
             residual = x
-            h = drop(gelu(dense(self.fc1, x, dt)), cfg.activation_dropout)
+            h = gelu(dense(self.fc1, self._mlp_in(x), dt))
+            h = dropout(h, cfg.activation_dropout, deterministic, generator, columns=self.fc1)
             fc2_out = dense(self.fc2, h, dt)
             x = residual * self.alpha + drop(fc2_out, cfg.dropout)
             x = layer_norm(self.final_layer_norm, x, dt)
@@ -347,6 +407,18 @@ class _TransformerEncoder(nn.Module):
             self.relative_attention_bias = nn.Embedding(cfg.num_buckets, cfg.encoder_attention_heads)
         self.layers = nn.ModuleList(_EncoderLayer(cfg, dtype) for _ in range(cfg.encoder_layers))
         self._buckets: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+        #: ``runner(layer_fn, layers, x, batched, shared)`` that owns the layer
+        #: loop (``parallel/pipeline.py``, ``parallel/sequence.py``), or None
+        self.layer_runner = None
+        #: the model axis whose ranks each read a part of the shared bias
+        self.shared_axis = None
+
+    def use_model_axis(self, axis, cut) -> list:
+        """The layers read the shared bias in part (their heads, their
+        positions): its gradient is summed over the axis."""
+        if axis.sequence or any("self_attn.out_proj" in n for n in cut):
+            self.shared_axis = axis.mesh
+        return []
 
     def position_bias(self, seq: int, device: torch.device) -> torch.Tensor:
         """The shared ``[1, H, T, T]`` fp32 bias, contiguous."""
@@ -379,12 +451,38 @@ class _TransformerEncoder(nn.Module):
         x = dropout(x, cfg.dropout, deterministic, generator)
 
         position_bias = self.position_bias(seq, x.device) if cfg.relative_position_embedding else None
+        if position_bias is not None and self.shared_axis is not None:
+            position_bias = copy_to_model(position_bias, self.shared_axis)
         use_layerdrop = not disable_layerdrop and cfg.encoder_layerdrop > 0 and not deterministic
         if use_layerdrop and generator is None:
             raise ValueError("LayerDrop outside deterministic mode needs a torch.Generator")
         remat = cfg.remat and torch.is_grad_enabled()
 
         intermediates: Dict[str, torch.Tensor] = {}
+        if self.layer_runner is not None:
+            # Runner-driven stack (pipeline or sequence parallelism): as in
+            # JAX, deterministic only, and no per-layer fc2 taps (only the
+            # final activations leave the stack).
+            if use_layerdrop:
+                raise ValueError("runner-driven encoder does not support layerdrop")
+            if not deterministic and max(cfg.dropout, cfg.attention_dropout, cfg.activation_dropout) > 0:
+                raise ValueError("runner-driven encoder (pipeline/sequence-parallel) is deterministic-only; "
+                                 "set the encoder dropout rates to 0 to train with it")
+            has_mask, ratio = padding_mask is not None, cfg.layer_wise_gradient_decay_ratio
+
+            def layer_fn(layer, h, *extras):
+                mask = extras[0] if has_mask else None
+                bias = extras[-1] if position_bias is not None else None
+                if ratio != 1.0:
+                    h = grad_multiply(h, ratio)
+                return layer(h, bias, mask, True)[0]
+
+            batched = (padding_mask,) if has_mask else ()
+            shared = (position_bias,) if position_bias is not None else ()
+            x = self.layer_runner(layer_fn, self.layers, x, batched, shared)
+            if cfg.layer_norm_first:
+                x = layer_norm(self.layer_norm, x, dt)
+            return x, intermediates
         for i, layer in enumerate(self.layers):
             if cfg.layer_wise_gradient_decay_ratio != 1.0:
                 x = grad_multiply(x, cfg.layer_wise_gradient_decay_ratio)
@@ -570,10 +668,15 @@ def _concat_qkv(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+#: the encoder's layer stack in the state dict
+STACK = "backbone.encoder.layers"
+
+
 def convert_beats_state_dict(
     state: Mapping[str, np.ndarray],
     cfg: BEATsConfig,
     num_classes: Optional[int] = None,
+    scan_layers: Optional[bool] = None,
 ) -> Dict[str, np.ndarray]:
     """Reference BEATs checkpoint → this port's :class:`BEATsModel` state dict.
 
@@ -581,7 +684,9 @@ def convert_beats_state_dict(
     bare backbone. Weight-normed pos_conv parametrizations (``original0/1``
     or legacy ``weight_g/weight_v``) are folded; layer 0's relative-position
     table becomes the shared ``encoder.relative_attention_bias``; with
-    ``cfg.fused_qkv`` the three projections are concatenated.
+    ``cfg.fused_qkv`` the three projections are concatenated. With
+    ``scan_layers`` (default: ``cfg``'s) the layers' tensors come stacked on
+    a leading layer axis under :data:`STACK`, as JAX's converter stacks them.
     """
     if not any(k.startswith("backbone.") for k in state):
         state = {f"backbone.{k}": v for k, v in state.items()}
@@ -625,7 +730,8 @@ def convert_beats_state_dict(
 
     if cfg.fused_qkv:
         out = _concat_qkv(out)
-    return {k: np.asarray(v, dtype=np.float32) for k, v in out.items()}
+    out = {k: np.asarray(v, dtype=np.float32) for k, v in out.items()}
+    return stack_state(out, STACK) if (cfg.scan_layers if scan_layers is None else scan_layers) else out
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -639,7 +745,8 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     quantized (``Int8Dense``: ``kernel_q`` int8 ``[in, out]``,
     ``kernel_scale``) gives ``weight_q`` int8 ``[out, in]`` and fp32
     ``weight_scale`` and ``bias``, for a model built with
-    ``quantize_encoder=True``.
+    ``quantize_encoder=True``. A ``scan_layers`` tree (the encoder's
+    ``layers`` stacked on a leading layer axis) gives the per-layer keys.
     """
     out: Dict[str, np.ndarray] = {}
 
@@ -669,9 +776,9 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     if "predictor" in bb:
         dense("backbone.predictor", bb["predictor"])
 
-    enc = bb["encoder"]
+    enc = dict(bb["encoder"])
     if "layers" in enc:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1)")
+        enc.update({f"layers_{i}": layer for i, layer in enumerate(split_stacked(enc.pop("layers")))})
     put("backbone.encoder.pos_conv.weight", np.asarray(enc["pos_conv"]["kernel"]).transpose(2, 1, 0))
     put("backbone.encoder.pos_conv.bias", enc["pos_conv"]["bias"])
     norm("backbone.encoder.layer_norm", enc["layer_norm"])
@@ -767,6 +874,30 @@ class Model(ModelBase):
         """Load a reference BEATs checkpoint (SSL / fine-tuned / NatureLM naming)."""
         converted = convert_beats_state_dict(state, self.cfg, num_classes=self.num_classes)
         self.load_port_state_dict(converted, strict=strict)
+
+    @property
+    def stacked_layers(self) -> Optional[str]:
+        return STACK if self.cfg.scan_layers else None
+
+    def _encoder(self) -> "_TransformerEncoder":
+        return self.module.backbone.encoder
+
+    def enable_pipeline(self, mesh, num_microbatches: Optional[int] = None) -> None:
+        """Run the encoder's layers pipeline-parallel over ``mesh``'s model
+        axis (GPipe, ``parallel/pipeline.py``): stage ``s`` runs its
+        ``encoder_layers / stages`` layers on each microbatch. Needs
+        ``scan_layers=True`` and, to train, dropout rates of 0 (as in JAX)."""
+        self._enable_layer_runner(self._encoder(), mesh, "pipeline parallelism", _SCAN_HINT, num_microbatches)
+
+    def enable_sequence_parallel(self, mesh) -> None:
+        """Megatron-SP over ``mesh``'s model axis (``parallel/sequence.py``):
+        the activations between layers hold each rank's block of positions.
+        Needs ``scan_layers=True``, as in JAX."""
+        self._enable_layer_runner(self._encoder(), mesh, "sequence parallelism", _SCAN_HINT)
+
+    def enable_ring_attention(self, mesh, axis: str = "model") -> None:
+        """Not ported: ring attention over a mesh."""
+        raise NotImplementedError(f"BEATs enable_ring_attention: {_RING}")
 
     def enable_gradient_checkpointing(self) -> None:
         """Checkpoint every encoder layer (``remat``): its activations are

@@ -21,7 +21,7 @@ spectrogram of 32 kHz audio:
 as in JAX); :func:`params_from_jax` (EAT's: Bird-MAE has the same tree
 without the pre-norm) carries a JAX ``variables["params"]`` tree across. The JAX package's layer-stack options (``scan_layers``,
 pipeline and sequence parallelism, ring attention) raise
-``NotImplementedError``.
+``NotImplementedError`` (ROADMAP queue 1, item 14, part 3).
 """
 
 from __future__ import annotations
@@ -198,15 +198,15 @@ class Model(ModelBase):
             self._layer_names = [f"model.blocks.{i}.attn.proj" for i in range(self.depth)]
 
     def enable_pipeline(self, mesh: Any, num_microbatches: Optional[int] = None) -> None:
-        """Not ported: GPipe over a mesh (ROADMAP queue 1, item 14, part 2)."""
+        """Not ported: GPipe over a mesh (ROADMAP queue 1, item 14, part 3)."""
         check_unported("Bird-MAE", **{"pipeline parallelism": True})
 
     def enable_sequence_parallel(self, mesh: Any) -> None:
-        """Not ported: Megatron sequence parallelism (ROADMAP queue 1, item 14, part 2)."""
+        """Not ported: Megatron sequence parallelism (ROADMAP queue 1, item 14, part 3)."""
         check_unported("Bird-MAE", **{"sequence parallelism": True})
 
     def enable_ring_attention(self, mesh: Any, axis: str = "model") -> None:
-        """Not ported: ring attention over a mesh (ROADMAP queue 1, item 14, part 2)."""
+        """Not ported: ring attention over a mesh (ROADMAP queue 1, item 14, part 3)."""
         check_unported("Bird-MAE", **{"ring attention": True})
 
     def load_state_dict(self, state: Mapping[str, Any], strict: bool = False) -> None:

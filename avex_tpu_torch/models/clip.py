@@ -134,8 +134,16 @@ class _Projection(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim_in, hidden)
         self.fc2 = nn.Linear(hidden, out)
+        self.model_axis = None  # fc1 column-parallel and fc2 row-parallel over it (parallel/tensor.py)
+
+    def use_model_axis(self, axis, cut) -> list:
+        """Run this rank's hidden features; returns the whole tensors read in part."""
+        self.model_axis = axis if "fc1.weight" in cut else None
+        return ["fc1.bias"] if self.model_axis is not None else []
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.model_axis is not None:
+            x = self.model_axis.enter(x, cut=True)
         return dense(self.fc2, F.relu(dense(self.fc1, x, dtype)), dtype)
 
 

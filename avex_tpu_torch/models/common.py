@@ -39,6 +39,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.parallel import all_reduce_sum, batch_mesh
+from avex_tpu_torch.parallel.tensor import column_rows, linear_bias, row_parallel_dense
 from avex_tpu_torch.quant import Int8Linear
 
 __all__ = [
@@ -89,20 +90,30 @@ def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
     An :class:`Int8Linear` (``Int8Dense``) is called as it is: it quantizes
     x itself and adds its bias in fp32 before the cast to its output type.
+    A layer cut over the model axis (``parallel/tensor.py``) computes its
+    part: a column-parallel one its block of output features (and bias), a
+    row-parallel one its partial sum, completed over the axis.
     """
     if isinstance(layer, Int8Linear):
         return layer(x)
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    if getattr(layer, "tp_axis", None) is not None:
+        return row_parallel_dense(layer, x, dtype)
+    bias = linear_bias(layer)
+    bias = bias.to(dtype) if bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def dropout(
-    x: torch.Tensor, rate: float, deterministic: bool, generator: Optional[torch.Generator]
+    x: torch.Tensor, rate: float, deterministic: bool, generator: Optional[torch.Generator],
+    columns: Optional[nn.Linear] = None,
 ) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale it by ``1 / (1 - rate)``, in x's type; the identity when
     ``deterministic`` or ``rate == 0``. The draws come from ``generator``,
-    never from the global RNG."""
+    never from the global RNG. ``columns``: the layer whose output ``x`` is;
+    cut column-parallel (``parallel/tensor.py``), the draw is the whole
+    output's and ``x`` takes its block of it, so every rank of the model
+    axis draws what one process draws."""
     if deterministic or rate == 0.0:
         return x
     if rate >= 1.0:
@@ -110,7 +121,12 @@ def dropout(
     if generator is None:
         raise ValueError("dropout outside deterministic mode needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    rows = column_rows(columns) if columns is not None else None
+    if rows is not None:
+        draw = torch.rand(x.shape[:-1] + (columns.out_features,), generator=generator, device=x.device)
+        keep = draw[..., rows] < keep_prob
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -254,6 +270,48 @@ def conv_positions(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torc
     if conv.kernel_size[0] % 2 == 0:
         pos = pos[:, :-1, :]
     return pos
+
+
+def split_stacked(tree: Mapping[str, Any]) -> list:
+    """A JAX ``nn.scan`` parameter tree (every leaf with a leading layer axis)
+    → the per-layer trees, in order."""
+    def leaves(node):
+        return [leaf for v in node.values() for leaf in (leaves(v) if isinstance(v, Mapping) else [v])]
+
+    def take(node, i):
+        return {k: take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in node.items()}
+
+    return [take(tree, i) for i in range(np.shape(leaves(tree)[0])[0])]
+
+
+def unstack_state(state: Mapping[str, Any], stack: str) -> dict:
+    """A port state dict in the stacked layout (``{stack}.<name>``, leading
+    layer axis) → the per-layer one (``{stack}.{i}.<name>``); other keys as
+    they are."""
+    out = {}
+    for key, value in state.items():
+        if key.startswith(stack + ".") and not key[len(stack) + 1:].split(".", 1)[0].isdigit():
+            for i, layer in enumerate(np.asarray(value)):
+                out[f"{stack}.{i}.{key[len(stack) + 1:]}"] = layer
+        else:
+            out[key] = value
+    return out
+
+
+def stack_state(state: Mapping[str, Any], stack: str) -> dict:
+    """The per-layer port state dict → the stacked one (JAX's ``scan_layers``
+    layout at the edges: ``{stack}.<name>`` with a leading layer axis)."""
+    out, layers = {}, {}
+    for key, value in state.items():
+        rest = key[len(stack) + 1:] if key.startswith(stack + ".") else ""
+        index, _, name = rest.partition(".")
+        if index.isdigit() and name:
+            layers.setdefault(name, {})[int(index)] = np.asarray(value)
+        else:
+            out[key] = value
+    for name, per_layer in layers.items():
+        out[f"{stack}.{name}"] = np.stack([per_layer[i] for i in range(len(per_layer))])
+    return out
 
 
 def fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:

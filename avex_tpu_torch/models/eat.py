@@ -23,9 +23,12 @@ Module names follow the reference's ``backbone.model`` layout, so
 :func:`convert_eat_state_dict` is key renaming; :func:`params_from_jax`
 carries a JAX ``variables["params"]`` tree (as numpy) across. The JAX
 ``_Block`` has no dropout, so training runs the same forward; on CUDA the K5
-route's backward is the K6 kernel. The layer-stack layouts of the JAX package
-(``scan_layers``, ``layer_runner``) and ring attention raise
-``NotImplementedError``.
+route's backward is the K6 kernel. ``scan_layers`` is JAX's stacked layout
+at the edges (:func:`convert_eat_state_dict`, :func:`params_from_jax`,
+``load_port_state_dict``); the block stack may be run by a ``layer_runner``
+(``enable_pipeline``, ``enable_sequence_parallel``), and a block's
+``mlp.fc1``/``mlp.fc2`` cut by tensor parallelism (``parallel/tensor.py``).
+Ring attention raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +42,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from avex_tpu_torch.models.base import ModelBase
-from avex_tpu_torch.models.common import build_module, dense, gelu, layer_norm, torch_dtype
+from avex_tpu_torch.models.common import (
+    build_module,
+    dense,
+    gelu,
+    layer_norm,
+    split_stacked,
+    stack_state,
+    torch_dtype,
+)
 from avex_tpu_torch.ops.attention import dot_product_attention
 from avex_tpu_torch.ops.attention_kernels import (
     fused_qkv_attention,
@@ -47,6 +58,7 @@ from avex_tpu_torch.ops.attention_kernels import (
     gated_bias_attention,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, eat_fbank
+from avex_tpu_torch.parallel.tensor import whole_names
 
 logger = logging.getLogger(__name__)
 
@@ -59,15 +71,19 @@ __all__ = [
     "sincos_2d_positions",
 ]
 
-#: JAX layer-stack options and the ROADMAP item that brings each to the port.
+#: JAX options still to port (ring attention, Bird-MAE's layer-stack
+#: options) and the ROADMAP item that brings each to the port.
 _NOT_PORTED = {
-    "scan_layers": "queue 1, item 14, part 2",
-    "layer_runner": "queue 1, item 14, part 2",
-    "ring_mesh": "queue 1, item 14, part 2",
-    "pipeline parallelism": "queue 1, item 14, part 2",
-    "sequence parallelism": "queue 1, item 14, part 2",
-    "ring attention": "queue 1, item 14, part 2",
+    "scan_layers": "queue 1, item 14, part 3",
+    "layer_runner": "queue 1, item 14, part 3",
+    "ring_mesh": "queue 1, item 14, part 3",
+    "pipeline parallelism": "queue 1, item 14, part 3",
+    "sequence parallelism": "queue 1, item 14, part 3",
+    "ring attention": "queue 1, item 14, part 3",
 }
+
+
+_SCAN_HINT = 'construct the model with init_config={"scan_layers": True}'
 
 
 def sincos_2d_positions(embed_dim: int, grid_h: int, grid_w: int) -> np.ndarray:
@@ -119,12 +135,27 @@ class _Block(nn.Module):
         self.attn = _Attention(dim, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio))
+        # the model axis: of the attention under sequence parallelism (JAX's
+        # tensor parallelism cuts no attention tensor of this block), of the
+        # MLP when fc1/fc2 are cut
+        self.attn_axis = self.mlp_axis = None
+
+    def use_model_axis(self, axis, cut) -> list:
+        """Run this rank's part; returns the whole tensors read in part."""
+        self.attn_axis = axis if axis.sequence else None
+        self.mlp_axis = axis if "mlp.fc1.weight" in cut else None
+        if axis.sequence:
+            return whole_names(self, cut)
+        return ["mlp.fc1.bias"] if self.mlp_axis is not None else []
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        bsz, seq, dim = x.shape
         dt, heads = self.dtype, self.heads
+        h = layer_norm(self.norm1, x, dt)
+        if self.attn_axis is not None:
+            h = self.attn_axis.enter(h, cut=False)  # every position's keys
+        bsz, seq, dim = h.shape
         head_dim = dim // heads
-        qkv = dense(self.attn.qkv, layer_norm(self.norm1, x, dt), dt)  # [B, T, 3E]
+        qkv = dense(self.attn.qkv, h, dt)  # [B, T, 3E]
         if self.use_pallas and fused_qkv_compatible(dim, heads):
             attn = fused_qkv_attention(qkv, heads, scale=head_dim**-0.5)  # K5
         else:
@@ -139,16 +170,26 @@ class _Block(nn.Module):
                 attn = dot_product_attention(q, k, v, scale=head_dim**-0.5, logits_dtype=dt)
             attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
         proj_out = dense(self.attn.proj, attn, dt)
+        if self.attn_axis is not None:
+            proj_out = self.attn_axis.leave(proj_out, cut=False)
         x = x + proj_out
-        h = gelu(dense(self.mlp.fc1, layer_norm(self.norm2, x, dt), dt))
+        h = layer_norm(self.norm2, x, dt)
+        if self.mlp_axis is not None:
+            h = self.mlp_axis.enter(h, cut=True)
+        h = gelu(dense(self.mlp.fc1, h, dt))
         return x + dense(self.mlp.fc2, h, dt), proj_out
 
 
 def apply_vit_blocks(
-    blocks: nn.ModuleList, tokens: torch.Tensor, *, key_prefix: str
+    blocks: nn.ModuleList, tokens: torch.Tensor, *, key_prefix: str, layer_runner: Any = None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run a pre-norm ViT block stack, one block after another, collecting
-    each block's ``attn.proj`` output under ``{key_prefix}{i}.attn.proj``."""
+    each block's ``attn.proj`` output under ``{key_prefix}{i}.attn.proj``;
+    or hand the stack to ``layer_runner`` (``runner(layer_fn, blocks, x,
+    batched, shared)``: pipeline or sequence parallelism), which gives the
+    final activations only, as in JAX."""
+    if layer_runner is not None:
+        return layer_runner(lambda block, h: block(h)[0], blocks, tokens, (), ()), {}
     intermediates: Dict[str, torch.Tensor] = {}
     for i, block in enumerate(blocks):
         tokens, proj_out = block(tokens)
@@ -228,7 +269,7 @@ class EATModel(nn.Module):
         ring_mesh: Any = None,
     ) -> None:
         super().__init__()
-        check_unported("EAT", scan_layers=scan_layers, layer_runner=layer_runner, ring_mesh=ring_mesh)
+        check_unported("EAT", ring_mesh=ring_mesh)
         if pooling not in ("cls", "mean"):
             raise ValueError(f"pooling must be 'cls' or 'mean', got {pooling!r}")
         self.num_classes, self.target_length = num_classes, target_length
@@ -243,6 +284,8 @@ class EATModel(nn.Module):
         if num_classes is not None:
             self.classifier = nn.Linear(dim, num_classes)
         self._positions = _PositionTables(dim)
+        #: the block stack's runner (``parallel/pipeline.py``, ``parallel/sequence.py``), or None
+        self.layer_runner = layer_runner
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None
@@ -260,7 +303,8 @@ class EATModel(nn.Module):
         cls = self.cls_token.to(dt).expand(tokens.shape[0], 1, self.dim)
         tokens = torch.cat([cls, tokens], dim=1)
 
-        tokens, intermediates = apply_vit_blocks(self.blocks, tokens, key_prefix="backbone.model.blocks.")
+        tokens, intermediates = apply_vit_blocks(self.blocks, tokens, key_prefix="backbone.model.blocks.",
+                                                 layer_runner=self.layer_runner)
         tokens = layer_norm(self.norm, tokens, dt)
         pooled = tokens[:, 0] if self.pooling == "cls" else tokens.mean(dim=1)
         aux: Dict[str, Any] = {"intermediates": intermediates, "features": tokens, "pooled": pooled}
@@ -291,7 +335,7 @@ def _normalize_eat_key(key: str) -> Optional[str]:
 
 
 def convert_eat_state_dict(
-    state: Mapping[str, np.ndarray], num_classes: Optional[int] = None
+    state: Mapping[str, np.ndarray], num_classes: Optional[int] = None, scan_layers: bool = False
 ) -> Dict[str, np.ndarray]:
     """ESP-wrapper / fairseq EAT state dict → this port's :class:`EATModel` state dict.
 
@@ -301,6 +345,8 @@ def convert_eat_state_dict(
     arrive as ``backbone.model.*``; ``local_encoder.proj`` is the patch
     embedding and ``extra_tokens`` the CLS token. EMA and decoder entries are
     skipped, as are unknown keys and, without ``num_classes``, the classifier.
+    With ``scan_layers`` the blocks' tensors come stacked on a leading layer
+    axis under ``blocks``, as JAX's converter stacks them.
     """
     out: Dict[str, np.ndarray] = {}
     for key, value in state.items():
@@ -325,7 +371,7 @@ def convert_eat_state_dict(
                 sub[0] == "mlp" and sub[1] in ("fc1", "fc2")
             ):
                 out[name] = value
-    return out
+    return stack_state(out, "blocks") if scan_layers else out
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -334,10 +380,12 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     state dict.
 
     Dense ``[in, out]`` → Linear ``[out, in]``; the patch conv ``[kh, kw, 1,
-    out]`` → ``[out, 1, kh, kw]``; LayerNorm ``scale`` → ``weight``.
+    out]`` → ``[out, 1, kh, kw]``; LayerNorm ``scale`` → ``weight``. A ``scan_layers`` tree
+    (``blocks`` stacked on a leading layer axis) gives the per-block keys.
     """
     if "blocks" in params:
-        raise NotImplementedError("scan_layers (stacked) JAX params are not ported (ROADMAP queue 1, item 14, part 2)")
+        params = dict(params)
+        params.update({f"blocks_{i}": block for i, block in enumerate(split_stacked(params.pop("blocks")))})
     out: Dict[str, np.ndarray] = {}
 
     def put(key: str, value: Any) -> None:
@@ -409,13 +457,13 @@ class Model(ModelBase):
         super().__init__(device=device, audio_config=audio_config)
         self.num_classes = None if return_features_only else num_classes
         self.depth = depth
+        self.stacked_layers = "blocks" if scan_layers else None
         dtype = torch_dtype(compute_dtype)
         self.module = build_module(
             lambda: EATModel(
                 num_classes=self.num_classes, target_length=target_length,
                 norm_mean=eat_norm_mean, norm_std=eat_norm_std, depth=depth, dim=dim,
                 heads=heads, pooling=pooling, dtype=dtype, use_pallas=bool(use_pallas),
-                scan_layers=scan_layers,
             ),
             seed, self.device,
         )
@@ -432,3 +480,17 @@ class Model(ModelBase):
     def load_state_dict(self, state: Mapping[str, np.ndarray], strict: bool = False) -> None:
         """Load an EAT checkpoint (fairseq or wrapper naming, remapped)."""
         self.load_port_state_dict(convert_eat_state_dict(state, self.num_classes), strict=strict)
+
+    def enable_pipeline(self, mesh: Any, num_microbatches: Optional[int] = None) -> None:
+        """Run the block stack pipeline-parallel over ``mesh``'s model axis
+        (GPipe, ``parallel/pipeline.py``). Needs ``scan_layers=True``, as in JAX."""
+        self._enable_layer_runner(self.module, mesh, "pipeline parallelism", _SCAN_HINT, num_microbatches)
+
+    def enable_sequence_parallel(self, mesh: Any) -> None:
+        """Megatron-SP over ``mesh``'s model axis (``parallel/sequence.py``);
+        the 1 + patches tokens must divide over it. Needs ``scan_layers=True``."""
+        self._enable_layer_runner(self.module, mesh, "sequence parallelism", _SCAN_HINT)
+
+    def enable_ring_attention(self, mesh: Any, axis: str = "model") -> None:
+        """Not ported: ring attention over a mesh."""
+        check_unported("EAT", **{"ring attention": True})

@@ -16,7 +16,7 @@ past it are dropped (their combine weight is 0, as in Switch). The dense
 ``[k·N, X, C]`` dispatch grows as ``O(k²·capacity_factor·N²)`` elements;
 :class:`MoEMLP` refuses past ``max_dispatch_elements``. The expert GELU is
 the tanh form (``jax.nn.gelu``'s default). Expert parallelism (a mesh and
-``shard_moe_params``) is ROADMAP queue 1, item 14, part 2.
+``shard_moe_params``) is ROADMAP queue 1, item 14, part 3.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from torch import nn
 
 __all__ = ["MoEMLP", "lecun_normal_", "shard_moe_params", "switch_load_balancing_loss"]
 
-_NOT_PORTED = "expert parallelism over a mesh is not ported (ROADMAP queue 1, item 14, part 2)"
+_NOT_PORTED = "expert parallelism over a mesh is not ported (ROADMAP queue 1, item 14, part 3)"
 
 
 def lecun_normal_(tensor: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:

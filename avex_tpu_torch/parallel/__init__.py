@@ -16,16 +16,21 @@ around a step on a data-sharded mesh is written out:
 - the ZeRO-3 layout (:func:`fsdp_sharding`, :func:`shard_params_fsdp`,
   ``parallel/fsdp.py``).
 
-A mesh is a :class:`Mesh`: the process group over the data axis. Without
-an initialised process group it is a one-process mesh and no collective
-runs, so a run without ``torch.distributed`` is what it always was. The
-backend follows the run's device (NCCL for ``cuda``, gloo for ``cpu``)
-unless the caller names one. On gloo the gathers and reduce-scatters are
-written out of ``all_reduce``, the collective gloo runs on CUDA tensors as
-well as on host ones (PyTorch's backend table gives gloo ``broadcast`` and
-``all_reduce`` on the GPU), so the CPU runs the code that two gloo ranks
-sharing a card run. Tensor parallelism over a ``model`` axis is ROADMAP
-queue 1, item 14, part 2.
+A mesh is a :class:`Mesh`: ``data`` x ``model`` processes, rank ``r`` at
+``(r // model, r % model)`` (JAX's ``devices.reshape(data, model)``), with
+one process group per model column (the data axis's collectives) and one
+per data row (the model axis's: tensor parallelism, ``parallel/tensor.py``;
+the pipeline, ``parallel/pipeline.py``; sequence parallelism,
+``parallel/sequence.py``). Without an initialised process group it is a
+one-process mesh and no collective runs, so a run without
+``torch.distributed`` is what it always was. The backend follows the run's
+device (NCCL for ``cuda``, gloo for ``cpu``) unless the caller names one.
+:func:`_gloo` is the one place that tells the two apart: on gloo the
+gathers, reduce-scatters and the pipeline's ring shift are written out of
+``all_reduce``, the collective gloo runs on CUDA tensors as well as on host
+ones (PyTorch's backend table gives gloo ``broadcast`` and ``all_reduce`` on
+the GPU), so the CPU runs the code that two gloo ranks sharing a card run;
+on NCCL they are NCCL's own collectives and ``batch_isend_irecv``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ __all__ = [
     "all_reduce_sum",
     "average_gradients",
     "batch_mesh",
+    "broadcast_from",
     "check_equal_rows",
     "fsdp_sharding",
     "gather_metrics",
@@ -63,6 +69,7 @@ __all__ = [
     "rank_device",
     "reduce_scatter_into",
     "replicate",
+    "ring_shift",
     "shard_batch",
     "shard_params_fsdp",
     "shared_generator",
@@ -70,9 +77,6 @@ __all__ = [
     "sum_over_ranks",
     "world_size",
 ]
-
-_PART_2 = "ROADMAP queue 1, item 14, part 2"
-
 
 # ---------------------------------------------------------------------------
 # Processes
@@ -199,11 +203,16 @@ def init_multihost(
 
 @dataclass(frozen=True)
 class Mesh:
-    """The data axis: ``size`` processes, this one ``rank``, one device each.
+    """A (data, model) mesh of processes, one device each, seen from one of them.
 
-    ``group`` is the process group of the collectives, ``None`` for a
-    one-process mesh (then no collective runs). ``device`` is where this
-    process's batch and the collectives' buffers live.
+    ``size``, ``rank`` and ``group`` are the data axis: its rank count, this
+    process's index on it and the process group of its collectives (this
+    process's model column), ``None`` where no collective runs over it (a
+    one-process mesh, or a data axis of one beside a model axis).
+    ``model_size``, ``model_rank`` and ``model_group`` are the model axis
+    (this process's data row), ``model_group`` ``None`` for a model axis of
+    one. ``device`` is where this process's batch and the collectives'
+    buffers live.
     """
 
     size: int
@@ -211,15 +220,26 @@ class Mesh:
     group: Any
     device: torch.device
     axis_names: Tuple[str, str] = ("data", "model")
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: Any = None
 
     @property
     def distributed(self) -> bool:
-        """Whether the collectives run (a process group, of one rank or more)."""
-        return self.group is not None
+        """Whether the process runs in a process group (of one rank or more)."""
+        return self.group is not None or self.model_group is not None
 
     @property
     def backend(self) -> Optional[str]:
-        return dist.get_backend(self.group) if self.group is not None else None
+        group = self.group if self.group is not None else self.model_group
+        return dist.get_backend(group) if group is not None else None
+
+    @property
+    def model_axis(self) -> "Mesh":
+        """The model axis as a mesh of one axis: its ``size``, ``rank`` and
+        ``group`` are this process's data row's, so the collectives below
+        run over it as they run over the data axis."""
+        return Mesh(self.model_size, self.model_rank, self.model_group, self.device, self.axis_names)
 
 
 def make_mesh(
@@ -230,21 +250,32 @@ def make_mesh(
 ) -> Mesh:
     """The (data, model) mesh over the run's processes, one device each.
 
-    ``data=-1`` takes every process. A ``model`` axis larger than 1
-    (tensor parallelism) is item 14, part 2. ``device``: this process's
-    (:func:`rank_device` of it).
+    ``data=-1`` takes every process the model axis leaves. Rank ``r`` sits at
+    ``(r // model, r % model)``; every rank builds every column's and every
+    row's process group, in the same order (``dist.new_group`` is
+    collective). ``device``: this process's (:func:`rank_device` of it).
     """
     if model < 1:
         raise ValueError("model axis size must be >= 1")
-    if model > 1:
-        raise NotImplementedError(f"a model axis of {model} (tensor parallelism) is not ported ({_PART_2})")
     processes = world_size()
-    data = processes if data == -1 else data
-    if data != processes:
+    if data == -1:
+        if processes % model:
+            raise ValueError(f"{processes} processes not divisible by model={model}")
+        data = processes // model
+    if data * model != processes:
         raise ValueError(f"mesh {data}x{model} != {processes} processes (one device each)")
-    group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
-    rank = dist.get_rank() if group is not None else 0
-    return Mesh(size=data, rank=rank, group=group, device=rank_device(device), axis_names=tuple(axis_names))
+    device = rank_device(device)
+    names = tuple(axis_names)
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh(size=1, rank=0, group=None, device=device, axis_names=names)
+    rank = dist.get_rank()
+    if model == 1:
+        return Mesh(size=data, rank=rank, group=dist.group.WORLD, device=device, axis_names=names)
+    columns = [dist.new_group([i * model + j for i in range(data)]) for j in range(model)] if data > 1 else None
+    rows = [dist.new_group([i * model + j for j in range(model)]) for i in range(data)]
+    row, column = divmod(rank, model)
+    return Mesh(size=data, rank=row, group=columns[column] if columns else None, device=device, axis_names=names,
+                model_size=model, model_rank=column, model_group=rows[row])
 
 
 # ---------------------------------------------------------------------------
@@ -252,13 +283,21 @@ def make_mesh(
 # ---------------------------------------------------------------------------
 
 
-def _gloo(mesh: Mesh) -> bool:
-    return mesh.backend == "gloo"
+def _gloo(mesh: Mesh, tensor: Optional[torch.Tensor] = None) -> bool:
+    """Whether the collectives over ``mesh`` are written out of ``all_reduce``
+    (gloo) or are the backend's own (NCCL). Raises for a backend or a tensor
+    that neither form carries, rather than moving the work elsewhere."""
+    backend = mesh.backend
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"the collectives are written for gloo and NCCL, not {backend!r}")
+    if backend == "nccl" and tensor is not None and tensor.device.type != "cuda":
+        raise ValueError(f"NCCL carries CUDA tensors only, not one on {tensor.device}")
+    return backend == "gloo"
 
 
 def all_gather_into(out: torch.Tensor, inp: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``out`` (``size`` times ``inp``'s rows) ← every rank's ``inp`` in rank order."""
-    if _gloo(mesh):
+    if _gloo(mesh, inp):
         # gloo gathers no CUDA tensor: each rank fills its rows of a zeroed
         # buffer and the sum over ranks is the gather (x + 0 is x).
         out.zero_()
@@ -272,13 +311,41 @@ def all_gather_into(out: torch.Tensor, inp: torch.Tensor, mesh: Mesh) -> torch.T
 def reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``out`` ← this rank's block of the sum over ranks of ``inp``
     (``size`` blocks of ``out``'s size, in rank order)."""
-    if _gloo(mesh):
+    if _gloo(mesh, inp):
         # gloo has no reduce-scatter on CUDA tensors: sum everything, keep our block.
         total = inp.contiguous().clone()
         dist.all_reduce(total, group=mesh.group)
         out.copy_(total.view(mesh.size, -1)[mesh.rank].view_as(out))
     else:
         dist.reduce_scatter_tensor(out, inp.contiguous(), group=mesh.group)
+    return out
+
+
+def broadcast_from(x: torch.Tensor, src: int, mesh: Mesh) -> torch.Tensor:
+    """Rank ``src``'s ``x`` (of the mesh's axis) on every rank, in place."""
+    _gloo(mesh, x)
+    dist.broadcast(x, src=dist.get_global_rank(mesh.group, src), group=mesh.group)
+    return x
+
+
+def ring_shift(x: torch.Tensor, mesh: Mesh, step: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` passed ``step`` ranks on around the axis's ring
+    (JAX's ``ppermute`` with ``(i, (i + step) % size)``): rank ``r`` gets rank
+    ``r - step``'s. Each rank sends and receives once (NCCL's
+    ``batch_isend_irecv``); gloo, which sends no CUDA tensor, gathers every
+    rank's ``x`` with :func:`all_gather_into` and keeps its sender's."""
+    x = x.contiguous()
+    size, rank = mesh.size, mesh.rank
+    sender = (rank - step) % size
+    if _gloo(mesh, x):
+        gathered = all_gather_into(x.new_empty((size,) + tuple(x.shape)), x, mesh)
+        return gathered[sender].clone()
+    out = torch.empty_like(x)
+    peer = lambda r: dist.get_global_rank(mesh.group, r)  # noqa: E731
+    ops = [dist.P2POp(dist.isend, x, peer((rank + step) % size), mesh.group),
+           dist.P2POp(dist.irecv, out, peer(sender), mesh.group)]
+    for request in dist.batch_isend_irecv(ops):
+        request.wait()
     return out
 
 
@@ -330,7 +397,10 @@ def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def sum_over_ranks(tensors: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
     """Each tensor summed over ranks (new tensors): one ``all_reduce`` of a
-    flat buffer per dtype."""
+    flat buffer per dtype. Over an axis with no group (a one-process
+    mesh, or one rank) each is its own sum."""
+    if mesh.group is None:
+        return [t.clone() for t in tensors]
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, t in enumerate(tensors):
@@ -352,8 +422,8 @@ def average_gradients(grads: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str
 
 
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Every rank takes rank 0's parameters and buffers (one broadcast of a
-    flat buffer per dtype)."""
+    """Every process of the mesh takes rank 0's parameters and buffers (one
+    broadcast of a flat buffer per dtype over the whole mesh)."""
     if not mesh.distributed:
         return module
     tensors = [t.data for t in list(module.parameters()) + list(module.buffers())]
@@ -362,7 +432,7 @@ def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = _flatten_dense_tensors(group)
-        dist.broadcast(flat, src=0, group=mesh.group)
+        dist.broadcast(flat, src=0)
         for t, value in zip(group, _unflatten_dense_tensors(flat, group)):
             t.copy_(value)
     return module
@@ -375,6 +445,8 @@ def gather_metrics(metrics: Mapping[str, float], mesh: Optional[Mesh] = None) ->
         return dict(metrics)
     if mesh is None:  # NCCL reduces CUDA tensors only
         mesh = make_mesh(device="cuda" if dist.get_backend() == "nccl" else "cpu")
+    if mesh.group is None:  # one data rank: the model axis's ranks hold the same numbers
+        return dict(metrics)
     keys = list(metrics)
     values = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=mesh.device)
     dist.all_reduce(values, group=mesh.group)
@@ -535,12 +607,14 @@ def fsdp_sharding(shape: Sequence[int], mesh: Mesh, min_size: int = 2**16) -> Op
     return max(dims, key=lambda dn: dn[1])[0]
 
 
-def shard_params_fsdp(module: torch.nn.Module, mesh: Mesh, min_size: int = 2**16):
+def shard_params_fsdp(module: torch.nn.Module, mesh: Mesh, min_size: int = 2**16,
+                      axes: Optional[Mapping[str, Optional[int]]] = None):
     """The ZeRO-3 layout of ``module``'s parameters over ``mesh``
     (:class:`~avex_tpu_torch.parallel.fsdp.FSDPLayout`), at rest: the module
-    holds this rank's shards."""
+    holds this rank's shards. ``axes`` names the cut dimension (or None) of
+    some tensors."""
     from avex_tpu_torch.parallel.fsdp import FSDPLayout
 
-    layout = FSDPLayout(module, mesh, min_size)
+    layout = FSDPLayout(module, mesh, min_size, axes)
     layout.release()
     return layout

@@ -28,7 +28,7 @@ Every rank must call these methods together: each is collective.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,13 +42,17 @@ class FSDPLayout:
     """The ZeRO-3 placement of ``module``'s parameters over ``mesh``.
 
     ``axis[name]`` is the cut axis of a parameter, or None where it is
-    replicated; ``shards[name]`` this rank's block of a cut one.
+    replicated (``axes`` names it for some, :func:`fsdp_sharding` for the
+    rest); ``shards[name]`` this rank's block of a cut one.
     """
 
-    def __init__(self, module: nn.Module, mesh: Mesh, min_size: int = 2**16) -> None:
+    def __init__(self, module: nn.Module, mesh: Mesh, min_size: int = 2**16,
+                 axes: Optional[Mapping[str, Optional[int]]] = None) -> None:
         self.mesh = mesh
         self.params: Dict[str, nn.Parameter] = dict(module.named_parameters())
-        self.axis = {n: fsdp_sharding(tuple(p.shape), mesh, min_size) for n, p in self.params.items()}
+        axes = axes or {}
+        self.axis = {n: axes[n] if n in axes else fsdp_sharding(tuple(p.shape), mesh, min_size)
+                     for n, p in self.params.items()}
         self.full_shape = {n: tuple(p.shape) for n, p in self.params.items()}
         self.shards: Dict[str, torch.Tensor] = {
             n: self.shard_of(n, p.data) for n, p in self.params.items() if self.axis[n] is not None
@@ -116,16 +120,6 @@ class FSDPLayout:
                 out[n].div_(self.mesh.size)
                 offset += k
         return out
-
-    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The L2 norm of the whole gradient, from :meth:`reduce_gradients`'
-        output (blocks of the cut tensors, whole replicated ones)."""
-        cut = sum((g.float().square().sum() for n, g in grads.items() if self.axis[n] is not None),
-                  torch.zeros((), device=self.mesh.device))
-        cut = sum_over_ranks([cut], self.mesh)[0]
-        whole = sum((g.float().square().sum() for n, g in grads.items() if self.axis[n] is None),
-                    torch.zeros((), device=self.mesh.device))
-        return torch.sqrt(cut + whole)
 
     # -- placement --------------------------------------------------------------
 

@@ -52,10 +52,31 @@ ranks, or of one rank in a process group:
   ``checkpoint_every_steps`` falls back to epoch checkpoints and the
   SIGTERM save-and-stop is off with more than one process, as in JAX.
 
+The model axis (``MeshConfig.model``; rank ``r`` at ``(r // model, r %
+model)``, the ranks of a data row share its batch and its generators):
+
+- ``pipeline_microbatches`` runs the model's layer stack as a GPipe
+  pipeline (``model.enable_pipeline``, ``parallel/pipeline.py``; each stage
+  keeps its own layers), ``sequence_parallel`` as Megatron-SP
+  (``model.enable_sequence_parallel``, ``parallel/sequence.py``); they
+  conflict with each other, the pipeline with ZeRO-3, and a model without
+  the method raises, as in JAX;
+- otherwise, and with sequence parallelism (Megatron-SP with tensor
+  parallelism, the dry run's cell 7), a model axis of more than one rank
+  cuts the tensors JAX's ``_tp_shard_params`` cuts (``parallel/tensor.py``)
+  in the constructor. JAX's ``Trainer`` keeps them whole there; the values
+  are the same. Under ZeRO-3 a cut tensor's data-axis block is taken along
+  its other dimension, as JAX places it;
+- after ``autograd.grad`` the gradients of the whole tensors that each
+  model rank reads only in part are summed over the model axis, then the
+  data axis averages; the clipping norm is the whole model's (a tensor cut
+  over an axis counted over it, a whole one once);
+- checkpoints hold whole tensors: every stage's layers, every rank's
+  block, gathered before rank 0 writes; a resume places them anew.
+
 Without ``torch.distributed`` the mesh has one process and no collective
-runs: a step is what it was before the mesh existed. Tensor, pipeline and
-sequence parallelism are ROADMAP queue 1, item 14, part 2 (``MeshConfig``
-raises). Buffer donation has no meaning in eager PyTorch.
+runs: a step is what it was before the mesh existed. Buffer donation has no
+meaning in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -79,6 +100,7 @@ from avex_tpu_torch.configs import RunConfig
 from avex_tpu_torch.parallel import (
     all_gather_into,
     average_gradients,
+    fsdp_sharding,
     gather_metrics,
     global_batch,
     is_main_process,
@@ -86,8 +108,11 @@ from avex_tpu_torch.parallel import (
     replicate,
     shard_batch,
     shard_params_fsdp,
+    sum_over_ranks,
     world_size,
 )
+from avex_tpu_torch.parallel.pipeline import shard_pipeline_params
+from avex_tpu_torch.parallel.tensor import TensorParallelLayout
 from avex_tpu_torch.training.checkpoint import CheckpointManager
 from avex_tpu_torch.training.clustering_evaluator import ClusteringEvaluator
 from avex_tpu_torch.training.metrics_tracker import MetricsTracker
@@ -182,13 +207,22 @@ class Trainer:
 
         mesh_cfg = config.mesh
         self.mesh = mesh or make_mesh(mesh_cfg.data, mesh_cfg.model, mesh_cfg.axis_names, device=self.device)
-        self._layout = None
+        self._pipeline = int(mesh_cfg.pipeline_microbatches or 0)
+        self._sequence_parallel = bool(mesh_cfg.sequence_parallel)
+        self._layout = None  # ZeRO-3 over the data axis
         self._layerdrop_generator = None
-        if self.mesh.distributed:
+        if self.mesh.distributed:  # whole tensors, before the model axis cuts them
             replicate(model.module, self.mesh)
-            if mesh_cfg.param_sharding == "fsdp":
-                self._layout = shard_params_fsdp(model.module, self.mesh, mesh_cfg.fsdp_min_size)
             self._layerdrop_generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self._claim_model_axis(model, mesh_cfg.param_sharding)
+        self._model_layout = getattr(model, "model_axis_layout", None)  # over the model axis (SP sets it)
+        if self._pipeline and self.mesh.model_size > 1:
+            self._model_layout = shard_pipeline_params(model.module, self.mesh)
+        elif self.mesh.model_size > 1 and not self._sequence_parallel:
+            self._model_layout = TensorParallelLayout(model.module, self.mesh)
+        model.model_axis_layout = self._model_layout
+        if self.mesh.distributed and mesh_cfg.param_sharding == "fsdp":
+            self._layout = shard_params_fsdp(model.module, self.mesh, mesh_cfg.fsdp_min_size, self._fsdp_axes())
 
         self._params = dict(model.module.named_parameters())
         self._stage = 1 if self.params_cfg.freeze_backbone_epochs > 0 else 2
@@ -202,6 +236,83 @@ class Trainer:
             self._resume(config.resume_from_checkpoint)
 
     # ------------------------------------------------------------------
+
+    def _claim_model_axis(self, model, param_sharding: str) -> None:
+        """The layer runner the mesh config asks for, with JAX's conflicts."""
+        if self._pipeline and self._sequence_parallel:
+            raise ValueError("pipeline_microbatches and sequence_parallel both claim the encoder layer runner; "
+                             "enable one")
+        if self._sequence_parallel:
+            if not hasattr(model, "enable_sequence_parallel"):
+                raise ValueError(f"model {type(model).__name__} does not support sequence parallelism "
+                                 "(no enable_sequence_parallel)")
+            model.enable_sequence_parallel(self.mesh)
+        if self._pipeline:
+            if param_sharding == "fsdp":
+                raise ValueError("pipeline_microbatches and param_sharding='fsdp' do not compose "
+                                 "(the layer stack shards over the model axis)")
+            if not hasattr(model, "enable_pipeline"):
+                raise ValueError(f"model {type(model).__name__} does not support pipeline parallelism "
+                                 "(no enable_pipeline; needs a scanned layer stack)")
+            model.enable_pipeline(self.mesh, self._pipeline)
+
+    def _fsdp_axes(self) -> Optional[Dict[str, Optional[int]]]:
+        """ZeRO-3's data-axis dimension of each tensor that tensor parallelism
+        cut, as JAX places it: the other dimension, for a tensor ZeRO-3 cuts
+        at all (by its whole shape) and whose other dimension divides."""
+        layout = self._model_layout
+        if not isinstance(layout, TensorParallelLayout):
+            return None
+        axes: Dict[str, Optional[int]] = {}
+        for name, dim in layout.cut.items():
+            other, local = 1 - dim, layout.params[name].shape
+            cut = fsdp_sharding(layout.full_shape[name], self.mesh, self.config.mesh.fsdp_min_size) is not None
+            axes[name] = other if cut and local[other] % self.mesh.size == 0 else None
+        return axes
+
+    def _whole_opt_state(self) -> Dict[str, Any]:
+        """The optimizer state with whole moments (a collective under ZeRO-3
+        or a model axis)."""
+        opt_state = dict(self.state.opt_state)
+        for moment in ("mu", "nu"):
+            tensors = opt_state[moment]
+            if self._layout is not None:
+                tensors = {**tensors, **self._layout.gather_tensors(
+                    {n: t for n, t in tensors.items() if n in self._layout.shards})}
+            if self._model_layout is not None:
+                tensors = self._model_layout.gather_tensors(tensors)
+            opt_state[moment] = tensors
+        return opt_state
+
+    def _placed_opt_state(self, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+        """Whole moments → this run's layout (the model axis's, then ZeRO-3's blocks)."""
+        opt_state = dict(opt_state)
+        for moment in ("mu", "nu"):
+            tensors = opt_state[moment]
+            if self._model_layout is not None:
+                tensors = self._model_layout.local_state(tensors)
+            if self._layout is not None:
+                tensors = {n: self._layout.shard_of(n, t) if n in self._layout.shards else t
+                           for n, t in tensors.items()}
+            opt_state[moment] = tensors
+        return opt_state
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole model's gradient from this rank's share
+        of it: a tensor cut over the data axis (ZeRO-3) or the model axis
+        (tensor parallelism, a pipeline stage's) summed over that axis, a
+        whole one counted once."""
+        data_cut = set(self._layout.shards) if self._layout is not None else set()
+        split = self._model_layout.split if self._model_layout is not None else (lambda name: False)
+        parts: list = [[], [], [], []]  # by (data-cut, model-split)
+        for n, g in grads.items():
+            parts[2 * (n in data_cut) + bool(split(n))].append(g.float().square().sum())
+        sums = torch.stack([torch.stack(p).sum() if p else torch.zeros((), device=self.mesh.device)
+                            for p in parts])
+        sums[2:] = sum_over_ranks([sums[2:].contiguous()], self.mesh)[0]
+        model_split = sums[1::2].contiguous()
+        sums[1::2] = sum_over_ranks([model_split], self.mesh.model_axis)[0]
+        return torch.sqrt(sums.sum())
 
     def _build_step(self, stage: int) -> None:
         """(Re)build the optimizer and the trainable set for the given stage."""
@@ -260,13 +371,16 @@ class Trainer:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         # A parameter the loss does not reach gets a zero gradient, as in JAX.
         grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
-        norm = None
+        if self._model_layout is not None:
+            grads = self._model_layout.reduce_gradients(grads)
         if self._layout is not None:
             grads = self._layout.reduce_gradients(grads)
             self._layout.release()
-            norm = self._layout.global_norm(grads) if self._tx.clip_norm else None
         elif self.mesh.distributed:
             grads = average_gradients(grads, self.mesh)
+        norm = None
+        if self._tx.clip_norm and (self._layout is not None or self._model_layout is not None):
+            norm = self._global_norm(grads)
         self._tx.step(self._trainable, grads, self.state.opt_state, global_norm=norm)
         post_update = getattr(self.model, "post_optimizer_step", None)
         if post_update is not None:
@@ -289,17 +403,16 @@ class Trainer:
         payload = self.checkpoints.load(path)
         # Checkpoints hold whole tensors: they are placed for this run's layout
         # whatever the layout and the rank count that wrote them.
+        params = payload["params"]
+        if self._model_layout is not None:
+            params = self._model_layout.local_state(params)
         with self._whole_params(update=True):
-            self.model.module.load_state_dict(payload["params"])
+            self.model.module.load_state_dict(params)
         opt_state = _tree_to(payload["opt_state"], self.device)
         if set(opt_state["mu"]) != set(self._trainable):
             raise ValueError(f"checkpoint {path}: its optimizer state covers other parameters than "
                              f"this stage trains")
-        if self._layout is not None:
-            for moment in ("mu", "nu"):
-                opt_state[moment] = {n: self._layout.shard_of(n, t) if n in self._layout.shards else t
-                                     for n, t in opt_state[moment].items()}
-        self.state.opt_state = opt_state
+        self.state.opt_state = self._placed_opt_state(opt_state)
         self.state.step = int(payload.get("step", 0))
         self.start_epoch = int(payload.get("epoch", 0))
         self.best_val_acc = float(payload.get("best_val_acc", -np.inf))
@@ -319,15 +432,13 @@ class Trainer:
 
     def _save_kwargs(self) -> Dict[str, Any]:
         """What a checkpoint holds: whole tensors under any layout (FSDP's
-        blocks are gathered, a collective every rank joins)."""
+        blocks, the model axis's blocks and stages are gathered, collectives
+        every rank joins)."""
         with self._whole_params():
             params = self.model.module.state_dict()
-        opt_state = self.state.opt_state
-        if self._layout is not None:
-            opt_state = dict(opt_state)
-            for moment in ("mu", "nu"):
-                blocks = {n: t for n, t in opt_state[moment].items() if n in self._layout.shards}
-                opt_state[moment] = {**opt_state[moment], **self._layout.gather_tensors(blocks)}
+        if self._model_layout is not None:
+            params = self._model_layout.gather_tensors(params)
+        opt_state = self._whole_opt_state()
         kwargs = {"params": params, "opt_state": opt_state, "step": self.state.step}
         if self.mesh.size > 1:  # each rank's generator goes with every checkpoint
             kwargs["extra_meta"] = self._generator_states()

@@ -388,6 +388,13 @@ DP_PROBE_TIMEOUT = 90
 DP_TIMEOUT = 600
 DP_COLLECTIVE_TIMEOUT = 300
 ADAM_EPS = 1e-8  # AdamW's (optax's scale_by_adam)
+# phase 31: the model axis on two ranks sharing the card
+B_MP_CHECK = 8  # the fp32 steps held to one process (divides into the microbatches)
+B_MP_TIMED = 16  # the timed bf16 TP steps, on each rank (the data axis has one rank)
+B_MP_SMALL = 4  # (d): the 2 x 2 mesh's global batch
+MP_MICROBATCHES = 4
+MP_STEPS = 5
+MP_TIMEOUT = 400
 DP_LR = 3e-4  # BEATs' and EAT-SSL's; every phase-30 step at its full rate (no warmup)
 
 FAILURES: list = []
@@ -3811,6 +3818,282 @@ def phase_data_parallel(workdir: Path) -> dict:
     return launches
 
 
+def mp_config(work: Path, bsz: int, label: str, **mesh):
+    from avex_tpu_torch.configs import MeshConfig, RunConfig, SchedulerConfig, TrainingParams
+
+    return RunConfig(
+        model_spec={"name": "mp"}, output_dir=str(work / f"out_{label}"), seed=0,
+        training_params=TrainingParams(train_epochs=1, lr=DP_LR, batch_size=bsz, optimizer="adamw", weight_decay=0.01),
+        scheduler=SchedulerConfig(name="cosine", warmup_steps=0), mesh=MeshConfig(**mesh))
+
+
+def mp_beats(dtype: str, dropout: bool, **init):
+    """Full-width BEATs ``fused_qkv`` on K2/K3 (:func:`dp_beats`), with ``init``."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    config = dict(beats_config(), fused_qkv=True, use_pallas=True, **init)
+    if not dropout:
+        config.update(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, dropout_input=0.0,
+                      encoder_layerdrop=0.0)
+    spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype, init_config=config)
+    return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+
+def mp_eat(dtype: str, **kwargs):
+    """Full-width EAT (``esp_aves2_sl_eat_all_ssl_all``'s architecture) on K5/K6."""
+    import avex_tpu_torch
+
+    return avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, num_classes=N_CLASSES,
+                                     device="cuda", use_pallas=True, compute_dtype=dtype, **kwargs)
+
+
+def mp_record(trainer, before: dict = None) -> dict:
+    """:func:`step_record` under any layout: the whole parameters and the
+    gradient the step applied, from what a checkpoint would hold (every
+    stage's layers and every rank's block gathered: a collective)."""
+    saved = trainer._save_kwargs()
+    params = dict(trainer.model.module.named_parameters())
+    out = {"params": {n: v.detach().cpu() for n, v in saved["params"].items() if n in params},
+           "grads": {n: (t.float() / 0.1).cpu() for n, t in saved["opt_state"]["mu"].items()}}
+    if before is not None:
+        out["before"] = {n: before[n].cpu() for n in out["params"]}
+    return out
+
+
+def _count_collective_bytes(step) -> dict:
+    """The bytes each collective of one call of ``step`` carried on this rank
+    (on gloo every collective of the port is an ``all_reduce`` or a
+    ``broadcast``)."""
+    import torch.distributed as dist
+
+    counted = {"all_reduce": 0, "broadcast": 0}
+    real = {name: getattr(dist, name) for name in counted}
+
+    def counting(name):
+        def call(tensor, *args, **kwargs):
+            counted[name] += tensor.numel() * tensor.element_size()
+            return real[name](tensor, *args, **kwargs)
+        return call
+
+    for name in counted:
+        setattr(dist, name, counting(name))
+    try:
+        step()
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    return counted
+
+
+def rank_mp(rank, world, work, backend):
+    """Phase 31's cases on a 1 x 2 mesh (two ranks sharing the card). Rank 0
+    also takes each case's one-process step (a mesh of its own, no
+    collective) from the same initial weights and batch."""
+    import torch
+
+    from avex_tpu_torch.parallel import Mesh, make_mesh
+    from avex_tpu_torch.parallel.pipeline import bubble_share
+    from avex_tpu_torch.training import Trainer
+
+    import copy
+
+    torch.cuda.set_device(0)
+    out = {"rank": rank}
+    alone = Mesh(size=1, rank=0, group=None, device=torch.device("cuda", 0))
+    _join_group(rank, world, work, backend)
+    mesh = make_mesh(1, 2, device="cuda")
+    out["backend"], out["coords"] = mesh.backend, (mesh.rank, mesh.model_rank)
+
+    def case(label, net, batch, **mesh_cfg):
+        """One fp32 step over the mesh against the one-process step."""
+        initial = {k: v.clone() for k, v in net.module.state_dict().items()}
+        if rank == 0:
+            trainer = Trainer(net, mp_config(work, B_MP_CHECK, label + "_alone"), [], mesh=alone,
+                              steps_per_epoch=4)
+            ref_loss = trainer._train_step(batch)[0].item()
+            ref = mp_record(trainer, initial)
+            del trainer
+            net.module.load_state_dict(initial)
+        trainer = Trainer(net, mp_config(work, B_MP_CHECK, label, **mesh_cfg), [], mesh=mesh, steps_per_epoch=4)
+        reset_counts()
+        loss = trainer._train_step(batch)[0].item()
+        torch.cuda.synchronize()
+        out[f"{label}_counts"] = read_counts()
+        got = mp_record(trainer)
+        out[f"{label}_held_elements"] = sum(p.numel() for p in net.module.parameters())
+        if rank == 0:
+            out[label] = {"loss": loss, "ref_loss": ref_loss, "held": held(got, ref, DP_LR)}
+        del trainer, got, net
+        torch.cuda.empty_cache()
+
+    batch = dp_batch(B_MP_CHECK, CLIP_SAMPLES, seed=41)
+    # one build (a seeded init of 94M parameters on the host) copied for each case; the stacked
+    # layout, which the pipeline and SP need, changes nothing for TP
+    beats = mp_beats("float32", dropout=False, scan_layers=True)
+    case("tp", copy.deepcopy(beats), batch, data=1, model=2)
+    case("pipeline_beats", copy.deepcopy(beats), batch, data=1, model=2, pipeline_microbatches=MP_MICROBATCHES)
+    case("sp_tp", beats, batch, data=1, model=2, sequence_parallel=True)
+    del beats
+    eat_batch = dp_batch(B_MP_CHECK, EAT_CLIP_SAMPLES, seed=42)
+    case("pipeline_eat", mp_eat("float32", scan_layers=True), eat_batch, data=1, model=2,
+         pipeline_microbatches=MP_MICROBATCHES)
+    out["bubble_share"] = bubble_share(2, MP_MICROBATCHES)
+
+    # (a) the timed bf16 TP steps, dropout and LayerDrop on
+    model = mp_beats("bfloat16", dropout=True)
+    batch = dp_batch(B_MP_TIMED, CLIP_SAMPLES, seed=43)
+    trainer = Trainer(model, mp_config(work, B_MP_TIMED, "tp_bf16", data=1, model=2), [], mesh=mesh,
+                      steps_per_epoch=MP_STEPS + 4)
+    out["tp_bf16_bytes"] = _count_collective_bytes(lambda: trainer._train_step(batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    losses = [trainer._train_step(batch)[0] for _ in range(MP_STEPS)]
+    torch.cuda.synchronize()
+    out["tp_bf16_ms_per_step"] = (time.perf_counter() - start) / MP_STEPS * 1e3
+    out["tp_bf16_counts"] = read_counts()
+    out["tp_bf16_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["tp_bf16_losses"] = [float(x) for x in losses]
+    out["tp_bf16_held_elements"] = sum(p.numel() for p in model.module.parameters())
+    return out
+
+
+def rank_mp4(rank, world, work, backend):
+    """(d) dp x tp on a 2 x 2 mesh of four ranks sharing the card: the fp32
+    step against the one-process step on the global batch (rank 0 takes it)."""
+    import torch
+
+    from avex_tpu_torch.parallel import Mesh, make_mesh
+    from avex_tpu_torch.training import Trainer
+
+    torch.cuda.set_device(0)
+    alone = Mesh(size=1, rank=0, group=None, device=torch.device("cuda", 0))
+    _join_group(rank, world, work, backend)
+    mesh = make_mesh(2, 2, device="cuda")
+    out = {"rank": rank, "coords": (mesh.rank, mesh.model_rank)}
+    net = mp_beats("float32", dropout=False)
+    batch = dp_batch(B_MP_SMALL, CLIP_SAMPLES, seed=44)
+    initial = {k: v.clone() for k, v in net.module.state_dict().items()}
+    if rank == 0:
+        trainer = Trainer(net, mp_config(work, B_MP_SMALL, "dp_tp_alone"), [], mesh=alone, steps_per_epoch=4)
+        ref_loss = trainer._train_step(batch)[0].item()
+        ref = mp_record(trainer, initial)
+        del trainer
+        net.module.load_state_dict(initial)
+    trainer = Trainer(net, mp_config(work, B_MP_SMALL, "dp_tp", data=2, model=2), [], mesh=mesh, steps_per_epoch=4)
+    reset_counts()
+    loss = _mean_over_ranks(trainer._train_step(rank_rows(batch, mesh.rank, mesh.size))[0].item(), mesh)
+    torch.cuda.synchronize()
+    out["counts"] = read_counts()
+    got = mp_record(trainer)
+    if rank == 0:
+        out["loss"], out["ref_loss"], out["held"] = loss, ref_loss, held(got, ref, DP_LR)
+    return out
+
+
+def phase_model_parallel(workdir: Path, dp_tp: bool = False) -> dict:
+    """Phase 31: the model axis (tensor parallelism, the GPipe pipeline over
+    BEATs and EAT, Megatron-SP with TP) on two spawned ranks sharing the
+    card over gloo (NCCL takes no two ranks on one card, phase 30 (a));
+    with ``dp_tp`` also (d), dp x tp on four ranks
+    (``scripts/torch_model_parallel.py``: the smoke run leaves it out for
+    time). Returns the kernel launches of the driven runs, summed over ranks."""
+    backend = "gloo"
+    start = time.perf_counter()
+    launches = {}
+    results, errors, seconds = join_ranks(start_ranks("rank_mp", 2, workdir / "model_axis", MP_TIMEOUT,
+                                                      backend=backend))
+    check(not errors, f"model parallel: both {backend} ranks finished ({seconds:.1f} s)"
+          + "".join("\n" + e for e in errors))
+    if errors:
+        return launches
+    r0 = results[0]
+    check([r["coords"] for r in results] == [(0, 0), (0, 1)] and r0["backend"] == backend,
+          f"model parallel: a 1 x 2 mesh over {r0['backend']}, ranks at {[r['coords'] for r in results]}")
+    per = ENCODER_LAYERS // 2 * MP_MICROBATCHES  # a stage's layers times the microbatches
+    cases = (
+        ("tp", "(a) TP=2 BEATs fused_qkv, 6 heads a rank",
+         {"fused_qkv_gated_attention": ENCODER_LAYERS, "fused_qkv_gated_attention_backward": ENCODER_LAYERS}),
+        ("pipeline_beats", f"(b) GPipe 2 stages x {MP_MICROBATCHES} microbatches, BEATs scan_layers",
+         {"fused_qkv_gated_attention": per, "fused_qkv_gated_attention_backward": per}),
+        ("pipeline_eat", f"(b) GPipe 2 stages x {MP_MICROBATCHES} microbatches, EAT scan_layers (10 s clips)",
+         {"fused_qkv_attention": per, "fused_qkv_attention_backward": per}),
+        ("sp_tp", "(c) Megatron-SP + TP=2 BEATs (T=248 over 2 ranks)",
+         {"fused_qkv_gated_attention": ENCODER_LAYERS, "fused_qkv_gated_attention_backward": ENCODER_LAYERS}),
+    )
+    for label, what, expect in cases:
+        c = r0[label]
+        rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
+        p, g = c["held"]["params"], c["held"]["grads"]
+        check(rel <= PATH_REL and p["worst_rel"] <= PATH_REL and g["worst_rel"] <= PATH_REL
+              and p["moved_max_abs"] >= 0.5 * DP_LR,
+              f"model parallel {what}, {B_MP_CHECK} clips, fp32, vs the one-process step: loss rel {rel:.3e}; "
+              f"gradients: worst tensor rel L2 {g['worst_rel']:.3e} ({g['worst']}), together {g['global_rel']:.3e} "
+              f"(zero-gradient entries left out, |gradient| <= {g['zero_max_abs']:.1e}); parameters after the step "
+              f"at lr {DP_LR:g} (moved up to {p['moved_max_abs']:.2e}): worst tensor rel L2 {p['worst_rel']:.3e} "
+              f"({p['worst']}), together {p['global_rel']:.3e}, past the Adam-direction slack (largest "
+              f"{p['slack_max']:.1e}, {p['slack_entries']} entries past lr/10); each <= {PATH_REL:g}")
+        for r in results:
+            counts = r[f"{label}_counts"]
+            check(all(counts[k] == expect.get(k, 0) for k in counts),
+                  f"model parallel {what}: rank {r['rank']} launches { {k: v for k, v in counts.items() if v} } "
+                  f"== {expect} (held elements {r[f'{label}_held_elements']:,})")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    expect = {"fused_qkv_gated_attention": ENCODER_LAYERS * MP_STEPS,
+              "fused_qkv_gated_attention_backward": ENCODER_LAYERS * MP_STEPS}
+    for r in results:
+        check(all(r["tp_bf16_counts"][k] == expect.get(k, 0) for k in r["tp_bf16_counts"])
+              and all(math.isfinite(x) for x in r["tp_bf16_losses"]),
+              f"model parallel (a) bf16: rank {r['rank']} launches "
+              f"{ {k: v for k, v in r['tp_bf16_counts'].items() if v} } == {expect}, losses finite")
+        for k, v in r["tp_bf16_counts"].items():
+            launches[k] = launches.get(k, 0) + v
+    # (d) dp x tp on four ranks
+    results4, errors = [], []
+    if dp_tp:
+        results4, errors, seconds = join_ranks(start_ranks("rank_mp4", 4, workdir / "model_axis_2x2", MP_TIMEOUT,
+                                                           backend=backend))
+        check(not errors, f"model parallel (d): the four {backend} ranks finished ({seconds:.1f} s)"
+              + "".join("\n" + e for e in errors))
+    if results4 and not errors:
+        d = results4[0]
+        rel = abs(d["loss"] - d["ref_loss"]) / abs(d["ref_loss"])
+        p, g = d["held"]["params"], d["held"]["grads"]
+        check([r["coords"] for r in results4] == [(0, 0), (0, 1), (1, 0), (1, 1)] and rel <= PATH_REL
+              and p["worst_rel"] <= PATH_REL and g["worst_rel"] <= PATH_REL and p["moved_max_abs"] >= 0.5 * DP_LR,
+              f"model parallel (d) dp x tp 2 x 2 BEATs, 2 x {B_MP_SMALL // 2} clips, fp32, vs the one-process step: "
+              f"loss rel {rel:.3e}; gradients worst tensor rel L2 {g['worst_rel']:.3e} ({g['worst']}); parameters "
+              f"(moved up to {p['moved_max_abs']:.2e}) worst tensor rel L2 {p['worst_rel']:.3e} ({p['worst']}), "
+              f"past the Adam-direction slack; each <= {PATH_REL:g}")
+        expect = {"fused_qkv_gated_attention": ENCODER_LAYERS, "fused_qkv_gated_attention_backward": ENCODER_LAYERS}
+        for r in results4:
+            check(all(r["counts"][k] == expect.get(k, 0) for k in r["counts"]),
+                  f"model parallel (d): rank {r['rank']} launches "
+                  f"{ {k: v for k, v in r['counts'].items() if v} } == {expect}")
+            for k, v in r["counts"].items():
+                launches[k] = launches.get(k, 0) + v
+        r0["dp_tp"] = {k: d[k] for k in ("loss", "ref_loss", "held")}
+    print(f"model parallel (a): TP=2 on two {backend} ranks sharing one card: the mechanism, not multi-card speed; "
+          f"bf16, dropout and LayerDrop on, {B_MP_TIMED} clips on each rank: "
+          + "; ".join(f"rank {r['rank']} {r['tp_bf16_ms_per_step']:.1f} ms a step, collectives "
+                      f"{r['tp_bf16_bytes']['all_reduce'] / 2**20:.1f} MiB all-reduced and "
+                      f"{r['tp_bf16_bytes']['broadcast'] / 2**20:.1f} MiB broadcast a step, peak "
+                      f"{r['tp_bf16_peak_bytes'] / 2**30:.2f} GiB, {r['tp_bf16_held_elements']:,} parameter elements"
+                      for r in results)
+          + f"; GPipe bubble share {r0['bubble_share']:.3f} (2 stages, {MP_MICROBATCHES} microbatches); {CARD[0]}")
+    print(json.dumps({"model_parallel": {
+        "backend": r0["backend"], "card": CARD[0], "microbatches": MP_MICROBATCHES, "bubble_share": r0["bubble_share"],
+        "ranks": [{k: r[k] for k in ("rank", "tp_bf16_ms_per_step", "tp_bf16_bytes", "tp_bf16_peak_bytes",
+                                     "tp_bf16_held_elements")} for r in results],
+        "fp32_checks": {label: r0[label] for label in [c[0] for c in cases] + ["dp_tp"] if label in r0}}}))
+    print(f"model parallel: phase 31 took {time.perf_counter() - start:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -3847,7 +4130,9 @@ def main() -> int:
     dots_train = phase_beats_dots(workdir / "dots")
     probes = phase_probes()
     entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
-    data_parallel = phase_data_parallel(Path(__file__).resolve().parent / "build" / "chip_smoke_ranks")
+    ranks_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
+    data_parallel = phase_data_parallel(ranks_dir)
+    model_parallel = phase_model_parallel(ranks_dir)
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
@@ -3879,6 +4164,10 @@ def main() -> int:
     print(f"entry points phase launches: { {k: v for k, v in entry.items() if v} }")
     # Data parallelism: K2/K3 on the ranks' BEATs steps, K5/K6 on their EAT-SSL steps.
     for kname, count in data_parallel.items():
+        if count:  # each rank checked the rest at 0
+            launches[kname] += count
+    # The model axis: K2/K3 on the ranks' BEATs steps, K5/K6 on their EAT pipeline.
+    for kname, count in model_parallel.items():
         if count:  # each rank checked the rest at 0
             launches[kname] += count
     # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
@@ -3934,6 +4223,8 @@ def main() -> int:
             kernels[-1]["eat_ssl_launches"] = ssl_train[kname]
         if data_parallel.get(kname):
             kernels[-1]["data_parallel_launches"] = data_parallel[kname]  # phase 30's share of ``launches``
+        if model_parallel.get(kname):
+            kernels[-1]["model_parallel_launches"] = model_parallel[kname]  # phase 31's share of ``launches``
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

@@ -50,6 +50,37 @@ def _j(x):
     return None if x is None else jnp.asarray(x)
 
 
+@pytest.fixture(autouse=True)
+def fp32_products():
+    """The precision the fp32 twins and JAX's HIGHEST products assume, pinned
+    for each test and asserted: torch's fp32 matmuls in full fp32 (no TF32
+    or bf16 passes through oneDNN on the CPU, whatever an earlier caller or
+    the environment set) and JAX's default matmul precision the highest."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.mkldnn.matmul.fp32_precision
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.mkldnn.matmul.fp32_precision = "ieee"
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.mkldnn.matmul.fp32_precision == "ieee"
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.mkldnn.matmul.fp32_precision = saved[1]
+
+
+def _lse64(qkv, mask):
+    """The row log-sum-exp of the fp32 logits, in float64."""
+    seq = qkv.shape[1]
+    q, k = (qkv[..., i * E:(i + 1) * E].astype(np.float64).reshape(B, seq, H, D).transpose(0, 2, 1, 3)
+            for i in (0, 1))
+    logits = np.einsum("bhqd,bhkd->bhqk", q, k) * D**-0.5
+    if mask is not None:
+        logits = np.where(mask[:, None, None, :], -np.inf, logits)
+    top = logits.max(-1, keepdims=True)
+    return top[..., 0] + np.log(np.exp(logits - top).sum(-1))
+
+
 def _jax_logits(qkv, mask):
     """JAX's K6 logits: fp32 ``q·kᵀ·scale`` plus the −inf padding bias."""
     seq = qkv.shape[1]
@@ -80,6 +111,10 @@ def test_forward_lse_twin_matches_jax_logsumexp(rng, seq, padded):
     out, lse, rest = ak._fused_qkv_forward_lse_reference(_t(qkv), H, _t(mask))
     want = jax.nn.logsumexp(_jax_logits(qkv, mask), axis=-1)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, seq)
+    # each side against float64 first, so that a drift names the side it is on
+    exact = _lse64(qkv, mask)
+    np.testing.assert_allclose(lse.numpy(), exact, atol=1e-5, rtol=0, err_msg="port vs float64")
+    np.testing.assert_allclose(np.asarray(want), exact, atol=1e-5, rtol=0, err_msg="JAX vs float64")
     np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(out.numpy(), ak.fused_qkv_reference(_t(qkv), H, _t(mask)).numpy())
     assert not rest.any()  # fp32: the output is not rounded

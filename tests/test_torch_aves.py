@@ -183,7 +183,10 @@ def test_aves_config_and_unported_options():
     cfg = AVESConfig.from_dict(dict(TINY, extractor_mode="group_norm", encoder_dropout=0.1))
     assert cfg.encoder_embed_dim == 128 and cfg.encoder_dropout == 0.1
     assert cfg.extra == {"extractor_mode": "group_norm"}
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        avex_tpu_torch.build_model_from_spec(
-            ModelSpec(name="aves_bio", pretrained=False), device="cpu", aves_cfg=TINY, scan_layers=True
-        )
+    # scan_layers is ported (tests/test_torch_model_parallel.py); ring attention is not
+    stacked = avex_tpu_torch.build_model_from_spec(
+        ModelSpec(name="aves_bio", pretrained=False), device="cpu", aves_cfg=TINY, scan_layers=True
+    )
+    assert stacked.stacked_layers == "encoder.transformer.layers"
+    with pytest.raises(NotImplementedError, match="ring attention.*part 3"):
+        stacked.enable_ring_attention(mesh=None)

@@ -177,13 +177,14 @@ def test_finetuned_predictor_head_matches_jax(rng):
 
 
 def test_unported_options_raise():
-    unported = ({"scan_layers": True},)
-    for options in unported:
-        with pytest.raises(NotImplementedError, match=f"{list(options)[-1]}.*ROADMAP"):
-            avex_tpu_torch.build_model_from_spec(
-                ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, **options)),
-                device="cpu",
-            )
+    # scan_layers is ported (the stacked layout at the edges; tests/test_torch_model_parallel.py);
+    # ring attention is not
+    stacked = avex_tpu_torch.build_model_from_spec(
+        ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, scan_layers=True)), device="cpu"
+    )
+    assert stacked.stacked_layers == "backbone.encoder.layers"
+    with pytest.raises(NotImplementedError, match="ring attention.*ROADMAP.*part 3"):
+        stacked.enable_ring_attention(mesh=None)
     # remat is ported (per-layer checkpointing; tests/test_torch_training.py)
     remat = avex_tpu_torch.build_model_from_spec(
         ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, remat=True)), device="cpu"

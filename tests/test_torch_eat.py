@@ -185,7 +185,9 @@ def test_convert_eat_state_dict_both_namings_load_like_jax(rng):
 
 
 def test_eat_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        Model(device="cpu", scan_layers=True, **TINY)
-    with pytest.raises(NotImplementedError, match="ring_mesh"):
+    # scan_layers is ported (tests/test_torch_model_parallel.py); ring attention is not
+    assert Model(device="cpu", scan_layers=True, **TINY).stacked_layers == "blocks"
+    with pytest.raises(NotImplementedError, match="ring_mesh.*part 3"):
         EATModel(ring_mesh=object(), **TINY)
+    with pytest.raises(NotImplementedError, match="ring attention.*part 3"):
+        Model(device="cpu", scan_layers=True, **TINY).enable_ring_attention(mesh=None)

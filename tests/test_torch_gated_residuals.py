@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from avex_tpu.ops.pallas_attention import _fused_qkv_gated_reference as jax_gated_reference
 
 from avex_tpu_torch.ops import attention_kernels as ak
+from tests.test_torch_attention_residuals import fp32_products  # noqa: F401  (autouse: the pinned fp32 products)
 
 B, H, D = 2, 2, 64
 E = H * D

@@ -78,6 +78,9 @@ SLICE_MODULES = [
     "avex_tpu_torch.run_evaluate",
     "avex_tpu_torch.parallel",
     "avex_tpu_torch.parallel.fsdp",
+    "avex_tpu_torch.parallel.tensor",
+    "avex_tpu_torch.parallel.pipeline",
+    "avex_tpu_torch.parallel.sequence",
 ]
 #: top-level packages the port must not import: JAX, its libraries, and the
 #: JAX package with its configuration library

@@ -126,9 +126,8 @@ def test_mesh_config_has_the_jax_fields():
     with pytest.raises(ValueError):
         jcfg.MeshConfig(param_sharding="zero")
     for part_2 in ({"model": 2}, {"pipeline_microbatches": 2}, {"sequence_parallel": True}):
-        jcfg.MeshConfig(**part_2)  # JAX has them; the port raises, naming the later work
-        with pytest.raises(NotImplementedError, match="item 14, part 2"):
-            cfg.MeshConfig(**part_2)
+        # the model axis's options build as JAX's do (the Trainer checks their combinations)
+        assert dataclasses.asdict(cfg.MeshConfig(**part_2)) == jcfg.MeshConfig(**part_2).model_dump()
     run = cfg.RunConfig(model_spec={"name": "beats"}, output_dir="unused", mesh={"param_sharding": "fsdp"},
                         training_params={"train_epochs": 1, "lr": 1e-3, "batch_size": 2})
     assert run.mesh == cfg.MeshConfig(param_sharding="fsdp") and run.to_dict()["mesh"]["data"] == -1
@@ -137,7 +136,7 @@ def test_mesh_config_has_the_jax_fields():
 def test_one_process_mesh_and_its_helpers():
     mesh = parallel.make_mesh(device="cpu")
     assert (mesh.size, mesh.rank, mesh.distributed, mesh.axis_names) == (1, 0, False, ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 14, part 2"):
+    with pytest.raises(ValueError, match="model=2"):  # a model axis of 2 needs two processes
         parallel.make_mesh(model=2, device="cpu")
     with pytest.raises(ValueError, match="processes"):
         parallel.make_mesh(data=2, device="cpu")
@@ -211,3 +210,26 @@ def test_projection_batchnorm_biases_have_no_gradient_in_train_mode():
     assert len(free) == 16 and "features.1.0.block.2.1.bias" in free  # one per MBConv; stage 1 has no expansion
     others = [float(g.abs().max()) for n, g in grads.items() if n.endswith("bias") and n not in free]
     assert max(float(grads[n].abs().max()) for n in free) <= 1e-12 * min(others)
+
+
+def test_tensor_parallelism_cuts_only_what_a_layer_runs():
+    """A tensor cut over the model axis must lie under a module whose
+    ``use_model_axis`` hook runs its part (nothing else sums its input's
+    gradient over the axis): a bare ``fc1`` raises; CLIP's projection cuts
+    fc1 on its outputs and fc2 on its inputs, as ``_tp_shard_params`` does,
+    and names fc1's bias as read in part. No collective runs to build it."""
+    from avex_tpu_torch.models.clip import _Projection
+    from avex_tpu_torch.parallel.tensor import TensorParallelLayout
+
+    mesh = parallel.Mesh(size=1, rank=0, group=None, device=torch.device("cpu"), model_size=2, model_rank=1)
+    bare = torch.nn.Module()
+    bare.fc1 = torch.nn.Linear(4, 8)
+    with pytest.raises(ValueError, match=r"\['fc1.weight'\] in no module with a use_model_axis hook"):
+        TensorParallelLayout(bare, mesh)
+    projection = _Projection(4, 8, 6)
+    whole = {k: v.clone() for k, v in projection.state_dict().items()}
+    layout = TensorParallelLayout(projection, mesh)
+    assert layout.cut == {"fc1.weight": 0, "fc2.weight": 1} and layout.partial == {"fc1.bias"}
+    assert torch.equal(projection.fc1.weight, whole["fc1.weight"][4:])
+    assert torch.equal(projection.fc2.weight, whole["fc2.weight"][:, 4:])
+    assert torch.equal(projection.fc1.bias, whole["fc1.bias"]) and projection.model_axis is layout.axis

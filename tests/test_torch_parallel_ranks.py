@@ -32,12 +32,13 @@ WORLD = 2
 
 
 class RankGroup:
-    """``world`` spawned ranks running :func:`_rank_main` on ``work``."""
+    """``world`` spawned ranks running ``main`` (default :func:`_rank_main`)
+    on ``work``."""
 
-    def __init__(self, work: Path, world: int = WORLD, timeout: float = 240.0) -> None:
+    def __init__(self, work: Path, world: int = WORLD, timeout: float = 240.0, main=None) -> None:
         self.work, self.world, self.timeout = Path(work), world, timeout
         ctx = multiprocessing.get_context("spawn")
-        self.procs = [ctx.Process(target=_rank_main, args=(rank, world, str(self.work)), daemon=True)
+        self.procs = [ctx.Process(target=main or _rank_main, args=(rank, world, str(self.work)), daemon=True)
                       for rank in range(world)]
         self.started = time.monotonic()
         for proc in self.procs:
@@ -66,11 +67,12 @@ class RankGroup:
         return self._results
 
 
-def _rank_main(rank: int, world: int, work: str) -> None:
+def _rank_main(rank: int, world: int, work: str, scenarios=None) -> None:
     from avex_tpu_torch.parallel import init_multihost
 
     torch.set_num_threads(1)
     work_dir = Path(work)
+    scenarios = scenarios or SCENARIOS
     try:
         init_multihost(f"file://{work_dir / 'rendezvous'}", world, rank, device="cpu")
         out = {}
@@ -79,7 +81,7 @@ def _rank_main(rank: int, world: int, work: str) -> None:
                 time.sleep(0.1)
             with open(work_dir / part, "rb") as f:
                 inputs = pickle.load(f)
-            out.update({name: SCENARIOS[name](rank, world, spec, work_dir) for name, spec in inputs.items()})
+            out.update({name: scenarios[name](rank, world, spec, work_dir) for name, spec in inputs.items()})
         with open(work_dir / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     except BaseException:
@@ -190,6 +192,35 @@ def clip_global_batch(rank, world, spec, work):
             "buffers": _np({k: v for k, v in port.module.named_buffers() if "running" in k})}
 
 
+def clip_model_axis(rank, world, spec, work):
+    """One CLIP ``Trainer`` step on a 1 x 2 mesh, the model axis cutting its
+    two projections (``parallel/tensor.py``), each rank on the whole global
+    batch (one data row), stochastic depth keeping every item: the loss, the
+    gradient the step applied (Adam's first moment / (1 - b1)) and every
+    parameter after it, whole, and the tensors cut and summed over the axis."""
+    from avex_tpu_torch.configs import MeshConfig, ModelSpec, RunConfig, SchedulerConfig, TrainingParams
+    from avex_tpu_torch.models import efficientnet as eff
+    from avex_tpu_torch.models.factory import build_model_from_spec
+    from avex_tpu_torch.training import Trainer
+
+    eff.stochastic_depth_mask = lambda bsz, keep, generator, device: torch.ones((bsz, 1, 1, 1), dtype=torch.bool,
+                                                                                 device=device)
+    config = RunConfig(
+        model_spec=ModelSpec(**spec["spec"], device="cpu"), training_params=TrainingParams(**spec["training"]),
+        output_dir=str(work / f"clip_model_axis_rank{rank}"), scheduler=SchedulerConfig(name="cosine", warmup_steps=0),
+        seed=0, device="cpu", mesh=MeshConfig(data=1, model=world), label_type="text", loss_function="clip",
+    )
+    model = build_model_from_spec(config.model_spec)
+    model.load_port_state_dict(spec["state"], strict=True)
+    trainer = Trainer(model, config, [], steps_per_epoch=spec["steps_per_epoch"])
+    loss, _ = trainer._train_step({"raw_wav": spec["wav"], "text_tokens": spec["tokens"]})
+    saved = trainer._save_kwargs()
+    layout = trainer._model_layout
+    return {"loss": loss.item(), "cut": dict(layout.cut), "partial": sorted(layout.partial),
+            "params": _np(saved["params"]),
+            "grads": {k: v / np.float32(0.1) for k, v in _np(saved["opt_state"]["mu"]).items()}}
+
+
 def eat_ssl_step(rank, world, spec, work):
     """One ``Trainer`` step of EAT-SSL on the rank's clips, its mask draw the
     rank's rows of JAX's global draw: the loss, the student and the teacher,
@@ -297,5 +328,5 @@ def run_evaluate_distributed(rank, world, spec, work):
 
 
 SCENARIOS = {f.__name__: f for f in (supervised_beats_dp, supervised_beats_fsdp, efficientnet_batchnorm,
-                                      clip_global_batch, eat_ssl_step, extraction, metrics_mean, finetune,
-                                      run_train_distributed, run_evaluate_distributed)}
+                                      clip_global_batch, clip_model_axis, eat_ssl_step, extraction, metrics_mean,
+                                      finetune, run_train_distributed, run_evaluate_distributed)}

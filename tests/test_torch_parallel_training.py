@@ -16,6 +16,9 @@ side) run on their halves:
 - EfficientNet-B0 in train mode: the averaged gradients and BatchNorm's
   running statistics, over the global batch's statistics;
 - CLIP (train mode): the loss over the gathered features and the gradients;
+  and one ``Trainer`` step on a 1 x 2 mesh whose model axis cuts CLIP's two
+  projections (``_tp_shard_params``'s ``fc1``/``fc2``), the loss, every
+  gradient tensor and every parameter after the update;
 - EAT-SSL: the loss, the student and the EMA teacher, each rank's mask draw
   its rows of JAX's global draw;
 - every ``Trainer`` step here runs at the full learning rate (a cosine
@@ -32,6 +35,7 @@ Tolerances are those of the single-process tests of the same pieces.
 import pickle
 
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -48,6 +52,7 @@ from avex_tpu.evaluation.embedding_cache import extract_embeddings_to_cache as j
 from avex_tpu.evaluation.embedding_cache import load_cached_embeddings as jax_load_cache
 from avex_tpu.parallel import shard_batch
 from avex_tpu.training import Trainer as JaxTrainer
+from avex_tpu.training.optimizers import make_optimizer as jax_make_optimizer
 from avex_tpu.training.strategies import CLIPStrategy as JaxCLIPStrategy
 
 import avex_tpu_torch
@@ -186,6 +191,9 @@ def ranks(tmp_path_factory):
                                    "images": images, "labels": np.array([1, 2, 3, 0])},
         "clip_global_batch": {"spec": _spec(), "state": clip.params_from_jax(jax_clip.variables), "wav": _wav(5),
                               "tokens": np.asarray(jax_clip.tokenize(TEXTS))},
+        "clip_model_axis": {"spec": _spec(), "state": clip.params_from_jax(jax_clip.variables), "wav": _wav(5),
+                            "tokens": np.asarray(jax_clip.tokenize(TEXTS)), "training": TRAINING,
+                            "steps_per_epoch": STEPS_PER_EPOCH},
         "eat_ssl_step": {"eat_cfg": dict(EAT_CFG, ema_decay=0.9), "state": eat["state"], "batch": eat["batch"],
                          "noise": eat["noise"], "training": dict(TRAINING, batch_size=8),
                          "fsdp_min_size": FSDP_MIN_SIZE},
@@ -336,31 +344,45 @@ def test_efficientnet_global_batchnorm_matches_jax(ranks):
         np.testing.assert_array_equal(other, got, err_msg=key)  # one global batch, one result
 
 
-def test_clip_global_batch_loss_matches_jax(ranks, monkeypatch):
+def _jax_clip_step(ranks):
+    """JAX's train-mode CLIP loss and gradients on the global batch (stochastic
+    depth keeping every item) and the parameters after one AdamW step of the
+    JAX package's optimizer from them, once for the file: the loss, the
+    gradients and the updated running statistics, and the parameters after,
+    in the port's names."""
+    if "jax_clip_step" in ranks:
+        return ranks["jax_clip_step"]
     jax_model = ranks["jax_clip"]
     spec = ranks["inputs"]["clip_global_batch"]
     variables = jax_model.variables
     apply_fn = _jax_apply_fn(jax_model)
-    monkeypatch.setattr(jax.random, "bernoulli", lambda key, p, shape: jnp.ones(shape, bool))
 
     def loss_fn(params):
         return JaxCLIPStrategy().forward_loss(apply_fn, params, {"batch_stats": variables["batch_stats"]},
                                               {"raw_wav": spec["wav"], "text_tokens": spec["tokens"]},
                                               jax.random.PRNGKey(0), train=True)
 
-    (want_loss, want_metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
-    results = _results(ranks, "clip_global_batch")
-    for r in results:  # every rank computes the global batch's loss
-        np.testing.assert_allclose(r["loss"], float(want_loss), **FP32_TOL)
-        assert r["count"] == 4
-    want = clip.params_from_jax({"params": _tree(grads),
-                                 "batch_stats": _tree(want_metrics["_updated_variables"]["batch_stats"])})
-    for key in (k for k in want if "running" in k):
-        np.testing.assert_allclose(results[0]["buffers"][key], want[key], err_msg=key, **FP32_TOL)
-    # every tensor by its rel L2 at the bound that the single-process train-mode test puts on all of them
-    # together (ill-conditioned BatchNorm); the tensors whose exact gradient is 0 (RoBERTa's key bias, the
-    # projection BatchNorm biases: rounding noise, rel ~2 apart) left out and their noise bounded
-    got = results[0]["grads"]
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax.random, "bernoulli", lambda key, p, shape: jnp.ones(shape, bool))
+        (loss, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+    tx, _ = jax_make_optimizer(JaxTrainingParams(**TRAINING), JaxSchedulerConfig(**NO_WARMUP),
+                               total_steps=STEPS_PER_EPOCH, params=variables["params"])
+    after = jax.jit(lambda p, g: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))(variables["params"], grads)
+    ranks["jax_clip_step"] = {
+        "loss": float(loss),
+        "grads": clip.params_from_jax({"params": _tree(grads),
+                                       "batch_stats": _tree(metrics["_updated_variables"]["batch_stats"])}),
+        "after": clip.params_from_jax({"params": _tree(after)}),
+    }
+    return ranks["jax_clip_step"]
+
+
+def hold_clip_gradients(got, want):
+    """Every tensor by its rel L2 at the bound that the single-process
+    train-mode test puts on all of them together (ill-conditioned
+    BatchNorm); the tensors whose exact gradient is 0 (RoBERTa's key bias,
+    the projection BatchNorm biases: rounding noise, rel ~2 apart) left out
+    and their noise bounded. Returns those tensors' names."""
     grads_only = {k: v for k, v in want.items() if k in got}
     assert set(grads_only) == set(got)
     zero = shift_free_biases(got) | {k for k in got if k.endswith(".k.bias")}
@@ -372,8 +394,45 @@ def test_clip_global_batch_loss_matches_jax(ranks, monkeypatch):
             assert max(np.abs(got[key]).max(), np.abs(value).max()) <= 1e-5 * scale, key
         else:
             assert diff <= TRAIN_GRAD_REL * np.linalg.norm(value), (key, diff / np.linalg.norm(value))
+    return zero
+
+
+def test_clip_global_batch_loss_matches_jax(ranks):
+    jax_step = _jax_clip_step(ranks)
+    results = _results(ranks, "clip_global_batch")
+    for r in results:  # every rank computes the global batch's loss
+        np.testing.assert_allclose(r["loss"], jax_step["loss"], **FP32_TOL)
+        assert r["count"] == 4
+    want = jax_step["grads"]
+    for key in (k for k in want if "running" in k):
+        np.testing.assert_allclose(results[0]["buffers"][key], want[key], err_msg=key, **FP32_TOL)
+    got = results[0]["grads"]
+    hold_clip_gradients(got, want)
     for key, value in got.items():
         np.testing.assert_array_equal(results[1]["grads"][key], value, err_msg=key)
+
+
+def test_clip_model_axis_step_matches_jax(ranks):
+    """CLIP's projections cut over a model axis of two ranks (column-parallel
+    fc1, row-parallel fc2, fc1's bias read in part): the towers below them
+    take the gradient summed over the axis. The loss, every gradient tensor
+    and every parameter after the update against JAX's one-device step on
+    the same weights and batch; the ranks equal."""
+    jax_step = _jax_clip_step(ranks)
+    results = _results(ranks, "clip_model_axis")
+    projections = [f"{p}_projection" for p in ("audio", "text")]
+    assert results[0]["cut"] == {f"{p}.{fc}.weight": int(fc == "fc2") for p in projections for fc in ("fc1", "fc2")}
+    assert results[0]["partial"] == [f"{p}.fc1.bias" for p in projections]
+    for r in results:
+        np.testing.assert_allclose(r["loss"], jax_step["loss"], **FP32_TOL)
+    got = results[0]["grads"]
+    zero = hold_clip_gradients(got, jax_step["grads"])
+    for key, value in jax_step["after"].items():
+        mine = results[0]["params"][key]
+        assert key in zero or not np.array_equal(mine, ranks["inputs"]["clip_model_axis"]["state"][key]), key
+        hold_adam_step(mine, value, key, got[key], jax_step["grads"][key], TRAINING["lr"])
+    for key in results[0]["params"]:
+        np.testing.assert_array_equal(results[1]["params"][key], results[0]["params"][key], err_msg=key)
 
 
 def test_eat_ssl_step_with_its_ema_matches_jax(ranks):

@@ -102,9 +102,9 @@ def test_run_train_matches_jax(tmp_path, monkeypatch):
 
 def test_run_train_refuses_what_is_not_ported(tmp_path):
     config = RunConfig.from_sources(RUN_YAML, ["device=cpu", f"output_dir={tmp_path}"])
-    # distributed=True is ported (tests/test_torch_parallel_training.py); tensor, pipeline and
-    # sequence parallelism are not
-    with pytest.raises(NotImplementedError, match="item 14, part 2"):
+    # distributed=True and the model axis are ported (tests/test_torch_parallel_training.py,
+    # tests/test_torch_model_parallel.py); sequence parallelism needs the stacked layout, as in JAX
+    with pytest.raises(ValueError, match="scan_layers"):
         run_train.main(config.replace(mesh={"sequence_parallel": True}))
     with pytest.raises(NotImplementedError, match="grain"):
         run_train.main(config.replace(data_pipeline="grain"))

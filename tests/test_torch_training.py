@@ -405,15 +405,16 @@ def test_remat_policy_dots_keeps_the_dense_products(tmp_path):
 def test_unported_training_options_raise(tmp_path, monkeypatch):
     config = _port_config(tmp_path, "beats", BEATS_TINY)
     model = _port_model(config)
-    # a one-process mesh is what no mesh is; a model axis is item 14, part 2
+    # a one-process mesh is what no mesh is; a model axis of 2 needs two processes
+    # (tests/test_torch_model_parallel.py)
     assert Trainer(model, config, [], mesh=make_mesh(device="cpu")).mesh.size == 1
-    with pytest.raises(NotImplementedError, match="item 14, part 2"):
+    with pytest.raises(ValueError, match="model=2"):
         make_mesh(model=2, device="cpu")
     # the text and self-supervised strategies are ported (tests/test_torch_clip.py, tests/test_torch_eat_ssl.py)
     assert type(make_strategy("text")).__name__ == "CLIPStrategy"
     assert type(make_strategy("self_supervised")).__name__ == "EATSSLStrategy"
-    with pytest.raises(NotImplementedError, match="item 14, part 2"):
-        config.replace(mesh={"model": 2})
+    with pytest.raises(ValueError, match="model=2"):
+        Trainer(model, config.replace(mesh={"model": 2}), [])
     # augmentations are ported with the data pipeline: each dict becomes its config
     augmented = config.replace(augmentations=[{"kind": "mixup", "alpha": 0.2, "augmentation_prob": 0.5}])
     assert augmented.augmentations[0].kind == "mixup" and augmented.augmentations[0].alpha == 0.2
