@@ -25,8 +25,13 @@ starts from rank 0's trainable parameters, its batches are its shares of
 the global batches (equal, checked), the gradients are averaged over the
 ranks before the clipped AdamW, the training loss is averaged over the
 ranks and the evaluation scores the gathered global set, so every rank
-keeps the same best parameters. Expert parallelism of the MoE head over a
-model axis is ROADMAP queue 1, item 14, part 3.
+keeps the same best parameters. On a mesh with a model axis the MoE head
+goes expert-parallel, as JAX's ``_place_trainable`` places it
+(``ops/moe.shard_moe_params``): each model rank holds and runs its slice
+of the experts, the router and the rest stay whole, the clipping norm
+counts each cut tensor once, and after training the probe holds its whole
+parameters again (as JAX's ``device_get`` hands them back). Other heads
+are whole on every model rank, which compute the same step.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 from avex_tpu_torch.configs import ProbeConfig, TrainingParams
 from avex_tpu_torch.metrics import get_metric_class
+from avex_tpu_torch.ops.moe import ExpertParallelLayout, shard_moe_params
 from avex_tpu_torch.parallel import (
     Mesh,
     average_gradients,
@@ -95,12 +101,15 @@ class FineTuneTrainer:
         self.best_val_metric = -np.inf
         self._best_params: Optional[Dict[str, torch.Tensor]] = None
         self.train_backbone = mode == "online" and not probe.freeze_backbone
-        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.mesh = mesh if mesh is not None and (mesh.size > 1 or mesh.model_size > 1) else None
         self._trainable = self._initial_trainable()
+        self._experts: Optional[ExpertParallelLayout] = None
         if self.mesh is not None:
             replicate(probe.module, self.mesh)
             if self.train_backbone:
                 replicate(probe.base_model.module, self.mesh)
+            if probe.probe_type == "moe" and self.mesh.model_size > 1:
+                self._experts = shard_moe_params(probe.module, self.mesh, axis="model")
         self._tx: Optional[AdamW] = None
         self._opt_state: Optional[Dict[str, Any]] = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -168,8 +177,18 @@ class FineTuneTrainer:
         grads = {n: g if g is not None else torch.zeros_like(p) for n, p, g in zip(names, params, grads)}
         if self.mesh is not None:
             grads = average_gradients(grads, self.mesh)
-        self._tx.step(self._trainable, grads, self._opt_state)
+        norm = self._global_norm(grads) if self._tx.clip_norm and self._experts is not None else None
+        self._tx.step(self._trainable, grads, self._opt_state, global_norm=norm)
         return loss.detach(), logits.detach()
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The whole gradient's L2 norm from this rank's share: the cut expert
+        tensors' squares summed over the model axis, the whole ones once."""
+        parts = [torch.zeros((), device=self.device), torch.zeros((), device=self.device)]
+        for name, g in grads.items():
+            parts[self._experts.split(name.removeprefix("probe."))] += g.float().square().sum()
+        cut = sum_over_ranks([parts[1].reshape(1)], self.mesh.model_axis)[0][0]
+        return torch.sqrt(parts[0] + cut)
 
     def _eval_step(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
         self._set_modes(train=False)
@@ -187,7 +206,7 @@ class FineTuneTrainer:
         for batch in loader:
             loss, logits = self._eval_step(batch)
             labels = self._to_device(batch["label"])
-            if self.mesh is not None:
+            if self.mesh is not None and self.mesh.size > 1:
                 check_equal_rows(len(labels), self.mesh)
                 logits, labels = gather_rows(logits.contiguous(), self.mesh), gather_rows(labels, self.mesh)
                 loss = sum_over_ranks([loss.reshape(1)], self.mesh)[0][0] / self.mesh.size  # equal shares
@@ -239,6 +258,9 @@ class FineTuneTrainer:
             with torch.no_grad():
                 for name, value in self._best_params.items():
                     self._trainable[name].copy_(value)
+        if self._experts is not None:
+            self._experts.whole(self.probe.module)
+            self._experts = None
         self._set_modes(train=False)
         return {"history": history, "best_val_metric": self.best_val_metric}
 

@@ -31,6 +31,8 @@ JAX, never applied. ``scan_layers`` is JAX's stacked layout at the edges
 (``enable_pipeline``, ``enable_sequence_parallel``), and tensor parallelism
 (``parallel/tensor.py``) cuts the attention's projections (JAX's names;
 the FFN's ``intermediate_dense``/``output_dense`` stay whole).
+``enable_ring_attention`` runs each layer's attention as ring attention
+over a mesh axis (``ops/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from avex_tpu_torch.models.common import (
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.ops.attention import dot_product_attention
 from avex_tpu_torch.ops.attention_kernels import fused_qkv_attention, fused_qkv_compatible
+from avex_tpu_torch.ops.ring_attention import check_ring_axis, ring_self_attention, shared_linear
 from avex_tpu_torch.parallel import shared_generator
 from avex_tpu_torch.parallel.tensor import linear_bias, whole_names
 
@@ -173,6 +176,8 @@ class _EncoderLayer(nn.Module):
         #: the model axis of the attention: its heads cut, or the time axis
         self.model_axis = None
         self.heads_cut: Optional[slice] = None
+        #: ring attention over this mesh's model axis (``ops/ring_attention.py``), or None
+        self.ring_mesh = None
 
     def use_model_axis(self, axis, cut) -> list:
         """Run this rank's heads when the projections are cut; returns the
@@ -206,7 +211,19 @@ class _EncoderLayer(nn.Module):
             heads = self.heads_cut.stop - self.heads_cut.start
         bsz, seq = h.shape[:2]
         dim = heads * head_dim
-        if self.use_pallas and fused_qkv_compatible(dim, heads):
+        if self.ring_mesh is not None:
+            # no kernel under a ring, as in JAX; each rank projects its block
+            # of positions, T padded to a ring multiple, its padded keys
+            # masked with the frames'
+            def project(x_l, shared):
+                n = x_l.shape[1]
+                return (*(shared_linear(proj, x_l, dt, shared).view(bsz, n, heads, head_dim).transpose(1, 2)
+                          for proj in (att.q_proj, att.k_proj, att.v_proj)), None)
+
+            attn = ring_self_attention(h, project, mesh=self.ring_mesh, key_padding_mask=padding_mask,
+                                       scale=head_dim**-0.5)
+            attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
+        elif self.use_pallas and fused_qkv_compatible(dim, heads):
             # One [E, 3E] product, q|k|v heads-major, then K5 over its columns.
             w = torch.cat([att.q_proj.weight, att.k_proj.weight, att.v_proj.weight]).to(dt)
             b = torch.cat([linear_bias(p) for p in (att.q_proj, att.k_proj, att.v_proj)]).to(dt)
@@ -507,6 +524,11 @@ class Model(ModelBase):
         self._enable_layer_runner(self.module.encoder.transformer, mesh, "sequence parallelism", _SCAN_HINT)
 
     def enable_ring_attention(self, mesh: Any, axis: str = "model") -> None:
-        """Not ported: ring attention over a mesh."""
-        raise NotImplementedError("AVES enable_ring_attention: ring attention over a mesh is not ported "
-                                  "(ROADMAP queue 1, item 14, part 3)")
+        """Run every layer's attention as ring attention over ``mesh``'s model
+        axis (``ops/ring_attention.py``): long windows without a ``[B, H, T,
+        T]`` score matrix on any rank. ``mesh=None`` turns it off. ``axis``
+        is JAX's argument, which AVES's layers do not read either: any other
+        axis than ``model`` raises."""
+        check_ring_axis(axis)
+        for layer in self.module.encoder.transformer.layers:
+            layer.ring_mesh = mesh

@@ -343,7 +343,8 @@ class ModelBase:
             raise ValueError(f"{what} needs the stacked (scan_layers=True) parameter layout; {hint}")
         if what == "pipeline parallelism":
             stack.layer_runner = make_pipeline_runner(mesh, num_microbatches=num_microbatches)
-            stack.shared_axis = mesh.model_axis
+            if hasattr(stack, "share_over"):  # a bias every stage reads (BEATs')
+                stack.share_over(mesh.model_axis)
         else:  # Megatron-SP comes with tensor parallelism: the tensors JAX's _tp_shard_params cuts are cut
             stack.layer_runner = make_sequence_parallel_runner(mesh)
             if mesh.model_size > 1:

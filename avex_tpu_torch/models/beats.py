@@ -31,7 +31,12 @@ Port of ``avex_tpu/models/beats.py``:
   non-reentrant), replaying the layer's random draws on recompute;
   ``remat_policy="dots"`` keeps the dense layers' products and recomputes
   the rest, the attention kernel included (JAX's
-  ``dots_with_no_batch_dims_saveable``).
+  ``dots_with_no_batch_dims_saveable``);
+- ``enable_ring_attention`` (long windows): each layer's attention is ring
+  attention over a mesh axis (``ops/ring_attention.py``): each rank
+  projects the split q/k/v of its block of positions, its gate from the
+  split q, T padded to a ring multiple with masked keys; the kernels are
+  off, as in JAX.
 
 With ``compute_dtype="bfloat16"`` parameters stay fp32 and matmul inputs are
 cast to bf16 (flax ``dtype=bf16``); LayerNorm statistics are fp32 with a bf16
@@ -46,6 +51,7 @@ carries a JAX ``variables["params"]`` tree (as numpy) across.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 from dataclasses import dataclass, field
@@ -78,6 +84,7 @@ from avex_tpu_torch.ops.attention_kernels import (
     gated_bias_attention,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, beats_fbank
+from avex_tpu_torch.ops.ring_attention import ring_self_attention, shared_linear
 from avex_tpu_torch.parallel import shared_generator
 from avex_tpu_torch.parallel.tensor import copy_to_model, whole_names
 from avex_tpu_torch.quant import Int8Linear, quantize_params
@@ -96,8 +103,6 @@ __all__ = [
     "quantize_beats_params",
 ]
 
-#: what the port does not have of JAX's BEATs yet
-_RING = "ring attention over a mesh is not ported (ROADMAP queue 1, item 14, part 3)"
 _SCAN_HINT = 'construct the model with init_config={"scan_layers": True}'
 
 
@@ -224,6 +229,9 @@ class _GatedRelPosAttention(nn.Module):
         #: over it or the time axis is (sequence parallelism)
         self.model_axis = None
         self.heads_cut: Optional[slice] = None
+        #: ring attention over this mesh's ``ring_axis`` (``ops/ring_attention.py``), or None
+        self.ring_mesh = None
+        self.ring_axis = "model"
 
     def use_model_axis(self, axis, cut) -> list:
         """Run this rank's heads when the projections are cut (``cut``: the
@@ -238,10 +246,14 @@ class _GatedRelPosAttention(nn.Module):
         # out_proj's bias is added after the sum over the axis
         return [n for n in whole_names(self, cut) if not n.startswith("out_proj.")]
 
-    def _gate(self, q_heads: torch.Tensor, layout: str, grep_a: torch.Tensor) -> torch.Tensor:
+    def _gate(self, q_heads: torch.Tensor, layout: str, grep_a: torch.Tensor, shared=None) -> torch.Tensor:
         """GRU gate ``[B, H, T]`` (fp32) from q in ``[B, H, T, dh]`` ("split")
-        or ``[B, T, H, dh]`` ("fused") layout."""
-        gates = dense(self.grep_linear, q_heads, self.dtype)
+        or ``[B, T, H, dh]`` ("fused") layout; ``shared``: how a ring reads
+        ``grep_linear`` (``ops/ring_attention.py``)."""
+        if shared is None:
+            gates = dense(self.grep_linear, q_heads, self.dtype)
+        else:
+            gates = shared_linear(self.grep_linear, q_heads, self.dtype, shared)
         gates = gates.unflatten(-1, (2, 4)).sum(-1).float().sigmoid()
         if layout == "fused":
             gates = gates.transpose(1, 2)  # [B, H, T, 2]
@@ -279,6 +291,15 @@ class _GatedRelPosAttention(nn.Module):
         use_pallas = bool(self.use_pallas)
         has_gate = position_bias is not None and self.gru_rel_pos
 
+        if self.ring_mesh is not None:
+            # the kernels are off under a ring, as in JAX; each rank projects
+            # its block of positions, T padded to a ring multiple
+            out = ring_self_attention(
+                x, functools.partial(self._ring_projection, heads, grep_a if has_gate else None),
+                mesh=self.ring_mesh, axis=self.ring_axis, bias=position_bias,
+                key_padding_mask=key_padding_mask, scale=dh**-0.5,
+            )
+            return self._output(out.transpose(1, 2).reshape(bsz, seq, e))
         if self.fused_qkv:
             qkv = self._qkv(x, cut)  # [B, T, 3e]
             if use_pallas and position_bias is not None and fused_qkv_compatible(e, heads):
@@ -314,6 +335,21 @@ class _GatedRelPosAttention(nn.Module):
             out = dot_product_attention(q, k, v, bias=bias, scale=dh**-0.5, logits_dtype=logits_dtype)
         out = out.transpose(1, 2).reshape(bsz, seq, e)
         return self._output(out)
+
+    def _ring_projection(self, heads: int, grep_a: Optional[torch.Tensor], x: torch.Tensor, shared) -> tuple:
+        """q, k, v ``[B, H, n, dh]`` of a ring rank's positions ``x`` and their
+        gate ``[B, H, n, 1]`` from the split q (None without ``grep_a``)."""
+        bsz, n, dh = x.shape[0], x.shape[1], self.head_dim
+        if self.fused_qkv:
+            qkv = shared_linear(self.qkv_proj, x, self.dtype, shared)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, n, 3, heads, dh).unbind(2))
+        else:
+            q, k, v = (
+                shared_linear(proj, x, self.dtype, shared).view(bsz, n, heads, dh).permute(0, 2, 1, 3)
+                for proj in (self.q_proj, self.k_proj, self.v_proj)
+            )
+        gate = self._gate(q, "split", shared(grep_a), shared)[..., None] if grep_a is not None else None
+        return q, k, v, gate
 
     def _output(self, out: torch.Tensor) -> torch.Tensor:
         """``out_proj`` (row-parallel with the heads cut: its sum over the axis
@@ -410,15 +446,21 @@ class _TransformerEncoder(nn.Module):
         #: ``runner(layer_fn, layers, x, batched, shared)`` that owns the layer
         #: loop (``parallel/pipeline.py``, ``parallel/sequence.py``), or None
         self.layer_runner = None
-        #: the model axis whose ranks each read a part of the shared bias
-        self.shared_axis = None
+        #: the axes whose ranks each read a part of the shared bias (the
+        #: pipeline's stages, the heads or positions of a model-axis layout)
+        self.shared_axes: list = []
 
     def use_model_axis(self, axis, cut) -> list:
         """The layers read the shared bias in part (their heads, their
         positions): its gradient is summed over the axis."""
         if axis.sequence or any("self_attn.out_proj" in n for n in cut):
-            self.shared_axis = axis.mesh
+            self.share_over(axis.mesh)
         return []
+
+    def share_over(self, mesh) -> None:
+        """Sum the shared bias's gradient over ``mesh``'s ranks (once per axis)."""
+        if all(m.group is not mesh.group for m in self.shared_axes):
+            self.shared_axes.append(mesh)
 
     def position_bias(self, seq: int, device: torch.device) -> torch.Tensor:
         """The shared ``[1, H, T, T]`` fp32 bias, contiguous."""
@@ -451,8 +493,8 @@ class _TransformerEncoder(nn.Module):
         x = dropout(x, cfg.dropout, deterministic, generator)
 
         position_bias = self.position_bias(seq, x.device) if cfg.relative_position_embedding else None
-        if position_bias is not None and self.shared_axis is not None:
-            position_bias = copy_to_model(position_bias, self.shared_axis)
+        for mesh in self.shared_axes if position_bias is not None else ():
+            position_bias = copy_to_model(position_bias, mesh)
         use_layerdrop = not disable_layerdrop and cfg.encoder_layerdrop > 0 and not deterministic
         if use_layerdrop and generator is None:
             raise ValueError("LayerDrop outside deterministic mode needs a torch.Generator")
@@ -896,8 +938,13 @@ class Model(ModelBase):
         self._enable_layer_runner(self._encoder(), mesh, "sequence parallelism", _SCAN_HINT)
 
     def enable_ring_attention(self, mesh, axis: str = "model") -> None:
-        """Not ported: ring attention over a mesh."""
-        raise NotImplementedError(f"BEATs enable_ring_attention: {_RING}")
+        """Run every layer's attention as ring attention over ``mesh``'s
+        ``axis`` (``ops/ring_attention.py``): the long-window inference mode,
+        in which no rank holds a ``[B, H, T, T]`` score matrix. T pads to a
+        ring multiple with masked keys (exact); the kernels are off, as in
+        JAX. ``mesh=None`` turns it off."""
+        for layer in self._encoder().layers:
+            layer.self_attn.ring_mesh, layer.self_attn.ring_axis = mesh, axis
 
     def enable_gradient_checkpointing(self) -> None:
         """Checkpoint every encoder layer (``remat``): its activations are

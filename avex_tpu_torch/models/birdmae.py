@@ -19,9 +19,15 @@ spectrogram of 32 kHz audio:
 
 :func:`convert_birdmae_state_dict` takes timm/MAE naming (EAT's converter,
 as in JAX); :func:`params_from_jax` (EAT's: Bird-MAE has the same tree
-without the pre-norm) carries a JAX ``variables["params"]`` tree across. The JAX package's layer-stack options (``scan_layers``,
-pipeline and sequence parallelism, ring attention) raise
-``NotImplementedError`` (ROADMAP queue 1, item 14, part 3).
+without the pre-norm) carries a JAX ``variables["params"]`` tree across,
+per-layer or stacked. The layer-stack options are EAT's: ``scan_layers`` is
+JAX's stacked layout at the edges (the converter, ``params_from_jax``,
+``load_port_state_dict``), ``enable_pipeline`` and
+``enable_sequence_parallel`` hand the block stack to a ``layer_runner``
+(GPipe, ``parallel/pipeline.py``; Megatron-SP with tensor parallelism,
+``parallel/sequence.py``: the 1 + 512 tokens cut unevenly over the axis, as
+GSPMD cuts them), both needing ``scan_layers`` as in JAX, and
+``enable_ring_attention`` runs each block's attention as ring attention.
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ from avex_tpu_torch.models.eat import (
     _Block,
     _PatchEmbed,
     _PositionTables,
+    _SCAN_HINT,
     apply_vit_blocks,
-    check_unported,
     convert_eat_state_dict,
     params_from_jax,
     patch_tokens,
+    set_ring_mesh,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank
 
@@ -84,7 +91,6 @@ class BirdMAEModel(nn.Module):
         ring_mesh: Any = None,
     ) -> None:
         super().__init__()
-        check_unported("Bird-MAE", scan_layers=scan_layers, layer_runner=layer_runner, ring_mesh=ring_mesh)
         self.dim, self.num_classes, self.target_length, self.dtype = dim, num_classes, target_length, dtype
         self.norm_mean, self.norm_std = norm_mean, norm_std
         self.fbank = KaldiFbank(num_mel_bins=128, sample_frequency=sample_rate, window_type="hanning")
@@ -95,6 +101,9 @@ class BirdMAEModel(nn.Module):
         if num_classes is not None:
             self.classifier = nn.Linear(dim, num_classes)
         self._positions = _PositionTables(dim)
+        #: the block stack's runner (``parallel/pipeline.py``, ``parallel/sequence.py``), or None
+        self.layer_runner = layer_runner
+        set_ring_mesh(self.blocks, ring_mesh)
 
     def spectrogram(self, wav: torch.Tensor) -> torch.Tensor:
         """``[B, T]`` 32 kHz waveform → normalised ``[B, target_length, 128]`` fp32."""
@@ -117,7 +126,8 @@ class BirdMAEModel(nn.Module):
         tokens = tokens + self._positions(gh, gw, tokens.device)[None].to(dt)
         cls = self.cls_token.to(dt).expand(tokens.shape[0], 1, self.dim)
         tokens = torch.cat([cls, tokens], dim=1)
-        tokens, intermediates = apply_vit_blocks(self.blocks, tokens, key_prefix="model.blocks.")
+        tokens, intermediates = apply_vit_blocks(self.blocks, tokens, key_prefix="model.blocks.",
+                                                 layer_runner=self.layer_runner)
         tokens = layer_norm(self.norm, tokens, dt)
         aux: Dict[str, Any] = {"intermediates": intermediates, "features": tokens, "pooled": tokens[:, 0]}
         if self.num_classes is None:
@@ -126,12 +136,12 @@ class BirdMAEModel(nn.Module):
 
 
 def convert_birdmae_state_dict(
-    state: Mapping[str, Any], num_classes: Optional[int] = None
+    state: Mapping[str, Any], num_classes: Optional[int] = None, scan_layers: bool = False
 ) -> Dict[str, Any]:
     """timm/MAE-style ViT state dict → this port's :class:`BirdMAEModel` state
     dict: EAT's converter, as in JAX (the same block naming; decoder and EMA
-    entries skipped)."""
-    return convert_eat_state_dict(state, num_classes=num_classes)
+    entries skipped); with ``scan_layers`` the blocks come stacked."""
+    return convert_eat_state_dict(state, num_classes=num_classes, scan_layers=scan_layers)
 
 
 def variant_of(model_id: str) -> str:
@@ -178,6 +188,7 @@ class Model(ModelBase):
         v_dim, v_depth, v_heads = MAE_VARIANTS[variant_of(model_id)]
         dim, depth, heads = dim or v_dim, depth or v_depth, heads or v_heads
         self.depth = depth
+        self.stacked_layers = "blocks" if scan_layers else None
         self.num_classes = None if return_features_only else num_classes
         dtype = torch_dtype(compute_dtype)
         self.module = build_module(
@@ -198,16 +209,21 @@ class Model(ModelBase):
             self._layer_names = [f"model.blocks.{i}.attn.proj" for i in range(self.depth)]
 
     def enable_pipeline(self, mesh: Any, num_microbatches: Optional[int] = None) -> None:
-        """Not ported: GPipe over a mesh (ROADMAP queue 1, item 14, part 3)."""
-        check_unported("Bird-MAE", **{"pipeline parallelism": True})
+        """Run the block stack pipeline-parallel over ``mesh``'s model axis
+        (GPipe, ``parallel/pipeline.py``). Needs ``scan_layers=True``, as in JAX."""
+        self._enable_layer_runner(self.module, mesh, "pipeline parallelism", _SCAN_HINT, num_microbatches)
 
     def enable_sequence_parallel(self, mesh: Any) -> None:
-        """Not ported: Megatron sequence parallelism (ROADMAP queue 1, item 14, part 3)."""
-        check_unported("Bird-MAE", **{"sequence parallelism": True})
+        """Megatron-SP over ``mesh``'s model axis (``parallel/sequence.py``),
+        with tensor parallelism. Needs ``scan_layers=True``, as in JAX."""
+        self._enable_layer_runner(self.module, mesh, "sequence parallelism", _SCAN_HINT)
 
     def enable_ring_attention(self, mesh: Any, axis: str = "model") -> None:
-        """Not ported: ring attention over a mesh (ROADMAP queue 1, item 14, part 3)."""
-        check_unported("Bird-MAE", **{"ring attention": True})
+        """Every block's attention as ring attention over ``mesh``'s model
+        axis (``ops/ring_attention.py``), as EAT's; ``mesh=None`` turns it off.
+        ``axis`` is JAX's argument, which its blocks do not read: any other
+        axis than ``model`` raises."""
+        set_ring_mesh(self.module.blocks, mesh, axis)
 
     def load_state_dict(self, state: Mapping[str, Any], strict: bool = False) -> None:
         """Load a timm/MAE-style Bird-MAE state dict."""

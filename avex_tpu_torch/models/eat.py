@@ -28,7 +28,9 @@ at the edges (:func:`convert_eat_state_dict`, :func:`params_from_jax`,
 ``load_port_state_dict``); the block stack may be run by a ``layer_runner``
 (``enable_pipeline``, ``enable_sequence_parallel``), and a block's
 ``mlp.fc1``/``mlp.fc2`` cut by tensor parallelism (``parallel/tensor.py``).
-Ring attention raises ``NotImplementedError``.
+``enable_ring_attention`` runs each block's attention as ring attention
+over a mesh axis (``ops/ring_attention.py``): the CLS token makes T = grid
++ 1, which pads to a ring multiple with masked keys.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from avex_tpu_torch.ops.attention_kernels import (
     gated_bias_attention,
 )
 from avex_tpu_torch.ops.fbank import KaldiFbank, eat_fbank
+from avex_tpu_torch.ops.ring_attention import check_ring_axis, ring_self_attention, shared_linear
 from avex_tpu_torch.parallel.tensor import whole_names
 
 logger = logging.getLogger(__name__)
@@ -70,18 +73,6 @@ __all__ = [
     "params_from_jax",
     "sincos_2d_positions",
 ]
-
-#: JAX options still to port (ring attention, Bird-MAE's layer-stack
-#: options) and the ROADMAP item that brings each to the port.
-_NOT_PORTED = {
-    "scan_layers": "queue 1, item 14, part 3",
-    "layer_runner": "queue 1, item 14, part 3",
-    "ring_mesh": "queue 1, item 14, part 3",
-    "pipeline parallelism": "queue 1, item 14, part 3",
-    "sequence parallelism": "queue 1, item 14, part 3",
-    "ring attention": "queue 1, item 14, part 3",
-}
-
 
 _SCAN_HINT = 'construct the model with init_config={"scan_layers": True}'
 
@@ -139,6 +130,8 @@ class _Block(nn.Module):
         # tensor parallelism cuts no attention tensor of this block), of the
         # MLP when fc1/fc2 are cut
         self.attn_axis = self.mlp_axis = None
+        #: ring attention over this mesh's model axis (``ops/ring_attention.py``), or None
+        self.ring_mesh = None
 
     def use_model_axis(self, axis, cut) -> list:
         """Run this rank's part; returns the whole tensors read in part."""
@@ -155,10 +148,19 @@ class _Block(nn.Module):
             h = self.attn_axis.enter(h, cut=False)  # every position's keys
         bsz, seq, dim = h.shape
         head_dim = dim // heads
-        qkv = dense(self.attn.qkv, h, dt)  # [B, T, 3E]
-        if self.use_pallas and fused_qkv_compatible(dim, heads):
-            attn = fused_qkv_attention(qkv, heads, scale=head_dim**-0.5)  # K5
+        if self.ring_mesh is not None:
+            # no kernel under a ring, as in JAX; each rank projects its block
+            # of positions, T = grid + CLS padded to a ring multiple
+            def project(x_l, shared):
+                qkv = shared_linear(self.attn.qkv, x_l, dt, shared).view(bsz, x_l.shape[1], 3, heads, head_dim)
+                return (*(t.permute(0, 2, 1, 3) for t in qkv.unbind(2)), None)
+
+            attn = ring_self_attention(h, project, mesh=self.ring_mesh, scale=head_dim**-0.5)
+            attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
+        elif self.use_pallas and fused_qkv_compatible(dim, heads):
+            attn = fused_qkv_attention(dense(self.attn.qkv, h, dt), heads, scale=head_dim**-0.5)  # K5
         else:
+            qkv = dense(self.attn.qkv, h, dt)  # [B, T, 3E]
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, head_dim).unbind(2))
             if self.use_pallas:
                 # K4. Reached only when K5 refuses the heads, i.e. dh not 64
@@ -236,11 +238,12 @@ class _PositionTables:
         return table
 
 
-def check_unported(model: str, **options: Any) -> None:
-    """Raise for a JAX layer-stack option that the port does not have."""
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{model} {name} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name]})")
+def set_ring_mesh(blocks: nn.ModuleList, mesh: Any, axis: str = "model") -> None:
+    """Every block's attention as ring attention over ``mesh``'s model axis
+    (``None``: the block's own attention); ``axis`` must be ``model``."""
+    check_ring_axis(axis)
+    for block in blocks:
+        block.ring_mesh = mesh
 
 
 class EATModel(nn.Module):
@@ -269,7 +272,6 @@ class EATModel(nn.Module):
         ring_mesh: Any = None,
     ) -> None:
         super().__init__()
-        check_unported("EAT", ring_mesh=ring_mesh)
         if pooling not in ("cls", "mean"):
             raise ValueError(f"pooling must be 'cls' or 'mean', got {pooling!r}")
         self.num_classes, self.target_length = num_classes, target_length
@@ -286,6 +288,7 @@ class EATModel(nn.Module):
         self._positions = _PositionTables(dim)
         #: the block stack's runner (``parallel/pipeline.py``, ``parallel/sequence.py``), or None
         self.layer_runner = layer_runner
+        set_ring_mesh(self.blocks, ring_mesh)
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None
@@ -487,10 +490,14 @@ class Model(ModelBase):
         self._enable_layer_runner(self.module, mesh, "pipeline parallelism", _SCAN_HINT, num_microbatches)
 
     def enable_sequence_parallel(self, mesh: Any) -> None:
-        """Megatron-SP over ``mesh``'s model axis (``parallel/sequence.py``);
-        the 1 + patches tokens must divide over it. Needs ``scan_layers=True``."""
+        """Megatron-SP over ``mesh``'s model axis (``parallel/sequence.py``;
+        the 1 + patches tokens cut unevenly when odd). Needs ``scan_layers=True``."""
         self._enable_layer_runner(self.module, mesh, "sequence parallelism", _SCAN_HINT)
 
     def enable_ring_attention(self, mesh: Any, axis: str = "model") -> None:
-        """Not ported: ring attention over a mesh."""
-        check_unported("EAT", **{"ring attention": True})
+        """Run every block's attention as ring attention over ``mesh``'s model
+        axis (``ops/ring_attention.py``): long windows without a ``[B, H, T,
+        T]`` score matrix on any rank. ``mesh=None`` turns it off. ``axis``
+        is JAX's argument, which EAT's blocks do not read either: any other
+        axis than ``model`` raises."""
+        set_ring_mesh(self.module.blocks, mesh, axis)

@@ -15,22 +15,44 @@ The capacity is ``ceil(k·N/X·capacity_factor)``, clipped to [1, N]; pairs
 past it are dropped (their combine weight is 0, as in Switch). The dense
 ``[k·N, X, C]`` dispatch grows as ``O(k²·capacity_factor·N²)`` elements;
 :class:`MoEMLP` refuses past ``max_dispatch_elements``. The expert GELU is
-the tanh form (``jax.nn.gelu``'s default). Expert parallelism (a mesh and
-``shard_moe_params``) is ROADMAP queue 1, item 14, part 3.
+the tanh form (``jax.nn.gelu``'s default).
+
+Expert parallelism (:func:`shard_moe_params`, JAX's placement with GSPMD's
+collectives written out): every expert-major tensor (``w1``, ``b1``,
+``w2``, ``b2`` on a path through a ``moe`` module, its leading axis
+divisible by the axis size) keeps one slice of experts per rank of the mesh
+axis; the router and everything else stay whole. Each rank routes every
+token (the router is whole), runs its own experts on their tokens, and the
+combine's partial sums are summed over the axis; the tokens and the combine
+weights enter the cut region through ``copy_to_model``, so the router's
+gradient is the sum of the ranks' parts, the one-process gradient.
+Checkpoints hold whole tensors (:meth:`ExpertParallelLayout.gather_tensors`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MoEMLP", "lecun_normal_", "shard_moe_params", "switch_load_balancing_loss"]
+from avex_tpu_torch.parallel import Mesh, all_gather_into
+from avex_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
-_NOT_PORTED = "expert parallelism over a mesh is not ported (ROADMAP queue 1, item 14, part 3)"
+__all__ = [
+    "EXPERT_PARAM_NAMES",
+    "ExpertParallelLayout",
+    "MoEMLP",
+    "lecun_normal_",
+    "moe_sharding",
+    "shard_moe_params",
+    "switch_load_balancing_loss",
+]
+
+#: expert-major parameters of :class:`MoEMLP` (``[num_experts, ...]``)
+EXPERT_PARAM_NAMES = frozenset({"w1", "b1", "w2", "b2"})
 
 
 def lecun_normal_(tensor: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -43,8 +65,82 @@ def lecun_normal_(tensor: torch.Tensor, generator: Optional[torch.Generator] = N
         return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def shard_moe_params(tree: Any, mesh: Any, axis: str = "model") -> Any:
-    raise NotImplementedError(f"shard_moe_params: {_NOT_PORTED}")
+def moe_sharding(name: str, shape: Tuple[int, ...], size: int) -> Optional[int]:
+    """The dimension of parameter ``name`` cut over an expert axis of
+    ``size`` ranks (0, the experts), or None: JAX's rule, an expert-major
+    leaf under a ``moe`` module whose expert count the axis divides."""
+    parts = name.split(".")
+    if "moe" in parts[:-1] and parts[-1] in EXPERT_PARAM_NAMES and len(shape) >= 1 and shape[0] % size == 0:
+        return 0
+    return None
+
+
+class ExpertParallelLayout:
+    """The expert-parallel placement of ``module``'s MoE tensors over a mesh
+    axis: ``cut[name]`` is 0 for each tensor of :func:`moe_sharding`. On
+    construction the module holds this rank's experts and each
+    :class:`MoEMLP` whose experts are cut runs its own. Every rank builds it
+    together; a gradient needs no sum (a rank's experts are its own, the
+    whole tensors get the whole gradient through the cut region's
+    ``copy_to_model``)."""
+
+    def __init__(self, module: nn.Module, mesh: Mesh, axis: str = "model") -> None:
+        self.mesh = mesh.axis(axis)
+        self.params: Dict[str, nn.Parameter] = dict(module.named_parameters())
+        size = self.mesh.size
+        self.cut = {n: 0 for n, p in self.params.items()
+                    if size > 1 and moe_sharding(n, tuple(p.shape), size) is not None}
+        for prefix, sub in module.named_modules():
+            if isinstance(sub, MoEMLP) and f"{prefix}.w1" in self.cut:
+                sub.expert_mesh, sub.experts = self.mesh, self.block(sub.num_experts)
+        for name in self.cut:
+            self.params[name].data = self.local_of(name, self.params[name].data)
+
+    def block(self, n: int) -> slice:
+        """This rank's experts of ``n``."""
+        k = n // self.mesh.size
+        return slice(self.mesh.rank * k, (self.mesh.rank + 1) * k)
+
+    def split(self, name: str) -> bool:
+        """Whether ``name``'s tensor is cut over the axis."""
+        return name in self.cut
+
+    def local_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a whole tensor of parameter ``name`` (the
+        tensor itself for a whole one)."""
+        if name not in self.cut:
+            return full
+        return full[self.block(full.shape[0])].clone()
+
+    def gather_tensors(self, blocks: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The whole tensors of ``blocks`` (name → this rank's experts of a
+        parameter or of a moment that follows it; whole ones pass through)."""
+        out = dict(blocks)
+        for name, block in blocks.items():
+            if name in self.cut:
+                block = block.contiguous()
+                whole = block.new_empty((self.mesh.size * block.shape[0],) + tuple(block.shape[1:]))
+                out[name] = all_gather_into(whole, block, self.mesh)
+        return out
+
+    def whole(self, module: nn.Module) -> None:
+        """Put the whole tensors back into ``module`` and let its MoE layers
+        run every expert again (what a probe holds after training)."""
+        params = dict(module.named_parameters())
+        gathered = self.gather_tensors({n: params[n].data for n in self.cut})
+        for name, value in gathered.items():
+            params[name].data = value
+        for sub in module.modules():
+            if isinstance(sub, MoEMLP):
+                sub.expert_mesh, sub.experts = None, None
+
+
+def shard_moe_params(module: nn.Module, mesh: Mesh, axis: str = "model") -> ExpertParallelLayout:
+    """Expert-parallel placement of ``module``'s MoE tensors over ``mesh``'s
+    ``axis`` (JAX's ``shard_moe_params``): every expert-major tensor keeps
+    one slice of experts per rank, the router and the rest stay whole.
+    Returns the layout; the module holds this rank's experts."""
+    return ExpertParallelLayout(module, mesh, axis)
 
 
 def switch_load_balancing_loss(router_probs: torch.Tensor, dispatch_mask: torch.Tensor) -> torch.Tensor:
@@ -79,8 +175,11 @@ class MoEMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(f"MoEMLP(mesh=...): {_NOT_PORTED}")
+        if mesh is not None:  # JAX's field; here the placement is shard_moe_params's
+            raise ValueError("MoEMLP(mesh=...): the experts are placed over a mesh by shard_moe_params")
+        #: the expert axis (a one-axis mesh) and this rank's experts, when cut
+        self.expert_mesh: Optional[Mesh] = None
+        self.experts: Optional[slice] = None
         self.num_experts, self.k = num_experts, k
         self.capacity_factor = capacity_factor
         self.max_dispatch_elements = max_dispatch_elements
@@ -134,7 +233,11 @@ class MoEMLP(nn.Module):
         combine = (disp * weights.T[:, :, None, None]).sum(0)
         self.aux_loss = switch_load_balancing_loss(probs, dispatch)
 
+        if self.expert_mesh is not None:  # this rank's experts; the partial sums summed over the axis
+            x, combine = copy_to_model(x, self.expert_mesh), copy_to_model(combine, self.expert_mesh)
+            dispatch, combine = dispatch[:, self.experts], combine[:, self.experts]
         expert_in = torch.einsum("ne,nxc->xce", x, dispatch)
         h = F.gelu(torch.einsum("xce,xeh->xch", expert_in, self.w1) + self.b1[:, None, :], approximate="tanh")
         y = torch.einsum("xch,xho->xco", h, self.w2) + self.b2[:, None, :]
-        return torch.einsum("xco,nxc->no", y, combine)
+        out = torch.einsum("xco,nxc->no", y, combine)
+        return reduce_from_model(out, self.expert_mesh) if self.expert_mesh is not None else out

@@ -21,7 +21,11 @@ A mesh is a :class:`Mesh`: ``data`` x ``model`` processes, rank ``r`` at
 one process group per model column (the data axis's collectives) and one
 per data row (the model axis's: tensor parallelism, ``parallel/tensor.py``;
 the pipeline, ``parallel/pipeline.py``; sequence parallelism,
-``parallel/sequence.py``). Without an initialised process group it is a
+``parallel/sequence.py``; ring attention, ``ops/ring_attention.py``; expert
+parallelism, ``ops/moe.py``). A third ``tp`` axis (the 3-D dp x pp x tp
+cell: ``make_mesh(data, model, tp=...)``) puts rank ``r`` at
+``(r // (model·tp), (r // tp) % model, r % tp)`` with a group for each line
+of processes along each axis. Without an initialised process group it is a
 one-process mesh and no collective runs, so a run without
 ``torch.distributed`` is what it always was. The backend follows the run's
 device (NCCL for ``cuda``, gloo for ``cpu``) unless the caller names one.
@@ -211,27 +215,31 @@ class Mesh:
     one-process mesh, or a data axis of one beside a model axis).
     ``model_size``, ``model_rank`` and ``model_group`` are the model axis
     (this process's data row), ``model_group`` ``None`` for a model axis of
-    one. ``device`` is where this process's batch and the collectives'
-    buffers live.
+    one; ``tp_size``, ``tp_rank`` and ``tp_group`` the third axis of a 3-D
+    mesh (size 1 otherwise). ``device`` is where this process's batch and
+    the collectives' buffers live.
     """
 
     size: int
     rank: int
     group: Any
     device: torch.device
-    axis_names: Tuple[str, str] = ("data", "model")
+    axis_names: Tuple[str, ...] = ("data", "model")
     model_size: int = 1
     model_rank: int = 0
     model_group: Any = None
+    tp_size: int = 1
+    tp_rank: int = 0
+    tp_group: Any = None
 
     @property
     def distributed(self) -> bool:
         """Whether the process runs in a process group (of one rank or more)."""
-        return self.group is not None or self.model_group is not None
+        return any(g is not None for g in (self.group, self.model_group, self.tp_group))
 
     @property
     def backend(self) -> Optional[str]:
-        group = self.group if self.group is not None else self.model_group
+        group = next((g for g in (self.group, self.model_group, self.tp_group) if g is not None), None)
         return dist.get_backend(group) if group is not None else None
 
     @property
@@ -241,34 +249,55 @@ class Mesh:
         run over it as they run over the data axis."""
         return Mesh(self.model_size, self.model_rank, self.model_group, self.device, self.axis_names)
 
+    @property
+    def tp_axis(self) -> "Mesh":
+        """The third axis as a mesh of one axis (this process's line of ranks
+        that share its data and model coordinates)."""
+        return Mesh(self.tp_size, self.tp_rank, self.tp_group, self.device, self.axis_names)
+
+    def axis(self, name: str) -> "Mesh":
+        """The mesh axis ``name`` (one of :attr:`axis_names`) as a mesh of one axis."""
+        if name not in self.axis_names:
+            raise ValueError(f"mesh has no {name!r} axis (axes {tuple(self.axis_names)})")
+        index = tuple(self.axis_names).index(name)
+        return (Mesh(self.size, self.rank, self.group, self.device, self.axis_names), self.model_axis,
+                self.tp_axis)[index]
+
 
 def make_mesh(
     data: int = -1,
     model: int = 1,
-    axis_names: Tuple[str, str] = ("data", "model"),
+    axis_names: Optional[Tuple[str, ...]] = None,
     device: Any = "cuda",
+    tp: int = 1,
 ) -> Mesh:
-    """The (data, model) mesh over the run's processes, one device each.
+    """The (data, model) mesh over the run's processes, one device each, or
+    with ``tp > 1`` the (data, model, tp) mesh of the 3-D cell.
 
-    ``data=-1`` takes every process the model axis leaves. Rank ``r`` sits at
-    ``(r // model, r % model)``; every rank builds every column's and every
-    row's process group, in the same order (``dist.new_group`` is
-    collective). ``device``: this process's (:func:`rank_device` of it).
+    ``data=-1`` takes every process the other axes leave. Rank ``r`` sits at
+    ``(r // model, r % model)`` (``(r // (model·tp), (r // tp) % model,
+    r % tp)``); every rank builds every line's process group along every
+    axis, in the same order (``dist.new_group`` is collective). ``device``:
+    this process's (:func:`rank_device` of it). ``axis_names`` defaults to
+    ``("data", "model")``, with ``"tp"`` after them on a 3-D mesh.
     """
-    if model < 1:
+    if model < 1 or tp < 1:
         raise ValueError("model axis size must be >= 1")
     processes = world_size()
     if data == -1:
-        if processes % model:
-            raise ValueError(f"{processes} processes not divisible by model={model}")
-        data = processes // model
-    if data * model != processes:
-        raise ValueError(f"mesh {data}x{model} != {processes} processes (one device each)")
+        if processes % (model * tp):
+            raise ValueError(f"{processes} processes not divisible by model={model}" + (f" x tp={tp}" if tp > 1 else ""))
+        data = processes // (model * tp)
+    if data * model * tp != processes:
+        shape = f"{data}x{model}" + (f"x{tp}" if tp > 1 else "")
+        raise ValueError(f"mesh {shape} != {processes} processes (one device each)")
     device = rank_device(device)
-    names = tuple(axis_names)
+    names = tuple(axis_names) if axis_names is not None else (("data", "model", "tp") if tp > 1 else ("data", "model"))
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(size=1, rank=0, group=None, device=device, axis_names=names)
     rank = dist.get_rank()
+    if tp > 1:
+        return _make_3d_mesh(data, model, tp, rank, device, names)
     if model == 1:
         return Mesh(size=data, rank=rank, group=dist.group.WORLD, device=device, axis_names=names)
     columns = [dist.new_group([i * model + j for i in range(data)]) for j in range(model)] if data > 1 else None
@@ -276,6 +305,28 @@ def make_mesh(
     row, column = divmod(rank, model)
     return Mesh(size=data, rank=row, group=columns[column] if columns else None, device=device, axis_names=names,
                 model_size=model, model_rank=column, model_group=rows[row])
+
+
+def _make_3d_mesh(data: int, model: int, tp: int, rank: int, device: torch.device, names: Tuple[str, ...]) -> Mesh:
+    """The (data, model, tp) mesh: one group per line of ranks along each axis
+    (an axis of one has none), built by every rank in the same order."""
+    def index(i: int, j: int, t: int) -> int:
+        return (i * model + j) * tp + t
+
+    def lines(size, line):  # each line's group, keyed by the two coordinates it does not run along
+        if size == 1:
+            return {}
+        return {key: dist.new_group(members) for key, members in line()}
+
+    columns = lines(data, lambda: [((j, t), [index(i, j, t) for i in range(data)])
+                                   for j in range(model) for t in range(tp)])
+    rows = lines(model, lambda: [((i, t), [index(i, j, t) for j in range(model)])
+                                 for i in range(data) for t in range(tp)])
+    tps = lines(tp, lambda: [((i, j), [index(i, j, t) for t in range(tp)]) for i in range(data) for j in range(model)])
+    i, j, t = rank // (model * tp), (rank // tp) % model, rank % tp
+    return Mesh(size=data, rank=i, group=columns.get((j, t)), device=device, axis_names=names,
+                model_size=model, model_rank=j, model_group=rows.get((i, t)),
+                tp_size=tp, tp_rank=t, tp_group=tps.get((i, j)))
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,17 @@ Every stage runs the same collectives in the same order, forward and
 backward: a stage that reads a value only to discard it (stage 0's
 received activations) still takes it into its graph. ``S == 1`` is the
 sequential loop.
+
+The 3-D cell (dp x pp x tp, ``shard_pipeline_params(tp_axis="tp")`` on a
+``make_mesh(data, model, tp=...)`` mesh): the stages go on ``model`` and
+each stage's products are cut over ``tp`` by the Megatron layout of
+``parallel/tensor.py`` (column-parallel ``fc1``, ``q/k/v_proj``,
+row-parallel ``fc2``, ``out_proj``, a rank running its heads), which
+computes the same function. JAX places the cut differently: it cuts the
+last dimension of every stacked leaf of two or more dimensions over
+``tp`` (the kernels' output features, the stacked biases and LayerNorm
+scales too) and lets GSPMD insert the collectives; the values are the
+same, the tensors each rank holds and the collectives that run are not.
 """
 
 from __future__ import annotations
@@ -39,20 +50,17 @@ from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from avex_tpu_torch.parallel import Mesh, broadcast_from, ring_shift, sum_over_ranks
-from avex_tpu_torch.parallel.tensor import copy_to_model
+from avex_tpu_torch.parallel.tensor import TensorParallelLayout, copy_to_model
 
 __all__ = [
     "PipelineLayout",
+    "StageTensorLayout",
     "bubble_share",
     "make_pipeline_runner",
     "pipeline_apply",
     "pipeline_microbatch_count",
     "shard_pipeline_params",
 ]
-
-#: the ``model`` axis also cutting the stages' tensors (dp x pp x tp)
-_TP_AXIS = "the 3-D cell (shard_pipeline_params(tp_axis=...)) is not ported (ROADMAP queue 1, item 14, part 3)"
-
 
 class _RingShift(torch.autograd.Function):
     """Forward: each stage's tensor to the next stage; backward: each
@@ -253,16 +261,43 @@ class PipelineLayout:
                 self.params[name].data = self.params[name].data.new_empty(0)
 
 
+class StageTensorLayout:
+    """The 3-D placement: the tensor-parallel cut over the ``tp`` axis
+    (``tensor``, made first, on whole tensors), then the stages over the
+    model axis (``stages``, on the cut ones). A parameter is split when
+    either cuts it."""
+
+    def __init__(self, tensor: TensorParallelLayout, stages: PipelineLayout) -> None:
+        self.tensor, self.stages = tensor, stages
+        self.cut, self.owner = tensor.cut, stages.owner
+
+    def reduce_gradients(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The whole tensors a stage's ranks each read in part summed over
+        ``tp`` (a stage's layers are its own)."""
+        return self.tensor.reduce_gradients(self.stages.reduce_gradients(grads))
+
+    def gather_tensors(self, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors on every rank: each stage's (cut) tensors from its
+        ranks, then the cut pieces over ``tp``."""
+        return self.tensor.gather_tensors(self.stages.gather_tensors(tensors))
+
+
 def shard_pipeline_params(
     module: nn.Module,
     mesh: Mesh,
     marker: Any = ("layers", "blocks"),
     tp_axis: Optional[str] = None,
-) -> PipelineLayout:
+):
     """Place ``module``'s layer stacks one stage per rank of ``mesh``'s model
     axis (every parameter under a ``marker`` list: ``layers`` for the BEATs
-    and AVES encoders, ``blocks`` for EAT's); everything else stays whole.
-    ``tp_axis`` (tensor parallelism of the stages' products) raises."""
-    if tp_axis is not None:
-        raise NotImplementedError(f"shard_pipeline_params(tp_axis={tp_axis!r}): {_TP_AXIS}")
-    return PipelineLayout(module, mesh, marker)
+    and AVES encoders, ``blocks`` for EAT's and Bird-MAE's); everything else
+    stays whole. With ``tp_axis`` (a third mesh axis, the 3-D cell) each
+    stage's products are also cut over that axis
+    (:class:`StageTensorLayout`; the module docstring says how the cut
+    differs from JAX's)."""
+    if tp_axis is None:
+        return PipelineLayout(module, mesh, marker)
+    if tp_axis == "model":
+        raise ValueError("shard_pipeline_params: tp_axis must be another mesh axis than the stages' 'model'")
+    tensor = TensorParallelLayout(module, mesh, axis=tp_axis)
+    return StageTensorLayout(tensor, PipelineLayout(module, mesh, marker))

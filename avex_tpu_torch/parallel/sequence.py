@@ -19,7 +19,11 @@ collectives; here they are written out:
   Megatron-SP always comes with the tensor parallelism of
   ``parallel/tensor.py``).
 
-T must divide by the axis size. Values are those of the plain loop.
+A rank holds ``ceil(T/n)`` positions, the last ranks fewer when T does
+not divide over the axis (GSPMD's uneven sharding, which JAX's runner gets
+from its sharding constraint: Bird-MAE's and EAT's 1 + patches tokens are
+odd); the collectives move blocks padded at their end. Values are those of
+the plain loop.
 """
 
 from __future__ import annotations
@@ -29,15 +33,9 @@ from typing import Callable
 import torch
 
 from avex_tpu_torch.parallel import Mesh
-from avex_tpu_torch.parallel.tensor import gather_time, time_block
+from avex_tpu_torch.parallel.tensor import gather_time, sequence_length, time_block
 
-__all__ = ["check_sequence_length", "make_sequence_parallel_runner"]
-
-
-def check_sequence_length(seq: int, size: int) -> None:
-    """Raise unless a sequence of ``seq`` positions divides over ``size`` ranks."""
-    if seq % size:
-        raise ValueError(f"sequence parallelism: T={seq} positions do not divide over a model axis of {size}")
+__all__ = ["enter_blocks", "leave_blocks", "make_sequence_parallel_runner"]
 
 
 class _EnterBlocks(torch.autograd.Function):
@@ -45,13 +43,13 @@ class _EnterBlocks(torch.autograd.Function):
     the blocks' gradients."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return time_block(x, mesh).contiguous()
+    def forward(ctx, x, mesh, dim=1):
+        ctx.mesh, ctx.seq, ctx.dim = mesh, x.shape[dim], dim
+        return time_block(x, mesh, dim).contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        return gather_time(grad, ctx.mesh).contiguous(), None
+        return gather_time(grad, ctx.mesh, ctx.seq, ctx.dim).contiguous(), None, None
 
 
 class _LeaveBlocks(torch.autograd.Function):
@@ -59,13 +57,26 @@ class _LeaveBlocks(torch.autograd.Function):
     gradient (every rank computes the same from the whole sequence)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return gather_time(x, mesh).contiguous()
+    def forward(ctx, x, mesh, seq, dim=1):
+        ctx.mesh, ctx.dim = mesh, dim
+        return gather_time(x, mesh, seq, dim).contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        return time_block(grad, ctx.mesh).contiguous(), None
+        return time_block(grad, ctx.mesh, ctx.dim).contiguous(), None, None, None
+
+
+def enter_blocks(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``x``'s axis ``dim`` (a value every rank holds
+    whole); the backward gathers the blocks' gradients, so each rank gets
+    the whole gradient."""
+    return _EnterBlocks.apply(x, mesh, dim) if mesh.size > 1 else x
+
+
+def leave_blocks(x: torch.Tensor, mesh: Mesh, seq: int, dim: int = 1) -> torch.Tensor:
+    """The ranks' blocks of a sequence of ``seq`` positions gathered whole;
+    the backward keeps this rank's block of the gradient."""
+    return _LeaveBlocks.apply(x, mesh, seq, dim) if mesh.size > 1 else x
 
 
 def make_sequence_parallel_runner(mesh: Mesh) -> Callable:
@@ -76,10 +87,11 @@ def make_sequence_parallel_runner(mesh: Mesh) -> Callable:
     model = mesh.model_axis
 
     def runner(layer_fn, layers, x, batched=(), shared=()):
-        check_sequence_length(x.shape[1], model.size)
-        h = _EnterBlocks.apply(x, model) if model.size > 1 else x
-        for layer in layers:
-            h = layer_fn(layer, h, *batched, *shared)
-        return _LeaveBlocks.apply(h, model) if model.size > 1 else h
+        seq = x.shape[1]
+        with sequence_length(seq):
+            h = enter_blocks(x, model)
+            for layer in layers:
+                h = layer_fn(layer, h, *batched, *shared)
+            return leave_blocks(h, model, seq)
 
     return runner

@@ -36,7 +36,9 @@ Checkpoints hold whole tensors (:meth:`TensorParallelLayout.gather_tensors`).
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Set, Tuple
+import contextlib
+import contextvars
+from typing import Dict, Iterator, List, Mapping, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +52,12 @@ __all__ = [
     "ModelAxis",
     "TensorParallelLayout",
     "copy_to_model",
+    "gather_time",
+    "reduce_from_model",
+    "scatter_time",
+    "sequence_length",
+    "time_block",
+    "time_span",
     "tp_sharding",
 ]
 
@@ -109,28 +117,75 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
-def _time_major(x: torch.Tensor) -> torch.Tensor:
-    return x.transpose(0, 1).contiguous()
+# The time axis of a sequence of T positions cuts into blocks of ceil(T/n)
+# positions, the last ones shorter (GSPMD's uneven sharding): rank r holds
+# [r·c, min((r+1)·c, T)). The collectives move blocks padded to c at their
+# end, so the gathered buffer's first T rows are the sequence in order.
+_SEQUENCE: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar("sequence_length", default=None)
 
 
-def gather_time(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``[B, T/n, ...]`` on each rank → ``[B, T, ...]``, the ranks' blocks in order."""
-    rows = _time_major(x)
-    out = rows.new_empty((mesh.size * rows.shape[0],) + tuple(rows.shape[1:]))
-    return all_gather_into(out, rows, mesh).transpose(0, 1)
+@contextlib.contextmanager
+def sequence_length(seq: int) -> Iterator[None]:
+    """Inside, the time blocks of sequence parallelism belong to a sequence of
+    ``seq`` positions (what a rank's own block cannot tell when T does not
+    divide over the axis)."""
+    token = _SEQUENCE.set(int(seq))
+    try:
+        yield
+    finally:
+        _SEQUENCE.reset(token)
 
 
-def scatter_time(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``[B, T, ...]`` on each rank → this rank's block of the sum over ranks."""
-    rows = _time_major(x)
-    out = rows.new_empty((rows.shape[0] // mesh.size,) + tuple(rows.shape[1:]))
-    return reduce_scatter_into(out, rows, mesh).transpose(0, 1)
+def time_span(seq: int, mesh: Mesh, rank: Optional[int] = None) -> Tuple[int, int]:
+    """``(start, stop)`` of rank ``rank``'s (default this rank's) block of ``seq`` positions."""
+    rank = mesh.rank if rank is None else rank
+    c = -(-seq // mesh.size)
+    return min(rank * c, seq), min((rank + 1) * c, seq)
 
 
-def time_block(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's block of ``x``'s time axis."""
-    n = x.shape[1] // mesh.size
-    return x[:, mesh.rank * n:(mesh.rank + 1) * n]
+def _whole_length() -> int:
+    """The sequence length of the enclosing :func:`sequence_length`: what a
+    layer's block of positions belongs to (it cannot tell when T does not
+    divide over the axis), so a gather outside one raises."""
+    seq = _SEQUENCE.get()
+    if seq is None:
+        raise ValueError("sequence parallelism: a layer gathered its time blocks outside "
+                         "parallel.tensor.sequence_length(...) (the sequence parallelism runner sets it)")
+    return seq
+
+
+def _major(x: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """``x`` with axis ``dim`` first, padded with zeros at its end to ``length``."""
+    rows = x.movedim(dim, 0)
+    if rows.shape[0] < length:
+        rows = torch.cat([rows, rows.new_zeros((length - rows.shape[0],) + tuple(rows.shape[1:]))])
+    return rows.contiguous()
+
+
+def gather_time(x: torch.Tensor, mesh: Mesh, seq: int, dim: int = 1) -> torch.Tensor:
+    """This rank's block of a sequence of ``seq`` positions (axis ``dim``) on
+    each rank → the whole sequence, the ranks' blocks in order."""
+    c = -(-seq // mesh.size)
+    rows = _major(x, dim, c)
+    out = rows.new_empty((mesh.size * c,) + tuple(rows.shape[1:]))
+    return all_gather_into(out, rows, mesh)[:seq].movedim(0, dim)
+
+
+def scatter_time(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """The whole sequence (axis ``dim``) on each rank → this rank's block of
+    the sum over ranks."""
+    seq = x.shape[dim]
+    c = -(-seq // mesh.size)
+    rows = _major(x, dim, mesh.size * c)
+    out = rows.new_empty((c,) + tuple(rows.shape[1:]))
+    start, stop = time_span(seq, mesh)
+    return reduce_scatter_into(out, rows, mesh)[:stop - start].movedim(0, dim)
+
+
+def time_block(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``x``'s time axis (axis ``dim``)."""
+    start, stop = time_span(x.shape[dim], mesh)
+    return x.narrow(dim, start, stop - start)
 
 
 class _GatherTime(torch.autograd.Function):
@@ -138,13 +193,13 @@ class _GatherTime(torch.autograd.Function):
     computation on the whole sequence gives a part of every position's gradient)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, seq):
         ctx.mesh = mesh
-        return gather_time(x, mesh)
+        return gather_time(x, mesh, seq)
 
     @staticmethod
     def backward(ctx, grad):
-        return scatter_time(grad, ctx.mesh), None
+        return scatter_time(grad, ctx.mesh), None, None
 
 
 class _ScatterTime(torch.autograd.Function):
@@ -152,12 +207,12 @@ class _ScatterTime(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+        ctx.mesh, ctx.seq = mesh, x.shape[1]
         return scatter_time(x, mesh)
 
     @staticmethod
     def backward(ctx, grad):
-        return gather_time(grad, ctx.mesh), None
+        return gather_time(grad, ctx.mesh, ctx.seq), None
 
 
 class _TimeBlock(torch.autograd.Function):
@@ -175,6 +230,13 @@ class _TimeBlock(torch.autograd.Function):
         out = grad.new_zeros(ctx.shape)
         time_block(out, ctx.mesh).copy_(grad)
         return out, None
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the model axis of the ranks' partial sums ``x``; its
+    gradient passes to every rank as it is (each rank's copy of the sum feeds
+    the same computation)."""
+    return _ReduceFromModel.apply(x, mesh) if mesh.size > 1 else x
 
 
 def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -201,7 +263,7 @@ class ModelAxis:
 
     def enter(self, x: torch.Tensor, cut: bool) -> torch.Tensor:
         if self.sequence:
-            return _GatherTime.apply(x, self.mesh)
+            return _GatherTime.apply(x, self.mesh, _whole_length())
         return _CopyToModel.apply(x, self.mesh) if cut else x
 
     def leave(self, y: torch.Tensor, cut: bool) -> torch.Tensor:
@@ -248,7 +310,9 @@ class TensorParallelLayout:
     model axis of ``mesh``: ``cut[name]`` is the dimension cut, for the
     tensors of :func:`tp_sharding`; ``partial`` the whole tensors whose
     gradient is a sum over the axis's ranks. ``sequence`` adds Megatron-SP
-    (``parallel/sequence.py``).
+    (``parallel/sequence.py``). ``axis`` names the mesh axis the tensors are
+    cut over: ``model``, or ``tp`` inside the pipeline stages of a 3-D mesh
+    (``parallel/pipeline.shard_pipeline_params``).
 
     On construction the module holds this rank's blocks and its layers run
     their part (``use_model_axis``); a cut tensor outside every module with
@@ -257,10 +321,10 @@ class TensorParallelLayout:
     :meth:`gather_tensors`, together.
     """
 
-    def __init__(self, module: nn.Module, mesh: Mesh, sequence: bool = False) -> None:
-        self.mesh = mesh.model_axis
+    def __init__(self, module: nn.Module, mesh: Mesh, sequence: bool = False, axis: str = "model") -> None:
+        self.mesh = mesh.axis(axis) if axis != "model" else mesh.model_axis
         if self.mesh.size < 2:
-            raise ValueError("tensor and sequence parallelism need a model axis of two ranks or more")
+            raise ValueError(f"tensor and sequence parallelism need a {axis} axis of two ranks or more")
         self.sequence = sequence
         self.axis = ModelAxis(self.mesh, sequence)
         self.params: Dict[str, nn.Parameter] = dict(module.named_parameters())

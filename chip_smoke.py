@@ -4094,6 +4094,373 @@ def phase_model_parallel(workdir: Path, dp_tp: bool = False) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the rest of the model axis (ring attention, expert parallelism,
+# Bird-MAE's pipeline and SP, the 3-D dp x pp x tp cell), gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+RING_CLIP_SAMPLES = 30 * 16000  # the CLI's long window: BEATs T = 187 x 8 = 1496 patches
+T_RING = 1496
+B_RING = 4
+RING_TIMED = 3  # bf16 ring forwards timed on each rank
+RING_ATOL = 1e-4  # cell 10's bound (__graft_entry__._dryrun_ring_attention)
+# the bf16 ring's pooled rel L2 to the same bf16 model in one process on the
+# split path the ring replaces; PERF.md has the readings it was set from
+RING_BF16_REL = 2e-3
+MOE_EXPERTS, MOE_K, MOE_HIDDEN = 8, 2, 256
+B_MOE, MOE_STEPS = 64, 4
+MOE_LR = 1e-3
+MOE_REL = 1e-5  # each step's loss and each parameter (rel L2) against one process
+THREE_D_LAYERS = 12  # BEATs at full width and depth in the 3-D cell
+B_3D, THREE_D_MICROBATCHES = 8, 2
+THREE_D_LR = 0.1  # the dry run's SGD step
+THREE_D_TOL = dict(rtol=1e-4, atol=1e-5)  # __graft_entry__._assert_loss_parity
+MP32_TIMEOUT = 600
+
+
+def ring_model(arch: str, dtype: str = "float32", **init):
+    """Full-width BEATs, EAT, AVES or Bird-MAE base for the ring cases, seeded
+    random weights, no head."""
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    if arch == "beats":
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype, init_config=dict(beats_config(), **init))
+        return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+    if arch == "birdmae":
+        return load_birdmae(dtype, False, model_id=MAE_BASE, return_features_only=True)
+    if arch == "aves":
+        spec = ModelSpec(name="aves_bio", pretrained=False, compute_dtype=dtype)
+        return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
+    return avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, return_features_only=True,
+                                     device="cuda", compute_dtype=dtype)
+
+
+def rank_mp32(rank, world, work, backend):
+    """Phase 32 (a)-(d) on a 1 x 2 mesh of two ranks sharing the card; rank 0
+    also takes each case's one-process run from the same weights and inputs."""
+    import copy
+
+    import torch
+
+    from avex_tpu_torch.configs import TrainingParams
+    from avex_tpu_torch.evaluation.finetune import FineTuneTrainer
+    from avex_tpu_torch.ops.ring_attention import ring_bytes
+    from avex_tpu_torch.parallel import Mesh, make_mesh
+    from avex_tpu_torch.probes import build_probe_from_config
+    from avex_tpu_torch.training import Trainer
+
+    torch.cuda.set_device(0)
+    alone = Mesh(size=1, rank=0, group=None, device=torch.device("cuda", 0))
+    _join_group(rank, world, work, backend)
+    mesh = make_mesh(1, 2, device="cuda")
+    out = {"rank": rank, "coords": (mesh.rank, mesh.model_rank), "backend": mesh.backend}
+
+    def features(model, args):
+        return model.module(*args)[1]["features"]
+
+    def ring_case(label, model, args):
+        """fp32 features of the one-process model (rank 0) against the same
+        model with ring attention over the two ranks; the ring's launches."""
+        with torch.no_grad():
+            ref = features(model, args) if rank == 0 else None
+            model.enable_ring_attention(mesh)
+            reset_counts()
+            got = features(model, args)
+            torch.cuda.synchronize()
+        out[f"{label}_counts"] = read_counts()
+        if rank == 0:
+            out[label] = {"max_abs": float((got - ref).abs().max()), "shape": tuple(got.shape),
+                          "finite": bool(torch.isfinite(got).all()),
+                          "pooled": ref.float().mean(1).cpu()}
+        return got
+
+    # (a) BEATs on 30 s windows, T = 1496 over a ring of 2
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    wav = torch.randn(B_RING, RING_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+    mask = torch.zeros(B_RING, RING_CLIP_SAMPLES, dtype=torch.bool, device="cuda")
+    mask[1, RING_CLIP_SAMPLES * 2 // 3:] = True  # one window padded from 20 s
+    model = ring_model("beats")
+    ring_case("beats_fp32", model, (wav, mask))
+    pooled32 = out["beats_fp32"]["pooled"] if rank == 0 else None
+    del model
+    model = ring_model("beats", "bfloat16", fused_qkv=True, use_pallas=True)  # the kernels are off under a ring
+    attns = [layer.self_attn for layer in model.module.backbone.encoder.layers]
+    with torch.no_grad():
+        if rank == 0:  # the one-process bf16 model (K2) against fp32, for the record
+            out["beats_bf16_k2_pooled_rel"] = rel_l2(features(model, (wav, mask)).float().mean(1).cpu(), pooled32)
+        # the ring's yardstick: the same bf16 model, one process, on the path the
+        # ring replaces (the split q/k/v, fp32 logits and softmax, no kernel)
+        kept = [(attn.use_pallas, attn.fast_attention) for attn in attns]
+        for attn in attns:
+            attn.use_pallas, attn.fast_attention = False, False
+        pooled_split = features(model, (wav, mask)).float().mean(1).cpu()
+        for attn, (use_pallas, fast) in zip(attns, kept):
+            attn.use_pallas, attn.fast_attention = use_pallas, fast
+    model.enable_ring_attention(mesh)
+    with torch.no_grad():
+        out["beats_ring_bytes"] = _count_collective_bytes(lambda: features(model, (wav, mask)))
+        reset_counts()
+        got = features(model, (wav, mask))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(RING_TIMED):
+            got = features(model, (wav, mask))
+        torch.cuda.synchronize()
+    out["beats_bf16_ms"] = (time.perf_counter() - start) / RING_TIMED * 1e3
+    out["beats_bf16_counts"] = read_counts()
+    out["beats_payload_bytes"] = ENCODER_LAYERS * ring_bytes(
+        torch.empty(B_RING, H, T_RING, D, dtype=torch.bfloat16, device="meta"), mesh.model_size)
+    out["beats_bf16_pooled_rel"] = rel_l2(got.float().mean(1).cpu(), pooled_split)
+    if rank == 0:
+        out["beats_bf16_fp32_pooled_rel"] = rel_l2(got.float().mean(1).cpu(), pooled32)
+    # the control: a ring that skips the key chunk that started on rank 1
+    import avex_tpu_torch.ops.ring_attention as ring_module
+
+    whole_logits = ring_module._logits
+
+    def skip_chunk(qf, k_c, bias, gate, key_mask, src, chunk, scale):
+        logits = whole_logits(qf, k_c, bias, gate, key_mask, src, chunk, scale)
+        return torch.full_like(logits, float("-inf")) if src == 1 else logits
+
+    ring_module._logits = skip_chunk
+    try:
+        with torch.no_grad():
+            broken = features(model, (wav, mask))
+    finally:
+        ring_module._logits = whole_logits
+    out["beats_bf16_skip_pooled_rel"] = rel_l2(broken.float().mean(1).cpu(), pooled_split)
+    del model, got, broken
+    torch.cuda.empty_cache()
+
+    # (b) EAT (T = 513: the pad path), AVES (10 s, T = 499, masked) and Bird-MAE base (T = 513)
+    wav = torch.randn(B_RING, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+    ring_case("eat_fp32", ring_model("eat"), (wav,))
+    mask = torch.zeros(B_RING, EAT_CLIP_SAMPLES, dtype=torch.bool, device="cuda")
+    mask[2, EAT_CLIP_SAMPLES // 2:] = True
+    ring_case("aves_fp32", ring_model("aves"), (wav, mask))
+    wav = torch.randn(B_RING, MAE_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+    ring_case("birdmae_fp32", ring_model("birdmae"), (wav,))
+    torch.cuda.empty_cache()
+
+    # (c) the MoE probe over 768-wide embeddings, its experts over the two ranks
+    config = {"probe_type": "moe", "num_experts": MOE_EXPERTS, "moe_k": MOE_K, "moe_hidden_dim": MOE_HIDDEN,
+              "capacity_factor": 2.0, "dropout_rate": 0.0}
+    batches = [{"embeddings_0": torch.randn(B_MOE, E, device="cuda", generator=gen),
+                "label": torch.randint(0, N_CLASSES, (B_MOE,), device="cuda", generator=gen)}
+               for _ in range(MOE_STEPS)]
+    params = TrainingParams(train_epochs=1, lr=MOE_LR, batch_size=B_MOE, gradient_clip_val=1.0)
+
+    def moe_run(run_mesh):
+        probe = build_probe_from_config(config, num_classes=N_CLASSES, input_dim=E, seed=0, device="cuda")
+        trainer = FineTuneTrainer(probe, params, mesh=run_mesh, seed=0)
+        trainer._init_optimizer(MOE_STEPS)
+        held_now = {n: tuple(p.shape) for n, p in probe.module.named_parameters()}
+        losses = [trainer._train_step(b)[0].item() for b in batches]
+        if trainer._experts is not None:
+            trainer._experts.whole(probe.module)
+        return losses, {n: p.detach().clone() for n, p in probe.module.named_parameters()}, held_now
+
+    losses, moe_params, held_now = moe_run(mesh)
+    out["moe_held"] = held_now
+    if rank == 0:
+        ref_losses, ref_params, whole = moe_run(alone)
+        out["moe"] = {"losses": losses, "ref_losses": ref_losses, "whole": whole,
+                      "worst_param_rel": max(rel_l2(moe_params[n], ref_params[n]) for n in ref_params)}
+
+    # (d) Bird-MAE base: GPipe 2 stages x 4 microbatches, and SP + TP = 2 (T = 513, cut 257 + 256)
+    def case(label, net, batch, **mesh_cfg):
+        initial = {k: v.clone() for k, v in net.module.state_dict().items()}
+        if rank == 0:
+            trainer = Trainer(net, mp_config(work, B_MP_CHECK, label + "_alone"), [], mesh=alone, steps_per_epoch=4)
+            ref_loss = trainer._train_step(batch)[0].item()
+            ref = mp_record(trainer, initial)
+            del trainer
+            net.module.load_state_dict(initial)
+        trainer = Trainer(net, mp_config(work, B_MP_CHECK, label, **mesh_cfg), [], mesh=mesh, steps_per_epoch=4)
+        reset_counts()
+        loss = trainer._train_step(batch)[0].item()
+        torch.cuda.synchronize()
+        out[f"{label}_counts"] = read_counts()
+        got = mp_record(trainer)
+        out[f"{label}_held_elements"] = sum(p.numel() for p in net.module.parameters())
+        if rank == 0:
+            out[label] = {"loss": loss, "ref_loss": ref_loss, "held": held(got, ref, DP_LR)}
+        del trainer, got, net
+        torch.cuda.empty_cache()
+
+    bird = load_birdmae("float32", True, model_id=MAE_BASE, num_classes=N_CLASSES, scan_layers=True)
+    batch = dp_batch(B_MP_CHECK, MAE_CLIP_SAMPLES, seed=52)
+    case("birdmae_pipeline", copy.deepcopy(bird), batch, data=1, model=2, pipeline_microbatches=MP_MICROBATCHES)
+    case("birdmae_sp_tp", bird, batch, data=1, model=2, sequence_parallel=True)
+    return out
+
+
+def rank_3d(rank, world, work, backend):
+    """Phase 32 (e): the 3-D cell on a 1 x 2 x 2 mesh of four ranks sharing
+    the card: BEATs' stacked encoder in two GPipe stages, each stage's
+    products cut over ``tp`` (K2/K3 at 6 heads); one SGD step of
+    ``mean(features²)``, the loss before and after it. Rank 0 also takes the
+    one-process step from the same weights."""
+    import copy
+
+    import torch
+
+    from avex_tpu_torch.parallel import make_mesh
+    from avex_tpu_torch.parallel.pipeline import shard_pipeline_params
+
+    torch.cuda.set_device(0)
+    _join_group(rank, world, work, backend)
+    mesh = make_mesh(1, 2, tp=2, device="cuda")
+    out = {"rank": rank, "coords": (mesh.rank, mesh.model_rank, mesh.tp_rank)}
+    model = mp_beats("float32", dropout=False, scan_layers=True, encoder_layers=THREE_D_LAYERS)
+    wav = dp_batch(B_3D, CLIP_SAMPLES, seed=53)["raw_wav"]
+
+    def sgd_step(net, reduce):
+        params = dict(net.module.named_parameters())
+
+        def loss_fn():
+            return net.module.backbone(wav)[0].float().square().mean()
+
+        loss0 = loss_fn()
+        grads = torch.autograd.grad(loss0, list(params.values()), allow_unused=True)
+        grads = reduce({n: g if g is not None else torch.zeros_like(p) for (n, p), g in zip(params.items(), grads)})
+        with torch.no_grad():
+            for n, p in params.items():
+                p -= THREE_D_LR * grads[n]
+            loss1 = loss_fn()
+        return loss0.item(), loss1.item()
+
+    if rank == 0:
+        out["ref_losses"] = sgd_step(copy.deepcopy(model), lambda g: g)
+    model.enable_pipeline(mesh, THREE_D_MICROBATCHES)
+    layout = shard_pipeline_params(model.module, mesh, tp_axis="tp")
+    reset_counts()
+    start = time.perf_counter()
+    out["losses"] = sgd_step(model, layout.reduce_gradients)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - start
+    out["counts"] = read_counts()
+    out["tp_cut"], out["held_elements"] = len(layout.cut), sum(p.numel() for p in model.module.parameters())
+    return out
+
+
+def phase_model_axis_rest(workdir: Path) -> dict:
+    """Phase 32: (a)-(d) on two gloo ranks sharing the card, (e) on four.
+    Returns the kernel launches of the driven runs, summed over ranks."""
+    import torch
+
+    backend = "gloo"
+    start = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    results, errors, seconds = join_ranks(start_ranks("rank_mp32", 2, workdir / "model_axis_rest", MP32_TIMEOUT,
+                                                      backend=backend))
+    check(not errors, f"phase 32: both {backend} ranks finished ({seconds:.1f} s)" + "".join("\n" + e for e in errors))
+    if not errors:
+        r0 = results[0]
+        check([r["coords"] for r in results] == [(0, 0), (0, 1)] and r0["backend"] == backend,
+              f"phase 32: a 1 x 2 mesh over {r0['backend']}")
+        for label, what in (("beats_fp32", f"(a) BEATs 30 s windows (T={T_RING}), B={B_RING}"),
+                            ("eat_fp32", "(b) EAT 10 s (T=513, padded to 514)"),
+                            ("aves_fp32", "(b) AVES 10 s (T=499, padded to 500; one clip masked from 5 s)"),
+                            ("birdmae_fp32", "(b) Bird-MAE base 10 s at 32 kHz (T=513, padded to 514)")):
+            c = r0[label]
+            check(c["finite"] and c["max_abs"] <= RING_ATOL,
+                  f"phase 32 {what}: fp32 features with ring attention over 2 ranks vs the one-process model: "
+                  f"max|Δ| {c['max_abs']:.3e} <= {RING_ATOL:g}, shape {c['shape']}")
+            for r in results:
+                check(not any(r[f"{label}_counts"].values()), f"phase 32 {what}: rank {r['rank']} launched no kernel")
+        ring_rel = max(r["beats_bf16_pooled_rel"] for r in results)
+        skip_rel = min(r["beats_bf16_skip_pooled_rel"] for r in results)
+        check(ring_rel <= RING_BF16_REL < skip_rel and not any(
+                  v for r in results for v in r["beats_bf16_counts"].values()),
+              f"phase 32 (a) bf16 BEATs (fused_qkv, use_pallas) under the ring: no kernel launched; pooled rel L2 "
+              f"to the same bf16 model in one process on the split path the ring replaces (fp32 softmax) "
+              f"{ring_rel:.3e} <= {RING_BF16_REL:g}; a ring that skips one key chunk {skip_rel:.3e} > it (to fp32: "
+              f"the ring {r0['beats_bf16_fp32_pooled_rel']:.3e}, the one-process K2 model "
+              f"{r0['beats_bf16_k2_pooled_rel']:.3e})")
+        m = r0["moe"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(m["losses"], m["ref_losses"]))
+        cut_ok = all(results[r]["moe_held"][n][0] * 2 == m["whole"][n][0] for r in range(2)
+                     for n in ("head.moe.w1", "head.moe.b1", "head.moe.w2", "head.moe.b2"))
+        check(cut_ok and loss_rel <= MOE_REL and m["worst_param_rel"] <= MOE_REL,
+              f"phase 32 (c) MoE probe, {MOE_EXPERTS} experts top-{MOE_K} over {E}-wide embeddings, 4 experts a "
+              f"rank: {MOE_STEPS} steps' losses rel {loss_rel:.3e}, worst parameter rel L2 "
+              f"{m['worst_param_rel']:.3e} against one process, each <= {MOE_REL:g}")
+        per_stage = ENCODER_LAYERS // 2 * MP_MICROBATCHES
+        for label, what, expect in (
+                ("birdmae_pipeline", f"(d) Bird-MAE base GPipe 2 stages x {MP_MICROBATCHES} microbatches",
+                 {"fused_qkv_attention": per_stage, "fused_qkv_attention_backward": per_stage}),
+                ("birdmae_sp_tp", "(d) Bird-MAE base SP + TP=2 (T=513 cut 257 + 256)",
+                 {"fused_qkv_attention": ENCODER_LAYERS, "fused_qkv_attention_backward": ENCODER_LAYERS})):
+            c = r0[label]
+            rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
+            p, g = c["held"]["params"], c["held"]["grads"]
+            check(rel <= PATH_REL and p["worst_rel"] <= PATH_REL and g["worst_rel"] <= PATH_REL
+                  and p["moved_max_abs"] >= 0.5 * DP_LR,
+                  f"phase 32 {what}, {B_MP_CHECK} clips, fp32, vs the one-process step: loss rel {rel:.3e}; worst "
+                  f"gradient tensor rel L2 {g['worst_rel']:.3e} ({g['worst']}); parameters (moved up to "
+                  f"{p['moved_max_abs']:.2e}) worst tensor rel L2 {p['worst_rel']:.3e} ({p['worst']}); each <= "
+                  f"{PATH_REL:g}")
+            for r in results:
+                counts = r[f"{label}_counts"]
+                check(all(counts[k] == expect.get(k, 0) for k in counts),
+                      f"phase 32 {what}: rank {r['rank']} launches { {k: v for k, v in counts.items() if v} } "
+                      f"== {expect} (held elements {r[f'{label}_held_elements']:,})")
+                add(counts)
+    results3, errors3, seconds3 = join_ranks(start_ranks("rank_3d", 4, workdir / "model_axis_3d", MP32_TIMEOUT,
+                                                         backend=backend))
+    check(not errors3, f"phase 32 (e): the four {backend} ranks finished ({seconds3:.1f} s)"
+          + "".join("\n" + e for e in errors3))
+    if not errors3:
+        want = results3[0]["ref_losses"]
+        per_rank = {"fused_qkv_gated_attention": 2 * THREE_D_LAYERS // 2 * THREE_D_MICROBATCHES,
+                    "fused_qkv_gated_attention_backward": THREE_D_LAYERS // 2 * THREE_D_MICROBATCHES}
+        close = all(math.isclose(a, b, rel_tol=THREE_D_TOL["rtol"], abs_tol=THREE_D_TOL["atol"])
+                    for r in results3 for a, b in zip(r["losses"], want))
+        check([r["coords"] for r in results3] == [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1)] and close,
+              f"phase 32 (e) the 3-D cell 1 x 2 x 2, BEATs {THREE_D_LAYERS} x 768 fp32, B={B_3D}, M="
+              f"{THREE_D_MICROBATCHES}: loss before / after one SGD step at lr {THREE_D_LR:g} "
+              f"{[r['losses'] for r in results3]} vs one process {want} (rtol {THREE_D_TOL['rtol']:g}, atol "
+              f"{THREE_D_TOL['atol']:g})")
+        for r in results3:
+            check(all(r["counts"][k] == per_rank.get(k, 0) for k in r["counts"]),
+                  f"phase 32 (e): rank {r['rank']} {r['coords']} launches "
+                  f"{ {k: v for k, v in r['counts'].items() if v} } == {per_rank} (two forwards, one backward; "
+                  f"{r['tp_cut']} tensors cut over tp, {r['held_elements']:,} parameter elements held)")
+            add(r["counts"])
+    if not errors:
+        print(f"phase 32 (a): BEATs ring attention over 2 {backend} ranks sharing one card (the mechanism, not "
+              f"multi-card speed), bf16, {B_RING} windows of 30 s (T={T_RING}): "
+              + "; ".join(f"rank {r['rank']} {r['beats_bf16_ms']:.1f} ms a forward, the ring's payload "
+                          f"{r['beats_payload_bytes'] / 2**20:.1f} MiB sent a forward (k/v chunks, 1 hop x 12 "
+                          f"layers), collectives {r['beats_ring_bytes']['all_reduce'] / 2**20:.1f} MiB all-reduced "
+                          f"on gloo" for r in results) + f"; {CARD[0]}")
+        print(json.dumps({"model_axis_rest": {
+            "backend": backend, "card": CARD[0],
+            "ring": {k: {kk: vv for kk, vv in results[0][k].items() if kk != "pooled"}
+                     for k in ("beats_fp32", "eat_fp32", "aves_fp32", "birdmae_fp32")},
+            "ring_bf16": [{k: r[k] for k in ("rank", "beats_bf16_ms", "beats_payload_bytes", "beats_ring_bytes")}
+                          for r in results]
+            + [{"pooled_rel_to_split": [r["beats_bf16_pooled_rel"] for r in results],
+                "skip_chunk_pooled_rel_to_split": [r["beats_bf16_skip_pooled_rel"] for r in results],
+                "pooled_rel_to_fp32": results[0]["beats_bf16_fp32_pooled_rel"],
+                "k2_pooled_rel_to_fp32": results[0]["beats_bf16_k2_pooled_rel"]}],
+            "moe": {k: v for k, v in results[0]["moe"].items() if k != "whole"},
+            "birdmae": {k: results[0][k] for k in ("birdmae_pipeline", "birdmae_sp_tp")},
+            "three_d": [{k: r.get(k) for k in ("rank", "coords", "losses", "ref_losses", "seconds", "tp_cut",
+                                               "held_elements")} for r in results3] if not errors3 else None}}))
+    print(f"phase 32 took {time.perf_counter() - start:.1f} s; launches {dict((k, v) for k, v in launches.items() if v)}")
+    torch.cuda.synchronize()
+    return launches
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -4133,6 +4500,7 @@ def main() -> int:
     ranks_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
     data_parallel = phase_data_parallel(ranks_dir)
     model_parallel = phase_model_parallel(ranks_dir)
+    model_axis_rest = phase_model_axis_rest(ranks_dir)
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
@@ -4166,10 +4534,12 @@ def main() -> int:
     for kname, count in data_parallel.items():
         if count:  # each rank checked the rest at 0
             launches[kname] += count
-    # The model axis: K2/K3 on the ranks' BEATs steps, K5/K6 on their EAT pipeline.
-    for kname, count in model_parallel.items():
-        if count:  # each rank checked the rest at 0
-            launches[kname] += count
+    # The model axis: K2/K3 on the ranks' BEATs steps, K5/K6 on their EAT pipeline;
+    # phase 32: K5/K6 on Bird-MAE's pipeline and SP, K2/K3 on the 3-D cell (the ring launches none).
+    for counts in (model_parallel, model_axis_rest):
+        for kname, count in counts.items():
+            if count:  # each rank checked the rest at 0
+                launches[kname] += count
     # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
     # large and huge's 80, takes K5, and K4 takes the same widths) or K8 (in
     # JAX only scripts/bench_int8_matmul.py calls it); drive() checks that each
@@ -4225,6 +4595,8 @@ def main() -> int:
             kernels[-1]["data_parallel_launches"] = data_parallel[kname]  # phase 30's share of ``launches``
         if model_parallel.get(kname):
             kernels[-1]["model_parallel_launches"] = model_parallel[kname]  # phase 31's share of ``launches``
+        if model_axis_rest.get(kname):
+            kernels[-1]["model_axis_rest_launches"] = model_axis_rest[kname]  # phase 32's share
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

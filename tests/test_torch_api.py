@@ -12,6 +12,7 @@ import avex_tpu
 import avex_tpu_torch
 from avex_tpu_torch.configs import ModelSpec
 from tests.test_torch_beats import FP32_TOL, TINY, build_pair
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 SMALL = {k: v for k, v in TINY.items() if k != "use_pallas"}
 

@@ -39,6 +39,7 @@ from avex_tpu_torch.ops import attention_kernels as ak
 from avex_tpu_torch.training import Trainer
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
 from tests.test_torch_training import LOSS_REL, NUM_CLASSES, PARAM_TOL, STEPS, TRAINING, _batches
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TINY = dict(embed_dim=128, depth=2, heads=2)
 PATHS = pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "k5"])

@@ -21,6 +21,7 @@ from avex_tpu.ops.pallas_attention import gated_bias_attention as jax_split
 
 from avex_tpu_torch.ops import attention_kernels as ak
 from avex_tpu_torch.ops.attention import grad_multiply, relative_position_bucket
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # The tolerance tests/unittests/test_pallas_attention.py holds the JAX kernel to.
 TOL = dict(atol=2e-5, rtol=1e-4)

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from avex_tpu.ops.pallas_attention import fused_qkv_attention as jax_fused
 
 from avex_tpu_torch.ops import attention_kernels as ak
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 B, H, D = 2, 2, 64
 E = H * D

@@ -21,6 +21,7 @@ from avex_tpu_torch.configs import ModelSpec
 from avex_tpu_torch.models.aves import AVESConfig, CONV_LAYERS, convert_aves_state_dict, params_from_jax
 from avex_tpu_torch.ops import attention_kernels as ak
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TINY = {
     "encoder_num_layers": 2,
@@ -183,10 +184,11 @@ def test_aves_config_and_unported_options():
     cfg = AVESConfig.from_dict(dict(TINY, extractor_mode="group_norm", encoder_dropout=0.1))
     assert cfg.encoder_embed_dim == 128 and cfg.encoder_dropout == 0.1
     assert cfg.extra == {"extractor_mode": "group_norm"}
-    # scan_layers is ported (tests/test_torch_model_parallel.py); ring attention is not
+    # scan_layers is ported (tests/test_torch_model_parallel.py); so is ring attention
+    # (tests/test_torch_ring_attention.py): a mesh of None turns it off
     stacked = avex_tpu_torch.build_model_from_spec(
         ModelSpec(name="aves_bio", pretrained=False), device="cpu", aves_cfg=TINY, scan_layers=True
     )
     assert stacked.stacked_layers == "encoder.transformer.layers"
-    with pytest.raises(NotImplementedError, match="ring attention.*part 3"):
-        stacked.enable_ring_attention(mesh=None)
+    stacked.enable_ring_attention(mesh=None)
+    assert all(layer.ring_mesh is None for layer in stacked.module.encoder.transformer.layers)

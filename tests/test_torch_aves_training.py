@@ -32,6 +32,7 @@ from avex_tpu_torch.models import aves
 from avex_tpu_torch.models.common import conv_positions, dense, gelu, layer_norm
 from avex_tpu_torch.training import Trainer, make_strategy
 from tests.test_torch_training import LOSS_REL, PARAM_TOL, _zero_gradient
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 NUM_CLASSES, BATCH, STEPS = 4, 4, 3
 TINY = {"encoder_num_layers": 2, "encoder_embed_dim": 128, "encoder_num_heads": 2,

@@ -20,6 +20,7 @@ from avex_tpu.models.beats import BEATsConfig as JaxBEATsConfig
 import avex_tpu_torch
 from avex_tpu_torch.configs import ModelSpec
 from avex_tpu_torch.models.beats import params_from_jax
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TINY = {
     "encoder_layers": 2,
@@ -178,13 +179,13 @@ def test_finetuned_predictor_head_matches_jax(rng):
 
 def test_unported_options_raise():
     # scan_layers is ported (the stacked layout at the edges; tests/test_torch_model_parallel.py);
-    # ring attention is not
+    # so is ring attention (tests/test_torch_ring_attention.py): a mesh of None turns it off
     stacked = avex_tpu_torch.build_model_from_spec(
         ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, scan_layers=True)), device="cpu"
     )
     assert stacked.stacked_layers == "backbone.encoder.layers"
-    with pytest.raises(NotImplementedError, match="ring attention.*ROADMAP.*part 3"):
-        stacked.enable_ring_attention(mesh=None)
+    stacked.enable_ring_attention(mesh=None)
+    assert all(layer.self_attn.ring_mesh is None for layer in stacked.module.backbone.encoder.layers)
     # remat is ported (per-layer checkpointing; tests/test_torch_training.py)
     remat = avex_tpu_torch.build_model_from_spec(
         ModelSpec(name="beats", pretrained=False, init_config=dict(TINY, remat=True)), device="cpu"

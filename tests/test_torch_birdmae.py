@@ -6,8 +6,8 @@ of 32 kHz audio (33 tokens with the CLS token), initialised in JAX and
 carried across with ``params_from_jax``. With ``use_pallas`` JAX runs K5 (and
 under ``jax.grad`` K6) in interpret mode and the port its plain twins on the
 CPU; without, both take the plain path. Then the variants by ``model_id``,
-the converter, the unported options, and three ``Trainer`` steps against
-JAX's.
+the converter, the layer-stack options and JAX's stacked layout, and three
+``Trainer`` steps against JAX's.
 """
 
 import numpy as np
@@ -34,11 +34,13 @@ import avex_tpu_torch
 from avex_tpu_torch.configs import ModelSpec, RunConfig, SchedulerConfig, TrainingParams
 from avex_tpu_torch.models import birdmae
 from avex_tpu_torch.models.birdmae import MAE_VARIANTS, BirdMAEModel, Model, convert_birdmae_state_dict
+from avex_tpu_torch.models.common import unstack_state
 from avex_tpu_torch.models.eat import patch_tokens
 from avex_tpu_torch.ops import attention_kernels as ak
 from avex_tpu_torch.training import Trainer
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
 from tests.test_torch_training import BATCH, LOSS_REL, NUM_CLASSES, PARAM_TOL, STEPS, TRAINING, _batches, _zero_gradient
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TINY = dict(depth=2, dim=640, heads=8, target_length=64)  # dh 80
 MODEL_ID = "DBD-research-group/Bird-MAE-huge"
@@ -192,15 +194,53 @@ def test_convert_birdmae_state_dict_loads_like_jax(rng):
 
 
 def test_birdmae_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        Model(device="cpu", scan_layers=True, **TINY)
-    with pytest.raises(NotImplementedError, match="ring_mesh"):
-        BirdMAEModel(ring_mesh=object(), **TINY)
+    """JAX's layer-stack options are ported: the stacked layout, and
+    pipeline and sequence parallelism refused without it, with JAX's
+    message; a ring mesh of None is the block's own attention."""
+    assert Model(device="cpu", scan_layers=True, **TINY).stacked_layers == "blocks"
+    assert all(block.ring_mesh is None for block in BirdMAEModel(ring_mesh=None, **TINY).blocks)
     model = Model(device="cpu", **dict(TINY, depth=1))
-    for method, what in (("enable_pipeline", "pipeline"), ("enable_sequence_parallel", "sequence"),
-                         ("enable_ring_attention", "ring attention")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*item 14"):
-            getattr(model, method)(object())
+    jax_model = JaxBirdMAEWrapper(model_id=MODEL_ID, **dict(TINY, depth=1))
+    for method in ("enable_pipeline", "enable_sequence_parallel"):
+        with pytest.raises(ValueError) as want:
+            getattr(jax_model, method)(None)
+        with pytest.raises(ValueError, match="scan_layers=True") as got:
+            getattr(model, method)(None)
+        assert str(got.value) == str(want.value)
+    model.enable_ring_attention(None)
+    assert model.module.blocks[0].ring_mesh is None
+
+
+def test_birdmae_stacked_layout_round_trips_jax_scan_layers(rng):
+    """JAX's ``scan_layers=True`` Bird-MAE: its stacked tree carried across
+    (``params_from_jax``) loads into the port's stacked model and gives
+    JAX's features; the converter's stacked output is JAX's stacked
+    conversion carried across, and loads as the per-layer one."""
+    jax_model = JaxBirdMAEWrapper(return_features_only=True, model_id=MODEL_ID, scan_layers=True, **TINY)
+    variables = jax.tree_util.tree_map(np.asarray, jax_model.variables["params"])
+    assert variables["blocks"]["qkv"]["kernel"].shape[0] == TINY["depth"]  # stacked
+    state = birdmae.params_from_jax(variables)
+    port = Model(device="cpu", return_features_only=True, model_id=MODEL_ID, scan_layers=True, **TINY)
+    port.load_port_state_dict(state, strict=True)
+    wav = _wav(rng)
+    np.testing.assert_allclose(_np(port(wav)), _np(jax_model(wav)), **FP32_TOL)
+    per_layer = {k: np.asarray(v) for k, v in state.items()}
+    timm = _timm_state({**{k: v for k, v in variables.items() if k != "blocks"},
+                        **{f"blocks_{i}": jax.tree_util.tree_map(lambda x, i=i: x[i], variables["blocks"])
+                           for i in range(TINY["depth"])}})
+    stacked = convert_birdmae_state_dict(timm, scan_layers=True)
+    assert "blocks.attn.qkv.weight" in stacked and stacked["blocks.attn.qkv.weight"].shape[0] == TINY["depth"]
+    carried = birdmae.params_from_jax(jax.tree_util.tree_map(np.asarray, jax_convert(timm, scan_layers=True)["params"]))
+    unstacked = unstack_state(stacked, "blocks")
+    assert set(carried) == set(unstacked)
+    for key, value in carried.items():
+        np.testing.assert_array_equal(unstacked[key], value, err_msg=key)
+    again = Model(device="cpu", return_features_only=True, model_id=MODEL_ID, scan_layers=True, **TINY)
+    again.load_port_state_dict(stacked, strict=True)
+    loaded = {k: v.numpy() for k, v in again.module.state_dict().items() if k in per_layer}
+    assert set(loaded) == set(unstacked)
+    for key, value in unstacked.items():
+        np.testing.assert_array_equal(loaded[key], value, err_msg=key)
 
 
 def _jax_trainer_pair(tmp_path, use_pallas):

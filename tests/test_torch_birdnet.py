@@ -16,6 +16,7 @@ from avex_tpu.models.birdnet import Model as JaxBirdNet
 import avex_tpu_torch
 from avex_tpu_torch.configs import ModelSpec
 from avex_tpu_torch.models import birdnet
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 WINDOW, CLASSES, DIM = 1200, 5, 16
 

@@ -38,6 +38,7 @@ from avex_tpu_torch.training import Trainer, clip_loss, make_strategy
 from avex_tpu_torch.training.strategies import CLIPStrategy
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
 from tests.test_torch_efficientnet import _moved_stats, _tree
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TEXT_TOWER = {"layers": 2, "dim": 64, "heads": 4, "ffn_dim": 128, "vocab_size": 1024}
 AUDIO = {"n_fft": 400, "hop_length": 160, "win_length": 400, "n_mels": 64, "representation": "mel_spectrogram",

@@ -13,6 +13,7 @@ import torch
 
 from avex_tpu_torch.ops import attention_kernels as ak
 from avex_tpu_torch.ops import int8_kernels as ik
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 pytestmark = pytest.mark.cuda
 

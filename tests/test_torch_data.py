@@ -46,6 +46,7 @@ from avex_tpu_torch._native import decode_audio
 from avex_tpu_torch.data import beans, birdset, data_utils, dataset, ebird_taxonomy, transforms
 from avex_tpu_torch.ops import audio
 from avex_tpu_torch.utils import experiment_logger, tracking
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 RUN_YAML = ROOT / "configs/run_configs/beats_supervised_example.yml"

@@ -28,6 +28,7 @@ from avex_tpu_torch.models.eat import EATModel, Model, convert_eat_state_dict, p
 from avex_tpu_torch.ops import attention_kernels as ak
 from avex_tpu_torch.ops import fbank
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 NORM = dict(eat_norm_mean=-5.553, eat_norm_std=4.606)  # the official EAT entries' statistics
 TINY = dict(depth=2, target_length=64)
@@ -185,9 +186,11 @@ def test_convert_eat_state_dict_both_namings_load_like_jax(rng):
 
 
 def test_eat_unported_options_raise():
-    # scan_layers is ported (tests/test_torch_model_parallel.py); ring attention is not
+    # scan_layers is ported (tests/test_torch_model_parallel.py); so is ring attention
+    # (tests/test_torch_ring_attention.py): the module's ring_mesh reaches every block
     assert Model(device="cpu", scan_layers=True, **TINY).stacked_layers == "blocks"
-    with pytest.raises(NotImplementedError, match="ring_mesh.*part 3"):
-        EATModel(ring_mesh=object(), **TINY)
-    with pytest.raises(NotImplementedError, match="ring attention.*part 3"):
-        Model(device="cpu", scan_layers=True, **TINY).enable_ring_attention(mesh=None)
+    marker = object()
+    assert all(block.ring_mesh is marker for block in EATModel(ring_mesh=marker, **TINY).blocks)
+    model = Model(device="cpu", scan_layers=True, **TINY)
+    model.enable_ring_attention(mesh=None)
+    assert all(block.ring_mesh is None for block in model.module.blocks)

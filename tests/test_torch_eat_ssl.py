@@ -35,6 +35,7 @@ from avex_tpu_torch.models.registry import register_model_class
 from avex_tpu_torch.training import Trainer, make_strategy
 from avex_tpu_torch.training.strategies import EATSSLStrategy
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 CFG = dict(dim=128, depth=2, heads=2, decoder_dim=128, decoder_depth=1, mask_ratio=0.75, target_length=128)
 N_PATCHES, N_MASKED = 64, 48

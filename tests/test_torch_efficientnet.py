@@ -39,6 +39,7 @@ from avex_tpu_torch.models.common import dropout, same_padding
 from avex_tpu_torch.probes import build_probe_from_config
 from avex_tpu_torch.training import Trainer
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 BF16_TAP_REL = 2e-2  # a tap is one conv output, rounded where each framework rounds, over up to 25 layers
 LOSS_REL = 1e-5

@@ -44,6 +44,7 @@ from avex_tpu_torch.evaluation.retrieval import cosine_similarity, roc_auc
 from avex_tpu_torch.models import beats
 from avex_tpu_torch.parallel import make_mesh
 from avex_tpu_torch.training import Trainer
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 FP32_TOL = dict(atol=5e-5, rtol=1e-4)
 BEATS_TINY = {

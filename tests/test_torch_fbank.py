@@ -9,6 +9,7 @@ import jax.numpy as jnp
 from avex_tpu.ops import fbank as jax_fbank
 
 from avex_tpu_torch.ops import fbank
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # The tolerance the JAX fbank is held to against the reference torch pipeline.
 ATOL = 1e-4

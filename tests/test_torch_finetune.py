@@ -34,6 +34,7 @@ from avex_tpu_torch.models import beats
 from avex_tpu_torch.parallel import make_mesh
 from avex_tpu_torch.probes import build_probe_from_config, params_from_jax
 from tests.test_torch_training import _zero_gradient
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 LOSS_REL = 1e-5
 PARAM_TOL = dict(atol=1e-5, rtol=1e-4)

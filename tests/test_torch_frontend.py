@@ -18,6 +18,7 @@ from avex_tpu.ops import frontend as jax_frontend
 
 from avex_tpu_torch.configs import AudioConfig, ModelSpec
 from avex_tpu_torch.ops import frontend
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # fp32: the DFT as one product summed in another order than XLA's.
 STFT_ATOL = 1e-5  # of the spectrogram's largest value

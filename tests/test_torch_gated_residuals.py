@@ -24,6 +24,7 @@ from avex_tpu.ops.pallas_attention import _fused_qkv_gated_reference as jax_gate
 
 from avex_tpu_torch.ops import attention_kernels as ak
 from tests.test_torch_attention_residuals import fp32_products  # noqa: F401  (autouse: the pinned fp32 products)
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 B, H, D = 2, 2, 64
 E = H * D

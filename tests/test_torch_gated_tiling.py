@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from avex_tpu.ops.pallas_attention import fused_qkv_gated_attention as jax_fused
 from avex_tpu.ops.pallas_attention import gated_bias_attention as jax_split
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 B, H, D = 2, 4, 64
 KEYS = 64  # keys a streamed tile, as the kernel launches it

@@ -6,6 +6,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [

@@ -36,6 +36,7 @@ from avex_tpu_torch.quant import (
     quantize_kernel,
     quantize_params,
 )
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -64,6 +64,7 @@ from tests.test_torch_efficientnet import _tree
 from tests.test_torch_model_parallel_ranks import WORLD, hold_equal_ranks, rank_main
 from tests.test_torch_parallel_training import _run_train_config
 from tests.test_torch_parallel_ranks import RankGroup
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 LOSS_REL = 1e-5
 NUM_CLASSES = 4
@@ -413,8 +414,10 @@ def test_refusals_are_jax_s(ranks, tmp_path):
     pipeline with sequence parallelism or ZeRO-3, a runner without the
     stacked layout or on a model without the method, a stack that does not
     divide into stages or microbatches, a layer that changes the shape,
-    dropout or LayerDrop under a runner, a sequence that does not divide
-    over the axis; the 3-D cell's ``tp_axis`` names part 3."""
+    dropout or LayerDrop under a runner; ``tp_axis`` naming the stages'
+    axis. A sequence that does not divide over the axis runs, cut unevenly
+    as GSPMD cuts it (EAT's 1 + 32 tokens here; its values are held in
+    ``tests/test_torch_expert_parallel.py`` on Bird-MAE's)."""
     results = _results(ranks)
     messages = results[0]["refusals"]["messages"]
     for r in results:  # every rank raises; the stage whose layer changed the shape names the shapes
@@ -440,7 +443,21 @@ def test_refusals_are_jax_s(ranks, tmp_path):
     want = _jax_error(lambda: jax_pipeline_apply(lambda p, h: h, stack, np.zeros((6, 4), np.float32), mesh=jax_mesh))
     assert messages["microbatches"] == f"ValueError: {want}"
     assert "layer_fn must preserve activation shape" in messages["shape"]
-    assert messages["tp_axis"].startswith("NotImplementedError") and "part 3" in messages["tp_axis"]
+    assert messages["tp_axis"].startswith("ValueError") and "another mesh axis" in messages["tp_axis"]
     assert "deterministic-only" in messages["runner_dropout"]
     assert "does not support layerdrop" in messages["runner_layerdrop"]
-    assert "do not divide over a model axis of 2" in messages["sequence_length"]
+    assert messages["sequence_length"] is None
+
+
+def test_sequence_gather_takes_t_from_the_runner():
+    """A layer's time gather under sequence parallelism reads T from the
+    runner's ``sequence_length`` context: a block of ceil(T/n) positions
+    cannot tell an odd T from T + 1, so outside the context it raises
+    before any collective runs."""
+    from avex_tpu_torch.parallel import Mesh
+    from avex_tpu_torch.parallel.tensor import ModelAxis, time_span
+
+    two = Mesh(size=2, rank=0, group=None, device=torch.device("cpu"))
+    assert [time_span(seq, two, 0) for seq in (513, 514)] == [(0, 257), (0, 257)]
+    with pytest.raises(ValueError, match="sequence_length"):
+        ModelAxis(two, sequence=True).enter(torch.zeros(2, 257, 8), cut=False)

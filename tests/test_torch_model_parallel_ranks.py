@@ -108,7 +108,7 @@ def refusals(rank, world, spec, work):
     expect("runner_dropout", lambda: model.module(wav, deterministic=False, generator=torch.Generator()))
     expect("runner_layerdrop", lambda: model.module(wav, deterministic=False, disable_layerdrop=False,
                                                      generator=torch.Generator()))
-    # EAT's 1 + 32 tokens do not divide over two ranks
+    # EAT's 1 + 32 tokens do not divide over two ranks: they run cut unevenly
     model = build_model_from_spec(_config(spec["sequence_case"], work, "sequence", rank).model_spec, num_classes=4)
     model.enable_sequence_parallel(mesh)
     expect("sequence_length", lambda: model.module(wav))

@@ -4,7 +4,7 @@ The same flax-initialised parameters (carried across by
 ``probes.params_from_jax``) and the same seeded tokens: with ample capacity
 both equal the dense top-k mixture; under overflow both drop the same
 (token, choice) pairs; the auxiliary load-balancing loss, the dispatch guard
-and the refused mesh; the port's own initialisation follows flax's
+and the one-process placement; the port's own initialisation follows flax's
 lecun-normal statistics.
 """
 
@@ -21,7 +21,9 @@ from avex_tpu.ops.moe import MoEMLP as JaxMoEMLP
 from avex_tpu.ops.moe import switch_load_balancing_loss as jax_aux_loss
 
 from avex_tpu_torch.ops.moe import MoEMLP, lecun_normal_, shard_moe_params, switch_load_balancing_loss
+from avex_tpu_torch.parallel import Mesh
 from avex_tpu_torch.probes import params_from_jax
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 FP32_TOL = dict(atol=5e-5, rtol=1e-4)
 N, E, X, H, O = 32, 12, 4, 24, 10
@@ -102,10 +104,13 @@ def test_dispatch_guard_and_refusals():
         MoEMLP(E, X, H, O, k=5)(torch.zeros(N, E))
     with pytest.raises(ValueError, match=r"\[N, E\]"):
         MoEMLP(E, X, H, O)(torch.zeros(2, N, E))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the mesh is JAX's placement field; here shard_moe_params places the
+    # experts (tests/test_torch_expert_parallel.py); on one process nothing is cut
+    with pytest.raises(ValueError, match="shard_moe_params"):
         MoEMLP(E, X, H, O, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        shard_moe_params({}, object())
+    mesh = Mesh(size=1, rank=0, group=None, device=torch.device("cpu"))
+    head = torch.nn.ModuleDict({"moe": MoEMLP(E, X, H, O)})
+    assert shard_moe_params(head, mesh).cut == {} and head["moe"].w1.shape == (X, E, H)
 
 
 def test_gradients_reach_router_and_experts():

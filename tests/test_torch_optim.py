@@ -23,6 +23,7 @@ from avex_tpu_torch.configs import ModelSpec, SchedulerConfig
 from avex_tpu_torch.models.beats import params_from_jax
 from avex_tpu_torch.training import losses, optimizers
 from avex_tpu_torch.training.metrics_tracker import MetricsTracker
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # fp32: the same operations in the same order up to the rounding of a few
 # scalars (optax evaluates its schedules in fp32, the port in fp64).

@@ -28,6 +28,7 @@ import avex_tpu_torch.data as data
 from avex_tpu_torch import configs as cfg
 from avex_tpu_torch import parallel
 from avex_tpu_torch.models import beats, eat
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 SMALL = {
     "beats": {"encoder_layers": 2, "encoder_embed_dim": 128, "encoder_ffn_embed_dim": 256,

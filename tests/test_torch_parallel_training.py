@@ -72,6 +72,7 @@ from tests.test_torch_eat_ssl import build_pair as eat_ssl_pair
 from tests.test_torch_eat_ssl import capture_jax_noise, hold_adam_step
 from tests.test_torch_efficientnet import _tree, module_pair
 from tests.test_torch_parallel_ranks import WORLD, RankGroup
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # fp32 on both sides, the same operations summed in other orders (the
 # single-process Trainer tests' bounds, tests/test_torch_training.py)

@@ -26,6 +26,7 @@ from avex_tpu_torch.models import efficientnet as eff
 from avex_tpu_torch.models import perch
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
 from tests.test_torch_efficientnet import BF16_TAP_REL, _moved_stats
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # The frontend: log of an fp32 DFT and mel product summed in another order;
 # near-silent bins sit at the 1e-6 clamp either way.

@@ -53,6 +53,7 @@ from tests.test_torch_model_parallel import (
 )
 from tests.test_torch_model_parallel_ranks import WORLD, rank_main
 from tests.test_torch_parallel_ranks import RankGroup
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 MODELS = {  # architecture, stacked init, params_from_jax
     "beats": ("beats", dict(BEATS, scan_layers=True), beats.params_from_jax),

@@ -29,6 +29,7 @@ from avex_tpu_torch.configs import PROBE_CONFIGS, ModelSpec, ProbeConfig
 from avex_tpu_torch.probes import build_probe_from_config, make_probe_plan, params_from_jax
 from avex_tpu_torch.probes.base import linear_resize_matrix
 from avex_tpu_torch.probes.heads import attention_mask
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 FP32_TOL = dict(atol=5e-5, rtol=1e-4)
 NUM_CLASSES = 5

@@ -26,6 +26,7 @@ from avex_tpu_torch.models.beats import ENCODER_QUANT_DENSES, params_from_jax, q
 from avex_tpu_torch.quant import Int8Linear
 from tests.test_torch_aves import TINY as AVES_TINY
 from tests.test_torch_beats import BF16_POOLED_REL, _np, _rel
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TINY = dict(
     encoder_layers=2,

@@ -28,6 +28,7 @@ from avex_tpu_torch.configs import ModelSpec
 from avex_tpu_torch.models import resnet
 from tests.test_torch_beats import BF16_POOLED_REL, FP32_TOL, _np, _rel
 from tests.test_torch_efficientnet import BF16_TAP_REL, LOSS_REL, _moved_stats, _tree
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # ReLU stacks: running statistics moved by ±0.05 keep the last stage alive
 # (a mean moved by +0.1-0.5 in every layer zeroes it).

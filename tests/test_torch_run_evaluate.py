@@ -40,6 +40,7 @@ from avex_tpu_torch.configs import EvaluateConfig
 from avex_tpu_torch.models import beats
 from avex_tpu_torch.probes import params_from_jax
 from tests.test_torch_data import EVAL_YAML
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 CACHE_TOL = dict(atol=5e-5, rtol=1e-4)
 RETRIEVAL_ABS, CLUSTERING_ABS, LOSS_REL = 1e-5, 1e-4, 1e-5

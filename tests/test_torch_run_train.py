@@ -31,6 +31,7 @@ from avex_tpu_torch.configs import RunConfig
 from avex_tpu_torch.models import beats
 from tests.test_torch_data import RUN_YAML
 from tests.test_torch_training import _zero_gradient
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 LOSS_REL = 1e-5
 PARAM_TOL = dict(atol=1e-5, rtol=1e-4)

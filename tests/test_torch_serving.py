@@ -53,6 +53,7 @@ from avex_tpu_torch.serving import AvexHTTPServer, InferenceService, ServiceConf
 from avex_tpu_torch.serving.http import _decode_payload
 from avex_tpu_torch.serving.service import _bucket
 from tests.test_torch_beats import _rel
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TIMEOUT = 120
 CLIP = 8000  # 0.5 s at 16 kHz

@@ -36,6 +36,7 @@ from avex_tpu_torch.models import beats, eat
 from avex_tpu_torch.models.common import dropout
 from avex_tpu_torch.parallel import make_mesh
 from avex_tpu_torch.training import Trainer, TrainerFactory, make_strategy
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 # Per-step loss and final parameters: fp32 on both sides, the same operations
 # summed in other orders (fbank, attention, the optimizer's global sums).

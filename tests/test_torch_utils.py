@@ -22,6 +22,7 @@ from avex_tpu_torch.models.get_model import get_model
 from avex_tpu_torch.preprocessing import ActivityDetector, frame_energy, select_active_window
 from avex_tpu_torch.training import Trainer
 from avex_tpu_torch.utils import fingerprints, profiling
+from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse: one intra-op thread a worker)
 
 TINY_BEATS = {"encoder_layers": 1, "encoder_embed_dim": 64, "encoder_ffn_embed_dim": 96,
               "encoder_attention_heads": 4, "embed_dim": 32, "dropout": 0.0, "encoder_layerdrop": 0.0}
