@@ -407,8 +407,8 @@ class RunConfig(_CLIConfig):
     takes a :class:`MeshConfig` or its dict. ``clustering_eval`` takes a
     :class:`ClusteringEvalConfig` or its dict. ``device`` places the run's
     model and batches: ``cuda`` by default, and a reference ``tpu`` means
-    ``cuda``. ``data_pipeline="grain"`` is accepted here and raises where the
-    loaders are built. ``distributed`` has ``run_train`` join the run's
+    ``cuda``. ``data_pipeline="grain"`` builds the checkpointable
+    ``GrainDataLoader`` (``data/grain_loader.py``). ``distributed`` has ``run_train`` join the run's
     process group (``parallel.init_multihost``, from SLURM's environment).
     """
 

@@ -31,6 +31,7 @@ from avex_tpu_torch.data.dataset import (
     SyntheticAudioDataset,
     dataset_from_config,
 )
+from avex_tpu_torch.data.grain_loader import GrainDataLoader
 from avex_tpu_torch.data.loader import DataLoader
 from avex_tpu_torch.parallel import world_size
 
@@ -41,6 +42,7 @@ __all__ = [
     "Collater",
     "ConcatenatedDataset",
     "DataLoader",
+    "GrainDataLoader",
     "HFAudioDataset",
     "LocalAudioDataset",
     "ManifestAudioDataset",
@@ -74,12 +76,11 @@ def build_dataloaders(
     (``torch.distributed``'s world size) each loader is this rank's data row's
     shard (``config.mesh.model`` ranks, rank ``r`` in row ``r // model``, read
     the same batches) and every split drops its remainder, so each row
-    contributes equal batches. The grain pipeline and an empty configuration
-    raise.
+    contributes equal batches. ``data_pipeline="grain"`` builds the
+    checkpointable :class:`GrainDataLoader` (grain's order, no ``grain``
+    needed) in place of :class:`DataLoader`. An empty configuration raises.
     """
-    if config.data_pipeline == "grain":
-        raise NotImplementedError("data_pipeline='grain' (the JAX ecosystem's grain loader) is not ported "
-                                  "(ROADMAP queue 1, item 16); use 'native'")
+    loader_cls = GrainDataLoader if config.data_pipeline == "grain" else DataLoader
     ds_cfg = config.dataset_config
     if ds_cfg is None:
         raise ValueError("No datasets configured")
@@ -111,7 +112,7 @@ def build_dataloaders(
             augmentations=config.augmentations if train else None, sample_rate=sr, seed=config.seed,
             train=train,
         )
-        return DataLoader(ds, batch_size=config.training_params.batch_size, collate_fn=collater, shuffle=train,
+        return loader_cls(ds, batch_size=config.training_params.batch_size, collate_fn=collater, shuffle=train,
                           drop_last=train or num_shards > 1, seed=config.seed, num_workers=config.num_workers,
                           shard_process=shard, num_shards=num_shards, pin_memory=pin)
 

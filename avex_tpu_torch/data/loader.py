@@ -84,12 +84,14 @@ class _ChunkSampler(Sampler):
 
     def __iter__(self) -> Iterator[Tuple[int, int, List[int]]]:
         loader = self._loader()
-        epoch = loader.epoch
+        epoch, first = loader.epoch, loader._first_batch
         for batch_idx, chunk in enumerate(loader._chunks()):
-            yield epoch, batch_idx, chunk.tolist()
+            if batch_idx >= first:
+                yield epoch, batch_idx, chunk.tolist()
 
     def __len__(self) -> int:
-        return len(self._loader())
+        loader = self._loader()
+        return max(len(loader) - loader._first_batch, 0)
 
 
 class DataLoader:
@@ -107,6 +109,7 @@ class DataLoader:
         shard_process: Optional[int] = None,
         num_shards: int = 1,
         pin_memory: bool = False,
+        prefetch_factor: Optional[int] = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -119,8 +122,10 @@ class DataLoader:
         self.shard_process = shard_process
         self.num_shards = num_shards
         self.pin_memory = pin_memory
+        self.prefetch_factor = prefetch_factor  # batches a worker prepares ahead (torch's default: 2)
         self.wait_seconds = 0.0
         self.batches_served = 0
+        self._first_batch = 0  # the epoch's first batch a pass yields (a resumed pass starts later)
         self._torch_loader: Optional[torch.utils.data.DataLoader] = None
 
     def set_epoch(self, epoch: int) -> None:
@@ -157,6 +162,7 @@ class DataLoader:
                 pin_memory=self.pin_memory,
                 persistent_workers=workers,
                 multiprocessing_context="spawn" if workers else None,
+                prefetch_factor=self.prefetch_factor if workers else None,
             )
         return self._torch_loader
 

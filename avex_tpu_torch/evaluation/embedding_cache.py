@@ -33,7 +33,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from avex_tpu_torch.parallel import Mesh, all_gather_into, is_main_process, replicate, sum_over_ranks
+from avex_tpu_torch.parallel import Mesh, all_gather_into, is_main_process, replicate
 
 __all__ = [
     "HDF5EmbeddingDataset",
@@ -189,19 +189,21 @@ def extract_embeddings_to_cache(
     """Run the backbone over ``loader`` and stream its embeddings into HDF5
     (needs h5py); the host writes batch n−1 while the device computes batch n.
 
-    ``mesh``: extract data-parallel over its ranks, every rank from rank 0's
-    weights; rank 0 writes the file and every rank returns once it is
-    written."""
+    ``mesh``: extract over its ranks, every rank from rank 0's weights:
+    data-parallel over its data axis, and over a model axis as the model's
+    layout runs it (the ring of ``embed``'s long windows); rank 0 writes the
+    file and every rank returns once it is written."""
     path = Path(path)
     if layers is not None:
         model.register_hooks_for_layers(list(layers))
     layer_names = list(model._hook_layers)
-    if mesh is not None and mesh.size > 1:
+    ranks = mesh is not None and mesh.distributed
+    if ranks:
         replicate(model.module, mesh)
         if not is_main_process():
             for _ in extract_embeddings(model, loader, aggregation, mesh=mesh):
                 pass
-            sum_over_ranks([torch.zeros(1, device=mesh.device)], mesh)  # rank 0 has written the file
+            _all_ranks_meet(mesh)  # rank 0 has written the file
             return path
     h5py = _h5py()
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -235,9 +237,17 @@ def extract_embeddings_to_cache(
         f.attrs["embedding_dims"] = [int(ds.shape[-1]) for ds in datasets]
     os.replace(tmp, path)
     logger.info("Cached %d samples x %d layer(s) to %s", num_samples, len(layer_names), path)
-    if mesh is not None and mesh.size > 1:
-        sum_over_ranks([torch.zeros(1, device=mesh.device)], mesh)  # the other ranks wait for the file
+    if ranks:
+        _all_ranks_meet(mesh)  # the other ranks wait for the file
     return path
+
+
+def _all_ranks_meet(mesh: Mesh) -> None:
+    """Every process of the run waits here for all the others (one small
+    all-reduce over the default group, on the mesh's device)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(torch.zeros(1, device=mesh.device))
 
 
 def load_cached_embeddings(path: Union[str, Path]) -> Tuple[List[np.ndarray], Optional[np.ndarray], Dict]:

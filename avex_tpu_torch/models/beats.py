@@ -122,6 +122,7 @@ class BEATsConfig:
     encoder_embed_dim: int = 768
     encoder_ffn_embed_dim: int = 3072
     encoder_attention_heads: int = 12
+    #: carried as JAX's config carries it: both packages run exact GELU whatever its value
     activation_fn: str = "gelu"
 
     layer_wise_gradient_decay_ratio: float = 1.0
@@ -175,8 +176,6 @@ class BEATsConfig:
         """Raise for option values the port does not take."""
         if self.remat and self.remat_policy not in (None, "nothing", "dots"):
             raise ValueError(f"Unknown remat_policy {self.remat_policy!r} (None, 'nothing', 'dots')")
-        if self.activation_fn != "gelu":
-            raise NotImplementedError(f"activation_fn {self.activation_fn!r} (only 'gelu')")
 
 
 def downsample_padding_mask(padding_mask: torch.Tensor, target_len: int) -> torch.Tensor:

@@ -326,10 +326,11 @@ def _seeded_init(module: nn.Module, seed: int) -> None:
     (fan_in = all axes but the first), biases and scalars 0, norms 1/0,
     ``grep_a`` 1;
     an :class:`Int8Linear` gets ``Int8Dense``'s init (zero weights, unit
-    scales); a BatchNorm scale 1, shift 0, running mean 0 and variance 1."""
+    scales); a module's constant buffers (the fbank's) are refilled; a
+    BatchNorm scale 1, shift 0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(seed)
     for sub in module.modules():
-        if isinstance(sub, Int8Linear):
+        if callable(getattr(sub, "reset_buffers", None)):  # Int8Linear, KaldiFbank
             sub.reset_buffers()
     with torch.no_grad():
         for name, p in module.named_parameters():

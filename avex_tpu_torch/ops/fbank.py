@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from avex_tpu_torch.ops._precision import full_fp32
 
@@ -129,10 +130,13 @@ def num_frames(num_samples: int, win_length: int, hop_length: int) -> int:
     return 1 + (num_samples - win_length) // hop_length
 
 
-class KaldiFbank:
+class KaldiFbank(nn.Module):
     """Batched Kaldi fbank matching ``torchaudio.compliance.kaldi.fbank``
     (``use_energy=False, dither=0.0, snip_edges=True``) for the supported
-    windows. The constants are cached per configuration and per device."""
+    windows. Its constants (the fused frame kernel and the mel bank, fp32)
+    are non-persistent buffers: a model that holds the fbank carries them
+    to its device and into an exported program, and they stay out of its
+    state dict."""
 
     def __init__(
         self,
@@ -146,6 +150,7 @@ class KaldiFbank:
         low_freq: float = 20.0,
         high_freq: float = 0.0,
     ) -> None:
+        super().__init__()
         self.num_mel_bins = num_mel_bins
         self.sample_frequency = sample_frequency
         self.win_length = int(sample_frequency * frame_length_ms / 1000.0)
@@ -165,7 +170,9 @@ class KaldiFbank:
             low_freq,
             high_freq,
         )
-        self._device_constants = {}
+        kernel2d, mel_fb = self._constant_tensors()
+        self.register_buffer("kernel2d", kernel2d, persistent=False)  # [win, 2K]
+        self.register_buffer("mel_fb", mel_fb, persistent=False)  # [K, M]
 
     def output_frames(self, num_samples: int) -> int:
         """Number of output frames for a given waveform length."""
@@ -175,18 +182,18 @@ class KaldiFbank:
         """(frame kernel ``[2K, 1, win]``, mel bank ``[K, M]``) numpy constants."""
         return _fbank_constants(self._key)
 
-    def _constants_on(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        found = self._device_constants.get(device)
-        if found is None:
-            kernel_np, mel_np = self.constants()
-            found = (
-                torch.from_numpy(np.ascontiguousarray(kernel_np[:, 0, :].T)).to(device),
-                torch.from_numpy(mel_np).to(device),
-            )
-            self._device_constants[device] = found
-        return found
+    def _constant_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        kernel_np, mel_np = self.constants()
+        return torch.tensor(np.ascontiguousarray(kernel_np[:, 0, :].T)), torch.tensor(mel_np)
 
-    def __call__(self, waveforms: torch.Tensor) -> torch.Tensor:
+    def reset_buffers(self) -> None:
+        """Refill the constants (after ``to_empty``; ``models.common.build_module`` calls it)."""
+        kernel2d, mel_fb = self._constant_tensors()
+        with torch.no_grad():
+            self.kernel2d.copy_(kernel2d)
+            self.mel_fb.copy_(mel_fb)
+
+    def forward(self, waveforms: torch.Tensor) -> torch.Tensor:
         """``[B, T]`` (or ``[T]``) waveform → ``[B, frames, num_mel_bins]`` float32 log-mel."""
         squeeze = waveforms.ndim == 1
         if squeeze:
@@ -197,7 +204,8 @@ class KaldiFbank:
         if f <= 0:
             out = x.new_zeros((b, 0, self.num_mel_bins))
             return out[0] if squeeze else out
-        kernel2d, mel_fb = self._constants_on(x.device)  # [win, 2K], [K, M]
+        # a fbank of its own (not a model's) follows its input to the device
+        kernel2d, mel_fb = self.kernel2d.to(x.device), self.mel_fb.to(x.device)
         frames = x.unfold(1, self.win_length, self.hop_length)  # [B, F, win]
         with full_fp32():
             spec = torch.matmul(frames, kernel2d)  # [B, F, 2K]

@@ -102,7 +102,25 @@ def _stft_kernel(n_fft: int, win_length: int, window: str) -> np.ndarray:
     return mat.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+def _device_constant(fn):
+    """Cache a function's device tensor per argument tuple. Only plain
+    tensors are kept: one made while a tracing mode is on (``torch.export``'s
+    fake tensors) belongs to that trace, so the next call builds it again."""
+    cache: dict = {}
+
+    @functools.wraps(fn)
+    def cached(*key):
+        found = cache.get(key)
+        if found is None:
+            found = fn(*key)
+            if type(found) is torch.Tensor:
+                cache[key] = found
+        return found
+
+    return cached
+
+
+@_device_constant
 def _dft_matrix(n_fft: int, win_length: int, window: str, precision: str, device: torch.device) -> torch.Tensor:
     """:func:`_stft_kernel` on ``device``, rounded to bf16 values for ``"default"``."""
     kernel = torch.from_numpy(_stft_kernel(n_fft, win_length, window)).to(device)
@@ -147,7 +165,7 @@ def stft_power(
     return power.transpose(1, 2)
 
 
-@functools.lru_cache(maxsize=16)
+@_device_constant
 def _mel_matrix(
     n_freqs: int, n_mels: int, sample_rate: float, f_min: float, f_max: Optional[float], device: torch.device
 ) -> torch.Tensor:

@@ -167,18 +167,50 @@ class AvexHTTPServer:
         self.host = host
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+        self._loop_ident: Optional[int] = None  # the thread running the accept loop
+        self._loop_done = threading.Event()  # set while no accept loop runs
+        self._loop_done.set()
+        self._closed = False  # stop() closed the socket
+
+    def _serve(self) -> None:
+        self._loop_ident = threading.get_ident()
+        try:
+            self._httpd.serve_forever()
+        finally:
+            self._loop_done.set()
 
     def start(self) -> "AvexHTTPServer":
         """Serve on a daemon thread; returns self for ``with``-style use."""
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, daemon=True, name="avex-http"
-        )
+        self._loop_done.clear()
+        self._thread = threading.Thread(target=self._serve, daemon=True, name="avex-http")
         self._thread.start()
         return self
 
+    def serve_forever(self) -> None:
+        """Serve on the calling thread until :meth:`stop` is called (from
+        another thread, or from a signal handler on this one, also before
+        the loop begins) or until ``KeyboardInterrupt`` unwinds out of it;
+        then call :meth:`stop` to close the socket."""
+        self._loop_ident = threading.get_ident()
+        self._loop_done.clear()
+        if self._closed:  # a stop() came first
+            self._loop_done.set()
+            return
+        self._serve()
+
     def stop(self) -> None:
-        """Shut down the listener and join the serving thread."""
-        self._httpd.shutdown()
+        """Shut down the listener and join the serving thread.
+
+        Called on the thread that runs the accept loop (a signal handler that
+        interrupted :meth:`serve_forever`), it cannot wait for that loop: it
+        asks a helper thread to end it and returns; the loop ends within its
+        poll interval and its caller closes the socket with a second call."""
+        if not self._loop_done.is_set():
+            if threading.get_ident() == self._loop_ident:
+                threading.Thread(target=self._httpd.shutdown, daemon=True, name="avex-http-stop").start()
+                return
+            self._httpd.shutdown()
+        self._closed = True
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)

@@ -205,6 +205,28 @@ Phases, each printing its results on lines of its own:
    gathered), fp32, 8 + 8 against the one-process step on 16 (EAT-SSL's mask
    draw split across the ranks; stochastic depth keeps every item). The
    ranks send back their launch counts; K2, K3, K5 and K6 add them.
+31-32. the model axis on gloo ranks sharing the card (``phase_model_parallel``,
+   ``phase_model_axis_rest``: TP, GPipe, SP, ring attention, the MoE probe,
+   the 3-D cell);
+33. the command line (``avex_tpu_torch.commands``, no click, h5py or PyYAML):
+   (a) ``embed``'s batches (``commands.embed_batches``, WAVs written with
+   ``wave``: 64 of 6 s at 16 kHz and 8 at 44.1 kHz) into the extraction loop
+   over the official BEATs on K1 (12 a batch), each row against
+   ``model.extract_embeddings`` on the same centre crops; (b) ``--windowed``
+   over four 120 s recordings, BEATs ``fused_qkv`` on 30 s windows (hop 15 s,
+   K2 at T=1496) and EAT on 10 s windows (K5 at T=513), the manifest's
+   offsets against ``window_waveform``'s, the ring off at one rank; (c)
+   ``export`` of the official BEATs (plain attention) to a ``.pt2`` program
+   with a dynamic batch, loaded on the card and held at B=4 and 16 to the
+   eager model, its sidecar, and a ``use_pallas=True`` model refused; (d)
+   ``serve`` in a child process (int8 BEATs, port 0), 32 clips from 8
+   threads held to the same int8 model here, then SIGINT: exit code 0, the
+   port free (the child's launches are not counted); (e) ``run_train`` with
+   ``data_pipeline="grain"`` (the checkpointable loader, 4 workers, 5 steps
+   an epoch, 2 epochs): an uninterrupted run, a run stopped mid-epoch by the
+   preemption flag and the run resumed from its step checkpoint, whose
+   batches equal the uninterrupted run's bit for bit and whose losses are
+   within rel 1e-3 (K2 and K3 12 a step).
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -222,7 +244,8 @@ main paths' runs; K4 and K8, which no main path reaches, add
 fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
 numbers at T=800; K5 and K6 add ``eat_ssl``, their numbers at EAT-SSL's
 shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``;
-K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share) and,
+K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share; K1, K2,
+K3 and K5 add ``cli_launches``, phase 33's share) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
@@ -396,6 +419,17 @@ MP_MICROBATCHES = 4
 MP_STEPS = 5
 MP_TIMEOUT = 400
 DP_LR = 3e-4  # BEATs' and EAT-SSL's; every phase-30 step at its full rate (no warmup)
+# phase 33: the command line
+CLI_CLIPS, CLI_RESAMPLED, CLI_BATCH = 64, 8, 32  # (a): 6 s clips at 16 kHz, then 44.1 kHz ones; embed's batch
+CLI_LONG_N, CLI_LONG_S = 4, 120  # (b): recordings of 120 s at 16 kHz
+CLI_WINDOW_BEATS, CLI_HOP_BEATS, CLI_WINDOW_EAT = 30.0, 15.0, 10.0  # BEATs T=1496, EAT T=513
+CLI_ROW_REL = 1e-6  # an embed row against model.extract_embeddings on the same clip (bit-equal expected)
+CLI_EXPORT_REL = {"float32": 1e-5, "bfloat16": 1e-3}  # the loaded program against the eager model, pooled
+CLI_SERVED, CLI_SERVE_THREADS = 32, 8
+CLI_SERVE_START, CLI_SIGINT_EXIT = 300, 30  # s for the serve child to print its URL; to exit after SIGINT
+GRAIN_STEPS, GRAIN_EPOCHS, GRAIN_STOP = 5, 2, 7  # (e): steps an epoch, epochs, the step the stopped run ends on
+GRAIN_CHECKPOINT_EVERY = 2
+GRAIN_LOSS_REL = 1e-3  # a resumed step's loss against the uninterrupted run's (bf16, cuDNN's backward)
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
@@ -4461,6 +4495,404 @@ def phase_model_axis_rest(workdir: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the command line on the card
+# ---------------------------------------------------------------------------
+
+
+def write_wav(path: Path, wav, sr: int) -> None:
+    """A 16-bit mono WAV (stdlib ``wave``) of a float waveform in [-1, 1]."""
+    import wave
+
+    import numpy as np
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(np.round(np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def cli_spec(entry: str, **init):
+    """An official entry's spec with ``init`` over its init config (the ModelSpec the CLI takes)."""
+    from avex_tpu_torch.api.official_models import OFFICIAL_MODELS
+    from avex_tpu_torch.configs import ModelSpec
+
+    spec = dict(OFFICIAL_MODELS[entry]["model_spec"])
+    return ModelSpec(**dict(spec, init_config=dict(spec.get("init_config") or {}, **init)))
+
+
+def cli_embed(label: str, spec, src: Path, expect: dict, clip_seconds: float, windowed: bool = False,
+              hop_seconds=None) -> tuple:
+    """``embed``'s first half (``commands.embed_batches``) into the extraction
+    loop (``evaluation.extract_embeddings``, what the HDF5 writer feeds from;
+    no h5py here), as ``commands.embed`` runs them. Checks the launches (per
+    batch, exact), the batches against the files decoded, resampled and cut
+    here (centre crop, or ``window_waveform``), the manifest, and the rows
+    against ``model.extract_embeddings`` on those clips (rel ``CLI_ROW_REL``).
+    Returns (the launches, the manifest)."""
+    import numpy as np
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch import commands
+    from avex_tpu_torch._native import decode_audio, resample
+    from avex_tpu_torch.evaluation import extract_embeddings
+    from avex_tpu_torch.ops.audio import pad_or_window_np
+    from avex_tpu_torch.ops.windowing import window_waveform
+
+    model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True)
+    check(model.device.type == "cuda", f"{label}: the spec's device, cuda")
+    mesh = commands.embed_mesh(model, "auto", windowed, clip_seconds, echo=lambda m: print(f"{label}: {m}"))
+    check(mesh is None, f"{label}: one rank: ring attention off, no mesh")
+    model.register_hooks_for_layers(commands.split_layers("last_layer"))
+    files = commands.find_audio_files(src)
+    batches, manifest = commands.embed_batches(model, files, clip_seconds=clip_seconds, batch_size=CLI_BATCH,
+                                               windowed=windowed, hop_seconds=hop_seconds)
+    seen = []
+
+    def recorded():
+        for batch in batches:
+            seen.append(batch["raw_wav"])
+            yield batch
+
+    reset_counts()
+    start = time.perf_counter()
+    rows = np.concatenate([embs[0] for embs, _labels in extract_embeddings(model, recorded(), aggregation="mean")])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counts = read_counts()
+    for kname, n in counts.items():
+        want = expect.get(kname, 0) * len(seen)
+        check(n == want, f"{label}: {kname} launched {n} times == {want} ({expect.get(kname, 0)} a batch x "
+                         f"{len(seen)} batches)")
+    # the clips, decoded, resampled and cut here
+    sr = commands.model_sample_rate(model)
+    target, hop = int(clip_seconds * sr), int((hop_seconds or clip_seconds) * sr)
+    clips, offsets = [], []
+    for path in files:
+        wav, file_sr = decode_audio(str(path), mono=True)
+        wav = resample(wav, file_sr, sr) if file_sr != sr else wav
+        if windowed:
+            windows, starts = window_waveform(wav, target, hop_samples=hop)
+            clips += list(windows)
+            offsets += [(str(path), int(s)) for s in starts]
+        else:
+            clips.append(pad_or_window_np(wav, target, window_selection="center")[0])
+            offsets.append((str(path), 0))
+    clips = np.stack(clips)
+    check(np.array_equal(np.concatenate(seen), clips), f"{label}: {len(clips)} batch rows equal the clips cut here")
+    check([(r["path"], r["offset_samples"]) for r in manifest] == offsets,
+          f"{label}: the manifest's {len(manifest)} rows (file, offset) equal the cut's")
+    with torch.no_grad():
+        want = np.concatenate([model.extract_embeddings(clips[i:i + CLI_BATCH], aggregation="mean").float().cpu().numpy()
+                               for i in range(0, len(clips), CLI_BATCH)])
+    rel = float(np.linalg.norm(rows - want) / np.linalg.norm(want))
+    check(rows.shape == want.shape and np.isfinite(rows).all() and rel <= CLI_ROW_REL,
+          f"{label}: rows {rows.shape} against model.extract_embeddings on the same clips: rel L2 {rel:.3e}, "
+          f"max|d| {float(np.abs(rows - want).max()):.3e} <= rel {CLI_ROW_REL:g} (bit-equal expected)")
+    print(f"{label}: {len(files)} files, {len(clips)} rows in {len(seen)} batches, {elapsed:.2f} s "
+          f"(decode, resample, extraction) on {CARD[0]}")
+    del model
+    torch.cuda.empty_cache()
+    return counts, manifest
+
+
+def cli_export(workdir: Path) -> None:
+    """(c) ``commands.export`` of the official BEATs (its default plain
+    attention, fp32) with a dynamic batch to a ``.pt2`` program, loaded back
+    on the card and held to the eager model at B=4 and B=16; the sidecar; a
+    ``use_pallas=True`` model refused."""
+    import json as json_module
+
+    import numpy as np
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch import commands
+    from avex_tpu_torch.export import META_FILE, export_program
+    from avex_tpu_torch.ops._precision import full_fp32
+
+    spec = cli_spec("esp_aves2_sl_beats_all")
+    out = workdir / "beats.pt2"
+    start = time.perf_counter()
+    commands.export(spec, out, random_weights=True, clip_seconds=CLIP_SAMPLES / 16000, echo=print)
+    export_s = time.perf_counter() - start
+    program = torch.export.load(str(out)).module()
+    model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True)
+    model.register_hooks_for_layers(["last_layer"])
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    bound = CLI_EXPORT_REL[spec.compute_dtype]
+    for bsz in (4, 16):
+        wav = torch.randn(bsz, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
+        # an fp32 program runs its convolutions and products with TF32 off, as the eager model does
+        with torch.no_grad(), full_fp32():
+            got = program(wav)
+            want = model.extract_embeddings(wav, aggregation="mean")
+        rel = rel_l2(got, want)
+        check(got.shape == want.shape == (bsz, E) and got.device.type == "cuda" and rel <= bound,
+              f"export: the loaded program at B={bsz} on the card against the eager model ({spec.compute_dtype}): "
+              f"pooled rel L2 {rel:.3e} <= {bound:g}")
+    meta = json_module.loads((workdir / META_FILE).read_text())
+    want_meta = {"mode": "embed", "sample_rate": 16000, "clip_seconds": CLIP_SAMPLES / 16000,
+                 "n_samples": CLIP_SAMPLES, "layers": ["last_layer"], "aggregation": "mean"}
+    check(meta == want_meta, f"export: the sidecar {META_FILE} holds {meta}")
+    kernels = avex_tpu_torch.load_model(cli_spec("esp_aves2_sl_beats_all", use_pallas=True), random_weights=True,
+                                        return_features_only=True)
+    try:
+        export_program(kernels, workdir / "kernels.pt2", clip_seconds=CLIP_SAMPLES / 16000)
+        check(False, "export: a use_pallas=True model is refused")
+    except ValueError as err:
+        check("use_pallas=True" in str(err), f"export: a use_pallas=True model is refused: {err}")
+    print(f"export: the program written in {export_s:.1f} s ({out.stat().st_size / 2**20:.1f} MiB) on {CARD[0]}")
+    del model, kernels, program
+    torch.cuda.empty_cache()
+
+
+_SERVE_CHILD = """
+import json
+from avex_tpu_torch import commands
+from avex_tpu_torch.configs import ModelSpec
+from avex_tpu_torch.ops import attention_kernels as ak, int8_kernels as ik
+spec = ModelSpec(**{spec!r})
+commands.serve([spec], port=0, clip_seconds={clip_seconds!r}, max_batch={max_batch!r}, random_weights=True,
+               quantization="int8")
+print("LAUNCHES " + json.dumps({{**ak.LAUNCHES, **ik.LAUNCHES}}), flush=True)
+"""
+
+
+def cli_serve() -> None:
+    """(d) ``commands.serve`` in a child process (the foreground server):
+    int8 BEATs on K1/K7, port 0; 32 clips posted from 8 threads, each row
+    held to the same int8 model in this process; SIGINT ends it with exit
+    code 0 and frees the port. The child prints its own launch counts on
+    its way out: 12 K1 and 72 K7 a forward (warm-up and served batches),
+    no other kernel. They are the child's process's and are not added to
+    the ``kernels`` line."""
+    import concurrent.futures as futures
+    import io
+    import os
+    import signal
+    import socket
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import avex_tpu_torch
+
+    spec = cli_spec("esp_aves2_sl_beats_all", use_pallas=True).replace(compute_dtype="bfloat16")
+    code = _SERVE_CHILD.format(spec=spec.to_dict(), clip_seconds=CLIP_SAMPLES / 16000, max_batch=CLI_SERVED)
+    env = dict(os.environ, LOG_LEVEL="WARNING")
+    start = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", code], cwd=str(Path(__file__).resolve().parent), env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    url, lines = None, []
+    try:
+        deadline = time.monotonic() + CLI_SERVE_START
+        while url is None and time.monotonic() < deadline:
+            line = child.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if line.startswith("Serving "):
+                url = line.rsplit(" on ", 1)[1].strip()
+        check(url is not None, "serve: the child printed 'Serving beats (embed) on http://...'"
+              + ("" if url else ":\n" + "".join(lines[-20:])))
+        if url is None:
+            return
+        up_s = time.perf_counter() - start
+        rng = np.random.default_rng(34)
+        clips = [(rng.standard_normal(CLIP_SAMPLES) * 0.1).astype(np.float32) for _ in range(CLI_SERVED)]
+
+        def post(wav):
+            body = io.BytesIO()
+            np.save(body, wav)
+            request = urllib.request.Request(url + "/embed", data=body.getvalue(), method="POST")
+            with urllib.request.urlopen(request, timeout=SERVE_TIMEOUT) as response:
+                return np.asarray(json.loads(response.read())["output"], np.float32)
+
+        t0 = time.perf_counter()
+        with futures.ThreadPoolExecutor(CLI_SERVE_THREADS) as pool:
+            rows = np.stack(list(pool.map(post, clips)))
+        served_s = time.perf_counter() - t0
+        child.send_signal(signal.SIGINT)
+        t1 = time.perf_counter()
+        try:
+            code_out = child.wait(timeout=CLI_SIGINT_EXIT)
+        except subprocess.TimeoutExpired:
+            code_out = None
+        check(code_out == 0, f"serve: SIGINT: the child exited with {code_out} within {CLI_SIGINT_EXIT} s "
+                             f"({time.perf_counter() - t1:.2f} s)")
+        tail = child.stdout.read() if code_out is not None else ""
+        counted = [json.loads(ln.split(" ", 1)[1]) for ln in tail.splitlines() if ln.startswith("LAUNCHES ")]
+        child_counts = counted[0] if counted else {}
+        forwards = child_counts.get("gated_bias_attention", 0) // ENCODER_LAYERS
+        others = {k: v for k, v in child_counts.items() if k not in ("gated_bias_attention", "int8_dynamic_dense")
+                  and v}
+        check(forwards > 0 and child_counts["gated_bias_attention"] == ENCODER_LAYERS * forwards
+              and child_counts.get("int8_dynamic_dense", 0) == INT8_PER_FORWARD * forwards and not others,
+              f"serve: the child's launches {child_counts or tail[-2000:]}: 12 K1 and 72 K7 a forward "
+              f"({forwards} forwards), no other kernel")
+        port = int(url.rsplit(":", 1)[1])
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("127.0.0.1", port))
+                free = True
+            except OSError:
+                free = False
+        check(free, f"serve: port {port} free after the child's exit")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    model = avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, quantization="int8")
+    model.register_hooks_for_layers(["last_layer"])
+    with torch.no_grad():
+        want = model.extract_embeddings(np.stack(clips), aggregation="mean").float().cpu().numpy()
+    rels = np.linalg.norm(rows - want, axis=1) / np.linalg.norm(want, axis=1)
+    check(rows.shape == want.shape and float(rels.max()) <= SERVE_REL,
+          f"serve: {len(rows)} rows from the child's int8 BEATs against the same int8 model here: worst rel "
+          f"{float(rels.max()):.3e} <= {SERVE_REL:g}")
+    print(f"serve: child up in {up_s:.1f} s (imports, build, int8, warm-up), {CLI_SERVED} requests from "
+          f"{CLI_SERVE_THREADS} threads in {served_s * 1e3:.1f} ms; the child's own launches {child_counts} "
+          f"(not added to the kernels line); on {CARD[0]}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def cli_grain_train(workdir: Path) -> dict:
+    """(e) ``run_train.main`` with ``data_pipeline="grain"``: an uninterrupted
+    run, a run stopped mid-epoch (the preemption flag SIGTERM's handler sets,
+    after step ``GRAIN_STOP``: its step checkpoint holds the loader's
+    position) and a run resumed from that checkpoint. Returns the launches."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import avex_tpu_torch.run_train as run_train
+    from avex_tpu_torch.configs import RunConfig
+    from avex_tpu_torch.data import GrainDataLoader
+    from avex_tpu_torch.training import Trainer
+
+    data = Path(__file__).resolve().parent / "build" / "chip_smoke_entry" / "data" / "train"
+    if not (data / "metadata.csv").exists():  # phase 15's clips, or the same kind written here
+        write_tone_wavs(data, ENTRY_TRAIN, seed=31)
+    shutil.rmtree(workdir / "grain", ignore_errors=True)
+
+    def config(name, **extra):
+        return RunConfig.from_dict(dict(
+            model_spec=entry_model_spec(fused_qkv=True), data_pipeline="grain", device="cuda", seed=0,
+            training_params={"train_epochs": GRAIN_EPOCHS, "lr": ENTRY_LR, "batch_size": B_TRAIN,
+                             "optimizer": "adamw", "weight_decay": 0.01},
+            dataset_config={"train_datasets": [{"name": "train", "kind": "local", "path": str(data)}]},
+            output_dir=str(workdir / "grain" / name), checkpoint_every_steps=GRAIN_CHECKPOINT_EVERY,
+            logging="none", num_workers=ENTRY_WORKERS, **extra))
+
+    records, loaders = [], []
+    step, build = Trainer._train_step, run_train.build_dataloaders
+
+    def recorded(self, batch):
+        digest = hashlib.sha256(batch["raw_wav"].numpy().tobytes() + batch["label"].numpy().tobytes()).hexdigest()
+        loss, metrics = step(self, batch)
+        records[-1].append((digest, float(loss), time.perf_counter()))  # float(): the step has ended
+        if self.config.output_dir.endswith("stopped") and len(records[-1]) == GRAIN_STOP:
+            self._preempted = True  # what SIGTERM's handler sets: save the step checkpoint and stop
+        return loss, metrics
+
+    def capture(cfg):
+        out = build(cfg)
+        loaders.append(out[0])
+        return out
+
+    total, runs = {}, {}
+    Trainer._train_step, run_train.build_dataloaders = recorded, capture
+    try:
+        for name, extra in (("whole", {}), ("stopped", {}),
+                            ("resumed", {"resume_from_checkpoint": str(workdir / "grain" / "stopped" /
+                                                                       "step_checkpoint")})):
+            records.append([])
+            reset_counts()
+            start = time.perf_counter()
+            result = run_train.main(config(name, **extra))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            counts = read_counts()
+            steps = len(records[-1])
+            expect = {"fused_qkv_gated_attention": 12 * steps, "fused_qkv_gated_attention_backward": 12 * steps}
+            for kname, n in counts.items():
+                check(n == expect.get(kname, 0), f"grain {name}: {kname} launched {n} times == "
+                                                 f"{expect.get(kname, 0)} (12 a step x {steps} steps)")
+                total[kname] = total.get(kname, 0) + n
+            loader = loaders[-1]
+            check(isinstance(loader, GrainDataLoader), f"grain {name}: data_pipeline='grain' built a GrainDataLoader")
+            runs[name] = (result, list(records[-1]), elapsed, loader.wait_seconds / max(loader.batches_served, 1))
+    finally:
+        Trainer._train_step, run_train.build_dataloaders = step, build
+    whole, stopped, resumed = ([r[:2] for r in runs[k][1]] for k in ("whole", "stopped", "resumed"))
+    meta = json.loads((workdir / "grain" / "stopped" / "step_checkpoint.meta.json").read_text())
+    check(runs["stopped"][0].get("preempted") and len(stopped) == GRAIN_STOP
+          and meta["loader_state"]["position"] == GRAIN_STOP - GRAIN_STEPS and meta["loader_state"]["epoch"] == 1,
+          f"grain: the stopped run saved its step checkpoint after step {len(stopped)} with the loader at "
+          f"{meta['loader_state']}")
+    check(len(whole) == GRAIN_STEPS * GRAIN_EPOCHS and [d for d, _ in stopped + resumed] == [d for d, _ in whole],
+          f"grain: the {len(resumed)} batches after the resume (and the {len(stopped)} before it) equal the "
+          f"uninterrupted run's bit for bit (sha256 of raw_wav and labels)")
+    rels = [abs(a - b) / abs(b) for (_, a), (_, b) in zip(resumed, whole[len(stopped):])]
+    check(len(rels) == len(resumed) and max(rels) <= GRAIN_LOSS_REL,
+          "grain: each resumed step's loss within rel %g of the uninterrupted run's: %s" % (
+              GRAIN_LOSS_REL, ", ".join(f"{r:.2e}" for r in rels)))
+    for name, (_result, rec, elapsed, wait) in runs.items():
+        gaps = np.diff([t for _, _, t in rec]) * 1e3
+        print(f"grain {name}: {len(rec)} steps in {elapsed:.1f} s with the model's build and {ENTRY_WORKERS} "
+              f"workers' start; from step to step (loader included) median {float(np.median(gaps)):.1f} ms, "
+              f"min {float(gaps.min()):.1f} ms; the loader's wait {wait * 1e3:.1f} ms a batch; losses "
+              + " ".join(f"{loss:.5f}" for _, loss, _ in rec))
+    return total
+
+
+def phase_cli(workdir: Path) -> dict:
+    """Phase 33: the command line's bodies (``avex_tpu_torch.commands``) on
+    the card. Returns the launches of every kernel in (a), (b) and (e)."""
+    import numpy as np
+
+    start = time.perf_counter()
+    rng = np.random.default_rng(33)
+    for i in range(CLI_CLIPS + CLI_RESAMPLED):  # (a): 6 s clips, the last ones at 44.1 kHz
+        sr = 44100 if i >= CLI_CLIPS else 16000
+        write_wav(workdir / "clips" / f"clip{i:03d}.wav", rng.standard_normal(6 * sr) * 0.1, sr)
+    for i in range(CLI_LONG_N):  # (b): long recordings
+        write_wav(workdir / "long" / f"rec{i}.wav", rng.standard_normal(CLI_LONG_S * 16000) * 0.1, 16000)
+    print(f"cli: {CLI_CLIPS + CLI_RESAMPLED} clips and {CLI_LONG_N} {CLI_LONG_S} s recordings written in "
+          f"{time.perf_counter() - start:.1f} s")
+    total = {}
+
+    def add(counts):
+        for kname, n in counts.items():
+            total[kname] = total.get(kname, 0) + n
+
+    counts, _ = cli_embed("embed (a) BEATs, centre crop", cli_spec("esp_aves2_sl_beats_all", use_pallas=True),
+                          workdir / "clips", {"gated_bias_attention": 12}, CLIP_SAMPLES / 16000)
+    add(counts)
+    counts, _ = cli_embed("embed (b) BEATs fused_qkv, 30 s windows", cli_spec(
+        "esp_aves2_sl_beats_all", use_pallas=True, fused_qkv=True), workdir / "long",
+        {"fused_qkv_gated_attention": 12}, CLI_WINDOW_BEATS, windowed=True, hop_seconds=CLI_HOP_BEATS)
+    add(counts)
+    counts, _ = cli_embed("embed (b) EAT, 10 s windows", cli_spec("esp_aves2_sl_eat_all_ssl_all", use_pallas=True),
+                          workdir / "long", {"fused_qkv_attention": 12}, CLI_WINDOW_EAT, windowed=True)
+    add(counts)
+    cli_export(workdir)
+    cli_serve()
+    add(cli_grain_train(workdir))
+    print(f"phase 33 (the command line): {time.perf_counter() - start:.1f} s; launches "
+          f"{ {k: v for k, v in total.items() if v} } on {CARD[0]}")
+    return total
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -4501,6 +4933,7 @@ def main() -> int:
     data_parallel = phase_data_parallel(ranks_dir)
     model_parallel = phase_model_parallel(ranks_dir)
     model_axis_rest = phase_model_axis_rest(ranks_dir)
+    cli = phase_cli(Path(__file__).resolve().parent / "build" / "chip_smoke_cli")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
@@ -4540,6 +4973,11 @@ def main() -> int:
         for kname, count in counts.items():
             if count:  # each rank checked the rest at 0
                 launches[kname] += count
+    # Phase 33: K1, K2 and K5 through embed, K2/K3 through run_train on the checkpointable loader
+    # (the serve child's K1/K7 launches are its own process's).
+    for kname, count in cli.items():
+        if count:  # each run checked the rest at 0
+            launches[kname] += count
     # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
     # large and huge's 80, takes K5, and K4 takes the same widths) or K8 (in
     # JAX only scripts/bench_int8_matmul.py calls it); drive() checks that each
@@ -4597,6 +5035,8 @@ def main() -> int:
             kernels[-1]["model_parallel_launches"] = model_parallel[kname]  # phase 31's share of ``launches``
         if model_axis_rest.get(kname):
             kernels[-1]["model_axis_rest_launches"] = model_axis_rest[kname]  # phase 32's share
+        if cli.get(kname):
+            kernels[-1]["cli_launches"] = cli[kname]  # phase 33's share
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

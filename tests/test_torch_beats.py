@@ -177,6 +177,18 @@ def test_finetuned_predictor_head_matches_jax(rng):
     np.testing.assert_allclose(_np(got), _np(want), **FP32_TOL)
 
 
+def test_activation_fn_is_carried_and_runs_gelu_as_jax(rng):
+    """JAX's BEATsConfig takes any activation_fn and always runs exact GELU;
+    the port builds the same config and computes the same features."""
+    config = dict(TINY, activation_fn="relu")
+    jax_model, port = build_pair(config, return_features_only=True)
+    assert port.cfg.activation_fn == "relu"
+    wav = (rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    (out_j, aux_j), (out_t, aux_t) = run_pair(jax_model, port, wav)
+    np.testing.assert_allclose(_np(out_t), _np(out_j), **FP32_TOL)
+    np.testing.assert_allclose(_np(aux_t["pooled"]), _np(aux_j["pooled"]), **FP32_TOL)
+
+
 def test_unported_options_raise():
     # scan_layers is ported (the stacked layout at the edges; tests/test_torch_model_parallel.py);
     # so is ring attention (tests/test_torch_ring_attention.py): a mesh of None turns it off

@@ -322,8 +322,13 @@ def test_build_dataloaders_matches_jax(local_dir):
     for loader, want in zip(port[:2], ref[:2]):
         assert not loader.pin_memory  # a CPU run's batches are not pinned
         _assert_batches_equal(loader, want)
-    with pytest.raises(NotImplementedError, match="grain"):
-        data.build_dataloaders(cfg.RunConfig.from_dict(dict(raw, device="cpu", data_pipeline="grain")))
+    # data_pipeline="grain": the checkpointable loader, grain's batches (JAX's grain pipeline)
+    grain_port = data.build_dataloaders(cfg.RunConfig.from_dict(dict(raw, device="cpu", data_pipeline="grain")))
+    grain_ref = jdata.build_dataloaders(jcfg.RunConfig.model_validate(dict(raw, data_pipeline="grain")))
+    assert grain_port[3:] == grain_ref[3:]
+    for loader, want in zip(grain_port[:2], grain_ref[:2]):
+        assert isinstance(loader, data.GrainDataLoader)
+        _assert_batches_equal(loader, want)
     with pytest.raises(ValueError, match="No datasets"):
         data.build_dataloaders(cfg.RunConfig.from_dict(dict(raw, dataset_config={})))
 

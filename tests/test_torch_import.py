@@ -82,14 +82,22 @@ SLICE_MODULES = [
     "avex_tpu_torch.parallel.tensor",
     "avex_tpu_torch.parallel.pipeline",
     "avex_tpu_torch.parallel.sequence",
+    "avex_tpu_torch.ops.windowing",
+    "avex_tpu_torch.api.list_models",
+    "avex_tpu_torch.commands",
+    "avex_tpu_torch.export",
+    "avex_tpu_torch.data.grain_loader",
 ]
 #: top-level packages the port must not import: JAX, its libraries, and the
 #: JAX package with its configuration library
 _NOT_IMPORTED = ("jax", "flax", "optax", "orbax", "pydantic", "avex_tpu")
 #: packages the machine with the card may lack: imported only where a
 #: function needs them (the HDF5 cache, clustering, YAML configs, HF
-#: datasets, remote paths, the logging backends, BirdNet's TFLite host backends)
-_LAZY = ("h5py", "sklearn", "yaml", "datasets", "fsspec", "mlflow", "wandb", "tensorflow", "birdnetlib")
+#: datasets, remote paths, the logging backends, BirdNet's TFLite host
+#: backends, the command line's click; grain, which the port's loader does
+#: without)
+_LAZY = ("h5py", "sklearn", "yaml", "datasets", "fsspec", "mlflow", "wandb", "tensorflow", "birdnetlib", "click",
+         "grain")
 _NAMES = "|".join(_NOT_IMPORTED)
 _FORBIDDEN = re.compile(
     rf"^\s*(import\s+({_NAMES})\b(?!_torch)|from\s+({_NAMES})\b(?!_torch))",
@@ -141,6 +149,23 @@ def test_load_model_without_device_raises_without_cuda():
         "    assert 'CUDA' in str(err), err\n"
         "else:\n"
         "    raise SystemExit('load_model ran on the CPU without being asked to')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_click_is_imported_by_the_command_line_module_only():
+    """``avex_tpu_torch/cli.py`` is the one module that imports click; the
+    command bodies (``commands.py``) run without it."""
+    importers = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "avex_tpu_torch").rglob("*.py")
+                       if re.search(r"^\s*(import click|from click)", p.read_text(), re.MULTILINE))
+    assert importers == ["avex_tpu_torch/cli.py"]
+    code = (
+        "import sys, avex_tpu_torch, avex_tpu_torch.commands\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('click', 'h5py', 'yaml', 'grain', 'tensorflow'))\n"
+        "assert not bad, bad\n"
+        "import avex_tpu_torch.cli\n"
+        "assert 'click' in sys.modules\n"
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -28,6 +28,7 @@ from avex_tpu.configs import RunConfig as JaxRunConfig
 import avex_tpu_torch
 import avex_tpu_torch.run_train as run_train
 from avex_tpu_torch.configs import RunConfig
+from avex_tpu_torch.data import GrainDataLoader
 from avex_tpu_torch.models import beats
 from tests.test_torch_data import RUN_YAML
 from tests.test_torch_training import _zero_gradient
@@ -107,5 +108,5 @@ def test_run_train_refuses_what_is_not_ported(tmp_path):
     # tests/test_torch_model_parallel.py); sequence parallelism needs the stacked layout, as in JAX
     with pytest.raises(ValueError, match="scan_layers"):
         run_train.main(config.replace(mesh={"sequence_parallel": True}))
-    with pytest.raises(NotImplementedError, match="grain"):
-        run_train.main(config.replace(data_pipeline="grain"))
+    # data_pipeline="grain" is ported: the checkpointable loader (tests/test_torch_grain_loader.py)
+    assert isinstance(run_train.build_dataloaders(config.replace(data_pipeline="grain"))[0], GrainDataLoader)

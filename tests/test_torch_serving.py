@@ -24,9 +24,14 @@ import http.client
 import io
 import json
 import os
+import signal
+import socket
+import subprocess
 import sys
 import threading
+import time
 from concurrent.futures import Future
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -331,6 +336,67 @@ def test_http_concurrent_posts_batch_together(models, clips):
     for i in range(4):
         _check_row("int8", models, clips[i], results[i])
     assert stats["batches"] < 4
+
+
+_SIGNAL_STOP_CHILD = """
+import signal
+from avex_tpu_torch.serving import AvexHTTPServer
+server = AvexHTTPServer(object(), port=0)
+signal.signal(signal.SIGTERM, lambda *_: server.stop())
+print(server.port, flush=True)
+server.serve_forever()
+server.stop()
+print("stopped", flush=True)
+"""
+
+
+def _port_is_free(port):
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def test_stop_ends_serve_forever_from_a_signal_handler_and_from_another_thread():
+    """``stop()`` from a SIGTERM handler, which runs on the thread of the
+    foreground ``serve_forever``, ends the loop without a deadlock and the
+    second ``stop()`` frees the port; ``stop()`` from another thread ends a
+    ``serve_forever`` running on a thread of its own; and a ``stop()``
+    before ``serve_forever`` begins has it return at once."""
+    root = Path(__file__).resolve().parents[1]
+    child = subprocess.Popen([sys.executable, "-c", _SIGNAL_STOP_CHILD], cwd=root,
+                             env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        line = child.stdout.readline()
+        assert line.strip().isdigit(), line + child.stdout.read()
+        child.send_signal(signal.SIGTERM)
+        code = child.wait(timeout=30)
+        out = child.stdout.read()
+        assert code == 0 and out.strip() == "stopped", out
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert _port_is_free(int(line))
+
+    server = AvexHTTPServer(object(), port=0)
+    loop = threading.Thread(target=server.serve_forever, daemon=True)
+    loop.start()
+    deadline = time.monotonic() + TIMEOUT
+    while server._loop_ident is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    server.stop()
+    loop.join(timeout=30)
+    assert not loop.is_alive() and _port_is_free(server.port)
+
+    early = AvexHTTPServer(object(), port=0)
+    early.stop()  # a signal before the loop begins: serve_forever returns at once
+    early.serve_forever()
+    assert _port_is_free(early.port)
 
 
 def test_payload_sniffing_matches_jax(tmp_path):
