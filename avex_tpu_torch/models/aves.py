@@ -10,10 +10,11 @@ published ``*.torchaudio.pt`` checkpoints:
 - a grouped conv positional embedding (K=128, 16 groups, weight norm folded
   at load), then the encoder LayerNorm;
 - post-norm transformer layers (768-d, 12 heads, 3072 FFN). With
-  ``use_pallas`` and heads the kernel takes, the q, k and v weights are
-  concatenated into one ``[E, 3E]`` product and the CUDA kernel K5
-  (``fused_qkv_attention``) runs over it with the frame mask; otherwise
-  plain ``dot_product_attention`` with the mask as a ``-inf`` bias.
+  ``use_pallas`` the q, k and v weights are concatenated into one
+  ``[E, 3E]`` product and the CUDA kernel K5 (``fused_qkv_attention``) runs
+  over it with the frame mask (on CUDA it raises at a head width the
+  kernels do not take); otherwise plain ``dot_product_attention`` with the
+  mask as a ``-inf`` bias.
 
 ``forward`` returns the last layer's features; the embedding taps are
 ``model.encoder.transformer.layers.{i}.feed_forward.output_dense``. Module
@@ -64,7 +65,7 @@ from avex_tpu_torch.models.common import (
 )
 from avex_tpu_torch.ops._precision import full_fp32
 from avex_tpu_torch.ops.attention import dot_product_attention
-from avex_tpu_torch.ops.attention_kernels import fused_qkv_attention, fused_qkv_compatible
+from avex_tpu_torch.ops.attention_kernels import fused_qkv_attention
 from avex_tpu_torch.ops.ring_attention import check_ring_axis, ring_self_attention, shared_linear
 from avex_tpu_torch.parallel import shared_generator
 from avex_tpu_torch.parallel.tensor import linear_bias, whole_names
@@ -223,7 +224,7 @@ class _EncoderLayer(nn.Module):
             attn = ring_self_attention(h, project, mesh=self.ring_mesh, key_padding_mask=padding_mask,
                                        scale=head_dim**-0.5)
             attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
-        elif self.use_pallas and fused_qkv_compatible(dim, heads):
+        elif self.use_pallas:
             # One [E, 3E] product, q|k|v heads-major, then K5 over its columns.
             w = torch.cat([att.q_proj.weight, att.k_proj.weight, att.v_proj.weight]).to(dt)
             b = torch.cat([linear_bias(p) for p in (att.q_proj, att.k_proj, att.v_proj)]).to(dt)

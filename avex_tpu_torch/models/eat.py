@@ -12,11 +12,12 @@ Port of ``avex_tpu/models/eat.py``:
   patches major, as the JAX NHWC conv gives them (the block, the block
   stack, the patch embedding and the positions serve Bird-MAE and, without
   the qkv bias, ATST too);
-- attention, as the JAX ``_Block`` dispatches it: with ``use_pallas`` the
-  CUDA kernel over the raw ``[B, T, 3E]`` projection (K5,
-  ``fused_qkv_attention``) when the heads fit it, else the split-input
-  bias-free kernel (K4, ``gated_bias_attention(pos_bias=None)``); without,
-  plain ``dot_product_attention`` (bf16 logits under bf16 compute);
+- attention: with ``use_pallas`` the CUDA kernel over the raw
+  ``[B, T, 3E]`` projection (K5, ``fused_qkv_attention``) at every head
+  width, which raises on CUDA at a width the kernels do not take (JAX's
+  ``_Block`` takes the split-input K4 where its fused rule refuses the
+  heads); without, plain ``dot_product_attention`` (bf16 logits under bf16
+  compute);
 - embedding taps: ``backbone.model.blocks.{i}.attn.proj``.
 
 Module names follow the reference's ``backbone.model`` layout, so
@@ -54,11 +55,7 @@ from avex_tpu_torch.models.common import (
     torch_dtype,
 )
 from avex_tpu_torch.ops.attention import dot_product_attention
-from avex_tpu_torch.ops.attention_kernels import (
-    fused_qkv_attention,
-    fused_qkv_compatible,
-    gated_bias_attention,
-)
+from avex_tpu_torch.ops.attention_kernels import fused_qkv_attention
 from avex_tpu_torch.ops.fbank import KaldiFbank, eat_fbank
 from avex_tpu_torch.ops.ring_attention import check_ring_axis, ring_self_attention, shared_linear
 from avex_tpu_torch.parallel.tensor import whole_names
@@ -157,19 +154,13 @@ class _Block(nn.Module):
 
             attn = ring_self_attention(h, project, mesh=self.ring_mesh, scale=head_dim**-0.5)
             attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
-        elif self.use_pallas and fused_qkv_compatible(dim, heads):
+        elif self.use_pallas:
             attn = fused_qkv_attention(dense(self.attn.qkv, h, dt), heads, scale=head_dim**-0.5)  # K5
         else:
             qkv = dense(self.attn.qkv, h, dt)  # [B, T, 3E]
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, head_dim).unbind(2))
-            if self.use_pallas:
-                # K4. Reached only when K5 refuses the heads, i.e. dh not 64
-                # or 80, which K4 refuses as well: on CUDA this raises; the CPU
-                # twin runs.
-                attn = gated_bias_attention(q, k, v, None, scale=head_dim**-0.5)
-            else:
-                # bf16 compute runs the softmax chain in bf16 too, as in JAX.
-                attn = dot_product_attention(q, k, v, scale=head_dim**-0.5, logits_dtype=dt)
+            # bf16 compute runs the softmax chain in bf16 too, as in JAX.
+            attn = dot_product_attention(q, k, v, scale=head_dim**-0.5, logits_dtype=dt)
             attn = attn.transpose(1, 2).reshape(bsz, seq, dim)
         proj_out = dense(self.attn.proj, attn, dt)
         if self.attn_axis is not None:

@@ -26,11 +26,14 @@ forwards also write the row log-sum-exp and the output's rounding rest when
 a backward will follow, so that the backward rebuilds P from the one and
 takes Δ from the forward's output and the other; fp32 calls launch
 ``csrc/gated_attention.cu``'s FMA body. Each source is gated or bias-free by
-a template flag. The bias-free kernels (K4, K5, K6) take head width 64 or 80
-(:data:`HEAD_DIMS`; 80 is Bird-MAE large and huge), the gated ones 64; a CUDA
-call at another width raises. The two layouts differ only in the strides
-handed to the kernels. Each source's header states its bounds on an H100 and what its
-design does about them.
+a template flag. Every kernel, gated or not, takes any head width that is a
+multiple of 8 from 8 to 128 (:data:`HEAD_DIMS`); a CUDA call at another
+width raises. Each source is built once for each width of
+:data:`KERNEL_WIDTHS` (its ``-DAVEX_HEAD_DIM``), and a call runs on the
+smallest that holds its head width (:func:`kernel_width`), the extra columns
+zero-filled on load and never stored. The two layouts differ only in the
+strides handed to the kernels. Each source's header states its bounds on an
+H100 and what its design does about them.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
 autograd through it); a CUDA tensor launches the kernel or raises, forward
@@ -56,8 +59,8 @@ from avex_tpu_torch.ops._build import load_library
 
 __all__ = [
     "LAUNCHES",
-    "GATED_HEAD_DIM",
     "HEAD_DIMS",
+    "KERNEL_WIDTHS",
     "fused_qkv_attention",
     "fused_qkv_backward_from_residuals_reference",
     "fused_qkv_backward_reference",
@@ -68,17 +71,21 @@ __all__ = [
     "fused_qkv_reference",
     "gated_bias_attention",
     "gated_bias_attention_reference",
+    "kernel_width",
     "reset_launch_counts",
 ]
 
 SOURCE = "gated_attention.cu"
 #: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
-#: The head widths the bias-free kernels (K4, K5, K6) take: 64 (BEATs, EAT,
-#: AVES, ATST, Bird-MAE base: 768 / 12) and 80 (Bird-MAE large and huge:
-#: 1024 / 16, 1280 / 16). The gated kernels (K1, K2, K3) take 64 only.
-HEAD_DIMS = (64, 80)
-GATED_HEAD_DIM = 64
+#: The head widths every kernel (K1-K6, gated or not) takes: the multiples of
+#: 8 from 8 to 128. The zoo's checkpoints use 64 (BEATs, EAT, AVES, ATST,
+#: Bird-MAE base: 768 / 12) and 80 (Bird-MAE large and huge: 1024 / 16,
+#: 1280 / 16).
+HEAD_DIMS = tuple(range(8, 129, 8))
+#: The widths each CUDA source is built for, one library a width; a head
+#: width runs on the smallest that holds it (:func:`kernel_width`).
+KERNEL_WIDTHS = (32, 64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel:
@@ -94,10 +101,22 @@ LAUNCHES: Dict[str, int] = {
 }
 #: dQ blocks the fp32 K3 aims to put in flight: three per SM of an H100's 132
 _DQ_TARGET_BLOCKS = 396
-#: dbias blocks of the bf16 K3 resident on an SM at once (168 registers x
-#: 128 threads, 66 KB of shared memory): its batch is split into as many
-#: chunks (summed in order after) as fill the card in one wave
+#: dbias blocks of the bf16 K3 resident on an SM at once at width 64 (168
+#: registers x 128 threads, 66 KB of shared memory): its batch is split into
+#: as many chunks (summed in order after) as fill the card in one wave
 _DBIAS_BLOCKS_PER_SM = 3
+#: shared memory an SM holds for the blocks of one kernel (227 KB)
+_SM_SHARED_BYTES = 232448
+
+
+def _dbias_blocks_per_sm(width: int) -> int:
+    """dbias blocks of the bf16 K3 that fit an SM at a build's width: its
+    eight bf16 tiles of 64 rows (stored ``width`` wide at 64 and 128, one
+    16-byte chunk wider otherwise) and 2 KB of row statistics, at most
+    :data:`_DBIAS_BLOCKS_PER_SM`."""
+    stride = width if width % 64 == 0 else width + 8
+    smem = 8 * 64 * stride * 2 + 2048
+    return max(1, min(_DBIAS_BLOCKS_PER_SM, _SM_SHARED_BYTES // smem))
 
 
 _COUNT_LOCK = threading.Lock()
@@ -116,8 +135,18 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(SOURCE)
+def kernel_width(head_dim: int) -> int:
+    """The build (of :data:`KERNEL_WIDTHS`) that runs a head width of
+    :data:`HEAD_DIMS`: the smallest that holds it."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels take a head_dim that is a multiple of 8 from 8 to 128, "
+                         f"got {head_dim}")
+    return min(w for w in KERNEL_WIDTHS if w >= head_dim)
+
+
+def _library(head_dim: int) -> ctypes.CDLL:
+    """The FMA body's build that runs ``head_dim``."""
+    lib = load_library(SOURCE, kernel_width(head_dim))
     if lib.avex_gated_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
@@ -133,8 +162,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _tensor_core_library() -> ctypes.CDLL:
-    lib = load_library(TENSOR_CORE_SOURCE)
+def _tensor_core_library(head_dim: int) -> ctypes.CDLL:
+    """The tensor-core build that runs ``head_dim``."""
+    lib = load_library(TENSOR_CORE_SOURCE, kernel_width(head_dim))
     if lib.avex_bias_free_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
@@ -383,10 +413,7 @@ def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> None:
     """Raise on what the kernels do not take. q, k, v and every tensor of
     ``outputs`` (name → tensor) are ``[B, H, T, D]`` views of one type."""
     bsz, heads, seq, dim = q.shape
-    if pos_bias is not None and dim != GATED_HEAD_DIM:
-        raise ValueError(f"the gated attention kernel takes head_dim {GATED_HEAD_DIM}, got {dim}")
-    if dim not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, got {dim}")
+    kernel_width(dim)  # raises at a head_dim the kernels do not take
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v), *outputs.items()):
@@ -451,20 +478,20 @@ def _launch(
             operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate), pad_ptr,
                         out.data_ptr())
             if on_tensor_cores:
-                err = _tensor_core_library().avex_tensor_core_gated_attention_forward(
+                err = _tensor_core_library(dim).avex_tensor_core_gated_attention_forward(
                     *operands, _ptr(out_rest), _ptr(lse), *tail, strides, stream)
             else:
-                err = _library().avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands, *tail, strides,
-                                                              stream)
+                err = _library(dim).avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands, *tail,
+                                                                 strides, stream)
         else:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
             if on_tensor_cores:
-                err = _tensor_core_library().avex_bias_free_attention_forward(
+                err = _tensor_core_library(dim).avex_bias_free_attention_forward(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
                     *tail, strides, stream,
                 )
             else:
-                err = _library().avex_plain_attention_forward(
+                err = _library(dim).avex_plain_attention_forward(
                     _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
                     *tail, strides, stream,
                 )
@@ -541,7 +568,7 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     pad_strides = pad.stride() if pad is not None else (0, 0)
     strides = (ctypes.c_longlong * 29)(*(s for v3 in views for s in v3), *bias_strides, *gate_strides, *pad_strides)
 
-    lib = _library()
+    lib = _library(dim // heads)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.avex_attention_backward(
@@ -587,7 +614,8 @@ def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, o
         # dbias: as many batch chunks (a partial each) as one wave of blocks holds
         tiles = -(-seq // 64)
         sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
-        chunks = max(1, min(bsz, _DBIAS_BLOCKS_PER_SM * sms // (tiles * tiles * heads)))
+        per_sm = _dbias_blocks_per_sm(kernel_width(dim // heads))
+        chunks = max(1, min(bsz, per_sm * sms // (tiles * tiles * heads)))
         items = -(-bsz // chunks)
         chunks = -(-bsz // items)
         part = torch.empty(chunks, heads, seq, seq, **f32) if chunks > 1 else None
@@ -598,7 +626,7 @@ def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, o
     strides = (ctypes.c_longlong * 32)(*views, *pad_strides, *bias_strides, *gate_strides)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = _tensor_core_library().avex_tensor_core_attention_backward(
+        err = _tensor_core_library(dim // heads).avex_tensor_core_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), rest.data_ptr(), do.data_ptr(),
             _ptr(pos_bias), _ptr(gate), _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items,
@@ -711,13 +739,15 @@ def gated_bias_attention(
 
 
 def fused_qkv_compatible(dim: int, heads: int) -> bool:
-    """True when K5 takes this projection's heads: ``dim / heads`` in
-    :data:`HEAD_DIMS` (64 or 80), whatever the head count.
+    """True when the fused kernels (K2/K5) take this projection's heads:
+    ``dim / heads`` in :data:`HEAD_DIMS` (a multiple of 8 from 8 to 128),
+    whatever the head count.
 
     The JAX rule (head groups that tile 128 lanes, ``pallas_attention.py:445-468``)
     is a Mosaic layout rule with no Hopper counterpart; here the only
-    constraint is the kernel's head width. So 12 heads of dh 80 take K5 here
-    where JAX takes the split-input K4.
+    constraint is the kernels' head width. So 12 heads of dh 80 take K5 here
+    where JAX takes the split-input K4, and 4 heads of dh 16 take K2 where
+    JAX takes K1.
     """
     return heads > 0 and dim % heads == 0 and dim // heads in HEAD_DIMS
 

@@ -18,8 +18,12 @@
 // body, the card's parity path: the tensor cores would round its operands to
 // TF32.
 //
-// Head widths: the gated variant takes D=64, the bias-free one 64 and 80
-// (Bird-MAE large and huge), D a template parameter.
+// Head widths: both variants take any D that is a multiple of 8 from 8 to
+// 128. The width kD is a template parameter; each build of this source
+// instantiates one, chosen with -DAVEX_HEAD_DIM (32, 64, 80, 96 or 128), and
+// D runs on the smallest kD that holds it: the columns D .. kD-1 are
+// zero-filled on load (they are the next head's in the fused layout) and
+// never stored, so they add 0 to every product and the result is exact.
 //
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
@@ -45,6 +49,20 @@
 #include <stdint.h>
 #include <string.h>
 #include <math.h>
+
+// The head width of this build (see kHeadDim below), set with -DAVEX_HEAD_DIM.
+#ifndef AVEX_HEAD_DIM
+#define AVEX_HEAD_DIM 64
+#endif
+// The wide builds (96, 128) declare that one resident block an SM is enough,
+// which lets ptxas give a thread up to 255 registers: with the thread count
+// alone it held some of their kernels at 168 (three blocks of 128 threads an
+// SM) and spilled. The builds up to 80 keep the bound they always had.
+#if AVEX_HEAD_DIM > 80
+#define AVEX_LAUNCH_BOUNDS(threads) __launch_bounds__(threads, 1)
+#else
+#define AVEX_LAUNCH_BOUNDS(threads) __launch_bounds__(threads)
+#endif
 
 namespace {
 
@@ -80,9 +98,9 @@ __device__ __forceinline__ void store8(float* p, const float* x) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
 }
 
-// A thread's kC = kD/8 output columns of a row: 8 (head width 64) as two
-// 16-byte moves, 10 (head width 80) as five 8-byte ones (its columns start at
-// 40-byte offsets).
+// A thread's kC = kD/8 output columns of a row: 4, 8, 12 and 16 (head widths
+// 32, 64, 96, 128) as 16-byte moves, 10 (head width 80) as five 8-byte ones
+// (its columns start at 40-byte offsets).
 template <int kC>
 __device__ __forceinline__ void load_cols(const float* p, float* x) {
   if constexpr (kC % 4 == 0) {
@@ -113,13 +131,28 @@ __device__ __forceinline__ void store_cols(float* p, const float* x) {
   }
 }
 
+// store_cols for the thread's columns c0 .. c0+kC-1 of a row p (p points at
+// column c0) that lie below dim: kC = kD/8 columns straddle dim when D is not
+// a multiple of kC (D=72 on kD=80), and then go one by one.
+template <int kC>
+__device__ __forceinline__ void store_cols_below(float* p, const float* x, int c0, int dim) {
+  if (c0 + kC <= dim) {
+    store_cols<kC>(p, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kC; ++j)
+      if (c0 + j < dim) p[j] = x[j];
+  }
+}
+
 template <typename T, bool kGated, int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void AVEX_LAUNCH_BOUNDS(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const float* __restrict__ gate,
-                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale,
+                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, int dim, float scale,
                  Strides s) {
   constexpr int kC = kD / 8;  // output columns a thread
+  const int dc = dim >> 3;    // chunks of 8 columns the operands have (kD/8 or fewer)
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                            // [D][BQ]  q transposed
   float* k_t = q_t + kD * kBlockQ;              // [D][BK]  k tile transposed
@@ -145,7 +178,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = c % kBlockQ;
     const int chunk = c / kBlockQ;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < seq) load8(qb + (long long)(q0 + r) * s.q[2] + chunk * 8, x);
+    if (q0 + r < seq && chunk < dc) load8(qb + (long long)(q0 + r) * s.q[2] + chunk * 8, x);
 #pragma unroll
     for (int j = 0; j < 8; ++j) q_t[(chunk * 8 + j) * kBlockQ + r] = x[j];
   }
@@ -176,7 +209,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int chunk = c / kBlockK;
       float kx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       float vx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (k0 + r < seq) {
+      if (k0 + r < seq && chunk < dc) {
         load8(kb + (long long)(k0 + r) * s.k[2] + chunk * 8, kx);
         load8(vb + (long long)(k0 + r) * s.v[2] + chunk * 8, vx);
       }
@@ -267,13 +300,13 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float y[kC];
 #pragma unroll
     for (int j = 0; j < kC; ++j) y[j] = acc[i][j] * inv;
-    store_cols<kC>(ob + (long long)qi * s.o[2] + tx * kC, y);
+    store_cols_below<kC>(ob + (long long)qi * s.o[2] + tx * kC, y, tx * kC, dim);
   }
 }
 
 template <typename T, bool kGated, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* gate,
-                   const void* pad, void* out, int batch, int heads, int seq, float scale,
+                   const void* pad, void* out, int batch, int heads, int seq, int dim, float scale,
                    const Strides& s, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated, kD>,
@@ -283,30 +316,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   attention_kernel<T, kGated, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(gate),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, scale, s);
+      static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, dim, scale, s);
   return cudaGetLastError();
 }
 
-// Head widths: the gated variant takes 64, the bias-free one 64 and 80.
-template <bool kGated>
-bool takes_width(int head_dim) {
-  return head_dim == 64 || (!kGated && head_dim == 80);
-}
+// The head width this library's kernels are built for (-DAVEX_HEAD_DIM: 32,
+// 64, 80, 96 or 128; the wrapper builds one library a width).
+constexpr int kHeadDim = AVEX_HEAD_DIM;
+static_assert(kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 80 || kHeadDim == 96 || kHeadDim == 128,
+              "AVEX_HEAD_DIM: 32, 64, 80, 96 or 128");
+
+// The widths a call may have on this build, gated or not: a multiple of 8 from 8 to kHeadDim.
+bool takes_width(int head_dim) { return head_dim > 0 && head_dim % 8 == 0 && head_dim <= kHeadDim; }
 
 template <bool kGated>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
              const void* gate, const void* pad, void* out, int batch, int heads, int seq,
              int head_dim, float scale, const Strides& s, void* stream) {
-  if (!takes_width<kGated>(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
-      heads > 65535)
+  if (!takes_width(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
-  if constexpr (!kGated) {
-    if (head_dim == 80)
-      return (int)launch<float, false, 80>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
-  }
-  return (int)launch<float, kGated, 64>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, st);
+  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, scale, s,
+                                              st);
 }
 
 }  // namespace
@@ -428,16 +460,18 @@ struct BwdStrides {
   long long pad[2];
 };
 
-// Rows r0 .. r0+63 of a [T, kD] operand (row stride rs) into shared memory:
-// transposed into trans[kD][64] and/or as rows[64][kD]; rows past seq are zero.
+// Rows r0 .. r0+63 of a [T, dim] operand (row stride rs) into shared memory
+// as kD columns: transposed into trans[kD][64] and/or as rows[64][kD]; rows
+// past seq and the chunks of columns past dim (dc = dim / 8 chunks are the
+// operand's) are zero.
 template <int kD, typename T>
-__device__ __forceinline__ void load_rows(const T* base, long long rs, int r0, int seq,
+__device__ __forceinline__ void load_rows(const T* base, long long rs, int r0, int seq, int dc,
                                           float* trans, float* rows) {
   for (int c = threadIdx.x; c < 64 * (kD / 8); c += kThreads) {
     const int r = c % 64;
     const int chunk = c / 64;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < seq) load8(base + (long long)(r0 + r) * rs + chunk * 8, x);
+    if (r0 + r < seq && chunk < dc) load8(base + (long long)(r0 + r) * rs + chunk * 8, x);
     if (trans) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) trans[(chunk * 8 + j) * 64 + r] = x[j];
@@ -509,14 +543,15 @@ __device__ __forceinline__ float logit(float qk, float scale, float g, const flo
 }
 
 template <typename T, bool kGated, int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void AVEX_LAUNCH_BOUNDS(kThreads)
 attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ bias,
                     const float* __restrict__ gate, const uint8_t* __restrict__ pad,
                     T* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part,
-                    float* __restrict__ stats, int batch, int heads, int seq, int items_per_chunk,
+                    float* __restrict__ stats, int batch, int heads, int seq, int dim, int items_per_chunk,
                     float scale, bool dbias_global, BwdStrides s) {
   constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dQ columns a thread; floats of a q/k/v tile
+  const int dc = dim >> 3;
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                   // [D][BQ]  q transposed
   float* do_t = q_t + kDT;             // [D][BQ]  dO transposed
@@ -548,8 +583,8 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int b = chunk * items_per_chunk; b < b_end; ++b) {
     const bool first_item = b == chunk * items_per_chunk;
     __syncthreads();  // the previous item's readers of q_t and do_t are done
-    load_rows<kD>(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, q_t, static_cast<float*>(nullptr));
-    load_rows<kD>(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, do_t,
+    load_rows<kD>(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dc, q_t, static_cast<float*>(nullptr));
+    load_rows<kD>(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, dc, do_t,
                   static_cast<float*>(nullptr));
     const T* kb = k + b * s.k[0] + h * s.k[1];
     const T* vb = v + b * s.v[0] + h * s.v[1];
@@ -571,8 +606,8 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     // Pass 1: row max, row sum and Σ exp(L - m)·dP, online.
     for (int k0 = 0; k0 < seq; k0 += kBlockK) {
       __syncthreads();
-      load_rows<kD>(kb, s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
-      load_rows<kD>(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+      load_rows<kD>(kb, s.k[2], k0, seq, dc, k_t, static_cast<float*>(nullptr));
+      load_rows<kD>(vb, s.v[2], k0, seq, dc, v_t, static_cast<float*>(nullptr));
       __syncthreads();
       float sc[4][8], dp[4][8];
       product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
@@ -620,8 +655,8 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < seq; k0 += kBlockK) {
       __syncthreads();  // the previous tile's readers of k_t, v_t, k_s and ds_t are done
-      load_rows<kD>(kb, s.k[2], k0, seq, k_t, k_s);
-      load_rows<kD>(vb, s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+      load_rows<kD>(kb, s.k[2], k0, seq, dc, k_t, k_s);
+      load_rows<kD>(vb, s.v[2], k0, seq, dc, v_t, static_cast<float*>(nullptr));
       __syncthreads();
       float sc[4][8], dp[4][8];
       product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
@@ -671,7 +706,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
-      if (row_ok[i]) store_cols<kC>(dqb + (long long)qi * s.dq[2] + tx * kC, acc[i]);
+      if (row_ok[i]) store_cols_below<kC>(dqb + (long long)qi * s.dq[2] + tx * kC, acc[i], tx * kC, dim);
       const float dg_row = row_sum8(dg[i]);
       if (row_ok[i] && tx == 0) {
         const long long at = ((long long)b * heads + h) * seq + qi;
@@ -695,13 +730,14 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T, bool kGated, int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void AVEX_LAUNCH_BOUNDS(kThreads)
 attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ bias,
                      const float* __restrict__ gate, const uint8_t* __restrict__ pad,
                      T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
-                     int batch, int heads, int seq, float scale, BwdStrides s) {
+                     int batch, int heads, int seq, int dim, float scale, BwdStrides s) {
   constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dK/dV columns a thread; floats of a q/k/v tile
+  const int dc = dim >> 3;
   extern __shared__ __align__(16) float smem[];
   float* k_t = smem;          // [D][BK]  k tile transposed
   float* v_t = k_t + kDT;     // [D][BK]  v tile transposed
@@ -722,8 +758,8 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const long long bht = (long long)batch * heads * seq;
   const long long row0 = ((long long)b * heads + h) * seq;
 
-  load_rows<kD>(k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, k_t, static_cast<float*>(nullptr));
-  load_rows<kD>(v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, v_t, static_cast<float*>(nullptr));
+  load_rows<kD>(k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dc, k_t, static_cast<float*>(nullptr));
+  load_rows<kD>(v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dc, v_t, static_cast<float*>(nullptr));
   const T* qb = q + b * s.q[0] + h * s.q[1];
   const T* dob = dout + b * s.dout[0] + h * s.dout[1];
 
@@ -739,8 +775,8 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   for (int q0 = 0; q0 < seq; q0 += kBlockQ) {
     __syncthreads();  // the previous tile's readers of the q/dO tiles and pds are done
-    load_rows<kD>(qb, s.q[2], q0, seq, q_t, q_s);
-    load_rows<kD>(dob, s.dout[2], q0, seq, do_t, do_s);
+    load_rows<kD>(qb, s.q[2], q0, seq, dc, q_t, q_s);
+    load_rows<kD>(dob, s.dout[2], q0, seq, dc, do_t, do_s);
     __syncthreads();
     float st[4][8], dpt[4][8];  // [key][query]
     product<kD>(k_t, q_t, ty * 4, tx * 8, st);
@@ -789,8 +825,8 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int i = 0; i < 4; ++i) {
     if (!key_ok[i]) continue;
     const int key = k0 + ty * 4 + i;
-    store_cols<kC>(dkb + (long long)key * s.dk[2] + tx * kC, dk_acc[i]);
-    store_cols<kC>(dvb + (long long)key * s.dv[2] + tx * kC, dv_acc[i]);
+    store_cols_below<kC>(dkb + (long long)key * s.dk[2] + tx * kC, dk_acc[i], tx * kC, dim);
+    store_cols_below<kC>(dvb + (long long)key * s.dv[2] + tx * kC, dv_acc[i], tx * kC, dim);
   }
 }
 
@@ -809,7 +845,7 @@ template <typename T, bool kGated, int kD>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* dout,
                             const void* bias, const void* gate, const void* pad, void* dq,
                             void* dk, void* dv, void* dbias_part, void* dbias, void* dgate,
-                            void* stats, int batch, int heads, int seq, float scale,
+                            void* stats, int batch, int heads, int seq, int dim, float scale,
                             int items_per_chunk, const BwdStrides& s, cudaStream_t stream) {
   const int tiles = (seq + kBlockQ - 1) / kBlockQ;
   const int chunks = (batch + items_per_chunk - 1) / items_per_chunk;
@@ -828,14 +864,14 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dq),
       static_cast<float*>(dgate), static_cast<float*>(chunks > 1 ? dbias_part : dbias),
-      static_cast<float*>(stats), batch, heads, seq, items_per_chunk, scale, dbias_global, s);
+      static_cast<float*>(stats), batch, heads, seq, dim, items_per_chunk, scale, dbias_global, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_dkv_kernel<T, kGated, kD><<<dim3(tiles, heads, batch), kThreads, dkv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<const float*>(stats), batch, heads, seq, scale, s);
+      static_cast<T*>(dv), static_cast<const float*>(stats), batch, heads, seq, dim, scale, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (kGated && chunks > 1) {
@@ -853,20 +889,14 @@ int dispatch_backward(int dtype, const void* q, const void* k, const void* v, co
                       void* dv, void* dbias_part, void* dbias, void* dgate, void* stats, int batch,
                       int heads, int seq, int head_dim, float scale, int items_per_chunk,
                       const BwdStrides& s, void* stream) {
-  if (!takes_width<kGated>(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
+  if (!takes_width(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
       heads > 65535 || items_per_chunk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
-  if constexpr (!kGated) {
-    if (head_dim == 80)
-      return (int)launch_backward<float, false, 80>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
-                                                    dbias_part, dbias, dgate, stats, batch, heads, seq,
-                                                    scale, items_per_chunk, s, st);
-  }
-  return (int)launch_backward<float, kGated, 64>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
-                                                 dbias_part, dbias, dgate, stats, batch, heads, seq,
-                                                 scale, items_per_chunk, s, st);
+  return (int)launch_backward<float, kGated, kHeadDim>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
+                                                       dbias_part, dbias, dgate, stats, batch, heads, seq,
+                                                       head_dim, scale, items_per_chunk, s, st);
 }
 
 }  // namespace

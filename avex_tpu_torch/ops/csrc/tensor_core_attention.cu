@@ -11,10 +11,16 @@
 //   - _fused_qkv_bwd_kernel        avex_tpu/ops/pallas_attention.py:524  (K6, its backward)
 //   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
 // The layouts are only strides here: every operand is a base pointer plus
-// (batch, head, token) strides with the head dimension contiguous. The gated
-// kernels take head width 64; the bias-free ones 64 and 80 (Bird-MAE large
-// and huge), the width a template parameter. fp32 operands stay on
-// gated_attention.cu's FMA body.
+// (batch, head, token) strides with the head dimension contiguous. Every
+// kernel, gated or bias-free, takes any head width D that is a multiple of 8
+// from 8 to 128. The width kD is a template parameter, and each build of
+// this source instantiates one, chosen with -DAVEX_HEAD_DIM: 32, 64, 80, 96
+// or 128, one library a width, built in parallel. D runs on the smallest kD
+// that holds it, its columns D .. kD-1 zero-filled on load (per 16-byte
+// chunk, from the column index: in the fused layout they are the next
+// head's) and never stored; zero columns add 0 to q·k, to every product and
+// to Δ, so the result is exact. fp32 operands stay on gated_attention.cu's
+// FMA body.
 //
 // Numerics, as the TPU kernels (pallas_attention.py:126-158, :344-430,
 // :524-585, :765-843): fp32 logits and softmax; P rounded to bf16 before P·V
@@ -66,13 +72,19 @@
 // cp.async with zero-fill past T, double-buffered so that the next key (or
 // query) tile arrives while this one is multiplied. A 64-wide row's 8 chunks
 // of 16 bytes are XOR-swizzled by the row's low 3 bits, so ldmatrix (and
-// ldmatrix.trans for the operands read as [K, N]) has no bank conflicts; an
-// 80-wide row's 10 chunks sit at an odd stride of 11 chunks instead (struct
+// ldmatrix.trans for the operands read as [K, N]) has no bank conflicts, and
+// so is a 128-wide row's 16; the rows of 32, 80 and 96 (4, 10 and 12
+// chunks) sit at an odd stride of 5, 11 and 13 chunks instead (struct
 // Layout), which spreads the 8 rows of an ldmatrix phase over all 32 banks
-// too. At D=80 QKᵀ takes 5 k-steps of 16 where D=64 takes 4, and P·V, dQ, dK
-// and dV 10 n8 accumulator tiles a warp where D=64 takes 8; the dK/dV kernel,
-// which holds two of them, needs 232 registers a thread (212 at D=64), no
-// spills. Products are fragments
+// too. QKᵀ takes kD/16 k-steps of 16, and P·V, dQ, dK and dV kD/8 n8
+// accumulator tiles a warp; the dK/dV kernel holds two of them (232
+// registers a thread at D=80, bias-free). Past 80 (dK and dV together: kD
+// accumulator floats a thread, 96 or 128) the dK/dV, dQ and dbias kernels
+// read the A operand of S and dP from shared memory one k-step at a time
+// (mma_abt_stream) instead of holding it in registers, which keeps them
+// within 255 registers without spilling (chip_smoke.py's build phase prints
+// each kernel's count); the forward holds Q at every width.
+// Products are fragments
 // in registers: S = QKᵀ never leaves them, and P (or dS) is rounded to bf16
 // and repacked from the accumulator layout straight into the A-operand layout
 // of the next product. A tile whose rows all lie below T (and, in the
@@ -128,6 +140,20 @@
 #include <string.h>
 #include <math.h>
 
+// The head width of this build (see kHeadDim below), set with -DAVEX_HEAD_DIM.
+#ifndef AVEX_HEAD_DIM
+#define AVEX_HEAD_DIM 64
+#endif
+// The wide builds (96, 128) declare that one resident block an SM is enough,
+// which lets ptxas give a thread up to 255 registers: with the thread count
+// alone it held some of their kernels at 168 (three blocks of 128 threads an
+// SM) and spilled. The builds up to 80 keep the bound they always had.
+#if AVEX_HEAD_DIM > 80
+#define AVEX_LAUNCH_BOUNDS(threads) __launch_bounds__(threads, 1)
+#else
+#define AVEX_LAUNCH_BOUNDS(threads) __launch_bounds__(threads)
+#endif
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -158,25 +184,27 @@ struct BwdStrides {
   long long pad[2];
 };
 
-// A [rows][kD] bf16 tile in shared memory, for head width kD (64 or 80). A
-// 64-wide row is 8 chunks of 16 bytes, XOR-swizzled by the row's low 3 bits.
-// An 80-wide row is 10 chunks, stored unswizzled at a stride of 11 chunks
-// (176 bytes): with an odd stride the 8 rows that one ldmatrix phase reads
-// start on 8 different 16-byte bank groups, so it has no bank conflicts
-// either, at 10% more shared memory.
+// A [rows][kD] bf16 tile in shared memory, for head width kD (a multiple of
+// 16 up to 128). A row whose 16-byte chunks come in whole groups of 8 (kD 64
+// and 128) is XOR-swizzled by the row's low 3 bits. Any other row (kD 32, 80,
+// 96: 4, 10 and 12 chunks) is stored unswizzled at an odd stride of kD/8 + 1
+// chunks: with an odd stride the 8 rows that one ldmatrix phase reads start
+// on 8 different 16-byte bank groups, so it has no bank conflicts either, at
+// one chunk more a row.
 template <int kD>
 struct Layout {
-  static_assert(kD == 64 || kD == 80, "head widths 64 and 80");
-  static constexpr int kChunks = kD / 8;               // 16-byte chunks of a row
-  static constexpr int kLd = kD == 64 ? 64 : kD + 8;   // elements from one row to the next
-  static constexpr int kTile = kRows * kLd;            // elements of one streamed tile
+  static_assert(kD % 16 == 0 && kD >= 16 && kD <= 128, "head widths: multiples of 16 up to 128");
+  static constexpr bool kSwizzle = kD % 64 == 0;
+  static constexpr int kChunks = kD / 8;                // 16-byte chunks of a row
+  static constexpr int kLd = kSwizzle ? kD : kD + 8;    // elements from one row to the next
+  static constexpr int kTile = kRows * kLd;             // elements of one streamed tile
   static constexpr size_t kTileBytes = kTile * sizeof(bf16);
 };
 
 // Element offset of chunk `chunk` (8 elements, 16 bytes) of row `row` in a tile.
 template <int kD>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  if constexpr (kD == 64) return row * 64 + ((chunk ^ (row & 7)) << 3);
+  if constexpr (Layout<kD>::kSwizzle) return row * kD + ((chunk ^ (row & 7)) << 3);
   else return row * Layout<kD>::kLd + (chunk << 3);
 }
 
@@ -230,28 +258,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Rows r0 .. r0+kTileRows-1 of a [seq, kD] operand with row stride rs into
-// a tile, asynchronously; rows past seq are zero-filled (the copy reads
-// nothing).
+// Rows r0 .. r0+kTileRows-1 of a [seq, dim] operand with row stride rs into
+// a tile of kD columns, asynchronously; rows past seq and the chunks of
+// columns dim .. kD-1 (dc = dim / 8 chunks are the operand's) are
+// zero-filled, the copy reading nothing. In the fused [B, T, 3E] layout the
+// columns past dim are the next head's, so the mask is the column's, not the
+// row's end.
 template <int kD, int kTileRows, int kThreads>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long rs, int r0, int seq) {
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long rs, int r0, int seq, int dc) {
   constexpr int kChunks = Layout<kD>::kChunks;
   for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
-    // c >= 0: unsigned division, a shift and a mask at 8 chunks a row
+    // c >= 0: unsigned division, a shift and a mask at 8 or 16 chunks a row
     const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
-    const bool ok = r0 + row < seq;
+    const bool ok = r0 + row < seq && chunk < dc;
     const bf16* src = ok ? base + (long long)(r0 + row) * rs + chunk * 8 : base;
     cp_async16(tile + swz<kD>(row, chunk), src, ok);
   }
 }
 
-// A staged tile's rows r0 .. r0+kTileRows-1 (those below seq) to a [seq, kD] operand.
+// A staged tile's rows r0 .. r0+kTileRows-1 (those below seq; the dc chunks
+// of the operand's columns) to a [seq, dim] operand.
 template <int kD, int kTileRows, int kThreads>
-__device__ __forceinline__ void store_tile(bf16* base, long long rs, int r0, int seq, const bf16* tile) {
+__device__ __forceinline__ void store_tile(bf16* base, long long rs, int r0, int seq, int dc, const bf16* tile) {
   constexpr int kChunks = Layout<kD>::kChunks;
   for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
     const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
-    if (r0 + row < seq)
+    if (r0 + row < seq && chunk < dc)
       *reinterpret_cast<uint4*>(base + (long long)(r0 + row) * rs + chunk * 8) =
           *reinterpret_cast<const uint4*>(tile + swz<kD>(row, chunk));
   }
@@ -291,6 +323,36 @@ __device__ __forceinline__ void mma_abt(float acc[][2 * kNB][4], const uint32_t 
         for (int m = 0; m < kM; ++m) {
           mma(acc[m][2 * jp], a[m][kk], b[0], b[1]);
           mma(acc[m][2 * jp + 1], a[m][kk], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// mma_abt with the A operand read from shared memory one k-step at a time
+// (the warp's rows row0 .. of a_tile) instead of held in registers: the wide
+// instantiations (kD > 80) keep their registers for the accumulators, at one
+// ldmatrix a k-step and row group a call.
+template <int kD, int kM, int kNB, bool kFull>
+__device__ __forceinline__ void mma_abt_stream(float acc[][2 * kNB][4], const bf16* a_tile, int row0,
+                                               const bf16* tile, int pairs) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3;
+  const int arow = row0 + (lane & 7) + ((mat & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    uint32_t a[kM][4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) ldsm_x4(a[m], a_tile + swz<kD>(arow + 16 * m, 2 * kk + (mat >> 1)));
+#pragma unroll
+    for (int jp = 0; jp < kNB; ++jp) {
+      if (kFull || jp < pairs) {
+        const int row = 16 * jp + ((mat >> 1) << 3) + (lane & 7);
+        uint32_t b[4];
+        ldsm_x4(b, tile + swz<kD>(row, 2 * kk + (mat & 1)));
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          mma(acc[m][2 * jp], a[m], b[0], b[1]);
+          mma(acc[m][2 * jp + 1], a[m], b[2], b[3]);
         }
       }
     }
@@ -340,6 +402,15 @@ __device__ __forceinline__ void mma_ab_live(float acc[][kD / 8][4], const uint32
     mma_ab<kD, kM, kKS, true>(acc, a, tile, live);
   else
     mma_ab<kD, kM, kKS, false>(acc, a, tile, live);
+}
+
+template <int kD, int kM, int kNB>
+__device__ __forceinline__ void mma_abt_stream_live(float acc[][2 * kNB][4], const bf16* a_tile, int row0,
+                                                    const bf16* tile, int live) {
+  if (live == kNB)
+    mma_abt_stream<kD, kM, kNB, true>(acc, a_tile, row0, tile, live);
+  else
+    mma_abt_stream<kD, kM, kNB, false>(acc, a_tile, row0, tile, live);
 }
 
 // Accumulators rounded to bf16, as the A operand of the next product (the
@@ -567,11 +638,14 @@ __device__ __forceinline__ void forward_tile(const uint32_t qf[][kD / 16][4], co
   mma_ab<kD, kM, kNB, kFull>(o, pf, vt, live);
 }
 
-template <int kD, int kWarps, int kM, int kN, bool kGated>
-__global__ void __launch_bounds__(32 * kWarps)
+// kExact: the operands are kD wide (dim == kD), so no column is masked; the
+// forward is instantiated both ways, which keeps the exact widths' code (and
+// registers) as they were before the narrower widths came.
+template <int kD, int kWarps, int kM, int kN, bool kGated, bool kExact = true>
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
 forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const uint8_t* __restrict__ pad, bf16* __restrict__ out, bf16* __restrict__ out_rest,
-               float* __restrict__ lse, int heads, int seq, float scale, FwdStrides s, Gated gd) {
+               float* __restrict__ lse, int heads, int seq, int dim, float scale, FwdStrides s, Gated gd) {
   using S = Shape<kD, kWarps, kM, kN>;
   constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kLd = Layout<kD>::kLd, kKeyTile = kN * kLd;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -589,6 +663,7 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const bf16* vb = v + b * s.v[0] + h * s.v[1];
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const int n_tiles = (seq + kN - 1) / kN;
+  const int dc = kExact ? Layout<kD>::kChunks : dim >> 3;  // chunks of 8 columns the operands have
   const float c = scale * kLog2e;
 
   // The gated variant: this lane's rows' bias and gate·log2e.
@@ -599,9 +674,9 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     gate_rows<kM>(gd, b, h, q0 + row0, seq, gl);
   }
 
-  load_tile<kD, kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
-  load_tile<kD, kN, kThreads>(k_s, kb, s.k[2], 0, seq);
-  load_tile<kD, kN, kThreads>(v_s, vb, s.v[2], 0, seq);
+  load_tile<kD, kOwn, kThreads>(q_s, qb, s.q[2], q0, seq, dc);
+  load_tile<kD, kN, kThreads>(k_s, kb, s.k[2], 0, seq, dc);
+  load_tile<kD, kN, kThreads>(v_s, vb, s.v[2], 0, seq, dc);
   load_key_bias<kN, kThreads>(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
@@ -616,8 +691,8 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kN;
-      load_tile<kD, kN, kThreads>(k_s + nxt * kKeyTile, kb, s.k[2], k0n, seq);
-      load_tile<kD, kN, kThreads>(v_s + nxt * kKeyTile, vb, s.v[2], k0n, seq);
+      load_tile<kD, kN, kThreads>(k_s + nxt * kKeyTile, kb, s.k[2], k0n, seq, dc);
+      load_tile<kD, kN, kThreads>(v_s + nxt * kKeyTile, vb, s.v[2], k0n, seq, dc);
       load_key_bias<kN, kThreads>(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -669,17 +744,17 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     }
   }
   __syncthreads();
-  store_tile<kD, kOwn, kThreads>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, q_s);
-  if (out_rest) store_tile<kD, kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, k_s);
+  store_tile<kD, kOwn, kThreads>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dc, q_s);
+  if (out_rest) store_tile<kD, kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dc, k_s);
 }
 
 template <int kD, int kWarps, int kM, bool kGated>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ out, const bf16* __restrict__ out_rest, const bf16* __restrict__ dout,
           const uint8_t* __restrict__ pad, const float* __restrict__ lse, bf16* __restrict__ dq,
-          float* __restrict__ delta, float* __restrict__ dgate, int heads, int seq, float scale, BwdStrides s,
-          Gated gd) {
+          float* __restrict__ delta, float* __restrict__ dgate, int heads, int seq, int dim, float scale,
+          BwdStrides s, Gated gd) {
   using S = Shape<kD, kWarps, kM>;
   using L = Layout<kD>;
   constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = L::kTile;
@@ -706,12 +781,13 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const long long stat0 = ((long long)b * heads + h) * seq;
   const int n_tiles = (seq + kRows - 1) / kRows;
+  const int dc = dim >> 3;
   const float c = scale * kLog2e;
 
-  load_tile<kD, kOwn, kThreads>(q_s, qb, s.q[2], q0, seq);
-  load_tile<kD, kOwn, kThreads>(do_s, dob, s.dout[2], q0, seq);
-  load_tile<kD, kRows, kThreads>(k_s, kb, s.k[2], 0, seq);
-  load_tile<kD, kRows, kThreads>(v_s, vb, s.v[2], 0, seq);
+  load_tile<kD, kOwn, kThreads>(q_s, qb, s.q[2], q0, seq, dc);
+  load_tile<kD, kOwn, kThreads>(do_s, dob, s.dout[2], q0, seq, dc);
+  load_tile<kD, kRows, kThreads>(k_s, kb, s.k[2], 0, seq, dc);
+  load_tile<kD, kRows, kThreads>(v_s, vb, s.v[2], 0, seq, dc);
   load_key_bias<kRows, kThreads>(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
@@ -727,6 +803,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     if (qi < seq) {
 #pragma unroll
       for (int c8 = 0; c8 < kRowChunks; ++c8) {
+        if (part * kRowChunks + c8 >= dc) break;  // columns past dim: the next head's, or past the row
         float o8[8], d8[8];
         load8(ob + (long long)qi * s.o[2] + col + c8 * 8, o8);
         load8(dob + (long long)qi * s.dout[2] + col + c8 * 8, d8);
@@ -765,6 +842,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     for (int mm = 0; mm < kM; ++mm) dg[mm][0] = dg[mm][1] = 0.f;
   }
 
+  // Rows of up to 80 hold Q's and dO's A fragments in registers for the
+  // whole walk; wider ones (kStreamA) read them from shared memory at each
+  // product, which leaves their registers to the wider dQ accumulator.
+  constexpr bool kStreamA = kD > 80;
   uint32_t qf[kM][kD / 16][4], dof[kM][kD / 16][4];
   float acc[kM][kD / 8][4];
   zero<kM, kD>(acc);
@@ -772,8 +853,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kRows;
-      load_tile<kD, kRows, kThreads>(k_s + nxt * kTile, kb, s.k[2], k0n, seq);
-      load_tile<kD, kRows, kThreads>(v_s + nxt * kTile, vb, s.v[2], k0n, seq);
+      load_tile<kD, kRows, kThreads>(k_s + nxt * kTile, kb, s.k[2], k0n, seq, dc);
+      load_tile<kD, kRows, kThreads>(v_s + nxt * kTile, vb, s.v[2], k0n, seq, dc);
       load_key_bias<kRows, kThreads>(kbias_s + nxt * kRows, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -783,8 +864,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     __syncthreads();
     if (active) {
       if (it == 0) {
-        load_a<kD, kM>(qf, q_s, row0);
-        load_a<kD, kM>(dof, do_s, row0);
+        if constexpr (!kStreamA) {
+          load_a<kD, kM>(qf, q_s, row0);
+          load_a<kD, kM>(dof, do_s, row0);
+        }
 #pragma unroll
         for (int mm = 0; mm < kM; ++mm)
 #pragma unroll
@@ -803,8 +886,13 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       float sc[kM][8][4], dp[kM][8][4];
       zero<kM>(sc);
       zero<kM>(dp);
-      mma_abt_live<kD, kM, 4>(sc, qf, kt, live);                  // S = Q·Kᵀ
-      mma_abt_live<kD, kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+      if constexpr (kStreamA) {
+        mma_abt_stream_live<kD, kM, 4>(sc, q_s, row0, kt, live);                  // S = Q·Kᵀ
+        mma_abt_stream_live<kD, kM, 4>(dp, do_s, row0, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+      } else {
+        mma_abt_live<kD, kM, 4>(sc, qf, kt, live);                  // S = Q·Kᵀ
+        mma_abt_live<kD, kM, 4>(dp, dof, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+      }
 #pragma unroll
       for (int mm = 0; mm < kM; ++mm)
 #pragma unroll
@@ -843,15 +931,15 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     }
   }
   __syncthreads();
-  store_tile<kD, kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, q_s);
+  store_tile<kD, kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, dc, q_s);
 }
 
 template <int kD, int kWarps, int kM, bool kGated>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
-           int seq, float scale, BwdStrides s, Gated gd) {
+           int seq, int dim, float scale, BwdStrides s, Gated gd) {
   using S = Shape<kD, kWarps, kM>;
   using L = Layout<kD>;
   constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = L::kTile;
@@ -872,7 +960,12 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const bf16* dob = dout + b * s.dout[0] + h * s.dout[1];
   const long long stat0 = ((long long)b * heads + h) * seq;
   const int n_tiles = (seq + kRows - 1) / kRows;
+  const int dc = dim >> 3;
   const float c = scale * kLog2e;
+  // Rows of up to 80 load K's and V's A fragments into registers for their
+  // product; wider ones (kStreamA) read them one k-step at a time, which
+  // leaves the registers to the dK and dV accumulators (16 rows x kD each).
+  constexpr bool kStreamA = kD > 80;
 
   // The query statistics of queries q0 .. q0+63: past seq, an LSE of +inf
   // gives P = 0 and a Δ of 0 gives dS = 0.
@@ -885,10 +978,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     }
   };
 
-  load_tile<kD, kOwn, kThreads>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
-  load_tile<kD, kOwn, kThreads>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
-  load_tile<kD, kRows, kThreads>(q_s, qb, s.q[2], 0, seq);
-  load_tile<kD, kRows, kThreads>(do_s, dob, s.dout[2], 0, seq);
+  load_tile<kD, kOwn, kThreads>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dc);
+  load_tile<kD, kOwn, kThreads>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dc);
+  load_tile<kD, kRows, kThreads>(q_s, qb, s.q[2], 0, seq, dc);
+  load_tile<kD, kRows, kThreads>(do_s, dob, s.dout[2], 0, seq, dc);
   load_stats(0, 0);
   cp_async_commit();
 
@@ -910,8 +1003,8 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, q0n = (it + 1) * kRows;
-      load_tile<kD, kRows, kThreads>(q_s + nxt * kTile, qb, s.q[2], q0n, seq);
-      load_tile<kD, kRows, kThreads>(do_s + nxt * kTile, dob, s.dout[2], q0n, seq);
+      load_tile<kD, kRows, kThreads>(q_s + nxt * kTile, qb, s.q[2], q0n, seq, dc);
+      load_tile<kD, kRows, kThreads>(do_s + nxt * kTile, dob, s.dout[2], q0n, seq, dc);
       load_stats(nxt, q0n);
       cp_async_commit();
       cp_async_wait<1>();
@@ -944,7 +1037,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       }
       float st[kM][8][4];
       zero<kM>(st);
-      {
+      if constexpr (kStreamA) {
+        mma_abt_stream_live<kD, kM, 4>(st, k_s, row0, qt, live);  // Sᵀ = K·Qᵀ
+      } else {
         uint32_t kf[kM][kD / 16][4];
         load_a<kD, kM>(kf, k_s, row0);
         mma_abt_live<kD, kM, 4>(st, kf, qt, live);      // Sᵀ = K·Qᵀ
@@ -967,7 +1062,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       }
       float dpt[kM][8][4];
       zero<kM>(dpt);
-      {
+      if constexpr (kStreamA) {
+        mma_abt_stream_live<kD, kM, 4>(dpt, v_s, row0, dot, live);  // dPᵀ = V·dOᵀ
+      } else {
         uint32_t vf[kM][kD / 16][4];
         load_a<kD, kM>(vf, v_s, row0);
         mma_abt_live<kD, kM, 4>(dpt, vf, dot, live);    // dPᵀ = V·dOᵀ
@@ -996,8 +1093,8 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     stage<kD, kM>(v_s, row0, dv_acc, ones);
   }
   __syncthreads();
-  store_tile<kD, kOwn, kThreads>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, k_s);
-  store_tile<kD, kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, v_s);
+  store_tile<kD, kOwn, kThreads>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, dc, k_s);
+  store_tile<kD, kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, dc, v_s);
 }
 
 // Σ_b gate[b,h,:,None] ⊙ dL[b,h] over one tile of kOwn queries x 64 keys and
@@ -1005,20 +1102,23 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 // walks its items in order with the next item's q, dO, K and V tiles in
 // flight, rebuilds S and dP, P from the saved LSE and dL with the Δ the dQ
 // kernel wrote, keeps the sum in registers and writes it to out[chunk].
-template <int kWarps, int kM>
-__global__ void __launch_bounds__(32 * kWarps)
+template <int kD, int kWarps, int kM>
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
 dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
              const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
              const float* __restrict__ delta, float* __restrict__ out, int batch, int items, int heads, int seq,
-             float scale, BwdStrides s, Gated gd) {
-  constexpr int kD = 64;  // the gated kernels take head width 64
+             int dim, float scale, BwdStrides s, Gated gd) {
   using S = Shape<kD, kWarps, kM>;
-  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = Layout<kD>::kTile, kOwnTile = kOwn * kD;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = Layout<kD>::kTile;
+  constexpr int kOwnTile = kOwn * Layout<kD>::kLd;
+  // As the dQ kernel: wider rows than 80 read their A fragments from shared
+  // memory at each product instead of holding them in registers.
+  constexpr bool kStreamA = kD > 80;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][64]
-  bf16* do_s = q_s + 2 * kOwnTile;                               // [2][kOwn][64]
-  bf16* k_s = do_s + 2 * kOwnTile;                               // [2][64][64]
-  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][64]
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][kD]
+  bf16* do_s = q_s + 2 * kOwnTile;                               // [2][kOwn][kD]
+  bf16* k_s = do_s + 2 * kOwnTile;                               // [2][64][kD]
+  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][kD]
   float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kTile);    // [2][64]
   float* lse_s = kbias_s + 2 * kRows;                            // [2][kOwn], log2 units
   float* dl_s = lse_s + 2 * kOwn;                                // [2][kOwn]
@@ -1030,16 +1130,17 @@ dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   const bool active = q0 + row0 < seq;
   const int live = live_groups(k0, seq);
   const int b0 = chunk * items, b_end = min(batch, b0 + items);
+  const int dc = dim >> 3;
   const float c = scale * kLog2e;
 
   // Item b's tiles and row statistics into slot `slot`; rows past seq get an
   // LSE of +inf (P = 0) and a Δ of 0.
   auto issue = [&](int slot, int b) {
-    load_tile<kD, kOwn, kThreads>(q_s + slot * kOwnTile, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq);
+    load_tile<kD, kOwn, kThreads>(q_s + slot * kOwnTile, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dc);
     load_tile<kD, kOwn, kThreads>(do_s + slot * kOwnTile, dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0,
-                                  seq);
-    load_tile<kD, kRows, kThreads>(k_s + slot * kTile, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq);
-    load_tile<kD, kRows, kThreads>(v_s + slot * kTile, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq);
+                                  seq, dc);
+    load_tile<kD, kRows, kThreads>(k_s + slot * kTile, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dc);
+    load_tile<kD, kRows, kThreads>(v_s + slot * kTile, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dc);
     load_key_bias<kRows, kThreads>(kbias_s + slot * kRows, pad ? pad + b * s.pad[0] : nullptr, s.pad[1], k0, seq);
     const long long stat0 = ((long long)b * heads + h) * seq;
     for (int i = threadIdx.x; i < kOwn; i += kThreads) {
@@ -1077,8 +1178,11 @@ dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
       float sc[kM][8][4], dp[kM][8][4];
       zero<kM>(sc);
       zero<kM>(dp);
-      {
-        uint32_t qf[kM][4][4], dof[kM][4][4];
+      if constexpr (kStreamA) {
+        mma_abt_stream_live<kD, kM, 4>(sc, q_s + buf * kOwnTile, row0, k_s + buf * kTile, live);   // S = Q·Kᵀ
+        mma_abt_stream_live<kD, kM, 4>(dp, do_s + buf * kOwnTile, row0, v_s + buf * kTile, live);  // dP = dO·Vᵀ
+      } else {
+        uint32_t qf[kM][kD / 16][4], dof[kM][kD / 16][4];
         load_a<kD, kM>(qf, q_s + buf * kOwnTile, row0);
         load_a<kD, kM>(dof, do_s + buf * kOwnTile, row0);
         mma_abt_live<kD, kM, 4>(sc, qf, k_s + buf * kTile, live);   // S = Q·Kᵀ
@@ -1142,25 +1246,36 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Head widths: the gated kernels take 64, the bias-free ones 64 and 80.
+// The head width this library's kernels are built for (kD), set per build
+// with -DAVEX_HEAD_DIM: 32, 64, 80, 96 or 128 (the wrapper builds one
+// library a width). A call at any width D that is a multiple of 8 up to kD
+// runs on it: columns D .. kD-1 are zero-filled on load and never stored,
+// which adds 0 to every q·k, Δ and product, so the result is exact.
+constexpr int kHeadDim = AVEX_HEAD_DIM;
+static_assert(kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 80 || kHeadDim == 96 || kHeadDim == 128,
+              "AVEX_HEAD_DIM: 32, 64, 80, 96 or 128");
+
 bool bad_shape(int batch, int heads, int seq) {
   return seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
 }
 
-bool bias_free_width(int head_dim) { return head_dim == 64 || head_dim == 80; }
+// The widths a call may have on this build, gated or not: a multiple of 8 from 8 to kHeadDim.
+bool takes_width(int head_dim) { return head_dim > 0 && head_dim % 8 == 0 && head_dim <= kHeadDim; }
 
 template <int kD, int kWarps, int kM, int kN, bool kGated = false>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* out_rest,
                            void* lse, int batch, int heads, int seq, float scale, const FwdStrides& s,
-                           cudaStream_t st, const Gated& gd = Gated()) {
+                           cudaStream_t st, const Gated& gd = Gated(), int dim = kD) {
   using S = Shape<kD, kWarps, kM, kN>;
-  cudaError_t err = allow_smem(forward_kernel<kD, kWarps, kM, kN, kGated>, S::kFwdSmem);
+  const auto kernel = dim == kD ? forward_kernel<kD, kWarps, kM, kN, kGated, true>
+                                : forward_kernel<kD, kWarps, kM, kN, kGated, false>;
+  cudaError_t err = allow_smem(kernel, S::kFwdSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
-  forward_kernel<kD, kWarps, kM, kN, kGated><<<grid, S::kThreads, S::kFwdSmem, st>>>(
+  kernel<<<grid, S::kThreads, S::kFwdSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<bf16*>(out_rest),
-      static_cast<float*>(lse), heads, seq, scale, s, gd);
+      static_cast<float*>(lse), heads, seq, dim, scale, s, gd);
   return cudaGetLastError();
 }
 
@@ -1191,7 +1306,7 @@ template <int kD, int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out, const void* out_rest,
                       const void* dout, const void* pad, const void* lse, void* dq, void* delta, int batch,
                       int heads, int seq, float scale, const BwdStrides& s, cudaStream_t st,
-                      const Gated& gd = Gated(), void* dgate = nullptr) {
+                      const Gated& gd = Gated(), void* dgate = nullptr, int dim = kD) {
   using S = Shape<kD, kWarps, kM>;
   cudaError_t err = allow_smem(dq_kernel<kD, kWarps, kM, kGated>, S::kDqSmem);
   if (err != cudaSuccess) return err;
@@ -1200,14 +1315,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const bf16*>(out_rest), static_cast<const bf16*>(dout),
       static_cast<const uint8_t*>(pad), static_cast<const float*>(lse), static_cast<bf16*>(dq),
-      static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, scale, s, gd);
+      static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, dim, scale, s, gd);
   return cudaGetLastError();
 }
 
 template <int kD, int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                        const void* lse, const void* delta, void* dk, void* dv, int batch, int heads, int seq,
-                       float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd = Gated()) {
+                       float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd = Gated(), int dim = kD) {
   using S = Shape<kD, kWarps, kM>;
   cudaError_t err = allow_smem(dkv_kernel<kD, kWarps, kM, kGated>, S::kDkvSmem);
   if (err != cudaSuccess) return err;
@@ -1215,27 +1330,28 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   dkv_kernel<kD, kWarps, kM, kGated><<<grid, S::kThreads, S::kDkvSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s, gd);
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, dim, scale, s,
+      gd);
   return cudaGetLastError();
 }
 
 // dbias over the batch in chunks of `items` items, one partial a chunk in
 // `part` (float32 [chunks, H, T, T]; unused, may be null, with one chunk),
 // summed in chunk order.
-template <int kWarps, int kM>
+template <int kD, int kWarps, int kM>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                          const void* lse, const void* delta, void* dbias, void* part, int batch, int items, int heads,
-                         int seq, float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd) {
-  using S = Shape<64, kWarps, kM>;
-  cudaError_t err = allow_smem(dbias_kernel<kWarps, kM>, S::kDbiasSmem);
+                         int seq, float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd, int dim = kD) {
+  using S = Shape<kD, kWarps, kM>;
+  cudaError_t err = allow_smem(dbias_kernel<kD, kWarps, kM>, S::kDbiasSmem);
   if (err != cudaSuccess) return err;
   const int chunks = (batch + items - 1) / items;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, (seq + kRows - 1) / kRows, heads * chunks);
-  dbias_kernel<kWarps, kM><<<grid, S::kThreads, S::kDbiasSmem, st>>>(
+  dbias_kernel<kD, kWarps, kM><<<grid, S::kThreads, S::kDbiasSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(chunks > 1 ? part : dbias), batch, items, heads, seq,
-      scale, s, gd);
+      dim, scale, s, gd);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
   const long long n = (long long)heads * seq * seq;
@@ -1245,7 +1361,7 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v, const void
 }
 
 // The block shapes the entry points launch: (warps, groups of 16 rows a warp;
-// keys a forward tile).
+// keys a forward tile), the same at every width.
 constexpr int kFwdWarps = 4, kFwdM = 1, kFwdN = 64;
 constexpr int kDqWarps = 4, kDqM = 1;
 constexpr int kDkvWarps = 4, kDkvM = 1;
@@ -1258,18 +1374,19 @@ constexpr int kDbiasWarps = 4, kDbiasM = 1;
 // per key (nonzero = padded), may be null. The residuals of a backward, each
 // written when not null, as the bias-free forward's below. strides: 20
 // element strides, q, k, v and out (batch, head, token), bias (head, query,
-// key), gate (batch, head, token), then pad (batch, token). Returns a
-// cudaError_t; 0 means the kernel was launched.
+// key), gate (batch, head, token), then pad (batch, token). head_dim: a
+// multiple of 8 up to the build's width. Returns a cudaError_t; 0 means the
+// kernel was launched.
 extern "C" int avex_tensor_core_gated_attention_forward(const void* q, const void* k, const void* v,
                                                         const void* bias, const void* gate, const void* pad,
                                                         void* out, void* out_rest, void* lse, int batch,
                                                         int heads, int seq, int head_dim, float scale,
                                                         const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, seq) || head_dim != 64 || bias == nullptr) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, seq) || !takes_width(head_dim) || bias == nullptr) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   const Gated gd = gated_operands(bias, gate, seq, strides, &s);
-  return (int)launch_forward<64, kFwdWarps, kFwdM, kFwdN, true>(q, k, v, pad, out, out_rest, lse, batch, heads,
-                                                                seq, scale, s, static_cast<cudaStream_t>(stream), gd);
+  return (int)launch_forward<kHeadDim, kFwdWarps, kFwdM, kFwdN, true>(
+      q, k, v, pad, out, out_rest, lse, batch, heads, seq, scale, s, static_cast<cudaStream_t>(stream), gd, head_dim);
 }
 
 // The bias-free forward: bf16 q, k, v and out; pad is one byte per key
@@ -1283,15 +1400,12 @@ extern "C" int avex_bias_free_attention_forward(const void* q, const void* k, co
                                                 void* out, void* out_rest, void* lse, int batch, int heads,
                                                 int seq, int head_dim, float scale, const long long* strides,
                                                 void* stream) {
-  if (bad_shape(batch, heads, seq) || !bias_free_width(head_dim)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, seq) || !takes_width(head_dim)) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   memcpy(&s, strides, sizeof(FwdStrides));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 80)
-    return (int)launch_forward<80, kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
-                                                            scale, s, st);
-  return (int)launch_forward<64, kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
-                                                          scale, s, st);
+  return (int)launch_forward<kHeadDim, kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
+                                                                scale, s, static_cast<cudaStream_t>(stream),
+                                                                Gated(), head_dim);
 }
 
 // The backward from the forward's residuals, bias-free (K6, bias null) or
@@ -1314,37 +1428,29 @@ extern "C" int avex_tensor_core_attention_backward(const void* q, const void* k,
                                                    void* dbias_part, int items_per_chunk, int batch, int heads,
                                                    int seq, int head_dim, float scale, const long long* strides,
                                                    void* stream) {
-  if (bad_shape(batch, heads, seq) || (bias != nullptr ? head_dim != 64 : !bias_free_width(head_dim)) ||
-      lse == nullptr || (bias != nullptr && dbias == nullptr) ||
-      (gate != nullptr && (bias == nullptr || dgate == nullptr)) || items_per_chunk <= 0 ||
-      (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
+  if (bad_shape(batch, heads, seq) || !takes_width(head_dim) || lse == nullptr ||
+      (bias != nullptr && dbias == nullptr) || (gate != nullptr && (bias == nullptr || dgate == nullptr)) ||
+      items_per_chunk <= 0 || (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
       (long long)heads * ((batch + items_per_chunk - 1) / items_per_chunk) > 65535)
     return (int)cudaErrorInvalidValue;
   BwdStrides s;
   memcpy(&s, strides, sizeof(BwdStrides));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bias == nullptr && head_dim == 80) {
-    err = launch_dq<80, kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq, scale,
-                                         s, st);
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_dkv<80, kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale,
-                                                  s, st);
-  }
   if (bias == nullptr) {
-    err = launch_dq<64, kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq, scale,
-                                         s, st);
+    err = launch_dq<kHeadDim, kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq,
+                                              scale, s, st, Gated(), nullptr, head_dim);
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_dkv<64, kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale,
-                                                  s, st);
+    return (int)launch_dkv<kHeadDim, kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq,
+                                                       scale, s, st, Gated(), head_dim);
   }
   const Gated gd = make_gated(bias, gate, seq, strides + 26, strides + 29);
-  err = launch_dq<64, kDqWarps, kDqM, true>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq,
-                                            scale, s, st, gd, dgate);
+  err = launch_dq<kHeadDim, kDqWarps, kDqM, true>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads,
+                                                  seq, scale, s, st, gd, dgate, head_dim);
   if (err != cudaSuccess) return (int)err;
-  err = launch_dkv<64, kDkvWarps, kDkvM, true>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq, scale, s,
-                                               st, gd);
+  err = launch_dkv<kHeadDim, kDkvWarps, kDkvM, true>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq,
+                                                     scale, s, st, gd, head_dim);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_dbias<kDbiasWarps, kDbiasM>(q, k, v, dout, pad, lse, delta, dbias, dbias_part, batch,
-                                                  items_per_chunk, heads, seq, scale, s, st, gd);
+  return (int)launch_dbias<kHeadDim, kDbiasWarps, kDbiasM>(q, k, v, dout, pad, lse, delta, dbias, dbias_part, batch,
+                                                           items_per_chunk, heads, seq, scale, s, st, gd, head_dim);
 }

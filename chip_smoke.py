@@ -6,7 +6,9 @@
 Phases, each printing its results on lines of its own:
 
 1. card: require CUDA; print ``nvidia-smi``'s name and power limit;
-2. build: compile every CUDA source of the port with ``nvcc`` (in parallel);
+2. build: compile every CUDA source of the port with ``nvcc`` (in parallel;
+   the attention sources once for each head width they are built for, 32,
+   64, 80, 96 and 128; a spilling kernel fails the phase);
 3. kernels: hold each kernel against its plain PyTorch twin at the shapes the
    main paths give it, in bf16 and fp32 (bf16 on the tensor-core kernels of
    ``tensor_core_attention.cu``, fp32 on the FMA body): the gated K1 and K2
@@ -191,7 +193,8 @@ Phases, each printing its results on lines of its own:
    past it (a failed rank fails the phase, its traceback printed): (a)
    whether NCCL takes two ranks on one card (the answer printed; the
    two-rank runs then go over NCCL, or gloo if it refuses); (b) one rank
-   over NCCL: full-width BEATs ``fused_qkv`` (K2/K3), bf16, B=64 5 s clips
+   over NCCL: full-width BEATs ``fused_qkv`` (K2/K3) cut to 4 layers
+   (``DP_LAYERS``, for the script's time), bf16, B=64 5 s clips
    with dropout, one ``Trainer(mesh=...)`` step equal bit for bit to the
    step without a process group (deterministic algorithms in both); (c) two
    ranks sharing the card, 32 + 32 of the 64 clips: the fp32 step (dropout
@@ -226,7 +229,22 @@ Phases, each printing its results on lines of its own:
    an epoch, 2 epochs): an uninterrupted run, a run stopped mid-epoch by the
    preemption flag and the run resumed from its step checkpoint, whose
    batches equal the uninterrupted run's bit for bit and whose losses are
-   within rel 1e-3 (K2 and K3 12 a step).
+   within rel 1e-3 (K2 and K3 12 a step);
+34. head widths other than 64 and 80 (the kernels take every multiple of 8
+   up to 128): (kernels, after phase 26) K1-K6 at dh 16, 32, 96 and 128
+   with E = 768 (48, 24, 8 and 6 heads), bf16 and fp32, at the shapes of
+   phases 3 and 10 (K4/K5 B=128 T=513; K1/K2 B=128 T=248 with the gate; K3
+   B=64 T=248; K6 B=64 T=513), each against its twin (the bf16 K3/K6 also
+   against the twin of their contract) and timed beside the twin, its bound
+   and SDPA, one ragged masked case a width (B=8, T=37), and dh 20 and 136
+   refused; (paths, after phase 33) BEATs at full width and depth with 6
+   heads of 128: bf16 extraction on K1 (12 a forward), the int8 model (K1
+   with K7) against it, the fp32 kernel path against the plain path, a
+   ``fused_qkv`` training step (K2 and K3 12 a step) and the fp32 gradient
+   check; EAT with 24 heads of 32 the same way on K5/K6; and
+   ``configs/run_configs/beats_supervised_example.yml`` (4 heads of 16)
+   through ``run_train`` with ``use_pallas`` and ``fused_qkv`` set in the
+   call (K2 on every forward, K3 on every step; every loss finite).
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -245,7 +263,10 @@ fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
 numbers at T=800; K5 and K6 add ``eat_ssl``, their numbers at EAT-SSL's
 shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``;
 K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share; K1, K2,
-K3 and K5 add ``cli_launches``, phase 33's share) and,
+K3 and K5 add ``cli_launches``, phase 33's share; K1-K6 add
+``head_widths``, their bf16 and fp32 numbers at dh 16, 32, 96 and 128, and
+``head_width_kernel_phase_launches``; K1, K2, K3, K5, K6 and K7 add
+``head_width_launches``, phase 34's paths' share of ``launches``) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
@@ -403,9 +424,12 @@ CLIP_LR = 1e-5
 # BEATs remat "dots" (phase 29): timed steps of each of three remat settings.
 DOTS_STEPS = 3
 
-# Data parallelism (phase 30): timed steps a rank, EAT-SSL's and CLIP's global
-# batch, and the seconds a rank group (a collective) may take before it is killed.
+# Data parallelism (phase 30): timed steps a rank, BEATs' depth there (cut from
+# 12 for the script's time: gloo stages every gradient through host memory),
+# EAT-SSL's and CLIP's global batch, and the seconds a rank group (a
+# collective) may take before it is killed.
 DP_STEPS = 5
+DP_LAYERS = 4
 B_DP_SMALL = 16
 DP_PROBE_TIMEOUT = 90
 DP_TIMEOUT = 600
@@ -433,12 +457,22 @@ GRAIN_LOSS_REL = 1e-3  # a resumed step's loss against the uninterrupted run's (
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
+PHASE_SECONDS: dict = {}  # phase function → wall seconds
 
 
 def check(ok: bool, what: str) -> None:
     print(("ok    " if ok else "FAIL  ") + what)
     if not ok:
         FAILURES.append(what)
+
+
+def timed(phase, *args):
+    """Run one phase; its wall seconds go to PHASE_SECONDS under its name."""
+    start = time.perf_counter()
+    result = phase(*args)
+    PHASE_SECONDS[phase.__name__] = round(time.perf_counter() - start, 1)
+    print(f"{phase.__name__}: {PHASE_SECONDS[phase.__name__]} s")
+    return result
 
 
 def rel_l2(a, b) -> float:
@@ -506,16 +540,37 @@ def phase_card():
 
 
 def phase_build():
+    """Every CUDA source of the port, the attention sources once for each
+    head width they are built for, one nvcc each, all at once; prints each
+    build's nvcc seconds and, per kernel, its registers and spills."""
     from avex_tpu_torch.ops import _build
+    from avex_tpu_torch.ops import attention_kernels as ak
 
     sources = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
+    jobs = [(name, width) for name in sources
+            for width in (ak.KERNEL_WIDTHS if name in (ak.SOURCE, ak.TENSOR_CORE_SOURCE) else (None,))]
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(_build.build, sources))  # one nvcc per source, all at once
-    print(f"build: {len(sources)} source(s) in {time.perf_counter() - start:.2f} s: {sources}")
-    for name, (seconds, log) in _build.BUILD_LOG.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"  {name}: nvcc {seconds:.2f} s; " + " | ".join(regs))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: _build.build(*job), jobs))
+    print(f"build: {len(jobs)} builds of {len(sources)} source(s) in {time.perf_counter() - start:.2f} s: {sources}, "
+          f"the attention sources at head widths {ak.KERNEL_WIDTHS}")
+    spills = 0
+    for name, (seconds, log) in sorted(_build.BUILD_LOG.items()):
+        print(f"  {name}: nvcc {seconds:.2f} s")
+        kernel = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"    {kernel}: {line.split(':', 1)[-1].strip()}")
+                if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    spills += 1
+    cached = [_build.build_name(*job) for job in jobs if _build.build_name(*job) not in _build.BUILD_LOG]
+    if cached:
+        print(f"build: {len(cached)} of {len(jobs)} builds were already in build/ and not compiled here, "
+              f"so their spills are not checked: {cached}")
+    check(spills == 0, f"build: {spills} kernel(s) spill registers in the {len(jobs) - len(cached)} builds "
+                       f"compiled here (0 bytes in every build)")
 
 
 def phase_kernels():
@@ -3350,13 +3405,13 @@ def rank_nccl_probe(rank, world, work):
 
 
 def dp_beats(dtype: str, dropout: bool):
-    """Full-width BEATs ``fused_qkv`` on K2/K3 with a 50-class head, seeded
-    random weights (the same in every process); the official dropout and
-    LayerDrop, or none."""
+    """Full-width BEATs ``fused_qkv`` on K2/K3, :data:`DP_LAYERS` deep, with a
+    50-class head, seeded random weights (the same in every process); the
+    official dropout and LayerDrop, or none."""
     import avex_tpu_torch
     from avex_tpu_torch.configs import ModelSpec
 
-    init = dict(beats_config(), fused_qkv=True, use_pallas=True)
+    init = dict(beats_config(), encoder_layers=DP_LAYERS, fused_qkv=True, use_pallas=True)
     if not dropout:
         init.update(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, dropout_input=0.0,
                     encoder_layerdrop=0.0)
@@ -3760,7 +3815,7 @@ def phase_data_parallel(workdir: Path) -> dict:
               f"data parallel (b): ZeRO-3 on one NCCL rank ({r['fsdp_cut']} of {r['fsdp_params']} tensors cut: NCCL's "
               f"all-gather and reduce-scatter ran) step == the step without a process group (loss "
               f"{r['fsdp_loss']:.6f} vs {r['loss_alone']:.6f}; unequal parameters: {r['fsdp_unequal'][:3]})")
-        expect = {"fused_qkv_gated_attention": 12, "fused_qkv_gated_attention_backward": 12}
+        expect = {"fused_qkv_gated_attention": DP_LAYERS, "fused_qkv_gated_attention_backward": DP_LAYERS}
         for key in ("counts", "fsdp_counts"):
             check(all(r[key][k] == expect.get(k, 0) for k in r[key]),
                   f"data parallel (b): {'ZeRO-3 ' if key == 'fsdp_counts' else ''}launches "
@@ -3794,7 +3849,8 @@ def phase_data_parallel(workdir: Path) -> dict:
 
         hold(f"(c): 2 x {B_TRAIN // 2} clips over {r0['backend']} (fp32)", r0["dp_loss"], r0["ref_loss"],
              r0["dp_held"], r0["dp_ranks_equal"], DP_LR)
-        expect = {"fused_qkv_gated_attention": 12 * DP_STEPS, "fused_qkv_gated_attention_backward": 12 * DP_STEPS}
+        expect = {"fused_qkv_gated_attention": DP_LAYERS * DP_STEPS,
+                  "fused_qkv_gated_attention_backward": DP_LAYERS * DP_STEPS}
         for r in results:
             check(all(r["counts"][k] == expect.get(k, 0) for k in r["counts"]),
                   f"data parallel (c): rank {r['rank']} launches { {k: v for k, v in r['counts'].items() if v} } "
@@ -3810,9 +3866,9 @@ def phase_data_parallel(workdir: Path) -> dict:
         hold(f"(d): ZeRO-3, 2 x {B_TRAIN // 2} (fp32)", r0["fsdp_loss"], r0["ref_loss"], r0["fsdp_held"],
              r0["fsdp_ranks_equal"], DP_LR)
         for r in results:
-            check(r["fsdp_counts"]["fused_qkv_gated_attention"] == 12
-                  and r["fsdp_counts"]["fused_qkv_gated_attention_backward"] == 12,
-                  f"data parallel (d): rank {r['rank']} K2 and K3 12 launches each")
+            check(r["fsdp_counts"]["fused_qkv_gated_attention"] == DP_LAYERS
+                  and r["fsdp_counts"]["fused_qkv_gated_attention_backward"] == DP_LAYERS,
+                  f"data parallel (d): rank {r['rank']} K2 and K3 {DP_LAYERS} launches each")
         print("data parallel (d): ZeRO-3, parameter + moment bytes a rank (DP in brackets): "
               + "; ".join(f"rank {r['rank']} {r['fsdp_bytes'][0] / 2**20:.1f} + {r['fsdp_bytes'][1] / 2**20:.1f} MiB "
                           f"({r['dp_bytes'][0] / 2**20:.1f} + {r['dp_bytes'][1] / 2**20:.1f}), {r['fsdp_cut']} tensors "
@@ -4893,47 +4949,434 @@ def phase_cli(workdir: Path) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the attention kernels at head widths other than 64 and 80
+# ---------------------------------------------------------------------------
+
+# E = 768 held, so that every bound equals dh 64's: 48, 24, 8 and 6 heads.
+HW_WIDTHS = (16, 32, 96, 128)
+HW_RAGGED_B, HW_RAGGED_T = 8, 37  # one ragged tile, a key mask
+BEATS_DH128_HEADS, EAT_DH32_HEADS = 6, 24  # full width and depth, only the head count changed
+B_HW_FP32 = 16  # the fp32 kernel-vs-plain extraction checks (the plain path holds [B, H, T, T] fp32)
+EXAMPLE_RUN_CONFIG = "configs/run_configs/beats_supervised_example.yml"
+
+
+def phase_head_width_kernels():
+    """K1-K6 at dh 16, 32, 96 and 128, E = 768 (48, 24, 8 and 6 heads), bf16
+    (tensor cores) and fp32 (FMA): the forwards at B=128 (K4, K5: T=513; K1,
+    K2: T=248, with the gate), the backwards at B=64 (K3: T=248, with the
+    gate; K6: T=513), each against its twin (the bf16 K3/K6 also against the
+    twin of their own contract on the forward's residuals) and timed beside
+    the twin, its bound and SDPA; then one ragged, padded case a width (B=8,
+    T=37, a key mask). Returns per-kernel numbers by (kernel, dh, dtype) and
+    the phase's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    results = {}
+    reset_counts()
+
+    def held(label, dtype, got, want, sums=False):
+        """NaN exactly where the twin has NaN; elsewhere fp32 max|d| (sums:
+        relative L2, dbias and dgate sum in another order) or bf16 relative
+        L2 against the twin. Returns max|d|."""
+        nan = torch.isnan(want)
+        check(got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+              and bool(torch.isfinite(got[~nan]).all()), f"{label}: finite, NaN where the twin has NaN")
+        got, want = got[~nan].float(), want[~nan].float()
+        err, rel = float((got - want).abs().max()), rel_l2(got, want)
+        if dtype == torch.float32 and sums:
+            check(rel <= FP32_SUM_REL, f"{label}: rel L2={rel:.3e} <= {FP32_SUM_REL:g} (max|d| {err:.3e})")
+        elif dtype == torch.float32:
+            check(err <= FP32_ATOL, f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
+        else:
+            check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+        return err
+
+    def record(kname, dh, name, label, err, run, twin, library, bound, flops):
+        ms, plain_ms, library_ms = median_ms(run), median_ms(twin), median_ms(library)
+        t_bound, bound_by = bound
+        print(f"time {label}: kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} ({t_bound / ms:.1%} of bound); "
+              f"{CARD[0]}")
+        results[(kname, dh, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                          bound_ms=t_bound, bound_by=bound_by)
+
+    for dh in HW_WIDTHS:
+        heads = E // dh
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+            # bias-free forwards, EAT's T: K5 on [B, T, 3E], K4 on its split views
+            qkv = torch.randn(B, T_EAT, 3 * E, device="cuda", generator=gen).to(dtype)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T_EAT, 3, heads, dh).unbind(2))
+            bound = attention_bound_ms(name, gated=False, padded=False, seq=T_EAT, heads=heads, dim=dh)
+            flops = 4.0 * B * heads * T_EAT * T_EAT * dh
+            with torch.no_grad():
+                for kname, run, twin in (
+                    ("fused_qkv_attention", lambda: ak.fused_qkv_attention(qkv, heads),
+                     lambda: ak.fused_qkv_reference(qkv, heads)),
+                    ("plain_attention", lambda: ak.gated_bias_attention(q, k, v, None),
+                     lambda: ak.gated_bias_attention_reference(q, k, v, None)),
+                ):
+                    label = f"{kname} dh={dh} H={heads} B={B} T={T_EAT} {name} ({body})"
+                    err = held(label, dtype, run(), twin())
+                    record(kname, dh, name, label, err, run, twin,
+                           lambda: F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5), bound, flops)
+            del qkv, q, k, v
+            # gated forwards, BEATs' T, with the gate: K1 on three projections' views, K2 on [B, T, 3E]
+            qkv = torch.randn(B, T, 3 * E, device="cuda", generator=gen).to(dtype)
+            sq, sk, sv = (torch.randn(B, T, E, device="cuda", generator=gen).to(dtype)
+                          .view(B, T, heads, dh).permute(0, 2, 1, 3) for _ in range(3))
+            fq, fk, fv = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T, 3, heads, dh).unbind(2))
+            bias = torch.randn(heads, T, T, device="cuda", generator=gen)
+            gate = torch.rand(B, heads, T, device="cuda", generator=gen) + 1.0
+            attn_mask = (gate[..., None] * bias[None]).to(dtype)
+            bound = attention_bound_ms(name, gated=True, padded=False, seq=T, heads=heads, dim=dh)
+            flops = 4.0 * B * heads * T * T * dh
+            with torch.no_grad():
+                for kname, run, twin, views in (
+                    ("gated_bias_attention", lambda: ak.gated_bias_attention(sq, sk, sv, bias, gate),
+                     lambda: ak.gated_bias_attention_reference(sq, sk, sv, bias, gate), (sq, sk, sv)),
+                    ("fused_qkv_gated_attention", lambda: ak.fused_qkv_gated_attention(qkv, heads, bias, gate),
+                     lambda: ak.fused_qkv_gated_reference(qkv, heads, bias, gate), (fq, fk, fv)),
+                ):
+                    label = f"{kname} dh={dh} H={heads} B={B} T={T} {name} (gate, {body})"
+                    err = held(label, dtype, run(), twin())
+                    record(kname, dh, name, label, err, run, twin,
+                           lambda: F.scaled_dot_product_attention(*views, attn_mask=attn_mask, scale=dh**-0.5),
+                           bound, flops)
+            del qkv, sq, sk, sv, fq, fk, fv, attn_mask
+            torch.cuda.empty_cache()
+
+            # K3 at BEATs' training shape, with the gate
+            qkv = torch.randn(B_TRAIN, T, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
+            bias = bias.requires_grad_()
+            gate = gate[:B_TRAIN].clone().requires_grad_()
+            dout = torch.randn(B_TRAIN, T, E, device="cuda", generator=gen).to(dtype)
+            out = ak.fused_qkv_gated_attention(qkv, heads, bias, gate)
+            got = torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True)
+            label = f"fused_qkv_gated_attention_backward dh={dh} H={heads} B={B_TRAIN} T={T} {name}"
+            want = ak.fused_qkv_gated_backward_reference(qkv.detach(), heads, bias.detach(), gate.detach(), None,
+                                                         dout)
+            err = held(label + " dqkv", dtype, got[0], want[0])
+            held(label + " dbias", dtype, got[1], want[1], sums=True)
+            held(label + " dgate", dtype, got[2], want[2], sums=True)
+            if dtype == torch.bfloat16:
+                *_, saved, rest, lse = out.grad_fn.saved_tensors  # K2's residuals
+                own = ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), saved, lse, None, dout,
+                                                                     out_rest=rest, pos_bias=bias.detach(),
+                                                                     gate=gate.detach())
+                for part, g, w in zip(("dqkv", "dbias", "dgate"), got, own):
+                    held(f"{label} {part} vs its residual twin", dtype, g, w)
+                del own, saved, rest, lse
+            del got, want
+            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                       for t in qkv.detach().view(B_TRAIN, T, 3, heads, dh).unbind(2))
+            gated_bias = (gate.detach()[..., None] * bias.detach()[None]).to(dtype).requires_grad_()
+            ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
+            plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
+                qkv.detach(), heads, bias.detach(), gate.detach(), None, dout))
+            library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
+            t_bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False, heads=heads, dim=dh)
+            print(f"time {label} (gate, {body}): kernel {ms:.4f} ms "
+                  f"({tflops(10.0 * B_TRAIN * heads * T * T * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                  f"sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
+                  f"({t_bound / ms:.1%} of bound); {CARD[0]}")
+            results[("fused_qkv_gated_attention_backward", dh, name)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
+                bound_by=bound_by)
+            del qkv, bias, gate, dout, out, q, k, v, gated_bias
+            torch.cuda.empty_cache()
+
+            # K6 at EAT's training shape
+            qkv = torch.randn(B_TRAIN, T_EAT, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
+            dout = torch.randn(B_TRAIN, T_EAT, E, device="cuda", generator=gen).to(dtype)
+            out = ak.fused_qkv_attention(qkv, heads)
+            (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+            label = f"fused_qkv_attention_backward dh={dh} H={heads} B={B_TRAIN} T={T_EAT} {name}"
+            err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
+            if dtype == torch.bfloat16:
+                *_, saved, rest, lse = out.grad_fn.saved_tensors  # K5's residuals
+                held(label + " vs its residual twin", dtype, got, ak.fused_qkv_backward_from_residuals_reference(
+                    qkv.detach(), saved, lse, None, dout, out_rest=rest)[0])
+                del saved, rest, lse
+            del got
+            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                       for t in qkv.detach().view(B_TRAIN, T_EAT, 3, heads, dh).unbind(2))
+            ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
+            plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
+            library_ms = sdpa_backward_ms(q, k, v, None, dout)
+            t_bound, bound_by = backward_bound_ms(name, B_TRAIN, T_EAT, gated=False, padded=False, heads=heads,
+                                                  dim=dh)
+            print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                  f"({tflops(10.0 * B_TRAIN * heads * T_EAT * T_EAT * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} "
+                  f"ms, sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
+                  f"({t_bound / ms:.1%} of bound); {CARD[0]}")
+            results[("fused_qkv_attention_backward", dh, name)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
+                bound_by=bound_by)
+            del qkv, dout, out, q, k, v
+            torch.cuda.empty_cache()
+
+            # one ragged tile with a key mask: every kernel once
+            bsz, seq = HW_RAGGED_B, HW_RAGGED_T
+            qkv = torch.randn(bsz, seq, 3 * E, device="cuda", generator=gen).to(dtype)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
+            bias = torch.randn(heads, seq, seq, device="cuda", generator=gen)
+            gate = torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0
+            mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+            mask[1, 20:] = True
+            mask[5, 3:] = True
+            dout = torch.randn(bsz, seq, E, device="cuda", generator=gen).to(dtype)
+            tag = f"dh={dh} B={bsz} T={seq} {name} masked"
+            with torch.no_grad():
+                held(f"gated_bias_attention {tag}", dtype, ak.gated_bias_attention(q, k, v, bias, gate, mask),
+                     ak.gated_bias_attention_reference(q, k, v, bias, gate, mask))
+                held(f"plain_attention {tag}", dtype, ak.gated_bias_attention(q, k, v, None, None, mask),
+                     ak.gated_bias_attention_reference(q, k, v, None, None, mask))
+            leaves = (qkv.clone().requires_grad_(), bias.clone().requires_grad_(), gate.clone().requires_grad_())
+            out = ak.fused_qkv_gated_attention(leaves[0], heads, leaves[1], leaves[2], mask)
+            held(f"fused_qkv_gated_attention {tag}", dtype, out.detach(),
+                 ak.fused_qkv_gated_reference(qkv, heads, bias, gate, mask))
+            got = torch.autograd.grad(out, leaves, dout)
+            want = ak.fused_qkv_gated_backward_reference(qkv, heads, bias, gate, mask, dout)
+            for part, g, w in zip(("dqkv", "dbias", "dgate"), got, want):
+                held(f"fused_qkv_gated_attention_backward {part} {tag}", dtype, g, w, sums=part != "dqkv")
+            leaf = qkv.clone().requires_grad_()
+            out = ak.fused_qkv_attention(leaf, heads, mask)
+            held(f"fused_qkv_attention {tag}", dtype, out.detach(), ak.fused_qkv_reference(qkv, heads, mask))
+            (got,) = torch.autograd.grad(out, (leaf,), dout)
+            held(f"fused_qkv_attention_backward {tag}", dtype, got,
+                 ak.fused_qkv_backward_reference(qkv, heads, mask, dout))
+            del qkv, q, k, v, bias, gate, mask, dout, leaves, out, got, want, leaf
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for kname in ("gated_bias_attention", "fused_qkv_gated_attention", "plain_attention", "fused_qkv_attention",
+                  "fused_qkv_gated_attention_backward", "fused_qkv_attention_backward"):
+        check(counts[kname] > 0, f"phase 34: {kname} launched {counts[kname]} times at dh {HW_WIDTHS}")
+    for dh in (20, 136):  # a width off the rule raises on the card, gated or not, before any launch
+        for dtype in (torch.bfloat16, torch.float32):
+            for what, call in (
+                ("fused_qkv_attention", lambda: ak.fused_qkv_attention(
+                    torch.zeros(2, 31, 6 * dh, dtype=dtype, device="cuda"), 2)),
+                ("gated_bias_attention", lambda: ak.gated_bias_attention(
+                    *[torch.zeros(2, 2, 31, dh, dtype=dtype, device="cuda")] * 3,
+                    torch.zeros(2, 31, 31, device="cuda"))),
+            ):
+                try:
+                    call()
+                    check(False, f"{what} at dh {dh} {dtype} raises")
+                except ValueError as exc:
+                    check("multiple of 8 from 8 to 128" in str(exc), f"{what} at dh {dh} {dtype} raises: {exc}")
+    check(read_counts() == counts, "phase 34: the refused widths launched nothing")
+    print(f"phase 34 kernels: {time.perf_counter() - start:.1f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return results, counts
+
+
+def phase_head_width_paths(workdir: Path) -> dict:
+    """BEATs at dh 128 (768 wide, 12 layers, 6 heads) and EAT at dh 32 (24
+    heads) through their entry points, each against the port's plain path
+    on the same weights, and the repo's example run config (BEATs, 64 wide,
+    4 heads of 16) through ``run_train`` with ``use_pallas`` and
+    ``fused_qkv`` set in the call. Returns the launches of every kernel."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    start = time.perf_counter()
+    totals: dict = {}
+
+    def add(counts):
+        for kname, count in counts.items():
+            totals[kname] = totals.get(kname, 0) + count
+
+    layers = ENCODER_LAYERS
+    beats_init = dict(encoder_attention_heads=BEATS_DH128_HEADS)
+    n_emb = (layers + 1) * E
+    gen = torch.Generator(device="cuda").manual_seed(341)
+    batches = [torch.randn(B, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(2)]
+
+    def mean_pool(features, aux):
+        return features.mean(dim=1)
+
+    with torch.no_grad():
+        # (a) BEATs dh 128: K1 in bf16; int8 (K1 with K7); fp32 kernel path vs plain path
+        model = load_beats("bfloat16", use_pallas=True, **beats_init)
+        _, pooled16, counts, rate16 = drive(model, "BEATs dh 128 bf16 split", {"gated_bias_attention": layers},
+                                            batches, n_emb, mean_pool)
+        add(counts)
+        del model
+        model = load_beats("bfloat16", quantization="int8", use_pallas=True, **beats_init)
+        _, pooled_q, counts, rate_q = drive(model, "BEATs dh 128 int8 bf16",
+                                            {"int8_dynamic_dense": INT8_PER_FORWARD, "gated_bias_attention": layers},
+                                            batches, n_emb, mean_pool)
+        add(counts)
+        del model
+        rel = rel_l2(pooled_q, pooled16)
+        check(rel < INT8_FLOAT_REL, f"BEATs dh 128: int8 vs float bf16, same weights: pooled rel L2 {rel:.3e} < "
+                                    f"{INT8_FLOAT_REL:g}")
+        small = [b[:B_HW_FP32] for b in batches[:1]]
+        model = load_beats("float32", use_pallas=True, **beats_init)
+        emb32, pooled32, _, _ = drive(model, "BEATs dh 128 fp32 split", {"gated_bias_attention": layers},
+                                      small, n_emb, mean_pool)
+        del model
+        plain = load_beats("float32", use_pallas=False, **beats_init)
+        reset_counts()
+        ref_pooled = plain(small[0]).float().mean(dim=1)
+        ref_emb = plain.extract_embeddings(small[0], aggregation="mean")
+        check(sum(read_counts().values()) == 0, "BEATs dh 128 fp32 plain path launches no kernel")
+        del plain
+        compare_paths("BEATs dh 128", pooled32, emb32, ref_pooled, ref_emb)
+    torch.cuda.empty_cache()
+
+    # (b) BEATs dh 128 training with fused_qkv: K2 and K3
+    def load_beats_train(dtype, use_pallas):
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype,
+                         init_config=dict(beats_config(), **beats_init, fused_qkv=True, use_pallas=use_pallas))
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+    batch = {"raw_wav": torch.randn(B_TRAIN, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_gated_attention": layers, "fused_qkv_gated_attention_backward": layers}
+    trainer, losses, ms_beats, _, _, counts = train_run("beats", load_beats_train("bfloat16", True), batch, expect,
+                                                        TRAIN_STEPS, workdir / "beats")
+    add(counts)
+    del trainer
+    torch.cuda.empty_cache()
+    beats_grad = training_gradient_check("BEATs dh 128", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect)
+
+    # (c) EAT dh 32: K5 extraction, K6 training
+    def load_eat(dtype, use_pallas, **kwargs):
+        return avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, device="cuda",
+                                         use_pallas=use_pallas, compute_dtype=dtype, heads=EAT_DH32_HEADS, **kwargs)
+
+    eat_batches = [torch.randn(B, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(2)]
+
+    def eat_pool(features, aux):
+        return aux["pooled"]
+
+    with torch.no_grad():
+        model = load_eat("bfloat16", True, return_features_only=True)
+        model.register_hooks_for_layers(["all"])
+        _, _, counts, rate_eat = drive(model, "EAT dh 32 bf16", {"fused_qkv_attention": 12}, eat_batches, 12 * E,
+                                       eat_pool)
+        add(counts)
+        del model
+        small = [b[:B_HW_FP32] for b in eat_batches[:1]]
+        model = load_eat("float32", True, return_features_only=True)
+        model.register_hooks_for_layers(["all"])
+        emb32, pooled32, _, _ = drive(model, "EAT dh 32 fp32", {"fused_qkv_attention": 12}, small, 12 * E,
+                                      eat_pool)
+        del model
+        plain = load_eat("float32", None, return_features_only=True)
+        plain.register_hooks_for_layers(["all"])
+        reset_counts()
+        ref_pooled = eat_pool(*plain.module(small[0], None)).float()
+        ref_emb = plain.extract_embeddings(small[0], aggregation="mean")
+        check(sum(read_counts().values()) == 0, "EAT dh 32 fp32 plain path launches no kernel")
+        del plain
+        compare_paths("EAT dh 32", pooled32, emb32, ref_pooled, ref_emb)
+    torch.cuda.empty_cache()
+    batch = {"raw_wav": torch.randn(B_TRAIN, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_attention": 12, "fused_qkv_attention_backward": 12}
+    trainer, losses, ms_eat, _, _, counts = train_run(
+        "eat_hf", load_eat("bfloat16", True, num_classes=N_CLASSES), batch, expect, TRAIN_STEPS, workdir / "eat")
+    add(counts)
+    del trainer
+    torch.cuda.empty_cache()
+    eat_grad = training_gradient_check("EAT dh 32", lambda dtype, use_pallas: load_eat(dtype, use_pallas,
+                                                                                       num_classes=N_CLASSES),
+                                       batch["raw_wav"][:B_GRAD_CHECK], expect)
+
+    # (d) the repo's example run config (dh 16) through ``commands.train``, the
+    # kernels set in the call's patches
+    import yaml
+
+    from avex_tpu_torch import commands
+
+    path = Path(__file__).resolve().parent / EXAMPLE_RUN_CONFIG
+    patches = {"model_spec.init_config.use_pallas": "true", "model_spec.init_config.fused_qkv": "true",
+               "output_dir": str(workdir / "example_run")}
+    data = yaml.safe_load(path.read_text())
+    reset_counts()
+    result = commands.train(str(path), [f"{key}={value}" for key, value in patches.items()])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add(counts)
+    ex_layers = data["model_spec"]["init_config"]["encoder_layers"]
+    bsz = data["training_params"]["batch_size"]
+    steps = sum(-(-int(e["train"]["samples"]) // bsz) for e in result["history"])
+    val_batches = sum(-(-int(e["val"]["samples"]) // bsz) for e in result["history"])
+    losses = [e["train"]["loss"] for e in result["history"]] + [e["val"]["loss"] for e in result["history"]]
+    want = {"fused_qkv_gated_attention": ex_layers * (steps + val_batches),
+            "fused_qkv_gated_attention_backward": ex_layers * steps}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"example run config (dh 16, {ex_layers} layers, {steps} steps, {val_batches} validation batches): "
+          f"launches { {k: v for k, v in counts.items() if v} } == {want}")
+    check(all(math.isfinite(x) for x in losses), f"example run config: every epoch's loss finite: {losses}")
+    print(json.dumps({"phase": 34, "beats_dh128": {"clips_per_s": {"bf16_split_kernel": rate16,
+                                                                   "bf16_int8_kernel": rate_q},
+                                                   "int8_vs_float_pooled_rel_l2": rel, "train_ms_per_step": ms_beats,
+                                                   **beats_grad},
+                      "eat_dh32": {"clips_per_s": rate_eat, "train_ms_per_step": ms_eat, **eat_grad},
+                      "example_run": {"losses": losses, "steps": steps}, "card": CARD[0]}))
+    print(f"phase 34 paths: {time.perf_counter() - start:.1f} s; launches { {k: v for k, v in totals.items() if v} }")
+    return totals
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
     import torch
 
-    phase_build()
-    timings = phase_kernels()
-    plain_timings, k4_launches = phase_bias_free_kernels()
-    k7, k8, k8_launches = phase_int8_kernels()
-    backward_timings = phase_backward_kernels()
-    k3_long = phase_k3_long()
-    dh80_timings, dh80_k4_launches = phase_dh80_kernels()
-    ssl_timings = phase_eat_ssl_kernels()
-    launches = phase_main_path()
-    launches["int8_dynamic_dense"] = phase_int8_main_path()
-    eat_launches = phase_eat()
-    aves_launches = phase_aves()
-    birdmae_launches = phase_birdmae()
-    atst_launches = phase_atst()
-    phase_efficientnet()
-    phase_perch()
-    phase_resnet()
-    phase_serving()
+    timed(phase_build)
+    timings = timed(phase_kernels)
+    plain_timings, k4_launches = timed(phase_bias_free_kernels)
+    k7, k8, k8_launches = timed(phase_int8_kernels)
+    backward_timings = timed(phase_backward_kernels)
+    k3_long = timed(phase_k3_long)
+    dh80_timings, dh80_k4_launches = timed(phase_dh80_kernels)
+    ssl_timings = timed(phase_eat_ssl_kernels)
+    hw_timings, hw_kernel_counts = timed(phase_head_width_kernels)
+    launches = timed(phase_main_path)
+    launches["int8_dynamic_dense"] = timed(phase_int8_main_path)
+    eat_launches = timed(phase_eat)
+    aves_launches = timed(phase_aves)
+    birdmae_launches = timed(phase_birdmae)
+    atst_launches = timed(phase_atst)
+    timed(phase_efficientnet)
+    timed(phase_perch)
+    timed(phase_resnet)
+    timed(phase_serving)
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_training"
-    beats_train = phase_beats_training(workdir / "beats")
-    long_step = phase_beats_long_step()
-    eat_train = phase_eat_training(workdir / "eat")
-    aves_train = phase_aves_training(workdir / "aves")
-    birdmae_train = phase_birdmae_training(workdir / "birdmae")
-    atst_train = phase_atst_training(workdir / "atst")
-    phase_efficientnet_training(workdir / "efficientnet")
-    ssl_train = phase_eat_ssl_training(workdir / "eat_ssl")
-    phase_clip(workdir / "clip")
-    dots_train = phase_beats_dots(workdir / "dots")
-    probes = phase_probes()
-    entry = phase_entry_points(Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
+    beats_train = timed(phase_beats_training, workdir / "beats")
+    long_step = timed(phase_beats_long_step)
+    eat_train = timed(phase_eat_training, workdir / "eat")
+    aves_train = timed(phase_aves_training, workdir / "aves")
+    birdmae_train = timed(phase_birdmae_training, workdir / "birdmae")
+    atst_train = timed(phase_atst_training, workdir / "atst")
+    timed(phase_efficientnet_training, workdir / "efficientnet")
+    ssl_train = timed(phase_eat_ssl_training, workdir / "eat_ssl")
+    timed(phase_clip, workdir / "clip")
+    dots_train = timed(phase_beats_dots, workdir / "dots")
+    probes = timed(phase_probes)
+    entry = timed(phase_entry_points, Path(__file__).resolve().parent / "build" / "chip_smoke_entry")
     ranks_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
-    data_parallel = phase_data_parallel(ranks_dir)
-    model_parallel = phase_model_parallel(ranks_dir)
-    model_axis_rest = phase_model_axis_rest(ranks_dir)
-    cli = phase_cli(Path(__file__).resolve().parent / "build" / "chip_smoke_cli")
+    data_parallel = timed(phase_data_parallel, ranks_dir)
+    model_parallel = timed(phase_model_parallel, ranks_dir)
+    model_axis_rest = timed(phase_model_axis_rest, ranks_dir)
+    cli = timed(phase_cli, Path(__file__).resolve().parent / "build" / "chip_smoke_cli")
+    head_widths = timed(phase_head_width_paths,
+                        Path(__file__).resolve().parent / "build" / "chip_smoke_head_widths")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
@@ -4978,13 +5421,19 @@ def main() -> int:
     for kname, count in cli.items():
         if count:  # each run checked the rest at 0
             launches[kname] += count
+    # Phase 34: K1 (and K7) on BEATs dh 128, K2/K3 on its training and the example run config (dh 16),
+    # K5/K6 on EAT dh 32.
+    for kname, count in head_widths.items():
+        if count:  # each run checked the rest at 0
+            launches[kname] += count
     # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
     # large and huge's 80, takes K5, and K4 takes the same widths) or K8 (in
     # JAX only scripts/bench_int8_matmul.py calls it); drive() checks that each
     # main-path run launched them 0 times. Their kernel-phase launches go
     # under a key of their own.
     launches["plain_attention"] = launches["int8_matmul"] = 0
-    kernel_phase = {"plain_attention": k4_launches + dh80_k4_launches, "int8_matmul": k8_launches}
+    kernel_phase = {"plain_attention": k4_launches + dh80_k4_launches + hw_kernel_counts["plain_attention"],
+                    "int8_matmul": k8_launches}
     # The bias-free kernels at head width 80 (Bird-MAE huge's shapes), bf16 and fp32.
     dh80 = {kname: {name: dh80_timings[(kname, name)] for name in ("bfloat16", "float32")}
             for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
@@ -5037,12 +5486,20 @@ def main() -> int:
             kernels[-1]["model_axis_rest_launches"] = model_axis_rest[kname]  # phase 32's share
         if cli.get(kname):
             kernels[-1]["cli_launches"] = cli[kname]  # phase 33's share
+        if source == tensor_core:
+            # phase 34: dh 16, 32, 96, 128 at E = 768, bf16 (tensor cores) and fp32 (FMA)
+            kernels[-1]["head_widths"] = {f"dh{dh}": {name: hw_timings[(kname, dh, name)]
+                                                      for name in ("bfloat16", "float32")} for dh in HW_WIDTHS}
+            kernels[-1]["head_width_kernel_phase_launches"] = hw_kernel_counts[kname]
+        if head_widths.get(kname):
+            kernels[-1]["head_width_launches"] = head_widths[kname]  # phase 34's share of ``launches``
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")
         else:
             check(launches[kname] > 0, f"{kname} ran on the main path")
-    print(f"chip_smoke: {time.perf_counter() - start:.1f} s, kernel build included")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s, kernel build included; seconds a phase: "
+          f"{json.dumps(PHASE_SECONDS)}")
     if FAILURES:
         print(f"{len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Device time of the bf16 attention kernels at head width 64, from one checkout.
+"""Device time of the bf16 attention kernels at head widths 64 and 80, from one checkout.
 
     python3 scripts/torch_attention_ab.py [CHECKOUT]
 
 Imports ``avex_tpu_torch`` from CHECKOUT (default: this one), builds its
 ``tensor_core_attention.cu`` and prints one line ``AB <checkout> K5=.. K4=..
-K2=.. K6=.. K3=..``: the median of 50 launches, each queued behind a sleep
-kernel between two CUDA events, at the main paths' shapes (K5 and K4: EAT,
-B=128, T=513; K2: BEATs, B=128, T=248, with the gate; K6: EAT's training
-batch, B=64; K3: BEATs', B=64). Two checkouts are compared on one card by
+K1=.. K2=.. K6=.. K3=.. K5@80=.. K6@80=..``: the median of 50 launches,
+each queued behind a sleep kernel between two CUDA events, at the main
+paths' shapes (K5 and K4: EAT, B=128, T=513; K1 and K2: BEATs, B=128,
+T=248, with the gate; K6: EAT's training batch, B=64; K3: BEATs', B=64;
+K5@80 and K6@80: Bird-MAE huge's, 16 heads of 80, B=128 and 64, T=513).
+Two checkouts are compared on one card by
 running it on each in turns (parent, change, change, parent), e.g. with the
 parent unpacked by ``git archive`` into ``build/parent``. Needs CUDA and
 ``nvcc``; imports nothing of JAX.
@@ -57,6 +59,7 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
+    split = [randn(128, 248, H * D).bfloat16().view(128, 248, H, D).permute(0, 2, 1, 3) for _ in range(3)]
     eat = randn(128, 513, 3 * H * D).bfloat16()
     q, k, v = (t.permute(0, 2, 1, 3) for t in eat.view(128, 513, 3, H, D).unbind(2))
     beats = randn(128, 248, 3 * H * D).bfloat16()
@@ -70,9 +73,17 @@ def main() -> int:
     with torch.no_grad():
         times = {"K5": median_ms(lambda: ak.fused_qkv_attention(eat, H)),
                  "K4": median_ms(lambda: ak.gated_bias_attention(q, k, v, None)),
+                 "K1": median_ms(lambda: ak.gated_bias_attention(*split, bias, gate)),
                  "K2": median_ms(lambda: ak.fused_qkv_gated_attention(beats, H, bias, gate))}
     times["K6"] = median_ms(lambda: torch.autograd.grad(eat_out, (eat_train,), eat_dout, retain_graph=True))
     times["K3"] = median_ms(lambda: torch.autograd.grad(beats_out, leaves, beats_dout, retain_graph=True))
+    del eat, q, k, v, beats, eat_train, eat_out, leaves, beats_out, split
+    mae = randn(128, 513, 3 * 16 * 80).bfloat16()
+    with torch.no_grad():
+        times["K5@80"] = median_ms(lambda: ak.fused_qkv_attention(mae, 16))
+    mae_train, mae_dout = mae[:64].clone().requires_grad_(), randn(64, 513, 16 * 80).bfloat16()
+    mae_out = ak.fused_qkv_attention(mae_train, 16)
+    times["K6@80"] = median_ms(lambda: torch.autograd.grad(mae_out, (mae_train,), mae_dout, retain_graph=True))
     print(f"AB {CHECKOUT} " + " ".join(f"{name}={ms:.4f}" for name, ms in times.items()), flush=True)
     return 0
 

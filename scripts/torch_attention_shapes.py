@@ -72,7 +72,7 @@ def build():
         " int items, int heads, int seq, float scale, const long long* strides, void* stream) {",
         "  BwdStrides s; memcpy(&s, strides, sizeof(BwdStrides)); cudaStream_t st = (cudaStream_t)stream;"
         " const Gated gd = make_gated(bias, gate, seq, strides + 26, strides + 29);",
-        *[f"  if (shape == {n}) return (int)launch_dbias<{a}>(q, k, v, dout, nullptr, lse, delta, dbias, part, batch,"
+        *[f"  if (shape == {n}) return (int)launch_dbias<64, {a}>(q, k, v, dout, nullptr, lse, delta, dbias, part, batch,"
           f" items, heads, seq, scale, s, st, gd);" for n, (a, _) in enumerate(DBIAS_SHAPES)],
         "  return -1; }",
     ]

@@ -1,5 +1,6 @@
 """Attention of the port (K1, K2, K4, K5 and their plain twins) against JAX,
-at head width 64 and, for the bias-free K4/K5/K6, 80.
+at head width 64 and, for the bias-free K4/K5/K6, 80 (the other widths the
+kernels take: ``tests/test_torch_head_widths.py``).
 
 On the CPU the port's wrappers take the plain twins; the JAX side runs its
 Pallas kernels in interpret mode. The CUDA kernel itself is held against the
@@ -203,17 +204,18 @@ def test_grad_multiply_scales_only_the_gradient():
 
 def test_fused_qkv_compatible_is_the_kernel_head_width():
     assert ak.fused_qkv_compatible(768, 12)
-    assert not ak.fused_qkv_compatible(96, 12)
-    assert ak.fused_qkv_compatible(1280, 16)  # dh=80: Bird-MAE huge takes K5 (K1/K2 take dh=64 only)
+    assert ak.fused_qkv_compatible(96, 12)  # dh=8: every multiple of 8 up to 128
+    assert not ak.fused_qkv_compatible(240, 12)  # dh=20
+    assert ak.fused_qkv_compatible(1280, 16)  # dh=80: Bird-MAE huge takes K5
 
 
 # (dim, heads) → JAX's rule (head groups tiling 128 lanes) and the port's
-# (dh 64 or 80, any head count): they differ at 12 heads of 80, 1 of 64 and
-# at widths the kernels do not take (96, 32, 128).
+# (dh a multiple of 8 from 8 to 128, any head count): they differ at 12 heads
+# of 80, 1 of 64 and 12 of 8, where JAX's head groups do not tile 128 lanes.
 COMPATIBLE_GRID = [
     (768, 12, True, True), (1024, 16, True, True), (1280, 16, True, True), (640, 8, True, True),
-    (128, 2, True, True), (960, 12, False, True), (64, 1, False, True), (96, 12, False, False),
-    (1536, 16, True, False), (512, 16, True, False), (1280, 10, True, False), (770, 11, False, False),
+    (128, 2, True, True), (960, 12, False, True), (64, 1, False, True), (96, 12, False, True),
+    (1536, 16, True, True), (512, 16, True, True), (1280, 10, True, True), (770, 11, False, False),
 ]
 
 

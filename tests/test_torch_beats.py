@@ -84,7 +84,8 @@ def _rel(got, want):
 
 
 # Two 64-wide heads: the fused-QKV kernel's own path (K2) on both sides; at
-# TINY's 8-wide heads both packages split the fused projection and run K1.
+# TINY's 8-wide heads JAX splits the fused projection and runs K1 (its head
+# groups do not tile 128 lanes), the port runs K2 (its kernels take dh 8).
 DH64 = dict(TINY, encoder_embed_dim=128, encoder_attention_heads=2)
 
 

@@ -143,11 +143,21 @@ def _embed_both(spec, src, tmp_path, *extra):
     return outs["port"], outs["jax"]
 
 
-def test_list_models_prints_the_same_table(capsys):
+def test_list_models_prints_the_same_table(capsys, monkeypatch):
+    import avex_tpu.models.registry as jax_registry
     from avex_tpu.api.list_models import main as jax_main
+    from avex_tpu.api.official_models import OFFICIAL_MODELS as JAX_OFFICIAL_MODELS
 
+    import avex_tpu_torch.models.registry as registry
     from avex_tpu_torch.api.list_models import main
+    from avex_tpu_torch.api.official_models import OFFICIAL_MODELS
 
+    # Each registry as a fresh process holds it, the official entries: other
+    # test files that share this worker register their own models in one
+    # package's registry or the other's.
+    for module, official in ((registry, OFFICIAL_MODELS), (jax_registry, JAX_OFFICIAL_MODELS)):
+        monkeypatch.setattr(module, "_MODEL_REGISTRY",
+                            {name: spec for name, spec in module._MODEL_REGISTRY.items() if name in official})
     table = _invoke(cli, ["list-models"])
     assert table == _invoke(jax_cli, ["list-models"])
     assert main() is None  # the console entry's exit code is 0

@@ -155,9 +155,9 @@ def test_unsupported_inputs_raise(inputs):
     qkv, bias, gate, mask = inputs
     q, k, v = _split(qkv)
     with pytest.raises(ValueError, match="head_dim"):
-        ak.gated_bias_attention(q[..., :32], k[..., :32], v[..., :32], bias)
+        ak.gated_bias_attention(q[..., :20], k[..., :20], v[..., :20], bias)
     with pytest.raises(ValueError, match="head_dim"):
-        ak.fused_qkv_attention(qkv[..., : 3 * H * 32], H)  # dh=32
+        ak.fused_qkv_attention(qkv[..., : 3 * H * 20], H)  # dh=20: not a multiple of 8
     with pytest.raises(ValueError, match="gate"):
         ak.gated_bias_attention(q, k, v, None, gate)
     with pytest.raises(ValueError, match="strides"):
@@ -336,7 +336,7 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
     sources = []
     for name in ("_library", "_tensor_core_library"):
         real = getattr(ak, name)
-        monkeypatch.setattr(ak, name, lambda real=real, name=name: sources.append(name) or real())
+        monkeypatch.setattr(ak, name, lambda *args, real=real, name=name: sources.append(name) or real(*args))
     ak.reset_launch_counts()
     with torch.no_grad():
         q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.bfloat16().view(bsz, seq, 3, H, D).unbind(2))
@@ -349,14 +349,15 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
 
 
 def test_tensor_core_head_width_other_than_64_raises(card, monkeypatch):
-    """A bf16 call at dh=32 (the kernels take 64 and 80) raises before any launch."""
+    """A bf16 call at dh=20 (the kernels take the multiples of 8 up to 128)
+    raises before any launch."""
     for name in ("_library", "_tensor_core_library"):
-        monkeypatch.setattr(ak, name, lambda: pytest.fail("no kernel may be loaded or launched"))
+        monkeypatch.setattr(ak, name, lambda *args: pytest.fail("no kernel may be loaded or launched"))
     ak.reset_launch_counts()
-    qkv = torch.zeros(2, 31, 3 * H * 32, dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    qkv = torch.zeros(2, 31, 3 * H * 20, dtype=torch.bfloat16, device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="head_dim"):
         ak.fused_qkv_attention(qkv, H)
-    q = torch.zeros(2, H, 31, 32, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(2, H, 31, 20, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         ak.gated_bias_attention(q, q, q, None)
     assert sum(ak.LAUNCHES.values()) == 0
@@ -405,7 +406,7 @@ def test_gated_forward_dispatch_by_type(card, monkeypatch):
     sources = []
     for name in ("_library", "_tensor_core_library"):
         real = getattr(ak, name)
-        monkeypatch.setattr(ak, name, lambda real=real, name=name: sources.append(name) or real())
+        monkeypatch.setattr(ak, name, lambda *args, real=real, name=name: sources.append(name) or real(*args))
     with torch.no_grad():
         ak.fused_qkv_gated_attention(qkv.bfloat16(), H, bias, gate, mask)
         got = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
@@ -661,19 +662,31 @@ def test_head_width_80_backward_kernel_matches_twins(card, seq, masking, dtype):
 
 
 def test_head_width_80_gated_and_other_widths_raise(card, monkeypatch):
-    """The gated kernels take dh 64 only; the bias-free ones 64 and 80: a
-    call at another width raises before any kernel is loaded."""
+    """The gated kernels take dh 80 as the bias-free ones do (K2 and K1
+    against their twins); a call at a width that is not a multiple of 8 up
+    to 128 raises before any kernel is loaded, gated or not."""
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = _dh80(card, 2, 31, dtype)
+        bias = torch.randn(H80, 31, 31, generator=card, device="cuda")
+        gate = torch.rand(2, H80, 31, generator=card, device="cuda") + 1
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(2, 31, 3, H80, D80).unbind(2))
+        with torch.no_grad():
+            _close(ak.fused_qkv_gated_attention(qkv, H80, bias, gate),
+                   ak.fused_qkv_gated_reference(qkv, H80, bias, gate), dtype)
+            _close(ak.gated_bias_attention(q, k, v, bias, gate),
+                   ak.gated_bias_attention_reference(q, k, v, bias, gate), dtype)
+    torch.cuda.synchronize()
     for name in ("_library", "_tensor_core_library"):
-        monkeypatch.setattr(ak, name, lambda: pytest.fail("no kernel may be loaded or launched"))
+        monkeypatch.setattr(ak, name, lambda *args: pytest.fail("no kernel may be loaded or launched"))
     ak.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
-        qkv = torch.zeros(2, 31, 3 * H80 * D80, dtype=dtype, device="cuda")
-        bias = torch.zeros(H80, 31, 31, device="cuda")
-        with pytest.raises(ValueError, match="gated attention kernel takes head_dim 64"):
-            ak.fused_qkv_gated_attention(qkv, H80, bias)
-        q = torch.zeros(2, H80, 31, D80, dtype=dtype, device="cuda")
-        with pytest.raises(ValueError, match="gated attention kernel takes head_dim 64"):
+        qkv = torch.zeros(2, 31, 3 * 8 * 84, dtype=dtype, device="cuda")
+        bias = torch.zeros(8, 31, 31, device="cuda")
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+            ak.fused_qkv_gated_attention(qkv, 8, bias)  # dh 84
+        q = torch.zeros(2, 8, 31, 84, dtype=dtype, device="cuda")
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
             ak.gated_bias_attention(q, q, q, bias)
         with pytest.raises(ValueError, match="head_dim"):
-            ak.fused_qkv_attention(torch.zeros(2, 31, 3 * 8 * 96, dtype=dtype, device="cuda"), 8)  # dh 96
+            ak.fused_qkv_attention(torch.zeros(2, 31, 3 * 8 * 136, dtype=dtype, device="cuda"), 8)  # dh 136
     assert sum(ak.LAUNCHES.values()) == 0

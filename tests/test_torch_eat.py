@@ -5,7 +5,7 @@ initialised in JAX and carried across with ``params_from_jax``. At dim 128
 with 2 heads both packages take the fused route (JAX: K5 in interpret mode,
 the port: its plain twin on the CPU); at dim 96 with 12 heads JAX takes the
 split-input K4 in interpret mode (lcm(8, 128) / 8 = 16 heads per group does
-not divide 12) and the port its split branch.
+not divide 12) and the port K5's twin (its kernels take dh 8).
 """
 
 import numpy as np
@@ -33,7 +33,8 @@ from tests.test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse
 NORM = dict(eat_norm_mean=-5.553, eat_norm_std=4.606)  # the official EAT entries' statistics
 TINY = dict(depth=2, target_length=64)
 FUSED = dict(TINY, dim=128, heads=2)  # dh 64: K5 on both sides
-SPLIT = dict(TINY, dim=96, heads=12)  # dh 8: JAX's K4, the port's split branch
+SPLIT = dict(TINY, dim=96, heads=12)  # dh 8: JAX's K4, the port's K5
+# The ids name JAX's route; the port takes K5's twin in both.
 ROUTES = pytest.mark.parametrize("config", [FUSED, SPLIT], ids=["fused_k5", "split_k4"])
 
 
