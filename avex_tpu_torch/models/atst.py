@@ -15,8 +15,8 @@ Port of ``avex_tpu/models/atst.py``:
   outputs side by side), ``scene_embedding`` (their per-block means),
   ``pooled`` (the timestamp embedding's mean over frames);
 - attention: EAT's block dispatch. With ``use_pallas`` the K5 kernel over
-  the raw projection (its backward K6), or K4 for heads K5 refuses (K4
-  refuses the same widths: on CUDA that raises); else the plain path;
+  the raw projection (its backward K6) at every head width; else the plain
+  path;
 - embedding taps: ``atst.blocks.{i}``, each block's output before the norm.
 
 :func:`convert_atst_state_dict` takes the reference encoder naming (both

@@ -12,9 +12,9 @@ published ``*.torchaudio.pt`` checkpoints:
 - post-norm transformer layers (768-d, 12 heads, 3072 FFN). With
   ``use_pallas`` the q, k and v weights are concatenated into one
   ``[E, 3E]`` product and the CUDA kernel K5 (``fused_qkv_attention``) runs
-  over it with the frame mask (on CUDA it raises at a head width the
-  kernels do not take); otherwise plain ``dot_product_attention`` with the
-  mask as a ``-inf`` bias.
+  over it with the frame mask (the kernels take every head width);
+  otherwise plain ``dot_product_attention`` with the mask as a ``-inf``
+  bias.
 
 ``forward`` returns the last layer's features; the embedding taps are
 ``model.encoder.transformer.layers.{i}.feed_forward.output_dense``. Module

@@ -14,10 +14,9 @@ Port of ``avex_tpu/models/eat.py``:
   the qkv bias, ATST too);
 - attention: with ``use_pallas`` the CUDA kernel over the raw
   ``[B, T, 3E]`` projection (K5, ``fused_qkv_attention``) at every head
-  width, which raises on CUDA at a width the kernels do not take (JAX's
-  ``_Block`` takes the split-input K4 where its fused rule refuses the
-  heads); without, plain ``dot_product_attention`` (bf16 logits under bf16
-  compute);
+  width, which the kernels take on CUDA too (JAX's ``_Block`` takes the
+  split-input K4 where its fused rule refuses the heads); without, plain
+  ``dot_product_attention`` (bf16 logits under bf16 compute);
 - embedding taps: ``backbone.model.blocks.{i}.attn.proj``.
 
 Module names follow the reference's ``backbone.model`` layout, so

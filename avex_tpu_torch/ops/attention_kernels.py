@@ -26,12 +26,16 @@ forwards also write the row log-sum-exp and the output's rounding rest when
 a backward will follow, so that the backward rebuilds P from the one and
 takes Δ from the forward's output and the other; fp32 calls launch
 ``csrc/gated_attention.cu``'s FMA body. Each source is gated or bias-free by
-a template flag. Every kernel, gated or not, takes any head width that is a
-multiple of 8 from 8 to 128 (:data:`HEAD_DIMS`); a CUDA call at another
-width raises. Each source is built once for each width of
-:data:`KERNEL_WIDTHS` (its ``-DAVEX_HEAD_DIM``), and a call runs on the
-smallest that holds its head width (:func:`kernel_width`), the extra columns
-zero-filled on load and never stored. The two layouts differ only in the
+a template flag. Every kernel, gated or not, takes any head width D >= 1
+(:func:`width_plan`). Each source is built once for each width of
+:data:`KERNEL_WIDTHS` (its ``-DAVEX_HEAD_DIM``). Up to
+:data:`CHUNK_COLUMNS` a call runs on the smallest build that holds D, the
+extra columns zero-filled on load and never stored; past it D is cut into
+column chunks of a multiple of 8, each block owns one chunk of the output
+and sums the logits over every chunk. A call whose D or strides are not
+multiples of 8, or whose operands start off a 16-byte boundary, reads and
+writes them element by element (narrow rows, :func:`_narrow`); the wrapper
+never copies an operand to pad it. The two layouts differ only in the
 strides handed to the kernels. Each source's header states its bounds on an
 H100 and what its design does about them.
 
@@ -51,16 +55,17 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from avex_tpu_torch.ops._build import load_library
 
 __all__ = [
+    "CHUNK_COLUMNS",
     "LAUNCHES",
-    "HEAD_DIMS",
     "KERNEL_WIDTHS",
+    "WidthPlan",
     "fused_qkv_attention",
     "fused_qkv_backward_from_residuals_reference",
     "fused_qkv_backward_reference",
@@ -73,19 +78,21 @@ __all__ = [
     "gated_bias_attention_reference",
     "kernel_width",
     "reset_launch_counts",
+    "width_plan",
 ]
 
 SOURCE = "gated_attention.cu"
 #: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
-#: The head widths every kernel (K1-K6, gated or not) takes: the multiples of
-#: 8 from 8 to 128. The zoo's checkpoints use 64 (BEATs, EAT, AVES, ATST,
-#: Bird-MAE base: 768 / 12) and 80 (Bird-MAE large and huge: 1024 / 16,
-#: 1280 / 16).
-HEAD_DIMS = tuple(range(8, 129, 8))
 #: The widths each CUDA source is built for, one library a width; a head
-#: width runs on the smallest that holds it (:func:`kernel_width`).
+#: width runs on the smallest that holds it or its column chunks
+#: (:func:`width_plan`). The zoo's checkpoints use 64 (BEATs, EAT, AVES,
+#: ATST, Bird-MAE base: 768 / 12) and 80 (Bird-MAE large and huge: 1024 / 16,
+#: 1280 / 16).
 KERNEL_WIDTHS = (32, 64, 80, 96, 128)
+#: The most columns one block holds: a wider head runs in column chunks (the
+#: bf16 dK/dV kernel holds 255 registers at 128 already).
+CHUNK_COLUMNS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel:
@@ -107,6 +114,30 @@ _DQ_TARGET_BLOCKS = 396
 _DBIAS_BLOCKS_PER_SM = 3
 #: shared memory an SM holds for the blocks of one kernel (227 KB)
 _SM_SHARED_BYTES = 232448
+
+
+class WidthPlan(NamedTuple):
+    """How the kernels run a head width: on the build ``build`` of
+    :data:`KERNEL_WIDTHS`, in ``chunks`` column chunks of ``chunk_width``
+    columns (the last holds what is left of the width)."""
+
+    build: int
+    chunks: int
+    chunk_width: int
+
+
+def width_plan(head_dim: int) -> WidthPlan:
+    """The plan for a head width D >= 1: one chunk up to
+    :data:`CHUNK_COLUMNS` (``chunk_width`` = D); past it ceil(D / 128)
+    chunks, each ceil(D / chunks) rounded up to a multiple of 8 (so that every
+    chunk starts on a 16-byte boundary), the last narrower. The build is the
+    smallest that holds a chunk."""
+    if isinstance(head_dim, bool) or not isinstance(head_dim, int) or head_dim < 1:
+        raise ValueError(f"the attention kernels take a head_dim of at least 1, got {head_dim!r}")
+    chunks = -(-head_dim // CHUNK_COLUMNS)
+    per_chunk = -(-head_dim // chunks)
+    width = head_dim if chunks == 1 else -(-per_chunk // 8) * 8
+    return WidthPlan(min(w for w in KERNEL_WIDTHS if w >= width), chunks, width)
 
 
 def _dbias_blocks_per_sm(width: int) -> int:
@@ -136,12 +167,10 @@ def _count(name: str) -> None:
 
 
 def kernel_width(head_dim: int) -> int:
-    """The build (of :data:`KERNEL_WIDTHS`) that runs a head width of
-    :data:`HEAD_DIMS`: the smallest that holds it."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels take a head_dim that is a multiple of 8 from 8 to 128, "
-                         f"got {head_dim}")
-    return min(w for w in KERNEL_WIDTHS if w >= head_dim)
+    """The build (of :data:`KERNEL_WIDTHS`) that runs a head width D >= 1:
+    the smallest that holds D, or past :data:`CHUNK_COLUMNS` its column
+    chunks (:func:`width_plan`)."""
+    return width_plan(head_dim).build
 
 
 def _library(head_dim: int) -> ctypes.CDLL:
@@ -149,14 +178,14 @@ def _library(head_dim: int) -> ctypes.CDLL:
     lib = load_library(SOURCE, kernel_width(head_dim))
     if lib.avex_gated_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+        tail = [i, i, i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
         lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, *tail]
         lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, *tail]
         lib.avex_gated_attention_forward.restype = i
         lib.avex_plain_attention_forward.restype = i
         lib.avex_attention_backward.argtypes = [
             i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, ctypes.c_float, i, ctypes.POINTER(ctypes.c_longlong), p,
+            i, i, i, i, i, i, ctypes.c_float, i, ctypes.POINTER(ctypes.c_longlong), p,
         ]
         lib.avex_attention_backward.restype = i
     return lib
@@ -167,7 +196,7 @@ def _tensor_core_library(head_dim: int) -> ctypes.CDLL:
     lib = load_library(TENSOR_CORE_SOURCE, kernel_width(head_dim))
     if lib.avex_bias_free_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+        tail = [i, i, i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
         lib.avex_tensor_core_gated_attention_forward.argtypes = [p] * 9 + tail
         lib.avex_bias_free_attention_forward.argtypes = [p] * 7 + tail
         lib.avex_tensor_core_attention_backward.argtypes = [p] * 17 + [i] + tail
@@ -399,28 +428,29 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
-def _check_rows(name: str, t: torch.Tensor) -> None:
-    """The kernel reads and writes 8-element runs of the head dimension."""
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
-        raise ValueError(
-            f"{name}: the kernel needs a contiguous head dimension, strides that are "
-            f"multiples of 8 elements and a 16-byte aligned start; got strides "
-            f"{tuple(t.stride())} at offset {t.data_ptr() % 16} bytes"
-        )
+def _narrow(name: str, t: torch.Tensor) -> bool:
+    """Whether the kernels must read and write ``t``'s rows element by element
+    (narrow rows): its head width or a stride is not a multiple of 8
+    elements, or it starts off a 16-byte boundary; else they move 16-byte
+    runs. Raises unless the head dimension is contiguous."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the kernel needs a contiguous head dimension; got strides {tuple(t.stride())}")
+    return bool(t.shape[-1] % 8 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16)
 
 
-def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> None:
+def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> bool:
     """Raise on what the kernels do not take. q, k, v and every tensor of
-    ``outputs`` (name → tensor) are ``[B, H, T, D]`` views of one type."""
+    ``outputs`` (name → tensor) are ``[B, H, T, D]`` views of one type.
+    Returns whether the call takes narrow rows (:func:`_narrow` of any of
+    them)."""
     bsz, heads, seq, dim = q.shape
-    kernel_width(dim)  # raises at a head_dim the kernels do not take
+    width_plan(dim)  # raises at a head_dim below 1
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v), *outputs.items()):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
-    for name, t in (("q", q), ("k", k), ("v", v), *outputs.items()):
-        _check_rows(name, t)
+    narrow = [_narrow(name, t) for name, t in (("q", q), ("k", k), ("v", v), *outputs.items())]
     if pos_bias is None and gate is not None:
         raise ValueError("a gate needs a pos_bias to modulate")
     if pos_bias is not None and (pos_bias.shape != (heads, seq, seq) or pos_bias.dtype != torch.float32):
@@ -436,6 +466,12 @@ def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> None:
     for t in (pos_bias, gate, key_padding_mask):
         if t is not None and t.device != q.device:
             raise ValueError("every operand must lie on q's device")
+    return any(narrow)
+
+
+def _columns(dim: int, narrow: bool) -> tuple:
+    """The entry points' ``(head_dim, chunk_width, narrow)`` arguments."""
+    return dim, width_plan(dim).chunk_width, int(narrow)
 
 
 def _launch(
@@ -456,7 +492,7 @@ def _launch(
     residuals (the row log-sum-exp, float32 ``[B, H, T]`` contiguous, and
     what rounding the output dropped, bf16 with ``out``'s strides), on the
     FMA body in fp32."""
-    _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
+    narrow = _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
     gated = pos_bias is not None
     on_tensor_cores = tensor_cores(q.dtype)
@@ -469,7 +505,7 @@ def _launch(
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = _ptr(key_padding_mask)
     views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    tail = (bsz, heads, seq, dim, float(scale))
+    tail = (bsz, heads, seq, *_columns(dim, narrow), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if gated:
@@ -546,7 +582,8 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
     dqkv = torch.empty_like(qkv)
     dq, dk, dv = _split_heads(dqkv, heads)
     do = dout.contiguous().view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
-    _check_operands(q, k, v, {"dout": do, "dq": dq, "dk": dk, "dv": dv}, pos_bias, gate, key_padding_mask)
+    narrow = _check_operands(q, k, v, {"dout": do, "dq": dq, "dk": dk, "dv": dv}, pos_bias, gate,
+                             key_padding_mask)
     f32 = dict(dtype=torch.float32, device=qkv.device)
     stats = torch.empty(3, bsz, heads, seq, **f32)
     dbias = part = dgate = None
@@ -575,7 +612,7 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
             _DTYPE_CODES[qkv.dtype], int(gated), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _ptr(pos_bias), _ptr(gate), _ptr(pad), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _ptr(part), _ptr(dbias), _ptr(dgate), stats.data_ptr(),
-            bsz, heads, seq, dim // heads, float(scale), items, strides, stream,
+            bsz, heads, seq, *_columns(dim // heads, narrow), float(scale), items, strides, stream,
         )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
@@ -601,8 +638,8 @@ def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, o
         return t.contiguous().view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
 
     o, rest, do = heads_first(out), heads_first(out_rest), heads_first(dout)
-    _check_operands(q, k, v, {"out": o, "out_rest": rest, "dout": do, "dq": dq, "dk": dk, "dv": dv},
-                    pos_bias, gate, key_padding_mask)
+    narrow = _check_operands(q, k, v, {"out": o, "out_rest": rest, "dout": do, "dq": dq, "dk": dk, "dv": dv},
+                             pos_bias, gate, key_padding_mask)
     if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [{bsz}, {heads}, {seq}]")
     f32 = dict(dtype=torch.float32, device=qkv.device)
@@ -630,7 +667,7 @@ def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, o
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), rest.data_ptr(), do.data_ptr(),
             _ptr(pos_bias), _ptr(gate), _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items,
-            bsz, heads, seq, dim // heads, float(scale), strides, stream,
+            bsz, heads, seq, *_columns(dim // heads, narrow), float(scale), strides, stream,
         )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
@@ -740,16 +777,17 @@ def gated_bias_attention(
 
 def fused_qkv_compatible(dim: int, heads: int) -> bool:
     """True when the fused kernels (K2/K5) take this projection's heads:
-    ``dim / heads`` in :data:`HEAD_DIMS` (a multiple of 8 from 8 to 128),
-    whatever the head count.
+    ``dim`` splits into ``heads`` equal heads, whatever their width (every
+    head width D >= 1 runs, :func:`width_plan`).
 
     The JAX rule (head groups that tile 128 lanes, ``pallas_attention.py:445-468``)
-    is a Mosaic layout rule with no Hopper counterpart; here the only
-    constraint is the kernels' head width. So 12 heads of dh 80 take K5 here
-    where JAX takes the split-input K4, and 4 heads of dh 16 take K2 where
-    JAX takes K1.
+    is a Mosaic layout rule with no Hopper counterpart. So the port takes
+    the fused kernels wherever the heads split evenly, and JAX takes its
+    split-input K1/K4 where its head groups do not tile: at 12 heads of 80
+    (K5 here, K4 in JAX), 4 heads of 16 (K2 here, K1 in JAX) or 12 heads of
+    20. The function is the same.
     """
-    return heads > 0 and dim % heads == 0 and dim // heads in HEAD_DIMS
+    return heads > 0 and dim % heads == 0
 
 
 def _needs_grad(qkv: torch.Tensor) -> bool:

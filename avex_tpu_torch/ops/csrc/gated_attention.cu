@@ -18,12 +18,20 @@
 // body, the card's parity path: the tensor cores would round its operands to
 // TF32.
 //
-// Head widths: both variants take any D that is a multiple of 8 from 8 to
-// 128. The width kD is a template parameter; each build of this source
-// instantiates one, chosen with -DAVEX_HEAD_DIM (32, 64, 80, 96 or 128), and
-// D runs on the smallest kD that holds it: the columns D .. kD-1 are
-// zero-filled on load (they are the next head's in the fused layout) and
-// never stored, so they add 0 to every product and the result is exact.
+// Head widths: both variants take any D >= 1. The width kD is a template
+// parameter; each build of this source instantiates one, chosen with
+// -DAVEX_HEAD_DIM (32, 64, 80, 96 or 128). A D up to 128 runs on the
+// smallest kD that holds it: the columns D .. kD-1 are zero-filled on load
+// (they are the next head's in the fused layout) and never stored, so they
+// add 0 to every product and the result is exact. Rows whose D or a stride
+// is not a multiple of 8, or whose base is off a 16-byte boundary (narrow
+// rows), are loaded and stored element by element. Past 128, D is cut into
+// column chunks of a multiple of 8 (the wrapper's plan): the block of chunk
+// c owns that chunk of the output and sums the logits over every chunk
+// (reloading the other chunks' tiles for each tile), and chunk 0's blocks
+// alone write dbias, dgate and the row statistics. One code path serves
+// them all: with one chunk and 16-byte rows it does what these kernels did
+// when they took only the multiples of 8 up to 128.
 //
 // Design. One block of 128 threads owns BQ=64 query rows of one (batch, head)
 // and walks the keys in tiles of BK=64. Q, the K tile and the V tile are
@@ -145,14 +153,91 @@ __device__ __forceinline__ void store_cols_below(float* p, const float* x, int c
   }
 }
 
+// The columns of a call: head width D, cut into
+// `chunks` column chunks of `width` columns (the last holds what is left),
+// each run on this build's kD. narrow: the operands are read and written
+// element by element (D, the chunk width or a stride not a multiple of 8,
+// or a base not 16-byte aligned), else in runs of 8.
+struct Cols {
+  int dim = 0, width = 0, chunks = 1;
+  bool narrow = false;
+};
+
+// Columns of chunk cc.
+__device__ __forceinline__ int chunk_cols(const Cols& cl, int cc) { return min(cl.width, cl.dim - cc * cl.width); }
+
+// Rows r0 .. r0+63 of a [T, cols] operand (row stride rs) into shared memory
+// as kD columns: transposed into trans[kD][64] and/or as rows[64][kD]; rows
+// past seq and the columns past cols are zero. Unless narrow (cols a multiple
+// of 8, rows 16-byte aligned), in runs of 8; else element by element.
+template <int kD, typename T>
+__device__ __forceinline__ void load_rows_any(const T* base, long long rs, int r0, int seq, int cols, bool narrow,
+                                              float* trans, float* rows) {
+  for (int c = threadIdx.x; c < 64 * (kD / 8); c += kThreads) {
+    const int r = c % 64;
+    const int chunk = c / 64;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < seq && chunk * 8 < cols) {
+      const T* src = base + (long long)(r0 + r) * rs + chunk * 8;
+      if (!narrow) {
+        load8(src, x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (chunk * 8 + j < cols) x[j] = src[j];
+      }
+    }
+    if (trans) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) trans[(chunk * 8 + j) * 64 + r] = x[j];
+    }
+    if (rows) store8(rows + r * kD + chunk * 8, x);
+  }
+}
+
+// store_cols_below, element by element when narrow.
+template <int kC>
+__device__ __forceinline__ void store_cols_any(float* p, const float* x, int c0, int cols, bool narrow) {
+  if (!narrow) {
+    store_cols_below<kC>(p, x, c0, cols);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kC; ++j)
+      if (c0 + j < cols) p[j] = x[j];
+  }
+}
+
+// acc[i][j] += Σ_c a[c][ra + i] · b[c][cb + j] over c < kLen, for a tile a
+// with rows of 64 and a tile b with rows of kLdB in shared memory (4 rows x
+// kC columns per thread).
+template <int kLen, int kLdB, int kC>
+__device__ __forceinline__ void accumulate(const float* a, const float* b, int ra, int cb,
+                                           float acc[4][kC]) {
+#pragma unroll 8
+  for (int c = 0; c < kLen; ++c) {
+    const float4 aa = *reinterpret_cast<const float4*>(a + c * 64 + ra);
+    const float av[4] = {aa.x, aa.y, aa.z, aa.w};
+    float bv[kC];
+    load_cols<kC>(b + c * kLdB + cb, bv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// One block per (query tile, head and column chunk, item) owns chunk c of
+// the output; for each key tile it sums S = Σ_cc Q_cc·K_ccᵀ over every
+// chunk (reloading Q's chunk when there is more than one), then P·V_c.
 template <typename T, bool kGated, int kD>
 __global__ void AVEX_LAUNCH_BOUNDS(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const float* __restrict__ gate,
-                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, int dim, float scale,
-                 Strides s) {
+                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale,
+                 Strides s, Cols cl) {
   constexpr int kC = kD / 8;  // output columns a thread
-  const int dc = dim >> 3;    // chunks of 8 columns the operands have (kD/8 or fewer)
+  const int n = cl.chunks, own = blockIdx.y % n;  // column chunks, this block's
+  const int own_cols = chunk_cols(cl, own);
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                            // [D][BQ]  q transposed
   float* k_t = q_t + kD * kBlockQ;              // [D][BK]  k tile transposed
@@ -160,7 +245,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* p_t = v_s + kBlockK * kD;              // [BK][BQ] probabilities transposed
 
   const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / n;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int tx = tid & 7;   // keys tx*8..tx*8+7 (logits), dims tx*kC..tx*kC+kC-1 (output)
@@ -168,20 +253,14 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const T* qb = q + b * s.q[0] + h * s.q[1];
   const T* kb = k + b * s.k[0] + h * s.k[1];
-  const T* vb = v + b * s.v[0] + h * s.v[1];
-  T* ob = out + b * s.o[0] + h * s.o[1];
+  const T* vb = v + b * s.v[0] + h * s.v[1] + own * cl.width;
+  T* ob = out + b * s.o[0] + h * s.o[1] + own * cl.width;
   const float* bias_h = kGated ? bias + h * s.bias[0] : nullptr;
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
 
-  // Q tile, transposed into shared memory; rows past the sequence are zero.
-  for (int c = tid; c < kBlockQ * (kD / 8); c += kThreads) {
-    const int r = c % kBlockQ;
-    const int chunk = c / kBlockQ;
-    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < seq && chunk < dc) load8(qb + (long long)(q0 + r) * s.q[2] + chunk * 8, x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) q_t[(chunk * 8 + j) * kBlockQ + r] = x[j];
-  }
+  // Q tile, transposed into shared memory (once with one chunk); rows past
+  // the sequence are zero.
+  if (n == 1) load_rows_any<kD>(qb, s.q[2], q0, seq, own_cols, cl.narrow, q_t, static_cast<float*>(nullptr));
 
   float g[4];
   bool row_ok[4];
@@ -203,38 +282,21 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers of k_t, v_s and p_t are done
-    for (int c = tid; c < kBlockK * (kD / 8); c += kThreads) {
-      const int r = c % kBlockK;
-      const int chunk = c / kBlockK;
-      float kx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      float vx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (k0 + r < seq && chunk < dc) {
-        load8(kb + (long long)(k0 + r) * s.k[2] + chunk * 8, kx);
-        load8(vb + (long long)(k0 + r) * s.v[2] + chunk * 8, vx);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) k_t[(chunk * 8 + j) * kBlockK + r] = kx[j];
-      store8(v_s + r * kD + chunk * 8, vx);
-    }
-    __syncthreads();
-
     float sc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(q_t + d * kBlockQ + ty * 4);
-      const float4 ka = *reinterpret_cast<const float4*>(k_t + d * kBlockK + tx * 8);
-      const float4 kc = *reinterpret_cast<const float4*>(k_t + d * kBlockK + tx * 8 + 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    // S over every column chunk: Q's chunk (reloaded when there is more than
+    // one) and K's; V's own chunk with the first.
+    for (int cc = 0; cc < n; ++cc) {
+      __syncthreads();  // the previous readers of q_t, k_t, v_s and p_t are done
+      const int col = cc * cl.width, cols = chunk_cols(cl, cc);
+      if (n > 1) load_rows_any<kD>(qb + col, s.q[2], q0, seq, cols, cl.narrow, q_t, static_cast<float*>(nullptr));
+      load_rows_any<kD>(kb + col, s.k[2], k0, seq, cols, cl.narrow, k_t, static_cast<float*>(nullptr));
+      if (cc == 0) load_rows_any<kD>(vb, s.v[2], k0, seq, own_cols, cl.narrow, static_cast<float*>(nullptr), v_s);
+      __syncthreads();
+      accumulate<kD, kBlockK, 8>(q_t, k_t, ty * 4, tx * 8, sc);
     }
 
 #pragma unroll
@@ -300,23 +362,23 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float y[kC];
 #pragma unroll
     for (int j = 0; j < kC; ++j) y[j] = acc[i][j] * inv;
-    store_cols_below<kC>(ob + (long long)qi * s.o[2] + tx * kC, y, tx * kC, dim);
+    store_cols_any<kC>(ob + (long long)qi * s.o[2] + tx * kC, y, tx * kC, own_cols, cl.narrow);
   }
 }
 
 template <typename T, bool kGated, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* gate,
-                   const void* pad, void* out, int batch, int heads, int seq, int dim, float scale,
-                   const Strides& s, cudaStream_t stream) {
+                   const void* pad, void* out, int batch, int heads, int seq, float scale,
+                   const Strides& s, const Cols& cl, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads * cl.chunks, batch);
   attention_kernel<T, kGated, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(gate),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, dim, scale, s);
+      static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, scale, s, cl);
   return cudaGetLastError();
 }
 
@@ -326,23 +388,51 @@ constexpr int kHeadDim = AVEX_HEAD_DIM;
 static_assert(kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 80 || kHeadDim == 96 || kHeadDim == 128,
               "AVEX_HEAD_DIM: 32, 64, 80, 96 or 128");
 
-// The widths a call may have on this build, gated or not: a multiple of 8 from 8 to kHeadDim.
-bool takes_width(int head_dim) { return head_dim > 0 && head_dim % 8 == 0 && head_dim <= kHeadDim; }
+bool bad_shape(int batch, int heads, int seq) {
+  return seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
+}
+
+// The columns of a call of head width head_dim in chunks of chunk_width
+// (the wrapper's plan), or a Cols with chunks = 0 when this build does not
+// take them: a chunk wider than the build; more than one chunk of a width
+// that is not a multiple of 8; a wide (not narrow) call whose widths are not
+// multiples of 8; more head chunks than a grid axis holds.
+Cols plan_cols(int head_dim, int chunk_width, int narrow, int heads) {
+  Cols cl;
+  cl.chunks = 0;
+  if (head_dim <= 0 || chunk_width <= 0 || chunk_width > kHeadDim) return cl;
+  const int chunks = (head_dim + chunk_width - 1) / chunk_width;
+  if ((chunks > 1 && chunk_width % 8) || (!narrow && (head_dim % 8 || chunk_width % 8)) ||
+      (long long)heads * chunks > 65535 || (chunks == 1 && chunk_width != head_dim))
+    return cl;
+  cl.dim = head_dim;
+  cl.width = chunk_width;
+  cl.chunks = chunks;
+  cl.narrow = narrow != 0;
+  return cl;
+}
 
 template <bool kGated>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
              const void* gate, const void* pad, void* out, int batch, int heads, int seq,
-             int head_dim, float scale, const Strides& s, void* stream) {
-  if (!takes_width(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
-    return (int)cudaErrorInvalidValue;
+             int head_dim, int chunk_width, int narrow, float scale, const Strides& s, void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
+  if (cl.chunks == 0 || bad_shape(batch, heads, seq)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
-  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, scale, s,
-                                              st);
+  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, cl, st);
 }
 
 }  // namespace
 
+// Every entry point takes the call's head width head_dim (D >= 1), the
+// width of its column chunks chunk_width (D itself up to the build's width;
+// past it a multiple of 8 up to the build's width, the last chunk holding
+// what is left) and narrow (1: the operands are read and written element by
+// element, for a D or a stride that is not a multiple of 8 or a base that is
+// not 16-byte aligned). A call the build does not take returns
+// cudaErrorInvalidValue and launches nothing.
+//
 // dtype: must be 0 = float32 (q, k, v and out share it); bias and gate
 // are float32, pad is one byte per key (nonzero = padded); gate and pad may be
 // null. strides: 20 element strides in the order of struct Strides. Returns a
@@ -350,18 +440,19 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
 extern "C" int avex_gated_attention_forward(int dtype, const void* q, const void* k, const void* v,
                                             const void* bias, const void* gate, const void* pad,
                                             void* out, int batch, int heads, int seq, int head_dim,
-                                            float scale, const long long* strides, void* stream) {
+                                            int chunk_width, int narrow, float scale, const long long* strides,
+                                            void* stream) {
   Strides s;
   memcpy(&s, strides, sizeof(Strides));
-  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, scale,
-                        s, stream);
+  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, chunk_width, narrow,
+                        scale, s, stream);
 }
 
 // The bias-free variant. dtype and pad as above; pad may be null. strides: 14
 // element strides, q, k, v and out (batch, head, token) then pad (batch, token).
 extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void* k, const void* v,
                                             const void* pad, void* out, int batch, int heads,
-                                            int seq, int head_dim, float scale,
+                                            int seq, int head_dim, int chunk_width, int narrow, float scale,
                                             const long long* strides, void* stream) {
   Strides s;
   memset(&s, 0, sizeof(Strides));
@@ -371,7 +462,7 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
   memcpy(s.o, strides + 9, 3 * sizeof(long long));
   memcpy(s.pad, strides + 12, 2 * sizeof(long long));
   return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, batch, heads, seq, head_dim,
-                         scale, s, stream);
+                         chunk_width, narrow, scale, s, stream);
 }
 
 // ===========================================================================
@@ -460,45 +551,6 @@ struct BwdStrides {
   long long pad[2];
 };
 
-// Rows r0 .. r0+63 of a [T, dim] operand (row stride rs) into shared memory
-// as kD columns: transposed into trans[kD][64] and/or as rows[64][kD]; rows
-// past seq and the chunks of columns past dim (dc = dim / 8 chunks are the
-// operand's) are zero.
-template <int kD, typename T>
-__device__ __forceinline__ void load_rows(const T* base, long long rs, int r0, int seq, int dc,
-                                          float* trans, float* rows) {
-  for (int c = threadIdx.x; c < 64 * (kD / 8); c += kThreads) {
-    const int r = c % 64;
-    const int chunk = c / 64;
-    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < seq && chunk < dc) load8(base + (long long)(r0 + r) * rs + chunk * 8, x);
-    if (trans) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) trans[(chunk * 8 + j) * 64 + r] = x[j];
-    }
-    if (rows) store8(rows + r * kD + chunk * 8, x);
-  }
-}
-
-// acc[i][j] += Σ_c a[c][ra + i] · b[c][cb + j] over c < kLen, for a tile a
-// with rows of 64 and a tile b with rows of kLdB in shared memory (4 rows x
-// kC columns per thread).
-template <int kLen, int kLdB, int kC>
-__device__ __forceinline__ void accumulate(const float* a, const float* b, int ra, int cb,
-                                           float acc[4][kC]) {
-#pragma unroll 8
-  for (int c = 0; c < kLen; ++c) {
-    const float4 aa = *reinterpret_cast<const float4*>(a + c * 64 + ra);
-    const float av[4] = {aa.x, aa.y, aa.z, aa.w};
-    float bv[kC];
-    load_cols<kC>(b + c * kLdB + cb, bv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
 // acc = the [64][64] product of two transposed [kLen][64] tiles (the
 // contraction runs over kLen head dims); 4 rows x 8 columns per thread.
 template <int kLen>
@@ -548,10 +600,14 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ bias,
                     const float* __restrict__ gate, const uint8_t* __restrict__ pad,
                     T* __restrict__ dq, float* __restrict__ dgate, float* __restrict__ dbias_part,
-                    float* __restrict__ stats, int batch, int heads, int seq, int dim, int items_per_chunk,
-                    float scale, bool dbias_global, BwdStrides s) {
+                    float* __restrict__ stats, int batch, int heads, int seq, int items_per_chunk,
+                    float scale, bool dbias_global, BwdStrides s, Cols cl) {
   constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dQ columns a thread; floats of a q/k/v tile
-  const int dc = dim >> 3;
+  // blockIdx.y is (head, column chunk): the block owns dQ's chunk, and chunk
+  // 0's blocks alone write dbias, dgate and the row statistics.
+  const int n = cl.chunks, own = blockIdx.y % n;
+  const int own_cols = chunk_cols(cl, own);
+  const bool writer = own == 0;
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                   // [D][BQ]  q transposed
   float* do_t = q_t + kDT;             // [D][BQ]  dO transposed
@@ -564,7 +620,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int n_ktiles = (seq + kBlockK - 1) / kBlockK;
   const int seq_pad = n_ktiles * kBlockK;
   const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / n;
   const int chunk = blockIdx.z;
   const int b_end = min(batch, (chunk + 1) * items_per_chunk);
   const int tid = threadIdx.x;
@@ -582,13 +638,46 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   for (int b = chunk * items_per_chunk; b < b_end; ++b) {
     const bool first_item = b == chunk * items_per_chunk;
+    const T* qb = q + b * s.q[0] + h * s.q[1];
+    const T* dob = dout + b * s.dout[0] + h * s.dout[1];
     __syncthreads();  // the previous item's readers of q_t and do_t are done
-    load_rows<kD>(q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dc, q_t, static_cast<float*>(nullptr));
-    load_rows<kD>(dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, dc, do_t,
-                  static_cast<float*>(nullptr));
+    if (n == 1) {
+      load_rows_any<kD>(qb, s.q[2], q0, seq, own_cols, cl.narrow, q_t, static_cast<float*>(nullptr));
+      load_rows_any<kD>(dob, s.dout[2], q0, seq, own_cols, cl.narrow, do_t, static_cast<float*>(nullptr));
+    }
     const T* kb = k + b * s.k[0] + h * s.k[1];
     const T* vb = v + b * s.v[0] + h * s.v[1];
     const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+    // S = Q·Kᵀ and dP = dO·Vᵀ of the key tile at k0 (with_ks: K's own
+    // chunk also row-major into k_s, for dQ += dS·K). With more than one
+    // chunk they sum over the chunks, reloading Q's and dO's.
+    auto products = [&](int k0, float sc[4][8], float dp[4][8], bool with_ks) {
+      if (n == 1) {
+        __syncthreads();
+        load_rows_any<kD>(kb, s.k[2], k0, seq, own_cols, cl.narrow, k_t, with_ks ? k_s : static_cast<float*>(nullptr));
+        load_rows_any<kD>(vb, s.v[2], k0, seq, own_cols, cl.narrow, v_t, static_cast<float*>(nullptr));
+        __syncthreads();
+        product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
+        product<kD>(do_t, v_t, ty * 4, tx * 8, dp);
+        return;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int cc = 0; cc < n; ++cc) {
+        const int col = cc * cl.width, cols = chunk_cols(cl, cc);
+        __syncthreads();
+        load_rows_any<kD>(qb + col, s.q[2], q0, seq, cols, cl.narrow, q_t, static_cast<float*>(nullptr));
+        load_rows_any<kD>(dob + col, s.dout[2], q0, seq, cols, cl.narrow, do_t, static_cast<float*>(nullptr));
+        load_rows_any<kD>(kb + col, s.k[2], k0, seq, cols, cl.narrow, k_t,
+                          with_ks && cc == own ? k_s : static_cast<float*>(nullptr));
+        load_rows_any<kD>(vb + col, s.v[2], k0, seq, cols, cl.narrow, v_t, static_cast<float*>(nullptr));
+        __syncthreads();
+        accumulate<kD, kBlockK, 8>(q_t, k_t, ty * 4, tx * 8, sc);
+        accumulate<kD, kBlockK, 8>(do_t, v_t, ty * 4, tx * 8, dp);
+      }
+    };
 
     float g[4], m[4], l[4], dsum[4];
     bool row_ok[4];
@@ -605,13 +694,8 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
     // Pass 1: row max, row sum and Σ exp(L - m)·dP, online.
     for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-      __syncthreads();
-      load_rows<kD>(kb, s.k[2], k0, seq, dc, k_t, static_cast<float*>(nullptr));
-      load_rows<kD>(vb, s.v[2], k0, seq, dc, v_t, static_cast<float*>(nullptr));
-      __syncthreads();
       float sc[4][8], dp[4][8];
-      product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
-      product<kD>(do_t, v_t, ty * 4, tx * 8, dp);
+      products(k0, sc, dp, false);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = q0 + ty * 4 + i;
@@ -654,13 +738,8 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-      __syncthreads();  // the previous tile's readers of k_t, v_t, k_s and ds_t are done
-      load_rows<kD>(kb, s.k[2], k0, seq, dc, k_t, k_s);
-      load_rows<kD>(vb, s.v[2], k0, seq, dc, v_t, static_cast<float*>(nullptr));
-      __syncthreads();
       float sc[4][8], dp[4][8];
-      product<kD>(q_t, k_t, ty * 4, tx * 8, sc);
-      product<kD>(do_t, v_t, ty * 4, tx * 8, dp);
+      products(k0, sc, dp, true);  // its first barrier: the previous tile's readers of k_s and ds_t are done
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = q0 + ty * 4 + i;
@@ -679,7 +758,8 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           ds_t[(tx * 8 + j) * kBlockQ + ty * 4 + i] = dl[j] * scale;
         }
         if constexpr (kGated) {
-          if (dbias_global) {
+          if (!writer) {
+          } else if (dbias_global) {
             if (row_ok[i]) {
               float* row = dbias_g + (long long)qi * seq;
 #pragma unroll
@@ -702,13 +782,13 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       accumulate<kBlockK, kD, kC>(ds_t, k_s, ty * 4, tx * kC, acc);
     }
 
-    T* dqb = dq + b * s.dq[0] + h * s.dq[1];
+    T* dqb = dq + b * s.dq[0] + h * s.dq[1] + own * cl.width;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
-      if (row_ok[i]) store_cols_below<kC>(dqb + (long long)qi * s.dq[2] + tx * kC, acc[i], tx * kC, dim);
+      if (row_ok[i]) store_cols_any<kC>(dqb + (long long)qi * s.dq[2] + tx * kC, acc[i], tx * kC, own_cols, cl.narrow);
       const float dg_row = row_sum8(dg[i]);
-      if (row_ok[i] && tx == 0) {
+      if (row_ok[i] && tx == 0 && writer) {
         const long long at = ((long long)b * heads + h) * seq + qi;
         stats[at] = shift[i];
         stats[bht + at] = l[i];
@@ -719,7 +799,7 @@ attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 
   if constexpr (kGated) {
-    if (!dbias_global) {
+    if (!dbias_global && writer) {
       __syncthreads();
       for (int c = tid; c < kBlockQ * seq_pad; c += kThreads) {
         const int r = c / seq_pad, key = c % seq_pad;
@@ -735,9 +815,11 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ bias,
                      const float* __restrict__ gate, const uint8_t* __restrict__ pad,
                      T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
-                     int batch, int heads, int seq, int dim, float scale, BwdStrides s) {
+                     int batch, int heads, int seq, float scale, BwdStrides s, Cols cl) {
   constexpr int kC = kD / 8, kDT = BwdTiles<kD>::kDTile;  // dK/dV columns a thread; floats of a q/k/v tile
-  const int dc = dim >> 3;
+  // blockIdx.y is (head, column chunk): the block owns dK's and dV's chunk.
+  const int n = cl.chunks, own = blockIdx.y % n;
+  const int own_cols = chunk_cols(cl, own);
   extern __shared__ __align__(16) float smem[];
   float* k_t = smem;          // [D][BK]  k tile transposed
   float* v_t = k_t + kDT;     // [D][BK]  v tile transposed
@@ -748,7 +830,7 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* pds = do_s + kDT;    // [BQ][BK] P, then dS
 
   const int k0 = blockIdx.x * kBlockK;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / n;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int tx = tid & 7;   // queries tx*8.. (logits), dims tx*kC.. (dK, dV)
@@ -758,8 +840,12 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const long long bht = (long long)batch * heads * seq;
   const long long row0 = ((long long)b * heads + h) * seq;
 
-  load_rows<kD>(k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dc, k_t, static_cast<float*>(nullptr));
-  load_rows<kD>(v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dc, v_t, static_cast<float*>(nullptr));
+  const T* kb = k + b * s.k[0] + h * s.k[1];
+  const T* vb = v + b * s.v[0] + h * s.v[1];
+  if (n == 1) {
+    load_rows_any<kD>(kb, s.k[2], k0, seq, own_cols, cl.narrow, k_t, static_cast<float*>(nullptr));
+    load_rows_any<kD>(vb, s.v[2], k0, seq, own_cols, cl.narrow, v_t, static_cast<float*>(nullptr));
+  }
   const T* qb = q + b * s.q[0] + h * s.q[1];
   const T* dob = dout + b * s.dout[0] + h * s.dout[1];
 
@@ -774,13 +860,35 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int j = 0; j < kC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   for (int q0 = 0; q0 < seq; q0 += kBlockQ) {
-    __syncthreads();  // the previous tile's readers of the q/dO tiles and pds are done
-    load_rows<kD>(qb, s.q[2], q0, seq, dc, q_t, q_s);
-    load_rows<kD>(dob, s.dout[2], q0, seq, dc, do_t, do_s);
-    __syncthreads();
     float st[4][8], dpt[4][8];  // [key][query]
-    product<kD>(k_t, q_t, ty * 4, tx * 8, st);
-    product<kD>(v_t, do_t, ty * 4, tx * 8, dpt);
+    if (n == 1) {
+      __syncthreads();  // the previous tile's readers of the q/dO tiles and pds are done
+      load_rows_any<kD>(qb, s.q[2], q0, seq, own_cols, cl.narrow, q_t, q_s);
+      load_rows_any<kD>(dob, s.dout[2], q0, seq, own_cols, cl.narrow, do_t, do_s);
+      __syncthreads();
+      product<kD>(k_t, q_t, ty * 4, tx * 8, st);
+      product<kD>(v_t, do_t, ty * 4, tx * 8, dpt);
+    } else {
+      // Sᵀ and dPᵀ over every column chunk, the K, V, q and dO chunks
+      // reloaded for each; q's and dO's own chunk also row-major (q_s, do_s).
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int cc = 0; cc < n; ++cc) {
+        const int col = cc * cl.width, cols = chunk_cols(cl, cc);
+        __syncthreads();
+        load_rows_any<kD>(kb + col, s.k[2], k0, seq, cols, cl.narrow, k_t, static_cast<float*>(nullptr));
+        load_rows_any<kD>(vb + col, s.v[2], k0, seq, cols, cl.narrow, v_t, static_cast<float*>(nullptr));
+        load_rows_any<kD>(qb + col, s.q[2], q0, seq, cols, cl.narrow, q_t,
+                          cc == own ? q_s : static_cast<float*>(nullptr));
+        load_rows_any<kD>(dob + col, s.dout[2], q0, seq, cols, cl.narrow, do_t,
+                          cc == own ? do_s : static_cast<float*>(nullptr));
+        __syncthreads();
+        accumulate<kD, kBlockQ, 8>(k_t, q_t, ty * 4, tx * 8, st);
+        accumulate<kD, kBlockQ, 8>(v_t, do_t, ty * 4, tx * 8, dpt);
+      }
+    }
     float dl[4][8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -819,14 +927,14 @@ attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     accumulate<kBlockQ, kD, kC>(pds, q_s, ty * 4, tx * kC, dk_acc);  // dK += dSᵀ·Q
   }
 
-  T* dkb = dk + b * s.dk[0] + h * s.dk[1];
-  T* dvb = dv + b * s.dv[0] + h * s.dv[1];
+  T* dkb = dk + b * s.dk[0] + h * s.dk[1] + own * cl.width;
+  T* dvb = dv + b * s.dv[0] + h * s.dv[1] + own * cl.width;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!key_ok[i]) continue;
     const int key = k0 + ty * 4 + i;
-    store_cols_below<kC>(dkb + (long long)key * s.dk[2] + tx * kC, dk_acc[i], tx * kC, dim);
-    store_cols_below<kC>(dvb + (long long)key * s.dv[2] + tx * kC, dv_acc[i], tx * kC, dim);
+    store_cols_any<kC>(dkb + (long long)key * s.dk[2] + tx * kC, dk_acc[i], tx * kC, own_cols, cl.narrow);
+    store_cols_any<kC>(dvb + (long long)key * s.dv[2] + tx * kC, dv_acc[i], tx * kC, own_cols, cl.narrow);
   }
 }
 
@@ -845,7 +953,7 @@ template <typename T, bool kGated, int kD>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* dout,
                             const void* bias, const void* gate, const void* pad, void* dq,
                             void* dk, void* dv, void* dbias_part, void* dbias, void* dgate,
-                            void* stats, int batch, int heads, int seq, int dim, float scale,
+                            void* stats, int batch, int heads, int seq, const Cols& cl, float scale,
                             int items_per_chunk, const BwdStrides& s, cudaStream_t stream) {
   const int tiles = (seq + kBlockQ - 1) / kBlockQ;
   const int chunks = (batch + items_per_chunk - 1) / items_per_chunk;
@@ -859,19 +967,19 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
   err = cudaFuncSetAttribute(attention_dkv_kernel<T, kGated, kD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
   if (err != cudaSuccess) return err;
-  attention_dq_kernel<T, kGated, kD><<<dim3(tiles, heads, chunks), kThreads, dq_smem, stream>>>(
+  attention_dq_kernel<T, kGated, kD><<<dim3(tiles, heads * cl.chunks, chunks), kThreads, dq_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dq),
       static_cast<float*>(dgate), static_cast<float*>(chunks > 1 ? dbias_part : dbias),
-      static_cast<float*>(stats), batch, heads, seq, dim, items_per_chunk, scale, dbias_global, s);
+      static_cast<float*>(stats), batch, heads, seq, items_per_chunk, scale, dbias_global, s, cl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_dkv_kernel<T, kGated, kD><<<dim3(tiles, heads, batch), kThreads, dkv_smem, stream>>>(
+  attention_dkv_kernel<T, kGated, kD><<<dim3(tiles, heads * cl.chunks, batch), kThreads, dkv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(bias),
       static_cast<const float*>(gate), static_cast<const uint8_t*>(pad), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<const float*>(stats), batch, heads, seq, dim, scale, s);
+      static_cast<T*>(dv), static_cast<const float*>(stats), batch, heads, seq, scale, s, cl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (kGated && chunks > 1) {
@@ -887,16 +995,15 @@ template <bool kGated>
 int dispatch_backward(int dtype, const void* q, const void* k, const void* v, const void* dout,
                       const void* bias, const void* gate, const void* pad, void* dq, void* dk,
                       void* dv, void* dbias_part, void* dbias, void* dgate, void* stats, int batch,
-                      int heads, int seq, int head_dim, float scale, int items_per_chunk,
-                      const BwdStrides& s, void* stream) {
-  if (!takes_width(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 ||
-      heads > 65535 || items_per_chunk <= 0)
-    return (int)cudaErrorInvalidValue;
+                      int heads, int seq, int head_dim, int chunk_width, int narrow, float scale,
+                      int items_per_chunk, const BwdStrides& s, void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
+  if (cl.chunks == 0 || bad_shape(batch, heads, seq) || items_per_chunk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
-  return (int)launch_backward<float, kGated, kHeadDim>(q, k, v, dout, bias, gate, pad, dq, dk, dv,
-                                                       dbias_part, dbias, dgate, stats, batch, heads, seq,
-                                                       head_dim, scale, items_per_chunk, s, st);
+  return (int)launch_backward<float, kGated, kHeadDim>(q, k, v, dout, bias, gate, pad, dq, dk, dv, dbias_part,
+                                                       dbias, dgate, stats, batch, heads, seq, cl, scale,
+                                                       items_per_chunk, s, st);
 }
 
 }  // namespace
@@ -916,15 +1023,15 @@ extern "C" int avex_attention_backward(int dtype, int gated, const void* q, cons
                                        const void* gate, const void* pad, void* dq, void* dk,
                                        void* dv, void* dbias_part, void* dbias, void* dgate,
                                        void* stats, int batch, int heads, int seq, int head_dim,
-                                       float scale, int items_per_chunk,
+                                       int chunk_width, int narrow, float scale, int items_per_chunk,
                                        const long long* strides, void* stream) {
   BwdStrides s;
   memcpy(&s, strides, sizeof(BwdStrides));
   if (gated)
     return dispatch_backward<true>(dtype, q, k, v, dout, bias, gate, pad, dq, dk, dv, dbias_part,
-                                   dbias, dgate, stats, batch, heads, seq, head_dim, scale,
-                                   items_per_chunk, s, stream);
+                                   dbias, dgate, stats, batch, heads, seq, head_dim, chunk_width, narrow,
+                                   scale, items_per_chunk, s, stream);
   return dispatch_backward<false>(dtype, q, k, v, dout, nullptr, nullptr, pad, dq, dk, dv,
                                   nullptr, nullptr, nullptr, stats, batch, heads, seq, head_dim,
-                                  scale, 1, s, stream);
+                                  chunk_width, narrow, scale, 1, s, stream);
 }

@@ -12,15 +12,34 @@
 //   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4, split q/k/v [B,H,T,D])
 // The layouts are only strides here: every operand is a base pointer plus
 // (batch, head, token) strides with the head dimension contiguous. Every
-// kernel, gated or bias-free, takes any head width D that is a multiple of 8
-// from 8 to 128. The width kD is a template parameter, and each build of
-// this source instantiates one, chosen with -DAVEX_HEAD_DIM: 32, 64, 80, 96
-// or 128, one library a width, built in parallel. D runs on the smallest kD
-// that holds it, its columns D .. kD-1 zero-filled on load (per 16-byte
-// chunk, from the column index: in the fused layout they are the next
-// head's) and never stored; zero columns add 0 to q·k, to every product and
-// to Δ, so the result is exact. fp32 operands stay on gated_attention.cu's
-// FMA body.
+// kernel, gated or bias-free, takes any head width D >= 1. The width kD is a
+// template parameter, and each build of this source instantiates one, chosen
+// with -DAVEX_HEAD_DIM: 32, 64, 80, 96 or 128, one library a width, built in
+// parallel. A D that is a multiple of 8 up to 128, with 16-byte aligned rows,
+// runs on the kernels of the smallest kD that holds it, its columns D .. kD-1
+// zero-filled on load (per 16-byte chunk, from the column index: in the
+// fused layout they are the next head's) and never stored; zero columns add
+// 0 to q·k, to every product and to Δ, so the result is exact. Any other
+// call runs on the general kernels (forward_any_kernel, dq_any_kernel,
+// dkv_any_kernel, dbias_any_kernel), with two more freedoms:
+//   - narrow rows: a D or a stride that is not a multiple of 8 elements, or
+//     a base off a 16-byte boundary (dh 12 in [B, T, 3E]: head h starts at
+//     24·h bytes), is read element by element into the same zero-filled
+//     shared tiles and written element by element; the wrapper copies no
+//     operand to pad it;
+//   - column chunks: past 128, D is cut into n = ceil(D/128) chunks of a
+//     multiple of 8 (each starts 16-byte aligned; the last holds what is
+//     left), run on the build that holds one. The block of chunk c owns O_c
+//     (or dQ_c, dK_c, dV_c) and walks, for each tile of keys (or queries),
+//     every chunk in turn, its own last: S = Σ Q_cc·K_ccᵀ and dP = Σ dO_cc·
+//     V_ccᵀ sum over the whole width from streamed tiles, then the chunk's
+//     own product. S is recomputed by every chunk's block (n times the QKᵀ
+//     work); Δ = rowsum(dO ∘ O) is taken over the whole width; the LSE,
+//     Δ, dgate and dbias are written once (chunk 0's blocks; dbias has no
+//     chunk axis). The dK/dV work runs as two launches, dV then dK, each
+//     about half the registers of dkv_kernel, whose four accumulators pass
+//     255 registers once the chunk sums are carried across steps.
+// fp32 operands stay on gated_attention.cu's FMA body.
 //
 // Numerics, as the TPU kernels (pallas_attention.py:126-158, :344-430,
 // :524-585, :765-843): fp32 logits and softmax; P rounded to bf16 before P·V
@@ -286,6 +305,73 @@ __device__ __forceinline__ void store_tile(bf16* base, long long rs, int r0, int
     if (r0 + row < seq && chunk < dc)
       *reinterpret_cast<uint4*>(base + (long long)(r0 + row) * rs + chunk * 8) =
           *reinterpret_cast<const uint4*>(tile + swz<kD>(row, chunk));
+  }
+}
+
+// The columns of a call on the general kernels (below): head width D, cut
+// into `chunks` column chunks of `width` columns (the last holds what is
+// left), each run on this build's kD. narrow: the operands are read and
+// written element by element (D, the chunk width or a stride not a multiple
+// of 8, or a base not 16-byte aligned), else in 16-byte runs.
+struct Cols {
+  int dim = 0, width = 0, chunks = 1;
+  bool narrow = false;
+};
+
+// Columns of chunk cc.
+__device__ __forceinline__ int chunk_cols(const Cols& cl, int cc) { return min(cl.width, cl.dim - cc * cl.width); }
+
+// Column chunk of step `step` of a block that owns chunk `own`: the chunks
+// in turn, the block's own one last, so that its tiles are the ones in
+// shared memory when the chunk's product (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) runs.
+__device__ __forceinline__ int step_chunk(int step, int own, int chunks) { return (own + 1 + step % chunks) % chunks; }
+
+// load_tile of columns 0 .. cols-1 (the rest zero): in 16-byte runs by
+// cp.async unless narrow, else element by element through registers (a
+// synchronous store, visible after the next __syncthreads as the copies are).
+template <int kD, int kTileRows, int kThreads>
+__device__ __forceinline__ void load_tile_any(bf16* tile, const bf16* base, long long rs, int r0, int seq, int cols,
+                                              bool narrow) {
+  if (!narrow) {
+    load_tile<kD, kTileRows, kThreads>(tile, base, rs, r0, seq, cols >> 3);
+    return;
+  }
+  constexpr int kChunks = Layout<kD>::kChunks;
+  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
+    const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
+    union {
+      uint4 v;
+      unsigned short h[8];
+    } x;
+    const unsigned short* src = reinterpret_cast<const unsigned short*>(base) + (long long)(r0 + row) * rs + chunk * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x.h[e] = (r0 + row < seq && chunk * 8 + e < cols) ? src[e] : (unsigned short)0;
+    *reinterpret_cast<uint4*>(tile + swz<kD>(row, chunk)) = x.v;
+  }
+}
+
+// store_tile of columns 0 .. cols-1: in 16-byte runs unless narrow, else
+// element by element.
+template <int kD, int kTileRows, int kThreads>
+__device__ __forceinline__ void store_tile_any(bf16* base, long long rs, int r0, int seq, int cols, bool narrow,
+                                               const bf16* tile) {
+  if (!narrow) {
+    store_tile<kD, kTileRows, kThreads>(base, rs, r0, seq, cols >> 3, tile);
+    return;
+  }
+  constexpr int kChunks = Layout<kD>::kChunks;
+  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
+    const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
+    if (r0 + row >= seq || chunk * 8 >= cols) continue;
+    union {
+      uint4 v;
+      unsigned short h[8];
+    } x;
+    x.v = *reinterpret_cast<const uint4*>(tile + swz<kD>(row, chunk));
+    unsigned short* dst = reinterpret_cast<unsigned short*>(base) + (long long)(r0 + row) * rs + chunk * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (chunk * 8 + e < cols) dst[e] = x.h[e];
   }
 }
 
@@ -573,6 +659,10 @@ struct Shape {
   static constexpr size_t kDkvSmem = 2 * kOwnBytes + 4 * L::kTileBytes + 6 * kRows * sizeof(float);
   static constexpr size_t kDbiasSmem =
       2 * (2 * kOwnBytes + 2 * L::kTileBytes) + 2 * (kRows + 3 * kOwn) * sizeof(float);
+  // The general kernels double-buffer their own tiles too (a chunk a step).
+  static constexpr size_t kFwdAnySmem = kFwdSmem + kOwnBytes;
+  static constexpr size_t kDqAnySmem = kDqSmem + 2 * kOwnBytes;
+  static constexpr size_t kDkvAnySmem = kDkvSmem + 2 * kOwnBytes;
 };
 
 // One key tile of the forward for a warp: S = Q·Kᵀ, the online softmax, and
@@ -580,14 +670,28 @@ struct Shape {
 // so neither the key bias nor a predicate is applied. kGated: the logits add
 // bf·gl, the bias fragments times the rows' gate·log2e.
 template <int kD, int kM, int kN, bool kFull, bool kGated>
+__device__ __forceinline__ void softmax_pv(float sc[][kN / 8][4], const bf16* vt, const float* kbias,
+                                           const float bf[][kN / 8][4], const float gl[][2], int live, float c,
+                                           float o[][kD / 8][4], float m[][2], float l[][2]);
+
+template <int kD, int kM, int kN, bool kFull, bool kGated>
 __device__ __forceinline__ void forward_tile(const uint32_t qf[][kD / 16][4], const bf16* kt, const bf16* vt,
                                              const float* kbias, const float bf[][kN / 8][4], const float gl[][2],
                                              int live, float c, float o[][kD / 8][4], float m[][2], float l[][2]) {
-  constexpr int kNB = kN / 16;
-  const int t = threadIdx.x & 3;
   float sc[kM][kN / 8][4];
   zero<kM, kN>(sc);
-  mma_abt<kD, kM, kNB, kFull>(sc, qf, kt, live);
+  mma_abt<kD, kM, kN / 16, kFull>(sc, qf, kt, live);
+  softmax_pv<kD, kM, kN, kFull, kGated>(sc, vt, kbias, bf, gl, live, c, o, m, l);
+}
+
+// The rest of a forward tile once S = Q·Kᵀ is in sc: the logits, the online
+// softmax and O += P·V.
+template <int kD, int kM, int kN, bool kFull, bool kGated>
+__device__ __forceinline__ void softmax_pv(float sc[][kN / 8][4], const bf16* vt, const float* kbias,
+                                           const float bf[][kN / 8][4], const float gl[][2], int live, float c,
+                                           float o[][kD / 8][4], float m[][2], float l[][2]) {
+  constexpr int kNB = kN / 16;
+  const int t = threadIdx.x & 3;
 #pragma unroll
   for (int mm = 0; mm < kM; ++mm) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -746,6 +850,129 @@ forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   __syncthreads();
   store_tile<kD, kOwn, kThreads>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dc, q_s);
   if (out_rest) store_tile<kD, kOwn, kThreads>(out_rest + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dc, k_s);
+}
+
+// The forward at any head width (the general kernels): one block per (query
+// tile, head and column chunk, item) owns its chunk c of the output. It walks
+// the key tiles, and for each tile the chunks in turn (its own last): step
+// by step S += Q_cc·K_ccᵀ from two streamed tiles, so that S sums over the
+// whole width; at the tile's last step the online softmax and O_c += P·V_c.
+// With one chunk Q is loaded once. The log-sum-exp is written by chunk 0.
+template <int kD, int kWarps, int kM, int kN, bool kGated>
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
+forward_any_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   const uint8_t* __restrict__ pad, bf16* __restrict__ out, bf16* __restrict__ out_rest,
+                   float* __restrict__ lse, int heads, int seq, float scale, FwdStrides s, Gated gd, Cols cl) {
+  using S = Shape<kD, kWarps, kM, kN>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kLd = Layout<kD>::kLd, kKeyTile = kN * kLd;
+  constexpr int kOwnTile = kOwn * kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                      // [2][kOwn][kD]
+  bf16* k_s = q_s + 2 * kOwnTile;                                 // [2][kN][kD]
+  bf16* v_s = k_s + 2 * kKeyTile;                                 // [2][kN][kD]
+  float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kKeyTile);  // [2][kN]
+
+  const int n = cl.chunks, own = blockIdx.y % n, h = blockIdx.y / n, b = blockIdx.z;
+  const int q0 = blockIdx.x * kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = q0 + row0 < seq;
+  const bf16* qb = q + b * s.q[0] + h * s.q[1];
+  const bf16* kb = k + b * s.k[0] + h * s.k[1];
+  const bf16* vb = v + b * s.v[0] + h * s.v[1] + own * cl.width;
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const int n_tiles = (seq + kN - 1) / kN, steps = n_tiles * n, own_cols = chunk_cols(cl, own);
+  const float c = scale * kLog2e;
+
+  const float* bias_row[kM][2];
+  float gl[kM][2];
+  if (kGated) {
+    bias_rows<kM>(gd, h, q0 + row0, seq, bias_row);
+    gate_rows<kM>(gd, b, h, q0 + row0, seq, gl);
+  }
+
+  // Step st's tiles: Q_cc (each step with more than one chunk, once with
+  // one), K_cc of its key tile, and at the tile's first step V_c and the key
+  // bias.
+  auto issue = [&](int st) {
+    const int it = st / n, cc = step_chunk(st, own, n), col = cc * cl.width, cols = chunk_cols(cl, cc);
+    if (n > 1 || st == 0)
+      load_tile_any<kD, kOwn, kThreads>(q_s + (st & 1) * kOwnTile, qb + col, s.q[2], q0, seq, cols, cl.narrow);
+    load_tile_any<kD, kN, kThreads>(k_s + (st & 1) * kKeyTile, kb + col, s.k[2], it * kN, seq, cols, cl.narrow);
+    if (st % n == 0) {
+      load_tile_any<kD, kN, kThreads>(v_s + (it & 1) * kKeyTile, vb, s.v[2], it * kN, seq, own_cols, cl.narrow);
+      load_key_bias<kN, kThreads>(kbias_s + (it & 1) * kN, pad_b, s.pad[1], it * kN, seq);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
+  float o[kM][kD / 8][4], sc[kM][kN / 8][4];
+  zero<kM, kD>(o);
+  float m[kM][2], l[kM][2];
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm) m[mm][0] = m[mm][1] = -INFINITY, l[mm][0] = l[mm][1] = 0.f;
+
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int it = st / n;
+      const bool full = (it + 1) * kN <= seq;
+      const int live = full ? kN / 16 : live_groups<kN>(it * kN, seq);
+      if (st % n == 0) zero<kM, kN>(sc);
+      mma_abt_stream_live<kD, kM, kN / 16>(sc, q_s + (n > 1 ? st & 1 : 0) * kOwnTile, row0,
+                                          k_s + (st & 1) * kKeyTile, live);  // S += Q_cc·K_ccᵀ
+      if (st % n == n - 1) {
+        const bf16* vt = v_s + (it & 1) * kKeyTile;
+        const float* kbias = kbias_s + (it & 1) * kN;
+        float bf[kM][kN / 8][4];
+        if (kGated) {
+          if (full)
+            fetch_bias<kM, kN, true>(bf, bias_row, gd.bs[2], it * kN, seq, gd.vec2);
+          else
+            fetch_bias<kM, kN, false>(bf, bias_row, gd.bs[2], it * kN, seq, gd.vec2);
+        }
+        if (!pad_b && full)
+          softmax_pv<kD, kM, kN, true, kGated>(sc, vt, kbias, bf, gl, live, c, o, m, l);
+        else
+          softmax_pv<kD, kM, kN, false, kGated>(sc, vt, kbias, bf, gl, live, c, o, m, l);
+      }
+    }
+    __syncthreads();  // every warp is done with this step's buffers
+  }
+
+  if (active) {
+    float inv[kM][2];
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[mm][i] = quad_sum(l[mm][i]);
+        inv[mm][i] = 1.f / l[mm][i];  // a fully padded row: 0 · inf = NaN, as the softmax gives
+      }
+    stage<kD, kM>(q_s, row0, o, inv);
+    if (out_rest) stage<kD, kM, true>(k_s, row0, o, inv);
+    if (lse && own == 0 && t == 0) {
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+          if (qi < seq) lse[((long long)b * heads + h) * seq + qi] = (m[mm][i] + log2f(l[mm][i])) * kLn2;
+        }
+    }
+  }
+  __syncthreads();
+  const long long o_at = b * s.o[0] + h * s.o[1] + own * cl.width;
+  store_tile_any<kD, kOwn, kThreads>(out + o_at, s.o[2], q0, seq, own_cols, cl.narrow, q_s);
+  if (out_rest) store_tile_any<kD, kOwn, kThreads>(out_rest + o_at, s.o[2], q0, seq, own_cols, cl.narrow, k_s);
 }
 
 template <int kD, int kWarps, int kM, bool kGated>
@@ -934,6 +1161,197 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   store_tile<kD, kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, dc, q_s);
 }
 
+// Σ dO·(O + rest) over the columns part·8 + {0..7} + 8·per·i below dim of one
+// row (rest may be null): 16-byte loads unless narrow, else element by element.
+__device__ __forceinline__ float row_delta(const bf16* o, const bf16* rest, const bf16* d, int dim, bool narrow,
+                                           int part, int per) {
+  float acc = 0.f;
+  for (int c0 = part * 8; c0 < dim; c0 += per * 8) {
+    if (!narrow) {
+      float o8[8], d8[8];
+      load8(o + c0, o8);
+      load8(d + c0, d8);
+      if (rest) {
+        float r8[8];
+        load8(rest + c0, r8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o8[e] += r8[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(o8[e], d8[e], acc);
+    } else {
+      for (int e = 0; e < 8 && c0 + e < dim; ++e) {
+        const float oe = __bfloat162float(o[c0 + e]) + (rest ? __bfloat162float(rest[c0 + e]) : 0.f);
+        acc = fmaf(oe, __bfloat162float(d[c0 + e]), acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// The dQ kernel at any head width: one block per (query tile, head and
+// column chunk, item) owns dQ_c. Δ = rowsum(dO ∘ O) over the whole width;
+// then, key tile by key tile, the chunks in turn (its own last): S += Q_cc·
+// K_ccᵀ and dP += dO_cc·V_ccᵀ, and at the tile's last step dS and dQ_c +=
+// dS·K_c. Chunk 0 writes Δ and dgate.
+template <int kD, int kWarps, int kM, bool kGated>
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
+dq_any_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+              const bf16* __restrict__ out, const bf16* __restrict__ out_rest, const bf16* __restrict__ dout,
+              const uint8_t* __restrict__ pad, const float* __restrict__ lse, bf16* __restrict__ dq,
+              float* __restrict__ delta, float* __restrict__ dgate, int heads, int seq, float scale, BwdStrides s,
+              Gated gd, Cols cl) {
+  using S = Shape<kD, kWarps, kM>;
+  using L = Layout<kD>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = L::kTile, kOwnTile = kOwn * L::kLd;
+  static_assert(kThreads == kOwn || kThreads == 2 * kOwn, "one or two threads a row for Δ");
+  constexpr int kPerRow = kThreads / kOwn;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][kD]
+  bf16* do_s = q_s + 2 * kOwnTile;                               // [2][kOwn][kD]
+  bf16* k_s = do_s + 2 * kOwnTile;                               // [2][64][kD]
+  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][kD]
+  float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kTile);    // [2][64]
+  float* delta_s = kbias_s + 2 * kRows;                          // [kOwn]
+
+  const int n = cl.chunks, own = blockIdx.y % n, h = blockIdx.y / n, b = blockIdx.z;
+  const int q0 = blockIdx.x * kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = q0 + row0 < seq;
+  const bf16* qb = q + b * s.q[0] + h * s.q[1];
+  const bf16* kb = k + b * s.k[0] + h * s.k[1];
+  const bf16* vb = v + b * s.v[0] + h * s.v[1];
+  const bf16* dob = dout + b * s.dout[0] + h * s.dout[1];
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const long long stat0 = ((long long)b * heads + h) * seq;
+  const int n_tiles = (seq + kRows - 1) / kRows, steps = n_tiles * n;
+  const float c = scale * kLog2e;
+
+  auto issue = [&](int st) {
+    const int it = st / n, cc = step_chunk(st, own, n), col = cc * cl.width, cols = chunk_cols(cl, cc);
+    const int slot = st & 1;
+    if (n > 1 || st == 0) {
+      load_tile_any<kD, kOwn, kThreads>(q_s + slot * kOwnTile, qb + col, s.q[2], q0, seq, cols, cl.narrow);
+      load_tile_any<kD, kOwn, kThreads>(do_s + slot * kOwnTile, dob + col, s.dout[2], q0, seq, cols, cl.narrow);
+    }
+    load_tile_any<kD, kRows, kThreads>(k_s + slot * kTile, kb + col, s.k[2], it * kRows, seq, cols, cl.narrow);
+    load_tile_any<kD, kRows, kThreads>(v_s + slot * kTile, vb + col, s.v[2], it * kRows, seq, cols, cl.narrow);
+    if (st % n == 0) load_key_bias<kRows, kThreads>(kbias_s + (it & 1) * kRows, pad_b, s.pad[1], it * kRows, seq);
+  };
+  issue(0);
+  cp_async_commit();
+
+  {  // Δ over the whole width, kPerRow threads a row
+    const int r = threadIdx.x / kPerRow, part = threadIdx.x % kPerRow, qi = q0 + r;
+    float acc = 0.f;
+    if (qi < seq) {
+      const long long at = b * s.o[0] + h * s.o[1] + (long long)qi * s.o[2];
+      acc = row_delta(out + at, out_rest ? out_rest + at : nullptr, dob + (long long)qi * s.dout[2], cl.dim,
+                      cl.narrow, part, kPerRow);
+    }
+    if (kPerRow == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      delta_s[r] = acc;
+      if (qi < seq && own == 0) delta[stat0 + qi] = acc;
+    }
+  }
+  float lse2[kM][2], dl[kM][2];
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+      lse2[mm][i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+    }
+  const float* bias_row[kM][2];
+  float gl[kM][2], dg[kM][2];
+  if (kGated) {
+    bias_rows<kM>(gd, h, q0 + row0, seq, bias_row);
+    gate_rows<kM>(gd, b, h, q0 + row0, seq, gl);
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm) dg[mm][0] = dg[mm][1] = 0.f;
+  }
+
+  float acc[kM][kD / 8][4], sc[kM][8][4], dp[kM][8][4];
+  zero<kM, kD>(acc);
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int it = st / n, slot = st & 1, own_slot = n > 1 ? slot : 0;
+      if (st == 0) {
+#pragma unroll
+        for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) dl[mm][i] = delta_s[row0 + 16 * mm + g + 8 * i];
+      }
+      if (st % n == 0) {
+        zero<kM>(sc);
+        zero<kM>(dp);
+      }
+      const int live = live_groups(it * kRows, seq);
+      const bf16* kt = k_s + slot * kTile;
+      mma_abt_stream_live<kD, kM, 4>(sc, q_s + own_slot * kOwnTile, row0, kt, live);               // S += Q·Kᵀ
+      mma_abt_stream_live<kD, kM, 4>(dp, do_s + own_slot * kOwnTile, row0, v_s + slot * kTile, live);  // dP += dO·Vᵀ
+      if (st % n == n - 1) {
+        const float* kbias = kbias_s + (it & 1) * kRows;
+        float bf[kM][8][4];
+        if (kGated) {
+          if ((it + 1) * kRows <= seq)
+            fetch_bias<kM, kRows, true>(bf, bias_row, gd.bs[2], it * kRows, seq, gd.vec2);
+          else
+            fetch_bias<kM, kRows, false>(bf, bias_row, gd.bs[2], it * kRows, seq, gd.vec2);
+        }
+#pragma unroll
+        for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              const float kbv = kbias[8 * j + 2 * t + (e & 1)];
+              const float x = kGated ? fmaf(sc[mm][j][e], c, bf[mm][j][e] * gl[mm][i] + kbv)
+                                     : fmaf(sc[mm][j][e], c, kbv);
+              const float dlv = exp2_approx(x - lse2[mm][i]) * (dp[mm][j][e] - dl[mm][i]);  // dL = P∘(dP − Δ)
+              if (kGated) dg[mm][i] = fmaf(bf[mm][j][e], dlv, dg[mm][i]);
+              sc[mm][j][e] = dlv * scale;  // dS
+            }
+        uint32_t dsf[kM][4][4];
+        to_a<kM, 4>(dsf, sc);
+        mma_ab_live<kD, kM, 4>(acc, dsf, kt, live);  // dQ_c += dS·K_c: the last step's chunk is the block's own
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    float ones[kM][2];
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
+    stage<kD, kM>(q_s, row0, acc, ones);
+    if (kGated && dgate) {
+#pragma unroll
+      for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float sum = quad_sum(dg[mm][i]);
+          const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+          if (t == 0 && qi < seq && own == 0) dgate[stat0 + qi] = sum;
+        }
+    }
+  }
+  __syncthreads();
+  store_tile_any<kD, kOwn, kThreads>(dq + b * s.dq[0] + h * s.dq[1] + own * cl.width, s.dq[2], q0, seq,
+                                     chunk_cols(cl, own), cl.narrow, q_s);
+}
+
 template <int kD, int kWarps, int kM, bool kGated>
 __global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -1097,6 +1515,142 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   store_tile<kD, kOwn, kThreads>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, dc, v_s);
 }
 
+// The dK/dV kernel at any head width, in two launches (kDk: the dK one;
+// else the dV one), each at about half the registers of dkv_kernel, whose
+// four accumulators together pass 255 registers once the chunks' sums are
+// carried across steps: one block per (key tile, head and column chunk,
+// item) owns dK_c or dV_c. Query tile by query tile, the chunks in turn
+// (its own last): Sᵀ += K_cc·Q_ccᵀ (and, for dK, dPᵀ += V_cc·dO_ccᵀ); at the
+// tile's last step Pᵀ, then dV_c += Pᵀ·dO_c, or dSᵀ and dK_c += dSᵀ·Q_c. The
+// gated variant reads each bias value from L2 where it is used.
+template <int kD, int kWarps, int kM, bool kGated, bool kDk>
+__global__ void __launch_bounds__(32 * kWarps, 1)  // at 64 too: the thread count alone held it below its need
+dkv_any_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int seq,
+               float scale, BwdStrides s, Gated gd, Cols cl) {
+  using S = Shape<kD, kWarps, kM>;
+  using L = Layout<kD>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = L::kTile, kOwnTile = kOwn * L::kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][kD]
+  bf16* v_s = k_s + 2 * kOwnTile;                                // [2][kOwn][kD] (dK)
+  bf16* q_s = v_s + 2 * kOwnTile;                                // [2][64][kD]
+  bf16* do_s = q_s + 2 * kTile;                                  // [2][64][kD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile);     // [2][64], log2 units
+  float* dl_s = lse_s + 2 * kRows;                               // [2][64] (dK)
+  float* gl_s = dl_s + 2 * kRows;                                // [2][64]
+
+  const int n = cl.chunks, own = blockIdx.y % n, h = blockIdx.y / n, b = blockIdx.z;
+  const int k0 = blockIdx.x * kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = k0 + row0 < seq;
+  const bf16* qb = q + b * s.q[0] + h * s.q[1];
+  const bf16* kb = k + b * s.k[0] + h * s.k[1];
+  const bf16* vb = v + b * s.v[0] + h * s.v[1];
+  const bf16* dob = dout + b * s.dout[0] + h * s.dout[1];
+  const long long stat0 = ((long long)b * heads + h) * seq;
+  const int n_tiles = (seq + kRows - 1) / kRows, steps = n_tiles * n;
+  const float c = scale * kLog2e;
+
+  auto issue = [&](int st) {
+    const int it = st / n, cc = step_chunk(st, own, n), col = cc * cl.width, cols = chunk_cols(cl, cc);
+    const int slot = st & 1;
+    if (n > 1 || st == 0) {
+      load_tile_any<kD, kOwn, kThreads>(k_s + slot * kOwnTile, kb + col, s.k[2], k0, seq, cols, cl.narrow);
+      if (kDk) load_tile_any<kD, kOwn, kThreads>(v_s + slot * kOwnTile, vb + col, s.v[2], k0, seq, cols, cl.narrow);
+    }
+    load_tile_any<kD, kRows, kThreads>(q_s + slot * kTile, qb + col, s.q[2], it * kRows, seq, cols, cl.narrow);
+    if (kDk || cc == own)  // the dV launch reads dO's own chunk alone
+      load_tile_any<kD, kRows, kThreads>(do_s + slot * kTile, dob + col, s.dout[2], it * kRows, seq, cols,
+                                         cl.narrow);
+    if (st % n == 0) {  // the query tile's statistics: past seq an LSE of +inf (P = 0) and a Δ of 0
+      const int sl = (it & 1) * kRows;
+      for (int i = threadIdx.x; i < kRows; i += kThreads) {
+        const int qi = it * kRows + i;
+        lse_s[sl + i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+        if (kDk) dl_s[sl + i] = qi < seq ? delta[stat0 + qi] : 0.f;
+        if (kGated) gl_s[sl + i] = gate_at(gd, b, h, min(qi, seq - 1)) * kLog2e;
+      }
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
+  float kbias[kM][2];
+  const float* bias_col[kM][2];
+#pragma unroll
+  for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k0 + row0 + 16 * mm + g + 8 * i;
+      kbias[mm][i] = (key >= seq || (pad && pad[b * s.pad[0] + key * s.pad[1]])) ? -INFINITY : 0.f;
+      if (kGated) bias_col[mm][i] = gd.bias + h * gd.bs[0] + min(key, seq - 1) * gd.bs[2];
+    }
+
+  float acc[kM][kD / 8][4], st_[kM][8][4], dpt[kM][8][4];  // acc: dK_c or dV_c
+  zero<kM, kD>(acc);
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int it = st / n, slot = st & 1, own_slot = n > 1 ? slot : 0;
+      const int live = live_groups(it * kRows, seq);
+      const bf16* qt = q_s + slot * kTile;
+      const bf16* dot = do_s + slot * kTile;
+      if (st % n == 0) {
+        zero<kM>(st_);
+        if (kDk) zero<kM>(dpt);
+      }
+      mma_abt_stream_live<kD, kM, 4>(st_, k_s + own_slot * kOwnTile, row0, qt, live);  // Sᵀ += K·Qᵀ
+      if (kDk) mma_abt_stream_live<kD, kM, 4>(dpt, v_s + own_slot * kOwnTile, row0, dot, live);  // dPᵀ += V·dOᵀ
+      if (st % n == n - 1) {
+        const float* lq = lse_s + (it & 1) * kRows;
+        const float* dlq = dl_s + (it & 1) * kRows;
+        const float* glq = gl_s + (it & 1) * kRows;
+#pragma unroll
+        for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              float x;
+              if (kGated) {
+                const float bv = __ldg(bias_col[mm][e >> 1] + min(it * kRows + col, seq - 1) * gd.bs[1]);
+                x = fmaf(st_[mm][j][e], c, bv * glq[col] + kbias[mm][e >> 1]);
+              } else {
+                x = fmaf(st_[mm][j][e], c, kbias[mm][e >> 1]);
+              }
+              const float p = exp2_approx(x - lq[col]);  // Pᵀ
+              st_[mm][j][e] = kDk ? p * (dpt[mm][j][e] - dlq[col]) * scale : p;  // dSᵀ for dK
+            }
+        uint32_t af[kM][4][4];
+        to_a<kM, 4>(af, st_);
+        mma_ab_live<kD, kM, 4>(acc, af, kDk ? qt : dot, live);  // dK_c += dSᵀ·Q_c, or dV_c += Pᵀ·dO_c
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    float ones[kM][2];
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm) ones[mm][0] = ones[mm][1] = 1.f;
+    stage<kD, kM>(k_s, row0, acc, ones);
+  }
+  __syncthreads();
+  bf16* dst = kDk ? dk + b * s.dk[0] + h * s.dk[1] + own * cl.width : dv + b * s.dv[0] + h * s.dv[1] + own * cl.width;
+  store_tile_any<kD, kOwn, kThreads>(dst, kDk ? s.dk[2] : s.dv[2], k0, seq, chunk_cols(cl, own), cl.narrow, k_s);
+}
+
 // Σ_b gate[b,h,:,None] ⊙ dL[b,h] over one tile of kOwn queries x 64 keys and
 // one chunk of `items` batch items (blockIdx.z = chunk · heads + h): the block
 // walks its items in order with the next item's q, dO, K and V tiles in
@@ -1232,6 +1786,136 @@ dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   }
 }
 
+// dbias_kernel at any head width: for each item the column chunks in turn,
+// S += Q_cc·K_ccᵀ and dP += dO_cc·V_ccᵀ, then gate ⊙ dL into the tile's sum.
+// It has no chunk axis: dbias sums over the whole width once.
+template <int kD, int kWarps, int kM>
+__global__ void AVEX_LAUNCH_BOUNDS(32 * kWarps)
+dbias_any_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                 const bf16* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ out, int batch, int items, int heads, int seq,
+                 float scale, BwdStrides s, Gated gd, Cols cl) {
+  using S = Shape<kD, kWarps, kM>;
+  constexpr int kThreads = S::kThreads, kOwn = S::kOwn, kTile = Layout<kD>::kTile;
+  constexpr int kOwnTile = kOwn * Layout<kD>::kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                     // [2][kOwn][kD]
+  bf16* do_s = q_s + 2 * kOwnTile;                               // [2][kOwn][kD]
+  bf16* k_s = do_s + 2 * kOwnTile;                               // [2][64][kD]
+  bf16* v_s = k_s + 2 * kTile;                                   // [2][64][kD]
+  float* kbias_s = reinterpret_cast<float*>(v_s + 2 * kTile);    // [2][64]
+  float* lse_s = kbias_s + 2 * kRows;                            // [2][kOwn], log2 units
+  float* dl_s = lse_s + 2 * kOwn;                                // [2][kOwn]
+  float* g_s = dl_s + 2 * kOwn;                                  // [2][kOwn]
+
+  const int q0 = blockIdx.x * kOwn, k0 = blockIdx.y * kRows, h = blockIdx.z % heads, chunk = blockIdx.z / heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 * kM;
+  const bool active = q0 + row0 < seq;
+  const int live = live_groups(k0, seq);
+  const int n = cl.chunks, b0 = chunk * items, steps = (min(batch, b0 + items) - b0) * n;
+  const float c = scale * kLog2e;
+
+  // Step st: item b0 + st / n, column chunk st % n; the item's key bias and
+  // row statistics with its first chunk.
+  auto issue = [&](int st) {
+    const int b = b0 + st / n, cc = st % n, slot = st & 1, col = cc * cl.width, cols = chunk_cols(cl, cc);
+    load_tile_any<kD, kOwn, kThreads>(q_s + slot * kOwnTile, q + b * s.q[0] + h * s.q[1] + col, s.q[2], q0, seq,
+                                      cols, cl.narrow);
+    load_tile_any<kD, kOwn, kThreads>(do_s + slot * kOwnTile, dout + b * s.dout[0] + h * s.dout[1] + col, s.dout[2],
+                                      q0, seq, cols, cl.narrow);
+    load_tile_any<kD, kRows, kThreads>(k_s + slot * kTile, k + b * s.k[0] + h * s.k[1] + col, s.k[2], k0, seq, cols,
+                                       cl.narrow);
+    load_tile_any<kD, kRows, kThreads>(v_s + slot * kTile, v + b * s.v[0] + h * s.v[1] + col, s.v[2], k0, seq, cols,
+                                       cl.narrow);
+    if (cc == 0) {
+      const int is = (st / n) & 1;
+      load_key_bias<kRows, kThreads>(kbias_s + is * kRows, pad ? pad + b * s.pad[0] : nullptr, s.pad[1], k0, seq);
+      const long long stat0 = ((long long)b * heads + h) * seq;
+      for (int i = threadIdx.x; i < kOwn; i += kThreads) {
+        const int qi = q0 + i;
+        lse_s[is * kOwn + i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+        dl_s[is * kOwn + i] = qi < seq ? delta[stat0 + qi] : 0.f;
+        g_s[is * kOwn + i] = gate_at(gd, b, h, min(qi, seq - 1));
+      }
+    }
+  };
+  issue(0);
+  cp_async_commit();
+  const float* bias_row[kM][2];
+  float bf[kM][8][4];
+  bias_rows<kM>(gd, h, q0 + row0, seq, bias_row);
+  if (k0 + kRows <= seq)
+    fetch_bias<kM, kRows, true>(bf, bias_row, gd.bs[2], k0, seq, gd.vec2);
+  else
+    fetch_bias<kM, kRows, false>(bf, bias_row, gd.bs[2], k0, seq, gd.vec2);
+
+  float acc[kM][8][4], sc[kM][8][4], dp[kM][8][4];
+  zero<kM>(acc);
+  for (int st = 0; st < steps; ++st) {
+    const int slot = st & 1;
+    if (st + 1 < steps) {
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      if (st % n == 0) {
+        zero<kM>(sc);
+        zero<kM>(dp);
+      }
+      mma_abt_stream_live<kD, kM, 4>(sc, q_s + slot * kOwnTile, row0, k_s + slot * kTile, live);   // S += Q·Kᵀ
+      mma_abt_stream_live<kD, kM, 4>(dp, do_s + slot * kOwnTile, row0, v_s + slot * kTile, live);  // dP += dO·Vᵀ
+      if (st % n == n - 1) {
+        const int is = (st / n) & 1;
+        const float* kbias = kbias_s + is * kRows;
+#pragma unroll
+        for (int mm = 0; mm < kM; ++mm) {
+          float lse2[2], dlt[2], gv[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = is * kOwn + row0 + 16 * mm + g + 8 * i;
+            lse2[i] = lse_s[r];
+            dlt[i] = dl_s[r];
+            gv[i] = g_s[r];
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              const float x = fmaf(sc[mm][j][e], c, bf[mm][j][e] * (gv[i] * kLog2e) + kbias[8 * j + 2 * t + (e & 1)]);
+              const float dlv = exp2_approx(x - lse2[i]) * (dp[mm][j][e] - dlt[i]);  // dL
+              acc[mm][j][e] = fmaf(gv[i], dlv, acc[mm][j][e]);
+            }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this step's buffers
+  }
+
+  if (active) {
+    float* base = out + ((long long)chunk * heads + h) * seq * seq;
+#pragma unroll
+    for (int mm = 0; mm < kM; ++mm)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = q0 + row0 + 16 * mm + g + 8 * i;
+        if (qi >= seq) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            if (key < seq) base[(long long)qi * seq + key] = acc[mm][j][2 * i + e];
+          }
+      }
+  }
+}
+
 // dbias = Σ_c part[c], in chunk order: the same sum on every call.
 __global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out, long long n, int chunks) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
@@ -1248,9 +1932,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // The head width this library's kernels are built for (kD), set per build
 // with -DAVEX_HEAD_DIM: 32, 64, 80, 96 or 128 (the wrapper builds one
-// library a width). A call at any width D that is a multiple of 8 up to kD
-// runs on it: columns D .. kD-1 are zero-filled on load and never stored,
-// which adds 0 to every q·k, Δ and product, so the result is exact.
+// library a width). A call whose head width D is a multiple of 8 up to kD
+// with 16-byte aligned rows runs on the kernels above: columns D .. kD-1 are
+// zero-filled on load and never stored, which adds 0 to every q·k, Δ and
+// product, so the result is exact. Any other call runs on the general
+// kernels (forward_any_kernel, dq_any_kernel, dkv_any_kernel,
+// dbias_any_kernel): D cut into column chunks of at most kD, narrow rows
+// read and written element by element.
 constexpr int kHeadDim = AVEX_HEAD_DIM;
 static_assert(kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 80 || kHeadDim == 96 || kHeadDim == 128,
               "AVEX_HEAD_DIM: 32, 64, 80, 96 or 128");
@@ -1259,14 +1947,52 @@ bool bad_shape(int batch, int heads, int seq) {
   return seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
 }
 
-// The widths a call may have on this build, gated or not: a multiple of 8 from 8 to kHeadDim.
-bool takes_width(int head_dim) { return head_dim > 0 && head_dim % 8 == 0 && head_dim <= kHeadDim; }
+// The columns of a call of head width head_dim in chunks of chunk_width
+// (the wrapper's plan), or a Cols with chunks = 0 when this build does not
+// take them: a chunk wider than the build; more than one chunk of a width
+// that is not a multiple of 8 (chunks start 16-byte aligned); a wide (not
+// narrow) call whose widths are not multiples of 8; more head chunks than a
+// grid axis holds.
+Cols plan_cols(int head_dim, int chunk_width, int narrow, int heads) {
+  Cols cl;
+  cl.chunks = 0;
+  if (head_dim <= 0 || chunk_width <= 0 || chunk_width > kHeadDim) return cl;
+  const int chunks = (head_dim + chunk_width - 1) / chunk_width;
+  if ((chunks > 1 && chunk_width % 8) || (!narrow && (head_dim % 8 || chunk_width % 8)) ||
+      (long long)heads * chunks > 65535 || (chunks == 1 && chunk_width != head_dim))
+    return cl;
+  cl.dim = head_dim;
+  cl.width = chunk_width;
+  cl.chunks = chunks;
+  cl.narrow = narrow != 0;
+  return cl;
+}
+
+// Whether a call takes the general kernels.
+bool general(const Cols& cl) { return cl.narrow || cl.chunks > 1; }
+
+// The columns of a call whose head width is the build's, in 16-byte runs:
+// the launchers' default (scripts/torch_attention_shapes.py launches them).
+template <int kD>
+constexpr Cols kExactCols{kD, kD, 1, false};
 
 template <int kD, int kWarps, int kM, int kN, bool kGated = false>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* out_rest,
                            void* lse, int batch, int heads, int seq, float scale, const FwdStrides& s,
-                           cudaStream_t st, const Gated& gd = Gated(), int dim = kD) {
+                           cudaStream_t st, const Gated& gd = Gated(), const Cols& cl = kExactCols<kD>) {
   using S = Shape<kD, kWarps, kM, kN>;
+  if (general(cl)) {
+    const auto kernel = forward_any_kernel<kD, kWarps, kM, kN, kGated>;
+    cudaError_t err = allow_smem(kernel, S::kFwdAnySmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads * cl.chunks, batch);
+    kernel<<<grid, S::kThreads, S::kFwdAnySmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<bf16*>(out_rest),
+        static_cast<float*>(lse), heads, seq, scale, s, gd, cl);
+    return cudaGetLastError();
+  }
+  const int dim = cl.dim;
   const auto kernel = dim == kD ? forward_kernel<kD, kWarps, kM, kN, kGated, true>
                                 : forward_kernel<kD, kWarps, kM, kN, kGated, false>;
   cudaError_t err = allow_smem(kernel, S::kFwdSmem);
@@ -1306,8 +2032,19 @@ template <int kD, int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out, const void* out_rest,
                       const void* dout, const void* pad, const void* lse, void* dq, void* delta, int batch,
                       int heads, int seq, float scale, const BwdStrides& s, cudaStream_t st,
-                      const Gated& gd = Gated(), void* dgate = nullptr, int dim = kD) {
+                      const Gated& gd = Gated(), void* dgate = nullptr, const Cols& cl = kExactCols<kD>) {
   using S = Shape<kD, kWarps, kM>;
+  if (general(cl)) {
+    cudaError_t err = allow_smem(dq_any_kernel<kD, kWarps, kM, kGated>, S::kDqAnySmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads * cl.chunks, batch);
+    dq_any_kernel<kD, kWarps, kM, kGated><<<grid, S::kThreads, S::kDqAnySmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(out), static_cast<const bf16*>(out_rest), static_cast<const bf16*>(dout),
+        static_cast<const uint8_t*>(pad), static_cast<const float*>(lse), static_cast<bf16*>(dq),
+        static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, scale, s, gd, cl);
+    return cudaGetLastError();
+  }
   cudaError_t err = allow_smem(dq_kernel<kD, kWarps, kM, kGated>, S::kDqSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
@@ -1315,23 +2052,44 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const bf16*>(out_rest), static_cast<const bf16*>(dout),
       static_cast<const uint8_t*>(pad), static_cast<const float*>(lse), static_cast<bf16*>(dq),
-      static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, dim, scale, s, gd);
+      static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, cl.dim, scale, s, gd);
   return cudaGetLastError();
 }
 
 template <int kD, int kWarps, int kM, bool kGated = false>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                        const void* lse, const void* delta, void* dk, void* dv, int batch, int heads, int seq,
-                       float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd = Gated(), int dim = kD) {
+                       float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd = Gated(),
+                       const Cols& cl = kExactCols<kD>) {
   using S = Shape<kD, kWarps, kM>;
+  if (general(cl)) {  // two launches: dV, then dK
+    const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads * cl.chunks, batch);
+    cudaError_t err = allow_smem(dkv_any_kernel<kD, kWarps, kM, kGated, false>, S::kDkvAnySmem);
+    if (err != cudaSuccess) return err;
+    err = allow_smem(dkv_any_kernel<kD, kWarps, kM, kGated, true>, S::kDkvAnySmem);
+    if (err != cudaSuccess) return err;
+    dkv_any_kernel<kD, kWarps, kM, kGated, false><<<grid, S::kThreads, S::kDkvAnySmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s,
+        gd, cl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dkv_any_kernel<kD, kWarps, kM, kGated, true><<<grid, S::kThreads, S::kDkvAnySmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, scale, s,
+        gd, cl);
+    return cudaGetLastError();
+  }
   cudaError_t err = allow_smem(dkv_kernel<kD, kWarps, kM, kGated>, S::kDkvSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, heads, batch);
   dkv_kernel<kD, kWarps, kM, kGated><<<grid, S::kThreads, S::kDkvSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, dim, scale, s,
-      gd);
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq, cl.dim, scale,
+      s, gd);
   return cudaGetLastError();
 }
 
@@ -1341,17 +2099,28 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 template <int kD, int kWarps, int kM>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v, const void* dout, const void* pad,
                          const void* lse, const void* delta, void* dbias, void* part, int batch, int items, int heads,
-                         int seq, float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd, int dim = kD) {
+                         int seq, float scale, const BwdStrides& s, cudaStream_t st, const Gated& gd,
+                         const Cols& cl = kExactCols<kD>) {
   using S = Shape<kD, kWarps, kM>;
-  cudaError_t err = allow_smem(dbias_kernel<kD, kWarps, kM>, S::kDbiasSmem);
-  if (err != cudaSuccess) return err;
   const int chunks = (batch + items - 1) / items;
   const dim3 grid((seq + S::kOwn - 1) / S::kOwn, (seq + kRows - 1) / kRows, heads * chunks);
-  dbias_kernel<kD, kWarps, kM><<<grid, S::kThreads, S::kDbiasSmem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(chunks > 1 ? part : dbias), batch, items, heads, seq,
-      dim, scale, s, gd);
+  float* target = static_cast<float*>(chunks > 1 ? part : dbias);
+  cudaError_t err;
+  if (general(cl)) {
+    err = allow_smem(dbias_any_kernel<kD, kWarps, kM>, S::kDbiasSmem);
+    if (err != cudaSuccess) return err;
+    dbias_any_kernel<kD, kWarps, kM><<<grid, S::kThreads, S::kDbiasSmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), target, batch, items, heads, seq, scale, s, gd, cl);
+  } else {
+    err = allow_smem(dbias_kernel<kD, kWarps, kM>, S::kDbiasSmem);
+    if (err != cudaSuccess) return err;
+    dbias_kernel<kD, kWarps, kM><<<grid, S::kThreads, S::kDbiasSmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), target, batch, items, heads, seq, cl.dim, scale, s, gd);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
   const long long n = (long long)heads * seq * seq;
@@ -1369,24 +2138,34 @@ constexpr int kDbiasWarps = 4, kDbiasM = 1;
 
 }  // namespace
 
+// Every entry point takes the call's head width head_dim (D >= 1), the
+// width of its column chunks chunk_width (D itself up to the build's width;
+// past it a multiple of 8 up to the build's width: the chunks start at
+// 16-byte aligned columns, the last holds what is left) and narrow (1: read
+// and write the operands element by element, for a D or a stride that is
+// not a multiple of 8 elements or a base that is not 16-byte aligned; 0:
+// 16-byte runs). A call the build does not take returns
+// cudaErrorInvalidValue and launches nothing.
+
 // The gated forward (K1, K2): bf16 q, k, v and out; bias fp32 [H, T, T] and
 // gate fp32 [B, H, T] (may be null: a gate of 1), any strides; pad one byte
 // per key (nonzero = padded), may be null. The residuals of a backward, each
 // written when not null, as the bias-free forward's below. strides: 20
 // element strides, q, k, v and out (batch, head, token), bias (head, query,
-// key), gate (batch, head, token), then pad (batch, token). head_dim: a
-// multiple of 8 up to the build's width. Returns a cudaError_t; 0 means the
-// kernel was launched.
+// key), gate (batch, head, token), then pad (batch, token). Returns a
+// cudaError_t; 0 means the kernel was launched.
 extern "C" int avex_tensor_core_gated_attention_forward(const void* q, const void* k, const void* v,
                                                         const void* bias, const void* gate, const void* pad,
                                                         void* out, void* out_rest, void* lse, int batch,
-                                                        int heads, int seq, int head_dim, float scale,
-                                                        const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, seq) || !takes_width(head_dim) || bias == nullptr) return (int)cudaErrorInvalidValue;
+                                                        int heads, int seq, int head_dim, int chunk_width,
+                                                        int narrow, float scale, const long long* strides,
+                                                        void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
+  if (bad_shape(batch, heads, seq) || cl.chunks == 0 || bias == nullptr) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   const Gated gd = gated_operands(bias, gate, seq, strides, &s);
   return (int)launch_forward<kHeadDim, kFwdWarps, kFwdM, kFwdN, true>(
-      q, k, v, pad, out, out_rest, lse, batch, heads, seq, scale, s, static_cast<cudaStream_t>(stream), gd, head_dim);
+      q, k, v, pad, out, out_rest, lse, batch, heads, seq, scale, s, static_cast<cudaStream_t>(stream), gd, cl);
 }
 
 // The bias-free forward: bf16 q, k, v and out; pad is one byte per key
@@ -1398,14 +2177,15 @@ extern "C" int avex_tensor_core_gated_attention_forward(const void* q, const voi
 // was launched.
 extern "C" int avex_bias_free_attention_forward(const void* q, const void* k, const void* v, const void* pad,
                                                 void* out, void* out_rest, void* lse, int batch, int heads,
-                                                int seq, int head_dim, float scale, const long long* strides,
-                                                void* stream) {
-  if (bad_shape(batch, heads, seq) || !takes_width(head_dim)) return (int)cudaErrorInvalidValue;
+                                                int seq, int head_dim, int chunk_width, int narrow, float scale,
+                                                const long long* strides, void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
+  if (bad_shape(batch, heads, seq) || cl.chunks == 0) return (int)cudaErrorInvalidValue;
   FwdStrides s;
   memcpy(&s, strides, sizeof(FwdStrides));
   return (int)launch_forward<kHeadDim, kFwdWarps, kFwdM, kFwdN>(q, k, v, pad, out, out_rest, lse, batch, heads, seq,
                                                                 scale, s, static_cast<cudaStream_t>(stream),
-                                                                Gated(), head_dim);
+                                                                Gated(), cl);
 }
 
 // The backward from the forward's residuals, bias-free (K6, bias null) or
@@ -1426,9 +2206,10 @@ extern "C" int avex_tensor_core_attention_backward(const void* q, const void* k,
                                                    const void* gate, const void* pad, const void* lse, void* dq,
                                                    void* dk, void* dv, void* delta, void* dbias, void* dgate,
                                                    void* dbias_part, int items_per_chunk, int batch, int heads,
-                                                   int seq, int head_dim, float scale, const long long* strides,
-                                                   void* stream) {
-  if (bad_shape(batch, heads, seq) || !takes_width(head_dim) || lse == nullptr ||
+                                                   int seq, int head_dim, int chunk_width, int narrow, float scale,
+                                                   const long long* strides, void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
+  if (bad_shape(batch, heads, seq) || cl.chunks == 0 || lse == nullptr ||
       (bias != nullptr && dbias == nullptr) || (gate != nullptr && (bias == nullptr || dgate == nullptr)) ||
       items_per_chunk <= 0 || (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
       (long long)heads * ((batch + items_per_chunk - 1) / items_per_chunk) > 65535)
@@ -1439,18 +2220,18 @@ extern "C" int avex_tensor_core_attention_backward(const void* q, const void* k,
   cudaError_t err;
   if (bias == nullptr) {
     err = launch_dq<kHeadDim, kDqWarps, kDqM>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads, seq,
-                                              scale, s, st, Gated(), nullptr, head_dim);
+                                              scale, s, st, Gated(), nullptr, cl);
     if (err != cudaSuccess) return (int)err;
     return (int)launch_dkv<kHeadDim, kDkvWarps, kDkvM>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq,
-                                                       scale, s, st, Gated(), head_dim);
+                                                       scale, s, st, Gated(), cl);
   }
   const Gated gd = make_gated(bias, gate, seq, strides + 26, strides + 29);
   err = launch_dq<kHeadDim, kDqWarps, kDqM, true>(q, k, v, out, out_rest, dout, pad, lse, dq, delta, batch, heads,
-                                                  seq, scale, s, st, gd, dgate, head_dim);
+                                                  seq, scale, s, st, gd, dgate, cl);
   if (err != cudaSuccess) return (int)err;
   err = launch_dkv<kHeadDim, kDkvWarps, kDkvM, true>(q, k, v, dout, pad, lse, delta, dk, dv, batch, heads, seq,
-                                                     scale, s, st, gd, head_dim);
+                                                     scale, s, st, gd, cl);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dbias<kHeadDim, kDbiasWarps, kDbiasM>(q, k, v, dout, pad, lse, delta, dbias, dbias_part, batch,
-                                                           items_per_chunk, heads, seq, scale, s, st, gd, head_dim);
+                                                           items_per_chunk, heads, seq, scale, s, st, gd, cl);
 }

@@ -8,7 +8,8 @@ Phases, each printing its results on lines of its own:
 1. card: require CUDA; print ``nvidia-smi``'s name and power limit;
 2. build: compile every CUDA source of the port with ``nvcc`` (in parallel;
    the attention sources once for each head width they are built for, 32,
-   64, 80, 96 and 128; a spilling kernel fails the phase);
+   64, 80, 96 and 128, each with its general kernels for the other widths;
+   a spilling kernel fails the phase);
 3. kernels: hold each kernel against its plain PyTorch twin at the shapes the
    main paths give it, in bf16 and fp32 (bf16 on the tensor-core kernels of
    ``tensor_core_attention.cu``, fp32 on the FMA body): the gated K1 and K2
@@ -210,11 +211,13 @@ Phases, each printing its results on lines of its own:
    ranks send back their launch counts; K2, K3, K5 and K6 add them.
 31-32. the model axis on gloo ranks sharing the card (``phase_model_parallel``,
    ``phase_model_axis_rest``: TP, GPipe, SP, ring attention, the MoE probe,
-   the 3-D cell);
-33. the command line (``avex_tpu_torch.commands``, no click, h5py or PyYAML):
+   the 3-D cell), BEATs, the pipelined EAT and Bird-MAE base and the EAT and
+   Bird-MAE rings cut to ``DP_LAYERS`` as phase 30's BEATs;
+33. the command line (``avex_tpu_torch.commands``, no click, h5py or PyYAML;
+   BEATs cut to ``DP_LAYERS``):
    (a) ``embed``'s batches (``commands.embed_batches``, WAVs written with
    ``wave``: 64 of 6 s at 16 kHz and 8 at 44.1 kHz) into the extraction loop
-   over the official BEATs on K1 (12 a batch), each row against
+   over the official BEATs on K1 (4 a batch), each row against
    ``model.extract_embeddings`` on the same centre crops; (b) ``--windowed``
    over four 120 s recordings, BEATs ``fused_qkv`` on 30 s windows (hop 15 s,
    K2 at T=1496) and EAT on 10 s windows (K5 at T=513), the manifest's
@@ -225,11 +228,11 @@ Phases, each printing its results on lines of its own:
    ``serve`` in a child process (int8 BEATs, port 0), 32 clips from 8
    threads held to the same int8 model here, then SIGINT: exit code 0, the
    port free (the child's launches are not counted); (e) ``run_train`` with
-   ``data_pipeline="grain"`` (the checkpointable loader, 4 workers, 5 steps
-   an epoch, 2 epochs): an uninterrupted run, a run stopped mid-epoch by the
-   preemption flag and the run resumed from its step checkpoint, whose
-   batches equal the uninterrupted run's bit for bit and whose losses are
-   within rel 1e-3 (K2 and K3 12 a step);
+   ``data_pipeline="grain"`` (the checkpointable loader, 4 workers, B=16 on
+   80 clips: 5 steps an epoch, 2 epochs): an uninterrupted run, a run
+   stopped mid-epoch by the preemption flag and the run resumed from its
+   step checkpoint, whose batches equal the uninterrupted run's bit for bit
+   and whose losses are within rel 1e-3 (K2 and K3 4 a step);
 34. head widths other than 64 and 80 (the kernels take every multiple of 8
    up to 128): (kernels, after phase 26) K1-K6 at dh 16, 32, 96 and 128
    with E = 768 (48, 24, 8 and 6 heads), bf16 and fp32, at the shapes of
@@ -237,14 +240,30 @@ Phases, each printing its results on lines of its own:
    B=64 T=248; K6 B=64 T=513), each against its twin (the bf16 K3/K6 also
    against the twin of their contract) and timed beside the twin, its bound
    and SDPA, one ragged masked case a width (B=8, T=37), and dh 20 and 136
-   refused; (paths, after phase 33) BEATs at full width and depth with 6
+   against their twins; (paths, after phase 33) BEATs at full width and depth with 6
    heads of 128: bf16 extraction on K1 (12 a forward), the int8 model (K1
    with K7) against it, the fp32 kernel path against the plain path, a
    ``fused_qkv`` training step (K2 and K3 12 a step) and the fp32 gradient
    check; EAT with 24 heads of 32 the same way on K5/K6; and
    ``configs/run_configs/beats_supervised_example.yml`` (4 heads of 16)
    through ``run_train`` with ``use_pallas`` and ``fused_qkv`` set in the
-   call (K2 on every forward, K3 on every step; every loss finite).
+   call (K2 on every forward, K3 on every step; every loss finite);
+35. head widths that are not a multiple of 8 or are above 128 (narrow rows;
+   column chunks): (kernels, after phase 34's) K1-K6 at dh 4, 12, 20, 33, 70,
+   100, 136, 150, 192, 256, 320 and 512 with E = 768 or the nearest multiple
+   of dh, bf16 and fp32, at phase 34's shapes (the batch cut where the
+   twin's [B, H, T, T] logits would pass 9 GiB; B=16 at the widths not
+   timed), each against its twin, one
+   ragged masked case a width with an item all padded (NaN as the twin), and
+   dh 12, 20, 136, 192, 256 and 320 timed beside the twin, the bound and SDPA
+   (its backend printed; the median of 10 calls), and K5 at dh 64 on 16-byte
+   rows against the same values 2 bytes off (the general kernel); (paths, after phase 34's) BEATs at full width and
+   depth with 4 heads of 192 (K1 extraction, int8 K1 + K7, the fp32 kernel
+   path against the plain path, a ``fused_qkv`` training step on K2/K3 and
+   the fp32 gradient check), EAT with 64 heads of 12 (K5 extraction, K5/K6
+   training, the same checks) and Bird-MAE huge with 5 heads of 256 (K5
+   extraction of 10 s clips at 32 kHz, the fp32 kernel path against the
+   plain path, pooled and every tapped layer).
 
 Every kernel, twin and yardstick time is the device's: the median of 20
 calls, each between two CUDA events queued behind a sleep kernel, so the
@@ -266,7 +285,10 @@ K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share; K1, K2,
 K3 and K5 add ``cli_launches``, phase 33's share; K1-K6 add
 ``head_widths``, their bf16 and fp32 numbers at dh 16, 32, 96 and 128, and
 ``head_width_kernel_phase_launches``; K1, K2, K3, K5, K6 and K7 add
-``head_width_launches``, phase 34's paths' share of ``launches``) and,
+``head_width_launches``, phase 34's paths' share of ``launches``; K1-K6 add
+``wide_head_widths``, their numbers at dh 12, 20, 136, 192, 256 and 320, and
+``wide_head_kernel_phase_launches``; K1, K2, K3, K5, K6 and K7 add
+``wide_head_launches``, phase 35's paths' share) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
@@ -452,6 +474,9 @@ CLI_EXPORT_REL = {"float32": 1e-5, "bfloat16": 1e-3}  # the loaded program again
 CLI_SERVED, CLI_SERVE_THREADS = 32, 8
 CLI_SERVE_START, CLI_SIGINT_EXIT = 300, 30  # s for the serve child to print its URL; to exit after SIGINT
 GRAIN_STEPS, GRAIN_EPOCHS, GRAIN_STOP = 5, 2, 7  # (e): steps an epoch, epochs, the step the stopped run ends on
+# (e)'s batch and clips: 5 steps an epoch (cut from B=64 on phase 15's 320 clips for the script's time: the
+# loader's resampling, not the model, set its pace)
+B_GRAIN, GRAIN_CLIPS = 16, 80
 GRAIN_CHECKPOINT_EVERY = 2
 GRAIN_LOSS_REL = 1e-3  # a resumed step's loss against the uninterrupted run's (bf16, cuDNN's backward)
 
@@ -892,7 +917,7 @@ def phase_backward_kernels():
     return results
 
 
-def sdpa_backward_ms(q, k, v, attn_mask, dout) -> float:
+def sdpa_backward_ms(q, k, v, attn_mask, dout, n: int = TIMED_LAUNCHES) -> float:
     """The backward of ``F.scaled_dot_product_attention`` on [B, H, T, D]
     views: forward+backward minus forward (a yardstick the port never calls)."""
     import torch
@@ -909,8 +934,8 @@ def sdpa_backward_ms(q, k, v, attn_mask, dout) -> float:
         torch.autograd.grad(forward(), inputs, grad)
 
     with torch.no_grad():
-        fwd = median_ms(forward)
-    return median_ms(forward_backward) - fwd
+        fwd = median_ms(forward, n)
+    return median_ms(forward_backward, n) - fwd
 
 
 def reset_counts() -> None:
@@ -1358,7 +1383,8 @@ def phase_eat_training(workdir):
                                            f"({losses[0]:.4f} -> mean of the last 3 {sum(losses[-3:]) / 3:.4f})")
     del trainer
     torch.cuda.empty_cache()
-    grad_check = training_gradient_check("EAT", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
+    grad_check = training_gradient_check("EAT", reused_paths(lambda dtype: load(dtype, True)),
+                                         batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
     print(json.dumps({"model": "eat", "training": {
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, **grad_check},
         "batch": B_TRAIN, "clip_seconds": EAT_CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
@@ -1595,11 +1621,28 @@ def phase_birdmae():
     return counts["fused_qkv_attention"] + base_counts["fused_qkv_attention"]
 
 
+def reused_paths(build):
+    """A loader for ``training_gradient_check`` that builds each type's model
+    once (``build(dtype)``, seeded: the same weights either way) and sets its
+    blocks' ``use_pallas`` for the path asked: a gradient check steps no
+    optimizer, and a full-width build on the host costs seconds."""
+    built = {}
+
+    def load(dtype, use_pallas):
+        model = built[dtype] if dtype in built else built.setdefault(dtype, build(dtype))
+        for block in model.module.blocks:
+            block.use_pallas = bool(use_pallas)
+        return model
+
+    return load
+
+
 def phase_birdmae_training(workdir):
     """Full-width Bird-MAE huge fine-tuning through ``Trainer`` (bf16, K5 and
     K6 at dh 80, 32 launches each a step), one step under the profiler for the
-    device's busy share, then the fp32 and bf16 gradient checks at B=8.
-    Returns the K5 and K6 launches of the timed run."""
+    device's busy share, then the fp32 and bf16 gradient checks at B=8 (each
+    type built once for both paths). Returns the K5 and K6 launches of the
+    timed run."""
     import torch
 
     def load(dtype, use_pallas):
@@ -1616,7 +1659,8 @@ def phase_birdmae_training(workdir):
           f"peak {peak / 2**30:.2f} GiB (B={B_TRAIN_MAE}); {CARD[0]}")
     del trainer
     torch.cuda.empty_cache()
-    grad_check = training_gradient_check("Bird-MAE huge", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
+    grad_check = training_gradient_check("Bird-MAE huge", reused_paths(lambda dtype: load(dtype, True)),
+                                         batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
     print(json.dumps({"model": "birdmae_huge", "training": {
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "profiled_step_ms": wall_ms,
         "device_busy_share": busy, "losses": losses, **grad_check},
@@ -3918,11 +3962,13 @@ def mp_config(work: Path, bsz: int, label: str, **mesh):
 
 
 def mp_beats(dtype: str, dropout: bool, **init):
-    """Full-width BEATs ``fused_qkv`` on K2/K3 (:func:`dp_beats`), with ``init``."""
+    """Full-width BEATs ``fused_qkv`` on K2/K3 (:func:`dp_beats`), :data:`DP_LAYERS`
+    deep as phase 30's (for the script's time), with ``init``."""
     import avex_tpu_torch
     from avex_tpu_torch.configs import ModelSpec
 
-    config = dict(beats_config(), fused_qkv=True, use_pallas=True, **init)
+    config = dict(beats_config(), fused_qkv=True, use_pallas=True, encoder_layers=DP_LAYERS)
+    config.update(init)
     if not dropout:
         config.update(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, dropout_input=0.0,
                       encoder_layerdrop=0.0)
@@ -4026,7 +4072,7 @@ def rank_mp(rank, world, work, backend):
     case("sp_tp", beats, batch, data=1, model=2, sequence_parallel=True)
     del beats
     eat_batch = dp_batch(B_MP_CHECK, EAT_CLIP_SAMPLES, seed=42)
-    case("pipeline_eat", mp_eat("float32", scan_layers=True), eat_batch, data=1, model=2,
+    case("pipeline_eat", mp_eat("float32", scan_layers=True, depth=DP_LAYERS), eat_batch, data=1, model=2,
          pipeline_microbatches=MP_MICROBATCHES)
     out["bubble_share"] = bubble_share(2, MP_MICROBATCHES)
 
@@ -4102,16 +4148,17 @@ def phase_model_parallel(workdir: Path, dp_tp: bool = False) -> dict:
     r0 = results[0]
     check([r["coords"] for r in results] == [(0, 0), (0, 1)] and r0["backend"] == backend,
           f"model parallel: a 1 x 2 mesh over {r0['backend']}, ranks at {[r['coords'] for r in results]}")
-    per = ENCODER_LAYERS // 2 * MP_MICROBATCHES  # a stage's layers times the microbatches
+    per = DP_LAYERS // 2 * MP_MICROBATCHES  # a stage's layers times the microbatches
     cases = (
-        ("tp", "(a) TP=2 BEATs fused_qkv, 6 heads a rank",
-         {"fused_qkv_gated_attention": ENCODER_LAYERS, "fused_qkv_gated_attention_backward": ENCODER_LAYERS}),
+        ("tp", f"(a) TP=2 BEATs fused_qkv ({DP_LAYERS} layers), 6 heads a rank",
+         {"fused_qkv_gated_attention": DP_LAYERS, "fused_qkv_gated_attention_backward": DP_LAYERS}),
         ("pipeline_beats", f"(b) GPipe 2 stages x {MP_MICROBATCHES} microbatches, BEATs scan_layers",
          {"fused_qkv_gated_attention": per, "fused_qkv_gated_attention_backward": per}),
-        ("pipeline_eat", f"(b) GPipe 2 stages x {MP_MICROBATCHES} microbatches, EAT scan_layers (10 s clips)",
+        ("pipeline_eat", f"(b) GPipe 2 stages x {MP_MICROBATCHES} microbatches, EAT scan_layers ({DP_LAYERS} "
+         f"blocks, 10 s clips)",
          {"fused_qkv_attention": per, "fused_qkv_attention_backward": per}),
         ("sp_tp", "(c) Megatron-SP + TP=2 BEATs (T=248 over 2 ranks)",
-         {"fused_qkv_gated_attention": ENCODER_LAYERS, "fused_qkv_gated_attention_backward": ENCODER_LAYERS}),
+         {"fused_qkv_gated_attention": DP_LAYERS, "fused_qkv_gated_attention_backward": DP_LAYERS}),
     )
     for label, what, expect in cases:
         c = r0[label]
@@ -4132,8 +4179,8 @@ def phase_model_parallel(workdir: Path, dp_tp: bool = False) -> dict:
                   f"== {expect} (held elements {r[f'{label}_held_elements']:,})")
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
-    expect = {"fused_qkv_gated_attention": ENCODER_LAYERS * MP_STEPS,
-              "fused_qkv_gated_attention_backward": ENCODER_LAYERS * MP_STEPS}
+    expect = {"fused_qkv_gated_attention": DP_LAYERS * MP_STEPS,
+              "fused_qkv_gated_attention_backward": DP_LAYERS * MP_STEPS}
     for r in results:
         check(all(r["tp_bf16_counts"][k] == expect.get(k, 0) for k in r["tp_bf16_counts"])
               and all(math.isfinite(x) for x in r["tp_bf16_losses"]),
@@ -4158,7 +4205,7 @@ def phase_model_parallel(workdir: Path, dp_tp: bool = False) -> dict:
               f"loss rel {rel:.3e}; gradients worst tensor rel L2 {g['worst_rel']:.3e} ({g['worst']}); parameters "
               f"(moved up to {p['moved_max_abs']:.2e}) worst tensor rel L2 {p['worst_rel']:.3e} ({p['worst']}), "
               f"past the Adam-direction slack; each <= {PATH_REL:g}")
-        expect = {"fused_qkv_gated_attention": ENCODER_LAYERS, "fused_qkv_gated_attention_backward": ENCODER_LAYERS}
+        expect = {"fused_qkv_gated_attention": DP_LAYERS, "fused_qkv_gated_attention_backward": DP_LAYERS}
         for r in results4:
             check(all(r["counts"][k] == expect.get(k, 0) for k in r["counts"]),
                   f"model parallel (d): rank {r['rank']} launches "
@@ -4202,7 +4249,7 @@ MOE_EXPERTS, MOE_K, MOE_HIDDEN = 8, 2, 256
 B_MOE, MOE_STEPS = 64, 4
 MOE_LR = 1e-3
 MOE_REL = 1e-5  # each step's loss and each parameter (rel L2) against one process
-THREE_D_LAYERS = 12  # BEATs at full width and depth in the 3-D cell
+THREE_D_LAYERS = DP_LAYERS  # BEATs at full width in the 3-D cell, 2 layers a stage (cut from 12 for time)
 B_3D, THREE_D_MICROBATCHES = 8, 2
 THREE_D_LR = 0.1  # the dry run's SGD step
 THREE_D_TOL = dict(rtol=1e-4, atol=1e-5)  # __graft_entry__._assert_loss_parity
@@ -4211,7 +4258,8 @@ MP32_TIMEOUT = 600
 
 def ring_model(arch: str, dtype: str = "float32", **init):
     """Full-width BEATs, EAT, AVES or Bird-MAE base for the ring cases, seeded
-    random weights, no head."""
+    random weights, no head; ``init`` goes to BEATs' init config, or to
+    EAT's and Bird-MAE's builders (``depth``)."""
     import avex_tpu_torch
     from avex_tpu_torch.configs import ModelSpec
 
@@ -4219,12 +4267,12 @@ def ring_model(arch: str, dtype: str = "float32", **init):
         spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype, init_config=dict(beats_config(), **init))
         return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
     if arch == "birdmae":
-        return load_birdmae(dtype, False, model_id=MAE_BASE, return_features_only=True)
+        return load_birdmae(dtype, False, model_id=MAE_BASE, return_features_only=True, **init)
     if arch == "aves":
         spec = ModelSpec(name="aves_bio", pretrained=False, compute_dtype=dtype)
         return avex_tpu_torch.load_model(spec, random_weights=True, return_features_only=True, device="cuda")
     return avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, return_features_only=True,
-                                     device="cuda", compute_dtype=dtype)
+                                     device="cuda", compute_dtype=dtype, **init)
 
 
 def rank_mp32(rank, world, work, backend):
@@ -4271,11 +4319,12 @@ def rank_mp32(rank, world, work, backend):
     wav = torch.randn(B_RING, RING_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
     mask = torch.zeros(B_RING, RING_CLIP_SAMPLES, dtype=torch.bool, device="cuda")
     mask[1, RING_CLIP_SAMPLES * 2 // 3:] = True  # one window padded from 20 s
-    model = ring_model("beats")
+    model = ring_model("beats", encoder_layers=DP_LAYERS)
     ring_case("beats_fp32", model, (wav, mask))
     pooled32 = out["beats_fp32"]["pooled"] if rank == 0 else None
     del model
-    model = ring_model("beats", "bfloat16", fused_qkv=True, use_pallas=True)  # the kernels are off under a ring
+    model = ring_model("beats", "bfloat16", fused_qkv=True, use_pallas=True,  # the kernels are off under a ring
+                       encoder_layers=DP_LAYERS)
     attns = [layer.self_attn for layer in model.module.backbone.encoder.layers]
     with torch.no_grad():
         if rank == 0:  # the one-process bf16 model (K2) against fp32, for the record
@@ -4300,7 +4349,7 @@ def rank_mp32(rank, world, work, backend):
         torch.cuda.synchronize()
     out["beats_bf16_ms"] = (time.perf_counter() - start) / RING_TIMED * 1e3
     out["beats_bf16_counts"] = read_counts()
-    out["beats_payload_bytes"] = ENCODER_LAYERS * ring_bytes(
+    out["beats_payload_bytes"] = DP_LAYERS * ring_bytes(
         torch.empty(B_RING, H, T_RING, D, dtype=torch.bfloat16, device="meta"), mesh.model_size)
     out["beats_bf16_pooled_rel"] = rel_l2(got.float().mean(1).cpu(), pooled_split)
     if rank == 0:
@@ -4326,12 +4375,12 @@ def rank_mp32(rank, world, work, backend):
 
     # (b) EAT (T = 513: the pad path), AVES (10 s, T = 499, masked) and Bird-MAE base (T = 513)
     wav = torch.randn(B_RING, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
-    ring_case("eat_fp32", ring_model("eat"), (wav,))
+    ring_case("eat_fp32", ring_model("eat", depth=DP_LAYERS), (wav,))
     mask = torch.zeros(B_RING, EAT_CLIP_SAMPLES, dtype=torch.bool, device="cuda")
     mask[2, EAT_CLIP_SAMPLES // 2:] = True
     ring_case("aves_fp32", ring_model("aves"), (wav, mask))
     wav = torch.randn(B_RING, MAE_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1
-    ring_case("birdmae_fp32", ring_model("birdmae"), (wav,))
+    ring_case("birdmae_fp32", ring_model("birdmae", depth=DP_LAYERS), (wav,))
     torch.cuda.empty_cache()
 
     # (c) the MoE probe over 768-wide embeddings, its experts over the two ranks
@@ -4380,7 +4429,7 @@ def rank_mp32(rank, world, work, backend):
         del trainer, got, net
         torch.cuda.empty_cache()
 
-    bird = load_birdmae("float32", True, model_id=MAE_BASE, num_classes=N_CLASSES, scan_layers=True)
+    bird = load_birdmae("float32", True, model_id=MAE_BASE, num_classes=N_CLASSES, scan_layers=True, depth=DP_LAYERS)
     batch = dp_batch(B_MP_CHECK, MAE_CLIP_SAMPLES, seed=52)
     case("birdmae_pipeline", copy.deepcopy(bird), batch, data=1, model=2, pipeline_microbatches=MP_MICROBATCHES)
     case("birdmae_sp_tp", bird, batch, data=1, model=2, sequence_parallel=True)
@@ -4483,12 +4532,13 @@ def phase_model_axis_rest(workdir: Path) -> dict:
               f"phase 32 (c) MoE probe, {MOE_EXPERTS} experts top-{MOE_K} over {E}-wide embeddings, 4 experts a "
               f"rank: {MOE_STEPS} steps' losses rel {loss_rel:.3e}, worst parameter rel L2 "
               f"{m['worst_param_rel']:.3e} against one process, each <= {MOE_REL:g}")
-        per_stage = ENCODER_LAYERS // 2 * MP_MICROBATCHES
+        per_stage = DP_LAYERS // 2 * MP_MICROBATCHES
         for label, what, expect in (
-                ("birdmae_pipeline", f"(d) Bird-MAE base GPipe 2 stages x {MP_MICROBATCHES} microbatches",
+                ("birdmae_pipeline", f"(d) Bird-MAE base ({DP_LAYERS} blocks) GPipe 2 stages x {MP_MICROBATCHES} "
+                                     f"microbatches",
                  {"fused_qkv_attention": per_stage, "fused_qkv_attention_backward": per_stage}),
                 ("birdmae_sp_tp", "(d) Bird-MAE base SP + TP=2 (T=513 cut 257 + 256)",
-                 {"fused_qkv_attention": ENCODER_LAYERS, "fused_qkv_attention_backward": ENCODER_LAYERS})):
+                 {"fused_qkv_attention": DP_LAYERS, "fused_qkv_attention_backward": DP_LAYERS})):
             c = r0[label]
             rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
             p, g = c["held"]["params"], c["held"]["grads"]
@@ -4529,7 +4579,7 @@ def phase_model_axis_rest(workdir: Path) -> dict:
         print(f"phase 32 (a): BEATs ring attention over 2 {backend} ranks sharing one card (the mechanism, not "
               f"multi-card speed), bf16, {B_RING} windows of 30 s (T={T_RING}): "
               + "; ".join(f"rank {r['rank']} {r['beats_bf16_ms']:.1f} ms a forward, the ring's payload "
-                          f"{r['beats_payload_bytes'] / 2**20:.1f} MiB sent a forward (k/v chunks, 1 hop x 12 "
+                          f"{r['beats_payload_bytes'] / 2**20:.1f} MiB sent a forward (k/v chunks, 1 hop x {DP_LAYERS} "
                           f"layers), collectives {r['beats_ring_bytes']['all_reduce'] / 2**20:.1f} MiB all-reduced "
                           f"on gloo" for r in results) + f"; {CARD[0]}")
         print(json.dumps({"model_axis_rest": {
@@ -4670,7 +4720,7 @@ def cli_export(workdir: Path) -> None:
     from avex_tpu_torch.export import META_FILE, export_program
     from avex_tpu_torch.ops._precision import full_fp32
 
-    spec = cli_spec("esp_aves2_sl_beats_all")
+    spec = cli_spec("esp_aves2_sl_beats_all", encoder_layers=DP_LAYERS)
     out = workdir / "beats.pt2"
     start = time.perf_counter()
     commands.export(spec, out, random_weights=True, clip_seconds=CLIP_SAMPLES / 16000, echo=print)
@@ -4723,7 +4773,8 @@ def cli_serve() -> None:
     int8 BEATs on K1/K7, port 0; 32 clips posted from 8 threads, each row
     held to the same int8 model in this process; SIGINT ends it with exit
     code 0 and frees the port. The child prints its own launch counts on
-    its way out: 12 K1 and 72 K7 a forward (warm-up and served batches),
+    its way out: 4 K1 and 24 K7 a forward of BEATs cut to :data:`DP_LAYERS`
+    (warm-up and served batches),
     no other kernel. They are the child's process's and are not added to
     the ``kernels`` line."""
     import concurrent.futures as futures
@@ -4738,7 +4789,8 @@ def cli_serve() -> None:
 
     import avex_tpu_torch
 
-    spec = cli_spec("esp_aves2_sl_beats_all", use_pallas=True).replace(compute_dtype="bfloat16")
+    spec = cli_spec("esp_aves2_sl_beats_all", use_pallas=True, encoder_layers=DP_LAYERS).replace(
+        compute_dtype="bfloat16")
     code = _SERVE_CHILD.format(spec=spec.to_dict(), clip_seconds=CLIP_SAMPLES / 16000, max_batch=CLI_SERVED)
     env = dict(os.environ, LOG_LEVEL="WARNING")
     start = time.perf_counter()
@@ -4784,12 +4836,14 @@ def cli_serve() -> None:
         tail = child.stdout.read() if code_out is not None else ""
         counted = [json.loads(ln.split(" ", 1)[1]) for ln in tail.splitlines() if ln.startswith("LAUNCHES ")]
         child_counts = counted[0] if counted else {}
-        forwards = child_counts.get("gated_bias_attention", 0) // ENCODER_LAYERS
+        forwards = child_counts.get("gated_bias_attention", 0) // DP_LAYERS
+        k7_per_forward = DP_LAYERS * sum(INT8_PER_LAYER.values())
         others = {k: v for k, v in child_counts.items() if k not in ("gated_bias_attention", "int8_dynamic_dense")
                   and v}
-        check(forwards > 0 and child_counts["gated_bias_attention"] == ENCODER_LAYERS * forwards
-              and child_counts.get("int8_dynamic_dense", 0) == INT8_PER_FORWARD * forwards and not others,
-              f"serve: the child's launches {child_counts or tail[-2000:]}: 12 K1 and 72 K7 a forward "
+        check(forwards > 0 and child_counts["gated_bias_attention"] == DP_LAYERS * forwards
+              and child_counts.get("int8_dynamic_dense", 0) == k7_per_forward * forwards and not others,
+              f"serve: the child's launches {child_counts or tail[-2000:]}: {DP_LAYERS} K1 and {k7_per_forward} K7 "
+              f"a forward "
               f"({forwards} forwards), no other kernel")
         port = int(url.rsplit(":", 1)[1])
         with socket.socket() as s:
@@ -4835,15 +4889,16 @@ def cli_grain_train(workdir: Path) -> dict:
     from avex_tpu_torch.data import GrainDataLoader
     from avex_tpu_torch.training import Trainer
 
-    data = Path(__file__).resolve().parent / "build" / "chip_smoke_entry" / "data" / "train"
-    if not (data / "metadata.csv").exists():  # phase 15's clips, or the same kind written here
-        write_tone_wavs(data, ENTRY_TRAIN, seed=31)
+    data = workdir / "grain_data"
+    if not (data / "metadata.csv").exists():  # phase 15's kind of clips, fewer
+        write_tone_wavs(data, GRAIN_CLIPS, seed=31)
     shutil.rmtree(workdir / "grain", ignore_errors=True)
 
     def config(name, **extra):
         return RunConfig.from_dict(dict(
-            model_spec=entry_model_spec(fused_qkv=True), data_pipeline="grain", device="cuda", seed=0,
-            training_params={"train_epochs": GRAIN_EPOCHS, "lr": ENTRY_LR, "batch_size": B_TRAIN,
+            model_spec=entry_model_spec(fused_qkv=True, encoder_layers=DP_LAYERS), data_pipeline="grain",
+            device="cuda", seed=0,
+            training_params={"train_epochs": GRAIN_EPOCHS, "lr": ENTRY_LR, "batch_size": B_GRAIN,
                              "optimizer": "adamw", "weight_decay": 0.01},
             dataset_config={"train_datasets": [{"name": "train", "kind": "local", "path": str(data)}]},
             output_dir=str(workdir / "grain" / name), checkpoint_every_steps=GRAIN_CHECKPOINT_EVERY,
@@ -4879,10 +4934,11 @@ def cli_grain_train(workdir: Path) -> dict:
             elapsed = time.perf_counter() - start
             counts = read_counts()
             steps = len(records[-1])
-            expect = {"fused_qkv_gated_attention": 12 * steps, "fused_qkv_gated_attention_backward": 12 * steps}
+            expect = {"fused_qkv_gated_attention": DP_LAYERS * steps,
+                      "fused_qkv_gated_attention_backward": DP_LAYERS * steps}
             for kname, n in counts.items():
                 check(n == expect.get(kname, 0), f"grain {name}: {kname} launched {n} times == "
-                                                 f"{expect.get(kname, 0)} (12 a step x {steps} steps)")
+                                                 f"{expect.get(kname, 0)} ({DP_LAYERS} a step x {steps} steps)")
                 total[kname] = total.get(kname, 0) + n
             loader = loaders[-1]
             check(isinstance(loader, GrainDataLoader), f"grain {name}: data_pipeline='grain' built a GrainDataLoader")
@@ -4931,12 +4987,13 @@ def phase_cli(workdir: Path) -> dict:
         for kname, n in counts.items():
             total[kname] = total.get(kname, 0) + n
 
-    counts, _ = cli_embed("embed (a) BEATs, centre crop", cli_spec("esp_aves2_sl_beats_all", use_pallas=True),
-                          workdir / "clips", {"gated_bias_attention": 12}, CLIP_SAMPLES / 16000)
+    counts, _ = cli_embed("embed (a) BEATs, centre crop", cli_spec("esp_aves2_sl_beats_all", use_pallas=True,
+                                                                   encoder_layers=DP_LAYERS),
+                          workdir / "clips", {"gated_bias_attention": DP_LAYERS}, CLIP_SAMPLES / 16000)
     add(counts)
     counts, _ = cli_embed("embed (b) BEATs fused_qkv, 30 s windows", cli_spec(
-        "esp_aves2_sl_beats_all", use_pallas=True, fused_qkv=True), workdir / "long",
-        {"fused_qkv_gated_attention": 12}, CLI_WINDOW_BEATS, windowed=True, hop_seconds=CLI_HOP_BEATS)
+        "esp_aves2_sl_beats_all", use_pallas=True, fused_qkv=True, encoder_layers=DP_LAYERS), workdir / "long",
+        {"fused_qkv_gated_attention": DP_LAYERS}, CLI_WINDOW_BEATS, windowed=True, hop_seconds=CLI_HOP_BEATS)
     add(counts)
     counts, _ = cli_embed("embed (b) EAT, 10 s windows", cli_spec("esp_aves2_sl_eat_all_ssl_all", use_pallas=True),
                           workdir / "long", {"fused_qkv_attention": 12}, CLI_WINDOW_EAT, windowed=True)
@@ -4961,24 +5018,49 @@ B_HW_FP32 = 16  # the fp32 kernel-vs-plain extraction checks (the plain path hol
 EXAMPLE_RUN_CONFIG = "configs/run_configs/beats_supervised_example.yml"
 
 
-def phase_head_width_kernels():
-    """K1-K6 at dh 16, 32, 96 and 128, E = 768 (48, 24, 8 and 6 heads), bf16
-    (tensor cores) and fp32 (FMA): the forwards at B=128 (K4, K5: T=513; K1,
-    K2: T=248, with the gate), the backwards at B=64 (K3: T=248, with the
-    gate; K6: T=513), each against its twin (the bf16 K3/K6 also against the
-    twin of their own contract on the forward's residuals) and timed beside
-    the twin, its bound and SDPA; then one ragged, padded case a width (B=8,
-    T=37, a key mask). Returns per-kernel numbers by (kernel, dh, dtype) and
-    the phase's launches."""
+def sdpa_backend(q, k, v, attn_mask=None) -> str:
+    """Which of ``scaled_dot_product_attention``'s backends its dispatcher
+    picks for these operands (``torch._fused_sdp_choice``, the choice
+    ``F.scaled_dot_product_attention`` makes)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, False, scale=q.shape[-1] ** -0.5)
+        return SDPBackend(choice).name.lower()
+    except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
+        return f"unknown ({type(exc).__name__})"
+
+
+def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_bytes=None, padded_item=False,
+                       reps: int = TIMED_LAUNCHES, check_batch=None):
+    """K1-K6 at each head width of ``widths`` with ``heads_of(dh)`` heads,
+    bf16 (tensor cores) and fp32 (FMA): the forwards at B=128 (K4, K5:
+    T=513; K1, K2: T=248, with the gate), the backwards at B=64 (K3: T=248,
+    with the gate; K6: T=513), each against its twin (the bf16 K3/K6 also
+    against the twin of their own contract on the forward's residuals); a
+    width of ``timed`` is timed beside the twin, its bound and SDPA (and,
+    with ``twin_bytes`` set, SDPA's backend printed), each time the median of
+    ``reps`` calls; then one ragged, padded
+    case a width (B=8, T=37, a key mask; with ``padded_item`` also one item's
+    keys all padded in the forwards: NaN where the twin has NaN). With
+    ``twin_bytes`` a batch is cut so that the twin's fp32 [B, H, T, T]
+    logits stay within it (many narrow heads); with ``check_batch`` a width
+    that is not timed is checked at that batch. Returns per-kernel numbers
+    by (kernel, dh, dtype), the launches, and the batches and heads used."""
     import torch
     import torch.nn.functional as F
 
     from avex_tpu_torch.ops import attention_kernels as ak
 
-    start = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(34)
-    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    results, shapes = {}, {}
     reset_counts()
+
+    def fit(bsz, heads, seq):
+        if twin_bytes is None:
+            return bsz
+        return max(1, min(bsz, int(twin_bytes // (heads * seq * seq * 4))))
 
     def held(label, dtype, got, want, sums=False):
         """NaN exactly where the twin has NaN; elsewhere fp32 max|d| (sums:
@@ -4997,25 +5079,34 @@ def phase_head_width_kernels():
             check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
         return err
 
-    def record(kname, dh, name, label, err, run, twin, library, bound, flops):
-        ms, plain_ms, library_ms = median_ms(run), median_ms(twin), median_ms(library)
+    def record(kname, dh, name, label, err, run, twin, library, bound, flops, sdpa_operands):
+        ms, plain_ms, library_ms = median_ms(run, reps), median_ms(twin, reps), median_ms(library, reps)
         t_bound, bound_by = bound
+        backend = f", sdpa backend {sdpa_backend(*sdpa_operands)}" if twin_bytes is not None else ""
         print(f"time {label}: kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} ({t_bound / ms:.1%} of bound); "
-              f"{CARD[0]}")
+              f"sdpa {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} ({t_bound / ms:.1%} of bound)"
+              f"{backend}; {CARD[0]}")
         results[(kname, dh, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                           bound_ms=t_bound, bound_by=bound_by)
 
-    for dh in HW_WIDTHS:
-        heads = E // dh
+    for dh in widths:
+        heads = heads_of(dh)
+        e = heads * dh
+        forward_b, backward_b = (B, B_TRAIN) if check_batch is None or dh in timed else (check_batch, check_batch)
+        bsz_f, bsz_g = fit(forward_b, heads, T_EAT), fit(forward_b, heads, T)
+        bsz_b3, bsz_b6 = fit(backward_b, heads, T), fit(backward_b, heads, T_EAT)
+        shapes[dh] = dict(heads=heads, forward_batch=[bsz_g, bsz_f], backward_batch=[bsz_b3, bsz_b6])
+        plan = ak.width_plan(dh)
+        print(f"phase {phase}: dh {dh}, {heads} heads (E = {e}), build {plan.build}, {plan.chunks} column chunk(s) "
+              f"of {plan.chunk_width}; forward batches {bsz_g} / {bsz_f}, backward {bsz_b3} / {bsz_b6}")
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
             body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
             # bias-free forwards, EAT's T: K5 on [B, T, 3E], K4 on its split views
-            qkv = torch.randn(B, T_EAT, 3 * E, device="cuda", generator=gen).to(dtype)
-            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T_EAT, 3, heads, dh).unbind(2))
-            bound = attention_bound_ms(name, gated=False, padded=False, seq=T_EAT, heads=heads, dim=dh)
-            flops = 4.0 * B * heads * T_EAT * T_EAT * dh
+            qkv = torch.randn(bsz_f, T_EAT, 3 * e, device="cuda", generator=gen).to(dtype)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz_f, T_EAT, 3, heads, dh).unbind(2))
+            bound = attention_bound_ms(name, gated=False, padded=False, seq=T_EAT, heads=heads, dim=dh, bsz=bsz_f)
+            flops = 4.0 * bsz_f * heads * T_EAT * T_EAT * dh
             with torch.no_grad():
                 for kname, run, twin in (
                     ("fused_qkv_attention", lambda: ak.fused_qkv_attention(qkv, heads),
@@ -5023,21 +5114,23 @@ def phase_head_width_kernels():
                     ("plain_attention", lambda: ak.gated_bias_attention(q, k, v, None),
                      lambda: ak.gated_bias_attention_reference(q, k, v, None)),
                 ):
-                    label = f"{kname} dh={dh} H={heads} B={B} T={T_EAT} {name} ({body})"
+                    label = f"{kname} dh={dh} H={heads} B={bsz_f} T={T_EAT} {name} ({body})"
                     err = held(label, dtype, run(), twin())
-                    record(kname, dh, name, label, err, run, twin,
-                           lambda: F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5), bound, flops)
+                    if dh in timed:
+                        record(kname, dh, name, label, err, run, twin,
+                               lambda: F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5), bound, flops,
+                               (q, k, v))
             del qkv, q, k, v
             # gated forwards, BEATs' T, with the gate: K1 on three projections' views, K2 on [B, T, 3E]
-            qkv = torch.randn(B, T, 3 * E, device="cuda", generator=gen).to(dtype)
-            sq, sk, sv = (torch.randn(B, T, E, device="cuda", generator=gen).to(dtype)
-                          .view(B, T, heads, dh).permute(0, 2, 1, 3) for _ in range(3))
-            fq, fk, fv = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T, 3, heads, dh).unbind(2))
+            qkv = torch.randn(bsz_g, T, 3 * e, device="cuda", generator=gen).to(dtype)
+            sq, sk, sv = (torch.randn(bsz_g, T, e, device="cuda", generator=gen).to(dtype)
+                          .view(bsz_g, T, heads, dh).permute(0, 2, 1, 3) for _ in range(3))
+            fq, fk, fv = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz_g, T, 3, heads, dh).unbind(2))
             bias = torch.randn(heads, T, T, device="cuda", generator=gen)
-            gate = torch.rand(B, heads, T, device="cuda", generator=gen) + 1.0
+            gate = torch.rand(bsz_g, heads, T, device="cuda", generator=gen) + 1.0
             attn_mask = (gate[..., None] * bias[None]).to(dtype)
-            bound = attention_bound_ms(name, gated=True, padded=False, seq=T, heads=heads, dim=dh)
-            flops = 4.0 * B * heads * T * T * dh
+            bound = attention_bound_ms(name, gated=True, padded=False, seq=T, heads=heads, dim=dh, bsz=bsz_g)
+            flops = 4.0 * bsz_g * heads * T * T * dh
             with torch.no_grad():
                 for kname, run, twin, views in (
                     ("gated_bias_attention", lambda: ak.gated_bias_attention(sq, sk, sv, bias, gate),
@@ -5045,22 +5138,23 @@ def phase_head_width_kernels():
                     ("fused_qkv_gated_attention", lambda: ak.fused_qkv_gated_attention(qkv, heads, bias, gate),
                      lambda: ak.fused_qkv_gated_reference(qkv, heads, bias, gate), (fq, fk, fv)),
                 ):
-                    label = f"{kname} dh={dh} H={heads} B={B} T={T} {name} (gate, {body})"
+                    label = f"{kname} dh={dh} H={heads} B={bsz_g} T={T} {name} (gate, {body})"
                     err = held(label, dtype, run(), twin())
-                    record(kname, dh, name, label, err, run, twin,
-                           lambda: F.scaled_dot_product_attention(*views, attn_mask=attn_mask, scale=dh**-0.5),
-                           bound, flops)
+                    if dh in timed:
+                        record(kname, dh, name, label, err, run, twin,
+                               lambda: F.scaled_dot_product_attention(*views, attn_mask=attn_mask, scale=dh**-0.5),
+                               bound, flops, (*views, attn_mask))
             del qkv, sq, sk, sv, fq, fk, fv, attn_mask
             torch.cuda.empty_cache()
 
             # K3 at BEATs' training shape, with the gate
-            qkv = torch.randn(B_TRAIN, T, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
+            qkv = torch.randn(bsz_b3, T, 3 * e, device="cuda", generator=gen).to(dtype).requires_grad_()
             bias = bias.requires_grad_()
-            gate = gate[:B_TRAIN].clone().requires_grad_()
-            dout = torch.randn(B_TRAIN, T, E, device="cuda", generator=gen).to(dtype)
+            gate = gate[:bsz_b3].clone().requires_grad_()
+            dout = torch.randn(bsz_b3, T, e, device="cuda", generator=gen).to(dtype)
             out = ak.fused_qkv_gated_attention(qkv, heads, bias, gate)
             got = torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True)
-            label = f"fused_qkv_gated_attention_backward dh={dh} H={heads} B={B_TRAIN} T={T} {name}"
+            label = f"fused_qkv_gated_attention_backward dh={dh} H={heads} B={bsz_b3} T={T} {name}"
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), heads, bias.detach(), gate.detach(), None,
                                                          dout)
             err = held(label + " dqkv", dtype, got[0], want[0])
@@ -5075,30 +5169,32 @@ def phase_head_width_kernels():
                     held(f"{label} {part} vs its residual twin", dtype, g, w)
                 del own, saved, rest, lse
             del got, want
-            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
-                       for t in qkv.detach().view(B_TRAIN, T, 3, heads, dh).unbind(2))
-            gated_bias = (gate.detach()[..., None] * bias.detach()[None]).to(dtype).requires_grad_()
-            ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
-            plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
-                qkv.detach(), heads, bias.detach(), gate.detach(), None, dout))
-            library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
-            t_bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False, heads=heads, dim=dh)
-            print(f"time {label} (gate, {body}): kernel {ms:.4f} ms "
-                  f"({tflops(10.0 * B_TRAIN * heads * T * T * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                  f"sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
-                  f"({t_bound / ms:.1%} of bound); {CARD[0]}")
-            results[("fused_qkv_gated_attention_backward", dh, name)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
-                bound_by=bound_by)
-            del qkv, bias, gate, dout, out, q, k, v, gated_bias
+            if dh in timed:
+                q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                           for t in qkv.detach().view(bsz_b3, T, 3, heads, dh).unbind(2))
+                gated_bias = (gate.detach()[..., None] * bias.detach()[None]).to(dtype).requires_grad_()
+                ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True), reps)
+                plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
+                    qkv.detach(), heads, bias.detach(), gate.detach(), None, dout), reps)
+                library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout, reps)
+                t_bound, bound_by = backward_bound_ms(name, bsz_b3, T, gated=True, padded=False, heads=heads, dim=dh)
+                print(f"time {label} (gate, {body}): kernel {ms:.4f} ms "
+                      f"({tflops(10.0 * bsz_b3 * heads * T * T * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                      f"sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
+                      f"({t_bound / ms:.1%} of bound); {CARD[0]}")
+                results[("fused_qkv_gated_attention_backward", dh, name)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
+                    bound_by=bound_by)
+                del q, k, v, gated_bias
+            del qkv, bias, gate, dout, out
             torch.cuda.empty_cache()
 
             # K6 at EAT's training shape
-            qkv = torch.randn(B_TRAIN, T_EAT, 3 * E, device="cuda", generator=gen).to(dtype).requires_grad_()
-            dout = torch.randn(B_TRAIN, T_EAT, E, device="cuda", generator=gen).to(dtype)
+            qkv = torch.randn(bsz_b6, T_EAT, 3 * e, device="cuda", generator=gen).to(dtype).requires_grad_()
+            dout = torch.randn(bsz_b6, T_EAT, e, device="cuda", generator=gen).to(dtype)
             out = ak.fused_qkv_attention(qkv, heads)
             (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
-            label = f"fused_qkv_attention_backward dh={dh} H={heads} B={B_TRAIN} T={T_EAT} {name}"
+            label = f"fused_qkv_attention_backward dh={dh} H={heads} B={bsz_b6} T={T_EAT} {name}"
             err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
             if dtype == torch.bfloat16:
                 *_, saved, rest, lse = out.grad_fn.saved_tensors  # K5's residuals
@@ -5106,39 +5202,52 @@ def phase_head_width_kernels():
                     qkv.detach(), saved, lse, None, dout, out_rest=rest)[0])
                 del saved, rest, lse
             del got
-            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
-                       for t in qkv.detach().view(B_TRAIN, T_EAT, 3, heads, dh).unbind(2))
-            ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
-            plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
-            library_ms = sdpa_backward_ms(q, k, v, None, dout)
-            t_bound, bound_by = backward_bound_ms(name, B_TRAIN, T_EAT, gated=False, padded=False, heads=heads,
-                                                  dim=dh)
-            print(f"time {label} ({body}): kernel {ms:.4f} ms "
-                  f"({tflops(10.0 * B_TRAIN * heads * T_EAT * T_EAT * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} "
-                  f"ms, sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
-                  f"({t_bound / ms:.1%} of bound); {CARD[0]}")
-            results[("fused_qkv_attention_backward", dh, name)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
-                bound_by=bound_by)
-            del qkv, dout, out, q, k, v
+            if dh in timed:
+                q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                           for t in qkv.detach().view(bsz_b6, T_EAT, 3, heads, dh).unbind(2))
+                ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True), reps)
+                plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout), reps)
+                library_ms = sdpa_backward_ms(q, k, v, None, dout, reps)
+                t_bound, bound_by = backward_bound_ms(name, bsz_b6, T_EAT, gated=False, padded=False, heads=heads,
+                                                      dim=dh)
+                print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                      f"({tflops(10.0 * bsz_b6 * heads * T_EAT * T_EAT * dh, ms):.1f} TFLOP/s), plain "
+                      f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
+                      f"({t_bound / ms:.1%} of bound); {CARD[0]}")
+                results[("fused_qkv_attention_backward", dh, name)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
+                    bound_by=bound_by)
+                del q, k, v
+            del qkv, dout, out
             torch.cuda.empty_cache()
 
             # one ragged tile with a key mask: every kernel once
             bsz, seq = HW_RAGGED_B, HW_RAGGED_T
-            qkv = torch.randn(bsz, seq, 3 * E, device="cuda", generator=gen).to(dtype)
+            qkv = torch.randn(bsz, seq, 3 * e, device="cuda", generator=gen).to(dtype)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
             bias = torch.randn(heads, seq, seq, device="cuda", generator=gen)
             gate = torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0
             mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
             mask[1, 20:] = True
             mask[5, 3:] = True
-            dout = torch.randn(bsz, seq, E, device="cuda", generator=gen).to(dtype)
+            forward_mask = mask.clone()
+            if padded_item:
+                forward_mask[7] = True  # every key of item 7 padded: NaN there, as the twin gives
+            dout = torch.randn(bsz, seq, e, device="cuda", generator=gen).to(dtype)
             tag = f"dh={dh} B={bsz} T={seq} {name} masked"
             with torch.no_grad():
-                held(f"gated_bias_attention {tag}", dtype, ak.gated_bias_attention(q, k, v, bias, gate, mask),
-                     ak.gated_bias_attention_reference(q, k, v, bias, gate, mask))
-                held(f"plain_attention {tag}", dtype, ak.gated_bias_attention(q, k, v, None, None, mask),
-                     ak.gated_bias_attention_reference(q, k, v, None, None, mask))
+                held(f"gated_bias_attention {tag}", dtype,
+                     ak.gated_bias_attention(q, k, v, bias, gate, forward_mask),
+                     ak.gated_bias_attention_reference(q, k, v, bias, gate, forward_mask))
+                held(f"plain_attention {tag}", dtype, ak.gated_bias_attention(q, k, v, None, None, forward_mask),
+                     ak.gated_bias_attention_reference(q, k, v, None, None, forward_mask))
+                if padded_item:
+                    held(f"fused_qkv_gated_attention {tag}, an item all padded", dtype,
+                         ak.fused_qkv_gated_attention(qkv, heads, bias, gate, forward_mask),
+                         ak.fused_qkv_gated_reference(qkv, heads, bias, gate, forward_mask))
+                    held(f"fused_qkv_attention {tag}, an item all padded", dtype,
+                         ak.fused_qkv_attention(qkv, heads, forward_mask),
+                         ak.fused_qkv_reference(qkv, heads, forward_mask))
             leaves = (qkv.clone().requires_grad_(), bias.clone().requires_grad_(), gate.clone().requires_grad_())
             out = ak.fused_qkv_gated_attention(leaves[0], heads, leaves[1], leaves[2], mask)
             held(f"fused_qkv_gated_attention {tag}", dtype, out.detach(),
@@ -5153,31 +5262,53 @@ def phase_head_width_kernels():
             (got,) = torch.autograd.grad(out, (leaf,), dout)
             held(f"fused_qkv_attention_backward {tag}", dtype, got,
                  ak.fused_qkv_backward_reference(qkv, heads, mask, dout))
-            del qkv, q, k, v, bias, gate, mask, dout, leaves, out, got, want, leaf
+            del qkv, q, k, v, bias, gate, mask, forward_mask, dout, leaves, out, got, want, leaf
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
     counts = read_counts()
     for kname in ("gated_bias_attention", "fused_qkv_gated_attention", "plain_attention", "fused_qkv_attention",
                   "fused_qkv_gated_attention_backward", "fused_qkv_attention_backward"):
-        check(counts[kname] > 0, f"phase 34: {kname} launched {counts[kname]} times at dh {HW_WIDTHS}")
-    for dh in (20, 136):  # a width off the rule raises on the card, gated or not, before any launch
+        check(counts[kname] > 0, f"phase {phase}: {kname} launched {counts[kname]} times at dh {tuple(widths)}")
+    return results, counts, shapes
+
+
+def phase_head_width_kernels():
+    """K1-K6 at dh 16, 32, 96 and 128, E = 768 (48, 24, 8 and 6 heads)
+    (``head_width_kernels``, every width timed), then dh 20 and 136 (narrow
+    rows, two column chunks) at 2 heads, gated or not, bf16 and fp32,
+    against the twins.
+    Returns per-kernel numbers by (kernel, dh, dtype) and the phase's
+    launches."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    start = time.perf_counter()
+    results, counts, _ = head_width_kernels(34, HW_WIDTHS, HW_WIDTHS, lambda dh: E // dh, seed=34)
+    gen = torch.Generator(device="cuda").manual_seed(340)
+    for dh in (20, 136):  # widths past phase 34's rule run too, gated or not
         for dtype in (torch.bfloat16, torch.float32):
-            for what, call in (
-                ("fused_qkv_attention", lambda: ak.fused_qkv_attention(
-                    torch.zeros(2, 31, 6 * dh, dtype=dtype, device="cuda"), 2)),
-                ("gated_bias_attention", lambda: ak.gated_bias_attention(
-                    *[torch.zeros(2, 2, 31, dh, dtype=dtype, device="cuda")] * 3,
-                    torch.zeros(2, 31, 31, device="cuda"))),
-            ):
-                try:
-                    call()
-                    check(False, f"{what} at dh {dh} {dtype} raises")
-                except ValueError as exc:
-                    check("multiple of 8 from 8 to 128" in str(exc), f"{what} at dh {dh} {dtype} raises: {exc}")
-    check(read_counts() == counts, "phase 34: the refused widths launched nothing")
+            qkv = torch.randn(2, 31, 6 * dh, device="cuda", generator=gen).to(dtype)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(2, 31, 3, 2, dh).unbind(2))
+            bias = torch.randn(2, 31, 31, device="cuda", generator=gen)
+            with torch.no_grad():
+                for what, got, want in (
+                    ("fused_qkv_attention", ak.fused_qkv_attention(qkv, 2), ak.fused_qkv_reference(qkv, 2)),
+                    ("gated_bias_attention", ak.gated_bias_attention(q, k, v, bias),
+                     ak.gated_bias_attention_reference(q, k, v, bias)),
+                ):
+                    ok = torch.isfinite(got).all() and (
+                        float((got.float() - want.float()).abs().max()) <= FP32_ATOL if dtype == torch.float32
+                        else rel_l2(got, want) <= BF16_REL_L2)
+                    check(bool(ok), f"{what} at dh {dh} {dtype} runs on the card and agrees with its twin")
+    torch.cuda.synchronize()
+    after = read_counts()
+    check(after["fused_qkv_attention"] == counts["fused_qkv_attention"] + 4
+          and after["gated_bias_attention"] == counts["gated_bias_attention"] + 4,
+          "phase 34: dh 20 and 136 launched K5 and K1 four times each")
     print(f"phase 34 kernels: {time.perf_counter() - start:.1f} s; launches "
-          f"{ {k: v for k, v in counts.items() if v} }")
-    return results, counts
+          f"{ {k: v for k, v in after.items() if v} }")
+    return results, after
 
 
 def phase_head_width_paths(workdir: Path) -> dict:
@@ -5293,8 +5424,8 @@ def phase_head_width_paths(workdir: Path) -> dict:
     add(counts)
     del trainer
     torch.cuda.empty_cache()
-    eat_grad = training_gradient_check("EAT dh 32", lambda dtype, use_pallas: load_eat(dtype, use_pallas,
-                                                                                       num_classes=N_CLASSES),
+    eat_grad = training_gradient_check("EAT dh 32", reused_paths(lambda dtype: load_eat(dtype, True,
+                                                                                       num_classes=N_CLASSES)),
                                        batch["raw_wav"][:B_GRAD_CHECK], expect)
 
     # (d) the repo's example run config (dh 16) through ``commands.train``, the
@@ -5333,6 +5464,243 @@ def phase_head_width_paths(workdir: Path) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: head widths that are not a multiple of 8, or are above 128
+# ---------------------------------------------------------------------------
+
+WH_WIDTHS = (4, 12, 20, 33, 70, 100, 136, 150, 192, 256, 320, 512)
+WH_TIMED = (12, 20, 136, 192, 256, 320)  # timed beside the twin, the bound and SDPA
+WH_TIMED_LAUNCHES = 10  # the median of 10 calls (not 20), for the script's time
+WH_CHECK_B = 16  # the batch of the widths checked and not timed
+# A batch is cut where the twin's fp32 [B, H, T, T] logits would pass this
+# (192 heads of 4 at T=513: B=45 of 128); every other width keeps phase 34's.
+WH_TWIN_BYTES = 9 * 2**30
+# full width and depth, only the head count changed: BEATs 4 x 192, EAT 64 x 12, Bird-MAE huge 5 x 256
+BEATS_WIDE_HEADS, EAT_NARROW_HEADS, MAE_WIDE_HEADS = 4, 64, 5
+B_WH_MAE_FP32 = 8  # Bird-MAE huge's fp32 kernel-vs-plain check
+
+
+def wide_head_count(dh: int) -> int:
+    """Heads at head width dh: E = 768, or the nearest multiple of dh."""
+    return max(1, round(E / dh))
+
+
+def phase_wide_head_kernels():
+    """K1-K6 at dh 4, 12, 20, 33, 70, 100, 136, 150, 192, 256, 320 and 512
+    (``head_width_kernels``: phase 34's shapes for the timed widths, B=16
+    for the rest, E = 768 or the nearest multiple of dh, the batch cut where
+    the twin would not fit; a ragged
+    masked case a width with an item all padded), the widths of
+    :data:`WH_TIMED` timed with SDPA's backend printed; then
+    ``general_path_cost``. Returns per-kernel numbers by (kernel, dh,
+    dtype) and the phase's launches."""
+    start = time.perf_counter()
+    results, counts, shapes = head_width_kernels(35, WH_WIDTHS, WH_TIMED, wide_head_count, seed=35,
+                                                 twin_bytes=WH_TWIN_BYTES, padded_item=True,
+                                                 reps=WH_TIMED_LAUNCHES, check_batch=WH_CHECK_B)
+    general_path_cost()
+    counts = read_counts()
+    print(json.dumps({"phase": 35, "shapes": {f"dh{dh}": v for dh, v in shapes.items()}, "card": CARD[0]}))
+    print(f"phase 35 kernels: {time.perf_counter() - start:.1f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return results, counts
+
+
+def general_path_cost() -> None:
+    """K5 at dh 64, EAT's shape, bf16: the kernel that runs 16-byte rows
+    against the general kernel on the same values two bytes off their
+    16-byte boundary (narrow rows), each held to the twin; the reason both
+    paths stay."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(352)
+    store = torch.randn(B, T_EAT, 3 * E + 1, device="cuda", generator=gen).to(torch.bfloat16)
+    aligned, shifted = store[..., :3 * E].contiguous(), store[..., 1:]
+    shifted.copy_(aligned)
+    with torch.no_grad():
+        want = ak.fused_qkv_reference(aligned, H)
+        for what, qkv in (("16-byte rows", aligned), ("narrow rows, 2 bytes off", shifted)):
+            got = ak.fused_qkv_attention(qkv, H)
+            rel = rel_l2(got, want)
+            check(rel <= BF16_REL_L2, f"fused_qkv_attention dh=64 {what}: rel L2 {rel:.3e} <= {BF16_REL_L2:g}")
+            ms = median_ms(lambda: ak.fused_qkv_attention(qkv, H), WH_TIMED_LAUNCHES)
+            print(f"time fused_qkv_attention dh=64 H={H} B={B} T={T_EAT} bfloat16, {what}: kernel {ms:.4f} ms; "
+                  f"{CARD[0]}")
+
+
+def phase_wide_head_paths(workdir: Path) -> dict:
+    """BEATs with 4 heads of 192 (K1 extraction, int8 K1 + K7, the fp32
+    kernel path against the plain path, a ``fused_qkv`` training step on
+    K2/K3 with the fp32 gradient check), EAT with 64 heads of 12 (K5
+    extraction of 10 s clips, K5/K6 training, the same checks) and Bird-MAE
+    huge with 5 heads of 256 (K5 extraction of 10 s clips at 32 kHz, the fp32
+    kernel path against the plain path), each at full width and depth with
+    seeded random weights through its entry point. Returns the launches of
+    every kernel."""
+    import torch
+
+    import avex_tpu_torch
+    from avex_tpu_torch.configs import ModelSpec
+
+    start = time.perf_counter()
+    totals: dict = {}
+
+    def add(counts):
+        for kname, count in counts.items():
+            totals[kname] = totals.get(kname, 0) + count
+
+    layers = ENCODER_LAYERS
+    beats_init = dict(encoder_attention_heads=BEATS_WIDE_HEADS)
+    n_emb = (layers + 1) * E
+    gen = torch.Generator(device="cuda").manual_seed(351)
+    batches = [torch.randn(B, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(2)]
+
+    def mean_pool(features, aux):
+        return features.mean(dim=1)
+
+    with torch.no_grad():
+        # (a) BEATs 4 x 192: K1 in bf16; int8 (K1 with K7); fp32 kernel path vs plain path
+        model = load_beats("bfloat16", use_pallas=True, **beats_init)
+        _, pooled16, counts, rate16 = drive(model, "BEATs 4 x 192 bf16 split", {"gated_bias_attention": layers},
+                                            batches, n_emb, mean_pool)
+        add(counts)
+        del model
+        model = load_beats("bfloat16", quantization="int8", use_pallas=True, **beats_init)
+        _, pooled_q, counts, rate_q = drive(model, "BEATs 4 x 192 int8 bf16",
+                                            {"int8_dynamic_dense": INT8_PER_FORWARD, "gated_bias_attention": layers},
+                                            batches, n_emb, mean_pool)
+        add(counts)
+        del model
+        rel = rel_l2(pooled_q, pooled16)
+        check(rel < INT8_FLOAT_REL, f"BEATs 4 x 192: int8 vs float bf16, same weights: pooled rel L2 {rel:.3e} < "
+                                    f"{INT8_FLOAT_REL:g}")
+        small = [b[:B_HW_FP32] for b in batches[:1]]
+        model = load_beats("float32", use_pallas=True, **beats_init)
+        emb32, pooled32, _, _ = drive(model, "BEATs 4 x 192 fp32 split", {"gated_bias_attention": layers},
+                                      small, n_emb, mean_pool)
+        for layer in model.module.backbone.encoder.layers:  # the same weights on the plain path
+            layer.self_attn.use_pallas = False
+        reset_counts()
+        ref_pooled = model(small[0]).float().mean(dim=1)
+        ref_emb = model.extract_embeddings(small[0], aggregation="mean")
+        check(sum(read_counts().values()) == 0, "BEATs 4 x 192 fp32 plain path launches no kernel")
+        del model
+        compare_paths("BEATs 4 x 192", pooled32, emb32, ref_pooled, ref_emb)
+    torch.cuda.empty_cache()
+
+    # (b) BEATs 4 x 192 training with fused_qkv: K2 and K3
+    def load_beats_train(dtype, use_pallas):
+        spec = ModelSpec(name="beats", pretrained=False, compute_dtype=dtype,
+                         init_config=dict(beats_config(), **beats_init, fused_qkv=True, use_pallas=use_pallas))
+        return avex_tpu_torch.load_model(spec, random_weights=True, num_classes=N_CLASSES, device="cuda")
+
+    batch = {"raw_wav": torch.randn(B_TRAIN, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_gated_attention": layers, "fused_qkv_gated_attention_backward": layers}
+    trainer, _, ms_beats, _, _, counts = train_run("beats", load_beats_train("bfloat16", True), batch, expect,
+                                                   TRAIN_STEPS, workdir / "beats")
+    add(counts)
+    del trainer
+    torch.cuda.empty_cache()
+    beats_grad = training_gradient_check("BEATs 4 x 192", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect)
+
+    # (c) EAT 64 x 12: K5 extraction, K6 training
+    def load_eat(dtype, use_pallas, **kwargs):
+        return avex_tpu_torch.load_model("esp_aves2_sl_eat_all_ssl_all", random_weights=True, device="cuda",
+                                         use_pallas=use_pallas, compute_dtype=dtype, heads=EAT_NARROW_HEADS,
+                                         **kwargs)
+
+    eat_batches = [torch.randn(B, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(2)]
+
+    def aux_pool(features, aux):
+        return aux["pooled"]
+
+    with torch.no_grad():
+        model = load_eat("bfloat16", True, return_features_only=True)
+        model.register_hooks_for_layers(["all"])
+        _, _, counts, rate_eat = drive(model, "EAT 64 x 12 bf16", {"fused_qkv_attention": 12}, eat_batches, 12 * E,
+                                       aux_pool)
+        add(counts)
+        del model
+        small = [b[:B_HW_FP32] for b in eat_batches[:1]]
+        model = load_eat("float32", True, return_features_only=True)
+        model.register_hooks_for_layers(["all"])
+        emb32, pooled32, _, _ = drive(model, "EAT 64 x 12 fp32", {"fused_qkv_attention": 12}, small, 12 * E,
+                                      aux_pool)
+        for block in model.module.blocks:  # the same weights on the plain path
+            block.use_pallas = False
+        reset_counts()
+        ref_pooled = aux_pool(*model.module(small[0], None)).float()
+        ref_emb = model.extract_embeddings(small[0], aggregation="mean")
+        check(sum(read_counts().values()) == 0, "EAT 64 x 12 fp32 plain path launches no kernel")
+        del model
+        compare_paths("EAT 64 x 12", pooled32, emb32, ref_pooled, ref_emb)
+    torch.cuda.empty_cache()
+    batch = {"raw_wav": torch.randn(B_TRAIN, EAT_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1,
+             "label": torch.randint(0, N_CLASSES, (B_TRAIN,), device="cuda", generator=gen)}
+    expect = {"fused_qkv_attention": 12, "fused_qkv_attention_backward": 12}
+    trainer, _, ms_eat, _, _, counts = train_run(
+        "eat_hf", load_eat("bfloat16", True, num_classes=N_CLASSES), batch, expect, TRAIN_STEPS, workdir / "eat")
+    add(counts)
+    del trainer
+    torch.cuda.empty_cache()
+    eat_grad = training_gradient_check("EAT 64 x 12", reused_paths(lambda dtype: load_eat(dtype, True,
+                                                                                           num_classes=N_CLASSES)),
+                                       batch["raw_wav"][:B_GRAD_CHECK], expect)
+
+    # (d) Bird-MAE huge 5 x 256: K5 extraction of 10 s clips at 32 kHz, fp32 kernel path vs plain path
+    def load_mae(dtype, use_pallas):
+        spec = ModelSpec(name="birdmae", pretrained=False, model_id=MAE_HUGE, compute_dtype=dtype,
+                         init_config={"use_pallas": use_pallas, "heads": MAE_WIDE_HEADS})
+        model = avex_tpu_torch.load_model(spec, random_weights=True, device="cuda", return_features_only=True)
+        model.register_hooks_for_layers(["all"])
+        return model
+
+    mae_batches = [torch.randn(B, MAE_CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(2)]
+    with torch.no_grad():
+        model = load_mae("bfloat16", True)
+        blocks = model.module.blocks
+        check((len(blocks), blocks[0].dim, blocks[0].heads) == (MAE_LAYERS, E_MAE, MAE_WIDE_HEADS),
+              f"Bird-MAE huge 5 x 256: (blocks, dim, heads) {(len(blocks), blocks[0].dim, blocks[0].heads)} == "
+              f"{(MAE_LAYERS, E_MAE, MAE_WIDE_HEADS)}")
+        _, _, counts, rate_mae = drive(model, "Bird-MAE huge 5 x 256 bf16", {"fused_qkv_attention": MAE_LAYERS},
+                                       mae_batches, MAE_LAYERS * E_MAE, aux_pool)
+        add(counts)
+        del model
+        torch.cuda.empty_cache()
+        small = [mae_batches[0][:B_WH_MAE_FP32]]
+        model = load_mae("float32", True)
+        _, pooled32, _, _ = drive(model, f"Bird-MAE huge 5 x 256 fp32 (B={B_WH_MAE_FP32})",
+                                  {"fused_qkv_attention": MAE_LAYERS}, small, MAE_LAYERS * E_MAE, aux_pool)
+        layers32 = model.extract_embeddings(small[0], aggregation="none")
+        for block in model.module.blocks:  # the same weights on the plain path
+            block.use_pallas = False
+        reset_counts()
+        ref_pooled = model.module(small[0])[1]["pooled"].float()
+        ref_layers = model.extract_embeddings(small[0], aggregation="none")
+        check(sum(read_counts().values()) == 0, "Bird-MAE huge 5 x 256 fp32 plain path launches no kernel")
+        del model
+        rp = rel_l2(pooled32, ref_pooled)
+        layer_rel = [rel_l2(a, b) for a, b in zip(layers32, ref_layers)]
+        check(len(layer_rel) == MAE_LAYERS and rp <= PATH_REL and max(layer_rel) <= PATH_REL,
+              f"Bird-MAE huge 5 x 256: fp32 kernel path vs plain path (B={B_WH_MAE_FP32}): pooled rel {rp:.3e}, "
+              f"worst of {len(layer_rel)} tapped layers rel {max(layer_rel):.3e} <= {PATH_REL:g}")
+        del layers32, ref_layers
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": 35, "beats_4x192": {"clips_per_s": {"bf16_split_kernel": rate16,
+                                                                   "bf16_int8_kernel": rate_q},
+                                                   "int8_vs_float_pooled_rel_l2": rel, "train_ms_per_step": ms_beats,
+                                                   **beats_grad},
+                      "eat_64x12": {"clips_per_s": rate_eat, "train_ms_per_step": ms_eat, **eat_grad},
+                      "birdmae_huge_5x256": {"clips_per_s": rate_mae, "fp32_kernel_vs_plain": {
+                          "pooled_rel": rp, "worst_layer_rel": max(layer_rel)}},
+                      "card": CARD[0]}))
+    print(f"phase 35 paths: {time.perf_counter() - start:.1f} s; launches { {k: v for k, v in totals.items() if v} }")
+    return totals
+
+
 def main() -> int:
     start = time.perf_counter()
     phase_card()
@@ -5347,6 +5715,7 @@ def main() -> int:
     dh80_timings, dh80_k4_launches = timed(phase_dh80_kernels)
     ssl_timings = timed(phase_eat_ssl_kernels)
     hw_timings, hw_kernel_counts = timed(phase_head_width_kernels)
+    wh_timings, wh_kernel_counts = timed(phase_wide_head_kernels)
     launches = timed(phase_main_path)
     launches["int8_dynamic_dense"] = timed(phase_int8_main_path)
     eat_launches = timed(phase_eat)
@@ -5377,6 +5746,7 @@ def main() -> int:
     cli = timed(phase_cli, Path(__file__).resolve().parent / "build" / "chip_smoke_cli")
     head_widths = timed(phase_head_width_paths,
                         Path(__file__).resolve().parent / "build" / "chip_smoke_head_widths")
+    wide_heads = timed(phase_wide_head_paths, Path(__file__).resolve().parent / "build" / "chip_smoke_wide_heads")
     torch.cuda.synchronize()
     print(f"fused_qkv_attention (K5) launched {eat_launches} times on the EAT path, {aves_launches} on the AVES "
           f"path, {birdmae_launches} on the Bird-MAE path (huge dh 80, base dh 64) and {atst_launches} on the ATST path")
@@ -5426,14 +5796,19 @@ def main() -> int:
     for kname, count in head_widths.items():
         if count:  # each run checked the rest at 0
             launches[kname] += count
+    # Phase 35: K1 (and K7) on BEATs 4 x 192, K2/K3 on its training, K5/K6 on EAT 64 x 12, K5 on
+    # Bird-MAE huge 5 x 256.
+    for kname, count in wide_heads.items():
+        if count:  # each run checked the rest at 0
+            launches[kname] += count
     # No main path reaches K4 (every model's projection, dh 64 or Bird-MAE
     # large and huge's 80, takes K5, and K4 takes the same widths) or K8 (in
     # JAX only scripts/bench_int8_matmul.py calls it); drive() checks that each
     # main-path run launched them 0 times. Their kernel-phase launches go
     # under a key of their own.
     launches["plain_attention"] = launches["int8_matmul"] = 0
-    kernel_phase = {"plain_attention": k4_launches + dh80_k4_launches + hw_kernel_counts["plain_attention"],
-                    "int8_matmul": k8_launches}
+    kernel_phase = {"plain_attention": k4_launches + dh80_k4_launches + hw_kernel_counts["plain_attention"]
+                    + wh_kernel_counts["plain_attention"], "int8_matmul": k8_launches}
     # The bias-free kernels at head width 80 (Bird-MAE huge's shapes), bf16 and fp32.
     dh80 = {kname: {name: dh80_timings[(kname, name)] for name in ("bfloat16", "float32")}
             for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
@@ -5491,8 +5866,14 @@ def main() -> int:
             kernels[-1]["head_widths"] = {f"dh{dh}": {name: hw_timings[(kname, dh, name)]
                                                       for name in ("bfloat16", "float32")} for dh in HW_WIDTHS}
             kernels[-1]["head_width_kernel_phase_launches"] = hw_kernel_counts[kname]
+            # phase 35: the widths of WH_TIMED, bf16 (tensor cores) and fp32 (FMA), at the shapes it prints
+            kernels[-1]["wide_head_widths"] = {f"dh{dh}": {name: wh_timings[(kname, dh, name)]
+                                                           for name in ("bfloat16", "float32")} for dh in WH_TIMED}
+            kernels[-1]["wide_head_kernel_phase_launches"] = wh_kernel_counts[kname]
         if head_widths.get(kname):
             kernels[-1]["head_width_launches"] = head_widths[kname]  # phase 34's share of ``launches``
+        if wide_heads.get(kname):
+            kernels[-1]["wide_head_launches"] = wide_heads[kname]  # phase 35's share of ``launches``
         if kname in kernel_phase:
             kernels[-1]["kernel_phase_launches"] = kernel_phase[kname]
             check(kernel_phase[kname] > 0, f"{kname} ran in the kernel phase (no main path reaches it)")

@@ -204,25 +204,29 @@ def test_grad_multiply_scales_only_the_gradient():
 
 def test_fused_qkv_compatible_is_the_kernel_head_width():
     assert ak.fused_qkv_compatible(768, 12)
-    assert ak.fused_qkv_compatible(96, 12)  # dh=8: every multiple of 8 up to 128
-    assert not ak.fused_qkv_compatible(240, 12)  # dh=20
+    assert ak.fused_qkv_compatible(96, 12)  # dh=8
+    assert ak.fused_qkv_compatible(240, 12)  # dh=20: every head width runs
     assert ak.fused_qkv_compatible(1280, 16)  # dh=80: Bird-MAE huge takes K5
+    assert not ak.fused_qkv_compatible(770, 12)  # the heads do not split evenly
 
 
 # (dim, heads) → JAX's rule (head groups tiling 128 lanes) and the port's
-# (dh a multiple of 8 from 8 to 128, any head count): they differ at 12 heads
-# of 80, 1 of 64 and 12 of 8, where JAX's head groups do not tile 128 lanes.
+# (the heads split evenly, any width): they differ at 12 heads of 80, 1 of
+# 64, 12 of 8 and 11 of 70, where JAX's head groups do not tile 128 lanes.
+# The last id is the one that case had when the port took only multiples of
+# 8 up to 128.
 COMPATIBLE_GRID = [
     (768, 12, True, True), (1024, 16, True, True), (1280, 16, True, True), (640, 8, True, True),
     (128, 2, True, True), (960, 12, False, True), (64, 1, False, True), (96, 12, False, True),
-    (1536, 16, True, True), (512, 16, True, True), (1280, 10, True, True), (770, 11, False, False),
+    (1536, 16, True, True), (512, 16, True, True), (1280, 10, True, True),
+    pytest.param(770, 11, False, True, id="770-11-False-False"),
 ]
 
 
 @pytest.mark.parametrize("dim,heads,jax_rule,port_rule", COMPATIBLE_GRID)
 def test_fused_qkv_compatible_grid(dim, heads, jax_rule, port_rule):
     assert jax_compatible(dim, heads) == jax_rule
-    assert ak.fused_qkv_compatible(dim, heads) == port_rule == (dim % heads == 0 and dim // heads in ak.HEAD_DIMS)
+    assert ak.fused_qkv_compatible(dim, heads) == port_rule == (dim % heads == 0)
 
 
 # Head width 80 (Bird-MAE large and huge): 8 heads, JAX's fused route in one

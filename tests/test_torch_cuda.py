@@ -152,17 +152,20 @@ def test_fused_backward_kernels_match_twins(card, shape, variant, padded, dtype)
 
 
 def test_unsupported_inputs_raise(inputs):
+    """What the kernels refuse: a head width below 1, a gate without a bias,
+    a head dimension that is not contiguous, half precision. (A head width
+    such as 20 and rows of stride 65 run: ``tests/test_torch_wide_heads.py``.)"""
     qkv, bias, gate, mask = inputs
     q, k, v = _split(qkv)
     with pytest.raises(ValueError, match="head_dim"):
-        ak.gated_bias_attention(q[..., :20], k[..., :20], v[..., :20], bias)
+        ak.gated_bias_attention(q[..., :0], k[..., :0], v[..., :0], bias, scale=1.0)
     with pytest.raises(ValueError, match="head_dim"):
-        ak.fused_qkv_attention(qkv[..., : 3 * H * 20], H)  # dh=20: not a multiple of 8
+        ak.fused_qkv_attention(qkv[..., :0], H, scale=1.0)  # dh=0
     with pytest.raises(ValueError, match="gate"):
         ak.gated_bias_attention(q, k, v, None, gate)
-    with pytest.raises(ValueError, match="strides"):
-        odd_rows = torch.randn(B, H, T, D + 1, device="cuda")[..., :D]  # token stride 65
-        ak.gated_bias_attention(odd_rows, k, v, bias)
+    with pytest.raises(ValueError, match="contiguous head dimension"):
+        cols = torch.randn(B, H, D, T, device="cuda").transpose(-1, -2)  # head dimension of stride T
+        ak.gated_bias_attention(cols, cols, cols, bias)
     with pytest.raises(TypeError):
         ak.gated_bias_attention(q.half(), k.half(), v.half(), bias)
     with pytest.raises(TypeError):
@@ -348,19 +351,23 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
     assert sources == ["_tensor_core_library", "_library"] and ak.LAUNCHES["plain_attention"] == 2
 
 
-def test_tensor_core_head_width_other_than_64_raises(card, monkeypatch):
-    """A bf16 call at dh=20 (the kernels take the multiples of 8 up to 128)
-    raises before any launch."""
-    for name in ("_library", "_tensor_core_library"):
-        monkeypatch.setattr(ak, name, lambda *args: pytest.fail("no kernel may be loaded or launched"))
+def test_tensor_core_head_width_other_than_64_raises(card):
+    """A bf16 call at dh=20, which this test once saw refused, runs on the
+    tensor-core kernels through narrow rows: K5 and its backward K6, and K4,
+    against their twins."""
     ak.reset_launch_counts()
-    qkv = torch.zeros(2, 31, 3 * H * 20, dtype=torch.bfloat16, device="cuda", requires_grad=True)
-    with pytest.raises(ValueError, match="head_dim"):
-        ak.fused_qkv_attention(qkv, H)
-    q = torch.zeros(2, H, 31, 20, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
-        ak.gated_bias_attention(q, q, q, None)
-    assert sum(ak.LAUNCHES.values()) == 0
+    qkv = torch.randn(2, 31, 3 * H * 20, generator=card, device="cuda").to(torch.bfloat16).requires_grad_()
+    dout = torch.randn(2, 31, H * 20, generator=card, device="cuda").to(torch.bfloat16)
+    out = ak.fused_qkv_attention(qkv, H)
+    _close_bf16(out.detach(), ak.fused_qkv_reference(qkv.detach(), H))
+    (got,) = torch.autograd.grad(out, (qkv,), dout)
+    _close_bf16(got, ak.fused_qkv_backward_reference(qkv.detach(), H, None, dout))
+    q = torch.randn(2, H, 31, 20, generator=card, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        _close_bf16(ak.gated_bias_attention(q, q, q, None), ak.gated_bias_attention_reference(q, q, q, None))
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_attention"] == ak.LAUNCHES["fused_qkv_attention_backward"] == 1
+    assert ak.LAUNCHES["plain_attention"] == 1
 
 
 # The bf16 gated forward on the tensor cores (K1 and K2 in bf16): the
@@ -661,10 +668,10 @@ def test_head_width_80_backward_kernel_matches_twins(card, seq, masking, dtype):
                                                                     out_rest=rest)[0])
 
 
-def test_head_width_80_gated_and_other_widths_raise(card, monkeypatch):
+def test_head_width_80_gated_and_other_widths_raise(card):
     """The gated kernels take dh 80 as the bias-free ones do (K2 and K1
-    against their twins); a call at a width that is not a multiple of 8 up
-    to 128 raises before any kernel is loaded, gated or not."""
+    against their twins), and the widths this test once saw refused run too:
+    K2 and K1 at dh 84 (narrow rows), K5 at dh 136 (two column chunks)."""
     for dtype in (torch.float32, torch.bfloat16):
         qkv = _dh80(card, 2, 31, dtype)
         bias = torch.randn(H80, 31, 31, generator=card, device="cuda")
@@ -676,17 +683,16 @@ def test_head_width_80_gated_and_other_widths_raise(card, monkeypatch):
             _close(ak.gated_bias_attention(q, k, v, bias, gate),
                    ak.gated_bias_attention_reference(q, k, v, bias, gate), dtype)
     torch.cuda.synchronize()
-    for name in ("_library", "_tensor_core_library"):
-        monkeypatch.setattr(ak, name, lambda *args: pytest.fail("no kernel may be loaded or launched"))
     ak.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
-        qkv = torch.zeros(2, 31, 3 * 8 * 84, dtype=dtype, device="cuda")
-        bias = torch.zeros(8, 31, 31, device="cuda")
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
-            ak.fused_qkv_gated_attention(qkv, 8, bias)  # dh 84
-        q = torch.zeros(2, 8, 31, 84, dtype=dtype, device="cuda")
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
-            ak.gated_bias_attention(q, q, q, bias)
-        with pytest.raises(ValueError, match="head_dim"):
-            ak.fused_qkv_attention(torch.zeros(2, 31, 3 * 8 * 136, dtype=dtype, device="cuda"), 8)  # dh 136
-    assert sum(ak.LAUNCHES.values()) == 0
+        qkv = torch.randn(2, 31, 3 * 8 * 84, generator=card, device="cuda").to(dtype)
+        bias = torch.randn(8, 31, 31, generator=card, device="cuda")
+        q = torch.randn(2, 8, 31, 84, generator=card, device="cuda").to(dtype)
+        wide = torch.randn(2, 31, 3 * 8 * 136, generator=card, device="cuda").to(dtype)
+        with torch.no_grad():
+            _close(ak.fused_qkv_gated_attention(qkv, 8, bias), ak.fused_qkv_gated_reference(qkv, 8, bias), dtype)
+            _close(ak.gated_bias_attention(q, q, q, bias), ak.gated_bias_attention_reference(q, q, q, bias), dtype)
+            _close(ak.fused_qkv_attention(wide, 8), ak.fused_qkv_reference(wide, 8), dtype)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_qkv_gated_attention"] == ak.LAUNCHES["gated_bias_attention"] == 2
+    assert ak.LAUNCHES["fused_qkv_attention"] == 2

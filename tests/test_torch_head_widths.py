@@ -1,9 +1,10 @@
 """The attention kernels at the head widths other than 64 and 80, against JAX.
 
-Every kernel of the port (K1-K6, gated or not) takes any head width that is
-a multiple of 8 from 8 to 128 (``attention_kernels.HEAD_DIMS``); each CUDA
-source is built for 32, 64, 80, 96 and 128 and a width runs on the smallest
-build that holds it. On the CPU the wrappers take their plain twins, held
+Every kernel of the port (K1-K6, gated or not) takes any head width D >= 1
+(``attention_kernels.width_plan``); each CUDA source is built for 32, 64,
+80, 96 and 128, a width up to 128 runs on the smallest build that holds it
+and a wider one in column chunks (``tests/test_torch_wide_heads.py`` holds
+the widths that are not a multiple of 8 or are above 128). On the CPU the wrappers take their plain twins, held
 here against JAX's Pallas kernels in interpret mode (which take any head
 count) at dh 8, 16, 32, 96 and 128: the split (K1, K4) and fused (K2, K5)
 forwards, the backward twins of K3 and K6 and the twin of the bf16 K3's and
@@ -14,8 +15,8 @@ then the width rule. The tolerances are those of the dh-80 tests
 (``tests/test_torch_attention_kernels.py``).
 
 JAX is imported inside the CPU tests only, so the ``cuda`` tests at the end
-(the kernels at each width against their twins, and the widths they refuse)
-also run on a machine without it:
+(the kernels at each width against their twins) also run on a machine
+without it:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_head_widths.py
 """
@@ -222,41 +223,45 @@ def test_eat_matches_jax_at_dh32(monkeypatch):
     np.testing.assert_allclose(_np(aux_t["pooled"]), _np(aux_j["pooled"]), **FP32_TOL)
 
 
-# (dim, heads) → the port's rule and the build a head width runs on.
+# (dim, heads) → the head width (None: the heads do not split evenly) and the
+# build it runs on: the smallest that holds it, or past 128 its column chunks
+# (136 in two chunks of 72). The ids are the ones these cases had when the
+# kernels took only multiples of 8 up to 128 (None then marked a refusal).
 RULE_GRID = [
-    (96, 12, 8, 32), (64, 4, 16, 32), (128, 4, 32, 32), (240, 12, 20, None), (1536, 16, 96, 96),
-    (256, 2, 128, 128), (1280, 10, 128, 128), (1088, 8, 136, None), (768, 12, 64, 64), (1280, 16, 80, 80),
-    (840, 12, 70, None), (1152, 16, 72, 80), (1320, 15, 88, 96), (960, 8, 120, 128), (100, 3, None, None),
+    pytest.param(dim, heads, dh, build, id=case_id) for dim, heads, dh, build, case_id in (
+        (96, 12, 8, 32, "96-12-8-32"), (64, 4, 16, 32, "64-4-16-32"), (128, 4, 32, 32, "128-4-32-32"),
+        (240, 12, 20, 32, "240-12-20-None"), (1536, 16, 96, 96, "1536-16-96-96"),
+        (256, 2, 128, 128, "256-2-128-128"), (1280, 10, 128, 128, "1280-10-128-128"),
+        (1088, 8, 136, 80, "1088-8-136-None"), (768, 12, 64, 64, "768-12-64-64"), (1280, 16, 80, 80, "1280-16-80-80"),
+        (840, 12, 70, 80, "840-12-70-None"), (1152, 16, 72, 80, "1152-16-72-80"), (1320, 15, 88, 96, "1320-15-88-96"),
+        (960, 8, 120, 128, "960-8-120-128"), (100, 3, None, None, "100-3-None-None"),
+    )
 ]
 
 
 @pytest.mark.parametrize("dim,heads,dh,build", RULE_GRID)
 def test_head_width_rule(dim, heads, dh, build):
-    """``fused_qkv_compatible`` is ``dim % heads == 0`` and a head width that
-    is a multiple of 8 from 8 to 128, gated or not; ``kernel_width`` names the
-    smallest build that holds it and refuses every other width by the rule."""
-    takes = build is not None
-    assert ak.fused_qkv_compatible(dim, heads) == takes
-    assert (dh in ak.HEAD_DIMS) == takes if dh is not None else dim % heads != 0
-    if takes:
-        assert ak.kernel_width(dh) == build
-    elif dh is not None:
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
-            ak.kernel_width(dh)
+    """``fused_qkv_compatible`` is ``dim % heads == 0``, whatever the head
+    width, gated or not; ``kernel_width`` names the build every width runs
+    on."""
+    assert ak.fused_qkv_compatible(dim, heads) == (dh is not None)
+    if dh is not None:
+        assert dim // heads == dh and ak.kernel_width(dh) == build
 
 
 def test_head_dims_and_builds():
-    assert ak.HEAD_DIMS == tuple(range(8, 129, 8))
-    assert ak.KERNEL_WIDTHS == (32, 64, 80, 96, 128)
-    # every width runs on the smallest build that holds it
-    assert [ak.kernel_width(d) for d in ak.HEAD_DIMS] == [32] * 4 + [64] * 4 + [80] * 2 + [96] * 2 + [128] * 4
+    assert ak.KERNEL_WIDTHS == (32, 64, 80, 96, 128) and ak.CHUNK_COLUMNS == 128
+    # every multiple of 8 up to 128 runs on the smallest build that holds it, in one chunk
+    widths = range(8, 129, 8)
+    assert [ak.kernel_width(d) for d in widths] == [32] * 4 + [64] * 4 + [80] * 2 + [96] * 2 + [128] * 4
+    assert all(ak.width_plan(d).chunks == 1 for d in widths)
 
 
 @pytest.mark.parametrize("name", ["eat", "aves"])
 def test_use_pallas_takes_k5_at_every_head_width(monkeypatch, name):
     """EAT and AVES with ``use_pallas`` call K5 whatever the head width: at
-    dh 20, which the kernels refuse (a ``ValueError`` on CUDA), the CPU twin
-    runs and agrees with the plain path on the same weights."""
+    dh 20 (narrow rows on CUDA) the CPU twin runs and agrees with the plain
+    path on the same weights."""
     import avex_tpu_torch
     from avex_tpu_torch.configs import ModelSpec
     from avex_tpu_torch.models import aves, eat
@@ -279,7 +284,7 @@ def test_use_pallas_takes_k5_at_every_head_width(monkeypatch, name):
                 use_pallas=use_pallas, aves_cfg=dict(TINY, encoder_embed_dim=80, encoder_num_heads=4),
                 return_features_only=True)
         module = aves
-    assert not ak.fused_qkv_compatible(80, 4)
+    assert ak.fused_qkv_compatible(80, 4) and ak.width_plan(20).chunks == 1
     kernel, plain = build(True), build(False)
     plain.module.load_state_dict(kernel.module.state_dict())
     calls = _recording(monkeypatch, module, ["fused_qkv_attention"])
@@ -358,19 +363,21 @@ def test_kernels_at_head_width_match_twins(card, dh, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [20, 100, 136])
-def test_cuda_call_at_another_width_raises(card, dh, monkeypatch):
-    """A width that is not a multiple of 8 from 8 to 128 raises before any
-    build is loaded, gated or not, bf16 or fp32: no width takes the plain
-    path on a CUDA tensor."""
-    for name in ("_library", "_tensor_core_library"):
-        monkeypatch.setattr(ak, name, lambda *args: pytest.fail("no kernel may be loaded or launched"))
-    ak.reset_launch_counts()
+def test_cuda_call_at_another_width_raises(card, dh):
+    """The widths this test once saw refused (not a multiple of 8, or above
+    128) now launch the kernels, gated or not, bf16 and fp32, each against
+    its twin: 20 and 100 through narrow rows, 136 in two column chunks."""
     for dtype in (torch.bfloat16, torch.float32):
-        qkv = torch.zeros(2, 31, 3 * 2 * dh, dtype=dtype, device="cuda")
-        bias = torch.zeros(2, 31, 31, device="cuda")
-        q = torch.zeros(2, 2, 31, dh, dtype=dtype, device="cuda")
-        for call in (lambda: ak.fused_qkv_attention(qkv, 2), lambda: ak.fused_qkv_gated_attention(qkv, 2, bias),
-                     lambda: ak.gated_bias_attention(q, q, q, None), lambda: ak.gated_bias_attention(q, q, q, bias)):
-            with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
-                call()
-    assert sum(ak.LAUNCHES.values()) == 0
+        qkv = torch.randn(2, 31, 3 * 2 * dh, generator=card, device="cuda").to(dtype)
+        bias = torch.randn(2, 31, 31, generator=card, device="cuda")
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(2, 31, 3, 2, dh).unbind(2))
+        ak.reset_launch_counts()
+        with torch.no_grad():
+            _close(ak.fused_qkv_attention(qkv, 2), ak.fused_qkv_reference(qkv, 2), dtype)
+            _close(ak.fused_qkv_gated_attention(qkv, 2, bias), ak.fused_qkv_gated_reference(qkv, 2, bias), dtype)
+            _close(ak.gated_bias_attention(q, k, v, None), ak.gated_bias_attention_reference(q, k, v, None), dtype)
+            _close(ak.gated_bias_attention(q, k, v, bias), ak.gated_bias_attention_reference(q, k, v, bias), dtype)
+        torch.cuda.synchronize()
+        assert ak.LAUNCHES == {"gated_bias_attention": 1, "plain_attention": 1, "fused_qkv_gated_attention": 1,
+                               "fused_qkv_attention": 1, "fused_qkv_gated_attention_backward": 0,
+                               "fused_qkv_attention_backward": 0}, ak.LAUNCHES
