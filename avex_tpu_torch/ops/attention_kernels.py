@@ -19,14 +19,19 @@ and P cast to v's type before PV, and of its two backward kernels:
   launched at ``:511``): the bias-free cell in K2's layout; its backward
   replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
-Two CUDA sources carry them, chosen by type (a dispatch, not a fallback):
-every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6), launches the
-tensor-core kernels of ``csrc/tensor_core_attention.cu``, whose fused
-forwards also write the row log-sum-exp and the output's rounding rest when
-a backward will follow, so that the backward rebuilds P from the one and
-takes Δ from the forward's output and the other; fp32 calls launch
-``csrc/gated_attention.cu``'s FMA body. Each source is gated or bias-free by
-a template flag. Every kernel, gated or not, takes any head width D >= 1
+Three CUDA sources carry them, chosen by type and width (a plan, not a
+fallback): every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6),
+launches the tensor-core kernels of ``csrc/tensor_core_attention.cu``, whose
+fused forwards also write the row log-sum-exp and the output's rounding
+rest when a backward will follow, so that the backward rebuilds P from the
+one and takes Δ from the forward's output and the other. fp32 forwards
+launch ``csrc/gated_attention.cu``'s FMA body, which writes the row
+log-sum-exp too when the fp32 backward will take it: K3 and K6 at a head
+width that is a multiple of 8 up to 128 on 16-byte rows
+(:func:`tf32x3_rows`) run on the tensor cores in 3xTF32
+(``csrc/tf32x3_attention.cu``), every other fp32 backward on the FMA body,
+which recomputes the row statistics. Each source is gated or bias-free by a
+template flag. Every kernel, gated or not, takes any head width D >= 1
 (:func:`width_plan`). Each source is built once for each width of
 :data:`KERNEL_WIDTHS` (its ``-DAVEX_HEAD_DIM``). Up to
 :data:`CHUNK_COLUMNS` a call runs on the smallest build that holds D, the
@@ -45,9 +50,10 @@ and backward. Each launch adds one to :data:`LAUNCHES`, so a run can show
 that its path went through the kernel. The backward twins
 (``*_backward_reference``) write K3's and K6's steps out one by one; the
 tests and ``chip_smoke.py`` hold the kernels against them.
-:func:`fused_qkv_backward_from_residuals_reference` is the twin of the bf16
-K3's and K6's own contract (P from the saved log-sum-exp, Δ from the saved
-output).
+:func:`fused_qkv_backward_from_residuals_reference` is the twin of the
+tensor-core K3's and K6's own contract (P from the saved log-sum-exp, Δ from
+the saved output). :data:`BACKWARD_BODIES` counts which body ran each
+backward.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import torch
 from avex_tpu_torch.ops._build import load_library
 
 __all__ = [
+    "BACKWARD_BODIES",
     "CHUNK_COLUMNS",
     "LAUNCHES",
     "KERNEL_WIDTHS",
@@ -78,12 +85,18 @@ __all__ = [
     "gated_bias_attention_reference",
     "kernel_width",
     "reset_launch_counts",
+    "residual_backward",
+    "tensor_core_forward",
+    "tf32x3_rows",
     "width_plan",
 ]
 
 SOURCE = "gated_attention.cu"
 #: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
+#: the fp32 backward (K3, K6) on the tensor cores in 3xTF32, at the widths
+#: :func:`tf32x3_rows` takes
+TF32X3_SOURCE = "tf32x3_attention.cu"
 #: The widths each CUDA source is built for, one library a width; a head
 #: width runs on the smallest that holds it or its column chunks
 #: (:func:`width_plan`). The zoo's checkpoints use 64 (BEATs, EAT, AVES,
@@ -106,7 +119,13 @@ LAUNCHES: Dict[str, int] = {
     "fused_qkv_gated_attention_backward": 0,
     "fused_qkv_attention_backward": 0,
 }
-#: dQ blocks the fp32 K3 aims to put in flight: three per SM of an H100's 132
+#: backward calls (K3 and K6 together) since the last
+#: :func:`reset_launch_counts`, by the body that ran them: ``"bf16"`` (the
+#: tensor cores), ``"tf32x3"`` (fp32 on the tensor cores in 3xTF32),
+#: ``"fma"`` (fp32 on the FMA body)
+BACKWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
+#: dQ blocks the FMA body's fp32 K3 aims to put in flight: three per SM of an
+#: H100's 132
 _DQ_TARGET_BLOCKS = 396
 #: dbias blocks of the bf16 K3 resident on an SM at once at width 64 (168
 #: registers x 128 threads, 66 KB of shared memory): its batch is split into
@@ -150,20 +169,39 @@ def _dbias_blocks_per_sm(width: int) -> int:
     return max(1, min(_DBIAS_BLOCKS_PER_SM, _SM_SHARED_BYTES // smem))
 
 
+def _fp32_dbias_items(bsz: int, blocks: int, slots: int) -> int:
+    """Batch items a block of the 3xTF32 dbias kernel walks (one partial a
+    chunk of them, summed in a second pass), for ``blocks`` blocks a chunk
+    and ``slots`` resident on the card (both from the build,
+    ``avex_tf32x3_dbias_plan``): of the chunk counts up to 64, the
+    fewest whose waves of blocks times the items a block walks comes within
+    5% of the least, so that the last wave is not left mostly idle."""
+    costs = []
+    for asked in range(1, min(bsz, 64) + 1):
+        items = -(-bsz // asked)
+        waves = -(-(-(-bsz // items)) * blocks // slots)  # ceil(chunks · blocks / slots)
+        costs.append((waves * items, items))
+    least = min(cost for cost, _ in costs)
+    return next(items for cost, items in costs if cost <= 1.05 * least)
+
+
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     """Set every launch count in :data:`LAUNCHES` to 0."""
     with _COUNT_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, BACKWARD_BODIES):
+            for name in counts:
+                counts[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, body: Optional[str] = None) -> None:
     # Served models launch from one batcher thread each: += is not atomic.
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+        if body is not None:
+            BACKWARD_BODIES[body] += 1
 
 
 def kernel_width(head_dim: int) -> int:
@@ -179,8 +217,8 @@ def _library(head_dim: int) -> ctypes.CDLL:
     if lib.avex_gated_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
-        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, *tail]
-        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, *tail]
+        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, p, *tail]
+        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, p, *tail]
         lib.avex_gated_attention_forward.restype = i
         lib.avex_plain_attention_forward.restype = i
         lib.avex_attention_backward.argtypes = [
@@ -206,11 +244,44 @@ def _tensor_core_library(head_dim: int) -> ctypes.CDLL:
     return lib
 
 
-def tensor_cores(dtype: torch.dtype) -> bool:
-    """True when a CUDA call of this type runs on the tensor-core kernels:
-    every bf16 call, forward or backward, gated or not. fp32 calls run the
-    FMA body."""
+def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
+    """The 3xTF32 backward's build that runs ``head_dim``."""
+    lib = load_library(TF32X3_SOURCE, kernel_width(head_dim))
+    if lib.avex_tf32x3_attention_backward.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.avex_tf32x3_attention_backward.argtypes = [p] * 16 + [i] * 5 + [
+            ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+        lib.avex_tf32x3_attention_backward.restype = i
+        lib.avex_tf32x3_dbias_plan.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.avex_tf32x3_dbias_plan.restype = i
+    return lib
+
+
+def tensor_core_forward(dtype: torch.dtype) -> bool:
+    """True when the forward kernels (K1, K2, K4, K5) of this type run on
+    the tensor cores (``csrc/tensor_core_attention.cu``): bf16. fp32
+    forwards run on the FMA body. Which backward runs is
+    :func:`residual_backward`'s."""
     return dtype == torch.bfloat16
+
+
+def residual_backward(dtype: torch.dtype, head_dim: int, narrow: bool) -> bool:
+    """True when the backward (K3, K6) of a fused call runs on the tensor
+    cores from the forward's residuals (its output and row log-sum-exp),
+    which the forward then saves: every bf16 call, and the fp32 calls of
+    :func:`tf32x3_rows` in 3xTF32. Every other fp32 backward (narrow rows,
+    column chunks past 128) runs on the FMA body, which recomputes the row
+    statistics, and its forward saves nothing."""
+    return dtype == torch.bfloat16 or (dtype == torch.float32 and tf32x3_rows(head_dim, narrow))
+
+
+def tf32x3_rows(head_dim: int, narrow: bool) -> bool:
+    """True when the fp32 backward (K3, K6) of this head width runs on the
+    tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``), from the row
+    log-sum-exp its forward saves: D a multiple of 8 up to
+    :data:`CHUNK_COLUMNS`, on 16-byte rows (not ``narrow``, :func:`_narrow`).
+    Narrow rows and the column chunks past 128 run on the FMA body."""
+    return head_dim % 8 == 0 and width_plan(head_dim).chunks == 1 and not narrow
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +445,9 @@ def fused_qkv_backward_from_residuals_reference(
     gate: Optional[torch.Tensor] = None,
 ):
     """Plain twin of the bf16 K6 (and, with ``pos_bias``, of the bf16 K3):
-    ``(dqkv, dbias, dgate)`` from the forward's residuals.
+    ``(dqkv, dbias, dgate)`` from the forward's residuals. (The fp32 K3 and
+    K6 on 3xTF32 also take P over its row sum for dK, dV and dbias; their
+    arithmetic is emulated in ``tests/test_torch_tf32x3.py``.)
 
     As :func:`fused_qkv_gated_backward_reference`, except that P is rebuilt
     from ``lse`` (float32 ``[B, H, T]``, the forward's row log-sum-exp) and Δ
@@ -488,20 +561,22 @@ def _launch(
     """Launch the forward kernel on ``[B, H, T, D]`` views; ``out`` is written
     in place. With ``pos_bias`` the gated variant runs, without it the
     bias-free one (which takes no gate either): on the tensor cores in bf16,
-    where ``residuals`` = ``(lse, out_rest)`` may receive the backward's
-    residuals (the row log-sum-exp, float32 ``[B, H, T]`` contiguous, and
-    what rounding the output dropped, bf16 with ``out``'s strides), on the
-    FMA body in fp32."""
+    on the FMA body in fp32. ``residuals`` = ``(lse, out_rest)`` may receive
+    the backward's residuals: the row log-sum-exp (float32 ``[B, H, T]``
+    contiguous) and, in bf16, what rounding the output dropped (bf16 with
+    ``out``'s strides; None in fp32, whose output is not rounded)."""
     narrow = _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
     gated = pos_bias is not None
-    on_tensor_cores = tensor_cores(q.dtype)
+    on_tensor_cores = tensor_core_forward(q.dtype)
     lse, out_rest = residuals if residuals is not None else (None, None)
     if residuals is not None and not (
-        on_tensor_cores and lse.shape == (bsz, heads, seq) and lse.is_contiguous()
-        and out_rest.dtype == out.dtype and out_rest.stride() == out.stride()
+        lse.shape == (bsz, heads, seq) and lse.dtype == torch.float32 and lse.is_contiguous()
+        and (out_rest is None if not on_tensor_cores
+             else out_rest.dtype == out.dtype and out_rest.stride() == out.stride())
     ):
-        raise ValueError("only the bf16 kernels write the backward's residuals: float32 [B, H, T] and out's layout")
+        raise ValueError("the backward's residuals: lse float32 [B, H, T] contiguous, and out_rest in out's "
+                         "type and layout in bf16 (None in fp32)")
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = _ptr(key_padding_mask)
     views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -517,8 +592,8 @@ def _launch(
                 err = _tensor_core_library(dim).avex_tensor_core_gated_attention_forward(
                     *operands, _ptr(out_rest), _ptr(lse), *tail, strides, stream)
             else:
-                err = _library(dim).avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands, *tail,
-                                                                 strides, stream)
+                err = _library(dim).avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands, _ptr(lse),
+                                                                 *tail, strides, stream)
         else:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
             if on_tensor_cores:
@@ -529,7 +604,7 @@ def _launch(
             else:
                 err = _library(dim).avex_plain_attention_forward(
                     _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
-                    *tail, strides, stream,
+                    _ptr(lse), *tail, strides, stream,
                 )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
@@ -547,33 +622,43 @@ def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Ten
 
 def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_residuals=False):
     """Launch K2 (with ``pos_bias``) or K5; returns ``(out, residuals)``.
-    ``residuals`` is ``(lse, out_rest)``, the bf16 K3's or K6's (see
-    :func:`_launch`), when ``with_residuals`` asks for them and the call runs
-    on the tensor cores, else None."""
+    ``residuals`` is ``(lse, out_rest)`` (see :func:`_launch`; ``out_rest``
+    None in fp32) when ``with_residuals`` asks for them and
+    :func:`residual_backward` takes the call, else None."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     q, k, v = _split_heads(qkv, heads)
     out = torch.empty(bsz, seq, dim, dtype=qkv.dtype, device=qkv.device)
-    residuals = None
-    if with_residuals and tensor_cores(qkv.dtype):
-        residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device), torch.empty_like(out))
 
     def heads_first(t):
         return t.view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
 
+    residuals = rest = None
+    if with_residuals and residual_backward(qkv.dtype, dim // heads,
+                                            any(_narrow(n, t) for n, t in (("q", q), ("k", k), ("v", v)))):
+        bf16 = qkv.dtype == torch.bfloat16
+        residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device),
+                     torch.empty_like(out) if bf16 else None)
+        rest = heads_first(residuals[1]) if bf16 else None
     _launch(q, k, v, pos_bias, gate, key_padding_mask, heads_first(out), scale,
-            None if residuals is None else (residuals[0], heads_first(residuals[1])))
+            None if residuals is None else (residuals[0], rest))
     _count("fused_qkv_gated_attention" if pos_bias is not None else "fused_qkv_attention")
     return out, residuals
 
 
 def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
-    """Launch the fp32 K3 (with ``pos_bias``) or K6 on the FMA body; returns
-    ``(dqkv, dbias, dgate)``.
+    """Launch the fp32 K3 (with ``pos_bias``) or K6 on the FMA body, which
+    recomputes the row statistics (the fp32 calls :func:`residual_backward`
+    does not take; the others also run here when their forward saved no
+    residuals); returns ``(dqkv, dbias, dgate)``. bf16 raises: its backward
+    runs from the forward's residuals only.
 
     dq, dk and dv are written straight into the column views of one
     ``[B, T, 3E]`` gradient, the layout the forward reads q, k and v from.
     """
+    if qkv.dtype == torch.bfloat16:
+        raise RuntimeError("the bf16 attention backward needs the forward's residuals: run the "
+                           "forward with grad mode on and an input requiring grad")
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     gated = pos_bias is not None
@@ -616,19 +701,22 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
         )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward")
+    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward", "fma")
     return dqkv, dbias, dgate
 
 
-def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, scale):
-    """Launch the bf16 K3 (with ``pos_bias``) or K6 on the tensor cores from
-    the forward's residuals (its output ``out``, row log-sum-exp ``lse`` and
-    ``out_rest``, what rounding the output dropped); returns ``(dqkv, dbias,
-    dgate)``, dqkv written straight into the column views of one
-    ``[B, T, 3E]`` gradient."""
+def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, scale):
+    """Launch K3 (with ``pos_bias``) or K6 on the tensor cores from the
+    forward's residuals: its output ``out``, row log-sum-exp ``lse`` and, in
+    bf16, ``out_rest`` (what rounding the output dropped; None in fp32).
+    bf16 runs ``csrc/tensor_core_attention.cu``, fp32 the 3xTF32 kernels of
+    ``csrc/tf32x3_attention.cu``; a call :func:`residual_backward` does not
+    take raises. Returns ``(dqkv, dbias, dgate)``, dqkv written
+    straight into the column views of one ``[B, T, 3E]`` gradient."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     gated = pos_bias is not None
+    bf16 = qkv.dtype == torch.bfloat16
     qkv = qkv.contiguous()
     q, k, v = _split_heads(qkv, heads)
     dqkv = torch.empty_like(qkv)
@@ -637,23 +725,42 @@ def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, o
     def heads_first(t):
         return t.contiguous().view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
 
-    o, rest, do = heads_first(out), heads_first(out_rest), heads_first(dout)
-    narrow = _check_operands(q, k, v, {"out": o, "out_rest": rest, "dout": do, "dq": dq, "dk": dk, "dv": dv},
-                             pos_bias, gate, key_padding_mask)
+    o, do = heads_first(out), heads_first(dout)
+    rest = heads_first(out_rest) if bf16 else None
+    views = {"out": o, "dout": do, "dq": dq, "dk": dk, "dv": dv}
+    if bf16:
+        views["out_rest"] = rest
+    elif out_rest is not None:
+        raise ValueError("the fp32 backward takes no out_rest: the fp32 output is not rounded")
+    narrow = _check_operands(q, k, v, views, pos_bias, gate, key_padding_mask)
+    if not residual_backward(qkv.dtype, dim // heads, narrow):
+        raise ValueError(f"the 3xTF32 backward takes a head width that is a multiple of 8 up to {CHUNK_COLUMNS} "
+                         f"on 16-byte rows; got {dim // heads}{' on narrow rows' if narrow else ''}")
     if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [{bsz}, {heads}, {seq}]")
     f32 = dict(dtype=torch.float32, device=qkv.device)
-    delta = torch.empty(bsz, heads, seq, **f32)
+    # Δ (bf16); Δ' and the rebased log-sum-exp (fp32, csrc/tf32x3_attention.cu)
+    delta = torch.empty(bsz, heads, seq, **f32) if bf16 else torch.empty(2, bsz, heads, seq, **f32)
     dbias = torch.empty(heads, seq, seq, **f32) if gated else None
     dgate = torch.empty(bsz, heads, seq, **f32) if gate is not None else None
     items, part = bsz, None
     if gated:
-        # dbias: as many batch chunks (a partial each) as one wave of blocks holds
-        tiles = -(-seq // 64)
-        sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
-        per_sm = _dbias_blocks_per_sm(kernel_width(dim // heads))
-        chunks = max(1, min(bsz, per_sm * sms // (tiles * tiles * heads)))
-        items = -(-bsz // chunks)
+        # dbias in batch chunks, a partial each: bf16 as many as one wave of
+        # blocks holds; fp32 by _fp32_dbias_items on the build's own shape
+        if bf16:
+            tiles = -(-seq // 64)
+            sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+            per_sm = _dbias_blocks_per_sm(kernel_width(dim // heads))
+            chunks = max(1, min(bsz, per_sm * sms // (tiles * tiles * heads)))
+            items = -(-bsz // chunks)
+        else:
+            blocks, resident = ctypes.c_int(), ctypes.c_int()
+            with torch.cuda.device(qkv.device):
+                err = _tf32x3_library(dim // heads).avex_tf32x3_dbias_plan(heads, seq, ctypes.byref(blocks),
+                                                                           ctypes.byref(resident))
+            if err != 0:
+                raise RuntimeError(f"the 3xTF32 dbias plan failed: CUDA error {err}")
+            items = _fp32_dbias_items(bsz, blocks.value, resident.value)
         chunks = -(-bsz // items)
         part = torch.empty(chunks, heads, seq, seq, **f32) if chunks > 1 else None
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
@@ -663,15 +770,24 @@ def _kernel_tensor_core_backward(qkv, heads, pos_bias, gate, key_padding_mask, o
     strides = (ctypes.c_longlong * 32)(*views, *pad_strides, *bias_strides, *gate_strides)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = _tensor_core_library(dim // heads).avex_tensor_core_attention_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), rest.data_ptr(), do.data_ptr(),
-            _ptr(pos_bias), _ptr(gate), _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items,
-            bsz, heads, seq, *_columns(dim // heads, narrow), float(scale), strides, stream,
-        )
+        if bf16:
+            err = _tensor_core_library(dim // heads).avex_tensor_core_attention_backward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), rest.data_ptr(), do.data_ptr(),
+                _ptr(pos_bias), _ptr(gate), _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items,
+                bsz, heads, seq, *_columns(dim // heads, narrow), float(scale), strides, stream,
+            )
+        else:
+            err = _tf32x3_library(dim // heads).avex_tf32x3_attention_backward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), _ptr(pos_bias), _ptr(gate),
+                _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items, bsz, heads, seq, dim // heads,
+                float(scale), strides, stream,
+            )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward")
+    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward",
+           "bf16" if bf16 else "tf32x3")
     return dqkv, dbias, dgate
 
 
@@ -679,17 +795,19 @@ class _FusedQKVAttention(torch.autograd.Function):
     """CUDA tensors: K2 (with ``pos_bias``) or K5 forward, K3 or K6 backward.
 
     The residuals are the forward's inputs, as JAX keeps them
-    (``pallas_attention.py:648-650``, ``:940-944``), and, for the bf16 K3 and
-    K6 on the tensor cores, the forward's output, what its bf16 rounding
-    dropped and the row log-sum-exp as well: P is rebuilt from the
-    log-sum-exp and Δ taken from the output, with no pass for the row
-    statistics. The output is
-    the tensor the caller's output projection keeps for its own weight
-    gradient, so saving it costs nothing; the rounding rest costs as much
-    again in bf16, and keeps Δ's error near fp32's (PERF.md).
-    ``need_grad`` (grad mode on and ``qkv`` requiring grad, decided by the
-    caller: a Function's forward always runs with grad mode off) asks for the
-    residuals; without it nothing extra is written.
+    (``pallas_attention.py:648-650``, ``:940-944``), and, where
+    :func:`residual_backward` takes the call (bf16, and fp32 at the rows of
+    :func:`tf32x3_rows`), the forward's output and the row log-sum-exp as
+    well (in bf16 also what the output's rounding dropped): P is rebuilt
+    from the log-sum-exp and Δ taken from the output, with no pass for the
+    row statistics. The output is the tensor the caller's output projection
+    keeps for its own weight gradient, so saving it costs nothing; the
+    rounding rest costs as much again in bf16, and keeps Δ's error near
+    fp32's (PERF.md). The backward follows from the saved log-sum-exp alone:
+    without one it runs on the FMA body (fp32; bf16 raises). ``need_grad``
+    (grad mode on and an input requiring grad, decided by the caller: a
+    Function's forward always runs with grad mode
+    off) asks for the residuals; without it nothing extra is written.
     """
 
     @staticmethod
@@ -704,11 +822,8 @@ class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, pos_bias, gate, key_padding_mask, out, out_rest, lse = ctx.saved_tensors
-        if tensor_cores(qkv.dtype):
-            if lse is None:
-                raise RuntimeError("the bf16 attention backward needs the forward's residuals: run the "
-                                   "forward with grad mode on and qkv requiring grad")
-            dqkv, dbias, dgate = _kernel_tensor_core_backward(
+        if lse is not None:
+            dqkv, dbias, dgate = _kernel_residual_backward(
                 qkv, ctx.heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, ctx.scale
             )
         else:
@@ -790,8 +905,8 @@ def fused_qkv_compatible(dim: int, heads: int) -> bool:
     return heads > 0 and dim % heads == 0
 
 
-def _needs_grad(qkv: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and qkv.requires_grad
+def _needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)
 
 
 def fused_qkv_gated_attention(
@@ -817,7 +932,8 @@ def fused_qkv_gated_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)
     if qkv.device.type == "cpu":
         return fused_qkv_gated_reference(qkv, heads, pos_bias, gate, key_padding_mask, scale)
-    return _FusedQKVAttention.apply(qkv, pos_bias, gate, key_padding_mask, heads, scale, _needs_grad(qkv))
+    return _FusedQKVAttention.apply(qkv, pos_bias, gate, key_padding_mask, heads, scale,
+                                    _needs_grad(qkv, pos_bias, gate))
 
 
 def fused_qkv_attention(
@@ -833,7 +949,8 @@ def fused_qkv_attention(
     is ``[B, T]`` bool, True = padded key. Differentiable in ``qkv``: on
     CUDA the backward is the K6 kernel, on the CPU autograd through the plain
     twin. bf16 CUDA tensors run on the tensor-core kernels
-    (``csrc/tensor_core_attention.cu``), fp32 ones on the FMA body.
+    (``csrc/tensor_core_attention.cu``); fp32 ones run the FMA body forward
+    and, at the rows of :func:`tf32x3_rows`, the 3xTF32 tensor-core backward.
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)

@@ -14,9 +14,14 @@
 // contiguous. The backward of the fused layouts (K3 and K6) follows the
 // forward, below, with its own design note. Everything here serves fp32
 // only: every bf16 forward (K1, K2, K4, K5) and both bf16 backwards (K3, K6)
-// run on the tensor cores in tensor_core_attention.cu. fp32 stays on this FMA
-// body, the card's parity path: the tensor cores would round its operands to
-// TF32.
+// run on the tensor cores in tensor_core_attention.cu. The fp32 forwards run
+// here, on the FMA units, and write the row log-sum-exp when a backward
+// follows. The fp32 K3 and K6 on 16-byte rows of a head width that is a
+// multiple of 8 up to 128 run on the tensor cores too, in 3xTF32
+// (tf32x3_attention.cu): each fp32 operand split into two TF32 halves,
+// three TF32 products, keeps fp32's accuracy, which one TF32 pass would
+// not. The backward below serves the other fp32 rows (narrow rows, column
+// chunks past 128).
 //
 // Head widths: both variants take any D >= 1. The width kD is a template
 // parameter; each build of this source instantiates one, chosen with
@@ -49,9 +54,10 @@
 // Bound on an H100 at the BEATs shape (B=128, H=12, T=248, D=64, fp32,
 // gated): 24.2 GFLOP take about 361 us at the 67 TFLOP/s fp32 rate, against
 // 4 x 97.5 MB of q, k, v and out plus the bias and gate, about 118 us at
-// 3.35 TB/s: bound by operations. The products run on the fp32 FMA units,
-// as the parity path's fp32 operands ask, so this kernel is held back by its
-// FMA instruction rate.
+// 3.35 TB/s: bound by operations. The products run on the fp32 FMA units
+// (3xTF32 on the tensor cores, as the fp32 backward takes it, would put the
+// bound at 165 TFLOP/s: not done for the forward yet), so this kernel is
+// held back by its FMA instruction rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -233,8 +239,8 @@ template <typename T, bool kGated, int kD>
 __global__ void AVEX_LAUNCH_BOUNDS(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const float* __restrict__ gate,
-                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale,
-                 Strides s, Cols cl) {
+                 const uint8_t* __restrict__ pad, T* __restrict__ out, float* __restrict__ lse, int heads,
+                 int seq, float scale, Strides s, Cols cl) {
   constexpr int kC = kD / 8;  // output columns a thread
   const int n = cl.chunks, own = blockIdx.y % n;  // column chunks, this block's
   const int own_cols = chunk_cols(cl, own);
@@ -358,6 +364,9 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     if (!row_ok[i]) continue;
     const int qi = q0 + ty * 4 + i;
+    // The row log-sum-exp for the backward (chunk 0's blocks): −inf where
+    // every key is padded.
+    if (lse && own == 0 && tx == 0) lse[((long long)b * heads + h) * seq + qi] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];  // a fully padded row gives 0/0 = NaN, as the softmax does
     float y[kC];
 #pragma unroll
@@ -368,7 +377,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, bool kGated, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* gate,
-                   const void* pad, void* out, int batch, int heads, int seq, float scale,
+                   const void* pad, void* out, void* lse, int batch, int heads, int seq, float scale,
                    const Strides& s, const Cols& cl, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated, kD>,
@@ -378,7 +387,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   attention_kernel<T, kGated, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(gate),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, scale, s, cl);
+      static_cast<const uint8_t*>(pad), static_cast<T*>(out), static_cast<float*>(lse), heads, seq, scale, s, cl);
   return cudaGetLastError();
 }
 
@@ -414,13 +423,14 @@ Cols plan_cols(int head_dim, int chunk_width, int narrow, int heads) {
 
 template <bool kGated>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
-             const void* gate, const void* pad, void* out, int batch, int heads, int seq,
+             const void* gate, const void* pad, void* out, void* lse, int batch, int heads, int seq,
              int head_dim, int chunk_width, int narrow, float scale, const Strides& s, void* stream) {
   const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
   if (cl.chunks == 0 || bad_shape(batch, heads, seq)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
-  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, cl, st);
+  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, lse, batch, heads, seq, scale, s, cl,
+                                              st);
 }
 
 }  // namespace
@@ -435,23 +445,26 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
 //
 // dtype: must be 0 = float32 (q, k, v and out share it); bias and gate
 // are float32, pad is one byte per key (nonzero = padded); gate and pad may be
-// null. strides: 20 element strides in the order of struct Strides. Returns a
-// cudaError_t; 0 means the kernel was launched.
+// null. lse, when not null, receives the float32 row log-sum-exp of the
+// scaled, padded logits, contiguous [B, H, T], for the backward of
+// tf32x3_attention.cu. strides: 20 element strides in the order of struct
+// Strides. Returns a cudaError_t; 0 means the kernel was launched.
 extern "C" int avex_gated_attention_forward(int dtype, const void* q, const void* k, const void* v,
                                             const void* bias, const void* gate, const void* pad,
-                                            void* out, int batch, int heads, int seq, int head_dim,
+                                            void* out, void* lse, int batch, int heads, int seq, int head_dim,
                                             int chunk_width, int narrow, float scale, const long long* strides,
                                             void* stream) {
   Strides s;
   memcpy(&s, strides, sizeof(Strides));
-  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, chunk_width, narrow,
-                        scale, s, stream);
+  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, lse, batch, heads, seq, head_dim, chunk_width,
+                        narrow, scale, s, stream);
 }
 
-// The bias-free variant. dtype and pad as above; pad may be null. strides: 14
-// element strides, q, k, v and out (batch, head, token) then pad (batch, token).
+// The bias-free variant. dtype, pad and lse as above; pad and lse may be
+// null. strides: 14 element strides, q, k, v and out (batch, head, token)
+// then pad (batch, token).
 extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void* k, const void* v,
-                                            const void* pad, void* out, int batch, int heads,
+                                            const void* pad, void* out, void* lse, int batch, int heads,
                                             int seq, int head_dim, int chunk_width, int narrow, float scale,
                                             const long long* strides, void* stream) {
   Strides s;
@@ -461,7 +474,7 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
   memcpy(s.v, strides + 6, 3 * sizeof(long long));
   memcpy(s.o, strides + 9, 3 * sizeof(long long));
   memcpy(s.pad, strides + 12, 2 * sizeof(long long));
-  return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, batch, heads, seq, head_dim,
+  return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, lse, batch, heads, seq, head_dim,
                          chunk_width, narrow, scale, s, stream);
 }
 
@@ -518,9 +531,11 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
 // of 2·T·T·D FLOPs per (item, head) are 30 GFLOP, about 451 us at the 67
 // TFLOP/s fp32 rate: bound by operations, as at EAT's (B=64, T=513,
 // bias-free: 129 GFLOP, about 1.93 ms).
-// The products run on the FMA units, held back by their instruction rate, as
-// fp32 parity asks. It serves fp32 only: the bf16 K3 and K6 run on the tensor
-// cores in tensor_core_attention.cu, from a saved log-sum-exp. Past T = 512
+// The products run on the FMA units, held back by their instruction rate. It
+// serves the fp32 rows the tensor cores do not take (narrow rows, column
+// chunks past 128): the bf16 K3 and K6 run on them in
+// tensor_core_attention.cu, the other fp32 ones in 3xTF32 in
+// tf32x3_attention.cu, both from a saved log-sum-exp. Past T = 512
 // the gated dQ kernel adds its dbias rows in device memory: each element is
 // read and written once per batch item of the chunk, 2·B·H·T² fp32 accesses
 // (at B=4, H=12, T=800: 246 MB), mostly from L2, on top of the five products.

@@ -9,6 +9,7 @@ Phases, each printing its results on lines of its own:
 2. build: compile every CUDA source of the port with ``nvcc`` (in parallel;
    the attention sources once for each head width they are built for, 32,
    64, 80, 96 and 128, each with its general kernels for the other widths;
+   the 3xTF32 backward's too; prints each kernel's registers and spills, and
    a spilling kernel fails the phase);
 3. kernels: hold each kernel against its plain PyTorch twin at the shapes the
    main paths give it, in bf16 and fp32 (bf16 on the tensor-core kernels of
@@ -61,7 +62,11 @@ Phases, each printing its results on lines of its own:
    kernel, the twin and a yardstick the port never calls (the backward of
    ``scaled_dot_product_attention``: forward+backward minus forward), and
    prints K6's TFLOP/s and, beside its device time, its time with the host's
-   time to issue it through autograd;
+   time to issue it through autograd. fp32 K3 and K6 run on the tensor cores
+   in 3xTF32 (``tf32x3_attention.cu``, from the fp32 forward's saved
+   log-sum-exp): each call's body checked, every output within rel L2 1e-5
+   of the fp32 twin (TF32 off), and each timed beside the FMA body on the
+   same inputs and the 3xTF32 bound;
 11. BEATs training: full-width BEATs with a 50-class head, bf16 compute with
    fp32 parameters, ``fused_qkv=True, use_pallas=True``, dropout and
    LayerDrop as the official config gives them, through ``Trainer`` (AdamW,
@@ -70,9 +75,10 @@ Phases, each printing its results on lines of its own:
    launches per step, every other kernel 0; the loss falls); one step with
    gradient checkpointing (K2 24, K3 12); then the fp32 kernel path against
    the fp32 plain path, one step's loss and every gradient from the same
-   weights, dropout and LayerDrop off;
+   weights, dropout and LayerDrop off (K3 on the 3xTF32 body), and each
+   path's fp32 step timed (B=8, the median of 5);
 12. EAT training: ``esp_aves2_sl_eat_all_ssl_all`` (T=513) with a 50-class
-   head the same way (K5 and K6 12 launches per step);
+   head the same way (K5 and K6 12 launches per step; the fp32 steps timed);
 13. AVES training: ``aves_bio`` (T=249, a third of the clips padded) the
    same way, with its dropout (0.1) and LayerDrop (0.05) on (K5 and the
    masked K6 12 launches per step); one generator seed gives one loss, two
@@ -114,16 +120,17 @@ Phases, each printing its results on lines of its own:
    of the kernels' intervals) and the loader's host work for one batch in
    one process, with its parts. ``run_evaluate.main``: the same BEATs frozen
    (K1 on every forward, no K2/K3) under an online attention probe over
-   layers 3, 7, 11 and the last, on two evaluation sets of 256/64/64 and
-   128/32/32 clips (the backbone built once for both; each probe's loss
-   falls; evaluation_metadata.jsonl and the summary CSVs written). Prints
-   steps/s, the step's wait for the loader and the busy share beside the
-   card's name and power limit;
+   layers 3, 7, 11 and the last, on one evaluation set of 128/32/32 clips
+   (the backbone built once; the probe's loss falls;
+   evaluation_metadata.jsonl and the summary CSVs written). Prints steps/s,
+   the step's wait for the loader and the busy share beside the card's name
+   and power limit;
 16. head width 80 (run after phase 10): K5 and K4 at Bird-MAE huge's
    forward shape (B=128, T=513, 16 heads of 80) and K6 at its training
-   batch (B=64), bf16 on the tensor cores and fp32 on the FMA body, against
-   their twins (the bf16 K6 also against its residual twin), each timed
-   beside its twin, its bound and SDPA (its backward for K6);
+   batch (B=64), bf16 on the tensor cores and fp32 on the FMA body (K6: on
+   the tensor cores in 3xTF32, timed beside the FMA body), against their
+   twins (the bf16 K6 also against its residual twin), each timed beside
+   its twin, its bound and SDPA (its backward for K6);
 17. Bird-MAE main path (after phase 8): ``ModelSpec(name="birdmae",
    model_id="DBD-research-group/Bird-MAE-huge")`` through ``load_model``,
    1280 x 32, 10 s clips at 32 kHz (T=513), all 32 layers mean-pooled: bf16
@@ -142,11 +149,14 @@ Phases, each printing its results on lines of its own:
 20. ATST training (after phase 19): ``Trainer``, bf16, B=64, 10 s clips, a
    50-class head, 10 timed steps (K5 and K6 12 launches each a step; the
    loss falls), then the fp32 and bf16 gradient checks at B=8;
-21. the fp32 K3 past T=512 (after phase 10), where its dQ blocks add their
-   dbias rows in device memory: T=520 and T=800, B=4, with the gate, with
-   the gate and a padding mask, and with neither, dqkv, dbias and dgate
-   against the twin (atol and rtol 1e-4); timed at T=800 beside the twin,
-   the fp32 SDPA backward and its bound;
+21. the fp32 K3 past T=512 (after phase 10) on the 3xTF32 kernels: T=520
+   and T=800, B=4, with the gate, with the gate and a padding mask, and
+   with neither, dqkv, dbias and dgate against the twin (atol and rtol 1e-4,
+   rel L2 1e-5); the same values on narrow rows (a row stride of 3E + 1
+   floats) with the gate, with and without the mask, on the FMA body, whose
+   dQ blocks add their dbias rows in device memory past 512 (atol and rtol
+   1e-4); timed at T=800 beside the twin, the FMA body, the fp32 SDPA
+   backward and its bounds;
 22. an fp32 BEATs ``fused_qkv`` training step on 16 s clips (after phase
    11; T=792, B=4): the kernel path's loss and gradients against the plain
    path's, 12 K2 and 12 K3 launches (added to the main paths' counts);
@@ -170,7 +180,8 @@ Phases, each printing its results on lines of its own:
    the student's 103 visible tokens with 12 heads, the decoder's 512 with
    6 heads of 64 (384 wide), and K5 alone at the teacher's 512 with 12
    heads under no_grad; each against its twin, timed beside the twin, its
-   bound and SDPA (its backward for K6);
+   bound and SDPA (its backward for K6; the fp32 K6, on 3xTF32, also beside
+   the FMA body);
 27. (after phase 25) EAT-SSL pretraining at full width (768 x 12, decoder
    384 x 4, mask ratio 0.8, EMA teacher) through ``Trainer`` with
    ``label_type="self_supervised"``: bf16, B=64, 10 s clips, K5/K6 on every
@@ -238,9 +249,10 @@ Phases, each printing its results on lines of its own:
    with E = 768 (48, 24, 8 and 6 heads), bf16 and fp32, at the shapes of
    phases 3 and 10 (K4/K5 B=128 T=513; K1/K2 B=128 T=248 with the gate; K3
    B=64 T=248; K6 B=64 T=513), each against its twin (the bf16 K3/K6 also
-   against the twin of their contract) and timed beside the twin, its bound
-   and SDPA, one ragged masked case a width (B=8, T=37), and dh 20 and 136
-   against their twins; (paths, after phase 33) BEATs at full width and depth with 6
+   against the twin of their contract; the fp32 K3/K6, on 3xTF32, within
+   rel L2 1e-5) and timed beside the twin, its bound and SDPA (the fp32
+   K3/K6 also beside the FMA body), one ragged masked case a width (B=8,
+   T=37), and dh 20 and 136 against their twins; (paths, after phase 33) BEATs at full width and depth with 6
    heads of 128: bf16 extraction on K1 (12 a forward), the int8 model (K1
    with K7) against it, the fp32 kernel path against the plain path, a
    ``fused_qkv`` training step (K2 and K3 12 a step) and the fp32 gradient
@@ -253,7 +265,8 @@ Phases, each printing its results on lines of its own:
    100, 136, 150, 192, 256, 320 and 512 with E = 768 or the nearest multiple
    of dh, bf16 and fp32, at phase 34's shapes (the batch cut where the
    twin's [B, H, T, T] logits would pass 9 GiB; B=16 at the widths not
-   timed), each against its twin, one
+   timed; the fp32 K3/K6 there on the FMA body, each call's body checked),
+   each against its twin, one
    ragged masked case a width with an item all padded (NaN as the twin), and
    dh 12, 20, 136, 192, 256 and 320 timed beside the twin, the bound and SDPA
    (its backend printed; the median of 10 calls), and K5 at dh 64 on 16-byte
@@ -288,7 +301,10 @@ K3 and K5 add ``cli_launches``, phase 33's share; K1-K6 add
 ``head_width_launches``, phase 34's paths' share of ``launches``; K1-K6 add
 ``wide_head_widths``, their numbers at dh 12, 20, 136, 192, 256 and 320, and
 ``wide_head_kernel_phase_launches``; K1, K2, K3, K5, K6 and K7 add
-``wide_head_launches``, phase 35's paths' share) and,
+``wide_head_launches``, phase 35's paths' share; K3 and K6 add
+``fp32_source``, ``fp32`` (their fp32 numbers at the main shape, with the
+FMA body's ``fma_ms`` and ``fma_bound_ms``) and ``fp32_tf32x3_launches``,
+the main paths' fp32 gradient checks' launches on the 3xTF32 kernels) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
@@ -361,6 +377,13 @@ PATH_REL = 1e-3
 # relative L2); dbias sums 64 items and dgate 248 keys in another order than
 # the twin, so both are held by relative L2 in fp32 too.
 FP32_SUM_REL = 1e-5
+# The fp32 K3 and K6 on the tensor cores in 3xTF32 (tf32x3_attention.cu: 16-byte
+# rows, head widths a multiple of 8 up to 128) against the plain fp32 twin, TF32
+# off: relative L2 of each of dqkv, dbias and dgate. One TF32 pass (hi·hi alone)
+# lands near 5e-4 (tests/test_torch_tf32x3.py) and fails it.
+TF32X3_REL_L2 = 1e-5
+# 3xTF32 takes three TF32 products a product: the tensor cores' 495 TFLOP/s over 3.
+TF32X3_FLOPS = 495e12 / 3
 T_LONG = 800  # a gated backward long past 512 (the bf16 K3 at B=2; the fp32 K3 at B=4)
 # The fp32 K3 keeps its [64, T] dbias rows in shared memory up to T=512 and
 # adds them in device memory past it (phases 21-22).
@@ -374,6 +397,7 @@ B_TRAIN = 64
 TRAIN_STEPS = 10
 N_CLASSES = 50
 B_GRAD_CHECK = 8  # the fp32 kernel-vs-plain gradient check (the plain path holds [B, H, T, T])
+FP32_TIMED_STEPS = 5  # BEATs' and EAT's fp32 steps timed on each path (the median)
 TPU_BF16_FP32_REL = 3.8e-3  # JAX package on a TPU v5e (BENCH_r05.json): a reference point only
 # bf16 training: the kernel path's gradients (the bf16 K3 or K6 on the tensor cores)
 # against the fp32 plain path's may be at most this factor farther than the
@@ -395,7 +419,8 @@ SIM_REL = 1e-5  # retrieval: the card's fp32 similarities against a float64 CPU 
 # WAVs written here, 8 classes; most clips 6 s at 16 kHz (a random 5 s crop),
 # one in 8 at 44.1 kHz (resampled), one in 8 3 s (padded).
 ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 8, 320, 64
-ENTRY_EVAL_SETS = ((256, 64, 64), (128, 32, 32))  # train, val, test clips
+# run_evaluate's evaluation set: train, val, test clips and the seed of the first (one set, for the script's time)
+ENTRY_EVAL_SET, ENTRY_EVAL_SEED = (128, 32, 32), 43
 ENTRY_EPOCHS, ENTRY_WORKERS = 2, 4
 ENTRY_LR = 1e-5  # fine-tuning the random-weight BEATs: stable there (scripts/torch_probe_lr.py)
 ENTRY_PROBE_LR = 1e-4  # the frozen attention probe: at 1e-3 its loss rose over two epochs on these clips
@@ -482,6 +507,9 @@ GRAIN_LOSS_REL = 1e-3  # a resumed step's loss against the uninterrupted run's (
 
 FAILURES: list = []
 CARD: list = []  # nvidia-smi's name and power limit
+# The fp32 gradient checks' backward launches on the 3xTF32 kernels, by kernel
+# (``step_gradients``): the main paths' fp32 steps run K3 and K6 there.
+TF32X3_STEP_LAUNCHES = {"fused_qkv_gated_attention_backward": 0, "fused_qkv_attention_backward": 0}
 PHASE_SECONDS: dict = {}  # phase function → wall seconds
 
 
@@ -573,7 +601,8 @@ def phase_build():
 
     sources = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
     jobs = [(name, width) for name in sources
-            for width in (ak.KERNEL_WIDTHS if name in (ak.SOURCE, ak.TENSOR_CORE_SOURCE) else (None,))]
+            for width in (ak.KERNEL_WIDTHS if name in (ak.SOURCE, ak.TENSOR_CORE_SOURCE, ak.TF32X3_SOURCE)
+                          else (None,))]
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: _build.build(*job), jobs))
@@ -665,7 +694,7 @@ def phase_kernels():
                     lambda: F.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, attn_mask=attn_mask, scale=D**-0.5)
                 )
                 bound, bound_by = attention_bound_ms(name, gated=True, padded=False)
-                body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+                body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
                 print(
                     f"time {kname} {name} (gate, no mask, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * T * T * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -738,7 +767,7 @@ def phase_bias_free_kernels():
                 keep = None if timed_mask is None else ~timed_mask[:, None, None, :]  # SDPA: True = attend
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(*views, attn_mask=keep, scale=D**-0.5))
                 bound, bound_by = attention_bound_ms(name, gated=False, padded=timed_mask is not None, seq=seq)
-                body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+                body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
                 print(
                     f"time {kname} {shape} T={seq} {name} (mask={timed_mask is not None}, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -756,19 +785,67 @@ def phase_bias_free_kernels():
 
 
 def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: bool, heads: int = H,
-                      dim: int = D) -> tuple:
+                      dim: int = D, tf32x3: bool = False) -> tuple:
     """Least time for one attention backward at (bsz, heads, seq, dim): q, k,
     v and dO read and dq, dk, dv written once; the fp32 bias and gate read
     and dbias and dgate written once (gated); the mask read once; five
-    products of 2·seq·seq·dim FLOPs per (item, head)."""
+    products of 2·seq·seq·dim FLOPs per (item, head), at the type's peak or,
+    with ``tf32x3`` (fp32 on the tensor cores), at TF32X3_FLOPS."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = 7 * bsz * heads * seq * dim * elem
     nbytes += 2 * (heads * seq * seq * 4 + bsz * heads * seq * 4) if gated else 0
     nbytes += bsz * seq if padded else 0
     flops = 10.0 * bsz * heads * seq * seq * dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (TF32X3_FLOPS if tf32x3 else PEAK_FLOPS[dtype_name]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fp32_body(head_dim: int) -> str:
+    """The body that runs the fp32 backward of a ``[B, T, 3E]`` projection of
+    this head width: the 3xTF32 tensor-core kernels on 16-byte rows up to 128,
+    else the FMA body (``attention_kernels.tf32x3_rows``)."""
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    return "tf32x3" if ak.tf32x3_rows(head_dim, head_dim % 8 != 0) else "fma"
+
+
+def bodies_of(run) -> tuple:
+    """Run ``run`` (backward calls); returns its result and the backward
+    calls it made by body (``attention_kernels.BACKWARD_BODIES``)."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    before = dict(ak.BACKWARD_BODIES)
+    result = run()
+    torch.cuda.synchronize()
+    return result, {k: v - before[k] for k, v in ak.BACKWARD_BODIES.items() if v != before[k]}
+
+
+def fma_backward_ms(qkv, heads, bias, gate, mask, dout, n: int = TIMED_LAUNCHES) -> float:
+    """The FMA body's fp32 backward (K3 with a bias, K6 without) on the same
+    inputs, timed: the body these rows took before the 3xTF32 kernels, and
+    the one narrow rows and chunked widths still take. Its launches are not
+    counted."""
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    dim = qkv.shape[-1] // 3 // heads
+    saved = dict(ak.LAUNCHES), dict(ak.BACKWARD_BODIES)
+    detach = [None if t is None else t.detach() for t in (qkv, bias, gate)]
+    ms = median_ms(lambda: ak._kernel_fused_backward(detach[0], heads, detach[1], detach[2], mask, dout,
+                                                     dim**-0.5), n)
+    ak.LAUNCHES.update(saved[0])
+    ak.BACKWARD_BODIES.update(saved[1])
+    return ms
+
+
+def fp32_backward_note(ms: float, fma_ms: float, bsz: int, seq: int, heads: int = H, dim: int = D) -> str:
+    """The tail of an fp32 backward's time line on the 3xTF32 kernels: the
+    FMA body's time on the same inputs and the 3xTF32 bound."""
+    bound = backward_bound_ms("float32", bsz, seq, False, False, heads, dim, tf32x3=True)[0]
+    return (f"; the FMA body on the same inputs {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the 3xTF32 kernels); "
+            f"3xTF32 bound {bound:.4f} ms ({bound / ms:.1%} of it)")
 
 
 def phase_backward_kernels():
@@ -783,7 +860,8 @@ def phase_backward_kernels():
 
     def check_grads(label, dtype, got, want):
         """NaN exactly where the twin has NaN; elsewhere finite and within
-        the bound (fp32 max|d|, bf16 relative L2)."""
+        the bound (fp32 max|d| and, on the 3xTF32 kernels, relative L2 for
+        each output; bf16 relative L2)."""
         names = ("dqkv", "dbias", "dgate")
         worst = 0.0
         for name, g, w in zip(names, got, want):
@@ -800,9 +878,10 @@ def phase_backward_kernels():
             err = float((g - w).abs().max())
             rel = rel_l2(g, w)
             if name != "dqkv" and dtype == torch.float32:
-                check(rel <= FP32_SUM_REL, f"{label}: {name} rel L2={rel:.3e} (max|d| {err:.3e})")
+                check(rel <= TF32X3_REL_L2, f"{label}: {name} rel L2={rel:.3e} <= {TF32X3_REL_L2:g} (max|d| {err:.3e})")
             elif dtype == torch.float32:
-                check(err <= FP32_ATOL, f"{label}: dqkv max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
+                check(err <= FP32_ATOL and rel <= TF32X3_REL_L2,
+                      f"{label}: dqkv max|d|={err:.3e} <= {FP32_ATOL:g}, rel L2={rel:.3e} <= {TF32X3_REL_L2:g}")
             else:
                 check(rel <= BF16_REL_L2, f"{label}: {name} rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
             worst = max(worst, err if name == "dqkv" else 0.0)
@@ -816,13 +895,15 @@ def phase_backward_kernels():
         name = str(dtype).split(".")[1]
         inputs = (qkv, bias) if g is None else (qkv, bias, g)
         out = ak.fused_qkv_gated_attention(qkv, H, bias, g, m)
-        *_, saved_out, rest, lse = out.grad_fn.saved_tensors  # K2's residuals (None in fp32)
-        got = (*torch.autograd.grad(out, inputs, dout), None)[:3]
+        *_, saved_out, rest, lse = out.grad_fn.saved_tensors  # K2's residuals (no rest in fp32)
+        got, bodies = bodies_of(lambda: (*torch.autograd.grad(out, inputs, dout), None)[:3])
         gd = None if g is None else g.detach()
         plain = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(), gd, m, dout)
         torch.cuda.synchronize()
         padded = "none" if m is None else ("an item all padded" if bool(m.all(dim=1).any()) else "some keys")
         label = f"fused_qkv_gated_attention_backward B={bsz} T={seq} {name} gate={g is not None} mask={padded}"
+        want_body = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+        check(bodies == {want_body: 1}, f"{label}: ran on the {want_body} body ({bodies})")
         if dtype == torch.float32:
             return check_grads(label, dtype, got, plain)
         own = ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), saved_out, lse, m, dout,
@@ -856,14 +937,20 @@ def phase_backward_kernels():
                    for t in qkv.detach().view(B_TRAIN, T, 3, H, D).unbind(2))
         gated_bias = (gate.detach()[..., None] * bias.detach()[None]).to(dtype).requires_grad_()
         library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
-        bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False)
-        body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+        fp32 = dtype == torch.float32
+        bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False, tf32x3=fp32)
+        body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
+        fma_ms = fma_backward_ms(qkv, H, bias, gate, None, dout) if fp32 else None
+        note = fp32_backward_note(ms, fma_ms, B_TRAIN, T) if fp32 else ""
         print(f"time fused_qkv_gated_attention_backward B={B_TRAIN} T={T} {name} (gate, no mask, {body}): "
               f"kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * T * T * D, ms):.1f} TFLOP/s), "
               f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
-              f"({bound / ms:.1%} of bound)")
+              f"({bound / ms:.1%} of bound){note}; {CARD[0]}")
         results[("fused_qkv_gated_attention_backward", name)] = dict(
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
+        if fp32:
+            results[("fused_qkv_gated_attention_backward", name)].update(
+                fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False)[0])
         del qkv, bias, gate, dout, mask, masks, out, q, k, v, gated_bias
         torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
@@ -888,10 +975,12 @@ def phase_backward_kernels():
             # EAT without a mask (the timed call) and with one; AVES with its frame mask
             for m in ((None, mask) if shape == "EAT" else (mask,)):
                 out = ak.fused_qkv_attention(qkv, H, m)
-                (got,) = torch.autograd.grad(out, (qkv,), dout)
+                (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (qkv,), dout))
                 want = ak.fused_qkv_backward_reference(qkv.detach(), H, m, dout)
                 torch.cuda.synchronize()
                 label = f"fused_qkv_attention_backward {shape} T={seq} {name} mask={m is not None}"
+                want_body = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+                check(bodies == {want_body: 1}, f"{label}: ran on the {want_body} body ({bodies})")
                 worst = max(worst, check_grads(label, dtype, (got,), (want,)))
             if shape == "EAT":
                 mask = None
@@ -903,15 +992,22 @@ def phase_backward_kernels():
                        for t in qkv.detach().view(B_TRAIN, seq, 3, H, D).unbind(2))
             keep = None if mask is None else ~mask[:, None, None, :]  # SDPA: True = attend
             library_ms = sdpa_backward_ms(q, k, v, keep, dout)
-            bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None)
-            body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+            fp32 = dtype == torch.float32
+            bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None, tf32x3=fp32)
+            body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
+            fma_ms = fma_backward_ms(qkv, H, None, None, mask, dout) if fp32 else None
+            note = fp32_backward_note(ms, fma_ms, B_TRAIN, seq) if fp32 else ""
             print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}, "
                   f"{body}): kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * seq * seq * D, ms):.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
                   f"bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound); "
-                  f"with the host's time to issue it {host_ms:.4f} ms")
+                  f"with the host's time to issue it {host_ms:.4f} ms{note}; {CARD[0]}")
             results[("fused_qkv_attention_backward", shape, name)] = dict(
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
+            if fp32:
+                results[("fused_qkv_attention_backward", shape, name)].update(
+                    fma_ms=fma_ms,
+                    fma_bound_ms=backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None)[0])
             del qkv, dout, mask, out, q, k, v
             torch.cuda.empty_cache()
     return results
@@ -1190,29 +1286,53 @@ def zero_gradient(name, grad):
     return noise
 
 
-def step_gradients(label, load, dtype, use_pallas, wav, mask, expect):
+def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body="tf32x3", timed_steps=0):
     """One step's loss and every parameter's gradient (float32), dropout and
     LayerDrop off; checks the kernel launches (``expect`` on the kernel path,
-    none on the plain path)."""
+    none on the plain path) and the body of every backward (bf16, or in fp32
+    ``fp32_body``: "tf32x3" or "fma"). With ``timed_steps``, the median host
+    ms of that many more steps (forward and backward, synchronised).
+    Returns (loss, gradients, launches, ms or None)."""
     import torch
 
+    from avex_tpu_torch.ops import attention_kernels as ak
     from avex_tpu_torch.training.losses import cross_entropy_loss
 
     labels = torch.arange(wav.shape[0], device=wav.device) % N_CLASSES
     model = load(dtype, use_pallas)
     params = dict(model.module.named_parameters())
+
+    def step():
+        out, _ = model.train_forward(wav, mask, deterministic=True)
+        loss = cross_entropy_loss(out, labels)
+        return loss, torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+
     reset_counts()
-    out, _ = model.train_forward(wav, mask, deterministic=True)
-    loss = cross_entropy_loss(out, labels)
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    loss, grads = step()
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts, bodies = read_counts(), {k: v for k, v in ak.BACKWARD_BODIES.items() if v}
     want = expect if use_pallas else {}
     check(all(counts[k] == want.get(k, 0) for k in counts),
           f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
           f"{ {k: v for k, v in counts.items() if v} } == {want}")
-    result = loss.item(), {n: g.float() for n, g in zip(params, grads) if g is not None}, counts
-    del model, params, out, grads
+    backwards = sum(want.get(k, 0) for k in TF32X3_STEP_LAUNCHES)
+    want_bodies = {("bf16" if dtype == "bfloat16" else fp32_body): backwards} if backwards else {}
+    check(bodies == want_bodies, f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: "
+                                 f"backward bodies {bodies} == {want_bodies}")
+    if dtype == "float32" and use_pallas and fp32_body == "tf32x3":
+        for kname in TF32X3_STEP_LAUNCHES:
+            TF32X3_STEP_LAUNCHES[kname] += counts[kname]
+    ms = None
+    if timed_steps:
+        times = []
+        for _ in range(timed_steps):
+            start = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        ms = statistics.median(times) * 1e3
+    result = loss.item(), {n: g.float() for n, g in zip(params, grads) if g is not None}, counts, ms
+    del model, params, grads
     torch.cuda.empty_cache()
     return result
 
@@ -1232,15 +1352,20 @@ def gradient_distance(grads, ref) -> tuple:
     return (num / den) ** 0.5, worst, worst_name
 
 
-def training_gradient_check(label, load, wav, expect, mask=None, bf16=False):
+def training_gradient_check(label, load, wav, expect, mask=None, bf16=False, fp32_body="tf32x3", timed_steps=0):
     """fp32, dropout and LayerDrop off, the same weights: the kernel path's
     loss and every parameter's gradient against the plain path's. ``expect``
-    maps the kernels the kernel path launches to their count. With ``bf16``
-    one bf16 step of each path is also held to the fp32 plain path: the
-    kernel path may be at most BF16_GRAD_FACTOR farther than the plain path
-    (global rel L2 over every gradient). Returns the numbers printed."""
-    loss_k, grads_k, counts_k = step_gradients(label, load, "float32", True, wav, mask, expect)
-    loss_p, grads_p, _ = step_gradients(label, load, "float32", False, wav, mask, expect)
+    maps the kernels the kernel path launches to their count; ``fp32_body``
+    is the body its fp32 backwards run on ("tf32x3", or "fma" for narrow
+    rows and chunked widths). With ``timed_steps`` each path's fp32 step is
+    also timed (the median of that many). With ``bf16`` one bf16 step of each
+    path is also held to the fp32 plain path: the kernel path may be at most
+    BF16_GRAD_FACTOR farther than the plain path (global rel L2 over every
+    gradient). Returns the numbers printed."""
+    loss_k, grads_k, counts_k, ms_k = step_gradients(label, load, "float32", True, wav, mask, expect, fp32_body,
+                                                     timed_steps)
+    loss_p, grads_p, _, ms_p = step_gradients(label, load, "float32", False, wav, mask, expect, fp32_body,
+                                              timed_steps)
     check(grads_k.keys() == grads_p.keys(), f"{label}: the same parameters get gradients on both paths")
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     _, worst, worst_name = gradient_distance(grads_k, grads_p)
@@ -1249,11 +1374,15 @@ def training_gradient_check(label, load, wav, expect, mask=None, bf16=False):
           f"worst gradient rel L2 {worst:.3e} ({worst_name}) over {len(grads_p)} tensors <= {PATH_REL:g}")
     result = {"fp32_loss_rel": loss_rel, "fp32_worst_grad_rel": worst,
               "kernel_path_launches": {k: v for k, v in counts_k.items() if v}}
+    if timed_steps:
+        print(f"{label} fp32 step (B={wav.shape[0]}, forward and backward, median of {timed_steps}): kernel path "
+              f"{ms_k:.1f} ms (backward on the {fp32_body} body), plain path {ms_p:.1f} ms; {CARD[0]}")
+        result["fp32_step_ms"] = {"kernel_path": ms_k, "plain_path": ms_p}
     if bf16:
         del grads_k
         dist = {}
         for path, use_pallas in (("kernel", True), ("plain", False)):
-            loss16, grads16, _ = step_gradients(label, load, "bfloat16", use_pallas, wav, mask, expect)
+            loss16, grads16, _, _ = step_gradients(label, load, "bfloat16", use_pallas, wav, mask, expect)
             check(grads16.keys() == grads_p.keys(), f"{label} bf16 {path} path: the same parameters get gradients")
             dist[path] = (abs(loss16 - loss_p) / abs(loss_p), *gradient_distance(grads16, grads_p))
             del grads16
@@ -1354,7 +1483,8 @@ def phase_beats_training(workdir):
     del trainer, model
     torch.cuda.empty_cache()
 
-    grad_check = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
+    grad_check = training_gradient_check("BEATs", load, batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True,
+                                         timed_steps=FP32_TIMED_STEPS)
     print(json.dumps({"model": "beats", "training": {
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "remat_peak_bytes": remat_peak,
         "losses": losses, **grad_check},
@@ -1384,7 +1514,8 @@ def phase_eat_training(workdir):
     del trainer
     torch.cuda.empty_cache()
     grad_check = training_gradient_check("EAT", reused_paths(lambda dtype: load(dtype, True)),
-                                         batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True)
+                                         batch["raw_wav"][:B_GRAD_CHECK], expect, bf16=True,
+                                         timed_steps=FP32_TIMED_STEPS)
     print(json.dumps({"model": "eat", "training": {
         "clips_per_s": rate, "ms_per_step": ms, "peak_bytes": peak, "losses": losses, **grad_check},
         "batch": B_TRAIN, "clip_seconds": EAT_CLIP_SAMPLES / 16000, "num_classes": N_CLASSES}))
@@ -1443,7 +1574,8 @@ def phase_aves_training(workdir):
 
 def phase_dh80_kernels():
     """K5 and K4 at Bird-MAE huge's forward shape (B=128, T=513, 16 heads of
-    80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (FMA),
+    80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (the
+    FMA body forward, the 3xTF32 K6, also timed beside the FMA body's K6),
     against their twins (the bf16 K6 also against the twin of its own
     contract on K5's saved residuals); returns per-kernel numbers for the
     JSON line and K4's launches in this phase."""
@@ -1468,7 +1600,7 @@ def phase_dh80_kernels():
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+        body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
         qkv = torch.randn(B, T_MAE, 3 * E_MAE, device="cuda", generator=gen).to(dtype)
         q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T_MAE, 3, H_MAE, D_MAE).unbind(2))
         cases = (
@@ -1496,9 +1628,16 @@ def phase_dh80_kernels():
         qkv = torch.randn(B_TRAIN_MAE, T_MAE, 3 * E_MAE, device="cuda", generator=gen).to(dtype).requires_grad_()
         dout = torch.randn(B_TRAIN_MAE, T_MAE, E_MAE, device="cuda", generator=gen).to(dtype)
         out = ak.fused_qkv_attention(qkv, H_MAE)
-        (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+        (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
         label = f"fused_qkv_attention_backward Bird-MAE huge dh={D_MAE} B={B_TRAIN_MAE} T={T_MAE} {name}"
-        err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), H_MAE, None, dout))
+        want = ak.fused_qkv_backward_reference(qkv.detach(), H_MAE, None, dout)
+        err = held(label, dtype, got, want)
+        fp32 = dtype == torch.float32
+        check(bodies == {"tf32x3" if fp32 else "bf16": 1}, f"{label}: ran on the {list(bodies)} body")
+        if fp32:
+            rel = rel_l2(got, want)
+            check(rel <= TF32X3_REL_L2, f"{label}: rel L2={rel:.3e} <= {TF32X3_REL_L2:g} (3xTF32)")
+        del want
         if dtype == torch.bfloat16:
             *_, saved_out, rest, lse = out.grad_fn.saved_tensors  # K5's residuals
             own = ak.fused_qkv_backward_from_residuals_reference(qkv.detach(), saved_out.detach(), lse, None,
@@ -1512,14 +1651,20 @@ def phase_dh80_kernels():
                    for t in qkv.detach().view(B_TRAIN_MAE, T_MAE, 3, H_MAE, D_MAE).unbind(2))
         library_ms = sdpa_backward_ms(q, k, v, None, dout)
         bound, bound_by = backward_bound_ms(name, B_TRAIN_MAE, T_MAE, gated=False, padded=False, heads=H_MAE,
-                                            dim=D_MAE)
-        print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                                            dim=D_MAE, tf32x3=fp32)
+        fma_ms = fma_backward_ms(qkv, H_MAE, None, None, None, dout) if fp32 else None
+        note = fp32_backward_note(ms, fma_ms, B_TRAIN_MAE, T_MAE, H_MAE, D_MAE) if fp32 else ""
+        print(f"time {label} ({'tensor cores, 3xTF32' if fp32 else body}): kernel {ms:.4f} ms "
               f"({tflops(10.0 * B_TRAIN_MAE * H_MAE * T_MAE * T_MAE * D_MAE, ms):.1f} TFLOP/s), "
               f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
-              f"({bound / ms:.1%} of bound)")
+              f"({bound / ms:.1%} of bound){note}; {CARD[0]}")
         results[("fused_qkv_attention_backward", name)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
             batch=B_TRAIN_MAE, seq=T_MAE, heads=H_MAE)
+        if fp32:
+            results[("fused_qkv_attention_backward", name)].update(
+                fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, B_TRAIN_MAE, T_MAE, gated=False, padded=False,
+                                                              heads=H_MAE, dim=D_MAE)[0])
         del qkv, dout, out, q, k, v
         torch.cuda.empty_cache()
     k4_launches = ak.LAUNCHES["plain_attention"]
@@ -2483,10 +2628,9 @@ def phase_entry_points(workdir: Path):
     write_tone_wavs(data / "train", ENTRY_TRAIN, seed=31)
     write_tone_wavs(data / "val", ENTRY_VAL, seed=32)
     write_noise_wavs(data / "noise")
-    for s, sizes in enumerate(ENTRY_EVAL_SETS):
-        for j, (split, n) in enumerate(zip(("train", "val", "test"), sizes)):
-            write_tone_wavs(data / f"set{s}" / split, n, seed=40 + 3 * s + j)
-    print(f"entry points: {ENTRY_TRAIN + ENTRY_VAL + sum(map(sum, ENTRY_EVAL_SETS))} WAVs written in "
+    for j, (split, n) in enumerate(zip(("train", "val", "test"), ENTRY_EVAL_SET)):
+        write_tone_wavs(data / "set0" / split, n, seed=ENTRY_EVAL_SEED + j)
+    print(f"entry points: {ENTRY_TRAIN + ENTRY_VAL + sum(ENTRY_EVAL_SET)} WAVs written in "
           f"{time.perf_counter() - start:.1f} s")
     layers = beats_config()["encoder_layers"]
     total, report = {}, {"card": CARD[0], "batch": B_TRAIN, "num_workers": ENTRY_WORKERS}
@@ -2597,10 +2741,9 @@ def phase_entry_points(workdir: Path):
     del trainer, model, built, loaders, train_loader, val_loader
     torch.cuda.empty_cache()
 
-    # --- run_evaluate: a frozen online attention probe over four layers, two sets
-    sets = [{"name": f"tones{s}", "metrics": ["accuracy", "balanced_accuracy"],
-             **{split: local(f"set{s}", split) for split in ("train", "val", "test")}}
-            for s in range(len(ENTRY_EVAL_SETS))]
+    # --- run_evaluate: a frozen online attention probe over four layers, one set
+    sets = [{"name": "tones0", "metrics": ["accuracy", "balanced_accuracy"],
+             **{split: local("set0", split) for split in ("train", "val", "test")}}]
     probe = {"probe_type": "attention", "aggregation": "none", "input_processing": "sequence", "num_heads": 8,
              "num_layers": 2, "target_layers": PROBE_LAYERS, "online_training": True, "freeze_backbone": True,
              "target_length": CLIP_SAMPLES}
@@ -2635,23 +2778,22 @@ def phase_entry_points(workdir: Path):
     finally:
         finetune.FineTuneTrainer.train, run_evaluate.build_model_from_spec = train, build_model
     # backbone forwards: embedding_shapes, the training steps, validation and test batches
-    forwards = sum(1 + ENTRY_EPOCHS * (-(-tr // B_PROBE) + -(-va // B_PROBE)) + -(-te // B_PROBE)
-                   for tr, va, te in ENTRY_EVAL_SETS)
+    tr, va, te = ENTRY_EVAL_SET
+    forwards = 1 + ENTRY_EPOCHS * (-(-tr // B_PROBE) + -(-va // B_PROBE)) + -(-te // B_PROBE)
     for kname, n in counts.items():
         want = layers * forwards if kname == "gated_bias_attention" else 0
         check(n == want, f"run_evaluate: {kname} launched {n} times == {want} ({layers} a forward x {forwards})")
         total[kname] = total.get(kname, 0) + n
-    check(len(builds) == 1, f"run_evaluate: the frozen backbone built {len(builds)} time(s) for "
-                            f"{len(ENTRY_EVAL_SETS)} evaluation sets")
+    check(len(builds) == 1, f"run_evaluate: the frozen backbone built {len(builds)} time(s) for one evaluation set")
     for s, history in enumerate(histories):
         falls(f"run_evaluate set {s} online frozen attention probe", history)
     save = Path(eval_config.save_dir)
     records = [json.loads(x) for x in (save / "evaluation_metadata.jsonl").read_text().splitlines()]
-    check(len(records) == len(ENTRY_EVAL_SETS) and (save / "summary.csv").exists()
+    check(len(records) == 1 and len(histories) == 1 and (save / "summary.csv").exists()
           and (save / "summary_simple.csv").exists()
           and all(math.isfinite(r["metrics"]["probe"]["test_accuracy"]) for r in records),
           f"run_evaluate: {len(records)} records in evaluation_metadata.jsonl and the summary CSVs written")
-    ms = [h[-1]["train_seconds"] / -(-tr // B_PROBE) * 1e3 for h, (tr, _, _) in zip(histories, ENTRY_EVAL_SETS)]
+    ms = [h[-1]["train_seconds"] / -(-tr // B_PROBE) * 1e3 for h in histories]
     report["run_evaluate"] = {"seconds": elapsed, "probe_ms_per_step": ms, "steps_per_s": [1e3 / x for x in ms],
                               "probe_info": records[0]["probe_info"],
                               "test_accuracy": [r["metrics"]["probe"]["test_accuracy"] for r in records]}
@@ -2663,11 +2805,17 @@ def phase_entry_points(workdir: Path):
 
 
 def phase_k3_long():
-    """The fp32 K3 past T=512, where its dbias rows leave shared memory: at
-    T=520 and T=800 (B=4) with the gate, with the gate and a padding mask,
-    and with neither, dqkv, dbias and dgate against the twin at atol/rtol
-    1e-4; then times the gated call at T=800 against the twin, the fp32 SDPA
-    backward and its bound. Returns the T=800 numbers for the JSON line."""
+    """The fp32 K3 past T=512 on the 3xTF32 kernels (which take any T) and
+    on the FMA body, which narrow rows still take and which moves its dbias
+    rows to device memory past 512: at T=520 and T=800 (B=4) with the gate,
+    with the gate and a padding mask, and with neither, dqkv, dbias and
+    dgate against the twin at atol/rtol 1e-4 and (3xTF32) relative L2
+    TF32X3_REL_L2; the same values on narrow rows (a row stride of 3E + 1
+    floats) with the gate, with and without the mask, on the FMA body at
+    atol/rtol 1e-4; then times the
+    gated call at T=800 against the twin, the FMA body on the same inputs,
+    the fp32 SDPA backward and its bounds. Returns the T=800 numbers for the
+    JSON line."""
     import torch
 
     from avex_tpu_torch.ops import attention_kernels as ak
@@ -2681,24 +2829,36 @@ def phase_k3_long():
         dout = torch.randn(B_LONG, seq, E, device="cuda", generator=gen)
         mask = torch.zeros(B_LONG, seq, dtype=torch.bool, device="cuda")
         mask[1::2, seq * 2 // 3:] = True
+        # the same values on narrow rows: the forward saves no LSE, the FMA body's K3 runs
+        store = torch.zeros(B_LONG, seq, 3 * E + 1, device="cuda", requires_grad=True)
+        with torch.no_grad():
+            store[..., 1:].copy_(qkv)
+        narrow = store[..., 1:]
         worst = 0.0
-        for g, m in ((gate, None), (gate, mask), (None, None)):
-            inputs = (qkv, bias) if g is None else (qkv, bias, g)
+        cases = [(qkv, gate, None, "tf32x3"), (qkv, gate, mask, "tf32x3"), (qkv, None, None, "tf32x3"),
+                 (narrow, gate, None, "fma"), (narrow, gate, mask, "fma")]
+        for x, g, m, body in cases:
+            inputs = (x, bias) if g is None else (x, bias, g)
             reset_counts()
-            out = ak.fused_qkv_gated_attention(qkv, H, bias, g, m)
-            got = torch.autograd.grad(out, inputs, dout)
-            torch.cuda.synchronize()
+            out = ak.fused_qkv_gated_attention(x, H, bias, g, m)
+            got, bodies = bodies_of(lambda: torch.autograd.grad(out, inputs, dout))
             launched = read_counts()["fused_qkv_gated_attention_backward"]
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(),
                                                          None if g is None else g.detach(), m, dout)
-            label = f"fp32 K3 T={seq} B={B_LONG} gate={g is not None} mask={m is not None}"
-            check(launched == 1, f"{label}: launched the kernel once ({launched})")
+            rows = "16-byte rows" if body == "tf32x3" else "narrow rows"
+            label = f"fp32 K3 T={seq} B={B_LONG} gate={g is not None} mask={m is not None} {rows}"
+            check(launched == 1 and bodies == {body: 1},
+                  f"{label}: launched the kernel once ({launched}), on the {body} body ({bodies})")
             for name, a, b in zip(("dqkv", "dbias", "dgate"), got, want):
-                err = float((a - b).abs().max())
-                check(a.shape == b.shape and bool(torch.allclose(a, b, atol=K3_LONG_TOL, rtol=K3_LONG_TOL)),
-                      f"{label}: {name} {tuple(a.shape)} max|d| {err:.3e} within atol/rtol {K3_LONG_TOL:g} "
-                      f"(rel L2 {rel_l2(a, b):.3e})")
+                err, rel = float((a - b).abs().max()), rel_l2(a, b)
+                bound = TF32X3_REL_L2 if body == "tf32x3" else math.inf
+                check(a.shape == b.shape and bool(torch.allclose(a, b, atol=K3_LONG_TOL, rtol=K3_LONG_TOL))
+                      and rel <= bound,
+                      f"{label}: {name} {tuple(a.shape)} max|d| {err:.3e} within atol/rtol {K3_LONG_TOL:g}, "
+                      f"rel L2 {rel:.3e}" + (f" <= {TF32X3_REL_L2:g}" if body == "tf32x3" else ""))
                 worst = max(worst, err)
+            del out, got
+        del store, narrow
         if seq == T_LONG:
             out = ak.fused_qkv_gated_attention(qkv, H, bias, gate)
             ms = median_ms(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
@@ -2708,13 +2868,16 @@ def phase_k3_long():
                        for t in qkv.detach().view(B_LONG, seq, 3, H, D).unbind(2))
             gated_bias = (gate.detach()[..., None] * bias.detach()[None]).requires_grad_()
             library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
-            bound, bound_by = backward_bound_ms("float32", B_LONG, seq, gated=True, padded=False)
-            print(f"time fused_qkv_gated_attention_backward B={B_LONG} T={seq} float32 (gate, no mask, FMA, dbias "
-                  f"rows in device memory): kernel {ms:.4f} ms ({tflops(10.0 * B_LONG * H * seq * seq * D, ms):.2f} "
+            fma_ms = fma_backward_ms(qkv, H, bias, gate, None, dout)
+            bound, bound_by = backward_bound_ms("float32", B_LONG, seq, gated=True, padded=False, tf32x3=True)
+            print(f"time fused_qkv_gated_attention_backward B={B_LONG} T={seq} float32 (gate, no mask, tensor "
+                  f"cores, 3xTF32): kernel {ms:.4f} ms ({tflops(10.0 * B_LONG * H * seq * seq * D, ms):.2f} "
                   f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"by {bound_by} ({bound / ms:.1%} of bound); {CARD[0]}")
+                  f"by {bound_by} ({bound / ms:.1%} of bound){fp32_backward_note(ms, fma_ms, B_LONG, seq)}; "
+                  f"{CARD[0]}")
             result = dict(batch=B_LONG, seq=seq, max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound, bound_by=bound_by)
+                          bound_ms=bound, bound_by=bound_by, fma_ms=fma_ms,
+                          fma_bound_ms=backward_bound_ms("float32", B_LONG, seq, gated=True, padded=False)[0])
             del out, q, k, v, gated_bias
         del qkv, bias, gate, dout, mask
         torch.cuda.empty_cache()
@@ -3010,7 +3173,8 @@ def eat_ssl_shapes() -> tuple:
 
 def phase_eat_ssl_kernels():
     """K5 and K6 against their twins at EAT-SSL's three shapes (B=64), bf16
-    (tensor cores) and fp32 (FMA); each timed beside its twin, its bound and
+    (tensor cores) and fp32 (the FMA body forward, the 3xTF32 K6, also timed
+    beside the FMA body's K6); each timed beside its twin, its bound and
     SDPA (its backward for K6). The teacher's K5 runs under no_grad, as in
     the model. Returns {(kernel, shape, dtype): numbers}."""
     import torch
@@ -3032,7 +3196,7 @@ def phase_eat_ssl_kernels():
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+        body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
         for shape, seq, heads, width, backward in eat_ssl_shapes():
             qkv = torch.randn(B_TRAIN, seq, 3 * width, device="cuda", generator=gen).to(dtype)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B_TRAIN, seq, 3, heads, D).unbind(2))
@@ -3059,23 +3223,36 @@ def phase_eat_ssl_kernels():
                 qkv.requires_grad_()
                 dout = torch.randn(B_TRAIN, seq, width, device="cuda", generator=gen).to(dtype)
                 out = ak.fused_qkv_attention(qkv, heads)
-                (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+                (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
                 label = f"fused_qkv_attention_backward EAT-SSL {shape} B={B_TRAIN} T={seq} H={heads} {name}"
-                err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
-                del got
+                want = ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout)
+                err = held(label, dtype, got, want)
+                fp32 = dtype == torch.float32
+                check(bodies == {"tf32x3" if fp32 else "bf16": 1}, f"{label}: ran on the {list(bodies)} body")
+                if fp32:
+                    rel = rel_l2(got, want)
+                    check(rel <= TF32X3_REL_L2, f"{label}: rel L2={rel:.3e} <= {TF32X3_REL_L2:g} (3xTF32)")
+                del got, want
                 ms = median_ms(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
                 plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
                 q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
                            for t in qkv.detach().view(B_TRAIN, seq, 3, heads, D).unbind(2))
                 library_ms = sdpa_backward_ms(q, k, v, None, dout)
-                bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=False, heads=heads)
-                print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=False, heads=heads,
+                                                    tf32x3=fp32)
+                fma_ms = fma_backward_ms(qkv, heads, None, None, None, dout) if fp32 else None
+                note = fp32_backward_note(ms, fma_ms, B_TRAIN, seq, heads) if fp32 else ""
+                print(f"time {label} ({'tensor cores, 3xTF32' if fp32 else body}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * B_TRAIN * heads * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                       f"sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
-                      f"({bound / ms:.1%} of bound); {CARD[0]}")
+                      f"({bound / ms:.1%} of bound){note}; {CARD[0]}")
                 results[("fused_qkv_attention_backward", shape, name)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                     bound_by=bound_by, batch=B_TRAIN, seq=seq, heads=heads)
+                if fp32:
+                    results[("fused_qkv_attention_backward", shape, name)].update(
+                        fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=False,
+                                                                      heads=heads)[0])
                 del dout, out, q, k, v
             del qkv
             torch.cuda.empty_cache()
@@ -5062,15 +5239,18 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             return bsz
         return max(1, min(bsz, int(twin_bytes // (heads * seq * seq * 4))))
 
-    def held(label, dtype, got, want, sums=False):
+    def held(label, dtype, got, want, sums=False, tf32x3=False):
         """NaN exactly where the twin has NaN; elsewhere fp32 max|d| (sums:
-        relative L2, dbias and dgate sum in another order) or bf16 relative
-        L2 against the twin. Returns max|d|."""
+        relative L2, dbias and dgate sum in another order; ``tf32x3``, an
+        fp32 backward on the 3xTF32 kernels: relative L2 too) or bf16
+        relative L2 against the twin. Returns max|d|."""
         nan = torch.isnan(want)
         check(got.shape == want.shape and torch.equal(torch.isnan(got), nan)
               and bool(torch.isfinite(got[~nan]).all()), f"{label}: finite, NaN where the twin has NaN")
         got, want = got[~nan].float(), want[~nan].float()
         err, rel = float((got - want).abs().max()), rel_l2(got, want)
+        if dtype == torch.float32 and tf32x3 and not sums:
+            check(rel <= TF32X3_REL_L2, f"{label}: rel L2={rel:.3e} <= {TF32X3_REL_L2:g} (3xTF32)")
         if dtype == torch.float32 and sums:
             check(rel <= FP32_SUM_REL, f"{label}: rel L2={rel:.3e} <= {FP32_SUM_REL:g} (max|d| {err:.3e})")
         elif dtype == torch.float32:
@@ -5101,7 +5281,11 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
               f"of {plan.chunk_width}; forward batches {bsz_g} / {bsz_f}, backward {bsz_b3} / {bsz_b6}")
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
-            body = "tensor cores" if ak.tensor_cores(dtype) else "FMA"
+            body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
+            # the body of the backwards: bf16, or fp32 on 3xTF32 (16-byte rows up to 128) or the FMA body
+            bwd_body = "bf16" if dtype == torch.bfloat16 else fp32_body(dh)
+            tf32x3 = bwd_body == "tf32x3"
+            bwd_label = {"bf16": "tensor cores", "tf32x3": "tensor cores, 3xTF32", "fma": "FMA"}[bwd_body]
             # bias-free forwards, EAT's T: K5 on [B, T, 3E], K4 on its split views
             qkv = torch.randn(bsz_f, T_EAT, 3 * e, device="cuda", generator=gen).to(dtype)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz_f, T_EAT, 3, heads, dh).unbind(2))
@@ -5153,11 +5337,12 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             gate = gate[:bsz_b3].clone().requires_grad_()
             dout = torch.randn(bsz_b3, T, e, device="cuda", generator=gen).to(dtype)
             out = ak.fused_qkv_gated_attention(qkv, heads, bias, gate)
-            got = torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True)
+            got, bodies = bodies_of(lambda: torch.autograd.grad(out, (qkv, bias, gate), dout, retain_graph=True))
             label = f"fused_qkv_gated_attention_backward dh={dh} H={heads} B={bsz_b3} T={T} {name}"
+            check(bodies == {bwd_body: 1}, f"{label}: ran on the {bwd_body} body ({bodies})")
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), heads, bias.detach(), gate.detach(), None,
                                                          dout)
-            err = held(label + " dqkv", dtype, got[0], want[0])
+            err = held(label + " dqkv", dtype, got[0], want[0], tf32x3=tf32x3)
             held(label + " dbias", dtype, got[1], want[1], sums=True)
             held(label + " dgate", dtype, got[2], want[2], sums=True)
             if dtype == torch.bfloat16:
@@ -5177,14 +5362,21 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                 plain_ms = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
                     qkv.detach(), heads, bias.detach(), gate.detach(), None, dout), reps)
                 library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout, reps)
-                t_bound, bound_by = backward_bound_ms(name, bsz_b3, T, gated=True, padded=False, heads=heads, dim=dh)
-                print(f"time {label} (gate, {body}): kernel {ms:.4f} ms "
+                t_bound, bound_by = backward_bound_ms(name, bsz_b3, T, gated=True, padded=False, heads=heads, dim=dh,
+                                                      tf32x3=tf32x3)
+                fma_ms = fma_backward_ms(qkv, heads, bias, gate, None, dout, reps) if tf32x3 else None
+                note = fp32_backward_note(ms, fma_ms, bsz_b3, T, heads, dh) if tf32x3 else ""
+                print(f"time {label} (gate, {bwd_label}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * bsz_b3 * heads * T * T * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                       f"sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
-                      f"({t_bound / ms:.1%} of bound); {CARD[0]}")
+                      f"({t_bound / ms:.1%} of bound){note}; {CARD[0]}")
                 results[("fused_qkv_gated_attention_backward", dh, name)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
                     bound_by=bound_by)
+                if tf32x3:
+                    results[("fused_qkv_gated_attention_backward", dh, name)].update(
+                        fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, bsz_b3, T, gated=True, padded=False,
+                                                                      heads=heads, dim=dh)[0])
                 del q, k, v, gated_bias
             del qkv, bias, gate, dout, out
             torch.cuda.empty_cache()
@@ -5193,9 +5385,11 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             qkv = torch.randn(bsz_b6, T_EAT, 3 * e, device="cuda", generator=gen).to(dtype).requires_grad_()
             dout = torch.randn(bsz_b6, T_EAT, e, device="cuda", generator=gen).to(dtype)
             out = ak.fused_qkv_attention(qkv, heads)
-            (got,) = torch.autograd.grad(out, (qkv,), dout, retain_graph=True)
+            (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (qkv,), dout, retain_graph=True))
             label = f"fused_qkv_attention_backward dh={dh} H={heads} B={bsz_b6} T={T_EAT} {name}"
-            err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout))
+            check(bodies == {bwd_body: 1}, f"{label}: ran on the {bwd_body} body ({bodies})")
+            err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout),
+                       tf32x3=tf32x3)
             if dtype == torch.bfloat16:
                 *_, saved, rest, lse = out.grad_fn.saved_tensors  # K5's residuals
                 held(label + " vs its residual twin", dtype, got, ak.fused_qkv_backward_from_residuals_reference(
@@ -5209,14 +5403,20 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                 plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout), reps)
                 library_ms = sdpa_backward_ms(q, k, v, None, dout, reps)
                 t_bound, bound_by = backward_bound_ms(name, bsz_b6, T_EAT, gated=False, padded=False, heads=heads,
-                                                      dim=dh)
-                print(f"time {label} ({body}): kernel {ms:.4f} ms "
+                                                      dim=dh, tf32x3=tf32x3)
+                fma_ms = fma_backward_ms(qkv, heads, None, None, None, dout, reps) if tf32x3 else None
+                note = fp32_backward_note(ms, fma_ms, bsz_b6, T_EAT, heads, dh) if tf32x3 else ""
+                print(f"time {label} ({bwd_label}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * bsz_b6 * heads * T_EAT * T_EAT * dh, ms):.1f} TFLOP/s), plain "
                       f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
-                      f"({t_bound / ms:.1%} of bound); {CARD[0]}")
+                      f"({t_bound / ms:.1%} of bound){note}; {CARD[0]}")
                 results[("fused_qkv_attention_backward", dh, name)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
                     bound_by=bound_by)
+                if tf32x3:
+                    results[("fused_qkv_attention_backward", dh, name)].update(
+                        fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, bsz_b6, T_EAT, gated=False, padded=False,
+                                                                      heads=heads, dim=dh)[0])
                 del q, k, v
             del qkv, dout, out
             torch.cuda.empty_cache()
@@ -5252,16 +5452,20 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             out = ak.fused_qkv_gated_attention(leaves[0], heads, leaves[1], leaves[2], mask)
             held(f"fused_qkv_gated_attention {tag}", dtype, out.detach(),
                  ak.fused_qkv_gated_reference(qkv, heads, bias, gate, mask))
-            got = torch.autograd.grad(out, leaves, dout)
+            got, bodies = bodies_of(lambda: torch.autograd.grad(out, leaves, dout))
+            check(bodies == {bwd_body: 1}, f"fused_qkv_gated_attention_backward {tag}: ran on the {bwd_body} body "
+                                           f"({bodies})")
             want = ak.fused_qkv_gated_backward_reference(qkv, heads, bias, gate, mask, dout)
             for part, g, w in zip(("dqkv", "dbias", "dgate"), got, want):
-                held(f"fused_qkv_gated_attention_backward {part} {tag}", dtype, g, w, sums=part != "dqkv")
+                held(f"fused_qkv_gated_attention_backward {part} {tag}", dtype, g, w, sums=part != "dqkv",
+                     tf32x3=tf32x3)
             leaf = qkv.clone().requires_grad_()
             out = ak.fused_qkv_attention(leaf, heads, mask)
             held(f"fused_qkv_attention {tag}", dtype, out.detach(), ak.fused_qkv_reference(qkv, heads, mask))
-            (got,) = torch.autograd.grad(out, (leaf,), dout)
+            (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (leaf,), dout))
+            check(bodies == {bwd_body: 1}, f"fused_qkv_attention_backward {tag}: ran on the {bwd_body} body ({bodies})")
             held(f"fused_qkv_attention_backward {tag}", dtype, got,
-                 ak.fused_qkv_backward_reference(qkv, heads, mask, dout))
+                 ak.fused_qkv_backward_reference(qkv, heads, mask, dout), tf32x3=tf32x3)
             del qkv, q, k, v, bias, gate, mask, forward_mask, dout, leaves, out, got, want, leaf
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5604,7 +5808,8 @@ def phase_wide_head_paths(workdir: Path) -> dict:
     add(counts)
     del trainer
     torch.cuda.empty_cache()
-    beats_grad = training_gradient_check("BEATs 4 x 192", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect)
+    beats_grad = training_gradient_check("BEATs 4 x 192", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect,
+                                         fp32_body="fma")  # two column chunks of 96: the FMA body
 
     # (c) EAT 64 x 12: K5 extraction, K6 training
     def load_eat(dtype, use_pallas, **kwargs):
@@ -5648,7 +5853,7 @@ def phase_wide_head_paths(workdir: Path) -> dict:
     torch.cuda.empty_cache()
     eat_grad = training_gradient_check("EAT 64 x 12", reused_paths(lambda dtype: load_eat(dtype, True,
                                                                                            num_classes=N_CLASSES)),
-                                       batch["raw_wav"][:B_GRAD_CHECK], expect)
+                                       batch["raw_wav"][:B_GRAD_CHECK], expect, fp32_body="fma")  # narrow rows
 
     # (d) Bird-MAE huge 5 x 256: K5 extraction of 10 s clips at 32 kHz, fp32 kernel path vs plain path
     def load_mae(dtype, use_pallas):
@@ -5813,7 +6018,8 @@ def main() -> int:
     dh80 = {kname: {name: dh80_timings[(kname, name)] for name in ("bfloat16", "float32")}
             for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
 
-    tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16; fp32 stays on gated_attention.cu
+    tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16; fp32 forwards on gated_attention.cu
+    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # the fp32 K3 and K6 on 16-byte rows up to 128
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
     rows = (
@@ -5840,7 +6046,19 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-        if source == tensor_core:
+        if source == tensor_core and kname.endswith("_backward"):
+            kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync bf16)",
+                                   "fp32": "tensor cores (mma.sync TF32, 3xTF32) on 16-byte rows of a head width "
+                                           "a multiple of 8 up to 128; FMA on narrow rows and chunked widths"}
+            kernels[-1]["fp32_source"] = tf32x3
+            # the fp32 call at the same shape, with the FMA body's time on the same inputs
+            kernels[-1]["fp32"] = backward_timings[(kname, "float32") if kname.startswith("fused_qkv_gated")
+                                                   else (kname, "EAT", "float32")]
+            # the main paths' fp32 gradient checks (``step_gradients``): their launches on the 3xTF32 kernels
+            kernels[-1]["fp32_tf32x3_launches"] = TF32X3_STEP_LAUNCHES[kname]
+            check(TF32X3_STEP_LAUNCHES[kname] > 0, f"{kname}: the fp32 training steps ran the 3xTF32 kernels "
+                                                   f"({TF32X3_STEP_LAUNCHES[kname]} launches)")
+        elif source == tensor_core:
             kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)", "fp32": "FMA"}
         elif kname == "int8_dynamic_dense":
             kernels[-1]["body"] = "row quantization, then wgmma on TMA-fed tiles"
@@ -5862,11 +6080,12 @@ def main() -> int:
         if cli.get(kname):
             kernels[-1]["cli_launches"] = cli[kname]  # phase 33's share
         if source == tensor_core:
-            # phase 34: dh 16, 32, 96, 128 at E = 768, bf16 (tensor cores) and fp32 (FMA)
+            # phase 34: dh 16, 32, 96, 128 at E = 768, bf16 (tensor cores) and fp32 (FMA; K3/K6 3xTF32)
             kernels[-1]["head_widths"] = {f"dh{dh}": {name: hw_timings[(kname, dh, name)]
                                                       for name in ("bfloat16", "float32")} for dh in HW_WIDTHS}
             kernels[-1]["head_width_kernel_phase_launches"] = hw_kernel_counts[kname]
-            # phase 35: the widths of WH_TIMED, bf16 (tensor cores) and fp32 (FMA), at the shapes it prints
+            # phase 35: the widths of WH_TIMED, bf16 (tensor cores) and fp32 (FMA: narrow rows, column
+            # chunks), at the shapes it prints
             kernels[-1]["wide_head_widths"] = {f"dh{dh}": {name: wh_timings[(kname, dh, name)]
                                                            for name in ("bfloat16", "float32")} for dh in WH_TIMED}
             kernels[-1]["wide_head_kernel_phase_launches"] = wh_kernel_counts[kname]

@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""The fp32 attention backward (K3, K6) on the card: the 3xTF32 tensor-core
+kernels against the plain fp32 twin, the FMA body and SDPA.
+
+    python3 scripts/torch_tf32x3_backward.py
+
+Builds ``csrc/tf32x3_attention.cu`` at every head width of
+``attention_kernels.KERNEL_WIDTHS`` and ``csrc/gated_attention.cu`` (the
+fp32 forward that saves the row log-sum-exp), one ``nvcc`` each, all at
+once, and prints each 3xTF32 kernel's registers and spills. Then, for each
+case, the fp32 backward of ``fused_qkv_gated_attention`` (K3) or
+``fused_qkv_attention`` (K6) through autograd against the plain fp32 twin
+with TF32 off (rel L2 of dqkv, dbias and dgate; NaN exactly where the twin
+has NaN), the body that ran it (``attention_kernels.BACKWARD_BODIES``) and,
+for the timed cases, the median device time of 20 calls (each behind a sleep
+kernel) of the 3xTF32 kernels, the FMA body on the same inputs, the twin
+and SDPA's fp32 backward, beside the bound at 165 TFLOP/s (3xTF32: three
+TF32 products a product) and at the FMA units' 67, and each 3xTF32
+kernel's device time per call from ``torch.profiler``. Exits 1 on a failed
+check. Needs CUDA and ``nvcc``; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+REL_L2 = 1e-5  # each of dqkv, dbias and dgate against the plain fp32 twin
+TF32X3_FLOPS = 495e12 / 3
+FMA_FLOPS = 67e12
+E = 768
+# (kernel, label, batch, heads, T, gated, masked, timed)
+CASES = (
+    ("K3", "BEATs", 64, 12, 248, "gate", None, True),
+    ("K3", "BEATs", 64, 12, 248, "gate", "some keys", False),
+    ("K3", "BEATs", 64, 12, 248, "bias only", "some keys", False),
+    ("K3", "long", 4, 12, 800, "gate", None, True),
+    ("K3", "long", 4, 12, 520, "gate", "some keys", False),
+    ("K6", "EAT", 64, 12, 513, None, None, True),
+    ("K6", "EAT", 64, 12, 513, None, "some keys", False),
+    ("K6", "AVES", 64, 12, 249, None, "frames", False),
+    ("K6", "Bird-MAE huge", 64, 16, 513, None, None, True),
+    ("K6", "dh16", 64, 48, 513, None, None, True),
+    ("K6", "dh32", 64, 24, 513, None, None, True),
+    ("K6", "dh96", 64, 8, 513, None, None, True),
+    ("K6", "dh128", 64, 6, 513, None, None, True),
+    ("K3", "dh32", 64, 24, 248, "gate", None, True),
+    ("K3", "dh128", 64, 6, 248, "gate", None, True),
+    ("K3", "ragged", 8, 12, 37, "gate", "an item all padded", False),
+    ("K6", "ragged dh40", 8, 4, 37, None, "an item all padded", False),
+)
+
+
+def build() -> int:
+    """Every build the cases need, at once; prints the 3xTF32 kernels'
+    ptxas lines. Returns the kernels that spill."""
+    from avex_tpu_torch.ops import _build
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    jobs = [(src, w) for src in (ak.TF32X3_SOURCE, ak.SOURCE) for w in ak.KERNEL_WIDTHS]
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: _build.build(*job), jobs))
+    print(f"build: {len(jobs)} builds in {time.perf_counter() - start:.1f} s")
+    spills = 0
+    for name, (seconds, log) in sorted(_build.BUILD_LOG.items()):
+        print(f"  {name}: nvcc {seconds:.1f} s")
+        kernel = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif ("registers" in line or "spill" in line) and name.startswith(ak.TF32X3_SOURCE):
+                print(f"    {kernel}: {line.split(':', 1)[-1].strip()}")
+                if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    spills += 1
+    return spills
+
+
+def kernel_ms(fn, n: int = 5) -> dict:
+    """Device ms per call of each 3xTF32 kernel ``fn`` launches, from the
+    profiler over ``n`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for evt in prof.key_averages():
+        name = re.search(r"(tf32x3_\w+_kernel|sum_chunks_kernel)(<[^>]*>)?", evt.key)
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if name and total:
+            times[name.group(0)] = times.get(name.group(0), 0.0) + total / n / 1e3
+    return times
+
+
+def main() -> int:
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+    from chip_smoke import median_ms, rel_l2, sdpa_backward_ms
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    failures = build()
+    print(f"spilling 3xTF32 kernels: {failures}")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    report = []
+    for kname, label, bsz, heads, seq, gating, masking, timed in CASES:
+        dim = E // heads if not label.startswith("ragged") else (64 if kname == "K3" else 40)
+        if label == "Bird-MAE huge":
+            dim = 80
+        width = heads * dim
+        qkv = torch.randn(bsz, seq, 3 * width, device="cuda", generator=gen).requires_grad_()
+        dout = torch.randn(bsz, seq, width, device="cuda", generator=gen)
+        mask = None
+        if masking is not None:
+            mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+            mask[1::3, seq * 2 // 3:] = True
+            if masking == "an item all padded":
+                mask[0] = True
+        bias = gate = None
+        leaves = [qkv]
+        if gating is not None:
+            bias = torch.randn(heads, seq, seq, device="cuda", generator=gen).requires_grad_()
+            leaves.append(bias)
+            if gating == "gate":
+                gate = (torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0).requires_grad_()
+                leaves.append(gate)
+
+        def forward():
+            if bias is None:
+                return ak.fused_qkv_attention(qkv, heads, mask)
+            return ak.fused_qkv_gated_attention(qkv, heads, bias, gate, mask)
+
+        ak.reset_launch_counts()
+        out = forward()
+        got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        bodies = dict(ak.BACKWARD_BODIES)
+        detached = (qkv.detach(), bias.detach() if bias is not None else None,
+                    gate.detach() if gate is not None else None)
+        if bias is None:
+            want = (ak.fused_qkv_backward_reference(detached[0], heads, mask, dout),)
+        else:
+            want = ak.fused_qkv_gated_backward_reference(detached[0], heads, detached[1], detached[2], mask, dout)
+        torch.cuda.synchronize()
+        tag = f"{kname} {label} B={bsz} H={heads} dh={dim} T={seq} gate={gating} mask={masking}"
+        ok = bodies == {"bf16": 0, "tf32x3": 1, "fma": 0}
+        rels = {}
+        for name, g, w in zip(("dqkv", "dbias", "dgate"), got, want):
+            if w is None:
+                continue
+            nan = torch.isnan(w)
+            ok &= bool(torch.equal(torch.isnan(g), nan)) and bool(torch.isfinite(g[~nan]).all())
+            if not nan.all():
+                rels[name] = rel_l2(g[~nan], w[~nan])
+                ok &= rels[name] <= REL_L2
+        row = {"case": tag, "bodies": bodies, "rel_l2": rels, "ok": ok}
+        if timed:
+            flops = 10.0 * bsz * heads * seq * seq * dim
+            row["ms"] = median_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+            row["kernels_ms"] = kernel_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+            row["fma_ms"] = median_ms(lambda: ak._kernel_fused_backward(
+                detached[0], heads, detached[1], detached[2], mask, dout, dim ** -0.5))
+            if bias is None:
+                row["plain_ms"] = median_ms(lambda: ak.fused_qkv_backward_reference(detached[0], heads, mask, dout))
+            else:
+                row["plain_ms"] = median_ms(lambda: ak.fused_qkv_gated_backward_reference(
+                    detached[0], heads, detached[1], detached[2], mask, dout))
+            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                       for t in detached[0].view(bsz, seq, 3, heads, dim).unbind(2))
+            attn = None
+            if bias is not None:
+                attn = (detached[2][..., None] * detached[1][None]).requires_grad_()
+            row["sdpa_ms"] = sdpa_backward_ms(q, k, v, attn, dout)
+            row["bound_tf32x3_ms"] = flops / TF32X3_FLOPS * 1e3
+            row["bound_fma_ms"] = flops / FMA_FLOPS * 1e3
+            row["speedup_over_fma"] = row["fma_ms"] / row["ms"]
+            del q, k, v, attn
+        print(("ok    " if ok else "FAIL  ") + json.dumps(row))
+        failures += not ok
+        report.append(row)
+        del qkv, dout, mask, bias, gate, leaves, out, got, want, detached
+        torch.cuda.empty_cache()
+    print(f"{failures} failure(s) on {smi}")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

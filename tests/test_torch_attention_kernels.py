@@ -355,7 +355,15 @@ def test_fused_wrappers_differentiate_through_the_twins_on_cpu(rng):
 
 def test_tensor_core_dispatch_by_type():
     """Every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6), runs on
-    the tensor cores; every fp32 call on the FMA body; no other type does."""
-    assert ak.tensor_cores(torch.bfloat16)
-    assert not ak.tensor_cores(torch.float32)
-    assert not ak.tensor_cores(torch.float16)
+    the tensor cores; fp32 forwards on the FMA body; the fp32 backward from
+    the forward's residuals (3xTF32) on 16-byte rows of a width that is a
+    multiple of 8 up to 128, else on the FMA body; no other type does."""
+    assert ak.tensor_core_forward(torch.bfloat16)
+    assert not ak.tensor_core_forward(torch.float32)
+    assert not ak.tensor_core_forward(torch.float16)
+    assert ak.residual_backward(torch.bfloat16, 12, True) and ak.residual_backward(torch.bfloat16, 192, False)
+    assert ak.residual_backward(torch.float32, 64, False) and ak.residual_backward(torch.float32, 128, False)
+    assert not ak.residual_backward(torch.float32, 64, True)
+    assert not ak.residual_backward(torch.float32, 12, False)
+    assert not ak.residual_backward(torch.float32, 136, False)
+    assert not ak.residual_backward(torch.float16, 64, False)

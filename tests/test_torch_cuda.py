@@ -151,6 +151,44 @@ def test_fused_backward_kernels_match_twins(card, shape, variant, padded, dtype)
             assert float((a.float() - b.float()).norm() / b.float().norm()) < 5e-3
 
 
+@pytest.mark.parametrize("seq", [520, 800])
+@pytest.mark.parametrize("variant", ["gated", "bias_free"])
+@pytest.mark.parametrize("padded", [False, True], ids=["nomask", "mask"])
+def test_fp32_fma_backward_on_narrow_rows_past_512(card, seq, variant, padded):
+    """fp32 K3 and K6 on narrow rows (a row stride of 3E + 1 floats): the
+    forward saves no LSE and the FMA body runs the backward, whose K3 adds
+    its dbias rows in device memory past T=512; against the twins."""
+    bsz = 2
+    store = torch.zeros(bsz, seq, 3 * H * D + 1, device="cuda", requires_grad=True)
+    values = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
+    with torch.no_grad():
+        store[..., 1:].copy_(values)
+    qkv = store[..., 1:]
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda").requires_grad_()
+    gate = (torch.rand(bsz, H, seq, generator=card, device="cuda") * 2 + 1).requires_grad_()
+    mask = None
+    if padded:
+        mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+        mask[1::2, seq // 2:] = True
+    dout = torch.randn(bsz, seq, H * D, generator=card, device="cuda")
+    ak.reset_launch_counts()
+    if variant == "bias_free":
+        out = ak.fused_qkv_attention(qkv, H, mask)
+        got = torch.autograd.grad(out, (qkv,), dout)
+        want = (ak.fused_qkv_backward_reference(values, H, mask, dout),)
+        key = "fused_qkv_attention_backward"
+    else:
+        out = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
+        got = torch.autograd.grad(out, (qkv, bias, gate), dout)
+        want = ak.fused_qkv_gated_backward_reference(values, H, bias.detach(), gate.detach(), mask, dout)
+        key = "fused_qkv_gated_attention_backward"
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES[key] == 1 and ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 1}
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
 def test_unsupported_inputs_raise(inputs):
     """What the kernels refuse: a head width below 1, a gate without a bias,
     a head dimension that is not contiguous, half precision. (A head width
@@ -311,7 +349,9 @@ def test_tensor_core_backward_matches_twins(card, seq, bsz, masking):
 
 def test_tensor_core_forward_writes_residuals_only_under_grad(card, monkeypatch):
     """Under grad the bf16 forward writes the LSE (held to the twin's) and
-    the output's rounding rest (below half a bf16 ulp of the output)."""
+    the output's rounding rest (below half a bf16 ulp of the output); the
+    fp32 forward the LSE alone, for the 3xTF32 backward (its output is not
+    rounded)."""
     bsz, seq = 2, 65
     qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").bfloat16().requires_grad_()
     mask = _tc_mask("mask", bsz, seq)
@@ -328,8 +368,10 @@ def test_tensor_core_forward_writes_residuals_only_under_grad(card, monkeypatch)
     with torch.no_grad():
         assert ak.fused_qkv_attention(qkv, H, mask).grad_fn is None
     ak.fused_qkv_attention(qkv.detach(), H, mask)  # grad mode on, nothing requires grad
-    ak.fused_qkv_attention(qkv.detach().float().requires_grad_(), H, mask)  # fp32: the FMA body
-    assert len(written) == 4 and written[1:] == [None, None, None]
+    fp32 = ak.fused_qkv_attention(qkv.detach().float().requires_grad_(), H, mask)  # fp32: the LSE alone
+    assert len(written) == 4 and written[1:3] == [None, None]
+    assert written[3][0] is not None and written[3][1] is None
+    torch.testing.assert_close(fp32.grad_fn.saved_tensors[-1], want, atol=1e-4, rtol=1e-5)
 
 
 def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
