@@ -19,20 +19,21 @@ and P cast to v's type before PV, and of its two backward kernels:
   launched at ``:511``): the bias-free cell in K2's layout; its backward
   replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
-Three CUDA sources carry them, chosen by type and width (a plan, not a
-fallback): every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6),
-launches the tensor-core kernels of ``csrc/tensor_core_attention.cu``, whose
-fused forwards also write the row log-sum-exp and the output's rounding
-rest when a backward will follow, so that the backward rebuilds P from the
-one and takes Δ from the forward's output and the other. fp32 forwards
-launch ``csrc/gated_attention.cu``'s FMA body, which writes the row
-log-sum-exp too when the fp32 backward will take it: K3 and K6 at a head
-width that is a multiple of 8 up to 128 on 16-byte rows
-(:func:`tf32x3_rows`) run on the tensor cores in 3xTF32
-(``csrc/tf32x3_attention.cu``), every other fp32 backward on the FMA body,
-which recomputes the row statistics. Each source is gated or bias-free by a
-template flag. Every kernel, gated or not, takes any head width D >= 1
-(:func:`width_plan`). Each source is built once for each width of
+Three CUDA sources carry them, chosen by type and width by one rule,
+:func:`kernel_body` (a plan, not a fallback): every bf16 call,
+forward (K1, K2, K4, K5) or backward (K3, K6), launches the tensor-core
+kernels of ``csrc/tensor_core_attention.cu``, whose fused forwards also
+write the row log-sum-exp and the output's rounding rest when a backward
+will follow, so that the backward rebuilds P from the one and takes Δ from
+the forward's output and the other. Every fp32 call at a head width that is
+a multiple of 8 up to 128 on 16-byte rows (:func:`tf32x3_rows`), forward or
+backward, runs on the tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``),
+the fused forwards writing the row log-sum-exp for the backward. Every
+other fp32 call (narrow rows, column chunks past 128) runs on
+``csrc/gated_attention.cu``'s FMA body, whose backward recomputes the row
+statistics and whose forward saves nothing. Each source is gated or
+bias-free by a template flag. Every kernel, gated or not, takes any head
+width D >= 1 (:func:`width_plan`). Each source is built once for each width of
 :data:`KERNEL_WIDTHS` (its ``-DAVEX_HEAD_DIM``). Up to
 :data:`CHUNK_COLUMNS` a call runs on the smallest build that holds D, the
 extra columns zero-filled on load and never stored; past it D is cut into
@@ -52,8 +53,8 @@ that its path went through the kernel. The backward twins
 tests and ``chip_smoke.py`` hold the kernels against them.
 :func:`fused_qkv_backward_from_residuals_reference` is the twin of the
 tensor-core K3's and K6's own contract (P from the saved log-sum-exp, Δ from
-the saved output). :data:`BACKWARD_BODIES` counts which body ran each
-backward.
+the saved output). :data:`FORWARD_BODIES` and :data:`BACKWARD_BODIES`
+count which body ran each forward and each backward.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ from avex_tpu_torch.ops._build import load_library
 __all__ = [
     "BACKWARD_BODIES",
     "CHUNK_COLUMNS",
+    "FORWARD_BODIES",
     "LAUNCHES",
     "KERNEL_WIDTHS",
     "WidthPlan",
@@ -83,10 +85,9 @@ __all__ = [
     "fused_qkv_reference",
     "gated_bias_attention",
     "gated_bias_attention_reference",
+    "kernel_body",
     "kernel_width",
     "reset_launch_counts",
-    "residual_backward",
-    "tensor_core_forward",
     "tf32x3_rows",
     "width_plan",
 ]
@@ -94,7 +95,7 @@ __all__ = [
 SOURCE = "gated_attention.cu"
 #: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
-#: the fp32 backward (K3, K6) on the tensor cores in 3xTF32, at the widths
+#: fp32 attention (K1-K6) on the tensor cores in 3xTF32, at the widths
 #: :func:`tf32x3_rows` takes
 TF32X3_SOURCE = "tf32x3_attention.cu"
 #: The widths each CUDA source is built for, one library a width; a head
@@ -119,10 +120,12 @@ LAUNCHES: Dict[str, int] = {
     "fused_qkv_gated_attention_backward": 0,
     "fused_qkv_attention_backward": 0,
 }
-#: backward calls (K3 and K6 together) since the last
+#: forward calls (K1, K2, K4 and K5 together) since the last
 #: :func:`reset_launch_counts`, by the body that ran them: ``"bf16"`` (the
 #: tensor cores), ``"tf32x3"`` (fp32 on the tensor cores in 3xTF32),
 #: ``"fma"`` (fp32 on the FMA body)
+FORWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
+#: backward calls (K3 and K6 together), by body, as :data:`FORWARD_BODIES`
 BACKWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
 #: dQ blocks the FMA body's fp32 K3 aims to put in flight: three per SM of an
 #: H100's 132
@@ -189,19 +192,21 @@ _COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    """Set every launch count in :data:`LAUNCHES` to 0."""
+    """Set every launch count in :data:`LAUNCHES`, :data:`FORWARD_BODIES` and
+    :data:`BACKWARD_BODIES` to 0."""
     with _COUNT_LOCK:
-        for counts in (LAUNCHES, BACKWARD_BODIES):
+        for counts in (LAUNCHES, FORWARD_BODIES, BACKWARD_BODIES):
             for name in counts:
                 counts[name] = 0
 
 
-def _count(name: str, body: Optional[str] = None) -> None:
+def _count(bodies: Dict[str, int], name: str, body: str) -> None:
+    """One launch of kernel ``name`` on ``body``, counted in :data:`LAUNCHES`
+    and in ``bodies`` (:data:`FORWARD_BODIES` or :data:`BACKWARD_BODIES`)."""
     # Served models launch from one batcher thread each: += is not atomic.
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
-        if body is not None:
-            BACKWARD_BODIES[body] += 1
+        bodies[body] += 1
 
 
 def kernel_width(head_dim: int) -> int:
@@ -217,8 +222,8 @@ def _library(head_dim: int) -> ctypes.CDLL:
     if lib.avex_gated_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
-        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, p, *tail]
-        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, p, *tail]
+        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, *tail]
+        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, *tail]
         lib.avex_gated_attention_forward.restype = i
         lib.avex_plain_attention_forward.restype = i
         lib.avex_attention_backward.argtypes = [
@@ -245,10 +250,13 @@ def _tensor_core_library(head_dim: int) -> ctypes.CDLL:
 
 
 def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
-    """The 3xTF32 backward's build that runs ``head_dim``."""
+    """The 3xTF32 build that runs ``head_dim``."""
     lib = load_library(TF32X3_SOURCE, kernel_width(head_dim))
     if lib.avex_tf32x3_attention_backward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.avex_tf32x3_attention_forward.argtypes = [p] * 8 + [i] * 4 + [
+            ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+        lib.avex_tf32x3_attention_forward.restype = i
         lib.avex_tf32x3_attention_backward.argtypes = [p] * 16 + [i] * 5 + [
             ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
         lib.avex_tf32x3_attention_backward.restype = i
@@ -257,28 +265,25 @@ def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
     return lib
 
 
-def tensor_core_forward(dtype: torch.dtype) -> bool:
-    """True when the forward kernels (K1, K2, K4, K5) of this type run on
-    the tensor cores (``csrc/tensor_core_attention.cu``): bf16. fp32
-    forwards run on the FMA body. Which backward runs is
-    :func:`residual_backward`'s."""
-    return dtype == torch.bfloat16
-
-
-def residual_backward(dtype: torch.dtype, head_dim: int, narrow: bool) -> bool:
-    """True when the backward (K3, K6) of a fused call runs on the tensor
-    cores from the forward's residuals (its output and row log-sum-exp),
-    which the forward then saves: every bf16 call, and the fp32 calls of
-    :func:`tf32x3_rows` in 3xTF32. Every other fp32 backward (narrow rows,
-    column chunks past 128) runs on the FMA body, which recomputes the row
-    statistics, and its forward saves nothing."""
-    return dtype == torch.bfloat16 or (dtype == torch.float32 and tf32x3_rows(head_dim, narrow))
+def kernel_body(dtype: torch.dtype, head_dim: int, narrow: bool) -> str:
+    """The one rule for which body runs a call, forward (K1, K2, K4, K5) and
+    backward (K3, K6) alike, by the name :data:`FORWARD_BODIES` and
+    :data:`BACKWARD_BODIES` count it under. ``"bf16"``: every bf16 call, on
+    the tensor cores (``csrc/tensor_core_attention.cu``); ``"tf32x3"``: the
+    fp32 calls of :func:`tf32x3_rows`, on the tensor cores in 3xTF32
+    (``csrc/tf32x3_attention.cu``). On both the backward runs from the
+    residuals the fused forward saves (its output and row log-sum-exp).
+    ``"fma"``: the other fp32 calls (narrow rows, column chunks past 128),
+    on the FMA body, whose backward recomputes the row statistics and whose
+    forward saves nothing."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "tf32x3" if dtype == torch.float32 and tf32x3_rows(head_dim, narrow) else "fma"
 
 
 def tf32x3_rows(head_dim: int, narrow: bool) -> bool:
-    """True when the fp32 backward (K3, K6) of this head width runs on the
-    tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``), from the row
-    log-sum-exp its forward saves: D a multiple of 8 up to
+    """True when the fp32 calls (K1-K6) of this head width run on the tensor
+    cores in 3xTF32 (``csrc/tf32x3_attention.cu``): D a multiple of 8 up to
     :data:`CHUNK_COLUMNS`, on 16-byte rows (not ``narrow``, :func:`_narrow`).
     Narrow rows and the column chunks past 128 run on the FMA body."""
     return head_dim % 8 == 0 and width_plan(head_dim).chunks == 1 and not narrow
@@ -547,6 +552,35 @@ def _columns(dim: int, narrow: bool) -> tuple:
     return dim, width_plan(dim).chunk_width, int(narrow)
 
 
+def _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow) -> None:
+    """Launch the FMA body's fp32 forward on ``[B, H, T, D]`` views (K1/K2
+    with ``pos_bias``, K4/K5 without) on the current stream; ``out`` is
+    written in place. The one place its C arguments are laid out: callers
+    check the operands (:func:`_check_operands`) and count the launch."""
+    bsz, heads, seq, dim = q.shape
+    views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
+    tail = (bsz, heads, seq, *_columns(dim, narrow), float(scale))
+    lib = _library(dim)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if pos_bias is not None:
+            gate_strides = gate.stride() if gate is not None else (0, 0, 0)
+            strides = (ctypes.c_longlong * 20)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
+            err = lib.avex_gated_attention_forward(
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate),
+                _ptr(key_padding_mask), out.data_ptr(), *tail, strides, stream,
+            )
+        else:
+            strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
+            err = lib.avex_plain_attention_forward(
+                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                out.data_ptr(), *tail, strides, stream,
+            )
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+
+
 def _launch(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -557,57 +591,60 @@ def _launch(
     out: torch.Tensor,
     scale: float,
     residuals: Optional[tuple] = None,
-) -> None:
+) -> str:
     """Launch the forward kernel on ``[B, H, T, D]`` views; ``out`` is written
     in place. With ``pos_bias`` the gated variant runs, without it the
-    bias-free one (which takes no gate either): on the tensor cores in bf16,
-    on the FMA body in fp32. ``residuals`` = ``(lse, out_rest)`` may receive
-    the backward's residuals: the row log-sum-exp (float32 ``[B, H, T]``
-    contiguous) and, in bf16, what rounding the output dropped (bf16 with
-    ``out``'s strides; None in fp32, whose output is not rounded)."""
+    bias-free one (which takes no gate either), on the body
+    :func:`kernel_body` gives; returns that body's name (``"bf16"``,
+    ``"tf32x3"`` or ``"fma"``). ``residuals`` = ``(lse, out_rest)`` may
+    receive the backward's residuals on the tensor cores: the row
+    log-sum-exp (float32 ``[B, H, T]`` contiguous) and, in bf16, what
+    rounding the output dropped (bf16 with ``out``'s strides; None in fp32,
+    whose output is not rounded)."""
     narrow = _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
     gated = pos_bias is not None
-    on_tensor_cores = tensor_core_forward(q.dtype)
+    bf16 = q.dtype == torch.bfloat16
+    body = kernel_body(q.dtype, dim, narrow)
     lse, out_rest = residuals if residuals is not None else (None, None)
     if residuals is not None and not (
-        lse.shape == (bsz, heads, seq) and lse.dtype == torch.float32 and lse.is_contiguous()
-        and (out_rest is None if not on_tensor_cores
-             else out_rest.dtype == out.dtype and out_rest.stride() == out.stride())
+        body != "fma" and lse.shape == (bsz, heads, seq) and lse.dtype == torch.float32 and lse.is_contiguous()
+        and (out_rest.dtype == out.dtype and out_rest.stride() == out.stride() if bf16 else out_rest is None)
     ):
-        raise ValueError("the backward's residuals: lse float32 [B, H, T] contiguous, and out_rest in out's "
-                         "type and layout in bf16 (None in fp32)")
+        raise ValueError("the backward's residuals: on the tensor cores only, lse float32 [B, H, T] contiguous, "
+                         "and out_rest in out's type and layout in bf16 (None in fp32)")
+    if body == "fma":
+        _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow)
+        return body
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = _ptr(key_padding_mask)
     views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    bias_strides = pos_bias.stride() if gated else (0, 0, 0)
+    gate_strides = gate.stride() if gate is not None else (0, 0, 0)
     tail = (bsz, heads, seq, *_columns(dim, narrow), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if gated:
-            gate_strides = gate.stride() if gate is not None else (0, 0, 0)
-            strides = (ctypes.c_longlong * 20)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
-            operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate), pad_ptr,
-                        out.data_ptr())
-            if on_tensor_cores:
-                err = _tensor_core_library(dim).avex_tensor_core_gated_attention_forward(
-                    *operands, _ptr(out_rest), _ptr(lse), *tail, strides, stream)
-            else:
-                err = _library(dim).avex_gated_attention_forward(_DTYPE_CODES[q.dtype], *operands, _ptr(lse),
-                                                                 *tail, strides, stream)
+        if body == "tf32x3":
+            strides = (ctypes.c_longlong * 20)(*views, *pad_strides, *bias_strides, *gate_strides)
+            err = _tf32x3_library(dim).avex_tf32x3_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pos_bias), _ptr(gate), pad_ptr, out.data_ptr(),
+                _ptr(lse), bsz, heads, seq, dim, float(scale), strides, stream,
+            )
+        elif gated:
+            strides = (ctypes.c_longlong * 20)(*views, *bias_strides, *gate_strides, *pad_strides)
+            err = _tensor_core_library(dim).avex_tensor_core_gated_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate), pad_ptr, out.data_ptr(),
+                _ptr(out_rest), _ptr(lse), *tail, strides, stream,
+            )
         else:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
-            if on_tensor_cores:
-                err = _tensor_core_library(dim).avex_bias_free_attention_forward(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
-                    *tail, strides, stream,
-                )
-            else:
-                err = _library(dim).avex_plain_attention_forward(
-                    _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
-                    _ptr(lse), *tail, strides, stream,
-                )
+            err = _tensor_core_library(dim).avex_bias_free_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
+                *tail, strides, stream,
+            )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+    return body
 
 
 def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Tensor:
@@ -615,8 +652,8 @@ def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Ten
     # Written as [B, T, H, D] and returned as a [B, H, T, D] view: the caller's
     # head merge back to [B, T, E] is then free.
     out = torch.empty(bsz, seq, heads, dim, dtype=v.dtype, device=v.device).permute(0, 2, 1, 3)
-    _launch(q, k, v, pos_bias, gate, key_padding_mask, out, scale)
-    _count("gated_bias_attention" if pos_bias is not None else "plain_attention")
+    body = _launch(q, k, v, pos_bias, gate, key_padding_mask, out, scale)
+    _count(FORWARD_BODIES, "gated_bias_attention" if pos_bias is not None else "plain_attention", body)
     return out
 
 
@@ -624,7 +661,8 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_resi
     """Launch K2 (with ``pos_bias``) or K5; returns ``(out, residuals)``.
     ``residuals`` is ``(lse, out_rest)`` (see :func:`_launch`; ``out_rest``
     None in fp32) when ``with_residuals`` asks for them and
-    :func:`residual_backward` takes the call, else None."""
+    the call runs on the tensor cores (:func:`kernel_body` not ``"fma"``),
+    else None."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     q, k, v = _split_heads(qkv, heads)
@@ -634,22 +672,22 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_resi
         return t.view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
 
     residuals = rest = None
-    if with_residuals and residual_backward(qkv.dtype, dim // heads,
-                                            any(_narrow(n, t) for n, t in (("q", q), ("k", k), ("v", v)))):
+    if with_residuals and kernel_body(qkv.dtype, dim // heads,
+                                      any(_narrow(n, t) for n, t in (("q", q), ("k", k), ("v", v)))) != "fma":
         bf16 = qkv.dtype == torch.bfloat16
         residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device),
                      torch.empty_like(out) if bf16 else None)
         rest = heads_first(residuals[1]) if bf16 else None
-    _launch(q, k, v, pos_bias, gate, key_padding_mask, heads_first(out), scale,
-            None if residuals is None else (residuals[0], rest))
-    _count("fused_qkv_gated_attention" if pos_bias is not None else "fused_qkv_attention")
+    body = _launch(q, k, v, pos_bias, gate, key_padding_mask, heads_first(out), scale,
+                   None if residuals is None else (residuals[0], rest))
+    _count(FORWARD_BODIES, "fused_qkv_gated_attention" if pos_bias is not None else "fused_qkv_attention", body)
     return out, residuals
 
 
 def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
     """Launch the fp32 K3 (with ``pos_bias``) or K6 on the FMA body, which
-    recomputes the row statistics (the fp32 calls :func:`residual_backward`
-    does not take; the others also run here when their forward saved no
+    recomputes the row statistics (the fp32 calls :func:`kernel_body` gives
+    ``"fma"``; the others also run here when their forward saved no
     residuals); returns ``(dqkv, dbias, dgate)``. bf16 raises: its backward
     runs from the forward's residuals only.
 
@@ -701,7 +739,8 @@ def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, s
         )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward", "fma")
+    _count(BACKWARD_BODIES, "fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward",
+           "fma")
     return dqkv, dbias, dgate
 
 
@@ -710,8 +749,8 @@ def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out,
     forward's residuals: its output ``out``, row log-sum-exp ``lse`` and, in
     bf16, ``out_rest`` (what rounding the output dropped; None in fp32).
     bf16 runs ``csrc/tensor_core_attention.cu``, fp32 the 3xTF32 kernels of
-    ``csrc/tf32x3_attention.cu``; a call :func:`residual_backward` does not
-    take raises. Returns ``(dqkv, dbias, dgate)``, dqkv written
+    ``csrc/tf32x3_attention.cu``; a call :func:`kernel_body` gives ``"fma"``
+    raises. Returns ``(dqkv, dbias, dgate)``, dqkv written
     straight into the column views of one ``[B, T, 3E]`` gradient."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
@@ -733,7 +772,8 @@ def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out,
     elif out_rest is not None:
         raise ValueError("the fp32 backward takes no out_rest: the fp32 output is not rounded")
     narrow = _check_operands(q, k, v, views, pos_bias, gate, key_padding_mask)
-    if not residual_backward(qkv.dtype, dim // heads, narrow):
+    body = kernel_body(qkv.dtype, dim // heads, narrow)
+    if body == "fma":
         raise ValueError(f"the 3xTF32 backward takes a head width that is a multiple of 8 up to {CHUNK_COLUMNS} "
                          f"on 16-byte rows; got {dim // heads}{' on narrow rows' if narrow else ''}")
     if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -786,8 +826,8 @@ def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out,
             )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    _count("fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward",
-           "bf16" if bf16 else "tf32x3")
+    _count(BACKWARD_BODIES, "fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward",
+           body)
     return dqkv, dbias, dgate
 
 
@@ -796,8 +836,8 @@ class _FusedQKVAttention(torch.autograd.Function):
 
     The residuals are the forward's inputs, as JAX keeps them
     (``pallas_attention.py:648-650``, ``:940-944``), and, where
-    :func:`residual_backward` takes the call (bf16, and fp32 at the rows of
-    :func:`tf32x3_rows`), the forward's output and the row log-sum-exp as
+    the call runs on the tensor cores (:func:`kernel_body`: bf16, and
+    fp32 at the rows of :func:`tf32x3_rows`), the forward's output and the row log-sum-exp as
     well (in bf16 also what the output's rounding dropped): P is rebuilt
     from the log-sum-exp and Δ taken from the output, with no pass for the
     row statistics. The output is the tensor the caller's output projection
@@ -949,8 +989,9 @@ def fused_qkv_attention(
     is ``[B, T]`` bool, True = padded key. Differentiable in ``qkv``: on
     CUDA the backward is the K6 kernel, on the CPU autograd through the plain
     twin. bf16 CUDA tensors run on the tensor-core kernels
-    (``csrc/tensor_core_attention.cu``); fp32 ones run the FMA body forward
-    and, at the rows of :func:`tf32x3_rows`, the 3xTF32 tensor-core backward.
+    (``csrc/tensor_core_attention.cu``); fp32 ones at the rows of
+    :func:`tf32x3_rows` on the tensor cores in 3xTF32, forward and backward,
+    and on the FMA body otherwise.
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)

@@ -13,15 +13,15 @@
 // pointer plus (batch, head, token) strides, with the head dimension
 // contiguous. The backward of the fused layouts (K3 and K6) follows the
 // forward, below, with its own design note. Everything here serves fp32
-// only: every bf16 forward (K1, K2, K4, K5) and both bf16 backwards (K3, K6)
-// run on the tensor cores in tensor_core_attention.cu. The fp32 forwards run
-// here, on the FMA units, and write the row log-sum-exp when a backward
-// follows. The fp32 K3 and K6 on 16-byte rows of a head width that is a
-// multiple of 8 up to 128 run on the tensor cores too, in 3xTF32
-// (tf32x3_attention.cu): each fp32 operand split into two TF32 halves,
-// three TF32 products, keeps fp32's accuracy, which one TF32 pass would
-// not. The backward below serves the other fp32 rows (narrow rows, column
-// chunks past 128).
+// only, and only the fp32 calls the tensor cores do not take: narrow rows
+// (below) and column chunks past 128. Every bf16 forward (K1, K2, K4, K5)
+// and backward (K3, K6) runs on the tensor cores in tensor_core_attention.cu,
+// and every other fp32 forward and backward (a head width that is a
+// multiple of 8 up to 128, on 16-byte rows) on them in 3xTF32
+// (tf32x3_attention.cu): each fp32 operand split into two TF32 halves, three
+// TF32 products, keeps fp32's accuracy, which one TF32 pass would not. So
+// the forward here writes no row log-sum-exp: the backward of these rows,
+// below, recomputes the row statistics.
 //
 // Head widths: both variants take any D >= 1. The width kD is a template
 // parameter; each build of this source instantiates one, chosen with
@@ -51,13 +51,13 @@
 // shared memory, hence the key tiling. A ragged last tile of queries or keys
 // (T = 513: 8 full tiles and 1 row) is masked, not padded.
 //
-// Bound on an H100 at the BEATs shape (B=128, H=12, T=248, D=64, fp32,
-// gated): 24.2 GFLOP take about 361 us at the 67 TFLOP/s fp32 rate, against
-// 4 x 97.5 MB of q, k, v and out plus the bias and gate, about 118 us at
-// 3.35 TB/s: bound by operations. The products run on the fp32 FMA units
-// (3xTF32 on the tensor cores, as the fp32 backward takes it, would put the
-// bound at 165 TFLOP/s: not done for the forward yet), so this kernel is
-// held back by its FMA instruction rate.
+// Bound on an H100, e.g. at dh 136 on two column chunks (B=128, H=6,
+// T=248, gated): 4·B·H·T²·D = 25.7 GFLOP take about 384 us at the 67 TFLOP/s
+// fp32 rate, against 4 x 103.6 MB of q, k, v and out plus the bias and gate,
+// about 124 us at 3.35 TB/s: bound by operations. The products run on the
+// fp32 FMA units, so this kernel is held back by its FMA instruction rate;
+// the rows it serves are the ones the tensor-core kernels' 16-byte fragment
+// loads and single-chunk tiles do not take.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -239,8 +239,8 @@ template <typename T, bool kGated, int kD>
 __global__ void AVEX_LAUNCH_BOUNDS(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const float* __restrict__ gate,
-                 const uint8_t* __restrict__ pad, T* __restrict__ out, float* __restrict__ lse, int heads,
-                 int seq, float scale, Strides s, Cols cl) {
+                 const uint8_t* __restrict__ pad, T* __restrict__ out, int seq, float scale, Strides s,
+                 Cols cl) {
   constexpr int kC = kD / 8;  // output columns a thread
   const int n = cl.chunks, own = blockIdx.y % n;  // column chunks, this block's
   const int own_cols = chunk_cols(cl, own);
@@ -364,9 +364,6 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     if (!row_ok[i]) continue;
     const int qi = q0 + ty * 4 + i;
-    // The row log-sum-exp for the backward (chunk 0's blocks): −inf where
-    // every key is padded.
-    if (lse && own == 0 && tx == 0) lse[((long long)b * heads + h) * seq + qi] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];  // a fully padded row gives 0/0 = NaN, as the softmax does
     float y[kC];
 #pragma unroll
@@ -377,8 +374,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, bool kGated, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* gate,
-                   const void* pad, void* out, void* lse, int batch, int heads, int seq, float scale,
-                   const Strides& s, const Cols& cl, cudaStream_t stream) {
+                   const void* pad, void* out, int batch, int heads, int seq, float scale, const Strides& s,
+                   const Cols& cl, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, kGated, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -387,7 +384,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   attention_kernel<T, kGated, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(gate),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(out), static_cast<float*>(lse), heads, seq, scale, s, cl);
+      static_cast<const uint8_t*>(pad), static_cast<T*>(out), seq, scale, s, cl);
   return cudaGetLastError();
 }
 
@@ -423,14 +420,13 @@ Cols plan_cols(int head_dim, int chunk_width, int narrow, int heads) {
 
 template <bool kGated>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
-             const void* gate, const void* pad, void* out, void* lse, int batch, int heads, int seq,
+             const void* gate, const void* pad, void* out, int batch, int heads, int seq,
              int head_dim, int chunk_width, int narrow, float scale, const Strides& s, void* stream) {
   const Cols cl = plan_cols(head_dim, chunk_width, narrow, heads);
   if (cl.chunks == 0 || bad_shape(batch, heads, seq)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: tensor_core_attention.cu
-  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, lse, batch, heads, seq, scale, s, cl,
-                                              st);
+  return (int)launch<float, kGated, kHeadDim>(q, k, v, bias, gate, pad, out, batch, heads, seq, scale, s, cl, st);
 }
 
 }  // namespace
@@ -445,26 +441,24 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
 //
 // dtype: must be 0 = float32 (q, k, v and out share it); bias and gate
 // are float32, pad is one byte per key (nonzero = padded); gate and pad may be
-// null. lse, when not null, receives the float32 row log-sum-exp of the
-// scaled, padded logits, contiguous [B, H, T], for the backward of
-// tf32x3_attention.cu. strides: 20 element strides in the order of struct
-// Strides. Returns a cudaError_t; 0 means the kernel was launched.
+// null. strides: 20 element strides in the order of struct Strides. Returns a
+// cudaError_t; 0 means the kernel was launched.
 extern "C" int avex_gated_attention_forward(int dtype, const void* q, const void* k, const void* v,
                                             const void* bias, const void* gate, const void* pad,
-                                            void* out, void* lse, int batch, int heads, int seq, int head_dim,
+                                            void* out, int batch, int heads, int seq, int head_dim,
                                             int chunk_width, int narrow, float scale, const long long* strides,
                                             void* stream) {
   Strides s;
   memcpy(&s, strides, sizeof(Strides));
-  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, lse, batch, heads, seq, head_dim, chunk_width,
+  return dispatch<true>(dtype, q, k, v, bias, gate, pad, out, batch, heads, seq, head_dim, chunk_width,
                         narrow, scale, s, stream);
 }
 
-// The bias-free variant. dtype, pad and lse as above; pad and lse may be
-// null. strides: 14 element strides, q, k, v and out (batch, head, token)
-// then pad (batch, token).
+// The bias-free variant. dtype and pad as above; pad may be null. strides:
+// 14 element strides, q, k, v and out (batch, head, token) then pad (batch,
+// token).
 extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void* k, const void* v,
-                                            const void* pad, void* out, void* lse, int batch, int heads,
+                                            const void* pad, void* out, int batch, int heads,
                                             int seq, int head_dim, int chunk_width, int narrow, float scale,
                                             const long long* strides, void* stream) {
   Strides s;
@@ -474,7 +468,7 @@ extern "C" int avex_plain_attention_forward(int dtype, const void* q, const void
   memcpy(s.v, strides + 6, 3 * sizeof(long long));
   memcpy(s.o, strides + 9, 3 * sizeof(long long));
   memcpy(s.pad, strides + 12, 2 * sizeof(long long));
-  return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, lse, batch, heads, seq, head_dim,
+  return dispatch<false>(dtype, q, k, v, nullptr, nullptr, pad, out, batch, heads, seq, head_dim,
                          chunk_width, narrow, scale, s, stream);
 }
 

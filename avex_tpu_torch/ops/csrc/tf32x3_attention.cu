@@ -1,18 +1,31 @@
-// The fp32 attention backward on Hopper's tensor cores (sm_90a) in 3xTF32,
-// plain C ABI:
+// fp32 attention on Hopper's tensor cores (sm_90a) in 3xTF32, forward and
+// backward, plain C ABI:
 //
-//   gated:     the backward of softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v
-//   bias-free: the backward of softmax(q·kᵀ·scale + pad) · v
+//   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v, and its backward
+//   bias-free: out = softmax(q·kᵀ·scale + pad) · v, and its backward
 //
 // Replaces, for fp32 operands whose head width D is a multiple of 8 up to
-// 128 on 16-byte rows, two Pallas TPU kernels of the JAX package:
+// 128 on 16-byte rows, six Pallas TPU kernels of the JAX package:
+//   - _attention_kernel            avex_tpu/ops/pallas_attention.py:126  (K1; launched at :272)
+//   - _fused_qkv_gated_kernel      avex_tpu/ops/pallas_attention.py:389  (K2; launched at :745)
+//   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4; launched at :261)
+//   - _fused_qkv_kernel            avex_tpu/ops/pallas_attention.py:344  (K5; launched at :511)
 //   - _fused_qkv_gated_bwd_kernel  avex_tpu/ops/pallas_attention.py:765  (K3; launched at :902)
 //   - _fused_qkv_bwd_kernel        avex_tpu/ops/pallas_attention.py:524  (K6; launched at :631)
-// Every other fp32 backward (narrow rows: D or a stride not a multiple of 8,
-// a base off 16 bytes; column chunks past 128) stays on gated_attention.cu's
-// FMA body. The bf16 backward is tensor_core_attention.cu's.
+// The split (K1, K4) and fused (K2, K5) layouts are only different strides
+// to the forward. Every other fp32 call (narrow rows: D or a stride not a
+// multiple of 8, a base off 16 bytes; column chunks past 128) stays on
+// gated_attention.cu's FMA body, forward and backward alike. bf16 is
+// tensor_core_attention.cu's.
 //
-// What it computes, as the FMA body and the JAX kernels do, in fp32: with
+// The forward, as the JAX kernels compute it in fp32: L = q·kᵀ·scale
+// (+ gate ⊙ bias), −inf at a padded key, out = softmax(L)·v (P is already
+// v's type), and, when the backward will follow, the row log-sum-exp
+// LSE = log Σ_k exp(L) into a float32 [B, H, T]. A row whose keys are all
+// padded gives NaN and LSE −inf, as the plain twin's softmax does. Any T:
+// ragged last tiles are masked, not padded.
+//
+// The backward, as the FMA body and the JAX kernels do, in fp32: with
 // L = q·kᵀ·scale (+ gate ⊙ bias) + pad and P = softmax(L),
 //   dV = Pᵀ·dO   dP = dO·Vᵀ   dL = P ∘ (dP − Δ)   dQ = (dL·scale)·K   dK = (dL·scale)ᵀ·Q
 //   dgate[b,h,t] = Σ_k bias·dL   dbias[h] = Σ_b gate ⊙ dL
@@ -45,6 +58,11 @@
 //
 // Bounds on an H100 SXM at the main paths' shapes (H=12, D=64, fp32), the
 // FLOPs over 495/3 = 165 TFLOP/s (three TF32 products a product):
+//   K5, EAT B=128, T=513: two products, 4·B·H·T²·D = 103.5 GFLOP, 0.627 ms,
+//     against q, k, v and out, 4 x 202 MB, 0.241 ms at 3.35 TB/s: bound by
+//     operations; K1/K2 at BEATs' B=128, T=248: 24.2 GFLOP, 0.147 ms,
+//     against 4 x 97.5 MB plus bias and gate, 0.118 ms: bound by
+//     operations; K5 at D=80 (Bird-MAE huge, H=16): 1.045 ms;
 //   K6, EAT B=64, T=513: five products, 10·B·H·T²·D = 129.4 GFLOP, 0.784 ms,
 //     against 7 x 100.9 MB = 706 MB, 0.211 ms at 3.35 TB/s: bound by
 //     operations;
@@ -56,10 +74,11 @@
 // (its dbias kernel forms them again), so it can reach at best 5/7 of the
 // bound; mma.sync reaches about two thirds of the tensor cores' rate.
 //
-// Design (the bf16 backward's dq_kernel / dkv_kernel / dbias_kernel /
-// sum_chunks_kernel structure on fp32 tiles). Every block has 4 warps and
-// owns 64 rows (queries, or keys in dK/dV), 16 a warp, and streams the
-// other operand's tiles of 32 rows through a cp.async double buffer. Tiles
+// Design (the bf16 kernels' structure on fp32 tiles: a forward, then the
+// backward's dq_kernel / dkv_kernel / dbias_kernel / sum_chunks_kernel).
+// Every block has 4 warps and owns 64 rows (queries, or keys in dK/dV), 16
+// a warp, and streams the other operand's tiles of 32 rows through a
+// cp.async double buffer. Tiles
 // are fp32 in shared memory at a row stride of D + 4 floats (4 times an
 // odd number): the A and B fragments of m16n8k8 read (row g, column t) and
 // (row 2t, column g) patterns, both free of bank conflicts at that stride,
@@ -69,12 +88,28 @@
 // blocks) and their B fragments as they go, so a thread holds its
 // accumulators and little else: at D=64 the dQ and dK/dV kernels take 70 KB
 // of shared memory and run three blocks an SM, at D=80 and 96 two (86 and
-// 102 KB), at 128 one (135 KB). S (or dP) leaves the accumulator as the A
-// operand of the next product without a trip through shared memory: the
+// 102 KB), at 128 one (135 KB); the forward holds Q and the streamed K and
+// V tiles, 52 KB at 64 (three blocks an SM), 102 KB at 128 (two). S (or dP)
+// leaves the accumulator as the A operand of the next product without a
+// trip through shared memory: the
 // m16n8k8 accumulator holds columns 2t and 2t+1 of a row where the A
 // fragment wants t and t+4, so the contraction runs permuted inside each
 // block of 8 (P's column 2t at k = t, 2t+1 at k = t+4, and the B rows with
 // them), which leaves the sum unchanged.
+//   - forward (one block per query tile, head, item): per key tile S = QKᵀ,
+//     formed as the dQ kernel forms it (the same split, tiles and k-order,
+//     so the same sums bit for bit), the logits L·log2e with the gate and
+//     bias added in registers (the bias read as scalars from L2), an online
+//     softmax in log2 units (a running row max, the row sum and O rescaled
+//     by exp2 of its move; exp2 of −inf gives 0, and a shift of 0 while the
+//     max is −inf keeps a fully padded row from NaN until its last
+//     division), then O += P·V with P straight from the accumulator. At the
+//     end O / Σ through the caller's strides and, when asked,
+//     LSE = (max + log2 Σ)·ln 2. The backward then rebuilds P from the LSE
+//     of the very logits it recomputes. Q is split into its TF32 halves at
+//     each key tile, as the dQ kernel does: kept split in registers (at
+//     D ≤ 64, 64 more a thread) the kernels spilled at three blocks an SM
+//     and ran slower at two.
 //   - dQ (one block per query tile, head, item): Δ from O and dO first,
 //     then per key tile S = QKᵀ, dP = dO·Vᵀ, P = exp2(L·log2e − LSE·log2e),
 //     dS, dQ += dS·K, the row sums Σ P and Σ P·dP and the keys' column
@@ -107,6 +142,7 @@ constexpr int kOwn = 16 * kWarps;  // rows a block owns
 constexpr int kN = 32;           // rows of a streamed tile
 constexpr int kNB = kN / 8;        // its blocks of 8 rows
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared tiles of kD-wide fp32 rows (kD a multiple of 8 up to 128) at a row
 // stride of kD + 4 floats, and each kernel's shared bytes.
@@ -117,6 +153,7 @@ struct Tile {
   static constexpr int kChunks = kD / 4;  // 16-byte chunks of a row
   static constexpr int kOwnTile = kOwn * kLd;
   static constexpr int kTile = kN * kLd;
+  static constexpr size_t kFwdSmem = sizeof(float) * (kOwnTile + 4 * kTile + 2 * kN);
   static constexpr size_t kDqSmem = sizeof(float) * (2 * kOwnTile + 4 * kTile + 2 * kN + kOwn + kD);
   static constexpr size_t kDkvSmem = sizeof(float) * (2 * kOwnTile + 4 * kTile + 6 * kN);
   static constexpr size_t kDbiasSmem = sizeof(float) * (2 * (2 * kOwnTile + 2 * kTile) + 2 * kN + 6 * kOwn);
@@ -129,6 +166,19 @@ template <int kD>
 constexpr int kMinBlocks = kD <= 64 ? 3 : (kD <= 96 ? 2 : 1);
 template <int kD>
 constexpr int kDbiasMinBlocks = kD <= 64 ? 2 : 1;
+// The forward's blocks an SM: what its shared memory (Q, and the
+// double-buffered K and V tiles: 52 KB at 64, 65 KB at 80, 102 KB at 128)
+// allows, and at 80 what its registers allow without spilling (at three
+// blocks, 168 registers, the gated kernel spilled).
+template <int kD>
+constexpr int kFwdMinBlocks = kD <= 32 ? 4 : (kD <= 64 ? 3 : 2);
+
+// Element strides (batch, head, token) of the forward's q, k, v and out, then
+// pad (batch, token).
+struct FwdStrides {
+  long long q[3], k[3], v[3], o[3];
+  long long pad[2];
+};
 
 // Element strides (batch, head, token) of q, k, v, out, dout, dq, dk and dv,
 // then pad (batch, token).
@@ -398,6 +448,132 @@ __device__ __forceinline__ void fetch_bias(float bf[][4], const Gated& gd, int h
 #pragma unroll
       for (int e = 0; e < 2; ++e) bf[j][2 * i + e] = __ldg(row + min(k0 + 8 * j + 2 * t + e, seq - 1) * gd.bs[2]);
   }
+}
+
+// The forward: one block per (query tile of 64, head, item) walks the key
+// tiles with an online softmax in log2 units and writes O (and the row
+// log-sum-exp when lse is not null).
+template <int kD, bool kGated>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks<kD>)
+tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const uint8_t* __restrict__ pad, float* __restrict__ out, float* __restrict__ lse, int heads,
+                      int seq, int dim, float scale, FwdStrides s, Gated gd) {
+  using TL = Tile<kD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [64][kLd]: Q, then O
+  float* k_s = q_s + TL::kOwnTile;              // [2][kN][kLd]
+  float* v_s = k_s + 2 * TL::kTile;             // [2][kN][kLd]
+  float* kbias_s = v_s + 2 * TL::kTile;         // [2][kN]
+
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  const bool active = q0 + row0 < seq;  // warp-uniform: the warp has a query below seq
+  const float* kb = k + b * s.k[0] + h * s.k[1];
+  const float* vb = v + b * s.v[0] + h * s.v[1];
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const int n_tiles = (seq + kN - 1) / kN;
+  const int dc = dim >> 2;
+  const float c = scale * kLog2e;
+
+  load_tile<kD, kOwn>(q_s, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dc);
+  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dc);
+  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dc);
+  load_key_bias(kbias_s, pad_b, s.pad[1], 0, seq);
+  cp_async_commit();
+
+  // This lane's rows g and g+8: the running max of the logits in log2 units
+  // (−inf while every key so far is padded), its part of the row sum, and
+  // for the gated variant gate·log2e.
+  float mx[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f}, gl[2] = {0.f, 0.f};
+  if (kGated) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) gl[i] = gate_at(gd, b, h, min(q0 + row0 + g + 8 * i, seq - 1)) * kLog2e;
+  }
+  float acc[kD / 8][4];
+  zero<kD>(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = buf ^ 1, k0n = (it + 1) * kN;
+      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dc);
+      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dc);
+      load_key_bias(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int live = live_blocks(it * kN, seq);
+      const float* kbias = kbias_s + buf * kN;
+      float bf[kNB][4];  // the gated variant's bias, issued before the product
+      if (kGated) fetch_bias(bf, gd, h, q0 + row0, it * kN, seq);
+      float sc[kNB][4];
+      zero<kN>(sc);
+      mma_abt_live<kD>(sc, q_s, row0, k_s + buf * TL::kTile, live);  // S = Q·Kᵀ
+      // The logits in log2 units, as the dQ kernel forms them; the row max.
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float kbv = kbias[8 * j + 2 * t + (e & 1)];
+          sc[j][e] = kGated ? fmaf(sc[j][e], c, bf[j][e] * gl[i] + kbv) : fmaf(sc[j][e], c, kbv);
+          tmax[i] = fmaxf(tmax[i], sc[j][e]);
+        }
+      float shift[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+        const float m_new = fmaxf(mx[i], tmax[i]);
+        // While every key so far is padded, m stays −inf: shift by 0, so that
+        // exp2 sees −inf − 0 and gives 0 rather than NaN.
+        shift[i] = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2_approx(mx[i] - shift[i]);
+        mx[i] = m_new;
+        lsum[i] *= corr;
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          acc[j][2 * i] *= corr;
+          acc[j][2 * i + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2_approx(sc[j][e] - shift[e >> 1]);  // P, unnormalised
+          lsum[e >> 1] += sc[j][e];
+        }
+      mma_ab_live<kD>(acc, sc, v_s + buf * TL::kTile, live);  // O += P·V
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    const long long stat0 = ((long long)b * heads + h) * seq;
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float sum = quad_sum(lsum[i]);
+      const int qi = q0 + row0 + g + 8 * i;
+      // A row whose keys are all padded: sum 0, O = 0 · (1/0) = NaN as the
+      // twin's softmax gives, and LSE −inf.
+      inv[i] = 1.f / sum;
+      if (lse && t == 0 && qi < seq) lse[stat0 + qi] = (mx[i] + log2f(sum)) * kLn2;
+    }
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= inv[e >> 1];
+    stage<kD>(q_s, row0, acc);  // the warp's own rows of Q's tile, which it alone read
+  }
+  __syncthreads();
+  store_tile<kD, kOwn>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dc, q_s);
 }
 
 // The dQ kernel: one block per (query tile of 64, head, item).
@@ -829,6 +1005,20 @@ static_assert(kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 80 || kHeadDim == 
               "AVEX_HEAD_DIM: 32, 64, 80, 96 or 128");
 
 template <bool kGated>
+cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* lse,
+                           int batch, int heads, int seq, int dim, float scale, const FwdStrides& s, const Gated& gd,
+                           cudaStream_t st) {
+  using TL = Tile<kHeadDim>;
+  cudaError_t err = allow_smem(tf32x3_forward_kernel<kHeadDim, kGated>, TL::kFwdSmem);
+  if (err != cudaSuccess) return err;
+  tf32x3_forward_kernel<kHeadDim, kGated><<<dim3((seq + kOwn - 1) / kOwn, heads, batch), kThreads, TL::kFwdSmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<float*>(out), static_cast<float*>(lse), heads, seq, dim, scale, s,
+      gd);
+  return cudaGetLastError();
+}
+
+template <bool kGated>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* out, const void* dout,
                             const void* pad, const void* lse, void* dq, void* dk, void* dv, void* delta,
                             void* dbias, void* dgate, void* part, int items, int batch, int heads, int seq, int dim,
@@ -873,6 +1063,38 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
 }
 
 }  // namespace
+
+// The fp32 forward, gated (K1, K2: bias not null) or bias-free (K4, K5):
+// out = softmax(q·kᵀ·scale (+ gate ⊙ bias) + pad) · v. fp32 q, k, v and out
+// with a head width head_dim that is a multiple of 8 from 8 to this build's
+// width, every row 16-byte aligned (strides multiples of 8 elements, bases
+// 16-byte aligned); bias fp32 [H, T, T] and gate fp32 [B, H, T] (may be null:
+// a gate of 1); pad one byte a key, nonzero = padded (may be null). lse, when
+// not null, receives the row log-sum-exp of the logits (float32, contiguous
+// [B, H, T]) for the backward above. strides: 20 element strides, q, k, v
+// and out (batch, head, token), pad (batch, token), then bias (head, query,
+// key) and gate (batch, head, token). Returns a cudaError_t; 0 means the
+// kernel was launched. A call the build does not take returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int avex_tf32x3_attention_forward(const void* q, const void* k, const void* v, const void* bias,
+                                             const void* gate, const void* pad, void* out, void* lse, int batch,
+                                             int heads, int seq, int head_dim, float scale, const long long* strides,
+                                             void* stream) {
+  if (seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim < 8 ||
+      head_dim > kHeadDim || head_dim % 8 || (gate != nullptr && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  FwdStrides s;
+  memcpy(&s, strides, sizeof(FwdStrides));
+  Gated gd;
+  gd.bias = static_cast<const float*>(bias);
+  gd.gate = static_cast<const float*>(gate);
+  memcpy(gd.bs, strides + 14, 3 * sizeof(long long));
+  memcpy(gd.gs, strides + 17, 3 * sizeof(long long));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bias == nullptr)
+    return (int)launch_forward<false>(q, k, v, pad, out, lse, batch, heads, seq, head_dim, scale, s, Gated(), st);
+  return (int)launch_forward<true>(q, k, v, pad, out, lse, batch, heads, seq, head_dim, scale, s, gd, st);
+}
 
 // The fp32 backward from the forward's residuals, bias-free (K6, bias null)
 // or gated (K3): fp32 q, k, v, out (the forward's output) and dout, with a

@@ -13,7 +13,11 @@ Phases, each printing its results on lines of its own:
    a spilling kernel fails the phase);
 3. kernels: hold each kernel against its plain PyTorch twin at the shapes the
    main paths give it, in bf16 and fp32 (bf16 on the tensor-core kernels of
-   ``tensor_core_attention.cu``, fp32 on the FMA body): the gated K1 and K2
+   ``tensor_core_attention.cu``, fp32 on them in 3xTF32,
+   ``tf32x3_attention.cu``: each call's body checked, max|d| 1e-4 and rel L2
+   1e-5 against the fp32 twin, K2's and K5's saved row log-sum-exp within
+   1e-5 of the twin's, each fp32 time beside the FMA body's on the same
+   inputs and SDPA's backend): the gated K1 and K2
    at BEATs' shape (B=128, H=12, T=248, D=64), with and without the gate,
    without a mask, with a key-padding mask and with one item's keys all
    padded (NaN exactly where the twin has NaN); the bias-free K5 at EAT's
@@ -127,8 +131,8 @@ Phases, each printing its results on lines of its own:
    and power limit;
 16. head width 80 (run after phase 10): K5 and K4 at Bird-MAE huge's
    forward shape (B=128, T=513, 16 heads of 80) and K6 at its training
-   batch (B=64), bf16 on the tensor cores and fp32 on the FMA body (K6: on
-   the tensor cores in 3xTF32, timed beside the FMA body), against their
+   batch (B=64), bf16 on the tensor cores and fp32 on them in 3xTF32 (each
+   timed beside the FMA body on the same inputs), against their
    twins (the bf16 K6 also against its residual twin), each timed beside
    its twin, its bound and SDPA (its backward for K6);
 17. Bird-MAE main path (after phase 8): ``ModelSpec(name="birdmae",
@@ -249,10 +253,11 @@ Phases, each printing its results on lines of its own:
    with E = 768 (48, 24, 8 and 6 heads), bf16 and fp32, at the shapes of
    phases 3 and 10 (K4/K5 B=128 T=513; K1/K2 B=128 T=248 with the gate; K3
    B=64 T=248; K6 B=64 T=513), each against its twin (the bf16 K3/K6 also
-   against the twin of their contract; the fp32 K3/K6, on 3xTF32, within
-   rel L2 1e-5) and timed beside the twin, its bound and SDPA (the fp32
-   K3/K6 also beside the FMA body), one ragged masked case a width (B=8,
-   T=37), and dh 20 and 136 against their twins; (paths, after phase 33) BEATs at full width and depth with 6
+   against the twin of their contract; fp32 K1-K6, on 3xTF32, within rel
+   L2 1e-5, K2's and K5's saved log-sum-exp within 1e-5) and timed beside
+   the twin, its bound and SDPA (fp32 also beside the FMA body), one ragged
+   masked case a width (B=8, T=37, an item all padded in the forwards), and
+   dh 20 and 136 against their twins; (paths, after phase 33) BEATs at full width and depth with 6
    heads of 128: bf16 extraction on K1 (12 a forward), the int8 model (K1
    with K7) against it, the fp32 kernel path against the plain path, a
    ``fused_qkv`` training step (K2 and K3 12 a step) and the fp32 gradient
@@ -265,7 +270,7 @@ Phases, each printing its results on lines of its own:
    100, 136, 150, 192, 256, 320 and 512 with E = 768 or the nearest multiple
    of dh, bf16 and fp32, at phase 34's shapes (the batch cut where the
    twin's [B, H, T, T] logits would pass 9 GiB; B=16 at the widths not
-   timed; the fp32 K3/K6 there on the FMA body, each call's body checked),
+   timed; fp32 K1-K6 there on the FMA body, each call's body checked),
    each against its twin, one
    ragged masked case a width with an item all padded (NaN as the twin), and
    dh 12, 20, 136, 192, 256 and 320 timed beside the twin, the bound and SDPA
@@ -294,6 +299,10 @@ main paths' runs; K4 and K8, which no main path reaches, add
 fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
 numbers at T=800; K5 and K6 add ``eat_ssl``, their numbers at EAT-SSL's
 shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``;
+K1, K2, K4 and K5 add ``fp32_source``, ``fp32`` (their fp32 numbers at
+the main shape on 3xTF32, with the FMA body's ``fma_ms`` and
+``fma_bound_ms`` and SDPA's backend) and ``fp32_tf32x3_launches``, the
+main paths' fp32 runs' launches on the 3xTF32 forward;
 K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share; K1, K2,
 K3 and K5 add ``cli_launches``, phase 33's share; K1-K6 add
 ``head_widths``, their bf16 and fp32 numbers at dh 16, 32, 96 and 128, and
@@ -384,6 +393,9 @@ FP32_SUM_REL = 1e-5
 TF32X3_REL_L2 = 1e-5
 # 3xTF32 takes three TF32 products a product: the tensor cores' 495 TFLOP/s over 3.
 TF32X3_FLOPS = 495e12 / 3
+# The fp32 forward on 3xTF32 (K1, K2, K4, K5 on tf32x3_attention.cu): its row
+# log-sum-exp, saved for the backward, against the twin's (natural units).
+LSE_ATOL = 1e-5
 T_LONG = 800  # a gated backward long past 512 (the bf16 K3 at B=2; the fp32 K3 at B=4)
 # The fp32 K3 keeps its [64, T] dbias rows in shared memory up to T=512 and
 # adds them in device memory past it (phases 21-22).
@@ -510,6 +522,10 @@ CARD: list = []  # nvidia-smi's name and power limit
 # The fp32 gradient checks' backward launches on the 3xTF32 kernels, by kernel
 # (``step_gradients``): the main paths' fp32 steps run K3 and K6 there.
 TF32X3_STEP_LAUNCHES = {"fused_qkv_gated_attention_backward": 0, "fused_qkv_attention_backward": 0}
+# The main paths' fp32 forward launches on the 3xTF32 kernels, by kernel (``drive``'s
+# fp32 extraction runs and ``step_gradients``' fp32 kernel-path steps).
+TF32X3_FORWARD_LAUNCHES = {"gated_bias_attention": 0, "fused_qkv_gated_attention": 0, "plain_attention": 0,
+                           "fused_qkv_attention": 0}
 PHASE_SECONDS: dict = {}  # phase function → wall seconds
 
 
@@ -556,18 +572,19 @@ def median_ms(fn, n: int = TIMED_LAUNCHES, device_only: bool = True) -> float:
 
 
 def attention_bound_ms(dtype_name: str, gated: bool, padded: bool, seq: int = T, heads: int = H,
-                       dim: int = D, bsz: int = B) -> tuple:
+                       dim: int = D, bsz: int = B, tf32x3: bool = False) -> tuple:
     """Least time for one attention call at (bsz, heads, seq, dim) on the card:
     q, k, v read and out written once, the fp32 bias (gated) and gate read
     once, the mask read once; two matmuls of 2·seq·seq·dim FLOPs per (batch,
-    head)."""
+    head), at the type's peak or, with ``tf32x3`` (fp32 on the tensor cores),
+    at TF32X3_FLOPS."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = 4 * bsz * heads * seq * dim * elem
     nbytes += heads * seq * seq * 4 + bsz * heads * seq * 4 if gated else 0
     nbytes += bsz * seq if padded else 0
     flops = 4.0 * bsz * heads * seq * seq * dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (TF32X3_FLOPS if tf32x3 else PEAK_FLOPS[dtype_name]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -668,23 +685,30 @@ def phase_kernels():
                 ),
             ):
                 worst = 0.0
+                fp32 = dtype == torch.float32
                 for g in (gate, None):
                     for mask_name, m in (("none", None), ("mask", mask), ("padded item", padded_item)):
-                        got, want = run(g, m), twin(g, m)
+                        got, bodies = bodies_of(lambda: run(g, m), forward=True)
+                        want = twin(g, m)
                         torch.cuda.synchronize()
+                        label = f"{kname} {name} gate={g is not None} mask={mask_name}"
+                        want_body = "tf32x3" if fp32 else "bf16"
+                        check(bodies == {want_body: 1}, f"{label}: ran on the {want_body} body ({bodies})")
+                        if fp32:
+                            worst = max(worst, fp32_forward_held(label, got, want))
+                            continue
                         nan = torch.isnan(want)
                         check(torch.equal(torch.isnan(got), nan) and bool(torch.isfinite(got[~nan]).all()),
-                              f"{kname} {name} gate={g is not None} mask={mask_name}: NaN exactly where the twin "
-                              f"has NaN ({int(nan.any(dim=-1).sum())} rows), finite elsewhere")
+                              f"{label}: NaN exactly where the twin has NaN ({int(nan.any(dim=-1).sum())} rows), "
+                              f"finite elsewhere")
                         got, want = got[~nan], want[~nan]
                         err = float((got.float() - want.float()).abs().max())
                         rel = rel_l2(got, want)
                         worst = max(worst, err)
-                        label = f"{kname} {name} gate={g is not None} mask={mask_name}"
-                        if dtype == torch.float32:
-                            check(err <= FP32_ATOL, f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
-                        else:
-                            check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+                        check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+                if fp32 and kname == "fused_qkv_gated_attention":
+                    for m in (None, padded_item):
+                        lse_held(f"{kname} {name} mask={m is not None}", qkv, H, m, bias, gate)
 
                 ms = median_ms(lambda: run(gate, None))
                 plain_ms = median_ms(lambda: twin(gate, None))
@@ -693,16 +717,19 @@ def phase_kernels():
                 library_ms = median_ms(
                     lambda: F.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, attn_mask=attn_mask, scale=D**-0.5)
                 )
-                bound, bound_by = attention_bound_ms(name, gated=True, padded=False)
-                body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
+                bound, bound_by = attention_bound_ms(name, gated=True, padded=False, tf32x3=fp32)
+                body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
+                fp32_numbers, note = (fp32_forward_timing(sdpa_q, sdpa_k, sdpa_v, bias, gate, None, ms, attn_mask)
+                                      if fp32 else ({}, ""))
                 print(
                     f"time {kname} {name} (gate, no mask, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * T * T * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                     f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)"
+                    f"{note}; {CARD[0]}"
                 )
                 results[(kname, name)] = dict(
                     max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=bound, bound_by=bound_by,
+                    bound_ms=bound, bound_by=bound_by, **fp32_numbers,
                 )
         del qkv, q, k, v, qs, ks, vs, bias, gate, mask, padded_item
         torch.cuda.empty_cache()
@@ -746,36 +773,48 @@ def phase_bias_free_kernels():
              lambda m: ak.fused_qkv_attention(aves_qkv, H, m), lambda m: ak.fused_qkv_reference(aves_qkv, H, m),
              (aves_mask,), aves_mask, (aves_q, aves_k, aves_v)),
         )
+        fp32 = dtype == torch.float32
         with torch.no_grad():
             for kname, shape, seq, run, twin, masks, timed_mask, views in cases:
                 worst = 0.0
                 for m in masks:
-                    got, want = run(m), twin(m)
+                    got, bodies = bodies_of(lambda: run(m), forward=True)
+                    want = twin(m)
                     torch.cuda.synchronize()
+                    label = f"{kname} {shape} T={seq} {name} mask={m is not None}"
+                    want_body = "tf32x3" if fp32 else "bf16"
+                    check(bodies == {want_body: 1}, f"{label}: ran on the {want_body} body ({bodies})")
+                    if fp32:
+                        worst = max(worst, fp32_forward_held(label, got, want))
+                        continue
                     err = float((got.float() - want.float()).abs().max())
                     rel = rel_l2(got, want)
                     worst = max(worst, err)
-                    label = f"{kname} {shape} T={seq} {name} mask={m is not None}"
                     check(bool(torch.isfinite(got).all()), f"{label}: finite")
-                    if dtype == torch.float32:
-                        check(err <= FP32_ATOL, f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g} (rel {rel:.3e})")
-                    else:
-                        check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+                    check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
+                if fp32 and kname == "fused_qkv_attention":
+                    fused = qkv if shape == "EAT" else aves_qkv
+                    for m in masks:
+                        lse_held(f"{kname} {shape} T={seq} {name} mask={m is not None}", fused, H, m)
 
                 ms = median_ms(lambda: run(timed_mask))
                 plain_ms = median_ms(lambda: twin(timed_mask))
                 keep = None if timed_mask is None else ~timed_mask[:, None, None, :]  # SDPA: True = attend
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(*views, attn_mask=keep, scale=D**-0.5))
-                bound, bound_by = attention_bound_ms(name, gated=False, padded=timed_mask is not None, seq=seq)
-                body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
+                bound, bound_by = attention_bound_ms(name, gated=False, padded=timed_mask is not None, seq=seq,
+                                                     tf32x3=fp32)
+                body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
+                fp32_numbers, note = (fp32_forward_timing(*views, None, None, timed_mask, ms, keep)
+                                      if fp32 else ({}, ""))
                 print(
                     f"time {kname} {shape} T={seq} {name} (mask={timed_mask is not None}, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                     f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)"
+                    f"{note}; {CARD[0]}"
                 )
                 results[(kname, shape, name)] = dict(
                     max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=bound, bound_by=bound_by,
+                    bound_ms=bound, bound_by=bound_by, **fp32_numbers,
                 )
         del qkv, q, k, v, aves_qkv, aves_q, aves_k, aves_v, eat_mask, aves_mask
         torch.cuda.empty_cache()
@@ -802,25 +841,29 @@ def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: 
 
 
 def fp32_body(head_dim: int) -> str:
-    """The body that runs the fp32 backward of a ``[B, T, 3E]`` projection of
-    this head width: the 3xTF32 tensor-core kernels on 16-byte rows up to 128,
-    else the FMA body (``attention_kernels.tf32x3_rows``)."""
-    from avex_tpu_torch.ops import attention_kernels as ak
-
-    return "tf32x3" if ak.tf32x3_rows(head_dim, head_dim % 8 != 0) else "fma"
-
-
-def bodies_of(run) -> tuple:
-    """Run ``run`` (backward calls); returns its result and the backward
-    calls it made by body (``attention_kernels.BACKWARD_BODIES``)."""
+    """The body that runs the fp32 forward and backward of a ``[B, T, 3E]``
+    projection of this head width: the 3xTF32 tensor-core kernels on 16-byte
+    rows up to 128, else the FMA body (``attention_kernels.kernel_body``)."""
     import torch
 
     from avex_tpu_torch.ops import attention_kernels as ak
 
-    before = dict(ak.BACKWARD_BODIES)
+    return ak.kernel_body(torch.float32, head_dim, head_dim % 8 != 0)
+
+
+def bodies_of(run, forward: bool = False) -> tuple:
+    """Run ``run`` (backward calls, or forward calls with ``forward``);
+    returns its result and the calls it made by body
+    (``attention_kernels.BACKWARD_BODIES`` or ``FORWARD_BODIES``)."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    counts = ak.FORWARD_BODIES if forward else ak.BACKWARD_BODIES
+    before = dict(counts)
     result = run()
     torch.cuda.synchronize()
-    return result, {k: v - before[k] for k, v in ak.BACKWARD_BODIES.items() if v != before[k]}
+    return result, {k: v - before[k] for k, v in counts.items() if v != before[k]}
 
 
 def fma_backward_ms(qkv, heads, bias, gate, mask, dout, n: int = TIMED_LAUNCHES) -> float:
@@ -846,6 +889,85 @@ def fp32_backward_note(ms: float, fma_ms: float, bsz: int, seq: int, heads: int 
     bound = backward_bound_ms("float32", bsz, seq, False, False, heads, dim, tf32x3=True)[0]
     return (f"; the FMA body on the same inputs {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the 3xTF32 kernels); "
             f"3xTF32 bound {bound:.4f} ms ({bound / ms:.1%} of it)")
+
+
+def fma_forward_ms(q, k, v, bias, gate, mask, n: int = TIMED_LAUNCHES) -> float:
+    """The FMA body's fp32 forward (K1/K2 with a bias, K4/K5 without) on the
+    same ``[B, H, T, D]`` views (16-byte rows), timed: the body these rows
+    took before the 3xTF32 forward, and the one narrow rows and chunked
+    widths still take. Launched through ``attention_kernels._fma_forward``,
+    which counts nothing; its output is held to the twin's first."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    bsz, heads, seq, dim = q.shape
+    out = torch.empty(bsz, seq, heads, dim, device=q.device).permute(0, 2, 1, 3)
+
+    def run():
+        ak._fma_forward(q, k, v, bias, gate, mask, out, dim**-0.5, False)
+
+    run()
+    want = ak.gated_bias_attention_reference(q, k, v, bias, gate, mask)
+    nan = torch.isnan(want)
+    err = float((out[~nan] - want[~nan]).abs().max())
+    check(torch.equal(torch.isnan(out), nan) and err <= FP32_ATOL,
+          f"the FMA forward at dh={dim} B={bsz} T={seq}: max|d|={err:.3e} <= {FP32_ATOL:g} before it is timed")
+    del want
+    return median_ms(run, n)
+
+
+def fp32_forward_held(label, got, want) -> float:
+    """The fp32 forward on 3xTF32 against its twin (TF32 off): NaN exactly
+    where the twin has NaN, finite elsewhere, max|d| <= FP32_ATOL and
+    relative L2 <= TF32X3_REL_L2; returns max|d|."""
+    import torch
+
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan) and bool(torch.isfinite(got[~nan]).all()),
+          f"{label}: NaN exactly where the twin has NaN ({int(nan.any(dim=-1).sum())} rows), finite elsewhere")
+    got, want = got[~nan].float(), want[~nan].float()
+    err, rel = float((got - want).abs().max()), rel_l2(got, want)
+    check(err <= FP32_ATOL and rel <= TF32X3_REL_L2,
+          f"{label}: max|d|={err:.3e} <= {FP32_ATOL:g}, rel L2={rel:.3e} <= {TF32X3_REL_L2:g} (3xTF32)")
+    return err
+
+
+def lse_held(label, qkv, heads, mask=None, bias=None, gate=None) -> None:
+    """K2 (with ``bias``) or K5 under grad, fp32 on 3xTF32: the row
+    log-sum-exp it saves for the backward against the twin's at LSE_ATOL,
+    −inf exactly where the twin's is (a row whose keys are all padded)."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    leaf = qkv.detach().requires_grad_()
+    with torch.enable_grad():  # the callers run under no_grad
+        out = (ak.fused_qkv_gated_attention(leaf, heads, bias, gate, mask) if bias is not None
+               else ak.fused_qkv_attention(leaf, heads, mask))
+    lse = out.grad_fn.saved_tensors[-1]
+    with torch.no_grad():
+        _, want, _ = ak._fused_qkv_forward_lse_reference(qkv.detach(), heads, mask, None, bias, gate)
+    finite = torch.isfinite(want)
+    err = float((lse[finite] - want[finite]).abs().max())
+    check(lse.shape == want.shape and torch.equal(torch.isfinite(lse), finite) and err <= LSE_ATOL,
+          f"{label}: the saved row log-sum-exp within {LSE_ATOL:g} of the twin's (max|d| {err:.3e}), -inf on "
+          f"exactly its {int((~finite).sum())} padded rows")
+    del out, lse, want
+
+
+def fp32_forward_timing(q, k, v, bias, gate, mask, ms, attn_mask=None, n: int = TIMED_LAUNCHES) -> tuple:
+    """The fp32 forward's numbers beside its 3xTF32 time ``ms``: the FMA
+    body on the same inputs and its bound at the FMA units' rate, and SDPA's
+    backend for these operands. Returns (a dict for the JSON line, the tail
+    of the time line)."""
+    bsz, heads, seq, dim = q.shape
+    fma_ms = fma_forward_ms(q, k, v, bias, gate, mask, n)
+    fma_bound = attention_bound_ms("float32", bias is not None, mask is not None, seq, heads, dim, bsz)[0]
+    backend = sdpa_backend(q, k, v, attn_mask)
+    return (dict(fma_ms=fma_ms, fma_bound_ms=fma_bound, sdpa_backend=backend),
+            f"; the FMA body on the same inputs {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the 3xTF32 kernel); "
+            f"sdpa backend {backend}")
 
 
 def phase_backward_kernels():
@@ -1051,15 +1173,20 @@ def read_counts() -> dict:
     return {**ak.LAUNCHES, **ik.LAUNCHES}
 
 
-def drive(model, label, expect, batches, n_emb, pool, padding_mask=None):
+def drive(model, label, expect, batches, n_emb, pool, padding_mask=None, body=None):
     """Reset the counts, run warm-up + timed extraction, read the counts.
 
     ``expect`` maps each kernel the path must launch to its launches per
-    forward; every other kernel must launch 0 times. ``pool(features, aux)``
+    forward; every other kernel must launch 0 times. With ``body``
+    ("bf16", "tf32x3" or "fma") every attention forward must have run on it
+    (``attention_kernels.FORWARD_BODIES``); the fp32 runs on 3xTF32 add
+    their launches to TF32X3_FORWARD_LAUNCHES. ``pool(features, aux)``
     gives the pooled final features compared across paths. Returns (first
     embeddings, pooled, counts, clips/s).
     """
     import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
 
     reset_counts()
     first = model.extract_embeddings(batches[0], padding_mask=padding_mask, aggregation="mean")
@@ -1080,6 +1207,13 @@ def drive(model, label, expect, batches, n_emb, pool, padding_mask=None):
         check(counts[kname] == per_forward * forwards,
               f"{label}: {kname} launched {counts[kname]} times == {per_forward * forwards} "
               f"({per_forward} per forward x {forwards})")
+    if body is not None:
+        bodies = {k: v for k, v in ak.FORWARD_BODIES.items() if v}
+        total = sum(counts[k] for k in TF32X3_FORWARD_LAUNCHES)
+        check(bodies == {body: total}, f"{label}: attention forwards by body {bodies} == { {body: total} }")
+        if body == "tf32x3":
+            for kname in TF32X3_FORWARD_LAUNCHES:
+                TF32X3_FORWARD_LAUNCHES[kname] += counts[kname]
     rate = bsz * len(batches) / elapsed
     print(f"{label}: {rate:.1f} clips/s (B={bsz}, {len(batches)} batches, {elapsed * 1e3:.1f} ms) "
           f"on {torch.cuda.get_device_name(0)}")
@@ -1124,18 +1258,18 @@ def phase_main_path():
     gen = torch.Generator(device="cuda").manual_seed(1)
     batches = [torch.randn(B, CLIP_SAMPLES, device="cuda", generator=gen) * 0.1 for _ in range(N_BATCHES)]
 
-    def run(model, label, kernel):
+    def run(model, label, kernel, body=None):
         expect = {kernel: layers} if kernel else {}
-        return drive(model, label, expect, batches, n_emb, lambda features, aux: features.mean(dim=1))
+        return drive(model, label, expect, batches, n_emb, lambda features, aux: features.mean(dim=1), body=body)
 
     with torch.no_grad():
         bf16 = load_beats("bfloat16", use_pallas=True)
-        emb16, pooled16, counts_split, rate16 = run(bf16, "main bf16 split", "gated_bias_attention")
+        emb16, pooled16, counts_split, rate16 = run(bf16, "main bf16 split", "gated_bias_attention", "bf16")
         split_state = {k: v.float().cpu().numpy() for k, v in bf16.state_dict().items()}
         del bf16
 
         fp32 = load_beats("float32", use_pallas=True)
-        emb32, pooled32, _, rate32 = run(fp32, "main fp32 split", "gated_bias_attention")
+        emb32, pooled32, _, rate32 = run(fp32, "main fp32 split", "gated_bias_attention", "tf32x3")
         del fp32
         rel = rel_l2(pooled16, pooled32)
         print(f"bf16 vs fp32 pooled features: rel L2 {rel:.3e} (JAX package on a TPU v5e: {TPU_BF16_FP32_REL:g}, "
@@ -1159,7 +1293,8 @@ def phase_main_path():
 
         fused = load_beats("bfloat16", use_pallas=True, fused_qkv=True)
         fused.load_state_dict(split_state, strict=True)  # the split model's weights, q|k|v concatenated
-        emb_f, pooled_f, counts_fused, rate_fused = run(fused, "main bf16 fused_qkv", "fused_qkv_gated_attention")
+        emb_f, pooled_f, counts_fused, rate_fused = run(fused, "main bf16 fused_qkv", "fused_qkv_gated_attention",
+                                                        "bf16")
         rf = rel_l2(pooled_f, pooled16)
         check(rf <= 2e-2, f"bf16 fused_qkv vs split, same weights: pooled rel {rf:.3e} <= 2e-2")
         del fused
@@ -1183,14 +1318,16 @@ def bias_free_main_path(label, load, batches, padding_mask, pool, layers, width)
 
     n_emb = layers * width
 
-    def run(model, what, kernel):
+    def run(model, what, kernel, body=None):
         model.register_hooks_for_layers(["all"])
         expect = {kernel: layers} if kernel else {}
-        return drive(model, f"{label} {what}", expect, batches, n_emb, pool, padding_mask)
+        return drive(model, f"{label} {what}", expect, batches, n_emb, pool, padding_mask, body)
 
     with torch.no_grad():
-        emb16, pooled16, counts, rate16 = run(load("bfloat16", True), "bf16 fused_qkv kernel", "fused_qkv_attention")
-        emb32, pooled32, _, rate32 = run(load("float32", True), "fp32 fused_qkv kernel", "fused_qkv_attention")
+        emb16, pooled16, counts, rate16 = run(load("bfloat16", True), "bf16 fused_qkv kernel", "fused_qkv_attention",
+                                              "bf16")
+        emb32, pooled32, _, rate32 = run(load("float32", True), "fp32 fused_qkv kernel", "fused_qkv_attention",
+                                         "tf32x3")  # 12 heads of 64: 16-byte rows
         rel = rel_l2(pooled16, pooled32)
         check(rel < 5e-2, f"{label} bf16 vs fp32 pooled rel L2 {rel:.3e} < 5e-2")
 
@@ -1289,8 +1426,8 @@ def zero_gradient(name, grad):
 def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body="tf32x3", timed_steps=0):
     """One step's loss and every parameter's gradient (float32), dropout and
     LayerDrop off; checks the kernel launches (``expect`` on the kernel path,
-    none on the plain path) and the body of every backward (bf16, or in fp32
-    ``fp32_body``: "tf32x3" or "fma"). With ``timed_steps``, the median host
+    none on the plain path) and the body of every forward and backward
+    (bf16, or in fp32 ``fp32_body``: "tf32x3" or "fma"). With ``timed_steps``, the median host
     ms of that many more steps (forward and backward, synchronised).
     Returns (loss, gradients, launches, ms or None)."""
     import torch
@@ -1311,6 +1448,7 @@ def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body=
     loss, grads = step()
     torch.cuda.synchronize()
     counts, bodies = read_counts(), {k: v for k, v in ak.BACKWARD_BODIES.items() if v}
+    forward_bodies = {k: v for k, v in ak.FORWARD_BODIES.items() if v}
     want = expect if use_pallas else {}
     check(all(counts[k] == want.get(k, 0) for k in counts),
           f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
@@ -1319,9 +1457,16 @@ def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body=
     want_bodies = {("bf16" if dtype == "bfloat16" else fp32_body): backwards} if backwards else {}
     check(bodies == want_bodies, f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: "
                                  f"backward bodies {bodies} == {want_bodies}")
+    forwards = sum(want.get(k, 0) for k in TF32X3_FORWARD_LAUNCHES)
+    want_forward = {("bf16" if dtype == "bfloat16" else fp32_body): forwards} if forwards else {}
+    check(forward_bodies == want_forward, f"{label} {dtype} gradient check, "
+                                          f"{'kernel' if use_pallas else 'plain'} path: forward bodies "
+                                          f"{forward_bodies} == {want_forward}")
     if dtype == "float32" and use_pallas and fp32_body == "tf32x3":
         for kname in TF32X3_STEP_LAUNCHES:
             TF32X3_STEP_LAUNCHES[kname] += counts[kname]
+        for kname in TF32X3_FORWARD_LAUNCHES:
+            TF32X3_FORWARD_LAUNCHES[kname] += counts[kname]
     ms = None
     if timed_steps:
         times = []
@@ -1574,8 +1719,8 @@ def phase_aves_training(workdir):
 
 def phase_dh80_kernels():
     """K5 and K4 at Bird-MAE huge's forward shape (B=128, T=513, 16 heads of
-    80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (the
-    FMA body forward, the 3xTF32 K6, also timed beside the FMA body's K6),
+    80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (3xTF32
+    forward and K6, each also timed beside the FMA body on the same inputs),
     against their twins (the bf16 K6 also against the twin of its own
     contract on K5's saved residuals); returns per-kernel numbers for the
     JSON line and K4's launches in this phase."""
@@ -1600,7 +1745,8 @@ def phase_dh80_kernels():
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
+        fp32 = dtype == torch.float32
+        body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
         qkv = torch.randn(B, T_MAE, 3 * E_MAE, device="cuda", generator=gen).to(dtype)
         q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B, T_MAE, 3, H_MAE, D_MAE).unbind(2))
         cases = (
@@ -1612,16 +1758,24 @@ def phase_dh80_kernels():
         with torch.no_grad():
             for kname, run, twin in cases:
                 label = f"{kname} Bird-MAE huge dh={D_MAE} B={B} T={T_MAE} {name}"
-                err = held(label, dtype, run(), twin())
+                got, bodies = bodies_of(run, forward=True)
+                check(bodies == {"tf32x3" if fp32 else "bf16": 1}, f"{label}: ran on the {list(bodies)} body")
+                err = fp32_forward_held(label, got, twin()) if fp32 else held(label, dtype, got, twin())
+                del got
                 ms, plain_ms = median_ms(run), median_ms(twin)
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=D_MAE**-0.5))
                 bound, bound_by = attention_bound_ms(name, gated=False, padded=False, seq=T_MAE, heads=H_MAE,
-                                                     dim=D_MAE)
+                                                     dim=D_MAE, tf32x3=fp32)
+                fp32_numbers, note = fp32_forward_timing(q, k, v, None, None, None, ms) if fp32 else ({}, "")
                 print(f"time {label} ({body}): kernel {ms:.4f} ms "
                       f"({tflops(4.0 * B * H_MAE * T_MAE * T_MAE * D_MAE, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                      f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)")
+                      f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)"
+                      f"{note}; {CARD[0]}")
                 results[(kname, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                              bound_ms=bound, bound_by=bound_by, batch=B, seq=T_MAE, heads=H_MAE)
+                                              bound_ms=bound, bound_by=bound_by, batch=B, seq=T_MAE, heads=H_MAE,
+                                              **fp32_numbers)
+            if fp32:
+                lse_held(f"fused_qkv_attention Bird-MAE huge dh={D_MAE} B={B} T={T_MAE} {name}", qkv, H_MAE)
         del qkv, q, k, v
         torch.cuda.empty_cache()
 
@@ -1632,7 +1786,6 @@ def phase_dh80_kernels():
         label = f"fused_qkv_attention_backward Bird-MAE huge dh={D_MAE} B={B_TRAIN_MAE} T={T_MAE} {name}"
         want = ak.fused_qkv_backward_reference(qkv.detach(), H_MAE, None, dout)
         err = held(label, dtype, got, want)
-        fp32 = dtype == torch.float32
         check(bodies == {"tf32x3" if fp32 else "bf16": 1}, f"{label}: ran on the {list(bodies)} body")
         if fp32:
             rel = rel_l2(got, want)
@@ -2840,7 +2993,9 @@ def phase_k3_long():
         for x, g, m, body in cases:
             inputs = (x, bias) if g is None else (x, bias, g)
             reset_counts()
-            out = ak.fused_qkv_gated_attention(x, H, bias, g, m)
+            out, forward_bodies = bodies_of(lambda: ak.fused_qkv_gated_attention(x, H, bias, g, m), forward=True)
+            check(forward_bodies == {body: 1}, f"fp32 K2 T={seq} on {body}'s rows: ran on the {body} forward "
+                                               f"({forward_bodies})")
             got, bodies = bodies_of(lambda: torch.autograd.grad(out, inputs, dout))
             launched = read_counts()["fused_qkv_gated_attention_backward"]
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(),
@@ -3173,9 +3328,8 @@ def eat_ssl_shapes() -> tuple:
 
 def phase_eat_ssl_kernels():
     """K5 and K6 against their twins at EAT-SSL's three shapes (B=64), bf16
-    (tensor cores) and fp32 (the FMA body forward, the 3xTF32 K6, also timed
-    beside the FMA body's K6); each timed beside its twin, its bound and
-    SDPA (its backward for K6). The teacher's K5 runs under no_grad, as in
+    (tensor cores) and fp32 (3xTF32, K6 also timed beside the FMA body's);
+    each timed beside its twin, its bound and SDPA (its backward for K6). The teacher's K5 runs under no_grad, as in
     the model. Returns {(kernel, shape, dtype): numbers}."""
     import torch
     import torch.nn.functional as F
@@ -3196,21 +3350,25 @@ def phase_eat_ssl_kernels():
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
+        fp32 = dtype == torch.float32
+        body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
         for shape, seq, heads, width, backward in eat_ssl_shapes():
             qkv = torch.randn(B_TRAIN, seq, 3 * width, device="cuda", generator=gen).to(dtype)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(B_TRAIN, seq, 3, heads, D).unbind(2))
             label = f"fused_qkv_attention EAT-SSL {shape} B={B_TRAIN} T={seq} H={heads} {name}"
             with torch.no_grad():
                 reset_counts()
-                got = ak.fused_qkv_attention(qkv, heads)
-                torch.cuda.synchronize()
-                check(read_counts()["fused_qkv_attention"] == 1, f"{label}: one K5 launch")
-                err = held(label, dtype, got, ak.fused_qkv_reference(qkv, heads))
+                got, bodies = bodies_of(lambda: ak.fused_qkv_attention(qkv, heads), forward=True)
+                check(read_counts()["fused_qkv_attention"] == 1 and bodies == {"tf32x3" if fp32 else "bf16": 1},
+                      f"{label}: one K5 launch, on the {list(bodies)} body")
+                want = ak.fused_qkv_reference(qkv, heads)
+                err = fp32_forward_held(label, got, want) if fp32 else held(label, dtype, got, want)
+                del want
                 ms = median_ms(lambda: ak.fused_qkv_attention(qkv, heads))
                 plain_ms = median_ms(lambda: ak.fused_qkv_reference(qkv, heads))
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=D**-0.5))
-            bound, bound_by = attention_bound_ms(name, gated=False, padded=False, seq=seq, heads=heads, bsz=B_TRAIN)
+            bound, bound_by = attention_bound_ms(name, gated=False, padded=False, seq=seq, heads=heads, bsz=B_TRAIN,
+                                                 tf32x3=fp32)
             print(f"time {label} ({body}{', no grad' if not backward else ''}): kernel {ms:.4f} ms "
                   f"({tflops(4.0 * B_TRAIN * heads * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound); "
@@ -3227,7 +3385,6 @@ def phase_eat_ssl_kernels():
                 label = f"fused_qkv_attention_backward EAT-SSL {shape} B={B_TRAIN} T={seq} H={heads} {name}"
                 want = ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout)
                 err = held(label, dtype, got, want)
-                fp32 = dtype == torch.float32
                 check(bodies == {"tf32x3" if fp32 else "bf16": 1}, f"{label}: ran on the {list(bodies)} body")
                 if fp32:
                     rel = rel_l2(got, want)
@@ -3242,7 +3399,7 @@ def phase_eat_ssl_kernels():
                                                     tf32x3=fp32)
                 fma_ms = fma_backward_ms(qkv, heads, None, None, None, dout) if fp32 else None
                 note = fp32_backward_note(ms, fma_ms, B_TRAIN, seq, heads) if fp32 else ""
-                print(f"time {label} ({'tensor cores, 3xTF32' if fp32 else body}): kernel {ms:.4f} ms "
+                print(f"time {label} ({body}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * B_TRAIN * heads * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                       f"sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
                       f"({bound / ms:.1%} of bound){note}; {CARD[0]}")
@@ -5212,13 +5369,16 @@ def sdpa_backend(q, k, v, attn_mask=None) -> str:
 def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_bytes=None, padded_item=False,
                        reps: int = TIMED_LAUNCHES, check_batch=None):
     """K1-K6 at each head width of ``widths`` with ``heads_of(dh)`` heads,
-    bf16 (tensor cores) and fp32 (FMA): the forwards at B=128 (K4, K5:
+    bf16 (tensor cores) and fp32 (3xTF32 on 16-byte rows up to 128, the FMA
+    body on narrow rows and column chunks; each call's body checked): the
+    forwards at B=128 (K4, K5:
     T=513; K1, K2: T=248, with the gate), the backwards at B=64 (K3: T=248,
     with the gate; K6: T=513), each against its twin (the bf16 K3/K6 also
     against the twin of their own contract on the forward's residuals); a
     width of ``timed`` is timed beside the twin, its bound and SDPA (and,
-    with ``twin_bytes`` set, SDPA's backend printed), each time the median of
-    ``reps`` calls; then one ragged, padded
+    with ``twin_bytes`` set, SDPA's backend printed; the fp32 forwards on
+    3xTF32 also beside the FMA body, with SDPA's backend), each time the
+    median of ``reps`` calls; then one ragged, padded
     case a width (B=8, T=37, a key mask; with ``padded_item`` also one item's
     keys all padded in the forwards: NaN where the twin has NaN). With
     ``twin_bytes`` a batch is cut so that the twin's fp32 [B, H, T, T]
@@ -5259,15 +5419,20 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
         return err
 
-    def record(kname, dh, name, label, err, run, twin, library, bound, flops, sdpa_operands):
+    def record(kname, dh, name, label, err, run, twin, library, bound, flops, sdpa_operands, fma_operands=None):
+        """Time a forward; ``fma_operands`` (q, k, v, bias, gate; an fp32
+        call on 3xTF32) adds the FMA body on the same inputs."""
         ms, plain_ms, library_ms = median_ms(run, reps), median_ms(twin, reps), median_ms(library, reps)
         t_bound, bound_by = bound
         backend = f", sdpa backend {sdpa_backend(*sdpa_operands)}" if twin_bytes is not None else ""
+        fp32_numbers, note = ({}, "")
+        if fma_operands is not None:
+            fp32_numbers, note = fp32_forward_timing(*fma_operands, None, ms, *sdpa_operands[3:], n=reps)
         print(f"time {label}: kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} ({t_bound / ms:.1%} of bound)"
-              f"{backend}; {CARD[0]}")
+              f"{backend}{note}; {CARD[0]}")
         results[(kname, dh, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                          bound_ms=t_bound, bound_by=bound_by)
+                                          bound_ms=t_bound, bound_by=bound_by, **fp32_numbers)
 
     for dh in widths:
         heads = heads_of(dh)
@@ -5281,15 +5446,22 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
               f"of {plan.chunk_width}; forward batches {bsz_g} / {bsz_f}, backward {bsz_b3} / {bsz_b6}")
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
-            body = "tensor cores" if ak.tensor_core_forward(dtype) else "FMA"
-            # the body of the backwards: bf16, or fp32 on 3xTF32 (16-byte rows up to 128) or the FMA body
+            # the body of the forwards and backwards alike: bf16, or fp32 on 3xTF32 (16-byte rows up to
+            # 128) or the FMA body
             bwd_body = "bf16" if dtype == torch.bfloat16 else fp32_body(dh)
             tf32x3 = bwd_body == "tf32x3"
-            bwd_label = {"bf16": "tensor cores", "tf32x3": "tensor cores, 3xTF32", "fma": "FMA"}[bwd_body]
+            bwd_label = body = {"bf16": "tensor cores", "tf32x3": "tensor cores, 3xTF32", "fma": "FMA"}[bwd_body]
+
+            def forward_held(label, run, twin):
+                """One forward against its twin, on the body the rule gives; returns max|d|."""
+                got, bodies = bodies_of(run, forward=True)
+                check(bodies == {bwd_body: 1}, f"{label}: ran on the {bwd_body} body ({bodies})")
+                return held(label, dtype, got, twin(), tf32x3=tf32x3)
             # bias-free forwards, EAT's T: K5 on [B, T, 3E], K4 on its split views
             qkv = torch.randn(bsz_f, T_EAT, 3 * e, device="cuda", generator=gen).to(dtype)
             q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz_f, T_EAT, 3, heads, dh).unbind(2))
-            bound = attention_bound_ms(name, gated=False, padded=False, seq=T_EAT, heads=heads, dim=dh, bsz=bsz_f)
+            bound = attention_bound_ms(name, gated=False, padded=False, seq=T_EAT, heads=heads, dim=dh, bsz=bsz_f,
+                                       tf32x3=tf32x3)
             flops = 4.0 * bsz_f * heads * T_EAT * T_EAT * dh
             with torch.no_grad():
                 for kname, run, twin in (
@@ -5299,11 +5471,13 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                      lambda: ak.gated_bias_attention_reference(q, k, v, None)),
                 ):
                     label = f"{kname} dh={dh} H={heads} B={bsz_f} T={T_EAT} {name} ({body})"
-                    err = held(label, dtype, run(), twin())
+                    err = forward_held(label, run, twin)
                     if dh in timed:
                         record(kname, dh, name, label, err, run, twin,
                                lambda: F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5), bound, flops,
-                               (q, k, v))
+                               (q, k, v), (q, k, v, None, None) if tf32x3 else None)
+                if tf32x3:
+                    lse_held(f"fused_qkv_attention dh={dh} H={heads} B={bsz_f} T={T_EAT} {name}", qkv, heads)
             del qkv, q, k, v
             # gated forwards, BEATs' T, with the gate: K1 on three projections' views, K2 on [B, T, 3E]
             qkv = torch.randn(bsz_g, T, 3 * e, device="cuda", generator=gen).to(dtype)
@@ -5313,7 +5487,8 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             bias = torch.randn(heads, T, T, device="cuda", generator=gen)
             gate = torch.rand(bsz_g, heads, T, device="cuda", generator=gen) + 1.0
             attn_mask = (gate[..., None] * bias[None]).to(dtype)
-            bound = attention_bound_ms(name, gated=True, padded=False, seq=T, heads=heads, dim=dh, bsz=bsz_g)
+            bound = attention_bound_ms(name, gated=True, padded=False, seq=T, heads=heads, dim=dh, bsz=bsz_g,
+                                       tf32x3=tf32x3)
             flops = 4.0 * bsz_g * heads * T * T * dh
             with torch.no_grad():
                 for kname, run, twin, views in (
@@ -5323,11 +5498,14 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                      lambda: ak.fused_qkv_gated_reference(qkv, heads, bias, gate), (fq, fk, fv)),
                 ):
                     label = f"{kname} dh={dh} H={heads} B={bsz_g} T={T} {name} (gate, {body})"
-                    err = held(label, dtype, run(), twin())
+                    err = forward_held(label, run, twin)
                     if dh in timed:
                         record(kname, dh, name, label, err, run, twin,
                                lambda: F.scaled_dot_product_attention(*views, attn_mask=attn_mask, scale=dh**-0.5),
-                               bound, flops, (*views, attn_mask))
+                               bound, flops, (*views, attn_mask), (*views, bias, gate) if tf32x3 else None)
+                if tf32x3:
+                    lse_held(f"fused_qkv_gated_attention dh={dh} H={heads} B={bsz_g} T={T} {name}", qkv, heads,
+                             None, bias, gate)
             del qkv, sq, sk, sv, fq, fk, fv, attn_mask
             torch.cuda.empty_cache()
 
@@ -5436,22 +5614,25 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             dout = torch.randn(bsz, seq, e, device="cuda", generator=gen).to(dtype)
             tag = f"dh={dh} B={bsz} T={seq} {name} masked"
             with torch.no_grad():
-                held(f"gated_bias_attention {tag}", dtype,
-                     ak.gated_bias_attention(q, k, v, bias, gate, forward_mask),
-                     ak.gated_bias_attention_reference(q, k, v, bias, gate, forward_mask))
-                held(f"plain_attention {tag}", dtype, ak.gated_bias_attention(q, k, v, None, None, forward_mask),
-                     ak.gated_bias_attention_reference(q, k, v, None, None, forward_mask))
+                forward_held(f"gated_bias_attention {tag}",
+                             lambda: ak.gated_bias_attention(q, k, v, bias, gate, forward_mask),
+                             lambda: ak.gated_bias_attention_reference(q, k, v, bias, gate, forward_mask))
+                forward_held(f"plain_attention {tag}", lambda: ak.gated_bias_attention(q, k, v, None, None, forward_mask),
+                             lambda: ak.gated_bias_attention_reference(q, k, v, None, None, forward_mask))
                 if padded_item:
-                    held(f"fused_qkv_gated_attention {tag}, an item all padded", dtype,
-                         ak.fused_qkv_gated_attention(qkv, heads, bias, gate, forward_mask),
-                         ak.fused_qkv_gated_reference(qkv, heads, bias, gate, forward_mask))
-                    held(f"fused_qkv_attention {tag}, an item all padded", dtype,
-                         ak.fused_qkv_attention(qkv, heads, forward_mask),
-                         ak.fused_qkv_reference(qkv, heads, forward_mask))
+                    forward_held(f"fused_qkv_gated_attention {tag}, an item all padded",
+                                 lambda: ak.fused_qkv_gated_attention(qkv, heads, bias, gate, forward_mask),
+                                 lambda: ak.fused_qkv_gated_reference(qkv, heads, bias, gate, forward_mask))
+                    forward_held(f"fused_qkv_attention {tag}, an item all padded",
+                                 lambda: ak.fused_qkv_attention(qkv, heads, forward_mask),
+                                 lambda: ak.fused_qkv_reference(qkv, heads, forward_mask))
+                    if tf32x3:
+                        lse_held(f"fused_qkv_gated_attention {tag}, an item all padded", qkv, heads, forward_mask,
+                                 bias, gate)
             leaves = (qkv.clone().requires_grad_(), bias.clone().requires_grad_(), gate.clone().requires_grad_())
             out = ak.fused_qkv_gated_attention(leaves[0], heads, leaves[1], leaves[2], mask)
             held(f"fused_qkv_gated_attention {tag}", dtype, out.detach(),
-                 ak.fused_qkv_gated_reference(qkv, heads, bias, gate, mask))
+                 ak.fused_qkv_gated_reference(qkv, heads, bias, gate, mask), tf32x3=tf32x3)
             got, bodies = bodies_of(lambda: torch.autograd.grad(out, leaves, dout))
             check(bodies == {bwd_body: 1}, f"fused_qkv_gated_attention_backward {tag}: ran on the {bwd_body} body "
                                            f"({bodies})")
@@ -5461,7 +5642,8 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                      tf32x3=tf32x3)
             leaf = qkv.clone().requires_grad_()
             out = ak.fused_qkv_attention(leaf, heads, mask)
-            held(f"fused_qkv_attention {tag}", dtype, out.detach(), ak.fused_qkv_reference(qkv, heads, mask))
+            held(f"fused_qkv_attention {tag}", dtype, out.detach(), ak.fused_qkv_reference(qkv, heads, mask),
+                 tf32x3=tf32x3)
             (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (leaf,), dout))
             check(bodies == {bwd_body: 1}, f"fused_qkv_attention_backward {tag}: ran on the {bwd_body} body ({bodies})")
             held(f"fused_qkv_attention_backward {tag}", dtype, got,
@@ -5488,7 +5670,7 @@ def phase_head_width_kernels():
     from avex_tpu_torch.ops import attention_kernels as ak
 
     start = time.perf_counter()
-    results, counts, _ = head_width_kernels(34, HW_WIDTHS, HW_WIDTHS, lambda dh: E // dh, seed=34)
+    results, counts, _ = head_width_kernels(34, HW_WIDTHS, HW_WIDTHS, lambda dh: E // dh, seed=34, padded_item=True)
     gen = torch.Generator(device="cuda").manual_seed(340)
     for dh in (20, 136):  # widths past phase 34's rule run too, gated or not
         for dtype in (torch.bfloat16, torch.float32):
@@ -6018,8 +6200,8 @@ def main() -> int:
     dh80 = {kname: {name: dh80_timings[(kname, name)] for name in ("bfloat16", "float32")}
             for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
 
-    tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16; fp32 forwards on gated_attention.cu
-    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # the fp32 K3 and K6 on 16-byte rows up to 128
+    tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16
+    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # fp32 K1-K6 on 16-byte rows up to 128
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
     rows = (
@@ -6059,7 +6241,17 @@ def main() -> int:
             check(TF32X3_STEP_LAUNCHES[kname] > 0, f"{kname}: the fp32 training steps ran the 3xTF32 kernels "
                                                    f"({TF32X3_STEP_LAUNCHES[kname]} launches)")
         elif source == tensor_core:
-            kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)", "fp32": "FMA"}
+            kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)",
+                                   "fp32": "tensor cores (mma.sync TF32, 3xTF32) on 16-byte rows of a head width "
+                                           "a multiple of 8 up to 128; FMA on narrow rows and chunked widths"}
+            kernels[-1]["fp32_source"] = tf32x3
+            # the fp32 call at the same shape, with the FMA body's time on the same inputs
+            kernels[-1]["fp32"] = timings.get((kname, "float32")) or plain_timings[(kname, "EAT", "float32")]
+            # the main paths' fp32 runs (``drive``, ``step_gradients``): their launches on the 3xTF32 kernel
+            kernels[-1]["fp32_tf32x3_launches"] = TF32X3_FORWARD_LAUNCHES[kname]
+            if kname != "plain_attention":  # no main path reaches K4
+                check(TF32X3_FORWARD_LAUNCHES[kname] > 0, f"{kname}: the main paths' fp32 runs launched the 3xTF32 "
+                                                          f"forward ({TF32X3_FORWARD_LAUNCHES[kname]} launches)")
         elif kname == "int8_dynamic_dense":
             kernels[-1]["body"] = "row quantization, then wgmma on TMA-fed tiles"
         if kname in dh80:

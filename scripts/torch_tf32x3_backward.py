@@ -1,14 +1,25 @@
 #!/usr/bin/env python3
-"""The fp32 attention backward (K3, K6) on the card: the 3xTF32 tensor-core
-kernels against the plain fp32 twin, the FMA body and SDPA.
+"""The fp32 attention forward (K1, K2, K4, K5) and backward (K3, K6) on the
+card: the 3xTF32 tensor-core kernels against the plain fp32 twin, the FMA
+body and SDPA.
 
     python3 scripts/torch_tf32x3_backward.py
 
 Builds ``csrc/tf32x3_attention.cu`` at every head width of
 ``attention_kernels.KERNEL_WIDTHS`` and ``csrc/gated_attention.cu`` (the
-fp32 forward that saves the row log-sum-exp), one ``nvcc`` each, all at
-once, and prints each 3xTF32 kernel's registers and spills. Then, for each
-case, the fp32 backward of ``fused_qkv_gated_attention`` (K3) or
+FMA body), one ``nvcc`` each, all at once, and prints each 3xTF32 kernel's
+registers and spills. Then, for each forward case, the fp32 forward of
+``gated_bias_attention`` (K1 with a bias, K4 without) or
+``fused_qkv_gated_attention`` / ``fused_qkv_attention`` (K2, K5) against
+the plain fp32 twin with TF32 off (max|d| 1e-4 and rel L2 1e-5, NaN
+exactly where the twin has NaN; K2 and K5 also their saved row
+log-sum-exp within 1e-5 of the twin's), the body that ran it
+(``attention_kernels.FORWARD_BODIES``) and, for the timed cases, the median
+device time of 20 calls of the 3xTF32 kernel, the FMA body on the same
+inputs, the twin and SDPA's fp32 call (and SDPA's backend), beside the
+bound at 165 TFLOP/s and at the FMA units' 67, and the kernel's device time
+per call from ``torch.profiler``. Then, for each backward case, the fp32
+backward of ``fused_qkv_gated_attention`` (K3) or
 ``fused_qkv_attention`` (K6) through autograd against the plain fp32 twin
 with TF32 off (rel L2 of dqkv, dbias and dgate; NaN exactly where the twin
 has NaN), the body that ran it (``attention_kernels.BACKWARD_BODIES``) and,
@@ -33,11 +44,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-REL_L2 = 1e-5  # each of dqkv, dbias and dgate against the plain fp32 twin
+REL_L2 = 1e-5  # the forward's output, and each of dqkv, dbias and dgate, against the plain fp32 twin
+ATOL = 1e-4  # the forward's output against the twin: max|d|
+LSE_ATOL = 1e-5  # the saved row log-sum-exp against the twin's
 TF32X3_FLOPS = 495e12 / 3
 FMA_FLOPS = 67e12
 E = 768
 # (kernel, label, batch, heads, T, gated, masked, timed)
+# (kernel, label, batch, heads, T, gated, masked, timed): K1/K4 on split views, K2/K5 on [B, T, 3E]
+FORWARD_CASES = (
+    ("K5", "EAT", 128, 12, 513, None, None, True),
+    ("K5", "EAT", 128, 12, 513, None, "some keys", False),
+    ("K5", "AVES", 128, 12, 249, None, "frames", False),
+    ("K4", "EAT", 128, 12, 513, None, None, True),
+    ("K2", "BEATs", 128, 12, 248, "gate", None, True),
+    ("K2", "BEATs", 128, 12, 248, "bias only", "an item all padded", False),
+    ("K1", "BEATs", 128, 12, 248, "gate", None, True),
+    ("K5", "Bird-MAE huge", 128, 16, 513, None, None, True),
+    ("K5", "dh16", 128, 48, 513, None, None, True),
+    ("K5", "dh32", 128, 24, 513, None, None, True),
+    ("K5", "dh96", 128, 8, 513, None, None, True),
+    ("K5", "dh128", 128, 6, 513, None, None, True),
+    ("K2", "dh32", 128, 24, 248, "gate", None, True),
+    ("K2", "dh128", 128, 6, 248, "gate", None, True),
+    ("K2", "ragged", 8, 12, 37, "gate", "an item all padded", False),
+    ("K5", "ragged dh40", 8, 4, 37, None, "an item all padded", False),
+)
 CASES = (
     ("K3", "BEATs", 64, 12, 248, "gate", None, True),
     ("K3", "BEATs", 64, 12, 248, "gate", "some keys", False),
@@ -105,6 +137,103 @@ def kernel_ms(fn, n: int = 5) -> dict:
     return times
 
 
+def case_dim(label: str, heads: int, kname: str) -> int:
+    """The head width of a case: E = 768 over its heads, 80 for Bird-MAE
+    huge, and the ragged cases' own."""
+    if label == "Bird-MAE huge":
+        return 80
+    if label.startswith("ragged"):
+        return 64 if kname in ("K1", "K2", "K3") else 40
+    return E // heads
+
+
+def forward_cases(gen) -> int:
+    """The forward cases; returns the failed ones."""
+    import torch
+    import torch.nn.functional as F
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+    from chip_smoke import fma_forward_ms, median_ms, rel_l2, sdpa_backend
+
+    failures = 0
+    for kname, label, bsz, heads, seq, gating, masking, timed in FORWARD_CASES:
+        dim = case_dim(label, heads, kname)
+        qkv = torch.randn(bsz, seq, 3 * heads * dim, device="cuda", generator=gen)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dim).unbind(2))
+        mask = None
+        if masking is not None:
+            mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+            mask[1::3, seq * 2 // 3:] = True
+            if masking == "an item all padded":
+                mask[0] = True
+        bias = gate = None
+        if gating is not None:
+            bias = torch.randn(heads, seq, seq, device="cuda", generator=gen)
+            if gating == "gate":
+                gate = torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0
+        if kname in ("K1", "K4"):
+            def run():
+                return ak.gated_bias_attention(q, k, v, bias, gate, mask)
+        elif bias is None:
+            def run():
+                return ak.fused_qkv_attention(qkv, heads, mask)
+        else:
+            def run():
+                return ak.fused_qkv_gated_attention(qkv, heads, bias, gate, mask)
+
+        def twin():
+            return ak.gated_bias_attention_reference(q, k, v, bias, gate, mask)
+
+        ak.reset_launch_counts()
+        with torch.no_grad():
+            got = run()
+            if kname in ("K2", "K5"):
+                got = got.view(bsz, seq, heads, dim).permute(0, 2, 1, 3)
+            want = twin()
+        torch.cuda.synchronize()
+        bodies = dict(ak.FORWARD_BODIES)
+        tag = f"{kname} {label} B={bsz} H={heads} dh={dim} T={seq} gate={gating} mask={masking}"
+        nan = torch.isnan(want)
+        ok = bodies == {"bf16": 0, "tf32x3": 1, "fma": 0} and bool(torch.equal(torch.isnan(got), nan))
+        err = float((got[~nan] - want[~nan]).abs().max())
+        row = {"case": tag, "bodies": bodies, "max_abs_err": err, "rel_l2": rel_l2(got[~nan], want[~nan])}
+        ok &= err <= ATOL and row["rel_l2"] <= REL_L2
+        del got, want
+        if kname in ("K2", "K5"):
+            leaf = qkv.detach().requires_grad_()
+            out = (ak.fused_qkv_attention(leaf, heads, mask) if bias is None
+                   else ak.fused_qkv_gated_attention(leaf, heads, bias, gate, mask))
+            lse = out.grad_fn.saved_tensors[-1]
+            with torch.no_grad():
+                _, want_lse, _ = ak._fused_qkv_forward_lse_reference(qkv, heads, mask, None, bias, gate)
+            finite = torch.isfinite(want_lse)
+            row["lse_max_abs_err"] = float((lse[finite] - want_lse[finite]).abs().max())
+            ok &= bool(torch.equal(torch.isfinite(lse), finite)) and row["lse_max_abs_err"] <= LSE_ATOL
+            del leaf, out, lse, want_lse
+        row["ok"] = ok
+        if timed:
+            flops = 4.0 * bsz * heads * seq * seq * dim
+            attn = None if bias is None else (gate[..., None] * bias[None] if gate is not None else bias[None])
+            with torch.no_grad():
+                row["ms"] = median_ms(run)
+                row["kernels_ms"] = kernel_ms(run)
+                row["fma_ms"] = fma_forward_ms(q, k, v, bias, gate, mask)
+                row["plain_ms"] = median_ms(twin)
+                row["sdpa_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn,
+                                                                                  scale=dim**-0.5))
+            row["sdpa_backend"] = sdpa_backend(q, k, v, attn)
+            row["bound_tf32x3_ms"] = flops / TF32X3_FLOPS * 1e3
+            row["bound_fma_ms"] = flops / FMA_FLOPS * 1e3
+            row["speedup_over_fma"] = row["fma_ms"] / row["ms"]
+            row["sdpa_over_kernel"] = row["sdpa_ms"] / row["ms"]
+            del attn
+        print(("ok    " if ok else "FAIL  ") + json.dumps(row))
+        failures += not ok
+        del qkv, q, k, v, mask, bias, gate
+        torch.cuda.empty_cache()
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -122,11 +251,10 @@ def main() -> int:
     failures = build()
     print(f"spilling 3xTF32 kernels: {failures}")
     gen = torch.Generator(device="cuda").manual_seed(19)
+    failures += forward_cases(gen)
     report = []
     for kname, label, bsz, heads, seq, gating, masking, timed in CASES:
-        dim = E // heads if not label.startswith("ragged") else (64 if kname == "K3" else 40)
-        if label == "Bird-MAE huge":
-            dim = 80
+        dim = case_dim(label, heads, kname)
         width = heads * dim
         qkv = torch.randn(bsz, seq, 3 * width, device="cuda", generator=gen).requires_grad_()
         dout = torch.randn(bsz, seq, width, device="cuda", generator=gen)
@@ -199,6 +327,9 @@ def main() -> int:
         report.append(row)
         del qkv, dout, mask, bias, gate, leaves, out, got, want, detached
         torch.cuda.empty_cache()
+    import chip_smoke
+
+    failures += len(chip_smoke.FAILURES)  # the FMA body's own checks before it is timed
     print(f"{failures} failure(s) on {smi}")
     return 1 if failures else 0
 

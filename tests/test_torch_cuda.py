@@ -379,7 +379,7 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
     qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
     mask = _tc_mask("mask", bsz, seq)
     sources = []
-    for name in ("_library", "_tensor_core_library"):
+    for name in ("_library", "_tensor_core_library", "_tf32x3_library"):
         real = getattr(ak, name)
         monkeypatch.setattr(ak, name, lambda *args, real=real, name=name: sources.append(name) or real(*args))
     ak.reset_launch_counts()
@@ -390,7 +390,7 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
         q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, H, D).unbind(2))
         ak.gated_bias_attention(q, k, v, None, None, mask)
     torch.cuda.synchronize()
-    assert sources == ["_tensor_core_library", "_library"] and ak.LAUNCHES["plain_attention"] == 2
+    assert sources == ["_tensor_core_library", "_tf32x3_library"] and ak.LAUNCHES["plain_attention"] == 2
 
 
 def test_tensor_core_head_width_other_than_64_raises(card):
@@ -444,23 +444,23 @@ def test_tensor_core_gated_forward_matches_twins(card, seq, bsz, masking, gated)
 
 
 def test_gated_forward_dispatch_by_type(card, monkeypatch):
-    """bf16 gated calls load the tensor-core source, fp32 ones the FMA body
-    (within 1e-4 of the twin); the bf16 gated backward (K3) runs on the
-    tensor cores too."""
+    """bf16 gated calls load the tensor-core source, fp32 ones at dh 64 the
+    3xTF32 source (within 1e-4 of the twin); the bf16 gated backward (K3)
+    runs on the tensor cores too."""
     bsz, seq = 2, 65
     qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
     bias = torch.randn(H, seq, seq, generator=card, device="cuda")
     gate = torch.rand(bsz, H, seq, generator=card, device="cuda") + 1
     mask = _tc_mask("mask", bsz, seq)
     sources = []
-    for name in ("_library", "_tensor_core_library"):
+    for name in ("_library", "_tensor_core_library", "_tf32x3_library"):
         real = getattr(ak, name)
         monkeypatch.setattr(ak, name, lambda *args, real=real, name=name: sources.append(name) or real(*args))
     with torch.no_grad():
         ak.fused_qkv_gated_attention(qkv.bfloat16(), H, bias, gate, mask)
         got = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask)
     torch.cuda.synchronize()
-    assert sources == ["_tensor_core_library", "_library"]
+    assert sources == ["_tensor_core_library", "_tf32x3_library"]
     torch.testing.assert_close(got, ak.fused_qkv_gated_reference(qkv, H, bias, gate, mask), atol=1e-4, rtol=1e-4)
     leaf = qkv.bfloat16().requires_grad_()
     sources.clear()
@@ -738,3 +738,103 @@ def test_head_width_80_gated_and_other_widths_raise(card):
     torch.cuda.synchronize()
     assert ak.LAUNCHES["fused_qkv_gated_attention"] == ak.LAUNCHES["gated_bias_attention"] == 2
     assert ak.LAUNCHES["fused_qkv_attention"] == 2
+
+
+# The fp32 forwards on the tensor cores in 3xTF32 (K1, K2, K4, K5 at a head
+# width that is a multiple of 8 up to 128 on 16-byte rows), held as
+# chip_smoke.py holds them: max|d| 1e-4 and relative L2 1e-5 against the
+# plain fp32 twin (TF32 off), NaN exactly where the twin has NaN (the mask
+# pads item 0 whole), the row log-sum-exp within 1e-5 of the twin's.
+FP32_FORWARD_SEQS = [37, 248, 513]
+
+
+def _close_fp32(got, want):
+    nan = torch.isnan(want)
+    assert got.dtype == want.dtype == torch.float32 and torch.equal(torch.isnan(got), nan)
+    g, w = got[~nan], want[~nan]
+    assert float((g - w).abs().max()) <= 1e-4 and float((g - w).norm() / w.norm()) <= 1e-5
+
+
+def _fp32_mask(masked, bsz, seq):
+    if not masked:
+        return None
+    mask = torch.zeros(bsz, seq, dtype=torch.bool, device="cuda")
+    mask[1::3, seq * 2 // 3:] = True
+    mask[0] = True
+    return mask
+
+
+@pytest.mark.parametrize("seq", FP32_FORWARD_SEQS)
+@pytest.mark.parametrize("bsz", [2, 16])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "bias_free"])
+def test_fp32_forward_on_3xtf32_matches_twin(card, seq, bsz, masked, layout, gated):
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda") if gated else None
+    gate = torch.rand(bsz, H, seq, generator=card, device="cuda") + 1 if gated else None
+    mask = _fp32_mask(masked, bsz, seq)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, H, D).unbind(2))
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        if layout == "split":
+            got = ak.gated_bias_attention(q, k, v, bias, gate, mask)
+            want = ak.gated_bias_attention_reference(q, k, v, bias, gate, mask)
+        elif gated:
+            got, want = (ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask),
+                         ak.fused_qkv_gated_reference(qkv, H, bias, gate, mask))
+        else:
+            got, want = ak.fused_qkv_attention(qkv, H, mask), ak.fused_qkv_reference(qkv, H, mask)
+    torch.cuda.synchronize()
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 1, "fma": 0} and sum(ak.LAUNCHES.values()) == 1
+    _close_fp32(got, want)
+
+
+@pytest.mark.parametrize("seq", FP32_FORWARD_SEQS)
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "bias_free"])
+def test_fp32_forward_on_3xtf32_writes_the_twins_lse(card, seq, masked, gated):
+    """Under grad K2 and K5 save the row log-sum-exp for the 3xTF32 backward:
+    within 1e-5 of ``_fused_qkv_forward_lse_reference``'s, −inf exactly where
+    a row's keys are all padded; and the output with it."""
+    bsz = 4
+    qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda").requires_grad_()
+    bias = torch.randn(H, seq, seq, generator=card, device="cuda") if gated else None
+    gate = torch.rand(bsz, H, seq, generator=card, device="cuda") + 1 if gated else None
+    mask = _fp32_mask(masked, bsz, seq)
+    out = ak.fused_qkv_gated_attention(qkv, H, bias, gate, mask) if gated else ak.fused_qkv_attention(qkv, H, mask)
+    *_, rest, lse = out.grad_fn.saved_tensors
+    want_out, want, _ = ak._fused_qkv_forward_lse_reference(qkv.detach(), H, mask, None, bias, gate)
+    torch.cuda.synchronize()
+    assert rest is None and lse.dtype == torch.float32 and lse.shape == (bsz, H, seq)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), finite) and bool((lse[~finite] == float("-inf")).all())
+    assert float((lse[finite] - want[finite]).abs().max()) <= 1e-5
+    _close_fp32(out.detach(), want_out)
+
+
+@pytest.mark.parametrize("dh,body", [(64, "tf32x3"), (16, "tf32x3"), (128, "tf32x3"), (12, "fma"), (136, "fma")])
+def test_fp32_forward_body_by_width(card, dh, body):
+    """16-byte rows of a multiple of 8 up to 128 run the 3xTF32 forward;
+    narrow rows (dh 12) and column chunks (dh 136) the FMA body, forward
+    and backward; each against its twin."""
+    bsz, seq, heads = 2, 37, 3
+    qkv = torch.randn(bsz, seq, 3 * heads * dh, generator=card, device="cuda")
+    bias = torch.randn(heads, seq, seq, generator=card, device="cuda")
+    gate = torch.rand(bsz, heads, seq, generator=card, device="cuda") + 1
+    dout = torch.randn(bsz, seq, heads * dh, generator=card, device="cuda")
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        torch.testing.assert_close(ak.gated_bias_attention(q, k, v, bias, gate),
+                                   ak.gated_bias_attention_reference(q, k, v, bias, gate), atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ak.gated_bias_attention(q, k, v, None),
+                                   ak.gated_bias_attention_reference(q, k, v, None), atol=1e-4, rtol=1e-4)
+    leaf = qkv.clone().requires_grad_()
+    out = ak.fused_qkv_attention(leaf, heads)
+    torch.testing.assert_close(out.detach(), ak.fused_qkv_reference(qkv, heads), atol=1e-4, rtol=1e-4)
+    (got,) = torch.autograd.grad(out, (leaf,), dout)
+    torch.testing.assert_close(got, ak.fused_qkv_backward_reference(qkv, heads, None, dout), atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 0, body: 3}
+    assert ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 0, body: 1}

@@ -1,7 +1,15 @@
-"""The numeric design of the fp32 K3 and K6 on the tensor cores (3xTF32),
-held to the JAX package on the CPU.
+"""The numeric design of the fp32 attention kernels on the tensor cores
+(3xTF32), forward (K1, K2, K4, K5) and backward (K3, K6), held to the JAX
+package on the CPU.
 
-On the card the fp32 backward of ``fused_qkv_attention`` (K6) and
+On the card the fp32 forward at a head width that is a multiple of 8 up to
+128 on 16-byte rows runs ``csrc/tf32x3_attention.cu``'s forward kernel: per
+key tile of 32, S = Q·Kᵀ with Q and K split into TF32 halves, the logits in
+log2 units, an online softmax, and O += P·V with P and V split the same
+way; O over the row sum at the end, and the row log-sum-exp for the
+backward. Its emulation here is held to JAX's K1, K2, K4 and K5 (interpret
+mode) at the twins' tolerance at dh 16, 64 and 80, with and without a mask
+and a gate, and one TF32 pass misses it. The fp32 backward of ``fused_qkv_attention`` (K6) and
 ``fused_qkv_gated_attention`` (K3) at a head width that is a multiple of 8 up
 to 128 on 16-byte rows runs ``csrc/tf32x3_attention.cu``: P is rebuilt from
 the row log-sum-exp the fp32 forward saved and Δ = rowsum(dO ∘ O) is taken
@@ -30,6 +38,7 @@ import jax.numpy as jnp
 
 from avex_tpu.ops.pallas_attention import fused_qkv_attention as jax_fused_plain
 from avex_tpu.ops.pallas_attention import fused_qkv_gated_attention as jax_fused
+from avex_tpu.ops.pallas_attention import gated_bias_attention as jax_split
 
 from avex_tpu_torch.ops import attention_kernels as ak
 from tests.test_torch_attention_residuals import fp32_products  # noqa: F401  (autouse: the pinned fp32 products)
@@ -240,5 +249,80 @@ def test_rebased_p_keeps_the_key_gradients_summing_to_zero():
 def test_tf32x3_rows_is_the_plan_of_the_fp32_backward(head_dim, narrow, takes):
     """The fp32 backward runs on the 3xTF32 kernels at a multiple of 8 up to
     128 on 16-byte rows, and on the FMA body otherwise (narrow rows, column
-    chunks past 128)."""
+    chunks past 128); one rule, ``kernel_body``, gives the forward's body
+    and the backward's alike: in fp32 that plan, in bf16 the tensor cores at
+    every width."""
     assert ak.tf32x3_rows(head_dim, narrow) is takes
+    assert ak.kernel_body(torch.float32, head_dim, narrow) == ("tf32x3" if takes else "fma")
+    assert ak.kernel_body(torch.bfloat16, head_dim, narrow) == "bf16"
+
+
+def forward_tf32x3(q, k, v, pos_bias, gate, mask, matmul, tile=32):
+    """The 3xTF32 forward step by step on ``[B, H, T, D]`` q, k and v, every
+    product through ``matmul``: per key tile of ``tile`` keys S = Q·Kᵀ, the
+    logits in log2 units (S·scale·log2e + gate·log2e·bias, −inf at padded
+    keys), the running row max (a shift of 0 while it is −inf), the row sum
+    and O rescaled by exp2 of the max's move, O += P·V with P unnormalised;
+    O over the row sum at the end. Returns ``(out, lse)``, the row
+    log-sum-exp in natural units."""
+    bsz, heads, seq, d = q.shape
+    c = d**-0.5 * LOG2E
+    mx = torch.full((bsz, heads, seq, 1), float("-inf"))
+    lsum = torch.zeros(bsz, heads, seq, 1)
+    acc = torch.zeros(bsz, heads, seq, d)
+    for k0 in range(0, seq, tile):
+        keys = slice(k0, min(seq, k0 + tile))
+        x = matmul(q, k[:, :, keys].transpose(-1, -2)) * c
+        if pos_bias is not None:
+            x = x + pos_bias[None, :, :, keys] * (gate[..., None] * LOG2E if gate is not None else LOG2E)
+        if mask is not None:
+            x = x.masked_fill(mask[:, None, None, keys], float("-inf"))
+        m_new = torch.maximum(mx, x.amax(dim=-1, keepdim=True))
+        shift = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        corr = torch.exp2(mx - shift)
+        p = torch.exp2(x - shift)
+        lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + matmul(p, v[:, :, keys])
+        mx = m_new
+    return acc / lsum, ((mx + torch.log2(lsum)) / LOG2E)[..., 0]
+
+
+def _jax_forward(kernel, qkv, bias, gate, mask):
+    """JAX's K1 / K4 (``gated_bias_attention`` on split q, k, v) or K2 / K5
+    (the fused kernels on ``[B, T, 3E]``) in interpret mode, as ``[B, T, E]``."""
+    if kernel in ("K2", "K5"):
+        if bias is None:
+            return np.asarray(jax_fused_plain(_j(qkv), H, _j(mask), interpret=True))
+        return np.asarray(jax_fused(_j(qkv), H, _j(bias), _j(gate), _j(mask), interpret=True))
+    bsz, seq, three_e = qkv.shape
+    q, k, v = (np.ascontiguousarray(t.transpose(0, 2, 1, 3))
+               for t in qkv.reshape(bsz, seq, 3, H, three_e // 3 // H).transpose(2, 0, 1, 3, 4))
+    out = np.asarray(jax_split(_j(q), _j(k), _j(v), _j(bias), _j(gate), _j(mask), interpret=True))
+    return out.transpose(0, 2, 1, 3).reshape(bsz, seq, three_e // 3)
+
+
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_3xtf32_forward_matches_jax_and_one_pass_misses(rng, case, layout):
+    """K1/K2 (gated) or K4/K5 (bias-free): the emulated 3xTF32 forward
+    against JAX's kernel at the twins' tolerance and the card's relative L2,
+    its row log-sum-exp against the twin's at the card's 1e-5; one TF32
+    pass misses both."""
+    dim, gating, masked, seq = case
+    qkv, _, bias, gate, mask = _inputs(rng, *case)
+    kernel = {("split", True): "K1", ("fused", True): "K2", ("split", False): "K4", ("fused", False): "K5"}[
+        layout, gating is not None]
+    want = _jax_forward(kernel, qkv, bias, gate, mask)
+    q, k, v = ak._split_heads(_t(qkv), H)
+    _, lse, _ = ak._fused_qkv_forward_lse_reference(_t(qkv), H, _t(mask), dim**-0.5, _t(bias), _t(gate))
+
+    def merged(out):
+        return out.permute(0, 2, 1, 3).reshape(want.shape).numpy()
+
+    got, got_lse = forward_tf32x3(q, k, v, _t(bias), _t(gate), _t(mask), mm_3xtf32)
+    np.testing.assert_allclose(merged(got), want, **TOL)
+    assert _rel(merged(got), want) <= CARD_REL_L2
+    np.testing.assert_allclose(got_lse.numpy(), lse.numpy(), atol=1e-5, rtol=0)
+    one_pass, _ = forward_tf32x3(q, k, v, _t(bias), _t(gate), _t(mask), mm_1xtf32)
+    assert not np.allclose(merged(one_pass), want, **TOL)
+    assert _rel(merged(one_pass), want) > 10 * CARD_REL_L2
