@@ -25,30 +25,30 @@ forward (K1, K2, K4, K5) or backward (K3, K6), launches the tensor-core
 kernels of ``csrc/tensor_core_attention.cu``, whose fused forwards also
 write the row log-sum-exp and the output's rounding rest when a backward
 will follow, so that the backward rebuilds P from the one and takes Δ from
-the forward's output and the other. Every fp32 call at a head width that is
-a multiple of 8 up to 128 on 16-byte rows (:func:`tf32x3_rows`), forward or
-backward, runs on the tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``),
-the fused forwards writing the row log-sum-exp for the backward. Every
-other fp32 call (narrow rows, column chunks past 128) runs on
-``csrc/gated_attention.cu``'s FMA body, whose backward recomputes the row
-statistics and whose forward saves nothing. Each source is gated or
-bias-free by a template flag. Every kernel, gated or not, takes any head
-width D >= 1 (:func:`width_plan`). Each source is built once for each width of
-:data:`KERNEL_WIDTHS` (its ``-DAVEX_HEAD_DIM``). Up to
-:data:`CHUNK_COLUMNS` a call runs on the smallest build that holds D, the
-extra columns zero-filled on load and never stored; past it D is cut into
-column chunks of a multiple of 8, each block owns one chunk of the output
-and sums the logits over every chunk. A call whose D or strides are not
-multiples of 8, or whose operands start off a 16-byte boundary, reads and
-writes them element by element (narrow rows, :func:`_narrow`); the wrapper
-never copies an operand to pad it. The two layouts differ only in the
+the forward's output and the other. Every fp32 backward, at every head
+width, and every fp32 forward at a head width that is a multiple of 8 up
+to 128 on 16-byte rows (:func:`tf32x3_rows`), runs on the tensor cores in
+3xTF32 (``csrc/tf32x3_attention.cu``). The other fp32 forwards (narrow rows,
+column chunks past 128) run on ``csrc/gated_attention.cu``'s FMA body. Each
+fused fp32 forward, on either body, writes the row log-sum-exp for the
+backward. Each source is gated or bias-free by a template flag. Every
+kernel, gated or not, takes any head width D >= 1 (:func:`width_plan`).
+Each source is built once for each width of :data:`KERNEL_WIDTHS` (its
+``-DAVEX_HEAD_DIM``). Up to :data:`CHUNK_COLUMNS` a call runs on the
+smallest build that holds D, the extra columns zero-filled on load and
+never stored; past it D is cut into column chunks of a multiple of 8 and
+the logits are summed over every chunk. A call whose D or strides are not
+multiples of 8, or whose operands start off a 16-byte boundary, moves them
+element by element (narrow rows, :func:`_narrow`); the wrapper never copies
+an operand to pad it. The two layouts differ only in the
 strides handed to the kernels. Each source's header states its bounds on an
 H100 and what its design does about them.
 
 A tensor on the CPU takes the plain PyTorch twin (``*_reference``, and
 autograd through it); a CUDA tensor launches the kernel or raises, forward
-and backward. Each launch adds one to :data:`LAUNCHES`, so a run can show
-that its path went through the kernel. The backward twins
+and backward (a backward whose forward saved no log-sum-exp raises). Each
+launch adds one to :data:`LAUNCHES`, so a run can show that its path went
+through the kernel. The backward twins
 (``*_backward_reference``) write K3's and K6's steps out one by one; the
 tests and ``chip_smoke.py`` hold the kernels against them.
 :func:`fused_qkv_backward_from_residuals_reference` is the twin of the
@@ -126,10 +126,8 @@ LAUNCHES: Dict[str, int] = {
 #: ``"fma"`` (fp32 on the FMA body)
 FORWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
 #: backward calls (K3 and K6 together), by body, as :data:`FORWARD_BODIES`
+#: (``"fma"`` stays 0: every fp32 backward runs in 3xTF32)
 BACKWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
-#: dQ blocks the FMA body's fp32 K3 aims to put in flight: three per SM of an
-#: H100's 132
-_DQ_TARGET_BLOCKS = 396
 #: dbias blocks of the bf16 K3 resident on an SM at once at width 64 (168
 #: registers x 128 threads, 66 KB of shared memory): its batch is split into
 #: as many chunks (summed in order after) as fill the card in one wave
@@ -222,15 +220,10 @@ def _library(head_dim: int) -> ctypes.CDLL:
     if lib.avex_gated_attention_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
-        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, *tail]
-        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, *tail]
+        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, p, *tail]
+        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, p, *tail]
         lib.avex_gated_attention_forward.restype = i
         lib.avex_plain_attention_forward.restype = i
-        lib.avex_attention_backward.argtypes = [
-            i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, i, ctypes.c_float, i, ctypes.POINTER(ctypes.c_longlong), p,
-        ]
-        lib.avex_attention_backward.restype = i
     return lib
 
 
@@ -257,7 +250,7 @@ def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
         lib.avex_tf32x3_attention_forward.argtypes = [p] * 8 + [i] * 4 + [
             ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
         lib.avex_tf32x3_attention_forward.restype = i
-        lib.avex_tf32x3_attention_backward.argtypes = [p] * 16 + [i] * 5 + [
+        lib.avex_tf32x3_attention_backward.argtypes = [p] * 16 + [i] * 7 + [
             ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
         lib.avex_tf32x3_attention_backward.restype = i
         lib.avex_tf32x3_dbias_plan.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -265,27 +258,30 @@ def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
     return lib
 
 
-def kernel_body(dtype: torch.dtype, head_dim: int, narrow: bool) -> str:
-    """The one rule for which body runs a call, forward (K1, K2, K4, K5) and
-    backward (K3, K6) alike, by the name :data:`FORWARD_BODIES` and
-    :data:`BACKWARD_BODIES` count it under. ``"bf16"``: every bf16 call, on
-    the tensor cores (``csrc/tensor_core_attention.cu``); ``"tf32x3"``: the
-    fp32 calls of :func:`tf32x3_rows`, on the tensor cores in 3xTF32
-    (``csrc/tf32x3_attention.cu``). On both the backward runs from the
-    residuals the fused forward saves (its output and row log-sum-exp).
-    ``"fma"``: the other fp32 calls (narrow rows, column chunks past 128),
-    on the FMA body, whose backward recomputes the row statistics and whose
-    forward saves nothing."""
+def kernel_body(dtype: torch.dtype, head_dim: int, narrow: bool, backward: bool = False) -> str:
+    """The one rule for which body runs a call, forward (K1, K2, K4, K5) or,
+    with ``backward``, backward (K3, K6), by the name :data:`FORWARD_BODIES`
+    and :data:`BACKWARD_BODIES` count it under. ``"bf16"``: every bf16 call,
+    on the tensor cores (``csrc/tensor_core_attention.cu``); ``"tf32x3"``:
+    every fp32 backward, and the fp32 forwards of :func:`tf32x3_rows`, on
+    the tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``). Every backward
+    runs from the residuals the fused forward saves (its output and row
+    log-sum-exp). ``"fma"``: the other fp32 forwards (narrow rows, column
+    chunks past 128), on the FMA body, which writes the row log-sum-exp as
+    well."""
     if dtype == torch.bfloat16:
         return "bf16"
-    return "tf32x3" if dtype == torch.float32 and tf32x3_rows(head_dim, narrow) else "fma"
+    if dtype == torch.float32 and (backward or tf32x3_rows(head_dim, narrow)):
+        return "tf32x3"
+    return "fma"
 
 
 def tf32x3_rows(head_dim: int, narrow: bool) -> bool:
-    """True when the fp32 calls (K1-K6) of this head width run on the tensor
-    cores in 3xTF32 (``csrc/tf32x3_attention.cu``): D a multiple of 8 up to
-    :data:`CHUNK_COLUMNS`, on 16-byte rows (not ``narrow``, :func:`_narrow`).
-    Narrow rows and the column chunks past 128 run on the FMA body."""
+    """True when the fp32 forwards (K1, K2, K4, K5) of this head width run on
+    the tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``): D a multiple
+    of 8 up to :data:`CHUNK_COLUMNS`, on 16-byte rows (not ``narrow``,
+    :func:`_narrow`). Narrow rows and the column chunks past 128 run their
+    forward on the FMA body; every fp32 backward runs in 3xTF32."""
     return head_dim % 8 == 0 and width_plan(head_dim).chunks == 1 and not narrow
 
 
@@ -552,11 +548,13 @@ def _columns(dim: int, narrow: bool) -> tuple:
     return dim, width_plan(dim).chunk_width, int(narrow)
 
 
-def _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow) -> None:
+def _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow, lse=None) -> None:
     """Launch the FMA body's fp32 forward on ``[B, H, T, D]`` views (K1/K2
     with ``pos_bias``, K4/K5 without) on the current stream; ``out`` is
-    written in place. The one place its C arguments are laid out: callers
-    check the operands (:func:`_check_operands`) and count the launch."""
+    written in place, and ``lse`` (float32 ``[B, H, T]`` contiguous, or None)
+    receives the row log-sum-exp. The one place its C arguments are laid
+    out: callers check the operands (:func:`_check_operands`) and count the
+    launch."""
     bsz, heads, seq, dim = q.shape
     views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
@@ -569,13 +567,13 @@ def _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow) 
             strides = (ctypes.c_longlong * 20)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
             err = lib.avex_gated_attention_forward(
                 _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate),
-                _ptr(key_padding_mask), out.data_ptr(), *tail, strides, stream,
+                _ptr(key_padding_mask), out.data_ptr(), _ptr(lse), *tail, strides, stream,
             )
         else:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
             err = lib.avex_plain_attention_forward(
                 _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                out.data_ptr(), *tail, strides, stream,
+                out.data_ptr(), _ptr(lse), *tail, strides, stream,
             )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
@@ -597,10 +595,10 @@ def _launch(
     bias-free one (which takes no gate either), on the body
     :func:`kernel_body` gives; returns that body's name (``"bf16"``,
     ``"tf32x3"`` or ``"fma"``). ``residuals`` = ``(lse, out_rest)`` may
-    receive the backward's residuals on the tensor cores: the row
-    log-sum-exp (float32 ``[B, H, T]`` contiguous) and, in bf16, what
-    rounding the output dropped (bf16 with ``out``'s strides; None in fp32,
-    whose output is not rounded)."""
+    receive the backward's residuals, on every body: the row log-sum-exp
+    (float32 ``[B, H, T]`` contiguous) and, in bf16, what rounding the output
+    dropped (bf16 with ``out``'s strides; None in fp32, whose output is not
+    rounded)."""
     narrow = _check_operands(q, k, v, {"out": out}, pos_bias, gate, key_padding_mask)
     bsz, heads, seq, dim = q.shape
     gated = pos_bias is not None
@@ -608,13 +606,13 @@ def _launch(
     body = kernel_body(q.dtype, dim, narrow)
     lse, out_rest = residuals if residuals is not None else (None, None)
     if residuals is not None and not (
-        body != "fma" and lse.shape == (bsz, heads, seq) and lse.dtype == torch.float32 and lse.is_contiguous()
+        lse.shape == (bsz, heads, seq) and lse.dtype == torch.float32 and lse.is_contiguous()
         and (out_rest.dtype == out.dtype and out_rest.stride() == out.stride() if bf16 else out_rest is None)
     ):
-        raise ValueError("the backward's residuals: on the tensor cores only, lse float32 [B, H, T] contiguous, "
-                         "and out_rest in out's type and layout in bf16 (None in fp32)")
+        raise ValueError("the backward's residuals: lse float32 [B, H, T] contiguous, and out_rest in out's "
+                         "type and layout in bf16 (None in fp32)")
     if body == "fma":
-        _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow)
+        _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow, lse)
         return body
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = _ptr(key_padding_mask)
@@ -660,9 +658,7 @@ def _kernel_split(q, k, v, pos_bias, gate, key_padding_mask, scale) -> torch.Ten
 def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_residuals=False):
     """Launch K2 (with ``pos_bias``) or K5; returns ``(out, residuals)``.
     ``residuals`` is ``(lse, out_rest)`` (see :func:`_launch`; ``out_rest``
-    None in fp32) when ``with_residuals`` asks for them and
-    the call runs on the tensor cores (:func:`kernel_body` not ``"fma"``),
-    else None."""
+    None in fp32) when ``with_residuals`` asks for them, else None."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     q, k, v = _split_heads(qkv, heads)
@@ -672,8 +668,7 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_resi
         return t.view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
 
     residuals = rest = None
-    if with_residuals and kernel_body(qkv.dtype, dim // heads,
-                                      any(_narrow(n, t) for n, t in (("q", q), ("k", k), ("v", v)))) != "fma":
+    if with_residuals:
         bf16 = qkv.dtype == torch.bfloat16
         residuals = (torch.empty(bsz, heads, seq, dtype=torch.float32, device=qkv.device),
                      torch.empty_like(out) if bf16 else None)
@@ -684,73 +679,13 @@ def _kernel_fused(qkv, heads, pos_bias, gate, key_padding_mask, scale, with_resi
     return out, residuals
 
 
-def _kernel_fused_backward(qkv, heads, pos_bias, gate, key_padding_mask, dout, scale):
-    """Launch the fp32 K3 (with ``pos_bias``) or K6 on the FMA body, which
-    recomputes the row statistics (the fp32 calls :func:`kernel_body` gives
-    ``"fma"``; the others also run here when their forward saved no
-    residuals); returns ``(dqkv, dbias, dgate)``. bf16 raises: its backward
-    runs from the forward's residuals only.
-
-    dq, dk and dv are written straight into the column views of one
-    ``[B, T, 3E]`` gradient, the layout the forward reads q, k and v from.
-    """
-    if qkv.dtype == torch.bfloat16:
-        raise RuntimeError("the bf16 attention backward needs the forward's residuals: run the "
-                           "forward with grad mode on and an input requiring grad")
-    bsz, seq, three_e = qkv.shape
-    dim = three_e // 3
-    gated = pos_bias is not None
-    qkv = qkv.contiguous()
-    q, k, v = _split_heads(qkv, heads)
-    dqkv = torch.empty_like(qkv)
-    dq, dk, dv = _split_heads(dqkv, heads)
-    do = dout.contiguous().view(bsz, seq, heads, dim // heads).permute(0, 2, 1, 3)
-    narrow = _check_operands(q, k, v, {"dout": do, "dq": dq, "dk": dk, "dv": dv}, pos_bias, gate,
-                             key_padding_mask)
-    f32 = dict(dtype=torch.float32, device=qkv.device)
-    stats = torch.empty(3, bsz, heads, seq, **f32)
-    dbias = part = dgate = None
-    items = 1
-    if gated:
-        tiles = -(-seq // 64)
-        # Batch items per dQ block: enough blocks to fill the card, one dbias
-        # partial per chunk of items, summed in a second pass.
-        chunks = min(bsz, -(-_DQ_TARGET_BLOCKS // (tiles * heads)))
-        items = -(-bsz // chunks)
-        chunks = -(-bsz // items)
-        dbias = torch.empty(heads, seq, seq, **f32)
-        part = torch.empty(chunks, heads, seq, seq, **f32) if chunks > 1 else None
-        dgate = torch.empty(bsz, heads, seq, **f32) if gate is not None else None
-    pad = key_padding_mask
-    views = [t.stride()[:3] for t in (q, k, v, do, dq, dk, dv)]
-    bias_strides = pos_bias.stride() if gated else (0, 0, 0)
-    gate_strides = gate.stride() if gate is not None else (0, 0, 0)
-    pad_strides = pad.stride() if pad is not None else (0, 0)
-    strides = (ctypes.c_longlong * 29)(*(s for v3 in views for s in v3), *bias_strides, *gate_strides, *pad_strides)
-
-    lib = _library(dim // heads)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.avex_attention_backward(
-            _DTYPE_CODES[qkv.dtype], int(gated), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            _ptr(pos_bias), _ptr(gate), _ptr(pad), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _ptr(part), _ptr(dbias), _ptr(dgate), stats.data_ptr(),
-            bsz, heads, seq, *_columns(dim // heads, narrow), float(scale), items, strides, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    _count(BACKWARD_BODIES, "fused_qkv_gated_attention_backward" if gated else "fused_qkv_attention_backward",
-           "fma")
-    return dqkv, dbias, dgate
-
-
 def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, scale):
     """Launch K3 (with ``pos_bias``) or K6 on the tensor cores from the
     forward's residuals: its output ``out``, row log-sum-exp ``lse`` and, in
     bf16, ``out_rest`` (what rounding the output dropped; None in fp32).
     bf16 runs ``csrc/tensor_core_attention.cu``, fp32 the 3xTF32 kernels of
-    ``csrc/tf32x3_attention.cu``; a call :func:`kernel_body` gives ``"fma"``
-    raises. Returns ``(dqkv, dbias, dgate)``, dqkv written
+    ``csrc/tf32x3_attention.cu`` at every head width (narrow rows and column
+    chunks too). Returns ``(dqkv, dbias, dgate)``, dqkv written
     straight into the column views of one ``[B, T, 3E]`` gradient."""
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
@@ -772,10 +707,7 @@ def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out,
     elif out_rest is not None:
         raise ValueError("the fp32 backward takes no out_rest: the fp32 output is not rounded")
     narrow = _check_operands(q, k, v, views, pos_bias, gate, key_padding_mask)
-    body = kernel_body(qkv.dtype, dim // heads, narrow)
-    if body == "fma":
-        raise ValueError(f"the 3xTF32 backward takes a head width that is a multiple of 8 up to {CHUNK_COLUMNS} "
-                         f"on 16-byte rows; got {dim // heads}{' on narrow rows' if narrow else ''}")
+    body = kernel_body(qkv.dtype, dim // heads, narrow, backward=True)
     if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [{bsz}, {heads}, {seq}]")
     f32 = dict(dtype=torch.float32, device=qkv.device)
@@ -821,8 +753,8 @@ def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out,
             err = _tf32x3_library(dim // heads).avex_tf32x3_attention_backward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), _ptr(pos_bias), _ptr(gate),
                 _ptr(key_padding_mask), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items, bsz, heads, seq, dim // heads,
-                float(scale), strides, stream,
+                delta.data_ptr(), _ptr(dbias), _ptr(dgate), _ptr(part), items, bsz, heads, seq,
+                *_columns(dim // heads, narrow), float(scale), strides, stream,
             )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
@@ -835,19 +767,17 @@ class _FusedQKVAttention(torch.autograd.Function):
     """CUDA tensors: K2 (with ``pos_bias``) or K5 forward, K3 or K6 backward.
 
     The residuals are the forward's inputs, as JAX keeps them
-    (``pallas_attention.py:648-650``, ``:940-944``), and, where
-    the call runs on the tensor cores (:func:`kernel_body`: bf16, and
-    fp32 at the rows of :func:`tf32x3_rows`), the forward's output and the row log-sum-exp as
-    well (in bf16 also what the output's rounding dropped): P is rebuilt
-    from the log-sum-exp and Δ taken from the output, with no pass for the
-    row statistics. The output is the tensor the caller's output projection
-    keeps for its own weight gradient, so saving it costs nothing; the
-    rounding rest costs as much again in bf16, and keeps Δ's error near
-    fp32's (PERF.md). The backward follows from the saved log-sum-exp alone:
-    without one it runs on the FMA body (fp32; bf16 raises). ``need_grad``
-    (grad mode on and an input requiring grad, decided by the caller: a
-    Function's forward always runs with grad mode
-    off) asks for the residuals; without it nothing extra is written.
+    (``pallas_attention.py:648-650``, ``:940-944``), and, on every body, the
+    forward's output and the row log-sum-exp as well (in bf16 also what the
+    output's rounding dropped): P is rebuilt from the log-sum-exp and Δ
+    taken from the output, with no pass for the row statistics. The output
+    is the tensor the caller's output projection keeps for its own weight
+    gradient, so saving it costs nothing; the rounding rest costs as much
+    again in bf16, and keeps Δ's error near fp32's (PERF.md). The backward
+    follows from the saved log-sum-exp alone, and raises without one.
+    ``need_grad`` (grad mode on and an input requiring grad, decided by the
+    caller: a Function's forward always runs with grad mode off) asks for
+    the residuals; without it nothing extra is written.
     """
 
     @staticmethod
@@ -862,14 +792,12 @@ class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, pos_bias, gate, key_padding_mask, out, out_rest, lse = ctx.saved_tensors
-        if lse is not None:
-            dqkv, dbias, dgate = _kernel_residual_backward(
-                qkv, ctx.heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, ctx.scale
-            )
-        else:
-            dqkv, dbias, dgate = _kernel_fused_backward(
-                qkv, ctx.heads, pos_bias, gate, key_padding_mask, dout, ctx.scale
-            )
+        if lse is None:
+            raise RuntimeError("the attention backward needs the forward's residuals: run the forward with grad "
+                               "mode on and an input requiring grad")
+        dqkv, dbias, dgate = _kernel_residual_backward(
+            qkv, ctx.heads, pos_bias, gate, key_padding_mask, out, lse, out_rest, dout, ctx.scale
+        )
         return dqkv, dbias, dgate, None, None, None, None
 
 
@@ -989,9 +917,9 @@ def fused_qkv_attention(
     is ``[B, T]`` bool, True = padded key. Differentiable in ``qkv``: on
     CUDA the backward is the K6 kernel, on the CPU autograd through the plain
     twin. bf16 CUDA tensors run on the tensor-core kernels
-    (``csrc/tensor_core_attention.cu``); fp32 ones at the rows of
-    :func:`tf32x3_rows` on the tensor cores in 3xTF32, forward and backward,
-    and on the FMA body otherwise.
+    (``csrc/tensor_core_attention.cu``); fp32 ones on the tensor cores in
+    3xTF32, forward (at the rows of :func:`tf32x3_rows`; on the FMA body
+    otherwise) and backward (at every width).
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)

@@ -4,8 +4,9 @@
 //   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v, and its backward
 //   bias-free: out = softmax(q·kᵀ·scale + pad) · v, and its backward
 //
-// Replaces, for fp32 operands whose head width D is a multiple of 8 up to
-// 128 on 16-byte rows, six Pallas TPU kernels of the JAX package:
+// Replaces, for fp32 operands, six Pallas TPU kernels of the JAX package
+// (the forwards at a head width D that is a multiple of 8 up to 128 on
+// 16-byte rows, the backwards at every D >= 1):
 //   - _attention_kernel            avex_tpu/ops/pallas_attention.py:126  (K1; launched at :272)
 //   - _fused_qkv_gated_kernel      avex_tpu/ops/pallas_attention.py:389  (K2; launched at :745)
 //   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4; launched at :261)
@@ -13,10 +14,10 @@
 //   - _fused_qkv_gated_bwd_kernel  avex_tpu/ops/pallas_attention.py:765  (K3; launched at :902)
 //   - _fused_qkv_bwd_kernel        avex_tpu/ops/pallas_attention.py:524  (K6; launched at :631)
 // The split (K1, K4) and fused (K2, K5) layouts are only different strides
-// to the forward. Every other fp32 call (narrow rows: D or a stride not a
-// multiple of 8, a base off 16 bytes; column chunks past 128) stays on
-// gated_attention.cu's FMA body, forward and backward alike. bf16 is
-// tensor_core_attention.cu's.
+// to the forward. The other fp32 forwards (narrow rows: D or a stride not a
+// multiple of 8, a base off 16 bytes; column chunks past 128) run on
+// gated_attention.cu's FMA body, which writes the row log-sum-exp for the
+// backward here as the forward here does. bf16 is tensor_core_attention.cu's.
 //
 // The forward, as the JAX kernels compute it in fp32: L = q·kᵀ·scale
 // (+ gate ⊙ bias), −inf at a padded key, out = softmax(L)·v (P is already
@@ -31,11 +32,13 @@
 //   dgate[b,h,t] = Σ_k bias·dL   dbias[h] = Σ_b gate ⊙ dL
 // dQ, dK and dV are written into the column views of one [B, T, 3E] gradient.
 // As the bf16 backward does, it rebuilds P from the row log-sum-exp that the
-// forward saved (the fp32 K2/K5 write it under grad) and takes
+// forward saved (the fp32 K2/K5 write it under grad, in 3xTF32 here or in
+// plain fp32 on the FMA body) and takes
 // Δ = rowsum(dO ∘ O) from the forward's fp32 output: no pass recomputes the
 // row statistics. Where the bf16 backward's roundings hide it, fp32 shows
 // that such a P sums over its row to 1 + ε, ε near 2^-24 times the largest
-// logit in log2 units, the same for every key: Σ_k dS is then Δ·ε, not 0,
+// logit in log2 units (more from the FMA body's LSE, whose logits are
+// summed in another order), the same for every key: Σ_k dS is then Δ·ε, not 0,
 // and a gradient that cancels over the keys (a key projection's weight)
 // takes all of it. So the dQ kernel also sums Σ P and Σ P·dP along its walk
 // and hands the other two kernels P / Σ P (the LSE rebased) and
@@ -73,6 +76,21 @@
 // and dP are formed by both the dQ and the dK/dV kernel), and nine for K3
 // (its dbias kernel forms them again), so it can reach at best 5/7 of the
 // bound; mma.sync reaches about two thirds of the tensor cores' rate.
+//
+// Head widths of the backward. Up to 128 (one column chunk) the dQ and
+// dK/dV kernels below take any D on the smallest build that holds it, the
+// columns D .. kD-1 zero-filled on load: on 16-byte rows in 16-byte
+// cp.async runs, on narrow rows (D or a stride not a multiple of 8, a base
+// off 16 bytes; every fp32 element is 4-byte aligned) in 4-byte cp.async
+// elements into the same double buffer, stored element by element below D;
+// a product runs ceil(D / 8) k-steps, not kD / 8. Past 128 the width comes
+// in column chunks of a multiple of 8 (the wrapper's plan) and the wide
+// kernels (tf32x3_dq_wide_kernel, tf32x3_dkv_wide_kernel, below) sum S and
+// dP over the chunks once per pair of tiles and keep dQ, or dK and dV, for
+// the whole width; the dbias kernel sums S and dP over the chunks of each
+// batch item. The rebasing (above) lets any of them run from either
+// forward's LSE: Δ' and P / Σ P are the backward's own, so Σ_k dK stays 0
+// to rounding whatever arithmetic the LSE came from.
 //
 // Design (the bf16 kernels' structure on fp32 tiles: a forward, then the
 // backward's dq_kernel / dkv_kernel / dbias_kernel / sum_chunks_kernel).
@@ -187,6 +205,25 @@ struct BwdStrides {
   long long pad[2];
 };
 
+// The columns of a backward call (the wrapper's plan,
+// attention_kernels.width_plan): head width dim in `chunks` column chunks of
+// `width` columns (the last holds what is left), each on this build's kD;
+// narrow: some row is not 16-byte aligned, and every row moves 4 bytes at a
+// time.
+struct Cols {
+  int dim = 0, width = 0, chunks = 1, narrow = 0;
+};
+
+// Columns of chunk c.
+__device__ __forceinline__ int chunk_cols(const Cols& cl, int c) { return min(cl.width, cl.dim - c * cl.width); }
+
+// k-steps of 8 columns that a product over `cols` columns (the rest
+// zero-filled) needs: at most kD / 8.
+template <int kD>
+__device__ __forceinline__ int ksteps_of(int cols) {
+  return min(kD / 8, (cols + 7) >> 3);
+}
+
 // The gated operands: fp32 bias [H, T, T] and gate [B, H, T] with their
 // element strides; gate may be null (a gate of 1).
 struct Gated {
@@ -207,42 +244,103 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
+// One fp32 element; src-size 0 (not valid) writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Rows r0 .. r0+kRows-1 of a [seq, dim] operand with row stride rs into a
-// tile, asynchronously; rows past seq and the chunks of columns dim .. kD-1
-// (dc = dim / 4 chunks are the operand's: in the fused [B, T, 3E] layout the
-// rest are the next head's) are zero-filled, the copy reading nothing.
-template <int kD, int kRows>
-__device__ __forceinline__ void load_tile(float* tile, const float* base, long long rs, int r0, int seq, int dc) {
+// Rows r0 .. r0+kRows-1 of a [seq, cols] operand with row stride rs into a
+// tile, asynchronously, by kThr threads; rows past seq and the columns cols
+// .. kD-1 (in the fused [B, T, 3E] layout the next head's, or the next
+// chunk's) are zero-filled, the copy reading nothing. 16-byte runs, or, on
+// narrow rows (cols, rs or base not 16-byte multiples), 4-byte elements.
+template <int kD, int kRows, int kThr = kThreads>
+__device__ __forceinline__ void load_tile(float* tile, const float* base, long long rs, int r0, int seq, int cols,
+                                          bool narrow) {
   constexpr int kChunks = Tile<kD>::kChunks, kLd = Tile<kD>::kLd;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
-    const bool ok = r0 + row < seq && chunk < dc;
-    const float* src = ok ? base + (long long)(r0 + row) * rs + chunk * 4 : base;
-    cp_async16(tile + row * kLd + chunk * 4, src, ok);
+  if (!narrow) {
+    const int dc = cols >> 2;
+    for (int c = threadIdx.x; c < kRows * kChunks; c += kThr) {
+      const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
+      const bool ok = r0 + row < seq && chunk < dc;
+      const float* src = ok ? base + (long long)(r0 + row) * rs + chunk * 4 : base;
+      cp_async16(tile + row * kLd + chunk * 4, src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRows * kD; e += kThr) {
+      const int row = (unsigned)e / kD, col = (unsigned)e % kD;
+      const bool ok = r0 + row < seq && col < cols;
+      const float* src = ok ? base + (long long)(r0 + row) * rs + col : base;
+      cp_async4(tile + row * kLd + col, src, ok);
+    }
   }
 }
 
-// A staged tile's rows r0 .. r0+kRows-1 (those below seq; dc chunks of 4
-// columns) to a [seq, dim] operand.
-template <int kD, int kRows>
-__device__ __forceinline__ void store_tile(float* base, long long rs, int r0, int seq, int dc, const float* tile) {
+// A staged tile's rows r0 .. r0+kRows-1 (those below seq; cols columns) to
+// a [seq, cols] operand, by kThr threads: in 16-byte runs, or element by
+// element on narrow rows.
+template <int kD, int kRows, int kThr = kThreads>
+__device__ __forceinline__ void store_tile(float* base, long long rs, int r0, int seq, int cols, bool narrow,
+                                           const float* tile) {
   constexpr int kChunks = Tile<kD>::kChunks, kLd = Tile<kD>::kLd;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
-    if (r0 + row < seq && chunk < dc)
-      *reinterpret_cast<float4*>(base + (long long)(r0 + row) * rs + chunk * 4) =
-          *reinterpret_cast<const float4*>(tile + row * kLd + chunk * 4);
+  if (!narrow) {
+    const int dc = cols >> 2;
+    for (int c = threadIdx.x; c < kRows * kChunks; c += kThr) {
+      const int row = (unsigned)c / kChunks, chunk = (unsigned)c % kChunks;
+      if (r0 + row < seq && chunk < dc)
+        *reinterpret_cast<float4*>(base + (long long)(r0 + row) * rs + chunk * 4) =
+            *reinterpret_cast<const float4*>(tile + row * kLd + chunk * 4);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRows * kD; e += kThr) {
+      const int row = (unsigned)e / kD, col = (unsigned)e % kD;
+      if (r0 + row < seq && col < cols) base[(long long)(r0 + row) * rs + col] = tile[row * kLd + col];
+    }
   }
 }
 
-// The additive key bias of keys k0 .. k0+kN-1: −inf past seq or where padded.
+// Δ = rowsum(dO ∘ O) over the dim columns of rows q0 .. q0+kRows-1 into
+// delta_s, kThr / kRows threads a row (0 past seq): float4 runs, or
+// elements on narrow rows.
+template <int kRows, int kThr>
+__device__ __forceinline__ void row_delta(float* delta_s, const float* ob, long long os, const float* dob,
+                                          long long ds, int q0, int seq, int dim, bool narrow) {
+  constexpr int kPer = kThr / kRows;
+  static_assert(kPer >= 1 && kPer <= 32 && (kPer & (kPer - 1)) == 0, "a power-of-two share of a warp a row");
+  const int r = threadIdx.x / kPer, part = threadIdx.x % kPer, qi = q0 + r;
+  float acc = 0.f;
+  if (qi < seq) {
+    const float* orow = ob + (long long)qi * os;
+    const float* drow = dob + (long long)qi * ds;
+    if (!narrow) {
+      for (int c4 = part; c4 < dim >> 2; c4 += kPer) {
+        const float4 o4 = *reinterpret_cast<const float4*>(orow + 4 * c4);
+        const float4 d4 = *reinterpret_cast<const float4*>(drow + 4 * c4);
+        acc = fmaf(o4.x, d4.x, acc);
+        acc = fmaf(o4.y, d4.y, acc);
+        acc = fmaf(o4.z, d4.z, acc);
+        acc = fmaf(o4.w, d4.w, acc);
+      }
+    } else {
+      for (int c = part; c < dim; c += kPer) acc = fmaf(orow[c], drow[c], acc);
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < kPer; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (part == 0) delta_s[r] = acc;
+}
+
+// The additive key bias of keys k0 .. k0+kRows-1: −inf past seq or where padded.
+template <int kThr = kThreads, int kRows = kN>
 __device__ __forceinline__ void load_key_bias(float* bias, const uint8_t* pad_b, long long ps, int k0, int seq) {
-  for (int i = threadIdx.x; i < kN; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows; i += kThr) {
     const int key = k0 + i;
     bias[i] = (key >= seq || (pad_b && pad_b[key * ps])) ? -INFINITY : 0.f;
   }
@@ -308,36 +406,40 @@ __device__ __forceinline__ void mma3(float* const c[kG], const Frag& a, const fl
 // blocks an SM at 64) and ran slower.
 constexpr int kUnroll = 2;
 
-// acc[16 x 8·kNB] += A · Bᵀ: A the warp's 16 rows (from row0) of tile a, B
-// the first 8·kNB rows of tile b; both kD wide, the contraction. Unless
-// kFull, only the first `live` blocks of 8 rows of b are multiplied.
-template <int kD, bool kFull>
-__device__ __forceinline__ void mma_abt(float acc[][4], const float* a, int row0, const float* b, int live) {
+// acc[16 x 8·kBlocks] += A · Bᵀ: A the warp's 16 rows (from row0) of tile
+// a, B the first 8·kBlocks rows of tile b; both kD wide, the contraction,
+// of which the first 8·ksteps columns are multiplied (ksteps_of: the rest are
+// zero). Unless kFull, only the first `live` blocks of 8 rows of b are.
+template <int kD, int kBlocks, bool kFull>
+__device__ __forceinline__ void mma_abt(float acc[][4], const float* a, int row0, const float* b, int live,
+                                        int ksteps) {
   constexpr int kLd = Tile<kD>::kLd, kU = kUnroll;
-  static_assert((kD / 8) % kU == 0, "whole unrolled groups of k-steps");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float* c[kNB];
+  float* c[kBlocks];
 #pragma unroll
-  for (int nb = 0; nb < kNB; ++nb) c[nb] = acc[nb];
-#pragma unroll 1
-  for (int k0 = 0; k0 < kD / 8; k0 += kU) {
-    const float* ap = a + (row0 + g) * kLd + 8 * k0 + t;
-    const float* bp = b + g * kLd + 8 * k0 + t;
+  for (int nb = 0; nb < kBlocks; ++nb) c[nb] = acc[nb];
+  // k-step kk: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of its 8
+  // columns; b0 (k t, n g), b1 (k t+4, n g) from row 8nb + g of the tile.
+  auto step = [&](int kk) {
+    const float* ap = a + (row0 + g) * kLd + 8 * kk + t;
+    const float* bp = b + g * kLd + 8 * kk + t;
+    const float x[4] = {ap[0], ap[8 * kLd], ap[4], ap[8 * kLd + 4]};
+    Frag f;
+    split4(x, f);
+    float bv[kBlocks][2];
 #pragma unroll
-    for (int kk = 0; kk < kU; ++kk) {
-      // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of the k-step's 8 columns
-      const float x[4] = {ap[8 * kk], ap[8 * kLd + 8 * kk], ap[8 * kk + 4], ap[8 * kLd + 8 * kk + 4]};
-      Frag f;
-      split4(x, f);
-      float bv[kNB][2];  // b0 (k t, n g), b1 (k t+4, n g): row 8nb + g of the tile
-#pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) {
-        bv[nb][0] = bp[nb * 8 * kLd + 8 * kk];
-        bv[nb][1] = bp[nb * 8 * kLd + 8 * kk + 4];
-      }
-      mma3<kNB, kFull>(c, f, bv, live);
+    for (int nb = 0; nb < kBlocks; ++nb) {
+      bv[nb][0] = bp[nb * 8 * kLd];
+      bv[nb][1] = bp[nb * 8 * kLd + 4];
     }
+    mma3<kBlocks, kFull>(c, f, bv, live);
+  };
+#pragma unroll 1
+  for (int k0 = 0; k0 + kU <= ksteps; k0 += kU) {
+#pragma unroll
+    for (int kk = 0; kk < kU; ++kk) step(k0 + kk);
   }
+  if (ksteps % kU) step(ksteps - 1);  // an odd count (a narrow or chunked width)
 }
 
 // acc[16 x kD] += P · B: P [16 x kN] in the accumulator layout (p[kk] its
@@ -378,11 +480,66 @@ __device__ __forceinline__ void mma_ab(float acc[][4], const float p[][4], const
 }
 
 template <int kD>
-__device__ __forceinline__ void mma_abt_live(float acc[][4], const float* a, int row0, const float* b, int live) {
+__device__ __forceinline__ void mma_abt_live(float acc[][4], const float* a, int row0, const float* b, int live,
+                                             int ksteps) {
   if (live == kNB)
-    mma_abt<kD, true>(acc, a, row0, b, live);
+    mma_abt<kD, kNB, true>(acc, a, row0, b, live, ksteps);
   else
-    mma_abt<kD, false>(acc, a, row0, b, live);
+    mma_abt<kD, kNB, false>(acc, a, row0, b, live, ksteps);
+}
+
+// acc1[j] += A1 · B1ᵀ and acc2[j] += A2 · B2ᵀ over one column chunk (S and
+// dP, or Sᵀ and dPᵀ) for kBlocks blocks of 8 rows of b1 and b2 (unless
+// kFull only the first `live`): A1 and A2 the warp's 16 rows (from row0) of
+// a1 and a2, the first ksteps k-steps. The two products' k-steps run
+// interleaved, so that 2·kBlocks independent accumulators stand between two
+// products that add into one; each accumulator sums lo·hi, hi·lo, hi·hi a
+// k-step in order, as mma3 does, so the sums are mma_abt's. Used where the
+// warps are few (the general route's kernels): the products wait less.
+template <int kD, int kBlocks, bool kFull>
+__device__ __forceinline__ void mma_abt_two(float acc1[][4], const float* a1, const float* b1, float acc2[][4],
+                                            const float* a2, const float* b2, int row0, int live, int ksteps) {
+  constexpr int kLd = Tile<kD>::kLd;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* ap1 = a1 + (row0 + g) * kLd + t;
+  const float* ap2 = a2 + (row0 + g) * kLd + t;
+  const float* bp1 = b1 + g * kLd + t;
+  const float* bp2 = b2 + g * kLd + t;
+#pragma unroll 2
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const int o = 8 * kk;
+    const float x1[4] = {ap1[o], ap1[8 * kLd + o], ap1[o + 4], ap1[8 * kLd + o + 4]};
+    const float x2[4] = {ap2[o], ap2[8 * kLd + o], ap2[o + 4], ap2[8 * kLd + o + 4]};
+    Frag f1, f2;
+    split4(x1, f1);
+    split4(x2, f2);
+    uint32_t h1[kBlocks][2], l1[kBlocks][2], h2[kBlocks][2], l2[kBlocks][2];
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        split(bp1[j * 8 * kLd + o + 4 * e], h1[j][e], l1[j][e]);
+        split(bp2[j * 8 * kLd + o + 4 * e], h2[j][e], l2[j][e]);
+      }
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j)
+      if (kFull || j < live) {
+        mma(acc1[j], f1.lo, h1[j][0], h1[j][1]);
+        mma(acc2[j], f2.lo, h2[j][0], h2[j][1]);
+      }
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j)
+      if (kFull || j < live) {
+        mma(acc1[j], f1.hi, l1[j][0], l1[j][1]);
+        mma(acc2[j], f2.hi, l2[j][0], l2[j][1]);
+      }
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j)
+      if (kFull || j < live) {
+        mma(acc1[j], f1.hi, h1[j][0], h1[j][1]);
+        mma(acc2[j], f2.hi, h2[j][0], h2[j][1]);
+      }
+  }
 }
 
 template <int kD>
@@ -473,12 +630,12 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   const float* vb = v + b * s.v[0] + h * s.v[1];
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const int n_tiles = (seq + kN - 1) / kN;
-  const int dc = dim >> 2;
+  constexpr int ks = kD / 8;  // every k-step of the build: columns dim .. kD-1 are zero and add 0
   const float c = scale * kLog2e;
 
-  load_tile<kD, kOwn>(q_s, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dc);
-  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dc);
-  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dc);
+  load_tile<kD, kOwn>(q_s, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dim, false);
+  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dim, false);
+  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dim, false);
   load_key_bias(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
@@ -496,8 +653,8 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kN;
-      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dc);
-      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dc);
+      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dim, false);
+      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dim, false);
       load_key_bias(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -512,7 +669,7 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
       if (kGated) fetch_bias(bf, gd, h, q0 + row0, it * kN, seq);
       float sc[kNB][4];
       zero<kN>(sc);
-      mma_abt_live<kD>(sc, q_s, row0, k_s + buf * TL::kTile, live);  // S = Q·Kᵀ
+      mma_abt_live<kD>(sc, q_s, row0, k_s + buf * TL::kTile, live, ks);  // S = Q·Kᵀ
       // The logits in log2 units, as the dQ kernel forms them; the row max.
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -573,16 +730,20 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     stage<kD>(q_s, row0, acc);  // the warp's own rows of Q's tile, which it alone read
   }
   __syncthreads();
-  store_tile<kD, kOwn>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dc, q_s);
+  store_tile<kD, kOwn>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dim, false, q_s);
 }
 
-// The dQ kernel: one block per (query tile of 64, head, item).
-template <int kD, bool kGated>
+// The dQ kernel: one block per (query tile of 64, head, item), at a width
+// of one column chunk, on 16-byte rows or (kNarrow) narrow rows. On 16-byte
+// rows it runs kD / 8 k-steps whatever D is (the zero columns add 0), so
+// that the 16-byte rows' code does not change with the narrow rows'; narrow
+// rows run ceil(D / 8).
+template <int kD, bool kGated, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<kD>)
 tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ out, const float* __restrict__ dout, const uint8_t* __restrict__ pad,
                  const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
-                 float* __restrict__ dgate, int heads, int seq, int dim, float scale, BwdStrides s, Gated gd) {
+                 float* __restrict__ dgate, int heads, int seq, float scale, BwdStrides s, Gated gd, Cols cl) {
   using TL = Tile<kD>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);  // [64][kLd]
@@ -604,36 +765,20 @@ tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const long long stat0 = ((long long)b * heads + h) * seq;
   const int n_tiles = (seq + kN - 1) / kN;
-  const int dc = dim >> 2;
+  const int dim = cl.dim, ks = kNarrow ? ksteps_of<kD>(dim) : kD / 8;
+  constexpr bool narrow = kNarrow;
   const float c = scale * kLog2e;
 
-  load_tile<kD, kOwn>(q_s, qb, s.q[2], q0, seq, dc);
-  load_tile<kD, kOwn>(do_s, dob, s.dout[2], q0, seq, dc);
-  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dc);
-  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dc);
+  load_tile<kD, kOwn>(q_s, qb, s.q[2], q0, seq, dim, narrow);
+  load_tile<kD, kOwn>(do_s, dob, s.dout[2], q0, seq, dim, narrow);
+  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dim, narrow);
+  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dim, narrow);
   load_key_bias(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
   // Δ = rowsum(dO ∘ O) for the block's rows, two threads a row, while the
   // first tiles arrive.
-  {
-    const int r = threadIdx.x >> 1, part = threadIdx.x & 1, qi = q0 + r;
-    float acc = 0.f;
-    if (qi < seq) {
-      const float* orow = out + b * s.o[0] + h * s.o[1] + (long long)qi * s.o[2];
-      const float* drow = dob + (long long)qi * s.dout[2];
-      for (int c4 = part; c4 < dc; c4 += 2) {
-        const float4 o4 = *reinterpret_cast<const float4*>(orow + 4 * c4);
-        const float4 d4 = *reinterpret_cast<const float4*>(drow + 4 * c4);
-        acc = fmaf(o4.x, d4.x, acc);
-        acc = fmaf(o4.y, d4.y, acc);
-        acc = fmaf(o4.z, d4.z, acc);
-        acc = fmaf(o4.w, d4.w, acc);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (part == 0) delta_s[r] = acc;
-  }
+  row_delta<kOwn, kThreads>(delta_s, out + b * s.o[0] + h * s.o[1], s.o[2], dob, s.dout[2], q0, seq, dim, narrow);
   // This lane's rows g and g+8: LSE in log2 units (+inf past seq: P = 0), Δ,
   // and for the gated variant gate·log2e and its part of dgate; its parts of
   // the row sums Σ P, Σ P·dP and (gated) Σ bias·P.
@@ -653,8 +798,8 @@ tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kN;
-      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dc);
-      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dc);
+      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dim, narrow);
+      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dim, narrow);
       load_key_bias(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -677,8 +822,8 @@ tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const
       float sc[kNB][4], dp[kNB][4];
       zero<kN>(sc);
       zero<kN>(dp);
-      mma_abt_live<kD>(sc, q_s, row0, kt, live);                    // S = Q·Kᵀ
-      mma_abt_live<kD>(dp, do_s, row0, v_s + buf * TL::kTile, live);  // dP = dO·Vᵀ
+      mma_abt_live<kD>(sc, q_s, row0, kt, live, ks);                    // S = Q·Kᵀ
+      mma_abt_live<kD>(dp, do_s, row0, v_s + buf * TL::kTile, live, ks);  // dP = dO·Vᵀ
 #pragma unroll
       for (int j = 0; j < kNB; ++j)
 #pragma unroll
@@ -742,16 +887,18 @@ tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     stage<kD>(q_s, row0, acc);
   }
   __syncthreads();
-  store_tile<kD, kOwn>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, dc, q_s);
+  store_tile<kD, kOwn>(dq + b * s.dq[0] + h * s.dq[1], s.dq[2], q0, seq, dim, narrow, q_s);
 }
 
-// The dK/dV kernel: one block per (key tile of 64, head, item).
-template <int kD, bool kGated>
+// The dK/dV kernel: one block per (key tile of 64, head, item), at a width
+// of one column chunk, on 16-byte rows or (kNarrow) narrow rows, k-steps as
+// the dQ kernel's.
+template <int kD, bool kGated, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<kD>)
 tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse2,
                   const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int heads,
-                  int seq, int dim, float scale, BwdStrides s, Gated gd) {
+                  int seq, float scale, BwdStrides s, Gated gd, Cols cl) {
   using TL = Tile<kD>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* k_s = reinterpret_cast<float*>(smem);  // [64][kLd]
@@ -770,7 +917,8 @@ tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
   const float* dob = dout + b * s.dout[0] + h * s.dout[1];
   const long long stat0 = ((long long)b * heads + h) * seq;
   const int n_tiles = (seq + kN - 1) / kN;
-  const int dc = dim >> 2;
+  const int dim = cl.dim, ks = kNarrow ? ksteps_of<kD>(dim) : kD / 8;
+  constexpr bool narrow = kNarrow;
   const float c = scale * kLog2e;
 
   // The statistics of queries q0 .. q0+kN-1 (the dQ kernel's rebased LSE
@@ -785,10 +933,10 @@ tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
     }
   };
 
-  load_tile<kD, kOwn>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dc);
-  load_tile<kD, kOwn>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dc);
-  load_tile<kD, kN>(q_s, qb, s.q[2], 0, seq, dc);
-  load_tile<kD, kN>(do_s, dob, s.dout[2], 0, seq, dc);
+  load_tile<kD, kOwn>(k_s, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dim, narrow);
+  load_tile<kD, kOwn>(v_s, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dim, narrow);
+  load_tile<kD, kN>(q_s, qb, s.q[2], 0, seq, dim, narrow);
+  load_tile<kD, kN>(do_s, dob, s.dout[2], 0, seq, dim, narrow);
   load_stats(0, 0);
   cp_async_commit();
 
@@ -808,8 +956,8 @@ tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, q0n = (it + 1) * kN;
-      load_tile<kD, kN>(q_s + nxt * TL::kTile, qb, s.q[2], q0n, seq, dc);
-      load_tile<kD, kN>(do_s + nxt * TL::kTile, dob, s.dout[2], q0n, seq, dc);
+      load_tile<kD, kN>(q_s + nxt * TL::kTile, qb, s.q[2], q0n, seq, dim, narrow);
+      load_tile<kD, kN>(do_s + nxt * TL::kTile, dob, s.dout[2], q0n, seq, dim, narrow);
       load_stats(nxt, q0n);
       cp_async_commit();
       cp_async_wait<1>();
@@ -839,7 +987,7 @@ tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
       }
       float st[kNB][4];
       zero<kN>(st);
-      mma_abt_live<kD>(st, k_s, row0, qt, live);  // Sᵀ = K·Qᵀ
+      mma_abt_live<kD>(st, k_s, row0, qt, live, ks);  // Sᵀ = K·Qᵀ
 #pragma unroll
       for (int j = 0; j < kNB; ++j)
 #pragma unroll
@@ -852,7 +1000,7 @@ tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
       mma_ab_live<kD>(dv_acc, st, dot, live);  // dV += Pᵀ·dO
       float dpt[kNB][4];
       zero<kN>(dpt);
-      mma_abt_live<kD>(dpt, v_s, row0, dot, live);  // dPᵀ = V·dOᵀ
+      mma_abt_live<kD>(dpt, v_s, row0, dot, live, ks);  // dPᵀ = V·dOᵀ
 #pragma unroll
       for (int j = 0; j < kNB; ++j)
 #pragma unroll
@@ -867,21 +1015,26 @@ tf32x3_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
     stage<kD>(v_s, row0, dv_acc);
   }
   __syncthreads();
-  store_tile<kD, kOwn>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, dc, k_s);
-  store_tile<kD, kOwn>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, dc, v_s);
+  store_tile<kD, kOwn>(dk + b * s.dk[0] + h * s.dk[1], s.dk[2], k0, seq, dim, narrow, k_s);
+  store_tile<kD, kOwn>(dv + b * s.dv[0] + h * s.dv[1], s.dv[2], k0, seq, dim, narrow, v_s);
 }
 
 // The gated dbias over one chunk of `items` batch items: one block per
 // (query tile of 64, key tile of kN, head, chunk), blockIdx.z = chunk ·
-// heads + h. It walks its items in order with the next item's tiles in
-// flight, rebuilds S and dP, P from the LSE and dL with the Δ' the dQ
-// kernel wrote, keeps Σ gate ⊙ dL in registers and writes it to out[chunk].
-template <int kD>
+// heads + h. It walks its items in order, and each item's column chunks
+// (one at a width up to 128), with the next step's tiles in flight; it
+// sums S and dP over the column chunks, rebuilds P from the LSE and dL with
+// the Δ' the dQ kernel wrote, keeps Σ gate ⊙ dL in registers and writes it
+// to out[chunk]. kMode: 0, 16-byte rows of one chunk (kD / 8 k-steps, code
+// that the other modes leave unchanged); 1, narrow rows of one chunk; 2, column chunks
+// (S and dP interleaved: at one block of 4 warps an SM they wait less; on
+// the narrow rows' small builds their registers would cost a block an SM).
+template <int kD, int kMode>
 __global__ void __launch_bounds__(kThreads, kDbiasMinBlocks<kD>)
 tf32x3_dbias_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                     const float* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse2,
                     const float* __restrict__ delta, float* __restrict__ out, int batch, int items, int heads,
-                    int seq, int dim, float scale, BwdStrides s, Gated gd) {
+                    int seq, float scale, BwdStrides s, Gated gd, Cols cl) {
   using TL = Tile<kD>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);  // [2][64][kLd]
@@ -898,17 +1051,22 @@ tf32x3_dbias_kernel(const float* __restrict__ q, const float* __restrict__ k, co
   const int row0 = warp * 16;
   const bool active = q0 + row0 < seq;
   const int live = live_blocks(k0, seq);
-  const int b0 = chunk * items, b_end = min(batch, b0 + items);
-  const int dc = dim >> 2;
+  constexpr bool kGeneral = kMode != 0;
+  const int b0 = chunk * items, b_end = min(batch, b0 + items), n = kMode == 2 ? cl.chunks : 1;
+  const int n_steps = (b_end - b0) * n;  // (item, column chunk) in order
+  const bool narrow = kGeneral && cl.narrow;
   const float c = scale * kLog2e;
 
-  // Item b's tiles and row statistics into slot `slot`; rows past seq get an
-  // LSE of +inf (P = 0) and a Δ of 0.
-  auto issue = [&](int slot, int b) {
-    load_tile<kD, kOwn>(q_s + slot * TL::kOwnTile, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dc);
-    load_tile<kD, kOwn>(do_s + slot * TL::kOwnTile, dout + b * s.dout[0] + h * s.dout[1], s.dout[2], q0, seq, dc);
-    load_tile<kD, kN>(k_s + slot * TL::kTile, k + b * s.k[0] + h * s.k[1], s.k[2], k0, seq, dc);
-    load_tile<kD, kN>(v_s + slot * TL::kTile, v + b * s.v[0] + h * s.v[1], s.v[2], k0, seq, dc);
+  // Step st's tiles (item b0 + st / n, column chunk st % n) and the item's
+  // row statistics into slot `slot`; rows past seq get an LSE of +inf
+  // (P = 0) and a Δ of 0.
+  auto prefetch = [&](int slot, int st) {
+    const int b = b0 + st / n, cc = st % n, col = cc * cl.width, cols = chunk_cols(cl, cc);
+    load_tile<kD, kOwn>(q_s + slot * TL::kOwnTile, q + b * s.q[0] + h * s.q[1] + col, s.q[2], q0, seq, cols, narrow);
+    load_tile<kD, kOwn>(do_s + slot * TL::kOwnTile, dout + b * s.dout[0] + h * s.dout[1] + col, s.dout[2], q0, seq,
+                        cols, narrow);
+    load_tile<kD, kN>(k_s + slot * TL::kTile, k + b * s.k[0] + h * s.k[1] + col, s.k[2], k0, seq, cols, narrow);
+    load_tile<kD, kN>(v_s + slot * TL::kTile, v + b * s.v[0] + h * s.v[1] + col, s.v[2], k0, seq, cols, narrow);
     load_key_bias(kbias_s + slot * kN, pad ? pad + b * s.pad[0] : nullptr, s.pad[1], k0, seq);
     const long long stat0 = ((long long)b * heads + h) * seq;
     for (int i = threadIdx.x; i < kOwn; i += kThreads) {
@@ -919,17 +1077,17 @@ tf32x3_dbias_kernel(const float* __restrict__ q, const float* __restrict__ k, co
     }
   };
 
-  issue(0, b0);
+  prefetch(0, 0);
   cp_async_commit();
   float bf[kNB][4];  // the tile's bias, the same for every item
   fetch_bias(bf, gd, h, q0 + row0, k0, seq);
 
-  float acc[kNB][4];
+  float acc[kNB][4], sc[kNB][4], dp[kNB][4];
   zero<kN>(acc);
-  for (int b = b0; b < b_end; ++b) {
-    const int buf = (b - b0) & 1;
-    if (b + 1 < b_end) {
-      issue(buf ^ 1, b + 1);
+  for (int st = 0; st < n_steps; ++st) {
+    const int buf = st & 1, cc = st % n;
+    if (st + 1 < n_steps) {
+      prefetch(buf ^ 1, st + 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -937,31 +1095,44 @@ tf32x3_dbias_kernel(const float* __restrict__ q, const float* __restrict__ k, co
     }
     __syncthreads();
     if (active) {
-      float sc[kNB][4], dp[kNB][4];
-      zero<kN>(sc);
-      zero<kN>(dp);
-      mma_abt_live<kD>(sc, q_s + buf * TL::kOwnTile, row0, k_s + buf * TL::kTile, live);   // S = Q·Kᵀ
-      mma_abt_live<kD>(dp, do_s + buf * TL::kOwnTile, row0, v_s + buf * TL::kTile, live);  // dP = dO·Vᵀ
-      const float* kbias = kbias_s + buf * kN;
-      float lse2[2], dlt[2], gv[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = buf * kOwn + row0 + g + 8 * i;
-        lse2[i] = lse_s[r];
-        dlt[i] = dl_s[r];
-        gv[i] = g_s[r];
+      if (cc == 0) {
+        zero<kN>(sc);
+        zero<kN>(dp);
       }
+      const float *qt = q_s + buf * TL::kOwnTile, *kt = k_s + buf * TL::kTile;
+      const float *dot = do_s + buf * TL::kOwnTile, *vt = v_s + buf * TL::kTile;
+      const int ks = kGeneral ? ksteps_of<kD>(chunk_cols(cl, cc)) : kD / 8;
+      if constexpr (kMode == 2) {  // S += Q_c·K_cᵀ and dP += dO_c·V_cᵀ, interleaved
+        if (live == kNB)
+          mma_abt_two<kD, kNB, true>(sc, qt, kt, dp, dot, vt, row0, live, ks);
+        else
+          mma_abt_two<kD, kNB, false>(sc, qt, kt, dp, dot, vt, row0, live, ks);
+      } else {
+        mma_abt_live<kD>(sc, qt, row0, kt, live, ks);   // S = Q·Kᵀ
+        mma_abt_live<kD>(dp, dot, row0, vt, live, ks);  // dP = dO·Vᵀ
+      }
+      if (cc == n - 1) {
+        const float* kbias = kbias_s + buf * kN;
+        float lse2[2], dlt[2], gv[2];
 #pragma unroll
-      for (int j = 0; j < kNB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float x = fmaf(sc[j][e], c, bf[j][e] * (gv[i] * kLog2e) + kbias[8 * j + 2 * t + (e & 1)]);
-          const float dlv = exp2_approx(x - lse2[i]) * (dp[j][e] - dlt[i]);  // dL
-          acc[j][e] = fmaf(gv[i], dlv, acc[j][e]);
+        for (int i = 0; i < 2; ++i) {
+          const int r = buf * kOwn + row0 + g + 8 * i;
+          lse2[i] = lse_s[r];
+          dlt[i] = dl_s[r];
+          gv[i] = g_s[r];
         }
+#pragma unroll
+        for (int j = 0; j < kNB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float x = fmaf(sc[j][e], c, bf[j][e] * (gv[i] * kLog2e) + kbias[8 * j + 2 * t + (e & 1)]);
+            const float dlv = exp2_approx(x - lse2[i]) * (dp[j][e] - dlt[i]);  // dL
+            acc[j][e] = fmaf(gv[i], dlv, acc[j][e]);
+          }
+      }
     }
-    __syncthreads();  // every warp is done with this item's buffers
+    __syncthreads();  // every warp is done with this step's buffers
   }
 
   if (active) {
@@ -978,6 +1149,526 @@ tf32x3_dbias_kernel(const float* __restrict__ q, const float* __restrict__ k, co
           if (key < seq) base[(long long)qi * seq + key] = acc[j][2 * i + e];
         }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Column chunks past 128 (the kD >= 80 builds): the dQ and dK/dV kernels of
+// a width cut into chunks. A block of eight warps owns 32 rows in two
+// groups of 16; four warps share a group. Per streamed tile of kWN = 64
+// rows, phase 1 walks the column chunks (each step brings the chunk of the
+// own rows and of the tile) and sums S and dP over them, each warp its
+// 16 x 16 slice (keys or queries 16cw .. 16cw + 15 of the tile); the
+// slices of dS (and Pᵀ) meet in shared memory; phase 2 walks the block's
+// own column chunks again (each step brings the tile's chunk) and adds
+// dS·K (or Pᵀ·dO and dSᵀ·Q) into accumulators that cover the whole width,
+// each warp blocks cw, cw + 4, ... of 8 columns of every chunk. So S and dP
+// are formed once per (row tile, streamed tile), and a thread's
+// accumulators come to 4·kPer floats a chunk (16 at kD = 128, 12 at 80 and
+// 96). A block accumulates at most kMaxChunks chunks (a width up to 512); a
+// wider head runs in groups of them, each group forming S and dP again.
+// At one block of eight warps an SM (their registers and shared memory) the
+// kernels wait on their own products more than on memory, so the design
+// buys independent work: the streamed tile is 64 rows, not the one-chunk
+// kernels' 32 (a 16 x 8 slice a warp was too little between two barriers:
+// K6 at dh 320 11.96 against 8.82 ms), S and dP run interleaved, as do
+// dV and dK, and the dQ kernel's phase 2 takes two chunks a step (PERF.md;
+// a third cp.async stage did not help).
+// ---------------------------------------------------------------------------
+constexpr int kWWarps = 8;
+constexpr int kWThreads = 32 * kWWarps;
+constexpr int kWOwn = 32;       // rows a block owns
+constexpr int kWN = 64;         // rows of a streamed tile
+constexpr int kWNB = kWN / 8;   // its blocks of 8 rows
+constexpr int kMaxChunks = 4;  // even: the dQ kernel's phase 2 takes its chunks in pairs
+constexpr int kXLd = kWN + 8;  // row stride of an exchanged [32 x kWN] tile: float2 moves free of bank conflicts
+
+template <int kD>
+struct Wide {
+  static constexpr int kLd = Tile<kD>::kLd;
+  static constexpr int kBlocks = kD / 8;          // blocks of 8 columns of a chunk
+  static constexpr int kPer = (kBlocks + 3) / 4;  // a warp's: cw, cw + 4, ...
+  static constexpr int kOwnTile = kWOwn * kLd;
+  static constexpr int kTile = kWN * kLd;
+  static constexpr int kSlot = 2 * kOwnTile + 2 * kTile;  // a step's four tiles: two own, two streamed
+  static constexpr size_t kDqSmem =
+      sizeof(float) * (2 * kSlot + kWOwn * kXLd + 2 * kWN + kWOwn + 16 * kWOwn + kMaxChunks * kD);
+  static constexpr size_t kDkvSmem = sizeof(float) * (2 * kSlot + 2 * kWOwn * kXLd + 6 * kWN);
+};
+
+// Blocks of 8 rows of the streamed tile at r0 that hold a row below seq.
+__device__ __forceinline__ int live_blocks_w(int r0, int seq) { return min(kWNB, (seq - r0 + 7) >> 3); }
+
+// This warp's 16 x 16 slice (rows from row0, columns 16cw ..) of an
+// exchanged tile, from its accumulators a[j] (block 2cw + j: rows g and
+// g + 8, columns 2t and 2t + 1).
+__device__ __forceinline__ void write_slice(float* x, int row0, int cw, const float a[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int col = 16 * cw + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(x + (row0 + g) * kXLd + col) = make_float2(a[j][0], a[j][1]);
+    *reinterpret_cast<float2*>(x + (row0 + g + 8) * kXLd + col) = make_float2(a[j][2], a[j][3]);
+  }
+}
+
+// mma_abt_two on the warp's blocks below seq of the streamed tiles at r0.
+template <int kD>
+__device__ __forceinline__ void mma_abt_pair(float acc1[2][4], const float* a1, const float* b1, float acc2[2][4],
+                                             const float* a2, const float* b2, int row0, int cw, int r0, int seq,
+                                             int ksteps) {
+  const int live = min(2, max(0, (seq - r0 - 16 * cw + 7) >> 3));
+  const int off = 16 * cw * Tile<kD>::kLd;
+  if (live == 2)
+    mma_abt_two<kD, 2, true>(acc1, a1, b1 + off, acc2, a2, b2 + off, row0, live, ksteps);
+  else if (live == 1)
+    mma_abt_two<kD, 2, false>(acc1, a1, b1 + off, acc2, a2, b2 + off, row0, live, ksteps);
+}
+
+// acc1[j] += P1 · B1 and acc2[j] += P2 · B2 over the columns of blocks cw + 4j
+// of B1 and B2 (dV += Pᵀ·dO and dK += dSᵀ·Q, or dS·K for two column
+// chunks), interleaved: 2·kPer independent accumulators, each summing lo·hi,
+// hi·lo, hi·hi a k-step in order. P1 and P2: the warp's 16 rows (from row0)
+// of exchanged [32 x kWN] tiles, read a block of 8 at a time in the
+// accumulator layout (columns 2t, 2t + 1 of rows g, g + 8); B1 and B2 the
+// tiles' kWN rows (the contraction, permuted inside each block of 8 as
+// mma_ab permutes it) by kD columns. Only the blocks of columns below
+// blocks1 / blocks2 (the chunks'; 0: none) and of rows below `live`.
+template <int kD>
+__device__ __forceinline__ void mma_ab_part2(float acc1[][4], const float* x1, const float* b1, float acc2[][4],
+                                             const float* x2, const float* b2, int row0, int live, int cw,
+                                             int blocks1, int blocks2) {
+  using W = Wide<kD>;
+  constexpr int kLd = W::kLd, kPer = W::kPer;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mine1 = min(kPer, (blocks1 - cw + 3) >> 2), mine2 = min(kPer, (blocks2 - cw + 3) >> 2);
+  if (mine1 <= 0 && mine2 <= 0) return;
+  const float* bp1 = b1 + 2 * t * kLd + g;
+  const float* bp2 = b2 + 2 * t * kLd + g;
+  const float* xp1 = x1 + (row0 + g) * kXLd + 2 * t;
+  const float* xp2 = x2 + (row0 + g) * kXLd + 2 * t;
+#pragma unroll 2
+  for (int kk = 0; kk < live; ++kk) {
+    const float2 lo1 = *reinterpret_cast<const float2*>(xp1 + 8 * kk);
+    const float2 hi1 = *reinterpret_cast<const float2*>(xp1 + 8 * kXLd + 8 * kk);
+    const float2 lo2 = *reinterpret_cast<const float2*>(xp2 + 8 * kk);
+    const float2 hi2 = *reinterpret_cast<const float2*>(xp2 + 8 * kXLd + 8 * kk);
+    const float x4a[4] = {lo1.x, hi1.x, lo1.y, hi1.y}, x4b[4] = {lo2.x, hi2.x, lo2.y, hi2.y};
+    Frag f1, f2;
+    split4(x4a, f1);
+    split4(x4b, f2);
+    uint32_t h1[kPer][2], l1[kPer][2], h2[kPer][2], l2[kPer][2];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int nb = min(cw + 4 * j, W::kBlocks - 1);  // a block past the chunk is read, not used
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        split(bp1[(8 * kk + e) * kLd + 8 * nb], h1[j][e], l1[j][e]);
+        split(bp2[(8 * kk + e) * kLd + 8 * nb], h2[j][e], l2[j][e]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (j < mine1) mma(acc1[j], f1.lo, h1[j][0], h1[j][1]);
+      if (j < mine2) mma(acc2[j], f2.lo, h2[j][0], h2[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (j < mine1) mma(acc1[j], f1.hi, l1[j][0], l1[j][1]);
+      if (j < mine2) mma(acc2[j], f2.hi, l2[j][0], l2[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (j < mine1) mma(acc1[j], f1.hi, h1[j][0], h1[j][1]);
+      if (j < mine2) mma(acc2[j], f2.hi, h2[j][0], h2[j][1]);
+    }
+  }
+}
+
+// The dQ kernel of a chunked width: one block per (query tile of 32, head
+// and group of column chunks, item).
+template <int kD, bool kGated>
+__global__ void __launch_bounds__(kWThreads, 1)
+tf32x3_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ out, const float* __restrict__ dout, const uint8_t* __restrict__ pad,
+                      const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
+                      float* __restrict__ dgate, int heads, int seq, float scale, BwdStrides s, Gated gd, Cols cl) {
+  using W = Wide<kD>;
+  constexpr int kLd = W::kLd, kPer = W::kPer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* slots = reinterpret_cast<float*>(smem);  // [2]: Q_c, dO_c [32][kLd]; K_c, V_c [64][kLd] (phase 2: K_j)
+  float* ds_s = slots + 2 * W::kSlot;             // [32][kXLd]: dS of the key tile
+  float* kbias_s = ds_s + kWOwn * kXLd;           // [2][kWN]
+  float* delta_s = kbias_s + 2 * kWN;             // [32]
+  float* red_s = delta_s + kWOwn;                 // [4 sums][4 warps][32 rows]
+  float* kbar_s = red_s + 16 * kWOwn;             // [kMaxChunks][kD], the keys' mean
+
+  const int groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+  const int q0 = blockIdx.x * kWOwn, h = blockIdx.y / groups, grp = blockIdx.y % groups, b = blockIdx.z;
+  const int n = cl.chunks, c_lo = grp * kMaxChunks, owned = min(kMaxChunks, n - c_lo);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cw = warp & 3, row0 = 16 * (warp >> 2);
+  const bool active = q0 + row0 < seq;  // warp-uniform: the row group has a query below seq
+  const float* qb = q + b * s.q[0] + h * s.q[1];
+  const float* kb = k + b * s.k[0] + h * s.k[1];
+  const float* vb = v + b * s.v[0] + h * s.v[1];
+  const float* dob = dout + b * s.dout[0] + h * s.dout[1];
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const long long stat0 = ((long long)b * heads + h) * seq;
+  const int per_tile = n + (owned + 1) / 2, n_steps = (seq + kWN - 1) / kWN * per_tile;
+  const bool narrow = cl.narrow;
+  const float c = scale * kLog2e;
+
+  // Step st: key tile st / per_tile; phase 1 (chunk r < n) brings Q_r, dO_r,
+  // K_r and V_r (and with the first, the keys' padding), phase 2 the tile's
+  // K_j for two of the block's chunks at a time (j = 2(r - n) and the next,
+  // into the K and V tiles' places).
+  auto prefetch = [&](int st, int slot) {
+    const int it = st / per_tile, r = st % per_tile, k0 = it * kWN;
+    float* sl = slots + slot * W::kSlot;
+    float* kt = sl + 2 * W::kOwnTile;
+    if (r < n) {
+      const int col = r * cl.width, cols = chunk_cols(cl, r);
+      load_tile<kD, kWOwn, kWThreads>(sl, qb + col, s.q[2], q0, seq, cols, narrow);
+      load_tile<kD, kWOwn, kWThreads>(sl + W::kOwnTile, dob + col, s.dout[2], q0, seq, cols, narrow);
+      load_tile<kD, kWN, kWThreads>(kt, kb + col, s.k[2], k0, seq, cols, narrow);
+      load_tile<kD, kWN, kWThreads>(kt + W::kTile, vb + col, s.v[2], k0, seq, cols, narrow);
+      if (r == 0) load_key_bias<kWThreads, kWN>(kbias_s + (it & 1) * kWN, pad_b, s.pad[1], k0, seq);
+    } else {
+      for (int x = 2 * (r - n); x < min(owned, 2 * (r - n) + 2); ++x) {
+        const int j = c_lo + x;
+        load_tile<kD, kWN, kWThreads>(kt + (x & 1) * W::kTile, kb + j * cl.width, s.k[2], k0, seq, chunk_cols(cl, j),
+                                      narrow);
+      }
+    }
+  };
+
+  prefetch(0, 0);
+  cp_async_commit();
+  row_delta<kWOwn, kWThreads>(delta_s, out + b * s.o[0] + h * s.o[1], s.o[2], dob, s.dout[2], q0, seq, cl.dim,
+                              narrow);
+  // This lane's rows g and g+8, as the one-chunk kernel keeps them; the row
+  // sums are this warp's part (its keys of each tile).
+  float lse2[2], dl[2] = {0.f, 0.f}, gl[2] = {0.f, 0.f};
+  float psum[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f}, dg[2] = {0.f, 0.f}, bsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + row0 + g + 8 * i;
+    lse2[i] = qi < seq ? lse[stat0 + qi] * kLog2e : INFINITY;
+    if (kGated) gl[i] = gate_at(gd, b, h, min(qi, seq - 1)) * kLog2e;
+  }
+
+  float sc[2][4], dp[2][4];
+  float acc[kMaxChunks][kPer][4];
+#pragma unroll
+  for (int x = 0; x < kMaxChunks; ++x)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[x][j][e] = 0.f;
+  float kcol[kMaxChunks] = {};  // threads below kD: column threadIdx.x of Σ_k K_j
+  for (int st = 0; st < n_steps; ++st) {
+    const int slot = st & 1;
+    if (st + 1 < n_steps) {
+      prefetch(st + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int it = st / per_tile, r = st % per_tile, k0 = it * kWN;
+    const float* sl = slots + slot * W::kSlot;
+    const float* kt = sl + 2 * W::kOwnTile;
+    if (st == 0) dl[0] = delta_s[row0 + g], dl[1] = delta_s[row0 + g + 8];
+    if (r < n) {
+      if (r == 0) {
+        zero<16>(sc);
+        zero<16>(dp);
+      }
+      if (active) {
+        const int ks = ksteps_of<kD>(chunk_cols(cl, r));
+        // S += Q_c·K_cᵀ, dP += dO_c·V_cᵀ
+        mma_abt_pair<kD>(sc, sl, kt, dp, sl + W::kOwnTile, kt + W::kTile, row0, cw, k0, seq, ks);
+      }
+      if (r == n - 1 && active) {
+        const float* kbias = kbias_s + (it & 1) * kWN;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, key = 16 * cw + 8 * j + 2 * t + (e & 1);
+            const float kbv = kbias[key];
+            float x = fmaf(sc[j][e], c, kbv), bias = 0.f;
+            if (kGated) {
+              bias = __ldg(gd.bias + h * gd.bs[0] + min(q0 + row0 + g + 8 * i, seq - 1) * gd.bs[1] +
+                           min(k0 + key, seq - 1) * gd.bs[2]);
+              x = fmaf(sc[j][e], c, bias * gl[i] + kbv);
+            }
+            const float pv = exp2_approx(x - lse2[i]);
+            const float dlv = pv * (dp[j][e] - dl[i]);  // dL = P∘(dP − Δ)
+            psum[i] += pv;
+            pdp[i] = fmaf(pv, dp[j][e], pdp[i]);
+            if (kGated) {
+              dg[i] = fmaf(bias, dlv, dg[i]);
+              bsum[i] = fmaf(bias, pv, bsum[i]);
+            }
+            sc[j][e] = dlv * scale;  // dS
+          }
+        write_slice(ds_s, row0, cw, sc);
+      }
+    } else {
+      const int pr = r - n, x0 = 2 * pr;  // the block's chunks x0 and x0 + 1 (if it has one)
+      const bool two = x0 + 1 < owned;
+      if (threadIdx.x < kD) {
+        const float* col = kt + threadIdx.x;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll 8
+        for (int row = 0; row < kWN; ++row) {
+          sum0 += col[row * kLd];
+          if (two) sum1 += col[W::kTile + row * kLd];
+        }
+#pragma unroll
+        for (int x = 0; x < kMaxChunks; x += 2)
+          if (x == x0) kcol[x] += sum0, kcol[x + 1] += sum1;
+      }
+      if (active) {
+        const int live = live_blocks_w(k0, seq);
+        const int blocks0 = (chunk_cols(cl, c_lo + x0) + 7) >> 3;
+        const int blocks1 = two ? (chunk_cols(cl, c_lo + x0 + 1) + 7) >> 3 : 0;
+#pragma unroll
+        for (int x = 0; x < kMaxChunks; x += 2)
+          if (x == x0)  // dQ_j += dS·K_j for both chunks, interleaved
+            mma_ab_part2<kD>(acc[x], ds_s, kt, acc[x + 1], ds_s, kt + W::kTile, row0, live, cw, blocks0, blocks1);
+      }
+    }
+    __syncthreads();
+  }
+
+  // The row sums over the row group's four warps (in warp order), and the
+  // keys' mean; then the one-chunk kernel's correction (see there).
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float sums[4] = {quad_sum(psum[i]), quad_sum(pdp[i]), quad_sum(dg[i]), quad_sum(bsum[i])};
+    if (t == 0)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) red_s[(m * 4 + cw) * kWOwn + row0 + g + 8 * i] = sums[m];
+  }
+  if (threadIdx.x < kD)
+#pragma unroll
+    for (int x = 0; x < kMaxChunks; ++x)
+      if (x < owned) kbar_s[x * kD + threadIdx.x] = kcol[x] / seq;
+  __syncthreads();
+  if (active) {
+    const long long rebased = (long long)gridDim.z * heads * seq;
+    float inv[2], sds[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i, qi = q0 + r;
+      float sums[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        sums[m] = ((red_s[(m * 4) * kWOwn + r] + red_s[(m * 4 + 1) * kWOwn + r]) + red_s[(m * 4 + 2) * kWOwn + r]) +
+                  red_s[(m * 4 + 3) * kWOwn + r];
+      const float sum = sums[0], pdps = sums[1], dnew = pdps / sum;
+      inv[i] = 1.f / sum;
+      sds[i] = scale * (pdps - dl[i] * sum);
+      if (grp == 0 && cw == 0 && t == 0 && qi < seq) {
+        delta[stat0 + qi] = dnew;
+        delta[rebased + stat0 + qi] = lse2[i] + log2f(sum);
+        if (kGated && dgate) dgate[stat0 + qi] = (sums[2] + (dl[i] - dnew) * sums[3]) * inv[i];
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < kMaxChunks; ++x) {
+      if (x >= owned) continue;
+      float* tile = slots + x * W::kOwnTile;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int col = 8 * (cw + 4 * j) + 2 * t;
+        if (col >= kD) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(tile + (row0 + g + 8 * i) * kLd + col) =
+              make_float2((acc[x][j][2 * i] - sds[i] * kbar_s[x * kD + col]) * inv[i],
+                          (acc[x][j][2 * i + 1] - sds[i] * kbar_s[x * kD + col + 1]) * inv[i]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = 0; x < owned; ++x)
+    store_tile<kD, kWOwn, kWThreads>(dq + b * s.dq[0] + h * s.dq[1] + (c_lo + x) * cl.width, s.dq[2], q0, seq,
+                                     chunk_cols(cl, c_lo + x), narrow, slots + x * W::kOwnTile);
+}
+
+// The dK/dV kernel of a chunked width: one block per (key tile of 32, head
+// and group of column chunks, item).
+template <int kD, bool kGated>
+__global__ void __launch_bounds__(kWThreads, 1)
+tf32x3_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const float* __restrict__ dout, const uint8_t* __restrict__ pad, const float* __restrict__ lse2,
+                       const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int heads,
+                       int seq, float scale, BwdStrides s, Gated gd, Cols cl) {
+  using W = Wide<kD>;
+  constexpr int kLd = W::kLd, kPer = W::kPer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* slots = reinterpret_cast<float*>(smem);  // [2]: K_c, V_c [32][kLd]; Q_c, dO_c [64][kLd] (phase 2: Q_j, dO_j)
+  float* pt_s = slots + 2 * W::kSlot;             // [32][kXLd]: Pᵀ of the query tile
+  float* dst_s = pt_s + kWOwn * kXLd;             // [32][kXLd]: dSᵀ
+  float* lse_s = dst_s + kWOwn * kXLd;            // [2][kWN], log2 units
+  float* dl_s = lse_s + 2 * kWN;                  // [2][kWN]
+  float* gl_s = dl_s + 2 * kWN;                   // [2][kWN], the gated variant's gate
+
+  const int groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+  const int k0 = blockIdx.x * kWOwn, h = blockIdx.y / groups, grp = blockIdx.y % groups, b = blockIdx.z;
+  const int n = cl.chunks, c_lo = grp * kMaxChunks, owned = min(kMaxChunks, n - c_lo);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cw = warp & 3, row0 = 16 * (warp >> 2);
+  const bool active = k0 + row0 < seq;  // the row group has a key below seq
+  const float* qb = q + b * s.q[0] + h * s.q[1];
+  const float* kb = k + b * s.k[0] + h * s.k[1];
+  const float* vb = v + b * s.v[0] + h * s.v[1];
+  const float* dob = dout + b * s.dout[0] + h * s.dout[1];
+  const long long stat0 = ((long long)b * heads + h) * seq;
+  const int per_tile = n + owned, n_steps = (seq + kWN - 1) / kWN * per_tile;
+  const bool narrow = cl.narrow;
+  const float c = scale * kLog2e;
+
+  // Step st: query tile st / per_tile; phase 1 (chunk r < n) brings K_r,
+  // V_r, Q_r and dO_r (and with the first, the queries' statistics, as the
+  // one-chunk kernel reads them), phase 2 the tile's Q_j and dO_j.
+  auto prefetch = [&](int st, int slot) {
+    const int it = st / per_tile, r = st % per_tile, q0 = it * kWN;
+    float* sl = slots + slot * W::kSlot;
+    float* qt = sl + 2 * W::kOwnTile;
+    if (r < n) {
+      const int col = r * cl.width, cols = chunk_cols(cl, r);
+      load_tile<kD, kWOwn, kWThreads>(sl, kb + col, s.k[2], k0, seq, cols, narrow);
+      load_tile<kD, kWOwn, kWThreads>(sl + W::kOwnTile, vb + col, s.v[2], k0, seq, cols, narrow);
+      load_tile<kD, kWN, kWThreads>(qt, qb + col, s.q[2], q0, seq, cols, narrow);
+      load_tile<kD, kWN, kWThreads>(qt + W::kTile, dob + col, s.dout[2], q0, seq, cols, narrow);
+      if (r == 0) {  // with the tiles, asynchronously: 0 past seq (the LSE made +inf where it is read)
+        const int sl2 = (it & 1) * kWN;
+        for (int i = threadIdx.x; i < kWN; i += kWThreads) {
+          const int qi = q0 + i;
+          const bool ok = qi < seq;
+          cp_async4(lse_s + sl2 + i, lse2 + stat0 + (ok ? qi : 0), ok);
+          cp_async4(dl_s + sl2 + i, delta + stat0 + (ok ? qi : 0), ok);
+          if (kGated) {
+            if (gd.gate)
+              cp_async4(gl_s + sl2 + i, gd.gate + b * gd.gs[0] + h * gd.gs[1] + min(qi, seq - 1) * gd.gs[2], true);
+            else
+              gl_s[sl2 + i] = 1.f;
+          }
+        }
+      }
+    } else {
+      const int col = (c_lo + r - n) * cl.width, cols = chunk_cols(cl, c_lo + r - n);
+      load_tile<kD, kWN, kWThreads>(qt, qb + col, s.q[2], q0, seq, cols, narrow);
+      load_tile<kD, kWN, kWThreads>(qt + W::kTile, dob + col, s.dout[2], q0, seq, cols, narrow);
+    }
+  };
+
+  prefetch(0, 0);
+  cp_async_commit();
+  float kbias[2];            // this lane's keys g and g+8
+  const float* bias_col[2];  // the gated variant: their bias columns (keys past seq clamped)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + row0 + g + 8 * i;
+    kbias[i] = (key >= seq || (pad && pad[b * s.pad[0] + key * s.pad[1]])) ? -INFINITY : 0.f;
+    bias_col[i] = kGated ? gd.bias + h * gd.bs[0] + min(key, seq - 1) * gd.bs[2] : nullptr;
+  }
+
+  float st1[2][4], dpt[2][4];
+  float dk_acc[kMaxChunks][kPer][4], dv_acc[kMaxChunks][kPer][4];
+#pragma unroll
+  for (int x = 0; x < kMaxChunks; ++x)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[x][j][e] = dv_acc[x][j][e] = 0.f;
+  for (int st = 0; st < n_steps; ++st) {
+    const int slot = st & 1;
+    if (st + 1 < n_steps) {
+      prefetch(st + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int it = st / per_tile, r = st % per_tile, q0 = it * kWN;
+    const float* sl = slots + slot * W::kSlot;
+    const float* qt = sl + 2 * W::kOwnTile;
+    if (r < n) {
+      if (r == 0) {
+        zero<16>(st1);
+        zero<16>(dpt);
+      }
+      if (active) {
+        const int ks = ksteps_of<kD>(chunk_cols(cl, r));
+        // Sᵀ += K_c·Q_cᵀ, dPᵀ += V_c·dO_cᵀ
+        mma_abt_pair<kD>(st1, sl, qt, dpt, sl + W::kOwnTile, qt + W::kTile, row0, cw, q0, seq, ks);
+      }
+      if (r == n - 1 && active) {
+        const float* lq = lse_s + (it & 1) * kWN;
+        const float* dlq = dl_s + (it & 1) * kWN;
+        const float* glq = gl_s + (it & 1) * kWN;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, col = 16 * cw + 8 * j + 2 * t + (e & 1);
+            float x = fmaf(st1[j][e], c, kbias[i]);
+            if (kGated) {
+              const float bt = __ldg(bias_col[i] + min(q0 + col, seq - 1) * gd.bs[1]);
+              x = fmaf(st1[j][e], c, bt * (glq[col] * kLog2e) + kbias[i]);
+            }
+            const float lqv = q0 + col < seq ? lq[col] : INFINITY;  // past seq: P = 0
+            st1[j][e] = exp2_approx(x - lqv);                            // Pᵀ
+            dpt[j][e] = st1[j][e] * (dpt[j][e] - dlq[col]) * scale;      // dSᵀ
+          }
+        write_slice(pt_s, row0, cw, st1);
+        write_slice(dst_s, row0, cw, dpt);
+      }
+    } else if (active) {
+      const int jj = r - n;
+      const int live = live_blocks_w(q0, seq), blocks = (chunk_cols(cl, c_lo + jj) + 7) >> 3;
+#pragma unroll
+      for (int x = 0; x < kMaxChunks; ++x)
+        if (x == jj)  // dV_j += Pᵀ·dO_j, dK_j += dSᵀ·Q_j
+          mma_ab_part2<kD>(dv_acc[x], pt_s, qt + W::kTile, dk_acc[x], dst_s, qt, row0, live, cw, blocks, blocks);
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+#pragma unroll
+    for (int x = 0; x < kMaxChunks; ++x) {
+      if (x >= owned) continue;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int col = 8 * (cw + 4 * j) + 2 * t;
+        if (col >= kD) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = (row0 + g + 8 * i) * kLd + col;
+          *reinterpret_cast<float2*>(slots + x * W::kOwnTile + row) =
+              make_float2(dk_acc[x][j][2 * i], dk_acc[x][j][2 * i + 1]);
+          *reinterpret_cast<float2*>(slots + (kMaxChunks + x) * W::kOwnTile + row) =
+              make_float2(dv_acc[x][j][2 * i], dv_acc[x][j][2 * i + 1]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = 0; x < owned; ++x) {
+    const int col = (c_lo + x) * cl.width, cols = chunk_cols(cl, c_lo + x);
+    store_tile<kD, kWOwn, kWThreads>(dk + b * s.dk[0] + h * s.dk[1] + col, s.dk[2], k0, seq, cols, narrow,
+                                     slots + x * W::kOwnTile);
+    store_tile<kD, kWOwn, kWThreads>(dv + b * s.dv[0] + h * s.dv[1] + col, s.dv[2], k0, seq, cols, narrow,
+                                     slots + (kMaxChunks + x) * W::kOwnTile);
   }
 }
 
@@ -1018,11 +1709,53 @@ cudaError_t launch_forward(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// The columns of a backward call of head width head_dim in chunks of
+// chunk_width (the wrapper's plan), or a Cols with chunks = 0 when this
+// build does not take them: a chunk wider than the build; more than one
+// chunk of a width that is not a multiple of 8, or on a build below 80; a
+// call on 16-byte rows whose widths are not multiples of 8.
+Cols plan_cols(int head_dim, int chunk_width, int narrow) {
+  Cols cl;
+  cl.chunks = 0;
+  if (head_dim <= 0 || chunk_width <= 0 || chunk_width > kHeadDim) return cl;
+  const int chunks = (head_dim + chunk_width - 1) / chunk_width;
+  if ((chunks > 1 && (chunk_width % 8 || kHeadDim < 80)) || (chunks == 1 && chunk_width != head_dim) ||
+      (!narrow && (head_dim % 8 || chunk_width % 8)))
+    return cl;
+  cl.dim = head_dim;
+  cl.width = chunk_width;
+  cl.chunks = chunks;
+  cl.narrow = narrow != 0;
+  return cl;
+}
+
+// The dQ and dK/dV kernels of one column chunk, on 16-byte or narrow rows.
+template <bool kGated, bool kNarrow>
+cudaError_t launch_one_chunk(const float* q, const float* k, const float* v, const void* out, const float* dout,
+                             const uint8_t* pad, const float* lse, void* dq, void* dk, void* dv, void* delta,
+                             void* dgate, const float* rebased, int batch, int heads, int seq, const Cols& cl,
+                             float scale, const BwdStrides& s, const Gated& gd, cudaStream_t st) {
+  using TL = Tile<kHeadDim>;
+  const dim3 own_grid((seq + kOwn - 1) / kOwn, heads, batch);
+  cudaError_t err = allow_smem(tf32x3_dq_kernel<kHeadDim, kGated, kNarrow>, TL::kDqSmem);
+  if (err != cudaSuccess) return err;
+  tf32x3_dq_kernel<kHeadDim, kGated, kNarrow><<<own_grid, kThreads, TL::kDqSmem, st>>>(
+      q, k, v, static_cast<const float*>(out), dout, pad, lse, static_cast<float*>(dq), static_cast<float*>(delta),
+      static_cast<float*>(dgate), heads, seq, scale, s, gd, cl);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = allow_smem(tf32x3_dkv_kernel<kHeadDim, kGated, kNarrow>, TL::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  tf32x3_dkv_kernel<kHeadDim, kGated, kNarrow><<<own_grid, kThreads, TL::kDkvSmem, st>>>(
+      q, k, v, dout, pad, rebased, static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      heads, seq, scale, s, gd, cl);
+  return cudaGetLastError();
+}
+
 template <bool kGated>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* out, const void* dout,
                             const void* pad, const void* lse, void* dq, void* dk, void* dv, void* delta,
-                            void* dbias, void* dgate, void* part, int items, int batch, int heads, int seq, int dim,
-                            float scale, const BwdStrides& s, const Gated& gd, cudaStream_t st) {
+                            void* dbias, void* dgate, void* part, int items, int batch, int heads, int seq,
+                            const Cols& cl, float scale, const BwdStrides& s, const Gated& gd, cudaStream_t st) {
   using TL = Tile<kHeadDim>;
   const auto* fq = static_cast<const float*>(q);
   const auto* fk = static_cast<const float*>(k);
@@ -1030,31 +1763,53 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
   const auto* fdo = static_cast<const float*>(dout);
   const auto* fpad = static_cast<const uint8_t*>(pad);
   const auto* flse = static_cast<const float*>(lse);
-  const dim3 own_grid((seq + kOwn - 1) / kOwn, heads, batch);
   // delta holds Δ' and, after it, the rebased LSE in log2 units (the dQ kernel's)
   const float* rebased = static_cast<const float*>(delta) + (long long)batch * heads * seq;
+  cudaError_t err = cudaSuccess;
 
-  cudaError_t err = allow_smem(tf32x3_dq_kernel<kHeadDim, kGated>, TL::kDqSmem);
-  if (err != cudaSuccess) return err;
-  tf32x3_dq_kernel<kHeadDim, kGated><<<own_grid, kThreads, TL::kDqSmem, st>>>(
-      fq, fk, fv, static_cast<const float*>(out), fdo, fpad, flse, static_cast<float*>(dq),
-      static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, dim, scale, s, gd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  err = allow_smem(tf32x3_dkv_kernel<kHeadDim, kGated>, TL::kDkvSmem);
-  if (err != cudaSuccess) return err;
-  tf32x3_dkv_kernel<kHeadDim, kGated><<<own_grid, kThreads, TL::kDkvSmem, st>>>(
-      fq, fk, fv, fdo, fpad, rebased, static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), heads, seq, dim, scale, s, gd);
+  if (cl.chunks == 1) {
+    err = cl.narrow ? launch_one_chunk<kGated, true>(fq, fk, fv, out, fdo, fpad, flse, dq, dk, dv, delta, dgate, rebased,
+                                                     batch, heads, seq, cl, scale, s, gd, st)
+                    : launch_one_chunk<kGated, false>(fq, fk, fv, out, fdo, fpad, flse, dq, dk, dv, delta, dgate,
+                                                      rebased, batch, heads, seq, cl, scale, s, gd, st);
+    if (err != cudaSuccess) return err;
+  } else {
+    if constexpr (kHeadDim >= 80) {
+      using W = Wide<kHeadDim>;
+      const int groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+      const dim3 own_grid((seq + kWOwn - 1) / kWOwn, heads * groups, batch);
+      err = allow_smem(tf32x3_dq_wide_kernel<kHeadDim, kGated>, W::kDqSmem);
+      if (err != cudaSuccess) return err;
+      tf32x3_dq_wide_kernel<kHeadDim, kGated><<<own_grid, kWThreads, W::kDqSmem, st>>>(
+          fq, fk, fv, static_cast<const float*>(out), fdo, fpad, flse, static_cast<float*>(dq),
+          static_cast<float*>(delta), static_cast<float*>(dgate), heads, seq, scale, s, gd, cl);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      err = allow_smem(tf32x3_dkv_wide_kernel<kHeadDim, kGated>, W::kDkvSmem);
+      if (err != cudaSuccess) return err;
+      tf32x3_dkv_wide_kernel<kHeadDim, kGated><<<own_grid, kWThreads, W::kDkvSmem, st>>>(
+          fq, fk, fv, fdo, fpad, rebased, static_cast<const float*>(delta), static_cast<float*>(dk),
+          static_cast<float*>(dv), heads, seq, scale, s, gd, cl);
+    } else {
+      return cudaErrorInvalidValue;  // plan_cols refuses it first
+    }
+  }
   if ((err = cudaGetLastError()) != cudaSuccess || !kGated) return err;
 
   const int chunks = (batch + items - 1) / items;
   const dim3 grid((seq + kOwn - 1) / kOwn, (seq + kN - 1) / kN, heads * chunks);
-  err = allow_smem(tf32x3_dbias_kernel<kHeadDim>, TL::kDbiasSmem);
-  if (err != cudaSuccess) return err;
-  tf32x3_dbias_kernel<kHeadDim><<<grid, kThreads, TL::kDbiasSmem, st>>>(
-      fq, fk, fv, fdo, fpad, rebased, static_cast<const float*>(delta),
-      static_cast<float*>(chunks > 1 ? part : dbias), batch, items, heads, seq, dim, scale, s, gd);
+  float* dbias_out = static_cast<float*>(chunks > 1 ? part : dbias);
+  auto launch_dbias = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, TL::kDbiasSmem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, TL::kDbiasSmem, st>>>(fq, fk, fv, fdo, fpad, rebased, static_cast<const float*>(delta),
+                                                   dbias_out, batch, items, heads, seq, scale, s, gd, cl);
+    return cudaGetLastError();
+  };
+  if (cl.chunks > 1) {
+    if constexpr (kHeadDim >= 80) err = launch_dbias(tf32x3_dbias_kernel<kHeadDim, 2>);
+  } else {
+    err = cl.narrow ? launch_dbias(tf32x3_dbias_kernel<kHeadDim, 1>) : launch_dbias(tf32x3_dbias_kernel<kHeadDim, 0>);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess || chunks == 1) return err;
   const long long n = (long long)heads * seq * seq;
   sum_chunks_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096), 256, 0, st>>>(
@@ -1098,33 +1853,38 @@ extern "C" int avex_tf32x3_attention_forward(const void* q, const void* k, const
 
 // The fp32 backward from the forward's residuals, bias-free (K6, bias null)
 // or gated (K3): fp32 q, k, v, out (the forward's output) and dout, with a
-// head width head_dim that is a multiple of 8 from 8 to this build's width,
-// every row 16-byte aligned (strides multiples of 8 elements, bases 16-byte
-// aligned); lse the forward's row log-sum-exp (float32, contiguous
-// [B, H, T]); bias, gate (may be null) and pad (one byte a key, nonzero =
-// padded; may be null) as the forward's. Writes fp32 dq, dk and dv, and
-// into delta (float32 scratch, contiguous [2, B, H, T]) each row's
-// Δ' = Σ P·dP / Σ P and its LSE rebased by log2 Σ P, in log2 units (see
-// the dQ kernel); the gated backward also writes dbias (float32 [H, T, T],
-// contiguous) and, with a gate, dgate (float32 [B, H, T], contiguous). It
-// sums dbias over chunks of items_per_chunk batch items in parallel, then
-// the chunks in order, through dbias_part (float32 scratch
-// [ceil(B / items_per_chunk), H, T, T]; may be null when that is one
-// chunk). strides: 32 element strides, q, k, v, out, dout, dq, dk and dv
-// (batch, head, token), pad (batch, token), then bias (head, query, key) and
-// gate (batch, head, token). Returns a cudaError_t; 0 means every kernel
-// was launched. A call the build does not take returns
+// head width head_dim >= 1 in column chunks of chunk_width (head_dim itself
+// up to this build's width; past it a multiple of 8 up to the build's width,
+// the last chunk holding what is left; the wrapper's plan), narrow = 1 when
+// some row is not 16-byte aligned (a head width, chunk width or stride that
+// is not a multiple of 8 elements, or a base off 16 bytes: then every row
+// moves 4 bytes at a time); lse the forward's row log-sum-exp (float32,
+// contiguous [B, H, T]; the 3xTF32 forward's or the FMA body's); bias, gate
+// (may be null) and pad (one byte a key, nonzero = padded; may be null) as
+// the forward's. Writes fp32 dq, dk and dv, and into delta (float32 scratch,
+// contiguous [2, B, H, T]) each row's Δ' = Σ P·dP / Σ P and its LSE rebased
+// by log2 Σ P, in log2 units (see the dQ kernel); the gated backward also
+// writes dbias (float32 [H, T, T], contiguous) and, with a gate, dgate
+// (float32 [B, H, T], contiguous). It sums dbias over chunks of
+// items_per_chunk batch items in parallel, then the chunks in order, through
+// dbias_part (float32 scratch [ceil(B / items_per_chunk), H, T, T]; may be
+// null when that is one chunk). strides: 32 element strides, q, k, v, out,
+// dout, dq, dk and dv (batch, head, token), pad (batch, token), then bias
+// (head, query, key) and gate (batch, head, token). Returns a cudaError_t; 0
+// means every kernel was launched. A call the build does not take returns
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int avex_tf32x3_attention_backward(const void* q, const void* k, const void* v, const void* out,
                                               const void* dout, const void* bias, const void* gate, const void* pad,
                                               const void* lse, void* dq, void* dk, void* dv, void* delta, void* dbias,
                                               void* dgate, void* dbias_part, int items_per_chunk, int batch,
-                                              int heads, int seq, int head_dim, float scale,
-                                              const long long* strides, void* stream) {
-  if (seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim < 8 ||
-      head_dim > kHeadDim || head_dim % 8 || lse == nullptr || out == nullptr ||
-      (bias != nullptr && dbias == nullptr) || (gate != nullptr && (bias == nullptr || dgate == nullptr)) ||
-      items_per_chunk <= 0 || (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
+                                              int heads, int seq, int head_dim, int chunk_width, int narrow,
+                                              float scale, const long long* strides, void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow);
+  const long long groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+  if (cl.chunks == 0 || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads * groups > 65535 ||
+      lse == nullptr || out == nullptr || (bias != nullptr && dbias == nullptr) ||
+      (gate != nullptr && (bias == nullptr || dgate == nullptr)) || items_per_chunk <= 0 ||
+      (items_per_chunk < batch && bias != nullptr && dbias_part == nullptr) ||
       (long long)heads * ((batch + items_per_chunk - 1) / items_per_chunk) > 65535 || (seq + kN - 1) / kN > 65535)
     return (int)cudaErrorInvalidValue;
   BwdStrides s;
@@ -1137,9 +1897,9 @@ extern "C" int avex_tf32x3_attention_backward(const void* q, const void* k, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bias == nullptr)
     return (int)launch_backward<false>(q, k, v, out, dout, pad, lse, dq, dk, dv, delta, nullptr, nullptr, nullptr,
-                                       batch, batch, heads, seq, head_dim, scale, s, Gated(), st);
+                                       batch, batch, heads, seq, cl, scale, s, Gated(), st);
   return (int)launch_backward<true>(q, k, v, out, dout, pad, lse, dq, dk, dv, delta, dbias, dgate, dbias_part,
-                                    items_per_chunk, batch, heads, seq, head_dim, scale, s, gd, st);
+                                    items_per_chunk, batch, heads, seq, cl, scale, s, gd, st);
 }
 
 // The dbias kernel's shape, for the wrapper's plan of batch chunks: into
@@ -1151,10 +1911,10 @@ extern "C" int avex_tf32x3_attention_backward(const void* q, const void* k, cons
 extern "C" int avex_tf32x3_dbias_plan(int heads, int seq, int* blocks, int* resident) {
   using TL = Tile<kHeadDim>;
   if (heads <= 0 || seq <= 0 || blocks == nullptr || resident == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(tf32x3_dbias_kernel<kHeadDim>, TL::kDbiasSmem);
+  cudaError_t err = allow_smem(tf32x3_dbias_kernel<kHeadDim, 0>, TL::kDbiasSmem);
   int per_sm = 0, device = 0, sms = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tf32x3_dbias_kernel<kHeadDim>, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tf32x3_dbias_kernel<kHeadDim, 0>, kThreads,
                                                         TL::kDbiasSmem);
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

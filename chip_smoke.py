@@ -16,8 +16,8 @@ Phases, each printing its results on lines of its own:
    ``tensor_core_attention.cu``, fp32 on them in 3xTF32,
    ``tf32x3_attention.cu``: each call's body checked, max|d| 1e-4 and rel L2
    1e-5 against the fp32 twin, K2's and K5's saved row log-sum-exp within
-   1e-5 of the twin's, each fp32 time beside the FMA body's on the same
-   inputs and SDPA's backend): the gated K1 and K2
+   1e-5 of the twin's, each fp32 forward's time beside the FMA body's on the
+   same inputs and SDPA's backend): the gated K1 and K2
    at BEATs' shape (B=128, H=12, T=248, D=64), with and without the gate,
    without a mask, with a key-padding mask and with one item's keys all
    padded (NaN exactly where the twin has NaN); the bias-free K5 at EAT's
@@ -69,8 +69,7 @@ Phases, each printing its results on lines of its own:
    time to issue it through autograd. fp32 K3 and K6 run on the tensor cores
    in 3xTF32 (``tf32x3_attention.cu``, from the fp32 forward's saved
    log-sum-exp): each call's body checked, every output within rel L2 1e-5
-   of the fp32 twin (TF32 off), and each timed beside the FMA body on the
-   same inputs and the 3xTF32 bound;
+   of the fp32 twin (TF32 off), and each timed beside the 3xTF32 bound;
 11. BEATs training: full-width BEATs with a 50-class head, bf16 compute with
    fp32 parameters, ``fused_qkv=True, use_pallas=True``, dropout and
    LayerDrop as the official config gives them, through ``Trainer`` (AdamW,
@@ -131,8 +130,8 @@ Phases, each printing its results on lines of its own:
    and power limit;
 16. head width 80 (run after phase 10): K5 and K4 at Bird-MAE huge's
    forward shape (B=128, T=513, 16 heads of 80) and K6 at its training
-   batch (B=64), bf16 on the tensor cores and fp32 on them in 3xTF32 (each
-   timed beside the FMA body on the same inputs), against their
+   batch (B=64), bf16 on the tensor cores and fp32 on them in 3xTF32 (the
+   forwards timed beside the FMA body on the same inputs), against their
    twins (the bf16 K6 also against its residual twin), each timed beside
    its twin, its bound and SDPA (its backward for K6);
 17. Bird-MAE main path (after phase 8): ``ModelSpec(name="birdmae",
@@ -157,10 +156,10 @@ Phases, each printing its results on lines of its own:
    and T=800, B=4, with the gate, with the gate and a padding mask, and
    with neither, dqkv, dbias and dgate against the twin (atol and rtol 1e-4,
    rel L2 1e-5); the same values on narrow rows (a row stride of 3E + 1
-   floats) with the gate, with and without the mask, on the FMA body, whose
-   dQ blocks add their dbias rows in device memory past 512 (atol and rtol
-   1e-4); timed at T=800 beside the twin, the FMA body, the fp32 SDPA
-   backward and its bounds;
+   floats) with the gate, with and without the mask: the forward on the FMA
+   body, the backward on the 3xTF32 kernels from its saved log-sum-exp, at
+   the same bounds; timed at T=800 beside the twin, the fp32 SDPA backward
+   and its bound;
 22. an fp32 BEATs ``fused_qkv`` training step on 16 s clips (after phase
    11; T=792, B=4): the kernel path's loss and gradients against the plain
    path's, 12 K2 and 12 K3 launches (added to the main paths' counts);
@@ -184,8 +183,7 @@ Phases, each printing its results on lines of its own:
    the student's 103 visible tokens with 12 heads, the decoder's 512 with
    6 heads of 64 (384 wide), and K5 alone at the teacher's 512 with 12
    heads under no_grad; each against its twin, timed beside the twin, its
-   bound and SDPA (its backward for K6; the fp32 K6, on 3xTF32, also beside
-   the FMA body);
+   bound and SDPA (its backward for K6; the fp32 K5 and K6 on 3xTF32);
 27. (after phase 25) EAT-SSL pretraining at full width (768 x 12, decoder
    384 x 4, mask ratio 0.8, EMA teacher) through ``Trainer`` with
    ``label_type="self_supervised"``: bf16, B=64, 10 s clips, K5/K6 on every
@@ -243,8 +241,8 @@ Phases, each printing its results on lines of its own:
    ``serve`` in a child process (int8 BEATs, port 0), 32 clips from 8
    threads held to the same int8 model here, then SIGINT: exit code 0, the
    port free (the child's launches are not counted); (e) ``run_train`` with
-   ``data_pipeline="grain"`` (the checkpointable loader, 4 workers, B=16 on
-   80 clips: 5 steps an epoch, 2 epochs): an uninterrupted run, a run
+   ``data_pipeline="grain"`` (the checkpointable loader, 4 workers, B=8 on
+   40 clips: 5 steps an epoch, 2 epochs): an uninterrupted run, a run
    stopped mid-epoch by the preemption flag and the run resumed from its
    step checkpoint, whose batches equal the uninterrupted run's bit for bit
    and whose losses are within rel 1e-3 (K2 and K3 4 a step);
@@ -255,7 +253,8 @@ Phases, each printing its results on lines of its own:
    B=64 T=248; K6 B=64 T=513), each against its twin (the bf16 K3/K6 also
    against the twin of their contract; fp32 K1-K6, on 3xTF32, within rel
    L2 1e-5, K2's and K5's saved log-sum-exp within 1e-5) and timed beside
-   the twin, its bound and SDPA (fp32 also beside the FMA body), one ragged
+   the twin, its bound and SDPA (the fp32 forwards also beside the FMA
+   body), one ragged
    masked case a width (B=8, T=37, an item all padded in the forwards), and
    dh 20 and 136 against their twins; (paths, after phase 33) BEATs at full width and depth with 6
    heads of 128: bf16 extraction on K1 (12 a forward), the int8 model (K1
@@ -270,11 +269,14 @@ Phases, each printing its results on lines of its own:
    100, 136, 150, 192, 256, 320 and 512 with E = 768 or the nearest multiple
    of dh, bf16 and fp32, at phase 34's shapes (the batch cut where the
    twin's [B, H, T, T] logits would pass 9 GiB; B=16 at the widths not
-   timed; fp32 K1-K6 there on the FMA body, each call's body checked),
-   each against its twin, one
+   timed; the fp32 forwards there on the FMA body, every fp32 backward on
+   the 3xTF32 kernels, each call's body checked, K2's and K5's saved
+   log-sum-exp within 1e-5 of the twin's, every fp32 backward within rel L2
+   1e-5), each against its twin, one
    ragged masked case a width with an item all padded (NaN as the twin), and
    dh 12, 20, 136, 192, 256 and 320 timed beside the twin, the bound and SDPA
-   (its backend printed; the median of 10 calls), and K5 at dh 64 on 16-byte
+   (its backend printed; the median of 10 calls; the fp32 K3/K6 also beside
+   the 3xTF32 bound and the FMA backward's time, quoted from PERF.md), and K5 at dh 64 on 16-byte
    rows against the same values 2 bytes off (the general kernel); (paths, after phase 34's) BEATs at full width and
    depth with 4 heads of 192 (K1 extraction, int8 K1 + K7, the fp32 kernel
    path against the plain path, a ``fused_qkv`` training step on K2/K3 and
@@ -311,9 +313,9 @@ K3 and K5 add ``cli_launches``, phase 33's share; K1-K6 add
 ``wide_head_widths``, their numbers at dh 12, 20, 136, 192, 256 and 320, and
 ``wide_head_kernel_phase_launches``; K1, K2, K3, K5, K6 and K7 add
 ``wide_head_launches``, phase 35's paths' share; K3 and K6 add
-``fp32_source``, ``fp32`` (their fp32 numbers at the main shape, with the
-FMA body's ``fma_ms`` and ``fma_bound_ms``) and ``fp32_tf32x3_launches``,
-the main paths' fp32 gradient checks' launches on the 3xTF32 kernels) and,
+``fp32_source``, ``fp32`` (their fp32 numbers at the main shape on the
+3xTF32 kernels) and ``fp32_tf32x3_launches``, the main paths' fp32
+gradient checks' launches on the 3xTF32 kernels) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
 line. Nothing of JAX or of the JAX package is imported.
@@ -511,9 +513,9 @@ CLI_EXPORT_REL = {"float32": 1e-5, "bfloat16": 1e-3}  # the loaded program again
 CLI_SERVED, CLI_SERVE_THREADS = 32, 8
 CLI_SERVE_START, CLI_SIGINT_EXIT = 300, 30  # s for the serve child to print its URL; to exit after SIGINT
 GRAIN_STEPS, GRAIN_EPOCHS, GRAIN_STOP = 5, 2, 7  # (e): steps an epoch, epochs, the step the stopped run ends on
-# (e)'s batch and clips: 5 steps an epoch (cut from B=64 on phase 15's 320 clips for the script's time: the
-# loader's resampling, not the model, set its pace)
-B_GRAIN, GRAIN_CLIPS = 16, 80
+# (e)'s batch and clips: 5 steps an epoch (cut from B=64 on phase 15's 320 clips, then from B=16 on 80, for
+# the script's time: the loader's resampling, not the model, sets its pace)
+B_GRAIN, GRAIN_CLIPS = 8, 40
 GRAIN_CHECKPOINT_EVERY = 2
 GRAIN_LOSS_REL = 1e-3  # a resumed step's loss against the uninterrupted run's (bf16, cuDNN's backward)
 
@@ -535,12 +537,24 @@ def check(ok: bool, what: str) -> None:
         FAILURES.append(what)
 
 
+def no_fma_backward(where: str) -> None:
+    """Every fp32 backward runs on the 3xTF32 kernels: the FMA body's
+    backward count (``attention_kernels.BACKWARD_BODIES["fma"]``) is 0."""
+    from avex_tpu_torch.ops import attention_kernels as ak
+
+    if ak.BACKWARD_BODIES["fma"]:
+        check(False, f"{where}: {ak.BACKWARD_BODIES['fma']} backward(s) on the FMA body")
+
+
 def timed(phase, *args):
-    """Run one phase; its wall seconds go to PHASE_SECONDS under its name."""
+    """Run one phase; its wall seconds go to PHASE_SECONDS under its name.
+    Each phase (and each reset of the counts in it) asserts that no
+    backward ran on the FMA body."""
     start = time.perf_counter()
     result = phase(*args)
+    no_fma_backward(phase.__name__)
     PHASE_SECONDS[phase.__name__] = round(time.perf_counter() - start, 1)
-    print(f"{phase.__name__}: {PHASE_SECONDS[phase.__name__]} s")
+    print(f"{phase.__name__}: {PHASE_SECONDS[phase.__name__]} s; BACKWARD_BODIES['fma'] == 0 checked")
     return result
 
 
@@ -841,9 +855,10 @@ def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: 
 
 
 def fp32_body(head_dim: int) -> str:
-    """The body that runs the fp32 forward and backward of a ``[B, T, 3E]``
-    projection of this head width: the 3xTF32 tensor-core kernels on 16-byte
-    rows up to 128, else the FMA body (``attention_kernels.kernel_body``)."""
+    """The body that runs the fp32 forward of a ``[B, T, 3E]`` projection of
+    this head width: the 3xTF32 tensor-core kernel on 16-byte rows up to
+    128, else the FMA body (``attention_kernels.kernel_body``). Every fp32
+    backward runs on the 3xTF32 kernels."""
     import torch
 
     from avex_tpu_torch.ops import attention_kernels as ak
@@ -866,29 +881,13 @@ def bodies_of(run, forward: bool = False) -> tuple:
     return result, {k: v - before[k] for k, v in counts.items() if v != before[k]}
 
 
-def fma_backward_ms(qkv, heads, bias, gate, mask, dout, n: int = TIMED_LAUNCHES) -> float:
-    """The FMA body's fp32 backward (K3 with a bias, K6 without) on the same
-    inputs, timed: the body these rows took before the 3xTF32 kernels, and
-    the one narrow rows and chunked widths still take. Its launches are not
-    counted."""
-    from avex_tpu_torch.ops import attention_kernels as ak
-
-    dim = qkv.shape[-1] // 3 // heads
-    saved = dict(ak.LAUNCHES), dict(ak.BACKWARD_BODIES)
-    detach = [None if t is None else t.detach() for t in (qkv, bias, gate)]
-    ms = median_ms(lambda: ak._kernel_fused_backward(detach[0], heads, detach[1], detach[2], mask, dout,
-                                                     dim**-0.5), n)
-    ak.LAUNCHES.update(saved[0])
-    ak.BACKWARD_BODIES.update(saved[1])
-    return ms
-
-
-def fp32_backward_note(ms: float, fma_ms: float, bsz: int, seq: int, heads: int = H, dim: int = D) -> str:
+def fp32_backward_note(ms: float, bsz: int, seq: int, heads: int = H, dim: int = D) -> str:
     """The tail of an fp32 backward's time line on the 3xTF32 kernels: the
-    FMA body's time on the same inputs and the 3xTF32 bound."""
+    3xTF32 bound. (The FMA body that ran the narrow and chunked fp32
+    backwards until the 3xTF32 kernels took every width is gone; its times
+    are PERF.md's.)"""
     bound = backward_bound_ms("float32", bsz, seq, False, False, heads, dim, tf32x3=True)[0]
-    return (f"; the FMA body on the same inputs {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the 3xTF32 kernels); "
-            f"3xTF32 bound {bound:.4f} ms ({bound / ms:.1%} of it)")
+    return f"; 3xTF32 bound {bound:.4f} ms ({bound / ms:.1%} of it)"
 
 
 def fma_forward_ms(q, k, v, bias, gate, mask, n: int = TIMED_LAUNCHES) -> float:
@@ -934,9 +933,10 @@ def fp32_forward_held(label, got, want) -> float:
 
 
 def lse_held(label, qkv, heads, mask=None, bias=None, gate=None) -> None:
-    """K2 (with ``bias``) or K5 under grad, fp32 on 3xTF32: the row
-    log-sum-exp it saves for the backward against the twin's at LSE_ATOL,
-    −inf exactly where the twin's is (a row whose keys are all padded)."""
+    """K2 (with ``bias``) or K5 under grad, fp32 (on 3xTF32 or the FMA body):
+    the row log-sum-exp it saves for the backward against the twin's at
+    LSE_ATOL, −inf exactly where the twin's is (a row whose keys are all
+    padded)."""
     import torch
 
     from avex_tpu_torch.ops import attention_kernels as ak
@@ -1013,7 +1013,7 @@ def phase_backward_kernels():
         """One gated backward: the kernel against its twins. bf16 (tensor
         cores, from K2's residuals): every output against the twin of its
         contract on those residuals, and against the twin that recomputes
-        the softmax; fp32 (FMA body): against the latter."""
+        the softmax; fp32 (3xTF32): against the latter."""
         name = str(dtype).split(".")[1]
         inputs = (qkv, bias) if g is None else (qkv, bias, g)
         out = ak.fused_qkv_gated_attention(qkv, H, bias, g, m)
@@ -1062,17 +1062,13 @@ def phase_backward_kernels():
         fp32 = dtype == torch.float32
         bound, bound_by = backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False, tf32x3=fp32)
         body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
-        fma_ms = fma_backward_ms(qkv, H, bias, gate, None, dout) if fp32 else None
-        note = fp32_backward_note(ms, fma_ms, B_TRAIN, T) if fp32 else ""
+        note = fp32_backward_note(ms, B_TRAIN, T) if fp32 else ""
         print(f"time fused_qkv_gated_attention_backward B={B_TRAIN} T={T} {name} (gate, no mask, {body}): "
               f"kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * T * T * D, ms):.1f} TFLOP/s), "
               f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
               f"({bound / ms:.1%} of bound){note}; {CARD[0]}")
         results[("fused_qkv_gated_attention_backward", name)] = dict(
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
-        if fp32:
-            results[("fused_qkv_gated_attention_backward", name)].update(
-                fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, B_TRAIN, T, gated=True, padded=False)[0])
         del qkv, bias, gate, dout, mask, masks, out, q, k, v, gated_bias
         torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
@@ -1117,8 +1113,7 @@ def phase_backward_kernels():
             fp32 = dtype == torch.float32
             bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None, tf32x3=fp32)
             body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
-            fma_ms = fma_backward_ms(qkv, H, None, None, mask, dout) if fp32 else None
-            note = fp32_backward_note(ms, fma_ms, B_TRAIN, seq) if fp32 else ""
+            note = fp32_backward_note(ms, B_TRAIN, seq) if fp32 else ""
             print(f"time fused_qkv_attention_backward {shape} B={B_TRAIN} T={seq} {name} (mask={mask is not None}, "
                   f"{body}): kernel {ms:.4f} ms ({tflops(10.0 * B_TRAIN * H * seq * seq * D, ms):.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
@@ -1126,10 +1121,6 @@ def phase_backward_kernels():
                   f"with the host's time to issue it {host_ms:.4f} ms{note}; {CARD[0]}")
             results[("fused_qkv_attention_backward", shape, name)] = dict(
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
-            if fp32:
-                results[("fused_qkv_attention_backward", shape, name)].update(
-                    fma_ms=fma_ms,
-                    fma_bound_ms=backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=mask is not None)[0])
             del qkv, dout, mask, out, q, k, v
             torch.cuda.empty_cache()
     return results
@@ -1157,10 +1148,12 @@ def sdpa_backward_ms(q, k, v, attn_mask, dout, n: int = TIMED_LAUNCHES) -> float
 
 
 def reset_counts() -> None:
-    """Set the launch count of every kernel of the port to 0."""
+    """Set the launch count of every kernel of the port to 0 (after checking
+    that no backward since the last reset ran on the FMA body)."""
     from avex_tpu_torch.ops import attention_kernels as ak
     from avex_tpu_torch.ops import int8_kernels as ik
 
+    no_fma_backward("reset_counts")
     ak.reset_launch_counts()
     ik.reset_launch_counts()
 
@@ -1426,8 +1419,9 @@ def zero_gradient(name, grad):
 def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body="tf32x3", timed_steps=0):
     """One step's loss and every parameter's gradient (float32), dropout and
     LayerDrop off; checks the kernel launches (``expect`` on the kernel path,
-    none on the plain path) and the body of every forward and backward
-    (bf16, or in fp32 ``fp32_body``: "tf32x3" or "fma"). With ``timed_steps``, the median host
+    none on the plain path) and the body of every forward (bf16, or in fp32
+    ``fp32_body``: "tf32x3" or "fma") and backward (bf16, or in fp32 the
+    3xTF32 kernels at every width). With ``timed_steps``, the median host
     ms of that many more steps (forward and backward, synchronised).
     Returns (loss, gradients, launches, ms or None)."""
     import torch
@@ -1454,7 +1448,7 @@ def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body=
           f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: launches "
           f"{ {k: v for k, v in counts.items() if v} } == {want}")
     backwards = sum(want.get(k, 0) for k in TF32X3_STEP_LAUNCHES)
-    want_bodies = {("bf16" if dtype == "bfloat16" else fp32_body): backwards} if backwards else {}
+    want_bodies = {("bf16" if dtype == "bfloat16" else "tf32x3"): backwards} if backwards else {}
     check(bodies == want_bodies, f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: "
                                  f"backward bodies {bodies} == {want_bodies}")
     forwards = sum(want.get(k, 0) for k in TF32X3_FORWARD_LAUNCHES)
@@ -1462,11 +1456,12 @@ def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body=
     check(forward_bodies == want_forward, f"{label} {dtype} gradient check, "
                                           f"{'kernel' if use_pallas else 'plain'} path: forward bodies "
                                           f"{forward_bodies} == {want_forward}")
-    if dtype == "float32" and use_pallas and fp32_body == "tf32x3":
+    if dtype == "float32" and use_pallas:
         for kname in TF32X3_STEP_LAUNCHES:
             TF32X3_STEP_LAUNCHES[kname] += counts[kname]
-        for kname in TF32X3_FORWARD_LAUNCHES:
-            TF32X3_FORWARD_LAUNCHES[kname] += counts[kname]
+        if fp32_body == "tf32x3":
+            for kname in TF32X3_FORWARD_LAUNCHES:
+                TF32X3_FORWARD_LAUNCHES[kname] += counts[kname]
     ms = None
     if timed_steps:
         times = []
@@ -1501,8 +1496,8 @@ def training_gradient_check(label, load, wav, expect, mask=None, bf16=False, fp3
     """fp32, dropout and LayerDrop off, the same weights: the kernel path's
     loss and every parameter's gradient against the plain path's. ``expect``
     maps the kernels the kernel path launches to their count; ``fp32_body``
-    is the body its fp32 backwards run on ("tf32x3", or "fma" for narrow
-    rows and chunked widths). With ``timed_steps`` each path's fp32 step is
+    is the body its fp32 forwards run on ("tf32x3", or "fma" for narrow
+    rows and chunked widths; every fp32 backward runs on "tf32x3"). With ``timed_steps`` each path's fp32 step is
     also timed (the median of that many). With ``bf16`` one bf16 step of each
     path is also held to the fp32 plain path: the kernel path may be at most
     BF16_GRAD_FACTOR farther than the plain path (global rel L2 over every
@@ -1521,7 +1516,8 @@ def training_gradient_check(label, load, wav, expect, mask=None, bf16=False, fp3
               "kernel_path_launches": {k: v for k, v in counts_k.items() if v}}
     if timed_steps:
         print(f"{label} fp32 step (B={wav.shape[0]}, forward and backward, median of {timed_steps}): kernel path "
-              f"{ms_k:.1f} ms (backward on the {fp32_body} body), plain path {ms_p:.1f} ms; {CARD[0]}")
+              f"{ms_k:.1f} ms (forward on the {fp32_body} body, backward on tf32x3), plain path {ms_p:.1f} ms; "
+              f"{CARD[0]}")
         result["fp32_step_ms"] = {"kernel_path": ms_k, "plain_path": ms_p}
     if bf16:
         del grads_k
@@ -1720,7 +1716,8 @@ def phase_aves_training(workdir):
 def phase_dh80_kernels():
     """K5 and K4 at Bird-MAE huge's forward shape (B=128, T=513, 16 heads of
     80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (3xTF32
-    forward and K6, each also timed beside the FMA body on the same inputs),
+    forward and K6, the forwards also timed beside the FMA body on the same
+    inputs),
     against their twins (the bf16 K6 also against the twin of its own
     contract on K5's saved residuals); returns per-kernel numbers for the
     JSON line and K4's launches in this phase."""
@@ -1805,8 +1802,7 @@ def phase_dh80_kernels():
         library_ms = sdpa_backward_ms(q, k, v, None, dout)
         bound, bound_by = backward_bound_ms(name, B_TRAIN_MAE, T_MAE, gated=False, padded=False, heads=H_MAE,
                                             dim=D_MAE, tf32x3=fp32)
-        fma_ms = fma_backward_ms(qkv, H_MAE, None, None, None, dout) if fp32 else None
-        note = fp32_backward_note(ms, fma_ms, B_TRAIN_MAE, T_MAE, H_MAE, D_MAE) if fp32 else ""
+        note = fp32_backward_note(ms, B_TRAIN_MAE, T_MAE, H_MAE, D_MAE) if fp32 else ""
         print(f"time {label} ({'tensor cores, 3xTF32' if fp32 else body}): kernel {ms:.4f} ms "
               f"({tflops(10.0 * B_TRAIN_MAE * H_MAE * T_MAE * T_MAE * D_MAE, ms):.1f} TFLOP/s), "
               f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
@@ -1814,10 +1810,6 @@ def phase_dh80_kernels():
         results[("fused_qkv_attention_backward", name)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
             batch=B_TRAIN_MAE, seq=T_MAE, heads=H_MAE)
-        if fp32:
-            results[("fused_qkv_attention_backward", name)].update(
-                fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, B_TRAIN_MAE, T_MAE, gated=False, padded=False,
-                                                              heads=H_MAE, dim=D_MAE)[0])
         del qkv, dout, out, q, k, v
         torch.cuda.empty_cache()
     k4_launches = ak.LAUNCHES["plain_attention"]
@@ -2958,16 +2950,16 @@ def phase_entry_points(workdir: Path):
 
 
 def phase_k3_long():
-    """The fp32 K3 past T=512 on the 3xTF32 kernels (which take any T) and
-    on the FMA body, which narrow rows still take and which moves its dbias
-    rows to device memory past 512: at T=520 and T=800 (B=4) with the gate,
+    """The fp32 K3 past T=512 on the 3xTF32 kernels (which take any T and
+    any width), after the 3xTF32 forward and after the FMA forward of narrow
+    rows: at T=520 and T=800 (B=4) with the gate,
     with the gate and a padding mask, and with neither, dqkv, dbias and
     dgate against the twin at atol/rtol 1e-4 and (3xTF32) relative L2
     TF32X3_REL_L2; the same values on narrow rows (a row stride of 3E + 1
-    floats) with the gate, with and without the mask, on the FMA body at
-    atol/rtol 1e-4; then times the
-    gated call at T=800 against the twin, the FMA body on the same inputs,
-    the fp32 SDPA backward and its bounds. Returns the T=800 numbers for the
+    floats) with the gate, with and without the mask: the forward on the FMA
+    body (its row log-sum-exp saved), the backward on the 3xTF32 kernels, at
+    the same bounds; then times the gated call at T=800 against the twin,
+    the fp32 SDPA backward and its bound. Returns the T=800 numbers for the
     JSON line."""
     import torch
 
@@ -2982,7 +2974,7 @@ def phase_k3_long():
         dout = torch.randn(B_LONG, seq, E, device="cuda", generator=gen)
         mask = torch.zeros(B_LONG, seq, dtype=torch.bool, device="cuda")
         mask[1::2, seq * 2 // 3:] = True
-        # the same values on narrow rows: the forward saves no LSE, the FMA body's K3 runs
+        # the same values on narrow rows: the FMA forward saves its LSE, the 3xTF32 K3 runs from it
         store = torch.zeros(B_LONG, seq, 3 * E + 1, device="cuda", requires_grad=True)
         with torch.no_grad():
             store[..., 1:].copy_(qkv)
@@ -2996,21 +2988,21 @@ def phase_k3_long():
             out, forward_bodies = bodies_of(lambda: ak.fused_qkv_gated_attention(x, H, bias, g, m), forward=True)
             check(forward_bodies == {body: 1}, f"fp32 K2 T={seq} on {body}'s rows: ran on the {body} forward "
                                                f"({forward_bodies})")
+            check(out.grad_fn.saved_tensors[-1] is not None, f"fp32 K2 T={seq} on {body}'s rows: saved its LSE")
             got, bodies = bodies_of(lambda: torch.autograd.grad(out, inputs, dout))
             launched = read_counts()["fused_qkv_gated_attention_backward"]
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(),
                                                          None if g is None else g.detach(), m, dout)
             rows = "16-byte rows" if body == "tf32x3" else "narrow rows"
             label = f"fp32 K3 T={seq} B={B_LONG} gate={g is not None} mask={m is not None} {rows}"
-            check(launched == 1 and bodies == {body: 1},
-                  f"{label}: launched the kernel once ({launched}), on the {body} body ({bodies})")
+            check(launched == 1 and bodies == {"tf32x3": 1},
+                  f"{label}: launched the kernel once ({launched}), on the tf32x3 body ({bodies})")
             for name, a, b in zip(("dqkv", "dbias", "dgate"), got, want):
                 err, rel = float((a - b).abs().max()), rel_l2(a, b)
-                bound = TF32X3_REL_L2 if body == "tf32x3" else math.inf
                 check(a.shape == b.shape and bool(torch.allclose(a, b, atol=K3_LONG_TOL, rtol=K3_LONG_TOL))
-                      and rel <= bound,
+                      and rel <= TF32X3_REL_L2,
                       f"{label}: {name} {tuple(a.shape)} max|d| {err:.3e} within atol/rtol {K3_LONG_TOL:g}, "
-                      f"rel L2 {rel:.3e}" + (f" <= {TF32X3_REL_L2:g}" if body == "tf32x3" else ""))
+                      f"rel L2 {rel:.3e} <= {TF32X3_REL_L2:g}")
                 worst = max(worst, err)
             del out, got
         del store, narrow
@@ -3023,16 +3015,14 @@ def phase_k3_long():
                        for t in qkv.detach().view(B_LONG, seq, 3, H, D).unbind(2))
             gated_bias = (gate.detach()[..., None] * bias.detach()[None]).requires_grad_()
             library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout)
-            fma_ms = fma_backward_ms(qkv, H, bias, gate, None, dout)
             bound, bound_by = backward_bound_ms("float32", B_LONG, seq, gated=True, padded=False, tf32x3=True)
             print(f"time fused_qkv_gated_attention_backward B={B_LONG} T={seq} float32 (gate, no mask, tensor "
                   f"cores, 3xTF32): kernel {ms:.4f} ms ({tflops(10.0 * B_LONG * H * seq * seq * D, ms):.2f} "
                   f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"by {bound_by} ({bound / ms:.1%} of bound){fp32_backward_note(ms, fma_ms, B_LONG, seq)}; "
+                  f"by {bound_by} ({bound / ms:.1%} of bound){fp32_backward_note(ms, B_LONG, seq)}; "
                   f"{CARD[0]}")
             result = dict(batch=B_LONG, seq=seq, max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound, bound_by=bound_by, fma_ms=fma_ms,
-                          fma_bound_ms=backward_bound_ms("float32", B_LONG, seq, gated=True, padded=False)[0])
+                          bound_ms=bound, bound_by=bound_by)
             del out, q, k, v, gated_bias
         del qkv, bias, gate, dout, mask
         torch.cuda.empty_cache()
@@ -3328,7 +3318,7 @@ def eat_ssl_shapes() -> tuple:
 
 def phase_eat_ssl_kernels():
     """K5 and K6 against their twins at EAT-SSL's three shapes (B=64), bf16
-    (tensor cores) and fp32 (3xTF32, K6 also timed beside the FMA body's);
+    (tensor cores) and fp32 (3xTF32, K5 also timed beside the FMA body's);
     each timed beside its twin, its bound and SDPA (its backward for K6). The teacher's K5 runs under no_grad, as in
     the model. Returns {(kernel, shape, dtype): numbers}."""
     import torch
@@ -3397,8 +3387,7 @@ def phase_eat_ssl_kernels():
                 library_ms = sdpa_backward_ms(q, k, v, None, dout)
                 bound, bound_by = backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=False, heads=heads,
                                                     tf32x3=fp32)
-                fma_ms = fma_backward_ms(qkv, heads, None, None, None, dout) if fp32 else None
-                note = fp32_backward_note(ms, fma_ms, B_TRAIN, seq, heads) if fp32 else ""
+                note = fp32_backward_note(ms, B_TRAIN, seq, heads) if fp32 else ""
                 print(f"time {label} ({body}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * B_TRAIN * heads * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                       f"sdpa backward {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
@@ -3406,10 +3395,6 @@ def phase_eat_ssl_kernels():
                 results[("fused_qkv_attention_backward", shape, name)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                     bound_by=bound_by, batch=B_TRAIN, seq=seq, heads=heads)
-                if fp32:
-                    results[("fused_qkv_attention_backward", shape, name)].update(
-                        fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, B_TRAIN, seq, gated=False, padded=False,
-                                                                      heads=heads)[0])
                 del dout, out, q, k, v
             del qkv
             torch.cuda.empty_cache()
@@ -5366,19 +5351,42 @@ def sdpa_backend(q, k, v, attn_mask=None) -> str:
         return f"unknown ({type(exc).__name__})"
 
 
+# The FMA backward's times at phase 35's timed shapes (PERF.md's phase-35 table,
+# an NVIDIA H100 80GB HBM3 at 700 W), quoted beside the 3xTF32 kernels that
+# replaced it: K3 at B=64, T=248 with the gate, K6 at B=64, T=513.
+FMA_BACKWARD_MS = {
+    "K3": {12: 13.6896, 20: 9.0996, 136: 9.8768, 192: 9.0484, 256: 9.0525, 320: 11.5444},
+    "K6": {12: 39.5219, 20: 23.0681, 136: 41.5021, 192: 35.0215, 256: 38.3390, 320: 50.8536},
+}
+
+
+def backward_quote(kernel: str, dh: int, ms: float, q, k, v, attn_mask) -> str:
+    """The tail of a timed fp32 backward's line in phase 35: SDPA's backend
+    for the same views and, where PERF.md has it, the FMA backward's time
+    as a quoted figure."""
+    tail = f"; sdpa backend {sdpa_backend(q, k, v, attn_mask)}"
+    fma = FMA_BACKWARD_MS[kernel].get(dh)
+    if fma is not None:
+        tail += f"; the FMA backward (quoted from PERF.md) {fma:.4f} ms ({fma / ms:.2f}x this)"
+    return tail
+
+
 def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_bytes=None, padded_item=False,
                        reps: int = TIMED_LAUNCHES, check_batch=None):
     """K1-K6 at each head width of ``widths`` with ``heads_of(dh)`` heads,
-    bf16 (tensor cores) and fp32 (3xTF32 on 16-byte rows up to 128, the FMA
-    body on narrow rows and column chunks; each call's body checked): the
+    bf16 (tensor cores) and fp32 (the forwards on 3xTF32 on 16-byte rows up
+    to 128, on the FMA body on narrow rows and column chunks; every backward
+    on 3xTF32; each call's body checked): the
     forwards at B=128 (K4, K5:
     T=513; K1, K2: T=248, with the gate), the backwards at B=64 (K3: T=248,
     with the gate; K6: T=513), each against its twin (the bf16 K3/K6 also
     against the twin of their own contract on the forward's residuals); a
     width of ``timed`` is timed beside the twin, its bound and SDPA (and,
     with ``twin_bytes`` set, SDPA's backend printed; the fp32 forwards on
-    3xTF32 also beside the FMA body, with SDPA's backend), each time the
-    median of ``reps`` calls; then one ragged, padded
+    3xTF32 also beside the FMA body, with SDPA's backend; the fp32
+    backwards beside the 3xTF32 bound, SDPA's backend and, at the widths of
+    ``FMA_BACKWARD_MS``, the FMA backward's time quoted from PERF.md),
+    each time the median of ``reps`` calls; then one ragged, padded
     case a width (B=8, T=37, a key mask; with ``padded_item`` also one item's
     keys all padded in the forwards: NaN where the twin has NaN). With
     ``twin_bytes`` a batch is cut so that the twin's fp32 [B, H, T, T]
@@ -5446,16 +5454,18 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
               f"of {plan.chunk_width}; forward batches {bsz_g} / {bsz_f}, backward {bsz_b3} / {bsz_b6}")
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
-            # the body of the forwards and backwards alike: bf16, or fp32 on 3xTF32 (16-byte rows up to
-            # 128) or the FMA body
-            bwd_body = "bf16" if dtype == torch.bfloat16 else fp32_body(dh)
-            tf32x3 = bwd_body == "tf32x3"
-            bwd_label = body = {"bf16": "tensor cores", "tf32x3": "tensor cores, 3xTF32", "fma": "FMA"}[bwd_body]
+            # the forwards' body: bf16, or fp32 on 3xTF32 (16-byte rows up to 128) or the FMA body;
+            # the backwards': bf16, or fp32 on 3xTF32 at every width
+            fwd_body = "bf16" if dtype == torch.bfloat16 else fp32_body(dh)
+            bwd_body = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+            tf32x3, fp32 = fwd_body == "tf32x3", dtype == torch.float32
+            labels = {"bf16": "tensor cores", "tf32x3": "tensor cores, 3xTF32", "fma": "FMA"}
+            body, bwd_label = labels[fwd_body], labels[bwd_body]
 
             def forward_held(label, run, twin):
                 """One forward against its twin, on the body the rule gives; returns max|d|."""
                 got, bodies = bodies_of(run, forward=True)
-                check(bodies == {bwd_body: 1}, f"{label}: ran on the {bwd_body} body ({bodies})")
+                check(bodies == {fwd_body: 1}, f"{label}: ran on the {fwd_body} body ({bodies})")
                 return held(label, dtype, got, twin(), tf32x3=tf32x3)
             # bias-free forwards, EAT's T: K5 on [B, T, 3E], K4 on its split views
             qkv = torch.randn(bsz_f, T_EAT, 3 * e, device="cuda", generator=gen).to(dtype)
@@ -5476,7 +5486,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                         record(kname, dh, name, label, err, run, twin,
                                lambda: F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5), bound, flops,
                                (q, k, v), (q, k, v, None, None) if tf32x3 else None)
-                if tf32x3:
+                if fp32:  # the row log-sum-exp of either fp32 body
                     lse_held(f"fused_qkv_attention dh={dh} H={heads} B={bsz_f} T={T_EAT} {name}", qkv, heads)
             del qkv, q, k, v
             # gated forwards, BEATs' T, with the gate: K1 on three projections' views, K2 on [B, T, 3E]
@@ -5503,7 +5513,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                         record(kname, dh, name, label, err, run, twin,
                                lambda: F.scaled_dot_product_attention(*views, attn_mask=attn_mask, scale=dh**-0.5),
                                bound, flops, (*views, attn_mask), (*views, bias, gate) if tf32x3 else None)
-                if tf32x3:
+                if fp32:
                     lse_held(f"fused_qkv_gated_attention dh={dh} H={heads} B={bsz_g} T={T} {name}", qkv, heads,
                              None, bias, gate)
             del qkv, sq, sk, sv, fq, fk, fv, attn_mask
@@ -5520,7 +5530,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             check(bodies == {bwd_body: 1}, f"{label}: ran on the {bwd_body} body ({bodies})")
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), heads, bias.detach(), gate.detach(), None,
                                                          dout)
-            err = held(label + " dqkv", dtype, got[0], want[0], tf32x3=tf32x3)
+            err = held(label + " dqkv", dtype, got[0], want[0], tf32x3=fp32)
             held(label + " dbias", dtype, got[1], want[1], sums=True)
             held(label + " dgate", dtype, got[2], want[2], sums=True)
             if dtype == torch.bfloat16:
@@ -5541,9 +5551,9 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                     qkv.detach(), heads, bias.detach(), gate.detach(), None, dout), reps)
                 library_ms = sdpa_backward_ms(q, k, v, gated_bias, dout, reps)
                 t_bound, bound_by = backward_bound_ms(name, bsz_b3, T, gated=True, padded=False, heads=heads, dim=dh,
-                                                      tf32x3=tf32x3)
-                fma_ms = fma_backward_ms(qkv, heads, bias, gate, None, dout, reps) if tf32x3 else None
-                note = fp32_backward_note(ms, fma_ms, bsz_b3, T, heads, dh) if tf32x3 else ""
+                                                      tf32x3=fp32)
+                note = fp32_backward_note(ms, bsz_b3, T, heads, dh) if fp32 else ""
+                note += backward_quote("K3", dh, ms, q, k, v, gated_bias) if fp32 and twin_bytes is not None else ""
                 print(f"time {label} (gate, {bwd_label}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * bsz_b3 * heads * T * T * dh, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                       f"sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
@@ -5551,10 +5561,6 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                 results[("fused_qkv_gated_attention_backward", dh, name)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
                     bound_by=bound_by)
-                if tf32x3:
-                    results[("fused_qkv_gated_attention_backward", dh, name)].update(
-                        fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, bsz_b3, T, gated=True, padded=False,
-                                                                      heads=heads, dim=dh)[0])
                 del q, k, v, gated_bias
             del qkv, bias, gate, dout, out
             torch.cuda.empty_cache()
@@ -5567,7 +5573,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             label = f"fused_qkv_attention_backward dh={dh} H={heads} B={bsz_b6} T={T_EAT} {name}"
             check(bodies == {bwd_body: 1}, f"{label}: ran on the {bwd_body} body ({bodies})")
             err = held(label, dtype, got, ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout),
-                       tf32x3=tf32x3)
+                       tf32x3=fp32)
             if dtype == torch.bfloat16:
                 *_, saved, rest, lse = out.grad_fn.saved_tensors  # K5's residuals
                 held(label + " vs its residual twin", dtype, got, ak.fused_qkv_backward_from_residuals_reference(
@@ -5581,9 +5587,9 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                 plain_ms = median_ms(lambda: ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout), reps)
                 library_ms = sdpa_backward_ms(q, k, v, None, dout, reps)
                 t_bound, bound_by = backward_bound_ms(name, bsz_b6, T_EAT, gated=False, padded=False, heads=heads,
-                                                      dim=dh, tf32x3=tf32x3)
-                fma_ms = fma_backward_ms(qkv, heads, None, None, None, dout, reps) if tf32x3 else None
-                note = fp32_backward_note(ms, fma_ms, bsz_b6, T_EAT, heads, dh) if tf32x3 else ""
+                                                      dim=dh, tf32x3=fp32)
+                note = fp32_backward_note(ms, bsz_b6, T_EAT, heads, dh) if fp32 else ""
+                note += backward_quote("K6", dh, ms, q, k, v, None) if fp32 and twin_bytes is not None else ""
                 print(f"time {label} ({bwd_label}): kernel {ms:.4f} ms "
                       f"({tflops(10.0 * bsz_b6 * heads * T_EAT * T_EAT * dh, ms):.1f} TFLOP/s), plain "
                       f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} "
@@ -5591,10 +5597,6 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                 results[("fused_qkv_attention_backward", dh, name)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
                     bound_by=bound_by)
-                if tf32x3:
-                    results[("fused_qkv_attention_backward", dh, name)].update(
-                        fma_ms=fma_ms, fma_bound_ms=backward_bound_ms(name, bsz_b6, T_EAT, gated=False, padded=False,
-                                                                      heads=heads, dim=dh)[0])
                 del q, k, v
             del qkv, dout, out
             torch.cuda.empty_cache()
@@ -5626,7 +5628,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                     forward_held(f"fused_qkv_attention {tag}, an item all padded",
                                  lambda: ak.fused_qkv_attention(qkv, heads, forward_mask),
                                  lambda: ak.fused_qkv_reference(qkv, heads, forward_mask))
-                    if tf32x3:
+                    if fp32:
                         lse_held(f"fused_qkv_gated_attention {tag}, an item all padded", qkv, heads, forward_mask,
                                  bias, gate)
             leaves = (qkv.clone().requires_grad_(), bias.clone().requires_grad_(), gate.clone().requires_grad_())
@@ -5639,7 +5641,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             want = ak.fused_qkv_gated_backward_reference(qkv, heads, bias, gate, mask, dout)
             for part, g, w in zip(("dqkv", "dbias", "dgate"), got, want):
                 held(f"fused_qkv_gated_attention_backward {part} {tag}", dtype, g, w, sums=part != "dqkv",
-                     tf32x3=tf32x3)
+                     tf32x3=fp32)
             leaf = qkv.clone().requires_grad_()
             out = ak.fused_qkv_attention(leaf, heads, mask)
             held(f"fused_qkv_attention {tag}", dtype, out.detach(), ak.fused_qkv_reference(qkv, heads, mask),
@@ -5647,7 +5649,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             (got,), bodies = bodies_of(lambda: torch.autograd.grad(out, (leaf,), dout))
             check(bodies == {bwd_body: 1}, f"fused_qkv_attention_backward {tag}: ran on the {bwd_body} body ({bodies})")
             held(f"fused_qkv_attention_backward {tag}", dtype, got,
-                 ak.fused_qkv_backward_reference(qkv, heads, mask, dout), tf32x3=tf32x3)
+                 ak.fused_qkv_backward_reference(qkv, heads, mask, dout), tf32x3=fp32)
             del qkv, q, k, v, bias, gate, mask, forward_mask, dout, leaves, out, got, want, leaf
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5991,7 +5993,7 @@ def phase_wide_head_paths(workdir: Path) -> dict:
     del trainer
     torch.cuda.empty_cache()
     beats_grad = training_gradient_check("BEATs 4 x 192", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect,
-                                         fp32_body="fma")  # two column chunks of 96: the FMA body
+                                         fp32_body="fma")  # two column chunks of 96: the FMA forward, 3xTF32 K3
 
     # (c) EAT 64 x 12: K5 extraction, K6 training
     def load_eat(dtype, use_pallas, **kwargs):
@@ -6035,7 +6037,8 @@ def phase_wide_head_paths(workdir: Path) -> dict:
     torch.cuda.empty_cache()
     eat_grad = training_gradient_check("EAT 64 x 12", reused_paths(lambda dtype: load_eat(dtype, True,
                                                                                            num_classes=N_CLASSES)),
-                                       batch["raw_wav"][:B_GRAD_CHECK], expect, fp32_body="fma")  # narrow rows
+                                       batch["raw_wav"][:B_GRAD_CHECK], expect,
+                                       fp32_body="fma")  # narrow rows: the FMA forward, 3xTF32 K6
 
     # (d) Bird-MAE huge 5 x 256: K5 extraction of 10 s clips at 32 kHz, fp32 kernel path vs plain path
     def load_mae(dtype, use_pallas):
@@ -6201,7 +6204,7 @@ def main() -> int:
             for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
 
     tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16
-    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # fp32 K1-K6 on 16-byte rows up to 128
+    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # fp32 K3/K6 at every width, K1/K2/K4/K5 up to 128
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
     rows = (
@@ -6230,10 +6233,10 @@ def main() -> int:
         })
         if source == tensor_core and kname.endswith("_backward"):
             kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync bf16)",
-                                   "fp32": "tensor cores (mma.sync TF32, 3xTF32) on 16-byte rows of a head width "
-                                           "a multiple of 8 up to 128; FMA on narrow rows and chunked widths"}
+                                   "fp32": "tensor cores (mma.sync TF32, 3xTF32) at every head width: 16-byte rows "
+                                           "up to 128, narrow rows, column chunks past 128"}
             kernels[-1]["fp32_source"] = tf32x3
-            # the fp32 call at the same shape, with the FMA body's time on the same inputs
+            # the fp32 call at the same shape
             kernels[-1]["fp32"] = backward_timings[(kname, "float32") if kname.startswith("fused_qkv_gated")
                                                    else (kname, "EAT", "float32")]
             # the main paths' fp32 gradient checks (``step_gradients``): their launches on the 3xTF32 kernels

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The fp32 attention forward (K1, K2, K4, K5) and backward (K3, K6) on the
 card: the 3xTF32 tensor-core kernels against the plain fp32 twin, the FMA
-body and SDPA.
+body's forward and SDPA.
 
     python3 scripts/torch_tf32x3_backward.py
 
@@ -24,17 +24,32 @@ backward of ``fused_qkv_gated_attention`` (K3) or
 with TF32 off (rel L2 of dqkv, dbias and dgate; NaN exactly where the twin
 has NaN), the body that ran it (``attention_kernels.BACKWARD_BODIES``) and,
 for the timed cases, the median device time of 20 calls (each behind a sleep
-kernel) of the 3xTF32 kernels, the FMA body on the same inputs, the twin
-and SDPA's fp32 backward, beside the bound at 165 TFLOP/s (3xTF32: three
-TF32 products a product) and at the FMA units' 67, and each 3xTF32
-kernel's device time per call from ``torch.profiler``. Exits 1 on a failed
+kernel) of the 3xTF32 kernels, the twin and SDPA's fp32 backward, beside
+the bound at 165 TFLOP/s (3xTF32: three TF32 products a product), and each
+3xTF32 kernel's device time per call from ``torch.profiler``. Exits 1 on a failed
 check. Needs CUDA and ``nvcc``; imports nothing of JAX.
+
+    python3 scripts/torch_tf32x3_backward.py general [--root CHECKOUT]
+    python3 scripts/torch_tf32x3_backward.py general-ab PARENT
+
+``general`` times the fp32 backward of the general route (narrow rows and
+column chunks past 128: dh 12, 20, 136, 192, 256, 320) at the shapes
+``chip_smoke.py``'s phase 35 times it (K3 at B=64, T=248 with the gate, K6
+at B=64, T=513; E = 768 or the nearest multiple of dh), and dh 64 on
+16-byte rows (the main paths' K3 and K6) as the control, through autograd on
+whichever body the checkout runs it (``--root``: another checkout's
+``avex_tpu_torch``, built in its own ``build/``), each against the plain
+fp32 twin, beside SDPA's fp32 backward and the 3xTF32 bound; one JSON line a
+case. ``general-ab PARENT`` runs ``general`` on PARENT, this checkout, this
+checkout and PARENT, one process each, on the same seeded inputs, and prints
+each case's medians side by side.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import re
 import subprocess
 import sys
@@ -42,7 +57,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+# ``general --root CHECKOUT`` imports that checkout's package instead of this one's
+sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv[:-1] else str(ROOT))
 
 REL_L2 = 1e-5  # the forward's output, and each of dqkv, dbias and dgate, against the plain fp32 twin
 ATOL = 1e-4  # the forward's output against the twin: max|d|
@@ -91,6 +107,101 @@ CASES = (
 )
 
 
+# The general route's widths, timed as chip_smoke.py's phase 35 times them (WH_TIMED),
+# and dh 64 (12 heads: K3 BEATs, K6 EAT) on 16-byte rows beside them as the control
+GENERAL_WIDTHS = (12, 20, 136, 192, 256, 320, 64)
+GENERAL_REPS = 10
+
+
+def general_cases() -> int:
+    """The general route's K3 and K6 (``general``); returns the failed
+    checks. Each case: the forward and backward bodies that ran, dqkv's
+    relative L2 and max|d| against the twin (and dbias's and dgate's relative
+    L2), the median ms of GENERAL_REPS backward calls and each kernel's
+    device ms from the profiler, SDPA's fp32 backward and backend on the
+    same views, and the 3xTF32 bound."""
+    import torch
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+    from chip_smoke import median_ms, rel_l2, sdpa_backend, sdpa_backward_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    failures = 0
+    for dh in GENERAL_WIDTHS:
+        heads = max(1, round(E / dh))
+        for kname, seq in (("K3", 248), ("K6", 513)):
+            bsz, width = 64, heads * dh
+            qkv = torch.randn(bsz, seq, 3 * width, device="cuda", generator=gen).requires_grad_()
+            dout = torch.randn(bsz, seq, width, device="cuda", generator=gen)
+            leaves, bias, gate = [qkv], None, None
+            if kname == "K3":
+                bias = torch.randn(heads, seq, seq, device="cuda", generator=gen).requires_grad_()
+                gate = (torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0).requires_grad_()
+                leaves += [bias, gate]
+            ak.reset_launch_counts()
+            out = (ak.fused_qkv_attention(qkv, heads) if bias is None
+                   else ak.fused_qkv_gated_attention(qkv, heads, bias, gate))
+            got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            torch.cuda.synchronize()
+            bodies = {"forward": {k: v for k, v in ak.FORWARD_BODIES.items() if v},
+                      "backward": {k: v for k, v in ak.BACKWARD_BODIES.items() if v}}
+            with torch.no_grad():
+                if bias is None:
+                    want = (ak.fused_qkv_backward_reference(qkv.detach(), heads, None, dout),)
+                else:
+                    want = ak.fused_qkv_gated_backward_reference(qkv.detach(), heads, bias.detach(), gate.detach(),
+                                                                 None, dout)
+            row = {"case": f"{kname} dh={dh} H={heads} B={bsz} T={seq}", "bodies": bodies,
+                   "max_abs_err": float((got[0] - want[0]).abs().max()),
+                   "rel_l2": {n: rel_l2(g, w) for n, g, w in zip(("dqkv", "dbias", "dgate"), got, want)}}
+            ok = row["max_abs_err"] <= ATOL and all(math.isfinite(r) for r in row["rel_l2"].values())
+            if bodies["backward"] == {"tf32x3": 1}:  # the 3xTF32 kernels: the card's relative L2 as well
+                ok &= row["rel_l2"]["dqkv"] <= REL_L2
+            del want
+            row["ms"] = median_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), GENERAL_REPS)
+            row["kernels_ms"] = kernel_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), 3)
+            q, k, v = (t.detach().permute(0, 2, 1, 3).requires_grad_()
+                       for t in qkv.detach().view(bsz, seq, 3, heads, dh).unbind(2))
+            attn = None if bias is None else (gate.detach()[..., None] * bias.detach()[None]).requires_grad_()
+            row["sdpa_ms"] = sdpa_backward_ms(q, k, v, attn, dout, GENERAL_REPS)
+            row["sdpa_backend"] = sdpa_backend(q, k, v, attn)
+            row["bound_tf32x3_ms"] = 10.0 * bsz * heads * seq * seq * dh / TF32X3_FLOPS * 1e3
+            row["ok"] = ok
+            print(("ok    " if ok else "FAIL  ") + json.dumps(row), flush=True)
+            failures += not ok
+            del qkv, dout, leaves, bias, gate, out, got, q, k, v, attn
+            torch.cuda.empty_cache()
+    return failures
+
+
+def general_ab(parent: str) -> int:
+    """``general`` on PARENT, this checkout, this checkout and PARENT, one
+    process each; prints each case's times side by side (the median of
+    each checkout's two runs). Returns the failed runs."""
+    import statistics
+
+    runs, failures = [], 0
+    for root in (parent, str(ROOT), str(ROOT), parent):
+        here = root == str(ROOT)  # this checkout's runs build here and print the builds' registers
+        proc = subprocess.run([sys.executable, __file__, "general", *([] if here else ["--root", root])],
+                              capture_output=True, text=True)
+        print(f"--- general on {root}: exit {proc.returncode}\n{proc.stdout}{proc.stderr[-3000:]}", flush=True)
+        failures += proc.returncode != 0
+        runs.append({row["case"]: row for row in (json.loads(line[6:]) for line in proc.stdout.splitlines()
+                                                  if line[:6] in ("ok    ", "FAIL  "))})
+    for case in runs[1]:
+        before = [r[case]["ms"] for r in (runs[0], runs[3]) if case in r]
+        after = [runs[i][case]["ms"] for i in (1, 2)]
+        row = runs[1][case]
+        print("ab " + json.dumps({"case": case, "parent_ms": before, "change_ms": after,
+                                  "parent_over_change": statistics.median(before) / statistics.median(after)
+                                  if before else None,
+                                  "sdpa_ms": row["sdpa_ms"], "sdpa_backend": row["sdpa_backend"],
+                                  "bound_tf32x3_ms": row["bound_tf32x3_ms"],
+                                  "parent_bodies": runs[0].get(case, {}).get("bodies"), "bodies": row["bodies"]}))
+    return failures
+
+
 def build() -> int:
     """Every build the cases need, at once; prints the 3xTF32 kernels'
     ptxas lines. Returns the kernels that spill."""
@@ -130,7 +241,7 @@ def kernel_ms(fn, n: int = 5) -> dict:
         torch.cuda.synchronize()
     times = {}
     for evt in prof.key_averages():
-        name = re.search(r"(tf32x3_\w+_kernel|sum_chunks_kernel)(<[^>]*>)?", evt.key)
+        name = re.search(r"(tf32x3_\w+_kernel|sum_chunks_kernel|attention_\w*kernel)(<[^>]*>)?", evt.key)
         total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
         if name and total:
             times[name.group(0)] = times.get(name.group(0), 0.0) + total / n / 1e3
@@ -243,11 +354,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["general-ab"]:
+        return 1 if general_ab(sys.argv[2]) else 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if sys.argv[1:2] == ["general"]:
+        failures = build() if "--root" not in sys.argv else 0
+        failures += general_cases()
+        print(f"{failures} failure(s) on {smi}")
+        return 1 if failures else 0
     failures = build()
     print(f"spilling 3xTF32 kernels: {failures}")
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -305,8 +423,6 @@ def main() -> int:
             flops = 10.0 * bsz * heads * seq * seq * dim
             row["ms"] = median_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
             row["kernels_ms"] = kernel_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
-            row["fma_ms"] = median_ms(lambda: ak._kernel_fused_backward(
-                detached[0], heads, detached[1], detached[2], mask, dout, dim ** -0.5))
             if bias is None:
                 row["plain_ms"] = median_ms(lambda: ak.fused_qkv_backward_reference(detached[0], heads, mask, dout))
             else:
@@ -319,8 +435,6 @@ def main() -> int:
                 attn = (detached[2][..., None] * detached[1][None]).requires_grad_()
             row["sdpa_ms"] = sdpa_backward_ms(q, k, v, attn, dout)
             row["bound_tf32x3_ms"] = flops / TF32X3_FLOPS * 1e3
-            row["bound_fma_ms"] = flops / FMA_FLOPS * 1e3
-            row["speedup_over_fma"] = row["fma_ms"] / row["ms"]
             del q, k, v, attn
         print(("ok    " if ok else "FAIL  ") + json.dumps(row))
         failures += not ok

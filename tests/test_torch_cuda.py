@@ -155,9 +155,10 @@ def test_fused_backward_kernels_match_twins(card, shape, variant, padded, dtype)
 @pytest.mark.parametrize("variant", ["gated", "bias_free"])
 @pytest.mark.parametrize("padded", [False, True], ids=["nomask", "mask"])
 def test_fp32_fma_backward_on_narrow_rows_past_512(card, seq, variant, padded):
-    """fp32 K3 and K6 on narrow rows (a row stride of 3E + 1 floats): the
-    forward saves no LSE and the FMA body runs the backward, whose K3 adds
-    its dbias rows in device memory past T=512; against the twins."""
+    """fp32 K3 and K6 on narrow rows (a row stride of 3E + 1 floats) past
+    T=512: the FMA body runs the forward and saves its row log-sum-exp, the
+    3xTF32 kernels run the backward from it (the body that took it before
+    they took every width); against the twins."""
     bsz = 2
     store = torch.zeros(bsz, seq, 3 * H * D + 1, device="cuda", requires_grad=True)
     values = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
@@ -183,7 +184,7 @@ def test_fp32_fma_backward_on_narrow_rows_past_512(card, seq, variant, padded):
         want = ak.fused_qkv_gated_backward_reference(values, H, bias.detach(), gate.detach(), mask, dout)
         key = "fused_qkv_gated_attention_backward"
     torch.cuda.synchronize()
-    assert ak.LAUNCHES[key] == 1 and ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 1}
+    assert ak.LAUNCHES[key] == 1 and ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 1, "fma": 0}
     for a, b in zip(got, want):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
@@ -816,8 +817,8 @@ def test_fp32_forward_on_3xtf32_writes_the_twins_lse(card, seq, masked, gated):
 @pytest.mark.parametrize("dh,body", [(64, "tf32x3"), (16, "tf32x3"), (128, "tf32x3"), (12, "fma"), (136, "fma")])
 def test_fp32_forward_body_by_width(card, dh, body):
     """16-byte rows of a multiple of 8 up to 128 run the 3xTF32 forward;
-    narrow rows (dh 12) and column chunks (dh 136) the FMA body, forward
-    and backward; each against its twin."""
+    narrow rows (dh 12) and column chunks (dh 136) the FMA body's forward;
+    every backward runs in 3xTF32; each against its twin."""
     bsz, seq, heads = 2, 37, 3
     qkv = torch.randn(bsz, seq, 3 * heads * dh, generator=card, device="cuda")
     bias = torch.randn(heads, seq, seq, generator=card, device="cuda")
@@ -837,4 +838,4 @@ def test_fp32_forward_body_by_width(card, dh, body):
     torch.testing.assert_close(got, ak.fused_qkv_backward_reference(qkv, heads, None, dout), atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
     assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 0, body: 3}
-    assert ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 0, body: 1}
+    assert ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 1, "fma": 0}

@@ -86,14 +86,16 @@ def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32(a) @ tf32(b)
 
 
-def backward_from_lse(qkv, heads, dout, mask, matmul, pos_bias=None, gate=None, rebase=True):
+def backward_from_lse(qkv, heads, dout, mask, matmul, pos_bias=None, gate=None, rebase=True, contract=None):
     """The 3xTF32 K3 (with ``pos_bias``) or K6 step by step, every product
-    through ``matmul``: P from the forward's row log-sum-exp, Δ from its
-    output; dK, dV and dbias from P / Σ P and Δ' = Σ P·dP / Σ P, and dQ and
-    dgate corrected to them (dQ with the keys' mean taken out of Σ_k dS·K)
-    as the kernels take them (``rebase``; else every output from P and Δ as
-    they are). Returns ``(dqkv, dbias, dgate)`` (None where there is
-    none)."""
+    through ``matmul`` (S = Q·Kᵀ and dP = dO·Vᵀ, the products over the head
+    width, through ``contract`` when given): P from the forward's row
+    log-sum-exp, Δ from its output; dK, dV and dbias from P / Σ P and
+    Δ' = Σ P·dP / Σ P, and dQ and dgate corrected to them (dQ with the keys'
+    mean taken out of Σ_k dS·K) as the kernels take them (``rebase``; else
+    every output from P and Δ as they are). Returns ``(dqkv, dbias, dgate)``
+    (None where there is none)."""
+    contract = contract or matmul
     bsz, seq, three_e = qkv.shape
     dim = three_e // 3
     d = dim // heads
@@ -105,13 +107,13 @@ def backward_from_lse(qkv, heads, dout, mask, matmul, pos_bias=None, gate=None, 
 
     q, k, v = ak._split_heads(qkv, heads)
     o, do = heads_first(out), heads_first(dout)
-    logits = matmul(q, k.transpose(-1, -2)) * scale
+    logits = contract(q, k.transpose(-1, -2)) * scale
     if pos_bias is not None:
         logits = logits + (gate[..., None] * pos_bias[None] if gate is not None else pos_bias[None])
     if mask is not None:
         logits = logits.masked_fill(mask[:, None, None, :], float("-inf"))
     p = torch.exp2(logits * LOG2E - lse[..., None] * LOG2E)
-    dp = matmul(do, v.transpose(-1, -2))  # dP = dO·Vᵀ
+    dp = contract(do, v.transpose(-1, -2))  # dP = dO·Vᵀ
     delta = (do * o).sum(dim=-1, keepdim=True)  # Δ = rowsum(dO ∘ O)
     dl = p * (dp - delta)  # dL = P∘(dP − Δ): the dQ kernel's
     total = p.sum(dim=-1, keepdim=True) if rebase else torch.ones_like(delta)
@@ -247,14 +249,16 @@ def test_rebased_p_keeps_the_key_gradients_summing_to_zero():
     (128, False, True), (64, True, False), (12, False, False), (136, False, False), (256, False, False),
 ])
 def test_tf32x3_rows_is_the_plan_of_the_fp32_backward(head_dim, narrow, takes):
-    """The fp32 backward runs on the 3xTF32 kernels at a multiple of 8 up to
+    """The fp32 forward runs on the 3xTF32 kernel at a multiple of 8 up to
     128 on 16-byte rows, and on the FMA body otherwise (narrow rows, column
-    chunks past 128); one rule, ``kernel_body``, gives the forward's body
-    and the backward's alike: in fp32 that plan, in bf16 the tensor cores at
-    every width."""
+    chunks past 128); the fp32 backward runs on the 3xTF32 kernels at every
+    width. One rule, ``kernel_body``, gives the forward's body and the
+    backward's: in bf16 the tensor cores at every width, both ways."""
     assert ak.tf32x3_rows(head_dim, narrow) is takes
     assert ak.kernel_body(torch.float32, head_dim, narrow) == ("tf32x3" if takes else "fma")
+    assert ak.kernel_body(torch.float32, head_dim, narrow, backward=True) == "tf32x3"
     assert ak.kernel_body(torch.bfloat16, head_dim, narrow) == "bf16"
+    assert ak.kernel_body(torch.bfloat16, head_dim, narrow, backward=True) == "bf16"
 
 
 def forward_tf32x3(q, k, v, pos_bias, gate, mask, matmul, tile=32):
