@@ -19,19 +19,17 @@ and P cast to v's type before PV, and of its two backward kernels:
   launched at ``:511``): the bias-free cell in K2's layout; its backward
   replaces ``_fused_qkv_bwd_kernel`` (K6, ``:524``, launched at ``:631``).
 
-Three CUDA sources carry them, chosen by type and width by one rule,
+Two CUDA sources carry them, chosen by type by one rule,
 :func:`kernel_body` (a plan, not a fallback): every bf16 call,
 forward (K1, K2, K4, K5) or backward (K3, K6), launches the tensor-core
 kernels of ``csrc/tensor_core_attention.cu``, whose fused forwards also
 write the row log-sum-exp and the output's rounding rest when a backward
 will follow, so that the backward rebuilds P from the one and takes Δ from
-the forward's output and the other. Every fp32 backward, at every head
-width, and every fp32 forward at a head width that is a multiple of 8 up
-to 128 on 16-byte rows (:func:`tf32x3_rows`), runs on the tensor cores in
-3xTF32 (``csrc/tf32x3_attention.cu``). The other fp32 forwards (narrow rows,
-column chunks past 128) run on ``csrc/gated_attention.cu``'s FMA body. Each
-fused fp32 forward, on either body, writes the row log-sum-exp for the
-backward. Each source is gated or bias-free by a template flag. Every
+the forward's output and the other. Every fp32 call, forward or backward,
+at every head width, runs on the tensor cores in 3xTF32
+(``csrc/tf32x3_attention.cu``),
+and each fused fp32 forward writes the row log-sum-exp for the backward.
+Each source is gated or bias-free by a template flag. Every
 kernel, gated or not, takes any head width D >= 1 (:func:`width_plan`).
 Each source is built once for each width of :data:`KERNEL_WIDTHS` (its
 ``-DAVEX_HEAD_DIM``). Up to :data:`CHUNK_COLUMNS` a call runs on the
@@ -88,15 +86,12 @@ __all__ = [
     "kernel_body",
     "kernel_width",
     "reset_launch_counts",
-    "tf32x3_rows",
     "width_plan",
 ]
 
-SOURCE = "gated_attention.cu"
 #: bf16 attention on the tensor cores (every kernel in bf16)
 TENSOR_CORE_SOURCE = "tensor_core_attention.cu"
-#: fp32 attention (K1-K6) on the tensor cores in 3xTF32, at the widths
-#: :func:`tf32x3_rows` takes
+#: fp32 attention (K1-K6) on the tensor cores in 3xTF32, at every width
 TF32X3_SOURCE = "tf32x3_attention.cu"
 #: The widths each CUDA source is built for, one library a width; a head
 #: width runs on the smallest that holds it or its column chunks
@@ -107,7 +102,7 @@ KERNEL_WIDTHS = (32, 64, 80, 96, 128)
 #: The most columns one block holds: a wider head runs in column chunks (the
 #: bf16 dK/dV kernel holds 255 registers at 128 already).
 CHUNK_COLUMNS = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel:
 #: K1, K2, K4 (``gated_bias_attention`` with ``pos_bias=None``), K5, and the
@@ -122,12 +117,10 @@ LAUNCHES: Dict[str, int] = {
 }
 #: forward calls (K1, K2, K4 and K5 together) since the last
 #: :func:`reset_launch_counts`, by the body that ran them: ``"bf16"`` (the
-#: tensor cores), ``"tf32x3"`` (fp32 on the tensor cores in 3xTF32),
-#: ``"fma"`` (fp32 on the FMA body)
-FORWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
+#: tensor cores), ``"tf32x3"`` (fp32 on the tensor cores in 3xTF32)
+FORWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0}
 #: backward calls (K3 and K6 together), by body, as :data:`FORWARD_BODIES`
-#: (``"fma"`` stays 0: every fp32 backward runs in 3xTF32)
-BACKWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0, "fma": 0}
+BACKWARD_BODIES: Dict[str, int] = {"bf16": 0, "tf32x3": 0}
 #: dbias blocks of the bf16 K3 resident on an SM at once at width 64 (168
 #: registers x 128 threads, 66 KB of shared memory): its batch is split into
 #: as many chunks (summed in order after) as fill the card in one wave
@@ -214,19 +207,6 @@ def kernel_width(head_dim: int) -> int:
     return width_plan(head_dim).build
 
 
-def _library(head_dim: int) -> ctypes.CDLL:
-    """The FMA body's build that runs ``head_dim``."""
-    lib = load_library(SOURCE, kernel_width(head_dim))
-    if lib.avex_gated_attention_forward.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [i, i, i, i, i, i, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
-        lib.avex_gated_attention_forward.argtypes = [i, p, p, p, p, p, p, p, p, *tail]
-        lib.avex_plain_attention_forward.argtypes = [i, p, p, p, p, p, p, *tail]
-        lib.avex_gated_attention_forward.restype = i
-        lib.avex_plain_attention_forward.restype = i
-    return lib
-
-
 def _tensor_core_library(head_dim: int) -> ctypes.CDLL:
     """The tensor-core build that runs ``head_dim``."""
     lib = load_library(TENSOR_CORE_SOURCE, kernel_width(head_dim))
@@ -247,7 +227,7 @@ def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
     lib = load_library(TF32X3_SOURCE, kernel_width(head_dim))
     if lib.avex_tf32x3_attention_backward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.avex_tf32x3_attention_forward.argtypes = [p] * 8 + [i] * 4 + [
+        lib.avex_tf32x3_attention_forward.argtypes = [p] * 8 + [i] * 6 + [
             ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
         lib.avex_tf32x3_attention_forward.restype = i
         lib.avex_tf32x3_attention_backward.argtypes = [p] * 16 + [i] * 7 + [
@@ -258,31 +238,22 @@ def _tf32x3_library(head_dim: int) -> ctypes.CDLL:
     return lib
 
 
-def kernel_body(dtype: torch.dtype, head_dim: int, narrow: bool, backward: bool = False) -> str:
-    """The one rule for which body runs a call, forward (K1, K2, K4, K5) or,
-    with ``backward``, backward (K3, K6), by the name :data:`FORWARD_BODIES`
-    and :data:`BACKWARD_BODIES` count it under. ``"bf16"``: every bf16 call,
-    on the tensor cores (``csrc/tensor_core_attention.cu``); ``"tf32x3"``:
-    every fp32 backward, and the fp32 forwards of :func:`tf32x3_rows`, on
-    the tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``). Every backward
-    runs from the residuals the fused forward saves (its output and row
-    log-sum-exp). ``"fma"``: the other fp32 forwards (narrow rows, column
-    chunks past 128), on the FMA body, which writes the row log-sum-exp as
-    well."""
+def kernel_body(dtype: torch.dtype) -> str:
+    """The one rule for which body runs a call, forward (K1, K2, K4, K5) or
+    backward (K3, K6), by the name :data:`FORWARD_BODIES` and
+    :data:`BACKWARD_BODIES` count it under: ``"bf16"``, every bf16 call, on
+    the tensor cores (``csrc/tensor_core_attention.cu``); ``"tf32x3"``,
+    every fp32 call, on the tensor cores in 3xTF32
+    (``csrc/tf32x3_attention.cu``). Either body takes every head width and
+    row alignment (the kernel inside it follows from the ``chunk_width`` and
+    ``narrow`` arguments of :func:`_columns`), and every backward runs from
+    the residuals the fused forward saves (its output and row log-sum-exp).
+    Raises TypeError for any other type."""
     if dtype == torch.bfloat16:
         return "bf16"
-    if dtype == torch.float32 and (backward or tf32x3_rows(head_dim, narrow)):
+    if dtype == torch.float32:
         return "tf32x3"
-    return "fma"
-
-
-def tf32x3_rows(head_dim: int, narrow: bool) -> bool:
-    """True when the fp32 forwards (K1, K2, K4, K5) of this head width run on
-    the tensor cores in 3xTF32 (``csrc/tf32x3_attention.cu``): D a multiple
-    of 8 up to :data:`CHUNK_COLUMNS`, on 16-byte rows (not ``narrow``,
-    :func:`_narrow`). Narrow rows and the column chunks past 128 run their
-    forward on the FMA body; every fp32 backward runs in 3xTF32."""
-    return head_dim % 8 == 0 and width_plan(head_dim).chunks == 1 and not narrow
+    raise TypeError(f"the attention kernels take float32 or bfloat16, got {dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +490,7 @@ def _check_operands(q, k, v, outputs, pos_bias, gate, key_padding_mask) -> bool:
     them)."""
     bsz, heads, seq, dim = q.shape
     width_plan(dim)  # raises at a head_dim below 1
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v), *outputs.items()):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -548,37 +519,6 @@ def _columns(dim: int, narrow: bool) -> tuple:
     return dim, width_plan(dim).chunk_width, int(narrow)
 
 
-def _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow, lse=None) -> None:
-    """Launch the FMA body's fp32 forward on ``[B, H, T, D]`` views (K1/K2
-    with ``pos_bias``, K4/K5 without) on the current stream; ``out`` is
-    written in place, and ``lse`` (float32 ``[B, H, T]`` contiguous, or None)
-    receives the row log-sum-exp. The one place its C arguments are laid
-    out: callers check the operands (:func:`_check_operands`) and count the
-    launch."""
-    bsz, heads, seq, dim = q.shape
-    views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
-    tail = (bsz, heads, seq, *_columns(dim, narrow), float(scale))
-    lib = _library(dim)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if pos_bias is not None:
-            gate_strides = gate.stride() if gate is not None else (0, 0, 0)
-            strides = (ctypes.c_longlong * 20)(*views, *pos_bias.stride(), *gate_strides, *pad_strides)
-            err = lib.avex_gated_attention_forward(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate),
-                _ptr(key_padding_mask), out.data_ptr(), _ptr(lse), *tail, strides, stream,
-            )
-        else:
-            strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
-            err = lib.avex_plain_attention_forward(
-                _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                out.data_ptr(), _ptr(lse), *tail, strides, stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-
-
 def _launch(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -593,9 +533,10 @@ def _launch(
     """Launch the forward kernel on ``[B, H, T, D]`` views; ``out`` is written
     in place. With ``pos_bias`` the gated variant runs, without it the
     bias-free one (which takes no gate either), on the body
-    :func:`kernel_body` gives; returns that body's name (``"bf16"``,
-    ``"tf32x3"`` or ``"fma"``). ``residuals`` = ``(lse, out_rest)`` may
-    receive the backward's residuals, on every body: the row log-sum-exp
+    :func:`kernel_body` gives; returns that body's name (``"bf16"`` or
+    ``"tf32x3"``). The one place the forwards' C arguments are laid out.
+    ``residuals`` = ``(lse, out_rest)`` may
+    receive the backward's residuals, on either body: the row log-sum-exp
     (float32 ``[B, H, T]`` contiguous) and, in bf16, what rounding the output
     dropped (bf16 with ``out``'s strides; None in fp32, whose output is not
     rounded)."""
@@ -603,7 +544,7 @@ def _launch(
     bsz, heads, seq, dim = q.shape
     gated = pos_bias is not None
     bf16 = q.dtype == torch.bfloat16
-    body = kernel_body(q.dtype, dim, narrow)
+    body = kernel_body(q.dtype)
     lse, out_rest = residuals if residuals is not None else (None, None)
     if residuals is not None and not (
         lse.shape == (bsz, heads, seq) and lse.dtype == torch.float32 and lse.is_contiguous()
@@ -611,34 +552,31 @@ def _launch(
     ):
         raise ValueError("the backward's residuals: lse float32 [B, H, T] contiguous, and out_rest in out's "
                          "type and layout in bf16 (None in fp32)")
-    if body == "fma":
-        _fma_forward(q, k, v, pos_bias, gate, key_padding_mask, out, scale, narrow, lse)
-        return body
     pad_strides = key_padding_mask.stride() if key_padding_mask is not None else (0, 0)
     pad_ptr = _ptr(key_padding_mask)
     views = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     bias_strides = pos_bias.stride() if gated else (0, 0, 0)
     gate_strides = gate.stride() if gate is not None else (0, 0, 0)
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     tail = (bsz, heads, seq, *_columns(dim, narrow), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if body == "tf32x3":
-            strides = (ctypes.c_longlong * 20)(*views, *pad_strides, *bias_strides, *gate_strides)
-            err = _tf32x3_library(dim).avex_tf32x3_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pos_bias), _ptr(gate), pad_ptr, out.data_ptr(),
-                _ptr(lse), bsz, heads, seq, dim, float(scale), strides, stream,
-            )
-        elif gated:
+        if body == "tf32x3" or gated:
             strides = (ctypes.c_longlong * 20)(*views, *bias_strides, *gate_strides, *pad_strides)
-            err = _tensor_core_library(dim).avex_tensor_core_gated_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), _ptr(gate), pad_ptr, out.data_ptr(),
-                _ptr(out_rest), _ptr(lse), *tail, strides, stream,
-            )
         else:
             strides = (ctypes.c_longlong * 14)(*views, *pad_strides)
-            err = _tensor_core_library(dim).avex_bias_free_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
+        if body == "tf32x3":
+            err = _tf32x3_library(dim).avex_tf32x3_attention_forward(
+                *operands, _ptr(pos_bias), _ptr(gate), pad_ptr, out.data_ptr(), _ptr(lse), *tail, strides, stream,
+            )
+        elif gated:
+            err = _tensor_core_library(dim).avex_tensor_core_gated_attention_forward(
+                *operands, pos_bias.data_ptr(), _ptr(gate), pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse),
                 *tail, strides, stream,
+            )
+        else:
+            err = _tensor_core_library(dim).avex_bias_free_attention_forward(
+                *operands, pad_ptr, out.data_ptr(), _ptr(out_rest), _ptr(lse), *tail, strides, stream,
             )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
@@ -707,7 +645,7 @@ def _kernel_residual_backward(qkv, heads, pos_bias, gate, key_padding_mask, out,
     elif out_rest is not None:
         raise ValueError("the fp32 backward takes no out_rest: the fp32 output is not rounded")
     narrow = _check_operands(q, k, v, views, pos_bias, gate, key_padding_mask)
-    body = kernel_body(qkv.dtype, dim // heads, narrow, backward=True)
+    body = kernel_body(qkv.dtype)
     if lse.shape != (bsz, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [{bsz}, {heads}, {seq}]")
     f32 = dict(dtype=torch.float32, device=qkv.device)
@@ -918,8 +856,8 @@ def fused_qkv_attention(
     CUDA the backward is the K6 kernel, on the CPU autograd through the plain
     twin. bf16 CUDA tensors run on the tensor-core kernels
     (``csrc/tensor_core_attention.cu``); fp32 ones on the tensor cores in
-    3xTF32, forward (at the rows of :func:`tf32x3_rows`; on the FMA body
-    otherwise) and backward (at every width).
+    3xTF32 (``csrc/tf32x3_attention.cu``), forward and backward, at every
+    width.
     """
     dim = qkv.shape[-1] // 3
     scale = scale if scale is not None else 1.0 / math.sqrt(dim // heads)

@@ -39,9 +39,8 @@
 //     chunk axis). The dK/dV work runs as two launches, dV then dK, each
 //     about half the registers of dkv_kernel, whose four accumulators pass
 //     255 registers once the chunk sums are carried across steps.
-// fp32 forwards stay on gated_attention.cu's FMA body; the fp32 K3 and K6 run
-// on the tensor cores in 3xTF32 in tf32x3_attention.cu (16-byte rows up to
-// 128; the rest on the FMA body).
+// Every fp32 call, forward (K1, K2, K4, K5) or backward (K3, K6), at every
+// head width, runs on the tensor cores in 3xTF32 in tf32x3_attention.cu.
 //
 // Numerics, as the TPU kernels (pallas_attention.py:126-158, :344-430,
 // :524-585, :765-843): fp32 logits and softmax; P rounded to bf16 before P·V

@@ -4,9 +4,8 @@
 //   gated:     out = softmax(q·kᵀ·scale + gate ⊙ bias + pad) · v, and its backward
 //   bias-free: out = softmax(q·kᵀ·scale + pad) · v, and its backward
 //
-// Replaces, for fp32 operands, six Pallas TPU kernels of the JAX package
-// (the forwards at a head width D that is a multiple of 8 up to 128 on
-// 16-byte rows, the backwards at every D >= 1):
+// Replaces, for fp32 operands and at every head width D >= 1, six Pallas
+// TPU kernels of the JAX package:
 //   - _attention_kernel            avex_tpu/ops/pallas_attention.py:126  (K1; launched at :272)
 //   - _fused_qkv_gated_kernel      avex_tpu/ops/pallas_attention.py:389  (K2; launched at :745)
 //   - _plain_attention_kernel      avex_tpu/ops/pallas_attention.py:161  (K4; launched at :261)
@@ -14,10 +13,7 @@
 //   - _fused_qkv_gated_bwd_kernel  avex_tpu/ops/pallas_attention.py:765  (K3; launched at :902)
 //   - _fused_qkv_bwd_kernel        avex_tpu/ops/pallas_attention.py:524  (K6; launched at :631)
 // The split (K1, K4) and fused (K2, K5) layouts are only different strides
-// to the forward. The other fp32 forwards (narrow rows: D or a stride not a
-// multiple of 8, a base off 16 bytes; column chunks past 128) run on
-// gated_attention.cu's FMA body, which writes the row log-sum-exp for the
-// backward here as the forward here does. bf16 is tensor_core_attention.cu's.
+// to the forward. bf16 is tensor_core_attention.cu's.
 //
 // The forward, as the JAX kernels compute it in fp32: L = q·kᵀ·scale
 // (+ gate ⊙ bias), −inf at a padded key, out = softmax(L)·v (P is already
@@ -26,19 +22,17 @@
 // padded gives NaN and LSE −inf, as the plain twin's softmax does. Any T:
 // ragged last tiles are masked, not padded.
 //
-// The backward, as the FMA body and the JAX kernels do, in fp32: with
+// The backward, as the JAX kernels compute it in fp32: with
 // L = q·kᵀ·scale (+ gate ⊙ bias) + pad and P = softmax(L),
 //   dV = Pᵀ·dO   dP = dO·Vᵀ   dL = P ∘ (dP − Δ)   dQ = (dL·scale)·K   dK = (dL·scale)ᵀ·Q
 //   dgate[b,h,t] = Σ_k bias·dL   dbias[h] = Σ_b gate ⊙ dL
 // dQ, dK and dV are written into the column views of one [B, T, 3E] gradient.
 // As the bf16 backward does, it rebuilds P from the row log-sum-exp that the
-// forward saved (the fp32 K2/K5 write it under grad, in 3xTF32 here or in
-// plain fp32 on the FMA body) and takes
+// forward saved (the fp32 K2/K5 write it under grad) and takes
 // Δ = rowsum(dO ∘ O) from the forward's fp32 output: no pass recomputes the
 // row statistics. Where the bf16 backward's roundings hide it, fp32 shows
 // that such a P sums over its row to 1 + ε, ε near 2^-24 times the largest
-// logit in log2 units (more from the FMA body's LSE, whose logits are
-// summed in another order), the same for every key: Σ_k dS is then Δ·ε, not 0,
+// logit in log2 units, the same for every key: Σ_k dS is then Δ·ε, not 0,
 // and a gradient that cancels over the keys (a key projection's weight)
 // takes all of it. So the dQ kernel also sums Σ P and Σ P·dP along its walk
 // and hands the other two kernels P / Σ P (the LSE rebased) and
@@ -77,20 +71,22 @@
 // (its dbias kernel forms them again), so it can reach at best 5/7 of the
 // bound; mma.sync reaches about two thirds of the tensor cores' rate.
 //
-// Head widths of the backward. Up to 128 (one column chunk) the dQ and
-// dK/dV kernels below take any D on the smallest build that holds it, the
+// Head widths. Up to 128 (one column chunk) the forward, dQ and dK/dV
+// kernels below take any D on the smallest build that holds it, the
 // columns D .. kD-1 zero-filled on load: on 16-byte rows in 16-byte
 // cp.async runs, on narrow rows (D or a stride not a multiple of 8, a base
 // off 16 bytes; every fp32 element is 4-byte aligned) in 4-byte cp.async
 // elements into the same double buffer, stored element by element below D;
-// a product runs ceil(D / 8) k-steps, not kD / 8. Past 128 the width comes
-// in column chunks of a multiple of 8 (the wrapper's plan) and the wide
-// kernels (tf32x3_dq_wide_kernel, tf32x3_dkv_wide_kernel, below) sum S and
-// dP over the chunks once per pair of tiles and keep dQ, or dK and dV, for
-// the whole width; the dbias kernel sums S and dP over the chunks of each
-// batch item. The rebasing (above) lets any of them run from either
-// forward's LSE: Δ' and P / Σ P are the backward's own, so Σ_k dK stays 0
-// to rounding whatever arithmetic the LSE came from.
+// on narrow rows a product over the head width runs ceil(D / 8) k-steps,
+// not kD / 8, and the forward's P·V only the column blocks below D. Past
+// 128 the width comes in column chunks of a multiple of 8 (the wrapper's
+// plan) and the wide kernels (tf32x3_forward_wide_kernel,
+// tf32x3_dq_wide_kernel, tf32x3_dkv_wide_kernel, below) sum S (and dP) over
+// the chunks once per pair of tiles and keep O, dQ, or dK and dV, for the
+// whole width; the dbias kernel sums S and dP over the chunks of each
+// batch item. The rebasing (above) lets any of them run from the forward's
+// LSE whatever order it summed S in: Δ' and P / Σ P are the backward's own,
+// so Σ_k dK stays 0 to rounding.
 //
 // Design (the bf16 kernels' structure on fp32 tiles: a forward, then the
 // backward's dq_kernel / dkv_kernel / dbias_kernel / sum_chunks_kernel).
@@ -127,7 +123,11 @@
 //     of the very logits it recomputes. Q is split into its TF32 halves at
 //     each key tile, as the dQ kernel does: kept split in registers (at
 //     D ≤ 64, 64 more a thread) the kernels spilled at three blocks an SM
-//     and ran slower at two.
+//     and ran slower at two. On narrow rows the same kernel (a template
+//     instance of its own, so that the 16-byte rows' code is unchanged)
+//     loads 4 bytes at a time and skips the k-steps and P·V column blocks
+//     past D; past 128, tf32x3_forward_wide_kernel (below) sums S over
+//     the column chunks, each k-step's products apart (its comment).
 //   - dQ (one block per query tile, head, item): Δ from O and dO first,
 //     then per key tile S = QKᵀ, dP = dO·Vᵀ, P = exp2(L·log2e − LSE·log2e),
 //     dS, dQ += dS·K, the row sums Σ P and Σ P·dP and the keys' column
@@ -205,7 +205,7 @@ struct BwdStrides {
   long long pad[2];
 };
 
-// The columns of a backward call (the wrapper's plan,
+// The columns of a call (the wrapper's plan,
 // attention_kernels.width_plan): head width dim in `chunks` column chunks of
 // `width` columns (the last holds what is left), each on this build's kD;
 // narrow: some row is not 16-byte aligned, and every row moves 4 bytes at a
@@ -550,6 +550,40 @@ __device__ __forceinline__ void mma_ab_live(float acc[][4], const float p[][4], 
     mma_ab<kD, false>(acc, p, b, live);
 }
 
+// mma_ab on narrow rows: only the first `blocks` blocks of 8 columns of B
+// (those below the head width; the rest of acc is never stored), two
+// accumulators a step, and only the first `live` blocks of 8 rows of B.
+// Each accumulator sums as mma_ab's does.
+template <int kD>
+__device__ __forceinline__ void mma_ab_cols(float acc[][4], const float p[][4], const float* b, int live,
+                                            int blocks) {
+  constexpr int kLd = Tile<kD>::kLd, kBlocks = kD / 8;
+  static_assert(kBlocks % 2 == 0, "column blocks in pairs");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* bp = b + 2 * t * kLd + g;
+#pragma unroll
+  for (int kk = 0; kk < kNB; ++kk) {
+    if (kk < live) {
+      const float x[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+      Frag f;
+      split4(x, f);
+#pragma unroll
+      for (int nb = 0; nb < kBlocks; nb += 2) {
+        if (nb < blocks) {
+          float* c[2] = {acc[nb], acc[nb + 1]};
+          float bv[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            bv[j][0] = bp[8 * kk * kLd + 8 * (nb + j)];
+            bv[j][1] = bp[(8 * kk + 1) * kLd + 8 * (nb + j)];
+          }
+          mma3<2, false>(c, f, bv, blocks - nb);
+        }
+      }
+    }
+  }
+}
+
 template <int kCols>
 __device__ __forceinline__ void zero(float c[][4]) {
 #pragma unroll
@@ -609,8 +643,12 @@ __device__ __forceinline__ void fetch_bias(float bf[][4], const Gated& gd, int h
 
 // The forward: one block per (query tile of 64, head, item) walks the key
 // tiles with an online softmax in log2 units and writes O (and the row
-// log-sum-exp when lse is not null).
-template <int kD, bool kGated>
+// log-sum-exp when lse is not null), at a width of one column chunk, on
+// 16-byte rows or (kNarrow) narrow rows. On 16-byte rows it runs kD / 8
+// k-steps and every column block of P·V whatever D is (the zero columns add
+// 0), code that the narrow rows' instance leaves unchanged; narrow rows run
+// ceil(D / 8) k-steps and P·V over the column blocks below D alone.
+template <int kD, bool kGated, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, kFwdMinBlocks<kD>)
 tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                       const uint8_t* __restrict__ pad, float* __restrict__ out, float* __restrict__ lse, int heads,
@@ -630,12 +668,14 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   const float* vb = v + b * s.v[0] + h * s.v[1];
   const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
   const int n_tiles = (seq + kN - 1) / kN;
-  constexpr int ks = kD / 8;  // every k-step of the build: columns dim .. kD-1 are zero and add 0
+  // 16-byte rows: every k-step of the build (columns dim .. kD-1 are zero and add 0)
+  const int ks = kNarrow ? ksteps_of<kD>(dim) : kD / 8;
+  constexpr bool narrow = kNarrow;
   const float c = scale * kLog2e;
 
-  load_tile<kD, kOwn>(q_s, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dim, false);
-  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dim, false);
-  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dim, false);
+  load_tile<kD, kOwn>(q_s, q + b * s.q[0] + h * s.q[1], s.q[2], q0, seq, dim, narrow);
+  load_tile<kD, kN>(k_s, kb, s.k[2], 0, seq, dim, narrow);
+  load_tile<kD, kN>(v_s, vb, s.v[2], 0, seq, dim, narrow);
   load_key_bias(kbias_s, pad_b, s.pad[1], 0, seq);
   cp_async_commit();
 
@@ -653,8 +693,8 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = buf ^ 1, k0n = (it + 1) * kN;
-      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dim, false);
-      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dim, false);
+      load_tile<kD, kN>(k_s + nxt * TL::kTile, kb, s.k[2], k0n, seq, dim, narrow);
+      load_tile<kD, kN>(v_s + nxt * TL::kTile, vb, s.v[2], k0n, seq, dim, narrow);
       load_key_bias(kbias_s + nxt * kN, pad_b, s.pad[1], k0n, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -706,7 +746,10 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
           sc[j][e] = exp2_approx(sc[j][e] - shift[e >> 1]);  // P, unnormalised
           lsum[e >> 1] += sc[j][e];
         }
-      mma_ab_live<kD>(acc, sc, v_s + buf * TL::kTile, live);  // O += P·V
+      if constexpr (kNarrow)
+        mma_ab_cols<kD>(acc, sc, v_s + buf * TL::kTile, live, (dim + 7) >> 3);  // O += P·V
+      else
+        mma_ab_live<kD>(acc, sc, v_s + buf * TL::kTile, live);  // O += P·V
     }
     __syncthreads();
   }
@@ -730,7 +773,7 @@ tf32x3_forward_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     stage<kD>(q_s, row0, acc);  // the warp's own rows of Q's tile, which it alone read
   }
   __syncthreads();
-  store_tile<kD, kOwn>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dim, false, q_s);
+  store_tile<kD, kOwn>(out + b * s.o[0] + h * s.o[1], s.o[2], q0, seq, dim, narrow, q_s);
 }
 
 // The dQ kernel: one block per (query tile of 64, head, item), at a width
@@ -1194,6 +1237,11 @@ struct Wide {
   static constexpr size_t kDqSmem =
       sizeof(float) * (2 * kSlot + kWOwn * kXLd + 2 * kWN + kWOwn + 16 * kWOwn + kMaxChunks * kD);
   static constexpr size_t kDkvSmem = sizeof(float) * (2 * kSlot + 2 * kWOwn * kXLd + 6 * kWN);
+  // The forward's step: K_c and, unless Q is resident, Q_c (phase 1), or V
+  // of two chunks (phase 2); and the resident Q of up to kMaxChunks chunks.
+  static constexpr int kFwdSlot = 2 * kTile;
+  static constexpr size_t kFwdSmem =
+      sizeof(float) * (2 * kFwdSlot + kMaxChunks * kOwnTile + kWOwn * kXLd + 2 * kWN + 4 * kWOwn);
 };
 
 // Blocks of 8 rows of the streamed tile at r0 that hold a row below seq.
@@ -1225,6 +1273,58 @@ __device__ __forceinline__ void mma_abt_pair(float acc1[2][4], const float* a1, 
     mma_abt_two<kD, 2, false>(acc1, a1, b1 + off, acc2, a2, b2 + off, row0, live, ksteps);
 }
 
+// acc[16 x 16] += A · Bᵀ as mma_abt<kD, 2> takes it (A the warp's 16 rows
+// from row0 of a, B the first 16 rows of b, unless kFull only the first
+// `live` blocks of 8; ksteps k-steps), except that each k-step's three
+// products go into an accumulator of their own, from 0, which is then added
+// into acc. The tensor cores' fp32 accumulation rounds toward zero, so one
+// accumulator carried over every k-step of a wide head (16 a chunk of 128)
+// shrinks S by a bias that grows with the width: from dh 320 the row
+// log-sum-exp moved more than 1e-5 from the plain twin's. A k-step's sum
+// stays small and the adds round to nearest; the k-steps' products no
+// longer wait on each other.
+template <int kD, bool kFull>
+__device__ __forceinline__ void mma_abt_fresh(float acc[2][4], const float* a, int row0, const float* b, int live,
+                                              int ksteps) {
+  constexpr int kLd = Tile<kD>::kLd;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* ap = a + (row0 + g) * kLd + t;
+  const float* bp = b + g * kLd + t;
+#pragma unroll 2
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const int o = 8 * kk;
+    const float x[4] = {ap[o], ap[8 * kLd + o], ap[o + 4], ap[8 * kLd + o + 4]};
+    Frag f;
+    split4(x, f);
+    float bv[2][2], part[2][4] = {};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      bv[j][0] = bp[j * 8 * kLd + o];
+      bv[j][1] = bp[j * 8 * kLd + o + 4];
+    }
+    float* c[2] = {part[0], part[1]};
+    mma3<2, kFull>(c, f, bv, live);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+}
+
+// mma_abt_fresh of the warp's 16 x 16 slice (rows from row0 of a; rows
+// 16cw .. 16cw + 15 of the streamed tile b, those below seq) over ksteps
+// k-steps.
+template <int kD>
+__device__ __forceinline__ void mma_abt_slice(float acc[2][4], const float* a, const float* b, int row0, int cw,
+                                              int r0, int seq, int ksteps) {
+  const int live = min(2, max(0, (seq - r0 - 16 * cw + 7) >> 3));
+  const float* bw = b + 16 * cw * Tile<kD>::kLd;
+  if (live == 2)
+    mma_abt_fresh<kD, true>(acc, a, row0, bw, live, ksteps);
+  else if (live == 1)
+    mma_abt_fresh<kD, false>(acc, a, row0, bw, live, ksteps);
+}
+
 // acc1[j] += P1 · B1 and acc2[j] += P2 · B2 over the columns of blocks cw + 4j
 // of B1 and B2 (dV += Pᵀ·dO and dK += dSᵀ·Q, or dS·K for two column
 // chunks), interleaved: 2·kPer independent accumulators, each summing lo·hi,
@@ -1234,7 +1334,8 @@ __device__ __forceinline__ void mma_abt_pair(float acc1[2][4], const float* a1, 
 // tiles' kWN rows (the contraction, permuted inside each block of 8 as
 // mma_ab permutes it) by kD columns. Only the blocks of columns below
 // blocks1 / blocks2 (the chunks'; 0: none) and of rows below `live`.
-template <int kD>
+// kOneP: x2 is x1 (P·V for two column chunks), read and split once.
+template <int kD, bool kOneP = false>
 __device__ __forceinline__ void mma_ab_part2(float acc1[][4], const float* x1, const float* b1, float acc2[][4],
                                              const float* x2, const float* b2, int row0, int live, int cw,
                                              int blocks1, int blocks2) {
@@ -1251,12 +1352,17 @@ __device__ __forceinline__ void mma_ab_part2(float acc1[][4], const float* x1, c
   for (int kk = 0; kk < live; ++kk) {
     const float2 lo1 = *reinterpret_cast<const float2*>(xp1 + 8 * kk);
     const float2 hi1 = *reinterpret_cast<const float2*>(xp1 + 8 * kXLd + 8 * kk);
-    const float2 lo2 = *reinterpret_cast<const float2*>(xp2 + 8 * kk);
-    const float2 hi2 = *reinterpret_cast<const float2*>(xp2 + 8 * kXLd + 8 * kk);
-    const float x4a[4] = {lo1.x, hi1.x, lo1.y, hi1.y}, x4b[4] = {lo2.x, hi2.x, lo2.y, hi2.y};
+    const float x4a[4] = {lo1.x, hi1.x, lo1.y, hi1.y};
     Frag f1, f2;
     split4(x4a, f1);
-    split4(x4b, f2);
+    if constexpr (kOneP) {
+      f2 = f1;
+    } else {
+      const float2 lo2 = *reinterpret_cast<const float2*>(xp2 + 8 * kk);
+      const float2 hi2 = *reinterpret_cast<const float2*>(xp2 + 8 * kXLd + 8 * kk);
+      const float x4b[4] = {lo2.x, hi2.x, lo2.y, hi2.y};
+      split4(x4b, f2);
+    }
     uint32_t h1[kPer][2], l1[kPer][2], h2[kPer][2], l2[kPer][2];
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
@@ -1672,6 +1778,216 @@ tf32x3_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The forward of a chunked width: one block per (query tile of 32, head and
+// group of column chunks, item). Per key tile of 64, phase 1 walks every
+// column chunk (each step brings Q_c and K_c) and sums S = Σ_c Q_c·K_cᵀ in
+// chunk order, each warp its 16 x 16 slice, each k-step's products summed
+// on their own (mma_abt_fresh); at the last chunk the logits, the row max over the row group's
+// four warps (through shared memory), the online softmax's rescaling of O
+// and the row sums, and P into an exchanged tile; phase 2 walks the block's
+// own chunks two at a time (each step brings their V) and adds P·V_j into
+// accumulators over the whole width. At the end O / Σ through the caller's
+// strides and, group 0, the row LSE. Q stays in shared memory when the
+// width has at most kMaxChunks chunks (dh up to 512: 68 KB at kD 128, which
+// the slots leave room for); a wider head streams Q_c with K_c, from L2.
+template <int kD, bool kGated>
+__global__ void __launch_bounds__(kWThreads, 1)
+tf32x3_forward_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                           const uint8_t* __restrict__ pad, float* __restrict__ out, float* __restrict__ lse,
+                           int heads, int seq, float scale, FwdStrides s, Gated gd, Cols cl) {
+  using W = Wide<kD>;
+  constexpr int kLd = W::kLd, kPer = W::kPer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* slots = reinterpret_cast<float*>(smem);  // [2]: Q_c [32][kLd], K_c [64][kLd] (phase 2: V_j, V_j+1 [64][kLd])
+  float* q_res = slots + 2 * W::kFwdSlot;         // [kMaxChunks][32][kLd]: Q when resident
+  float* p_s = q_res + kMaxChunks * W::kOwnTile;  // [32][kXLd]: P of the key tile
+  float* kbias_s = p_s + kWOwn * kXLd;            // [2][kWN]
+  float* red_s = kbias_s + 2 * kWN;               // [4 warps][32 rows]: the warps' parts of a row statistic
+
+  const int groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+  const int q0 = blockIdx.x * kWOwn, h = blockIdx.y / groups, grp = blockIdx.y % groups, b = blockIdx.z;
+  const int n = cl.chunks, c_lo = grp * kMaxChunks, owned = min(kMaxChunks, n - c_lo);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cw = warp & 3, row0 = 16 * (warp >> 2);
+  const bool active = q0 + row0 < seq;  // warp-uniform: the row group has a query below seq
+  const float* qb = q + b * s.q[0] + h * s.q[1];
+  const float* kb = k + b * s.k[0] + h * s.k[1];
+  const float* vb = v + b * s.v[0] + h * s.v[1];
+  const uint8_t* pad_b = pad ? pad + b * s.pad[0] : nullptr;
+  const int per_tile = n + (owned + 1) / 2, n_steps = (seq + kWN - 1) / kWN * per_tile;
+  const bool narrow = cl.narrow, resident = n <= kMaxChunks;
+  const float c = scale * kLog2e;
+
+  // Step st: key tile st / per_tile; phase 1 (chunk r < n) brings K_r and,
+  // unless Q is resident, Q_r (and with the first, the keys' padding), phase
+  // 2 the tile's V_j for two of the block's chunks at a time (j = 2(r - n)
+  // and the next).
+  auto prefetch = [&](int st, int slot) {
+    const int it = st / per_tile, r = st % per_tile, k0 = it * kWN;
+    float* sl = slots + slot * W::kFwdSlot;
+    if (r < n) {
+      const int col = r * cl.width, cols = chunk_cols(cl, r);
+      if (!resident) load_tile<kD, kWOwn, kWThreads>(sl, qb + col, s.q[2], q0, seq, cols, narrow);
+      load_tile<kD, kWN, kWThreads>(sl + W::kOwnTile, kb + col, s.k[2], k0, seq, cols, narrow);
+      if (r == 0) load_key_bias<kWThreads, kWN>(kbias_s + (it & 1) * kWN, pad_b, s.pad[1], k0, seq);
+    } else {
+      for (int x = 2 * (r - n); x < min(owned, 2 * (r - n) + 2); ++x) {
+        const int j = c_lo + x;
+        load_tile<kD, kWN, kWThreads>(sl + (x & 1) * W::kTile, vb + j * cl.width, s.v[2], k0, seq, chunk_cols(cl, j),
+                                      narrow);
+      }
+    }
+  };
+
+  if (resident)
+    for (int x = 0; x < n; ++x)
+      load_tile<kD, kWOwn, kWThreads>(q_res + x * W::kOwnTile, qb + x * cl.width, s.q[2], q0, seq, chunk_cols(cl, x),
+                                      narrow);
+  prefetch(0, 0);
+  cp_async_commit();
+  // This lane's rows g and g+8: the running max in log2 units (the same in
+  // the row group's four warps), this warp's part of the row sum (its keys
+  // of each tile), and for the gated variant gate·log2e.
+  float mx[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f}, gl[2] = {0.f, 0.f};
+  if (kGated) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) gl[i] = gate_at(gd, b, h, min(q0 + row0 + g + 8 * i, seq - 1)) * kLog2e;
+  }
+  float sc[2][4];
+  float acc[kMaxChunks][kPer][4];
+#pragma unroll
+  for (int x = 0; x < kMaxChunks; ++x)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[x][j][e] = 0.f;
+  for (int st = 0; st < n_steps; ++st) {
+    const int slot = st & 1;
+    if (st + 1 < n_steps) {
+      prefetch(st + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int it = st / per_tile, r = st % per_tile, k0 = it * kWN;
+    const float* sl = slots + slot * W::kFwdSlot;
+    if (r < n) {
+      if (r == 0) zero<16>(sc);
+      if (active)  // S += Q_c·K_cᵀ
+        mma_abt_slice<kD>(sc, resident ? q_res + r * W::kOwnTile : sl, sl + W::kOwnTile, row0, cw, k0, seq,
+                          ksteps_of<kD>(chunk_cols(cl, r)));
+      if (r == n - 1) {
+        // The logits in log2 units, as the wide dQ kernel forms them from
+        // its S, and this warp's part of the row max.
+        if (active) {
+          const float* kbias = kbias_s + (it & 1) * kWN;
+          float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1, key = 16 * cw + 8 * j + 2 * t + (e & 1);
+              const float kbv = kbias[key];
+              if (kGated) {
+                const float bias = __ldg(gd.bias + h * gd.bs[0] + min(q0 + row0 + g + 8 * i, seq - 1) * gd.bs[1] +
+                                         min(k0 + key, seq - 1) * gd.bs[2]);
+                sc[j][e] = fmaf(sc[j][e], c, bias * gl[i] + kbv);
+              } else {
+                sc[j][e] = fmaf(sc[j][e], c, kbv);
+              }
+              tmax[i] = fmaxf(tmax[i], sc[j][e]);
+            }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+            tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+            if (t == 0) red_s[cw * kWOwn + row0 + g + 8 * i] = tmax[i];
+          }
+        }
+        __syncthreads();
+        if (active) {
+          float shift[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = row0 + g + 8 * i;
+            const float tm = fmaxf(fmaxf(red_s[row], red_s[kWOwn + row]),
+                                   fmaxf(red_s[2 * kWOwn + row], red_s[3 * kWOwn + row]));
+            const float m_new = fmaxf(mx[i], tm);
+            shift[i] = m_new == -INFINITY ? 0.f : m_new;  // as the one-chunk forward: no NaN while all padded
+            const float corr = exp2_approx(mx[i] - shift[i]);
+            mx[i] = m_new;
+            lsum[i] *= corr;
+#pragma unroll
+            for (int x = 0; x < kMaxChunks; ++x)
+#pragma unroll
+              for (int j = 0; j < kPer; ++j) {
+                acc[x][j][2 * i] *= corr;
+                acc[x][j][2 * i + 1] *= corr;
+              }
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[j][e] = exp2_approx(sc[j][e] - shift[e >> 1]);  // P, unnormalised
+              lsum[e >> 1] += sc[j][e];
+            }
+          write_slice(p_s, row0, cw, sc);
+        }
+      }
+    } else if (active) {
+      const int x0 = 2 * (r - n);  // the block's chunks x0 and x0 + 1 (if it has one)
+      const int live = live_blocks_w(k0, seq);
+      const int blocks0 = (chunk_cols(cl, c_lo + x0) + 7) >> 3;
+      const int blocks1 = x0 + 1 < owned ? (chunk_cols(cl, c_lo + x0 + 1) + 7) >> 3 : 0;
+#pragma unroll
+      for (int x = 0; x < kMaxChunks; x += 2)
+        if (x == x0)  // O_j += P·V_j for both chunks, interleaved
+          mma_ab_part2<kD, true>(acc[x], p_s, sl, acc[x + 1], p_s, sl + W::kTile, row0, live, cw, blocks0, blocks1);
+    }
+    __syncthreads();
+  }
+
+  // The row sums over the row group's four warps (in warp order), then
+  // O / Σ into the slots and the LSE.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float part = quad_sum(lsum[i]);
+    if (t == 0) red_s[cw * kWOwn + row0 + g + 8 * i] = part;
+  }
+  __syncthreads();
+  if (active) {
+    const long long stat0 = ((long long)b * heads + h) * seq;
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + g + 8 * i, qi = q0 + row;
+      const float sum = ((red_s[row] + red_s[kWOwn + row]) + red_s[2 * kWOwn + row]) + red_s[3 * kWOwn + row];
+      inv[i] = 1.f / sum;  // a row whose keys are all padded: NaN and LSE −inf, as the one-chunk forward
+      if (lse && grp == 0 && cw == 0 && t == 0 && qi < seq) lse[stat0 + qi] = (mx[i] + log2f(sum)) * kLn2;
+    }
+#pragma unroll
+    for (int x = 0; x < kMaxChunks; ++x) {
+      if (x >= owned) continue;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int col = 8 * (cw + 4 * j) + 2 * t;
+        if (col >= kD) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(slots + x * W::kOwnTile + (row0 + g + 8 * i) * kLd + col) =
+              make_float2(acc[x][j][2 * i] * inv[i], acc[x][j][2 * i + 1] * inv[i]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = 0; x < owned; ++x)
+    store_tile<kD, kWOwn, kWThreads>(out + b * s.o[0] + h * s.o[1] + (c_lo + x) * cl.width, s.o[2], q0, seq,
+                                     chunk_cols(cl, c_lo + x), narrow, slots + x * W::kOwnTile);
+}
+
 // dbias = Σ_c part[c], in chunk order: the same sum on every call.
 __global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out, long long n, int chunks) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
@@ -1695,21 +2011,49 @@ constexpr int kHeadDim = AVEX_HEAD_DIM;
 static_assert(kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 80 || kHeadDim == 96 || kHeadDim == 128,
               "AVEX_HEAD_DIM: 32, 64, 80, 96 or 128");
 
+// The forward of one column chunk (16-byte or narrow rows) or, on the
+// builds from 80, of column chunks. Narrow rows of at most 16 columns run on
+// 16-column tiles (the 32 build's kernel at kD 16): half the 4-byte loads of
+// the build's own tiles, 15% faster at dh 12 (PERF.md).
 template <bool kGated>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* pad, void* out, void* lse,
-                           int batch, int heads, int seq, int dim, float scale, const FwdStrides& s, const Gated& gd,
-                           cudaStream_t st) {
-  using TL = Tile<kHeadDim>;
-  cudaError_t err = allow_smem(tf32x3_forward_kernel<kHeadDim, kGated>, TL::kFwdSmem);
-  if (err != cudaSuccess) return err;
-  tf32x3_forward_kernel<kHeadDim, kGated><<<dim3((seq + kOwn - 1) / kOwn, heads, batch), kThreads, TL::kFwdSmem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<float*>(out), static_cast<float*>(lse), heads, seq, dim, scale, s,
-      gd);
-  return cudaGetLastError();
+                           int batch, int heads, int seq, const Cols& cl, float scale, const FwdStrides& s,
+                           const Gated& gd, cudaStream_t st) {
+  const auto* fq = static_cast<const float*>(q);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  const auto* fpad = static_cast<const uint8_t*>(pad);
+  auto* fout = static_cast<float*>(out);
+  auto* flse = static_cast<float*>(lse);
+  if (cl.chunks == 1) {
+    auto launch = [&](auto kernel, size_t smem) {
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<dim3((seq + kOwn - 1) / kOwn, heads, batch), kThreads, smem, st>>>(fq, fk, fv, fpad, fout, flse,
+                                                                                  heads, seq, cl.dim, scale, s, gd);
+      return cudaGetLastError();
+    };
+    if constexpr (kHeadDim == 32)
+      if (cl.narrow && cl.dim <= 16) return launch(tf32x3_forward_kernel<16, kGated, true>, Tile<16>::kFwdSmem);
+    constexpr size_t smem = Tile<kHeadDim>::kFwdSmem;
+    return cl.narrow ? launch(tf32x3_forward_kernel<kHeadDim, kGated, true>, smem)
+                     : launch(tf32x3_forward_kernel<kHeadDim, kGated, false>, smem);
+  }
+  if constexpr (kHeadDim >= 80) {
+    using W = Wide<kHeadDim>;
+    const int groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+    cudaError_t err = allow_smem(tf32x3_forward_wide_kernel<kHeadDim, kGated>, W::kFwdSmem);
+    if (err != cudaSuccess) return err;
+    tf32x3_forward_wide_kernel<kHeadDim, kGated>
+        <<<dim3((seq + kWOwn - 1) / kWOwn, heads * groups, batch), kWThreads, W::kFwdSmem, st>>>(
+            fq, fk, fv, fpad, fout, flse, heads, seq, scale, s, gd, cl);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // plan_cols refuses it first
+  }
 }
 
-// The columns of a backward call of head width head_dim in chunks of
+// The columns of a call of head width head_dim in chunks of
 // chunk_width (the wrapper's plan), or a Cols with chunks = 0 when this
 // build does not take them: a chunk wider than the build; more than one
 // chunk of a width that is not a multiple of 8, or on a build below 80; a
@@ -1821,34 +2165,36 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
 
 // The fp32 forward, gated (K1, K2: bias not null) or bias-free (K4, K5):
 // out = softmax(q·kᵀ·scale (+ gate ⊙ bias) + pad) · v. fp32 q, k, v and out
-// with a head width head_dim that is a multiple of 8 from 8 to this build's
-// width, every row 16-byte aligned (strides multiples of 8 elements, bases
-// 16-byte aligned); bias fp32 [H, T, T] and gate fp32 [B, H, T] (may be null:
-// a gate of 1); pad one byte a key, nonzero = padded (may be null). lse, when
-// not null, receives the row log-sum-exp of the logits (float32, contiguous
-// [B, H, T]) for the backward above. strides: 20 element strides, q, k, v
-// and out (batch, head, token), pad (batch, token), then bias (head, query,
-// key) and gate (batch, head, token). Returns a cudaError_t; 0 means the
-// kernel was launched. A call the build does not take returns
-// cudaErrorInvalidValue and launches nothing.
+// with a head width head_dim >= 1 in column chunks of chunk_width and narrow
+// as the backward below takes them (the wrapper's plan); bias fp32 [H, T, T]
+// and gate fp32 [B, H, T] (may be null: a gate of 1); pad one byte a key,
+// nonzero = padded (may be null). lse, when not null, receives the row
+// log-sum-exp of the logits (float32, contiguous [B, H, T]) for the backward
+// below. strides: 20 element strides, q, k, v and out (batch, head, token),
+// bias (head, query, key), gate (batch, head, token), then pad (batch,
+// token). Returns a cudaError_t; 0 means the kernel was launched. A call the
+// build does not take returns cudaErrorInvalidValue and launches nothing.
 extern "C" int avex_tf32x3_attention_forward(const void* q, const void* k, const void* v, const void* bias,
                                              const void* gate, const void* pad, void* out, void* lse, int batch,
-                                             int heads, int seq, int head_dim, float scale, const long long* strides,
-                                             void* stream) {
-  if (seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim < 8 ||
-      head_dim > kHeadDim || head_dim % 8 || (gate != nullptr && bias == nullptr))
+                                             int heads, int seq, int head_dim, int chunk_width, int narrow,
+                                             float scale, const long long* strides, void* stream) {
+  const Cols cl = plan_cols(head_dim, chunk_width, narrow);
+  const long long groups = (cl.chunks + kMaxChunks - 1) / kMaxChunks;
+  if (cl.chunks == 0 || seq <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads * groups > 65535 ||
+      (gate != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   FwdStrides s;
-  memcpy(&s, strides, sizeof(FwdStrides));
+  memcpy(&s, strides, 12 * sizeof(long long));
+  memcpy(s.pad, strides + 18, 2 * sizeof(long long));
   Gated gd;
   gd.bias = static_cast<const float*>(bias);
   gd.gate = static_cast<const float*>(gate);
-  memcpy(gd.bs, strides + 14, 3 * sizeof(long long));
-  memcpy(gd.gs, strides + 17, 3 * sizeof(long long));
+  memcpy(gd.bs, strides + 12, 3 * sizeof(long long));
+  memcpy(gd.gs, strides + 15, 3 * sizeof(long long));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bias == nullptr)
-    return (int)launch_forward<false>(q, k, v, pad, out, lse, batch, heads, seq, head_dim, scale, s, Gated(), st);
-  return (int)launch_forward<true>(q, k, v, pad, out, lse, batch, heads, seq, head_dim, scale, s, gd, st);
+    return (int)launch_forward<false>(q, k, v, pad, out, lse, batch, heads, seq, cl, scale, s, Gated(), st);
+  return (int)launch_forward<true>(q, k, v, pad, out, lse, batch, heads, seq, cl, scale, s, gd, st);
 }
 
 // The fp32 backward from the forward's residuals, bias-free (K6, bias null)
@@ -1859,7 +2205,7 @@ extern "C" int avex_tf32x3_attention_forward(const void* q, const void* k, const
 // some row is not 16-byte aligned (a head width, chunk width or stride that
 // is not a multiple of 8 elements, or a base off 16 bytes: then every row
 // moves 4 bytes at a time); lse the forward's row log-sum-exp (float32,
-// contiguous [B, H, T]; the 3xTF32 forward's or the FMA body's); bias, gate
+// contiguous [B, H, T], the forward's above); bias, gate
 // (may be null) and pad (one byte a key, nonzero = padded; may be null) as
 // the forward's. Writes fp32 dq, dk and dv, and into delta (float32 scratch,
 // contiguous [2, B, H, T]) each row's Δ' = Σ P·dP / Σ P and its LSE rebased

@@ -16,8 +16,8 @@ Phases, each printing its results on lines of its own:
    ``tensor_core_attention.cu``, fp32 on them in 3xTF32,
    ``tf32x3_attention.cu``: each call's body checked, max|d| 1e-4 and rel L2
    1e-5 against the fp32 twin, K2's and K5's saved row log-sum-exp within
-   1e-5 of the twin's, each fp32 forward's time beside the FMA body's on the
-   same inputs and SDPA's backend): the gated K1 and K2
+   1e-5 of the twin's, each fp32 forward's time beside SDPA's backend): the
+   gated K1 and K2
    at BEATs' shape (B=128, H=12, T=248, D=64), with and without the gate,
    without a mask, with a key-padding mask and with one item's keys all
    padded (NaN exactly where the twin has NaN); the bias-free K5 at EAT's
@@ -130,9 +130,8 @@ Phases, each printing its results on lines of its own:
    and power limit;
 16. head width 80 (run after phase 10): K5 and K4 at Bird-MAE huge's
    forward shape (B=128, T=513, 16 heads of 80) and K6 at its training
-   batch (B=64), bf16 on the tensor cores and fp32 on them in 3xTF32 (the
-   forwards timed beside the FMA body on the same inputs), against their
-   twins (the bf16 K6 also against its residual twin), each timed beside
+   batch (B=64), bf16 on the tensor cores and fp32 on them in 3xTF32,
+   against their twins (the bf16 K6 also against its residual twin), each timed beside
    its twin, its bound and SDPA (its backward for K6);
 17. Bird-MAE main path (after phase 8): ``ModelSpec(name="birdmae",
    model_id="DBD-research-group/Bird-MAE-huge")`` through ``load_model``,
@@ -156,9 +155,9 @@ Phases, each printing its results on lines of its own:
    and T=800, B=4, with the gate, with the gate and a padding mask, and
    with neither, dqkv, dbias and dgate against the twin (atol and rtol 1e-4,
    rel L2 1e-5); the same values on narrow rows (a row stride of 3E + 1
-   floats) with the gate, with and without the mask: the forward on the FMA
-   body, the backward on the 3xTF32 kernels from its saved log-sum-exp, at
-   the same bounds; timed at T=800 beside the twin, the fp32 SDPA backward
+   floats) with the gate, with and without the mask: the 3xTF32 forward on
+   narrow rows, the backward on the 3xTF32 kernels from its saved
+   log-sum-exp, at the same bounds; timed at T=800 beside the twin, the fp32 SDPA backward
    and its bound;
 22. an fp32 BEATs ``fused_qkv`` training step on 16 s clips (after phase
    11; T=792, B=4): the kernel path's loss and gradients against the plain
@@ -217,7 +216,8 @@ Phases, each printing its results on lines of its own:
    step, the gradient all-reduce's ms, each rank's peak memory and busy
    share: two ranks on one card measure the mechanism, not multi-card
    speed); (d) ZeRO-3 on the same ranks, the fp32 step held the same way,
-   each rank's parameter and moment bytes and peak memory; (e) full-width
+   each rank's parameter and moment bytes, peak memory and (d)'s own wall
+   seconds; (e) full-width
    EAT-SSL (K5/K6) and CLIP (global-batch BatchNorm, the features
    gathered), fp32, 8 + 8 against the one-process step on 16 (EAT-SSL's mask
    draw split across the ranks; stochastic depth keeps every item). The
@@ -253,8 +253,8 @@ Phases, each printing its results on lines of its own:
    B=64 T=248; K6 B=64 T=513), each against its twin (the bf16 K3/K6 also
    against the twin of their contract; fp32 K1-K6, on 3xTF32, within rel
    L2 1e-5, K2's and K5's saved log-sum-exp within 1e-5) and timed beside
-   the twin, its bound and SDPA (the fp32 forwards also beside the FMA
-   body), one ragged
+   the twin, its bound and SDPA (the fp32 ones also beside SDPA's
+   backend), one ragged
    masked case a width (B=8, T=37, an item all padded in the forwards), and
    dh 20 and 136 against their twins; (paths, after phase 33) BEATs at full width and depth with 6
    heads of 128: bf16 extraction on K1 (12 a forward), the int8 model (K1
@@ -269,14 +269,14 @@ Phases, each printing its results on lines of its own:
    100, 136, 150, 192, 256, 320 and 512 with E = 768 or the nearest multiple
    of dh, bf16 and fp32, at phase 34's shapes (the batch cut where the
    twin's [B, H, T, T] logits would pass 9 GiB; B=16 at the widths not
-   timed; the fp32 forwards there on the FMA body, every fp32 backward on
-   the 3xTF32 kernels, each call's body checked, K2's and K5's saved
-   log-sum-exp within 1e-5 of the twin's, every fp32 backward within rel L2
-   1e-5), each against its twin, one
+   timed; every fp32 forward and backward on the 3xTF32 kernels (narrow
+   rows, column chunks past 128), each call's body checked, K2's and K5's
+   saved log-sum-exp within 1e-5 of the twin's, every fp32 call within rel
+   L2 1e-5), each against its twin, one
    ragged masked case a width with an item all padded (NaN as the twin), and
    dh 12, 20, 136, 192, 256 and 320 timed beside the twin, the bound and SDPA
-   (its backend printed; the median of 10 calls; the fp32 K3/K6 also beside
-   the 3xTF32 bound and the FMA backward's time, quoted from PERF.md), and K5 at dh 64 on 16-byte
+   (its backend printed; the median of 10 calls; the fp32 K1-K6 also beside
+   the 3xTF32 bound and the FMA body's time, quoted from PERF.md), and K5 at dh 64 on 16-byte
    rows against the same values 2 bytes off (the general kernel); (paths, after phase 34's) BEATs at full width and
    depth with 4 heads of 192 (K1 extraction, int8 K1 + K7, the fp32 kernel
    path against the plain path, a ``fused_qkv`` training step on K2/K3 and
@@ -302,9 +302,9 @@ fp32 numbers at Bird-MAE huge's shapes; K3 adds ``fp32_past_512``, its fp32
 numbers at T=800; K5 and K6 add ``eat_ssl``, their numbers at EAT-SSL's
 shapes, and ``eat_ssl_launches``, the EAT-SSL run's share of ``launches``;
 K1, K2, K4 and K5 add ``fp32_source``, ``fp32`` (their fp32 numbers at
-the main shape on 3xTF32, with the FMA body's ``fma_ms`` and
-``fma_bound_ms`` and SDPA's backend) and ``fp32_tf32x3_launches``, the
-main paths' fp32 runs' launches on the 3xTF32 forward;
+the main shape on 3xTF32, with SDPA's backend) and
+``fp32_tf32x3_launches``, the main paths' fp32 runs' launches on the
+3xTF32 forward;
 K2, K3, K5 and K6 add ``data_parallel_launches``, phase 30's share; K1, K2,
 K3 and K5 add ``cli_launches``, phase 33's share; K1-K6 add
 ``head_widths``, their bf16 and fp32 numbers at dh 16, 32, 96 and 128, and
@@ -537,24 +537,12 @@ def check(ok: bool, what: str) -> None:
         FAILURES.append(what)
 
 
-def no_fma_backward(where: str) -> None:
-    """Every fp32 backward runs on the 3xTF32 kernels: the FMA body's
-    backward count (``attention_kernels.BACKWARD_BODIES["fma"]``) is 0."""
-    from avex_tpu_torch.ops import attention_kernels as ak
-
-    if ak.BACKWARD_BODIES["fma"]:
-        check(False, f"{where}: {ak.BACKWARD_BODIES['fma']} backward(s) on the FMA body")
-
-
 def timed(phase, *args):
-    """Run one phase; its wall seconds go to PHASE_SECONDS under its name.
-    Each phase (and each reset of the counts in it) asserts that no
-    backward ran on the FMA body."""
+    """Run one phase; its wall seconds go to PHASE_SECONDS under its name."""
     start = time.perf_counter()
     result = phase(*args)
-    no_fma_backward(phase.__name__)
     PHASE_SECONDS[phase.__name__] = round(time.perf_counter() - start, 1)
-    print(f"{phase.__name__}: {PHASE_SECONDS[phase.__name__]} s; BACKWARD_BODIES['fma'] == 0 checked")
+    print(f"{phase.__name__}: {PHASE_SECONDS[phase.__name__]} s")
     return result
 
 
@@ -632,7 +620,7 @@ def phase_build():
 
     sources = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
     jobs = [(name, width) for name in sources
-            for width in (ak.KERNEL_WIDTHS if name in (ak.SOURCE, ak.TENSOR_CORE_SOURCE, ak.TF32X3_SOURCE)
+            for width in (ak.KERNEL_WIDTHS if name in (ak.TENSOR_CORE_SOURCE, ak.TF32X3_SOURCE)
                           else (None,))]
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
@@ -733,8 +721,7 @@ def phase_kernels():
                 )
                 bound, bound_by = attention_bound_ms(name, gated=True, padded=False, tf32x3=fp32)
                 body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
-                fp32_numbers, note = (fp32_forward_timing(sdpa_q, sdpa_k, sdpa_v, bias, gate, None, ms, attn_mask)
-                                      if fp32 else ({}, ""))
+                fp32_numbers, note = fp32_forward_timing(sdpa_q, sdpa_k, sdpa_v, attn_mask) if fp32 else ({}, "")
                 print(
                     f"time {kname} {name} (gate, no mask, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * T * T * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -818,8 +805,7 @@ def phase_bias_free_kernels():
                 bound, bound_by = attention_bound_ms(name, gated=False, padded=timed_mask is not None, seq=seq,
                                                      tf32x3=fp32)
                 body = "tensor cores, 3xTF32" if fp32 else "tensor cores"
-                fp32_numbers, note = (fp32_forward_timing(*views, None, None, timed_mask, ms, keep)
-                                      if fp32 else ({}, ""))
+                fp32_numbers, note = fp32_forward_timing(*views, keep) if fp32 else ({}, "")
                 print(
                     f"time {kname} {shape} T={seq} {name} (mask={timed_mask is not None}, {body}): kernel {ms:.4f} ms "
                     f"({tflops(4.0 * B * H * seq * seq * D, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -854,18 +840,6 @@ def backward_bound_ms(dtype_name: str, bsz: int, seq: int, gated: bool, padded: 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fp32_body(head_dim: int) -> str:
-    """The body that runs the fp32 forward of a ``[B, T, 3E]`` projection of
-    this head width: the 3xTF32 tensor-core kernel on 16-byte rows up to
-    128, else the FMA body (``attention_kernels.kernel_body``). Every fp32
-    backward runs on the 3xTF32 kernels."""
-    import torch
-
-    from avex_tpu_torch.ops import attention_kernels as ak
-
-    return ak.kernel_body(torch.float32, head_dim, head_dim % 8 != 0)
-
-
 def bodies_of(run, forward: bool = False) -> tuple:
     """Run ``run`` (backward calls, or forward calls with ``forward``);
     returns its result and the calls it made by body
@@ -883,37 +857,9 @@ def bodies_of(run, forward: bool = False) -> tuple:
 
 def fp32_backward_note(ms: float, bsz: int, seq: int, heads: int = H, dim: int = D) -> str:
     """The tail of an fp32 backward's time line on the 3xTF32 kernels: the
-    3xTF32 bound. (The FMA body that ran the narrow and chunked fp32
-    backwards until the 3xTF32 kernels took every width is gone; its times
-    are PERF.md's.)"""
+    3xTF32 bound."""
     bound = backward_bound_ms("float32", bsz, seq, False, False, heads, dim, tf32x3=True)[0]
     return f"; 3xTF32 bound {bound:.4f} ms ({bound / ms:.1%} of it)"
-
-
-def fma_forward_ms(q, k, v, bias, gate, mask, n: int = TIMED_LAUNCHES) -> float:
-    """The FMA body's fp32 forward (K1/K2 with a bias, K4/K5 without) on the
-    same ``[B, H, T, D]`` views (16-byte rows), timed: the body these rows
-    took before the 3xTF32 forward, and the one narrow rows and chunked
-    widths still take. Launched through ``attention_kernels._fma_forward``,
-    which counts nothing; its output is held to the twin's first."""
-    import torch
-
-    from avex_tpu_torch.ops import attention_kernels as ak
-
-    bsz, heads, seq, dim = q.shape
-    out = torch.empty(bsz, seq, heads, dim, device=q.device).permute(0, 2, 1, 3)
-
-    def run():
-        ak._fma_forward(q, k, v, bias, gate, mask, out, dim**-0.5, False)
-
-    run()
-    want = ak.gated_bias_attention_reference(q, k, v, bias, gate, mask)
-    nan = torch.isnan(want)
-    err = float((out[~nan] - want[~nan]).abs().max())
-    check(torch.equal(torch.isnan(out), nan) and err <= FP32_ATOL,
-          f"the FMA forward at dh={dim} B={bsz} T={seq}: max|d|={err:.3e} <= {FP32_ATOL:g} before it is timed")
-    del want
-    return median_ms(run, n)
 
 
 def fp32_forward_held(label, got, want) -> float:
@@ -933,7 +879,7 @@ def fp32_forward_held(label, got, want) -> float:
 
 
 def lse_held(label, qkv, heads, mask=None, bias=None, gate=None) -> None:
-    """K2 (with ``bias``) or K5 under grad, fp32 (on 3xTF32 or the FMA body):
+    """K2 (with ``bias``) or K5 under grad, fp32 (on 3xTF32):
     the row log-sum-exp it saves for the backward against the twin's at
     LSE_ATOL, −inf exactly where the twin's is (a row whose keys are all
     padded)."""
@@ -956,18 +902,12 @@ def lse_held(label, qkv, heads, mask=None, bias=None, gate=None) -> None:
     del out, lse, want
 
 
-def fp32_forward_timing(q, k, v, bias, gate, mask, ms, attn_mask=None, n: int = TIMED_LAUNCHES) -> tuple:
-    """The fp32 forward's numbers beside its 3xTF32 time ``ms``: the FMA
-    body on the same inputs and its bound at the FMA units' rate, and SDPA's
-    backend for these operands. Returns (a dict for the JSON line, the tail
-    of the time line)."""
-    bsz, heads, seq, dim = q.shape
-    fma_ms = fma_forward_ms(q, k, v, bias, gate, mask, n)
-    fma_bound = attention_bound_ms("float32", bias is not None, mask is not None, seq, heads, dim, bsz)[0]
+def fp32_forward_timing(q, k, v, attn_mask=None) -> tuple:
+    """The fp32 forward's numbers beside its 3xTF32 time: SDPA's backend for
+    these operands. Returns (a dict for the JSON line, the tail of the time
+    line)."""
     backend = sdpa_backend(q, k, v, attn_mask)
-    return (dict(fma_ms=fma_ms, fma_bound_ms=fma_bound, sdpa_backend=backend),
-            f"; the FMA body on the same inputs {fma_ms:.4f} ms ({fma_ms / ms:.2f}x the 3xTF32 kernel); "
-            f"sdpa backend {backend}")
+    return dict(sdpa_backend=backend), f"; sdpa backend {backend}"
 
 
 def phase_backward_kernels():
@@ -1148,12 +1088,10 @@ def sdpa_backward_ms(q, k, v, attn_mask, dout, n: int = TIMED_LAUNCHES) -> float
 
 
 def reset_counts() -> None:
-    """Set the launch count of every kernel of the port to 0 (after checking
-    that no backward since the last reset ran on the FMA body)."""
+    """Set the launch count of every kernel of the port to 0."""
     from avex_tpu_torch.ops import attention_kernels as ak
     from avex_tpu_torch.ops import int8_kernels as ik
 
-    no_fma_backward("reset_counts")
     ak.reset_launch_counts()
     ik.reset_launch_counts()
 
@@ -1171,7 +1109,7 @@ def drive(model, label, expect, batches, n_emb, pool, padding_mask=None, body=No
 
     ``expect`` maps each kernel the path must launch to its launches per
     forward; every other kernel must launch 0 times. With ``body``
-    ("bf16", "tf32x3" or "fma") every attention forward must have run on it
+    ("bf16" or "tf32x3") every attention forward must have run on it
     (``attention_kernels.FORWARD_BODIES``); the fp32 runs on 3xTF32 add
     their launches to TF32X3_FORWARD_LAUNCHES. ``pool(features, aux)``
     gives the pooled final features compared across paths. Returns (first
@@ -1416,12 +1354,11 @@ def zero_gradient(name, grad):
     return noise
 
 
-def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body="tf32x3", timed_steps=0):
+def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, timed_steps=0):
     """One step's loss and every parameter's gradient (float32), dropout and
     LayerDrop off; checks the kernel launches (``expect`` on the kernel path,
-    none on the plain path) and the body of every forward (bf16, or in fp32
-    ``fp32_body``: "tf32x3" or "fma") and backward (bf16, or in fp32 the
-    3xTF32 kernels at every width). With ``timed_steps``, the median host
+    none on the plain path) and the body of every forward and backward (bf16,
+    or in fp32 the 3xTF32 kernels at every width). With ``timed_steps``, the median host
     ms of that many more steps (forward and backward, synchronised).
     Returns (loss, gradients, launches, ms or None)."""
     import torch
@@ -1452,16 +1389,15 @@ def step_gradients(label, load, dtype, use_pallas, wav, mask, expect, fp32_body=
     check(bodies == want_bodies, f"{label} {dtype} gradient check, {'kernel' if use_pallas else 'plain'} path: "
                                  f"backward bodies {bodies} == {want_bodies}")
     forwards = sum(want.get(k, 0) for k in TF32X3_FORWARD_LAUNCHES)
-    want_forward = {("bf16" if dtype == "bfloat16" else fp32_body): forwards} if forwards else {}
+    want_forward = {("bf16" if dtype == "bfloat16" else "tf32x3"): forwards} if forwards else {}
     check(forward_bodies == want_forward, f"{label} {dtype} gradient check, "
                                           f"{'kernel' if use_pallas else 'plain'} path: forward bodies "
                                           f"{forward_bodies} == {want_forward}")
     if dtype == "float32" and use_pallas:
         for kname in TF32X3_STEP_LAUNCHES:
             TF32X3_STEP_LAUNCHES[kname] += counts[kname]
-        if fp32_body == "tf32x3":
-            for kname in TF32X3_FORWARD_LAUNCHES:
-                TF32X3_FORWARD_LAUNCHES[kname] += counts[kname]
+        for kname in TF32X3_FORWARD_LAUNCHES:
+            TF32X3_FORWARD_LAUNCHES[kname] += counts[kname]
     ms = None
     if timed_steps:
         times = []
@@ -1492,20 +1428,17 @@ def gradient_distance(grads, ref) -> tuple:
     return (num / den) ** 0.5, worst, worst_name
 
 
-def training_gradient_check(label, load, wav, expect, mask=None, bf16=False, fp32_body="tf32x3", timed_steps=0):
+def training_gradient_check(label, load, wav, expect, mask=None, bf16=False, timed_steps=0):
     """fp32, dropout and LayerDrop off, the same weights: the kernel path's
-    loss and every parameter's gradient against the plain path's. ``expect``
-    maps the kernels the kernel path launches to their count; ``fp32_body``
-    is the body its fp32 forwards run on ("tf32x3", or "fma" for narrow
-    rows and chunked widths; every fp32 backward runs on "tf32x3"). With ``timed_steps`` each path's fp32 step is
+    loss and every parameter's gradient against the plain path's, every
+    fp32 forward and backward on "tf32x3". ``expect`` maps the kernels the
+    kernel path launches to their count. With ``timed_steps`` each path's fp32 step is
     also timed (the median of that many). With ``bf16`` one bf16 step of each
     path is also held to the fp32 plain path: the kernel path may be at most
     BF16_GRAD_FACTOR farther than the plain path (global rel L2 over every
     gradient). Returns the numbers printed."""
-    loss_k, grads_k, counts_k, ms_k = step_gradients(label, load, "float32", True, wav, mask, expect, fp32_body,
-                                                     timed_steps)
-    loss_p, grads_p, _, ms_p = step_gradients(label, load, "float32", False, wav, mask, expect, fp32_body,
-                                              timed_steps)
+    loss_k, grads_k, counts_k, ms_k = step_gradients(label, load, "float32", True, wav, mask, expect, timed_steps)
+    loss_p, grads_p, _, ms_p = step_gradients(label, load, "float32", False, wav, mask, expect, timed_steps)
     check(grads_k.keys() == grads_p.keys(), f"{label}: the same parameters get gradients on both paths")
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     _, worst, worst_name = gradient_distance(grads_k, grads_p)
@@ -1516,7 +1449,7 @@ def training_gradient_check(label, load, wav, expect, mask=None, bf16=False, fp3
               "kernel_path_launches": {k: v for k, v in counts_k.items() if v}}
     if timed_steps:
         print(f"{label} fp32 step (B={wav.shape[0]}, forward and backward, median of {timed_steps}): kernel path "
-              f"{ms_k:.1f} ms (forward on the {fp32_body} body, backward on tf32x3), plain path {ms_p:.1f} ms; "
+              f"{ms_k:.1f} ms (forward and backward on tf32x3), plain path {ms_p:.1f} ms; "
               f"{CARD[0]}")
         result["fp32_step_ms"] = {"kernel_path": ms_k, "plain_path": ms_p}
     if bf16:
@@ -1716,9 +1649,7 @@ def phase_aves_training(workdir):
 def phase_dh80_kernels():
     """K5 and K4 at Bird-MAE huge's forward shape (B=128, T=513, 16 heads of
     80) and K6 at its training batch, in bf16 (tensor cores) and fp32 (3xTF32
-    forward and K6, the forwards also timed beside the FMA body on the same
-    inputs),
-    against their twins (the bf16 K6 also against the twin of its own
+    forward and K6), against their twins (the bf16 K6 also against the twin of its own
     contract on K5's saved residuals); returns per-kernel numbers for the
     JSON line and K4's launches in this phase."""
     import torch
@@ -1763,7 +1694,7 @@ def phase_dh80_kernels():
                 library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=D_MAE**-0.5))
                 bound, bound_by = attention_bound_ms(name, gated=False, padded=False, seq=T_MAE, heads=H_MAE,
                                                      dim=D_MAE, tf32x3=fp32)
-                fp32_numbers, note = fp32_forward_timing(q, k, v, None, None, None, ms) if fp32 else ({}, "")
+                fp32_numbers, note = fp32_forward_timing(q, k, v) if fp32 else ({}, "")
                 print(f"time {label} ({body}): kernel {ms:.4f} ms "
                       f"({tflops(4.0 * B * H_MAE * T_MAE * T_MAE * D_MAE, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                       f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} ({bound / ms:.1%} of bound)"
@@ -2951,14 +2882,14 @@ def phase_entry_points(workdir: Path):
 
 def phase_k3_long():
     """The fp32 K3 past T=512 on the 3xTF32 kernels (which take any T and
-    any width), after the 3xTF32 forward and after the FMA forward of narrow
-    rows: at T=520 and T=800 (B=4) with the gate,
+    any width), after the 3xTF32 forward on 16-byte and on narrow rows: at
+    T=520 and T=800 (B=4) with the gate,
     with the gate and a padding mask, and with neither, dqkv, dbias and
     dgate against the twin at atol/rtol 1e-4 and (3xTF32) relative L2
     TF32X3_REL_L2; the same values on narrow rows (a row stride of 3E + 1
-    floats) with the gate, with and without the mask: the forward on the FMA
-    body (its row log-sum-exp saved), the backward on the 3xTF32 kernels, at
-    the same bounds; then times the gated call at T=800 against the twin,
+    floats) with the gate, with and without the mask: the forward on the
+    3xTF32 kernel's narrow rows (its row log-sum-exp saved), the backward on
+    the 3xTF32 kernels, at the same bounds; then times the gated call at T=800 against the twin,
     the fp32 SDPA backward and its bound. Returns the T=800 numbers for the
     JSON line."""
     import torch
@@ -2974,26 +2905,25 @@ def phase_k3_long():
         dout = torch.randn(B_LONG, seq, E, device="cuda", generator=gen)
         mask = torch.zeros(B_LONG, seq, dtype=torch.bool, device="cuda")
         mask[1::2, seq * 2 // 3:] = True
-        # the same values on narrow rows: the FMA forward saves its LSE, the 3xTF32 K3 runs from it
+        # the same values on narrow rows: the narrow 3xTF32 forward saves its LSE, the 3xTF32 K3 runs from it
         store = torch.zeros(B_LONG, seq, 3 * E + 1, device="cuda", requires_grad=True)
         with torch.no_grad():
             store[..., 1:].copy_(qkv)
         narrow = store[..., 1:]
         worst = 0.0
-        cases = [(qkv, gate, None, "tf32x3"), (qkv, gate, mask, "tf32x3"), (qkv, None, None, "tf32x3"),
-                 (narrow, gate, None, "fma"), (narrow, gate, mask, "fma")]
-        for x, g, m, body in cases:
+        cases = [(qkv, gate, None, "16-byte rows"), (qkv, gate, mask, "16-byte rows"), (qkv, None, None, "16-byte rows"),
+                 (narrow, gate, None, "narrow rows"), (narrow, gate, mask, "narrow rows")]
+        for x, g, m, rows in cases:
             inputs = (x, bias) if g is None else (x, bias, g)
             reset_counts()
             out, forward_bodies = bodies_of(lambda: ak.fused_qkv_gated_attention(x, H, bias, g, m), forward=True)
-            check(forward_bodies == {body: 1}, f"fp32 K2 T={seq} on {body}'s rows: ran on the {body} forward "
-                                               f"({forward_bodies})")
-            check(out.grad_fn.saved_tensors[-1] is not None, f"fp32 K2 T={seq} on {body}'s rows: saved its LSE")
+            check(forward_bodies == {"tf32x3": 1}, f"fp32 K2 T={seq} on {rows}: ran on the tf32x3 forward "
+                                                   f"({forward_bodies})")
+            check(out.grad_fn.saved_tensors[-1] is not None, f"fp32 K2 T={seq} on {rows}: saved its LSE")
             got, bodies = bodies_of(lambda: torch.autograd.grad(out, inputs, dout))
             launched = read_counts()["fused_qkv_gated_attention_backward"]
             want = ak.fused_qkv_gated_backward_reference(qkv.detach(), H, bias.detach(),
                                                          None if g is None else g.detach(), m, dout)
-            rows = "16-byte rows" if body == "tf32x3" else "narrow rows"
             label = f"fp32 K3 T={seq} B={B_LONG} gate={g is not None} mask={m is not None} {rows}"
             check(launched == 1 and bodies == {"tf32x3": 1},
                   f"{label}: launched the kernel once ({launched}), on the tf32x3 body ({bodies})")
@@ -3318,7 +3248,7 @@ def eat_ssl_shapes() -> tuple:
 
 def phase_eat_ssl_kernels():
     """K5 and K6 against their twins at EAT-SSL's three shapes (B=64), bf16
-    (tensor cores) and fp32 (3xTF32, K5 also timed beside the FMA body's);
+    (tensor cores) and fp32 (3xTF32);
     each timed beside its twin, its bound and SDPA (its backward for K6). The teacher's K5 runs under no_grad, as in
     the model. Returns {(kernel, shape, dtype): numbers}."""
     import torch
@@ -4048,7 +3978,9 @@ def rank_dp(rank, world, work, backend):
         out["dp_loss"], out["ref_loss"], out["dp_held"] = loss, ref_loss, held(got, ref, DP_LR)
     del trainer, got
 
-    # (d) ZeRO-3 on the same ranks and weights, held the same way
+    # (d) ZeRO-3 on the same ranks and weights, held the same way; its own wall seconds
+    torch.cuda.synchronize()
+    d_start = time.perf_counter()
     model.module.load_state_dict(initial)
     trainer = Trainer(model, dp_config(work, B_TRAIN, sharding="fsdp"), [], mesh=mesh, steps_per_epoch=4)
     out["fsdp_bytes"] = _state_bytes(trainer)
@@ -4066,6 +3998,7 @@ def rank_dp(rank, world, work, backend):
     if rank == 0:
         out["fsdp_loss"], out["fsdp_held"] = loss, held(got, ref, DP_LR)
     del model, trainer, got, initial
+    out["fsdp_seconds"] = time.perf_counter() - d_start
 
     # (c) the timed bf16 steps with dropout and LayerDrop
     model = dp_beats("bfloat16", dropout=True)
@@ -4237,7 +4170,8 @@ def phase_data_parallel(workdir: Path) -> dict:
                           f"({r['dp_bytes'][0] / 2**20:.1f} + {r['dp_bytes'][1] / 2**20:.1f}), {r['fsdp_cut']} tensors "
                           f"cut (blocks {r['fsdp_resident'][0] / 2**20:.1f} MiB, replicated "
                           f"{r['fsdp_resident'][1] / 2**20:.1f} MiB), fp32 step peak "
-                          f"{r['fsdp_peak_bytes'] / 2**30:.2f} GiB (DP {r['dp_peak_bytes'] / 2**30:.2f})"
+                          f"{r['fsdp_peak_bytes'] / 2**30:.2f} GiB (DP {r['dp_peak_bytes'] / 2**30:.2f}), "
+                          f"(d) took {r['fsdp_seconds']:.1f} s"
                           for r in results) + f"; {CARD[0]}")
         hold(f"(e): EAT-SSL (K5/K6, fp32), 2 x {B_DP_SMALL // 2}, the mask draw split", r0["ssl_loss"],
              r0["ssl_ref_loss"], r0["ssl_held"], r0["ssl_ranks_equal"], DP_LR)
@@ -4264,7 +4198,7 @@ def phase_data_parallel(workdir: Path) -> dict:
             "nccl_two_ranks_one_card": nccl_two, "backend": backend, "card": CARD[0],
             "ranks": [{k: r[k] for k in ("rank", "ms_per_step", "allreduce_ms", "allreduce_bytes", "peak_bytes",
                                          "busy_share", "step_wall_ms", "dp_bytes", "fsdp_bytes", "fsdp_resident",
-                                         "dp_peak_bytes", "fsdp_peak_bytes")} for r in results],
+                                         "dp_peak_bytes", "fsdp_peak_bytes", "fsdp_seconds")} for r in results],
             "fp32_checks": {k: r0[k] for k in ("dp_held", "fsdp_held", "ssl_held", "clip_held", "clip_stats")}}}))
     print(f"data parallel: phase 30 took {time.perf_counter() - start:.1f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
@@ -5351,41 +5285,56 @@ def sdpa_backend(q, k, v, attn_mask=None) -> str:
         return f"unknown ({type(exc).__name__})"
 
 
-# The FMA backward's times at phase 35's timed shapes (PERF.md's phase-35 table,
-# an NVIDIA H100 80GB HBM3 at 700 W), quoted beside the 3xTF32 kernels that
-# replaced it: K3 at B=64, T=248 with the gate, K6 at B=64, T=513.
+# The FMA body's times at phase 35's timed shapes (PERF.md's phase-35 table, an
+# NVIDIA H100 80GB HBM3 at 700 W), quoted beside the 3xTF32
+# kernels that replaced it: K1/K2 at B=128, T=248 with the gate, K4/K5 at
+# B=128, T=513, K3 at B=64, T=248 with the gate, K6 at B=64, T=513.
+FMA_FORWARD_MS = {
+    "K1": {12: 4.4212, 20: 2.5834, 136: 2.6956, 192: 2.5641, 256: 2.9753, 320: 3.5780},
+    "K2": {12: 4.5195, 20: 2.6493, 136: 2.7314, 192: 2.5813, 256: 3.0000, 320: 3.6020},
+    "K4": {12: 18.5036, 20: 10.4464, 136: 11.6032, 192: 10.2038, 256: 12.5762, 320: 15.5377},
+    "K5": {12: 18.8884, 20: 10.8340, 136: 11.7656, 192: 10.2770, 256: 12.6695, 320: 15.6373},
+}
 FMA_BACKWARD_MS = {
     "K3": {12: 13.6896, 20: 9.0996, 136: 9.8768, 192: 9.0484, 256: 9.0525, 320: 11.5444},
     "K6": {12: 39.5219, 20: 23.0681, 136: 41.5021, 192: 35.0215, 256: 38.3390, 320: 50.8536},
 }
+# K1-K6 by the wrapper's names
+KERNEL_NUMBERS = {"gated_bias_attention": "K1", "fused_qkv_gated_attention": "K2", "plain_attention": "K4",
+                  "fused_qkv_attention": "K5"}
+
+
+def fma_quote(kernel: str, dh: int, ms: float) -> str:
+    """The tail of a timed fp32 line in phase 35 where PERF.md has the FMA
+    body's time for it (``FMA_FORWARD_MS``, ``FMA_BACKWARD_MS``): that time
+    as a quoted figure."""
+    fma = {**FMA_FORWARD_MS, **FMA_BACKWARD_MS}[kernel].get(dh)
+    return "" if fma is None else f"; the FMA body (quoted from PERF.md) {fma:.4f} ms ({fma / ms:.2f}x this)"
 
 
 def backward_quote(kernel: str, dh: int, ms: float, q, k, v, attn_mask) -> str:
     """The tail of a timed fp32 backward's line in phase 35: SDPA's backend
     for the same views and, where PERF.md has it, the FMA backward's time
     as a quoted figure."""
-    tail = f"; sdpa backend {sdpa_backend(q, k, v, attn_mask)}"
-    fma = FMA_BACKWARD_MS[kernel].get(dh)
-    if fma is not None:
-        tail += f"; the FMA backward (quoted from PERF.md) {fma:.4f} ms ({fma / ms:.2f}x this)"
-    return tail
+    return f"; sdpa backend {sdpa_backend(q, k, v, attn_mask)}" + fma_quote(kernel, dh, ms)
 
 
 def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_bytes=None, padded_item=False,
                        reps: int = TIMED_LAUNCHES, check_batch=None):
     """K1-K6 at each head width of ``widths`` with ``heads_of(dh)`` heads,
-    bf16 (tensor cores) and fp32 (the forwards on 3xTF32 on 16-byte rows up
-    to 128, on the FMA body on narrow rows and column chunks; every backward
-    on 3xTF32; each call's body checked): the
+    bf16 (tensor cores) and fp32 (on 3xTF32, forward and backward, each
+    call's body checked, each fp32 forward within max|d| 1e-4 and rel L2
+    1e-5 of its twin and K2's and K5's saved row log-sum-exp within 1e-5 of
+    the twin's): the
     forwards at B=128 (K4, K5:
     T=513; K1, K2: T=248, with the gate), the backwards at B=64 (K3: T=248,
     with the gate; K6: T=513), each against its twin (the bf16 K3/K6 also
     against the twin of their own contract on the forward's residuals); a
     width of ``timed`` is timed beside the twin, its bound and SDPA (and,
-    with ``twin_bytes`` set, SDPA's backend printed; the fp32 forwards on
-    3xTF32 also beside the FMA body, with SDPA's backend; the fp32
+    with ``twin_bytes`` set, SDPA's backend printed; the fp32 forwards and
     backwards beside the 3xTF32 bound, SDPA's backend and, at the widths of
-    ``FMA_BACKWARD_MS``, the FMA backward's time quoted from PERF.md),
+    ``FMA_FORWARD_MS`` and ``FMA_BACKWARD_MS``, the FMA body's time quoted
+    from PERF.md),
     each time the median of ``reps`` calls; then one ragged, padded
     case a width (B=8, T=37, a key mask; with ``padded_item`` also one item's
     keys all padded in the forwards: NaN where the twin has NaN). With
@@ -5427,15 +5376,16 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
             check(rel <= BF16_REL_L2, f"{label}: rel L2={rel:.3e} <= {BF16_REL_L2:g} (max|d| {err:.3e})")
         return err
 
-    def record(kname, dh, name, label, err, run, twin, library, bound, flops, sdpa_operands, fma_operands=None):
-        """Time a forward; ``fma_operands`` (q, k, v, bias, gate; an fp32
-        call on 3xTF32) adds the FMA body on the same inputs."""
+    def record(kname, dh, name, label, err, run, twin, library, bound, flops, sdpa_operands, fp32):
+        """Time a forward; an fp32 one (on 3xTF32) adds SDPA's backend and,
+        at the widths of ``FMA_FORWARD_MS``, the FMA body's quoted time."""
         ms, plain_ms, library_ms = median_ms(run, reps), median_ms(twin, reps), median_ms(library, reps)
         t_bound, bound_by = bound
-        backend = f", sdpa backend {sdpa_backend(*sdpa_operands)}" if twin_bytes is not None else ""
+        backend = f", sdpa backend {sdpa_backend(*sdpa_operands)}" if twin_bytes is not None and not fp32 else ""
         fp32_numbers, note = ({}, "")
-        if fma_operands is not None:
-            fp32_numbers, note = fp32_forward_timing(*fma_operands, None, ms, *sdpa_operands[3:], n=reps)
+        if fp32:
+            fp32_numbers, note = fp32_forward_timing(*sdpa_operands)
+            note += fma_quote(KERNEL_NUMBERS[kname], dh, ms)
         print(f"time {label}: kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {t_bound:.4f} ms by {bound_by} ({t_bound / ms:.1%} of bound)"
               f"{backend}{note}; {CARD[0]}")
@@ -5454,13 +5404,10 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
               f"of {plan.chunk_width}; forward batches {bsz_g} / {bsz_f}, backward {bsz_b3} / {bsz_b6}")
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
-            # the forwards' body: bf16, or fp32 on 3xTF32 (16-byte rows up to 128) or the FMA body;
-            # the backwards': bf16, or fp32 on 3xTF32 at every width
-            fwd_body = "bf16" if dtype == torch.bfloat16 else fp32_body(dh)
-            bwd_body = "bf16" if dtype == torch.bfloat16 else "tf32x3"
-            tf32x3, fp32 = fwd_body == "tf32x3", dtype == torch.float32
-            labels = {"bf16": "tensor cores", "tf32x3": "tensor cores, 3xTF32", "fma": "FMA"}
-            body, bwd_label = labels[fwd_body], labels[bwd_body]
+            # the forwards' and backwards' body: bf16, or fp32 on 3xTF32 at every width
+            fwd_body = bwd_body = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+            tf32x3 = fp32 = dtype == torch.float32
+            body = bwd_label = "tensor cores, 3xTF32" if fp32 else "tensor cores"
 
             def forward_held(label, run, twin):
                 """One forward against its twin, on the body the rule gives; returns max|d|."""
@@ -5485,8 +5432,8 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                     if dh in timed:
                         record(kname, dh, name, label, err, run, twin,
                                lambda: F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5), bound, flops,
-                               (q, k, v), (q, k, v, None, None) if tf32x3 else None)
-                if fp32:  # the row log-sum-exp of either fp32 body
+                               (q, k, v), fp32)
+                if fp32:  # the row log-sum-exp the 3xTF32 K5 saves
                     lse_held(f"fused_qkv_attention dh={dh} H={heads} B={bsz_f} T={T_EAT} {name}", qkv, heads)
             del qkv, q, k, v
             # gated forwards, BEATs' T, with the gate: K1 on three projections' views, K2 on [B, T, 3E]
@@ -5512,7 +5459,7 @@ def head_width_kernels(phase: int, widths, timed, heads_of, seed: int, twin_byte
                     if dh in timed:
                         record(kname, dh, name, label, err, run, twin,
                                lambda: F.scaled_dot_product_attention(*views, attn_mask=attn_mask, scale=dh**-0.5),
-                               bound, flops, (*views, attn_mask), (*views, bias, gate) if tf32x3 else None)
+                               bound, flops, (*views, attn_mask), fp32)
                 if fp32:
                     lse_held(f"fused_qkv_gated_attention dh={dh} H={heads} B={bsz_g} T={T} {name}", qkv, heads,
                              None, bias, gate)
@@ -5745,7 +5692,7 @@ def phase_head_width_paths(workdir: Path) -> dict:
         small = [b[:B_HW_FP32] for b in batches[:1]]
         model = load_beats("float32", use_pallas=True, **beats_init)
         emb32, pooled32, _, _ = drive(model, "BEATs dh 128 fp32 split", {"gated_bias_attention": layers},
-                                      small, n_emb, mean_pool)
+                                      small, n_emb, mean_pool, body="tf32x3")
         del model
         plain = load_beats("float32", use_pallas=False, **beats_init)
         reset_counts()
@@ -5793,7 +5740,7 @@ def phase_head_width_paths(workdir: Path) -> dict:
         model = load_eat("float32", True, return_features_only=True)
         model.register_hooks_for_layers(["all"])
         emb32, pooled32, _, _ = drive(model, "EAT dh 32 fp32", {"fused_qkv_attention": 12}, small, 12 * E,
-                                      eat_pool)
+                                      eat_pool, body="tf32x3")
         del model
         plain = load_eat("float32", None, return_features_only=True)
         plain.register_hooks_for_layers(["all"])
@@ -5967,7 +5914,7 @@ def phase_wide_head_paths(workdir: Path) -> dict:
         small = [b[:B_HW_FP32] for b in batches[:1]]
         model = load_beats("float32", use_pallas=True, **beats_init)
         emb32, pooled32, _, _ = drive(model, "BEATs 4 x 192 fp32 split", {"gated_bias_attention": layers},
-                                      small, n_emb, mean_pool)
+                                      small, n_emb, mean_pool, body="tf32x3")
         for layer in model.module.backbone.encoder.layers:  # the same weights on the plain path
             layer.self_attn.use_pallas = False
         reset_counts()
@@ -5992,8 +5939,8 @@ def phase_wide_head_paths(workdir: Path) -> dict:
     add(counts)
     del trainer
     torch.cuda.empty_cache()
-    beats_grad = training_gradient_check("BEATs 4 x 192", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect,
-                                         fp32_body="fma")  # two column chunks of 96: the FMA forward, 3xTF32 K3
+    # two column chunks of 96: the wide 3xTF32 forward and backward
+    beats_grad = training_gradient_check("BEATs 4 x 192", load_beats_train, batch["raw_wav"][:B_GRAD_CHECK], expect)
 
     # (c) EAT 64 x 12: K5 extraction, K6 training
     def load_eat(dtype, use_pallas, **kwargs):
@@ -6017,7 +5964,7 @@ def phase_wide_head_paths(workdir: Path) -> dict:
         model = load_eat("float32", True, return_features_only=True)
         model.register_hooks_for_layers(["all"])
         emb32, pooled32, _, _ = drive(model, "EAT 64 x 12 fp32", {"fused_qkv_attention": 12}, small, 12 * E,
-                                      aux_pool)
+                                      aux_pool, body="tf32x3")
         for block in model.module.blocks:  # the same weights on the plain path
             block.use_pallas = False
         reset_counts()
@@ -6037,8 +5984,7 @@ def phase_wide_head_paths(workdir: Path) -> dict:
     torch.cuda.empty_cache()
     eat_grad = training_gradient_check("EAT 64 x 12", reused_paths(lambda dtype: load_eat(dtype, True,
                                                                                            num_classes=N_CLASSES)),
-                                       batch["raw_wav"][:B_GRAD_CHECK], expect,
-                                       fp32_body="fma")  # narrow rows: the FMA forward, 3xTF32 K6
+                                       batch["raw_wav"][:B_GRAD_CHECK], expect)  # narrow rows, 3xTF32 K5 and K6
 
     # (d) Bird-MAE huge 5 x 256: K5 extraction of 10 s clips at 32 kHz, fp32 kernel path vs plain path
     def load_mae(dtype, use_pallas):
@@ -6063,7 +6009,8 @@ def phase_wide_head_paths(workdir: Path) -> dict:
         small = [mae_batches[0][:B_WH_MAE_FP32]]
         model = load_mae("float32", True)
         _, pooled32, _, _ = drive(model, f"Bird-MAE huge 5 x 256 fp32 (B={B_WH_MAE_FP32})",
-                                  {"fused_qkv_attention": MAE_LAYERS}, small, MAE_LAYERS * E_MAE, aux_pool)
+                                  {"fused_qkv_attention": MAE_LAYERS}, small, MAE_LAYERS * E_MAE, aux_pool,
+                                  body="tf32x3")
         layers32 = model.extract_embeddings(small[0], aggregation="none")
         for block in model.module.blocks:  # the same weights on the plain path
             block.use_pallas = False
@@ -6204,7 +6151,7 @@ def main() -> int:
             for kname in ("plain_attention", "fused_qkv_attention", "fused_qkv_attention_backward")}
 
     tensor_core = "avex_tpu_torch/ops/csrc/tensor_core_attention.cu"  # bf16
-    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # fp32 K3/K6 at every width, K1/K2/K4/K5 up to 128
+    tf32x3 = "avex_tpu_torch/ops/csrc/tf32x3_attention.cu"  # fp32 K1-K6 at every width
     int8 = "avex_tpu_torch/ops/csrc/int8_dense.cu"
     # (kernel, source, line of the TPU kernel, timing at the main path's shape and compute dtype, bf16)
     rows = (
@@ -6245,10 +6192,10 @@ def main() -> int:
                                                    f"({TF32X3_STEP_LAUNCHES[kname]} launches)")
         elif source == tensor_core:
             kernels[-1]["body"] = {"bf16": "tensor cores (mma.sync)",
-                                   "fp32": "tensor cores (mma.sync TF32, 3xTF32) on 16-byte rows of a head width "
-                                           "a multiple of 8 up to 128; FMA on narrow rows and chunked widths"}
+                                   "fp32": "tensor cores (mma.sync TF32, 3xTF32) at every head width: 16-byte rows "
+                                           "up to 128, narrow rows, column chunks past 128"}
             kernels[-1]["fp32_source"] = tf32x3
-            # the fp32 call at the same shape, with the FMA body's time on the same inputs
+            # the fp32 call at the same shape, with SDPA's backend
             kernels[-1]["fp32"] = timings.get((kname, "float32")) or plain_timings[(kname, "EAT", "float32")]
             # the main paths' fp32 runs (``drive``, ``step_gradients``): their launches on the 3xTF32 kernel
             kernels[-1]["fp32_tf32x3_launches"] = TF32X3_FORWARD_LAUNCHES[kname]
@@ -6275,11 +6222,11 @@ def main() -> int:
         if cli.get(kname):
             kernels[-1]["cli_launches"] = cli[kname]  # phase 33's share
         if source == tensor_core:
-            # phase 34: dh 16, 32, 96, 128 at E = 768, bf16 (tensor cores) and fp32 (FMA; K3/K6 3xTF32)
+            # phase 34: dh 16, 32, 96, 128 at E = 768, bf16 (tensor cores) and fp32 (3xTF32)
             kernels[-1]["head_widths"] = {f"dh{dh}": {name: hw_timings[(kname, dh, name)]
                                                       for name in ("bfloat16", "float32")} for dh in HW_WIDTHS}
             kernels[-1]["head_width_kernel_phase_launches"] = hw_kernel_counts[kname]
-            # phase 35: the widths of WH_TIMED, bf16 (tensor cores) and fp32 (FMA: narrow rows, column
+            # phase 35: the widths of WH_TIMED, bf16 (tensor cores) and fp32 (3xTF32: narrow rows, column
             # chunks), at the shapes it prints
             kernels[-1]["wide_head_widths"] = {f"dh{dh}": {name: wh_timings[(kname, dh, name)]
                                                            for name in ("bfloat16", "float32")} for dh in WH_TIMED}

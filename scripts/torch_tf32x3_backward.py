@@ -1,24 +1,22 @@
 #!/usr/bin/env python3
 """The fp32 attention forward (K1, K2, K4, K5) and backward (K3, K6) on the
-card: the 3xTF32 tensor-core kernels against the plain fp32 twin, the FMA
-body's forward and SDPA.
+card: the 3xTF32 tensor-core kernels against the plain fp32 twin and SDPA.
 
     python3 scripts/torch_tf32x3_backward.py
 
 Builds ``csrc/tf32x3_attention.cu`` at every head width of
-``attention_kernels.KERNEL_WIDTHS`` and ``csrc/gated_attention.cu`` (the
-FMA body), one ``nvcc`` each, all at once, and prints each 3xTF32 kernel's
-registers and spills. Then, for each forward case, the fp32 forward of
+``attention_kernels.KERNEL_WIDTHS``, one ``nvcc`` each, all at once, and
+prints each 3xTF32 kernel's registers and spills. Then, for each forward
+case, the fp32 forward of
 ``gated_bias_attention`` (K1 with a bias, K4 without) or
 ``fused_qkv_gated_attention`` / ``fused_qkv_attention`` (K2, K5) against
 the plain fp32 twin with TF32 off (max|d| 1e-4 and rel L2 1e-5, NaN
 exactly where the twin has NaN; K2 and K5 also their saved row
 log-sum-exp within 1e-5 of the twin's), the body that ran it
 (``attention_kernels.FORWARD_BODIES``) and, for the timed cases, the median
-device time of 20 calls of the 3xTF32 kernel, the FMA body on the same
-inputs, the twin and SDPA's fp32 call (and SDPA's backend), beside the
-bound at 165 TFLOP/s and at the FMA units' 67, and the kernel's device time
-per call from ``torch.profiler``. Then, for each backward case, the fp32
+device time of 20 calls of the 3xTF32 kernel, the twin and SDPA's fp32 call
+(and SDPA's backend), beside the bound at 165 TFLOP/s, and the kernel's
+device time per call from ``torch.profiler``. Then, for each backward case, the fp32
 backward of ``fused_qkv_gated_attention`` (K3) or
 ``fused_qkv_attention`` (K6) through autograd against the plain fp32 twin
 with TF32 off (rel L2 of dqkv, dbias and dgate; NaN exactly where the twin
@@ -32,17 +30,27 @@ check. Needs CUDA and ``nvcc``; imports nothing of JAX.
     python3 scripts/torch_tf32x3_backward.py general [--root CHECKOUT]
     python3 scripts/torch_tf32x3_backward.py general-ab PARENT
 
-``general`` times the fp32 backward of the general route (narrow rows and
-column chunks past 128: dh 12, 20, 136, 192, 256, 320) at the shapes
-``chip_smoke.py``'s phase 35 times it (K3 at B=64, T=248 with the gate, K6
+``general`` times the fp32 forward and backward of the general route
+(narrow rows and column chunks past 128: dh 12, 20, 136, 192, 256, 320) at
+the shapes ``chip_smoke.py``'s phase 35 times them (K1/K2 at B=128, T=248
+with the gate, K4/K5 at B=128, T=513, K3 at B=64, T=248 with the gate, K6
 at B=64, T=513; E = 768 or the nearest multiple of dh), and dh 64 on
-16-byte rows (the main paths' K3 and K6) as the control, through autograd on
-whichever body the checkout runs it (``--root``: another checkout's
-``avex_tpu_torch``, built in its own ``build/``), each against the plain
-fp32 twin, beside SDPA's fp32 backward and the 3xTF32 bound; one JSON line a
-case. ``general-ab PARENT`` runs ``general`` on PARENT, this checkout, this
-checkout and PARENT, one process each, on the same seeded inputs, and prints
-each case's medians side by side.
+16-byte rows (the main paths' widths) as the control, on whichever body the
+checkout runs them (``--root``: another checkout's ``avex_tpu_torch``,
+built in its own ``build/``), each against the plain fp32 twin (K2's and
+K5's saved row log-sum-exp too), beside SDPA's fp32 call (or backward) and
+the 3xTF32 bound; one JSON line a case. ``general-ab PARENT`` runs
+``general`` on PARENT, this checkout, this checkout and PARENT, one process
+each, on the same seeded inputs, and prints each case's medians side by
+side.
+
+    python3 scripts/torch_tf32x3_backward.py narrow-tile
+
+``narrow-tile`` times the narrow-row forwards at dh 12 (K1, K2, K4, K5 at
+``general``'s shapes) on the 16-column tiles the 32 build runs them on
+against the build's own 32-column tiles (``csrc/tf32x3_attention.cu``
+compiled once more without the 16-column launch: ``build/narrow32/``), each
+held to the twin, in turns (32, 16, 16, 32).
 """
 
 from __future__ import annotations
@@ -64,9 +72,7 @@ REL_L2 = 1e-5  # the forward's output, and each of dqkv, dbias and dgate, agains
 ATOL = 1e-4  # the forward's output against the twin: max|d|
 LSE_ATOL = 1e-5  # the saved row log-sum-exp against the twin's
 TF32X3_FLOPS = 495e12 / 3
-FMA_FLOPS = 67e12
 E = 768
-# (kernel, label, batch, heads, T, gated, masked, timed)
 # (kernel, label, batch, heads, T, gated, masked, timed): K1/K4 on split views, K2/K5 on [B, T, 3E]
 FORWARD_CASES = (
     ("K5", "EAT", 128, 12, 513, None, None, True),
@@ -111,6 +117,72 @@ CASES = (
 # and dh 64 (12 heads: K3 BEATs, K6 EAT) on 16-byte rows beside them as the control
 GENERAL_WIDTHS = (12, 20, 136, 192, 256, 320, 64)
 GENERAL_REPS = 10
+
+
+def general_forward_cases(gen) -> int:
+    """The general route's K1, K2, K4 and K5 (``general``); returns the
+    failed checks. Each case: the body that ran it, max|d| and relative L2
+    against the twin, K2's and K5's saved row log-sum-exp against the
+    twin's, the median ms of GENERAL_REPS calls and each kernel's device ms
+    from the profiler, SDPA's fp32 call and backend on the same views, and
+    the 3xTF32 bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from avex_tpu_torch.ops import attention_kernels as ak
+    from chip_smoke import median_ms, rel_l2, sdpa_backend
+
+    failures = 0
+    for dh in GENERAL_WIDTHS:
+        heads = max(1, round(E / dh))
+        for kname, seq in (("K1", 248), ("K2", 248), ("K4", 513), ("K5", 513)):
+            bsz, gated = 128, kname in ("K1", "K2")
+            qkv = torch.randn(bsz, seq, 3 * heads * dh, device="cuda", generator=gen)
+            q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
+            bias = torch.randn(heads, seq, seq, device="cuda", generator=gen) if gated else None
+            gate = torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0 if gated else None
+
+            def run():
+                if kname in ("K1", "K4"):
+                    return ak.gated_bias_attention(q, k, v, bias, gate)
+                out = (ak.fused_qkv_gated_attention(qkv, heads, bias, gate) if gated
+                       else ak.fused_qkv_attention(qkv, heads))
+                return out.view(bsz, seq, heads, dh).permute(0, 2, 1, 3)
+
+            ak.reset_launch_counts()
+            with torch.no_grad():
+                got = run()
+                want = ak.gated_bias_attention_reference(q, k, v, bias, gate)
+            torch.cuda.synchronize()
+            row = {"case": f"{kname} dh={dh} H={heads} B={bsz} T={seq}",
+                   "bodies": {"forward": {k_: v_ for k_, v_ in ak.FORWARD_BODIES.items() if v_}},
+                   "max_abs_err": float((got - want).abs().max()), "rel_l2": rel_l2(got, want)}
+            ok = row["max_abs_err"] <= ATOL and row["rel_l2"] <= REL_L2
+            del got, want
+            if kname in ("K2", "K5"):
+                leaf = qkv.detach().requires_grad_()
+                out = (ak.fused_qkv_gated_attention(leaf, heads, bias, gate) if gated
+                       else ak.fused_qkv_attention(leaf, heads))
+                lse = out.grad_fn.saved_tensors[-1]
+                with torch.no_grad():
+                    _, want_lse, _ = ak._fused_qkv_forward_lse_reference(qkv, heads, None, None, bias, gate)
+                row["lse_max_abs_err"] = float((lse - want_lse).abs().max())
+                ok &= row["lse_max_abs_err"] <= LSE_ATOL
+                del leaf, out, lse, want_lse
+            with torch.no_grad():
+                row["ms"] = median_ms(run, GENERAL_REPS)
+                row["kernels_ms"] = kernel_ms(run, 3)
+                attn = None if bias is None else gate[..., None] * bias[None]
+                row["sdpa_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn,
+                                                                                  scale=dh**-0.5), GENERAL_REPS)
+                row["sdpa_backend"] = sdpa_backend(q, k, v, attn)
+            row["bound_tf32x3_ms"] = 4.0 * bsz * heads * seq * seq * dh / TF32X3_FLOPS * 1e3
+            row["ok"] = ok
+            print(("ok    " if ok else "FAIL  ") + json.dumps(row), flush=True)
+            failures += not ok
+            del qkv, q, k, v, bias, gate, attn
+            torch.cuda.empty_cache()
+    return failures
 
 
 def general_cases() -> int:
@@ -202,13 +274,76 @@ def general_ab(parent: str) -> int:
     return failures
 
 
+def narrow_tile() -> int:
+    """``narrow-tile``; returns the failed checks."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from avex_tpu_torch.ops import _build
+    from avex_tpu_torch.ops import attention_kernels as ak
+    from chip_smoke import median_ms, rel_l2
+
+    out_dir = _build.BUILD_DIR / "narrow32"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC_DIR / ak.TF32X3_SOURCE).read_text()
+    launch16 = "if (cl.narrow && cl.dim <= 16) return launch(tf32x3_forward_kernel<16, kGated, true>"
+    assert text.count(launch16) == 1
+    (out_dir / ak.TF32X3_SOURCE).write_text(text.replace(launch16, launch16.replace(
+        "cl.narrow && cl.dim <= 16", "false")))
+    lib_path = out_dir / "tf32x3_attention-d32.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-DAVEX_HEAD_DIM=32", "-o", str(lib_path),
+                           str(out_dir / ak.TF32X3_SOURCE)], capture_output=True, text=True)
+    if proc.returncode:
+        print(proc.stdout + proc.stderr)
+        return 1
+    lib32 = ctypes.CDLL(str(lib_path))
+    load = ak.load_library
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    dh, heads, failures, times = 12, 64, 0, {}
+    for kname, seq in (("K1", 248), ("K2", 248), ("K4", 513), ("K5", 513)):
+        bsz, gated = 128, kname in ("K1", "K2")
+        qkv = torch.randn(bsz, seq, 3 * heads * dh, device="cuda", generator=gen)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
+        bias = torch.randn(heads, seq, seq, device="cuda", generator=gen) if gated else None
+        gate = torch.rand(bsz, heads, seq, device="cuda", generator=gen) + 1.0 if gated else None
+
+        def run():
+            if kname in ("K1", "K4"):
+                return ak.gated_bias_attention(q, k, v, bias, gate)
+            out = (ak.fused_qkv_gated_attention(qkv, heads, bias, gate) if gated
+                   else ak.fused_qkv_attention(qkv, heads))
+            return out.view(bsz, seq, heads, dh).permute(0, 2, 1, 3)
+
+        with torch.no_grad():
+            want = ak.gated_bias_attention_reference(q, k, v, bias, gate)
+            for build in (32, 16, 16, 32):
+                ak.load_library = (lambda source, width: lib32) if build == 32 else load
+                got = run()
+                err, rel = float((got - want).abs().max()), rel_l2(got, want)
+                ok = err <= ATOL and rel <= REL_L2
+                failures += not ok
+                times.setdefault((kname, build), []).append(median_ms(run, GENERAL_REPS))
+                print(("ok    " if ok else "FAIL  ") + json.dumps(
+                    {"case": f"{kname} dh={dh} H={heads} B={bsz} T={seq} on {build}-column tiles",
+                     "max_abs_err": err, "rel_l2": rel, "ms": times[kname, build][-1]}), flush=True)
+            ak.load_library = load
+        del qkv, q, k, v, bias, gate, want
+        torch.cuda.empty_cache()
+    for (kname, build), ms in times.items():
+        print(f"narrow-tile {kname} dh={dh} {build}-column tiles: median of two runs {statistics.median(ms):.4f} ms "
+              f"{ms}")
+    return failures
+
+
 def build() -> int:
     """Every build the cases need, at once; prints the 3xTF32 kernels'
     ptxas lines. Returns the kernels that spill."""
     from avex_tpu_torch.ops import _build
     from avex_tpu_torch.ops import attention_kernels as ak
 
-    jobs = [(src, w) for src in (ak.TF32X3_SOURCE, ak.SOURCE) for w in ak.KERNEL_WIDTHS]
+    jobs = [(ak.TF32X3_SOURCE, w) for w in ak.KERNEL_WIDTHS]
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: _build.build(*job), jobs))
@@ -264,7 +399,7 @@ def forward_cases(gen) -> int:
     import torch.nn.functional as F
 
     from avex_tpu_torch.ops import attention_kernels as ak
-    from chip_smoke import fma_forward_ms, median_ms, rel_l2, sdpa_backend
+    from chip_smoke import median_ms, rel_l2, sdpa_backend
 
     failures = 0
     for kname, label, bsz, heads, seq, gating, masking, timed in FORWARD_CASES:
@@ -305,7 +440,7 @@ def forward_cases(gen) -> int:
         bodies = dict(ak.FORWARD_BODIES)
         tag = f"{kname} {label} B={bsz} H={heads} dh={dim} T={seq} gate={gating} mask={masking}"
         nan = torch.isnan(want)
-        ok = bodies == {"bf16": 0, "tf32x3": 1, "fma": 0} and bool(torch.equal(torch.isnan(got), nan))
+        ok = bodies == {"bf16": 0, "tf32x3": 1} and bool(torch.equal(torch.isnan(got), nan))
         err = float((got[~nan] - want[~nan]).abs().max())
         row = {"case": tag, "bodies": bodies, "max_abs_err": err, "rel_l2": rel_l2(got[~nan], want[~nan])}
         ok &= err <= ATOL and row["rel_l2"] <= REL_L2
@@ -328,14 +463,11 @@ def forward_cases(gen) -> int:
             with torch.no_grad():
                 row["ms"] = median_ms(run)
                 row["kernels_ms"] = kernel_ms(run)
-                row["fma_ms"] = fma_forward_ms(q, k, v, bias, gate, mask)
                 row["plain_ms"] = median_ms(twin)
                 row["sdpa_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn,
                                                                                   scale=dim**-0.5))
             row["sdpa_backend"] = sdpa_backend(q, k, v, attn)
             row["bound_tf32x3_ms"] = flops / TF32X3_FLOPS * 1e3
-            row["bound_fma_ms"] = flops / FMA_FLOPS * 1e3
-            row["speedup_over_fma"] = row["fma_ms"] / row["ms"]
             row["sdpa_over_kernel"] = row["sdpa_ms"] / row["ms"]
             del attn
         print(("ok    " if ok else "FAIL  ") + json.dumps(row))
@@ -361,8 +493,13 @@ def main() -> int:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if sys.argv[1:2] == ["narrow-tile"]:
+        failures = narrow_tile()
+        print(f"{failures} failure(s) on {smi}")
+        return 1 if failures else 0
     if sys.argv[1:2] == ["general"]:
         failures = build() if "--root" not in sys.argv else 0
+        failures += general_forward_cases(torch.Generator(device="cuda").manual_seed(22))
         failures += general_cases()
         print(f"{failures} failure(s) on {smi}")
         return 1 if failures else 0
@@ -408,7 +545,7 @@ def main() -> int:
             want = ak.fused_qkv_gated_backward_reference(detached[0], heads, detached[1], detached[2], mask, dout)
         torch.cuda.synchronize()
         tag = f"{kname} {label} B={bsz} H={heads} dh={dim} T={seq} gate={gating} mask={masking}"
-        ok = bodies == {"bf16": 0, "tf32x3": 1, "fma": 0}
+        ok = bodies == {"bf16": 0, "tf32x3": 1}
         rels = {}
         for name, g, w in zip(("dqkv", "dbias", "dgate"), got, want):
             if w is None:
@@ -441,9 +578,6 @@ def main() -> int:
         report.append(row)
         del qkv, dout, mask, bias, gate, leaves, out, got, want, detached
         torch.cuda.empty_cache()
-    import chip_smoke
-
-    failures += len(chip_smoke.FAILURES)  # the FMA body's own checks before it is timed
     print(f"{failures} failure(s) on {smi}")
     return 1 if failures else 0
 

@@ -355,16 +355,10 @@ def test_fused_wrappers_differentiate_through_the_twins_on_cpu(rng):
 
 def test_tensor_core_dispatch_by_type():
     """Every bf16 call, forward (K1, K2, K4, K5) or backward (K3, K6), runs on
-    the tensor cores; every fp32 backward (from the forward's residuals) on
-    them in 3xTF32 at every width, and every fp32 forward on them in 3xTF32
-    on 16-byte rows of a width that is a multiple of 8 up to 128, else on
-    the FMA body; no other type does."""
-    assert ak.kernel_body(torch.bfloat16, 12, True) == ak.kernel_body(torch.bfloat16, 192, False) == "bf16"
-    assert ak.kernel_body(torch.bfloat16, 12, True, backward=True) == "bf16"
-    assert ak.kernel_body(torch.float32, 64, False) == ak.kernel_body(torch.float32, 128, False) == "tf32x3"
-    assert ak.kernel_body(torch.float32, 64, True) == "fma"
-    assert ak.kernel_body(torch.float32, 12, False) == "fma"
-    assert ak.kernel_body(torch.float32, 136, False) == "fma"
-    for dh, narrow in ((64, False), (64, True), (12, True), (136, False), (320, False)):
-        assert ak.kernel_body(torch.float32, dh, narrow, backward=True) == "tf32x3"
-    assert ak.kernel_body(torch.float16, 64, False) == "fma"
+    the tensor cores; every fp32 call, forward or backward, on them in
+    3xTF32 at every width and row alignment; no other type has a body."""
+    assert ak.kernel_body(torch.bfloat16) == "bf16"
+    assert ak.kernel_body(torch.float32) == "tf32x3"
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(TypeError):
+            ak.kernel_body(dtype)

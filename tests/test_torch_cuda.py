@@ -156,9 +156,9 @@ def test_fused_backward_kernels_match_twins(card, shape, variant, padded, dtype)
 @pytest.mark.parametrize("padded", [False, True], ids=["nomask", "mask"])
 def test_fp32_fma_backward_on_narrow_rows_past_512(card, seq, variant, padded):
     """fp32 K3 and K6 on narrow rows (a row stride of 3E + 1 floats) past
-    T=512: the FMA body runs the forward and saves its row log-sum-exp, the
-    3xTF32 kernels run the backward from it (the body that took it before
-    they took every width); against the twins."""
+    T=512: the 3xTF32 forward on narrow rows saves its row log-sum-exp and
+    the 3xTF32 backward runs from it (the FMA body ran both here before the
+    3xTF32 kernels took every width); against the twins."""
     bsz = 2
     store = torch.zeros(bsz, seq, 3 * H * D + 1, device="cuda", requires_grad=True)
     values = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
@@ -184,7 +184,8 @@ def test_fp32_fma_backward_on_narrow_rows_past_512(card, seq, variant, padded):
         want = ak.fused_qkv_gated_backward_reference(values, H, bias.detach(), gate.detach(), mask, dout)
         key = "fused_qkv_gated_attention_backward"
     torch.cuda.synchronize()
-    assert ak.LAUNCHES[key] == 1 and ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 1, "fma": 0}
+    assert ak.LAUNCHES[key] == 1 and ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 1}
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 1}
     for a, b in zip(got, want):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
@@ -380,7 +381,7 @@ def test_k4_split_views_in_bf16_take_the_tensor_core_kernel(card, monkeypatch):
     qkv = torch.randn(bsz, seq, 3 * H * D, generator=card, device="cuda")
     mask = _tc_mask("mask", bsz, seq)
     sources = []
-    for name in ("_library", "_tensor_core_library", "_tf32x3_library"):
+    for name in ("_tensor_core_library", "_tf32x3_library"):
         real = getattr(ak, name)
         monkeypatch.setattr(ak, name, lambda *args, real=real, name=name: sources.append(name) or real(*args))
     ak.reset_launch_counts()
@@ -454,7 +455,7 @@ def test_gated_forward_dispatch_by_type(card, monkeypatch):
     gate = torch.rand(bsz, H, seq, generator=card, device="cuda") + 1
     mask = _tc_mask("mask", bsz, seq)
     sources = []
-    for name in ("_library", "_tensor_core_library", "_tf32x3_library"):
+    for name in ("_tensor_core_library", "_tf32x3_library"):
         real = getattr(ak, name)
         monkeypatch.setattr(ak, name, lambda *args, real=real, name=name: sources.append(name) or real(*args))
     with torch.no_grad():
@@ -648,7 +649,7 @@ def test_retrieval_similarity_on_the_card_matches_the_cpu(card, monkeypatch):
 
 # Head width 80 (Bird-MAE large and huge, 16 heads) in the bias-free kernels:
 # K5 and K4 forward, K6 backward, bf16 on the tensor cores (80-wide rows at a
-# padded shared-memory stride) and fp32 on the FMA body; T from one ragged
+# padded shared-memory stride) and fp32 on them in 3xTF32; T from one ragged
 # tile to Bird-MAE's 513.
 H80, D80 = 16, 80
 DH80_SEQS = [1, 31, 129, 513]
@@ -787,7 +788,7 @@ def test_fp32_forward_on_3xtf32_matches_twin(card, seq, bsz, masked, layout, gat
         else:
             got, want = ak.fused_qkv_attention(qkv, H, mask), ak.fused_qkv_reference(qkv, H, mask)
     torch.cuda.synchronize()
-    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 1, "fma": 0} and sum(ak.LAUNCHES.values()) == 1
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 1} and sum(ak.LAUNCHES.values()) == 1
     _close_fp32(got, want)
 
 
@@ -814,11 +815,11 @@ def test_fp32_forward_on_3xtf32_writes_the_twins_lse(card, seq, masked, gated):
     _close_fp32(out.detach(), want_out)
 
 
-@pytest.mark.parametrize("dh,body", [(64, "tf32x3"), (16, "tf32x3"), (128, "tf32x3"), (12, "fma"), (136, "fma")])
+@pytest.mark.parametrize("dh,body", [(64, "tf32x3"), (16, "tf32x3"), (128, "tf32x3"), (12, "tf32x3"), (136, "tf32x3")])
 def test_fp32_forward_body_by_width(card, dh, body):
-    """16-byte rows of a multiple of 8 up to 128 run the 3xTF32 forward;
-    narrow rows (dh 12) and column chunks (dh 136) the FMA body's forward;
-    every backward runs in 3xTF32; each against its twin."""
+    """Every fp32 forward runs in 3xTF32: 16-byte rows of a multiple of 8 up
+    to 128, narrow rows (dh 12) and column chunks (dh 136); every backward
+    too; each against its twin."""
     bsz, seq, heads = 2, 37, 3
     qkv = torch.randn(bsz, seq, 3 * heads * dh, generator=card, device="cuda")
     bias = torch.randn(heads, seq, seq, generator=card, device="cuda")
@@ -837,5 +838,51 @@ def test_fp32_forward_body_by_width(card, dh, body):
     (got,) = torch.autograd.grad(out, (leaf,), dout)
     torch.testing.assert_close(got, ak.fused_qkv_backward_reference(qkv, heads, None, dout), atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
-    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 0, "fma": 0, body: 3}
-    assert ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 1, "fma": 0}
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 0, body: 3}
+    assert ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 1}
+
+
+# The general route's fp32 forwards (narrow rows: a width or a stride that is
+# not a multiple of 8, or a base off 16 bytes; column chunks past 128, up to
+# three groups of four chunks at dh 1500), held as the 16-byte rows' above.
+GENERAL_FP32_WIDTHS = [1, 12, 20, 33, 100, 136, 150, 192, 320, 520, 1500]
+
+
+@pytest.mark.parametrize("dh", GENERAL_FP32_WIDTHS)
+@pytest.mark.parametrize("layout", ["split", "fused", "fused, a row stride of 3E + 1"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "bias_free"])
+def test_fp32_general_forward_and_lse_match_twin(card, dh, layout, gated):
+    """K1/K4 on split views and K2/K5 on ``[B, T, 3E]`` (16-byte or narrow
+    rows) at each width: the output against the twin (NaN exactly on the
+    all-padded item), and under grad the saved row log-sum-exp within 1e-5
+    of the twin's, −inf exactly on its padded rows; every call on the
+    3xTF32 forward."""
+    bsz, seq, heads = 3, 70 if dh < 1000 else 33, 2
+    store = torch.randn(bsz, seq, 3 * heads * dh + 1, generator=card, device="cuda")
+    qkv = store[..., 1:] if layout.endswith("3E + 1") else store[..., :-1].contiguous()
+    bias = torch.randn(heads, seq, seq, generator=card, device="cuda") if gated else None
+    gate = torch.rand(bsz, heads, seq, generator=card, device="cuda") + 1 if gated else None
+    mask = _fp32_mask(True, bsz, seq)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.view(bsz, seq, 3, heads, dh).unbind(2))
+    ak.reset_launch_counts()
+    with torch.no_grad():
+        if layout == "split":
+            got, want = (ak.gated_bias_attention(q, k, v, bias, gate, mask),
+                         ak.gated_bias_attention_reference(q, k, v, bias, gate, mask))
+        elif gated:
+            got, want = (ak.fused_qkv_gated_attention(qkv, heads, bias, gate, mask),
+                         ak.fused_qkv_gated_reference(qkv, heads, bias, gate, mask))
+        else:
+            got, want = ak.fused_qkv_attention(qkv, heads, mask), ak.fused_qkv_reference(qkv, heads, mask)
+    _close_fp32(got, want)
+    leaf = qkv.detach().requires_grad_()
+    out = (ak.fused_qkv_gated_attention(leaf, heads, bias, gate, mask) if gated
+           else ak.fused_qkv_attention(leaf, heads, mask))
+    lse = out.grad_fn.saved_tensors[-1]
+    want_out, want_lse, _ = ak._fused_qkv_forward_lse_reference(qkv, heads, mask, None, bias, gate)
+    torch.cuda.synchronize()
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 2}
+    _close_fp32(out.detach(), want_out)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite) and bool((lse[~finite] == float("-inf")).all())
+    assert float((lse[finite] - want_lse[finite]).abs().max()) <= 1e-5

@@ -86,11 +86,13 @@ def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32(a) @ tf32(b)
 
 
-def backward_from_lse(qkv, heads, dout, mask, matmul, pos_bias=None, gate=None, rebase=True, contract=None):
+def backward_from_lse(qkv, heads, dout, mask, matmul, pos_bias=None, gate=None, rebase=True, contract=None,
+                      residuals=None):
     """The 3xTF32 K3 (with ``pos_bias``) or K6 step by step, every product
     through ``matmul`` (S = Q·Kᵀ and dP = dO·Vᵀ, the products over the head
     width, through ``contract`` when given): P from the forward's row
-    log-sum-exp, Δ from its output; dK, dV and dbias from P / Σ P and
+    log-sum-exp, Δ from its output (``residuals``, ``(out [B, T, E], lse
+    [B, H, T])``; the plain fp32 twin's by default); dK, dV and dbias from P / Σ P and
     Δ' = Σ P·dP / Σ P, and dQ and dgate corrected to them (dQ with the keys'
     mean taken out of Σ_k dS·K) as the kernels take them (``rebase``; else
     every output from P and Δ as they are). Returns ``(dqkv, dbias, dgate)``
@@ -100,7 +102,7 @@ def backward_from_lse(qkv, heads, dout, mask, matmul, pos_bias=None, gate=None, 
     dim = three_e // 3
     d = dim // heads
     scale = d**-0.5
-    out, lse, _ = ak._fused_qkv_forward_lse_reference(qkv, heads, mask, scale, pos_bias, gate)
+    out, lse = residuals or ak._fused_qkv_forward_lse_reference(qkv, heads, mask, scale, pos_bias, gate)[:2]
 
     def heads_first(t):
         return t.reshape(bsz, seq, heads, d).permute(0, 2, 1, 3)
@@ -245,30 +247,41 @@ def test_rebased_p_keeps_the_key_gradients_summing_to_zero():
 
 
 @pytest.mark.parametrize("head_dim,narrow,takes", [
-    (8, False, True), (16, False, True), (64, False, True), (80, False, True), (120, False, True),
-    (128, False, True), (64, True, False), (12, False, False), (136, False, False), (256, False, False),
+    (8, False, "16-byte"), (16, False, "16-byte"), (64, False, "16-byte"), (80, False, "16-byte"),
+    (120, False, "16-byte"), (128, False, "16-byte"), (64, True, "narrow"), (12, False, "narrow"),
+    (136, False, "wide"), (256, False, "wide"),
 ])
 def test_tf32x3_rows_is_the_plan_of_the_fp32_backward(head_dim, narrow, takes):
-    """The fp32 forward runs on the 3xTF32 kernel at a multiple of 8 up to
-    128 on 16-byte rows, and on the FMA body otherwise (narrow rows, column
-    chunks past 128); the fp32 backward runs on the 3xTF32 kernels at every
-    width. One rule, ``kernel_body``, gives the forward's body and the
-    backward's: in bf16 the tensor cores at every width, both ways."""
-    assert ak.tf32x3_rows(head_dim, narrow) is takes
-    assert ak.kernel_body(torch.float32, head_dim, narrow) == ("tf32x3" if takes else "fma")
-    assert ak.kernel_body(torch.float32, head_dim, narrow, backward=True) == "tf32x3"
-    assert ak.kernel_body(torch.bfloat16, head_dim, narrow) == "bf16"
-    assert ak.kernel_body(torch.bfloat16, head_dim, narrow, backward=True) == "bf16"
+    """Every fp32 call, forward or backward, runs on the 3xTF32 kernels, and
+    the wrapper's plan says which: the column chunks past 128
+    (``width_plan``) take the wide kernels; one chunk on narrow rows (a
+    width or stride that is not a multiple of 8, ``_check_operands``) the
+    narrow rows' instance; else the 16-byte kernels. The plan reaches the
+    C entry points as :func:`_columns`' ``(head_dim, chunk_width, narrow)``.
+    One rule, ``kernel_body``, gives the body by type alone."""
+    stride = head_dim + 1 if narrow else head_dim
+    q = torch.zeros(1, 1, 4, stride)[..., :head_dim]
+    rows_narrow = ak._check_operands(q, q, q, {}, None, None, None)
+    plan = ak.width_plan(head_dim)
+    dim, chunk_width, narrow_arg = ak._columns(head_dim, rows_narrow)
+    assert (dim, chunk_width, narrow_arg) == (head_dim, plan.chunk_width, int(rows_narrow))
+    assert rows_narrow == (narrow or head_dim % 8 != 0)
+    got = "wide" if plan.chunks > 1 else "narrow" if rows_narrow else "16-byte"
+    assert got == takes
+    assert ak.kernel_body(torch.float32) == "tf32x3"
+    assert ak.kernel_body(torch.bfloat16) == "bf16"
 
 
-def forward_tf32x3(q, k, v, pos_bias, gate, mask, matmul, tile=32):
+def forward_tf32x3(q, k, v, pos_bias, gate, mask, matmul, tile=32, contract=None):
     """The 3xTF32 forward step by step on ``[B, H, T, D]`` q, k and v, every
-    product through ``matmul``: per key tile of ``tile`` keys S = Q·Kᵀ, the
+    product through ``matmul`` (S = Q·Kᵀ, the product over the head width,
+    through ``contract`` when given): per key tile of ``tile`` keys S = Q·Kᵀ, the
     logits in log2 units (S·scale·log2e + gate·log2e·bias, −inf at padded
     keys), the running row max (a shift of 0 while it is −inf), the row sum
     and O rescaled by exp2 of the max's move, O += P·V with P unnormalised;
     O over the row sum at the end. Returns ``(out, lse)``, the row
     log-sum-exp in natural units."""
+    contract = contract or matmul
     bsz, heads, seq, d = q.shape
     c = d**-0.5 * LOG2E
     mx = torch.full((bsz, heads, seq, 1), float("-inf"))
@@ -276,7 +289,7 @@ def forward_tf32x3(q, k, v, pos_bias, gate, mask, matmul, tile=32):
     acc = torch.zeros(bsz, heads, seq, d)
     for k0 in range(0, seq, tile):
         keys = slice(k0, min(seq, k0 + tile))
-        x = matmul(q, k[:, :, keys].transpose(-1, -2)) * c
+        x = contract(q, k[:, :, keys].transpose(-1, -2)) * c
         if pos_bias is not None:
             x = x + pos_bias[None, :, :, keys] * (gate[..., None] * LOG2E if gate is not None else LOG2E)
         if mask is not None:

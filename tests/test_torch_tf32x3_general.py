@@ -9,11 +9,13 @@ zero-filled, so they add 0 to every product. Past 128 the width is cut into
 column chunks (``attention_kernels.width_plan``): S = Q·Kᵀ and dP = dO·Vᵀ
 are summed over the chunks, each chunk zero-filled to the build's width, in
 chunk order, once per pair of tiles, and dQ, dK and dV cover the whole
-width. The forward of these rows is the FMA body, whose row log-sum-exp is
-taken in plain fp32 (``_fused_qkv_forward_lse_reference``, as
-``backward_from_lse`` reads it); the backward rebuilds P from it in 3xTF32
-and rebases it (P / Σ P, Δ' = Σ P·dP / Σ P), so that the key gradients
-still sum to 0 over the keys.
+width. Here the backward reads the row log-sum-exp of the plain fp32 twin
+(``_fused_qkv_forward_lse_reference``, as ``backward_from_lse`` reads it by
+default), an arithmetic other than its own; it rebuilds P from it in
+3xTF32 and rebases it (P / Σ P, Δ' = Σ P·dP / Σ P), so that the key
+gradients still sum to 0 over the keys, whatever arithmetic the LSE came
+from. (The route's own forward, on 3xTF32, and the backward from its LSE:
+``tests/test_torch_tf32x3_forward_general.py``.)
 
 Here that arithmetic is emulated in plain torch (``backward_from_lse`` of
 ``tests/test_torch_tf32x3.py`` with the chunked, zero-padded products) and
@@ -131,8 +133,8 @@ def _rel(got, want):
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_general_route_backward_matches_jax_and_one_pass_misses(rng, case):
     """The emulated 3xTF32 K3 / K6 of the general route (zero-padded narrow
-    columns, S and dP summed over column chunks in order, P from the FMA
-    forward's plain-fp32 log-sum-exp and rebased) against JAX at the twins'
+    columns, S and dP summed over column chunks in order, P from a
+    plain-fp32 log-sum-exp and rebased) against JAX at the twins'
     tolerance and the card's relative L2; one TF32 pass misses both."""
     dim, gating, masked = case
     qkv, cot, bias, gate, mask = _inputs(rng, *case)
@@ -154,8 +156,8 @@ def test_general_route_backward_matches_jax_and_one_pass_misses(rng, case):
 
 @pytest.mark.parametrize("dim", [20, 136])
 def test_rebasing_keeps_the_key_gradients_summing_to_zero_from_a_plain_lse(dim):
-    """The general route's forward is the FMA body, whose row log-sum-exp
-    is taken in plain fp32, not in the backward's 3xTF32 arithmetic. With
+    """A property of the backward: from a row log-sum-exp taken in plain
+    fp32, not in its own 3xTF32 arithmetic. With
     logits of a hundred or more P rebuilt from it sums over its row to
     1 + ε; the kernels' rebased P and Δ' keep Σ_k dK at fp32 autograd's
     level on narrow rows (dh 20) and on column chunks (dh 136), and dQ

@@ -3,8 +3,9 @@ above 128, against JAX.
 
 Every kernel of the port (K1-K6, gated or not) takes any head width D >= 1
 (``attention_kernels.width_plan``): up to 128 on the smallest build that
-holds it, past 128 in column chunks of a multiple of 8 (each block owns one
-chunk of the output and sums the logits over every chunk), and a D or a
+holds it, past 128 in column chunks of a multiple of 8 (a bf16 block owns
+one chunk of the output and sums the logits over every chunk; an fp32 block,
+on 3xTF32, sums them once for the output of up to four chunks), and a D or a
 stride that is not a multiple of 8 through narrow rows read and written
 element by element. On the CPU the wrappers take their plain twins, held
 here against JAX's Pallas kernels in interpret mode at D = 4, 12, 20, 33,
@@ -18,8 +19,8 @@ heads of 12 and a 2-block Bird-MAE at 2 heads of 256 with
 plan. The tolerances are those of the dh-80 tests.
 
 JAX is imported inside the CPU tests only, so the ``cuda`` tests at the end
-(each kernel at each width against its twin, and no width on a twin) also
-run on a machine without it:
+(each kernel at each width against its twin, every call on its type's body,
+and no width on a twin) also run on a machine without it:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_wide_heads.py
 """
@@ -340,7 +341,8 @@ def _close(got, want, dtype):
 
 def _every_kernel(card, dh, dtype, heads=3, bsz=3, seq=37):
     """K1, K2, K4, K5 forward and K3, K6 backward at one head width, a ragged
-    T, a padded item and a key mask, each against its twin; returns the
+    T, a padded item and a key mask, each against its twin and each on its
+    type's body (fp32: 3xTF32, forward and backward); returns the
     launches."""
     qkv = torch.randn(bsz, seq, 3 * heads * dh, generator=card, device="cuda").to(dtype)
     bias = torch.randn(heads, seq, seq, generator=card, device="cuda")
@@ -372,6 +374,9 @@ def _every_kernel(card, dh, dtype, heads=3, bsz=3, seq=37):
     (got,) = torch.autograd.grad(ak.fused_qkv_attention(leaf, heads, live), (leaf,), dout)
     _close(got, ak.fused_qkv_backward_reference(qkv, heads, live, dout), dtype)
     torch.cuda.synchronize()
+    body = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+    assert ak.FORWARD_BODIES == {"bf16": 0, "tf32x3": 0, body: 6}
+    assert ak.BACKWARD_BODIES == {"bf16": 0, "tf32x3": 0, body: 2}
     return dict(ak.LAUNCHES)
 
 
